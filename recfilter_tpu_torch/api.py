@@ -1,0 +1,187 @@
+"""Public API: the RecFilter builder (the subset the port runs).
+
+Declare dimensions, set the initialization, append causal/anticausal
+scans, tile, then run:
+
+    F[y, x] = image                      # F(x,y) = image(x,y)
+    F.add_filter(+x, coeff)
+    F.split(x, 128, y, 128)
+    module = F.as_func()                 # an nn.Module
+    out = F.realize(device="cuda")
+
+Routing follows the JAX package: a tiled float filter goes to the fused
+executor, whose trailing-2-D branch is :class:`.overlap2d.Fused2DPx`.
+What the port does not run yet raises ``NotImplementedError``. The device
+is always explicit: nothing moves to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import dimfuse, planner
+from .spec import BorderMode, Dim, DimAndCausality, FilterSpec, make_scan
+from .utils import timing
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when CUDA is asked for and absent."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "false")
+    return d
+
+
+class RecFilter:
+    """An n-D recursive filter under construction / ready to run."""
+
+    def __init__(self, name: str = "RecFilter"):
+        self._name = name
+        self._spec: Optional[FilterSpec] = None
+        self._image = None
+        self._plan = planner.Plan()
+        self._clamped_border = False
+        self._module: Optional[nn.Module] = None
+
+    @property
+    def name(self) -> str:
+        return self._name
+
+    @property
+    def spec(self) -> FilterSpec:
+        if self._spec is None:
+            raise RuntimeError(
+                f"Recursive filter {self._name} has no definition yet; "
+                "set one with F[x, y] = image")
+        return self._spec
+
+    @property
+    def plan(self) -> planner.Plan:
+        return self._plan
+
+    # ---------------------------------------------------------------- define
+    def __setitem__(self, dims, value):
+        """``F[y, x] = image`` — dims in array-axis order; ``value`` is an
+        array (numpy or torch) of the dims' extents, or a callable taking
+        one index grid per dim."""
+        if not isinstance(dims, tuple):
+            dims = (dims,)
+        self.define(dims, value)
+
+    def define(self, dims: Sequence[Dim], value):
+        if self._spec is not None and self._spec.scans:
+            raise RuntimeError(f"Recursive filter {self._name} already defined")
+        dims = tuple(dims)
+        if callable(value) and not hasattr(value, "shape"):
+            grids = np.meshgrid(*[np.arange(d.extent) for d in dims],
+                                indexing="ij")
+            value = value(*grids)
+        if isinstance(value, (tuple, list)):
+            raise NotImplementedError(
+                "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
+        expect = tuple(d.extent for d in dims)
+        if tuple(value.shape[: len(dims)]) != expect:
+            raise ValueError(
+                f"Initialization shape {tuple(value.shape)} does not match "
+                f"dim extents {expect} for filter {self._name}")
+        self._image = value
+        self._spec = FilterSpec(
+            name=self._name, dims=dims, scans=(),
+            border=BorderMode.CLAMP if self._clamped_border else BorderMode.ZERO,
+            dtype=str(value.dtype).replace("torch.", ""),
+            tile_widths=(0,) * len(dims),
+        )
+        self._module = None
+        return self
+
+    def set_clamped_image_border(self):
+        """Clamp out-of-range taps to the image edge. Must precede scans."""
+        if self._spec is not None and self._spec.scans:
+            raise RuntimeError(f"Recursive filter {self._name} already defined")
+        self._clamped_border = True
+        if self._spec is not None:
+            self._spec = dataclasses.replace(self._spec,
+                                             border=BorderMode.CLAMP)
+        self._module = None
+
+    def add_filter(self, x: Union[Dim, DimAndCausality], coeff):
+        """Append a scan ``v[x] = b0 v[x] + Σ a_j v[x∓(j+1)]``; ``x`` is
+        ``+dim``/``-dim`` or a bare Dim (causal)."""
+        if isinstance(x, Dim):
+            x = DimAndCausality(x, True)
+        self._spec = self.spec.with_scan(make_scan(self.spec, x, coeff))
+        self._module = None
+        return self
+
+    def split(self, *args):
+        """Tile dimensions: ``split(x, 128, y, 128)`` or ``split({x: 128})``.
+        Widths need not divide extents (zero borders pad)."""
+        spec = self.spec
+        tiles = list(spec.tile_widths or (0,) * spec.ndim)
+        if len(args) == 1 and isinstance(args[0], dict):
+            pairs = list(args[0].items())
+        else:
+            if len(args) % 2:
+                raise ValueError("split expects (dim, width) pairs")
+            pairs = list(zip(args[::2], args[1::2]))
+        for d, t in pairs:
+            tiles[spec.axis_of(d)] = int(t)
+        self._spec = spec.with_tiles(tuple(tiles))
+        self._module = None
+        return self
+
+    def set_plan(self, **kw):
+        """Set Plan fields (``backend=``, ``matmul_precision=``)."""
+        self._plan = self._plan.with_(**kw)
+        self._module = None
+        return self
+
+    # ------------------------------------------------------------- execution
+    def as_func(self) -> nn.Module:
+        """The filter as an ``nn.Module`` on the CPU (move it with
+        ``.to(device)``); it holds its host-built matrices as buffers."""
+        spec = self.spec
+        if not spec.tiled:
+            raise NotImplementedError(
+                "untiled filters run the JAX package's lax.scan executor, "
+                "not ported yet (ROADMAP Queue 1 item 15); call split()")
+        return dimfuse.fused_filter_module(spec, self._plan.matmul_precision)
+
+    def _input(self, input, device: torch.device) -> torch.Tensor:
+        x = self._image if input is None else input
+        if x is None:
+            raise RuntimeError(f"filter {self._name} has no bound image")
+        return torch.as_tensor(x).to(device)
+
+    def _func(self, device: torch.device) -> nn.Module:
+        if self._module is None:
+            self._module = self.as_func()
+        return self._module.to(device)
+
+    def realize(self, input=None, *, device) -> torch.Tensor:
+        """Run the filter on the bound (or given) image on ``device``."""
+        d = resolve_device(device)
+        with torch.no_grad():
+            return self._func(d)(self._input(input, d))
+
+    def profile(self, iterations: int = 1, *, device="cuda") -> float:
+        """Warm-up + ``iterations`` timed calls on a CUDA device (CUDA
+        events); prints and returns the total ms."""
+        d = resolve_device(device)
+        fn, x = self._func(d), self._input(None, d)
+        with torch.no_grad():
+            ms = timing.benchmark(fn, x, iterations=iterations)
+        pixels = int(np.prod([e.extent for e in self.spec.dims])) * iterations
+        print(f"{self._name}: {ms:.3f} ms for {iterations} iterations "
+              f"({timing.throughput(ms, pixels):.2f} MiP/s) on "
+              f"{torch.cuda.get_device_name(d)}")
+        return ms

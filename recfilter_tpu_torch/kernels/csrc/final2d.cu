@@ -1,0 +1,152 @@
+// final2d: passes 2+3 of the 3-touch 2-D executor — read the image once,
+// complete both dimensions, write the output once.
+//
+// Replaces recfilter_tpu/kernels/final2d.py::final2d_px (Pallas kernel
+// _final_px_kernel). Per 128 x 128 tile (block (p, a, b)), with v(i) the
+// tile's matrix variant (interior, first or last):
+//
+//   Z = Ba_v(a) * x_tile + Ra_v(a)[:, :8] * NA_t[p,a,:, tile cols]
+//   Y[s,o] = sum_t Z[s,t] * Bb_v(b)[o,t] + sum_k NB_t[p,a, b*8+k, s] * Rb_v(b)[o,k]
+//
+// Z lives only in shared memory: it never goes to device memory, which is
+// what makes the executor touch the image three times instead of five.
+//
+// What bounds it: two 128 x 136 x 128 products per tile are 2 x 136 MACs
+// per pixel (about 544 FLOP/px, about 9.1 GFLOP at 4096^2) against 12 B/px
+// of traffic, so on the H100's fp32 CUDA cores it is bound by arithmetic,
+// not by bandwidth. The design is a plain register-tiled SIMT GEMM: both
+// products run as C[m][n] = sum_kk A[kk][m] * B[kk][n] with the 8 carry
+// rows appended to the 128-deep contraction (kk < 136), A and B staged
+// whole in shared memory (2 x 68 KB), each of 256 threads holding an 8 x 8
+// block of C in registers and reading float4 fragments free of bank
+// conflicts. fp32 FMA throughout; no wgmma, TMA or TF32 yet.
+//
+// Operand layouts (host-prepared, transposed so every stage is a
+// contiguous copy):
+//   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      rows kk, columns s
+//   B2 (nvb, 136, 128) = [Bb^T ; Rb^T]      rows kk, columns o
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int T = 128;         // tile edge, Ta = Tb
+constexpr int SLOTS = 8;       // carry rows per slot
+constexpr int KX = T + SLOTS;  // contraction depth: 128 image rows + 8 carries
+constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
+constexpr int SMEM_BYTES = 2 * KX * T * sizeof(float);
+
+__device__ __forceinline__ int variant(int nv, int i, int n) {
+  if (nv == 1) return 0;
+  return i == 0 ? 1 : (i == n - 1 ? 2 : 0);
+}
+
+// Copy `rows` rows of 128 floats (source row stride `stride`) to shared.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int rows, long stride, int tid) {
+  for (int i = tid; i < rows * (T / 4); i += THREADS) {
+    const int r = i / (T / 4), c4 = i % (T / 4);
+    reinterpret_cast<float4*>(dst + r * T)[c4] =
+        reinterpret_cast<const float4*>(src + r * stride)[c4];
+  }
+}
+
+// C[m][n] = sum_{kk < KX} A[kk][m] * B[kk][n]. Thread (ty, tx) owns rows
+// {ty*4+i, 64+ty*4+i} and columns {tx*4+j, 64+tx*4+j}, i, j < 4.
+__device__ __forceinline__ void gemm_tile(const float* A, const float* B,
+                                          float c[8][8], int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < KX; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A + kk * T + ty * 4);
+    const float4 a1 = *reinterpret_cast<const float4*>(A + kk * T + 64 + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(B + kk * T + tx * 4);
+    const float4 b1 = *reinterpret_cast<const float4*>(B + kk * T + 64 + tx * 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+  }
+}
+
+__device__ __forceinline__ int row_of(int i, int ty) {
+  return (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
+               const float* __restrict__ NA,   // (p, na, 8, W)
+               const float* __restrict__ NB,   // (p, na, nb*8, T)
+               const float* __restrict__ A1,   // (nva, KX, T)
+               const float* __restrict__ B2,   // (nvb, KX, T)
+               float* __restrict__ y,          // (p, na, T, W)
+               int na, int nb, int nva, int nvb) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);  // KX x T
+  float* Bs = As + KX * T;                      // KX x T
+
+  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long W = (long)nb * T;
+  const long pa = (long)p * na + a;
+  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+
+  // dim-A completion: Z = [Ba^T; Ra^T]^T [x; NA]
+  stage_rows(As, A1 + (long)va * KX * T, KX, T, tid);
+  stage_rows(Bs, x + pa * T * W + (long)b * T, T, W, tid);
+  stage_rows(Bs + T * T, NA + pa * SLOTS * W + (long)b * T, SLOTS, W, tid);
+  __syncthreads();
+  float c[8][8];
+  gemm_tile(As, Bs, c, ty, tx);
+  __syncthreads();
+
+  // dim-B completion: Y = [Z^T; NB]^T [Bb^T; Rb^T]. Z goes to shared
+  // memory transposed (As[t][s] = Z[s][t]), never to device memory.
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = row_of(j, tx);
+    *reinterpret_cast<float4*>(As + t * T + ty * 4) =
+        make_float4(c[0][j], c[1][j], c[2][j], c[3][j]);
+    *reinterpret_cast<float4*>(As + t * T + 64 + ty * 4) =
+        make_float4(c[4][j], c[5][j], c[6][j], c[7][j]);
+  }
+  stage_rows(As + T * T, NB + (pa * nb + b) * SLOTS * T, SLOTS, T, tid);
+  stage_rows(Bs, B2 + (long)vb * KX * T, KX, T, tid);
+  __syncthreads();
+  gemm_tile(As, Bs, c, ty, tx);
+
+  float* yt = y + pa * T * W + (long)b * T;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* yr = yt + (long)row_of(i, ty) * W;
+    *reinterpret_cast<float4*>(yr + tx * 4) =
+        make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+    *reinterpret_cast<float4*>(yr + 64 + tx * 4) =
+        make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+  }
+}
+
+}  // namespace
+
+extern "C" int final2d_launch(const float* x, const float* NA,
+                              const float* NB, const float* A1,
+                              const float* B2, float* y, int p, int na,
+                              int nb, int nva, int nvb, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      final2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  final2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      x, NA, NB, A1, B2, y, na, nb, nva, nvb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* final2d_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

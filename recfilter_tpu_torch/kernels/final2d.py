@@ -1,0 +1,285 @@
+"""The two kernels of the 3-touch 2-D executor, with their plain twins.
+
+  * :class:`Moments2D` (pass 1): read tiles of x once, emit the dim-A local
+    tails ``G_A·x`` and the dim-B term ``Btot_A·(x·G_Bᵀ)`` (carry-sized).
+  * :class:`Final2D` (passes 2+3 fused): read the x tile once, form the
+    dim-A completion Z = Btot_A·x + Rhat_A·N_A on chip, and write
+    Y = Z·Btot_Bᵀ + N_B·Rhat_Bᵀ. Z never touches device memory.
+
+Each module holds its host-built matrices as buffers and has two paths:
+``forward`` launches the CUDA kernel (``csrc/*.cu``) for a CUDA tensor and
+runs the plain PyTorch twin for a CPU tensor; ``plain`` is the twin, the
+reference the kernel is held against. The CUDA path is a
+``torch.autograd.Function`` whose backward is the twin's VJP (both passes
+are linear). ``LAUNCHES`` counts kernel launches.
+
+Layouts are the JAX package's (``recfilter_tpu/kernels/final2d.py``):
+  x      (p, na, Ta, W), W = nb·Tb      bA_t / NA_t   (p, na, 8, W)
+  term1 / NB_t  (p, na, nb·8, Ta)
+with carries slot-padded to 8 rows and Ta = Tb = 128.
+
+Per-tile matrix variants (clamp edges, pad projector) differ only at the
+globally-first/last tiles, so the kernels take ≤ 3 distinct variants
+[interior, first, last] and pick one by tile position.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from .completion import _SLOTS, _expand_stack, _per_tile
+
+TILE = 128  # Ta = Tb: the kernels' tile edge
+
+LAUNCHES = {"moments2d": 0, "final2d": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _variants3(stack) -> np.ndarray:
+    """(n|1, r, c) per-tile stack → (1|3, r, c) distinct variants
+    [interior, first, last]. ``prepare_dim_pass``'s stacks are uniform
+    except at tiles 0 and n-1; stack[1] is interior whenever n > 2."""
+    M = np.asarray(stack, np.float64)
+    n = M.shape[0]
+    if n == 1:
+        return M
+    interior = M[1] if n > 2 else M[0]
+    return np.stack([interior, M[0], M[n - 1]])
+
+
+def _variants_like(A, B):
+    """Variant stacks of two operands one kernel selects with one index:
+    a uniform stack is repeated to the other's three variants."""
+    A, B = _variants3(A), _variants3(B)
+    nv = max(A.shape[0], B.shape[0])
+    return (np.broadcast_to(A, (nv,) + A.shape[1:]),
+            np.broadcast_to(B, (nv,) + B.shape[1:]))
+
+
+def _pad_slots(M, k_axis: int = 2) -> np.ndarray:
+    """Zero-pad a carry axis (size K ≤ 8) up to the 8-row slot."""
+    M = np.asarray(M, np.float64)
+    k = M.shape[k_axis]
+    if k == _SLOTS:
+        return M
+    pad = [(0, 0)] * M.ndim
+    pad[k_axis] = (0, _SLOTS - k)
+    return np.pad(M, pad)
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "moments2d": {
+        "moments2d_launch": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        "moments2d_error_string": ([_I], ctypes.c_char_p),
+    },
+    "final2d": {
+        "final2d_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "final2d_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+
+def _launch(name: str, args, device: torch.device) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raise on a
+    refused launch. Counts the launch."""
+    from . import _build
+
+    lib = _build.load(name, _SIGNATURES[name])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(*args, stream)
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, name: str, shape, device) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _linear_vjp(plain, shapes, device, grads):
+    """VJP of the linear map ``plain`` (independent of the primal point)."""
+    with torch.enable_grad():
+        zs = [torch.zeros(s, device=device, requires_grad=True)
+              for s in shapes]
+        outs = plain(*zs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return torch.autograd.grad(outs, zs, grads)
+
+
+class _KernelFn(torch.autograd.Function):
+    """CUDA forward through ``mod._kernel``; backward = twin's VJP."""
+
+    @staticmethod
+    def forward(ctx, mod, *inputs):
+        ctx.mod = mod
+        ctx.shapes = [i.shape for i in inputs]
+        ctx.device = inputs[0].device
+        return mod._kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_linear_vjp(ctx.mod.plain, ctx.shapes, ctx.device,
+                                   grads))
+
+
+class Moments2D(nn.Module):
+    """Pass 1: ``(bA_t, term1) = moments(x)`` for x (p, na, Ta, W).
+
+    G_a_cat : (na|1, Ka, Ta)   G_b_cat : (nb|1, Kb, Tb)
+    term1_mats : (na|1, Ta, Ta), the dim-A Btot folded into the dim-B term.
+    """
+
+    def __init__(self, G_a_cat, G_b_cat, term1_mats, na: int, nb: int):
+        super().__init__()
+        Ga, Gb = np.asarray(G_a_cat), np.asarray(G_b_cat)
+        self.na, self.nb = int(na), int(nb)
+        self.Ka, self.Kb = Ga.shape[1], Gb.shape[1]
+        if not (Ga.shape[2] == Gb.shape[2] == TILE):
+            raise ValueError(f"tiles must be {TILE} wide")
+        if self.Ka > _SLOTS or self.Kb > _SLOTS:
+            raise ValueError(f"carries Ka={self.Ka}, Kb={self.Kb} exceed "
+                             f"the {_SLOTS}-row slot")
+        Ga8, Gb8 = _pad_slots(Ga, 1), _pad_slots(Gb, 1)
+        # kernel operands: distinct variants; Btot_a transposed to [s][o]
+        Ga_v, Ba1_v = _variants_like(Ga8, term1_mats)
+        self.register_buffer("Ga_v", _f32(Ga_v))
+        self.register_buffer("Gb_v", _f32(_variants3(Gb8)))
+        self.register_buffer("Ba1T_v", _f32(Ba1_v.transpose(0, 2, 1)))
+        # twin operands: per-tile float64 stacks (the twin, like the
+        # kernel, sums in fp64 — see csrc/moments2d.cu)
+        self.register_buffer("Gan", torch.from_numpy(_per_tile(Ga8, na)))
+        self.register_buffer("Gbn", torch.from_numpy(_per_tile(Gb8, nb)))
+        self.register_buffer("Ba1n",
+                             torch.from_numpy(_per_tile(term1_mats, na)))
+
+    def plain(self, x):
+        p, na, Ta, W = x.shape
+        xd = x.double()
+        bA = torch.einsum("aks,pasw->pakw", self.Gan, xd)
+        U = torch.einsum("bkt,pasbt->pabks", self.Gbn,
+                         xd.reshape(p, na, Ta, self.nb, W // self.nb))
+        term1 = torch.einsum("aos,pabks->pabko", self.Ba1n, U)
+        return (bA.float(),
+                term1.reshape(p, na, self.nb * _SLOTS, Ta).float())
+
+    def _kernel(self, x):
+        p, na, nb = x.shape[0], self.na, self.nb
+        _check(x, "x", (p, na, TILE, nb * TILE), x.device)
+        for name in ("Ga_v", "Gb_v", "Ba1T_v"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, x.device)
+        if not 0 < p < 65536:
+            raise ValueError(f"leading extent {p} outside the launch grid")
+        bA = torch.empty((p, na, _SLOTS, nb * TILE), device=x.device)
+        term1 = torch.empty((p, na, nb * _SLOTS, TILE), device=x.device)
+        _launch("moments2d", (
+            x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
+            self.Ba1T_v.data_ptr(), bA.data_ptr(), term1.data_ptr(),
+            p, na, nb, self.Ka, self.Kb, self.Ga_v.shape[0],
+            self.Gb_v.shape[0]), x.device)
+        return bA, term1
+
+    def forward(self, x):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x)
+        return self.plain(x)
+
+
+class Final2D(nn.Module):
+    """Passes 2+3: ``Y = final(x, NA_t, NB_t)``.
+
+    Btot_a : (na|1, Ta, Ta);  Rhat_a_cat : (na|1, Ta, Ka)
+    Btot_b : (nb|1, Tb, Tb);  Rhat_b_cat : (nb|1, Tb, Kb)
+    """
+
+    def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
+                 nb: int):
+        super().__init__()
+        self.na, self.nb = int(na), int(nb)
+        Ra8, Rb8 = _pad_slots(Rhat_a_cat), _pad_slots(Rhat_b_cat)
+        if not (np.shape(Btot_a)[1] == np.shape(Btot_b)[1] == TILE):
+            raise ValueError(f"tiles must be {TILE} wide")
+        if Ra8.shape[2] != _SLOTS or Rb8.shape[2] != _SLOTS:
+            raise ValueError(f"carries exceed the {_SLOTS}-row slot")
+
+        def cat_t(B, R):  # (v, T, T), (v, T, 8) -> [Bᵀ; Rᵀ] (v, T+8, T)
+            B, R = _variants_like(B, R)
+            return np.concatenate([B.transpose(0, 2, 1),
+                                   R.transpose(0, 2, 1)], axis=1)
+
+        self.register_buffer("A1_v", _f32(cat_t(Btot_a, Ra8)))
+        self.register_buffer("B2_v", _f32(cat_t(Btot_b, Rb8)))
+        self.register_buffer("Ban", _f32(_expand_stack(Btot_a, na)))
+        self.register_buffer("Ran", _f32(_expand_stack(Ra8, na)))
+        self.register_buffer("Bbn", _f32(_expand_stack(Btot_b, nb)))
+        self.register_buffer("Rbn", _f32(_expand_stack(Rb8, nb)))
+
+    def plain(self, x, NA_t, NB_t):
+        p, na, Ta, W = x.shape
+        nb = self.nb
+        z = (torch.einsum("aos,pasw->paow", self.Ban, x)
+             + torch.einsum("aok,pakw->paow", self.Ran, NA_t))
+        y = (torch.einsum("bot,pasbt->pasbo", self.Bbn,
+                          z.reshape(p, na, Ta, nb, W // nb))
+             + torch.einsum("bok,pabks->pasbo", self.Rbn,
+                            NB_t.reshape(p, na, nb, _SLOTS, Ta)))
+        return y.reshape(p, na, Ta, W)
+
+    def _kernel(self, x, NA_t, NB_t):
+        p, na, nb = x.shape[0], self.na, self.nb
+        W = nb * TILE
+        _check(x, "x", (p, na, TILE, W), x.device)
+        _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
+        _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
+        for name in ("A1_v", "B2_v"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, x.device)
+        if not 0 < p < 65536:
+            raise ValueError(f"leading extent {p} outside the launch grid")
+        y = torch.empty_like(x)
+        _launch("final2d", (
+            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
+            self.A1_v.data_ptr(), self.B2_v.data_ptr(), y.data_ptr(),
+            p, na, nb, self.A1_v.shape[0], self.B2_v.shape[0]), x.device)
+        return y
+
+    def forward(self, x, NA_t, NB_t):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, NA_t, NB_t)
+        return self.plain(x, NA_t, NB_t)
+
+
+def moments2d(x, G_a_cat, G_b_cat, term1_mats):
+    """Functional pass 1: ``(bA_t, term1)`` for x (p, na, Ta, W)."""
+    na, nb = x.shape[1], x.shape[3] // TILE
+    return Moments2D(G_a_cat, G_b_cat, term1_mats, na, nb).to(x.device)(x)
+
+
+def final2d(x, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, NA_t, NB_t):
+    """Functional passes 2+3: Y (p, na, Ta, W)."""
+    na, nb = x.shape[1], x.shape[3] // TILE
+    mod = Final2D(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na, nb)
+    return mod.to(x.device)(x, NA_t, NB_t)

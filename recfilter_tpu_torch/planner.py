@@ -1,0 +1,69 @@
+"""Execution plan: the executor backend and the matmul precision grade.
+
+The port runs one executor, the 3-touch 2-D path (``overlap2d``), whose
+image-sized products are the fp32 CUDA kernels of ``kernels/final2d.py``.
+The JAX package's precision names are kept: ``px6`` (its default) and
+``highest`` both mean true-f32 products, which the fp32 kernels give on
+Hopper without the TPU's bf16 chunk splitting. Every other grade raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+_SUPPORTED_PRECISIONS = ("px6", "highest")
+
+# Grades the JAX package has and the port does not yet: each names the
+# ROADMAP item that brings it.
+_UNPORTED_PRECISIONS = {
+    "px3": "Queue 1 item 4 (px3/px4 precision modes)",
+    "px4": "Queue 1 item 4 (px3/px4 precision modes)",
+    "default": "Queue 1 item 4 (the 'default' TF32 throughput mode)",
+    "high": "Queue 1 item 4 (the 'high' precision mode)",
+    "f32x3": "Queue 1 item 4 (the f32x* split-einsum modes)",
+    "f32x4": "Queue 1 item 4 (the f32x* split-einsum modes)",
+    "f32x6": "Queue 1 item 4 (the f32x* split-einsum modes)",
+    "f32x9": "Queue 1 item 11 (integer-exact f32x9 limbs)",
+}
+
+_BACKENDS = ("auto", "einsum")
+
+
+def check_precision(matmul_precision: str) -> None:
+    """Raise unless the port runs ``matmul_precision``."""
+    if matmul_precision in _SUPPORTED_PRECISIONS:
+        return
+    if matmul_precision in _UNPORTED_PRECISIONS:
+        raise NotImplementedError(
+            f"matmul_precision={matmul_precision!r} is not ported yet: "
+            f"ROADMAP {_UNPORTED_PRECISIONS[matmul_precision]}")
+    raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Static execution plan for a filter.
+
+    ``backend``: "auto" or "einsum" — both name the fused 2-D executor
+    (the JAX package's name for its fused per-dimension route).
+    ``matmul_precision``: "px6" (default) or "highest"."""
+
+    backend: str = "auto"
+    matmul_precision: str = "px6"
+
+    def __post_init__(self):
+        if self.backend not in _BACKENDS:
+            raise NotImplementedError(
+                f"backend={self.backend!r} is not ported yet: ROADMAP "
+                "Queue 1 item 15 (remaining backends)")
+        check_precision(self.matmul_precision)
+
+    def with_(self, **kw) -> "Plan":
+        return dataclasses.replace(self, **kw)
+
+
+def default_tile_width(extent: int, platform: str) -> int:
+    """Auto tile width: 128 on the TPU and on CUDA (the kernels' tile is
+    128 × 128), the reference's 32 elsewhere."""
+    t = 128 if platform in ("tpu", "cuda") else 32
+    return max(min(t, extent), 1)

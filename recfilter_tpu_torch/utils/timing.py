@@ -1,0 +1,71 @@
+"""Device timing with CUDA events, and throughput helpers.
+
+Every time here is taken on a CUDA device: a call given CPU tensors raises
+rather than timing the host.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+
+def throughput(runtime_ms: float, pixels: int) -> float:
+    """MiP/s = pixels·1000 / (runtime_ms · 2^20)."""
+    if runtime_ms <= 0.0:
+        return float("inf")
+    return (float(pixels) * 1000.0) / (runtime_ms * float(2**20))
+
+
+def mpix_per_sec(runtime_ms: float, pixels: int) -> float:
+    """Decimal Mpix/s (10^6 pixels per second)."""
+    if runtime_ms <= 0.0:
+        return float("inf")
+    return (float(pixels) * 1000.0) / (runtime_ms * 1e6)
+
+
+def _cuda_device(args) -> torch.device:
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(
+            f"CUDA-event timing needs tensors on one CUDA device, got {devs}")
+    return next(iter(devs))
+
+
+def call_times_ms(fn: Callable, *args, iterations: int = 20,
+                  warmup: int = 3) -> List[float]:
+    """Per-call device times: each of ``iterations`` calls is bracketed by
+    its own pair of CUDA events on the current stream."""
+    dev = _cuda_device(args)
+    for _ in range(warmup):
+        fn(*args)
+    pairs = []
+    with torch.cuda.device(dev):
+        for _ in range(iterations):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize(dev)
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def benchmark(fn: Callable, *args, iterations: int = 10,
+              warmup: int = 1) -> float:
+    """Total ms of ``iterations`` back-to-back calls between two CUDA
+    events, after ``warmup`` calls."""
+    dev = _cuda_device(args)
+    for _ in range(warmup):
+        fn(*args)
+    with torch.cuda.device(dev):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iterations):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize(dev)
+    return start.elapsed_time(end)

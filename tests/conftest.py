@@ -40,6 +40,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: runs on the real TPU chip (RECFILTER_TEST_TPU=1)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips inside the test without one)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,197 @@
+"""The port's public API: the headline filter through ``RecFilter``, what
+it refuses, and that the package never imports jax.
+
+The headline filter is ``bench.py::_build_filter``: a 3rd-order Gaussian
+(σ=5), causal and anticausal on x and y, 128-wide tiles, zero border,
+float32, precision px6 — here at 256² so it runs in a second on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import recfilter_tpu as jrf
+from recfilter_tpu import scan_core as jsc
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _build(rf, h, w, image, clamp=False, tile=128, precision=None):
+    """``bench.py::_build_filter`` written once against either package."""
+    wts = rf.gaussian_weights(5.0, 3)
+    x, y = rf.Dim("x", w), rf.Dim("y", h)
+    F = rf.RecFilter("GaussianIIR")
+    if clamp:
+        F.set_clamped_image_border()
+    F[y, x] = image
+    for d in (+x, -x, +y, -y):
+        F.add_filter(d, wts)
+    F.split(x, tile, y, tile)
+    if precision:
+        F.set_plan(matmul_precision=precision)
+    return F
+
+
+def _img(h, w, seed=0):
+    return (np.random.default_rng(seed).standard_normal((h, w)) * 0.01
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_headline_filter_matches_jax_and_oracle(clamp):
+    img = _img(256, 256)
+    Ft = _build(rft, 256, 256, img, clamp)
+    Fj = _build(jrf, 256, 256, img, clamp)
+    got = Ft.realize(device="cpu")
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    got = got.numpy()
+    oracle = jsc.oracle_apply(Fj.spec, img.astype(np.float64))
+    peak = np.abs(oracle).max()
+    # the px6 bound (tests/test_dimfuse.py) against the f64 oracle
+    assert np.abs(got - oracle).max() <= 2e-6 * peak
+    # the JAX px6 path itself sits ~4e-6·peak from the oracle on this
+    # σ=5 filter, so the two packages agree to 1e-5·peak
+    want = np.asarray(Fj.realize(jnp.asarray(img)))
+    assert np.abs(got - want).max() <= 1e-5 * peak
+
+
+def test_as_func_is_a_module_with_buffers():
+    img = _img(256, 256, seed=1)
+    F = _build(rft, 256, 256, img, precision="highest")
+    mod = F.as_func()
+    assert isinstance(mod, torch.nn.Module)
+    names = {n for n, _ in mod.named_buffers()}
+    assert {"CMa_p", "CMb_p", "moments.Ga_v", "final.A1_v"} <= names
+    y = mod(torch.from_numpy(img))
+    np.testing.assert_array_equal(
+        y.detach().numpy(), F.realize(device="cpu").numpy())
+
+
+def test_split_width_does_not_change_the_result():
+    """As in the JAX package's 2-D px executor, the kernels' 128 × 128 tile
+    replaces the split widths: tiling is never part of the result."""
+    img = _img(256, 256, seed=2)
+    y64 = _build(rft, 256, 256, img, tile=64).realize(device="cpu")
+    y128 = _build(rft, 256, 256, img).realize(device="cpu")
+    assert torch.equal(y64, y128)
+
+
+def _spec(dims, scans, **kw):
+    return rft.FilterSpec("S", tuple(rft.Dim(n, e) for n, e in dims),
+                          tuple(scans), **kw)
+
+
+_G = (0.1, (0.5, 0.3, 0.1))
+UNSUPPORTED = {
+    "one-dim": _spec([("x", 512)], [rft.Scan(0, True, *_G)],
+                     tile_widths=(128,)),
+    "volume": _spec([("z", 128), ("y", 128), ("x", 128)],
+                    [rft.Scan(i, True, *_G) for i in range(3)],
+                    tile_widths=(128, 128, 128)),
+    "leading-axes": _spec([("y", 128), ("x", 128), ("c", 3)],
+                          [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
+                          tile_widths=(128, 128, 0)),
+    "float64": _spec([("y", 128), ("x", 128)],
+                     [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
+                     dtype="float64", tile_widths=(128, 128)),
+    "int32": _spec([("y", 128), ("x", 128)],
+                   [rft.Scan(0, True, 1.0, (1.0,)),
+                    rft.Scan(1, True, 1.0, (1.0,))],
+                   dtype="int32", tile_widths=(128, 128)),
+    "clamp-non-dividing": _spec(
+        [("y", 200), ("x", 256)],
+        [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
+        border="clamp", tile_widths=(128, 128)),
+    "too-many-tiles": _spec(
+        [("y", 128), ("x", 257 * 128)],
+        [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
+        tile_widths=(128, 128)),
+    "carries-over-8": _spec(
+        [("y", 128), ("x", 256)],
+        [rft.Scan(0, True, *_G)] + [rft.Scan(1, c, *_G)
+                                    for c in (True, False, True)],
+        tile_widths=(128, 128)),
+    "small-extent": _spec([("y", 64), ("x", 256)],
+                          [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
+                          tile_widths=(128, 128)),
+}
+
+
+@pytest.mark.parametrize("case", list(UNSUPPORTED))
+def test_unsupported_filters_raise(case):
+    with pytest.raises(NotImplementedError):
+        tdf.fused_filter_module(UNSUPPORTED[case])
+
+
+@pytest.mark.parametrize("precision", ["px3", "px4", "default", "f32x6",
+                                       "high"])
+def test_unported_precisions_raise(precision):
+    F = _build(rft, 256, 256, _img(256, 256))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        F.set_plan(matmul_precision=precision)
+    with pytest.raises(NotImplementedError):
+        rft.apply_filter_fused(F.spec, torch.zeros(256, 256), precision)
+
+
+def test_untiled_and_other_backends_raise():
+    F = rft.RecFilter("U")
+    x = rft.Dim("x", 256)
+    y = rft.Dim("y", 256)
+    F[y, x] = _img(256, 256)
+    F.add_filter(+x, [0.5, 0.5])
+    F.add_filter(+y, [0.5, 0.5])
+    with pytest.raises(NotImplementedError):
+        F.as_func()
+    with pytest.raises(NotImplementedError):
+        F.set_plan(backend="scan")
+
+
+def test_cuda_request_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal applies without it")
+    F = _build(rft, 256, 256, _img(256, 256))
+    with pytest.raises(RuntimeError, match="cuda"):
+        F.realize(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        F.profile(device="cuda")
+
+
+def test_port_never_imports_jax():
+    """With jax made unimportable, the port imports and runs the 256²
+    headline filter on the CPU within the px6 bound."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import recfilter_tpu_torch as rft
+        h = w = 256
+        img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+               ).astype(np.float32)
+        x, y = rft.Dim("x", w), rft.Dim("y", h)
+        F = rft.RecFilter("GaussianIIR")
+        F[y, x] = img
+        for d in (+x, -x, +y, -y):
+            F.add_filter(d, rft.gaussian_weights(5.0, 3))
+        F.split(x, 128, y, 128)
+        got = F.realize(device="cpu").numpy()
+        want = rft.oracle_apply(F.spec, img.astype(np.float64))
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
+                       or m == "recfilter_tpu" for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("port-ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "port-ok" in out.stdout

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels on a card: against their plain twins, through
+the public API, and the wrappers' refusals.
+
+Every test here is marked ``cuda`` and skips (inside the test) on a machine
+without a CUDA device. The file imports neither jax nor the JAX package, so
+it also runs on a card machine that has no jax — there ``tests/conftest.py``
+(which imports jax) is left out:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.spec import Scan
+
+P, NA, NB, T = 2, 3, 4, 128
+STACKS = {"uniform": (False, 0, 0), "clamp": (True, 0, 0),
+          "pad": (False, 40, 72)}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _modules(kind, dev):
+    clamp, pad_a, pad_b = STACKS[kind]
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [Scan(0, True, w3[0], tuple(w3[1:])),
+         Scan(0, False, w3[0], tuple(w3[1:]))]
+    b = [Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
+         Scan(1, False, 1.1, (0.5, 0.2))]
+    ma = tdf.prepare_dim_pass(a, T, NA, clamp, pad_slots=pad_a)
+    mb = tdf.prepare_dim_pass(b, T, NB, clamp, pad_slots=pad_b)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    mom = tk2d.Moments2D(cat(ma.G, 1), cat(mb.G, 1), ma.Btot, NA, NB)
+    fin = tk2d.Final2D(ma.Btot, cat(ma.Rhat, 2), mb.Btot, cat(mb.Rhat, 2),
+                       NA, NB)
+    return mom.to(dev), fin.to(dev)
+
+
+def _inputs(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(P, NA, T, NB * T), (P, NA, 8, NB * T), (P, NA, NB * 8, T)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev) for s in shapes]
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+def test_kernels_match_twins(kind, dev):
+    """max|kernel − twin| ≤ 1e-5·max|twin| (fp32 sums in another order)."""
+    mom, fin = _modules(kind, dev)
+    x, NA_t, NB_t = _inputs(dev)
+    tk2d.reset_launches()
+    outs = mom(x)
+    y = fin(x, NA_t, NB_t)
+    torch.cuda.synchronize()
+    assert tk2d.LAUNCHES == {"moments2d": 1, "final2d": 1}
+    for got, want in zip(outs, mom.plain(x)):
+        assert _rel(got, want) <= 1e-5
+    assert _rel(y, fin.plain(x, NA_t, NB_t)) <= 1e-5
+    bA, term1 = outs
+    assert not bA[:, :, 6:].any()  # Ka = 6: pad slots written as zeros
+    assert not term1.reshape(P, NA, NB, 8, T)[:, :, :, 5:].any()  # Kb = 5
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    mom, fin = _modules("uniform", dev)
+    x, NA_t, NB_t = _inputs(dev)
+    with pytest.raises(TypeError):
+        mom(x.double())
+    with pytest.raises(ValueError):
+        mom(x[:, :, :, :-T])
+    with pytest.raises(ValueError):
+        mom(x.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError):
+        fin(x, NA_t[:, :, :4], NB_t)
+    with pytest.raises(ValueError):
+        fin(x, NA_t.cpu(), NB_t)
+
+
+def test_headline_filter_on_the_card(dev):
+    """``bench.py::_build_filter`` at 512² through ``realize`` on the
+    card, within the px6 bound 2e-6 of the f64 oracle."""
+    h = w = 512
+    img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+           ).astype(np.float32)
+    x, y = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("GaussianIIR")
+    F[y, x] = img
+    for d in (+x, -x, +y, -y):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split(x, 128, y, 128)
+    got = F.realize(device=dev)
+    assert got.device.type == "cuda"
+    want = rft.oracle_apply(F.spec, img.astype(np.float64))
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2e-6
