@@ -1,10 +1,16 @@
 """recfilter_tpu_torch — the PyTorch + CUDA port of recfilter_tpu.
 
-The first slice: 2-D recursive filters that scan the trailing two axes in
-float32 (zero or clamp border, any extents ≥ 128 with zero border), run by
-the 3-touch executor on two hand-written CUDA kernels for Hopper (sm_90a),
-with plain PyTorch twins on the CPU. The JAX package ``recfilter_tpu`` is
-the reference; this package imports neither it nor jax.
+Two slices run, in float32 (zero or clamp border), each on hand-written
+CUDA kernels for Hopper (sm_90a) with plain PyTorch twins on the CPU:
+
+  * 2-D filters that scan the trailing two axes (any extents ≥ 128 with
+    zero border): the 3-touch executor on ``moments2d``/``final2d``;
+  * filters whose scans all lie on the last axis — 1-D signals up to
+    audio scale (10M samples), channels on leading axes: the last-axis
+    executor on ``tails``/``completion``.
+
+The JAX package ``recfilter_tpu`` is the reference; this package imports
+neither it nor jax.
 
     import recfilter_tpu_torch as rft
 
@@ -16,10 +22,14 @@ the reference; this package imports neither it nor jax.
         F.add_filter(d, w)
     F.split(x, 128, y, 128)
     out = F.realize(device="cuda")
+
+    from recfilter_tpu_torch.apps import audio_filter_high_order
+    A = audio_filter_high_order(10_000_000, order=29, tile_width=1000)
+    y = A.realize(signal, device="cuda")
 """
 
 from .api import RecFilter
-from .dimfuse import apply_filter_fused
+from .dimfuse import FusedLastAxis, apply_filter_fused
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
 from .overlap2d import Fused2DPx, fused_2d_px
@@ -34,8 +44,8 @@ __all__ = [
     "BorderMode", "make_scan", "spec_to_json", "spec_from_json",
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",
-    "apply_filter_fused", "Fused2DPx", "fused_2d_px", "CheckResult",
-    "CheckResultVerbose", "generate_random_image",
+    "apply_filter_fused", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
+    "CheckResult", "CheckResultVerbose", "generate_random_image",
 ]
 
 __version__ = "0.1.0"

@@ -10,9 +10,11 @@ scans, tile, then run:
     out = F.realize(device="cuda")
 
 Routing follows the JAX package: a tiled float filter goes to the fused
-executor, whose trailing-2-D branch is :class:`.overlap2d.Fused2DPx`.
-What the port does not run yet raises ``NotImplementedError``. The device
-is always explicit: nothing moves to the CPU on its own.
+executor — :class:`.overlap2d.Fused2DPx` for the trailing two axes,
+:class:`.dimfuse.FusedLastAxis` for last-axis filters (1-D signals such as
+``F[x] = signal``, channels on leading axes). What the port does not run
+yet raises ``NotImplementedError``. The device is always explicit: nothing
+moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -175,13 +177,16 @@ class RecFilter:
 
     def profile(self, iterations: int = 1, *, device="cuda") -> float:
         """Warm-up + ``iterations`` timed calls on a CUDA device (CUDA
-        events); prints and returns the total ms."""
+        events); prints and returns the total ms. The rate is MiP/s for
+        images and Msamples/s (10^6 samples per second) for 1-D signals."""
         d = resolve_device(device)
         fn, x = self._func(d), self._input(None, d)
         with torch.no_grad():
             ms = timing.benchmark(fn, x, iterations=iterations)
         pixels = int(np.prod([e.extent for e in self.spec.dims])) * iterations
+        rate = (f"{timing.mpix_per_sec(ms, pixels):.2f} Msamples/s"
+                if self.spec.ndim == 1
+                else f"{timing.throughput(ms, pixels):.2f} MiP/s")
         print(f"{self._name}: {ms:.3f} ms for {iterations} iterations "
-              f"({timing.throughput(ms, pixels):.2f} MiP/s) on "
-              f"{torch.cuda.get_device_name(d)}")
+              f"({rate}) on {torch.cuda.get_device_name(d)}")
         return ms

@@ -16,9 +16,22 @@ and Nⁱ = CM_i · stack(bⁱ) solves each scan's cross-tile recurrence with one
 precomputed block-Toeplitz matmul. Clamped borders change the matrices of
 the globally-first/last tile only; those tiles get per-tile variants.
 
-The device side of the port is the 2-D executor in :mod:`.overlap2d`;
-:func:`apply_filter_fused` admits the filters it runs and raises
-``NotImplementedError`` for every other one.
+The port runs two executors, chosen by :func:`fused_filter_module`:
+
+  * filters that scan exactly the two trailing axes: the 3-touch 2-D
+    executor :class:`.overlap2d.Fused2DPx`;
+  * filters whose scans all lie on the last axis (1-D signals, channels
+    on leading axes): :class:`FusedLastAxis`, this module's port of the
+    JAX package's ``fused_dim_pass`` — the supertile hierarchy
+    (:class:`HierarchicalPass`) for audio-scale tile counts, else one
+    tiled pass (:class:`LastAxisPass`) on the ``tails``/``completion``
+    kernels where their gates hold, else its einsum form.
+
+Every other filter raises ``NotImplementedError`` naming its ROADMAP item.
+The device side's carry glue (solves, chains, corrections) runs in float64
+torch: the carries amplify rounding, and fp32 glue misses the px6 bound
+(see :mod:`.overlap2d`). Signal-sized products run in float32, tails sums
+in float64.
 """
 
 from __future__ import annotations
@@ -27,12 +40,18 @@ import dataclasses
 from typing import List, Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
 
 from . import coeffs
-from .spec import FilterSpec, Scan
+from .kernels import completion as kc
+from .kernels.completion import _f64
+from .parallel import sharding as sh
+from .spec import BorderMode, FilterSpec, Scan
 
-# Above this tile count the JAX package replaces the quadratic chain matmul
-# by an associative scan; the port has only the matmul.
+# Above this tile count the quadratic chain matmul is replaced by the
+# supertile hierarchy or, failing its gates, an associative scan.
 _CHAIN_MATMUL_MAX_TILES = 256
 
 
@@ -250,13 +269,533 @@ def prepare_dim_pass(
 
 
 # ---------------------------------------------------------------------------
+# Tile plans and carry solves (host builders, numpy)
+# ---------------------------------------------------------------------------
+
+
+def _plan_tiles(w: int, tile_width: int, kmax: int, clamp: bool):
+    """Resolve (T, n, pad) for one dimension, or None when the blocked
+    algebra cannot apply (order exceeds any legal tile; clamp with no exact
+    divisor)."""
+    T = int(min(max(tile_width, kmax), w))
+    n = -(-w // T)
+    pad = n * T - w
+    # Zero padding at the end is exact for ZERO borders in both directions.
+    # For CLAMP the globally-last tile's matrices assume the edge sits at
+    # the tile's end, so clamp requires T | w; fall back to a divisor.
+    if clamp and pad:
+        for cand in range(T, kmax - 1, -1):
+            if w % cand == 0:
+                T, n, pad = cand, w // cand, 0
+                break
+    if T < kmax or (clamp and pad):
+        return None
+    return T, n, pad
+
+
+def banded_solve_blocks(CMfull: np.ndarray, n: int, S: int,
+                        tol: float = 1e-9, max_band: int = 16):
+    """Block-banded form of the combined solve matrix, or None.
+
+    Tile-to-tile carry influence decays like |pole|^T per tile, so for
+    stable (non-integrator) filters the (n·S)² chain matrix is effectively
+    block-banded. Returns [(offset d, blocks (n, S, S))] where block t maps
+    tile t-d's raw tails into tile t's carries; offsets whose largest block
+    falls below ``tol``·max are dropped (≤ f32 noise). Below 64 tiles, and
+    for integrators (poles on the unit circle, whose band is as wide as n),
+    returns None and the caller keeps the dense matmul — the JAX package's
+    rule, measured on its TPU.
+    """
+    CM = np.asarray(CMfull).reshape(n, S, n, S)
+    norms = np.abs(CM).max(axis=(1, 3))  # (n_to, n_from)
+    scale = float(norms.max())
+    if scale == 0.0:
+        return [(0, np.zeros((n, S, S)))]
+    offsets = []
+    for d in range(-(n - 1), n):
+        diag = [norms[t, t - d] for t in range(max(0, d), min(n, n + d))]
+        if diag and max(diag) > tol * scale:
+            offsets.append(d)
+    if n < 64 or len(offsets) > min(max_band, n // 4):
+        return None
+    out = []
+    for d in offsets:
+        blocks = np.zeros((n, S, S))
+        for t in range(n):
+            i = t - d
+            if 0 <= i < n:
+                blocks[t] = CM[t, :, i, :]
+        out.append((d, blocks))
+    return out
+
+
+def _ks_powers(feedback, seg: int, D: int) -> np.ndarray:
+    """W^(2^i) for the Kogge–Stone steps over D segments (W: the transfer
+    of a carry across one segment of ``seg`` samples)."""
+    W = np.asarray(coeffs.tail_weight_matrix(feedback, seg), np.float64)
+    out, sh = [], 1
+    while sh < D:
+        out.append(W)
+        W = W @ W
+        sh *= 2
+    return np.stack(out) if out else np.zeros((0,) + W.shape)
+
+
+# ---------------------------------------------------------------------------
+# Carry solves (torch, float64)
+# ---------------------------------------------------------------------------
+
+
+def _bands_span(bands):
+    dmax = max(max(d for d, _ in bands), 0)
+    dmin = min(min(d for d, _ in bands), 0)
+    return dmax, dmin
+
+
+def _banded_solve_apply(bands, braw_t, S: int):
+    """Banded solve on slot-padded transposed tails (n, sl, q):
+    N_t = Σ_d B_d[t] · b_{t−d} — one (n,S,S)×(n,S,q) product per offset
+    instead of the dense (n·sl)² matmul. ``bands``: [(d, blocks (n,S,S))]
+    with torch blocks."""
+    n, slots, q = braw_t.shape
+    b = braw_t[:, :S, :]
+    dmax, dmin = _bands_span(bands)
+    bpad = F.pad(b, (0, 0, 0, 0, dmax, -dmin)) if dmax or dmin else b
+    N = None
+    for d, blocks in bands:
+        t = torch.einsum("nab,nbq->naq", blocks,
+                         bpad.narrow(0, dmax - d, n))
+        N = t if N is None else N + t
+    return F.pad(N, (0, 0, 0, slots - S)) if S < slots else N
+
+
+def _banded_solve_apply_nat(bands, braw):
+    """:func:`_banded_solve_apply` on natural-layout tails (..., n, S)."""
+    n = braw.shape[-2]
+    dmax, dmin = _bands_span(bands)
+    bpad = F.pad(braw, (0, 0, dmax, -dmin)) if dmax or dmin else braw
+    N = None
+    for d, blocks in bands:
+        t = torch.einsum("nab,...nb->...na", blocks,
+                         bpad.narrow(-2, dmax - d, n))
+        N = t if N is None else N + t
+    return N
+
+
+def _chain_solve_assoc(b, causal: bool, W, Jk):
+    """Solve one scan's cross-tile recurrence with a log-depth associative
+    scan over (W, b) affine pairs (Hillis–Steele: log₂ n steps).
+
+    ``b`` is (a, n, k) natural local tails, ``W`` the k×k transfer of a
+    carry across one tile, ``Jk`` the k×k flip; returns the natural
+    incoming vectors N (a, n, k) — ``b_stacked @ CMᵀ`` without the
+    quadratic chain matrix."""
+    n, k = b.shape[1], b.shape[2]
+    # causal: s_t = W s_{t-1} + Jk b_t, N_t = Jk s_{t-1}; anticausal: the
+    # same recurrence over reversed tiles with identity converters
+    s = torch.einsum("ij,anj->ani", Jk, b) if causal else b.flip(1)
+    A = W.expand(n, k, k)
+    off = 1
+    while off < n:
+        # element t absorbs element t - off: (A_t A_{t-off}, A_t s_{t-off} + s_t)
+        s = torch.cat([s[:, :off], s[:, off:] + torch.einsum(
+            "nij,anj->ani", A[off:], s[:, :-off])], dim=1)
+        A = torch.cat([A[:off], A[off:] @ A[:-off]], dim=0)
+        off *= 2
+    s_prev = F.pad(s[:, :-1], (0, 0, 1, 0))
+    if causal:
+        return torch.einsum("ij,anj->ani", Jk, s_prev)
+    return s_prev.flip(1)
+
+
+def _chain_prefix_axis(b, causal: bool, Wpows, Jk):
+    """Kogge–Stone carry-chain solve over a segment axis: zero-filled
+    shifts along axis -2 of ``b`` (..., D, k) (the zero fill IS the
+    zero-state boundary condition), log₂ D products against the k×k
+    transfer powers ``Wpows`` (:func:`_ks_powers`) — no (D·k)² matrix.
+    Returns the natural incoming vectors N (..., D, k)."""
+    D = b.shape[-2]
+
+    def shift(a, s):
+        # causal: recv_d = a_{d-s}; anticausal: recv_d = a_{d+s}
+        if causal:
+            return F.pad(a[..., :D - s, :], (0, 0, s, 0))
+        return F.pad(a[..., s:, :], (0, 0, 0, s))
+
+    # causal: u_d = Jk b_d, inclusive s_d = Σ_{i≤d} W^{d-i} u_i,
+    # N_d = Jk s_{d-1}; anticausal: inclusive from the right, N_d = s_{d+1}
+    s_ = torch.einsum("ij,...j->...i", Jk, b) if causal else b
+    sh = 1
+    for Wp in Wpows:
+        s_ = s_ + torch.einsum("ij,...j->...i", Wp, shift(s_, sh))
+        sh *= 2
+    s_prev = shift(s_, 1)
+    if causal:
+        return torch.einsum("ij,...j->...i", Jk, s_prev)
+    return s_prev
+
+
+# ---------------------------------------------------------------------------
+# The last-axis executor
+# ---------------------------------------------------------------------------
+
+
+def _kernel_nprod(matmul_precision: str) -> int:
+    """The JAX package's completion-kernel product count for float32
+    storage: 6 at px6 (the kernels run), 0 at highest (the einsum form)."""
+    return {"px6": 6}.get(matmul_precision, 0)
+
+
+class LastAxisPass(nn.Module):
+    """All ``scans`` of the last axis of float32 arrays (..., w), tiled by
+    ``plan`` = (T, n, pad): the JAX package's ``_last_axis_pass_t`` with
+    ``rot_axes=1`` (in-place emit) and, for a bare signal, the einsum
+    branch of its ``fused_dim_pass``.
+
+    Kernel route, where the JAX package takes its kernel branch (px6,
+    n ≤ 256 and ``completion_ok``, which needs ≥ 8 lines — so a bare
+    signal never takes it): ``tails`` kernel → banded or dense solve →
+    ``completion`` kernel. Otherwise the einsum form: natural-layout tails,
+    the solve (banded, dense, or the associative chain past 256 tiles),
+    and the completion product — on the ``completion`` kernel where the
+    JAX package's fallback takes it (256 < n ≤ 512). ``forward(x, True)``
+    runs every kernel's plain twin instead."""
+
+    def __init__(self, scans: Sequence[Scan], plan, clamp: bool,
+                 matmul_precision: str):
+        super().__init__()
+        T, n, pad = plan
+        self.T, self.n, self.pad = T, n, pad
+        self.causal = [s.causal for s in scans]
+        mats = prepare_dim_pass(scans, T, n, clamp, pad_slots=pad,
+                                build_cm=n <= _CHAIN_MATMUL_MAX_TILES)
+        self.orders = list(mats.orders)
+        S = self.S = int(sum(self.orders))
+        self.sl = kc.slots_for(S)
+        Gcat = np.concatenate([np.asarray(g) for g in mats.G], axis=1)
+        Rcat = np.concatenate([np.asarray(r) for r in mats.Rhat], axis=2)
+
+        # einsum-form operands: (1|3) variants [interior, first, last]
+        self.register_buffer("G_v", _f64(kc._variants3(Gcat)))
+        self.register_buffer("B_v", kc._f32(kc._variants3(mats.Btot)))
+        self.register_buffer("R_v", kc._f32(kc._variants3(Rcat)))
+
+        self.offsets = None  # band offsets when the solve is banded
+        if n <= _CHAIN_MATMUL_MAX_TILES:
+            CMfull = combined_solve_matrix(mats, n)
+            bands = banded_solve_blocks(CMfull, n, S)
+            if bands is not None:
+                self.offsets = [d for d, _ in bands]
+                self.register_buffer(
+                    "bands", _f64(np.stack([b for _, b in bands])))
+            else:
+                self.register_buffer(
+                    "CMp", _f64(kc.pad_solve_matrix(CMfull, n, S)))
+        else:
+            # associative chain per scan, with the cross-scan couplings
+            for i, s in enumerate(scans):
+                self.register_buffer(f"W{i}", _f64(
+                    coeffs.tail_weight_matrix(s.feedback, T)))
+                self.register_buffer(f"J{i}", _f64(
+                    coeffs.antidiagonal(s.order)))
+                for j in range(i):
+                    self.register_buffer(f"H{i}_{j}", _f64(
+                        kc._variants3(mats.H[i][j])))
+
+        # the kernels, where the static part of the JAX package's gates
+        # holds (the line count is checked per call)
+        self.tails = self.completion = None
+        if _kernel_nprod(matmul_precision) and kc.completion_ok(T, 8, n, S):
+            if n <= _CHAIN_MATMUL_MAX_TILES:
+                self.tails = kc.TailsPass(Gcat, n)
+            self.completion = kc.CompletionPass(mats.Btot, Rcat, n)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        T, n, pad, S = self.T, self.n, self.pad, self.S
+        lead = x.shape[:-1]
+        if pad:
+            x = F.pad(x, (0, pad))
+        X = x.reshape(-1, n, T)
+        q = X.shape[0]
+        gate = kc.completion_ok(T, q, n, S)
+        if self.tails is not None and gate:
+            tails = self.tails.plain if plain else self.tails
+            braw_t = tails(X).double()  # (n, sl, q) slot-padded transposed
+            Nt = self._solve_t(braw_t).float()
+        else:
+            braw = kc.tile_einsum("nst,pnt->pns", self.G_v, X.double())
+            N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
+                 else self._solve_assoc(braw))  # (q, n, S) natural
+            Nt = None
+            if self.completion is not None and gate:
+                Nt = F.pad(N.permute(1, 2, 0), (0, 0, 0, self.sl - S))
+                Nt = Nt.float().contiguous()
+        if Nt is not None:
+            comp = self.completion.plain if plain else self.completion
+            Y = comp(X, Nt)
+        else:
+            Y = (kc.tile_einsum("nos,pns->pno", self.B_v, X)
+                 + kc.tile_einsum("nou,pnu->pno", self.R_v, N.float()))
+        y = Y.reshape(*lead, n * T)
+        return y[..., :n * T - pad] if pad else y
+
+    def _solve_t(self, braw_t):
+        if self.offsets is not None:
+            return _banded_solve_apply(list(zip(self.offsets, self.bands)),
+                                       braw_t, self.S)
+        n, sl, q = braw_t.shape
+        return (self.CMp @ braw_t.reshape(n * sl, q)).reshape(n, sl, q)
+
+    def _solve_nat(self, braw):
+        if self.offsets is not None:
+            return _banded_solve_apply_nat(
+                list(zip(self.offsets, self.bands)), braw)
+        q, n, S = braw.shape
+        bp = F.pad(braw, (0, self.sl - S)).reshape(q, n * self.sl)
+        return (bp @ self.CMp.T).reshape(q, n, self.sl)[..., :S]
+
+    def _solve_assoc(self, braw):
+        offs = np.cumsum([0] + self.orders)
+        Ns = []
+        for i, causal in enumerate(self.causal):
+            b = braw[..., offs[i]:offs[i + 1]]
+            for j in range(i):
+                b = b + kc.tile_einsum("noj,anj->ano",
+                                       getattr(self, f"H{i}_{j}"), Ns[j])
+            Ns.append(_chain_solve_assoc(b, causal, getattr(self, f"W{i}"),
+                                         getattr(self, f"J{i}")))
+        return torch.cat(Ns, dim=-1)
+
+
+# The hierarchy's supertile: 256 tiles of 128, the kernel-eligible maximum.
+_SEG = _CHAIN_MATMUL_MAX_TILES * 128
+
+
+def _hierarchy_ok(w: int, scans: Sequence[Scan],
+                  matmul_precision: str) -> bool:
+    """The JAX package's gates of ``hierarchical_dim_pass``: ΣK ≤ 64; px
+    precision; 2 ≤ n_sup ≤ 512 supertiles at ΣK ≤ 8 (the dense level-2
+    solve), ≤ 4096 past it (the Kogge–Stone chain); and an effective last
+    supertile longer than kmax + 1."""
+    S = sum(s.order for s in scans)
+    kmax = max(s.order for s in scans)
+    if S > 64 or _kernel_nprod(matmul_precision) < 3:
+        return False
+    n_sup = -(-w // _SEG)
+    if n_sup < 2 or n_sup > (512 if S <= 8 else 4096):
+        return False
+    return _SEG - (n_sup * _SEG - w) > kmax + 1
+
+
+class HierarchicalPass(nn.Module):
+    """Audio-scale pass via a TWO-LEVEL chain, for float32 arrays (..., w)
+    with every scan on the last axis: the JAX package's
+    ``hierarchical_dim_pass``.
+
+    Level 1: the signal is cut into n_sup supertiles of 32,768 samples, and
+    each scan runs a zero-state local pass (:class:`LastAxisPass`, tile
+    128, 256 tiles) with the supertiles as LINES — the kernels get
+    lead·n_sup lines. Under clamp the scan's edge supertile takes the
+    rank-1 clamp response ``v ⊗ x[edge]``; the padded slots of the last
+    supertile are zeroed before a later scan reads them. Level 2: the
+    supertile boundary carries are solved with the segment-level exchange
+    algebra (:mod:`.parallel.sharding`) — one dense (n_sup·ΣK)² matmul at
+    ΣK ≤ 8, per-scan Kogge–Stone chains with the cross-scan couplings past
+    it — and a rank-ΣK correction (with clamp/pad edge deltas on the
+    first/last supertiles) closes every supertile. Construct only where
+    :func:`_hierarchy_ok` holds."""
+
+    def __init__(self, scans: Sequence[Scan], w: int, border: str,
+                 matmul_precision: str):
+        super().__init__()
+        seg = _SEG
+        self.w, self.n_sup = w, -(-w // seg)
+        self.pad = self.n_sup * seg - w
+        self.clamp = border == BorderMode.CLAMP
+        self.scans = list(scans)
+        self.S = int(sum(s.order for s in scans))
+        self.locals = nn.ModuleList(
+            LastAxisPass([s], (128, _CHAIN_MATMUL_MAX_TILES, 0), False,
+                         matmul_precision) for s in scans)
+        if self.clamp:
+            for i, s in enumerate(scans):
+                self.register_buffer(f"v{i}", _f64(sh._clamp_col(
+                    s, seg if s.causal else seg - self.pad, total=seg)))
+        orders, H, CMs, Rcats = sh._segment_exchange_mats(
+            scans, seg, self.n_sup, self.clamp, self.pad,
+            build_cm=self.S <= 8)
+        self.orders = orders
+        if self.S <= 8:
+            self.register_buffer("CM2", _f64(
+                sh._combined_solve(orders, H, CMs, self.n_sup)))
+        else:
+            for i, s in enumerate(scans):
+                self.register_buffer(f"Wp{i}", _f64(
+                    _ks_powers(s.feedback, seg, self.n_sup)))
+                self.register_buffer(f"J{i}", _f64(
+                    coeffs.antidiagonal(s.order)))
+                for j in range(i):
+                    self.register_buffer(f"H{i}_{j}", _f64(
+                        kc._variants3(H[i][j])))
+        self.register_buffer("Rcats", _f64(Rcats))  # (1|3, seg, S)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        seg, n_sup, pad, S = _SEG, self.n_sup, self.pad, self.S
+        lead = x.shape[:-1]
+        y = F.pad(x, (0, pad)) if pad else x
+        y = y.reshape(-1, n_sup, seg)
+        cs = []
+        for i, (s, loc) in enumerate(zip(self.scans, self.locals)):
+            k = s.order
+            if self.clamp:
+                e_seg = 0 if s.causal else n_sup - 1
+                e_pos = 0 if s.causal else seg - 1 - pad
+                x_edge = y[:, e_seg, e_pos].double()
+            y = loc(y, plain)
+            if self.clamp:
+                upd = (y[:, e_seg].double() + getattr(self, f"v{i}")
+                       * x_edge[:, None]).float()
+                y = torch.cat([y[:, :e_seg], upd[:, None],
+                               y[:, e_seg + 1:]], dim=1)
+            if pad and i < len(self.scans) - 1:
+                # a later scan must read zeros in the padded slots; after
+                # the last scan they are sliced off unread
+                y = torch.cat([y[:, :-1], F.pad(y[:, -1:, :seg - pad],
+                                                (0, pad))], dim=1)
+            cs.append(y[..., seg - k:] if s.causal else y[..., :k])
+        ccat = torch.cat(cs, dim=-1).double()  # (p, n_sup, S)
+
+        if S <= 8:
+            p = ccat.shape[0]
+            N = (ccat.reshape(p, n_sup * S) @ self.CM2.T).reshape(
+                p, n_sup, S)
+        else:
+            offs = np.cumsum([0] + self.orders)
+            Ns = []
+            for i, s in enumerate(self.scans):
+                b = ccat[..., offs[i]:offs[i + 1]]
+                for j in range(i):
+                    b = b + kc.tile_einsum("nok,lnk->lno",
+                                           getattr(self, f"H{i}_{j}"), Ns[j])
+                Ns.append(_chain_prefix_axis(
+                    b, s.causal, getattr(self, f"Wp{i}"),
+                    getattr(self, f"J{i}")))
+            N = torch.cat(Ns, dim=-1)
+
+        # rank-S correction: interior columns on every supertile, plus
+        # edge deltas on the first/last supertiles under clamp/pad
+        # (Rcats is [first, interior, last])
+        R = self.Rcats
+        Rint = R[0 if R.shape[0] == 1 else 1]
+        corr = torch.einsum("ts,lns->lnt", Rint, N)
+        if R.shape[0] == 3:
+            corr = torch.cat([
+                corr[:, :1] + torch.einsum("ts,ls->lt", R[0] - Rint,
+                                           N[:, 0])[:, None],
+                corr[:, 1:-1],
+                corr[:, -1:] + torch.einsum("ts,ls->lt", R[2] - Rint,
+                                            N[:, -1])[:, None]], dim=1)
+        y = (y + corr.float()).reshape(*lead, n_sup * seg)
+        return y[..., :self.w] if pad else y
+
+
+class FusedLastAxis(nn.Module):
+    """Executor for filters whose scans all lie on the last axis of
+    float32 arrays (..., w) — 1-D signals, with channels on any leading
+    axes: the JAX package's ``fused_dim_pass`` for the last axis.
+
+    Routing follows the JAX package: above 256 tiles the supertile
+    hierarchy (:class:`HierarchicalPass`) where its gates hold, else one
+    :class:`LastAxisPass`. ``forward`` runs the CUDA kernels for CUDA
+    tensors (their plain twins for CPU tensors); ``forward_plain`` runs the
+    twins on any device — the all-PyTorch reference for the kernel path.
+    Every host matrix is built once, here, as a buffer."""
+
+    def __init__(self, scans: Sequence[Scan], w: int, tile_width: int,
+                 border: str, matmul_precision: str = "px6"):
+        super().__init__()
+        clamp = border == BorderMode.CLAMP
+        plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
+        if plan is None:
+            raise NotImplementedError(
+                f"extent {w} with tile {tile_width}: no tile plan (order "
+                "above the extent, or clamp with no divisor ≥ the order); "
+                "the JAX package runs its lax.scan core here (ROADMAP "
+                "Queue 1 item 15)")
+        self.w = w
+        if (plan[1] > _CHAIN_MATMUL_MAX_TILES
+                and _hierarchy_ok(w, scans, matmul_precision)):
+            self.body = HierarchicalPass(scans, w, border, matmul_precision)
+        else:
+            self.body = LastAxisPass(scans, plan, clamp, matmul_precision)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(self._checked(x))
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(self._checked(x), True)
+
+    def _checked(self, x):
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        if x.ndim < 1 or x.shape[-1] != self.w:
+            raise ValueError(f"input shape {tuple(x.shape)} does not end in "
+                             f"the filter's extent {self.w}")
+        return x
+
+
+def _last_axis(x, axis: int) -> None:
+    if axis not in (-1, x.ndim - 1):
+        raise NotImplementedError(
+            f"scans on axis {axis} of a {x.ndim}-D array: the port runs "
+            "last-axis passes only; non-last axes take the rows kernels "
+            "(ROADMAP Queue 1 item 8)")
+
+
+def fused_dim_pass(x, axis: int, scans: Sequence[Scan], tile_width: int,
+                   border: str = BorderMode.ZERO,
+                   matmul_precision: str = "px6"):
+    """Apply all ``scans`` (same dimension, the last axis) to the float32
+    tensor ``x`` — functional :class:`FusedLastAxis`."""
+    from .planner import check_precision
+
+    check_precision(matmul_precision)
+    _last_axis(x, axis)
+    mod = FusedLastAxis(scans, x.shape[-1], tile_width, border,
+                        matmul_precision)
+    return mod.to(x.device)(x)
+
+
+def hierarchical_dim_pass(x, axis: int, scans: Sequence[Scan], border: str,
+                          matmul_precision: str):
+    """Functional :class:`HierarchicalPass`, or None where the JAX
+    package's gates decline the hierarchy."""
+    from .planner import check_precision
+
+    check_precision(matmul_precision)
+    _last_axis(x, axis)
+    if not _hierarchy_ok(x.shape[-1], scans, matmul_precision):
+        return None
+    mod = HierarchicalPass(scans, x.shape[-1], border, matmul_precision)
+    return mod.to(x.device)(x)
+
+
+# ---------------------------------------------------------------------------
 # Whole-filter entry point
 # ---------------------------------------------------------------------------
 
 
-def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6"):
-    """The executor module for ``spec``: a :class:`.overlap2d.Fused2DPx`
-    sized to the spec's two trailing extents, or ``NotImplementedError``
+# The JAX package's tile width for a scanned axis that ``split`` left out
+# (``apply_filter_fused(tile_default=32)``).
+_TILE_DEFAULT = 32
+
+
+def fused_filter_module(spec: FilterSpec,
+                        matmul_precision: str = "px6") -> nn.Module:
+    """The executor module for ``spec``: :class:`.overlap2d.Fused2DPx`
+    for filters that scan exactly the two trailing axes,
+    :class:`FusedLastAxis` for filters whose scans all lie on the last
+    axis (tiled by the spec's split width), or ``NotImplementedError``
     naming what the port does not run yet."""
     from . import overlap2d
     from .planner import check_precision
@@ -271,12 +810,17 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6"):
             "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")
     groups = spec.scans_by_axis()
     nd = spec.ndim
+    if set(groups) == {nd - 1}:
+        tiles = spec.tile_widths or (0,) * nd
+        return FusedLastAxis(spec.scans, spec.dims[-1].extent,
+                             tiles[-1] or _TILE_DEFAULT, spec.border,
+                             matmul_precision)
     if set(groups) != {nd - 2, nd - 1}:
         raise NotImplementedError(
             f"scans on axes {sorted(groups)} of a {nd}-D filter: the port "
-            "runs filters that scan exactly the two trailing axes "
-            "(ROADMAP Queue 1 items 6 and 8: 1-D, non-trailing axes, "
-            "volumes)")
+            "runs filters that scan the last axis or exactly the two "
+            "trailing axes; non-last axes and volumes take the rows "
+            "kernels (ROADMAP Queue 1 item 8)")
     # Like the JAX package's 2-D px executor, the kernels' 128 × 128 tile
     # replaces the split widths (tiling never changes the result).
     ax_a, ax_b = nd - 2, nd - 1
@@ -287,9 +831,7 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6"):
 
 
 def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6"):
-    """Run ``spec`` on the tensor ``x`` (on ``x``'s device) through the
-    3-touch 2-D executor. Only trailing-2-D float32 filters run; every
-    other filter raises ``NotImplementedError``."""
+    """Run ``spec`` on the tensor ``x`` (on ``x``'s device) through
+    :func:`fused_filter_module`'s executor."""
     mod = fused_filter_module(spec, matmul_precision).to(x.device)
     return mod(x)
-

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface, so ``nvcc`` compiles it in
 seconds into a shared library with no PyTorch headers; the library lands in
-``kernels/_build/`` (ignored by git), named by a hash of its source so an
-edited kernel is rebuilt. Nothing here runs at import time.
+``kernels/_build/`` (ignored by git), named by a hash of its source and the
+shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt.
+:func:`build` compiles several kernels at once, one ``nvcc`` each, all
+started together. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,6 +38,44 @@ def _nvcc() -> str:
         "kernels are built from source at first use")
 
 
+def _library(name: str) -> Path:
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(names) -> None:
+    """Run one ``nvcc`` per kernel whose library is missing, all at once;
+    raise naming every kernel that failed. Caller holds ``_lock``."""
+    todo = [(n, _library(n)) for n in names if not _library(n).exists()]
+    if not todo:
+        return
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"{name}:\n{build_logs[name]}")
+    if failed:
+        raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+
+
+def build(names) -> None:
+    """Compile the kernels ``names`` (those not built yet) in parallel."""
+    with _lock:
+        _compile([n for n in names if n not in _libs])
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``.
 
@@ -43,21 +83,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        out = _BUILD_DIR / f"lib{name}-{digest}.so"
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            build_logs[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src}:\n{build_logs[name]}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        _compile([name])
+        lib = ctypes.CDLL(str(_library(name)))
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

@@ -1,21 +1,51 @@
-"""Host helpers of the slot-padded carry layout.
+"""The two kernels of the 1-D last-axis executor, their plain twins, and
+the host helpers of the slot-padded carry layout.
 
-Carries ride 8-row slots: a dimension with ΣK ≤ 8 carry values per tile
-keeps them in one slot, zero-padded. The JAX package chose 8 for the TPU's
-sublane quantum; the port keeps the layout so both packages exchange the
-same arrays, and the CUDA kernels take it as is.
+  * :class:`TailsPass` (``csrc/tails.cu``): read x (q, n, T) once and emit
+    every tile's local tails ``G·x`` in the transposed slot-padded layout
+    (n, sl, q) that the carry solve and :class:`CompletionPass` consume.
+  * :class:`CompletionPass` (``csrc/completion.cu``): read x once and write
+    ``Y = Btot·x + Rcat·N`` per tile, the carries N in that same layout.
+
+Carries ride 8-row slots: ΣK = S carry values per tile take sl = 8·⌈S/8⌉
+rows, zero-padded (S ≤ 56). The JAX package chose 8 for the TPU's sublane
+quantum; the port keeps the layout so both packages exchange the same
+arrays, and the CUDA kernels take it as is.
+
+Each module holds its host-built matrices as buffers. ``forward`` launches
+the CUDA kernel for a CUDA tensor (through :class:`.launch._KernelFn`,
+whose backward is the twin's VJP: both passes are linear) and runs the
+plain PyTorch twin for a CPU tensor; ``plain`` is the twin, the reference
+the kernel is held against. Per-tile matrix variants (clamp edges, the pad
+projector) differ only at the globally-first/last tiles, so the kernels
+take ≤ 3 distinct variants [interior, first, last] and pick one by tile
+position.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import nn
 
+from .launch import _check, _KernelFn, _launch
+
+TILE = 128  # the kernels' tile edge
 _SLOTS = 8  # carry rows per tile slot
+_MAX_S = 56  # ΣK the multi-slot carry layout takes (7 slots)
 
 
 def slots_for(S: int) -> int:
     """Slot-padded carry rows for ΣK = S (a multiple of the slot size)."""
     return -(-int(S) // _SLOTS) * _SLOTS
+
+
+def completion_ok(T: int, q: int, n: int, S: int) -> bool:
+    """The JAX package's static gate for the tails/completion kernels
+    (``recfilter_tpu/kernels/completion.py::completion_ok``): 128-wide
+    tiles, carries within the multi-slot layout, at most 512 tiles and at
+    least 8 lines."""
+    return T == TILE and S <= _MAX_S and n <= 512 and q >= 8
 
 
 def _per_tile(M, n: int) -> np.ndarray:
@@ -28,6 +58,56 @@ def _per_tile(M, n: int) -> np.ndarray:
 def _expand_stack(M, n: int) -> np.ndarray:
     """:func:`_per_tile` in float32."""
     return np.asarray(_per_tile(M, n), np.float32)
+
+
+def _variants3(stack) -> np.ndarray:
+    """(n|1, r, c) per-tile stack → (1|3, r, c) distinct variants
+    [interior, first, last]. ``prepare_dim_pass``'s stacks are uniform
+    except at tiles 0 and n-1; stack[1] is interior whenever n > 2."""
+    M = np.asarray(stack, np.float64)
+    n = M.shape[0]
+    if n == 1:
+        return M
+    interior = M[1] if n > 2 else M[0]
+    return np.stack([interior, M[0], M[n - 1]])
+
+
+def _variants_like(A, B):
+    """Variant stacks of two operands one kernel selects with one index:
+    a uniform stack is repeated to the other's three variants."""
+    A, B = _variants3(A), _variants3(B)
+    nv = max(A.shape[0], B.shape[0])
+    return (np.broadcast_to(A, (nv,) + A.shape[1:]),
+            np.broadcast_to(B, (nv,) + B.shape[1:]))
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+def _f64(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float64))
+
+
+def tile_einsum(eq: str, Mv: torch.Tensor, *ops: torch.Tensor):
+    """``torch.einsum(eq, M, *ops)`` for a per-tile matrix stack M given by
+    its (1|3) variants ``Mv`` [interior, first, last] (three only for
+    n ≥ 2 tiles); the letter ``n`` of ``eq`` is the tile axis (the
+    matrix's first). The interior matrix runs on every tile and the
+    first/last tiles are recomputed with theirs, so no (n, ...) stack is
+    ever formed."""
+    lhs, out = eq.split("->")
+    subs = lhs.split(",")
+    eq0 = ",".join([subs[0][1:]] + subs[1:]) + "->" + out
+    y = torch.einsum(eq0, Mv[0], *ops)
+    if Mv.shape[0] == 1:
+        return y
+    ax = out.index("n")
+    n = y.shape[ax]
+    edges = [torch.einsum(eq0, Mv[v], *(
+        o.narrow(s.index("n"), t, 1) if "n" in s else o
+        for o, s in zip(ops, subs[1:]))) for v, t in ((1, 0), (2, n - 1))]
+    return torch.cat([edges[0], y.narrow(ax, 1, n - 2), edges[1]], dim=ax)
 
 
 def pad_solve_matrix(CMfull, n: int, S: int) -> np.ndarray:
@@ -43,3 +123,108 @@ def pad_solve_matrix(CMfull, n: int, S: int) -> np.ndarray:
                 CM[t * S:(t + 1) * S, u * S:(u + 1) * S]
             )
     return out
+
+
+def _grid_ok(what: str, n: int, blocks_y: int) -> None:
+    if not (0 < n < 2**31 and 0 < blocks_y < 65536):
+        raise ValueError(f"{what}: {n} tiles x {blocks_y} line blocks "
+                         "outside the launch grid")
+
+
+class TailsPass(nn.Module):
+    """``tails(x)``: x (q, n, T) → slot-padded transposed tails (n, sl, q),
+    ``out[t, s, l] = Σ_τ G_v(t)[s, τ]·x[l, t, τ]`` for s < S, zeros below.
+
+    Gcat : (n|1, S, T) stacked per-scan tail rows (per-tile variants).
+    The sums run in float64 from float32 loads, in the kernel and in the
+    twin (see ``csrc/tails.cu``). Setting ``fp64 = False`` launches the
+    kernel's fp32-accumulating instantiation instead — kept to measure
+    what fp64 buys (``chip_smoke.py`` phase 5c).
+    """
+
+    def __init__(self, Gcat, n: int):
+        super().__init__()
+        G = np.asarray(Gcat, np.float64)
+        nv, S, T = G.shape
+        if T != TILE:
+            raise ValueError(f"tiles must be {TILE} wide, got {T}")
+        if S > _MAX_S:
+            raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
+        self.n, self.S, self.sl = int(n), S, slots_for(S)
+        self.fp64 = True
+        Gp = np.zeros((nv, self.sl, T))
+        Gp[:, :S] = G
+        Gv = _variants3(Gp)
+        self.register_buffer("G_v", _f32(Gv))      # kernel operand
+        self.register_buffer("G_v64", _f64(Gv))    # twin operand
+
+    def plain(self, x):
+        return tile_einsum("nst,qnt->nsq", self.G_v64, x.double()).float()
+
+    def _kernel(self, x):
+        q, n = x.shape[0], self.n
+        _check(x, "x", (q, n, TILE), x.device)
+        _check(self.G_v, "G_v", self.G_v.shape, x.device)
+        _grid_ok("tails", n, -(-q // 64))
+        out = torch.empty((n, self.sl, q), device=x.device)
+        _launch("tails", (
+            x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(),
+            q, n, self.S, self.sl, self.G_v.shape[0], int(self.fp64)),
+            x.device)
+        return out
+
+    def forward(self, x):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x)
+        return self.plain(x)
+
+
+class CompletionPass(nn.Module):
+    """``completion(x, N)``: x (q, n, T), N (n, sl, q) → Y (q, n, T),
+    ``Y[l, t] = Btot_v(t)·x[l, t] + Rcat_v(t)·N[t, :S, l]`` (the JAX
+    package's ``completion_pass`` with ``rot=False`` and transposed
+    slot-padded carries).
+
+    Btot : (n|1, T, T);  Rcat : (n|1, T, S).
+    """
+
+    def __init__(self, Btot, Rcat, n: int):
+        super().__init__()
+        R = np.asarray(Rcat, np.float64)
+        nvr, T, S = R.shape
+        if T != TILE or np.shape(Btot)[1:] != (T, T):
+            raise ValueError(f"tiles must be {TILE} wide")
+        if S > _MAX_S:
+            raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
+        self.n, self.S, self.sl = int(n), S, slots_for(S)
+        Rp = np.zeros((nvr, T, self.sl))
+        Rp[..., :S] = R
+        Bv, Rv = _variants_like(Btot, Rp)
+        # kernel operand: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
+        self.register_buffer("BR_v", _f32(np.concatenate(
+            [Bv.transpose(0, 2, 1), Rv.transpose(0, 2, 1)], axis=1)))
+        # twin operands
+        self.register_buffer("B_v", _f32(_variants3(Btot)))
+        self.register_buffer("R_v", _f32(_variants3(R)))
+
+    def plain(self, x, N):
+        return (tile_einsum("nos,qns->qno", self.B_v, x)
+                + tile_einsum("nou,nuq->qno", self.R_v, N[:, :self.S]))
+
+    def _kernel(self, x, N):
+        q, n = x.shape[0], self.n
+        _check(x, "x", (q, n, TILE), x.device)
+        _check(N, "N", (n, self.sl, q), x.device)
+        _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
+        _grid_ok("completion", n, -(-q // TILE))
+        y = torch.empty_like(x)
+        _launch("completion", (
+            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(), y.data_ptr(),
+            q, n, self.sl, self.BR_v.shape[0]), x.device)
+        return y
+
+    def forward(self, x, N):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, N)
+        return self.plain(x, N)
+

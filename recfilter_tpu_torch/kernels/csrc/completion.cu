@@ -1,0 +1,109 @@
+// completion: the completion of every tile of a 1-D last-axis pass — read
+// the signal once, inject the solved carries, write the output once.
+//
+// Replaces recfilter_tpu/kernels/completion.py::completion_pass (Pallas
+// kernel _completion_kernel) with rot=False and transposed slot-padded
+// carries. For x (q lines, n tiles, 128), the solved carries N (n, sl, q)
+// and v(t) the tile's matrix variant (interior, first or last):
+//
+//   Y[l, t, :] = Btot_v(t) * x[l, t, :] + Rcat_v(t) * N[t, :, l]
+//
+// One block takes one tile t and 128 lines and runs it as one GEMM over a
+// (128 + sl)-deep contraction, the carry rows stacked under the signal
+// rows, as final2d.cu stacks its 8 carry rows:
+//
+//   A[kk][l] = x[l, t, kk] (kk < 128),  N[t, kk-128, l]  (kk >= 128)
+//   B[kk][o] = Btot_v[o][kk]           , Rcat_v[o][kk-128]
+//   Y[l, t, o] = sum_kk A[kk][l] * B[kk][o]
+//
+// with common.cuh's register-tiled GEMM (the one final2d.cu runs). The
+// operand B_v = [Btot^T; Rcat^T] (nv, 128 + sl, 128) is prepared on the
+// host, so it stages as a contiguous copy; x is transposed on its way into
+// shared memory (consecutive threads take consecutive lines, so the
+// shared stores are free of bank conflicts).
+//
+// What bounds it: 2 * (128 + sl) FLOP per sample against 8 B of traffic,
+// so on the H100's fp32 CUDA cores it is bound by arithmetic (3.4 GFLOP at
+// 10M samples and sl = 8). fp32 FMA throughout; no wgmma, TMA or TF32 yet.
+// Shared memory is 2 * (128 + sl) * 128 * 4 B: 139 KB at sl = 8, 188 KB at
+// sl = 56, one block per SM.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int T = rf::GT;                  // tile width, and lines per block
+constexpr int THREADS = rf::GEMM_THREADS;  // 16 x 16, 8 x 8 outputs each
+constexpr int MAX_SL = 56;                 // carry rows the layout takes
+
+__global__ void __launch_bounds__(THREADS, 1)
+completion_kernel(const float* __restrict__ x,   // (q, n, T)
+                  const float* __restrict__ N,   // (n, sl, q)
+                  const float* __restrict__ BR,  // (nv, T + sl, T)
+                  float* __restrict__ y,         // (q, n, T)
+                  int q, int n, int sl, int nv) {
+  extern __shared__ float4 smem4[];
+  const int depth = T + sl;
+  float* As = reinterpret_cast<float*>(smem4);  // depth x T, columns: lines
+  float* Bs = As + depth * T;                   // depth x T, columns: outputs
+
+  const int t = blockIdx.x;
+  const int l0 = blockIdx.y * T;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int v = rf::variant(nv, t, n);
+
+  for (int i = tid; i < T * (T / 4); i += THREADS) {
+    const int l = i % T, c4 = i / T;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l0 + l < q)
+      val = reinterpret_cast<const float4*>(
+          x + ((long)(l0 + l) * n + t) * T)[c4];
+    As[(4 * c4 + 0) * T + l] = val.x;
+    As[(4 * c4 + 1) * T + l] = val.y;
+    As[(4 * c4 + 2) * T + l] = val.z;
+    As[(4 * c4 + 3) * T + l] = val.w;
+  }
+  const float* Nt = N + (long)t * sl * q;
+  for (int i = tid; i < sl * T; i += THREADS) {
+    const int s = i / T, l = i % T;
+    As[(T + s) * T + l] = l0 + l < q ? Nt[(long)s * q + l0 + l] : 0.f;
+  }
+  rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
+  __syncthreads();
+
+  float c[8][8];
+  rf::gemm_tile(As, Bs, c, ty, tx, depth);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int l = l0 + rf::row_of(i, ty);
+    if (l < q) {
+      float* yr = y + ((long)l * n + t) * T;
+      *reinterpret_cast<float4*>(yr + tx * 4) =
+          make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+      *reinterpret_cast<float4*>(yr + 64 + tx * 4) =
+          make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int completion_launch(const float* x, const float* N,
+                                 const float* BR, float* y, int q, int n,
+                                 int sl, int nv, void* stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * (T + MAX_SL) * T * (int)sizeof(float));
+  if (err != cudaSuccess) return (int)err;
+  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, N, BR, y, q, n, sl, nv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* completion_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

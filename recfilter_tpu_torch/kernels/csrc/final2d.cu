@@ -26,57 +26,20 @@
 //   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      rows kk, columns s
 //   B2 (nvb, 136, 128) = [Bb^T ; Rb^T]      rows kk, columns o
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int T = 128;         // tile edge, Ta = Tb
+constexpr int T = rf::GT;      // tile edge, Ta = Tb
 constexpr int SLOTS = 8;       // carry rows per slot
 constexpr int KX = T + SLOTS;  // contraction depth: 128 image rows + 8 carries
-constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
+constexpr int THREADS = rf::GEMM_THREADS;
 constexpr int SMEM_BYTES = 2 * KX * T * sizeof(float);
 
-__device__ __forceinline__ int variant(int nv, int i, int n) {
-  if (nv == 1) return 0;
-  return i == 0 ? 1 : (i == n - 1 ? 2 : 0);
-}
-
-// Copy `rows` rows of 128 floats (source row stride `stride`) to shared.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int rows, long stride, int tid) {
-  for (int i = tid; i < rows * (T / 4); i += THREADS) {
-    const int r = i / (T / 4), c4 = i % (T / 4);
-    reinterpret_cast<float4*>(dst + r * T)[c4] =
-        reinterpret_cast<const float4*>(src + r * stride)[c4];
-  }
-}
-
-// C[m][n] = sum_{kk < KX} A[kk][m] * B[kk][n]. Thread (ty, tx) owns rows
-// {ty*4+i, 64+ty*4+i} and columns {tx*4+j, 64+tx*4+j}, i, j < 4.
-__device__ __forceinline__ void gemm_tile(const float* A, const float* B,
-                                          float c[8][8], int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < KX; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(A + kk * T + ty * 4);
-    const float4 a1 = *reinterpret_cast<const float4*>(A + kk * T + 64 + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(B + kk * T + tx * 4);
-    const float4 b1 = *reinterpret_cast<const float4*>(B + kk * T + 64 + tx * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
-  }
-}
-
-__device__ __forceinline__ int row_of(int i, int ty) {
-  return (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-}
+using rf::gemm_tile;
+using rf::row_of;
+using rf::stage_rows;
+using rf::variant;
 
 __global__ void __launch_bounds__(THREADS, 1)
 final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
@@ -102,7 +65,7 @@ final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
   stage_rows(Bs + T * T, NA + pa * SLOTS * W + (long)b * T, SLOTS, W, tid);
   __syncthreads();
   float c[8][8];
-  gemm_tile(As, Bs, c, ty, tx);
+  gemm_tile(As, Bs, c, ty, tx, KX);
   __syncthreads();
 
   // dim-B completion: Y = [Z^T; NB]^T [Bb^T; Rb^T]. Z goes to shared
@@ -118,7 +81,7 @@ final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
   stage_rows(As + T * T, NB + (pa * nb + b) * SLOTS * T, SLOTS, T, tid);
   stage_rows(Bs, B2 + (long)vb * KX * T, KX, T, tid);
   __syncthreads();
-  gemm_tile(As, Bs, c, ty, tx);
+  gemm_tile(As, Bs, c, ty, tx, KX);
 
   float* yt = y + pa * T * W + (long)b * T;
 #pragma unroll

@@ -1,0 +1,139 @@
+// tails: the local tails of every tile of a 1-D last-axis pass, read from
+// the signal once, in the carry solve's slot-padded transposed layout.
+//
+// Replaces recfilter_tpu/kernels/completion.py::tails_pass (Pallas kernel
+// _tails_kernel). For x (q lines, n tiles, 128) and the per-tile tail rows
+// G (nv variants, sl rows, 128) — S real rows, sl = 8*ceil(S/8) — with v(t)
+// the tile's variant (interior, first or last):
+//
+//   out[t, s, l] = sum_tau G_v(t)[s, tau] * x[l, t, tau]     s < S
+//   out[t, s, l] = 0                                          S <= s < sl
+//
+// The pad rows are written as explicit zeros: the solve multiplies them by
+// zero columns, and an uninitialised NaN there would poison the result.
+//
+// What bounds it: it reads 4 B per sample and writes 4*sl/128 B, with S
+// MACs per sample, so on an H100 it is bound by device-memory bandwidth
+// (40 MB at 10M samples). The design: one block per (tile, 64 lines);
+// each line's 512-byte row is read once, coalesced, into shared memory
+// (row stride 132 floats, so the float4 row reads of consecutive lines are
+// free of bank conflicts); the tile's G variant sits in shared memory and
+// is read as warp-wide broadcasts. Four slot groups of 64 threads share the
+// lines; each thread keeps up to 14 slot sums in registers. Writes are
+// coalesced along the line axis.
+//
+// The sums accumulate in fp64 from fp32 loads, as moments2d.cu's do: these
+// tails seed the carries, whose solve amplifies their rounding (PERF.md).
+// At S MACs per sample the H100's fp64 rate keeps the kernel near its
+// bandwidth bound. The fp32-accumulating instantiation exists to measure
+// that choice. The TPU kernel's bf16 chunk splitting works around the TPU
+// matrix unit and has no counterpart here.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int T = 128;          // tile width
+constexpr int LINES = 64;       // lines per block
+constexpr int THREADS = 256;
+constexpr int GROUPS = THREADS / LINES;  // slot groups: slots g, g+4, ...
+constexpr int XS = T + 4;       // padded shared row stride of the x rows
+constexpr int MAX_SL = 56;      // carry rows the layout takes
+constexpr int PER = MAX_SL / GROUPS;     // slot sums per thread
+
+__device__ __forceinline__ float madd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double madd(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename Acc>
+__global__ void __launch_bounds__(THREADS)
+tails_kernel(const float* __restrict__ x,  // (q, n, T)
+             const float* __restrict__ G,  // (nv, sl, T)
+             float* __restrict__ out,      // (n, sl, q)
+             int q, int n, int S, int sl, int nv) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // LINES x XS
+  float* gs = xs + LINES * XS;                  // S x T
+
+  const int t = blockIdx.x;
+  const int l0 = blockIdx.y * LINES;
+  const int tid = threadIdx.x;
+  const int v = rf::variant(nv, t, n);
+
+  for (int i = tid; i < LINES * (T / 4); i += THREADS) {
+    const int r = i / (T / 4), c4 = i % (T / 4);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l0 + r < q)
+      val = reinterpret_cast<const float4*>(
+          x + ((long)(l0 + r) * n + t) * T)[c4];
+    reinterpret_cast<float4*>(xs + r * XS)[c4] = val;
+  }
+  const float4* gv = reinterpret_cast<const float4*>(G + (long)v * sl * T);
+  for (int i = tid; i < S * (T / 4); i += THREADS)
+    reinterpret_cast<float4*>(gs)[i] = gv[i];
+  __syncthreads();
+
+  const int r = tid % LINES;  // this thread's line
+  const int g = tid / LINES;  // its slot group (uniform across a warp)
+  Acc acc[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) acc[j] = Acc(0);
+  const float* xr = xs + r * XS;
+  for (int tau = 0; tau < T; tau += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + tau);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int s = g + GROUPS * j;
+      if (s < S) {
+        const float4 gw = *reinterpret_cast<const float4*>(gs + s * T + tau);
+        acc[j] = madd(Acc(gw.x), Acc(xv.x), acc[j]);
+        acc[j] = madd(Acc(gw.y), Acc(xv.y), acc[j]);
+        acc[j] = madd(Acc(gw.z), Acc(xv.z), acc[j]);
+        acc[j] = madd(Acc(gw.w), Acc(xv.w), acc[j]);
+      }
+    }
+  }
+
+  if (l0 + r < q) {
+    float* o = out + (long)t * sl * q + l0 + r;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int s = g + GROUPS * j;
+      if (s < sl) o[(long)s * q] = s < S ? float(acc[j]) : 0.f;
+    }
+  }
+}
+
+template <typename Acc>
+int launch(const float* x, const float* G, float* out, int q, int n, int S,
+           int sl, int nv, cudaStream_t stream) {
+  const int smem = (LINES * XS + S * T) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      tails_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (LINES * XS + MAX_SL * T) * sizeof(float));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, (q + LINES - 1) / LINES);
+  tails_kernel<Acc><<<grid, THREADS, smem, stream>>>(x, G, out, q, n, S,
+                                                     sl, nv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tails_launch(const float* x, const float* G, float* out,
+                            int q, int n, int S, int sl, int nv, int fp64,
+                            void* stream) {
+  if (S < 1 || sl > MAX_SL || S > sl || sl % 8)
+    return (int)cudaErrorInvalidValue;
+  return fp64 ? launch<double>(x, G, out, q, n, S, sl, nv,
+                               (cudaStream_t)stream)
+              : launch<float>(x, G, out, q, n, S, sl, nv,
+                              (cudaStream_t)stream);
+}
+
+extern "C" const char* tails_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

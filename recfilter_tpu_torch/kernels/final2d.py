@@ -9,9 +9,9 @@
 Each module holds its host-built matrices as buffers and has two paths:
 ``forward`` launches the CUDA kernel (``csrc/*.cu``) for a CUDA tensor and
 runs the plain PyTorch twin for a CPU tensor; ``plain`` is the twin, the
-reference the kernel is held against. The CUDA path is a
-``torch.autograd.Function`` whose backward is the twin's VJP (both passes
-are linear). ``LAUNCHES`` counts kernel launches.
+reference the kernel is held against. The CUDA path is
+:class:`.launch._KernelFn`, whose backward is the twin's VJP (both passes
+are linear); :data:`.launch.LAUNCHES` counts kernel launches.
 
 Layouts are the JAX package's (``recfilter_tpu/kernels/final2d.py``):
   x      (p, na, Ta, W), W = nb·Tb      bA_t / NA_t   (p, na, 8, W)
@@ -25,43 +25,13 @@ globally-first/last tiles, so the kernels take ≤ 3 distinct variants
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 from torch import nn
 
-from .completion import _SLOTS, _expand_stack, _per_tile
-
-TILE = 128  # Ta = Tb: the kernels' tile edge
-
-LAUNCHES = {"moments2d": 0, "final2d": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _variants3(stack) -> np.ndarray:
-    """(n|1, r, c) per-tile stack → (1|3, r, c) distinct variants
-    [interior, first, last]. ``prepare_dim_pass``'s stacks are uniform
-    except at tiles 0 and n-1; stack[1] is interior whenever n > 2."""
-    M = np.asarray(stack, np.float64)
-    n = M.shape[0]
-    if n == 1:
-        return M
-    interior = M[1] if n > 2 else M[0]
-    return np.stack([interior, M[0], M[n - 1]])
-
-
-def _variants_like(A, B):
-    """Variant stacks of two operands one kernel selects with one index:
-    a uniform stack is repeated to the other's three variants."""
-    A, B = _variants3(A), _variants3(B)
-    nv = max(A.shape[0], B.shape[0])
-    return (np.broadcast_to(A, (nv,) + A.shape[1:]),
-            np.broadcast_to(B, (nv,) + B.shape[1:]))
+from .completion import (_SLOTS, TILE, _expand_stack, _f32, _per_tile,
+                         _variants3, _variants_like)
+from .launch import _check, _KernelFn, _launch
 
 
 def _pad_slots(M, k_axis: int = 2) -> np.ndarray:
@@ -73,76 +43,6 @@ def _pad_slots(M, k_axis: int = 2) -> np.ndarray:
     pad = [(0, 0)] * M.ndim
     pad[k_axis] = (0, _SLOTS - k)
     return np.pad(M, pad)
-
-
-def _f32(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "moments2d": {
-        "moments2d_launch": ([_P] * 6 + [_I] * 7 + [_P], _I),
-        "moments2d_error_string": ([_I], ctypes.c_char_p),
-    },
-    "final2d": {
-        "final2d_launch": ([_P] * 6 + [_I] * 5 + [_P], _I),
-        "final2d_error_string": ([_I], ctypes.c_char_p),
-    },
-}
-
-
-def _launch(name: str, args, device: torch.device) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raise on a
-    refused launch. Counts the launch."""
-    from . import _build
-
-    lib = _build.load(name, _SIGNATURES[name])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
-    if err:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
-
-
-def _check(t: torch.Tensor, name: str, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
-def _linear_vjp(plain, shapes, device, grads):
-    """VJP of the linear map ``plain`` (independent of the primal point)."""
-    with torch.enable_grad():
-        zs = [torch.zeros(s, device=device, requires_grad=True)
-              for s in shapes]
-        outs = plain(*zs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        return torch.autograd.grad(outs, zs, grads)
-
-
-class _KernelFn(torch.autograd.Function):
-    """CUDA forward through ``mod._kernel``; backward = twin's VJP."""
-
-    @staticmethod
-    def forward(ctx, mod, *inputs):
-        ctx.mod = mod
-        ctx.shapes = [i.shape for i in inputs]
-        ctx.device = inputs[0].device
-        return mod._kernel(*inputs)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (None, *_linear_vjp(ctx.mod.plain, ctx.shapes, ctx.device,
-                                   grads))
 
 
 class Moments2D(nn.Module):

@@ -1,10 +1,13 @@
 """Execution plan: the executor backend and the matmul precision grade.
 
-The port runs one executor, the 3-touch 2-D path (``overlap2d``), whose
-image-sized products are the fp32 CUDA kernels of ``kernels/final2d.py``.
-The JAX package's precision names are kept: ``px6`` (its default) and
+The port runs two executors: the 3-touch 2-D path (``overlap2d``), on
+the fp32 CUDA kernels of ``kernels/final2d.py``, and the last-axis path
+(``dimfuse.FusedLastAxis``), on those of ``kernels/completion.py``. The
+JAX package's precision names are kept: ``px6`` (its default) and
 ``highest`` both mean true-f32 products, which the fp32 kernels give on
-Hopper without the TPU's bf16 chunk splitting. Every other grade raises.
+Hopper without the TPU's bf16 chunk splitting. As in the JAX package, the
+last-axis path runs its kernels (and the supertile hierarchy) at ``px6``
+only and its einsum form at ``highest``. Every other grade raises.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def check_precision(matmul_precision: str) -> None:
 class Plan:
     """Static execution plan for a filter.
 
-    ``backend``: "auto" or "einsum" — both name the fused 2-D executor
+    ``backend``: "auto" or "einsum" — both name the fused executors
     (the JAX package's name for its fused per-dimension route).
     ``matmul_precision``: "px6" (default) or "highest"."""
 

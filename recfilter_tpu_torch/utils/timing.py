@@ -69,3 +69,48 @@ def benchmark(fn: Callable, *args, iterations: int = 10,
         end.record()
         torch.cuda.synchronize(dev)
     return start.elapsed_time(end)
+
+
+def device_profile(fn: Callable, *args, iterations: int = 10,
+                   warmup: int = 3) -> dict:
+    """``torch.profiler`` over ``iterations`` back-to-back calls.
+
+    Returns per-call figures: ``call_ms`` (CUDA events around the window),
+    ``busy_ms`` (summed device time of kernels and copies — one stream, so
+    no overlap), ``idle`` = 1 − busy / call, ``device_ops`` (device kernels
+    and copies launched per call) and ``top`` — the five largest device
+    ops as (name, ms per call). ``busy_ms`` and ``idle`` are None when the
+    profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda_device(args)
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.device(dev):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iterations):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize(dev)
+    call_ms = start.elapsed_time(end) / iterations
+    ops = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        ops.append((e.key, us / 1000.0 / iterations, e.count / iterations))
+    busy = sum(ms for _, ms, _ in ops)
+    ops.sort(key=lambda o: -o[1])
+    return {"call_ms": call_ms,
+            "busy_ms": busy if busy > 0 else None,
+            "idle": 1.0 - busy / call_ms if busy > 0 else None,
+            "device_ops": sum(c for _, _, c in ops),
+            "top": [(name, ms) for name, ms, _ in ops[:5]]}

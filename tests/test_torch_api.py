@@ -92,8 +92,9 @@ def _spec(dims, scans, **kw):
 
 _G = (0.1, (0.5, 0.3, 0.1))
 UNSUPPORTED = {
-    "one-dim": _spec([("x", 512)], [rft.Scan(0, True, *_G)],
-                     tile_widths=(128,)),
+    # a prime clamp extent has no tile plan: the lax.scan core's case
+    "one-dim": _spec([("x", 509)], [rft.Scan(0, True, *_G)],
+                     border="clamp", tile_widths=(128,)),
     "volume": _spec([("z", 128), ("y", 128), ("x", 128)],
                     [rft.Scan(i, True, *_G) for i in range(3)],
                     tile_widths=(128, 128, 128)),
@@ -167,7 +168,8 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port imports and runs the 256²
-    headline filter on the CPU within the px6 bound."""
+    headline filter and a 1-D audio filter on the CPU within the px6
+    bound."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -184,6 +186,12 @@ def test_port_never_imports_jax():
         F.split(x, 128, y, 128)
         got = F.realize(device="cpu").numpy()
         want = rft.oracle_apply(F.spec, img.astype(np.float64))
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        from recfilter_tpu_torch.apps import audio_filter_high_order
+        sig = np.random.default_rng(1).random(40_000).astype(np.float32)
+        A = audio_filter_high_order(40_000, 3, 128)  # the supertile hierarchy
+        got = A.realize(sig, device="cpu").numpy()
+        want = rft.oracle_apply(A.spec, sig.astype(np.float64))
         assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
         assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
                        or m == "recfilter_tpu" for m in sys.modules

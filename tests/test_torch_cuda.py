@@ -15,7 +15,10 @@ import torch
 
 import recfilter_tpu_torch as rft
 from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch.apps import audio_filter_high_order
+from recfilter_tpu_torch.kernels import completion as tc
 from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.kernels import launch as tl
 from recfilter_tpu_torch.spec import Scan
 
 P, NA, NB, T = 2, 3, 4, 128
@@ -66,11 +69,12 @@ def test_kernels_match_twins(kind, dev):
     """max|kernel − twin| ≤ 1e-5·max|twin| (fp32 sums in another order)."""
     mom, fin = _modules(kind, dev)
     x, NA_t, NB_t = _inputs(dev)
-    tk2d.reset_launches()
+    tl.reset_launches()
     outs = mom(x)
     y = fin(x, NA_t, NB_t)
     torch.cuda.synchronize()
-    assert tk2d.LAUNCHES == {"moments2d": 1, "final2d": 1}
+    assert tl.LAUNCHES == {"moments2d": 1, "final2d": 1, "tails": 0,
+                           "completion": 0}
     for got, want in zip(outs, mom.plain(x)):
         assert _rel(got, want) <= 1e-5
     assert _rel(y, fin.plain(x, NA_t, NB_t)) <= 1e-5
@@ -111,3 +115,78 @@ def test_headline_filter_on_the_card(dev):
     want = rft.oracle_apply(F.spec, img.astype(np.float64))
     err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
     assert err <= 2e-6
+
+
+def _stack(kind, rows, cols, n, rng, scale=1.0):
+    """A per-tile stack: uniform, clamp (first/last differ) or pad (last
+    differs), as ``prepare_dim_pass`` shapes them."""
+    M = [rng.standard_normal((rows, cols)) * scale for _ in range(3)]
+    if kind == "uniform":
+        return M[0][None]
+    first = M[1] if kind == "clamp" else M[0]
+    return np.stack([first] + [M[0]] * (n - 2) + [M[2]])
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("S,q", [(2, 300), (6, 64), (29, 77), (56, 8)])
+def test_1d_kernels_match_twins(kind, S, q, dev):
+    """tails and completion against their twins, one to seven carry
+    slots, ragged line blocks: max|kernel − twin| ≤ 1e-5·max|twin|."""
+    rng = np.random.default_rng(S + q)
+    n = 5
+    tails = tc.TailsPass(_stack(kind, S, T, n, rng), n).to(dev)
+    comp = tc.CompletionPass(_stack(kind, T, T, n, rng, 0.1),
+                             _stack(kind, T, S, n, rng), n).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    tl.reset_launches()
+    b = tails(x)
+    y = comp(x, b)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == {"moments2d": 0, "final2d": 0, "tails": 1,
+                           "completion": 1}
+    assert b.shape == (n, tc.slots_for(S), q)
+    assert not b[:, S:].any()  # pad slots written as zeros
+    assert _rel(b, tails.plain(x)) <= 1e-5
+    assert _rel(y, comp.plain(x, b)) <= 1e-5
+
+
+def test_1d_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(1)
+    n, S, q = 3, 6, 16
+    tails = tc.TailsPass(_stack("clamp", S, T, n, rng), n).to(dev)
+    comp = tc.CompletionPass(_stack("clamp", T, T, n, rng),
+                             _stack("clamp", T, S, n, rng), n).to(dev)
+    x = torch.zeros((q, n, T), device=dev)
+    N = torch.zeros((n, 8, q), device=dev)
+    with pytest.raises(TypeError):
+        tails(x.double())
+    with pytest.raises(ValueError):
+        tails(x[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        tails(x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        comp(x, N[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        comp(x, N.cpu())
+    with pytest.raises(ValueError):
+        comp(x, torch.zeros((n, 8, q + 1), device=dev))
+
+
+def test_audio_filter_on_the_card(dev):
+    """The order-5 audio filter at 300,000 samples (the supertile
+    hierarchy, 10 supertiles) through ``realize`` on the card: one tails
+    and one completion launch, within 2e-6 of the f64 oracle."""
+    n = 300_000
+    x = (np.random.default_rng(2).standard_normal(n) * 0.1
+         ).astype(np.float32)
+    F = audio_filter_high_order(n, 5, 1000)
+    tl.reset_launches()
+    got = F.realize(x, device=dev)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == {"moments2d": 0, "final2d": 0, "tails": 1,
+                           "completion": 1}
+    want = rft.oracle_apply(F.spec, x.astype(np.float64))
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2e-6
+    assert F.profile(2, device=dev) > 0  # prints Msamples/s

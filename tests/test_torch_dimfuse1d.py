@@ -1,0 +1,290 @@
+"""The port's last-axis executor against the JAX package's and the f64
+oracle: the supertile hierarchy, the tiled last-axis pass, their gates,
+the carry solves, the audio builders through ``RecFilter``, and gradients.
+
+Same numpy inputs through ``recfilter_tpu.dimfuse`` (px6, Pallas
+interpret mode) and ``recfilter_tpu_torch.dimfuse`` (plain twins on the
+CPU). Bounds: against the oracle 2e-6 of the peak, 5e-6 for the mixed
+three-scan cascade — the JAX package's own bounds
+(``tests/test_dimfuse.py``); against the JAX package rtol=2e-5,
+atol=2e-6·scale (the px6 bound of the port's other parity tests), except
+on the σ=5 Gaussian, where the JAX px6 path itself sits 2.1e-6 – 3.1e-6 of
+the peak from the oracle on a 300,000-sample signal (three seeds, CPU)
+while the port sits within 1.2e-6: there the two packages agree to 1e-5·scale, as
+in ``tests/test_torch_api.py``. Gradients within 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recfilter_tpu import dimfuse as jdf
+from recfilter_tpu import iir as jiir
+from recfilter_tpu import scan_core as jsc
+from recfilter_tpu import spec as jspec
+from recfilter_tpu.apps import audio as japps
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch import spec as tspec
+from recfilter_tpu_torch.apps import audio as tapps
+
+_W3 = jiir.gaussian_weights(5.0, 3)
+
+
+def _gauss(mod, axis):
+    """3rd-order Gaussian (σ=5), causal then anticausal, ΣK = 6."""
+    return [mod.Scan(axis, c, _W3[0], tuple(_W3[1:])) for c in (True, False)]
+
+
+# the JAX package's own distance from the oracle on the σ=5 Gaussian
+# (module docstring) bounds how closely the packages can agree there
+_GAUSS_JAX_ATOL = 1e-5
+
+# name: (shape, scans(mod, axis), border, tile, oracle bound)
+HIER = {
+    "order2": ((100_000,), lambda m, a: [m.Scan(a, True, 0.9, (0.3, -0.1))],
+               "zero", 128, 2e-6),
+    "order3-clamp-anticausal": (
+        (100_001,), lambda m, a: [m.Scan(a, False, 0.9, (0.3, -0.1, 0.05))],
+        "clamp", 128, 2e-6),
+    "order12-kogge-stone": (
+        (70_000,), lambda m, a: [m.Scan(a, True, 1.0, (0.01,) * 12)],
+        "zero", 128, 2e-6),
+    "mixed-clamp-pad": (
+        (100_005,), lambda m, a: [
+            m.Scan(a, True, 0.9, (0.2, -0.05, 0.01, 0.004)),
+            m.Scan(a, False, 0.8, (0.3, 0.02, -0.01, 0.002)),
+            m.Scan(a, True, 1.1, (0.15, 0.05, -0.02))],
+        "clamp", 128, 5e-6),
+    # 8 channels x 2 supertiles = 16 lines: the level-1 locals take the
+    # kernel route
+    "gauss-kernel-lines": ((8, 40_000), _gauss, "zero", 128, 2e-6),
+}
+LAST = {
+    "pad-4x30000": ((4, 30_000), _gauss, "zero", 128, 2e-6),
+    "clamp-4x32768": ((4, 32_768), _gauss, "clamp", 128, 2e-6),
+    # 8 lines: the tails/completion kernel route with pad variants
+    "pad-8x30000-kernel": ((8, 30_000), _gauss, "zero", 128, 2e-6),
+}
+
+
+def _signal(shape, seed):
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.1
+            ).astype(np.float32)
+
+
+def _oracle(x, scans, border):
+    y = x.astype(np.float64)
+    for s in scans:
+        y = jsc.oracle_apply_scan(y, y.ndim - 1, s.causal, s.feedfwd,
+                                  list(s.feedback), border)
+    return y
+
+
+def _check(got, want, rtol=2e-5, atol=2e-6):
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=rtol,
+                               atol=atol * np.abs(want).max())
+
+
+def _run_both(case, seed):
+    shape, scans, border, tile, bound = case
+    x = _signal(shape, seed)
+    ax = len(shape) - 1
+    js, ts = scans(jspec, ax), scans(tspec, ax)
+    want = np.asarray(jdf.fused_dim_pass(jnp.asarray(x), ax, js, tile,
+                                         border, matmul_precision="px6"))
+    mod = tdf.FusedLastAxis(ts, shape[-1], tile, border)
+    got = mod(torch.from_numpy(x))
+    assert got.shape == x.shape and got.dtype == torch.float32
+    _check(got.numpy(), want,
+           atol=_GAUSS_JAX_ATOL if scans is _gauss else 2e-6)
+    oracle = _oracle(x, js, border)
+    assert (np.abs(got.numpy() - oracle).max()
+            <= bound * np.abs(oracle).max())
+    return mod
+
+
+@pytest.mark.parametrize("name", list(HIER))
+def test_hierarchy_matches_jax_and_oracle(name):
+    mod = _run_both(HIER[name], seed=len(name))
+    assert isinstance(mod.body, tdf.HierarchicalPass)
+    kernels = mod.body.locals[0].tails is not None
+    assert kernels, "px6 level-1 locals carry the tails/completion modules"
+
+
+@pytest.mark.parametrize("name", list(LAST))
+def test_last_axis_pass_matches_jax_and_oracle(name):
+    mod = _run_both(LAST[name], seed=len(name) + 1)
+    assert isinstance(mod.body, tdf.LastAxisPass)
+
+
+def test_kernel_route_is_taken_where_the_jax_gate_holds():
+    """The port runs its tails/completion modules exactly where the JAX
+    package's kernel branch runs: ≥ 8 lines, ≤ 256 tiles, px6."""
+    ts = _gauss(tspec, 1)
+    mod = tdf.FusedLastAxis(ts, 30_000, 128, "zero")
+    calls = []
+    orig = mod.body.tails.plain
+    mod.body.tails.plain = lambda x: calls.append(x.shape[0]) or orig(x)
+    for lines in (4, 8):
+        mod(torch.zeros(lines, 30_000))
+    assert calls == [8]
+    highest = tdf.FusedLastAxis(ts, 30_000, 128, "zero", "highest")
+    assert highest.body.tails is None and highest.body.completion is None
+
+
+# (w, order, precision): the arguments of ``test_dimfuse.py``'s gate test
+# and the supertile-count and last-supertile edges
+GATES = [(200_000, 65, "px6"), (200_000, 9, "px6"), (1000, 1, "px6"),
+         (200_000, 1, "highest"), (200_000, 1, "px6"),
+         (513 * 32_768, 1, "px6"), (600 * 32_768, 9, "px6"),
+         (4097 * 32_768, 9, "px6"), (32_770, 1, "px6"), (32_771, 1, "px6")]
+
+
+@pytest.mark.parametrize("w,order,precision", GATES)
+def test_hierarchy_gates_match_jax(w, order, precision):
+    """The same arguments decline or engage the hierarchy in both
+    packages (the JAX side traced with ``jax.eval_shape``: no compute)."""
+    js = [jspec.Scan(0, True, 1.0, (0.001,) * order)]
+    ts = [tspec.Scan(0, True, 1.0, (0.001,) * order)]
+    jout = jax.eval_shape(
+        lambda v: jdf.hierarchical_dim_pass(v, 0, js, "zero", precision),
+        jax.ShapeDtypeStruct((w,), jnp.float32))
+    engaged = tdf._hierarchy_ok(w, ts, precision)
+    assert engaged == (jout is not None)
+    if not engaged and w <= 200_000:
+        assert tdf.hierarchical_dim_pass(
+            torch.ones(w), 0, ts, "zero", precision) is None
+
+
+def test_default_precision_is_not_ported():
+    """The JAX package's "default" grade rides the hierarchy; the port
+    does not run that grade yet and says so."""
+    ts = [tspec.Scan(0, True, 1.0, (0.5,))]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdf.hierarchical_dim_pass(torch.ones(200_000), 0, ts, "zero",
+                                  "default")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_chain_solves_match_jax(causal):
+    """The associative tile chain and the Kogge–Stone segment chain
+    against the JAX package's on the same tails."""
+    rng = np.random.default_rng(int(causal))
+    fb = (0.5, -0.2, 0.1)
+    js, ts = (m.Scan(0, causal, 1.0, fb) for m in (jspec, tspec))
+    b = rng.standard_normal((3, 37, 3))
+    k = len(fb)
+    J = torch.from_numpy(np.eye(k)[::-1].copy())
+    W = torch.from_numpy(jdf.coeffs.tail_weight_matrix(fb, 16))
+    want = jdf._chain_solve_assoc(jnp.asarray(b), js, 16,
+                                  lambda M: jnp.asarray(M, jnp.float64), True)
+    got = tdf._chain_solve_assoc(torch.from_numpy(b), causal, W, J)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-12)
+    want = jdf._chain_prefix_axis(jnp.asarray(b), js, 16, 37,
+                                  jax.lax.Precision.HIGHEST)
+    got = tdf._chain_prefix_axis(torch.from_numpy(b), causal,
+                                 torch.from_numpy(tdf._ks_powers(fb, 16, 37)),
+                                 J)
+    _check(got.numpy(), want)
+
+
+def test_banded_applies_match_jax():
+    rng = np.random.default_rng(5)
+    n, S, q = 9, 5, 11
+    bands = [(d, rng.standard_normal((n, S, S))) for d in (-1, 0, 2)]
+    tb = [(d, torch.from_numpy(b)) for d, b in bands]
+    bt = np.zeros((n, 8, q))
+    bt[:, :S] = rng.standard_normal((n, S, q))
+    _check(tdf._banded_solve_apply(tb, torch.from_numpy(bt), S).numpy(),
+           jdf._banded_solve_apply(bands, jnp.asarray(bt), S))
+    bn = rng.standard_normal((2, 3, n, S))
+    _check(tdf._banded_solve_apply_nat(tb, torch.from_numpy(bn)).numpy(),
+           jdf._banded_solve_apply_nat(bands, jnp.asarray(bn),
+                                       jax.lax.Precision.HIGHEST))
+
+
+@pytest.mark.parametrize("builder,arg", [("audio_filter_high_order", 5),
+                                         ("audio_filter_biquads", 3)])
+def test_audio_builders_match_jax(builder, arg):
+    """The audio apps at 300,000 samples, tile 1000 (300 tiles: the
+    supertile hierarchy), through ``RecFilter.realize`` in both
+    packages."""
+    n = 300_000
+    x = _signal(n, 7)
+    Fj = getattr(japps, builder)(n, arg, 1000)
+    Ft = getattr(tapps, builder)(n, arg, 1000)
+    assert tspec.spec_to_json(Ft.spec) == jspec.spec_to_json(Fj.spec)
+    got = Ft.realize(x, device="cpu")
+    assert isinstance(got, torch.Tensor) and got.shape == (n,)
+    assert isinstance(Ft._func(torch.device("cpu")).body,
+                      tdf.HierarchicalPass)
+    _check(got.numpy(), np.asarray(Fj.realize(jnp.asarray(x))))
+
+
+def test_gradient_matches_jax():
+    """torch.autograd through the port's hierarchy (kernel-route twins:
+    10 supertiles) against jax.grad through the JAX package's, for
+    sum(y²)."""
+    n = 300_000
+    x = _signal(n, 9)
+    js, ts = ([m.Scan(0, True, 0.9, (0.3, -0.1, 0.05))] for m in (jspec,
+                                                                  tspec))
+    g_jax = np.asarray(jax.grad(lambda v: jnp.sum(jdf.fused_dim_pass(
+        v, 0, js, 128, "zero", matmul_precision="px6") ** 2))(
+            jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (g,) = torch.autograd.grad(
+        (tdf.fused_dim_pass(xt, 0, ts, 128, "zero") ** 2).sum(), xt)
+    np.testing.assert_allclose(g.numpy(), g_jax, rtol=1e-4, atol=1e-4)
+
+
+def _spec(mod, dims, scans, **kw):
+    return mod.FilterSpec("S", tuple(mod.Dim(n, e) for n, e in dims),
+                          tuple(scans), **kw)
+
+
+def test_one_dim_filters_run_through_the_api():
+    """``F[x] = signal`` with ``split`` runs end to end; a channel axis
+    rides in front of the scanned one."""
+    x = _signal((3, 5000), 3)
+    c, t = rft.Dim("c", 3), rft.Dim("t", 5000)
+    F = rft.RecFilter("chans")
+    F[c, t] = x
+    F.add_filter(+t, [0.9, 0.3, -0.1])
+    F.add_filter(-t, [0.8, 0.4])
+    F.split(t, 128)
+    got = F.realize(device="cpu").numpy()
+    want = jdf.apply_filter_fused(
+        _spec(jspec, [("c", 3), ("t", 5000)],
+              [jspec.Scan(1, True, 0.9, (0.3, -0.1)),
+               jspec.Scan(1, False, 0.8, (0.4,))], tile_widths=(0, 128)),
+        jnp.asarray(x), matmul_precision="px6")
+    _check(got, want)
+
+
+@pytest.mark.parametrize("case", ["rows-only", "middle-axis", "prime-clamp"])
+def test_filters_the_port_does_not_run_raise(case):
+    s = (0.9, (0.5,))
+    spec = {
+        "rows-only": _spec(tspec, [("y", 256), ("x", 256)],
+                           [tspec.Scan(0, True, *s)], tile_widths=(128, 128)),
+        "middle-axis": _spec(tspec, [("c", 2), ("y", 256), ("x", 256)],
+                             [tspec.Scan(1, True, *s)],
+                             tile_widths=(0, 128, 128)),
+        # no divisor ≥ the order: the JAX package's lax.scan core
+        "prime-clamp": _spec(tspec, [("x", 1009)],
+                             [tspec.Scan(0, True, 0.9, (0.5, 0.1))],
+                             border="clamp", tile_widths=(128,)),
+    }[case]
+    item = "item 15" if case == "prime-clamp" else "item 8"
+    with pytest.raises(NotImplementedError, match=item):
+        tdf.fused_filter_module(spec)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tdf.fused_dim_pass(torch.zeros(4, 300), 0,
+                           [tspec.Scan(0, True, *s)], 128)

@@ -18,6 +18,7 @@ from recfilter_tpu.kernels import final2d as jk2d
 from recfilter_tpu_torch import dimfuse as tdf
 from recfilter_tpu_torch import iir as tiir
 from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.kernels import launch as tl
 from recfilter_tpu_torch.spec import Scan as TScan
 
 P, NA, NB, T = 2, 2, 3, 128
@@ -99,7 +100,7 @@ def test_kernel_backward_is_the_twins_vjp(kind):
         cts = [torch.from_numpy(rng.standard_normal(o.shape)
                                 .astype(np.float32)) for o in outs]
         want = torch.autograd.grad(outs, ins, cts)
-        got = tk2d._linear_vjp(mod.plain, [i.shape for i in ins],
+        got = tl._linear_vjp(mod.plain, [i.shape for i in ins],
                                torch.device("cpu"), cts)
         for g, w in zip(got, want):
             _assert_close(g.numpy(), w.numpy())

@@ -181,3 +181,66 @@ def test_testing_helpers_match(lo, hi):
     j, t = jtesting.CheckResult(want, out), ttesting.CheckResult(want, out)
     assert (t.max_error, t.mean_error) == (j.max_error, j.mean_error)
     assert repr(t) == repr(j)
+
+
+@pytest.mark.parametrize("w,tile,kmax,clamp", [
+    (10_000_000, 1000, 29, False), (1_000_001, 1000, 3, True),
+    (70_001, 50, 3, True), (300_005, 128, 4, True), (40, 128, 3, False),
+    (100, 128, 200, False), (4099, 128, 2, True)])
+def test_plan_tiles_matches(w, tile, kmax, clamp):
+    assert tdf._plan_tiles(w, tile, kmax, clamp) == \
+        jdf._plan_tiles(w, tile, kmax, clamp)
+
+
+@pytest.mark.parametrize("border", list(BORDERS))
+@pytest.mark.parametrize("scans_name", ["gauss3", "mixed"])
+def test_banded_solve_blocks_match(scans_name, border):
+    """At 64 tiles the banded form engages for these decaying filters;
+    both packages keep the same offsets and blocks."""
+    clamp, pad = BORDERS[border]
+    n = 64
+    jm = jdf.prepare_dim_pass(_scan_sets(jspec)[scans_name], T, n, clamp,
+                              pad_slots=pad)
+    tm = tdf.prepare_dim_pass(_scan_sets(tspec)[scans_name], T, n, clamp,
+                              pad_slots=pad)
+    S = sum(jm.orders)
+    jb = jdf.banded_solve_blocks(jdf.combined_solve_matrix(jm, n), n, S)
+    tb = tdf.banded_solve_blocks(tdf.combined_solve_matrix(tm, n), n, S)
+    assert jb is not None and [d for d, _ in tb] == [d for d, _ in jb]
+    for (_, a), (_, b) in zip(jb, tb):
+        _close(a, b)
+    # below 64 tiles both keep the dense solve
+    assert tdf.banded_solve_blocks(tdf.combined_solve_matrix(
+        tdf.prepare_dim_pass(_scan_sets(tspec)[scans_name], T, N, clamp,
+                             pad_slots=pad), N), N, S) is None
+
+
+@pytest.mark.parametrize("clamp,pad", [(False, 0), (True, 0), (False, 37),
+                                       (True, 37)])
+@pytest.mark.parametrize("scans_name", ["gauss3", "mixed"])
+def test_segment_exchange_mats_match(scans_name, clamp, pad):
+    """The supertile level-2 builders of ``parallel.sharding`` (segment
+    length 256, 5 segments) equal the JAX package's."""
+    from recfilter_tpu.parallel import sharding as jsh
+    from recfilter_tpu_torch.parallel import sharding as tsh
+
+    seg, D = 256, 5
+    js, ts = _scan_sets(jspec)[scans_name], _scan_sets(tspec)[scans_name]
+    jo, jH, jCM, jR = jsh._segment_exchange_mats(js, seg, D, clamp, pad)
+    to, tH, tCM, tR = tsh._segment_exchange_mats(ts, seg, D, clamp, pad)
+    assert to == jo
+    _close(jR, tR)
+    for i in range(len(jo)):
+        _close(jCM[i], tCM[i])
+        for j in range(i):
+            _close(jH[i][j], tH[i][j])
+    _close(jsh._combined_solve(jo, jH, jCM, D),
+           tsh._combined_solve(to, tH, tCM, D))
+    for s_j, s_t in zip(js, ts):
+        _close(jsh._clamp_col(s_j, seg - pad, total=seg),
+               tsh._clamp_col(s_t, seg - pad, total=seg))
+        M = np.random.default_rng(1).standard_normal((seg, 3))
+        _close(jsh._evolve_cols(M, s_j, True, seg - pad),
+               tsh._evolve_cols(M, s_t, True, seg - pad))
+        _close(jsh._apply_scan_cols(M, s_j, "zero"),
+               tsh._apply_scan_cols(M, s_t, "zero"))
