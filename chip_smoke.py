@@ -22,34 +22,60 @@ The 1-D last-axis path, on ``tails`` and ``completion``:
   E  64 channels × 32,768 samples, the Gaussian of C, tile 128, clamp —
      one tiled pass with first/last variants.
 
+The rows path (a scan on a non-last axis, everything after it flattened
+into lanes), on ``rows_tails`` and ``rows_final``, with the σ=5 Gaussian
+causal + anticausal on every scanned axis, float32, px6, tiles of 128:
+
+  V1  256³, zero border, ``scripts/bench_volume.py``'s filter and input
+      (N(0,1)·0.01, seed 0): the rows pass on z, then the 2-D executor on
+      (y, x) with the depth as its batch;
+  V2  512³ (a CT volume: 0.5 GB in, 0.5 GB out), clamp border;
+  S1  ``apps.gaussian_3x_3y(4096, 4096)``: x on the 1-D kernels, then y on
+      the rows kernels — timed against ``gaussian_3xy``, the same filter on
+      the 3-touch path;
+  S2  ``apps.gaussian_1xy_2x_2y(4096, 4096)``: its three stages run all six
+      kernels;
+  S3  y only on 8192 × 4096, zero border: 64 tiles, the banded carry solve;
+  S4  axes {0, 2} of 256 × 512 × 1024, zero border: a rows pass with
+      524,288 lanes, then a last-axis pass (x split at 128).
+
 Phases:
 
   1. the card, its power limit and the fp32 matmul settings; build the
-     four CUDA kernels from ``recfilter_tpu_torch/kernels/csrc`` (one
+     six CUDA kernels from ``recfilter_tpu_torch/kernels/csrc`` (one
      ``nvcc`` each, all at once);
   2. each kernel against its plain PyTorch twin on the card at its path's
-     shapes (2-D: 4096² zero and clamp, 1080×1920 padded; 1-D: A, B, E):
-     max|kernel − twin| ≤ 1e-5·max|twin|;
-  3. each path end to end through ``RecFilter.as_func()`` on the card, the
+     shapes (2-D: 4096² zero and clamp, 1080×1920 padded; 1-D: A, B, E;
+     rows: V1, V2, S3): max|kernel − twin| ≤ 1e-5·max|twin|, carry pad
+     slots written as zeros;
+  3. each path end to end through ``RecFilter.as_func()`` (the cascades
+     through ``RecFilter.realize`` / ``apps.run_cascade``) on the card, the
      launch counts set to 0 just before each call and read just after: the
      2-D cases launch moments2d and final2d once each and no 1-D kernel;
      A, B, D, E launch tails and completion once each, C twice (one per
-     scan), and no 2-D kernel. Error against the f64 reference ≤ 2e-6 of
-     the peak (5e-6 for C) — the JAX package's bounds. The 10M cases are
-     held to ``scipy.signal.lfilter`` in float64, itself checked against
-     the definitional oracle on a 100,000-sample prefix; C, D, E to the
-     oracle itself;
+     scan), and no 2-D kernel; V1 and V2 launch rows_tails, rows_final,
+     moments2d and final2d once each; S1's second stage and S3 the two
+     rows kernels only; S2 all six once; S4 the rows and 1-D kernels once.
+     Error against the f64 reference ≤ 2e-6 of the peak (5e-6 for C) — the
+     JAX package's bounds. The 10M cases are held to
+     ``scipy.signal.lfilter`` in float64, itself checked against the
+     definitional oracle on a 100,000-sample prefix; every other case to
+     the oracle itself (a cascade to the oracle of its whole filter);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
-     3, the hierarchy);
+     3, the hierarchy), a 128 × 128 × 256 volume;
   5. device times (CUDA events, median of single calls) of the whole call
-     and of each kernel, beside their plain twins; for A and B also the
-     first-call host build and a profile of one call (device ops, busy
-     time, idle share); for A–E the error of the fp32-accumulating tails
-     variant, end to end.
+     and of each kernel, beside their plain twins and, where one PyTorch
+     call computes a kernel's function, beside that call; for A, B and V1
+     also a profile of one call (device ops, busy time, idle share); for
+     A and B the first-call host build; for A–E the error of the
+     fp32-accumulating tails variant, end to end.
 
 The last line is the JSON result; the line before it is the card's name
-and power limit; before that a JSON line describes each kernel.
+and power limit; before that a JSON line describes each kernel, with its
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+fp32 (67 TFLOP/s) or fp64 (33.5 TFLOP/s, the fp64-summing tails kernels)
+peak of an H100 SXM.
 """
 
 import json
@@ -62,6 +88,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 H = W = 4096
 N_TIMED = 25
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 and fp64 FLOP/s
+PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 33.5e12
 
 
 def check(ok, what):
@@ -92,12 +120,84 @@ def build_filter(rft, h, w, image, clamp=False):
     return F
 
 
-def image(h, w, seed=0):
+def image(*shape, seed=0):
     import numpy as np
 
     # bench.py's input: N(0,1)·0.01 from np.random.default_rng(seed)
-    return (np.random.default_rng(seed).standard_normal((h, w)) * 0.01
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.01
             ).astype(np.float32)
+
+
+def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND"):
+    """The σ=5 3rd-order Gaussian, causal + anticausal on each of
+    ``axes`` (in that order), tiles of 128, bound to ``image(*shape)``:
+    ``scripts/bench_volume.py``'s filter for ``axes = (0, 1, 2)``."""
+    wts = rft.gaussian_weights(5.0, 3)
+    dims = [rft.Dim(nm, e) for nm, e in zip("wzyx"[-len(shape):], shape)]
+    F = rft.RecFilter(name)
+    if clamp:
+        F.set_clamped_image_border()
+    F[tuple(dims)] = image(*shape)
+    for ax in axes:
+        F.add_filter(+dims[ax], wts)
+        F.add_filter(-dims[ax], wts)
+    F.split({dims[ax]: 128 for ax in axes})
+    return F
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before the call
+    and read just after: (output, counts)."""
+    import torch
+
+    from recfilter_tpu_torch.kernels import launch
+
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(launch.LAUNCHES)
+
+
+def roofline(nbytes, flops, rate):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of traffic and
+    ``flops`` operations at ``rate`` — the larger of the two."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def median_ms(fn, *args):
+    """Median single-call CUDA-event time of ``fn(*args)``."""
+    from recfilter_tpu_torch.utils import timing
+
+    return statistics.median(timing.call_times_ms(
+        fn, *args, iterations=2 * N_TIMED, warmup=3))
+
+
+def device_ms(fn, *args):
+    """Device time per call of ``fn(*args)`` from the profiler — the sum
+    of its kernels and copies, free of the host's launch gaps that a
+    host-bound single call adds to its CUDA-event time."""
+    from recfilter_tpu_torch.utils import timing
+
+    busy = timing.device_profile(fn, *args, iterations=10)["busy_ms"]
+    check(busy is not None, "the profiler recorded device time")
+    return busy
+
+
+def oracle_err(spec, x_np, y):
+    """max|y − oracle| / max|oracle| against the f64 oracle of ``spec``."""
+    import numpy as np
+
+    from recfilter_tpu_torch import scan_core
+
+    want = scan_core.oracle_apply(spec, x_np.astype(np.float64))
+    got = y.cpu().numpy().astype(np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 def gauss_1d(rft, shape, tile, clamp):
@@ -171,7 +271,9 @@ def main() -> int:
 
     import recfilter_tpu_torch as rft
     from recfilter_tpu_torch import scan_core
-    from recfilter_tpu_torch.apps import audio_filter_high_order
+    from recfilter_tpu_torch.apps import (audio_filter_high_order,
+                                          gaussian_1xy_2x_2y, gaussian_3x_3y,
+                                          gaussian_3xy, run_cascade)
     from recfilter_tpu_torch.kernels import _build
     from recfilter_tpu_torch.kernels import launch
     from recfilter_tpu_torch.utils import timing
@@ -287,6 +389,60 @@ def main() -> int:
                 max_abs["tails"] = (b - bp).abs().max().item()
                 max_abs["completion"] = (y - yp).abs().max().item()
 
+    print("== phase 2c: build the rows-path cases; rows_tails and rows_final "
+          "against their twins on the card", flush=True)
+    rows_cases = {}  # label: (filter, module on the card, input)
+    for label, make in (
+            ("V1", lambda: gauss_axes(rft, (256, 256, 256), (0, 1, 2))),
+            ("V2", lambda: gauss_axes(rft, (512, 512, 512), (0, 1, 2),
+                                      clamp=True)),
+            ("S3", lambda: gauss_axes(rft, (8192, 4096), (0,))),
+            ("S4", lambda: gauss_axes(rft, (256, 512, 1024), (0, 2)))):
+        F = make()
+        t0 = time.perf_counter()
+        mod = F.as_func()
+        rows = mod if isinstance(mod, rft.FusedRowsPx) else mod.stages[0]
+        print(f"  {label}: {F.spec.dims}, border {F.spec.border}, route "
+              f"{getattr(mod, 'route', type(mod).__name__)} "
+              f"[{', '.join(type(m).__name__ for m in getattr(mod, 'stages', [mod]))}]"
+              f", rows pass n = {rows.n} tiles x W = {rows.W} lanes, solve "
+              f"{'banded' if rows.offsets else 'dense'}, host build "
+              f"{time.perf_counter() - t0:.2f} s")
+        rows_cases[label] = (F, mod.to(dev), F._image)
+    check(isinstance(rows_cases["S3"][1], rft.FusedRowsPx)
+          and rows_cases["S3"][1].offsets is not None,
+          "S3 runs the rows pass alone, on the banded carry solve")
+
+    def rows_of(label):
+        mod = rows_cases[label][1]
+        return mod if isinstance(mod, rft.FusedRowsPx) else mod.stages[0]
+
+    for label in ("V1", "V2", "S3"):
+        rows = rows_of(label)
+        with torch.no_grad():
+            X4 = rows.tile(torch.from_numpy(rows_cases[label][2]).to(dev))
+            b = rows.tails(X4)
+            bp = rows.tails.plain(X4)
+            torch.cuda.synchronize()
+            err = rel_err(b, bp)
+            print(f"  {label} rows_tails {tuple(X4.shape)} -> "
+                  f"{tuple(b.shape)} ({rows.tails.G_v.shape[0]} variants): "
+                  f"max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"{label} rows_tails within 1e-5")
+            check(not b[:, :, rows.K:].any(),
+                  f"{label} rows_tails pad slots zero")
+            N = rows.carries(X4, rows.tails.plain)
+            y = rows.final(X4, N)
+            yp = rows.final.plain(X4, N)
+            torch.cuda.synchronize()
+            err = rel_err(y, yp)
+            print(f"  {label} rows_final: max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"{label} rows_final within 1e-5")
+            if label == "V1":
+                max_abs["rows_tails"] = (b - bp).abs().max().item()
+                max_abs["rows_final"] = (y - yp).abs().max().item()
+            del X4, b, bp, N, y, yp
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
     main_launches = {}
@@ -296,13 +452,8 @@ def main() -> int:
         return {k: kw.get(k, 0) for k in launch.SIGNATURES}
 
     for label, (F, mod, img) in modules.items():
-        x = torch.from_numpy(img).to(dev)
         with torch.no_grad():
-            torch.cuda.synchronize()
-            launch.reset_launches()
-            y = mod(x)
-            torch.cuda.synchronize()
-            launches = dict(launch.LAUNCHES)
+            y, launches = counted(mod, torch.from_numpy(img).to(dev))
         print(f"  {label}: launches {launches}")
         check(launches == only(moments2d=1, final2d=1),
               f"{label}: each 2-D kernel launched once by the call, no 1-D "
@@ -312,10 +463,7 @@ def main() -> int:
                                  final2d=launches["final2d"])
         check(tuple(y.shape) == img.shape and bool(torch.isfinite(y).all()),
               f"{label}: output finite, shape {img.shape}")
-        oracle = rft.oracle_apply(F.spec, img.astype(np.float64))
-        peak = float(np.abs(oracle).max())
-        err = float(np.abs(y.cpu().numpy().astype(np.float64)
-                           - oracle).max()) / peak
+        err = oracle_err(F.spec, img, y)
         print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
         check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the "
               "f64 oracle")
@@ -339,11 +487,7 @@ def main() -> int:
         xs = signal(F._image.shape)
         x = torch.from_numpy(xs).to(dev)
         with torch.no_grad():
-            torch.cuda.synchronize()
-            launch.reset_launches()
-            y = mod(x)
-            torch.cuda.synchronize()
-            launches = dict(launch.LAUNCHES)
+            y, launches = counted(mod, x)
         print(f"  {label}: launches {launches}")
         k = expect[label]
         check(launches == only(tails=k, completion=k),
@@ -366,6 +510,60 @@ def main() -> int:
         check(err <= bound, f"{label}: within {bound:g} of the {what}")
         refs[label] = (x, want)
 
+    print("== phase 3c: the rows path end to end through RecFilter.as_func()"
+          " and the cascades' realize", flush=True)
+    expect_rows = {
+        "V1": only(rows_tails=1, rows_final=1, moments2d=1, final2d=1),
+        "V2": only(rows_tails=1, rows_final=1, moments2d=1, final2d=1),
+        "S3": only(rows_tails=1, rows_final=1),
+        "S4": only(rows_tails=1, rows_final=1, tails=1, completion=1)}
+    for label, (F, mod, xs) in rows_cases.items():
+        with torch.no_grad():
+            y, launches = counted(mod, torch.from_numpy(xs).to(dev))
+        print(f"  {label}: launches {launches}")
+        check(launches == expect_rows[label],
+              f"{label}: launches {expect_rows[label]}")
+        if label == "V1":
+            main_launches.update(rows_tails=launches["rows_tails"],
+                                 rows_final=launches["rows_final"])
+        check(tuple(y.shape) == xs.shape and bool(torch.isfinite(y).all()),
+              f"{label}: output finite, shape {xs.shape}")
+        err = oracle_err(F.spec, xs, y)
+        print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the f64 "
+              "oracle")
+        del y
+    img = image(H, W)
+    # S1, stage by stage through realize: x on the 1-D kernels, y on rows
+    fc = gaussian_3x_3y(W, H)
+    out = img
+    for f, want in zip(fc, (only(tails=1, completion=1),
+                            only(rows_tails=1, rows_final=1))):
+        with torch.no_grad():
+            out, launches = counted(
+                lambda v, f=f: f.realize(v, device=dev), out)
+        print(f"  S1 stage {f.name} ({[str(s) for s in f.spec.scans]}): "
+              f"launches {launches}")
+        check(launches == want, f"S1 stage {f.name}: launches {want}")
+    err = oracle_err(gaussian_3xy(W, H).spec, img, out)
+    print(f"  S1: max|y - oracle of gaussian_3xy|/max = {err:.3e}")
+    check(err <= 2e-6, "S1: within 2e-6 of the whole filter's oracle")
+    # S2, the whole chain through run_cascade: all six kernels once
+    fc = gaussian_1xy_2x_2y(W, H)
+    with torch.no_grad():
+        out, launches = counted(
+            lambda v: run_cascade(fc, v, device=dev), img)
+    print(f"  S2: launches {launches}")
+    check(launches == {k: 1 for k in launch.SIGNATURES},
+          "S2: each of the six kernels launched once by the cascade")
+    whole = rft.FilterSpec("G", fc[0].spec.dims,
+                           sum((f.spec.scans for f in fc), ()),
+                           border="clamp", tile_widths=(128, 128))
+    err = oracle_err(whole, img, out)
+    print(f"  S2: max|y - oracle of the whole filter|/max = {err:.3e}")
+    check(err <= 2e-6, "S2: within 2e-6 of the whole filter's oracle")
+    del out
+
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
     grad_cases = [
@@ -373,7 +571,10 @@ def main() -> int:
          img),
         ("1-D 300,000 order 3",
          audio_filter_high_order(300_000, 3, 1000).as_func().to(dev),
-         signal((300_000,), seed=1))]
+         signal((300_000,), seed=1)),
+        ("volume 128x128x256",
+         gauss_axes(rft, (128, 128, 256), (0, 1, 2)).as_func().to(dev),
+         image(128, 128, 256, seed=1))]
     for label, mod, xin in grad_cases:
         grads = []
         for fwd in (mod.forward, mod.forward_plain):
@@ -401,6 +602,23 @@ def main() -> int:
             "final2d": paired_times(mod.final, mod.final.plain, X4, NA_t,
                                     NB_t),
         }
+        # bounds: bA_t and term1 have NA_t's and NB_t's shapes; moments2d
+        # sums in fp64, final2d multiplies in fp32; no one PyTorch call
+        # computes either function
+        Ka, Kb, pix = mod.Ka, mod.moments.Kb, X4.numel()
+        dev_t = {
+            "moments2d": (device_ms(mod.moments, X4),
+                          device_ms(mod.moments.plain, X4), None),
+            "final2d": (device_ms(mod.final, X4, NA_t, NB_t),
+                        device_ms(mod.final.plain, X4, NA_t, NB_t), None)}
+        extra = {
+            "moments2d": (*roofline(
+                tensor_bytes(X4, NA_t, NB_t, mod.moments.Ga_v, mod.moments.Gb_v,
+                       mod.moments.Ba1T_v),
+                2.0 * (Ka + 2 * Kb) * pix, PEAK_FP64), None),
+            "final2d": (*roofline(
+                tensor_bytes(X4, NA_t, NB_t, X4, mod.final.A1_v, mod.final.B2_v),
+                2.0 * (2 * 128 + Ka + Kb) * pix, PEAK_FP32), None)}
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel path {k_ms:.4f} ms "
               f"({timing.mpix_per_sec(k_ms, px):.0f} Mpix/s), plain "
@@ -422,6 +640,36 @@ def main() -> int:
                                             loc.completion.plain, X, Nt)}
             if label == "A":
                 times.update(tails=t["tails"], completion=t["completion"])
+                # one PyTorch call each: the tails as an einsum, the
+                # completion as one matmul of [x, Nᵀ] against [Btotᵀ; Rᵀ]
+                # (one variant: A has zero border and no pad)
+                check(loc.tails.G_v.shape[0] == 1
+                      and loc.completion.BR_v.shape[0] == 1,
+                      "A's tiles share one matrix variant")
+                G0, BR0 = loc.tails.G_v[0], loc.completion.BR_v[0]
+                XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
+                check(rel_err(torch.einsum("st,qnt->nsq", G0, X),
+                              loc.tails(X)) <= 1e-5
+                      and rel_err(torch.matmul(XN, BR0),
+                                  loc.completion(X, Nt)) <= 1e-5,
+                      "A: the library calls compute the kernels' functions")
+                tails_lib = (
+                    lambda g, v: torch.einsum("st,qnt->nsq", g, v))
+                dev_t["tails"] = (device_ms(loc.tails, X),
+                                  device_ms(loc.tails.plain, X),
+                                  device_ms(tails_lib, G0, X))
+                dev_t["completion"] = (
+                    device_ms(loc.completion, X, Nt),
+                    device_ms(loc.completion.plain, X, Nt),
+                    device_ms(torch.matmul, XN, BR0))
+                extra["tails"] = (*roofline(
+                    tensor_bytes(X, Nt, loc.tails.G_v), 2.0 * S * X.numel(),
+                    PEAK_FP64), median_ms(tails_lib, G0, X))
+                extra["completion"] = (*roofline(
+                    tensor_bytes(X, Nt, X, loc.completion.BR_v),
+                    2.0 * (128 + S) * X.numel(), PEAK_FP32),
+                    median_ms(torch.matmul, XN, BR0))
+                del XN
             prof = timing.device_profile(mod, x, iterations=10)
         nbytes = X.numel() * 4 + n * sl * q * 4
         flops = 2.0 * q * n * 128 * (128 + sl)
@@ -466,18 +714,136 @@ def main() -> int:
         print(f"  {label}: fp32 tails sums, max|y - ref|/max|ref| = "
               f"{err:.3e} (fp64 sums: phase 3b)")
 
+    print("== phase 5d: rows-path device times (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)", flush=True)
+    for label in ("V1", "V2", "S3"):
+        F, mod, xs = rows_cases[label]
+        rows = rows_of(label)
+        x = torch.from_numpy(xs).to(dev)
+        with torch.no_grad():
+            X4 = rows.tile(x)
+            N = rows.carries(X4, rows.tails.plain)
+            t = {"filter": paired_times(mod, mod.forward_plain, x),
+                 "rows_tails": paired_times(rows.tails, rows.tails.plain,
+                                            X4),
+                 "rows_final": paired_times(rows.final, rows.final.plain,
+                                            X4, N)}
+            K, vox = rows.K, X4.numel()
+            tb = tensor_bytes(X4, N, rows.tails.G_v)
+            fb = tensor_bytes(X4, N, X4, rows.final.A1_v)
+            flops = 2.0 * (128 + K) * vox
+            if label == "V2":
+                print(f"  V2 device times (profiler): rows_tails "
+                      f"{device_ms(rows.tails, X4):.4f} ms, rows_final "
+                      f"{device_ms(rows.final, X4, N):.4f} ms")
+            if label == "V1":
+                times.update(rows_tails=t["rows_tails"],
+                             rows_final=t["rows_final"])
+                # one PyTorch call each (one variant at zero border): G·x
+                # as a matmul (fp32 sums), and [Btot | Rhat]·[x; N]
+                check(rows.tails.G_v.shape[0] == 1,
+                      "V1's tiles share one matrix variant")
+                G0, A0 = rows.tails.G_v[0], rows.final.A1_v[0].T
+                XN = torch.cat([X4, N], dim=2)
+                check(rel_err(torch.matmul(G0, X4), rows.tails(X4)) <= 1e-5
+                      and rel_err(torch.matmul(A0, XN),
+                                  rows.final(X4, N)) <= 1e-5,
+                      "V1: the library calls compute the kernels' functions")
+                dev_t["rows_tails"] = (
+                    device_ms(rows.tails, X4), device_ms(rows.tails.plain, X4),
+                    device_ms(torch.matmul, G0, X4))
+                dev_t["rows_final"] = (
+                    device_ms(rows.final, X4, N),
+                    device_ms(rows.final.plain, X4, N),
+                    device_ms(torch.matmul, A0, XN))
+                extra["rows_tails"] = (*roofline(tb, 2.0 * K * vox, PEAK_FP64),
+                                       median_ms(torch.matmul, G0, X4))
+                extra["rows_final"] = (*roofline(fb, flops, PEAK_FP32),
+                                       median_ms(torch.matmul, A0, XN))
+                del XN
+                prof = timing.device_profile(mod, x, iterations=10)
+            del X4, N
+        for name, (k_ms, p_ms) in t.items():
+            print(f"  {label} {name}: kernel path {k_ms:.4f} ms "
+                  f"({timing.mpix_per_sec(k_ms, xs.size):.0f} Mvox/s), "
+                  f"plain {p_ms:.4f} ms "
+                  f"({timing.mpix_per_sec(p_ms, xs.size):.0f} Mvox/s) on "
+                  f"{card}")
+        print(f"  {label} rows_tails: {tb / 1e6:.1f} MB in "
+              f"{t['rows_tails'][0]:.4f} ms = "
+              f"{tb / t['rows_tails'][0] / 1e9:.3f} TB/s, "
+              f"{100 * tb / t['rows_tails'][0] / 1e9 / 3.35:.1f} % of "
+              "3.35 TB/s")
+        print(f"  {label} rows_final: {flops / 1e9:.2f} GFLOP in "
+              f"{t['rows_final'][0]:.4f} ms = "
+              f"{flops / t['rows_final'][0] / 1e9:.2f} TFLOP/s, "
+              f"{100 * flops / t['rows_final'][0] / 1e9 / 67:.1f} % of the "
+              "67 TFLOP/s fp32 peak")
+        if label == "V1":
+            busy = ("not measured" if prof["busy_ms"] is None else
+                    f"{prof['busy_ms']:.4f} ms, idle "
+                    f"{100 * prof['idle']:.1f} %")
+            print(f"  V1 profile: call {prof['call_ms']:.4f} ms, device busy "
+                  f"{busy}, {prof['device_ops']:.0f} device ops per call; "
+                  "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
+                                      for nm, ms in prof["top"]))
+        del x
+    fc = gaussian_3x_3y(W, H)
+    stages = [f.as_func().to(dev) for f in fc]
+    three = gaussian_3xy(W, H).as_func().to(dev)
+
+    def staged(v):
+        for m in stages:
+            v = m(v)
+        return v
+
+    with torch.no_grad():
+        x = torch.from_numpy(image(H, W)).to(dev)
+        check(rel_err(staged(x), three(x)) <= 2e-6,
+              "S1 staged equals gaussian_3xy within 2e-6")
+        s_ms, t_ms = paired_times(staged, three, x)
+        s_prof = timing.device_profile(staged, x, iterations=10)
+        t_prof = timing.device_profile(three, x, iterations=10)
+    print(f"  S1 gaussian_3x_3y, both stages: {s_ms:.4f} ms "
+          f"({timing.mpix_per_sec(s_ms, H * W):.0f} Mpix/s); gaussian_3xy "
+          f"(3-touch): {t_ms:.4f} ms "
+          f"({timing.mpix_per_sec(t_ms, H * W):.0f} Mpix/s); ratio "
+          f"{s_ms / t_ms:.3f} on {card}")
+    for what, pr in (("S1 both stages", s_prof), ("gaussian_3xy", t_prof)):
+        check(pr["busy_ms"] is not None, "the profiler recorded device time")
+        print(f"  {what} profile: call {pr['call_ms']:.4f} ms, device busy "
+              f"{pr['busy_ms']:.4f} ms, idle {100 * pr['idle']:.1f} %, "
+              f"{pr['device_ops']:.0f} device ops per call")
+    print(f"  S1 / gaussian_3xy device busy: "
+          f"{s_prof['busy_ms'] / t_prof['busy_ms']:.3f}")
+
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"recfilter_tpu_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": main_launches[name],
          "max_abs_err": max_abs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": extra[name][0],
+         "bound_by": extra[name][1], "library_ms": extra[name][2]}
         for name, replaces in (
             ("moments2d", "recfilter_tpu/kernels/final2d.py:409"),
             ("final2d", "recfilter_tpu/kernels/final2d.py:853"),
             ("tails", "recfilter_tpu/kernels/completion.py:750"),
-            ("completion", "recfilter_tpu/kernels/completion.py:464"))
+            ("completion", "recfilter_tpu/kernels/completion.py:464"),
+            ("rows_tails", "recfilter_tpu/kernels/final2d.py:1185"),
+            ("rows_final", "recfilter_tpu/kernels/final2d.py:1251"))
     ]
+    print("== summary: each kernel at its main-path shape — CUDA-event "
+          "median of single calls, and device time from the profiler",
+          flush=True)
+    for k in kernels:
+        d_k, d_p, d_l = dev_t[k["name"]]
+        print(f"  {k['name']}: event {k['ms']:.4f} ms, device {d_k:.4f} ms;"
+              f" bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({100 * k['bound_ms'] / k['ms']:.1f} % of the event time, "
+              f"{100 * k['bound_ms'] / d_k:.1f} % of the device time); "
+              f"twin event {k['plain_ms']:.4f}, device {d_p:.4f} ms; library "
+              + ("none" if k["library_ms"] is None else
+                 f"event {k['library_ms']:.4f}, device {d_l:.4f} ms"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
 """recfilter_tpu_torch — the PyTorch + CUDA port of recfilter_tpu.
 
-Two slices run, in float32 (zero or clamp border), each on hand-written
+Three paths run, in float32 (zero or clamp border), each on hand-written
 CUDA kernels for Hopper (sm_90a) with plain PyTorch twins on the CPU:
 
   * 2-D filters that scan the trailing two axes (any extents ≥ 128 with
     zero border): the 3-touch executor on ``moments2d``/``final2d``;
   * filters whose scans all lie on the last axis — 1-D signals up to
     audio scale (10M samples), channels on leading axes: the last-axis
-    executor on ``tails``/``completion``.
+    executor on ``tails``/``completion``;
+  * scans on any other axis (extents that are multiples of 128): the rows
+    pass on ``rows_tails``/``rows_final`` — volumes (rows pass, then the
+    2-D executor), vertical-only filters, non-adjacent axes, and the
+    staged Gaussian cascades of ``apps.gaussian``.
 
 The JAX package ``recfilter_tpu`` is the reference; this package imports
-neither it nor jax.
+neither it nor jax. Filters run on the card unless the caller asks for
+the CPU (``device="cpu"``).
 
     import recfilter_tpu_torch as rft
 
@@ -21,18 +26,21 @@ neither it nor jax.
     for d in (+x, -x, +y, -y):
         F.add_filter(d, w)
     F.split(x, 128, y, 128)
-    out = F.realize(device="cuda")
+    out = F.realize()
 
     from recfilter_tpu_torch.apps import audio_filter_high_order
     A = audio_filter_high_order(10_000_000, order=29, tile_width=1000)
-    y = A.realize(signal, device="cuda")
+    y = A.realize(signal)
+
+    from recfilter_tpu_torch.apps import gaussian_1xy_2x_2y, run_cascade
+    out = run_cascade(gaussian_1xy_2x_2y(4096, 4096), image)
 """
 
 from .api import RecFilter
-from .dimfuse import FusedLastAxis, apply_filter_fused
+from .dimfuse import FusedLastAxis, StagedPass, apply_filter_fused
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
-from .overlap2d import Fused2DPx, fused_2d_px
+from .overlap2d import Fused2DPx, FusedRowsPx, fused_2d_px, fused_rows_px
 from .planner import Plan
 from .scan_core import oracle_apply
 from .spec import (BorderMode, Dim, DimAndCausality, FilterSpec, Scan,
@@ -45,6 +53,7 @@ __all__ = [
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",
     "apply_filter_fused", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
+    "FusedRowsPx", "fused_rows_px", "StagedPass",
     "CheckResult", "CheckResultVerbose", "generate_random_image",
 ]
 

@@ -7,20 +7,25 @@ scans, tile, then run:
     F.add_filter(+x, coeff)
     F.split(x, 128, y, 128)
     module = F.as_func()                 # an nn.Module
-    out = F.realize(device="cuda")
+    out = F.realize()                    # on the card; device="cpu" asks
 
-Routing follows the JAX package: a tiled float filter goes to the fused
-executor — :class:`.overlap2d.Fused2DPx` for the trailing two axes,
-:class:`.dimfuse.FusedLastAxis` for last-axis filters (1-D signals such as
-``F[x] = signal``, channels on leading axes). What the port does not run
-yet raises ``NotImplementedError``. The device is always explicit: nothing
-moves to the CPU on its own.
+Routing follows the JAX package (:func:`.dimfuse.fused_filter_module`): a
+tiled float filter goes to the fused executors —
+:class:`.overlap2d.Fused2DPx` for the trailing two axes, the rows pass
+:class:`.overlap2d.FusedRowsPx` then ``Fused2DPx`` for volumes, and one
+stage per scanned axis otherwise (the rows pass on non-last axes,
+:class:`.dimfuse.FusedLastAxis` on the last: 1-D signals such as
+``F[x] = signal``, channels on leading axes). ``cascade`` splits a filter
+into a chain of filters run one after another. What the port does not run
+yet raises ``NotImplementedError``. ``realize`` and ``profile`` run on the
+card unless the caller asks for the CPU; asking for ``"cuda"`` without a
+card raises, and nothing moves to the CPU on its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -51,6 +56,9 @@ class RecFilter:
         self._plan = planner.Plan()
         self._clamped_border = False
         self._module: Optional[nn.Module] = None
+        # the previous filter of a cascade: realize() with no input runs
+        # it first and filters its output
+        self._chain_parent: Optional["RecFilter"] = None
 
     @property
     def name(self) -> str:
@@ -141,6 +149,16 @@ class RecFilter:
         self._module = None
         return self
 
+    def split_all_dimensions(self, tile_width: int):
+        """Tile every scanned dimension with one width."""
+        spec = self.spec
+        scanned = {s.axis for s in spec.scans}
+        tiles = [tile_width if i in scanned else t
+                 for i, t in enumerate(spec.tile_widths or (0,) * spec.ndim)]
+        self._spec = spec.with_tiles(tuple(tiles))
+        self._module = None
+        return self
+
     def set_plan(self, **kw):
         """Set Plan fields (``backend=``, ``matmul_precision=``)."""
         self._plan = self._plan.with_(**kw)
@@ -169,9 +187,12 @@ class RecFilter:
             self._module = self.as_func()
         return self._module.to(device)
 
-    def realize(self, input=None, *, device) -> torch.Tensor:
-        """Run the filter on the bound (or given) image on ``device``."""
+    def realize(self, input=None, *, device="cuda") -> torch.Tensor:
+        """Run the filter on the bound (or given) image on ``device``. A
+        cascade stage given no input filters its parent's output."""
         d = resolve_device(device)
+        if input is None and self._chain_parent is not None:
+            input = self._chain_parent.realize(device=d)
         with torch.no_grad():
             return self._func(d)(self._input(input, d))
 
@@ -190,3 +211,56 @@ class RecFilter:
         print(f"{self._name}: {ms:.3f} ms for {iterations} iterations "
               f"({rate}) on {torch.cuda.get_device_name(d)}")
         return ms
+
+    # ------------------------------------------------------- reorder/cascade
+    def cascade(self, *scan_groups) -> List["RecFilter"]:
+        """Split this filter's scans into a chain of filters, one per group
+        of scan indices, each realized on the previous one's output. Legal
+        when every scan appears exactly once and the relative order of
+        opposite-causality scans in one dimension is kept (``ValueError``
+        otherwise)."""
+        spec = self.spec
+        if (len(scan_groups) == 1 and isinstance(scan_groups[0], (list, tuple))
+                and scan_groups[0]
+                and isinstance(scan_groups[0][0], (list, tuple))):
+            scan_groups = tuple(scan_groups[0])
+        groups = [list(g) for g in scan_groups]
+        flat = [i for g in groups for i in g]
+        if sorted(flat) != list(range(len(spec.scans))):
+            raise ValueError(
+                "cascade: each scan must appear in exactly one group")
+        order_of = {s: gi for gi, g in enumerate(groups) for s in g}
+        pos_in = {s: groups[order_of[s]].index(s) for s in flat}
+        for i, si in enumerate(spec.scans):
+            for j in range(i + 1, len(spec.scans)):
+                sj = spec.scans[j]
+                if (si.axis == sj.axis and si.causal != sj.causal
+                        and (order_of[j], pos_in[j])
+                        < (order_of[i], pos_in[i])):
+                    raise ValueError(
+                        "cascade: cannot swap opposite-causality scans "
+                        f"{i} and {j} in the same dimension")
+        out: List[RecFilter] = []
+        for gi, g in enumerate(groups):
+            f = RecFilter(f"{self._name}_{gi}")
+            f._clamped_border = self._clamped_border
+            f._image = self._image
+            f._spec = dataclasses.replace(
+                spec, name=f._name, scans=tuple(spec.scans[i] for i in g))
+            f._plan = self._plan
+            f._chain_parent = out[-1] if out else None
+            out.append(f)
+        return out
+
+    def cascade_by_causality(self) -> List["RecFilter"]:
+        """One filter per causality class: the causal scans, then the
+        anticausal ones."""
+        scans = self.spec.scans
+        causal = [i for i, s in enumerate(scans) if s.causal]
+        anticausal = [i for i, s in enumerate(scans) if not s.causal]
+        return self.cascade(*[g for g in (causal, anticausal) if g])
+
+    def cascade_by_dimension(self) -> List["RecFilter"]:
+        """One filter per scanned dimension, in order of first
+        appearance."""
+        return self.cascade(*self.spec.scans_by_axis().values())

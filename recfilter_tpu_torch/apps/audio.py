@@ -4,8 +4,9 @@ reference's ``audio_filter_high_order.cpp`` and
 ``audio_filter_biquads.cpp``: 10M samples, tile 1000, order sweeps).
 
 Each builder returns a port :class:`RecFilter` bound to a zero signal;
-run it on a real one with ``F.realize(signal, device=...)``. Channels may
-ride a leading axis of the signal passed in.
+run it on a real one with ``F.realize(signal)`` (on the card;
+``device="cpu"`` asks for the CPU). Channels may ride a leading axis of
+the signal passed in.
 """
 
 from __future__ import annotations

@@ -16,18 +16,30 @@ and Nⁱ = CM_i · stack(bⁱ) solves each scan's cross-tile recurrence with one
 precomputed block-Toeplitz matmul. Clamped borders change the matrices of
 the globally-first/last tile only; those tiles get per-tile variants.
 
-The port runs two executors, chosen by :func:`fused_filter_module`:
+:func:`fused_filter_module` routes a filter as the JAX package's
+``apply_filter_fused`` does, in its order:
 
-  * filters that scan exactly the two trailing axes: the 3-touch 2-D
-    executor :class:`.overlap2d.Fused2DPx`;
-  * filters whose scans all lie on the last axis (1-D signals, channels
-    on leading axes): :class:`FusedLastAxis`, this module's port of the
-    JAX package's ``fused_dim_pass`` — the supertile hierarchy
-    (:class:`HierarchicalPass`) for audio-scale tile counts, else one
-    tiled pass (:class:`LastAxisPass`) on the ``tails``/``completion``
-    kernels where their gates hold, else its einsum form.
+  1. scans on exactly the two trailing axes: the 3-touch 2-D executor
+     :class:`.overlap2d.Fused2DPx`;
+  2. scans on exactly the three trailing axes (volumes): the rows pass
+     :class:`.overlap2d.FusedRowsPx` on the leading one, then
+     :class:`.overlap2d.Fused2DPx` on the trailing pair;
+  3. any other trailing group of 2–5 axes: the JAX package's rotation
+     chain — not ported, it raises;
+  4. every other filter, one scanned axis after another in order of first
+     appearance (:class:`StagedPass`): :class:`.overlap2d.FusedRowsPx` on
+     each axis but the last, and on the last axis :class:`FusedLastAxis`,
+     this module's port of the JAX package's ``fused_dim_pass`` — the
+     supertile hierarchy (:class:`HierarchicalPass`) for audio-scale tile
+     counts, else one tiled pass (:class:`LastAxisPass`) on the
+     ``tails``/``completion`` kernels where their gates hold, else its
+     einsum form. A filter that scans the last axis alone is that one
+     stage.
 
-Every other filter raises ``NotImplementedError`` naming its ROADMAP item.
+Where a route's gates decline a filter, the port raises
+``NotImplementedError`` naming the ROADMAP item that brings the JAX
+package's fallback; it never falls through to another route.
+
 The device side's carry glue (solves, chains, corrections) runs in float64
 torch: the carries amplify rounding, and fp32 glue misses the px6 bound
 (see :mod:`.overlap2d`). Signal-sized products run in float32, tails sums
@@ -353,18 +365,18 @@ def _bands_span(bands):
 
 
 def _banded_solve_apply(bands, braw_t, S: int):
-    """Banded solve on slot-padded transposed tails (n, sl, q):
+    """Banded solve on slot-padded transposed tails (..., n, sl, q):
     N_t = Σ_d B_d[t] · b_{t−d} — one (n,S,S)×(n,S,q) product per offset
-    instead of the dense (n·sl)² matmul. ``bands``: [(d, blocks (n,S,S))]
-    with torch blocks."""
-    n, slots, q = braw_t.shape
-    b = braw_t[:, :S, :]
+    instead of the dense (n·sl)² matmul; leading axes are a batch.
+    ``bands``: [(d, blocks (n,S,S))] with torch blocks."""
+    n, slots, q = braw_t.shape[-3:]
+    b = braw_t[..., :S, :]
     dmax, dmin = _bands_span(bands)
     bpad = F.pad(b, (0, 0, 0, 0, dmax, -dmin)) if dmax or dmin else b
     N = None
     for d, blocks in bands:
-        t = torch.einsum("nab,nbq->naq", blocks,
-                         bpad.narrow(0, dmax - d, n))
+        t = torch.einsum("nab,...nbq->...naq", blocks,
+                         bpad.narrow(-3, dmax - d, n))
         N = t if N is None else N + t
     return F.pad(N, (0, 0, 0, slots - S)) if S < slots else N
 
@@ -747,9 +759,10 @@ class FusedLastAxis(nn.Module):
 def _last_axis(x, axis: int) -> None:
     if axis not in (-1, x.ndim - 1):
         raise NotImplementedError(
-            f"scans on axis {axis} of a {x.ndim}-D array: the port runs "
-            "last-axis passes only; non-last axes take the rows kernels "
-            "(ROADMAP Queue 1 item 8)")
+            f"scans on axis {axis} of a {x.ndim}-D array: this pass runs "
+            "the last axis; a non-last axis runs the rows pass "
+            "(overlap2d.fused_rows_px) or, where its gates decline, the "
+            "JAX package's einsum pass (ROADMAP Queue 1 item 6)")
 
 
 def fused_dim_pass(x, axis: int, scans: Sequence[Scan], tile_width: int,
@@ -790,13 +803,35 @@ def hierarchical_dim_pass(x, axis: int, scans: Sequence[Scan], border: str,
 _TILE_DEFAULT = 32
 
 
+class StagedPass(nn.Module):
+    """Executors run one after another on the output of the last — the
+    volume route (``route="volume"``: rows pass, then the trailing pair)
+    and the per-axis staged loop (``route="staged"``). ``forward_plain``
+    runs every stage's plain twins."""
+
+    def __init__(self, stages: Sequence[nn.Module], route: str):
+        super().__init__()
+        self.stages = nn.ModuleList(stages)
+        self.route = route
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for stage in self.stages:
+            x = stage(x)
+        return x
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        for stage in self.stages:
+            x = stage.forward_plain(x)
+        return x
+
+
 def fused_filter_module(spec: FilterSpec,
                         matmul_precision: str = "px6") -> nn.Module:
-    """The executor module for ``spec``: :class:`.overlap2d.Fused2DPx`
-    for filters that scan exactly the two trailing axes,
-    :class:`FusedLastAxis` for filters whose scans all lie on the last
-    axis (tiled by the spec's split width), or ``NotImplementedError``
-    naming what the port does not run yet."""
+    """The executor module for ``spec``, routed as the module docstring
+    says, or ``NotImplementedError`` naming what the port does not run
+    yet. The kernels' 128 × 128 tile replaces the split widths on the 2-D
+    and rows executors, as in the JAX package (tiling never changes the
+    result); the last axis is tiled by its split width, or 32."""
     from . import overlap2d
     from .planner import check_precision
 
@@ -809,25 +844,55 @@ def fused_filter_module(spec: FilterSpec,
         raise NotImplementedError(
             "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")
     groups = spec.scans_by_axis()
-    nd = spec.ndim
-    if set(groups) == {nd - 1}:
-        tiles = spec.tile_widths or (0,) * nd
-        return FusedLastAxis(spec.scans, spec.dims[-1].extent,
-                             tiles[-1] or _TILE_DEFAULT, spec.border,
-                             matmul_precision)
-    if set(groups) != {nd - 2, nd - 1}:
+    nd, Ds = spec.ndim, len(groups)
+    tiles = spec.tile_widths or (0,) * nd
+    clamp = spec.border == BorderMode.CLAMP
+    ext = [d.extent for d in spec.dims]
+
+    def scans(ax):
+        return [spec.scans[i] for i in groups[ax]]
+
+    # the JAX package runs its rows kernels at the px grades only; at
+    # "highest" a non-last axis takes its einsum pass
+    rows_ok = _kernel_nprod(matmul_precision) > 0
+    if Ds == 2 and set(groups) == {nd - 2, nd - 1}:
+        return overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
+                                   ext[-1], spec.border)
+    if rows_ok and Ds == 3 and set(groups) == set(range(nd - 3, nd)):
+        why = overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
+                                      scans(nd - 3))
+        if why:
+            raise NotImplementedError(
+                f"volume {tuple(ext)}: {why}; the JAX package runs its "
+                "rotation chain here (ROADMAP Queue 1 item 6)")
+        return StagedPass([
+            overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
+                                  spec.border),
+            overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
+                                ext[-1], spec.border)], "volume")
+    if 2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd)) and all(
+            _plan_tiles(ext[ax], tiles[ax] or _TILE_DEFAULT,
+                        max(s.order for s in scans(ax)), clamp)
+            for ax in groups):
         raise NotImplementedError(
-            f"scans on axes {sorted(groups)} of a {nd}-D filter: the port "
-            "runs filters that scan the last axis or exactly the two "
-            "trailing axes; non-last axes and volumes take the rows "
-            "kernels (ROADMAP Queue 1 item 8)")
-    # Like the JAX package's 2-D px executor, the kernels' 128 × 128 tile
-    # replaces the split widths (tiling never changes the result).
-    ax_a, ax_b = nd - 2, nd - 1
-    return overlap2d.Fused2DPx(
-        [spec.scans[i] for i in groups[ax_a]],
-        [spec.scans[i] for i in groups[ax_b]],
-        spec.dims[ax_a].extent, spec.dims[ax_b].extent, spec.border)
+            f"scans on the trailing {Ds} axes {sorted(groups)} of "
+            f"{tuple(ext)}: the JAX package runs its rotation chain here "
+            "(ROADMAP Queue 1 item 6)")
+    stages = []
+    for ax in groups:
+        if ax == nd - 1:
+            stages.append(FusedLastAxis(scans(ax), ext[ax],
+                                        tiles[ax] or _TILE_DEFAULT,
+                                        spec.border, matmul_precision))
+        elif rows_ok:
+            stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
+                                                ext[ax + 1:], spec.border))
+        else:
+            raise NotImplementedError(
+                f"scans on axis {ax} of {tuple(ext)} at matmul_precision="
+                f"{matmul_precision!r}: the JAX package runs its einsum "
+                "pass on a non-last axis here (ROADMAP Queue 1 item 6)")
+    return stages[0] if len(stages) == 1 else StagedPass(stages, "staged")
 
 
 def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6"):

@@ -1,10 +1,15 @@
-"""The two kernels of the 3-touch 2-D executor, with their plain twins.
+"""The kernels of the 3-touch 2-D executor and of the rows pass, with
+their plain twins.
 
   * :class:`Moments2D` (pass 1): read tiles of x once, emit the dim-A local
     tails ``G_A·x`` and the dim-B term ``Btot_A·(x·G_Bᵀ)`` (carry-sized).
   * :class:`Final2D` (passes 2+3 fused): read the x tile once, form the
     dim-A completion Z = Btot_A·x + Rhat_A·N_A on chip, and write
     Y = Z·Btot_Bᵀ + N_B·Rhat_Bᵀ. Z never touches device memory.
+  * :class:`RowsTails` / :class:`RowsFinal`: the dim-A halves of those two
+    on their own — tails ``G·x`` and completion ``Btot·x + Rhat·N`` of a
+    scan along a non-last axis, everything after it flattened into W
+    lanes (:class:`.overlap2d.FusedRowsPx`).
 
 Each module holds its host-built matrices as buffers and has two paths:
 ``forward`` launches the CUDA kernel (``csrc/*.cu``) for a CUDA tensor and
@@ -16,7 +21,9 @@ are linear); :data:`.launch.LAUNCHES` counts kernel launches.
 Layouts are the JAX package's (``recfilter_tpu/kernels/final2d.py``):
   x      (p, na, Ta, W), W = nb·Tb      bA_t / NA_t   (p, na, 8, W)
   term1 / NB_t  (p, na, nb·8, Ta)
-with carries slot-padded to 8 rows and Ta = Tb = 128.
+with carries slot-padded to 8 rows and Ta = Tb = 128; the rows kernels
+take the same x and bA_t / NA_t layouts with any W that is a multiple of
+128.
 
 Per-tile matrix variants (clamp edges, pad projector) differ only at the
 globally-first/last tiles, so the kernels take ≤ 3 distinct variants
@@ -29,8 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .completion import (_SLOTS, TILE, _expand_stack, _f32, _per_tile,
-                         _variants3, _variants_like)
+from .completion import (_SLOTS, TILE, _expand_stack, _f32, _f64,
+                         _per_tile, _variants3, _variants_like, tile_einsum)
 from .launch import _check, _KernelFn, _launch
 
 
@@ -43,6 +50,22 @@ def _pad_slots(M, k_axis: int = 2) -> np.ndarray:
     pad = [(0, 0)] * M.ndim
     pad[k_axis] = (0, _SLOTS - k)
     return np.pad(M, pad)
+
+
+def _cat_t(B, R) -> np.ndarray:
+    """(n|1, T, T), (n|1, T, 8) stacks → the GEMM operand [Bᵀ; Rᵀ]
+    (1|3, T+8, T) per variant."""
+    B, R = _variants_like(B, R)
+    return np.concatenate([B.transpose(0, 2, 1), R.transpose(0, 2, 1)],
+                          axis=1)
+
+
+def _grid_ok(p: int, n: int, W: int) -> None:
+    """The kernels' launch grid is (W/128, n, p): gridDim.y and gridDim.z
+    stop at 65535."""
+    if not (0 < p < 65536 and 0 < n < 65536 and 0 < W // TILE < 2**31):
+        raise ValueError(f"leading extent {p}, {n} tiles, {W} lanes: "
+                         "outside the launch grid")
 
 
 class Moments2D(nn.Module):
@@ -91,8 +114,7 @@ class Moments2D(nn.Module):
         for name in ("Ga_v", "Gb_v", "Ba1T_v"):
             t = getattr(self, name)
             _check(t, name, t.shape, x.device)
-        if not 0 < p < 65536:
-            raise ValueError(f"leading extent {p} outside the launch grid")
+        _grid_ok(p, na, nb * TILE)
         bA = torch.empty((p, na, _SLOTS, nb * TILE), device=x.device)
         term1 = torch.empty((p, na, nb * _SLOTS, TILE), device=x.device)
         _launch("moments2d", (
@@ -125,13 +147,8 @@ class Final2D(nn.Module):
         if Ra8.shape[2] != _SLOTS or Rb8.shape[2] != _SLOTS:
             raise ValueError(f"carries exceed the {_SLOTS}-row slot")
 
-        def cat_t(B, R):  # (v, T, T), (v, T, 8) -> [Bᵀ; Rᵀ] (v, T+8, T)
-            B, R = _variants_like(B, R)
-            return np.concatenate([B.transpose(0, 2, 1),
-                                   R.transpose(0, 2, 1)], axis=1)
-
-        self.register_buffer("A1_v", _f32(cat_t(Btot_a, Ra8)))
-        self.register_buffer("B2_v", _f32(cat_t(Btot_b, Rb8)))
+        self.register_buffer("A1_v", _f32(_cat_t(Btot_a, Ra8)))
+        self.register_buffer("B2_v", _f32(_cat_t(Btot_b, Rb8)))
         self.register_buffer("Ban", _f32(_expand_stack(Btot_a, na)))
         self.register_buffer("Ran", _f32(_expand_stack(Ra8, na)))
         self.register_buffer("Bbn", _f32(_expand_stack(Btot_b, nb)))
@@ -157,8 +174,7 @@ class Final2D(nn.Module):
         for name in ("A1_v", "B2_v"):
             t = getattr(self, name)
             _check(t, name, t.shape, x.device)
-        if not 0 < p < 65536:
-            raise ValueError(f"leading extent {p} outside the launch grid")
+        _grid_ok(p, na, W)
         y = torch.empty_like(x)
         _launch("final2d", (
             x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
@@ -170,6 +186,96 @@ class Final2D(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, NA_t, NB_t)
         return self.plain(x, NA_t, NB_t)
+
+
+def _rows_x(x, n: int) -> int:
+    """Check the rows kernels' x (p, n, T, W) beyond ``_check``'s shape
+    test; return W."""
+    if x.ndim != 4 or x.shape[1:3] != (n, TILE) or x.shape[3] % TILE:
+        raise ValueError(f"x shape {tuple(x.shape)} is not (p, {n}, {TILE}, "
+                         f"W) with W a multiple of {TILE}")
+    return x.shape[3]
+
+
+class RowsTails(nn.Module):
+    """Rows pass 1: ``b = tails(x)`` for x (p, n, T, W) → (p, n, 8, W),
+    ``b[p,a,k,w] = Σ_s G_v(a)[k,s]·x[p,a,s,w]`` for k < K, zeros below.
+
+    G_cat : (n|1, K, T) stacked per-scan tail rows (per-tile variants).
+    The sums run in float64 from float32 loads, in the kernel and in the
+    twin (see ``csrc/rows_tails.cu``)."""
+
+    def __init__(self, G_cat, n: int):
+        super().__init__()
+        G = np.asarray(G_cat, np.float64)
+        if G.shape[2] != TILE:
+            raise ValueError(f"tiles must be {TILE} wide")
+        if G.shape[1] > _SLOTS:
+            raise ValueError(f"K={G.shape[1]} exceeds the {_SLOTS}-row slot")
+        self.n, self.K = int(n), G.shape[1]
+        Gv = _variants3(_pad_slots(G, 1))
+        self.register_buffer("G_v", _f32(Gv))      # kernel operand
+        self.register_buffer("G_v64", _f64(Gv))    # twin operand
+
+    def plain(self, x):
+        return tile_einsum("nks,pnsw->pnkw", self.G_v64, x.double()).float()
+
+    def _kernel(self, x):
+        p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
+        _check(x, "x", (p, n, TILE, W), x.device)
+        _check(self.G_v, "G_v", self.G_v.shape, x.device)
+        _grid_ok(p, n, W)
+        b = torch.empty((p, n, _SLOTS, W), device=x.device)
+        _launch("rows_tails", (
+            x.data_ptr(), self.G_v.data_ptr(), b.data_ptr(),
+            p, n, W // TILE, self.K, self.G_v.shape[0]), x.device)
+        return b
+
+    def forward(self, x):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x)
+        return self.plain(x)
+
+
+class RowsFinal(nn.Module):
+    """Rows pass 2: ``y = final(x, N)`` for x (p, n, T, W) and slot-padded
+    carries N (p, n, 8, W): ``y[p,a] = Btot_v(a)·x[p,a] + Rhat_v(a)·N[p,a]``.
+
+    Btot : (n|1, T, T);  Rhat_cat : (n|1, T, K). fp32 products, as the JAX
+    package's twin has them."""
+
+    def __init__(self, Btot, Rhat_cat, n: int):
+        super().__init__()
+        R8 = _pad_slots(Rhat_cat)
+        if np.shape(Btot)[1:] != (TILE, TILE) or R8.shape[1:] != (TILE,
+                                                                   _SLOTS):
+            raise ValueError(f"tiles must be {TILE} wide with at most "
+                             f"{_SLOTS} carries")
+        self.n = int(n)
+        self.register_buffer("A1_v", _f32(_cat_t(Btot, R8)))  # kernel
+        self.register_buffer("B_v", _f32(_variants3(Btot)))   # twin
+        self.register_buffer("R_v", _f32(_variants3(R8)))
+
+    def plain(self, x, N):
+        return (tile_einsum("nos,pnsw->pnow", self.B_v, x)
+                + tile_einsum("nok,pnkw->pnow", self.R_v, N))
+
+    def _kernel(self, x, N):
+        p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
+        _check(x, "x", (p, n, TILE, W), x.device)
+        _check(N, "N", (p, n, _SLOTS, W), x.device)
+        _check(self.A1_v, "A1_v", self.A1_v.shape, x.device)
+        _grid_ok(p, n, W)
+        y = torch.empty_like(x)
+        _launch("rows_final", (
+            x.data_ptr(), N.data_ptr(), self.A1_v.data_ptr(), y.data_ptr(),
+            p, n, W // TILE, self.A1_v.shape[0]), x.device)
+        return y
+
+    def forward(self, x, N):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, N)
+        return self.plain(x, N)
 
 
 def moments2d(x, G_a_cat, G_b_cat, term1_mats):

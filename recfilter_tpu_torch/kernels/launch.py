@@ -34,6 +34,8 @@ SIGNATURES = {
     "final2d": _sig("final2d", 6, 5),
     "tails": _sig("tails", 3, 6),
     "completion": _sig("completion", 4, 4),
+    "rows_tails": _sig("rows_tails", 3, 5),
+    "rows_final": _sig("rows_final", 4, 4),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

@@ -19,6 +19,13 @@ thirtyfold for the sigma=5 Gaussian, and fp32 glue left the filter at
 7e-6 of the output peak against the f64 oracle where the px6 bound is 2e-6
 (plain twins on the CPU, 512²). The solve is always the dense padded
 (n·8)² matmul. Every host matrix is built once, at module construction.
+
+:class:`FusedRowsPx` is the dim-A half on its own — the rows pass, for a
+scan along any axis but the last, everything after that axis flattened
+into lanes: tails kernel → float64 carry solve (banded from 64 tiles on)
+→ completion kernel, the image read twice and written once. Volumes run
+their leading scanned axis through it before :class:`Fused2DPx` takes the
+trailing pair (``dimfuse.fused_filter_module``).
 """
 
 from __future__ import annotations
@@ -148,6 +155,125 @@ class Fused2DPx(nn.Module):
         Y4 = final(X4, *self.carries(X4, moments))
         y = Y4.reshape(*lead, self.na * TILE, self.nb * TILE)
         return y[..., :self.wa, :self.wb]
+
+
+def _rows_decline(L: int, W: int, scans: Sequence[Scan]):
+    """Why the rows kernels do not take a scan of extent ``L`` with ``W``
+    lanes (the static gates of the JAX package's ``fused_rows_px``), or
+    None where they do."""
+    T = TILE
+    if L < T or L % T or W % T:
+        return (f"scanned extent {L} with {W} lanes: the rows kernels take "
+                f"multiples of {T} in both")
+    if L // T > dimfuse._CHAIN_MATMUL_MAX_TILES:
+        return (f"{L // T} tiles: more than "
+                f"{dimfuse._CHAIN_MATMUL_MAX_TILES} need the associative "
+                "carry chain")
+    K = sum(s.order for s in scans)
+    if K > _SLOTS:
+        return f"{K} carries: more than {_SLOTS}"
+    return None
+
+
+class FusedRowsPx(nn.Module):
+    """Executor for ``scans`` along one axis that is not the last, of
+    float32 arrays ``(..., L, *trailing)``: the JAX package's
+    ``overlap2d.fused_rows_px``. The ``trailing`` extents are flattened
+    into W lanes, the leading axes into a batch p, and the scanned axis is
+    cut into n tiles of 128 rows:
+
+        pass 1 (read x):  raw tails b = G·x per tile       rows_tails kernel
+        solve (tiny):     N = CM·b — banded from 64 tiles  torch, float64
+        pass 2 (read x):  y = Btot·x + Rhat·N, write y     rows_final kernel
+
+    ``forward`` runs the CUDA kernels for CUDA tensors (their plain twins
+    for CPU tensors); ``forward_plain`` runs the twins on any device.
+    Raises ``NotImplementedError`` where the JAX package declines the rows
+    kernels (extents that are not multiples of 128, more than 256 tiles,
+    more than 8 carries): it runs its einsum pass there."""
+
+    def __init__(self, scans: Sequence[Scan], L: int,
+                 trailing: Sequence[int], border: str):
+        super().__init__()
+        T = TILE
+        trailing = tuple(int(e) for e in trailing)
+        if not trailing:
+            raise NotImplementedError(
+                "the rows pass scans a non-last axis; the last axis runs "
+                "dimfuse.FusedLastAxis")
+        W = int(np.prod(trailing, dtype=np.int64))
+        why = _rows_decline(L, W, scans)
+        if why:
+            raise NotImplementedError(
+                f"{why}; the JAX package runs its einsum pass on a non-last "
+                "axis here (ROADMAP Queue 1 item 6)")
+        n = L // T
+        mats = dimfuse.prepare_dim_pass(scans, T, n,
+                                        border == BorderMode.CLAMP)
+        K = int(sum(mats.orders))
+        self.L, self.trailing, self.n, self.W, self.K = L, trailing, n, W, K
+        G_cat = np.concatenate([np.asarray(g) for g in mats.G], axis=1)
+        R_cat = np.concatenate([np.asarray(r) for r in mats.Rhat], axis=2)
+        self.tails = k2d.RowsTails(G_cat, n)
+        self.final = k2d.RowsFinal(mats.Btot, R_cat, n)
+        # carry solve, float64 (module docstring): banded where the chain
+        # matrix is (n ≥ 64 tiles, a decaying filter), else dense
+        CM = dimfuse.combined_solve_matrix(mats, n)
+        bands = dimfuse.banded_solve_blocks(CM, n, K)
+        self.offsets = None
+        if bands is not None:
+            self.offsets = [d for d, _ in bands]
+            self.register_buffer("bands", torch.from_numpy(
+                np.stack([b for _, b in bands])))
+        else:
+            self.register_buffer("CMp", torch.from_numpy(
+                pad_solve_matrix(CM, n, K).astype(np.float64)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, self.tails, self.final)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, self.tails.plain, self.final.plain)
+
+    def tile(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., L, *trailing) float32 → the kernels' (p, n, 128, W)."""
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        ext = (self.L, *self.trailing)
+        if x.ndim < len(ext) or tuple(x.shape[-len(ext):]) != ext:
+            raise ValueError(f"input shape {tuple(x.shape)} does not end in "
+                             f"the filter's extents {ext}")
+        return x.reshape(-1, self.n, TILE, self.W).contiguous()
+
+    def carries(self, X4: torch.Tensor, tails=None) -> torch.Tensor:
+        """Pass 1 and the carry solve: the slot-padded carries
+        (p, n, 8, W) of the tiled array X4, in float32."""
+        b = (self.tails if tails is None else tails)(X4).double()
+        if self.offsets is not None:
+            N = dimfuse._banded_solve_apply(
+                list(zip(self.offsets, self.bands)), b, self.K)
+        else:
+            p = b.shape[0]
+            N = torch.matmul(self.CMp, b.reshape(p, self.n * _SLOTS, self.W))
+        return N.reshape(b.shape).float().contiguous()
+
+    def _run(self, x, tails, final):
+        X4 = self.tile(x)
+        return final(X4, self.carries(X4, tails)).reshape(x.shape)
+
+
+def fused_rows_px(x: torch.Tensor, axis: int, scans: Sequence[Scan],
+                  border: str) -> torch.Tensor:
+    """Functional form of :class:`FusedRowsPx` (the JAX package's
+    ``overlap2d.fused_rows_px`` without its precision/interpret
+    arguments): all ``scans`` along ``axis`` of ``x``, which must not be
+    the last axis."""
+    if not 0 <= axis < x.ndim - 1:
+        raise NotImplementedError(
+            f"axis {axis} of a {x.ndim}-D array: the rows pass scans a "
+            "non-last axis (the last axis runs dimfuse.FusedLastAxis)")
+    mod = FusedRowsPx(scans, x.shape[axis], x.shape[axis + 1:], border)
+    return mod.to(x.device)(x)
 
 
 def fused_2d_px(x: torch.Tensor, axis_a: int, scans_a: Sequence[Scan],

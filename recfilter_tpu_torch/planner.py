@@ -1,13 +1,16 @@
 """Execution plan: the executor backend and the matmul precision grade.
 
-The port runs two executors: the 3-touch 2-D path (``overlap2d``), on
-the fp32 CUDA kernels of ``kernels/final2d.py``, and the last-axis path
-(``dimfuse.FusedLastAxis``), on those of ``kernels/completion.py``. The
-JAX package's precision names are kept: ``px6`` (its default) and
-``highest`` both mean true-f32 products, which the fp32 kernels give on
-Hopper without the TPU's bf16 chunk splitting. As in the JAX package, the
-last-axis path runs its kernels (and the supertile hierarchy) at ``px6``
-only and its einsum form at ``highest``. Every other grade raises.
+The port runs three executors: the 3-touch 2-D path and the rows pass
+(``overlap2d``), on the fp32 CUDA kernels of ``kernels/final2d.py``, and
+the last-axis path (``dimfuse.FusedLastAxis``), on those of
+``kernels/completion.py``. The JAX package's precision names are kept:
+``px6`` (its default) and ``highest`` both mean true-f32 products, which
+the fp32 kernels give on Hopper without the TPU's bf16 chunk splitting.
+As in the JAX package, the last-axis path runs its kernels (and the
+supertile hierarchy) at ``px6`` only and its einsum form at ``highest``,
+and the rows pass runs at ``px6`` only (at ``highest`` the JAX package
+takes its einsum pass on a non-last axis, not ported: it raises). Every
+other grade raises.
 """
 
 from __future__ import annotations
@@ -70,3 +73,10 @@ def default_tile_width(extent: int, platform: str) -> int:
     128 × 128), the reference's 32 elsewhere."""
     t = 128 if platform in ("tpu", "cuda") else 32
     return max(min(t, extent), 1)
+
+
+def auto_tile_width(extent: int) -> int:
+    """:func:`default_tile_width` for the port's platform: the kernels'
+    tile of 128 wherever they run (the CPU runs their twins on the same
+    tiles), so no card is probed."""
+    return default_tile_width(extent, "cuda")

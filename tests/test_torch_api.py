@@ -95,7 +95,9 @@ UNSUPPORTED = {
     # a prime clamp extent has no tile plan: the lax.scan core's case
     "one-dim": _spec([("x", 509)], [rft.Scan(0, True, *_G)],
                      border="clamp", tile_widths=(128,)),
-    "volume": _spec([("z", 128), ("y", 128), ("x", 128)],
+    # a volume whose depth is not a multiple of 128: the rows pass
+    # declines and the JAX package runs its rotation chain
+    "volume": _spec([("z", 100), ("y", 128), ("x", 128)],
                     [rft.Scan(i, True, *_G) for i in range(3)],
                     tile_widths=(128, 128, 128)),
     "leading-axes": _spec([("y", 128), ("x", 128), ("c", 3)],
@@ -168,8 +170,9 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port imports and runs the 256²
-    headline filter and a 1-D audio filter on the CPU within the px6
-    bound."""
+    headline filter, a 1-D audio filter and the staged Gaussian cascade
+    (x on the last-axis pass, y on the rows pass) on the CPU within the
+    px6 bound."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -192,6 +195,12 @@ def test_port_never_imports_jax():
         A = audio_filter_high_order(40_000, 3, 128)  # the supertile hierarchy
         got = A.realize(sig, device="cpu").numpy()
         want = rft.oracle_apply(A.spec, sig.astype(np.float64))
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        from recfilter_tpu_torch.apps import (gaussian_3x_3y, gaussian_3xy,
+                                              run_cascade)
+        got = run_cascade(gaussian_3x_3y(w, h), img, device="cpu").numpy()
+        want = rft.oracle_apply(gaussian_3xy(w, h).spec,
+                                img.astype(np.float64))
         assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
         assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
                        or m == "recfilter_tpu" for m in sys.modules

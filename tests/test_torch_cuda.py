@@ -15,7 +15,8 @@ import torch
 
 import recfilter_tpu_torch as rft
 from recfilter_tpu_torch import dimfuse as tdf
-from recfilter_tpu_torch.apps import audio_filter_high_order
+from recfilter_tpu_torch.apps import (audio_filter_high_order,
+                                      gaussian_1xy_2x_2y, run_cascade)
 from recfilter_tpu_torch.kernels import completion as tc
 from recfilter_tpu_torch.kernels import final2d as tk2d
 from recfilter_tpu_torch.kernels import launch as tl
@@ -34,6 +35,11 @@ def dev():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no "
                     "CPU mode")
     return torch.device("cuda")
+
+
+def _only(**kw):
+    """Launch counts with every kernel not named at 0."""
+    return {k: kw.get(k, 0) for k in tl.SIGNATURES}
 
 
 def _modules(kind, dev):
@@ -73,8 +79,7 @@ def test_kernels_match_twins(kind, dev):
     outs = mom(x)
     y = fin(x, NA_t, NB_t)
     torch.cuda.synchronize()
-    assert tl.LAUNCHES == {"moments2d": 1, "final2d": 1, "tails": 0,
-                           "completion": 0}
+    assert tl.LAUNCHES == _only(moments2d=1, final2d=1)
     for got, want in zip(outs, mom.plain(x)):
         assert _rel(got, want) <= 1e-5
     assert _rel(y, fin.plain(x, NA_t, NB_t)) <= 1e-5
@@ -143,8 +148,7 @@ def test_1d_kernels_match_twins(kind, S, q, dev):
     b = tails(x)
     y = comp(x, b)
     torch.cuda.synchronize()
-    assert tl.LAUNCHES == {"moments2d": 0, "final2d": 0, "tails": 1,
-                           "completion": 1}
+    assert tl.LAUNCHES == _only(tails=1, completion=1)
     assert b.shape == (n, tc.slots_for(S), q)
     assert not b[:, S:].any()  # pad slots written as zeros
     assert _rel(b, tails.plain(x)) <= 1e-5
@@ -184,9 +188,97 @@ def test_audio_filter_on_the_card(dev):
     tl.reset_launches()
     got = F.realize(x, device=dev)
     torch.cuda.synchronize()
-    assert tl.LAUNCHES == {"moments2d": 0, "final2d": 0, "tails": 1,
-                           "completion": 1}
+    assert tl.LAUNCHES == _only(tails=1, completion=1)
     want = rft.oracle_apply(F.spec, x.astype(np.float64))
     err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
     assert err <= 2e-6
     assert F.profile(2, device=dev) > 0  # prints Msamples/s
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("p,n,nl", [(2, 3, 2), (1, 2, 5), (3, 2, 1)])
+def test_rows_kernels_match_twins(kind, p, n, nl, dev):
+    """rows_tails and rows_final against their twins:
+    max|kernel − twin| ≤ 1e-5·max|twin|, pad slots written as zeros."""
+    rng = np.random.default_rng(p * 100 + n * 10 + nl)
+    K = 6
+    tails = tk2d.RowsTails(_stack(kind, K, T, n, rng), n).to(dev)
+    fin = tk2d.RowsFinal(_stack(kind, T, T, n, rng, 0.1),
+                         _stack(kind, T, K, n, rng), n).to(dev)
+    x = torch.from_numpy(rng.standard_normal((p, n, T, nl * T)).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    b = tails(x)
+    y = fin(x, b)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(rows_tails=1, rows_final=1)
+    assert b.shape == (p, n, 8, nl * T)
+    assert not b[:, :, K:].any()
+    assert _rel(b, tails.plain(x)) <= 1e-5
+    assert _rel(y, fin.plain(x, b)) <= 1e-5
+
+
+def test_rows_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(3)
+    n = 2
+    tails = tk2d.RowsTails(_stack("clamp", 3, T, n, rng), n).to(dev)
+    fin = tk2d.RowsFinal(_stack("clamp", T, T, n, rng),
+                         _stack("clamp", T, 3, n, rng), n).to(dev)
+    x = torch.zeros((1, n, T, 2 * T), device=dev)
+    N = torch.zeros((1, n, 8, 2 * T), device=dev)
+    with pytest.raises(TypeError):
+        tails(x.double())
+    with pytest.raises(ValueError):
+        tails(x[:, :, :, :-1].contiguous())  # lanes not a multiple of 128
+    with pytest.raises(ValueError):
+        tails(torch.zeros((1, n + 1, T, T), device=dev))
+    with pytest.raises(ValueError):
+        tails(torch.zeros((65536, n, T, T), device=dev))  # gridDim.z
+    with pytest.raises(ValueError):
+        fin(x, N[:, :, :4].contiguous())
+    with pytest.raises(ValueError):
+        fin(x, N.cpu())
+
+
+def test_volume_on_the_card(dev):
+    """A 128 × 128 × 256 σ=5 Gaussian volume (clamp) through ``realize``:
+    one launch of each of the rows and 2-D kernels, none of the 1-D ones,
+    within 2e-6 of the f64 oracle."""
+    z, h, w = 128, 128, 256
+    vol = (np.random.default_rng(4).standard_normal((z, h, w)) * 0.01
+           ).astype(np.float32)
+    dz, dy, dx = rft.Dim("z", z), rft.Dim("y", h), rft.Dim("x", w)
+    F = rft.RecFilter("Volume")
+    F.set_clamped_image_border()
+    F[dz, dy, dx] = vol
+    for d in (+dz, -dz, +dy, -dy, +dx, -dx):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split(dz, 128, dy, 128, dx, 128)
+    tl.reset_launches()
+    got = F.realize()
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert tl.LAUNCHES == _only(rows_tails=1, rows_final=1, moments2d=1,
+                                final2d=1)
+    want = rft.oracle_apply(F.spec, vol.astype(np.float64))
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2e-6
+
+
+def test_gaussian_cascade_on_the_card(dev):
+    """``gaussian_1xy_2x_2y`` at 512²: stage 0 on the 2-D kernels, stage 1
+    (x) on the 1-D kernels, stage 2 (y) on the rows kernels — each once —
+    within 2e-6 of the oracle of the whole filter before ``cascade``."""
+    img = (np.random.default_rng(5).standard_normal((512, 512)) * 0.01
+           ).astype(np.float32)
+    fc = gaussian_1xy_2x_2y(512, 512)
+    tl.reset_launches()
+    got = run_cascade(fc, img)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == {k: 1 for k in tl.SIGNATURES}
+    whole = rft.FilterSpec("G", fc[0].spec.dims,
+                           sum((f.spec.scans for f in fc), ()),
+                           border="clamp", tile_widths=(128, 128))
+    want = rft.oracle_apply(whole, img.astype(np.float64))
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2e-6

@@ -1,0 +1,352 @@
+"""The port's rows pass (a scan on a non-last axis) against the JAX
+package's, and the routes that reach it: volumes and the staged per-axis
+loop of ``apply_filter_fused``.
+
+Same seeded numpy inputs through the JAX package (px6, Pallas interpret
+mode, as ``tests/test_overlap2d.py`` runs it) and through the port's plain
+twins on the CPU. Bound: rtol=2e-5, atol=2e-6·peak — the bound
+``tests/test_overlap2d.py`` holds the JAX px6 rows route to; gradients
+within 1e-4. The CUDA kernels themselves are held to these twins on a card
+by ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recfilter_tpu import dimfuse as jdf
+from recfilter_tpu import overlap2d as jo2
+from recfilter_tpu import scan_core as jsc
+from recfilter_tpu import spec as jspec
+from recfilter_tpu.kernels import final2d as jk2d
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch import iir as tiir
+from recfilter_tpu_torch import overlap2d as to2
+from recfilter_tpu_torch import spec as tspec
+from recfilter_tpu_torch.kernels import final2d as tk2d
+
+T = 128
+
+
+def _img(*shape, seed=0, scale=0.1):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+def _check(got, want):
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=2e-5,
+                               atol=2e-6 * np.abs(want).max())
+
+
+def _gauss(mod, axis, sigma=5.0):
+    w = tiir.gaussian_weights(sigma, 3)
+    return [mod.Scan(axis, c, w[0], tuple(w[1:])) for c in (True, False)]
+
+
+# ---------------------------------------------------------------- kernels
+
+P, N, NL = 2, 3, 2  # batch, tiles along the scan, 128-lane blocks
+
+
+def _rows_mats(clamp):
+    """Matrices of the σ=5 Gaussian pair plus a causal 1st-order scan
+    (K = 7) from the port's builders (equal to the JAX package's,
+    ``test_torch_host.py``), fed to both packages' kernels."""
+    scans = _gauss(tspec, 0) + [tspec.Scan(0, True, 0.9, (0.5,))]
+    m = tdf.prepare_dim_pass(scans, T, N, clamp)
+    G = np.concatenate([np.asarray(g) for g in m.G], axis=1)
+    R = np.concatenate([np.asarray(r) for r in m.Rhat], axis=2)
+    return m, G, R
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_tails_matches_jax(clamp):
+    _, G, _ = _rows_mats(clamp)
+    x = _img(P, N, T, NL * T, seed=1, scale=1.0)
+    want = jk2d.rows_tails_px(x, G, nprod=6, interpret=True)
+    mod = tk2d.RowsTails(G, N)
+    assert mod.G_v.shape[0] == (3 if clamp else 1)
+    got = mod(torch.from_numpy(x))
+    assert got.shape == (P, N, 8, NL * T) and got.dtype == torch.float32
+    _check(got.numpy(), want)
+    assert not got[:, :, G.shape[1]:].any()  # pad slots are zeros
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_matches_jax(clamp):
+    m, _, R = _rows_mats(clamp)
+    x = _img(P, N, T, NL * T, seed=2, scale=1.0)
+    NA_t = _img(P, N, 8, NL * T, seed=3, scale=1.0)
+    want = jk2d.rows_final_px(x, m.Btot, R, NA_t, nprod=6, interpret=True)
+    got = tk2d.RowsFinal(m.Btot, R, N)(torch.from_numpy(x),
+                                       torch.from_numpy(NA_t))
+    assert got.shape == x.shape
+    _check(got.numpy(), want)
+
+
+def test_rows_kernel_backward_is_the_twins_vjp():
+    """The CUDA path's backward (the twin's VJP at zero — both passes are
+    linear) equals autograd through the twin at a real point."""
+    from recfilter_tpu_torch.kernels import launch as tl
+
+    m, G, R = _rows_mats(True)
+    rng = np.random.default_rng(4)
+    ins = {"tails": [_img(P, N, T, NL * T, seed=5)],
+           "final": [_img(P, N, T, NL * T, seed=6),
+                     _img(P, N, 8, NL * T, seed=7)]}
+    for mod, key in ((tk2d.RowsTails(G, N), "tails"),
+                     (tk2d.RowsFinal(m.Btot, R, N), "final")):
+        xs = [torch.from_numpy(a).requires_grad_() for a in ins[key]]
+        out = mod.plain(*xs)
+        ct = torch.from_numpy(rng.standard_normal(out.shape).astype(
+            np.float32))
+        want = torch.autograd.grad(out, xs, ct)
+        got = tl._linear_vjp(mod.plain, [a.shape for a in xs],
+                             torch.device("cpu"), (ct,))
+        for g, w in zip(got, want):
+            _check(g.numpy(), w.numpy())
+
+
+# ------------------------------------------------------------- executor
+
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+@pytest.mark.parametrize("shape,axis", [((256, 384), 0),
+                                        ((2, 128, 3, 128), 1)],
+                         ids=["y-of-2d", "batch-and-lanes"])
+def test_fused_rows_px_matches_jax_and_oracle(shape, axis, border):
+    x = _img(*shape, seed=sum(shape))
+    js = [jspec.Scan(axis, True, 1.0, (0.6,)),
+          jspec.Scan(axis, False, 0.9, (0.4, 0.1))]
+    ts = [tspec.Scan(axis, s.causal, s.feedfwd, s.feedback) for s in js]
+    want = jo2.fused_rows_px(jnp.asarray(x), axis, js, border, 6, True)
+    assert want is not None
+    got = to2.fused_rows_px(torch.from_numpy(x), axis, ts, border)
+    assert got.shape == shape
+    _check(got.numpy(), want)
+    spec = jspec.FilterSpec("R", tuple(jspec.Dim(f"d{i}", e)
+                                       for i, e in enumerate(shape)),
+                            tuple(js), border=border)
+    _check(got.numpy(), jsc.oracle_apply(spec, x.astype(np.float64)))
+
+
+def test_fused_rows_px_banded_solve():
+    """8192 × 128, a y-only σ=5 Gaussian: 64 tiles, where the JAX package
+    switches to the banded carry solve — and so does the port."""
+    x = _img(8192, 128, seed=9)
+    mod = to2.FusedRowsPx(_gauss(tspec, 0), 8192, (128,), "zero")
+    assert mod.offsets is not None and not hasattr(mod, "CMp")
+    got = mod(torch.from_numpy(x))
+    want = jo2.fused_rows_px(jnp.asarray(x), 0, _gauss(jspec, 0), "zero", 6,
+                             True)
+    # the JAX px6 path sits a few 1e-6 from the oracle on σ=5 Gaussians
+    # (ROADMAP Queue 3), so the two packages agree to 1e-5·peak; the port
+    # is held to the oracle at the px6 bound
+    peak = np.abs(np.asarray(want)).max()
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5 * peak
+    spec = jspec.FilterSpec("B", (jspec.Dim("y", 8192), jspec.Dim("x", 128)),
+                            tuple(_gauss(jspec, 0)))
+    _check(got.numpy(), jsc.oracle_apply(spec, x.astype(np.float64)))
+
+
+def test_banded_solve_takes_a_leading_batch():
+    """The banded carry solve on (p, n, sl, W) tails equals it on each
+    (n, sl, W) slice."""
+    mod = to2.FusedRowsPx(_gauss(tspec, 0), 8192, (128,), "clamp")
+    bands = list(zip(mod.offsets, mod.bands))
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 64, 8, 128)))
+    got = tdf._banded_solve_apply(bands, b, 6)
+    for i in range(3):
+        torch.testing.assert_close(got[i], tdf._banded_solve_apply(
+            bands, b[i], 6), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", [
+    ("extent-below-tile", (64, 128), 0, 2),
+    ("extent-not-multiple", (200, 128), 0, 2),
+    ("lanes-not-multiple", (128, 100), 0, 2),
+    ("too-many-tiles", (257 * 128, 128), 0, 2),
+    ("carries-over-8", (128, 128), 0, 9),
+    ("last-axis", (128, 128), 1, 2)], ids=lambda c: c[0])
+def test_rows_gates_match_jax(case):
+    """Where the JAX package's ``fused_rows_px`` declines (returns None),
+    the port raises NotImplementedError naming the ROADMAP item."""
+    _, shape, axis, K = case
+    x = np.zeros(shape, np.float32)
+    scans = [(i % 2 == 0, (0.3, 0.1, 0.01)[:min(3, K - 3 * i)])
+             for i in range(-(-K // 3))]
+    js = [jspec.Scan(axis, c, 1.0, fb) for c, fb in scans]
+    ts = [tspec.Scan(axis, c, 1.0, fb) for c, fb in scans]
+    assert sum(s.order for s in ts) == K
+    assert jo2.fused_rows_px(jnp.asarray(x), axis, js, "zero", 6,
+                             True) is None
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item 6|last axis"):
+        to2.fused_rows_px(torch.from_numpy(x), axis, ts, "zero")
+
+
+# ---------------------------------------------------------------- routes
+
+def _spec(mod, shape, scans, border="zero", tiles=None):
+    names = "wzyx"[-len(shape):]
+    return mod.FilterSpec("F", tuple(mod.Dim(n, e) for n, e in
+                                     zip(names, shape)), tuple(scans),
+                          border=border,
+                          tile_widths=tiles or (128,) * len(shape))
+
+
+def _both(make):
+    """A spec built by ``make(module)`` in each package."""
+    return make(jspec), make(tspec)
+
+
+def _volume(border):
+    # the scans of tests/test_overlap2d.py::test_volume_rows_plus_2d_route
+    return lambda m: _spec(m, (128, 128, 256), (
+        m.Scan(2, True, 1.0, (0.6,)), m.Scan(2, False, 1.0, (0.6,)),
+        m.Scan(1, True, 0.9, (0.5, 0.1)), m.Scan(0, True, 1.0, (0.4,))),
+        border)
+
+
+def _y_only(border):
+    return lambda m: _spec(m, (256, 384), (
+        m.Scan(0, True, 1.0, (0.6,)), m.Scan(0, False, 0.9, (0.4,))),
+        border, (128, 0))
+
+
+def _axes_02(m):
+    return _spec(m, (128, 64, 256), (
+        m.Scan(0, True, 1.0, (0.5,)), m.Scan(2, True, 1.0, (0.3,))),
+        tiles=(128, 0, 128))
+
+
+def _axes_01(m):
+    return _spec(m, (128, 256, 128), (
+        m.Scan(1, False, 1.0, (0.5, 0.2)), m.Scan(0, True, 0.8, (0.3,)),
+        m.Scan(1, True, 1.0, (0.4,))), border="clamp", tiles=(128, 128, 0))
+
+
+ROUTED = {
+    "volume-zero": (_volume("zero"), "volume",
+                    ["FusedRowsPx", "Fused2DPx"]),
+    "volume-clamp": (_volume("clamp"), "volume",
+                     ["FusedRowsPx", "Fused2DPx"]),
+    "y-only-zero": (_y_only("zero"), None, ["FusedRowsPx"]),
+    "y-only-clamp": (_y_only("clamp"), None, ["FusedRowsPx"]),
+    "axes-0-2": (_axes_02, "staged", ["FusedRowsPx", "FusedLastAxis"]),
+    "axes-0-1": (_axes_01, "staged", ["FusedRowsPx", "FusedRowsPx"]),
+}
+
+
+def _jax_route(js, x, monkeypatch):
+    """Run the JAX package's ``apply_filter_fused`` (px6) with spies on
+    its executors: the list of (executor, axis) it ran, and its output."""
+    calls = []
+
+    def spy(name, fn, axis_arg):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if out is not None:
+                calls.append((name, a[axis_arg] if axis_arg is not None
+                              else None))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(jo2, "fused_rows_px",
+                        spy("FusedRowsPx", jo2.fused_rows_px, 1))
+    monkeypatch.setattr(jo2, "fused_2d_px",
+                        spy("Fused2DPx", jo2.fused_2d_px, None))
+    monkeypatch.setattr(jdf, "fused_dim_pass",
+                        spy("FusedLastAxis", jdf.fused_dim_pass, 1))
+    y = jdf.apply_filter_fused(js, jnp.asarray(x), tile_default=128,
+                               matmul_precision="px6")
+    return calls, np.asarray(y)
+
+
+@pytest.mark.parametrize("case", list(ROUTED))
+def test_route_matches_jax_and_oracle(case, monkeypatch):
+    """Each filter takes the route the JAX package takes — the same
+    executors on the same axes, in the same order — and both packages
+    agree with each other and with the f64 oracle."""
+    make, route, stages = ROUTED[case]
+    js, ts = _both(make)
+    x = _img(*[d.extent for d in js.dims], seed=len(case))
+    calls, want = _jax_route(js, x, monkeypatch)
+    mod = tdf.fused_filter_module(ts)
+    parts = list(mod.stages) if isinstance(mod, tdf.StagedPass) else [mod]
+    assert getattr(mod, "route", None) == route
+    assert [type(m).__name__ for m in parts] == stages
+    assert [name for name, _ in calls] == stages
+    for (_, ax), m in zip(calls, parts):  # rows passes on the same axes
+        if isinstance(m, to2.FusedRowsPx):
+            assert m.L == js.dims[ax].extent
+            assert m.trailing == tuple(d.extent for d in js.dims[ax + 1:])
+    got = mod(torch.from_numpy(x))
+    assert torch.equal(got, mod.forward_plain(torch.from_numpy(x)))
+    _check(got.numpy(), want)
+    _check(got.numpy(), jsc.oracle_apply(js, x.astype(np.float64)))
+
+
+REFUSED = {
+    # a volume whose depth is not a multiple of 128: JAX's rows pass
+    # declines and its rotation chain runs
+    "volume-depth-100": lambda m: _spec(m, (100, 128, 128), (
+        m.Scan(0, True, 1.0, (0.4,)), m.Scan(1, True, 1.0, (0.4,)),
+        m.Scan(2, True, 1.0, (0.4,)))),
+    # the trailing pair declines after the rows pass: the chain finishes
+    "volume-pair-declines": lambda m: _spec(m, (128, 40, 128), (
+        m.Scan(2, True, 1.0, (0.5,)), m.Scan(1, True, 1.0, (0.4,)),
+        m.Scan(0, True, 1.0, (0.3,))), tiles=(128, 32, 128)),
+    # four trailing scanned axes: the rotation chain
+    "4-d": lambda m: _spec(m, (8, 8, 8, 8), tuple(
+        m.Scan(i, True, 1.0, (0.4,)) for i in range(4)), tiles=(4,) * 4),
+    # a non-last axis the rows gates decline: JAX's einsum pass
+    "y-extent-200": lambda m: _spec(m, (200, 128), (
+        m.Scan(0, True, 1.0, (0.4,)),), tiles=(128, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_refused_routes_raise_naming_the_item(case):
+    ts = REFUSED[case](tspec)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tdf.fused_filter_module(ts)
+
+
+def test_non_last_axis_at_highest_raises():
+    """At ``highest`` the JAX package runs its einsum pass on a non-last
+    axis (its rows kernels run at the px grades only): not ported."""
+    ts = _y_only("zero")(tspec)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tdf.fused_filter_module(ts, "highest")
+
+
+@pytest.mark.parametrize("case", ["volume-clamp", "y-only-clamp"])
+def test_gradient_matches_jax(case):
+    """torch.autograd through the port against jax.grad through the JAX
+    package's px6 route, for sum(y²)."""
+    js, ts = _both(ROUTED[case][0])
+    x = _img(*[d.extent for d in js.dims], seed=11)
+    g_jax = np.asarray(jax.grad(lambda v: jnp.sum(jdf.apply_filter_fused(
+        js, v, tile_default=128, matmul_precision="px6") ** 2))(
+            jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (g,) = torch.autograd.grad((rft.apply_filter_fused(ts, xt) ** 2).sum(),
+                               xt)
+    np.testing.assert_allclose(g.numpy(), g_jax, rtol=1e-4, atol=1e-4)
+
+
+def test_rows_module_checks_its_input():
+    mod = to2.FusedRowsPx(_gauss(tspec, 0), 256, (3, 128), "zero")
+    for shape in [(256, 3, 128), (2, 256, 3, 128)]:
+        x = torch.from_numpy(_img(*shape, seed=len(shape)))
+        assert torch.equal(mod(x), mod.forward_plain(x))
+    with pytest.raises(ValueError):
+        mod(torch.zeros(256, 3, 127))
+    with pytest.raises(TypeError):
+        mod(torch.zeros(256, 3, 128, dtype=torch.float64))
