@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``recfilter_tpu_torch`` (never jax) through its public API on its
-two paths, and fails (non-zero exit, traceback) if any phase fails.
+paths, and fails (non-zero exit, traceback) if any phase fails.
 
 The 2-D path: the headline filter of ``bench.py::_build_filter`` — a
 3rd-order Gaussian (σ=5), causal and anticausal on x and y, 128-wide
@@ -39,15 +39,39 @@ causal + anticausal on every scanned axis, float32, px6, tiles of 128:
   S4  axes {0, 2} of 256 × 512 × 1024, zero border: a rows pass with
       524,288 lanes, then a last-axis pass (x split at 128).
 
+The banded FIR path, on ``fir_band`` (input N(0,1)·0.01, seed 2; F2's
+SAT variant N(0,1), seed 3):
+
+  F1  ``apps.box_filter_3(4096, 4096, B=5)``: a 31-tap FIR, two passes;
+  F2  ``apps.box_filter_order_1(1920, 1080, B=5)``, both variants: the FIR
+      (two ``fir_band`` passes) and the SAT (the 2-D kernels + torch
+      differencing);
+  F3  ``apps.difference_of_gaussians(4096, 4096, 5, 9)``: a C = 2 bank of
+      the box³ radii 5 and 9, then their signed contraction.
+
+The integer route, on ``int_scan`` and ``int_seg_scan`` (bit exact, with
+wrap-around):
+
+  I1  ``apps.summed_table(4096, 4096, dtype="int32")`` over an 8-bit
+      image (values 0..255: the table wraps past 2^31);
+  I2  int16 and int8 at 2048² over the full value range: x with
+      (f=2, a=-1) causal, (1, -1) and (3, +1) anticausal, y a SAT scan;
+  I3  an int32 cumsum of 8 channels × 10,000,000 samples: the segmented
+      last-axis route (chunks of 3,200);
+  I4  a y-only int32 SAT on 16384 × 4096: the segmented other-axis route.
+
 Phases:
 
-  1. the card, its power limit and the fp32 matmul settings; build the
-     six CUDA kernels from ``recfilter_tpu_torch/kernels/csrc`` (one
-     ``nvcc`` each, all at once);
+  1. the card, its power limit and the fp32 matmul and convolution
+     settings; build the nine CUDA kernels from
+     ``recfilter_tpu_torch/kernels/csrc`` (one ``nvcc`` each, all at
+     once);
   2. each kernel against its plain PyTorch twin on the card at its path's
      shapes (2-D: 4096² zero and clamp, 1080×1920 padded; 1-D: A, B, E;
-     rows: V1, V2, S3): max|kernel − twin| ≤ 1e-5·max|twin|, carry pad
-     slots written as zeros;
+     rows: V1, V2, S3; FIR: both passes of F1 and F3, flat passes at the
+     ragged L = 1000; integer: I1–I4): max|kernel − twin| ≤
+     1e-5·max|twin|, carry pad slots written as zeros; the integer kernels
+     bit-equal;
   3. each path end to end through ``RecFilter.as_func()`` (the cascades
      through ``RecFilter.realize`` / ``apps.run_cascade``) on the card, the
      launch counts set to 0 just before each call and read just after: the
@@ -60,22 +84,38 @@ Phases:
      JAX package's bounds. The 10M cases are held to
      ``scipy.signal.lfilter`` in float64, itself checked against the
      definitional oracle on a 100,000-sample prefix; every other case to
-     the oracle itself (a cascade to the oracle of its whole filter);
+     the oracle itself (a cascade to the oracle of its whole filter).
+     F1 and F3 launch ``fir_band`` twice, F2's FIR variant too and its SAT
+     variant the 2-D kernels once each; F1 and F2 sit within 2e-6 of the
+     f64 FIR oracle's peak (F2's SAT variant within the JAX test's
+     rtol = 1e-3, atol = 1e-4 of the box oracle), F3 within 5e-6 of the
+     peak of the difference. I1 and I2 launch ``int_scan`` once per axis,
+     I3 and I4 each segmented phase once; all four are bit-equal to
+     numpy's wrapping int32 cumsum (I2: to the integer oracle);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
-     3, the hierarchy), a 128 × 128 × 256 volume;
+     3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
+     512²;
   5. device times (CUDA events, median of single calls) of the whole call
      and of each kernel, beside their plain twins and, where one PyTorch
      call computes a kernel's function, beside that call; for A, B and V1
      also a profile of one call (device ops, busy time, idle share); for
      A and B the first-call host build; for A–E the error of the
-     fp32-accumulating tails variant, end to end.
+     fp32-accumulating tails variant, end to end; for F1, F3, I1 and I3
+     the new kernels' event, device, twin and library times (``conv1d``
+     with the same taps, ``torch.cumsum(..., dtype=torch.int32)``) and the
+     whole call against the plain path with the device's idle share. A
+     profiled window that comes back without device events is taken
+     again (three tries); past that a kernel's device time is its
+     CUDA-event time over 10 back-to-back calls, and a note says so.
 
 The last line is the JSON result; the line before it is the card's name
 and power limit; before that a JSON line describes each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
 fp32 (67 TFLOP/s) or fp64 (33.5 TFLOP/s, the fp64-summing tails kernels)
-peak of an H100 SXM.
+peak of an H100 SXM, or for the integer kernels over its int32 add rate
+(132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's unit
+count in NVIDIA's Hopper white paper).
 """
 
 import json
@@ -90,6 +130,7 @@ H = W = 4096
 N_TIMED = 25
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 and fp64 FLOP/s
 PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 33.5e12
+PEAK_INT32 = 132 * 64 * 1.98e9  # int32 adds/s (module docstring)
 
 
 def check(ok, what):
@@ -181,12 +222,27 @@ def median_ms(fn, *args):
 def device_ms(fn, *args):
     """Device time per call of ``fn(*args)`` from the profiler — the sum
     of its kernels and copies, free of the host's launch gaps that a
-    host-bound single call adds to its CUDA-event time."""
+    host-bound single call adds to its CUDA-event time. Where no profiled
+    window recorded device time, the CUDA-event time per call of 10
+    back-to-back calls stands in, and a note says so."""
     from recfilter_tpu_torch.utils import timing
 
     busy = timing.device_profile(fn, *args, iterations=10)["busy_ms"]
-    check(busy is not None, "the profiler recorded device time")
-    return busy
+    if busy is not None:
+        return busy
+    ms = timing.benchmark(fn, *args, iterations=10) / 10
+    print(f"  note: the profiler recorded no device time for "
+          f"{getattr(fn, '__name__', type(fn).__name__)}; CUDA events of 10 "
+          f"back-to-back calls instead: {ms:.4f} ms", flush=True)
+    return ms
+
+
+def busy_text(prof):
+    """A profile's device busy time and idle share, or "not measured"
+    where the profiler recorded no device time."""
+    if prof["busy_ms"] is None:
+        return "not measured"
+    return f"{prof['busy_ms']:.4f} ms, idle {100 * prof['idle']:.1f} %"
 
 
 def oracle_err(spec, x_np, y):
@@ -254,6 +310,50 @@ def lfilter_reference(spec, x):
                    x.astype(np.float64))
 
 
+def sep_oracle(img, taps):
+    """The f64 FIR oracle of ``taps`` along x, then along y."""
+    from recfilter_tpu_torch.fir import fir_oracle
+
+    return fir_oracle(fir_oracle(img, taps, 1), taps, 0)
+
+
+def ints(shape, lo, hi, dtype, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(lo, hi, shape, endpoint=True
+                                                ).astype(dtype)
+
+
+def int_filter(rft, img, axes_coeffs, tile=128):
+    """An integer filter over ``img``: ``axes_coeffs`` lists (axis, causal,
+    [feed-forward, feedback]) in order; every scanned axis split at
+    ``tile``."""
+    dims = [rft.Dim(nm, e) for nm, e in zip("zyx"[-img.ndim:], img.shape)]
+    F = rft.RecFilter("IntegerScan")
+    F[tuple(dims)] = img
+    for ax, causal, coeff in axes_coeffs:
+        F.add_filter(+dims[ax] if causal else -dims[ax], coeff)
+    F.split({dims[ax]: tile for ax, _, _ in axes_coeffs})
+    return F
+
+
+def seg_route(int_scan, unit, plain):
+    """The segmented route of one unit scan on the last axis of a (rows, E)
+    tensor: both phase kernels (or their twins) and the carry chain."""
+    def run(xr):
+        C = int_scan._chunk_len(xr.shape[1])
+        carries = (int_scan.seg_carries_plain if plain
+                   else int_scan.seg_carries)(xr, unit, 0, C)
+        inc = int_scan._carry_chain(carries, unit[2])
+        return (int_scan.seg_fix_plain if plain
+                else int_scan.seg_fix)(xr, inc, unit, 0, C)
+    return run
+
+
+def max_int_diff(a, b):
+    return (a.long() - b.long()).abs().max().item()
+
+
 def main() -> int:
     import torch
 
@@ -292,6 +392,9 @@ def main() -> int:
           "fp32 matmuls do not use TF32")
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision is 'highest'")
+    torch.backends.cudnn.allow_tf32 = False  # conv1d yardstick in fp32
+    print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} (set: the "
+          "fir_band yardstick conv1d runs in full fp32)")
     t0 = time.perf_counter()
     _build.build(list(launch.SIGNATURES))
     print(f"nvcc, {len(launch.SIGNATURES)} kernels in parallel: "
@@ -443,13 +546,109 @@ def main() -> int:
                 max_abs["rows_final"] = (y - yp).abs().max().item()
             del X4, b, bp, N, y, yp
 
+    print("== phase 2d: build the FIR and integer cases; fir_band, int_scan "
+          "and int_seg_scan against their twins on the card", flush=True)
+    from recfilter_tpu_torch.apps import (box_filter_3, box_filter_order_1,
+                                          box_oracle, difference_of_gaussians,
+                                          summed_table)
+    from recfilter_tpu_torch.fir import _align_taps, box_taps
+    from recfilter_tpu_torch.kernels import fir_band, int_scan
+
+    box3 = box_filter_3(W, H, 5).to(dev)                     # F1
+    dog = difference_of_gaussians(W, H, 5, 9).to(dev)        # F3
+    check(box3.x_pass.band is not None and box3.y_pass.band is not None,
+          "F1 runs both passes on fir_band")
+    check(dog.x_pass.band.Cout == 2 and dog.y_pass.band.contract,
+          "F3: a C = 2 bank, then a signed contraction, on fir_band")
+    xf_np = image(H, W, seed=2)
+    xf = torch.from_numpy(xf_np).to(dev)
+    dog_taps = [box_taps(5, 3), box_taps(9, 3)]
+    rag = torch.from_numpy(image(2, 1080, 1000, seed=4)).to(dev)
+    with torch.no_grad():
+        mid1 = box3.x_pass.band.plain(xf)
+        mid3 = dog.x_pass.band.plain(xf)
+        band_cases = [
+            ("F1 x pass (1->1, rotated)", box3.x_pass.band, xf),
+            ("F1 y pass (1->1, rotated)", box3.y_pass.band, mid1),
+            ("F3 x pass (1->2 bank, rotated)", dog.x_pass.band, xf),
+            ("F3 y pass (2->1 contraction, rotated)", dog.y_pass.band, mid3),
+            ("L=1000 1->1 flat", fir_band.FirBand(box_taps(5, 3)).to(dev),
+             rag[0]),
+            ("L=1000 1->2 bank flat", fir_band.FirBand(
+                _align_taps(dog_taps)).to(dev), rag[0]),
+            ("L=1000 2->1 contraction flat", fir_band.FirBand(
+                _align_taps(dog_taps), contract=True,
+                signs=[1.0, -1.0]).to(dev), rag)]
+        for label, band, v in band_cases:
+            got, want = band(v), band.plain(v)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  {label} {tuple(v.shape)} -> {tuple(got.shape)}, K = "
+                  f"{band.taps_k.shape[1]} (padded): max|k-p|/max|p| = "
+                  f"{err:.3e}")
+            check(err <= 1e-5, f"{label}: fir_band within 1e-5 of its twin")
+            if label.startswith("F1 x"):
+                max_abs["fir_band"] = (got - want).abs().max().item()
+        del mid1, mid3, got, want
+
+    img_i1 = ints((H, W), 0, 255, np.int32, seed=5)          # I1
+    x_i1 = torch.from_numpy(img_i1).to(dev)
+    int_cases = [("I1 x (lanes)", x_i1, [(1, 1, True)], 1),
+                 ("I1 y (rows)", x_i1, [(1, 1, True)], 0)]
+    i2_units = {1: [(2, -1, True), (1, -1, False), (3, 1, False)],
+                0: [(1, 1, True)]}
+    for dt in (np.int16, np.int8):
+        info = np.iinfo(dt)
+        v = torch.from_numpy(ints((2048, 2048), info.min, info.max, dt,
+                                  seed=6)).to(dev)
+        for ax in (1, 0):
+            int_cases.append((f"I2 {np.dtype(dt).name} axis {ax}", v,
+                              i2_units[ax], ax))
+    with torch.no_grad():
+        for label, v, units, ax in int_cases:
+            got = int_scan.int_unit_dim_pass(v, units, ax)
+            want = int_scan.unit_scans_plain(v, units, ax)
+            torch.cuda.synchronize()
+            d = max_int_diff(got, want)
+            print(f"  {label} {tuple(v.shape)} {v.dtype}, {len(units)} "
+                  f"scan(s): max|k-p| = {d}")
+            check(d == 0 and got.dtype == v.dtype,
+                  f"{label}: int_scan bit-equal to its twin")
+            max_abs["int_scan"] = max(max_abs["int_scan"], float(d))
+        del got, want
+    x_i3 = torch.from_numpy(ints((8, 10_000_000), -2**31, 2**31 - 1,
+                                 np.int32, seed=7)).to(dev)   # I3
+    x_i4 = torch.from_numpy(ints((16384, 4096), 0, 255, np.int32,
+                                 seed=8)).to(dev)             # I4
+    with torch.no_grad():
+        for label, v, layout in (("I3", x_i3, 0), ("I4", x_i4, 1)):
+            xr = v if layout == 0 else v.reshape(1, *v.shape)
+            for unit in ((1, 1, True), (-3, -1, False)):
+                C = int_scan._chunk_len(xr.shape[1])
+                c = int_scan.seg_carries(xr, unit, layout, C)
+                cp = int_scan.seg_carries_plain(xr, unit, layout, C)
+                inc = int_scan._carry_chain(c, unit[2])
+                y = int_scan.seg_fix(xr, inc, unit, layout, C)
+                yp = int_scan.seg_fix_plain(xr, inc, unit, layout, C)
+                torch.cuda.synchronize()
+                d = (max_int_diff(c, cp), max_int_diff(y, yp))
+                print(f"  {label} {tuple(xr.shape)} unit {unit}, C = {C}, "
+                      f"{c.shape[1]} chunks: max|k-p| carries {d[0]}, fix "
+                      f"{d[1]}")
+                check(d == (0, 0),
+                      f"{label} {unit}: both int_seg_scan phases bit-equal "
+                      "to their twins")
+                max_abs["int_seg_scan"] = max(max_abs["int_seg_scan"],
+                                              float(max(d)))
+                del c, cp, inc, y, yp
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
     main_launches = {}
 
     def only(**kw):
         """Launch counts with every kernel not named at 0."""
-        return {k: kw.get(k, 0) for k in launch.SIGNATURES}
+        return {k: kw.get(k, 0) for k in launch.LAUNCHES}
 
     for label, (F, mod, img) in modules.items():
         with torch.no_grad():
@@ -554,8 +753,9 @@ def main() -> int:
         out, launches = counted(
             lambda v: run_cascade(fc, v, device=dev), img)
     print(f"  S2: launches {launches}")
-    check(launches == {k: 1 for k in launch.SIGNATURES},
-          "S2: each of the six kernels launched once by the cascade")
+    check(launches == only(moments2d=1, final2d=1, tails=1, completion=1,
+                           rows_tails=1, rows_final=1),
+          "S2: each of the six float kernels launched once by the cascade")
     whole = rft.FilterSpec("G", fc[0].spec.dims,
                            sum((f.spec.scans for f in fc), ()),
                            border="clamp", tile_widths=(128, 128))
@@ -563,6 +763,106 @@ def main() -> int:
     print(f"  S2: max|y - oracle of the whole filter|/max = {err:.3e}")
     check(err <= 2e-6, "S2: within 2e-6 of the whole filter's oracle")
     del out
+
+    print("== phase 3d: box, DoG and the integer tables end to end through "
+          "the app builders and RecFilter.realize", flush=True)
+    with torch.no_grad():
+        y, launches = counted(box3, xf)
+    print(f"  F1: launches {launches}")
+    check(launches == only(fir_band=2), "F1: fir_band launched twice")
+    main_launches["fir_band"] = launches["fir_band"]
+    check(tuple(y.shape) == (H, W) and bool(torch.isfinite(y).all()),
+          f"F1: output finite, shape {(H, W)}")
+    want = sep_oracle(xf_np, box_taps(5, 3))
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  F1: max|y - FIR oracle|/max|oracle| = {err:.3e}")
+    check(err <= 2e-6, "F1: within 2e-6 of the f64 FIR oracle")
+    with torch.no_grad():
+        y, launches = counted(dog, xf)
+    print(f"  F3: launches {launches}")
+    check(launches == only(fir_band=2), "F3: fir_band launched twice")
+    want = sep_oracle(xf_np, dog_taps[0]) - sep_oracle(xf_np, dog_taps[1])
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  F3: max|y - oracle|/max|oracle of the difference| = {err:.3e}")
+    check(err <= 5e-6, "F3: within 5e-6 of the peak of the difference")
+    del y, want
+    # F2, both variants at 1920 × 1080
+    img2 = np.random.default_rng(3).standard_normal((1080, 1920)).astype(
+        np.float32)
+    want = box_oracle(img2, 5, 1)
+    for variant, expect in (("fir", only(fir_band=2)),
+                            ("sat", only(moments2d=1, final2d=1))):
+        mod, sat = box_filter_order_1(1920, 1080, 5, variant=variant)
+        check((sat is None) == (variant == "fir"),
+              f"F2 {variant}: builds a SAT filter only for the SAT variant")
+        mod = mod.to(dev)
+        with torch.no_grad():
+            y, launches = counted(mod, torch.from_numpy(img2).to(dev))
+        print(f"  F2 {variant}: launches {launches}")
+        check(launches == expect, f"F2 {variant}: launches {expect}")
+        got = y.cpu().numpy()
+        if variant == "fir":
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            print(f"  F2 fir: max|y - box oracle|/max|oracle| = {err:.3e}")
+            check(err <= 2e-6, "F2 fir: within 2e-6 of the box oracle")
+        else:
+            v = (slice(6, -6), slice(6, -6))
+            dev_ = np.abs(got[v] - want[v])
+            print(f"  F2 sat: interior max|y - box oracle| = "
+                  f"{dev_.max():.3e}; max of |d| / (1e-4 + 1e-3·|oracle|) = "
+                  f"{(dev_ / (1e-4 + 1e-3 * np.abs(want[v]))).max():.3e}")
+            check(np.allclose(got[v], want[v], rtol=1e-3, atol=1e-4),
+                  "F2 sat: interior within rtol = 1e-3, atol = 1e-4 of the "
+                  "box oracle")
+    del y, want
+    # I1: the int32 SAT of an 8-bit image through summed_table's realize
+    F = summed_table(W, H, dtype="int32")
+    y, launches = counted(lambda v: F.realize(v), img_i1)
+    print(f"  I1: launches {launches}")
+    check(launches == only(int_scan=2), "I1: int_scan launched once per axis")
+    main_launches["int_scan"] = launches["int_scan"]
+    want = img_i1.cumsum(1, dtype=np.int32).cumsum(0, dtype=np.int32)
+    check(y.dtype == torch.int32 and np.array_equal(y.cpu().numpy(), want),
+          "I1: bit-exact against numpy's wrapping int32 cumsum(1).cumsum(0) "
+          f"(peak before wrap {int(img_i1.sum(dtype=np.int64))})")
+    int_mods = {"I1": F.as_func().to(dev)}
+    # I2: int16 and int8 with the a = -1 anticausal chain on x
+    for dt in (np.int16, np.int8):
+        info = np.iinfo(dt)
+        img = ints((2048, 2048), info.min, info.max, dt, seed=6)
+        F = int_filter(rft, img, [(1, True, [2, -1]), (1, False, [1, -1]),
+                                  (1, False, [3, 1]), (0, True, [1, 1])])
+        y, launches = counted(lambda v: F.realize(v), img)
+        name = np.dtype(dt).name
+        print(f"  I2 {name}: launches {launches}")
+        check(launches == only(int_scan=2),
+              f"I2 {name}: int_scan launched once per axis")
+        check(y.dtype == getattr(torch, name) and np.array_equal(
+            y.cpu().numpy(), scan_core.oracle_apply(F.spec, img)),
+            f"I2 {name}: bit-exact against the integer oracle")
+    # I3, I4: the segmented routes
+    img_i3 = x_i3.cpu().numpy()
+    F = int_filter(rft, img_i3, [(1, True, [1, 1])])
+    y, launches = counted(lambda v: F.realize(v), img_i3)
+    print(f"  I3: launches {launches}")
+    check(launches == only(int_seg_carries=1, int_seg_fix=1),
+          "I3: each segmented phase launched once")
+    main_launches["int_seg_scan"] = (launches["int_seg_carries"]
+                                     + launches["int_seg_fix"])
+    check(np.array_equal(y.cpu().numpy(),
+                         img_i3.cumsum(1, dtype=np.int32)),
+          "I3: bit-exact against numpy's wrapping int32 cumsum")
+    int_mods["I3"] = F.as_func().to(dev)
+    img_i4 = x_i4.cpu().numpy()
+    F = int_filter(rft, img_i4, [(0, True, [1, 1])])
+    y, launches = counted(lambda v: F.realize(v), img_i4)
+    print(f"  I4: launches {launches}")
+    check(launches == only(int_seg_carries=1, int_seg_fix=1),
+          "I4: each segmented phase launched once (other-axis layout)")
+    check(np.array_equal(y.cpu().numpy(),
+                         img_i4.cumsum(0, dtype=np.int32)),
+          "I4: bit-exact against numpy's wrapping int32 cumsum along y")
+    del y, img_i3, img_i4
 
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
@@ -574,7 +874,8 @@ def main() -> int:
          signal((300_000,), seed=1)),
         ("volume 128x128x256",
          gauss_axes(rft, (128, 128, 256), (0, 1, 2)).as_func().to(dev),
-         image(128, 128, 256, seed=1))]
+         image(128, 128, 256, seed=1)),
+        ("box_filter_3 512²", box_filter_3(512, 512, 5).to(dev), img)]
     for label, mod, xin in grad_cases:
         grads = []
         for fwd in (mod.forward, mod.forward_plain):
@@ -690,10 +991,9 @@ def main() -> int:
               "67 TFLOP/s fp32 peak")
         print(f"  {label} first-call host build (as_func): "
               f"{build_s[label]:.2f} s")
-        busy = ("not measured" if prof["busy_ms"] is None else
-                f"{prof['busy_ms']:.4f} ms, idle {100 * prof['idle']:.1f} %")
         print(f"  {label} profile: call {prof['call_ms']:.4f} ms, device "
-              f"busy {busy}, {prof['device_ops']:.0f} device ops per call; "
+              f"busy {busy_text(prof)}, {prof['device_ops']:.0f} device ops "
+              "per call; "
               "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
                                   for nm, ms in prof["top"]))
 
@@ -780,11 +1080,9 @@ def main() -> int:
               f"{100 * flops / t['rows_final'][0] / 1e9 / 67:.1f} % of the "
               "67 TFLOP/s fp32 peak")
         if label == "V1":
-            busy = ("not measured" if prof["busy_ms"] is None else
-                    f"{prof['busy_ms']:.4f} ms, idle "
-                    f"{100 * prof['idle']:.1f} %")
             print(f"  V1 profile: call {prof['call_ms']:.4f} ms, device busy "
-                  f"{busy}, {prof['device_ops']:.0f} device ops per call; "
+                  f"{busy_text(prof)}, {prof['device_ops']:.0f} device ops "
+                  "per call; "
                   "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
                                       for nm, ms in prof["top"]))
         del x
@@ -810,12 +1108,112 @@ def main() -> int:
           f"({timing.mpix_per_sec(t_ms, H * W):.0f} Mpix/s); ratio "
           f"{s_ms / t_ms:.3f} on {card}")
     for what, pr in (("S1 both stages", s_prof), ("gaussian_3xy", t_prof)):
-        check(pr["busy_ms"] is not None, "the profiler recorded device time")
         print(f"  {what} profile: call {pr['call_ms']:.4f} ms, device busy "
-              f"{pr['busy_ms']:.4f} ms, idle {100 * pr['idle']:.1f} %, "
-              f"{pr['device_ops']:.0f} device ops per call")
-    print(f"  S1 / gaussian_3xy device busy: "
-          f"{s_prof['busy_ms'] / t_prof['busy_ms']:.3f}")
+              f"{busy_text(pr)}, {pr['device_ops']:.0f} device ops per call")
+    if s_prof["busy_ms"] is not None and t_prof["busy_ms"] is not None:
+        print(f"  S1 / gaussian_3xy device busy: "
+              f"{s_prof['busy_ms'] / t_prof['busy_ms']:.3f}")
+
+    print("== phase 5e: FIR and integer device times (CUDA events, median "
+          f"of {4 * N_TIMED // 2} calls each)", flush=True)
+
+    def whole_call(label, mod, v, n):
+        """Whole-call events against the plain path, and the profile."""
+        k_ms, p_ms = paired_times(mod, mod.forward_plain, v)
+        prof = timing.device_profile(mod, v, iterations=10)
+        print(f"  {label} whole call: kernel path {k_ms:.4f} ms "
+              f"({timing.mpix_per_sec(k_ms, n):.0f} M/s), plain {p_ms:.4f} "
+              f"ms ({timing.mpix_per_sec(p_ms, n):.0f} M/s); profile: call "
+              f"{prof['call_ms']:.4f} ms, device busy {busy_text(prof)}, "
+              f"{prof['device_ops']:.0f} device ops per call on {card}")
+
+    def kernel_times(label, fn, plain, lib, args, nbytes, ops, rate):
+        """Event and device times of a kernel, its twin and its library
+        yardstick; returns (event pair, device triple, bound, library)."""
+        t = paired_times(fn, plain, *args)
+        d = (device_ms(fn, *args), device_ms(plain, *args),
+             device_ms(lib, *args))
+        lib_ms = median_ms(lib, *args)
+        bound, by = roofline(nbytes, ops, rate)
+        print(f"  {label}: event {t[0]:.4f} ms, device {d[0]:.4f} ms; "
+              f"bound {bound:.4f} ms by {by} ({100 * bound / d[0]:.1f} % of "
+              f"the device time); twin event {t[1]:.4f}, device {d[1]:.4f} "
+              f"ms; library event {lib_ms:.4f}, device {d[2]:.4f} ms")
+        return t, d, (bound, by), lib_ms
+
+    with torch.no_grad():
+        for label, mod in (("F1 box_filter_3", box3), ("F3 DoG", dog)):
+            y_mid = mod.x_pass.band.plain(xf)
+            for name, band, v in (("x pass", mod.x_pass.band, xf),
+                                  ("y pass", mod.y_pass.band, y_mid)):
+                w = torch.from_numpy(np.stack(
+                    [box_taps(5, 3)] if label.startswith("F1")
+                    else _align_taps(dog_taps)).astype(np.float32))
+                w = w[:, None].to(dev)  # (C, 1, K) conv1d weights
+                Kt = w.shape[-1]
+                if band.contract:  # the signed channel sum: one grouped
+                    w = w * torch.tensor([1.0, -1.0], device=dev)[:, None,
+                                                                  None]
+
+                    def lib(v, w=w, Kt=Kt):
+                        return F_.conv1d(v.permute(1, 0, 2), w.view(1, 2, Kt),
+                                         padding=(Kt - 1) // 2)
+                else:
+                    def lib(v, w=w, Kt=Kt):
+                        return F_.conv1d(v.reshape(v.shape[0], 1, v.shape[1]),
+                                         w, padding=(Kt - 1) // 2)
+                got = band(v)
+                ref = lib(v).squeeze(1) if band.Cout == 1 else \
+                    lib(v).permute(1, 0, 2)
+                check(rel_err(ref.transpose(-1, -2), got) <= 1e-5,
+                      f"{label} {name}: conv1d computes the kernel's "
+                      "function (flat emit)")
+                nbytes = tensor_bytes(v, got, band.taps_k)
+                ops = 2.0 * Kt * band.Cin * got.numel()
+                r = kernel_times(f"{label} {name} fir_band", band, band.plain,
+                                 lib, (v,), nbytes, ops, PEAK_FP32)
+                if label.startswith("F1") and name == "x pass":
+                    times["fir_band"] = r[0]
+                    dev_t["fir_band"] = r[1]
+                    extra["fir_band"] = (*r[2], r[3])
+                del got, ref
+            del y_mid
+            whole_call(label, mod, xf, H * W)
+
+        units = [(1, 1, True)]
+        for label, ax in (("I1 x (lanes)", 1), ("I1 y (rows)", 0)):
+            r = kernel_times(
+                f"{label} int_scan",
+                lambda v, ax=ax: int_scan.int_unit_dim_pass(v, units, ax),
+                lambda v, ax=ax: int_scan.unit_scans_plain(v, units, ax),
+                lambda v, ax=ax: torch.cumsum(v, ax, dtype=torch.int32),
+                (x_i1,), 2 * tensor_bytes(x_i1), x_i1.numel(), PEAK_INT32)
+            if ax == 1:
+                times["int_scan"], dev_t["int_scan"] = r[0], r[1]
+                extra["int_scan"] = (*r[2], r[3])
+        whole_call("I1 int32 SAT", int_mods["I1"], x_i1, H * W)
+
+        unit = (1, 1, True)
+        C = int_scan._chunk_len(x_i3.shape[1])
+        r = kernel_times(
+            "I3 int_seg_scan (both phases and the carry chain)",
+            seg_route(int_scan, unit, False), seg_route(int_scan, unit, True),
+            lambda v: torch.cumsum(v, 1, dtype=torch.int32), (x_i3,),
+            2 * tensor_bytes(x_i3), x_i3.numel(), PEAK_INT32)
+        times["int_seg_scan"], dev_t["int_seg_scan"] = r[0], r[1]
+        extra["int_seg_scan"] = (*r[2], r[3])
+        c = int_scan.seg_carries(x_i3, unit, 0, C)
+        inc = int_scan._carry_chain(c, True)
+        for phase, fn in (
+                ("int_seg_carries",
+                 lambda v: int_scan.seg_carries(v, unit, 0, C)),
+                ("int_seg_fix",
+                 lambda v: int_scan.seg_fix(v, inc, unit, 0, C))):
+            print(f"  I3 {phase}: event {median_ms(fn, x_i3):.4f} ms, device "
+                  f"{device_ms(fn, x_i3):.4f} ms")
+        whole_call("I3 8 x 10M int32 cumsum", int_mods["I3"], x_i3,
+                   x_i3.numel())
+        del c, inc
 
     kernels = [
         {"name": name, "route": "cuda",
@@ -830,7 +1228,10 @@ def main() -> int:
             ("tails", "recfilter_tpu/kernels/completion.py:750"),
             ("completion", "recfilter_tpu/kernels/completion.py:464"),
             ("rows_tails", "recfilter_tpu/kernels/final2d.py:1185"),
-            ("rows_final", "recfilter_tpu/kernels/final2d.py:1251"))
+            ("rows_final", "recfilter_tpu/kernels/final2d.py:1251"),
+            ("fir_band", "recfilter_tpu/kernels/fir_band.py:222"),
+            ("int_scan", "recfilter_tpu/kernels/int_scan.py:384"),
+            ("int_seg_scan", "recfilter_tpu/kernels/int_scan.py:225"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -1,17 +1,23 @@
 """recfilter_tpu_torch — the PyTorch + CUDA port of recfilter_tpu.
 
-Three paths run, in float32 (zero or clamp border), each on hand-written
-CUDA kernels for Hopper (sm_90a) with plain PyTorch twins on the CPU:
+Five paths run, each on hand-written CUDA kernels for Hopper (sm_90a)
+with plain PyTorch twins on the CPU:
 
-  * 2-D filters that scan the trailing two axes (any extents ≥ 128 with
-    zero border): the 3-touch executor on ``moments2d``/``final2d``;
-  * filters whose scans all lie on the last axis — 1-D signals up to
-    audio scale (10M samples), channels on leading axes: the last-axis
+  * float32 2-D filters that scan the trailing two axes (any extents
+    ≥ 128 with zero border): the 3-touch executor on
+    ``moments2d``/``final2d``;
+  * float32 filters whose scans all lie on the last axis — 1-D signals up
+    to audio scale (10M samples), channels on leading axes: the last-axis
     executor on ``tails``/``completion``;
-  * scans on any other axis (extents that are multiples of 128): the rows
-    pass on ``rows_tails``/``rows_final`` — volumes (rows pass, then the
-    2-D executor), vertical-only filters, non-adjacent axes, and the
-    staged Gaussian cascades of ``apps.gaussian``.
+  * float32 scans on any other axis (extents that are multiples of 128):
+    the rows pass on ``rows_tails``/``rows_final`` — volumes (rows pass,
+    then the 2-D executor), vertical-only filters, non-adjacent axes, and
+    the staged Gaussian cascades of ``apps.gaussian``;
+  * banded FIR banks (``fir``: the iterated box filters and the difference
+    of Gaussians of ``apps.box`` / ``apps.dog``) on ``fir_band``;
+  * int8/16/32 filters of unit-feedback scans under a zero border —
+    summed-area tables and integral images, bit exact with wrap-around —
+    on ``int_scan`` and, for long axes, ``int_seg_scan``.
 
 The JAX package ``recfilter_tpu`` is the reference; this package imports
 neither it nor jax. Filters run on the card unless the caller asks for
@@ -34,10 +40,15 @@ the CPU (``device="cpu"``).
 
     from recfilter_tpu_torch.apps import gaussian_1xy_2x_2y, run_cascade
     out = run_cascade(gaussian_1xy_2x_2y(4096, 4096), image)
+
+    from recfilter_tpu_torch.apps import box_filter_3, summed_table
+    blur = box_filter_3(4096, 4096, B=5).to("cuda")(image_on_the_card)
+    sat = summed_table(4096, 4096, dtype="int32").realize(int_image)
 """
 
 from .api import RecFilter
-from .dimfuse import FusedLastAxis, StagedPass, apply_filter_fused
+from .dimfuse import FusedLastAxis, IntUnitPass, StagedPass, apply_filter_fused
+from .fir import FirPass, FirSeparable2D, fir_pass_last, fir_separable_2d
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
 from .overlap2d import Fused2DPx, FusedRowsPx, fused_2d_px, fused_rows_px
@@ -53,7 +64,8 @@ __all__ = [
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",
     "apply_filter_fused", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
-    "FusedRowsPx", "fused_rows_px", "StagedPass",
+    "FusedRowsPx", "fused_rows_px", "StagedPass", "IntUnitPass",
+    "FirPass", "FirSeparable2D", "fir_pass_last", "fir_separable_2d",
     "CheckResult", "CheckResultVerbose", "generate_random_image",
 ]
 

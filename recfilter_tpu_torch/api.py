@@ -199,7 +199,9 @@ class RecFilter:
     def profile(self, iterations: int = 1, *, device="cuda") -> float:
         """Warm-up + ``iterations`` timed calls on a CUDA device (CUDA
         events); prints and returns the total ms. The rate is MiP/s for
-        images and Msamples/s (10^6 samples per second) for 1-D signals."""
+        images and Msamples/s (10^6 samples per second) for 1-D signals;
+        an integer filter's line adds its type and the GB/s of one read
+        and one write of the array."""
         d = resolve_device(device)
         fn, x = self._func(d), self._input(None, d)
         with torch.no_grad():
@@ -208,6 +210,11 @@ class RecFilter:
         rate = (f"{timing.mpix_per_sec(ms, pixels):.2f} Msamples/s"
                 if self.spec.ndim == 1
                 else f"{timing.throughput(ms, pixels):.2f} MiP/s")
+        if self.spec.dtype in dimfuse._INT_DTYPES:
+            nbytes = 2 * pixels * torch.iinfo(
+                dimfuse._INT_DTYPES[self.spec.dtype]).bits // 8
+            rate += (f", {self.spec.dtype}, "
+                     f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s in + out")
         print(f"{self._name}: {ms:.3f} ms for {iterations} iterations "
               f"({rate}) on {torch.cuda.get_device_name(d)}")
         return ms

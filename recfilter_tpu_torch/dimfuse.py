@@ -19,6 +19,9 @@ the globally-first/last tile only; those tiles get per-tile variants.
 :func:`fused_filter_module` routes a filter as the JAX package's
 ``apply_filter_fused`` does, in its order:
 
+  0. integer filters (int8/16/32): the exact unit route
+     :class:`IntUnitPass`, on the wrapping ``int_scan``/``int_seg_scan``
+     kernels;
   1. scans on exactly the two trailing axes: the 3-touch 2-D executor
      :class:`.overlap2d.Fused2DPx`;
   2. scans on exactly the three trailing axes (volumes): the rows pass
@@ -825,21 +828,97 @@ class StagedPass(nn.Module):
         return x
 
 
+_INT_DTYPES = {"int8": torch.int8, "int16": torch.int16,
+               "int32": torch.int32}
+
+
+def _int_cast_scans(spec: FilterSpec) -> List[Scan]:
+    """Coefficients cast into the image type, as the reference and the
+    integer oracle do (int16 coefficients wrap at int16): float-valued
+    Scans with exactly integral coefficients."""
+    t = np.dtype(spec.dtype).type
+    return [Scan(s.axis, s.causal, float(int(t(s.feedfwd))),
+                 tuple(float(int(t(c))) for c in s.feedback))
+            for s in spec.scans]
+
+
+class IntUnitPass(nn.Module):
+    """Integer filters whose every scanned dimension is a chain of unit
+    scans under a zero border — summed-area tables and integral images:
+    the unit route of the JAX package's ``apply_filter_int_exact``, bit
+    exact modulo 2^k. One stage per scanned axis, in order of first
+    appearance, each :func:`.kernels.int_scan.int_unit_dim_pass` (the
+    ``int_scan`` kernel, or the segmented ``int_seg_scan`` phases past its
+    gates). The array stays in its own type between stages: the low k bits
+    of a wrapping integer-linear map depend only on the low k bits of its
+    input, so this equals the JAX package's int32 intermediate.
+    ``forward_plain`` runs the plain twin of each stage.
+
+    Raises ``NotImplementedError`` where the JAX package takes its limb
+    route (a dimension that is not a unit chain, or a clamp border: the
+    f32x9 mantissa limbs, ROADMAP Queue 1 item 11)."""
+
+    def __init__(self, spec: FilterSpec):
+        super().__init__()
+        from .kernels import int_scan
+
+        scans = _int_cast_scans(spec)
+        self.stages = []
+        for ax, ids in spec.scans_by_axis().items():
+            units = [int_scan.unit_scans_of(scans[i]) for i in ids]
+            if spec.border != BorderMode.ZERO or None in units:
+                why = ("a clamp border" if spec.border != BorderMode.ZERO
+                       else "scans that are not unit-feedback chains")
+                raise NotImplementedError(
+                    f"integer filter on axis {ax} with {why}: the JAX "
+                    "package runs its mantissa-limb route (f32x9) here, "
+                    "not ported yet (ROADMAP Queue 1 item 11)")
+            self.stages.append((ax, [u for us in units for u in us]))
+        self.dtype = _INT_DTYPES[spec.dtype]
+        self.ext = tuple(d.extent for d in spec.dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from .kernels import int_scan
+
+        return self._run(x, int_scan.int_unit_dim_pass)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        from .kernels import int_scan
+
+        return self._run(x, int_scan.unit_scans_plain)
+
+    def _run(self, x, dim_pass):
+        if tuple(x.shape) != self.ext:
+            raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
+                             f"extents {self.ext}")
+        if x.is_floating_point():  # as the JAX package: through int32
+            x = x.to(torch.int32)
+        x = x.to(self.dtype).contiguous()
+        for ax, units in self.stages:
+            x = dim_pass(x, units, ax)
+        return x
+
+
 def fused_filter_module(spec: FilterSpec,
                         matmul_precision: str = "px6") -> nn.Module:
     """The executor module for ``spec``, routed as the module docstring
     says, or ``NotImplementedError`` naming what the port does not run
-    yet. The kernels' 128 × 128 tile replaces the split widths on the 2-D
-    and rows executors, as in the JAX package (tiling never changes the
-    result); the last axis is tiled by its split width, or 32."""
+    yet. Integer filters (int8/16/32) take :class:`IntUnitPass`, as the
+    JAX package sends them to its exact integer executor. The kernels'
+    128 × 128 tile replaces the split widths on the 2-D and rows
+    executors, as in the JAX package (tiling never changes the result);
+    the last axis is tiled by its split width, or 32."""
     from . import overlap2d
     from .planner import check_precision
 
     check_precision(matmul_precision)
+    if spec.dtype in _INT_DTYPES:
+        return IntUnitPass(spec)
     if spec.dtype != "float32":
         raise NotImplementedError(
-            f"dtype {spec.dtype}: the port runs float32 filters only "
-            "(ROADMAP Queue 1 items 4 and 11: bf16 storage, integer-exact)")
+            f"dtype {spec.dtype}: the port runs float32 and int8/16/32 "
+            "filters only (ROADMAP Queue 1 item 4: bf16 and float16 "
+            "storage; item 11: other integer types)")
     if spec.tuple_width:
         raise NotImplementedError(
             "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")

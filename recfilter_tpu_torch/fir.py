@@ -1,0 +1,286 @@
+"""Banded tile-FIR executor: small-support separable FIR banks (the JAX
+package's ``fir.py``).
+
+An n-times-iterated box of radius B is an FIR of K = 2nB+1 taps (K = 55
+for DoG's B2 = 9). Tiling the scanned axis by T, the banded Toeplitz
+operator is one T×T block per tile plus two narrow edge strips against the
+neighbouring tiles. Border semantics are zero padding — the apps' contract
+(the reference zero-pads its input margins before filtering) — so this path
+matches the brute-force oracle at every pixel.
+
+Routing follows the JAX package's ``fir_pass_last`` exactly, from the shapes
+and the precision alone: at ``px6`` (the default) on float32, where
+``kernels.fir_band.fir_band_ok`` holds (T = 128, band within one tile,
+≥ 8 lines, L ≥ T) with at least one batch axis — and only one when the
+output is rotated — the pass runs :class:`.kernels.fir_band.FirBand` (the
+``fir_band`` CUDA kernel on the card, its twin on the CPU). Anything else,
+``highest`` included, takes the einsum form: the three band blocks as fp32
+einsums over the zero-shifted tiles.
+
+``tap_scale`` is kept in the signatures: on the TPU it makes iterated-box
+taps exact bf16 integers so the compensated matrix products need fewer
+chunks. The port's products are fp32, so it changes nothing here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .kernels import fir_band
+from .planner import auto_tile_width, check_precision
+
+
+def box_taps(B: int, iterations: int) -> np.ndarray:
+    """Taps of an ``iterations``-times iterated, zero-padded box of radius
+    B: the FIR equivalent of the reference's iterated integral-image
+    pipelines. Exact in float64 (small integers / (2B+1)^n); support
+    2·n·B+1, centered."""
+    one = np.ones(2 * B + 1, np.float64) / float(2 * B + 1)
+    taps = one
+    for _ in range(iterations - 1):
+        taps = np.convolve(taps, one)
+    return taps
+
+
+def fir_oracle(x: np.ndarray, taps: np.ndarray, axis: int) -> np.ndarray:
+    """float64 zero-padded correlation oracle: out[i] = Σ_t taps[t]·x[i+t-P]
+    with P = (K-1)//2 — the centered convention of :func:`fir_pass_last`."""
+    x = np.asarray(x, np.float64)
+    taps = np.asarray(taps, np.float64)
+    K = len(taps)
+    P = (K - 1) // 2
+    axis %= x.ndim
+    xp = np.pad(x, [(P, K - 1 - P) if a == axis else (0, 0)
+                    for a in range(x.ndim)])
+    out = np.zeros_like(x)
+    window = [slice(None)] * x.ndim
+    for t in range(K):
+        window[axis] = slice(t, t + x.shape[axis])
+        out += taps[t] * xp[tuple(window)]
+    return out
+
+
+def _align_taps(taps) -> np.ndarray:
+    """Stack per-channel taps of differing support into one (C, K) array
+    with centers aligned (zero taps only widen the band)."""
+    rows = [np.asarray(t, np.float64).ravel() for t in taps]
+    Pmax = max((len(t) - 1) // 2 for t in rows)
+    Qmax = max(len(t) - 1 - (len(t) - 1) // 2 for t in rows)
+    out = np.zeros((len(rows), Pmax + Qmax + 1), np.float64)
+    for c, t in enumerate(rows):
+        p = (len(t) - 1) // 2
+        out[c, Pmax - p: Pmax - p + len(t)] = t
+    return out
+
+
+def _band_mats(taps: np.ndarray, T: int):
+    """(W0, Wm, Wp, P, Q): the T×T main block plus the narrow
+    neighbour-strip blocks of the banded Toeplitz operator
+    out[o] = Σ_t taps[t]·x[o+t-P]. Wm (T×P) multiplies the LAST P lanes of
+    the previous tile, Wp (T×Q) the FIRST Q lanes of the next. Requires
+    P, Q ≤ T."""
+    taps = np.asarray(taps, np.float64)
+    K = len(taps)
+    P = (K - 1) // 2
+    Q = K - 1 - P
+    if P > T or Q > T:
+        raise ValueError(
+            f"FIR support ({K} taps) exceeds tile width {T}; use the IIR "
+            f"integral-image pipeline for large radii")
+    W0 = np.zeros((T, T), np.float64)
+    Wm = np.zeros((T, max(P, 1)), np.float64)
+    Wp = np.zeros((T, max(Q, 1)), np.float64)
+    for o in range(T):
+        for t in range(K):
+            g = o + t - P  # input lane relative to this tile's start
+            if 0 <= g < T:
+                W0[o, g] = taps[t]
+            elif g < 0:
+                Wm[o, P + g] = taps[t]  # lane T-P+(P+g) of the previous tile
+            else:
+                Wp[o, g - T] = taps[t]  # lane g-T of the next tile
+    return W0, Wm, Wp, P, Q
+
+
+def _shift_tiles(S, back: bool):
+    """Shift the tile axis (-2) so out-tile i sees its neighbour's strip:
+    ``back`` pulls from tile i-1 (a zero tile first), else from i+1."""
+    zeros = torch.zeros_like(S[..., :1, :])
+    if back:
+        return torch.cat([zeros, S[..., :-1, :]], dim=-2)
+    return torch.cat([S[..., 1:, :], zeros], dim=-2)
+
+
+def _as_bank(taps) -> np.ndarray:
+    if isinstance(taps, (list, tuple)):
+        taps = _align_taps(taps)  # ragged per-channel supports
+    return np.atleast_2d(np.asarray(taps, np.float64))  # (C, K)
+
+
+class FirPass(nn.Module):
+    """:func:`fir_pass_last` for inputs of one ``shape``, its route and
+    matrices built once: :class:`.kernels.fir_band.FirBand` where the JAX
+    package runs its kernel, else the einsum form. ``forward_plain`` runs
+    the band pass's plain twin instead of its kernel."""
+
+    def __init__(self, taps, shape, *, tile_width: int = 0,
+                 bank: bool = False, contract: bool = False,
+                 emit_rot: bool = False, matmul_precision: str = "px6",
+                 matmul_dtype=None, tap_scale=None):
+        super().__init__()
+        assert not (bank and contract)
+        check_precision(matmul_precision)
+        if matmul_dtype is not None:
+            raise NotImplementedError(
+                f"matmul_dtype={matmul_dtype!r}: bf16 products are not "
+                "ported yet (ROADMAP Queue 1 item 4)")
+        del tap_scale  # a TPU bf16 device (module docstring)
+        taps = _as_bank(taps)
+        C = taps.shape[0]
+        self.shape = tuple(int(s) for s in shape)
+        self.bank, self.contract, self.emit_rot = bank, contract, emit_rot
+        L = self.shape[-1]
+        T = min(tile_width or auto_tile_width(L), L)
+        self.T, self.C = T, C
+        batch = self.shape[1 if contract else 0:-1]
+        nbatch = len(batch)
+        qk = int(np.prod(batch, dtype=np.int64))
+        self.band = None
+        if (matmul_precision == "px6" and fir_band.fir_band_ok(T, L, taps, qk)
+                and nbatch >= 1 and (not emit_rot or nbatch == 1)):
+            self.band = fir_band.FirBand(taps, T=T, rot=emit_rot,
+                                         contract=contract)
+            return
+        if emit_rot and nbatch < 1:
+            raise ValueError("emit_rot needs a batch axis to rotate with")
+        mats = [_band_mats(t, T) for t in taps]
+        self.P, self.Q = mats[0][3], mats[0][4]
+        for i, name in enumerate(("W0", "Wm", "Wp")):
+            self.register_buffer(name, torch.from_numpy(np.stack(
+                [m[i] for m in mats]).astype(np.float32)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, False)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, True)
+
+    def _run(self, x, plain):
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"input shape {tuple(x.shape)} != the pass's "
+                             f"{self.shape}")
+        x = x.to(torch.float32)
+        if self.band is not None:
+            C, L = self.C, self.shape[-1]
+            xk = x.reshape(C, -1, L) if self.contract else x.reshape(-1, L)
+            yk = (self.band.plain if plain else self.band)(xk)
+            if self.emit_rot:
+                return yk  # (C?, L, last batch) — rot is gated to one axis
+            chan = (C,) if C > 1 and not self.contract else ()
+            return yk.reshape(chan + self.shape[1 if self.contract else 0:])
+        return self._einsum(x)
+
+    def _einsum(self, X):
+        """The JAX package's einsum form: fp32 einsums of the main block
+        and both edge strips over the zero-shifted tiles."""
+        T, L = self.T, self.shape[-1]
+        n = -(-L // T)
+        pad = n * T - L
+        if pad:
+            X = F.pad(X, (0, pad))
+        Xt = X.reshape(X.shape[:-1] + (n, T))
+        nbatch = Xt.ndim - 2 - (1 if self.contract else 0)
+        batch = "abdefg"[:nbatch]
+        lhs_b = ("c" if self.contract else "") + batch
+        out_c = "c" if self.bank else ""
+        if self.emit_rot:
+            out = out_c + batch[:-1] + "no" + batch[-1]
+        else:
+            out = out_c + batch + "no"
+
+        def one(W, strips):
+            eq = f"cow,{lhs_b}nw->{out}"
+            if not (self.bank or self.contract):
+                eq, W = eq.replace("cow", "ow"), W[0]
+            return torch.einsum(eq, W, strips)
+
+        P, Q = self.P, self.Q
+        Y = one(self.W0, Xt)
+        if P:
+            Y = Y + one(self.Wm, _shift_tiles(Xt[..., T - P:], True))
+        if Q:
+            Y = Y + one(self.Wp, _shift_tiles(Xt[..., :Q], False))
+        if self.emit_rot:
+            Y = Y.reshape(Y.shape[:-3] + (n * T, Y.shape[-1]))
+            return Y[..., :L, :] if pad else Y
+        Y = Y.reshape(Y.shape[:-2] + (n * T,))
+        return Y[..., :L] if pad else Y
+
+
+def fir_pass_last(x, taps, *, tile_width: int = 0, bank: bool = False,
+                  contract: bool = False, emit_rot: bool = False,
+                  matmul_precision: str = "px6", matmul_dtype=None,
+                  tap_scale=None):
+    """Apply a centered zero-padded FIR along the LAST axis of ``x``.
+
+    ``taps``: (K,) plain 1→1; ``bank=True``: (C, K) — C output channels
+    from one input, a leading channel axis appears; ``contract=True``:
+    (C, K) with x carrying a leading channel axis that is summed away (the
+    signs folded into the taps). ``emit_rot`` emits the output with the
+    last two spatial axes swapped. Functional :class:`FirPass`."""
+    mod = FirPass(taps, x.shape, tile_width=tile_width, bank=bank,
+                  contract=contract, emit_rot=emit_rot,
+                  matmul_precision=matmul_precision,
+                  matmul_dtype=matmul_dtype, tap_scale=tap_scale)
+    return mod.to(x.device)(x)
+
+
+class FirSeparable2D(nn.Module):
+    """A C-channel separable FIR bank over (h, w) images with a signed
+    cross-channel reduction: out = Σ_c signs[c]·(taps_y[c] ⊗ taps_x[c]) * I.
+
+    The x pass fans 1→C channels and emits rotated ((C, w, h)); the y pass
+    finds y last, applies the per-channel y taps with the signs folded in,
+    contracts the channels away and emits rotated back to (h, w): two
+    passes, one read and one write each. DoG = signs (+1, −1) over the two
+    box³ radii; a plain iterated box is C = 1. ``forward_plain`` runs the
+    plain twins of both passes."""
+
+    def __init__(self, height: int, width: int, taps_x, taps_y=None,
+                 signs=None, *, tile_width: int = 0,
+                 matmul_precision: str = "px6", matmul_dtype=None,
+                 tap_scale=None):
+        super().__init__()
+        taps_x = _as_bank(taps_x)
+        taps_y = taps_x if taps_y is None else _as_bank(taps_y)
+        C = taps_x.shape[0]
+        signs = np.ones(C) if signs is None else np.asarray(signs, np.float64)
+        kw = dict(tile_width=tile_width, matmul_precision=matmul_precision,
+                  matmul_dtype=matmul_dtype, tap_scale=tap_scale)
+        self.shape = (int(height), int(width))
+        self.x_pass = FirPass(taps_x, self.shape, bank=C > 1, emit_rot=True,
+                              **kw)
+        mid = ((C,) if C > 1 else ()) + self.shape[::-1]
+        self.y_pass = FirPass(taps_y * signs[:, None], mid, contract=C > 1,
+                              emit_rot=True, **kw)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return self.y_pass(self.x_pass(image.to(torch.float32)))
+
+    def forward_plain(self, image: torch.Tensor) -> torch.Tensor:
+        return self.y_pass.forward_plain(
+            self.x_pass.forward_plain(image.to(torch.float32)))
+
+
+def fir_separable_2d(image, taps_x, taps_y=None, signs=None, *,
+                     tile_width: int = 0, matmul_precision: str = "px6",
+                     matmul_dtype=None, tap_scale=None):
+    """Functional :class:`FirSeparable2D` for a 2-D ``image``."""
+    mod = FirSeparable2D(image.shape[-2], image.shape[-1], taps_x, taps_y,
+                         signs, tile_width=tile_width,
+                         matmul_precision=matmul_precision,
+                         matmul_dtype=matmul_dtype, tap_scale=tap_scale)
+    return mod.to(image.device)(image)

@@ -1,15 +1,21 @@
 """Launching the port's CUDA kernels: one counter, one launcher, one
 autograd rule for all of them.
 
-  * ``SIGNATURES`` — the plain C interface of every ``csrc/<name>.cu``.
-  * ``LAUNCHES`` — per-kernel launch counts; :func:`_launch` adds one where
+  * ``SIGNATURES`` — the plain C interface of every ``csrc/<name>.cu``,
+    keyed by the kernel (the source file).
+  * ``ENTRIES`` — each launch entry point ``<entry>_launch`` and the kernel
+    whose library holds it. A kernel has one entry of its own name, except
+    ``int_seg_scan``, whose two phases launch separately (``int_seg_carries``
+    and ``int_seg_fix``).
+  * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
   * :func:`_check` — what every wrapper verifies before it passes a pointer.
-  * :class:`_KernelFn` — the ``torch.autograd.Function`` of the CUDA path:
-    forward through ``mod._kernel``, backward through the VJP of the
-    module's plain twin ``mod.plain`` (every kernel is a linear map of its
-    tensor inputs, so the VJP is taken at zero — :func:`_linear_vjp`).
+  * :class:`_KernelFn` — the ``torch.autograd.Function`` of the float
+    kernels' CUDA path: forward through ``mod._kernel``, backward through
+    the VJP of the module's plain twin ``mod.plain`` (every float kernel is
+    a linear map of its tensor inputs, so the VJP is taken at zero —
+    :func:`_linear_vjp`). The integer kernels have no gradient.
 """
 
 from __future__ import annotations
@@ -22,23 +28,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _sig(name: str, n_ptr: int, n_int: int) -> dict:
-    """``<name>_launch(n_ptr pointers, n_int ints, stream) -> int`` and
-    ``<name>_error_string(int) -> char*``."""
-    return {f"{name}_launch": ([_P] * n_ptr + [_I] * n_int + [_P], _I),
-            f"{name}_error_string": ([_I], ctypes.c_char_p)}
+def _sig(name: str, *entries) -> dict:
+    """The C functions of ``csrc/<name>.cu``: for each ``(entry, n_ptr,
+    n_int)`` one ``<entry>_launch(n_ptr pointers, n_int ints, stream) ->
+    int``, and ``<name>_error_string(int) -> char*``."""
+    sig = {f"{e}_launch": ([_P] * n_ptr + [_I] * n_int + [_P], _I)
+           for e, n_ptr, n_int in entries}
+    sig[f"{name}_error_string"] = ([_I], ctypes.c_char_p)
+    return sig
 
 
 SIGNATURES = {
-    "moments2d": _sig("moments2d", 6, 7),
-    "final2d": _sig("final2d", 6, 5),
-    "tails": _sig("tails", 3, 6),
-    "completion": _sig("completion", 4, 4),
-    "rows_tails": _sig("rows_tails", 3, 5),
-    "rows_final": _sig("rows_final", 4, 4),
+    "moments2d": _sig("moments2d", ("moments2d", 6, 7)),
+    "final2d": _sig("final2d", ("final2d", 6, 5)),
+    "tails": _sig("tails", ("tails", 3, 6)),
+    "completion": _sig("completion", ("completion", 4, 4)),
+    "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
+    "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
+    "fir_band": _sig("fir_band", ("fir_band", 3, 7)),
+    "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
+    "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
+                         ("int_seg_fix", 3, 9)),
 }
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()
+           for fn in sig if fn.endswith("_launch")}
+
+LAUNCHES = {entry: 0 for entry in ENTRIES}
 
 
 def reset_launches() -> None:
@@ -46,24 +62,30 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launch(name: str, args, device: torch.device) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream; raise on a
-    refused launch. Counts the launch."""
+def _launch(entry: str, args, device: torch.device) -> None:
+    """Launch entry point ``entry`` on ``device``'s current stream; raise on
+    a refused launch. Counts the launch."""
     from . import _build
 
+    name = ENTRIES[entry]
     lib = _build.load(name, SIGNATURES[name])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
+        err = getattr(lib, f"{entry}_launch")(*args, stream)
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry} kernel launch failed: {msg} ({err})")
+    LAUNCHES[entry] += 1
 
 
-def _check(t: torch.Tensor, name: str, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _check(t: torch.Tensor, name: str, shape, device,
+           dtype=torch.float32) -> None:
+    """Raise unless ``t`` has ``dtype`` (one dtype or a tuple of them),
+    ``shape``, lies on ``device`` and is contiguous and 16-byte aligned."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if t.device != device:

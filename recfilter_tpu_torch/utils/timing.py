@@ -72,22 +72,40 @@ def benchmark(fn: Callable, *args, iterations: int = 10,
 
 
 def device_profile(fn: Callable, *args, iterations: int = 10,
-                   warmup: int = 3) -> dict:
+                   warmup: int = 3, attempts: int = 3) -> dict:
     """``torch.profiler`` over ``iterations`` back-to-back calls.
 
     Returns per-call figures: ``call_ms`` (CUDA events around the window),
     ``busy_ms`` (summed device time of kernels and copies — one stream, so
     no overlap), ``idle`` = 1 − busy / call, ``device_ops`` (device kernels
     and copies launched per call) and ``top`` — the five largest device
-    ops as (name, ms per call). ``busy_ms`` and ``idle`` are None when the
-    profiler recorded no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ops as (name, ms per call). A trace can come back without its device
+    events now and then; the window is then profiled again, up to
+    ``attempts`` times in all, and ``busy_ms`` and ``idle`` are None when
+    no attempt recorded device time."""
     dev = _cuda_device(args)
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize(dev)
+    for _ in range(attempts):
+        call_ms, ops = _profile_window(fn, args, dev, iterations)
+        busy = sum(ms for _, ms, _ in ops)
+        if busy > 0:
+            break
+    ops.sort(key=lambda o: -o[1])
+    return {"call_ms": call_ms,
+            "busy_ms": busy if busy > 0 else None,
+            "idle": 1.0 - busy / call_ms if busy > 0 else None,
+            "device_ops": sum(c for _, _, c in ops),
+            "top": [(name, ms) for name, ms, _ in ops[:5]]}
+
+
+def _profile_window(fn: Callable, args, dev, iterations: int):
+    """One profiled window: (call_ms, [(op name, device ms per call,
+    launches per call)] over the device ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with torch.cuda.device(dev):
@@ -98,7 +116,6 @@ def device_profile(fn: Callable, *args, iterations: int = 10,
                 fn(*args)
             end.record()
             torch.cuda.synchronize(dev)
-    call_ms = start.elapsed_time(end) / iterations
     ops = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -107,10 +124,4 @@ def device_profile(fn: Callable, *args, iterations: int = 10,
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         ops.append((e.key, us / 1000.0 / iterations, e.count / iterations))
-    busy = sum(ms for _, ms, _ in ops)
-    ops.sort(key=lambda o: -o[1])
-    return {"call_ms": call_ms,
-            "busy_ms": busy if busy > 0 else None,
-            "idle": 1.0 - busy / call_ms if busy > 0 else None,
-            "device_ops": sum(c for _, _, c in ops),
-            "top": [(name, ms) for name, ms, _ in ops[:5]]}
+    return start.elapsed_time(end) / iterations, ops

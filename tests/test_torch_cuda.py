@@ -38,8 +38,8 @@ def dev():
 
 
 def _only(**kw):
-    """Launch counts with every kernel not named at 0."""
-    return {k: kw.get(k, 0) for k in tl.SIGNATURES}
+    """Launch counts with every kernel entry not named at 0."""
+    return {k: kw.get(k, 0) for k in tl.LAUNCHES}
 
 
 def _modules(kind, dev):
@@ -275,10 +275,184 @@ def test_gaussian_cascade_on_the_card(dev):
     tl.reset_launches()
     got = run_cascade(fc, img)
     torch.cuda.synchronize()
-    assert tl.LAUNCHES == {k: 1 for k in tl.SIGNATURES}
+    assert tl.LAUNCHES == _only(moments2d=1, final2d=1, tails=1,
+                                completion=1, rows_tails=1, rows_final=1)
     whole = rft.FilterSpec("G", fc[0].spec.dims,
                            sum((f.spec.scans for f in fc), ()),
                            border="clamp", tile_widths=(128, 128))
     want = rft.oracle_apply(whole, img.astype(np.float64))
     err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
     assert err <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# The FIR and integer kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("form", ["plain", "bank", "contract"])
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("q,L,B", [(64, 1000, 5), (37, 384, 9), (8, 128, 21)])
+def test_fir_band_matches_twin(form, rot, q, L, B, dev):
+    """fir_band against its twin — a 1→1 pass, a C = 2 bank, a signed
+    C → 1 contraction, flat and rotated, ragged L, box³ supports up to
+    K = 127: max|kernel − twin| ≤ 1e-5·max|twin| (fp32 sums in another
+    order), one launch."""
+    from recfilter_tpu_torch.fir import box_taps
+    from recfilter_tpu_torch.kernels import fir_band
+
+    taps = [box_taps(B, 3)] if form == "plain" else [
+        np.pad(box_taps(B - 2, 3), 6), box_taps(B, 3)]
+    band = fir_band.FirBand(np.stack(taps), rot=rot,
+                            contract=form == "contract",
+                            signs=[1.0, -1.0] if form == "contract" else None)
+    band = band.to(dev)
+    rng = np.random.default_rng(q + L + B)
+    shape = (2, q, L) if form == "contract" else (q, L)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    tl.reset_launches()
+    y = band(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(fir_band=1)
+    want = band.plain(x)
+    assert y.shape == want.shape
+    assert _rel(y, want) <= 1e-5
+
+
+def test_fir_band_refuses_what_the_kernel_does_not_take(dev):
+    from recfilter_tpu_torch.fir import box_taps
+    from recfilter_tpu_torch.kernels import fir_band
+
+    band = fir_band.FirBand(box_taps(5, 3)).to(dev)
+    x = torch.zeros((16, 256), device=dev)
+    with pytest.raises(TypeError):
+        band(x.double())
+    with pytest.raises(ValueError):
+        band(x.t())  # not contiguous
+    with pytest.raises(ValueError):
+        band(x[None])  # (C, q, L) without contract
+    with pytest.raises(ValueError):
+        band(torch.zeros((16, 128 * 65536), device=dev))  # gridDim.y
+
+
+UNITS = [[(1, 1, True)], [(2, -1, True), (1, -1, False), (3, 1, False)],
+         [(1, 1, True)] * 9]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.int8])
+@pytest.mark.parametrize("units", range(len(UNITS)))
+@pytest.mark.parametrize("shape,axis", [((37, 3000), 1), ((3, 1000, 77), 1),
+                                         ((4096, 40), 0)])
+def test_int_scan_matches_twin(dtype, units, shape, axis, dev):
+    """int_scan bit-equal to its twin: int8/16/32, a = ±1, causal and
+    anticausal, f ≠ 1, more than 8 scans (two launches), the last axis
+    and a leading one."""
+    from recfilter_tpu_torch.kernels import int_scan
+
+    scans = UNITS[units]
+    info = torch.iinfo(dtype)
+    x = torch.from_numpy(np.random.default_rng(units).integers(
+        info.min, info.max, shape, endpoint=True)).to(dtype).to(dev)
+    tl.reset_launches()
+    y = int_scan.int_unit_dim_pass(x, scans, axis)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(int_scan=-(-len(scans) // 8))
+    assert y.dtype == dtype
+    assert torch.equal(y.cpu(), int_scan.unit_scans_plain(x.cpu(), scans,
+                                                          axis))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+@pytest.mark.parametrize("unit", [(1, 1, True), (2, -1, False),
+                                  (-3, -1, True)])
+@pytest.mark.parametrize("shape,axis", [((2, 300_001), 1), ((8190, 64), 0),
+                                         ((2, 5000, 33), 1)])
+def test_int_seg_scan_matches_twin(dtype, unit, shape, axis, dev):
+    """The segmented phases past the full-extent gates, each against its
+    twin and the whole route against the full-extent twin: bit-equal, one
+    launch of each phase."""
+    from recfilter_tpu_torch.kernels import int_scan
+
+    info = torch.iinfo(dtype)
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        info.min, info.max, shape, endpoint=True)).to(dtype).to(dev)
+    layout, P, E, W = int_scan._layout(x, axis)
+    C = int_scan._chunk_len(E)
+    xr = x.reshape((P, E) if layout == 0 else (P, E, W))
+    c = int_scan.seg_carries(xr, unit, layout, C)
+    assert torch.equal(c.cpu(), int_scan.seg_carries_plain(
+        xr.cpu(), unit, layout, C))
+    inc = int_scan._carry_chain(c, unit[2])
+    assert torch.equal(int_scan.seg_fix(xr, inc, unit, layout, C).cpu(),
+                       int_scan.seg_fix_plain(xr.cpu(), inc.cpu(), unit,
+                                              layout, C))
+    tl.reset_launches()
+    y = int_scan.int_unit_dim_pass(x, [unit], axis)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(int_seg_carries=1, int_seg_fix=1)
+    assert torch.equal(y.cpu(), int_scan.unit_scans_plain(x.cpu(), [unit],
+                                                          axis))
+
+
+def test_int_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from recfilter_tpu_torch.kernels import int_scan
+
+    x = torch.zeros((4, 256), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        int_scan.int_unit_dim_pass(x.float(), [(1, 1, True)], 1)
+    with pytest.raises(TypeError):
+        int_scan.int_unit_dim_pass(x.long(), [(1, 1, True)], 1)
+    with pytest.raises(ValueError):  # gridDim.y of the other-axis layout
+        int_scan.int_unit_dim_pass(
+            torch.zeros((65536, 2, 1), dtype=torch.int8, device=dev),
+            [(1, 1, True)], 1)
+
+
+def test_box_and_dog_on_the_card(dev):
+    """box_filter_3 and difference_of_gaussians at 512 × 384: two fir_band
+    launches each, within 2e-6 (5e-6 for the signed contraction) of the
+    f64 oracle's peak; the box gradient through the kernel against the
+    plain path within rtol = atol = 1e-4."""
+    from recfilter_tpu_torch.apps import box_filter_3, difference_of_gaussians
+    from recfilter_tpu_torch.fir import box_taps, fir_oracle
+
+    img = np.random.default_rng(8).random((384, 512)).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    for mod, taps, bound in (
+            (box_filter_3(512, 384, 5), [(1.0, box_taps(5, 3))], 2e-6),
+            (difference_of_gaussians(512, 384, 5, 9),
+             [(1.0, box_taps(5, 3)), (-1.0, box_taps(9, 3))], 5e-6)):
+        mod = mod.to(dev)
+        tl.reset_launches()
+        got = mod(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(fir_band=2)
+        want = sum(s * fir_oracle(fir_oracle(img, t, 1), t, 0)
+                   for s, t in taps)
+        err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+        assert err <= bound
+    mod = box_filter_3(512, 384, 5).to(dev)
+    grads = []
+    for fwd in (mod.forward, mod.forward_plain):
+        xg = x.clone().requires_grad_()
+        (g,) = torch.autograd.grad((fwd(xg) ** 2).sum(), xg)
+        grads.append(g)
+    assert torch.allclose(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+def test_int_summed_table_on_the_card(dev):
+    """An int32 summed-area table through ``realize`` on the card: one
+    int_scan launch per axis, bit-exact against numpy's wrapping
+    cumsum."""
+    from recfilter_tpu_torch.apps import summed_table
+
+    img = np.random.default_rng(9).integers(0, 256, (640, 1000)).astype(
+        np.int32)
+    F = summed_table(1000, 640, dtype="int32")
+    tl.reset_launches()
+    got = F.realize(img)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(int_scan=2)
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    want = img.cumsum(1, dtype=np.int32).cumsum(0, dtype=np.int32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
