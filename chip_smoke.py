@@ -49,6 +49,26 @@ SAT variant N(0,1), seed 3):
   F3  ``apps.difference_of_gaussians(4096, 4096, 5, 9)``: a C = 2 bank of
       the box³ radii 5 and 9, then their signed contraction.
 
+The rotated emit and the fused consumers, on ``final2d_stencil``,
+``completion_rot`` (the rotated ``completion`` with its stencil) and
+``stencil2d``, with ``tails`` and ``moments2d`` in their extra-row forms:
+
+  C1  ``apps.difference_of_gaussians(4096, 4096, 5, 9, variant="sat")``:
+      the SAT with both radii's 4-corner banks fused into its final
+      kernel, then per radius a rotated 2nd-order x and y integral, each
+      with its double difference fused, the subtraction as an epilogue
+      (``bounded_image`` input, checked; then uniform [0, 1), printed);
+  C2  ``apps.box_filter_3(4096, 4096, B=5, variant="sat")``: the order-1
+      box (FIR at B = 5) then two rotated 2nd-order integrals;
+  C3  ``apps.box_filter_6(2048, 2048, B=5, variant="sat")``: six rotated
+      passes;
+  C4  a y-only σ=5 Gaussian on 4096², then a 2-channel Sobel bank
+      (``as_func(stencil2d=)``): the rows kernels, then ``stencil2d``;
+  C5  the headline Gaussian at 4096² with the unsharp combine 2a − o as
+      its epilogue (aux: the image);
+  C6  a 2nd-order x integral with ``rotate_emit=2`` on (2, 1024, 2048)
+      with per-slice DoG taps: the per-slice branch.
+
 The integer route, on ``int_scan`` and ``int_seg_scan`` (bit exact, with
 wrap-around):
 
@@ -63,9 +83,9 @@ wrap-around):
 Phases:
 
   1. the card, its power limit and the fp32 matmul and convolution
-     settings; build the nine CUDA kernels from
-     ``recfilter_tpu_torch/kernels/csrc`` (one ``nvcc`` each, all at
-     once);
+     settings; build the CUDA kernels from
+     ``recfilter_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, all
+     at once);
   2. each kernel against its plain PyTorch twin on the card at its path's
      shapes (2-D: 4096² zero and clamp, 1080×1920 padded; 1-D: A, B, E;
      rows: V1, V2, S3; FIR: both passes of F1 and F3, flat passes at the
@@ -91,11 +111,33 @@ Phases:
      rtol = 1e-3, atol = 1e-4 of the box oracle), F3 within 5e-6 of the
      peak of the difference. I1 and I2 launch ``int_scan`` once per axis,
      I3 and I4 each segmented phase once; all four are bit-equal to
-     numpy's wrapping int32 cumsum (I2: to the integer oracle);
+     numpy's wrapping int32 cumsum (I2: to the integer oracle). C1
+     launches moments2d and final2d_stencil once, tails and
+     completion_rot four times; C2 fir_band, tails and completion_rot
+     twice; C3 tails and completion_rot six times; C4 the rows kernels
+     and stencil2d once; C5 moments2d and final2d once; C6 tails and
+     completion_rot once per slice (the extra-row tails of C1 and C6 as
+     tails_extra). C1–C3, on ``bounded_image`` input (every integral the
+     SAT apps take stays bounded, so the fp32 formulation holds), within
+     1e-3 of their f64 formulation oracles' peak at every pixel and 2e-4
+     short of the far margin; C2 there within 2e-4 of the FIR form, and at
+     128² equal to it within rtol = 1e-3, atol = 1e-4; C1 on uniform
+     [0, 1) input printed, not checked (the JAX test's whole-image metric
+     and the error short of the far margin: the fp32 formulation's own
+     loss at 4096², PERF.md); C4
+     within 2e-5 of the peak, C5 2e-6, C6 2e-5 of the producer's. Before
+     these (phase 2e) the new and extended kernels against their twins at
+     C1's shapes — moments2d's edge rows, final2d_stencil with the
+     dual-radius bank, tails_extra, completion_rot with and
+     without a stencil in all four start/end modes, stencil2d with C = 2
+     — on integer-valued input whose integrals stay bounded, exact in
+     fp32 so that only a fault separates kernel and twin, within 1e-5 of
+     the twin's peak;
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
-     512²;
+     512²; and of <y, ct> through C1's stencil2d stage and a rotated
+     stencil pass at 512²;
   5. device times (CUDA events, median of single calls) of the whole call
      and of each kernel, beside their plain twins and, where one PyTorch
      call computes a kernel's function, beside that call; for A, B and V1
@@ -104,7 +146,10 @@ Phases:
      fp32-accumulating tails variant, end to end; for F1, F3, I1 and I3
      the new kernels' event, device, twin and library times (``conv1d``
      with the same taps, ``torch.cumsum(..., dtype=torch.int32)``) and the
-     whole call against the plain path with the device's idle share. A
+     whole call against the plain path with the device's idle share; for
+     the new and extended kernels at C1's shapes (stencil2d at C4's) the
+     same, with ``conv2d``, ``matmul`` and ``einsum`` as yardsticks, and
+     the whole calls of C1–C5. A
      profiled window that comes back without device events is taken
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
@@ -354,6 +399,144 @@ def max_int_diff(a, b):
     return (a.long() - b.long()).abs().max().item()
 
 
+# C4's bank: the two Sobel gradients (dy, dx, coeff)
+SOBEL = [[(-1, -1, -1.0), (0, -1, -2.0), (1, -1, -1.0), (-1, 1, 1.0),
+          (0, 1, 2.0), (1, 1, 1.0)],
+         [(-1, -1, -1.0), (-1, 0, -2.0), (-1, 1, -1.0), (1, -1, 1.0),
+          (1, 0, 2.0), (1, 1, 1.0)]]
+
+
+def exact_ints(shape, axes, seed):
+    """Integer-valued float32 input whose integrals stay bounded: the
+    discrete derivative (one per entry of ``axes``) of an integer field in
+    [-8, 8]. An integrator's sums over it are exact in fp32, so a kernel
+    and its twin differ only where the kernel is wrong — with real-valued
+    input the differencing consumers cancel the integrals' leading digits
+    and the rounding of two summation orders differs by far more than
+    1e-5 of the output."""
+    import numpy as np
+
+    r = np.random.default_rng(seed).integers(-8, 8, shape, endpoint=True)
+    for ax in axes:
+        r = np.diff(r, axis=ax, prepend=0)
+    return r.astype(np.float32)
+
+
+def bounded_image(n, m, seed, rad=4):
+    """An (n, n) float32 input on which the SAT apps' fp32 formulation is
+    well conditioned at any size: the 2nd y- and x-difference of an integer
+    field (values in [-8, 8] box-summed over radius ``rad``, so the signal
+    sits in the box and DoG pass bands), zero in the m-pixel margins. Every
+    integral the apps take of it — the table, the 2nd-order x and y
+    integrals — stays bounded, so their fp32 sums keep the digits the
+    differenced output needs. Image-like input lets the integrals grow to
+    1e6–1e7 at 4096², and the differencing cancels the output's digits
+    (PERF.md, PR 5)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed).integers(-8, 8, (n, n), endpoint=True)
+    for ax in (0, 1):  # box sums over [i - rad, i + rad], clipped
+        c = np.concatenate([np.zeros_like(r[:1]) if ax == 0
+                            else np.zeros_like(r[:, :1]),
+                            r.cumsum(ax)], axis=ax)
+        i = np.arange(n)
+        r = (np.take(c, np.minimum(i + rad + 1, n), axis=ax)
+             - np.take(c, np.maximum(i - rad, 0), axis=ax))
+    r[:m] = r[n - m - 2:] = 0
+    r[:, :m] = r[:, n - m - 2:] = 0
+    for ax in (0, 0, 1, 1):
+        r = np.diff(r, axis=ax, prepend=0)
+    return r.astype(np.float32)
+
+
+def zero_margin(img, m):
+    """``img`` with an m-pixel zero margin (the box and DoG apps'
+    zeroed-margin contract)."""
+    img = img.copy()
+    img[:m] = img[-m:] = 0
+    img[:, :m] = img[:, -m:] = 0
+    return img
+
+
+def shift_np(f, off, ax):
+    """f[i + off] along ``ax``: clamped past the far edge, zero before the
+    start (the apps' border rule)."""
+    import numpy as np
+
+    n = f.shape[ax]
+    idx = np.arange(n) + off
+    g = np.take(f, np.clip(idx, 0, n - 1), axis=ax)
+    if off < 0:
+        keep = (idx >= 0).astype(f.dtype)
+        g = g * (keep[:, None] if ax == 0 else keep)
+    return g
+
+
+def ddiff_np(f, B, ax):
+    """The double difference of a 2nd-order integral at radius B."""
+    n = float(2 * B + 1)
+    return (shift_np(f, 2 * B, ax) - 2.0 * shift_np(f, -1, ax)
+            + shift_np(f, -2 * B - 2, ax)) / (n * n)
+
+
+def dog_oracle(img, B1, B2):
+    """The six-stage SAT DoG untiled in float64 (``tests/test_apps.py``'s
+    oracle): cumsum integrals and the apps' shifts."""
+    s = img.astype("float64").cumsum(1).cumsum(0)
+    g = []
+    for B in (B1, B2):
+        d = shift_np(s, B, 0) - shift_np(s, -B - 1, 0)
+        b = (shift_np(d, B, 1) - shift_np(d, -B - 1, 1)) / (2 * B + 1) ** 2
+        b2 = ddiff_np(b.cumsum(1).cumsum(1), B, 1)
+        g.append(ddiff_np(b2.cumsum(0).cumsum(0), B, 0))
+    return g[0] - g[1]
+
+
+def box2_oracle(f, B):
+    """``box_filter_order_2``'s formulation in float64: a 2nd-order x
+    integral and its double difference, then the same along y."""
+    f = ddiff_np(f.astype("float64").cumsum(1).cumsum(1), B, 1)
+    return ddiff_np(f.cumsum(0).cumsum(0), B, 0)
+
+
+def stencil_np(y, bank):
+    """The 2-D shifted-tap bank in float64 (the stencil2d border rule)."""
+    return [sum(c * shift_np(shift_np(y, dy, 0), dx, 1) for dy, dx, c in taps)
+            for taps in bank]
+
+
+def interior_err(got, want, m):
+    """max|got − want| and max|want| on [0, n − m)²: the region short of
+    the far margin, where the clamped integrals of the SAT formulation are
+    not the zero-fill filter."""
+    import numpy as np
+
+    v = (slice(0, want.shape[0] - m), slice(0, want.shape[1] - m))
+    return float(np.abs(got[v] - want[v]).max()), float(np.abs(want[v]).max())
+
+
+def sat_check(tag, got, want, m):
+    """A SAT app's output against its f64 formulation oracle, on
+    ``bounded_image`` input: every pixel within 1e-3 of the oracle's peak,
+    and short of the far margin within 2e-4 of it — both well below a
+    typical value (the median |oracle| there is about 0.13 of the peak)."""
+    import numpy as np
+
+    n0, n1 = want.shape
+    peak = float(np.abs(want).max())
+    e_all = float(np.abs(got - want).max())
+    e_in, _ = interior_err(got, want, m)
+    med = float(np.median(np.abs(want[:n0 - m, :n1 - m])))
+    print(f"  {tag}: max|y - oracle| = {e_all:.4g} ({e_all / peak:.4e} of "
+          f"the peak {peak:.4g}, {e_all / med:.4e} of the median |oracle| "
+          f"{med:.4g}); short of the far margin {e_in:.4g} "
+          f"({e_in / peak:.4e} of the peak)")
+    check(e_all <= 1e-3 * peak, f"{tag}: every pixel within 1e-3 of the f64 "
+          "formulation oracle's peak")
+    check(e_in <= 2e-4 * peak, f"{tag}: short of the far margin within 2e-4 "
+          "of the oracle's peak")
+
+
 def main() -> int:
     import torch
 
@@ -376,6 +559,7 @@ def main() -> int:
                                           gaussian_3xy, run_cascade)
     from recfilter_tpu_torch.kernels import _build
     from recfilter_tpu_torch.kernels import launch
+    from recfilter_tpu_torch.kernels.stencil2d import Stencil2D
     from recfilter_tpu_torch.utils import timing
 
     dev = torch.device("cuda", 0)
@@ -415,7 +599,7 @@ def main() -> int:
     for label, (h, w, clamp) in cases.items():
         img = image(h, w)
         F = build_filter(rft, h, w, img, clamp)
-        mod = F.as_func().to(dev)
+        mod = F.as_func()
         modules[label] = (F, mod, img)
         with torch.no_grad():
             X4 = mod.tile(torch.from_numpy(img).to(dev))
@@ -456,7 +640,7 @@ def main() -> int:
         t0 = time.perf_counter()
         mod = F.as_func()
         build_s[label] = time.perf_counter() - t0
-        cases_1d[label] = (F, mod.to(dev))
+        cases_1d[label] = (F, mod)
         print(f"  {label}: {F.spec.dims}, ΣK = "
               f"{sum(s.order for s in F.spec.scans)}, route "
               f"{type(mod.body).__name__}, host build {build_s[label]:.2f} s")
@@ -511,7 +695,7 @@ def main() -> int:
               f", rows pass n = {rows.n} tiles x W = {rows.W} lanes, solve "
               f"{'banded' if rows.offsets else 'dense'}, host build "
               f"{time.perf_counter() - t0:.2f} s")
-        rows_cases[label] = (F, mod.to(dev), F._image)
+        rows_cases[label] = (F, mod, F._image)
     check(isinstance(rows_cases["S3"][1], rft.FusedRowsPx)
           and rows_cases["S3"][1].offsets is not None,
           "S3 runs the rows pass alone, on the banded carry solve")
@@ -554,8 +738,8 @@ def main() -> int:
     from recfilter_tpu_torch.fir import _align_taps, box_taps
     from recfilter_tpu_torch.kernels import fir_band, int_scan
 
-    box3 = box_filter_3(W, H, 5).to(dev)                     # F1
-    dog = difference_of_gaussians(W, H, 5, 9).to(dev)        # F3
+    box3 = box_filter_3(W, H, 5)                             # F1
+    dog = difference_of_gaussians(W, H, 5, 9)                # F3
     check(box3.x_pass.band is not None and box3.y_pass.band is not None,
           "F1 runs both passes on fir_band")
     check(dog.x_pass.band.Cout == 2 and dog.y_pass.band.contract,
@@ -641,6 +825,98 @@ def main() -> int:
                 max_abs["int_seg_scan"] = max(max_abs["int_seg_scan"],
                                               float(max(d)))
                 del c, cp, inc, y, yp
+
+    print("== phase 2e: the rotated emit and the stencil consumers against "
+          "their twins on the card (C1's shapes; integer-valued inputs "
+          "with bounded integrals, exact in fp32)", flush=True)
+    from recfilter_tpu_torch import dimfuse as tdf
+    from recfilter_tpu_torch.apps import box_filter_6
+    from recfilter_tpu_torch.apps.dog import _stencil
+
+    c1 = difference_of_gaussians(W, H, 5, 9, variant="sat")          # C1
+    c1sat = c1.sat_box
+    check(isinstance(c1sat, rft.Fused2DPx) and c1sat.h8 == 16,
+          "C1's SAT fuses the 4-corner bank (h8 = 16)")
+    x2 = torch.from_numpy(exact_ints((H, W), (0, 1), seed=9)).to(dev)
+    for label in launch.LAUNCHES:
+        max_abs.setdefault(label, 0.0)
+    with torch.no_grad():
+        X4 = c1sat.tile(x2)
+        for got, want, what in zip(c1sat.moments(X4), c1sat.moments.plain(X4),
+                                   ("bA_t", "term1", "ht", "hb")):
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  C1 moments2d (h8 = 16 edge rows) {what}: "
+                  f"max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"C1 moments2d {what} within 1e-5")
+        NA, NB, ht, hb = c1sat._carries(X4, c1sat.moments.plain)
+        top, bot = c1sat.halo_strips(ht, hb, NA, NB)
+        st_args = (X4, NA.float(), NB.float(), top, bot)
+        got, want = c1sat.final(*st_args), c1sat.final.plain(*st_args)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"  C1 final2d_stencil (2 channels, radii 5 and 9) "
+              f"{tuple(got.shape)}: max|k-p|/max|p| = {err:.3e}")
+        check(err <= 1e-5, "C1 final2d_stencil within 1e-5 of its twin")
+        max_abs["final2d_stencil"] = (got - want).abs().max().item()
+        del X4, NA, NB, ht, hb, top, bot, st_args, got, want
+        x1 = torch.from_numpy(exact_ints((H, W), (1, 1), seed=10)).to(dev)
+        for B in (5, 9):
+            for start, end in (("zero", "clamp"), ("clamp", "zero"),
+                               ("zero", "zero"), ("clamp", "clamp")):
+                xd, yd = rft.Dim("x", W), rft.Dim("y", H)
+                Fx = rft.RecFilter("SAT2x")
+                Fx[yd, xd] = np.zeros((H, W), np.float32)
+                Fx.add_filter(+xd, [1.0, 2.0, -1.0])
+                Fx.split(xd, 128)
+                Fx.set_plan(rotate_emit=2)
+                loc = Fx.as_func(stencil=dict(_stencil(B), start=start,
+                                              end=end)).body
+                check(loc.st_comp is not None,
+                      f"B = {B} {start}/{end}: the stencil fuses")
+                X = x1.reshape(-1, loc.n, 128)
+                tails, comp = loc.st_tails[0], loc.st_comp[0]
+                b, bp = tails(X), tails.plain(X)
+                Nt = loc._solve_t(bp[:, :loc.sl].double())
+                halos = tdf._stencil_halo(bp[:, loc.sl:].double(), Nt,
+                                          loc.st_R0, *loc.st_reach[0])
+                y, yp = comp(X, Nt.float(), *halos), comp.plain(
+                    X, Nt.float(), *halos)
+                torch.cuda.synchronize()
+                e_t, e_c = rel_err(b, bp), rel_err(y, yp)
+                print(f"  B = {B} start {start}, end {end}: tails (+{tails.He}"
+                      f" extra rows) {tuple(b.shape)} {e_t:.3e}; "
+                      f"completion_rot + stencil {tuple(y.shape)} {e_c:.3e}")
+                check(e_t <= 1e-5 and e_c <= 1e-5 and not b[:, 2:8].any(),
+                      f"B = {B} {start}/{end}: tails and the rotated "
+                      "stencil completion within 1e-5, pad slots zero")
+                max_abs["completion_rot"] = max(
+                    max_abs["completion_rot"], (y - yp).abs().max().item())
+                max_abs["tails_extra"] = max(
+                    max_abs["tails_extra"], (b - bp).abs().max().item())
+            y, yp = loc.completion(X, Nt.float()), loc.completion.plain(
+                X, Nt.float())
+            torch.cuda.synchronize()
+            err = rel_err(y, yp)
+            print(f"  B = {B}: completion_rot without a stencil: max|k-p|/"
+                  f"max|p| = {err:.3e}")
+            check(err <= 1e-5, "completion_rot within 1e-5 of its twin")
+            del X, b, bp, Nt, halos, y, yp
+        bank = Stencil2D(SOBEL).to(dev)
+        v = torch.from_numpy(image(H, W, seed=11)).to(dev)
+        for got, want in zip(bank(v), bank.plain(v)):
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            check(err <= 1e-5, f"stencil2d (C = 2 Sobel, {H}x{W}) within "
+                  f"1e-5 of its twin ({err:.3e})")
+            max_abs["stencil2d"] = max(max_abs["stencil2d"],
+                                       (got - want).abs().max().item())
+        vi = torch.from_numpy(ints((H, W), -2**20, 2**20, np.int32,
+                                   seed=12)).to(dev)
+        for got, want in zip(bank(vi), bank.plain(vi)):
+            check(got.dtype == torch.float32 and torch.equal(got, want),
+                  "stencil2d on an int32 table: float32, equal to its twin")
+        del x1, x2, v, vi
 
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
@@ -795,7 +1071,6 @@ def main() -> int:
         mod, sat = box_filter_order_1(1920, 1080, 5, variant=variant)
         check((sat is None) == (variant == "fir"),
               f"F2 {variant}: builds a SAT filter only for the SAT variant")
-        mod = mod.to(dev)
         with torch.no_grad():
             y, launches = counted(mod, torch.from_numpy(img2).to(dev))
         print(f"  F2 {variant}: launches {launches}")
@@ -825,7 +1100,7 @@ def main() -> int:
     check(y.dtype == torch.int32 and np.array_equal(y.cpu().numpy(), want),
           "I1: bit-exact against numpy's wrapping int32 cumsum(1).cumsum(0) "
           f"(peak before wrap {int(img_i1.sum(dtype=np.int64))})")
-    int_mods = {"I1": F.as_func().to(dev)}
+    int_mods = {"I1": F.as_func()}
     # I2: int16 and int8 with the a = -1 anticausal chain on x
     for dt in (np.int16, np.int8):
         info = np.iinfo(dt)
@@ -852,7 +1127,7 @@ def main() -> int:
     check(np.array_equal(y.cpu().numpy(),
                          img_i3.cumsum(1, dtype=np.int32)),
           "I3: bit-exact against numpy's wrapping int32 cumsum")
-    int_mods["I3"] = F.as_func().to(dev)
+    int_mods["I3"] = F.as_func()
     img_i4 = x_i4.cpu().numpy()
     F = int_filter(rft, img_i4, [(0, True, [1, 1])])
     y, launches = counted(lambda v: F.realize(v), img_i4)
@@ -864,23 +1139,174 @@ def main() -> int:
           "I4: bit-exact against numpy's wrapping int32 cumsum along y")
     del y, img_i3, img_i4
 
+    print("== phase 3e: the SAT apps, the 2-D bank, the epilogue and the "
+          "per-slice rotated pass end to end through the public API",
+          flush=True)
+    # C1: held at every pixel to the f64 six-stage oracle on an input
+    # whose integrals stay bounded (bounded_image); an image-like input
+    # after it shows the fp32 formulation's own loss, printed, not held
+    img = bounded_image(H, 21, seed=10)
+    x_c1 = torch.from_numpy(img).to(dev)
+    with torch.no_grad():
+        y, launches = counted(c1, x_c1)
+    print(f"  C1 DoG SAT: launches {launches}")
+    check(launches == only(moments2d=1, final2d_stencil=1, tails_extra=4,
+                           completion_rot=4),
+          "C1: moments2d and final2d_stencil once, tails_extra and "
+          "completion_rot four times (two radii x two stages)")
+    main_launches.update(final2d_stencil=launches["final2d_stencil"],
+                         tails_extra=launches["tails_extra"],
+                         completion_rot=launches["completion_rot"])
+    check(tuple(y.shape) == (H, W) and bool(torch.isfinite(y).all()),
+          f"C1: output finite, shape {(H, W)}")
+    sat_check("C1", y.cpu().numpy(), dog_oracle(img, 5, 9), 21)
+    img = zero_margin(np.random.default_rng(10).random((H, W)).astype(
+        np.float32), 21)
+    with torch.no_grad():
+        got = c1(torch.from_numpy(img).to(dev)).cpu().numpy()
+    want = dog_oracle(img, 5, 9)
+    ie, ip = interior_err(got, want, 21)
+    print(f"  C1 on uniform [0, 1) input (not checked: the fp32 "
+          f"formulation's loss, PERF.md): the JAX test's metric "
+          f"max|y - oracle|/max|oracle| = "
+          f"{np.abs(got - want).max() / np.abs(want).max():.4e} (peak "
+          f"{np.abs(want).max():.4g}); short of the far margin max|y - "
+          f"oracle| = {ie:.4g} against a peak of {ip:.4g}")
+    # C2: box ×3 SAT (the order-1 box takes its FIR form at B = 5)
+    box3s = box_filter_3(W, H, 5, variant="sat")
+    img = bounded_image(H, 19, seed=13)
+    x_c2 = torch.from_numpy(img).to(dev)
+    with torch.no_grad():
+        y, launches = counted(box3s, x_c2)
+        y_fir = box3(x_c2)
+    print(f"  C2 box_filter_3 SAT: launches {launches}")
+    check(launches == only(fir_band=2, tails=2, completion_rot=2),
+          "C2: fir_band twice (the order-1 box), tails and completion_rot "
+          "twice (the order-2 integrals)")
+    got = y.cpu().numpy()
+    sat_check("C2", got, box2_oracle(sep_oracle(img, box_taps(5, 1)), 5), 19)
+    ie, ip = interior_err(got, y_fir.cpu().numpy(), 19)
+    print(f"  C2 against the FIR variant short of the far margin: max|d| = "
+          f"{ie:.4g}, its peak {ip:.4g} ({ie / ip:.4e})")
+    check(ie <= 2e-4 * ip, "C2: equal to the FIR form (box³ with zero "
+          "padding) short of the far margin within 2e-4 of its peak")
+    s_small = zero_margin(image(128, 128, seed=14) * 100, 13)
+    with torch.no_grad():
+        a = box_filter_3(128, 128, 3, variant="sat")(
+            torch.from_numpy(s_small).to(dev)).cpu().numpy()
+        b = box_filter_3(128, 128, 3, variant="fir")(
+            torch.from_numpy(s_small).to(dev)).cpu().numpy()
+    v = slice(0, 128 - 13)
+    check(np.allclose(a[v, v], b[v, v], rtol=1e-3, atol=1e-4),
+          "C2 at 128² (zero-mean): SAT equals FIR on the zeroed-margin "
+          "region within rtol = 1e-3, atol = 1e-4 (tests/test_fir.py:112)")
+    # C3: box ×6 SAT at 2048²: three chained order-2 boxes
+    box6s = box_filter_6(2048, 2048, 5, variant="sat")
+    img = bounded_image(2048, 37, seed=15)
+    x_c3 = torch.from_numpy(img).to(dev)
+    with torch.no_grad():
+        y, launches = counted(box6s, x_c3)
+    print(f"  C3 box_filter_6 SAT 2048²: launches {launches}")
+    check(launches == only(tails=6, completion_rot=6),
+          "C3: six rotated passes")
+    sat_check("C3", y.cpu().numpy(),
+              box2_oracle(box2_oracle(box2_oracle(img, 5), 5), 5), 37)
+    # C4: a y-only σ=5 Gaussian, then the Sobel bank (edge detection)
+    F4 = gauss_axes(rft, (H, W), (0,), name="BlurY")
+    c4 = F4.as_func(stencil2d=SOBEL)
+    x_c4 = torch.from_numpy(F4._image).to(dev)
+    with torch.no_grad():
+        y, launches = counted(c4, x_c4)
+    print(f"  C4 y-only Gaussian + Sobel: launches {launches}")
+    check(launches == only(rows_tails=1, rows_final=1, stencil2d=1),
+          "C4: the rows kernels, then stencil2d once")
+    main_launches["stencil2d"] = launches["stencil2d"]
+    blur = scan_core.oracle_apply(F4.spec, F4._image.astype(np.float64))
+    for c, (g, w) in enumerate(zip(y, stencil_np(blur, SOBEL))):
+        err = float(np.abs(g.cpu().numpy() - w).max() / np.abs(w).max())
+        print(f"  C4 channel {c}: max|y - oracle|/max = {err:.3e}")
+        check(err <= 2e-5, f"C4 channel {c}: within 2e-5 of the f64 oracle "
+              "(tests/test_overlap2d.py:523)")
+    # C5: the headline Gaussian with the unsharp-mask combine as epilogue
+    img = image(H, W, seed=16)
+    F5 = build_filter(rft, H, W, img)
+    c5 = F5.as_func(epilogue=lambda o, a: 2.0 * a - o)
+    x_c5 = torch.from_numpy(img).to(dev)
+    with torch.no_grad():
+        y, launches = counted(c5, x_c5, x_c5)
+    print(f"  C5 Gaussian + unsharp epilogue: launches {launches}")
+    check(launches == only(moments2d=1, final2d=1), "C5: moments2d and "
+          "final2d once, the epilogue in torch")
+    want = 2.0 * img.astype(np.float64) - scan_core.oracle_apply(
+        F5.spec, img.astype(np.float64))
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  C5: max|y - (2x - oracle)|/max = {err:.3e}")
+    check(err <= 2e-6, "C5: within the px6 bound 2e-6")
+    # C6: the per-slice branch, the DoG's dual-radius taps per channel
+    cd, yd, xd = rft.Dim("c", 2), rft.Dim("y", 1024), rft.Dim("x", 2048)
+    F6 = rft.RecFilter("SAT2x_slices")
+    F6[cd, yd, xd] = np.zeros((2, 1024, 2048), np.float32)
+    F6.add_filter(+xd, [1.0, 2.0, -1.0])
+    F6.split(xd, 128)
+    F6.set_plan(rotate_emit=2)
+    st6 = {"taps": [_stencil(5)["taps"], _stencil(9)["taps"]],
+           "start": "zero", "end": "clamp"}
+    c6 = F6.as_func(stencil=st6)
+    img6 = image(2, 1024, 2048, seed=17)
+    with torch.no_grad():
+        y, launches = counted(c6, torch.from_numpy(img6).to(dev))
+    print(f"  C6 per-slice rotated stencil (2, 1024, 2048): launches "
+          f"{launches}")
+    check(launches == only(tails_extra=2, completion_rot=2),
+          "C6: one tails_extra and one completion_rot launch per slice")
+    z = np.swapaxes(img6.astype(np.float64).cumsum(2).cumsum(2), 1, 2)
+    want = np.stack([ddiff_np(z[p], B, 0) for p, B in ((0, 5), (1, 9))])
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(z).max())
+    print(f"  C6: max|y - oracle|/max|producer| = {err:.3e}")
+    check(err <= 2e-5, "C6: within 2e-5 of the producer's peak "
+          "(tests/test_dimfuse.py:988)")
+    del y, z, want, img6
+
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
     grad_cases = [
-        ("2-D 512²", build_filter(rft, 512, 512, img).as_func().to(dev),
+        ("2-D 512²", build_filter(rft, 512, 512, img).as_func(),
          img),
         ("1-D 300,000 order 3",
-         audio_filter_high_order(300_000, 3, 1000).as_func().to(dev),
+         audio_filter_high_order(300_000, 3, 1000).as_func(),
          signal((300_000,), seed=1)),
         ("volume 128x128x256",
-         gauss_axes(rft, (128, 128, 256), (0, 1, 2)).as_func().to(dev),
+         gauss_axes(rft, (128, 128, 256), (0, 1, 2)).as_func(),
          image(128, 128, 256, seed=1)),
-        ("box_filter_3 512²", box_filter_3(512, 512, 5).to(dev), img)]
+        ("box_filter_3 512²", box_filter_3(512, 512, 5), img)]
     for label, mod, xin in grad_cases:
         grads = []
         for fwd in (mod.forward, mod.forward_plain):
             x = torch.from_numpy(xin).to(dev).requires_grad_()
             (g,) = torch.autograd.grad((fwd(x) ** 2).sum(), x)
+            grads.append(g)
+        dg = (grads[0] - grads[1]).abs()
+        bound = 1e-4 + 1e-4 * grads[1].abs()
+        print(f"  {label}: max|g_kernel - g_plain| = {dg.max().item():.3e} "
+              f"(max|g| = {grads[1].abs().max().item():.3e})")
+        check(bool((dg <= bound).all()),
+              f"{label}: gradient within rtol=atol=1e-4")
+    # the consumers: the gradient of <y, ct> (a fixed cotangent — the
+    # stages are linear and the integrals' forward values differ between
+    # the paths by rounding, which (y²) would carry into the gradient)
+    c1g = difference_of_gaussians(512, 512, 5, 9, variant="sat")
+    img = image(512, 512, seed=18)
+    ct = torch.from_numpy(image(2, 512, 512, seed=19) * 100).to(dev)
+    for label, mod in (("C1's stencil2d stage (SAT + 4-corner bank) 512²",
+                        c1g.sat_box),
+                       ("a rotated stencil pass (SAT2x, B = 5) 512²",
+                        c1g.sat2x[0])):
+        grads = []
+        for fwd in (mod.forward, mod.forward_plain):
+            x = torch.from_numpy(img).to(dev).requires_grad_()
+            y = fwd(x)
+            y = torch.stack(y) if isinstance(y, tuple) else y[None]
+            (g,) = torch.autograd.grad((y * ct[:len(y)]).sum(), x)
             grads.append(g)
         dg = (grads[0] - grads[1]).abs()
         bound = 1e-4 + 1e-4 * grads[1].abs()
@@ -1087,8 +1513,8 @@ def main() -> int:
                                       for nm, ms in prof["top"]))
         del x
     fc = gaussian_3x_3y(W, H)
-    stages = [f.as_func().to(dev) for f in fc]
-    three = gaussian_3xy(W, H).as_func().to(dev)
+    stages = [f.as_func() for f in fc]
+    three = gaussian_3xy(W, H).as_func()
 
     def staged(v):
         for m in stages:
@@ -1215,23 +1641,154 @@ def main() -> int:
                    x_i3.numel())
         del c, inc
 
+    print("== phase 5f: the rotated emit and the stencil kernels at C1's "
+          f"shapes, and the whole calls C1-C5 (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)", flush=True)
+
+    def timed(label, fn, plain, lib, args, nbytes, ops, rate, launches):
+        """Event and device times of a kernel beside its twin and library
+        yardstick (None: no one PyTorch call computes it)."""
+        t = paired_times(fn, plain, *args)
+        d = (device_ms(fn, *args), device_ms(plain, *args),
+             None if lib is None else device_ms(lib, *args))
+        lib_ms = None if lib is None else median_ms(lib, *args)
+        bound, by = roofline(nbytes, ops, rate)
+        print(f"  {label}: {launches} launch(es) per call; event "
+              f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} ms by "
+              f"{by} ({100 * bound / d[0]:.1f} % of the device time); twin "
+              f"event {t[1]:.4f}, device {d[1]:.4f} ms; library "
+              + ("none" if lib is None else
+                 f"event {lib_ms:.4f}, device {d[2]:.4f} ms") + f" on {card}")
+        return t, d, (bound, by), lib_ms
+
+    with torch.no_grad():
+        # C1's SAT stage: moments2d with its edge rows, final2d_stencil
+        X4 = c1sat.tile(x_c1)
+        NA, NB, ht, hb = c1sat._carries(X4)
+        top, bot = c1sat.halo_strips(ht, hb, NA, NB)
+        NA, NB = NA.float(), NB.float()
+        px, h8 = X4.numel(), c1sat.h8
+        mom = c1sat.moments
+        timed("C1 moments2d with 2 x 16 edge rows", mom, mom.plain, None,
+              (X4,), tensor_bytes(X4, NA, NB, ht, hb),
+              2.0 * (c1sat.Ka + 2 * c1sat.Kb + 2 * h8) * px, PEAK_FP64, 1)
+        taps = sum(len(t) for t in c1sat.final.bank.taps_c)
+        r = timed("C1 final2d_stencil (C = 2)", c1sat.final, c1sat.final.plain,
+                  None, (X4, NA, NB, top, bot),
+                  tensor_bytes(X4, NA, NB, top, bot, X4, X4),
+                  2.0 * (2 * 128 + c1sat.Ka + c1sat.Kb + taps) * px, PEAK_FP32, 1)
+        times["final2d_stencil"], dev_t["final2d_stencil"] = r[0], r[1]
+        extra["final2d_stencil"] = (*r[2], r[3])
+        del X4, NA, NB, ht, hb, top, bot
+        # C1's first rotated pass (x, radius 5) on the bank's output
+        v = c1sat(x_c1)[0]
+        loc = c1.sat2x[0].body
+        X = v.reshape(-1, loc.n, 128)
+        tails, comp = loc.st_tails[0], loc.st_comp[0]
+        bp = tails.plain(X).double()
+        Nt = loc._solve_t(bp[:, :loc.sl])
+        halos = tdf._stencil_halo(bp[:, loc.sl:], Nt, loc.st_R0,
+                                  *loc.st_reach[0])
+        Nt = Nt.float().contiguous()
+        q, n = X.shape[0], loc.n
+        # one PyTorch call: the einsum of x with the stacked [G; extra
+        # rows] (fp32 sums, as phase 5b's yardstick of the plain tails)
+        check(tails.G_v.shape[0] == 1, "C1: the x pass's tiles share one "
+              "tails variant")
+        G0 = tails.G_v[0]
+        check(rel_err(torch.einsum("st,qnt->nsq", G0, X), tails(X)) <= 1e-5,
+              "C1: the einsum computes tails_extra's function")
+        r = timed(f"C1 tails_extra ({tails.He} extra rows)", tails,
+                  tails.plain, lambda v: torch.einsum("st,qnt->nsq", G0, v),
+                  (X,), tensor_bytes(X, tails.G_v)
+                  + 4 * n * (tails.sl + tails.He) * q,
+                  2.0 * (loc.S + tails.He) * X.numel(), PEAK_FP64, 4)
+        times["tails_extra"], dev_t["tails_extra"] = r[0], r[1]
+        extra["tails_extra"] = (*r[2], r[3])
+        XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
+        BR0 = comp.BR_v[0]
+        check(rel_err(torch.matmul(XN, BR0).permute(1, 2, 0).reshape(-1, q),
+                      loc.completion(X, Nt)) <= 1e-5,
+              "C1: the matmul computes the rotated completion (transposed)")
+        r = timed("C1 completion_rot + 3-tap stencil", comp, comp.plain,
+                  lambda x_, n_, *h: torch.matmul(XN, BR0), (X, Nt, *halos),
+                  tensor_bytes(X, Nt, *halos, X),
+                  2.0 * (128 + loc.sl + len(comp.taps)) * X.numel(),
+                  PEAK_FP32, 4)
+        times["completion_rot"], dev_t["completion_rot"] = r[0], r[1]
+        extra["completion_rot"] = (*r[2], r[3])
+        del v, X, bp, Nt, halos, XN
+        # stencil2d at C4's shapes: the Sobel bank on the blurred image
+        bank = c4.bank
+        v = c4.body(x_c4)
+        wts = torch.zeros(2, 1, 3, 3, device=dev)
+        for c, taps_c in enumerate(SOBEL):
+            for dy, dx, cf in taps_c:
+                wts[c, 0, dy + 1, dx + 1] = cf
+
+        def conv(y_):
+            return F_.conv2d(y_[None, None], wts, padding=1)[0]
+
+        got = torch.stack(bank(v))
+        check(rel_err(conv(v)[:, 1:-1, 1:-1], got[:, 1:-1, 1:-1]) <= 1e-5,
+              "C4: conv2d computes the bank inside the border")
+        r = timed("C4 stencil2d (C = 2 Sobel)", bank,
+                  lambda y_: bank.plain(y_), conv, (v,),
+                  tensor_bytes(v, v, v), 2.0 * 12 * v.numel(), PEAK_FP32, 1)
+        times["stencil2d"], dev_t["stencil2d"] = r[0], r[1]
+        extra["stencil2d"] = (*r[2], r[3])
+        del v, got
+
+        class Call:
+            """A whole call and its plain path as one timed callable."""
+
+            def __init__(self, mod, *aux):
+                self.mod, self.aux = mod, aux
+
+            def __call__(self, v):
+                return self.mod(v, *self.aux)
+
+            def forward_plain(self, v):
+                return self.mod.forward_plain(v, *self.aux)
+
+        # the epilogue's own elementwise pass (torch ops after final2d)
+        X4 = c5.tile(x_c5)
+        y5 = c5.final(X4, *c5.carries(X4))
+        print(f"  C5 epilogue 2a - o as torch ops on the {tuple(y5.shape)} "
+              f"output: event {median_ms(c5.epilogue, y5, y5):.4f} ms, "
+              f"device {device_ms(c5.epilogue, y5, y5):.4f} ms on {card}")
+        del X4, y5
+        for label, mod, v in (("C1 DoG SAT", c1, x_c1),
+                              ("C2 box_filter_3 SAT", box3s, x_c2),
+                              ("C3 box_filter_6 SAT 2048²", box6s, x_c3),
+                              ("C4 y-only blur + Sobel", c4, x_c4),
+                              ("C5 Gaussian + unsharp epilogue",
+                               Call(c5, x_c5), x_c5)):
+            whole_call(label, mod, v, v.numel())
+
     kernels = [
         {"name": name, "route": "cuda",
-         "source": f"recfilter_tpu_torch/kernels/csrc/{name}.cu",
+         "source": f"recfilter_tpu_torch/kernels/csrc/{src or name}.cu",
          "replaces": replaces, "launches": main_launches[name],
          "max_abs_err": max_abs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": extra[name][0],
          "bound_by": extra[name][1], "library_ms": extra[name][2]}
-        for name, replaces in (
-            ("moments2d", "recfilter_tpu/kernels/final2d.py:409"),
-            ("final2d", "recfilter_tpu/kernels/final2d.py:853"),
-            ("tails", "recfilter_tpu/kernels/completion.py:750"),
-            ("completion", "recfilter_tpu/kernels/completion.py:464"),
-            ("rows_tails", "recfilter_tpu/kernels/final2d.py:1185"),
-            ("rows_final", "recfilter_tpu/kernels/final2d.py:1251"),
-            ("fir_band", "recfilter_tpu/kernels/fir_band.py:222"),
-            ("int_scan", "recfilter_tpu/kernels/int_scan.py:384"),
-            ("int_seg_scan", "recfilter_tpu/kernels/int_scan.py:225"))
+        for name, src, replaces in (
+            ("moments2d", None, "recfilter_tpu/kernels/final2d.py:409"),
+            ("final2d", None, "recfilter_tpu/kernels/final2d.py:853"),
+            ("tails", None, "recfilter_tpu/kernels/completion.py:750"),
+            ("completion", None, "recfilter_tpu/kernels/completion.py:464"),
+            ("rows_tails", None, "recfilter_tpu/kernels/final2d.py:1185"),
+            ("rows_final", None, "recfilter_tpu/kernels/final2d.py:1251"),
+            ("fir_band", None, "recfilter_tpu/kernels/fir_band.py:222"),
+            ("int_scan", None, "recfilter_tpu/kernels/int_scan.py:384"),
+            ("int_seg_scan", None, "recfilter_tpu/kernels/int_scan.py:225"),
+            ("final2d_stencil", None,
+             "recfilter_tpu/kernels/final2d.py:999"),
+            ("tails_extra", "tails", "recfilter_tpu/kernels/completion.py:750"),
+            ("completion_rot", "completion",
+             "recfilter_tpu/kernels/completion.py:464"),
+            ("stencil2d", None, "recfilter_tpu/kernels/stencil2d.py:109"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -1,7 +1,7 @@
 """recfilter_tpu_torch — the PyTorch + CUDA port of recfilter_tpu.
 
-Five paths run, each on hand-written CUDA kernels for Hopper (sm_90a)
-with plain PyTorch twins on the CPU:
+Its paths run on hand-written CUDA kernels for Hopper (sm_90a), with
+plain PyTorch twins on the CPU:
 
   * float32 2-D filters that scan the trailing two axes (any extents
     ≥ 128 with zero border): the 3-touch executor on
@@ -17,7 +17,12 @@ with plain PyTorch twins on the CPU:
     of Gaussians of ``apps.box`` / ``apps.dog``) on ``fir_band``;
   * int8/16/32 filters of unit-feedback scans under a zero border —
     summed-area tables and integral images, bit exact with wrap-around —
-    on ``int_scan`` and, for long axes, ``int_seg_scan``.
+    on ``int_scan`` and, for long axes, ``int_seg_scan``;
+  * the fused consumers of ``RecFilter.as_func(epilogue=, stencil=,
+    stencil2d=)``: the rotated emit (``Plan.rotate_emit``,
+    ``dimfuse.RotatedPass``) with its 1-D stencil on ``completion_rot``, a
+    2-D bank on ``final2d_stencil`` or ``stencil2d`` — the SAT forms of
+    the box and DoG apps.
 
 The JAX package ``recfilter_tpu`` is the reference; this package imports
 neither it nor jax. Filters run on the card unless the caller asks for
@@ -42,12 +47,13 @@ the CPU (``device="cpu"``).
     out = run_cascade(gaussian_1xy_2x_2y(4096, 4096), image)
 
     from recfilter_tpu_torch.apps import box_filter_3, summed_table
-    blur = box_filter_3(4096, 4096, B=5).to("cuda")(image_on_the_card)
+    blur = box_filter_3(4096, 4096, B=5)(image_on_the_card)
     sat = summed_table(4096, 4096, dtype="int32").realize(int_image)
 """
 
 from .api import RecFilter
-from .dimfuse import FusedLastAxis, IntUnitPass, StagedPass, apply_filter_fused
+from .dimfuse import (FusedLastAxis, IntUnitPass, RotatedPass, StagedPass,
+                      apply_filter_fused, apply_filter_rotated)
 from .fir import FirPass, FirSeparable2D, fir_pass_last, fir_separable_2d
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
@@ -63,7 +69,7 @@ __all__ = [
     "BorderMode", "make_scan", "spec_to_json", "spec_from_json",
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",
-    "apply_filter_fused", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
+    "apply_filter_fused", "apply_filter_rotated", "RotatedPass", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
     "FusedRowsPx", "fused_rows_px", "StagedPass", "IntUnitPass",
     "FirPass", "FirSeparable2D", "fir_pass_last", "fir_separable_2d",
     "CheckResult", "CheckResultVerbose", "generate_random_image",

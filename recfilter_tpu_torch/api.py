@@ -6,7 +6,7 @@ scans, tile, then run:
     F[y, x] = image                      # F(x,y) = image(x,y)
     F.add_filter(+x, coeff)
     F.split(x, 128, y, 128)
-    module = F.as_func()                 # an nn.Module
+    module = F.as_func()                 # an nn.Module, on the card
     out = F.realize()                    # on the card; device="cpu" asks
 
 Routing follows the JAX package (:func:`.dimfuse.fused_filter_module`): a
@@ -16,10 +16,14 @@ tiled float filter goes to the fused executors —
 stage per scanned axis otherwise (the rows pass on non-last axes,
 :class:`.dimfuse.FusedLastAxis` on the last: 1-D signals such as
 ``F[x] = signal``, channels on leading axes). ``cascade`` splits a filter
-into a chain of filters run one after another. What the port does not run
-yet raises ``NotImplementedError``. ``realize`` and ``profile`` run on the
-card unless the caller asks for the CPU; asking for ``"cuda"`` without a
-card raises, and nothing moves to the CPU on its own.
+into a chain of filters run one after another. ``as_func`` also takes the
+JAX package's fused consumers — an elementwise ``epilogue``, a 1-D
+``stencil`` under ``Plan.rotate_emit`` (``set_plan(rotate_emit=2)``: the
+rotated emit, :class:`.dimfuse.RotatedPass`), a 2-D ``stencil2d`` bank.
+What the port does not run yet raises ``NotImplementedError``.
+``as_func``, ``realize`` and ``profile`` run on the card unless the caller
+asks for the CPU; asking for ``"cuda"`` without a card raises, and nothing
+moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -160,21 +164,57 @@ class RecFilter:
         return self
 
     def set_plan(self, **kw):
-        """Set Plan fields (``backend=``, ``matmul_precision=``)."""
+        """Set Plan fields (``backend=``, ``matmul_precision=``,
+        ``rotate_emit=``)."""
         self._plan = self._plan.with_(**kw)
         self._module = None
         return self
 
     # ------------------------------------------------------------- execution
-    def as_func(self) -> nn.Module:
-        """The filter as an ``nn.Module`` on the CPU (move it with
-        ``.to(device)``); it holds its host-built matrices as buffers."""
-        spec = self.spec
-        if not spec.tiled:
-            raise NotImplementedError(
-                "untiled filters run the JAX package's lax.scan executor, "
-                "not ported yet (ROADMAP Queue 1 item 15); call split()")
-        return dimfuse.fused_filter_module(spec, self._plan.matmul_precision)
+    def as_func(self, epilogue=None, stencil=None, stencil2d=None, *,
+                device="cuda") -> nn.Module:
+        """The filter as an ``nn.Module`` on ``device`` (the card unless
+        the caller asks for the CPU); it holds its host-built matrices as
+        buffers and runs ``module(x, *eaux)``.
+
+        ``epilogue(out, *eaux)`` — an elementwise combine of the filter
+        output (the reference's ``compute_at`` of a pointwise consumer);
+        the eaux arrays share the OUTPUT layout (rotated when
+        ``Plan.rotate_emit`` is set). ``stencil`` — a shifted-tap consumer
+        along the scanned axis, ``{"taps": [(offset, coeff), ...],
+        "start": "zero"|"clamp", "end": "zero"|"clamp"}`` (taps may be per
+        leading slice), fused into the rotated completion kernel; it needs
+        ``Plan.rotate_emit`` and applies before the epilogue. ``stencil2d``
+        — per channel 2-D shifted-tap banks ``[[(dy, dx, coeff), ...],
+        ...]`` over the trailing two axes (positive offsets clamp at the
+        far edges, negative offsets read zero); the module then returns a
+        tuple of channels. Exclusive with the other two and with
+        ``rotate_emit``."""
+        spec, plan = self.spec, self._plan
+        if stencil is not None and not plan.rotate_emit:
+            raise ValueError("stencil consumers require Plan.rotate_emit "
+                             "(single-dimension filters)")
+        if stencil2d is not None and (epilogue is not None
+                                      or stencil is not None):
+            raise ValueError(
+                "stencil2d is mutually exclusive with epilogue/stencil")
+        if stencil2d is not None and plan.rotate_emit:
+            raise ValueError("stencil2d applies to the natural output "
+                             "layout; unset Plan.rotate_emit")
+        if plan.rotate_emit:
+            mod = dimfuse.RotatedPass(spec, plan.rotate_emit,
+                                      plan.matmul_precision, epilogue,
+                                      stencil)
+        else:
+            if not spec.tiled:
+                raise NotImplementedError(
+                    "untiled filters run the JAX package's lax.scan "
+                    "executor, not ported yet (ROADMAP Queue 1 item 15); "
+                    "call split()")
+            mod = dimfuse.fused_filter_module(spec, plan.matmul_precision,
+                                              epilogue=epilogue,
+                                              stencil2d=stencil2d)
+        return mod.to(resolve_device(device))
 
     def _input(self, input, device: torch.device) -> torch.Tensor:
         x = self._image if input is None else input
@@ -184,7 +224,7 @@ class RecFilter:
 
     def _func(self, device: torch.device) -> nn.Module:
         if self._module is None:
-            self._module = self.as_func()
+            self._module = self.as_func(device=device)
         return self._module.to(device)
 
     def realize(self, input=None, *, device="cuda") -> torch.Tensor:

@@ -4,50 +4,32 @@ the reference's ``apps/box/box_filter.h``).
 By default (``variant="auto"``) an n-fold box of radius B whose 2nB+1 taps
 fit two tiles runs as a (2nB+1)-tap FIR in two banded passes
 (:class:`..fir.FirSeparable2D`, on the ``fir_band`` kernel), with exact
-zero-padded semantics at every pixel. ``box_filter_order_1`` also runs its
-SAT form: the summed-area table (:class:`..overlap2d.Fused2DPx`) and the
-4-corner differencing as torch shifts.
+zero-padded semantics at every pixel. The SAT forms, the reference's own:
+order 1 is the summed-area table (:class:`..overlap2d.Fused2DPx`) and the
+4-corner differencing as torch shifts; order 2 two 2nd-order integral
+images chained through the rotated emit (``Plan.rotate_emit=2``, on the
+``tails`` and ``completion_rot`` kernels), each followed by a torch double
+difference; box ×3 = 1∘2 and box ×6 = 2∘2∘2, as the JAX package composes
+them. The SAT forms share the difference of Gaussians' accuracy limit:
+float32 integrals of image-like input at large sizes lose the interior
+(``apps/dog.py``; ROADMAP Queue 3).
 
-Each builder returns an ``nn.Module`` that takes an (h, w) tensor; move it
-to the card with ``.to("cuda")``. What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: the 2nd-order integral
-image (``box_filter_order_2``, the rotated emit of Queue 1 item 6) and the
-SAT variants of ``box_filter_3`` and ``box_filter_6`` built on it.
+Each builder returns an ``nn.Module`` that takes an (h, w) tensor, on the
+card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..api import RecFilter
+from ..api import RecFilter, resolve_device
 from ..fir import FirSeparable2D, box_taps
+from ..iir import integral_image_coeff
+from ..kernels.stencil2d import shift2
 from ..planner import auto_tile_width
 from ..spec import Dim
-
-
-def _shift_clamped(f: torch.Tensor, offset: int, axis: int) -> torch.Tensor:
-    """f[..., i+offset, ...] with edge clamping. Negative offsets read
-    toward the array start, where the apps' zeroed input margins make the
-    integral-image values 0, so the pad there is 0; positive offsets clamp
-    to the far edge, whose integral values are real totals."""
-    n = f.shape[axis]
-    lo, hi = max(offset, 0), max(-offset, 0)
-    g = f.movedim(axis, -1)
-    if offset > 0:
-        g = torch.cat([g, g[..., -1:].expand(*g.shape[:-1], lo)], dim=-1)
-    else:
-        g = F.pad(g, (hi, 0))
-    return g[..., lo:lo + n].movedim(-1, axis)
-
-
-def _no_sat(what: str):
-    return NotImplementedError(
-        f"{what}: the SAT variant needs the 2nd-order integral image with "
-        "the rotated emit (box_filter_order_2), not ported yet (ROADMAP "
-        "Queue 1 item 6); variant='fir' runs")
 
 
 class _SatBox1(nn.Module):
@@ -62,8 +44,8 @@ class _SatBox1(nn.Module):
         # D(x,y) = [f(x+B, y+B) - f(x+B, y-B-1) + f(x-B-1, y-B-1)
         #           - f(x-B-1, y+B)] / (2B+1)^2, as (Dy∘Dx)
         B = self.B
-        g = _shift_clamped(f, B, 0) - _shift_clamped(f, -B - 1, 0)
-        d = _shift_clamped(g, B, 1) - _shift_clamped(g, -B - 1, 1)
+        g = shift2(f, B, 0) - shift2(f, -B - 1, 0)
+        d = shift2(g, B, 1) - shift2(g, -B - 1, 1)
         return d / self.norm
 
     def forward(self, image):
@@ -74,12 +56,13 @@ class _SatBox1(nn.Module):
 
 
 def box_filter_order_1(width: int, height: int, B: int, tile_width: int = 0,
-                       variant: str = "auto"):
+                       variant: str = "auto", device="cuda"):
     """One box iteration. Returns (module, sat_filter); ``variant="fir"``
     (the default where the 2B+1 taps fit the tile band) builds no SAT
     filter (second element None)."""
+    d = resolve_device(device)
     if _box_variant(variant, B, 1, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 1, tile_width), None
+        return _box_fir(width, height, B, 1, tile_width).to(d), None
     tile_width = tile_width or auto_tile_width(min(width, height))
     x, y = Dim("x", width), Dim("y", height)
     Fs = RecFilter("Box1_Sat")
@@ -87,15 +70,60 @@ def box_filter_order_1(width: int, height: int, B: int, tile_width: int = 0,
     Fs.add_filter(x, [1.0, 1.0])
     Fs.add_filter(y, [1.0, 1.0])
     Fs.split(x, tile_width, y, tile_width)
-    return _SatBox1(Fs.as_func(), B), Fs
+    return _SatBox1(Fs.as_func(device=d), B), Fs
 
 
-def box_filter_order_2(width: int, height: int, B: int, tile_width: int = 0):
-    """Two box iterations via 2nd-order integral images: not ported."""
-    raise NotImplementedError(
-        "box_filter_order_2 chains 2nd-order integral images through the "
-        "rotated emit (Plan.rotate_emit=2), not ported yet (ROADMAP Queue 1 "
-        "item 6)")
+def _double_diff(f, B: int, axis: int):
+    """D1(x) = [f(x+B) − f(x−B−1)]/(2B+1) applied twice, as one 3-tap
+    stencil: [f(x+2B) − 2 f(x−1) + f(x−2B−2)]/(2B+1)² (exact in the
+    interior; the borders lie in the zeroed margin)."""
+    norm = float(2 * B + 1)
+    return (shift2(f, 2 * B, axis)
+            - 2.0 * shift2(f, -1, axis)
+            + shift2(f, -2 * B - 2, axis)) / (norm * norm)
+
+
+class _SatBox2(nn.Module):
+    """Two box iterations: the x 2nd-order integral (rotated emit, (x, y)
+    out), its double difference along axis 0; the y integral (rotated
+    back to (y, x)), its double difference along axis 0."""
+
+    def __init__(self, fx: nn.Module, fy: nn.Module, B: int):
+        super().__init__()
+        self.fx, self.fy, self.B = fx, fy, B
+
+    def forward(self, image):
+        a = _double_diff(self.fx(image.to(torch.float32)), self.B, 0)
+        return _double_diff(self.fy(a), self.B, 0)
+
+    def forward_plain(self, image):
+        a = _double_diff(self.fx.forward_plain(image.to(torch.float32)),
+                         self.B, 0)
+        return _double_diff(self.fy.forward_plain(a), self.B, 0)
+
+
+def box_filter_order_2(width: int, height: int, B: int, tile_width: int = 0,
+                       device="cuda"):
+    """Two box iterations: a 2nd-order integral image and its double
+    difference per dimension, x then y, the two integral stages chained
+    through the rotated emit (``box_filter.h:105-225``). Returns
+    (module, (sat_x, sat_y))."""
+    d = resolve_device(device)
+    tile_width = tile_width or auto_tile_width(min(width, height))
+    x, y = Dim("x", width), Dim("y", height)
+    coeff = integral_image_coeff(2)
+    sat_x = RecFilter("Box2_Satx")
+    sat_x[y, x] = np.zeros((height, width), dtype=np.float32)
+    sat_x.add_filter(+x, coeff)
+    sat_x.split_all_dimensions(tile_width)
+    sat_x.set_plan(rotate_emit=2)
+    sat_y = RecFilter("Box2_Saty")
+    sat_y[y, x] = np.zeros((height, width), dtype=np.float32)
+    sat_y.add_filter(+y, coeff)
+    sat_y.split_all_dimensions(tile_width)
+    sat_y.set_plan(rotate_emit=2)
+    mod = _SatBox2(sat_x.as_func(device=d), sat_y.as_func(device=d), B)
+    return mod, (sat_x, sat_y)
 
 
 def _box_fir(width, height, B, iterations, tile_width):
@@ -114,20 +142,47 @@ def _box_variant(variant, B, iterations, tile_width, width, height):
     return "fir" if 2 * iterations * B + 1 <= 2 * tw else "sat"
 
 
+class _Chain(nn.Module):
+    """Box stages run one after another (box ×3 and ×6 in SAT form)."""
+
+    def __init__(self, stages):
+        super().__init__()
+        self.stages = nn.ModuleList(stages)
+
+    def forward(self, image):
+        for m in self.stages:
+            image = m(image)
+        return image
+
+    def forward_plain(self, image):
+        for m in self.stages:
+            image = m.forward_plain(image)
+        return image
+
+
 def box_filter_3(width: int, height: int, B: int, tile_width: int = 0,
-                 variant: str = "auto"):
-    """Three iterations as the equivalent 6B+1-tap FIR in two passes."""
+                 variant: str = "auto", device="cuda"):
+    """Three iterations: the equivalent 6B+1-tap FIR in two passes where it
+    fits the tile band, else order 1 (its own variant rule) ∘ order 2
+    (``box_filter_3.cpp:37-41``)."""
+    d = resolve_device(device)
     if _box_variant(variant, B, 3, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 3, tile_width)
-    raise _no_sat("box_filter_3")
+        return _box_fir(width, height, B, 3, tile_width).to(d)
+    f1, _ = box_filter_order_1(width, height, B, tile_width, device=d)
+    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d)
+    return _Chain([f1, f2])
 
 
 def box_filter_6(width: int, height: int, B: int, tile_width: int = 0,
-                 variant: str = "auto"):
-    """Six iterations as the equivalent 12B+1-tap FIR in two passes."""
+                 variant: str = "auto", device="cuda"):
+    """Six iterations: the equivalent 12B+1-tap FIR in two passes where it
+    fits the tile band, else three chained order-2 stages
+    (``box_filter_6.cpp:40-46``)."""
+    d = resolve_device(device)
     if _box_variant(variant, B, 6, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 6, tile_width)
-    raise _no_sat("box_filter_6")
+        return _box_fir(width, height, B, 6, tile_width).to(d)
+    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d)
+    return _Chain([f2, f2, f2])
 
 
 def box_oracle(image: np.ndarray, B: int, iterations: int) -> np.ndarray:

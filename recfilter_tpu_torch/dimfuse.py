@@ -43,6 +43,15 @@ Where a route's gates decline a filter, the port raises
 ``NotImplementedError`` naming the ROADMAP item that brings the JAX
 package's fallback; it never falls through to another route.
 
+The JAX package's consumers ride these routes: an elementwise
+``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
+fuses into the 2-D executor, or runs on the output of any other route
+(:class:`Stencil2DAfter`). :class:`RotatedPass` is ``apply_filter_rotated``
+(``Plan.rotate_emit``): a single-dimension filter emitted with its
+trailing axes rotated, on :class:`LastAxisPass`'s rotated kernel route,
+with a shifted-tap ``stencil`` fused into the rotated completion. The
+stencil always reads the filter output and the epilogue the stencil's.
+
 The device side's carry glue (solves, chains, corrections) runs in float64
 torch: the carries amplify rounding, and fp32 glue misses the px6 bound
 (see :mod:`.overlap2d`). Signal-sized products run in float32, tails sums
@@ -62,6 +71,7 @@ from torch import nn
 from . import coeffs
 from .kernels import completion as kc
 from .kernels.completion import _f64
+from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
 from .spec import BorderMode, FilterSpec, Scan
 
@@ -451,6 +461,121 @@ def _chain_prefix_axis(b, causal: bool, Wpows, Jk):
 
 
 # ---------------------------------------------------------------------------
+# Consumers: the shifted-tap stencil and the elementwise epilogue
+# ---------------------------------------------------------------------------
+
+
+def apply_stencil(y, axis: int, taps, start: str = "zero",
+                  end: str = "clamp"):
+    """Shifted-tap consumer y[i] = Σ c_k·y[i + d_k] along ``axis``, border
+    modes per direction (``start`` for d < 0, ``end`` for d > 0) — the
+    global-shift twin of the in-kernel stencil."""
+    out = None
+    for d, c in taps:
+        t = y if d == 0 else _shift_mode(y, int(d), axis,
+                                         end if d > 0 else start)
+        t = float(c) * t
+        out = t if out is None else out + t
+    return out
+
+
+def _per_slice(taps) -> bool:
+    return (bool(taps) and isinstance(taps[0], (list, tuple))
+            and bool(taps[0]) and isinstance(taps[0][0], (list, tuple)))
+
+
+def _stencil_taps_for(stencil, slice_idx=None):
+    """The taps list: shared ``[(off, coeff), ...]`` or, per slice of the
+    leading axis, ``[[(off, coeff), ...], ...]`` (DoG's dual radius; with
+    no slice index, slice 0's)."""
+    taps = stencil["taps"]
+    if _per_slice(taps):
+        return taps[0 if slice_idx is None else slice_idx]
+    return taps
+
+
+def _stencil_fallback(y, stencil, axis: int):
+    """A (possibly per-slice) stencil as global shifts — wherever the
+    in-kernel fusion's gates fail. Per-slice taps index the FIRST array
+    axis (a negative ``axis`` stays valid under that slicing)."""
+    start = stencil.get("start", "zero")
+    end = stencil.get("end", "clamp")
+    if not _per_slice(stencil["taps"]):
+        return apply_stencil(y, axis, stencil["taps"], start, end)
+    return torch.stack([
+        apply_stencil(y[p], axis, _stencil_taps_for(stencil, p), start, end)
+        for p in range(y.shape[0])])
+
+
+def _stencil_reach(taps):
+    """(hlo, hhi): forward reach (rows needed from the NEXT tile's head)
+    and backward reach (rows from the PREVIOUS tile's tail)."""
+    hhi, hlo = kc.stencil_reach(taps)
+    return hlo, hhi
+
+
+def _stencil_extra_rows(mats, taps, T: int):
+    """Per-tile (nv, hlo + hhi, T) Btot row stack for the tails kernel's
+    extra rows — the x-dependent part of the halo strips."""
+    hlo, hhi = _stencil_reach(taps)
+    B = np.asarray(mats.Btot)
+    return np.concatenate([B[:, :hlo, :], B[:, T - hhi:, :]], axis=1)
+
+
+def _stencil_halo(halo_base, Nt, Rrows, hlo: int, hhi: int):
+    """The neighbour halo strips of the in-kernel stencil, in float64:
+    halo rows of z_t = (Btot rows)·x_t + (Rcat rows)·N_t — the first term
+    came out of the tails kernel (``halo_base`` (n, He, q), its extra
+    rows), the second is a carry-sized einsum here (``Rrows`` (n, He, S),
+    the per-tile Rcat rows; ``Nt`` (n, sl, q) the solved carries). Returns
+    float32 (prev (n, hhi, q), nxt (n, hlo, q)), those present: prev[t] is
+    tile t−1's tail, nxt[t] tile t+1's head, zeros past either end. (The
+    JAX package quantizes them to 8-row blocks, a TPU constraint.)"""
+    S = Rrows.shape[-1]
+    halo = halo_base + torch.einsum("nhs,nsq->nhq", Rrows, Nt[:, :S])
+    head, tail = halo[:, :hlo], halo[:, hlo:]
+    out = []
+    if hhi:
+        out.append(torch.cat([torch.zeros_like(tail[:1]), tail[:-1]]))
+    if hlo:
+        out.append(torch.cat([head[1:], torch.zeros_like(head[:1])]))
+    return [h.float().contiguous() for h in out]
+
+
+def _aux_like(a, y):
+    return torch.as_tensor(a).to(device=y.device, dtype=y.dtype)
+
+
+def _retile_aux(a, y, nat_axis: int, pad: int, tile_shape):
+    """An epilogue aux array from the pass's natural output layout into
+    its tile layout: pad the scanned axis like the pass input, then
+    reshape to ``tile_shape``."""
+    a = _aux_like(a, y)
+    if pad:
+        a = F.pad(a.movedim(nat_axis, -1), (0, pad)).movedim(-1, nat_axis)
+    return a.reshape(tile_shape)
+
+
+def _kernel_epilogue_aux(rot: bool, lead, n: int, T: int, rows, PR: int,
+                         pad: int, eaux, y):
+    """``eaux`` re-laid into the completion kernel's flat output layout:
+    (n·T, PR) rotated, else (PR, n·T)."""
+    P = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    if rot:
+        tshape = (P, n, T) + tuple(rows)
+        return tuple(_retile_aux(a, y, len(lead), pad, tshape)
+                     .reshape(n * T, PR) for a in eaux)
+    tshape = (P,) + tuple(rows) + (n, T)
+    return tuple(_retile_aux(a, y, -1, pad, tshape).reshape(PR, n * T)
+                 for a in eaux)
+
+
+def _epilogue(fn, y, eaux):
+    """``fn(y, *eaux)`` with the aux arrays on y's device and type."""
+    return fn(y, *(_aux_like(a, y) for a in eaux))
+
+
+# ---------------------------------------------------------------------------
 # The last-axis executor
 # ---------------------------------------------------------------------------
 
@@ -463,24 +588,41 @@ def _kernel_nprod(matmul_precision: str) -> int:
 
 class LastAxisPass(nn.Module):
     """All ``scans`` of the last axis of float32 arrays (..., w), tiled by
-    ``plan`` = (T, n, pad): the JAX package's ``_last_axis_pass_t`` with
-    ``rot_axes=1`` (in-place emit) and, for a bare signal, the einsum
-    branch of its ``fused_dim_pass``.
+    ``plan`` = (T, n, pad): the JAX package's ``_last_axis_pass_t``, with
+    ``rot_axes=1`` (in-place emit; for a bare signal, the einsum branch of
+    its ``fused_dim_pass``) or ``rot_axes ≥ 2`` (the rotated emit: the
+    trailing ``rot_axes`` axes rotated one step, the scanned axis landing
+    at position ``-rot_axes``).
 
     Kernel route, where the JAX package takes its kernel branch (px6,
     n ≤ 256 and ``completion_ok``, which needs ≥ 8 lines — so a bare
-    signal never takes it): ``tails`` kernel → banded or dense solve →
-    ``completion`` kernel. Otherwise the einsum form: natural-layout tails,
-    the solve (banded, dense, or the associative chain past 256 tiles),
-    and the completion product — on the ``completion`` kernel where the
-    JAX package's fallback takes it (256 < n ≤ 512). ``forward(x, True)``
-    runs every kernel's plain twin instead."""
+    signal never takes it — and, rotated, no leading group P > 1):
+    ``tails`` kernel → banded or dense solve → ``completion`` kernel
+    (``completion_rot`` rotated). A rotated pass with a leading group
+    P > 1 runs that pipeline once per leading slice (no epilogue). A
+    ``stencil`` consumer (``{"taps", "start", "end"}``, taps shared or per
+    leading slice) rides the rotated kernel route where pad = 0 and its
+    reach fits a tile: the tails kernel also emits the halo base rows, the
+    halo strips complete in float64 (:func:`_stencil_halo`), and the
+    rotated completion combines them with each tile before the write.
+    Otherwise the einsum form: natural-layout tails, the solve (banded,
+    dense, or the associative chain past 256 tiles), and the completion
+    product — on the ``completion`` kernel where the JAX package's fallback
+    takes it (256 < n ≤ 512) — and the stencil as global shifts after
+    (:func:`_stencil_fallback`). The ``epilogue(y, *eaux)`` reads the
+    stencil's output: on the kernel's flat output (eaux re-laid by
+    :func:`_kernel_epilogue_aux`), in the tile layout on the einsum form
+    (:func:`_retile_aux`), or after a stencil fallback. ``forward(x,
+    True)`` runs every kernel's plain twin instead."""
 
     def __init__(self, scans: Sequence[Scan], plan, clamp: bool,
-                 matmul_precision: str):
+                 matmul_precision: str, rot_axes: int = 1, stencil=None,
+                 epilogue=None):
         super().__init__()
         T, n, pad = plan
         self.T, self.n, self.pad = T, n, pad
+        self.rot, self.nrow = rot_axes >= 2, max(rot_axes - 1, 1)
+        self.stencil, self.epilogue = stencil, epilogue
         self.causal = [s.causal for s in scans]
         mats = prepare_dim_pass(scans, T, n, clamp, pad_slots=pad,
                                 build_cm=n <= _CHAIN_MATMUL_MAX_TILES)
@@ -520,39 +662,133 @@ class LastAxisPass(nn.Module):
         # the kernels, where the static part of the JAX package's gates
         # holds (the line count is checked per call)
         self.tails = self.completion = None
+        self.st_tails = self.st_comp = None
         if _kernel_nprod(matmul_precision) and kc.completion_ok(T, 8, n, S):
             if n <= _CHAIN_MATMUL_MAX_TILES:
                 self.tails = kc.TailsPass(Gcat, n)
-            self.completion = kc.CompletionPass(mats.Btot, Rcat, n)
+            self.completion = kc.CompletionPass(mats.Btot, Rcat, n,
+                                                rot=self.rot)
+            if (stencil is not None and self.rot and pad == 0
+                    and n <= _CHAIN_MATMUL_MAX_TILES):
+                self._fuse_stencil(mats, Gcat, Rcat, stencil)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def _fuse_stencil(self, mats, Gcat, Rcat, stencil):
+        """The stencil's kernels, one tails + rotated completion pair per
+        distinct tap set (per leading slice, or shared) — where every
+        set's reach fits one tile (a wider reach takes the fallback)."""
+        T, n = self.T, self.n
+        sets = (stencil["taps"] if _per_slice(stencil["taps"])
+                else [stencil["taps"]])
+        if any(max(_stencil_reach(t)) > T for t in sets):
+            return
+        mode = dict(start=stencil.get("start", "zero"),
+                    end=stencil.get("end", "clamp"))
+        Rn = kc._per_tile(Rcat, n)
+        self.st_tails, self.st_comp, self.st_reach = (
+            nn.ModuleList(), nn.ModuleList(), [])
+        for i, taps in enumerate(sets):
+            hlo, hhi = _stencil_reach(taps)
+            self.st_tails.append(kc.TailsPass(
+                Gcat, n, extra_rows=_stencil_extra_rows(mats, taps, T)))
+            self.st_comp.append(kc.CompletionPass(
+                mats.Btot, Rcat, n, rot=True, stencil=dict(taps=taps,
+                                                           **mode)))
+            self.register_buffer(f"st_R{i}", _f64(np.concatenate(
+                [Rn[:, :hlo], Rn[:, T - hhi:]], axis=1)))
+            self.st_reach.append((hlo, hhi))
+
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                eaux=()) -> torch.Tensor:
         T, n, pad, S = self.T, self.n, self.pad, self.S
-        lead = x.shape[:-1]
         if pad:
             x = F.pad(x, (0, pad))
-        X = x.reshape(-1, n, T)
+        nrow, rot = self.nrow, self.rot
+        rows = tuple(x.shape[-1 - nrow:-1])
+        lead = tuple(x.shape[:-1 - nrow])
+        P = int(np.prod(lead, dtype=np.int64)) if lead else 1
+        R = int(np.prod(rows, dtype=np.int64)) if rows else 1
+        X = x.reshape(-1, n, T).contiguous()
         q = X.shape[0]
-        gate = kc.completion_ok(T, q, n, S)
-        if self.tails is not None and gate:
-            tails = self.tails.plain if plain else self.tails
-            braw_t = tails(X).double()  # (n, sl, q) slot-padded transposed
-            Nt = self._solve_t(braw_t).float()
+        fused = False
+        # Y in the route's layout: "kernel" (q, n, T), or (n·T, q) rotated;
+        # "slices" (P, n·T, R); "tile" (P, *rows, n, T) or (P, n, T, *rows)
+        if (self.tails is not None and (P == 1 or not rot)
+                and kc.completion_ok(T, q, n, S)):
+            layout = "kernel"
+            if self.st_comp is not None:
+                Y, fused = self._stencil_slice(X, 0, plain), True
+            else:
+                Y = self._kernel_slice(X, plain)
+        elif (self.tails is not None and rot and P > 1
+              and self.epilogue is None and kc.completion_ok(T, R, n, S)):
+            # per leading slice (DoG's dual radius, RGB planes): the P = 1
+            # pipeline on each, restacked
+            layout, fused = "slices", self.st_comp is not None
+            Y = torch.stack([
+                self._stencil_slice(X[p * R:(p + 1) * R], p, plain) if fused
+                else self._kernel_slice(X[p * R:(p + 1) * R], plain)
+                for p in range(P)])
         else:
             braw = kc.tile_einsum("nst,pnt->pns", self.G_v, X.double())
             N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
                  else self._solve_assoc(braw))  # (q, n, S) natural
-            Nt = None
-            if self.completion is not None and gate:
+            if (self.completion is not None and (P == 1 or not rot)
+                    and kc.completion_ok(T, q, n, S)):
+                layout = "kernel"
                 Nt = F.pad(N.permute(1, 2, 0), (0, 0, 0, self.sl - S))
-                Nt = Nt.float().contiguous()
-        if Nt is not None:
-            comp = self.completion.plain if plain else self.completion
-            Y = comp(X, Nt)
-        else:
-            Y = (kc.tile_einsum("nos,pns->pno", self.B_v, X)
-                 + kc.tile_einsum("nou,pnu->pno", self.R_v, N.float()))
-        y = Y.reshape(*lead, n * T)
-        return y[..., :n * T - pad] if pad else y
+                comp = self.completion.plain if plain else self.completion
+                Y = comp(X, Nt.float().contiguous())
+            else:
+                layout = "tile"
+                Y = (kc.tile_einsum("nos,pns->pno", self.B_v, X)
+                     + kc.tile_einsum("nou,pnu->pno", self.R_v, N.float()))
+                Y = (Y.reshape(P, R, n, T).permute(0, 2, 3, 1)
+                     .reshape((P, n, T) + rows) if rot
+                     else Y.reshape((P,) + rows + (n, T)))
+        deferred = self.stencil is not None and not fused
+        if self.epilogue is not None and not deferred:
+            if layout == "kernel":
+                Yf = Y if rot else Y.reshape(q, n * T)
+                Y = _epilogue(self.epilogue, Yf, _kernel_epilogue_aux(
+                    rot, lead, n, T, rows, q, pad, eaux, Y))
+            else:
+                nat = len(lead) if rot else -1
+                Y = _epilogue(self.epilogue, Y, [
+                    _retile_aux(a, Y, nat, pad, Y.shape) for a in eaux])
+        y = Y.reshape(lead + (n * T,) + rows if rot
+                      else lead + rows + (n * T,))
+        ax = (-1 - nrow) if rot else -1
+        if pad:
+            y = y.narrow(ax, 0, n * T - pad)
+        if deferred:
+            # the stencil reads the filter output, the epilogue the
+            # stencil's (the consumer-order contract)
+            y = _stencil_fallback(y, self.stencil, ax)
+            if self.epilogue is not None:
+                y = _epilogue(self.epilogue, y, eaux)
+        return y
+
+    def _kernel_slice(self, X, plain):
+        """tails → solve → completion on (q, n, T): (q, n, T), or the
+        rotated (n·T, q)."""
+        tails = self.tails.plain if plain else self.tails
+        Nt = self._solve_t(tails(X).double()).float()
+        comp = self.completion.plain if plain else self.completion
+        return comp(X, Nt)
+
+    def _stencil_slice(self, X, i: int, plain):
+        """The fused stencil route on (q, n, T) with tap set ``i`` (the
+        slice's, or the shared set): the rotated (n·T, q) stencil output."""
+        i = i if len(self.st_comp) > 1 else 0
+        tails, comp = self.st_tails[i], self.st_comp[i]
+        braw_t = (tails.plain if plain else tails)(X).double()
+        sl = self.sl
+        Nt = self._solve_t(braw_t[:, :sl])
+        hlo, hhi = self.st_reach[i]
+        halos = _stencil_halo(braw_t[:, sl:], Nt, getattr(self, f"st_R{i}"),
+                              hlo, hhi)
+        return (comp.plain if plain else comp)(X, Nt.float().contiguous(),
+                                              *halos)
 
     def _solve_t(self, braw_t):
         if self.offsets is not None:
@@ -724,10 +960,15 @@ class FusedLastAxis(nn.Module):
     :class:`LastAxisPass`. ``forward`` runs the CUDA kernels for CUDA
     tensors (their plain twins for CPU tensors); ``forward_plain`` runs the
     twins on any device — the all-PyTorch reference for the kernel path.
-    Every host matrix is built once, here, as a buffer."""
+    Every host matrix is built once, here, as a buffer.
+
+    ``epilogue(y, *eaux)``: an elementwise consumer of the output
+    (``forward(x, *eaux)``, the aux arrays in the output's layout); with
+    one the hierarchy is declined, as in the JAX package."""
 
     def __init__(self, scans: Sequence[Scan], w: int, tile_width: int,
-                 border: str, matmul_precision: str = "px6"):
+                 border: str, matmul_precision: str = "px6",
+                 epilogue=None):
         super().__init__()
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
@@ -738,17 +979,24 @@ class FusedLastAxis(nn.Module):
                 "the JAX package runs its lax.scan core here (ROADMAP "
                 "Queue 1 item 15)")
         self.w = w
-        if (plan[1] > _CHAIN_MATMUL_MAX_TILES
+        if (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and _hierarchy_ok(w, scans, matmul_precision)):
             self.body = HierarchicalPass(scans, w, border, matmul_precision)
         else:
-            self.body = LastAxisPass(scans, plan, clamp, matmul_precision)
+            self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
+                                     epilogue=epilogue)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.body(self._checked(x))
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, False, eaux)
 
-    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
-        return self.body(self._checked(x), True)
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, True, eaux)
+
+    def _run(self, x, plain, eaux):
+        x = self._checked(x)
+        if isinstance(self.body, HierarchicalPass):
+            return self.body(x, plain)
+        return self.body(x, plain, eaux)
 
     def _checked(self, x):
         if x.dtype != torch.float32:
@@ -817,15 +1065,33 @@ class StagedPass(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.route = route
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for stage in self.stages:
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        for stage in self.stages[:-1]:
             x = stage(x)
-        return x
+        return self.stages[-1](x, *eaux)  # the epilogue's aux: final stage
 
-    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
-        for stage in self.stages:
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        for stage in self.stages[:-1]:
             x = stage.forward_plain(x)
-        return x
+        return self.stages[-1].forward_plain(x, *eaux)
+
+
+class Stencil2DAfter(nn.Module):
+    """A filter, then a 2-D stencil bank on its output (the JAX package's
+    ``_st_fallback``): the ``stencil2d`` kernel on a 2-D output
+    (:class:`.kernels.stencil2d.Stencil2D`), its twin on any other rank.
+    Returns a tuple of per-channel tensors."""
+
+    def __init__(self, body: nn.Module, stencil2d):
+        super().__init__()
+        self.body, self.bank = body, Stencil2D(stencil2d)
+
+    def forward(self, x: torch.Tensor):
+        y = self.body(x)
+        return self.bank(y) if y.ndim == 2 else self.bank.plain(y)
+
+    def forward_plain(self, x: torch.Tensor):
+        return self.bank.plain(self.body.forward_plain(x))
 
 
 _INT_DTYPES = {"int8": torch.int8, "int16": torch.int16,
@@ -856,64 +1122,97 @@ class IntUnitPass(nn.Module):
 
     Raises ``NotImplementedError`` where the JAX package takes its limb
     route (a dimension that is not a unit chain, or a clamp border: the
-    f32x9 mantissa limbs, ROADMAP Queue 1 item 11)."""
+    f32x9 mantissa limbs, ROADMAP Queue 1 item 11). An ``epilogue(y,
+    *eaux)`` reads the integer result, as in the JAX package."""
 
-    def __init__(self, spec: FilterSpec):
+    def __init__(self, spec: FilterSpec, epilogue=None):
         super().__init__()
-        from .kernels import int_scan
-
-        scans = _int_cast_scans(spec)
-        self.stages = []
-        for ax, ids in spec.scans_by_axis().items():
-            units = [int_scan.unit_scans_of(scans[i]) for i in ids]
-            if spec.border != BorderMode.ZERO or None in units:
-                why = ("a clamp border" if spec.border != BorderMode.ZERO
-                       else "scans that are not unit-feedback chains")
-                raise NotImplementedError(
-                    f"integer filter on axis {ax} with {why}: the JAX "
-                    "package runs its mantissa-limb route (f32x9) here, "
-                    "not ported yet (ROADMAP Queue 1 item 11)")
-            self.stages.append((ax, [u for us in units for u in us]))
+        self.stages = [(ax, _int_units(spec, ids, ax))
+                       for ax, ids in spec.scans_by_axis().items()]
         self.dtype = _INT_DTYPES[spec.dtype]
         self.ext = tuple(d.extent for d in spec.dims)
+        self.epilogue = epilogue
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
         from .kernels import int_scan
 
-        return self._run(x, int_scan.int_unit_dim_pass)
+        return self._run(x, int_scan.int_unit_dim_pass, eaux)
 
-    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
         from .kernels import int_scan
 
-        return self._run(x, int_scan.unit_scans_plain)
+        return self._run(x, int_scan.unit_scans_plain, eaux)
 
-    def _run(self, x, dim_pass):
+    def _run(self, x, dim_pass, eaux):
         if tuple(x.shape) != self.ext:
             raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
                              f"extents {self.ext}")
-        if x.is_floating_point():  # as the JAX package: through int32
-            x = x.to(torch.int32)
-        x = x.to(self.dtype).contiguous()
+        x = _int_input(x, self.dtype)
         for ax, units in self.stages:
             x = dim_pass(x, units, ax)
+        if self.epilogue is not None:
+            x = self.epilogue(x, *(torch.as_tensor(a).to(x.device)
+                                   for a in eaux))
         return x
 
 
-def fused_filter_module(spec: FilterSpec,
-                        matmul_precision: str = "px6") -> nn.Module:
+def _int_units(spec: FilterSpec, ids, ax: int):
+    """The unit scans of ``spec``'s scans ``ids`` (on axis ``ax``), or
+    ``NotImplementedError`` naming the limb route."""
+    from .kernels import int_scan
+
+    scans = _int_cast_scans(spec)
+    units = [int_scan.unit_scans_of(scans[i]) for i in ids]
+    if spec.border != BorderMode.ZERO or None in units:
+        why = ("a clamp border" if spec.border != BorderMode.ZERO
+               else "scans that are not unit-feedback chains")
+        raise NotImplementedError(
+            f"integer filter on axis {ax} with {why}: the JAX package runs "
+            "its mantissa-limb route (f32x9) here, not ported yet (ROADMAP "
+            "Queue 1 item 11)")
+    return [u for us in units for u in us]
+
+
+def _int_input(x, dtype):
+    """``x`` in the filter's integer type (a float input through int32,
+    as the JAX package casts it), contiguous."""
+    if x.is_floating_point():
+        x = x.to(torch.int32)
+    return x.to(dtype).contiguous()
+
+
+def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
+                        epilogue=None, stencil2d=None) -> nn.Module:
     """The executor module for ``spec``, routed as the module docstring
     says, or ``NotImplementedError`` naming what the port does not run
     yet. Integer filters (int8/16/32) take :class:`IntUnitPass`, as the
     JAX package sends them to its exact integer executor. The kernels'
     128 × 128 tile replaces the split widths on the 2-D and rows
     executors, as in the JAX package (tiling never changes the result);
-    the last axis is tiled by its split width, or 32."""
+    the last axis is tiled by its split width, or 32.
+
+    The consumers of the JAX package's ``apply_filter_fused``:
+    ``epilogue(y, *eaux)`` — an elementwise combine the module applies to
+    the filter output (``forward(x, *eaux)``, the aux arrays in the
+    output's layout), handed to the final stage; ``stencil2d`` — per
+    channel 2-D shifted-tap banks ``[[(dy, dx, coeff), ...], ...]`` over
+    the trailing two axes (the module then returns a tuple of channels):
+    fused into the 3-touch executor's final kernel where its gates hold,
+    else run on the filter's output (:class:`Stencil2DAfter`). Where the
+    2-D executor declines the bank and the JAX package would take its
+    rotation chain, this raises."""
     from . import overlap2d
     from .planner import check_precision
 
     check_precision(matmul_precision)
+    if stencil2d is not None and epilogue is not None:
+        raise ValueError("stencil2d is mutually exclusive with epilogue")
+
+    def with_bank(body):
+        return body if stencil2d is None else Stencil2DAfter(body, stencil2d)
+
     if spec.dtype in _INT_DTYPES:
-        return IntUnitPass(spec)
+        return with_bank(IntUnitPass(spec, epilogue))
     if spec.dtype != "float32":
         raise NotImplementedError(
             f"dtype {spec.dtype}: the port runs float32 and int8/16/32 "
@@ -935,9 +1234,17 @@ def fused_filter_module(spec: FilterSpec,
     # "highest" a non-last axis takes its einsum pass
     rows_ok = _kernel_nprod(matmul_precision) > 0
     if Ds == 2 and set(groups) == {nd - 2, nd - 1}:
+        if stencil2d is not None:
+            why = overlap2d.stencil2d_decline(ext[-2], ext[-1], stencil2d)
+            if why:
+                raise NotImplementedError(
+                    f"stencil2d on {tuple(ext)}: {why}; the JAX package "
+                    "runs its rotation chain here (ROADMAP Queue 1 item 6)")
         return overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
-                                   ext[-1], spec.border)
-    if rows_ok and Ds == 3 and set(groups) == set(range(nd - 3, nd)):
+                                   ext[-1], spec.border, epilogue=epilogue,
+                                   stencil2d=stencil2d)
+    if (rows_ok and Ds == 3 and stencil2d is None
+            and set(groups) == set(range(nd - 3, nd))):
         why = overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
                                       scans(nd - 3))
         if why:
@@ -948,7 +1255,8 @@ def fused_filter_module(spec: FilterSpec,
             overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
                                   spec.border),
             overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
-                                ext[-1], spec.border)], "volume")
+                                ext[-1], spec.border, epilogue=epilogue)],
+            "volume")
     if 2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd)) and all(
             _plan_tiles(ext[ax], tiles[ax] or _TILE_DEFAULT,
                         max(s.order for s in scans(ax)), clamp)
@@ -958,24 +1266,151 @@ def fused_filter_module(spec: FilterSpec,
             f"{tuple(ext)}: the JAX package runs its rotation chain here "
             "(ROADMAP Queue 1 item 6)")
     stages = []
-    for ax in groups:
+    axes = list(groups)
+    for ax in axes:
+        final = ax == axes[-1]
         if ax == nd - 1:
             stages.append(FusedLastAxis(scans(ax), ext[ax],
                                         tiles[ax] or _TILE_DEFAULT,
-                                        spec.border, matmul_precision))
-        elif rows_ok:
+                                        spec.border, matmul_precision,
+                                        epilogue if final else None))
+        elif rows_ok and (epilogue is None or not final):
             stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
                                                 ext[ax + 1:], spec.border))
         else:
+            why = (f"at matmul_precision={matmul_precision!r}" if not rows_ok
+                   else "with an epilogue on its final pass")
             raise NotImplementedError(
-                f"scans on axis {ax} of {tuple(ext)} at matmul_precision="
-                f"{matmul_precision!r}: the JAX package runs its einsum "
-                "pass on a non-last axis here (ROADMAP Queue 1 item 6)")
-    return stages[0] if len(stages) == 1 else StagedPass(stages, "staged")
+                f"scans on axis {ax} of {tuple(ext)} {why}: the JAX package "
+                "runs its einsum pass on a non-last axis here (ROADMAP "
+                "Queue 1 item 6)")
+    return with_bank(stages[0] if len(stages) == 1
+                     else StagedPass(stages, "staged"))
 
 
-def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6"):
+def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6",
+                       epilogue=None, eaux=(), stencil2d=None):
     """Run ``spec`` on the tensor ``x`` (on ``x``'s device) through
     :func:`fused_filter_module`'s executor."""
-    mod = fused_filter_module(spec, matmul_precision).to(x.device)
-    return mod(x)
+    mod = fused_filter_module(spec, matmul_precision, epilogue=epilogue,
+                              stencil2d=stencil2d).to(x.device)
+    return mod(x, *eaux)
+
+
+class RotatedPass(nn.Module):
+    """The layout-chained executor of a SINGLE-dimension filter: the JAX
+    package's ``apply_filter_rotated`` (``Plan.rotate_emit``).
+
+    The input carries the spec's one scanned dimension as its LAST axis
+    (whatever its nominal position); the output is emitted with the
+    trailing ``rot_axes`` axes rotated one step — the scanned axis lands at
+    position ``-rot_axes`` — so an x-scan filter and a y-scan filter, both
+    with ``rot_axes=2``, chain with no relayout between them and restore
+    the natural order. ``rot_axes=1`` emits in place.
+
+    ``stencil`` — a shifted-tap consumer along the scanned axis of the
+    output, ``{"taps": [(offset, coeff), ...], "start": "zero"|"clamp",
+    "end": "zero"|"clamp"}`` (taps may be a per-slice list of lists over
+    the leading axis): fused into the rotated completion kernel where the
+    gates hold, else global shifts (:class:`LastAxisPass`).
+    ``epilogue(y, *eaux)`` reads the stencil's output; ``forward(x,
+    *eaux)`` takes the aux arrays in the ROTATED output layout.
+
+    Routes, in the JAX package's order: integer filters run the unit
+    scans on the last axis (:func:`.kernels.int_scan.int_unit_dim_pass`),
+    then move it explicitly; a bare 1-D signal runs the one-axis executor
+    (the supertile hierarchy where it applies), then the stencil as
+    shifts; a dimension with no tile plan raises (the JAX package's
+    lax.scan core, item 15); everything else runs :class:`LastAxisPass`
+    with the rotated emit."""
+
+    def __init__(self, spec: FilterSpec, rot_axes: int = 2,
+                 matmul_precision: str = "px6", epilogue=None,
+                 stencil=None):
+        super().__init__()
+        from .planner import check_precision
+
+        check_precision(matmul_precision)
+        groups = spec.scans_by_axis()
+        if len(groups) != 1:
+            raise ValueError(
+                "the rotated executor requires a single scanned dimension; "
+                f"{spec.name} scans {len(groups)}")
+        (axis,) = groups
+        scans = [spec.scans[i] for i in groups[axis]]
+        self.rot_axes, self.w = int(rot_axes), spec.dims[axis].extent
+        self.epilogue, self.stencil = epilogue, stencil
+        self.units = self.hier = None
+        if spec.dtype in _INT_DTYPES:
+            self.units = _int_units(spec, groups[axis], axis)
+            self.dtype = _INT_DTYPES[spec.dtype]
+            return
+        if spec.dtype != "float32" or spec.tuple_width:
+            raise NotImplementedError(
+                f"{spec.dtype} {'Tuple ' if spec.tuple_width else ''}filter: "
+                "the rotated executor runs float32 and int8/16/32 filters "
+                "(ROADMAP Queue 1 items 4, 7)")
+        clamp = spec.border == BorderMode.CLAMP
+        T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
+        plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
+        if plan is None:
+            raise NotImplementedError(
+                f"extent {self.w} with tile {T}: no tile plan; the JAX "
+                "package runs its lax.scan core here (ROADMAP Queue 1 item "
+                "15)")
+        # a bare signal: the one-axis executor, its hierarchy included
+        # (declined with an epilogue that the stencil does not precede)
+        if (self.rot_axes == 1 and plan[1] > _CHAIN_MATMUL_MAX_TILES
+                and (epilogue is None or stencil is not None)
+                and _hierarchy_ok(self.w, scans, matmul_precision)):
+            self.hier = HierarchicalPass(scans, self.w, spec.border,
+                                         matmul_precision)
+        self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
+                                 rot_axes=self.rot_axes, stencil=stencil,
+                                 epilogue=epilogue)
+
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, False, eaux)
+
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, True, eaux)
+
+    def _run(self, x, plain, eaux):
+        if not 1 <= self.rot_axes <= min(x.ndim, 6):
+            raise ValueError(f"rot_axes {self.rot_axes} out of range for "
+                             f"ndim {x.ndim}")
+        if x.shape[-1] != self.w:
+            raise ValueError(f"last axis has {x.shape[-1]} elements, the "
+                             f"scanned dimension {self.w}")
+        if self.units is not None:
+            from .kernels import int_scan
+
+            x = _int_input(x, self.dtype)
+            y = (int_scan.unit_scans_plain if plain
+                 else int_scan.int_unit_dim_pass)(x, self.units, x.ndim - 1)
+            y = y.movedim(-1, -self.rot_axes).contiguous()
+            return self._consume(y, -self.rot_axes, eaux)
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        if self.hier is not None and x.ndim == 1:
+            return self._consume(self.hier(x, plain), -1, eaux)
+        return self.body(x, plain, eaux)
+
+    def _consume(self, y, axis, eaux):
+        """The stencil as shifts, then the epilogue."""
+        if self.stencil is not None:
+            y = _stencil_fallback(y, self.stencil, axis)
+        if self.epilogue is not None:
+            y = _epilogue(self.epilogue, y, eaux) if y.is_floating_point() \
+                else self.epilogue(y, *(torch.as_tensor(a).to(y.device)
+                                        for a in eaux))
+        return y
+
+
+def apply_filter_rotated(spec: FilterSpec, x, rot_axes: int = 2,
+                         matmul_precision: str = "px6", epilogue=None,
+                         eaux=(), stencil=None):
+    """Functional :class:`RotatedPass` on ``x``'s device."""
+    mod = RotatedPass(spec, rot_axes, matmul_precision, epilogue,
+                      stencil).to(x.device)
+    return mod(x, *eaux)

@@ -5,7 +5,21 @@ the host helpers of the slot-padded carry layout.
     every tile's local tails ``G·x`` in the transposed slot-padded layout
     (n, sl, q) that the carry solve and :class:`CompletionPass` consume.
   * :class:`CompletionPass` (``csrc/completion.cu``): read x once and write
-    ``Y = Btot·x + Rcat·N`` per tile, the carries N in that same layout.
+    ``Y = Btot·x + Rcat·N`` per tile, the carries N in that same layout —
+    in place, or with ``rot=True`` rotated (each tile transposed, an
+    (n·T, q) output: the scanned axis leads) with an optional shifted-tap
+    stencil consumer along the scanned axis fused into the emit
+    (``completion_rot``).
+
+With a stencil consumer, :class:`TailsPass` also emits the halo base rows
+(``extra_rows``: the first and last rows of each tile's Btot times x), the
+caller completes the neighbour tiles' halo strips from them and the
+carries (``dimfuse._stencil_halo``), and the rotated completion combines
+the strips with each completed tile before the write — the consumer costs
+no extra read or write of the signal. The twins: :func:`_stencil_flat`,
+the global-shift form the kernel is held against (it reads the whole
+output, not the strips), and :func:`_stencil_rows`, the per-tile form on
+the strips (what the kernel computes).
 
 Carries ride 8-row slots: ΣK = S carry values per tile take sl = 8·⌈S/8⌉
 rows, zero-padded (S ≤ 56). The JAX package chose 8 for the TPU's sublane
@@ -29,6 +43,7 @@ import torch
 from torch import nn
 
 from .launch import _check, _KernelFn, _launch
+from .stencil2d import shift_mode
 
 TILE = 128  # the kernels' tile edge
 _SLOTS = 8  # carry rows per tile slot
@@ -131,18 +146,24 @@ def _grid_ok(what: str, n: int, blocks_y: int) -> None:
                          "outside the launch grid")
 
 
+_MAX_HE = 2 * TILE  # extra rows: a stencil reach of one tile each way
+
+
 class TailsPass(nn.Module):
     """``tails(x)``: x (q, n, T) → slot-padded transposed tails (n, sl, q),
     ``out[t, s, l] = Σ_τ G_v(t)[s, τ]·x[l, t, τ]`` for s < S, zeros below.
 
     Gcat : (n|1, S, T) stacked per-scan tail rows (per-tile variants).
+    extra_rows : optional (n|1, He, T) rows appended below the sl slot rows
+    (the JAX package's ``tails_pass(extra_rows=)``): the output is then
+    (n, sl + He, q), rows sl.. carrying ``E_v(t)·x``.
     The sums run in float64 from float32 loads, in the kernel and in the
     twin (see ``csrc/tails.cu``). Setting ``fp64 = False`` launches the
     kernel's fp32-accumulating instantiation instead — kept to measure
     what fp64 buys (``chip_smoke.py`` phase 5c).
     """
 
-    def __init__(self, Gcat, n: int):
+    def __init__(self, Gcat, n: int, extra_rows=None):
         super().__init__()
         G = np.asarray(Gcat, np.float64)
         nv, S, T = G.shape
@@ -151,10 +172,16 @@ class TailsPass(nn.Module):
         if S > _MAX_S:
             raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
+        E = (np.zeros((1, 0, T)) if extra_rows is None
+             else np.asarray(extra_rows, np.float64))
+        self.He = E.shape[1]
+        if self.He > _MAX_HE:
+            raise ValueError(f"{self.He} extra rows exceed {_MAX_HE}")
         self.fp64 = True
         Gp = np.zeros((nv, self.sl, T))
         Gp[:, :S] = G
-        Gv = _variants3(Gp)
+        Gv, Ev = _variants_like(Gp, E)
+        Gv = np.concatenate([Gv, Ev], axis=1)
         self.register_buffer("G_v", _f32(Gv))      # kernel operand
         self.register_buffer("G_v64", _f64(Gv))    # twin operand
 
@@ -166,11 +193,11 @@ class TailsPass(nn.Module):
         _check(x, "x", (q, n, TILE), x.device)
         _check(self.G_v, "G_v", self.G_v.shape, x.device)
         _grid_ok("tails", n, -(-q // 64))
-        out = torch.empty((n, self.sl, q), device=x.device)
-        _launch("tails", (
+        out = torch.empty((n, self.sl + self.He, q), device=x.device)
+        _launch("tails_extra" if self.He else "tails", (
             x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(),
-            q, n, self.S, self.sl, self.G_v.shape[0], int(self.fp64)),
-            x.device)
+            q, n, self.S, self.sl, self.He, self.G_v.shape[0],
+            int(self.fp64)), x.device)
         return out
 
     def forward(self, x):
@@ -179,16 +206,79 @@ class TailsPass(nn.Module):
         return self.plain(x)
 
 
+def stencil_reach(taps):
+    """(hp, hn): the rows a tile's stencil reads from the previous tile's
+    tail (the largest −d) and the next tile's head (the largest d)."""
+    ds = [int(d) for d, _ in taps]
+    return max([-d for d in ds] + [0]), max(ds + [0])
+
+
+def _stencil_flat(yf, taps, start: str, end: str):
+    """The JAX package's ``_stencil_flat``: the taps as global shifts of
+    the flat rotated output (L, q) along its first axis — "clamp"
+    replicates the first (d < 0, ``start``) or last (d > 0, ``end``) row,
+    "zero" reads zeros. fp32 product, then sum, per tap."""
+    out = None
+    for d, c in taps:
+        d = int(d)
+        t = float(c) * shift_mode(yf, d, 0, end if d > 0 else start)
+        out = t if out is None else out + t
+    return out
+
+
+def _stencil_rows(yf, prev, nxt, taps, n: int, start: str, end: str):
+    """The JAX package's ``_stencil_rows`` for every tile at once: the
+    taps over each completed tile of the flat rotated output yf (n·T, q)
+    stacked between its halo strips — ``prev`` (n, hp, q), the previous
+    tile's last hp rows, and ``nxt`` (n, hn, q), the next tile's first hn
+    rows — with the border rule at the globally-first/last tile. This is
+    what ``completion_rot`` computes from the strips."""
+    q = yf.shape[1]
+    Y = yf.reshape(n, TILE, q)
+    hp, hn = stencil_reach(taps)
+    zero = Y.new_zeros((1,) + Y.shape[1:])
+    parts = [Y]
+    if hp:
+        parts.insert(0, torch.cat([zero[:, :hp], prev[1:]]))
+    if hn:
+        parts.append(torch.cat([nxt[:-1], zero[:, :hn]]))
+    Z = torch.cat(parts, dim=1)  # (n, hp + T + hn, q)
+    rows = torch.arange(TILE, device=yf.device)[:, None]
+    out = None
+    for d, c in taps:
+        d = int(d)
+        term = Z[:, hp + d:hp + d + TILE]
+        if d > 0 and end == "clamp":
+            term = term.clone()
+            term[-1] = torch.where(rows >= TILE - d, Y[-1, -1:], term[-1])
+        if d < 0 and start == "clamp":
+            term = term.clone()
+            term[0] = torch.where(rows < -d, Y[0, :1], term[0])
+        term = float(c) * term
+        out = term if out is None else out + term
+    return out.reshape(n * TILE, q)
+
+
 class CompletionPass(nn.Module):
     """``completion(x, N)``: x (q, n, T), N (n, sl, q) → Y (q, n, T),
     ``Y[l, t] = Btot_v(t)·x[l, t] + Rcat_v(t)·N[t, :S, l]`` (the JAX
-    package's ``completion_pass`` with ``rot=False`` and transposed
-    slot-padded carries).
+    package's ``completion_pass`` with transposed slot-padded carries).
 
     Btot : (n|1, T, T);  Rcat : (n|1, T, S).
+
+    ``rot=True`` emits rotated: ``Yr[t·T + o, l] = Y[l, t, o]``, an
+    (n·T, q) output (the JAX package's rot layout (n, T, q), flat).
+    ``stencil = {"taps": [(d, c), ...], "start", "end"}`` (rot only; both
+    modes "zero" unless given, the JAX package's ``completion_pass``
+    defaults) applies the taps along the scanned axis before the write:
+    ``forward(x, N, prev, nxt)`` then takes the halo strips, prev
+    (n, hp, q) and nxt (n, hn, q) — present where hp > 0 and hn > 0 — the
+    neighbour tiles' completed edge rows (module docstring). The twin
+    ``plain`` reads the whole output instead (:func:`_stencil_flat`), so
+    the strips get zero gradients, as in the JAX package's VJP.
     """
 
-    def __init__(self, Btot, Rcat, n: int):
+    def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None):
         super().__init__()
         R = np.asarray(Rcat, np.float64)
         nvr, T, S = R.shape
@@ -196,7 +286,23 @@ class CompletionPass(nn.Module):
             raise ValueError(f"tiles must be {TILE} wide")
         if S > _MAX_S:
             raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
+        if stencil is not None and not rot:
+            raise ValueError("the stencil consumer rides the rotated emit")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
+        self.rot = bool(rot)
+        self.taps, self.hp, self.hn = [], 0, 0
+        if stencil is not None:
+            self.taps = [(int(d), float(c)) for d, c in stencil["taps"]]
+            if not self.taps:
+                raise ValueError("a stencil needs at least one tap")
+            self.start = stencil.get("start", "zero")
+            self.end = stencil.get("end", "zero")
+            self.hp, self.hn = stencil_reach(self.taps)
+            if max(self.hp, self.hn) > TILE:
+                raise ValueError(f"stencil reach {self.hp}, {self.hn} "
+                                 f"exceeds the {TILE}-row tile")
+        self.register_buffer("taps_k", torch.tensor(
+            self.taps or [(0, 0.0)], dtype=torch.float32))
         Rp = np.zeros((nvr, T, self.sl))
         Rp[..., :S] = R
         Bv, Rv = _variants_like(Btot, Rp)
@@ -207,24 +313,50 @@ class CompletionPass(nn.Module):
         self.register_buffer("B_v", _f32(_variants3(Btot)))
         self.register_buffer("R_v", _f32(_variants3(R)))
 
-    def plain(self, x, N):
-        return (tile_einsum("nos,qns->qno", self.B_v, x)
-                + tile_einsum("nou,nuq->qno", self.R_v, N[:, :self.S]))
+    def plain(self, x, N, *halos):
+        y = (tile_einsum("nos,qns->qno", self.B_v, x)
+             + tile_einsum("nou,nuq->qno", self.R_v, N[:, :self.S]))
+        if not self.rot:
+            return y
+        yf = y.permute(1, 2, 0).reshape(-1, x.shape[0])
+        if self.taps:
+            yf = _stencil_flat(yf, self.taps, self.start, self.end)
+        return yf
 
-    def _kernel(self, x, N):
+    def _kernel(self, x, N, *halos):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(N, "N", (n, self.sl, q), x.device)
         _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
         _grid_ok("completion", n, -(-q // TILE))
-        y = torch.empty_like(x)
-        _launch("completion", (
-            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(), y.data_ptr(),
-            q, n, self.sl, self.BR_v.shape[0]), x.device)
+        if not self.rot:
+            y = torch.empty_like(x)
+            _launch("completion", (
+                x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
+                y.data_ptr(), q, n, self.sl, self.BR_v.shape[0]), x.device)
+            return y
+        halos = list(halos)
+        prev = halos.pop(0) if self.hp else None
+        nxt = halos.pop(0) if self.hn else None
+        for h, name, rows in ((prev, "prev", self.hp), (nxt, "nxt", self.hn)):
+            if h is not None:
+                _check(h, name, (n, rows, q), x.device)
+        _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
+        y = torch.empty((n * TILE, q), device=x.device)
+        _launch("completion_rot", (
+            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
+            0 if prev is None else prev.data_ptr(),
+            0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
+            y.data_ptr(), q, n, self.sl, self.BR_v.shape[0], self.hp,
+            self.hn, len(self.taps), int(self.taps != [] and
+                                         self.start == "clamp"),
+            int(self.taps != [] and self.end == "clamp")), x.device)
         return y
 
-    def forward(self, x, N):
+    def forward(self, x, N, *halos):
+        if len(halos) != (self.hp > 0) + (self.hn > 0):
+            raise ValueError(f"expected {(self.hp > 0) + (self.hn > 0)} "
+                             f"halo strips, got {len(halos)}")
         if x.is_cuda:
-            return _KernelFn.apply(self, x, N)
-        return self.plain(x, N)
-
+            return _KernelFn.apply(self, x, N, *halos)
+        return self.plain(x, N, *halos)

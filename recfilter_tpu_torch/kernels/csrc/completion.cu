@@ -87,7 +87,148 @@ completion_kernel(const float* __restrict__ x,   // (q, n, T)
   }
 }
 
+// completion_rot: the same per-tile product, emitted ROTATED — the tile
+// transposed, Y[t*128 + o, l] into an (n*128, q) output — with an optional
+// shifted-tap stencil consumer along the scanned axis fused into the emit.
+//
+// Replaces completion_pass(rot=True) and its stencil epilogue
+// (_completion_kernel with _stencil_rows). The GEMM runs as above; the
+// tile then goes to shared memory transposed, Zs[hp + o][l], between the
+// neighbour tiles' halo rows — prev (the hp last rows of tile t-1,
+// completed) above and nxt (the hn first rows of tile t+1) below — so the
+// output rows leave as 512-byte rows of lines, coalesced. With ntaps > 0
+// each output is
+//
+//   out[t*128 + o, l] = sum_k c_k * Zs[hp + r_k][l],   r_k = o + d_k
+//
+// where the globally-first/last tile applies the border rule: "zero"
+// reads 0 past the array (the halo rows there are never read), "clamp"
+// (start_clamp for d < 0 at tile 0, end_clamp for d > 0 at tile n-1)
+// replicates the global first or last row — the JAX package's
+// _stencil_rows. Products then sums, each rounded (no FMA), in tap order,
+// as the twin _stencil_flat takes them.
+//
+// What bounds it: the GEMM, as for completion (2 * (128 + sl) FLOP per
+// sample); the stencil adds 2 FLOP per tap and the halo reads (hp + hn)
+// rows per 128. Shared memory: the GEMM's 2 * (128 + sl) * 128 floats,
+// then the (hp + 128 + hn) * 128 staged rows over the same space
+// (hp, hn <= 128: 196 KB at most).
+__global__ void __launch_bounds__(THREADS, 1)
+completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
+                      const float* __restrict__ N,     // (n, sl, q)
+                      const float* __restrict__ BR,    // (nv, T + sl, T)
+                      const float* __restrict__ prev,  // (n, hp, q)
+                      const float* __restrict__ nxt,   // (n, hn, q)
+                      const float* __restrict__ taps,  // (ntaps, 2): d, c
+                      float* __restrict__ y,           // (n * T, q)
+                      int q, int n, int sl, int nv, int hp, int hn,
+                      int ntaps, int start_clamp, int end_clamp) {
+  extern __shared__ float4 smem4[];
+  const int depth = T + sl;
+  float* As = reinterpret_cast<float*>(smem4);
+  float* Bs = As + depth * T;
+
+  const int t = blockIdx.x;
+  const int l0 = blockIdx.y * T;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int v = rf::variant(nv, t, n);
+
+  for (int i = tid; i < T * (T / 4); i += THREADS) {
+    const int l = i % T, c4 = i / T;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l0 + l < q)
+      val = reinterpret_cast<const float4*>(
+          x + ((long)(l0 + l) * n + t) * T)[c4];
+    As[(4 * c4 + 0) * T + l] = val.x;
+    As[(4 * c4 + 1) * T + l] = val.y;
+    As[(4 * c4 + 2) * T + l] = val.z;
+    As[(4 * c4 + 3) * T + l] = val.w;
+  }
+  const float* Nt = N + (long)t * sl * q;
+  for (int i = tid; i < sl * T; i += THREADS) {
+    const int s = i / T, l = i % T;
+    As[(T + s) * T + l] = l0 + l < q ? Nt[(long)s * q + l0 + l] : 0.f;
+  }
+  rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
+  __syncthreads();
+
+  float c[8][8];
+  rf::gemm_tile(As, Bs, c, ty, tx, depth);
+  __syncthreads();
+
+  // the tile, transposed: Zs[hp + o][l] = Y[l][o] (float4 along lines)
+  float* Zs = reinterpret_cast<float*>(smem4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int o = rf::row_of(j, tx);
+    *reinterpret_cast<float4*>(Zs + (hp + o) * T + ty * 4) =
+        make_float4(c[0][j], c[1][j], c[2][j], c[3][j]);
+    *reinterpret_cast<float4*>(Zs + (hp + o) * T + 64 + ty * 4) =
+        make_float4(c[4][j], c[5][j], c[6][j], c[7][j]);
+  }
+  if (ntaps > 0) {
+    for (int i = tid; i < hp * T; i += THREADS) {
+      const int r = i / T, l = i % T;
+      Zs[i] = (t > 0 && l0 + l < q)
+                  ? prev[((long)t * hp + r) * q + l0 + l] : 0.f;
+    }
+    for (int i = tid; i < hn * T; i += THREADS) {
+      const int r = i / T, l = i % T;
+      Zs[(hp + T + r) * T + l] = (t < n - 1 && l0 + l < q)
+                                     ? nxt[((long)t * hn + r) * q + l0 + l]
+                                     : 0.f;
+    }
+  }
+  __syncthreads();
+
+  const int l = tid % T;
+  if (l0 + l >= q) return;
+  float* yt = y + (long)t * T * q + l0 + l;
+  for (int o = tid / T; o < T; o += THREADS / T) {
+    float acc;
+    if (ntaps == 0) {
+      acc = Zs[(hp + o) * T + l];
+    } else {
+      acc = 0.f;
+      for (int k = 0; k < ntaps; ++k) {
+        const int d = (int)taps[2 * k];
+        int r = o + d;
+        if (d > 0 && end_clamp && t == n - 1 && r > T - 1) r = T - 1;
+        if (d < 0 && start_clamp && t == 0 && r < 0) r = 0;
+        const float term = __fmul_rn(taps[2 * k + 1], Zs[(hp + r) * T + l]);
+        acc = k == 0 ? term : __fadd_rn(acc, term);
+      }
+    }
+    yt[(long)o * q] = acc;
+  }
+}
+
 }  // namespace
+
+extern "C" int completion_rot_launch(const float* x, const float* N,
+                                     const float* BR, const float* prev,
+                                     const float* nxt, const float* taps,
+                                     float* y, int q, int n, int sl, int nv,
+                                     int hp, int hn, int ntaps,
+                                     int start_clamp, int end_clamp,
+                                     void* stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8 || hp < 0 || hn < 0 || hp > T ||
+      hn > T || ntaps < 0 || (ntaps == 0 && (hp || hn)))
+    return (int)cudaErrorInvalidValue;
+  const int max_smem = (2 * (T + MAX_SL) > 3 * T ? 2 * (T + MAX_SL) : 3 * T)
+                       * T * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_rot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int gemm = 2 * (T + sl) * T, stage = (hp + T + hn) * T;
+  const int smem = (gemm > stage ? gemm : stage) * (int)sizeof(float);
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_rot_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, N, BR, prev, nxt, taps, y, q, n, sl, nv, hp, hn, ntaps,
+      start_clamp, end_clamp);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int completion_launch(const float* x, const float* N,
                                  const float* BR, float* y, int q, int n,

@@ -14,6 +14,16 @@
 // term1 slot group): the carry solve multiplies them by zero columns, and
 // an uninitialised NaN there would poison the result.
 //
+// With h8 > 0 (moments2d_px's edge_mats, the row-halo feed of a fused 2-D
+// stencil consumer) it also emits each tile's edge completion partials,
+// the first and last h8 rows of its dim-A completion matrix times x:
+//
+//   ht[p,a,k, b*Tb+w] = sum_s Btot_a_v(a)[k, s] * x[s,w]          k < h8
+//   hb[p,a,k, b*Tb+w] = sum_s Btot_a_v(a)[Ta-h8+k, s] * x[s,w]
+//
+// from the same staged tile (E = those 2*h8 rows, (nva, 2*h8, T)), fp64
+// sums like the tails: 2*h8 more MACs per pixel.
+//
 // What bounds it: it reads 4 B/px and does Ka + 2*Kb MACs per pixel (18
 // for the 3rd-order Gaussian pair), so on an H100 it is bound by
 // device-memory bandwidth. The design reads each x tile from device memory
@@ -39,7 +49,7 @@ constexpr int SLOTS = 8;      // carry rows per slot
 constexpr int THREADS = 256;  // two threads per column: slots kg, kg+2, ..
 constexpr int XS = T + 4;     // padded shared row stride of the x tile
 constexpr int SMEM_BYTES =
-    (T * XS + 2 * SLOTS * T) * sizeof(float) + SLOTS * T * sizeof(double);
+    (T * XS + 2 * SLOTS * T) * sizeof(float) + 2 * SLOTS * T * sizeof(double);
 
 __device__ __forceinline__ int variant(int nv, int i, int n) {
   if (nv == 1) return 0;
@@ -51,12 +61,16 @@ moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
                  const float* __restrict__ Ga,    // (nva, 8, T)
                  const float* __restrict__ Gb,    // (nvb, 8, T)
                  const float* __restrict__ Ba1T,  // (nva, T, T): [s][o]
+                 const float* __restrict__ E,     // (nva, 2*h8, T)
                  float* __restrict__ bA,          // (p, na, 8, W)
                  float* __restrict__ term1,       // (p, na, nb*8, T)
-                 int na, int nb, int Ka, int Kb, int nva, int nvb) {
+                 float* __restrict__ ht,          // (p, na, h8, W)
+                 float* __restrict__ hb,          // (p, na, h8, W)
+                 int na, int nb, int Ka, int Kb, int nva, int nvb, int h8) {
   extern __shared__ float4 smem4[];
   double* us = reinterpret_cast<double*>(smem4);  // 8 x T: U[k][s]
-  float* xs = reinterpret_cast<float*>(us + SLOTS * T);  // T rows x XS
+  double* es = us + SLOTS * T;                    // 8 x T: 8 edge rows
+  float* xs = reinterpret_cast<float*>(es + SLOTS * T);  // T rows x XS
   float* ga = xs + T * XS;                        // 8 x T
   float* gb = ga + SLOTS * T;                     // 8 x T
 
@@ -95,6 +109,32 @@ moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
   for (int j = 0; j < 4; ++j) {
     const int k = kg + 2 * j;
     bAt[k * W] = k < Ka ? (float)acc[j] : 0.f;
+  }
+
+  // edge completion partials: column w of the 2*h8 edge rows * x, eight
+  // rows a pass, staged in fp64 (no conversion per product)
+  const float* Ev = E + (long)va * 2 * h8 * T;
+  for (int k0 = kg; k0 < 2 * h8; k0 += 8) {
+    __syncthreads();  // the previous pass has read its rows
+    for (int i = tid; i < SLOTS * T; i += THREADS)
+      es[i] = k0 - kg + i / T < 2 * h8 ? (double)Ev[(k0 - kg) * T + i] : 0.0;
+    __syncthreads();
+    double e[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int s = 0; s < T; ++s) {
+      const double xv = xs[s * XS + col];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = fma(es[(kg + 2 * j) * T + s], xv, e[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 2 * j;
+      if (k < 2 * h8) {
+        float* dst = k < h8 ? ht + (pa * h8 + k) * W
+                            : hb + (pa * h8 + k - h8) * W;
+        dst[(long)b * T + col] = (float)e[j];
+      }
+    }
   }
 
   // dim-B moments: row s of x * G_b^T, kept in shared memory (fp64)
@@ -138,16 +178,18 @@ moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
 
 extern "C" int moments2d_launch(const float* x, const float* Ga,
                                 const float* Gb, const float* Ba1T,
-                                float* bA, float* term1, int p, int na,
-                                int nb, int Ka, int Kb, int nva, int nvb,
+                                const float* E, float* bA, float* term1,
+                                float* ht, float* hb, int p, int na, int nb,
+                                int Ka, int Kb, int nva, int nvb, int h8,
                                 void* stream) {
+  if (h8 < 0 || h8 > T) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       moments2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, na, p);
   moments2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, Ga, Gb, Ba1T, bA, term1, na, nb, Ka, Kb, nva, nvb);
+      x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, na, nb, Ka, Kb, nva, nvb, h8);
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,11 @@ their plain twins.
   * :class:`Final2D` (passes 2+3 fused): read the x tile once, form the
     dim-A completion Z = Btot_A·x + Rhat_A·N_A on chip, and write
     Y = Z·Btot_Bᵀ + N_B·Rhat_Bᵀ. Z never touches device memory.
+  * :class:`Final2DStencil`: :class:`Final2D` with a fused 2-D stencil
+    consumer — C channel banks of shifted taps over Y, which itself never
+    touches device memory; the rows above and below each tile come from
+    halo strips that the glue completes from :class:`Moments2D`'s edge
+    rows (``edge=``).
   * :class:`RowsTails` / :class:`RowsFinal`: the dim-A halves of those two
     on their own — tails ``G·x`` and completion ``Btot·x + Rhat·N`` of a
     scan along a non-last axis, everything after it flattened into W
@@ -73,9 +78,15 @@ class Moments2D(nn.Module):
 
     G_a_cat : (na|1, Ka, Ta)   G_b_cat : (nb|1, Kb, Tb)
     term1_mats : (na|1, Ta, Ta), the dim-A Btot folded into the dim-B term.
+    edge : optional ``(Btot_a, h8)`` — also emit each tile's edge
+    completion partials ``ht = Btot_a[:h8]·x`` and ``hb =
+    Btot_a[Ta-h8:]·x``, (p, na, h8, W) each (the JAX package's
+    ``moments2d_px(edge_mats=)``): ``moments(x)`` then returns
+    ``(bA_t, term1, ht, hb)``.
     """
 
-    def __init__(self, G_a_cat, G_b_cat, term1_mats, na: int, nb: int):
+    def __init__(self, G_a_cat, G_b_cat, term1_mats, na: int, nb: int,
+                 edge=None):
         super().__init__()
         Ga, Gb = np.asarray(G_a_cat), np.asarray(G_b_cat)
         self.na, self.nb = int(na), int(nb)
@@ -97,6 +108,17 @@ class Moments2D(nn.Module):
         self.register_buffer("Gbn", torch.from_numpy(_per_tile(Gb8, nb)))
         self.register_buffer("Ba1n",
                              torch.from_numpy(_per_tile(term1_mats, na)))
+        # edge rows: kernel operand E (1|3, 2·h8, Ta), twin per-tile f64
+        self.h8 = 0 if edge is None else int(edge[1])
+        if not 0 <= self.h8 <= TILE:
+            raise ValueError(f"h8 = {self.h8} outside [0, {TILE}]")
+        if self.h8:
+            B = np.asarray(edge[0], np.float64)
+            E = np.concatenate([B[:, :self.h8], B[:, TILE - self.h8:]], 1)
+            self.register_buffer("E_v", _f32(_variants3(E)))
+            self.register_buffer("En", torch.from_numpy(_per_tile(E, na)))
+        else:
+            self.register_buffer("E_v", torch.zeros(1, 0, TILE))
 
     def plain(self, x):
         p, na, Ta, W = x.shape
@@ -105,24 +127,31 @@ class Moments2D(nn.Module):
         U = torch.einsum("bkt,pasbt->pabks", self.Gbn,
                          xd.reshape(p, na, Ta, self.nb, W // self.nb))
         term1 = torch.einsum("aos,pabks->pabko", self.Ba1n, U)
-        return (bA.float(),
-                term1.reshape(p, na, self.nb * _SLOTS, Ta).float())
+        out = (bA.float(),
+               term1.reshape(p, na, self.nb * _SLOTS, Ta).float())
+        if self.h8:
+            e = torch.einsum("aks,pasw->pakw", self.En, xd).float()
+            out += (e[:, :, :self.h8], e[:, :, self.h8:])
+        return out
 
     def _kernel(self, x):
-        p, na, nb = x.shape[0], self.na, self.nb
+        p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
         _check(x, "x", (p, na, TILE, nb * TILE), x.device)
-        for name in ("Ga_v", "Gb_v", "Ba1T_v"):
+        for name in ("Ga_v", "Gb_v", "Ba1T_v", "E_v"):
             t = getattr(self, name)
             _check(t, name, t.shape, x.device)
         _grid_ok(p, na, nb * TILE)
         bA = torch.empty((p, na, _SLOTS, nb * TILE), device=x.device)
         term1 = torch.empty((p, na, nb * _SLOTS, TILE), device=x.device)
+        ht, hb = (torch.empty((p, na, h8, nb * TILE), device=x.device)
+                  for _ in range(2))
         _launch("moments2d", (
             x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
-            self.Ba1T_v.data_ptr(), bA.data_ptr(), term1.data_ptr(),
+            self.Ba1T_v.data_ptr(), self.E_v.data_ptr(), bA.data_ptr(),
+            term1.data_ptr(), ht.data_ptr(), hb.data_ptr(),
             p, na, nb, self.Ka, self.Kb, self.Ga_v.shape[0],
-            self.Gb_v.shape[0]), x.device)
-        return bA, term1
+            self.Gb_v.shape[0], h8), x.device)
+        return (bA, term1, ht, hb) if h8 else (bA, term1)
 
     def forward(self, x):
         if x.is_cuda:
@@ -186,6 +215,76 @@ class Final2D(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, NA_t, NB_t)
         return self.plain(x, NA_t, NB_t)
+
+
+class Final2DStencil(nn.Module):
+    """Passes 2+3 with a fused 2-D stencil consumer:
+    ``outs = final(x, NA_t, NB_t, halo_top, halo_bot)``, a (C, p, na, Ta,
+    W) stack of the C channels
+
+        out[c] = Σ_(dy, dx, coeff) coeff · Y[· + dy, · + dx]
+
+    over the dual completion Y of :class:`Final2D` (the same operands),
+    with the JAX package's border rule: positive offsets clamp at the far
+    edges (rows, then columns), negative offsets read zero. The halo
+    strips (p, na, h8, W) hold the completed bottom h8 rows of each tile's
+    upper neighbour (``halo_top``) and top h8 rows of its lower neighbour
+    (``halo_bot``); the kernel completes the neighbour columns itself
+    (``csrc/final2d_stencil.cu``). The twin ``plain`` is the JAX package's
+    ``_ref``: Y recomputed whole, then :func:`.stencil2d.stencil2d_ref` —
+    it reads no halo strip, so the strips get zero gradients.
+
+    taps_c : per channel ``[(dy, dx, coeff), ...]`` with |dy| ≤ h8 ≤ 128
+    and |dx| ≤ 128.
+    """
+
+    def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
+                 nb: int, taps_c, h8: int):
+        super().__init__()
+        from .stencil2d import Stencil2D
+
+        self.final = Final2D(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na, nb)
+        self.bank = Stencil2D(taps_c)
+        self.na, self.nb, self.h8, self.C = int(na), int(nb), int(h8), \
+            self.bank.C
+        up, down, left, right = self.bank.reach
+        if max(up, down) > self.h8 or self.h8 > TILE or max(left, right) \
+                > TILE:
+            raise ValueError(f"stencil reach {self.bank.reach} outside h8 = "
+                             f"{self.h8} rows and {TILE} columns")
+        self.dxl, self.dxr = left, right
+
+    def plain(self, x, NA_t, NB_t, *halos):
+        p, na, Ta, W = x.shape
+        y = self.final.plain(x, NA_t, NB_t).reshape(p, na * Ta, W)
+        return torch.stack(self.bank.plain(y)).reshape(self.C, p, na, Ta, W)
+
+    def _kernel(self, x, NA_t, NB_t, halo_top, halo_bot):
+        p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
+        W = nb * TILE
+        _check(x, "x", (p, na, TILE, W), x.device)
+        _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
+        _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
+        _check(halo_top, "halo_top", (p, na, h8, W), x.device)
+        _check(halo_bot, "halo_bot", (p, na, h8, W), x.device)
+        fin, bank = self.final, self.bank
+        for t in (fin.A1_v, fin.B2_v, bank.taps_k):
+            _check(t, "operand", t.shape, x.device)
+        _check(bank.toff, "toff", bank.toff.shape, x.device, torch.int32)
+        _grid_ok(p, na, W)
+        out = torch.empty((self.C, p, na, TILE, W), device=x.device)
+        _launch("final2d_stencil", (
+            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
+            fin.A1_v.data_ptr(), fin.B2_v.data_ptr(), halo_top.data_ptr(),
+            halo_bot.data_ptr(), bank.taps_k.data_ptr(), bank.toff.data_ptr(),
+            out.data_ptr(), p, na, nb, fin.A1_v.shape[0], fin.B2_v.shape[0],
+            h8, self.dxl, self.dxr, self.C, bank.taps_k.shape[0]), x.device)
+        return out
+
+    def forward(self, x, NA_t, NB_t, halo_top, halo_bot):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, NA_t, NB_t, halo_top, halo_bot)
+        return self.plain(x, NA_t, NB_t, halo_top, halo_bot)
 
 
 def _rows_x(x, n: int) -> int:

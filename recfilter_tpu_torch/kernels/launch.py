@@ -6,16 +6,23 @@ autograd rule for all of them.
   * ``ENTRIES`` — each launch entry point ``<entry>_launch`` and the kernel
     whose library holds it. A kernel has one entry of its own name, except
     ``int_seg_scan``, whose two phases launch separately (``int_seg_carries``
-    and ``int_seg_fix``).
+    and ``int_seg_fix``), ``completion``, whose rotated emit (with its optional
+    stencil consumer) is a kernel of its own, ``completion_rot``, and
+    ``tails``, whose extra-row form (a stencil's halo bases) is
+    ``tails_extra``.
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
   * :func:`_check` — what every wrapper verifies before it passes a pointer.
   * :class:`_KernelFn` — the ``torch.autograd.Function`` of the float
     kernels' CUDA path: forward through ``mod._kernel``, backward through
-    the VJP of the module's plain twin ``mod.plain`` (every float kernel is
-    a linear map of its tensor inputs, so the VJP is taken at zero —
-    :func:`_linear_vjp`). The integer kernels have no gradient.
+    the VJP of the module's plain twin (``mod._twin`` where the module
+    defines one, else ``mod.plain``; every float kernel is a linear map of
+    its tensor inputs, so the VJP is taken at zero — :func:`_linear_vjp`).
+    An input the twin does not read — the stencil consumers' halo strips,
+    which the twins recompute from the whole output — gets a zero
+    gradient, as in the JAX package's VJPs. The integer kernels have no
+    gradient.
 """
 
 from __future__ import annotations
@@ -39,16 +46,19 @@ def _sig(name: str, *entries) -> dict:
 
 
 SIGNATURES = {
-    "moments2d": _sig("moments2d", ("moments2d", 6, 7)),
+    "moments2d": _sig("moments2d", ("moments2d", 9, 8)),
     "final2d": _sig("final2d", ("final2d", 6, 5)),
-    "tails": _sig("tails", ("tails", 3, 6)),
-    "completion": _sig("completion", ("completion", 4, 4)),
+    "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
+    "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7)),
+    "completion": _sig("completion", ("completion", 4, 4),
+                       ("completion_rot", 7, 9)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
     "fir_band": _sig("fir_band", ("fir_band", 3, 7)),
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
                          ("int_seg_fix", 3, 9)),
+    "stencil2d": _sig("stencil2d", ("stencil2d", 4, 8)),
 }
 
 ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()
@@ -95,13 +105,16 @@ def _check(t: torch.Tensor, name: str, shape, device,
 
 
 def _linear_vjp(plain, shapes, device, grads):
-    """VJP of the linear map ``plain`` (independent of the primal point)."""
+    """VJP of the linear map ``plain`` (independent of the primal point);
+    zeros for an input ``plain`` does not read."""
     with torch.enable_grad():
         zs = [torch.zeros(s, device=device, requires_grad=True)
               for s in shapes]
         outs = plain(*zs)
         outs = outs if isinstance(outs, tuple) else (outs,)
-        return torch.autograd.grad(outs, zs, grads)
+        gs = torch.autograd.grad(outs, zs, grads, allow_unused=True)
+        return tuple(torch.zeros_like(z) if g is None else g
+                     for z, g in zip(zs, gs))
 
 
 class _KernelFn(torch.autograd.Function):
@@ -116,5 +129,5 @@ class _KernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *_linear_vjp(ctx.mod.plain, ctx.shapes, ctx.device,
-                                   grads))
+        twin = getattr(ctx.mod, "_twin", ctx.mod.plain)
+        return (None, *_linear_vjp(twin, ctx.shapes, ctx.device, grads))

@@ -20,6 +20,14 @@ thirtyfold for the sigma=5 Gaussian, and fp32 glue left the filter at
 (plain twins on the CPU, 512²). The solve is always the dense padded
 (n·8)² matmul. Every host matrix is built once, at module construction.
 
+Two consumers ride :class:`Fused2DPx` as in the JAX package's
+``fused_2d_px``: an elementwise ``epilogue(y, *eaux)`` on the output of the
+final kernel, and a ``stencil2d`` bank — per channel 2-D shifted taps —
+fused into the final kernel (``final2d_stencil``), so the filter output
+never reaches device memory: the moments kernel also emits each tile's
+edge completion partials, and the glue completes them into the row-halo
+strips above and below every tile (float64, :meth:`Fused2DPx.halo_strips`).
+
 :class:`FusedRowsPx` is the dim-A half on its own — the rows pass, for a
 scan along any axis but the last, everything after that axis flattened
 into lanes: tails kernel → float64 carry solve (banded from 64 tiles on)
@@ -40,9 +48,29 @@ from torch import nn
 from . import dimfuse
 from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
+from .kernels.stencil2d import stencil_reach
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
+
+
+def stencil2d_decline(wa: int, wb: int, stencil2d):
+    """Why the JAX package's ``fused_2d_px`` declines a ``stencil2d`` bank
+    on extents (wa, wb) (its gates: no pad, a row reach h8 = ⌈max|dy|/8⌉·8
+    ≤ 128 and a column reach ≤ 128), or None where it fuses it."""
+    up, down, left, right = stencil_reach(stencil2d)
+    if wa % TILE or wb % TILE:
+        return f"extents not multiples of {TILE}"
+    if stencil_h8(stencil2d) > TILE or max(left, right) > TILE:
+        return (f"reach {max(up, down)} rows, {max(left, right)} columns: "
+                f"beyond {TILE}")
+    return None
+
+
+def stencil_h8(stencil2d) -> int:
+    """The row-halo height: max|dy| rounded up to 8, at least 8."""
+    up, down, _, _ = stencil_reach(stencil2d)
+    return -(-max(up, down, 1) // 8) * 8
 
 
 class Fused2DPx(nn.Module):
@@ -53,15 +81,24 @@ class Fused2DPx(nn.Module):
     for CPU tensors); ``forward_plain`` runs the twins on any device — the
     all-PyTorch reference for the kernel path.
 
+    ``epilogue(y, *eaux)``: an elementwise combine applied to the final
+    kernel's output (``forward(x, *eaux)``, the aux arrays in the output's
+    layout, padded and tiled like x). ``stencil2d``: per channel
+    ``[(dy, dx, coeff), ...]`` fused into the final kernel
+    (``final2d_stencil``); ``forward`` then returns a tuple of C channels.
+
     Raises ``NotImplementedError`` where the JAX package's executor would
     decline the filter (extents below one tile, clamp with extents that
     are not tile multiples, more than 256 tiles, more than 8 carries per
-    dimension)."""
+    dimension, a stencil bank past :func:`stencil2d_decline`'s gates)."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
-                 wa: int, wb: int, border: str):
+                 wa: int, wb: int, border: str, epilogue=None,
+                 stencil2d=None):
         super().__init__()
         T = TILE
+        if stencil2d is not None and epilogue is not None:
+            raise ValueError("stencil2d is mutually exclusive with epilogue")
         if wa < T or wb < T:
             raise NotImplementedError(
                 f"extents ({wa}, {wb}) below the {T} tile: small images run "
@@ -86,15 +123,31 @@ class Fused2DPx(nn.Module):
                 f"carries Ka={Ka}, Kb={Kb}: more than {_SLOTS} per "
                 "dimension run the JAX package's rotation chain (ROADMAP "
                 "Queue 1 item 6)")
+        if stencil2d is not None:
+            why = stencil2d_decline(wa, wb, stencil2d)
+            if why:
+                raise NotImplementedError(
+                    f"stencil2d on ({wa}, {wb}): {why} (ROADMAP Queue 1 "
+                    "item 6)")
         self.wa, self.wb, self.na, self.nb = wa, wb, na, nb
-        self.pad_a, self.pad_b, self.Ka = pad_a, pad_b, Ka
+        self.pad_a, self.pad_b, self.Ka, self.Kb = pad_a, pad_b, Ka, Kb
+        self.epilogue = epilogue
+        self.h8 = 0 if stencil2d is None else stencil_h8(stencil2d)
 
         Ga_cat = np.concatenate([np.asarray(g) for g in ma.G], axis=1)
         Gb_cat = np.concatenate([np.asarray(g) for g in mb.G], axis=1)
         Ra_cat = np.concatenate([np.asarray(r) for r in ma.Rhat], axis=2)
         Rb_cat = np.concatenate([np.asarray(r) for r in mb.Rhat], axis=2)
-        self.moments = k2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, na, nb)
-        self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na, nb)
+        self.moments = k2d.Moments2D(
+            Ga_cat, Gb_cat, ma.Btot, na, nb,
+            edge=(ma.Btot, self.h8) if self.h8 else None)
+        if self.h8:
+            self.final = k2d.Final2DStencil(ma.Btot, Ra_cat, mb.Btot,
+                                            Rb_cat, na, nb, stencil2d,
+                                            self.h8)
+        else:
+            self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
+                                     nb)
 
         def buf(name, a):  # glue constants stay float64 (module docstring)
             self.register_buffer(
@@ -108,12 +161,15 @@ class Fused2DPx(nn.Module):
         Gb8[:, :Kb] = Gb_cat
         buf("Ran", _per_tile(Ra_cat, na))                     # (na, Ta, Ka)
         buf("Gb8n", _per_tile(Gb8, nb))                       # (nb, 8, Tb)
+        if self.h8:  # the halo strips' dim-B completion
+            buf("Bbn", _per_tile(mb.Btot, nb))                # (nb, Tb, Tb)
+            buf("Rbn", _per_tile(Rb_cat, nb))                 # (nb, Tb, Kb)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._run(x, self.moments, self.final)
+    def forward(self, x: torch.Tensor, *eaux):
+        return self._run(x, self.moments, self.final, eaux)
 
-    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
-        return self._run(x, self.moments.plain, self.final.plain)
+    def forward_plain(self, x: torch.Tensor, *eaux):
+        return self._run(x, self.moments.plain, self.final.plain, eaux)
 
     def tile(self, x: torch.Tensor) -> torch.Tensor:
         """(..., wa, wb) float32 → the kernels' zero-padded (p, na, Ta, W)."""
@@ -129,12 +185,18 @@ class Fused2DPx(nn.Module):
     def carries(self, X4: torch.Tensor, moments=None):
         """Pass 1 and the carry solves: the solved carries ``(NA_t, NB_t)``
         of the tiled image X4, in the final kernel's float32 layouts."""
+        NA_t, NB_t = self._carries(X4, moments)[:2]
+        return NA_t.float(), NB_t.float()
+
+    def _carries(self, X4, moments=None):
+        """:meth:`carries` in float64, followed by the moments kernel's
+        edge partials where a stencil bank is fused."""
         if moments is None:
             moments = self.moments
         T, na, nb, Ka = TILE, self.na, self.nb, self.Ka
         p, W = X4.shape[0], nb * T
         # pass 1: dim-A raw tails + dim-B term1 = Btot_a·(x·G_Bᵀ)
-        bA_t, term1 = moments(X4)
+        bA_t, term1, *edges = moments(X4)
         bA_t, term1 = bA_t.double(), term1.double()
         # dim-A chain solve (slot-padded layout)
         NA_t = torch.matmul(self.CMa_p, bA_t.reshape(p, na * _SLOTS, W))
@@ -145,14 +207,58 @@ class Fused2DPx(nn.Module):
         bB = term1.reshape(p, na, nb, _SLOTS, T) + term2
         # dim-B chain solve
         NB_t = torch.matmul(self.CMb_p, bB.reshape(p * na, nb * _SLOTS, T))
-        return (NA_t.reshape(p, na, _SLOTS, W).float(),
-                NB_t.reshape(p, na, nb * _SLOTS, T).float())
+        return (NA_t.reshape(p, na, _SLOTS, W),
+                NB_t.reshape(p, na, nb * _SLOTS, T), *edges)
 
-    def _run(self, x, moments, final):
+    def halo_strips(self, ht, hb, NA_t, NB_t):
+        """The row-halo strips of the fused stencil, in float64: the
+        moments kernel's edge partials ``ht``/``hb`` (Btot_a's first/last
+        h8 rows · x) completed with both dimensions' carries — the bottom
+        h8 rows of each tile's upper neighbour (``top``) and the top h8
+        rows of its lower neighbour (``bot``), (p, na, h8, W), zeros past
+        the first/last tile. Returns float32 (top, bot)."""
+        T, h8, na, nb, Ka, Kb = TILE, self.h8, self.na, self.nb, self.Ka, \
+            self.Kb
+        p, W = NA_t.shape[0], nb * T
+        NAk = NA_t[:, :, :Ka]
+        NBr = NB_t.reshape(p, na, nb, _SLOTS, T)[:, :, :, :Kb]
+        Ztop = ht.double() + torch.einsum("ahk,pakw->pahw", self.Ran[:, :h8],
+                                          NAk)
+        Zbot = hb.double() + torch.einsum("ahk,pakw->pahw",
+                                          self.Ran[:, T - h8:], NAk)
+
+        zpad = Ztop.new_zeros((p, 1, h8, W))
+        nbpad = NBr.new_zeros((p, 1, nb, Kb, h8))
+        # tile a's top halo = tile a−1's bottom rows; bottom = a+1's top;
+        # both strips' dim-B completion in one pair of products
+        Z = torch.cat([torch.cat([zpad, Zbot[:, :na - 1]], 1),
+                       torch.cat([Ztop[:, 1:], zpad], 1)], 2)
+        NBrows = torch.cat([
+            torch.cat([nbpad, NBr[:, :na - 1, ..., T - h8:]], 1),
+            torch.cat([NBr[:, 1:, ..., :h8], nbpad], 1)], -1)
+        y = (torch.einsum("bot,pahbt->pahbo", self.Bbn,
+                          Z.reshape(p, na, 2 * h8, nb, T))
+             + torch.einsum("bok,pabkh->pahbo", self.Rbn, NBrows))
+        y = y.reshape(p, na, 2 * h8, W).float()
+        return y[:, :, :h8].contiguous(), y[:, :, h8:].contiguous()
+
+    def _run(self, x, moments, final, eaux=()):
         lead = x.shape[:-2]
         X4 = self.tile(x)
+        NA_t, NB_t, *edges = self._carries(X4, moments)
+        NA32, NB32 = NA_t.float(), NB_t.float()
+        if self.h8:
+            # passes 2+3 with the bank: C channels, the output unwritten
+            outs = final(X4, NA32, NB32, *self.halo_strips(*edges, NA_t,
+                                                           NB_t))
+            return tuple(o.reshape(*lead, self.wa, self.wb) for o in outs)
         # passes 2+3: read x once, emit Y
-        Y4 = final(X4, *self.carries(X4, moments))
+        Y4 = final(X4, NA32, NB32)
+        if self.epilogue is not None:
+            # the aux arrays padded and tiled like x (position-free)
+            Y4 = self.epilogue(Y4, *(self.tile(
+                torch.as_tensor(a).to(device=x.device, dtype=Y4.dtype)
+                .expand_as(x)) for a in eaux))
         y = Y4.reshape(*lead, self.na * TILE, self.nb * TILE)
         return y[..., :self.wa, :self.wb]
 

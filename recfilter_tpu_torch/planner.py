@@ -52,10 +52,18 @@ class Plan:
 
     ``backend``: "auto" or "einsum" — both name the fused executors
     (the JAX package's name for its fused per-dimension route).
-    ``matmul_precision``: "px6" (default) or "highest"."""
+    ``matmul_precision``: "px6" (default) or "highest".
+    ``rotate_emit``: layout chaining for single-dimension filters (the
+    reference's ``storage_layout`` directive): nonzero opts into the
+    contract that the INPUT carries the scanned dimension as its LAST
+    axis, and the result is emitted with the trailing ``rotate_emit`` axes
+    rotated one step (``dimfuse.RotatedPass``) — an x-scan filter and a
+    y-scan filter with ``rotate_emit=2`` chain with no relayout between
+    them. 0 (default) emits in the natural layout."""
 
     backend: str = "auto"
     matmul_precision: str = "px6"
+    rotate_emit: int = 0
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -63,6 +71,9 @@ class Plan:
                 f"backend={self.backend!r} is not ported yet: ROADMAP "
                 "Queue 1 item 15 (remaining backends)")
         check_precision(self.matmul_precision)
+        if int(self.rotate_emit) != self.rotate_emit or self.rotate_emit < 0:
+            raise ValueError(f"rotate_emit must be an int ≥ 0, got "
+                             f"{self.rotate_emit!r}")
 
     def with_(self, **kw) -> "Plan":
         return dataclasses.replace(self, **kw)

@@ -67,7 +67,7 @@ def test_headline_filter_matches_jax_and_oracle(clamp):
 def test_as_func_is_a_module_with_buffers():
     img = _img(256, 256, seed=1)
     F = _build(rft, 256, 256, img, precision="highest")
-    mod = F.as_func()
+    mod = F.as_func(device="cpu")
     assert isinstance(mod, torch.nn.Module)
     names = {n for n, _ in mod.named_buffers()}
     assert {"CMa_p", "CMb_p", "moments.Ga_v", "final.A1_v"} <= names
@@ -154,7 +154,7 @@ def test_untiled_and_other_backends_raise():
     F.add_filter(+x, [0.5, 0.5])
     F.add_filter(+y, [0.5, 0.5])
     with pytest.raises(NotImplementedError):
-        F.as_func()
+        F.as_func(device="cpu")
     with pytest.raises(NotImplementedError):
         F.set_plan(backend="scan")
 
@@ -213,3 +213,31 @@ def test_port_never_imports_jax():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "port-ok" in out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    """``as_func`` and the module builders run on the card by default:
+    without CUDA that default raises, and ``device="cpu"`` runs the
+    twins."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal applies without it")
+    from recfilter_tpu_torch.apps import (box_filter_3, box_filter_6,
+                                          box_filter_order_1,
+                                          box_filter_order_2,
+                                          difference_of_gaussians)
+
+    F = _build(rft, 256, 256, _img(256, 256))
+    for make in (F.as_func,
+                 lambda: box_filter_order_1(256, 256, 3),
+                 lambda: box_filter_order_1(256, 256, 3, variant="sat"),
+                 lambda: box_filter_order_2(256, 256, 3),
+                 lambda: box_filter_3(256, 256, 3),
+                 lambda: box_filter_3(256, 256, 3, variant="sat"),
+                 lambda: box_filter_6(256, 256, 3, variant="sat"),
+                 lambda: difference_of_gaussians(256, 256, 3, 5),
+                 lambda: difference_of_gaussians(256, 256, 3, 5,
+                                                 variant="sat")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    mod = F.as_func(device="cpu")
+    assert all(b.device.type == "cpu" for b in mod.buffers())

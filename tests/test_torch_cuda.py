@@ -456,3 +456,223 @@ def test_int_summed_table_on_the_card(dev):
     assert got.dtype == torch.int32 and got.device.type == "cuda"
     want = img.cumsum(1, dtype=np.int32).cumsum(0, dtype=np.int32)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# The rotated emit and the stencil consumers
+# ---------------------------------------------------------------------------
+
+
+def _halos_flat(yf, n, hp, hn):
+    """Halo strips of a flat rotated output (n·T, q): prev[t] = the last
+    hp rows of tile t−1, nxt[t] = the first hn rows of tile t+1 (zeros
+    at the ends) — what ``dimfuse._stencil_halo`` completes."""
+    Y = yf.reshape(n, T, -1)
+    z = torch.zeros_like(Y[:1])
+    prev = torch.cat([z[:, :hp], Y[:-1, T - hp:]]) if hp else None
+    nxt = torch.cat([Y[1:, :hn], z[:, :hn]]) if hn else None
+    return [h.contiguous() for h in (prev, nxt) if h is not None]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("taps,start,end", [
+    (None, "zero", "zero"),
+    ([(10, 0.25), (-1, -2.0), (-12, 1.0)], "zero", "clamp"),
+    ([(10, 0.25), (-1, -2.0), (-12, 1.0)], "clamp", "zero"),
+    ([(3, 1.0), (0, -0.5)], "zero", "zero"),
+    ([(-128, 1.0), (128, 0.5), (0, 2.0)], "clamp", "clamp")])
+def test_completion_rot_matches_twin(kind, taps, start, end, dev):
+    """The rotated completion, with and without a fused stencil, both
+    border modes: max|kernel − twin| ≤ 1e-5·max|twin| (the twin reads the
+    whole output, the kernel the halo strips); tails with extra rows
+    against their twin."""
+    rng = np.random.default_rng(3)
+    n, S, q = 4, 3, 200
+    st = None if taps is None else {"taps": taps, "start": start,
+                                    "end": end}
+    Btot, Rcat = _stack(kind, T, T, n, rng, 0.1), _stack(kind, T, S, n, rng)
+    comp = tc.CompletionPass(Btot, Rcat, n, rot=True, stencil=st).to(dev)
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.from_numpy(rng.standard_normal((n, 8, q)).astype(np.float32)
+                         ).to(dev)
+    halos = _halos_flat(flat.plain(x, N), n, comp.hp, comp.hn)
+    tl.reset_launches()
+    y = comp(x, N, *halos)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot=1)
+    assert y.shape == (n * T, q)
+    assert _rel(y, comp.plain(x, N, *halos)) <= 1e-5
+    E = _stack(kind, 20, T, n, rng)
+    tails = tc.TailsPass(_stack(kind, S, T, n, rng), n, extra_rows=E).to(dev)
+    tl.reset_launches()
+    b = tails(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_extra=1)
+    assert b.shape == (n, 8 + 20, q) and not b[:, S:8].any()
+    assert _rel(b, tails.plain(x)) <= 1e-5
+
+
+WIDE = [[(0, 100, 1.0), (0, -90, 1.0), (3, 0, 0.5)]]      # nothing staged
+MID = [[(0, 30, 1.0), (-16, -30, -1.0)], [(16, 0, 2.0)]]  # A1 staged
+
+
+@pytest.mark.parametrize("kind,bank", [(k, None) for k in STACKS]
+                         + [("uniform", WIDE), ("clamp", MID)])
+def test_moments_edge_rows_and_final2d_stencil_match_twins(kind, bank,
+                                                           dev):
+    """moments2d with edge rows and final2d_stencil (a dual-radius
+    4-corner bank, lane and row reach across tiles; wide column reaches
+    whose operands stay in device memory) against their twins:
+    max|kernel − twin| ≤ 1e-5·max|twin|."""
+    clamp, pad_a, pad_b = STACKS[kind]
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [Scan(0, True, w3[0], tuple(w3[1:])),
+         Scan(0, False, w3[0], tuple(w3[1:]))]
+    b = [Scan(1, True, 0.9, (0.6, 0.25, -0.1))]
+    ma = tdf.prepare_dim_pass(a, T, NA, clamp, pad_slots=pad_a)
+    mb = tdf.prepare_dim_pass(b, T, NB, clamp, pad_slots=pad_b)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    bank = bank or [
+        [(5, 5, 1.0), (5, -6, -1.0), (-6, 5, -1.0), (-6, -6, 1.0)],
+        [(9, 9, 0.5), (9, -10, -0.5), (-10, 9, -0.5), (-10, -10, 0.5),
+         (0, 0, 0.25)]]
+    h8 = 16
+    mom = tk2d.Moments2D(cat(ma.G, 1), cat(mb.G, 1), ma.Btot, NA, NB,
+                         edge=(ma.Btot, h8)).to(dev)
+    fin = tk2d.Final2DStencil(ma.Btot, cat(ma.Rhat, 2), mb.Btot,
+                              cat(mb.Rhat, 2), NA, NB, bank, h8).to(dev)
+    x, NA_t, NB_t = _inputs(dev, seed=4)
+    outs = mom(x)
+    assert len(outs) == 4 and outs[2].shape == (P, NA, h8, NB * T)
+    for got, want in zip(outs, mom.plain(x)):
+        assert _rel(got, want) <= 1e-5
+    Y = fin.final.plain(x, NA_t, NB_t).reshape(P, NA, T, NB * T)
+    z = torch.zeros_like(Y[:, :1, :h8])
+    top = torch.cat([z, Y[:, :-1, T - h8:]], dim=1).contiguous()
+    bot = torch.cat([Y[:, 1:, :h8], z], dim=1).contiguous()
+    tl.reset_launches()
+    got = fin(x, NA_t, NB_t, top, bot)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(final2d_stencil=1)
+    want = fin.plain(x, NA_t, NB_t, top, bot)
+    assert got.shape == (len(bank), P, NA, T, NB * T)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int16])
+@pytest.mark.parametrize("H,W,bank", [
+    (300, 520, [[(1, 0, 1.0), (-1, 0, -1.0)], [(0, 1, 0.5), (0, -1, -0.5)]]),
+    (257, 384, [[(5, 5, 1.0), (5, -6, -1.0), (-6, 5, -1.0), (-6, -6, 1.0)]]),
+    (200, 260, [[(120, -3, 1.0), (-120, 130, 2.0)], [(0, 0, 1.0)]])])
+def test_stencil2d_matches_twin(dtype, H, W, bank, dev):
+    """stencil2d (staged tile, and direct reads past the staging reach)
+    against stencil2d_ref: float32 within 1e-5 of the peak, integer
+    tables exactly (float32 output either way)."""
+    from recfilter_tpu_torch.kernels.stencil2d import Stencil2D
+
+    rng = np.random.default_rng(H)
+    if dtype == torch.float32:
+        y = torch.from_numpy(rng.standard_normal((H, W)).astype(np.float32))
+    else:
+        y = torch.from_numpy(rng.integers(-999, 999, (H, W))).to(dtype)
+    st = Stencil2D(bank).to(dev)
+    tl.reset_launches()
+    got = st(y.to(dev))
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(stencil2d=1)
+    want = st.plain(y)
+    assert len(got) == len(bank)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == torch.float32
+        if dtype == torch.float32:
+            assert _rel(g.cpu(), w) <= 1e-5
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+def test_stencil2d_rank_is_the_routers_choice(dev):
+    """The stencil2d wrapper launches on an (H, W) card tensor only and
+    raises on another rank; Stencil2DAfter routes a 3-D filter output to
+    the twin (the JAX package's _st_fallback), a 2-D one to the kernel."""
+    from recfilter_tpu_torch.kernels.stencil2d import Stencil2D
+
+    bank = [[(1, 0, 1.0), (-1, 0, -1.0)]]
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 64, 96)).astype(np.float32)).to(dev)
+    with pytest.raises(ValueError, match="takes an"):
+        Stencil2D(bank).to(dev)(y)
+    cd, yd, xd = rft.Dim("c", 2), rft.Dim("y", 256), rft.Dim("x", 256)
+    for shape, dims, launches in (
+            ((2, 256, 256), (cd, yd, xd), _only(tails=1, completion=1)),
+            ((256, 256), (yd, xd),
+             _only(tails=1, completion=1, stencil2d=1))):
+        F = rft.RecFilter("ScanX")
+        F[dims] = np.zeros(shape, np.float32)
+        F.add_filter(+xd, [0.5, 0.5])
+        F.split(xd, T)
+        mod = F.as_func(stencil2d=bank)
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            shape).astype(np.float32)).to(dev)
+        tl.reset_launches()
+        got = mod(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == launches
+        assert _rel(got[0], mod.forward_plain(x)[0]) <= 1e-5
+
+
+def test_sat_apps_and_consumers_on_the_card(dev):
+    """The consumers through the public API on the card, at 256²: the DoG
+    SAT (moments2d, final2d_stencil, four rotated stencil passes), box ×3
+    SAT (the FIR order-1 box feeding the rotated integrals a transposed
+    view), a y-only blur with a Sobel bank (stencil2d), the Gaussian with
+    an epilogue, and the per-slice rotated pass: launch counts, and the
+    plain path within 1e-3 of the peak (the integrals' fp32 rounding)."""
+    from recfilter_tpu_torch.apps import box_filter_3, difference_of_gaussians
+    from recfilter_tpu_torch.apps.dog import _stencil
+
+    w = 256
+    img = np.random.default_rng(20).random((w, w)).astype(np.float32)
+    img[:21] = img[-21:] = 0
+    img[:, :21] = img[:, -21:] = 0
+    x = torch.from_numpy(img).to(dev)
+    sobel = [[(-1, -1, -1.0), (0, 1, 2.0)], [(1, 0, 1.0), (-1, 0, -1.0)]]
+    xd, yd = rft.Dim("x", w), rft.Dim("y", w)
+    blur = rft.RecFilter("BlurY")
+    blur[yd, xd] = img
+    blur.add_filter(+yd, [0.5, 0.5])
+    blur.split(yd, T)
+    gauss = rft.RecFilter("G")
+    gauss[yd, xd] = img
+    for d in (+xd, -xd, +yd, -yd):
+        gauss.add_filter(d, rft.gaussian_weights(3.0, 3))
+    gauss.split(xd, T, yd, T)
+    cd = rft.Dim("c", 2)
+    sl = rft.RecFilter("S")
+    sl[cd, yd, xd] = np.stack([img, img])
+    sl.add_filter(+xd, [1.0, 2.0, -1.0])
+    sl.split(xd, T)
+    sl.set_plan(rotate_emit=2)
+    cases = [
+        (difference_of_gaussians(w, w, 5, 9, variant="sat"), (x,),
+         _only(moments2d=1, final2d_stencil=1, tails_extra=4,
+               completion_rot=4)),
+        (box_filter_3(w, w, 5, variant="sat"), (x,),
+         _only(fir_band=2, tails=2, completion_rot=2)),
+        (blur.as_func(stencil2d=sobel), (x,),
+         _only(rows_tails=1, rows_final=1, stencil2d=1)),
+        (gauss.as_func(epilogue=lambda o, a: 2.0 * a - o), (x, x),
+         _only(moments2d=1, final2d=1)),
+        (sl.as_func(stencil={"taps": [_stencil(5)["taps"],
+                                      _stencil(9)["taps"]]}),
+         (torch.stack([x, x]),), _only(tails_extra=2, completion_rot=2))]
+    for mod, args, launches in cases:
+        tl.reset_launches()
+        y = mod(*args)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == launches
+        y = torch.stack(y) if isinstance(y, tuple) else y
+        yp = mod.forward_plain(*args)
+        yp = torch.stack(yp) if isinstance(yp, tuple) else yp
+        assert _rel(y, yp) <= 1e-3

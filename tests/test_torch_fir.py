@@ -210,9 +210,11 @@ def test_box_fir_matches_jax_app(iterations, B):
     """box ×1/×3/×6 (FIR) against the JAX apps at T = 128 and the
     separable f64 oracle at every pixel."""
     img = _x(H, W, seed=iterations)
-    build_t = {1: lambda: tbox.box_filter_order_1(W, H, B, T)[0],
-               3: lambda: tbox.box_filter_3(W, H, B, T),
-               6: lambda: tbox.box_filter_6(W, H, B, T)}[iterations]
+    build_t = {1: lambda: tbox.box_filter_order_1(W, H, B, T,
+                                                  device="cpu")[0],
+               3: lambda: tbox.box_filter_3(W, H, B, T, device="cpu"),
+               6: lambda: tbox.box_filter_6(W, H, B, T, device="cpu")
+               }[iterations]
     build_j = {1: lambda: jbox.box_filter_order_1(W, H, B, T)[0],
                3: lambda: jbox.box_filter_3(W, H, B, T),
                6: lambda: jbox.box_filter_6(W, H, B, T)}[iterations]
@@ -238,7 +240,8 @@ def test_box_order_1_sat_matches_jax_app():
     for s in (slice(0, pad), slice(w - pad, w)):
         img[s] = 0
         img[:, s] = 0
-    mod, F = tbox.box_filter_order_1(w, w, B, T, variant="sat")
+    mod, F = tbox.box_filter_order_1(w, w, B, T, variant="sat",
+                                     device="cpu")
     fj, _ = jbox.box_filter_order_1(w, w, B, T, variant="sat")
     assert F.spec.tile_widths == (T, T)
     got = mod(torch.from_numpy(img)).numpy()
@@ -252,7 +255,7 @@ def test_dog_matches_jax_app():
     """DoG (FIR): a C = 2 bank then a signed contraction, against the JAX
     app and within 5e-6 of the oracle's peak."""
     img = _x(H, W, seed=9)
-    mod = tdog.difference_of_gaussians(W, H, 5, 9, T)
+    mod = tdog.difference_of_gaussians(W, H, 5, 9, T, device="cpu")
     assert mod.x_pass.band.Cout == 2 and mod.y_pass.band.contract
     got = mod(torch.from_numpy(img)).numpy()
     want = np.asarray(jdog.difference_of_gaussians(W, H, 5, 9, T)(
@@ -266,7 +269,7 @@ def test_dog_matches_jax_app():
 
 def test_box_gradient_matches_jax():
     img, ct = _x(H, W, seed=10), _x(H, W, seed=11)
-    mod = tbox.box_filter_3(W, H, 3, T)
+    mod = tbox.box_filter_3(W, H, 3, T, device="cpu")
     xt = torch.from_numpy(img).requires_grad_()
     (g,) = torch.autograd.grad(mod(xt), xt, torch.from_numpy(ct))
     _, vjp = jax.vjp(jbox.box_filter_3(W, H, 3, T), jnp.asarray(img))
@@ -276,19 +279,21 @@ def test_box_gradient_matches_jax():
 
 def test_app_variants_route_as_the_jax_apps():
     """``variant="auto"`` picks the FIR form where 2nB+1 taps fit two
-    tiles, as the JAX apps do; what needs unported pieces raises naming its
-    ROADMAP item."""
+    tiles, as the JAX apps do, and the SAT forms past it: box ×3 as the
+    order-1 box (its own rule) then the order-2 integrals, box ×6 as three
+    order-2 stages, the DoG as the six-stage SAT pipeline."""
     for B, it in ((5, 3), (42, 3), (43, 3), (21, 6), (22, 6), (127, 1),
                   (128, 1)):
         assert (tbox._box_variant("auto", B, it, T, 512, 512)
                 == jbox._box_variant("auto", B, it, T, 512, 512))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbox.box_filter_3(512, 512, 43, T)  # 259 taps: the SAT form
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbox.box_filter_6(512, 512, 5, T, variant="sat")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbox.box_filter_order_2(512, 512, 5)
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        tdog.difference_of_gaussians(512, 512, 5, 43, T)
-    mod, F = tbox.box_filter_order_1(512, 512, 128, T)
+    box3 = tbox.box_filter_3(512, 512, 43, T, device="cpu")  # 259 taps
+    assert [type(m) for m in box3.stages] == [tfir.FirSeparable2D,
+                                              tbox._SatBox2]
+    box6 = tbox.box_filter_6(512, 512, 5, T, variant="sat", device="cpu")
+    assert [type(m) for m in box6.stages] == [tbox._SatBox2] * 3
+    mod, (fx, fy) = tbox.box_filter_order_2(512, 512, 5, device="cpu")
+    assert fx.plan.rotate_emit == fy.plan.rotate_emit == 2
+    assert type(tdog.difference_of_gaussians(
+        512, 512, 5, 43, T, device="cpu")).__name__ == "_DogSat"
+    mod, F = tbox.box_filter_order_1(512, 512, 128, T, device="cpu")
     assert F is not None and isinstance(mod, tbox._SatBox1)

@@ -73,7 +73,7 @@ def test_cascade_variant_matches_jax_and_oracle(variant):
     x = _img(VARIANTS.index(variant))
     fc = getattr(tg, f"gaussian_{variant}")(W, H)
     fj = getattr(jg, f"gaussian_{variant}")(W, H, 128)
-    assert [type(f.as_func()).__name__ for f in fc] == ROUTES[variant]
+    assert [type(f.as_func(device="cpu")).__name__ for f in fc] == ROUTES[variant]
     assert [_sig(f) for f in fc] == [_sig(f) for f in fj]
     got = tg.run_cascade(fc, x, device="cpu")
     assert got.shape == (H, W) and got.device.type == "cpu"
@@ -87,7 +87,7 @@ def test_3x_3y_equals_3xy():
     filter of 3xy, and both sit on the oracle of 3xy."""
     x = _img(7)
     F = tg.gaussian_3xy(W, H)
-    assert isinstance(F.as_func(), to2.Fused2DPx)
+    assert isinstance(F.as_func(device="cpu"), to2.Fused2DPx)
     y3 = F.realize(x, device="cpu").numpy().astype(np.float64)
     y33 = tg.run_cascade(tg.gaussian_3x_3y(W, H), x,
                          device="cpu").numpy().astype(np.float64)
@@ -184,5 +184,5 @@ def test_cascade_by_causality_and_dimension():
                 for s in chain[-1].spec.scans} == {128}
         got = chain[-1].realize(device="cpu").numpy().astype(np.float64)
         _check_oracle(got, F.spec, img)
-    assert isinstance(dims[-1].as_func(), to2.FusedRowsPx)
-    assert isinstance(dims[0].as_func(), tdf.FusedLastAxis)
+    assert isinstance(dims[-1].as_func(device="cpu"), to2.FusedRowsPx)
+    assert isinstance(dims[0].as_func(device="cpu"), tdf.FusedLastAxis)
