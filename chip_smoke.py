@@ -69,6 +69,28 @@ The rotated emit and the fused consumers, on ``final2d_stencil``,
   C6  a 2nd-order x integral with ``rotate_emit=2`` on (2, 1024, 2048)
       with per-slice DoG taps: the per-slice branch.
 
+The rotation chain (``dimfuse.RotationChain``: one rotated last-axis pass
+per scanned axis, each pass after the first taking its tails from the
+previous pass's ``completion_rot_tails`` where the gates allow), with the
+σ=5 Gaussian causal + anticausal per axis, float32, px6, 128 splits,
+N(0,1)·0.01 input (seed 0) unless stated:
+
+  K1  4096², the Gaussian twice per axis (ΣK = 12, two carry slots: no
+      chaining), zero border: ``tails`` and ``completion_rot`` per pass;
+  K2  ``apps.bicubic(1920, 1080)`` and ``biquintic_overlapped(1920,
+      1080)``, clamp: x (15 tiles) on the kernels, y in 120-row tiles on
+      the einsum form;
+  K3  a 200 × 512 × 512 CT volume, zero border (the rows gates decline
+      the depth): x extracts y's tails (the volume regime), y takes them,
+      z runs with pad 56 — and the same filter unchained, bit-equal;
+  K4  a 16 × 128 × 256 × 256 time series of volumes: x → y → z chained,
+      t (16 wide) on the einsum form;
+  K5  the headline 4096² filter at ``highest``: the einsum chain, no
+      kernel launch;
+  K6  a 512 × 40,960 panorama, zero border (320 tiles on x): x's einsum
+      tails and associative solve, then ``completion_rot_tails`` (the
+      image regime), y on the extracted tails.
+
 The integer route, on ``int_scan`` and ``int_seg_scan`` (bit exact, with
 wrap-around):
 
@@ -132,12 +154,18 @@ Phases:
      without a stencil in all four start/end modes, stencil2d with C = 2
      — on integer-valued input whose integrals stay bounded, exact in
      fp32 so that only a fault separates kernel and twin, within 1e-5 of
-     the twin's peak;
+     the twin's peak; phase 2f holds ``completion_rot_tails`` to its twin
+     bit for bit on integer-valued input at K3's and K6's first-pass
+     shapes (both regimes, clamp variants), and chains of unit
+     integrators with a padded first pass and with P = 3 leading slices
+     chained, unchained and on the twins, bit-equal; phase 3f runs K1–K6
+     (launch counts, the route and its tails reads, within 2e-6 of the
+     f64 oracle);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
-     512²; and of <y, ct> through C1's stencil2d stage and a rotated
-     stencil pass at 512²;
+     512², K3's chain at 200 × 128 × 128; and of <y, ct> through C1's
+     stencil2d stage and a rotated stencil pass at 512²;
   5. device times (CUDA events, median of single calls) of the whole call
      and of each kernel, beside their plain twins and, where one PyTorch
      call computes a kernel's function, beside that call; for A, B and V1
@@ -149,7 +177,10 @@ Phases:
      whole call against the plain path with the device's idle share; for
      the new and extended kernels at C1's shapes (stencil2d at C4's) the
      same, with ``conv2d``, ``matmul`` and ``einsum`` as yardsticks, and
-     the whole calls of C1–C5. A
+     the whole calls of C1–C5; for ``completion_rot_tails`` at K3's first
+     pass the same, beside ``completion_rot`` + ``tails`` and, as the
+     library form, one ``matmul`` and one ``einsum`` (two calls), and the
+     whole calls of K1–K6. A
      profiled window that comes back without device events is taken
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
@@ -214,19 +245,21 @@ def image(*shape, seed=0):
             ).astype(np.float32)
 
 
-def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND"):
+def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND", times=1):
     """The σ=5 3rd-order Gaussian, causal + anticausal on each of
-    ``axes`` (in that order), tiles of 128, bound to ``image(*shape)``:
-    ``scripts/bench_volume.py``'s filter for ``axes = (0, 1, 2)``."""
+    ``axes`` (in that order; ``times`` over), tiles of 128, bound to
+    ``image(*shape)``: ``scripts/bench_volume.py``'s filter for
+    ``axes = (0, 1, 2)``."""
     wts = rft.gaussian_weights(5.0, 3)
-    dims = [rft.Dim(nm, e) for nm, e in zip("wzyx"[-len(shape):], shape)]
+    dims = [rft.Dim(nm, e) for nm, e in zip("vwzyx"[-len(shape):], shape)]
     F = rft.RecFilter(name)
     if clamp:
         F.set_clamped_image_border()
     F[tuple(dims)] = image(*shape)
     for ax in axes:
-        F.add_filter(+dims[ax], wts)
-        F.add_filter(-dims[ax], wts)
+        for _ in range(times):
+            F.add_filter(+dims[ax], wts)
+            F.add_filter(-dims[ax], wts)
     F.split({dims[ax]: 128 for ax in axes})
     return F
 
@@ -596,6 +629,11 @@ def main() -> int:
              "1080x1920 zero (padded)": (1080, 1920, False)}
     modules = {}
     max_abs = {name: 0.0 for name in launch.SIGNATURES}
+    main_launches = {}
+
+    def only(**kw):
+        """Launch counts with every kernel not named at 0."""
+        return {k: kw.get(k, 0) for k in launch.LAUNCHES}
     for label, (h, w, clamp) in cases.items():
         img = image(h, w)
         F = build_filter(rft, h, w, img, clamp)
@@ -918,13 +956,82 @@ def main() -> int:
                   "stencil2d on an int32 table: float32, equal to its twin")
         del x1, x2, v, vi
 
+    print("== phase 2f: completion_rot_tails against its twin on the card "
+          "(integer-valued input: every sum exact, so bit-equal)", flush=True)
+    from recfilter_tpu_torch.kernels import completion as kcomp
+
+    def int_stack(var, rows, cols, n, seed):
+        """An integer-valued per-tile stack in [-2, 2]: uniform, or with
+        first/last-tile (clamp) variants."""
+        rng = np.random.default_rng(seed)
+        M = [rng.integers(-2, 2, (rows, cols), endpoint=True).astype(float)
+             for _ in range(3)]
+        if var == "uniform" or n == 1:
+            return M[1 if var == "clamp" else 0][None]
+        return np.stack([M[1]] + [M[0]] * (n - 2) + [M[2]])
+
+    # K3's first pass (volumes: 200 x 512 lines, the next pass's 4 tiles on
+    # each of ra = 200 extents) and K6's (images: 512 lines, 320 tiles)
+    for label, q, n, n2, var in (
+            ("K3 x pass, volumes (ra = 200)", 102400, 4, 4, "uniform"),
+            ("K3 x pass, clamp variants of Btot, Rcat and G2", 102400, 4, 4,
+             "clamp"),
+            ("K6 x pass, images (ra = 1), clamp variants", 512, 320, 4,
+             "clamp")):
+        comp = kcomp.CompletionPass(
+            int_stack(var, 128, 128, n, 1), int_stack(var, 128, 6, n, 2), n,
+            rot=True, next_tails=(int_stack(var, 5, 128, n2, 3), n2)).to(dev)
+        with torch.no_grad():
+            xk = torch.from_numpy(ints((q, n, 128), -8, 8, np.float32, 4)
+                                  ).to(dev)
+            Nk = torch.zeros((n, 8, q), device=dev)
+            Nk[:, :6] = torch.from_numpy(ints((n, 6, q), -8, 8, np.float32,
+                                              5)).to(dev)
+            (y, t2), (yp, tp) = comp(xk, Nk), comp.plain(xk, Nk)
+            torch.cuda.synchronize()
+        d = max((y - yp).abs().max().item(), (t2 - tp).abs().max().item())
+        print(f"  {label}: y {tuple(y.shape)}, tails {tuple(t2.shape)}, "
+              f"G2 {comp.G2_v.shape[0]} variant(s): max|k-p| = {d}")
+        check(d == 0 and not t2[:, 5:].any(),
+              f"{label}: completion_rot_tails bit-equal to its twin, pad "
+              "slots zero")
+        max_abs["completion_rot_tails"] = max(
+            max_abs.get("completion_rot_tails", 0.0), d)
+        del xk, Nk, y, t2, yp, tp
+    # whole chains of unit integrators (exact) on integer-valued input
+    # whose integrals stay bounded: a first pass with pad (84 padded lines
+    # cut from its extracted tails) and the per-slice route (P = 3)
+    for label, shape, border in (("pad 84 (256 x 300)", (256, 300), "zero"),
+                                 ("P = 3 slices, clamp (3 x 256 x 384)",
+                                  (3, 256, 384), "clamp")):
+        nd = len(shape)
+        spec = rft.FilterSpec("Integrators", tuple(
+            rft.Dim(nm, e) for nm, e in zip("cyx"[-nd:], shape)), (
+            rft.Scan(nd - 1, True, 1.0, (1.0,)),
+            rft.Scan(nd - 2, False, 1.0, (1.0,))), border=border,
+            tile_widths=(0,) * (nd - 2) + (128, 128))
+        groups = {nd - 1: [spec.scans[0]], nd - 2: [spec.scans[1]]}
+        chains = [tdf.RotationChain(groups, shape, spec.tile_widths,
+                                    border).to(dev) for _ in range(2)]
+        for p in chains[1].passes:
+            p.completion_nt = None  # unchained: every pass reads its tails
+        xi = torch.from_numpy(exact_ints(shape, (nd - 1, nd - 2), 6)).to(dev)
+        with torch.no_grad():
+            (yc, lc), (yu, lu) = (counted(m, xi) for m in chains)
+            yp = chains[0].forward_plain(xi)
+        P = shape[0] if nd == 3 else 1
+        print(f"  {label}: chained launches {lc}, tails_in "
+              f"{chains[0].tails_in_taken}; unchained {lu}")
+        check(lc == only(tails=P, completion_rot_tails=P, completion_rot=P)
+              and lu == only(tails=2 * P, completion_rot=2 * P)
+              and chains[0].tails_in_taken == [False, True],
+              f"{label}: the second pass takes the extracted tails")
+        check(torch.equal(yc, yu) and torch.equal(yc, yp),
+              f"{label}: chained, unchained and the twins bit-equal")
+        del xi, yc, yu, yp
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
-    main_launches = {}
-
-    def only(**kw):
-        """Launch counts with every kernel not named at 0."""
-        return {k: kw.get(k, 0) for k in launch.LAUNCHES}
 
     for label, (F, mod, img) in modules.items():
         with torch.no_grad():
@@ -1267,6 +1374,83 @@ def main() -> int:
           "(tests/test_dimfuse.py:988)")
     del y, z, want, img6
 
+    print("== phase 3f: the rotation chain end to end through "
+          "RecFilter.as_func() and the B-spline apps", flush=True)
+    from recfilter_tpu_torch.apps import bicubic, biquintic_overlapped
+
+    k_cases = {}  # label: (module, input on the card) for phase 5g
+
+    def k_case(label, F, shape, expect, taken, oracle=True):
+        """Run one K case through as_func(): its launches, route and tails
+        reads, and (``oracle``) its error against the f64 oracle; kept for
+        phase 5g's whole-call times."""
+        mod = F.as_func()
+        x_np = image(*shape)
+        xk = torch.from_numpy(x_np).to(dev)
+        with torch.no_grad():
+            yk, launches = counted(mod, xk)
+        print(f"  {label} {shape}: launches {launches}; route "
+              f"{type(mod).__name__}, tiles "
+              f"{[(p.T, p.n, p.pad) for p in getattr(mod, 'passes', [])]}, "
+              f"tails_in {getattr(mod, 'tails_in_taken', None)}")
+        check(isinstance(mod, tdf.RotationChain)
+              and mod.tails_in_taken == taken,
+              f"{label}: the rotation chain, tails_in per pass {taken}")
+        check(launches == only(**expect), f"{label}: launches {expect}")
+        check(tuple(yk.shape) == shape and bool(torch.isfinite(yk).all()),
+              f"{label}: output finite, shape {shape}")
+        k_cases[label] = (mod, xk)
+        if oracle:
+            t0 = time.perf_counter()
+            err = oracle_err(F.spec, x_np, yk)
+            print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e} (f64 "
+                  f"oracle {time.perf_counter() - t0:.1f} s)")
+            check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the "
+                  "f64 oracle")
+        return mod, xk, yk, launches
+
+    k_case("K1 Gaussian twice per axis (ΣK = 12)",
+           gauss_axes(rft, (H, W), (0, 1), times=2), (H, W),
+           dict(tails=2, completion_rot=2), [False, False])
+    for name, make in (("bicubic", bicubic),
+                       ("biquintic_overlapped", biquintic_overlapped)):
+        F = make(1920, 1080)
+        k_case(f"K2 {name}(1920, 1080)", F, (1080, 1920),
+               dict(tails=1, completion_rot=1), [False, False])
+    mod3, x3, y3, l3 = k_case("K3 CT volume",
+                              gauss_axes(rft, (200, 512, 512), (0, 1, 2)),
+                              (200, 512, 512),
+                              dict(tails=2, completion_rot_tails=1,
+                                   completion_rot=2), [False, True, False])
+    main_launches["completion_rot_tails"] = l3["completion_rot_tails"]
+    un3 = gauss_axes(rft, (200, 512, 512), (0, 1, 2)).as_func()
+    for p in un3.passes:
+        p.completion_nt = None
+    with torch.no_grad():
+        yu, launches = counted(un3, x3)
+    print(f"  K3 unchained: launches {launches}")
+    check(launches == only(tails=3, completion_rot=3),
+          "K3 unchained: three tails reads, three completion_rot")
+    check(torch.equal(yu, y3), "K3: chained bit-equal to unchained")
+    del yu, y3, un3
+    # K4: the f64 oracle of the full size runs for about half a minute on
+    # the host, so the error is checked at depth 8; the full size runs
+    # (launches, route) and is timed
+    for shape, timed in (((16, 128, 256, 256), True),
+                         ((8, 128, 256, 256), False)):
+        k_case(f"K4 4-D time series of volumes {shape[0]}-deep",
+               gauss_axes(rft, shape, (0, 1, 2, 3)), shape,
+               dict(tails=1, completion_rot_tails=2, completion_rot=1),
+               [False, True, True, False], oracle=not timed)
+    del k_cases["K4 4-D time series of volumes 8-deep"]
+    F5 = build_filter(rft, H, W, image(H, W))
+    F5.set_plan(matmul_precision="highest")
+    k_case("K5 headline 4096² at highest", F5, (H, W), {},
+           [False, False])
+    k_case("K6 panorama", gauss_axes(rft, (512, 40960), (0, 1)),
+           (512, 40960), dict(completion_rot_tails=1, completion_rot=1),
+           [False, True])
+
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
     grad_cases = [
@@ -1278,7 +1462,10 @@ def main() -> int:
         ("volume 128x128x256",
          gauss_axes(rft, (128, 128, 256), (0, 1, 2)).as_func(),
          image(128, 128, 256, seed=1)),
-        ("box_filter_3 512²", box_filter_3(512, 512, 5), img)]
+        ("box_filter_3 512²", box_filter_3(512, 512, 5), img),
+        ("K3's chain at 200 x 128 x 128",
+         gauss_axes(rft, (200, 128, 128), (0, 1, 2)).as_func(),
+         image(200, 128, 128, seed=1))]
     for label, mod, xin in grad_cases:
         grads = []
         for fwd in (mod.forward, mod.forward_plain):
@@ -1543,15 +1730,19 @@ def main() -> int:
     print("== phase 5e: FIR and integer device times (CUDA events, median "
           f"of {4 * N_TIMED // 2} calls each)", flush=True)
 
-    def whole_call(label, mod, v, n):
-        """Whole-call events against the plain path, and the profile."""
+    def whole_call(label, mod, v, n, top=False):
+        """Whole-call events against the plain path, and the profile (with
+        ``top``, its largest device ops)."""
         k_ms, p_ms = paired_times(mod, mod.forward_plain, v)
         prof = timing.device_profile(mod, v, iterations=10)
         print(f"  {label} whole call: kernel path {k_ms:.4f} ms "
               f"({timing.mpix_per_sec(k_ms, n):.0f} M/s), plain {p_ms:.4f} "
               f"ms ({timing.mpix_per_sec(p_ms, n):.0f} M/s); profile: call "
               f"{prof['call_ms']:.4f} ms, device busy {busy_text(prof)}, "
-              f"{prof['device_ops']:.0f} device ops per call on {card}")
+              f"{prof['device_ops']:.0f} device ops per call on {card}"
+              + ("; top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
+                                       for nm, ms in prof["top"])
+                 if top else ""))
 
     def kernel_times(label, fn, plain, lib, args, nbytes, ops, rate):
         """Event and device times of a kernel, its twin and its library
@@ -1766,6 +1957,73 @@ def main() -> int:
                                Call(c5, x_c5), x_c5)):
             whole_call(label, mod, v, v.numel())
 
+    print("== phase 5g: completion_rot_tails at K3's first pass, and the "
+          f"K cases' calls (CUDA events, median of {4 * N_TIMED // 2} calls "
+          "each)", flush=True)
+    with torch.no_grad():
+        p0, p1 = mod3.passes[0], mod3.passes[1]
+        X = x3.reshape(-1, p0.n, 128)
+        Nt = p0._solve_t(p0.tails(X).double()).float().contiguous()
+        crt, rot, nxt = p0.completion_nt, p0.completion, p1.tails
+        q, n2 = X.shape[0], crt.n2
+        ra = q // (n2 * 128)
+
+        def yardstick(x_, n_):
+            """completion_rot, then the tails kernel on its output."""
+            y_ = rot(x_, n_)
+            return y_, nxt(y_.reshape(-1, n2, 128))
+
+        yk, tk = crt(X, Nt)
+        yy, ty = yardstick(X, Nt)
+        check(torch.equal(yk, yy) and torch.equal(tk, ty),
+              "K3: completion_rot_tails equals completion_rot + tails bit "
+              "for bit")
+        # one torch.matmul of [x, Nᵀ] by [Btotᵀ; Rᵀ] (unrotated), then
+        # one torch.einsum of the tail rows over the next pass's tiles:
+        # the library form of the same function, two calls (fp32 sums)
+        check(crt.BR_v.shape[0] == 1 and crt.G2_v.shape[0] == 1,
+              "K3's x pass: one matrix variant on both sides")
+        XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
+        BR0, G20 = crt.BR_v[0], crt.G2_v[0]
+
+        def library(x_, n_):
+            y_ = torch.matmul(XN, BR0)  # (z·y, x tiles, 128)
+            return y_, torch.einsum("sj,acjx->csxa", G20, y_.reshape(
+                ra, n2, 128, -1))
+
+        yl, tl_ = library(X, Nt)
+        check(rel_err(yl.permute(1, 2, 0).reshape(-1, q), yk) <= 1e-5
+              and rel_err(tl_.reshape(tk.shape), tk) <= 1e-5,
+              "K3: the library calls compute completion_rot_tails' function")
+        del yy, ty, yl, tl_
+        S2, sl = crt.S2, crt.sl
+        nbytes = tensor_bytes(X, Nt, crt.BR_v, crt.G2_v, yk, tk)
+        fp32, fp64 = 2.0 * (128 + sl) * X.numel(), 2.0 * S2 * X.numel()
+        bound = max(nbytes / PEAK_BYTES, fp32 / PEAK_FP32 + fp64 / PEAK_FP64
+                    ) * 1e3
+        by = ("bytes" if nbytes / PEAK_BYTES >= fp32 / PEAK_FP32
+              + fp64 / PEAK_FP64 else "operations")
+        t = paired_times(crt, crt.plain, X, Nt)
+        d = (device_ms(crt, X, Nt), device_ms(crt.plain, X, Nt))
+        y_ms, y_dev = median_ms(yardstick, X, Nt), device_ms(yardstick, X, Nt)
+        l_ms, l_dev = median_ms(library, X, Nt), device_ms(library, X, Nt)
+        print(f"  K3 completion_rot_tails ({q} lines, {p0.n} tiles, next "
+              f"{n2} tiles x ra = {ra}): 1 launch per call; event "
+              f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} ms by "
+              f"{by} ({nbytes / 1e6:.0f} MB, {fp32 / 1e9:.2f} GFLOP fp32 + "
+              f"{fp64 / 1e9:.3f} GFLOP fp64; {100 * bound / d[0]:.1f} % of "
+              f"the device time); twin event {t[1]:.4f}, device {d[1]:.4f} "
+              f"ms; completion_rot + tails event {y_ms:.4f}, device "
+              f"{y_dev:.4f} ms; library (matmul + einsum, two calls) event "
+              f"{l_ms:.4f}, device {l_dev:.4f} ms on {card}")
+        times["completion_rot_tails"] = t
+        dev_t["completion_rot_tails"] = (d[0], d[1], l_dev)
+        extra["completion_rot_tails"] = (bound, by, l_ms)
+        del X, Nt, XN, yk, tk
+        for label, (mod, v) in k_cases.items():
+            whole_call(label, mod, v, v.numel(), top=True)
+        del k_cases, mod3, x3
+
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"recfilter_tpu_torch/kernels/csrc/{src or name}.cu",
@@ -1787,6 +2045,8 @@ def main() -> int:
              "recfilter_tpu/kernels/final2d.py:999"),
             ("tails_extra", "tails", "recfilter_tpu/kernels/completion.py:750"),
             ("completion_rot", "completion",
+             "recfilter_tpu/kernels/completion.py:464"),
+            ("completion_rot_tails", "completion",
              "recfilter_tpu/kernels/completion.py:464"),
             ("stencil2d", None, "recfilter_tpu/kernels/stencil2d.py:109"))
     ]

@@ -13,6 +13,14 @@ plain PyTorch twins on the CPU:
     the rows pass on ``rows_tails``/``rows_final`` — volumes (rows pass,
     then the 2-D executor), vertical-only filters, non-adjacent axes, and
     the staged Gaussian cascades of ``apps.gaussian``;
+  * everything those executors decline on 2–5 trailing axes — clamp
+    images of any extent (the B-spline prefilters of ``apps.bspline``),
+    small images, panoramas, more than 8 carries, volumes of any depth,
+    4-D and 5-D filters, and every such filter at ``highest``: the rotation
+    chain (``dimfuse.RotationChain``) on ``tails``/``completion_rot``, each
+    pass after the first taking its tails from ``completion_rot_tails``;
+    a non-last axis the rows pass declines takes the same rotated pass
+    (``dimfuse.FusedAxisPass``);
   * banded FIR banks (``fir``: the iterated box filters and the difference
     of Gaussians of ``apps.box`` / ``apps.dog``) on ``fir_band``;
   * int8/16/32 filters of unit-feedback scans under a zero border —
@@ -52,7 +60,8 @@ the CPU (``device="cpu"``).
 """
 
 from .api import RecFilter
-from .dimfuse import (FusedLastAxis, IntUnitPass, RotatedPass, StagedPass,
+from .dimfuse import (FusedAxisPass, FusedLastAxis, IntUnitPass,
+                      RotatedPass, RotationChain, StagedPass,
                       apply_filter_fused, apply_filter_rotated)
 from .fir import FirPass, FirSeparable2D, fir_pass_last, fir_separable_2d
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
@@ -69,7 +78,9 @@ __all__ = [
     "BorderMode", "make_scan", "spec_to_json", "spec_from_json",
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",
-    "apply_filter_fused", "apply_filter_rotated", "RotatedPass", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
+    "apply_filter_fused", "apply_filter_rotated", "RotatedPass",
+    "RotationChain", "Fused2DPx", "fused_2d_px", "FusedLastAxis",
+    "FusedAxisPass",
     "FusedRowsPx", "fused_rows_px", "StagedPass", "IntUnitPass",
     "FirPass", "FirSeparable2D", "fir_pass_last", "fir_separable_2d",
     "CheckResult", "CheckResultVerbose", "generate_random_image",

@@ -22,26 +22,34 @@ the globally-first/last tile only; those tiles get per-tile variants.
   0. integer filters (int8/16/32): the exact unit route
      :class:`IntUnitPass`, on the wrapping ``int_scan``/``int_seg_scan``
      kernels;
-  1. scans on exactly the two trailing axes: the 3-touch 2-D executor
+  1. scans on exactly the two trailing axes, at px6, where its gates hold
+     (:func:`.overlap2d.fused2d_decline`): the 3-touch 2-D executor
      :class:`.overlap2d.Fused2DPx`;
-  2. scans on exactly the three trailing axes (volumes): the rows pass
-     :class:`.overlap2d.FusedRowsPx` on the leading one, then
-     :class:`.overlap2d.Fused2DPx` on the trailing pair;
-  3. any other trailing group of 2–5 axes: the JAX package's rotation
-     chain — not ported, it raises;
+  2. scans on exactly the three trailing axes (volumes), at px6, where the
+     rows gates hold: the rows pass :class:`.overlap2d.FusedRowsPx` on the
+     leading one, then :class:`.overlap2d.Fused2DPx` on the trailing pair
+     — or, where the pair declines, the rest of this list on the pair;
+  3. any trailing group of 2–5 axes with a tile plan on each: the rotation
+     chain :class:`RotationChain`, one rotated :class:`LastAxisPass` per
+     axis, the next pass's tails extracted by the previous pass's
+     completion kernel where the gates allow;
   4. every other filter, one scanned axis after another in order of first
      appearance (:class:`StagedPass`): :class:`.overlap2d.FusedRowsPx` on
-     each axis but the last, and on the last axis :class:`FusedLastAxis`,
-     this module's port of the JAX package's ``fused_dim_pass`` — the
-     supertile hierarchy (:class:`HierarchicalPass`) for audio-scale tile
-     counts, else one tiled pass (:class:`LastAxisPass`) on the
-     ``tails``/``completion`` kernels where their gates hold, else its
-     einsum form. A filter that scans the last axis alone is that one
-     stage.
+     each axis but the last where its gates hold at px6 (and no epilogue
+     rides that final pass), else :class:`FusedAxisPass` (the axis moved
+     last, one rotated :class:`LastAxisPass`); on the last axis
+     :class:`FusedLastAxis`, this module's port of the JAX package's
+     ``fused_dim_pass`` — the supertile hierarchy
+     (:class:`HierarchicalPass`) for audio-scale tile counts, else one
+     tiled pass (:class:`LastAxisPass`) on the ``tails``/``completion``
+     kernels where their gates hold, else its einsum form. A filter that
+     scans one axis alone is that one stage.
 
-Where a route's gates decline a filter, the port raises
-``NotImplementedError`` naming the ROADMAP item that brings the JAX
-package's fallback; it never falls through to another route.
+The routes are decided by gate functions before any module is built, so
+nothing is caught and no fallback hides a failure. Where the port has no
+counterpart of the JAX package's route (the lax.scan core for an axis with
+no tile plan, other dtypes and precisions), it raises
+``NotImplementedError`` naming the ROADMAP item.
 
 The JAX package's consumers ride these routes: an elementwise
 ``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
@@ -612,12 +620,27 @@ class LastAxisPass(nn.Module):
     (:func:`_stencil_fallback`). The ``epilogue(y, *eaux)`` reads the
     stencil's output: on the kernel's flat output (eaux re-laid by
     :func:`_kernel_epilogue_aux`), in the tile layout on the einsum form
-    (:func:`_retile_aux`), or after a stencil fallback. ``forward(x,
-    True)`` runs every kernel's plain twin instead."""
+    (:func:`_retile_aux`), or after a stencil fallback. The einsum form's
+    products run in float64 (no TF32 can reach them on the card).
+    ``forward(x, True)`` runs every kernel's plain twin instead.
+
+    Tails chaining (a rotation chain's passes, :class:`RotationChain`):
+    ``next_tails = (Gcat2, n2, T2)`` names the next pass, which scans this
+    pass's line axis; where the rotated completion kernel runs (kernel
+    route, per-slice route, or the einsum form's kernel completion) and
+    :func:`.kernels.completion.next_tails_ok` holds, it is
+    ``completion_rot_tails``, which also emits the next pass's tails
+    (padded output lines sliced off). :meth:`run` takes the previous pass's
+    tails as ``tails_in`` — the kernel and per-slice routes then skip their
+    ``tails`` launch (slice p's tails are lines p·R..(p+1)·R, and the
+    per-slice extracted tails concatenate P-major), the einsum form ignores
+    them, as in the JAX package — and returns ``(y, tails_out)``, None
+    where no tails were extracted. ``took_tails_in`` records whether the
+    last call used ``tails_in``."""
 
     def __init__(self, scans: Sequence[Scan], plan, clamp: bool,
                  matmul_precision: str, rot_axes: int = 1, stencil=None,
-                 epilogue=None):
+                 epilogue=None, next_tails=None):
         super().__init__()
         T, n, pad = plan
         self.T, self.n, self.pad = T, n, pad
@@ -631,11 +654,13 @@ class LastAxisPass(nn.Module):
         self.sl = kc.slots_for(S)
         Gcat = np.concatenate([np.asarray(g) for g in mats.G], axis=1)
         Rcat = np.concatenate([np.asarray(r) for r in mats.Rhat], axis=2)
+        self.Gcat = Gcat  # host rows, for the previous pass of a chain
+        self.took_tails_in = False
 
         # einsum-form operands: (1|3) variants [interior, first, last]
         self.register_buffer("G_v", _f64(kc._variants3(Gcat)))
-        self.register_buffer("B_v", kc._f32(kc._variants3(mats.Btot)))
-        self.register_buffer("R_v", kc._f32(kc._variants3(Rcat)))
+        self.register_buffer("B_v", _f64(kc._variants3(mats.Btot)))
+        self.register_buffer("R_v", _f64(kc._variants3(Rcat)))
 
         self.offsets = None  # band offsets when the solve is banded
         if n <= _CHAIN_MATMUL_MAX_TILES:
@@ -671,6 +696,15 @@ class LastAxisPass(nn.Module):
             if (stencil is not None and self.rot and pad == 0
                     and n <= _CHAIN_MATMUL_MAX_TILES):
                 self._fuse_stencil(mats, Gcat, Rcat, stencil)
+        # the rotated completion that also extracts the next pass's tails
+        self.completion_nt = None
+        if (self.completion is not None and next_tails is not None
+                and self.rot and stencil is None and epilogue is None):
+            Gcat2, n2, T2 = next_tails
+            if kc.next_tails_ok(n2 * T2, self.sl, n2, np.shape(Gcat2)[1],
+                                T2):
+                self.completion_nt = kc.CompletionPass(
+                    mats.Btot, Rcat, n, rot=True, next_tails=(Gcat2, n2))
 
     def _fuse_stencil(self, mats, Gcat, Rcat, stencil):
         """The stencil's kernels, one tails + rotated completion pair per
@@ -699,6 +733,27 @@ class LastAxisPass(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 eaux=()) -> torch.Tensor:
+        return self.run(x, plain, eaux)[0]
+
+    def _nt(self, q: int):
+        """The next-tails completion for q lines, or None."""
+        c = self.completion_nt
+        if c is None or not kc.next_tails_ok(q, self.sl, c.n2, c.S2, kc.TILE):
+            return None
+        return c
+
+    def _cut_tails(self, t2):
+        """Extracted next-pass tails without this pass's padded output
+        lines (the lines are (n·T, ra), a-minor)."""
+        if t2 is None or not self.pad:
+            return t2
+        n2, sl, nT = t2.shape[0], t2.shape[1], self.n * self.T
+        return (t2.reshape(n2, sl, nT, -1)[:, :, :nT - self.pad]
+                .reshape(n2, sl, -1))
+
+    def run(self, x: torch.Tensor, plain: bool = False, eaux=(),
+            tails_in=None):
+        """The pass on ``x``: ``(y, tails_out)`` (class docstring)."""
         T, n, pad, S = self.T, self.n, self.pad, self.S
         if pad:
             x = F.pad(x, (0, pad))
@@ -710,6 +765,8 @@ class LastAxisPass(nn.Module):
         X = x.reshape(-1, n, T).contiguous()
         q = X.shape[0]
         fused = False
+        t_out = None
+        self.took_tails_in = False
         # Y in the route's layout: "kernel" (q, n, T), or (n·T, q) rotated;
         # "slices" (P, n·T, R); "tile" (P, *rows, n, T) or (P, n, T, *rows)
         if (self.tails is not None and (P == 1 or not rot)
@@ -718,33 +775,55 @@ class LastAxisPass(nn.Module):
             if self.st_comp is not None:
                 Y, fused = self._stencil_slice(X, 0, plain), True
             else:
-                Y = self._kernel_slice(X, plain)
+                Y, t_out = self._kernel_slice(X, plain, tails_in,
+                                              self._nt(q))
+                t_out = self._cut_tails(t_out)
         elif (self.tails is not None and rot and P > 1
               and self.epilogue is None and kc.completion_ok(T, R, n, S)):
             # per leading slice (DoG's dual radius, RGB planes): the P = 1
             # pipeline on each, restacked
             layout, fused = "slices", self.st_comp is not None
-            Y = torch.stack([
-                self._stencil_slice(X[p * R:(p + 1) * R], p, plain) if fused
-                else self._kernel_slice(X[p * R:(p + 1) * R], plain)
-                for p in range(P)])
+            ys, ts = [], []
+            for p in range(P):
+                Xp = X[p * R:(p + 1) * R]
+                if fused:
+                    ys.append(self._stencil_slice(Xp, p, plain))
+                    continue
+                y_p, t_p = self._kernel_slice(
+                    Xp, plain, None if tails_in is None
+                    else tails_in[:, :, p * R:(p + 1) * R], self._nt(R))
+                ys.append(y_p)
+                ts.append(self._cut_tails(t_p))
+            Y = torch.stack(ys)
+            if ts and ts[0] is not None:
+                t_out = torch.cat(ts, dim=2)  # P-major lines
         else:
             braw = kc.tile_einsum("nst,pnt->pns", self.G_v, X.double())
             N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
                  else self._solve_assoc(braw))  # (q, n, S) natural
+            del braw
             if (self.completion is not None and (P == 1 or not rot)
                     and kc.completion_ok(T, q, n, S)):
                 layout = "kernel"
                 Nt = F.pad(N.permute(1, 2, 0), (0, 0, 0, self.sl - S))
-                comp = self.completion.plain if plain else self.completion
-                Y = comp(X, Nt.float().contiguous())
+                Nt = Nt.float().contiguous()
+                comp = self._nt(q)
+                if comp is not None:
+                    Y, t_out = (comp.plain if plain else comp)(X, Nt)
+                    t_out = self._cut_tails(t_out)
+                else:
+                    comp = self.completion
+                    Y = (comp.plain if plain else comp)(X, Nt)
             else:
                 layout = "tile"
-                Y = (kc.tile_einsum("nos,pns->pno", self.B_v, X)
-                     + kc.tile_einsum("nou,pnu->pno", self.R_v, N.float()))
+                # float64 products: true f32 grade whatever the matmul
+                # settings (TF32) on the card
+                Y = kc.tile_einsum("nos,pns->pno", self.B_v, X.double())
+                Y = (Y + kc.tile_einsum("nou,pnu->pno", self.R_v, N)).float()
                 Y = (Y.reshape(P, R, n, T).permute(0, 2, 3, 1)
                      .reshape((P, n, T) + rows) if rot
                      else Y.reshape((P,) + rows + (n, T)))
+            del N
         deferred = self.stencil is not None and not fused
         if self.epilogue is not None and not deferred:
             if layout == "kernel":
@@ -766,15 +845,22 @@ class LastAxisPass(nn.Module):
             y = _stencil_fallback(y, self.stencil, ax)
             if self.epilogue is not None:
                 y = _epilogue(self.epilogue, y, eaux)
-        return y
+        return y, t_out
 
-    def _kernel_slice(self, X, plain):
-        """tails → solve → completion on (q, n, T): (q, n, T), or the
-        rotated (n·T, q)."""
-        tails = self.tails.plain if plain else self.tails
-        Nt = self._solve_t(tails(X).double()).float()
+    def _kernel_slice(self, X, plain, tails_in=None, comp_nt=None):
+        """(tails →) solve → completion on (q, n, T): ((q, n, T) or the
+        rotated (n·T, q), the next pass's tails or None). With ``tails_in``
+        (the previous pass's extraction) the tails launch is skipped."""
+        if tails_in is None:
+            tails = self.tails.plain if plain else self.tails
+            braw = tails(X)
+        else:
+            braw, self.took_tails_in = tails_in, True
+        Nt = self._solve_t(braw.double()).float()
+        if comp_nt is not None:
+            return (comp_nt.plain if plain else comp_nt)(X, Nt)
         comp = self.completion.plain if plain else self.completion
-        return comp(X, Nt)
+        return comp(X, Nt), None
 
     def _stencil_slice(self, X, i: int, plain):
         """The fused stencil route on (q, n, T) with tap set ``i`` (the
@@ -973,11 +1059,7 @@ class FusedLastAxis(nn.Module):
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
         if plan is None:
-            raise NotImplementedError(
-                f"extent {w} with tile {tile_width}: no tile plan (order "
-                "above the extent, or clamp with no divisor ≥ the order); "
-                "the JAX package runs its lax.scan core here (ROADMAP "
-                "Queue 1 item 15)")
+            raise _no_plan(w, tile_width)
         self.w = w
         if (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and _hierarchy_ok(w, scans, matmul_precision)):
@@ -1007,41 +1089,100 @@ class FusedLastAxis(nn.Module):
         return x
 
 
-def _last_axis(x, axis: int) -> None:
-    if axis not in (-1, x.ndim - 1):
-        raise NotImplementedError(
-            f"scans on axis {axis} of a {x.ndim}-D array: this pass runs "
-            "the last axis; a non-last axis runs the rows pass "
-            "(overlap2d.fused_rows_px) or, where its gates decline, the "
-            "JAX package's einsum pass (ROADMAP Queue 1 item 6)")
+def _no_plan(w: int, tile_width: int):
+    return NotImplementedError(
+        f"extent {w} with tile {tile_width}: no tile plan (order above the "
+        "extent, or clamp with no divisor ≥ the order); the JAX package "
+        "runs its lax.scan core here (ROADMAP Queue 1 item 15)")
+
+
+class FusedAxisPass(nn.Module):
+    """Executor for the scans of one axis that is NOT the last, of float32
+    arrays of ``shape``: the JAX package's einsum ``fused_dim_pass`` there
+    (where the rows pass declines the axis, at ``highest``, or with an
+    epilogue on a final non-last pass). The axis moves last and one
+    :class:`LastAxisPass` with the rotated emit (``rot_axes = ndim − axis``)
+    puts it straight back — on the ``tails``/``completion_rot`` kernels
+    where their gates hold, else its einsum form. Past 256 tiles, without
+    an epilogue, the supertile hierarchy runs on the moved axis where its
+    gates hold (the JAX package's ``hierarchical_dim_pass`` moves it the
+    same way). ``forward_plain`` runs the kernels' twins."""
+
+    def __init__(self, scans: Sequence[Scan], axis: int, shape,
+                 tile_width: int, border: str, matmul_precision: str = "px6",
+                 epilogue=None):
+        super().__init__()
+        nd = len(shape)
+        axis = axis % nd
+        if axis == nd - 1:
+            raise ValueError("the last axis runs FusedLastAxis")
+        w = int(shape[axis])
+        clamp = border == BorderMode.CLAMP
+        plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
+        if plan is None:
+            raise _no_plan(w, tile_width)
+        self.axis, self.ndim, self.w = axis, nd, w
+        if (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
+                and _hierarchy_ok(w, scans, matmul_precision)):
+            self.body = HierarchicalPass(scans, w, border, matmul_precision)
+        elif nd - axis > 6:
+            raise NotImplementedError(
+                f"scans on axis {axis} of a {nd}-D array: more than 5 "
+                "trailing axes take the JAX package's 'ansb' einsum form, "
+                "not ported (ROADMAP Queue 1 item 8)")
+        else:
+            self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
+                                     rot_axes=nd - axis, epilogue=epilogue)
+
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, False, eaux)
+
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, True, eaux)
+
+    def _run(self, x, plain, eaux):
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        if x.ndim != self.ndim or x.shape[self.axis] != self.w:
+            raise ValueError(f"input shape {tuple(x.shape)}: expected "
+                             f"{self.ndim} axes, {self.w} on axis "
+                             f"{self.axis}")
+        xm = x.movedim(self.axis, -1)
+        if isinstance(self.body, HierarchicalPass):
+            return self.body(xm, plain).movedim(-1, self.axis)
+        return self.body(xm, plain, eaux)  # the rotated emit moves it back
 
 
 def fused_dim_pass(x, axis: int, scans: Sequence[Scan], tile_width: int,
                    border: str = BorderMode.ZERO,
                    matmul_precision: str = "px6"):
-    """Apply all ``scans`` (same dimension, the last axis) to the float32
-    tensor ``x`` — functional :class:`FusedLastAxis`."""
+    """Apply all ``scans`` (same dimension, on ``axis``) to the float32
+    tensor ``x`` — functional :class:`FusedLastAxis` on the last axis,
+    :class:`FusedAxisPass` on any other."""
     from .planner import check_precision
 
     check_precision(matmul_precision)
-    _last_axis(x, axis)
-    mod = FusedLastAxis(scans, x.shape[-1], tile_width, border,
-                        matmul_precision)
+    if axis % x.ndim == x.ndim - 1:
+        mod = FusedLastAxis(scans, x.shape[-1], tile_width, border,
+                            matmul_precision)
+    else:
+        mod = FusedAxisPass(scans, axis, x.shape, tile_width, border,
+                            matmul_precision)
     return mod.to(x.device)(x)
 
 
 def hierarchical_dim_pass(x, axis: int, scans: Sequence[Scan], border: str,
                           matmul_precision: str):
-    """Functional :class:`HierarchicalPass`, or None where the JAX
-    package's gates decline the hierarchy."""
+    """Functional :class:`HierarchicalPass` on ``axis`` (moved last and
+    back), or None where the JAX package's gates decline the hierarchy."""
     from .planner import check_precision
 
     check_precision(matmul_precision)
-    _last_axis(x, axis)
-    if not _hierarchy_ok(x.shape[-1], scans, matmul_precision):
+    axis = axis % x.ndim
+    if not _hierarchy_ok(x.shape[axis], scans, matmul_precision):
         return None
-    mod = HierarchicalPass(scans, x.shape[-1], border, matmul_precision)
-    return mod.to(x.device)(x)
+    mod = HierarchicalPass(scans, x.shape[axis], border, matmul_precision)
+    return mod.to(x.device)(x.movedim(axis, -1)).movedim(-1, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1233,96 @@ class Stencil2DAfter(nn.Module):
 
     def forward_plain(self, x: torch.Tensor):
         return self.bank.plain(self.body.forward_plain(x))
+
+
+def chain_plans(shape, groups, tiles, clamp: bool):
+    """{axis: (T, n, pad)} for each scanned axis of a rotation chain — tiled
+    by its split width or 32, as the JAX package's chain tiles them — or
+    None where one axis has no tile plan."""
+    plans = {}
+    for ax, scans in groups.items():
+        plans[ax] = _plan_tiles(shape[ax], tiles[ax] or _TILE_DEFAULT,
+                                max(s.order for s in scans), clamp)
+        if plans[ax] is None:
+            return None
+    return plans
+
+
+class RotationChain(nn.Module):
+    """Executor for filters whose scans lie on exactly the trailing ``Ds``
+    axes, 2 ≤ Ds ≤ 5, of float32 arrays of ``shape``: the JAX package's
+    rotation chain (``apply_filter_fused``'s ``2 ≤ Ds ≤ 5`` branch).
+
+    The last axis goes first. Each pass is one :class:`LastAxisPass` with
+    ``rot_axes = Ds``: its rotated emit moves the scanned axis to position
+    ``-Ds`` and brings the next scanned axis last, so every pass scans the
+    last axis and after Ds passes the axis order is restored. Each axis is
+    tiled by its split width or 32 (:func:`chain_plans`). The epilogue goes
+    to the final pass only (its aux arrays in the filter's own layout).
+
+    Tails chaining, at px6 (the JAX package's ``fuse_tails``): a non-final
+    pass is asked for the next pass's tails where the next pass has pad 0,
+    128-wide tiles, ΣK ≤ 8 and at most 512 tiles — the JAX package's
+    chaining gate. Where its kernel emits them (the port's kernel gate,
+    :func:`.kernels.completion.next_tails_ok`; the JAX package's
+    ``_tails_gate`` also needs its TPU line block to hold whole next-pass
+    extents, so on some line counts it reads the tails instead), the next
+    pass takes them as ``tails_in`` and skips its ``tails`` launch.
+    ``tails_in_taken`` lists, per pass of the last call, whether it did. At
+    ``highest`` every pass runs its einsum form and no kernel launches.
+    ``forward_plain`` runs every kernel's twin."""
+
+    def __init__(self, groups, shape, tiles, border: str,
+                 matmul_precision: str = "px6", epilogue=None):
+        super().__init__()
+        nd, Ds = len(shape), len(groups)
+        order = [nd - 1 - i for i in range(Ds)]
+        if not 2 <= Ds <= 5 or set(groups) != set(order):
+            raise ValueError(f"a rotation chain scans the trailing 2-5 axes, "
+                             f"not {sorted(groups)} of {nd}")
+        clamp = border == BorderMode.CLAMP
+        plans = chain_plans(shape, groups, tiles, clamp)
+        if plans is None:
+            raise NotImplementedError(
+                f"{tuple(shape)}: an axis with no tile plan; the JAX "
+                "package runs its per-axis loop and lax.scan core here "
+                "(ROADMAP Queue 1 item 15)")
+        fuse = _kernel_nprod(matmul_precision) > 0
+        passes = [None] * Ds
+        for i in reversed(range(Ds)):  # the next pass first: its tail rows
+            ax, final, nt = order[i], i == Ds - 1, None
+            if fuse and not final:
+                nxt, (T2, n2, pad2) = passes[i + 1], plans[order[i + 1]]
+                if pad2 == 0 and T2 == 128 and nxt.S <= 8 and n2 <= 512:
+                    nt = (nxt.Gcat, n2, T2)
+            passes[i] = LastAxisPass(
+                groups[ax], plans[ax], clamp, matmul_precision,
+                rot_axes=Ds, epilogue=epilogue if final else None,
+                next_tails=nt)
+        self.passes = nn.ModuleList(passes)
+        self.axes, self.shape = order, tuple(shape)
+
+    @property
+    def tails_in_taken(self) -> List[bool]:
+        return [p.took_tails_in for p in self.passes]
+
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, False, eaux)
+
+    def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, True, eaux)
+
+    def _run(self, x, plain, eaux):
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
+                             f"extents {self.shape}")
+        tails = None
+        for i, p in enumerate(self.passes):
+            final = i == len(self.passes) - 1
+            x, tails = p.run(x, plain, eaux if final else (), tails_in=tails)
+        return x
 
 
 _INT_DTYPES = {"int8": torch.int8, "int16": torch.int16,
@@ -1189,7 +1420,8 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     JAX package sends them to its exact integer executor. The kernels'
     128 × 128 tile replaces the split widths on the 2-D and rows
     executors, as in the JAX package (tiling never changes the result);
-    the last axis is tiled by its split width, or 32.
+    the rotation chain and the einsum passes tile each axis by its split
+    width, or 32.
 
     The consumers of the JAX package's ``apply_filter_fused``:
     ``epilogue(y, *eaux)`` — an elementwise combine the module applies to
@@ -1198,9 +1430,8 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     channel 2-D shifted-tap banks ``[[(dy, dx, coeff), ...], ...]`` over
     the trailing two axes (the module then returns a tuple of channels):
     fused into the 3-touch executor's final kernel where its gates hold,
-    else run on the filter's output (:class:`Stencil2DAfter`). Where the
-    2-D executor declines the bank and the JAX package would take its
-    rotation chain, this raises."""
+    else run on the filter's output (:class:`Stencil2DAfter`) — after the
+    rotation chain where the 3-touch executor declines the bank."""
     from . import overlap2d
     from .planner import check_precision
 
@@ -1230,62 +1461,60 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     def scans(ax):
         return [spec.scans[i] for i in groups[ax]]
 
-    # the JAX package runs its rows kernels at the px grades only; at
-    # "highest" a non-last axis takes its einsum pass
-    rows_ok = _kernel_nprod(matmul_precision) > 0
-    if Ds == 2 and set(groups) == {nd - 2, nd - 1}:
-        if stencil2d is not None:
-            why = overlap2d.stencil2d_decline(ext[-2], ext[-1], stencil2d)
-            if why:
-                raise NotImplementedError(
-                    f"stencil2d on {tuple(ext)}: {why}; the JAX package "
-                    "runs its rotation chain here (ROADMAP Queue 1 item 6)")
-        return overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
-                                   ext[-1], spec.border, epilogue=epilogue,
-                                   stencil2d=stencil2d)
-    if (rows_ok and Ds == 3 and stencil2d is None
-            and set(groups) == set(range(nd - 3, nd))):
-        why = overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
-                                      scans(nd - 3))
-        if why:
-            raise NotImplementedError(
-                f"volume {tuple(ext)}: {why}; the JAX package runs its "
-                "rotation chain here (ROADMAP Queue 1 item 6)")
-        return StagedPass([
-            overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
-                                  spec.border),
-            overlap2d.Fused2DPx(scans(nd - 2), scans(nd - 1), ext[-2],
-                                ext[-1], spec.border, epilogue=epilogue)],
-            "volume")
-    if 2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd)) and all(
-            _plan_tiles(ext[ax], tiles[ax] or _TILE_DEFAULT,
-                        max(s.order for s in scans(ax)), clamp)
-            for ax in groups):
-        raise NotImplementedError(
-            f"scans on the trailing {Ds} axes {sorted(groups)} of "
-            f"{tuple(ext)}: the JAX package runs its rotation chain here "
-            "(ROADMAP Queue 1 item 6)")
-    stages = []
+    # the JAX package runs its 3-touch and rows kernels at the px grades
+    # only; at "highest" the chain and the per-axis loop run einsum passes
+    px = _kernel_nprod(matmul_precision) > 0
+    pre = None  # the volume route's rows pass, where its pair declines
+    if px and Ds == 2 and set(groups) == {nd - 2, nd - 1}:
+        if overlap2d.fused2d_decline(scans(nd - 2), scans(nd - 1), ext[-2],
+                                     ext[-1], spec.border, stencil2d) is None:
+            return overlap2d.Fused2DPx(
+                scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
+                epilogue=epilogue, stencil2d=stencil2d)
+    if (px and Ds == 3 and stencil2d is None
+            and set(groups) == set(range(nd - 3, nd))
+            and overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
+                                        scans(nd - 3)) is None):
+        pre = overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
+                                    spec.border)
+        if overlap2d.fused2d_decline(scans(nd - 2), scans(nd - 1), ext[-2],
+                                     ext[-1], spec.border) is None:
+            return StagedPass([pre, overlap2d.Fused2DPx(
+                scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
+                epilogue=epilogue)], "volume")
+        # the trailing pair declines: the chain (or the loop) on the rest
+        groups = {ax: ids for ax, ids in groups.items() if ax != nd - 3}
+        Ds = 2
+    gscans = {ax: scans(ax) for ax in groups}
+    if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
+            and chain_plans(ext, gscans, tiles, clamp) is not None):
+        body = RotationChain(gscans, ext, tiles, spec.border,
+                             matmul_precision, epilogue)
+        return with_bank(body if pre is None
+                         else StagedPass([pre, body], "volume"))
+    stages = [] if pre is None else [pre]
     axes = list(groups)
     for ax in axes:
         final = ax == axes[-1]
+        epi = epilogue if final else None
         if ax == nd - 1:
             stages.append(FusedLastAxis(scans(ax), ext[ax],
                                         tiles[ax] or _TILE_DEFAULT,
-                                        spec.border, matmul_precision,
-                                        epilogue if final else None))
-        elif rows_ok and (epilogue is None or not final):
+                                        spec.border, matmul_precision, epi))
+        elif (px and (epilogue is None or not final)
+              and overlap2d._rows_decline(
+                  ext[ax], int(np.prod(ext[ax + 1:], dtype=np.int64)),
+                  scans(ax)) is None):
             stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
                                                 ext[ax + 1:], spec.border))
         else:
-            why = (f"at matmul_precision={matmul_precision!r}" if not rows_ok
-                   else "with an epilogue on its final pass")
-            raise NotImplementedError(
-                f"scans on axis {ax} of {tuple(ext)} {why}: the JAX package "
-                "runs its einsum pass on a non-last axis here (ROADMAP "
-                "Queue 1 item 6)")
-    return with_bank(stages[0] if len(stages) == 1
-                     else StagedPass(stages, "staged"))
+            stages.append(FusedAxisPass(scans(ax), ax, ext,
+                                        tiles[ax] or _TILE_DEFAULT,
+                                        spec.border, matmul_precision, epi))
+    if len(stages) == 1:
+        return with_bank(stages[0])
+    return with_bank(StagedPass(stages,
+                                "staged" if pre is None else "volume"))
 
 
 def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6",
@@ -1354,10 +1583,7 @@ class RotatedPass(nn.Module):
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
         if plan is None:
-            raise NotImplementedError(
-                f"extent {self.w} with tile {T}: no tile plan; the JAX "
-                "package runs its lax.scan core here (ROADMAP Queue 1 item "
-                "15)")
+            raise _no_plan(self.w, T)
         # a bare signal: the one-axis executor, its hierarchy included
         # (declined with an epilogue that the stencil does not precede)
         if (self.rot_axes == 1 and plan[1] > _CHAIN_MATMUL_MAX_TILES

@@ -11,6 +11,13 @@ the host helpers of the slot-padded carry layout.
     stencil consumer along the scanned axis fused into the emit
     (``completion_rot``).
 
+With ``next_tails`` the rotated completion also extracts the NEXT pass's
+local tails from the tiles it emits (``completion_rot_tails``): in a
+rotation chain the next pass scans this pass's line axis, so its tails are
+per-tile sums over the emitted tile's columns, and the next pass starts at
+its carry solve without reading the signal (:func:`next_tails_ok` is the
+port's gate).
+
 With a stencil consumer, :class:`TailsPass` also emits the halo base rows
 (``extra_rows``: the first and last rows of each tile's Btot times x), the
 caller completes the neighbour tiles' halo strips from them and the
@@ -61,6 +68,26 @@ def completion_ok(T: int, q: int, n: int, S: int) -> bool:
     tiles, carries within the multi-slot layout, at most 512 tiles and at
     least 8 lines."""
     return T == TILE and S <= _MAX_S and n <= 512 and q >= 8
+
+
+def next_tails_ok(q: int, sl: int, n2: int, S2: int, T2: int) -> bool:
+    """The port's gate for ``completion_rot_tails`` on q lines of a pass
+    with sl carry rows, the next pass having n2 tiles of T2 and ΣK = S2:
+    single-slot carries on both sides, 128-wide next tiles, and whole
+    next-pass extents in the lines (q a multiple of n2·128: one 128-line
+    block is one tile of the next pass).
+
+    The JAX package's gate (``completion.py::_tails_gate`` with the block
+    geometry of ``_block_geom``) asks the same of the carries and the next
+    tiles, and in place of the last condition that its TPU line block Lb
+    be a multiple of the next pass's extent (volumes) or equal q with
+    q == n2·T2 (images), with no padded block. Where the port's gate holds
+    and the JAX gate does not (q = 5·128 against a 4096-line block, say),
+    the JAX package reads the next pass's tails with ``tails_pass``
+    instead; the values agree to summation order (both fp32 products of
+    the same f32 grade)."""
+    return (sl == _SLOTS and S2 <= _SLOTS and T2 == TILE
+            and q > 0 and q % (n2 * T2) == 0)
 
 
 def _per_tile(M, n: int) -> np.ndarray:
@@ -276,9 +303,22 @@ class CompletionPass(nn.Module):
     neighbour tiles' completed edge rows (module docstring). The twin
     ``plain`` reads the whole output instead (:func:`_stencil_flat`), so
     the strips get zero gradients, as in the JAX package's VJP.
+
+    ``next_tails = (Gcat2, n2)`` (rot only, no stencil, sl = 8): the next
+    pass of a rotation chain scans this pass's line axis, n2 tiles of 128
+    with per-tile tail rows Gcat2 (n2|1, S2 ≤ 8, 128). ``forward(x, N)``
+    then returns ``(Yr, tails2)``: tails2 (n2, 8, n·T·ra), ra = q / (n2·128),
+    the next pass's slot-padded transposed tails in its line order,
+    ``tails2[c, s, (t·T + o)·ra + a] = Σ_j G2_v(c)[s, j]·Yr[t·T + o,
+    (a·n2 + c)·128 + j]`` — the JAX package's ``braw2`` of
+    ``_completion_ref``, flat. Summed in float64 from the float32 output,
+    in the kernel and in the twin, as :class:`TailsPass` sums them: the
+    twin is :class:`TailsPass`'s on the emitted output. The lines must
+    hold whole next-pass extents (:func:`next_tails_ok`).
     """
 
-    def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None):
+    def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None,
+                 next_tails=None):
         super().__init__()
         R = np.asarray(Rcat, np.float64)
         nvr, T, S = R.shape
@@ -290,6 +330,23 @@ class CompletionPass(nn.Module):
             raise ValueError("the stencil consumer rides the rotated emit")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
         self.rot = bool(rot)
+        self.n2 = None
+        if next_tails is not None:
+            Gcat2, n2 = next_tails
+            G2 = np.asarray(Gcat2, np.float64)
+            if not rot or stencil is not None:
+                raise ValueError("the next pass's tails ride the rotated "
+                                 "emit, without a stencil")
+            if not next_tails_ok(n2 * TILE, self.sl, n2, G2.shape[1],
+                                 G2.shape[2]):
+                raise ValueError(f"next-pass tails need single-slot carries "
+                                 f"on both sides and {TILE}-wide tiles "
+                                 f"(sl={self.sl}, G2 {G2.shape})")
+            self.n2, self.S2 = int(n2), G2.shape[1]
+            Gp = np.zeros((G2.shape[0], _SLOTS, TILE))
+            Gp[:, :self.S2] = G2
+            self.register_buffer("G2_v", _f32(_variants3(Gp)))    # kernel
+            self.register_buffer("G2_v64", _f64(_variants3(Gp)))  # twin
         self.taps, self.hp, self.hn = [], 0, 0
         if stencil is not None:
             self.taps = [(int(d), float(c)) for d, c in stencil["taps"]]
@@ -321,7 +378,11 @@ class CompletionPass(nn.Module):
         yf = y.permute(1, 2, 0).reshape(-1, x.shape[0])
         if self.taps:
             yf = _stencil_flat(yf, self.taps, self.start, self.end)
-        return yf
+        if self.n2 is None:
+            return yf
+        # the next pass's lines, (n·T·ra, n2, 128), and its tails on them
+        y2 = yf.reshape(-1, self.n2, TILE).double()
+        return yf, tile_einsum("nst,qnt->nsq", self.G2_v64, y2).float()
 
     def _kernel(self, x, N, *halos):
         q, n = x.shape[0], self.n
@@ -335,6 +396,8 @@ class CompletionPass(nn.Module):
                 x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
                 y.data_ptr(), q, n, self.sl, self.BR_v.shape[0]), x.device)
             return y
+        if self.n2 is not None:
+            return self._kernel_tails(x, N)
         halos = list(halos)
         prev = halos.pop(0) if self.hp else None
         nxt = halos.pop(0) if self.hn else None
@@ -352,6 +415,22 @@ class CompletionPass(nn.Module):
                                          self.start == "clamp"),
             int(self.taps != [] and self.end == "clamp")), x.device)
         return y
+
+    def _kernel_tails(self, x, N):
+        q, n, n2 = x.shape[0], self.n, self.n2
+        if not next_tails_ok(q, self.sl, n2, self.S2, TILE):
+            raise ValueError(f"{q} lines do not hold whole extents of the "
+                             f"next pass ({n2} tiles of {TILE})")
+        _check(self.G2_v, "G2_v", self.G2_v.shape, x.device)
+        _grid_ok("completion_rot_tails", n, q // TILE)
+        y = torch.empty((n * TILE, q), device=x.device)
+        t2 = torch.empty((n2, _SLOTS, n * q // n2), device=x.device)
+        _launch("completion_rot_tails", (
+            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
+            self.G2_v.data_ptr(), y.data_ptr(), t2.data_ptr(), q, n,
+            self.sl, self.BR_v.shape[0], n2, self.S2, self.G2_v.shape[0]),
+            x.device)
+        return y, t2
 
     def forward(self, x, N, *halos):
         if len(halos) != (self.hp > 0) + (self.hn > 0):

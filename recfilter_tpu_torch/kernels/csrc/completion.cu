@@ -203,7 +203,132 @@ completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
   }
 }
 
+// completion_rot_tails: completion_rot with no stencil that ALSO writes the
+// next pass's local tails, read from the tile it already holds, so the next
+// pass of a rotation chain starts at its carry solve without reading the
+// signal (the next pass touches device memory twice: read x, write y).
+//
+// Replaces completion_pass(rot=True, next_tails=) (_completion_kernel with
+// kt > 0). After a rotated emit the next pass scans this pass's line axis:
+// with q = ra * n2 * 128 lines, line block b (128 lines) is tile
+// c = b % n2 of the next pass's scanned axis on its a = b / n2-th extent
+// (images: ra = 1; volumes: ra whole extents, the other rotated axes). The
+// next pass's lines are this pass's outputs t*128 + o, a-minor, so
+//
+//   tails2[c, s, (t*128 + o) * ra + a] = sum_j G2_v(c)[s, j] * Y[t*128 + o,
+//                                                                 b*128 + j]
+//
+// in the (n2, 8, n*128 * ra) slot-padded transposed layout the next pass's
+// solve reads (rows s >= S2 written as zeros), v(c) = variant(nv2, c, n2).
+// The sums run in fp64 from the fp32 tile values and the fp32 rows of G2,
+// in tails.cu's order (one fma per tau, ascending), so a chained pass reads
+// bit for bit the tails an unchained pass would read from y.
+//
+// What bounds it: the GEMM, as for completion (2 * (128 + 8) FLOP per
+// sample in fp32); the tails add 2 * S2 fp64 FLOP per sample and 8 / 128 of
+// a write. Shared memory: the GEMM's 139 KB at sl = 8, then the tile at a
+// row stride of 129 floats (so both the coalesced y rows and the per-output
+// tails dot products read it free of bank conflicts) and G2's 8 rows in
+// fp64 over the same space (74 KB).
+constexpr int ZS = T + 1;  // row stride of the staged tile
+
+__global__ void __launch_bounds__(THREADS, 1)
+completion_rot_tails_kernel(const float* __restrict__ x,   // (q, n, T)
+                            const float* __restrict__ N,   // (n, sl, q)
+                            const float* __restrict__ BR,  // (nv, T + sl, T)
+                            const float* __restrict__ G2,  // (nv2, 8, T)
+                            float* __restrict__ y,         // (n * T, q)
+                            float* __restrict__ tails2,    // (n2, 8, n*T*ra)
+                            int q, int n, int sl, int nv, int n2, int S2,
+                            int nv2) {
+  extern __shared__ float4 smem4[];
+  const int depth = T + sl;
+  float* As = reinterpret_cast<float*>(smem4);
+  float* Bs = As + depth * T;
+
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int l0 = b * T;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int v = rf::variant(nv, t, n);
+
+  for (int i = tid; i < T * (T / 4); i += THREADS) {
+    const int l = i % T, c4 = i / T;
+    const float4 val = reinterpret_cast<const float4*>(
+        x + ((long)(l0 + l) * n + t) * T)[c4];
+    As[(4 * c4 + 0) * T + l] = val.x;
+    As[(4 * c4 + 1) * T + l] = val.y;
+    As[(4 * c4 + 2) * T + l] = val.z;
+    As[(4 * c4 + 3) * T + l] = val.w;
+  }
+  const float* Nt = N + (long)t * sl * q;
+  for (int i = tid; i < sl * T; i += THREADS) {
+    const int s = i / T, l = i % T;
+    As[(T + s) * T + l] = Nt[(long)s * q + l0 + l];
+  }
+  rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
+  __syncthreads();
+
+  float c[8][8];
+  rf::gemm_tile(As, Bs, c, ty, tx, depth);
+  __syncthreads();
+
+  // the tile, transposed: Zs[o][l] = Y[l][o]; G2's rows in fp64 after it
+  float* Zs = reinterpret_cast<float*>(smem4);
+  double* g2 = reinterpret_cast<double*>(Zs + T * ZS);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      Zs[rf::row_of(j, tx) * ZS + rf::row_of(i, ty)] = c[i][j];
+  const int a = b / n2, cn = b % n2;
+  const float* g2v = G2 + (long)rf::variant(nv2, cn, n2) * 8 * T;
+  for (int i = tid; i < 8 * T; i += THREADS) g2[i] = (double)g2v[i];
+  __syncthreads();
+
+  const int l = tid % T;
+  float* yt = y + (long)t * T * q + l0 + l;
+  for (int o = tid / T; o < T; o += THREADS / T)
+    yt[(long)o * q] = Zs[o * ZS + l];
+
+  // the next pass's tails: output o of this tile is one of its lines
+  const int o = tid % T;
+  const long nT = (long)n * T;
+  const int ra = q / (n2 * T);
+  const float* z = Zs + o * ZS;
+  for (int s = tid / T; s < 8; s += THREADS / T) {
+    float val = 0.f;
+    if (s < S2) {
+      const double* gs = g2 + s * T;
+      double acc = 0.0;
+      for (int j = 0; j < T; ++j) acc = fma(gs[j], (double)z[j], acc);
+      val = (float)acc;
+    }
+    tails2[(((long)cn * 8 + s) * nT + (long)t * T + o) * ra + a] = val;
+  }
+}
+
 }  // namespace
+
+extern "C" int completion_rot_tails_launch(
+    const float* x, const float* N, const float* BR, const float* G2,
+    float* y, float* tails2, int q, int n, int sl, int nv, int n2, int S2,
+    int nv2, void* stream) {
+  if (sl != 8 || n2 < 1 || S2 < 1 || S2 > 8 || q < 1 || q % (n2 * T) ||
+      (nv2 != 1 && nv2 != 3))
+    return (int)cudaErrorInvalidValue;
+  const int gemm = 2 * (T + sl) * T * (int)sizeof(float);
+  const int stage = T * ZS * (int)sizeof(float) + 8 * T * (int)sizeof(double);
+  const int smem = gemm > stage ? gemm : stage;
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_rot_tails_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, q / T);
+  completion_rot_tails_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, N, BR, G2, y, tails2, q, n, sl, nv, n2, S2, nv2);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int completion_rot_launch(const float* x, const float* N,
                                      const float* BR, const float* prev,

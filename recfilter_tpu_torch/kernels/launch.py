@@ -7,7 +7,9 @@ autograd rule for all of them.
     whose library holds it. A kernel has one entry of its own name, except
     ``int_seg_scan``, whose two phases launch separately (``int_seg_carries``
     and ``int_seg_fix``), ``completion``, whose rotated emit (with its optional
-    stencil consumer) is a kernel of its own, ``completion_rot``, and
+    stencil consumer) is a kernel of its own, ``completion_rot``, as is the
+    rotated emit that also extracts the next pass's tails,
+    ``completion_rot_tails``, and
     ``tails``, whose extra-row form (a stencil's halo bases) is
     ``tails_extra``.
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
@@ -51,7 +53,8 @@ SIGNATURES = {
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7)),
     "completion": _sig("completion", ("completion", 4, 4),
-                       ("completion_rot", 7, 9)),
+                       ("completion_rot", 7, 9),
+                       ("completion_rot_tails", 6, 7)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
     "fir_band": _sig("fir_band", ("fir_band", 3, 7)),

@@ -17,8 +17,10 @@ The solves are carry-sized ``torch.matmul``/``einsum`` calls, as the JAX
 package leaves them to XLA, in float64: the carries amplify rounding about
 thirtyfold for the sigma=5 Gaussian, and fp32 glue left the filter at
 7e-6 of the output peak against the f64 oracle where the px6 bound is 2e-6
-(plain twins on the CPU, 512²). The solve is always the dense padded
-(n·8)² matmul. Every host matrix is built once, at module construction.
+(plain twins on the CPU, 512²). Each dimension's solve is banded from 64
+tiles on, for a decaying filter, else the dense padded (n·8)² matmul —
+``fused_2d_px``'s rule. Every host matrix is built once, at module
+construction.
 
 Two consumers ride :class:`Fused2DPx` as in the JAX package's
 ``fused_2d_px``: an elementwise ``epilogue(y, *eaux)`` on the output of the
@@ -67,6 +69,30 @@ def stencil2d_decline(wa: int, wb: int, stencil2d):
     return None
 
 
+def fused2d_decline(scans_a: Sequence[Scan], scans_b: Sequence[Scan],
+                    wa: int, wb: int, border: str, stencil2d=None):
+    """Why the JAX package's ``fused_2d_px`` declines a filter with
+    ``scans_a`` on axis -2 and ``scans_b`` on axis -1 of extents (wa, wb)
+    (and a ``stencil2d`` bank), or None where it runs it. Its gates:
+    extents of at least one tile, no pad under a clamp border, at most 256
+    tiles and 8 carries per dimension, and :func:`stencil2d_decline`'s."""
+    T, cap = TILE, dimfuse._CHAIN_MATMUL_MAX_TILES
+    na, nb = -(-wa // T), -(-wb // T)
+    Ka, Kb = (sum(s.order for s in sc) for sc in (scans_a, scans_b))
+    if wa < T or wb < T:
+        return f"extents ({wa}, {wb}) below the {T} tile"
+    if border == BorderMode.CLAMP and (wa % T or wb % T):
+        return (f"clamp border with extents ({wa}, {wb}) that are not "
+                f"multiples of {T}")
+    if na > cap or nb > cap:
+        return f"{na} x {nb} tiles: more than {cap} per dimension"
+    if Ka > _SLOTS or Kb > _SLOTS:
+        return f"carries Ka={Ka}, Kb={Kb}: more than {_SLOTS} per dimension"
+    if stencil2d is not None:
+        return stencil2d_decline(wa, wb, stencil2d)
+    return None
+
+
 def stencil_h8(stencil2d) -> int:
     """The row-halo height: max|dy| rounded up to 8, at least 8."""
     up, down, _, _ = stencil_reach(stencil2d)
@@ -88,9 +114,11 @@ class Fused2DPx(nn.Module):
     (``final2d_stencil``); ``forward`` then returns a tuple of C channels.
 
     Raises ``NotImplementedError`` where the JAX package's executor would
-    decline the filter (extents below one tile, clamp with extents that
-    are not tile multiples, more than 256 tiles, more than 8 carries per
-    dimension, a stencil bank past :func:`stencil2d_decline`'s gates)."""
+    decline the filter (:func:`fused2d_decline`: extents below one tile,
+    clamp with extents that are not tile multiples, more than 256 tiles,
+    more than 8 carries per dimension, a stencil bank past
+    :func:`stencil2d_decline`'s gates): the router runs the rotation
+    chain there (``dimfuse.RotationChain``)."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
@@ -99,36 +127,18 @@ class Fused2DPx(nn.Module):
         T = TILE
         if stencil2d is not None and epilogue is not None:
             raise ValueError("stencil2d is mutually exclusive with epilogue")
-        if wa < T or wb < T:
+        why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
+        if why:
             raise NotImplementedError(
-                f"extents ({wa}, {wb}) below the {T} tile: small images run "
-                "the JAX package's rotation chain (ROADMAP Queue 1 item 6)")
+                f"{why}: the JAX package's 3-touch executor declines this "
+                "filter, and dimfuse.fused_filter_module runs its rotation "
+                "chain (dimfuse.RotationChain) instead")
         clamp = border == BorderMode.CLAMP
         na, nb = -(-wa // T), -(-wb // T)
         pad_a, pad_b = na * T - wa, nb * T - wb
-        if clamp and (pad_a or pad_b):
-            raise NotImplementedError(
-                f"clamp border with extents ({wa}, {wb}) that are not "
-                f"multiples of {T} (ROADMAP Queue 1 item 6)")
-        cap = dimfuse._CHAIN_MATMUL_MAX_TILES
-        if na > cap or nb > cap:
-            raise NotImplementedError(
-                f"{na} x {nb} tiles: more than {cap} per dimension needs "
-                "the associative carry chain (ROADMAP Queue 1 item 6)")
         ma = dimfuse.prepare_dim_pass(scans_a, T, na, clamp, pad_slots=pad_a)
         mb = dimfuse.prepare_dim_pass(scans_b, T, nb, clamp, pad_slots=pad_b)
         Ka, Kb = int(sum(ma.orders)), int(sum(mb.orders))
-        if Ka > _SLOTS or Kb > _SLOTS:
-            raise NotImplementedError(
-                f"carries Ka={Ka}, Kb={Kb}: more than {_SLOTS} per "
-                "dimension run the JAX package's rotation chain (ROADMAP "
-                "Queue 1 item 6)")
-        if stencil2d is not None:
-            why = stencil2d_decline(wa, wb, stencil2d)
-            if why:
-                raise NotImplementedError(
-                    f"stencil2d on ({wa}, {wb}): {why} (ROADMAP Queue 1 "
-                    "item 6)")
         self.wa, self.wb, self.na, self.nb = wa, wb, na, nb
         self.pad_a, self.pad_b, self.Ka, self.Kb = pad_a, pad_b, Ka, Kb
         self.epilogue = epilogue
@@ -153,10 +163,17 @@ class Fused2DPx(nn.Module):
             self.register_buffer(
                 name, torch.from_numpy(np.ascontiguousarray(a, np.float64)))
 
-        buf("CMa_p", pad_solve_matrix(
-            dimfuse.combined_solve_matrix(ma, na), na, Ka))
-        buf("CMb_p", pad_solve_matrix(
-            dimfuse.combined_solve_matrix(mb, nb), nb, Kb))
+        # each dimension's carry solve: banded from 64 tiles on (a decaying
+        # filter), else the dense padded matmul — fused_2d_px's rule
+        self.offsets = {}
+        for d, m, n, K in (("a", ma, na, Ka), ("b", mb, nb, Kb)):
+            CM = dimfuse.combined_solve_matrix(m, n)
+            bands = dimfuse.banded_solve_blocks(CM, n, K)
+            self.offsets[d] = None if bands is None else [o for o, _ in bands]
+            if bands is None:
+                buf(f"CM{d}_p", pad_solve_matrix(CM, n, K))
+            else:
+                buf(f"bands_{d}", np.stack([b for _, b in bands]))
         Gb8 = np.zeros((Gb_cat.shape[0], _SLOTS, T))
         Gb8[:, :Kb] = Gb_cat
         buf("Ran", _per_tile(Ra_cat, na))                     # (na, Ta, Ka)
@@ -199,16 +216,27 @@ class Fused2DPx(nn.Module):
         bA_t, term1, *edges = moments(X4)
         bA_t, term1 = bA_t.double(), term1.double()
         # dim-A chain solve (slot-padded layout)
-        NA_t = torch.matmul(self.CMa_p, bA_t.reshape(p, na * _SLOTS, W))
+        NA_t = self._solve("a", bA_t, Ka)
         # dim-B raw tails from carry-sized data only
         NAr = NA_t.reshape(p, na, _SLOTS, nb, T)[:, :, :Ka]
         GN = torch.einsum("bkt,pajbt->pabkj", self.Gb8n, NAr)
         term2 = torch.einsum("aoj,pabkj->pabko", self.Ran, GN)
         bB = term1.reshape(p, na, nb, _SLOTS, T) + term2
         # dim-B chain solve
-        NB_t = torch.matmul(self.CMb_p, bB.reshape(p * na, nb * _SLOTS, T))
+        NB_t = self._solve("b", bB, self.Kb)
         return (NA_t.reshape(p, na, _SLOTS, W),
                 NB_t.reshape(p, na, nb * _SLOTS, T), *edges)
+
+    def _solve(self, d: str, b, K: int):
+        """Dimension ``d``'s carry solve of the slot-padded tails
+        ``b`` (..., n, 8, lanes), leading axes a batch: banded or dense."""
+        if self.offsets[d] is not None:
+            return dimfuse._banded_solve_apply(
+                list(zip(self.offsets[d], getattr(self, f"bands_{d}"))), b, K)
+        lead, (n, sl, w) = b.shape[:-3], b.shape[-3:]
+        N = torch.matmul(getattr(self, f"CM{d}_p"),
+                         b.reshape(-1, n * sl, w))
+        return N.reshape(*lead, n, sl, w)
 
     def halo_strips(self, ht, hb, NA_t, NB_t):
         """The row-halo strips of the fused stencil, in float64: the
@@ -295,8 +323,9 @@ class FusedRowsPx(nn.Module):
     ``forward`` runs the CUDA kernels for CUDA tensors (their plain twins
     for CPU tensors); ``forward_plain`` runs the twins on any device.
     Raises ``NotImplementedError`` where the JAX package declines the rows
-    kernels (extents that are not multiples of 128, more than 256 tiles,
-    more than 8 carries): it runs its einsum pass there."""
+    kernels (:func:`_rows_decline`: extents that are not multiples of 128,
+    more than 256 tiles, more than 8 carries): the router runs the einsum
+    pass there (``dimfuse.FusedAxisPass``)."""
 
     def __init__(self, scans: Sequence[Scan], L: int,
                  trailing: Sequence[int], border: str):
@@ -311,8 +340,9 @@ class FusedRowsPx(nn.Module):
         why = _rows_decline(L, W, scans)
         if why:
             raise NotImplementedError(
-                f"{why}; the JAX package runs its einsum pass on a non-last "
-                "axis here (ROADMAP Queue 1 item 6)")
+                f"{why}: the JAX package declines its rows kernels here, "
+                "and dimfuse.fused_filter_module runs the einsum pass on a "
+                "non-last axis (dimfuse.FusedAxisPass) instead")
         n = L // T
         mats = dimfuse.prepare_dim_pass(scans, T, n,
                                         border == BorderMode.CLAMP)
@@ -390,7 +420,7 @@ def fused_2d_px(x: torch.Tensor, axis_a: int, scans_a: Sequence[Scan],
     the scanned dims must be the trailing two axes."""
     if (axis_a, axis_b) != (x.ndim - 2, x.ndim - 1):
         raise NotImplementedError(
-            "the 2-D executor scans the trailing two axes (ROADMAP Queue 1 "
-            "item 6: non-trailing axes)")
+            "the 2-D executor scans the trailing two axes; "
+            "dimfuse.fused_filter_module routes any other pair")
     mod = Fused2DPx(scans_a, scans_b, x.shape[-2], x.shape[-1], border)
     return mod.to(x.device)(x)

@@ -1,16 +1,16 @@
 """Execution plan: the executor backend and the matmul precision grade.
 
-The port runs three executors: the 3-touch 2-D path and the rows pass
-(``overlap2d``), on the fp32 CUDA kernels of ``kernels/final2d.py``, and
-the last-axis path (``dimfuse.FusedLastAxis``), on those of
-``kernels/completion.py``. The JAX package's precision names are kept:
-``px6`` (its default) and ``highest`` both mean true-f32 products, which
-the fp32 kernels give on Hopper without the TPU's bf16 chunk splitting.
-As in the JAX package, the last-axis path runs its kernels (and the
-supertile hierarchy) at ``px6`` only and its einsum form at ``highest``,
-and the rows pass runs at ``px6`` only (at ``highest`` the JAX package
-takes its einsum pass on a non-last axis, not ported: it raises). Every
-other grade raises.
+The port runs the 3-touch 2-D path and the rows pass (``overlap2d``), on
+the fp32 CUDA kernels of ``kernels/final2d.py``, and the last-axis passes
+(``dimfuse.LastAxisPass``: the last-axis executor, the rotation chain, the
+einsum pass on a non-last axis), on those of ``kernels/completion.py``.
+The JAX package's precision names are kept: ``px6`` (its default) and
+``highest`` both mean true-f32 products, which the fp32 kernels give on
+Hopper without the TPU's bf16 chunk splitting. As in the JAX package, the
+kernels (and the supertile hierarchy) run at ``px6`` only: at ``highest``
+every pass runs its einsum form in float64 and no kernel launches — the
+2-D pair and volumes take the rotation chain, a non-last axis the einsum
+pass. Every other grade raises.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import recfilter_tpu as jrf
+from recfilter_tpu import dimfuse as jdf
 from recfilter_tpu import scan_core as jsc
 
 import recfilter_tpu_torch as rft
@@ -66,14 +67,37 @@ def test_headline_filter_matches_jax_and_oracle(clamp):
 
 def test_as_func_is_a_module_with_buffers():
     img = _img(256, 256, seed=1)
-    F = _build(rft, 256, 256, img, precision="highest")
+    F = _build(rft, 256, 256, img, precision="px6")
     mod = F.as_func(device="cpu")
-    assert isinstance(mod, torch.nn.Module)
+    assert isinstance(mod, rft.Fused2DPx)
     names = {n for n, _ in mod.named_buffers()}
     assert {"CMa_p", "CMb_p", "moments.Ga_v", "final.A1_v"} <= names
     y = mod(torch.from_numpy(img))
     np.testing.assert_array_equal(
         y.detach().numpy(), F.realize(device="cpu").numpy())
+
+
+def test_highest_runs_the_einsum_chain():
+    """At ``highest`` the JAX package's ``apply_filter_fused`` skips its
+    3-touch executor (nprod = 0) and runs the rotation chain of einsum
+    passes: so does the port, launching no kernel, within the px6 bound
+    of the oracle and 1e-5 of the JAX package."""
+    from recfilter_tpu_torch.kernels import launch as tl
+
+    img = _img(256, 256, seed=1)
+    F = _build(rft, 256, 256, img, precision="highest")
+    mod = F.as_func(device="cpu")
+    assert isinstance(mod, tdf.RotationChain)
+    assert all(p.tails is None and p.completion is None for p in mod.passes)
+    tl.reset_launches()
+    got = mod(torch.from_numpy(img)).numpy()
+    assert not any(tl.LAUNCHES.values())
+    Fj = _build(jrf, 256, 256, img, precision="highest")
+    oracle = jsc.oracle_apply(Fj.spec, img.astype(np.float64))
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 2e-6 * peak
+    want = np.asarray(Fj.realize(jnp.asarray(img)))
+    assert np.abs(got - want).max() <= 1e-5 * peak
 
 
 def test_split_width_does_not_change_the_result():
@@ -85,55 +109,76 @@ def test_split_width_does_not_change_the_result():
     assert torch.equal(y64, y128)
 
 
-def _spec(dims, scans, **kw):
-    return rft.FilterSpec("S", tuple(rft.Dim(n, e) for n, e in dims),
-                          tuple(scans), **kw)
+def _spec(dims, scans, mod=rft, **kw):
+    return mod.FilterSpec("S", tuple(mod.Dim(n, e) for n, e in dims),
+                          tuple(mod.Scan(*s) for s in scans), **kw)
 
 
 _G = (0.1, (0.5, 0.3, 0.1))
+# name: (dims, scans (axis, causal, b0, feedback), keywords)
 UNSUPPORTED = {
     # a prime clamp extent has no tile plan: the lax.scan core's case
-    "one-dim": _spec([("x", 509)], [rft.Scan(0, True, *_G)],
-                     border="clamp", tile_widths=(128,)),
+    "one-dim": ([("x", 509)], [(0, True, *_G)],
+                dict(border="clamp", tile_widths=(128,))),
     # a volume whose depth is not a multiple of 128: the rows pass
-    # declines and the JAX package runs its rotation chain
-    "volume": _spec([("z", 100), ("y", 128), ("x", 128)],
-                    [rft.Scan(i, True, *_G) for i in range(3)],
-                    tile_widths=(128, 128, 128)),
-    "leading-axes": _spec([("y", 128), ("x", 128), ("c", 3)],
-                          [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
-                          tile_widths=(128, 128, 0)),
-    "float64": _spec([("y", 128), ("x", 128)],
-                     [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
-                     dtype="float64", tile_widths=(128, 128)),
+    # declines and the rotation chain runs
+    "volume": ([("z", 100), ("y", 128), ("x", 128)],
+               [(i, True, *_G) for i in range(3)],
+               dict(tile_widths=(128, 128, 128))),
+    # scans on axes 0 and 1 of (y, x, c): the rows pass on y, the einsum
+    # pass on x (3 lanes)
+    "leading-axes": ([("y", 128), ("x", 128), ("c", 3)],
+                     [(0, True, *_G), (1, True, *_G)],
+                     dict(tile_widths=(128, 128, 0))),
+    "float64": ([("y", 128), ("x", 128)], [(0, True, *_G), (1, True, *_G)],
+                dict(dtype="float64", tile_widths=(128, 128))),
     # an integer filter under a clamp border: the JAX package's limb route
-    "int32": _spec([("y", 128), ("x", 128)],
-                   [rft.Scan(0, True, 1.0, (1.0,)),
-                    rft.Scan(1, True, 1.0, (1.0,))],
-                   border="clamp", dtype="int32", tile_widths=(128, 128)),
-    "clamp-non-dividing": _spec(
-        [("y", 200), ("x", 256)],
-        [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
-        border="clamp", tile_widths=(128, 128)),
-    "too-many-tiles": _spec(
-        [("y", 128), ("x", 257 * 128)],
-        [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
-        tile_widths=(128, 128)),
-    "carries-over-8": _spec(
-        [("y", 128), ("x", 256)],
-        [rft.Scan(0, True, *_G)] + [rft.Scan(1, c, *_G)
-                                    for c in (True, False, True)],
-        tile_widths=(128, 128)),
-    "small-extent": _spec([("y", 64), ("x", 256)],
-                          [rft.Scan(0, True, *_G), rft.Scan(1, True, *_G)],
-                          tile_widths=(128, 128)),
+    "int32": ([("y", 128), ("x", 128)],
+              [(0, True, 1.0, (1.0,)), (1, True, 1.0, (1.0,))],
+              dict(border="clamp", dtype="int32", tile_widths=(128, 128))),
+    # the 3-touch executor's gates decline the next four: the chain runs
+    "clamp-non-dividing": ([("y", 200), ("x", 256)],
+                           [(0, True, *_G), (1, True, *_G)],
+                           dict(border="clamp", tile_widths=(128, 128))),
+    "too-many-tiles": ([("y", 128), ("x", 257 * 128)],
+                       [(0, True, *_G), (1, True, *_G)],
+                       dict(tile_widths=(128, 128))),
+    "carries-over-8": ([("y", 128), ("x", 256)],
+                       [(0, True, *_G)] + [(1, c, *_G)
+                                           for c in (True, False, True)],
+                       dict(tile_widths=(128, 128))),
+    "small-extent": ([("y", 64), ("x", 256)],
+                     [(0, True, *_G), (1, True, *_G)],
+                     dict(tile_widths=(128, 128))),
 }
+STILL_UNSUPPORTED = ("one-dim", "float64", "int32")
 
 
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_unsupported_filters_raise(case):
-    with pytest.raises(NotImplementedError):
-        tdf.fused_filter_module(UNSUPPORTED[case])
+    """The filters the port refused before the rotation chain: those the
+    port still does not run raise; the rest run the JAX package's route
+    (the rotation chain, or the rows pass and the einsum pass) within the
+    px6 bound of the oracle and 1e-5 of the JAX package."""
+    dims, scans, kw = UNSUPPORTED[case]
+    spec = _spec(dims, scans, **kw)
+    if case in STILL_UNSUPPORTED:
+        with pytest.raises(NotImplementedError):
+            tdf.fused_filter_module(spec)
+        return
+    js = _spec(dims, scans, mod=jrf, **kw)
+    x = np.random.default_rng(len(case)).standard_normal(
+        [e for _, e in dims]).astype(np.float32)
+    mod = tdf.fused_filter_module(spec)
+    assert type(mod).__name__ == ("StagedPass" if case == "leading-axes"
+                                  else "RotationChain")
+    got = mod(torch.from_numpy(x)).numpy()
+    oracle = jsc.oracle_apply(js, x.astype(np.float64))
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 2e-6 * peak
+    want = np.asarray(jdf.apply_filter_fused(js, jnp.asarray(x),
+                                             matmul_precision="px6"))
+    assert np.abs(got - want).max() <= 1e-5 * peak
 
 
 @pytest.mark.parametrize("precision", ["px3", "px4", "default", "f32x6",

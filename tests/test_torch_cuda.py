@@ -676,3 +676,153 @@ def test_sat_apps_and_consumers_on_the_card(dev):
         yp = mod.forward_plain(*args)
         yp = torch.stack(yp) if isinstance(yp, tuple) else yp
         assert _rel(y, yp) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The rotation chain
+# ---------------------------------------------------------------------------
+
+
+def _int_stack(kind, rows, cols, n, rng, lo=-2, hi=2):
+    """An integer-valued per-tile stack (every product and sum exact)."""
+    M = [rng.integers(lo, hi, (rows, cols), endpoint=True).astype(float)
+         for _ in range(3)]
+    if kind == "uniform" or n == 1:  # one tile: first and last at once
+        return M[1 if kind == "clamp" else 0][None]
+    return np.stack([M[1]] + [M[0]] * (n - 2) + [M[2]])
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("ra,n2", [(1, 3), (1, 1), (5, 2), (2, 3)],
+                         ids=["image", "image-n2=1", "volume", "volume-3"])
+def test_completion_rot_tails_matches_twin(kind, ra, n2, dev):
+    """completion_rot_tails against its twin on integer-valued input,
+    where every sum is exact: the rotated output and the next pass's tails
+    bit-equal, pad slots zero; the output equal to completion_rot's."""
+    rng = np.random.default_rng(ra * 10 + n2)
+    n, S, S2 = 3, 6, 5
+    q = ra * n2 * T
+    Btot, Rcat = _int_stack(kind, T, T, n, rng), _int_stack(kind, T, S, n,
+                                                            rng)
+    G2 = _int_stack(kind, S2, T, n2, rng)
+    comp = tc.CompletionPass(Btot, Rcat, n, rot=True,
+                             next_tails=(G2, n2)).to(dev)
+    x = torch.from_numpy(rng.integers(-8, 8, (q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.zeros((n, 8, q), device=dev)
+    N[:, :S] = torch.from_numpy(rng.integers(-8, 8, (n, S, q)).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    y, t2 = comp(x, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot_tails=1)
+    yp, tp = comp.plain(x, N)
+    assert t2.shape == (n2, 8, n * T * ra)
+    assert torch.equal(y, yp) and torch.equal(t2, tp)
+    assert not t2[:, S2:].any()
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    assert torch.equal(flat(x, N), y)
+
+
+def _chain_spec(shape, scans, border="zero", tiles=None):
+    names = "vwzyx"[-len(shape):]
+    return rft.FilterSpec("C", tuple(rft.Dim(n_, e) for n_, e in
+                                     zip(names, shape)),
+                          tuple(Scan(*s) for s in scans), border=border,
+                          tile_widths=tiles or (T,) * len(shape))
+
+
+CHAINS = {
+    # (shape, scans, border, launches, tails_in per pass); every case
+    # through fused_filter_module but "rgb", whose leading group the
+    # router sends to the 3-touch executor
+    "image-clamp-pad": (  # y in 100-row tiles: the einsum form
+        (200, 384), [(1, True, 0.9, (0.6, 0.2)), (0, False, 1.05, (0.4,))],
+        "clamp", dict(tails=1, completion_rot=1), [False, False]),
+    "panorama": (  # x: 257 tiles, einsum tails, then the kernel extracts
+        (256, 257 * T), [(1, True, 0.9, (0.6, 0.2)),
+                         (0, False, 1.05, (0.4,))],
+        "zero", dict(completion_rot_tails=1, completion_rot=1),
+        [False, True]),
+    "rgb": ((3, 256, 384), [(2, True, 0.9, (0.6, 0.2)),
+                            (1, False, 1.05, (0.4,))], "clamp",
+            dict(tails=3, completion_rot_tails=3, completion_rot=3),
+            [False, True]),
+    "volume": ((100, 128, 256), [(2, True, 1.0, (0.5,)),
+                                 (1, True, 0.9, (0.4, 0.1)),
+                                 (0, False, 1.05, (0.3,))], "zero",
+               dict(tails=1, completion_rot_tails=1, completion_rot=1),
+               [False, True, False]),
+    "k>8": ((256, 256), [(1, c, 0.5, (0.4, 0.1, 0.05)) for c in
+                         (True, False, True)]
+            + [(0, True, 0.5, (0.4,))], "zero",
+            dict(tails=2, completion_rot=2), [False, False]),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAINS))
+def test_rotation_chain_on_the_card(case, dev):
+    """The chain on the card: its launch counts and tails reads per
+    route, within 2e-6 of the f64 oracle, and chained equal to unchained
+    bit for bit (the extracted tails are summed as the tails kernel sums
+    them)."""
+    shape, scans, border, launches, taken = CHAINS[case]
+    spec = _chain_spec(shape, scans, border)
+    if case == "rgb":
+        groups = {ax: [spec.scans[i] for i in ids]
+                  for ax, ids in spec.scans_by_axis().items()}
+        mod = tdf.RotationChain(groups, shape, spec.tile_widths, border)
+    else:
+        mod = tdf.fused_filter_module(spec)
+    mod = mod.to(dev)
+    assert isinstance(mod, tdf.RotationChain)
+    img = (np.random.default_rng(4).standard_normal(shape) * 0.1
+           ).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    tl.reset_launches()
+    y = mod(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(**launches)
+    assert mod.tails_in_taken == taken
+    want = rft.oracle_apply(spec, img.astype(np.float64))
+    assert np.abs(y.cpu().numpy() - want).max() <= 2e-6 * np.abs(want).max()
+    assert _rel(y, mod.forward_plain(x)) <= 1e-5  # the twins' path
+    for p in mod.passes:
+        p.completion_nt = None
+    assert torch.equal(mod(x), y)
+
+
+def test_chain_routes_on_the_card(dev):
+    """One launch-count check per route of the slice: the einsum pass on
+    a non-last axis (rotated kernel route), the chain at ``highest`` (no
+    launch), the volume fallback (rows pass, then the chain on the pair),
+    and the B-spline prefilter at 1920 × 1080 (x on the kernels, y's
+    120-row tiles on the einsum form)."""
+    from recfilter_tpu_torch.apps import bicubic
+
+    rng = np.random.default_rng(6)
+    y_only = _chain_spec((200, 256), [(0, True, 0.9, (0.5,))])
+    pair = _chain_spec((128, 40, 16), [(2, True, 1.0, (0.5,)),
+                                       (1, True, 1.0, (0.4,)),
+                                       (0, True, 1.0, (0.3,))],
+                       tiles=(128, 32, 128))
+    gauss = _chain_spec((256, 256), [(a, c, 0.5, (0.4, 0.1)) for a in (1, 0)
+                                     for c in (True, False)])
+    cases = [(tdf.fused_filter_module(y_only), y_only,
+              _only(tails=1, completion_rot=1)),
+             (tdf.fused_filter_module(gauss, "highest"), gauss, _only()),
+             (tdf.fused_filter_module(pair), pair,
+              _only(rows_tails=1, rows_final=1)),
+             (bicubic(1920, 1080).as_func(device=dev),
+              bicubic(1920, 1080).spec, _only(tails=1, completion_rot=1))]
+    for mod, spec, launches in cases:
+        mod = mod.to(dev)
+        img = rng.standard_normal([d.extent for d in spec.dims]).astype(
+            np.float32)
+        tl.reset_launches()
+        y = mod(torch.from_numpy(img).to(dev))
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == launches
+        want = rft.oracle_apply(spec, img.astype(np.float64))
+        assert (np.abs(y.cpu().numpy() - want).max()
+                <= 2e-6 * np.abs(want).max())

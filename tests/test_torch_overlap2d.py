@@ -126,3 +126,34 @@ def test_module_plain_path_equals_forward_on_cpu():
         mod(torch.zeros(200, 299))
     with pytest.raises(TypeError):
         mod(torch.zeros(200, 300, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+@pytest.mark.parametrize("h,w", [(8192, 128), (128, 8192)],
+                         ids=["dim-a", "dim-b"])
+def test_banded_solve_from_64_tiles(h, w, border):
+    """64 tiles on one dimension, where ``fused_2d_px`` switches that
+    dimension's carry solve to the banded form — and so does the port:
+    within the px6 bound of the oracle. Banded on y (dim A), the JAX
+    executor agrees (1e-5·peak: the JAX px6 path sits a few 1e-6 from the
+    oracle on σ=5 Gaussians). Banded on x (dim B), the JAX executor is
+    wrong — its banded dim-B solve restores the carries in slot-major
+    order (``recfilter_tpu/overlap2d.py:410-412``), 5.8 times the peak
+    off at 128 × 8192 — so the port is held to the oracle alone there."""
+    x = _img(h, w, seed=5)
+    ts, js = _gauss_scans(tspec, 5.0), _gauss_scans(jspec, 5.0)
+    mod = to2.Fused2DPx(ts[2:], ts[:2], h, w, border)
+    d = "a" if h > w else "b"
+    assert len(mod.offsets[d]) < 16  # a band, not the 64 × 64 blocks
+    names = {n for n, _ in mod.named_buffers()}
+    assert f"bands_{d}" in names and f"CM{d}_p" not in names
+    got = mod(torch.from_numpy(x)).numpy()
+    spec = jspec.FilterSpec("B", (jspec.Dim("y", h), jspec.Dim("x", w)),
+                            tuple(js), border=border)
+    oracle = jsc.oracle_apply(spec, x.astype(np.float64))
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 2e-6 * peak
+    if d == "a":
+        want = np.asarray(jo2.fused_2d_px(jnp.asarray(x), 0, js[2:], 1,
+                                          js[:2], border, 6, True))
+        assert np.abs(got - want).max() <= 1e-5 * peak

@@ -175,7 +175,8 @@ def test_banded_solve_takes_a_leading_batch():
     ("last-axis", (128, 128), 1, 2)], ids=lambda c: c[0])
 def test_rows_gates_match_jax(case):
     """Where the JAX package's ``fused_rows_px`` declines (returns None),
-    the port raises NotImplementedError naming the ROADMAP item."""
+    the port's rows pass raises NotImplementedError naming the einsum pass
+    the router takes instead."""
     _, shape, axis, K = case
     x = np.zeros(shape, np.float32)
     scans = [(i % 2 == 0, (0.3, 0.1, 0.01)[:min(3, K - 3 * i)])
@@ -186,7 +187,7 @@ def test_rows_gates_match_jax(case):
     assert jo2.fused_rows_px(jnp.asarray(x), axis, js, "zero", 6,
                              True) is None
     with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 6|last axis"):
+                       match="FusedAxisPass|last axis"):
         to2.fused_rows_px(torch.from_numpy(x), axis, ts, "zero")
 
 
@@ -292,38 +293,100 @@ def test_route_matches_jax_and_oracle(case, monkeypatch):
     _check(got.numpy(), jsc.oracle_apply(js, x.astype(np.float64)))
 
 
+# Filters the port refused until the rotation chain came: each now takes
+# the JAX package's route (spied) and is held to it and the oracle.
 REFUSED = {
     # a volume whose depth is not a multiple of 128: JAX's rows pass
     # declines and its rotation chain runs
-    "volume-depth-100": lambda m: _spec(m, (100, 128, 128), (
+    "volume-depth-100": (lambda m: _spec(m, (100, 128, 128), (
         m.Scan(0, True, 1.0, (0.4,)), m.Scan(1, True, 1.0, (0.4,)),
-        m.Scan(2, True, 1.0, (0.4,)))),
+        m.Scan(2, True, 1.0, (0.4,)))), ["RotationChain"]),
     # the trailing pair declines after the rows pass: the chain finishes
-    "volume-pair-declines": lambda m: _spec(m, (128, 40, 128), (
+    # (x 16 wide: one 16-wide tile, the einsum form)
+    "volume-pair-declines": (lambda m: _spec(m, (128, 40, 16), (
         m.Scan(2, True, 1.0, (0.5,)), m.Scan(1, True, 1.0, (0.4,)),
         m.Scan(0, True, 1.0, (0.3,))), tiles=(128, 32, 128)),
+        ["FusedRowsPx", "RotationChain"]),
     # four trailing scanned axes: the rotation chain
-    "4-d": lambda m: _spec(m, (8, 8, 8, 8), tuple(
+    "4-d": (lambda m: _spec(m, (8, 8, 8, 8), tuple(
         m.Scan(i, True, 1.0, (0.4,)) for i in range(4)), tiles=(4,) * 4),
+        ["RotationChain"]),
     # a non-last axis the rows gates decline: JAX's einsum pass
-    "y-extent-200": lambda m: _spec(m, (200, 128), (
-        m.Scan(0, True, 1.0, (0.4,)),), tiles=(128, 0)),
+    "y-extent-200": (lambda m: _spec(m, (200, 128), (
+        m.Scan(0, True, 1.0, (0.4,)),), tiles=(128, 0)), ["FusedAxisPass"]),
 }
 
 
+def _jax_chain_route(js, x, monkeypatch, precision="px6"):
+    """:func:`_jax_route` with the JAX package's per-pass executor spied
+    too: ``_last_axis_pass_t`` calls made by the chain (rot_axes = Ds) are
+    recorded as one "RotationChain" entry."""
+    calls = []
+    orig = jdf._last_axis_pass_t
+
+    def spy(*a, **k):
+        calls.append(("_last_axis_pass_t", None))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jdf, "_last_axis_pass_t", spy)
+    if precision == "px6":
+        rcalls, y = _jax_route(js, x, monkeypatch)
+    else:
+        rcalls = []
+        monkeypatch.setattr(jdf, "fused_dim_pass", _spied(
+            rcalls, "FusedAxisPass", jdf.fused_dim_pass, 1))
+        y = np.asarray(jdf.apply_filter_fused(js, jnp.asarray(x),
+                                              tile_default=128,
+                                              matmul_precision=precision))
+    names = [  # fused_dim_pass on a non-last axis is FusedAxisPass
+        "FusedAxisPass" if name == "FusedLastAxis" and ax != x.ndim - 1
+        else name for name, ax in rcalls]
+    chain = len(calls) - sum(n == "FusedAxisPass" for n in names)
+    if chain:
+        names.append("RotationChain")
+    return names, y
+
+
+def _spied(calls, name, fn, axis_arg):
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        calls.append((name, a[axis_arg]))
+        return out
+    return wrapped
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
-def test_refused_routes_raise_naming_the_item(case):
-    ts = REFUSED[case](tspec)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tdf.fused_filter_module(ts)
+def test_refused_routes_raise_naming_the_item(case, monkeypatch):
+    """The filters this test held to a refusal while the rotation chain
+    was unported: each takes the JAX package's route — the same executors
+    in the same order — and agrees with the JAX package and the oracle."""
+    make, stages = REFUSED[case]
+    js, ts = _both(make)
+    x = _img(*[d.extent for d in js.dims], seed=len(case))
+    names, want = _jax_chain_route(js, x, monkeypatch)
+    mod = tdf.fused_filter_module(ts)
+    parts = list(mod.stages) if isinstance(mod, tdf.StagedPass) else [mod]
+    assert [type(m).__name__ for m in parts] == stages == names
+    got = mod(torch.from_numpy(x))
+    assert torch.equal(got, mod.forward_plain(torch.from_numpy(x)))
+    _check(got.numpy(), want)
+    _check(got.numpy(), jsc.oracle_apply(js, x.astype(np.float64)))
 
 
-def test_non_last_axis_at_highest_raises():
+def test_non_last_axis_at_highest_raises(monkeypatch):
     """At ``highest`` the JAX package runs its einsum pass on a non-last
-    axis (its rows kernels run at the px grades only): not ported."""
-    ts = _y_only("zero")(tspec)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdf.fused_filter_module(ts, "highest")
+    axis (its rows kernels run at the px grades only), and so does the
+    port: the y-only filter takes ``FusedAxisPass``, no rows pass, and
+    matches the JAX package's ``highest`` route and the oracle."""
+    js, ts = _both(_y_only("zero"))
+    x = _img(*[d.extent for d in js.dims], seed=7)
+    names, want = _jax_chain_route(js, x, monkeypatch, "highest")
+    mod = tdf.fused_filter_module(ts, "highest")
+    assert type(mod).__name__ == "FusedAxisPass" and names == [
+        "FusedAxisPass"]
+    got = mod(torch.from_numpy(x))
+    _check(got.numpy(), want)
+    _check(got.numpy(), jsc.oracle_apply(js, x.astype(np.float64)))
 
 
 @pytest.mark.parametrize("case", ["volume-clamp", "y-only-clamp"])

@@ -249,8 +249,8 @@ def test_stencil2d_routes_as_the_jax_package():
     """Off the 3-touch executor the bank runs on the filter's output
     (``Stencil2DAfter``): a y-only filter (the rows pass) and an integer
     SAT, against the JAX package; where the executor declines the bank
-    and the JAX package takes its rotation chain (padded extents, a reach
-    past 128), the port raises naming item 6."""
+    (padded extents, a reach past 128), the rotation chain runs and the
+    bank after it, as in the JAX package."""
     H, W = 256, 384
     w3 = tuple(rft.gaussian_weights(5.0, 3))
     yonly = [(0, True, w3[0], w3[1:]), (0, False, w3[0], w3[1:])]
@@ -270,8 +270,17 @@ def test_stencil2d_routes_as_the_jax_package():
             _peak_near(g, np.asarray(w), 1e-5)
     for h, w, bank in ((200, 256, SOBEL), (256, 256,
                                            [[(0, 129, 1.0)]])):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tdf.fused_filter_module(_spec(tspec, h, w, SAT), stencil2d=bank)
+        mod = tdf.fused_filter_module(_spec(tspec, h, w, SAT),
+                                      stencil2d=bank)
+        assert isinstance(mod, tdf.Stencil2DAfter)
+        assert isinstance(mod.body, tdf.RotationChain)
+        xin = _img(h, w, seed=h)
+        got = mod(torch.from_numpy(xin))
+        want = jdf.apply_filter_fused(_spec(jspec, h, w, SAT),
+                                      jnp.asarray(xin),
+                                      matmul_precision="px6", stencil2d=bank)
+        for g, w_ in zip(got, want):
+            _peak_near(g, np.asarray(w_), 1e-5)
     with pytest.raises(ValueError):
         tdf.fused_filter_module(_spec(tspec, H, W, SAT), stencil2d=SOBEL,
                                 epilogue=lambda o: o)
