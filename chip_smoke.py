@@ -91,6 +91,21 @@ N(0,1)·0.01 input (seed 0) unless stated:
       tails and associative solve, then ``completion_rot_tails`` (the
       image regime), y on the extracted tails.
 
+The learnable (training) path (``learnable.LearnableRecFilter``: float64
+coefficient parameters, each axis one fused pass on ``tails_traced`` and
+``completion_traced``, whose matrices are runtime tensors), float32, seed
+0:
+
+  L1  the σ=5 Gaussian of the 2-D headline as a learnable filter, causal +
+      anticausal on x and y, zero border, tile 128, 4096², N(0,1)·0.01
+      (``image``): one forward;
+  L2  10 Adam(2e-3) steps fitting L1's coefficients from a start with
+      every feedback vector scaled by 0.9 to L1's output (the same from
+      Adam(2e-2), printed: the step moves b0 = 0.0226 by ~90 %);
+  L3  a biquad (b0 0.3, a (0.9, −0.45): ``demo_system_id.py``'s), 8 ×
+      65,536 samples, tile 128: 512 tiles, the associative-scan solve;
+      10 Adam(2e-2) steps from a × 0.9.
+
 The integer route, on ``int_scan`` and ``int_seg_scan`` (bit exact, with
 wrap-around):
 
@@ -160,7 +175,17 @@ Phases:
      integrators with a padded first pass and with P = 3 leading slices
      chained, unchained and on the twins, bit-equal; phase 3f runs K1–K6
      (launch counts, the route and its tails reads, within 2e-6 of the
-     f64 oracle);
+     f64 oracle); phase 2g holds ``tails_traced`` and
+     ``completion_traced`` to their twins at L1's x-axis shapes (q 4096,
+     n 32, S 6: 1e-5 of the twin's peak, pad slots zeros), and phase 3g
+     runs L1 (``tails_traced`` and ``completion_traced`` twice each, no
+     other kernel, within 2e-6 of the f64 oracle), L2 (the first step's
+     coefficient gradients within rtol = 1e-4, atol = 1e-4·max|g| of the
+     plain path's — the twins on the card — and the loss falls over the
+     10 steps) and L3 (one launch each, within 2e-6 of
+     ``scipy.signal.lfilter``'s peak, gradients and a falling loss as
+     L2, the gradients also against autograd through the float64 einsum
+     route at 64-wide tiles, the same parameters);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
@@ -180,7 +205,12 @@ Phases:
      the whole calls of C1–C5; for ``completion_rot_tails`` at K3's first
      pass the same, beside ``completion_rot`` + ``tails`` and, as the
      library form, one ``matmul`` and one ``einsum`` (two calls), and the
-     whole calls of K1–K6. A
+     whole calls of K1–K6; for ``tails_traced`` and ``completion_traced``
+     at L1's x-axis shapes the same, with one ``matmul`` each as the
+     library form, the whole L1 and L3 forwards, and L2's training step
+     (event median, device ops per step); the L1 forward and L2 step (32
+     tiles) and L3's (512 tiles) with the cross-tile solve forced to the
+     dense solve from W powers and to the associative scan. A
      profiled window that comes back without device events is taken
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
@@ -188,8 +218,8 @@ Phases:
 The last line is the JSON result; the line before it is the card's name
 and power limit; before that a JSON line describes each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
-fp32 (67 TFLOP/s) or fp64 (33.5 TFLOP/s, the fp64-summing tails kernels)
-peak of an H100 SXM, or for the integer kernels over its int32 add rate
+fp32 (67 TFLOP/s) or fp64 (33.5 TFLOP/s, the fp64-summing tails kernels,
+``tails_traced`` among them) peak of an H100 SXM, or for the integer kernels over its int32 add rate
 (132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's unit
 count in NVIDIA's Hopper white paper).
 """
@@ -568,6 +598,241 @@ def sat_check(tag, got, want, m):
           "formulation oracle's peak")
     check(e_in <= 2e-4 * peak, f"{tag}: short of the far margin within 2e-4 "
           "of the oracle's peak")
+
+
+def learnable_kernels(rft, dev, size):
+    """Phase 2g: ``tails_traced`` and ``completion_traced`` against their
+    twins at L1's x-axis shapes — the σ=5 Gaussian's learnable matrices
+    (x: ΣK = 6) on ``image(size, size)`` as (size, size / 128, 128), the
+    carries solved from the twin's tails. Returns (model, x, the kernels'
+    inputs (X, G, Btot, Rcat, N), max|kernel − twin| per kernel)."""
+    import torch
+
+    from recfilter_tpu_torch import learnable as tlrn
+    from recfilter_tpu_torch.kernels import completion as kcomp
+
+    F = build_filter(rft, size, size, image(size, size))
+    model = tlrn.LearnableRecFilter(F.spec, tile_width=128, device=dev)
+    x = torch.from_numpy(image(size, size)).to(dev)
+    with torch.no_grad():
+        pl = [(s.causal, model.params[f"scan{i}"]["b0"],
+               model.params[f"scan{i}"]["a"])
+              for i, s in enumerate(F.spec.scans) if s.axis == 1]
+        base, G, Hc, Btot, Rhat = tlrn._dim_mats_learnable(pl, 128)
+        X = x.reshape(size, size // 128, 128)
+        Gcat = torch.cat(G).float()
+        Btot32, Rcat32 = Btot.float(), torch.cat(Rhat, 1).float()
+        bk = kcomp.tails_traced(X, Gcat)
+        bp = kcomp.tails_traced_plain(X, Gcat)
+        Nt8 = tlrn.traced_carries(bp, base, Hc)
+        yk = kcomp.completion_traced(X, Btot32, Rcat32, Nt8)
+        yp = kcomp.completion_traced_plain(X, Btot32, Rcat32, Nt8)
+    sync(dev)
+    S = Gcat.shape[0]
+    errs = {}
+    for name, got, want in (("tails_traced", bk, bp),
+                            ("completion_traced", yk, yp)):
+        err = rel_err(got, want)
+        errs[name] = (got - want).abs().max().item()
+        print(f"  L1 x pass {name} {tuple(X.shape)} -> {tuple(got.shape)}: "
+              f"max|k-p|/max|p| = {err:.3e}")
+        check(err <= 1e-5, f"L1 x pass {name} within 1e-5 of its twin's peak")
+    check(not bk[:, S:].any(), f"L1 x pass tails_traced: pad slots {S}..7 "
+          "written as zeros")
+    return model, x, (X, Gcat, Btot32, Rcat32, Nt8), errs
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def coeff_grads(model, fwd, x, target):
+    """The coefficient gradients of mean((fwd(x) − target)²), flattened."""
+    import torch
+
+    model.zero_grad()
+    ((fwd(x) - target) ** 2).mean().backward()
+    g = torch.cat([p.grad.flatten() for p in model.parameters()])
+    model.zero_grad()
+    return g
+
+
+def grads_match(label, model, x, target, ref=None):
+    """The first training step's coefficient gradients of mean((y − t)²)
+    through the kernels against the plain path (the twins on the same
+    device) and, given ``ref`` (a model with the same parameters on the
+    float64 einsum route), against autograd through it: within rtol =
+    1e-4 and atol = 1e-4 of the largest (the gradients of a mean over
+    16.7M pixels are ~1e-8, so a bare atol of 1e-4 would hold anything)."""
+    gk = coeff_grads(model, model.forward, x, target)
+    refs = [("plain path", coeff_grads(model, model.forward_plain, x,
+                                       target))]
+    if ref is not None:
+        refs.append(("float64 einsum route",
+                     coeff_grads(ref, ref.forward, x, target)))
+    for what, gp in refs:
+        dg, top = (gk - gp).abs(), gp.abs().max()
+        print(f"  {label}: first-step gradients, max|g_kernel - g| = "
+              f"{dg.max().item():.3e} against the {what} (max|g| = "
+              f"{top.item():.3e})")
+        check(bool((dg <= 1e-4 * gp.abs() + 1e-4 * top).all()),
+              f"{label}: gradients within rtol = 1e-4, atol = 1e-4·max|g| of "
+              f"the {what}'s")
+
+
+def perturbed(tlrn, spec, dev):
+    """A learnable filter of ``spec`` started with every feedback vector
+    scaled by 0.9."""
+    import torch
+
+    m = tlrn.LearnableRecFilter(spec, tile_width=128, device=dev)
+    with torch.no_grad():
+        for p in m.params.values():
+            p["a"].mul_(0.9)
+    return m
+
+
+def trainer(model, target, lr):
+    """A fresh Adam(lr) and one step of it on mean((model(x) − target)²),
+    as ``step(x)``, which returns the loss before the step."""
+    import torch
+
+    opt = torch.optim.Adam(model.parameters(), lr)
+
+    def step(v):
+        opt.zero_grad()
+        loss = ((model(v) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        return loss
+    return step
+
+
+def train(model, x, target, lr, steps=10):
+    """``steps`` Adam steps: the losses before each and after the last."""
+    import torch
+
+    step = trainer(model, target, lr)
+    losses = [step(x).item() for _ in range(steps)]
+    with torch.no_grad():
+        losses.append(((model(x) - target) ** 2).mean().item())
+    return losses
+
+
+def learnable_cases(rft, dev, l1, x1, samples, counts):
+    """Phase 3g: L1–L3 (module docstring) through LearnableRecFilter;
+    ``counts(fn, x)`` runs a forward with the launch counts set to 0 just
+    before and read just after. Returns (L1's launches, the L2 model, its
+    target, the L3 model and signal)."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch import dimfuse as tdf
+    from recfilter_tpu_torch import learnable as tlrn
+
+    h, w = x1.shape
+    with torch.no_grad():
+        y1, l1_launches = counts(l1, x1)
+    print(f"  L1 learnable Gaussian {h}x{w}: launches {l1_launches}")
+    check(l1_launches == {k: (2 if k in ("tails_traced", "completion_traced")
+                              else 0) for k in l1_launches},
+          "L1: tails_traced and completion_traced twice each (x, y), no "
+          "other kernel")
+    check(tuple(y1.shape) == (h, w) and bool(torch.isfinite(y1).all()),
+          f"L1: output finite, shape {(h, w)}")
+    err = oracle_err(l1.spec, image(h, w), y1)
+    print(f"  L1: max|y - oracle|/max|oracle| = {err:.3e}")
+    check(err <= 2e-6, "L1: within the px6 bound 2e-6 of the f64 oracle")
+
+    l2 = perturbed(tlrn, l1.spec, dev)
+    grads_match("L2", l2, x1, y1)
+    losses = train(l2, x1, y1, 2e-3)
+    print("  L2 losses, Adam(2e-3), 10 steps: "
+          + " ".join(f"{v:.6e}" for v in losses))
+    check(losses[-1] < losses[0], "L2: the loss falls over 10 Adam(2e-3) "
+          "steps")
+    print(f"  L2: falls at every step: "
+          f"{all(b < a for a, b in zip(losses, losses[1:]))}")
+    other = train(perturbed(tlrn, l1.spec, dev), x1, y1, 2e-2)
+    print("  L2 at Adam(2e-2), printed, not checked (b0 = 0.0226: a step "
+          "of ~lr moves it by 90 %): " + " ".join(f"{v:.6e}" for v in other))
+
+    spec3 = rft.FilterSpec("SysId", (rft.Dim("c", 8), rft.Dim("t", samples)),
+                           (rft.Scan(1, True, 0.3, (0.9, -0.45)),))
+    plan = tdf._plan_tiles(samples, 128, 2, False)
+    check(plan[0] == 128 and plan[1] > 128, f"L3: {plan[1]} tiles of 128, "
+          "the associative-scan solve (> 128 tiles)")
+    l3 = tlrn.LearnableRecFilter(spec3, tile_width=128, device=dev)
+    xs3 = signal((8, samples))
+    x3 = torch.from_numpy(xs3).to(dev)
+    with torch.no_grad():
+        y3, launches = counts(l3, x3)
+    print(f"  L3 biquad 8 x {samples}: launches {launches}")
+    check(launches == {k: (1 if k in ("tails_traced", "completion_traced")
+                           else 0) for k in launches},
+          "L3: tails_traced and completion_traced once each")
+    ref = lfilter_reference(spec3, xs3)
+    err = float(np.abs(y3.cpu().numpy().astype(np.float64) - ref).max()
+                / np.abs(ref).max())
+    print(f"  L3: max|y - lfilter|/max|lfilter| = {err:.3e}")
+    check(err <= 2e-6, "L3: within 2e-6 of scipy.signal.lfilter's peak")
+    l3p = perturbed(tlrn, spec3, dev)
+    # the same parameters at 64-wide tiles: no kernel, autograd through the
+    # float64 einsums, an independent check of the Functions' backward
+    ref = tlrn.LearnableRecFilter(spec3, tile_width=64, device=dev)
+    ref.load_state_dict(l3p.state_dict())
+    grads_match("L3", l3p, x3, y3, ref=ref)
+    del ref
+    losses = train(l3p, x3, y3, 2e-2)
+    print("  L3 losses, Adam(2e-2), 10 steps: "
+          + " ".join(f"{v:.6e}" for v in losses))
+    check(losses[-1] < losses[0], "L3: the loss falls over 10 Adam(2e-2) "
+          "steps")
+    return l1_launches, l2, y1, l3, x3
+
+
+def solve_branches(tlrn, label, mod, v, step, card):
+    """The learnable forward ``mod(v)`` and a training ``step(v)`` with
+    the cross-tile solve forced to the dense solve from W powers and to
+    the associative scan, interleaved dense, assoc, assoc, dense: CUDA-event
+    medians of 20 calls each and a profile of the step; both solves give
+    the same output within 1e-6 of its peak."""
+    import torch
+
+    from recfilter_tpu_torch.utils import timing
+
+    dense_max = tlrn._DENSE_SOLVE_MAX
+    force = {"dense": 1 << 30, "assoc": 0}
+    times, outs, profs = {}, {}, {}
+    try:
+        for name in ("dense", "assoc", "assoc", "dense"):
+            tlrn._DENSE_SOLVE_MAX = force[name]
+            with torch.no_grad():
+                fwd = timing.call_times_ms(mod, v, iterations=10, warmup=2)
+            st = timing.call_times_ms(step, v, iterations=10, warmup=2)
+            f0, s0 = times.setdefault(name, ([], []))
+            f0.extend(fwd)
+            s0.extend(st)
+        for name in force:
+            tlrn._DENSE_SOLVE_MAX = force[name]
+            with torch.no_grad():
+                outs[name] = mod(v)
+            profs[name] = timing.device_profile(step, v, iterations=5)
+    finally:
+        tlrn._DENSE_SOLVE_MAX = dense_max
+    check(rel_err(outs["assoc"], outs["dense"]) <= 1e-6,
+          f"{label}: the dense and associative solves give the same output")
+    n = v.shape[-1] // 128
+    for name, (fwd, st) in times.items():
+        pr = profs[name]
+        print(f"  {label} {name} solve ({n} tiles): forward event median "
+              f"{statistics.median(fwd):.4f} ms, step event median "
+              f"{statistics.median(st):.4f} ms (20 calls each); step profile:"
+              f" call {pr['call_ms']:.4f} ms, device busy {busy_text(pr)}, "
+              f"{pr['device_ops']:.0f} device ops on {card}")
 
 
 def main() -> int:
@@ -1030,6 +1295,11 @@ def main() -> int:
               f"{label}: chained, unchained and the twins bit-equal")
         del xi, yc, yu, yp
 
+    print("== phase 2g: tails_traced and completion_traced against their "
+          "twins on the card at L1's x-axis shapes", flush=True)
+    l1, x_l1, traced_in, errs = learnable_kernels(rft, dev, H)
+    max_abs.update(errs)
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
 
@@ -1450,6 +1720,14 @@ def main() -> int:
     k_case("K6 panorama", gauss_axes(rft, (512, 40960), (0, 1)),
            (512, 40960), dict(completion_rot_tails=1, completion_rot=1),
            [False, True])
+
+    print("== phase 3g: the learnable path end to end through "
+          "LearnableRecFilter: L1 forward, L2 training steps, L3 biquad",
+          flush=True)
+    l1_launches, l2, y_l1, l3, x_l3 = learnable_cases(rft, dev, l1, x_l1,
+                                                      65536, counted)
+    main_launches.update(tails_traced=l1_launches["tails_traced"],
+                         completion_traced=l1_launches["completion_traced"])
 
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
@@ -2024,6 +2302,63 @@ def main() -> int:
             whole_call(label, mod, v, v.numel(), top=True)
         del k_cases, mod3, x3
 
+    print("== phase 5h: tails_traced and completion_traced at L1's x-axis "
+          "shapes, the learnable calls and L2's training step (CUDA events, "
+          f"median of {4 * N_TIMED // 2} calls each)", flush=True)
+    with torch.no_grad():
+        X, Gcat, Btot32, Rcat32, Nt8 = traced_in
+        q, n, S = X.shape[0], X.shape[1], Gcat.shape[0]
+        bk = kcomp.tails_traced(X, Gcat)
+        yk = kcomp.completion_traced(X, Btot32, Rcat32, Nt8)
+        # one torch.matmul each: x (q·n, 128) by Gᵀ, and [x, Nᵀ] by
+        # [Btotᵀ; Rcatᵀ] (both operands staged outside the timed call)
+        XN = torch.cat([X, Nt8[:, :S].permute(2, 0, 1)], dim=2)
+        BR = torch.cat([Btot32.t(), Rcat32.t()])
+        check(rel_err(torch.matmul(X.reshape(-1, 128), Gcat.t()).reshape(
+            q, n, S).permute(1, 2, 0), bk[:, :S]) <= 1e-5
+            and rel_err(torch.matmul(XN, BR), yk) <= 1e-5,
+            "L1: the library calls compute the traced kernels' functions")
+        r = timed("L1 x tails_traced", kcomp.tails_traced,
+                  kcomp.tails_traced_plain,
+                  lambda v, g: torch.matmul(v.reshape(-1, 128), g.t()),
+                  (X, Gcat), tensor_bytes(X, Gcat, bk), 2.0 * S * X.numel(),
+                  PEAK_FP64, main_launches["tails_traced"])
+        times["tails_traced"], dev_t["tails_traced"] = r[0], r[1]
+        extra["tails_traced"] = (*r[2], r[3])
+        r = timed("L1 x completion_traced", kcomp.completion_traced,
+                  kcomp.completion_traced_plain,
+                  lambda *a: torch.matmul(XN, BR), (X, Btot32, Rcat32, Nt8),
+                  tensor_bytes(X, Btot32, Rcat32, Nt8, yk),
+                  2.0 * (128 + S) * X.numel(), PEAK_FP32,
+                  main_launches["completion_traced"])
+        times["completion_traced"], dev_t["completion_traced"] = r[0], r[1]
+        extra["completion_traced"] = (*r[2], r[3])
+        del bk, yk, XN, BR, traced_in, X, Nt8
+        whole_call("L1 LearnableRecFilter forward 4096²", l1, x_l1, H * W,
+                   top=True)
+        whole_call("L3 biquad forward 8 x 65,536", l3, x_l3, x_l3.numel(),
+                   top=True)
+    step = trainer(l2, y_l1, 2e-3)
+    step_ms = statistics.median(timing.call_times_ms(step, x_l1,
+                                                     iterations=10, warmup=2))
+    prof = timing.device_profile(step, x_l1, iterations=5)
+    print(f"  L2 training step (forward, backward, Adam) at 4096²: event "
+          f"median {step_ms:.4f} ms; profile: call {prof['call_ms']:.4f} ms, "
+          f"device busy {busy_text(prof)}, {prof['device_ops']:.0f} device "
+          f"ops per step on {card}; top: " + ", ".join(
+              f"{nm[:40]} {ms:.4f} ms" for nm, ms in prof["top"]))
+
+    # the cross-tile solve on each side of the branch point (128 tiles)
+    from recfilter_tpu_torch import learnable as tlrn
+
+    # (a step's time does not depend on its rate: a small one keeps the
+    # filter stable while Adam follows the near-zero gradients of a fit to
+    # its own output)
+    with torch.no_grad():
+        step3 = trainer(l3, l3(x_l3), 2e-4)
+    solve_branches(tlrn, "L1/L2", l1, x_l1, step, card)
+    solve_branches(tlrn, "L3", l3, x_l3, step3, card)
+
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"recfilter_tpu_torch/kernels/csrc/{src or name}.cu",
@@ -2048,6 +2383,10 @@ def main() -> int:
              "recfilter_tpu/kernels/completion.py:464"),
             ("completion_rot_tails", "completion",
              "recfilter_tpu/kernels/completion.py:464"),
+            ("tails_traced", "tails",
+             "recfilter_tpu/kernels/completion.py:823"),
+            ("completion_traced", "completion",
+             "recfilter_tpu/kernels/completion.py:881"),
             ("stencil2d", None, "recfilter_tpu/kernels/stencil2d.py:109"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "

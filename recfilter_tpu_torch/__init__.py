@@ -30,7 +30,12 @@ plain PyTorch twins on the CPU:
     stencil2d=)``: the rotated emit (``Plan.rotate_emit``,
     ``dimfuse.RotatedPass``) with its 1-D stencil on ``completion_rot``, a
     2-D bank on ``final2d_stencil`` or ``stencil2d`` — the SAT forms of
-    the box and DoG apps.
+    the box and DoG apps;
+  * the learnable (training) path, ``learnable.LearnableRecFilter``: any
+    filter's coefficients as trainable parameters, each axis one fused pass
+    on ``tails_traced``/``completion_traced`` (runtime matrices, gradients
+    for the coefficients) where the JAX package's kernel gate holds, float64
+    einsums elsewhere.
 
 The JAX package ``recfilter_tpu`` is the reference; this package imports
 neither it nor jax. Filters run on the card unless the caller asks for
@@ -57,6 +62,10 @@ the CPU (``device="cpu"``).
     from recfilter_tpu_torch.apps import box_filter_3, summed_table
     blur = box_filter_3(4096, 4096, B=5)(image_on_the_card)
     sat = summed_table(4096, 4096, dtype="int32").realize(int_image)
+
+    model = rft.LearnableRecFilter(F.spec, tile_width=128)
+    opt = torch.optim.Adam(model.parameters(), 2e-2)
+    ((model(image) - target) ** 2).mean().backward(); opt.step()
 """
 
 from .api import RecFilter
@@ -66,6 +75,8 @@ from .dimfuse import (FusedAxisPass, FusedLastAxis, IntUnitPass,
 from .fir import FirPass, FirSeparable2D, fir_pass_last, fir_separable_2d
 from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
+from .learnable import (LearnableRecFilter, fused_dim_learnable,
+                        params_from_jax)
 from .overlap2d import Fused2DPx, FusedRowsPx, fused_2d_px, fused_rows_px
 from .planner import Plan
 from .scan_core import oracle_apply
@@ -83,6 +94,7 @@ __all__ = [
     "FusedAxisPass",
     "FusedRowsPx", "fused_rows_px", "StagedPass", "IntUnitPass",
     "FirPass", "FirSeparable2D", "fir_pass_last", "fir_separable_2d",
+    "LearnableRecFilter", "fused_dim_learnable", "params_from_jax",
     "CheckResult", "CheckResultVerbose", "generate_random_image",
 ]
 

@@ -415,9 +415,26 @@ def _banded_solve_apply_nat(bands, braw):
     return N
 
 
+def affine_scan(A, s):
+    """Inclusive scan of the affine maps v ↦ A_t·v + s_t along axis 1 of
+    ``s`` (a, n, k), ``A`` (n, k, k): v_t = A_t·v_{t-1} + s_t from
+    v_{-1} = 0, in log₂ n Hillis–Steele steps — the JAX package's
+    ``jax.lax.associative_scan`` over (W, b) pairs. Differentiable in both
+    (the learnable executor's W is a runtime tensor)."""
+    n = s.shape[1]
+    off = 1
+    while off < n:
+        # element t absorbs element t - off: (A_t A_{t-off}, A_t s_{t-off} + s_t)
+        s = torch.cat([s[:, :off], s[:, off:] + torch.einsum(
+            "nij,anj->ani", A[off:], s[:, :-off])], dim=1)
+        A = torch.cat([A[:off], A[off:] @ A[:-off]], dim=0)
+        off *= 2
+    return s
+
+
 def _chain_solve_assoc(b, causal: bool, W, Jk):
     """Solve one scan's cross-tile recurrence with a log-depth associative
-    scan over (W, b) affine pairs (Hillis–Steele: log₂ n steps).
+    scan over (W, b) affine pairs (:func:`affine_scan`).
 
     ``b`` is (a, n, k) natural local tails, ``W`` the k×k transfer of a
     carry across one tile, ``Jk`` the k×k flip; returns the natural
@@ -427,14 +444,7 @@ def _chain_solve_assoc(b, causal: bool, W, Jk):
     # causal: s_t = W s_{t-1} + Jk b_t, N_t = Jk s_{t-1}; anticausal: the
     # same recurrence over reversed tiles with identity converters
     s = torch.einsum("ij,anj->ani", Jk, b) if causal else b.flip(1)
-    A = W.expand(n, k, k)
-    off = 1
-    while off < n:
-        # element t absorbs element t - off: (A_t A_{t-off}, A_t s_{t-off} + s_t)
-        s = torch.cat([s[:, :off], s[:, off:] + torch.einsum(
-            "nij,anj->ani", A[off:], s[:, :-off])], dim=1)
-        A = torch.cat([A[:off], A[off:] @ A[:-off]], dim=0)
-        off *= 2
+    s = affine_scan(W.expand(n, k, k), s)
     s_prev = F.pad(s[:, :-1], (0, 0, 1, 0))
     if causal:
         return torch.einsum("ij,anj->ani", Jk, s_prev)

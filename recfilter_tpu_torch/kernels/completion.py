@@ -33,6 +33,13 @@ rows, zero-padded (S ≤ 56). The JAX package chose 8 for the TPU's sublane
 quantum; the port keeps the layout so both packages exchange the same
 arrays, and the CUDA kernels take it as is.
 
+The learnable executor's forms take their matrices as runtime tensors
+built from trainable coefficients: :func:`tails_traced` (``tails.cu``'s
+``tails_traced`` entry) and :func:`completion_traced` (``completion.cu``'s
+``completion_traced``), one matrix for every tile, the carries in one
+slot. Both are bilinear, so their autograd Functions save the inputs and
+return the matrices' gradients too (the JAX package's custom VJPs).
+
 Each module holds its host-built matrices as buffers. ``forward`` launches
 the CUDA kernel for a CUDA tensor (through :class:`.launch._KernelFn`,
 whose backward is the twin's VJP: both passes are linear) and runs the
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .launch import _check, _KernelFn, _launch
@@ -439,3 +447,131 @@ class CompletionPass(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, N, *halos)
         return self.plain(x, N, *halos)
+
+
+# ---------------------------------------------------------------------------
+# The learnable executor's kernels: runtime matrices, one slot of carries
+# ---------------------------------------------------------------------------
+
+
+def tails_traced_plain(x, G):
+    """The twin of ``tails_traced``: x (q, n, T) and the runtime tail rows
+    G (S ≤ 8, T) → (n, 8, q), ``out[t, s, l] = Σ_τ G[s, τ]·x[l, t, τ]``
+    for s < S and zeros below, summed in float64 from the float32 values,
+    as the kernel sums them."""
+    out = torch.einsum("st,qnt->nsq", G.double(), x.double()).float()
+    return F.pad(out, (0, 0, 0, _SLOTS - G.shape[0]))
+
+
+def completion_traced_plain(x, Btot, Rcat, N):
+    """The twin of ``completion_traced``: x (q, n, T), Btot (T, T), Rcat
+    (T, S ≤ 8), N (n, 8, q) → ``Y[l, t] = Btot·x[l, t] + Rcat·N[t, :S, l]``
+    (q, n, T) in float32 (the kernel's fp32 products)."""
+    return (torch.einsum("os,qns->qno", Btot, x)
+            + torch.einsum("ou,nuq->qno", Rcat, N[:, :Rcat.shape[1]]))
+
+
+def _tails_traced_kernel(x, G):
+    q, n = x.shape[0], x.shape[1]
+    S = G.shape[0]
+    _check(x, "x", (q, n, TILE), x.device)
+    _check(G, "G", (S, TILE), x.device)
+    if not 1 <= S <= _SLOTS:
+        raise ValueError(f"tails_traced takes 1..{_SLOTS} tail rows, got {S}")
+    _grid_ok("tails_traced", n, -(-q // 64))
+    out = torch.empty((n, _SLOTS, q), device=x.device)
+    _launch("tails_traced", (x.data_ptr(), G.data_ptr(), out.data_ptr(),
+                             q, n, S), x.device)
+    return out
+
+
+def _completion_traced_kernel(x, Btot, Rcat, N):
+    q, n = x.shape[0], x.shape[1]
+    S = Rcat.shape[1]
+    _check(x, "x", (q, n, TILE), x.device)
+    _check(Btot, "Btot", (TILE, TILE), x.device)
+    _check(Rcat, "Rcat", (TILE, S), x.device)
+    _check(N, "N", (n, _SLOTS, q), x.device)
+    if not 1 <= S <= _SLOTS:
+        raise ValueError(f"completion_traced takes 1..{_SLOTS} carries, "
+                         f"got {S}")
+    _grid_ok("completion_traced", n, -(-q // TILE))
+    y = torch.empty_like(x)
+    _launch("completion_traced", (
+        x.data_ptr(), N.data_ptr(), Btot.data_ptr(), Rcat.data_ptr(),
+        y.data_ptr(), q, n, S), x.device)
+    return y
+
+
+class _TailsTraced(torch.autograd.Function):
+    """Forward through the kernel (a CUDA tensor, unless ``plain``) or the
+    twin; backward: the twin's einsums at the saved inputs, cotangents for
+    x and G (``tails_pass_traced``'s custom VJP). fp32 products."""
+
+    @staticmethod
+    def forward(ctx, x, G, plain):
+        ctx.save_for_backward(x, G)
+        if x.is_cuda and not plain:
+            return _tails_traced_kernel(x, G)
+        return tails_traced_plain(x, G)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, G = ctx.saved_tensors
+        c = ct[:, :G.shape[0]]
+        gx = gG = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.einsum("nsq,st->qnt", c, G)
+        if ctx.needs_input_grad[1]:
+            gG = torch.einsum("nsq,qnt->st", c, x)
+        return gx, gG, None
+
+
+class _CompletionTraced(torch.autograd.Function):
+    """Forward through the kernel (a CUDA tensor, unless ``plain``) or the
+    twin; backward: the twin's einsums at the saved inputs, cotangents for
+    x, Btot, Rcat and N (zeros on N's pad slots) —
+    ``completion_pass_traced``'s custom VJP. fp32 products."""
+
+    @staticmethod
+    def forward(ctx, x, Btot, Rcat, N, plain):
+        ctx.save_for_backward(x, Btot, Rcat, N)
+        if x.is_cuda and not plain:
+            return _completion_traced_kernel(x, Btot, Rcat, N)
+        return completion_traced_plain(x, Btot, Rcat, N)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, Btot, Rcat, N = ctx.saved_tensors
+        S = Rcat.shape[1]
+        need = ctx.needs_input_grad
+        gx = gB = gR = gN = None
+        if need[0]:
+            gx = torch.einsum("qno,os->qns", ct, Btot)
+        if need[1]:
+            gB = torch.einsum("qno,qns->os", ct, x)
+        if need[2]:
+            gR = torch.einsum("qno,nuq->ou", ct, N[:, :S])
+        if need[3]:
+            gN = F.pad(torch.einsum("qno,ou->nuq", ct, Rcat),
+                       (0, 0, 0, N.shape[1] - S))
+        return gx, gB, gR, gN, None
+
+
+def tails_traced(x, G, plain: bool = False):
+    """Local tails with runtime tail rows: x (q, n, 128) float32, G (S ≤ 8,
+    128) float32 → the slot-padded transposed tails (n, 8, q) (the JAX
+    package's ``tails_pass_traced``). A CUDA tensor launches the
+    ``tails_traced`` kernel (``plain``: the twin on the card); a CPU tensor
+    runs the twin. Differentiable in x and G."""
+    return _TailsTraced.apply(x, G, plain)
+
+
+def completion_traced(x, Btot, Rcat, N, plain: bool = False):
+    """``Y[l, t] = Btot·x[l, t] + Rcat·N[t, :S, l]`` with runtime matrices:
+    x (q, n, 128), Btot (128, 128), Rcat (128, S ≤ 8), N (n, 8, q), all
+    float32 → Y (q, n, 128) (the JAX package's ``completion_pass_traced``).
+    A CUDA tensor launches the ``completion_traced`` kernel (``plain``: the
+    twin on the card); a CPU tensor runs the twin. Differentiable in every
+    tensor input."""
+    return _CompletionTraced.apply(x, Btot, Rcat, N, plain)

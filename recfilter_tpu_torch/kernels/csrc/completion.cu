@@ -27,6 +27,18 @@
 // 10M samples and sl = 8). fp32 FMA throughout; no wgmma, TMA or TF32 yet.
 // Shared memory is 2 * (128 + sl) * 128 * 4 B: 139 KB at sl = 8, 188 KB at
 // sl = 56, one block per SM.
+//
+// completion_traced (TRACED = true): the learnable executor's completion,
+// replacing recfilter_tpu/kernels/completion.py::completion_pass_traced.
+// The same GEMM with sl = 8, one variant, but Btot (128, 128) and Rcat
+// (128, S <= 8) are runtime matrices built from trainable coefficients, in
+// their natural layout: the block transposes them on the way into shared
+// memory (B[kk][o] = Btot[o][kk], Rcat[o][kk-128]; consecutive threads take
+// consecutive outputs o, so the stores are free of bank conflicts) and
+// zeros the slot rows past S, on both operands: N's pad rows are never
+// read. So the caller runs no cat, pad or transpose per call. Staging
+// the transpose costs each block one 64 KB read of Btot, from L2 after the
+// first blocks, as the static path's [Btot^T; Rcat^T] does.
 
 #include "common.cuh"
 
@@ -36,12 +48,17 @@ constexpr int T = rf::GT;                  // tile width, and lines per block
 constexpr int THREADS = rf::GEMM_THREADS;  // 16 x 16, 8 x 8 outputs each
 constexpr int MAX_SL = 56;                 // carry rows the layout takes
 
+// S: the carry rows read from N (sl for the static entry, the real rows of
+// Rcat for the traced one); rows S..sl-1 of the contraction are zeros.
+template <bool TRACED>
 __global__ void __launch_bounds__(THREADS, 1)
 completion_kernel(const float* __restrict__ x,   // (q, n, T)
                   const float* __restrict__ N,   // (n, sl, q)
-                  const float* __restrict__ BR,  // (nv, T + sl, T)
+                  const float* __restrict__ BR,  // (nv, T + sl, T); traced:
+                                                 // Btot (T, T)
+                  const float* __restrict__ Rc,  // traced: Rcat (T, S)
                   float* __restrict__ y,         // (q, n, T)
-                  int q, int n, int sl, int nv) {
+                  int q, int n, int sl, int nv, int S) {
   extern __shared__ float4 smem4[];
   const int depth = T + sl;
   float* As = reinterpret_cast<float*>(smem4);  // depth x T, columns: lines
@@ -66,9 +83,25 @@ completion_kernel(const float* __restrict__ x,   // (q, n, T)
   const float* Nt = N + (long)t * sl * q;
   for (int i = tid; i < sl * T; i += THREADS) {
     const int s = i / T, l = i % T;
-    As[(T + s) * T + l] = l0 + l < q ? Nt[(long)s * q + l0 + l] : 0.f;
+    As[(T + s) * T + l] =
+        (s < S && l0 + l < q) ? Nt[(long)s * q + l0 + l] : 0.f;
   }
-  rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
+  if constexpr (TRACED) {
+    for (int i = tid; i < T * (T / 4); i += THREADS) {
+      const int o = i % T, c4 = i / T;
+      const float4 b = reinterpret_cast<const float4*>(BR + (long)o * T)[c4];
+      Bs[(4 * c4 + 0) * T + o] = b.x;
+      Bs[(4 * c4 + 1) * T + o] = b.y;
+      Bs[(4 * c4 + 2) * T + o] = b.z;
+      Bs[(4 * c4 + 3) * T + o] = b.w;
+    }
+    for (int i = tid; i < sl * T; i += THREADS) {
+      const int s = i / T, o = i % T;
+      Bs[(T + s) * T + o] = s < S ? Rc[(long)o * S + s] : 0.f;
+    }
+  } else {
+    rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
+  }
   __syncthreads();
 
   float c[8][8];
@@ -360,13 +393,32 @@ extern "C" int completion_launch(const float* x, const float* N,
                                  int sl, int nv, void* stream) {
   if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      completion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      completion_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       2 * (T + MAX_SL) * T * (int)sizeof(float));
   if (err != cudaSuccess) return (int)err;
   const int smem = 2 * (T + sl) * T * (int)sizeof(float);
   const dim3 grid(n, (q + T - 1) / T);
-  completion_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, N, BR, y, q, n, sl, nv);
+  completion_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, N, BR, nullptr, y, q, n, sl, nv, sl);
+  return (int)cudaGetLastError();
+}
+
+// the learnable executor's completion: N (n, 8, q), Btot (T, T) and Rcat
+// (T, S) as they are (see completion_kernel<true>)
+extern "C" int completion_traced_launch(const float* x, const float* N,
+                                        const float* Btot, const float* Rcat,
+                                        float* y, int q, int n, int S,
+                                        void* stream) {
+  constexpr int sl = 8;
+  if (S < 1 || S > sl) return (int)cudaErrorInvalidValue;
+  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, N, Btot, Rcat, y, q, n, sl, 1, S);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,9 @@
 // to (n, sl + He, q): rows sl.. carry E_v(t) * x[l, t, :], summed in fp64
 // like the tails.
 //
+// A third entry, tails_traced_launch, runs tails_kernel on a runtime
+// (S, 128) matrix (the learnable executor's; see the entry).
+//
 // What bounds it: it reads 4 B per sample and writes 4*sl/128 B, with S
 // MACs per sample, so on an H100 it is bound by device-memory bandwidth
 // (40 MB at 10M samples). The design: one block per (tile, 64 lines);
@@ -221,6 +224,19 @@ extern "C" int tails_launch(const float* x, const float* G, float* out,
                                (cudaStream_t)stream)
               : launch<float>(x, G, out, q, n, S, sl, 0, nv,
                               (cudaStream_t)stream);
+}
+
+// tails_traced: the learnable executor's tails, G a runtime (S, 128)
+// matrix built from trainable coefficients (S <= 8), unpadded. Replaces
+// recfilter_tpu/kernels/completion.py::tails_pass_traced (the same Pallas
+// kernel on in-graph chunk splits). tails_kernel reads only the S real rows
+// of a one-variant stack and writes zeros on the slot rows up to 8, so the
+// (S, 128) matrix is taken as it is and the caller pads nothing. The
+// output is the (n, 8, q) layout of tails; fp64 sums, as tails.
+extern "C" int tails_traced_launch(const float* x, const float* G, float* out,
+                                   int q, int n, int S, void* stream) {
+  if (S < 1 || S > 8) return (int)cudaErrorInvalidValue;
+  return launch<double>(x, G, out, q, n, S, 8, 0, 1, (cudaStream_t)stream);
 }
 
 // the same tails with He extra rows below the sl slot rows: a kernel of

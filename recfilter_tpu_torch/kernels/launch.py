@@ -11,20 +11,27 @@ autograd rule for all of them.
     rotated emit that also extracts the next pass's tails,
     ``completion_rot_tails``, and
     ``tails``, whose extra-row form (a stencil's halo bases) is
-    ``tails_extra``.
+    ``tails_extra``. The learnable executor's two kernels, whose matrices
+    are runtime tensors, are entries of the same sources:
+    ``tails_traced`` and ``completion_traced``.
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
   * :func:`_check` — what every wrapper verifies before it passes a pointer.
   * :class:`_KernelFn` — the ``torch.autograd.Function`` of the float
-    kernels' CUDA path: forward through ``mod._kernel``, backward through
-    the VJP of the module's plain twin (``mod._twin`` where the module
-    defines one, else ``mod.plain``; every float kernel is a linear map of
-    its tensor inputs, so the VJP is taken at zero — :func:`_linear_vjp`).
-    An input the twin does not read — the stencil consumers' halo strips,
-    which the twins recompute from the whole output — gets a zero
-    gradient, as in the JAX package's VJPs. The integer kernels have no
-    gradient.
+    kernels' CUDA path whose matrices are host constants (module buffers):
+    forward through ``mod._kernel``, backward through the VJP of the
+    module's plain twin (``mod._twin`` where the module defines one, else
+    ``mod.plain``; each such kernel is a linear map of its tensor inputs,
+    so the VJP is taken at zero — :func:`_linear_vjp`). An input the twin
+    does not read — the stencil consumers' halo strips, which the twins
+    recompute from the whole output — gets a zero gradient, as in the JAX
+    package's VJPs. ``tails_traced`` and ``completion_traced`` take their
+    matrices as inputs, so they are bilinear (in the signal and the
+    matrices) and a VJP at zero would lose the matrices' gradients: their
+    Functions (``completion._TailsTraced``, ``completion._CompletionTraced``)
+    save the inputs and take the twins' einsums at the primal point. The
+    integer kernels have no gradient.
 """
 
 from __future__ import annotations
@@ -51,10 +58,12 @@ SIGNATURES = {
     "moments2d": _sig("moments2d", ("moments2d", 9, 8)),
     "final2d": _sig("final2d", ("final2d", 6, 5)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
-    "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7)),
+    "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
+                  ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
                        ("completion_rot", 7, 9),
-                       ("completion_rot_tails", 6, 7)),
+                       ("completion_rot_tails", 6, 7),
+                       ("completion_traced", 5, 3)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
     "fir_band": _sig("fir_band", ("fir_band", 3, 7)),

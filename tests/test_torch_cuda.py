@@ -826,3 +826,123 @@ def test_chain_routes_on_the_card(dev):
         want = rft.oracle_apply(spec, img.astype(np.float64))
         assert (np.abs(y.cpu().numpy() - want).max()
                 <= 2e-6 * np.abs(want).max())
+
+
+def _traced_inputs(q, n, S, dev, seed):
+    """x, G, Btot, Rcat and slot-padded carries N (pad rows NaN: the kernel
+    must not read them) for the traced kernels, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    N = torch.full((n, 8, q), float("nan"), device=dev)
+    N[:, :S] = f(n, S, q)
+    return f(q, n, T), f(S, T), 0.1 * f(T, T), f(T, S), N
+
+
+@pytest.mark.parametrize("S", [1, 2, 6, 8])
+@pytest.mark.parametrize("q,n", [(8, 512), (300, 3), (4096, 32)])
+def test_traced_kernels_match_twins(S, q, n, dev):
+    """tails_traced and completion_traced against their twins: within 1e-5
+    of the twin's peak, the tails' pad slots written as zeros, N's pad rows
+    never read (NaN there), one launch each."""
+    x, G, Btot, Rcat, N = _traced_inputs(q, n, S, dev, S + q)
+    tl.reset_launches()
+    b = tc.tails_traced(x, G)
+    y = tc.completion_traced(x, Btot, Rcat, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_traced=1, completion_traced=1)
+    assert b.shape == (n, 8, q) and not b[:, S:].any()
+    assert _rel(b, tc.tails_traced_plain(x, G)) <= 1e-5
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, tc.completion_traced_plain(x, Btot, Rcat, N)) <= 1e-5
+
+
+def test_traced_kernel_gradients_match_the_twins(dev):
+    """Gradients through the Functions with the kernels forward equal those
+    with the twins forward (the backward is the same einsums): every
+    input, the matrices included."""
+    S, q, n = 6, 64, 4
+    x, G, Btot, Rcat, N = _traced_inputs(q, n, S, dev, 3)
+    N = torch.nan_to_num(N)
+    ct_b = torch.randn(n, 8, q, device=dev)
+    ct_y = torch.randn(q, n, T, device=dev)
+    grads = []
+    for plain in (False, True):
+        ins = [t.clone().requires_grad_() for t in (x, G, Btot, Rcat, N)]
+        loss = ((tc.tails_traced(ins[0], ins[1], plain) * ct_b).sum()
+                + (tc.completion_traced(ins[0], *ins[2:], plain) * ct_y).sum())
+        grads.append(torch.autograd.grad(loss, ins))
+    for gk, gp in zip(*grads):
+        assert torch.allclose(gk, gp, rtol=1e-4, atol=1e-4)
+
+
+def test_traced_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, G, Btot, Rcat, N = _traced_inputs(16, 2, 6, dev, 5)
+    with pytest.raises(ValueError):
+        tc.tails_traced(x, torch.zeros(9, T, device=dev))
+    with pytest.raises(TypeError):
+        tc.tails_traced(x, G.double())
+    with pytest.raises(ValueError):
+        tc.completion_traced(x, Btot.t(), Rcat, N)
+    with pytest.raises(ValueError):
+        tc.completion_traced(x, Btot, Rcat, N[:, :6].contiguous())
+    with pytest.raises(ValueError):
+        tc.completion_traced(x, Btot, Rcat.cpu(), N)
+
+
+def test_learnable_gaussian_on_the_card(dev):
+    """The σ=5 Gaussian as a LearnableRecFilter at 512² (x and y on the
+    traced kernels): within 2e-6 of the f64 oracle, two launches of each
+    traced kernel per forward, and coefficient gradients within
+    rtol = atol = 1e-4 of the plain path's (the twins on the card)."""
+    from recfilter_tpu_torch.learnable import LearnableRecFilter
+
+    h = w = 512
+    img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+           ).astype(np.float32)
+    x, y = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("GaussianIIR")
+    F[y, x] = img
+    for d in (+x, -x, +y, -y):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    m = LearnableRecFilter(F.spec, tile_width=128, device=dev)
+    xt = torch.from_numpy(img).to(dev)
+    tl.reset_launches()
+    with torch.no_grad():
+        out = m(xt)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_traced=2, completion_traced=2)
+    want = rft.oracle_apply(F.spec, img.astype(np.float64))
+    assert (np.abs(out.cpu().numpy() - want).max()
+            <= 2e-6 * np.abs(want).max())
+    target = out * 1.1
+    grads = []
+    for fwd in (m.forward, m.forward_plain):
+        m.zero_grad()
+        ((fwd(xt) - target) ** 2).mean().backward()
+        grads.append([p.grad.clone() for p in m.parameters()])
+    for gk, gp in zip(*grads):
+        assert torch.allclose(gk, gp, rtol=1e-4, atol=1e-4)
+
+
+def test_learnable_biquad_on_the_card(dev):
+    """One scan per axis (a biquad, 8 × 32,768: 256 tiles, the associative
+    solve): its Btot is the scan's own B, which the kernel takes as it is
+    built; within 2e-6 of scipy.signal.lfilter's peak, one launch each."""
+    from scipy.signal import lfilter
+
+    from recfilter_tpu_torch.learnable import LearnableRecFilter
+
+    n = 32768
+    spec = rft.FilterSpec("SysId", (rft.Dim("c", 8), rft.Dim("t", n)),
+                          (Scan(1, True, 0.3, (0.9, -0.45)),))
+    sig = np.random.default_rng(6).standard_normal((8, n)).astype(np.float32)
+    m = LearnableRecFilter(spec, tile_width=128, device=dev)
+    tl.reset_launches()
+    with torch.no_grad():
+        out = m(torch.from_numpy(sig).to(dev))
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_traced=1, completion_traced=1)
+    want = lfilter([0.3], [1.0, -0.9, 0.45], sig.astype(np.float64))
+    assert (np.abs(out.cpu().numpy() - want).max()
+            <= 2e-6 * np.abs(want).max())
