@@ -65,7 +65,8 @@ The rotated emit and the fused consumers, on ``final2d_stencil``,
   C4  a y-only σ=5 Gaussian on 4096², then a 2-channel Sobel bank
       (``as_func(stencil2d=)``): the rows kernels, then ``stencil2d``;
   C5  the headline Gaussian at 4096² with the unsharp combine 2a − o as
-      its epilogue (aux: the image);
+      its epilogue (aux: the image), affine: inside ``final2d``'s store
+      loop (``final2d_epi``);
   C6  a 2nd-order x integral with ``rotate_emit=2`` on (2, 1024, 2048)
       with per-slice DoG taps: the per-slice branch.
 
@@ -105,6 +106,31 @@ coefficient parameters, each axis one fused pass on ``tails_traced`` and
   L3  a biquad (b0 0.3, a (0.9, −0.45): ``demo_system_id.py``'s), 8 ×
       65,536 samples, tile 128: 512 tiles, the associative-scan solve;
       10 Adam(2e-2) steps from a × 0.9.
+
+The unsharp mask, the cascade and Tuple API and the affine epilogue in
+the completion kernels (``final2d_epi``, ``completion_epi``,
+``completion_rot_epi``: ``a·y + Σᵢ bᵢ·auxᵢ + c`` in the store loop),
+float32, px6:
+
+  U1  ``apps.unsharp_mask(4096, 4096)`` (σ = 5, weight 1) on ``image``:
+      the merged route — ``fuse_cascade`` of ``gaussian_3x_3y``, the 3-touch
+      executor, the combine (1 + w)·I − w·blur in ``final2d``'s store loop;
+  U2  the same with ``fused=False``: the two stages, then the combine as
+      torch ops;
+  U3  the staged route at ``highest``, 1024² (no launch);
+  T1  a Tuple (a, b) of two 4096² images under the headline Gaussian with
+      the epilogue 2u − 3v: folded into the input, one channel filtered;
+  T2  T1 with u·v: the stacked pass (batch 2), then the product;
+  T3  T1 with clamp(2u − 3v, −50, 50), the components ×1e5 so the clip
+      binds: not folded;
+  CA  ``compute_at`` of the unsharp combine on the headline filter;
+  E1  the order-2 audio filter of A on 64 channels × 32,768 samples, tile
+      128, with the dry/wet mix 0.7·y + 0.3·x (one tiled pass: ``tails``,
+      then ``completion_epi``; a bare 10M-sample signal is one line, below
+      the kernels' 8, and an epilogue declines the supertile hierarchy, so
+      its mix runs on the einsum form in both packages);
+  E2  K1 with the unsharp combine on the chain's last pass
+      (``completion_rot_epi``).
 
 The integer route, on ``int_scan`` and ``int_seg_scan`` (bit exact, with
 wrap-around):
@@ -149,10 +175,11 @@ Phases:
      peak of the difference. I1 and I2 launch ``int_scan`` once per axis,
      I3 and I4 each segmented phase once; all four are bit-equal to
      numpy's wrapping int32 cumsum (I2: to the integer oracle). C1
-     launches moments2d and final2d_stencil once, tails and
-     completion_rot four times; C2 fir_band, tails and completion_rot
+     launches moments2d and final2d_stencil once, tails four times,
+     completion_rot three times and completion_rot_epi once (the
+     subtraction, its last pass's affine epilogue); C2 fir_band, tails and completion_rot
      twice; C3 tails and completion_rot six times; C4 the rows kernels
-     and stencil2d once; C5 moments2d and final2d once; C6 tails and
+     and stencil2d once; C5 moments2d and final2d_epi once; C6 tails and
      completion_rot once per slice (the extra-row tails of C1 and C6 as
      tails_extra). C1–C3, on ``bounded_image`` input (every integral the
      SAT apps take stays bounded, so the fp32 formulation holds), within
@@ -186,11 +213,26 @@ Phases:
      ``scipy.signal.lfilter``'s peak, gradients and a falling loss as
      L2, the gradients also against autograd through the float64 einsum
      route at 64-wide tiles, the same parameters);
+     Phase 2h holds the epilogue entries to their twins (1e-5 of the
+     twin's peak): ``final2d_epi`` at 4096² with k = 1 (the unsharp
+     combine) and k = 2 with a bias, ``completion_epi`` at A's kernel pass
+     (306 lines × 256 tiles), ``completion_rot_epi`` at C1's x pass with
+     and without its fused 3-tap stencil; phase 3h runs U1 (moments2d and
+     final2d_epi once, nothing else; within 2e-6 of the f64 oracle
+     (1 + w)·I − w·oracle(blur)), U2 (2e-6; U1 − U2 within 1e-6 of the
+     peak), U3 (no launch, 2e-6), T1 (folded: moments2d and final2d once;
+     5e-6 of the component-wise oracle's peak), T2 and T3 (staged, the
+     same bound; T3 against the clipped oracle), CA (the epilogue route,
+     final2d_epi; against the composition within 1e-6), E1 (tails and
+     completion_epi, 2e-6 of ``lfilter``'s peak) and E2 (two tails, one
+     completion_rot and one completion_rot_epi, 2e-6 of the oracle);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
      512², K3's chain at 200 × 128 × 128; and of <y, ct> through C1's
-     stencil2d stage and a rotated stencil pass at 512²;
+     stencil2d stage and a rotated stencil pass at 512²; U1's input
+     gradient (through the filter and the combine's aux) against U2's at
+     4096²;
   5. device times (CUDA events, median of single calls) of the whole call
      and of each kernel, beside their plain twins and, where one PyTorch
      call computes a kernel's function, beside that call; for A, B and V1
@@ -210,7 +252,12 @@ Phases:
      library form, the whole L1 and L3 forwards, and L2's training step
      (event median, device ops per step); the L1 forward and L2 step (32
      tiles) and L3's (512 tiles) with the cross-tile solve forced to the
-     dense solve from W powers and to the associative scan. A
+     dense solve from W powers and to the associative scan; for U1 and U2
+     the whole calls with their profiles, and the three epilogue entries
+     at U1's, A's and C1's shapes beside their twins, ``final2d_epi``
+     also beside ``final2d`` then the combine as torch ops,
+     ``completion_epi`` beside one ``addmm`` (the mix's a and b as its
+     alpha and beta) as the library form. A
      profiled window that comes back without device events is taken
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
@@ -265,6 +312,11 @@ def build_filter(rft, h, w, image, clamp=False):
         F.add_filter(d, wts)
     F.split(x, 128, y, 128)
     return F
+
+
+def usm_combine(blur, img):
+    """The unsharp combine (1 + w)·I − w·blur at w = 1 (C5, CA, E2)."""
+    return 2.0 * img - blur
 
 
 def image(*shape, seed=0):
@@ -331,15 +383,15 @@ def device_ms(fn, *args):
     """Device time per call of ``fn(*args)`` from the profiler — the sum
     of its kernels and copies, free of the host's launch gaps that a
     host-bound single call adds to its CUDA-event time. Where no profiled
-    window recorded device time, the CUDA-event time per call of 10
-    back-to-back calls stands in, and a note says so."""
+    window recorded every device event, the CUDA-event time per call of
+    10 back-to-back calls stands in, and a note says so."""
     from recfilter_tpu_torch.utils import timing
 
     busy = timing.device_profile(fn, *args, iterations=10)["busy_ms"]
     if busy is not None:
         return busy
     ms = timing.benchmark(fn, *args, iterations=10) / 10
-    print(f"  note: the profiler recorded no device time for "
+    print(f"  note: no profiled window recorded every device event of "
           f"{getattr(fn, '__name__', type(fn).__name__)}; CUDA events of 10 "
           f"back-to-back calls instead: {ms:.4f} ms", flush=True)
     return ms
@@ -347,7 +399,7 @@ def device_ms(fn, *args):
 
 def busy_text(prof):
     """A profile's device busy time and idle share, or "not measured"
-    where the profiler recorded no device time."""
+    where no profiled window recorded every device event."""
     if prof["busy_ms"] is None:
         return "not measured"
     return f"{prof['busy_ms']:.4f} ms, idle {100 * prof['idle']:.1f} %"
@@ -1300,6 +1352,80 @@ def main() -> int:
     l1, x_l1, traced_in, errs = learnable_kernels(rft, dev, H)
     max_abs.update(errs)
 
+    print("== phase 2h: the affine epilogue entries against their twins on "
+          "the card (final2d_epi at 4096², completion_epi at A's kernel "
+          "pass, completion_rot_epi at C1's x pass)", flush=True)
+    epi_in = {}  # entry: (module, args) at its main-path shape, phase 5i
+    F, mod, img = modules["4096x4096 zero"]
+    with torch.no_grad():
+        X4 = mod.tile(torch.from_numpy(img).to(dev))
+        NA_t, NB_t = mod.carries(X4, mod.moments.plain)
+        auxes = [X4, mod.tile(torch.from_numpy(image(H, W, seed=30)).to(dev))]
+        for what, fn in (("k = 1, the unsharp combine 2a - o", usm_combine),
+                         ("k = 2 with a bias, 0.5y + 2a - b + 0.25",
+                          lambda y_, a_, b_: 0.5 * y_ + 2.0 * a_ - b_ + 0.25)):
+            m = F.as_func(epilogue=fn)
+            check(m.epilogue_route == "kernel",
+                  f"final2d_epi {what}: the kernel route")
+            args = (X4, NA_t, NB_t, *auxes[:m.final.k])
+            got, want = m.final(*args), m.final.plain(*args)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  final2d_epi {what}: max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"final2d_epi {what} within 1e-5")
+            if m.final.k == 1:
+                max_abs["final2d_epi"] = (got - want).abs().max().item()
+        del got, want, auxes, m
+        # A's kernel pass: 306 supertiles as lines, 256 tiles of 128
+        loc, X = local_inputs("A")
+        Nt = loc._solve_t(loc.tails.plain(X).double()).float()
+        le = tdf.LastAxisPass(cases_1d["A"][1].body.scans,
+                              (loc.T, loc.n, 0), False, "px6",
+                              epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_
+                              ).to(dev)
+        comp = le.completion
+        got, want = comp(X, Nt, X), comp.plain(X, Nt, X)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"  completion_epi (the mix 0.7y + 0.3x) at A's kernel pass "
+              f"{tuple(X.shape)}: max|k-p|/max|p| = {err:.3e}")
+        check(err <= 1e-5, "completion_epi within 1e-5")
+        max_abs["completion_epi"] = (got - want).abs().max().item()
+        epi_in["completion_epi"] = (comp, (X, Nt, X))
+        # C1's x pass (radius 5): the rotated completion with and without
+        # its 3-tap stencil, the DoG's subtraction after it — on
+        # integer-valued input with bounded integrals (phase 2e: exact in
+        # fp32, so only a fault separates kernel and twin)
+        loc = c1.sat2x[0].body
+        X = torch.from_numpy(exact_ints((H, W), (1, 1), seed=31)).to(
+            dev).reshape(-1, loc.n, 128)
+        bp = loc.st_tails[0].plain(X).double()
+        Nt = loc._solve_t(bp[:, :loc.sl])
+        halos = tdf._stencil_halo(bp[:, loc.sl:], Nt, loc.st_R0,
+                                  *loc.st_reach[0])
+        Nt = Nt.float().contiguous()
+        aux = torch.from_numpy(exact_ints((H, W), (), seed=32)).to(dev)
+        max_abs["completion_rot_epi"] = 0.0
+        for stencil in (None, _stencil(5)):
+            le = tdf.LastAxisPass([rft.Scan(1, True, 1.0, (2.0, -1.0))],
+                                  (loc.T, loc.n, loc.pad), False, "px6",
+                                  rot_axes=2, stencil=stencil,
+                                  epilogue=lambda o, a: a - o).to(dev)
+            comp = le.completion if stencil is None else le.st_comp[0]
+            args = (X, Nt, *(() if stencil is None else halos), aux)
+            got, want = comp(*args), comp.plain(*args)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            what = "no stencil" if stencil is None else "the 3-tap stencil"
+            print(f"  completion_rot_epi (a - o) at C1's x pass, {what}: "
+                  f"max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"completion_rot_epi ({what}) within 1e-5")
+            max_abs["completion_rot_epi"] = max(
+                max_abs["completion_rot_epi"],
+                (got - want).abs().max().item())
+        epi_in["completion_rot_epi"] = (comp, args)
+        del got, want, bp, le
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
 
@@ -1528,9 +1654,10 @@ def main() -> int:
         y, launches = counted(c1, x_c1)
     print(f"  C1 DoG SAT: launches {launches}")
     check(launches == only(moments2d=1, final2d_stencil=1, tails_extra=4,
-                           completion_rot=4),
-          "C1: moments2d and final2d_stencil once, tails_extra and "
-          "completion_rot four times (two radii x two stages)")
+                           completion_rot=3, completion_rot_epi=1),
+          "C1: moments2d and final2d_stencil once, tails_extra four times "
+          "(two radii x two stages), completion_rot three times and "
+          "completion_rot_epi once (the subtraction, in the last pass)")
     main_launches.update(final2d_stencil=launches["final2d_stencil"],
                          tails_extra=launches["tails_extra"],
                          completion_rot=launches["completion_rot"])
@@ -1612,8 +1739,9 @@ def main() -> int:
     with torch.no_grad():
         y, launches = counted(c5, x_c5, x_c5)
     print(f"  C5 Gaussian + unsharp epilogue: launches {launches}")
-    check(launches == only(moments2d=1, final2d=1), "C5: moments2d and "
-          "final2d once, the epilogue in torch")
+    check(launches == only(moments2d=1, final2d_epi=1)
+          and c5.epilogue_route == "kernel", "C5: moments2d and "
+          "final2d_epi once, the affine combine in final2d's store loop")
     want = 2.0 * img.astype(np.float64) - scan_core.oracle_apply(
         F5.spec, img.astype(np.float64))
     err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
@@ -1729,6 +1857,143 @@ def main() -> int:
     main_launches.update(tails_traced=l1_launches["tails_traced"],
                          completion_traced=l1_launches["completion_traced"])
 
+    print("== phase 3h: the unsharp mask, the Tuple routes, compute_at and "
+          "the epilogue on the 1-D kernels end to end through the public "
+          "API", flush=True)
+    from recfilter_tpu_torch.apps import unsharp_mask
+
+    def peak_err(got, want):
+        """max|got − want| / max|want| against a numpy reference."""
+        return float(np.abs(got.cpu().numpy() - want).max()
+                     / np.abs(want).max())
+
+    img_u = image(H, W)
+    x_u = torch.from_numpy(img_u).to(dev)
+    want_u = 2.0 * img_u - scan_core.oracle_apply(
+        gaussian_3xy(W, H).spec, img_u.astype(np.float64))
+    u1 = unsharp_mask(W, H)
+    with torch.no_grad():
+        y_u1, launches = counted(u1, x_u)
+    print(f"  U1 unsharp_mask({W}, {H}): route {u1.usm_route}, epilogue "
+          f"{u1.stages[0].epilogue_route}; launches {launches}")
+    check(u1.usm_route == "merged"
+          and u1.stages[0].epilogue_route == "kernel",
+          "U1: the merged route, the combine in final2d's store loop")
+    check(launches == only(moments2d=1, final2d_epi=1),
+          "U1: moments2d and final2d_epi once, nothing else")
+    main_launches["final2d_epi"] = launches["final2d_epi"]
+    check(tuple(y_u1.shape) == (H, W) and bool(torch.isfinite(y_u1).all()),
+          f"U1: output finite, shape {(H, W)}")
+    err = peak_err(y_u1, want_u)
+    print(f"  U1: max|y - ((1+w)I - w oracle(blur))|/max = {err:.3e}")
+    check(err <= 2e-6, "U1: within the px6 bound 2e-6 of the f64 oracle")
+    u2 = unsharp_mask(W, H, fused=False)
+    with torch.no_grad():
+        y_u2, launches = counted(u2, x_u)
+    err = peak_err(y_u2, want_u)
+    d12 = float((y_u1 - y_u2).abs().max()) / float(np.abs(want_u).max())
+    print(f"  U2 naive: launches {launches}; max|y - oracle|/max = "
+          f"{err:.3e}; max|U1 - U2|/max = {d12:.3e}")
+    check(u2.usm_route == "naive" and err <= 2e-6,
+          "U2: the naive route within 2e-6 of the oracle")
+    check(d12 <= 1e-6, "U1 equals U2 within 1e-6 of the peak")
+    del y_u1, y_u2
+    u3 = unsharp_mask(1024, 1024, matmul_precision="highest")
+    img3 = image(1024, 1024, seed=33)
+    with torch.no_grad():
+        y3u, launches = counted(u3, torch.from_numpy(img3).to(dev))
+    want3 = 2.0 * img3 - scan_core.oracle_apply(
+        gaussian_3xy(1024, 1024).spec, img3.astype(np.float64))
+    err = peak_err(y3u, want3)
+    print(f"  U3 staged at highest 1024²: route {u3.usm_route}, launches "
+          f"{launches}; max|y - oracle|/max = {err:.3e}")
+    check(u3.usm_route == "staged" and launches == only(),
+          "U3: the staged route, no kernel launch (einsum passes)")
+    check(err <= 2e-6, "U3: within 2e-6 of the f64 oracle")
+    # the Tuple routes on the headline Gaussian (zero border)
+    ta, tb = image(H, W, seed=41), image(H, W, seed=42)
+    FT = build_filter(rft, H, W, (ta, tb))
+    one = build_filter(rft, H, W, ta).spec
+    oa, ob = (scan_core.oracle_apply(one, c.astype(np.float64))
+              for c in (ta, tb))
+    xt = (torch.from_numpy(ta).to(dev), torch.from_numpy(tb).to(dev))
+    for label, fn, route, expect, want, scale in (
+            ("T1 2u - 3v", lambda u, v: 2.0 * u - 3.0 * v, "linear-folded",
+             only(moments2d=1, final2d=1), 2.0 * oa - 3.0 * ob, 1.0),
+            ("T2 u v", lambda u, v: u * v, "staged",
+             only(moments2d=1, final2d=1), oa * ob, 1.0),
+            ("T3 clamp(2u - 3v, -50, 50), components x 1e5",
+             lambda u, v: torch.clamp(2.0 * u - 3.0 * v, -50, 50), "staged",
+             only(moments2d=1, final2d=1),
+             np.clip(1e5 * (2.0 * oa - 3.0 * ob), -50, 50), 1e5)):
+        mod_t = FT.as_func(epilogue=fn)
+        with torch.no_grad():
+            y, launches = counted(mod_t, tuple(scale * c for c in xt))
+        peak = (np.abs(want).max() if scale == 1.0
+                else scale * np.abs(2.0 * oa - 3.0 * ob).max())
+        err = float(np.abs(y.cpu().numpy() - want).max()) / peak
+        print(f"  {label}: route {mod_t.tuple_route}, launches {launches}; "
+              f"max|y - oracle|/peak = {err:.3e}"
+              + (f" (the clip binds at {100 * np.mean(np.abs(want) == 50):.0f}"
+                 " % of the pixels)" if scale != 1.0 else ""))
+        check(mod_t.tuple_route == route, f"{label}: the {route} route")
+        check(launches == expect, f"{label}: launches {expect}")
+        check(err <= 5e-6, f"{label}: within 5e-6 of the component-wise "
+              "oracle's peak (tests/test_api.py:606-670)")
+    del xt, y, oa, ob
+    # compute_at of the unsharp combine on the headline filter
+    Fca = build_filter(rft, H, W, img_u)
+    ca = Fca.compute_at(usm_combine)
+    with torch.no_grad():
+        y, launches = counted(ca, x_u, x_u)
+        comp_ = usm_combine(Fca.as_func()(x_u), x_u)
+    d = rel_err(y, comp_)
+    print(f"  CA compute_at(combine): route {ca.fused_route}, launches "
+          f"{launches}; max|y - composition|/max = {d:.3e}")
+    check(ca.fused_route == "epilogue"
+          and launches == only(moments2d=1, final2d_epi=1),
+          "CA: the epilogue route, moments2d and final2d_epi once")
+    check(d <= 1e-6, "CA: equal to the composition within 1e-6")
+    del y, comp_
+    # E1: the dry/wet mix on multichannel audio, one tiled pass
+    ce, xe = rft.Dim("c", 64), rft.Dim("x", 32768)
+    FE = rft.RecFilter("MixAudio")
+    FE[ce, xe] = np.zeros((64, 32768), np.float32)
+    FE.add_filter(+xe, [1.0, 0.01, 0.01])  # A's order-2 coefficients
+    FE.split(xe, 128)
+    e1 = FE.as_func(epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_)
+    sig = signal((64, 32768), seed=34)
+    x_e1 = torch.from_numpy(sig).to(dev)
+    with torch.no_grad():
+        y, launches = counted(e1, x_e1, x_e1)
+    want = 0.7 * lfilter_reference(FE.spec, sig) + 0.3 * sig
+    err = peak_err(y, want)
+    print(f"  E1 64 x 32,768 audio + mix: launches {launches}, epilogue "
+          f"{e1.body.epilogue_route}; max|y - lfilter mix|/max = {err:.3e}")
+    check(launches == only(tails=1, completion_epi=1)
+          and e1.body.epilogue_route == "kernel",
+          "E1: tails and completion_epi once, the mix in the kernel")
+    main_launches["completion_epi"] = launches["completion_epi"]
+    check(err <= 2e-6, "E1: within 2e-6 of lfilter's mix")
+    # E2: K1 with the unsharp combine on the chain's last pass
+    K1e = gauss_axes(rft, (H, W), (0, 1), times=2)
+    e2 = K1e.as_func(epilogue=usm_combine)
+    x_e2 = torch.from_numpy(K1e._image).to(dev)
+    with torch.no_grad():
+        y, launches = counted(e2, x_e2, x_e2)
+    want = 2.0 * K1e._image - scan_core.oracle_apply(
+        K1e.spec, K1e._image.astype(np.float64))
+    err = peak_err(y, want)
+    print(f"  E2 K1 + unsharp combine: launches {launches}, last pass "
+          f"{e2.passes[-1].epilogue_route}; max|y - oracle|/max = "
+          f"{err:.3e}")
+    check(launches == only(tails=2, completion_rot=1, completion_rot_epi=1)
+          and e2.passes[-1].epilogue_route == "kernel",
+          "E2: two tails, one completion_rot, one completion_rot_epi")
+    main_launches["completion_rot_epi"] = launches["completion_rot_epi"]
+    check(err <= 2e-6, "E2: within the px6 bound 2e-6 of the f64 oracle")
+    del y, want, x_e2, e2
+
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
     grad_cases = [
@@ -1779,6 +2044,19 @@ def main() -> int:
               f"(max|g| = {grads[1].abs().max().item():.3e})")
         check(bool((dg <= bound).all()),
               f"{label}: gradient within rtol=atol=1e-4")
+    # U1's input gradient: through the filter and the combine's aux (the
+    # image is both), against the naive route's
+    grads = []
+    for mod in (u1, u2):
+        x = x_u.clone().requires_grad_()
+        (g,) = torch.autograd.grad((mod(x) ** 2).sum(), x)
+        grads.append(g)
+    dg = (grads[0] - grads[1]).abs()
+    print(f"  U1 4096²: max|g_merged - g_naive| = {dg.max().item():.3e} "
+          f"(max|g| = {grads[1].abs().max().item():.3e})")
+    check(bool((dg <= 1e-4 + 1e-4 * grads[1].abs()).all()),
+          "U1: input gradient within rtol=atol=1e-4 of U2's")
+    del grads, dg, g, x
 
     print("== phase 5a: 2-D device times at 4096² (CUDA events, median of "
           f"{4 * N_TIMED // 2} calls each)", flush=True)
@@ -2183,7 +2461,7 @@ def main() -> int:
                   lambda x_, n_, *h: torch.matmul(XN, BR0), (X, Nt, *halos),
                   tensor_bytes(X, Nt, *halos, X),
                   2.0 * (128 + loc.sl + len(comp.taps)) * X.numel(),
-                  PEAK_FP32, 4)
+                  PEAK_FP32, main_launches["completion_rot"])
         times["completion_rot"], dev_t["completion_rot"] = r[0], r[1]
         extra["completion_rot"] = (*r[2], r[3])
         del v, X, bp, Nt, halos, XN
@@ -2220,18 +2498,22 @@ def main() -> int:
             def forward_plain(self, v):
                 return self.mod.forward_plain(v, *self.aux)
 
-        # the epilogue's own elementwise pass (torch ops after final2d)
+        # the non-affine route's cost: an epilogue that final2d cannot
+        # take runs as its own elementwise pass (torch ops after final2d);
+        # timed on C5's combine 2a - o
         X4 = c5.tile(x_c5)
-        y5 = c5.final(X4, *c5.carries(X4))
-        print(f"  C5 epilogue 2a - o as torch ops on the {tuple(y5.shape)} "
-              f"output: event {median_ms(c5.epilogue, y5, y5):.4f} ms, "
-              f"device {device_ms(c5.epilogue, y5, y5):.4f} ms on {card}")
+        y5 = c5.final.plain(X4, *c5.carries(X4), X4)
+        print(f"  the non-affine route's torch-op pass, timed on C5's "
+              f"combine 2a - o over the {tuple(y5.shape)} output: event "
+              f"{median_ms(c5.epilogue, y5, y5):.4f} ms, device "
+              f"{device_ms(c5.epilogue, y5, y5):.4f} ms on {card}")
         del X4, y5
         for label, mod, v in (("C1 DoG SAT", c1, x_c1),
                               ("C2 box_filter_3 SAT", box3s, x_c2),
                               ("C3 box_filter_6 SAT 2048²", box6s, x_c3),
                               ("C4 y-only blur + Sobel", c4, x_c4),
-                              ("C5 Gaussian + unsharp epilogue",
+                              ("C5 Gaussian + unsharp epilogue (in "
+                               "final2d_epi)",
                                Call(c5, x_c5), x_c5)):
             whole_call(label, mod, v, v.numel())
 
@@ -2301,6 +2583,81 @@ def main() -> int:
         for label, (mod, v) in k_cases.items():
             whole_call(label, mod, v, v.numel(), top=True)
         del k_cases, mod3, x3
+
+    print("== phase 5i: the unsharp mask's calls and the affine epilogue "
+          f"entries (CUDA events, median of {4 * N_TIMED // 2} calls each)",
+          flush=True)
+    with torch.no_grad():
+        whole_call("U1 unsharp_mask merged 4096²", u1, x_u, H * W, top=True)
+        whole_call("U2 unsharp_mask naive 4096²", u2, x_u, H * W, top=True)
+        t12 = paired_times(u1, u2, x_u)  # in turns: U2, U1, U1, U2
+        print(f"  U1 against U2 in turns: event {t12[0]:.4f} against "
+              f"{t12[1]:.4f} ms on {card}")
+        fu = u1.stages[0]
+        X4 = fu.tile(x_u)
+        NA, NB = fu.carries(X4)
+        fin = fu.final
+        ops_2d = 2.0 * (2 * 128 + fu.Ka + fu.Kb) * X4.numel()
+        r = timed("U1 final2d_epi (k = 1: the combine, the image its aux)",
+                  fin, fin.plain, None, (X4, NA, NB, X4),
+                  tensor_bytes(X4, NA, NB, X4, X4, fin.A1_v, fin.B2_v,
+                               fin.epi_coef),
+                  ops_2d + 4.0 * X4.numel(), PEAK_FP32,
+                  main_launches["final2d_epi"])
+        times["final2d_epi"], dev_t["final2d_epi"] = r[0], r[1]
+        extra["final2d_epi"] = (*r[2], r[3])
+        # the same work unfused: final2d (no epilogue, the same clamp
+        # filter's matrices), then the combine as torch ops
+        fin0 = modules["4096x4096 clamp"][1].final
+
+        def unfused(x_, na_, nb_, aux_):
+            return fu.epilogue(fin0(x_, na_, nb_), aux_)
+
+        check(rel_err(unfused(X4, NA, NB, X4), fin(X4, NA, NB, X4)) <= 1e-5,
+              "U1: final2d then the combine computes final2d_epi's function")
+        print(f"  U1 final2d then the combine as torch ops: event "
+              f"{median_ms(unfused, X4, NA, NB, X4):.4f} ms, device "
+              f"{device_ms(unfused, X4, NA, NB, X4):.4f} ms; final2d alone: "
+              f"event {median_ms(fin0, X4, NA, NB):.4f} ms, device "
+              f"{device_ms(fin0, X4, NA, NB):.4f} ms on {card}")
+        del X4, NA, NB
+        for name, label, k_launch in (
+                ("completion_epi", "A's kernel pass, the mix", 
+                 main_launches["completion_epi"]),
+                ("completion_rot_epi", "C1's x pass, 3-tap stencil, a - o",
+                 main_launches["completion_rot_epi"])):
+            comp, args = epi_in[name]
+            X, Nt = args[0], args[1]
+            out = comp(*args)
+            lib = None
+            if name == "completion_epi":
+                # one PyTorch call: addmm of [x, Nᵀ]·[Btotᵀ; Rᵀ] scaled by
+                # the mix's a, plus b·x (A's tiles share one variant), on
+                # the operand phase 5b's matmul takes
+                check(comp.BR_v.shape[0] == 1 and comp.k == 1,
+                      "A: one matrix variant, one aux")
+                a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
+                XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).reshape(
+                    -1, 128 + comp.sl)
+                BR0 = comp.BR_v[0]
+
+                def lib(x_, n_, aux_):
+                    return torch.addmm(aux_.reshape(-1, 128), XN, BR0,
+                                       beta=b_, alpha=a_)
+
+                err = rel_err(lib(*args).reshape(out.shape), out)
+                print(f"  completion_epi: addmm against the kernel, "
+                      f"max|l-k|/max|k| = {err:.3e}")
+                check(err <= 1e-5, "A: addmm computes completion_epi's "
+                      "function")
+            r = timed(f"{name} at {label} {tuple(X.shape)}", comp,
+                      comp.plain, lib, args,
+                      tensor_bytes(*args, out, comp.BR_v, comp.epi_coef),
+                      2.0 * (128 + comp.sl + len(comp.taps) + comp.k + 1)
+                      * X.numel(), PEAK_FP32, k_launch)
+            times[name], dev_t[name] = r[0], r[1]
+            extra[name] = (*r[2], r[3])
+        del epi_in, out, args, XN, BR0
 
     print("== phase 5h: tails_traced and completion_traced at L1's x-axis "
           "shapes, the learnable calls and L2's training step (CUDA events, "
@@ -2387,7 +2744,13 @@ def main() -> int:
              "recfilter_tpu/kernels/completion.py:823"),
             ("completion_traced", "completion",
              "recfilter_tpu/kernels/completion.py:881"),
-            ("stencil2d", None, "recfilter_tpu/kernels/stencil2d.py:109"))
+            ("stencil2d", None, "recfilter_tpu/kernels/stencil2d.py:109"),
+            ("final2d_epi", "final2d",
+             "recfilter_tpu/kernels/final2d.py:619"),
+            ("completion_epi", "completion",
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("completion_rot_epi", "completion",
+             "recfilter_tpu/kernels/completion.py:273"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -31,6 +31,11 @@ plain PyTorch twins on the CPU:
     ``dimfuse.RotatedPass``) with its 1-D stencil on ``completion_rot``, a
     2-D bank on ``final2d_stencil`` or ``stencil2d`` — the SAT forms of
     the box and DoG apps;
+  * the unsharp mask (``apps.unsharp_mask``): the Gaussian cascade merged
+    back into one filter (``fuse_cascade``) with the combine inside
+    ``final2d``'s store loop — every affine epilogue rides the final
+    kernel (``final2d_epi``, ``completion_epi``, ``completion_rot_epi``);
+    Tuple filters, ``compute_at`` and ``overlap_to_higher_order_filter``;
   * the learnable (training) path, ``learnable.LearnableRecFilter``: any
     filter's coefficients as trainable parameters, each axis one fused pass
     on ``tails_traced``/``completion_traced`` (runtime matrices, gradients
@@ -63,12 +68,16 @@ the CPU (``device="cpu"``).
     blur = box_filter_3(4096, 4096, B=5)(image_on_the_card)
     sat = summed_table(4096, 4096, dtype="int32").realize(int_image)
 
+    from recfilter_tpu_torch.apps import unsharp_mask
+    sharp = unsharp_mask(4096, 4096)(image_on_the_card)
+
     model = rft.LearnableRecFilter(F.spec, tile_width=128)
     opt = torch.optim.Adam(model.parameters(), 2e-2)
     ((model(image) - target) ** 2).mean().backward(); opt.step()
 """
 
-from .api import RecFilter
+from .api import Composed, RecFilter, TupleFilter, fuse_cascade
+from .epilogue import Affine, affine_form, is_elementwise
 from .dimfuse import (FusedAxisPass, FusedLastAxis, IntUnitPass,
                       RotatedPass, RotationChain, StagedPass,
                       apply_filter_fused, apply_filter_rotated)
@@ -85,7 +94,8 @@ from .spec import (BorderMode, Dim, DimAndCausality, FilterSpec, Scan,
 from .utils.testing import CheckResult, CheckResultVerbose, generate_random_image
 
 __all__ = [
-    "RecFilter", "Plan", "Dim", "DimAndCausality", "FilterSpec", "Scan",
+    "RecFilter", "Plan", "TupleFilter", "Composed", "fuse_cascade",
+    "Affine", "affine_form", "is_elementwise", "Dim", "DimAndCausality", "FilterSpec", "Scan",
     "BorderMode", "make_scan", "spec_to_json", "spec_from_json",
     "spec_from_arrays", "gaussian_weights", "integral_image_coeff",
     "overlap_feedback_coeff", "gaussian_box_filter", "oracle_apply",

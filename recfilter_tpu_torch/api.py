@@ -16,10 +16,15 @@ tiled float filter goes to the fused executors —
 stage per scanned axis otherwise (the rows pass on non-last axes,
 :class:`.dimfuse.FusedLastAxis` on the last: 1-D signals such as
 ``F[x] = signal``, channels on leading axes). ``cascade`` splits a filter
-into a chain of filters run one after another. ``as_func`` also takes the
-JAX package's fused consumers — an elementwise ``epilogue``, a 1-D
+into a chain of filters run one after another, :func:`fuse_cascade` merges
+such a chain back into one filter, and ``overlap_to_higher_order_filter``
+merges two filters into one of higher order. ``as_func`` also takes the
+JAX package's fused consumers — an elementwise ``epilogue`` (inside the
+final kernel where its structure is affine, :mod:`.epilogue`), a 1-D
 ``stencil`` under ``Plan.rotate_emit`` (``set_plan(rotate_emit=2)``: the
-rotated emit, :class:`.dimfuse.RotatedPass`), a 2-D ``stencil2d`` bank.
+rotated emit, :class:`.dimfuse.RotatedPass`), a 2-D ``stencil2d`` bank —
+and ``compute_at`` dispatches a consumer to them. A Tuple definition
+(``F[y, x] = (a, b)``) filters each component alike (:class:`TupleFilter`).
 What the port does not run yet raises ``NotImplementedError``.
 ``as_func``, ``realize`` and ``profile`` run on the card unless the caller
 asks for the CPU; asking for ``"cuda"`` without a card raises, and nothing
@@ -35,9 +40,79 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import dimfuse, planner
-from .spec import BorderMode, Dim, DimAndCausality, FilterSpec, make_scan
+from . import dimfuse, iir, planner
+from .epilogue import affine_form, arity, is_elementwise
+from .spec import (BorderMode, Dim, DimAndCausality, FilterSpec, Scan,
+                   make_scan)
 from .utils import timing
+
+
+def _dtype_name(a) -> str:
+    return str(a.dtype).replace("torch.", "")
+
+
+def _stack_components(value):
+    """A Tuple's components stacked on a leading axis (a tensor where any
+    component is one, else a numpy array); they must agree in shape and
+    dtype."""
+    comps = [v if isinstance(v, torch.Tensor) else np.asarray(v)
+             for v in value]
+    if any(tuple(c.shape) != tuple(comps[0].shape)
+           or _dtype_name(c) != _dtype_name(comps[0]) for c in comps):
+        raise ValueError(
+            "Tuple components must have identical shape and dtype")
+    if any(isinstance(c, torch.Tensor) for c in comps):
+        return torch.stack([torch.as_tensor(c) for c in comps])
+    return np.stack(comps)
+
+
+class TupleFilter(nn.Module):
+    """A Tuple filter's executor (the JAX package's Tuple routes of
+    ``as_func``): every scan applies alike to each of the k components.
+    ``forward(value)`` takes a tuple or list of component tensors, or
+    their stack on a leading axis, and ``tuple_route`` says how it runs:
+
+      * ``"plain"`` — the stacked pass (``body`` on the stacked spec);
+        returns the tuple of filtered components;
+      * ``"linear-folded"`` — the epilogue ``Σᵢ cᵢ·uᵢ`` is linear by its
+        structure (:func:`.epilogue.affine_form`, no bias), so it commutes
+        with the filter: ``body`` is the single-component filter, run once
+        on ``Σᵢ cᵢ·xᵢ``;
+      * ``"staged"`` — the stacked pass, then ``epilogue(*components)``.
+    """
+
+    def __init__(self, body: nn.Module, k: int, route: str, epilogue=None,
+                 weights=None):
+        super().__init__()
+        self.body, self.k, self.tuple_route = body, int(k), route
+        self.epilogue, self.weights = epilogue, weights
+
+    def forward(self, value):
+        x = torch.as_tensor(_stack_components(value)
+                            if isinstance(value, (tuple, list)) else value)
+        if x.shape[0] != self.k:
+            raise ValueError(f"expected {self.k} Tuple components, got "
+                             f"{x.shape[0]}")
+        if self.tuple_route == "linear-folded":
+            xc = self.weights[0] * x[0]
+            for c, v in zip(self.weights[1:], x[1:]):
+                xc = xc + c * v
+            return self.body(xc)
+        y = self.body(x)
+        comps = tuple(y[i] for i in range(self.k))
+        return comps if self.epilogue is None else self.epilogue(*comps)
+
+
+class Composed(nn.Module):
+    """``consumer(producer(x), *aux)``: a consumer run after the filter on
+    its materialized output (``compute_at``'s composed route)."""
+
+    def __init__(self, producer: nn.Module, consumer):
+        super().__init__()
+        self.producer, self.consumer = producer, consumer
+
+    def forward(self, x, *aux):
+        return self.consumer(self.producer(x), *aux)
 
 
 def resolve_device(device) -> torch.device:
@@ -83,8 +158,9 @@ class RecFilter:
     # ---------------------------------------------------------------- define
     def __setitem__(self, dims, value):
         """``F[y, x] = image`` — dims in array-axis order; ``value`` is an
-        array (numpy or torch) of the dims' extents, or a callable taking
-        one index grid per dim."""
+        array (numpy or torch) of the dims' extents, a callable taking one
+        index grid per dim, or a Tuple of such arrays (``F[y, x] = (a,
+        b)``: components of one shape and dtype, filtered alike)."""
         if not isinstance(dims, tuple):
             dims = (dims,)
         self.define(dims, value)
@@ -97,13 +173,15 @@ class RecFilter:
             grids = np.meshgrid(*[np.arange(d.extent) for d in dims],
                                 indexing="ij")
             value = value(*grids)
+        tuple_width = 0
         if isinstance(value, (tuple, list)):
-            raise NotImplementedError(
-                "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")
-        if not isinstance(value, torch.Tensor):
+            tuple_width = len(value)
+            value = _stack_components(value)
+        elif not isinstance(value, torch.Tensor):
             value = np.asarray(value)
         expect = tuple(d.extent for d in dims)
-        if tuple(value.shape[: len(dims)]) != expect:
+        got = value.shape[1:] if tuple_width else value.shape
+        if tuple(got[: len(dims)]) != expect:
             raise ValueError(
                 f"Initialization shape {tuple(value.shape)} does not match "
                 f"dim extents {expect} for filter {self._name}")
@@ -111,10 +189,26 @@ class RecFilter:
         self._spec = FilterSpec(
             name=self._name, dims=dims, scans=(),
             border=BorderMode.CLAMP if self._clamped_border else BorderMode.ZERO,
-            dtype=str(value.dtype).replace("torch.", ""),
+            dtype=_dtype_name(value),
             tile_widths=(0,) * len(dims),
+            tuple_width=tuple_width,
         )
         self._module = None
+        return self
+
+    def set_image(self, image):
+        """Bind (or rebind) the input image without redefining the filter
+        (a Tuple filter's image: its components, or their stack)."""
+        if isinstance(image, (tuple, list)):
+            image = _stack_components(image)
+        if self._spec is not None:
+            expect = tuple(d.extent for d in self._spec.dims)
+            shape = tuple(np.shape(image))
+            got = shape[1:] if self._spec.tuple_width else shape
+            if got[: len(expect)] != expect:
+                raise ValueError(f"image shape {shape} does not match dim "
+                                 f"extents {expect}")
+        self._image = image
         return self
 
     def set_clamped_image_border(self):
@@ -180,7 +274,10 @@ class RecFilter:
         ``epilogue(out, *eaux)`` — an elementwise combine of the filter
         output (the reference's ``compute_at`` of a pointwise consumer);
         the eaux arrays share the OUTPUT layout (rotated when
-        ``Plan.rotate_emit`` is set). ``stencil`` — a shifted-tap consumer
+        ``Plan.rotate_emit`` is set). Where its structure is affine,
+        ``a·out + Σᵢ bᵢ·eauxᵢ + c`` (:func:`.epilogue.affine_form`, k ≤ 4),
+        the final kernel applies it before its write; otherwise it runs
+        as torch ops on the output. ``stencil`` — a shifted-tap consumer
         along the scanned axis, ``{"taps": [(offset, coeff), ...],
         "start": "zero"|"clamp", "end": "zero"|"clamp"}`` (taps may be per
         leading slice), fused into the rotated completion kernel; it needs
@@ -189,8 +286,40 @@ class RecFilter:
         ...]`` over the trailing two axes (positive offsets clamp at the
         far edges, negative offsets read zero); the module then returns a
         tuple of channels. Exclusive with the other two and with
-        ``rotate_emit``."""
-        spec, plan = self.spec, self._plan
+        ``rotate_emit``.
+
+        A Tuple filter returns a :class:`TupleFilter`: ``module(value)``
+        on the components (a tuple, or their stack), and its
+        ``epilogue(c_0, …, c_k-1)`` combines the filtered components —
+        folded into the input where it is linear by its structure,
+        ``tuple_route`` says which."""
+        spec = self.spec
+        if spec.tuple_width:
+            if stencil is not None or stencil2d is not None:
+                raise ValueError("a Tuple filter takes an epilogue over its "
+                                 "components, no stencil consumer")
+            return self._tuple_func(epilogue, device)
+        return self._module_for(spec, epilogue, stencil, stencil2d, device)
+
+    def _tuple_func(self, epilogue, device) -> "TupleFilter":
+        spec, k = self.spec, self.spec.tuple_width
+        if epilogue is not None:
+            form = affine_form(epilogue, k)
+            if form is not None and not form.bias:
+                # a linear combine commutes with the (linear) filter: fold
+                # it into the input and filter one component
+                one = dataclasses.replace(spec, tuple_width=0)
+                return TupleFilter(
+                    self._module_for(one, device=device), k,
+                    "linear-folded",
+                    weights=(form.scale, *form.aux_weights))
+        body = self._module_for(spec.stacked(), device=device)
+        return TupleFilter(body, k, "plain" if epilogue is None else
+                           "staged", epilogue=epilogue)
+
+    def _module_for(self, spec: FilterSpec, epilogue=None, stencil=None,
+                    stencil2d=None, device="cuda") -> nn.Module:
+        plan = self._plan
         if stencil is not None and not plan.rotate_emit:
             raise ValueError("stencil consumers require Plan.rotate_emit "
                              "(single-dimension filters)")
@@ -220,6 +349,8 @@ class RecFilter:
         x = self._image if input is None else input
         if x is None:
             raise RuntimeError(f"filter {self._name} has no bound image")
+        if isinstance(x, (tuple, list)):
+            x = _stack_components(x)
         return torch.as_tensor(x).to(device)
 
     def _func(self, device: torch.device) -> nn.Module:
@@ -259,6 +390,64 @@ class RecFilter:
               f"({rate}) on {torch.cuda.get_device_name(d)}")
         return ms
 
+    def compute_at(self, consumer, level=None, *, device="cuda"):
+        """Fuse this filter into a consumer stage (the reference's
+        ``RecFilter::compute_at``, which its unsharp mask uses to merge the
+        blur's last kernel into the pointwise combine). The consumer is
+        dispatched:
+
+        * an elementwise callable ``consumer(filter_out, *aux)``
+          (:func:`.epilogue.is_elementwise`: every node elementwise, the
+          output's shape and dtype kept) becomes the executor's epilogue —
+          inside the final kernel where its structure is affine;
+        * a 2-D shifted-tap bank ``[[(dy, dx, coeff), ...], ...]`` fuses
+          as ``stencil2d``;
+        * anything else composes: the consumer runs on the filter's
+          materialized output.
+
+        ``level``: None or an inner/intra tag fuses at the final kernel;
+        an outer, inter or root tag asks for the output materialized between
+        the stages (composition); any other value raises ``ValueError``.
+        Returns the module ``fn(input, *aux)``, its route in
+        ``fn.fused_route`` ("epilogue", "stencil2d" or "composed")."""
+        tag = None if level is None else str(getattr(level, "tag", level))
+        if tag is not None:
+            t = tag.lower()
+            inner = any(k in t for k in ("intra", "inner", "thread",
+                                         "vector"))
+            outer = any(k in t for k in ("inter", "outer", "block", "root",
+                                         "full"))
+            if not inner and not outer:
+                raise ValueError(
+                    f"compute_at level {level!r}: expected an inner/intra "
+                    "or outer/inter loop tag")
+        else:
+            inner, outer = True, False
+
+        if isinstance(consumer, (list, tuple)):
+            bank = [[(int(dy), int(dx), float(c)) for dy, dx, c in b]
+                    for b in consumer]
+            if outer:
+                fn = dimfuse.Stencil2DAfter(self.as_func(device=device),
+                                            bank)
+                fn.fused_route = "composed"
+                return fn
+            fn = self.as_func(stencil2d=bank, device=device)
+            fn.fused_route = "stencil2d"
+            return fn
+
+        n_aux = max((arity(consumer) or 1) - 1, 0)
+        spec = self.spec
+        if inner and is_elementwise(
+                consumer, tuple(d.extent for d in spec.dims),
+                getattr(torch, spec.dtype), n_aux):
+            fn = self.as_func(epilogue=consumer, device=device)
+            fn.fused_route = "epilogue"
+            return fn
+        fn = Composed(self.as_func(device=device), consumer)
+        fn.fused_route = "composed"
+        return fn
+
     # ------------------------------------------------------- reorder/cascade
     def cascade(self, *scan_groups) -> List["RecFilter"]:
         """Split this filter's scans into a chain of filters, one per group
@@ -289,15 +478,54 @@ class RecFilter:
                         f"{i} and {j} in the same dimension")
         out: List[RecFilter] = []
         for gi, g in enumerate(groups):
-            f = RecFilter(f"{self._name}_{gi}")
-            f._clamped_border = self._clamped_border
-            f._image = self._image
-            f._spec = dataclasses.replace(
-                spec, name=f._name, scans=tuple(spec.scans[i] for i in g))
-            f._plan = self._plan
+            name = f"{self._name}_{gi}"
+            f = self._derived(name, dataclasses.replace(
+                spec, name=name, scans=tuple(spec.scans[i] for i in g)))
             f._chain_parent = out[-1] if out else None
             out.append(f)
         return out
+
+    def fuse_cascade(self, *others: "RecFilter", epilogue=None,
+                     device="cuda") -> nn.Module:
+        """Fuse this filter and the following cascade stages back into
+        ONE executor (the module-level :func:`fuse_cascade`)."""
+        return fuse_cascade([self, *others], epilogue=epilogue,
+                            device=device)
+
+    def overlap_to_higher_order_filter(self, other: "RecFilter",
+                                       name: str = "O") -> "RecFilter":
+        """Merge this filter with ``other`` into one higher-order filter:
+        per scan (matched in dimension and causality) the feedforward
+        coefficients multiply and the feedback polynomials convolve
+        (:func:`.iir.overlap_feedback_coeff`)."""
+        a, b = self.spec, other.spec
+        if tuple(d.extent for d in a.dims) != tuple(d.extent for d in b.dims):
+            raise ValueError("overlap: filters must have identical dims")
+        if a.border != b.border:
+            raise ValueError("overlap: filters must have identical border")
+        if len(a.scans) != len(b.scans):
+            raise ValueError("overlap: filters must have matching scan lists")
+        merged = []
+        for sa, sb in zip(a.scans, b.scans):
+            if sa.axis != sb.axis or sa.causal != sb.causal:
+                raise ValueError(
+                    "overlap: scans must match in dimension and causality")
+            fb = iir.overlap_feedback_coeff(list(sa.feedback),
+                                            list(sb.feedback))
+            merged.append(Scan(sa.axis, sa.causal, sa.feedfwd * sb.feedfwd,
+                               tuple(fb)))
+        return self._derived(name, dataclasses.replace(
+            a, name=name, scans=tuple(merged)))
+
+    def _derived(self, name: str, spec: FilterSpec) -> "RecFilter":
+        """A new filter of ``spec`` with this one's border flag, image and
+        plan."""
+        f = RecFilter(name)
+        f._clamped_border = self._clamped_border
+        f._image = self._image
+        f._spec = spec
+        f._plan = self._plan
+        return f
 
     def cascade_by_causality(self) -> List["RecFilter"]:
         """One filter per causality class: the causal scans, then the
@@ -311,3 +539,36 @@ class RecFilter:
         """One filter per scanned dimension, in order of first
         appearance."""
         return self.cascade(*self.spec.scans_by_axis().values())
+
+
+def fuse_cascade(filters: Sequence[RecFilter], epilogue=None, *,
+                 device="cuda") -> nn.Module:
+    """Fuse a cascade chain back into ONE executor.
+
+    A filter is an ordered scan list, so the cascade Fk∘…∘F1 (each
+    stage's input the previous stage's output) equals one filter whose
+    scan list is the stages' concatenation. Run merged, the fused
+    executors span what were stage boundaries: the cascade by dimension of
+    the Gaussian runs as the 3-touch 2-D executor instead of two passes
+    that each read and write the image. Stages must share dims, border,
+    dtype and Tuple width. ``epilogue`` fuses a pointwise combine into the
+    last pass (see :meth:`RecFilter.as_func`). The merged filter takes the
+    first stage's plan without its rotated emit (it chains its layouts
+    internally and emits naturally). Returns the module on ``device``."""
+    fs = list(filters)
+    if not fs:
+        raise ValueError("fuse_cascade: no filters given")
+    specs = [f.spec for f in fs]
+    base = specs[0]
+    for s in specs[1:]:
+        if s.dims != base.dims:
+            raise ValueError("fuse_cascade: stages must share dimensions")
+        if s.border != base.border or s.dtype != base.dtype:
+            raise ValueError("fuse_cascade: stages must share border/dtype")
+        if s.tuple_width != base.tuple_width:
+            raise ValueError("fuse_cascade: stages must share Tuple width")
+    name = "_".join(f.name for f in fs)
+    f = fs[0]._derived(name, dataclasses.replace(
+        base, name=name, scans=tuple(sc for s in specs for sc in s.scans)))
+    f._plan = f._plan.with_(rotate_emit=0)
+    return f.as_func(epilogue, device=device)

@@ -77,6 +77,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import coeffs
+from .epilogue import kernel_form
 from .kernels import completion as kc
 from .kernels.completion import _f64
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
@@ -628,9 +629,16 @@ class LastAxisPass(nn.Module):
     product — on the ``completion`` kernel where the JAX package's fallback
     takes it (256 < n ≤ 512) — and the stencil as global shifts after
     (:func:`_stencil_fallback`). The ``epilogue(y, *eaux)`` reads the
-    stencil's output: on the kernel's flat output (eaux re-laid by
-    :func:`_kernel_epilogue_aux`), in the tile layout on the einsum form
-    (:func:`_retile_aux`), or after a stencil fallback. The einsum form's
+    stencil's output. Where :func:`.epilogue.affine_form` reads it as
+    ``a·y + Σᵢ bᵢ·auxᵢ + c`` (k ≤ 4) and the completion kernel runs (with
+    the stencil fused, where there is one), the kernel applies it before
+    its write (``completion_epi``, ``completion_rot_epi``; eaux re-laid by
+    :func:`_kernel_epilogue_aux`): ``epilogue_route``, fixed when the pass
+    is built, is ``"kernel"`` where a completion kernel carries the form.
+    Otherwise (``"torch"``), and on a call whose lines the kernel declines,
+    it runs as torch ops: on the kernel's flat
+    output, in the tile layout on the einsum form (:func:`_retile_aux`),
+    or after a stencil fallback. The einsum form's
     products run in float64 (no TF32 can reach them on the card).
     ``forward(x, True)`` runs every kernel's plain twin instead.
 
@@ -656,6 +664,7 @@ class LastAxisPass(nn.Module):
         self.T, self.n, self.pad = T, n, pad
         self.rot, self.nrow = rot_axes >= 2, max(rot_axes - 1, 1)
         self.stencil, self.epilogue = stencil, epilogue
+        self.affine = kernel_form(epilogue)
         self.causal = [s.causal for s in scans]
         mats = prepare_dim_pass(scans, T, n, clamp, pad_slots=pad,
                                 build_cm=n <= _CHAIN_MATMUL_MAX_TILES)
@@ -701,11 +710,18 @@ class LastAxisPass(nn.Module):
         if _kernel_nprod(matmul_precision) and kc.completion_ok(T, 8, n, S):
             if n <= _CHAIN_MATMUL_MAX_TILES:
                 self.tails = kc.TailsPass(Gcat, n)
-            self.completion = kc.CompletionPass(mats.Btot, Rcat, n,
-                                                rot=self.rot)
+            # the epilogue rides the completion where no stencil precedes
+            # it (a stencil fused in the kernel: st_comp below)
+            self.completion = kc.CompletionPass(
+                mats.Btot, Rcat, n, rot=self.rot,
+                affine=self.affine if stencil is None else None)
             if (stencil is not None and self.rot and pad == 0
                     and n <= _CHAIN_MATMUL_MAX_TILES):
                 self._fuse_stencil(mats, Gcat, Rcat, stencil)
+        carrier = self.completion if stencil is None else self.st_comp
+        self.epilogue_route = None if epilogue is None else (
+            "kernel" if self.affine is not None and carrier is not None
+            else "torch")
         # the rotated completion that also extracts the next pass's tails
         self.completion_nt = None
         if (self.completion is not None and next_tails is not None
@@ -736,7 +752,8 @@ class LastAxisPass(nn.Module):
                 Gcat, n, extra_rows=_stencil_extra_rows(mats, taps, T)))
             self.st_comp.append(kc.CompletionPass(
                 mats.Btot, Rcat, n, rot=True, stencil=dict(taps=taps,
-                                                           **mode)))
+                                                           **mode),
+                affine=self.affine))
             self.register_buffer(f"st_R{i}", _f64(np.concatenate(
                 [Rn[:, :hlo], Rn[:, T - hhi:]], axis=1)))
             self.st_reach.append((hlo, hhi))
@@ -777,16 +794,26 @@ class LastAxisPass(nn.Module):
         fused = False
         t_out = None
         self.took_tails_in = False
+        kaux = None  # eaux in the completion kernel's output layout
+
+        def epi_aux(comp):
+            """The aux arrays for ``comp`` where it applies the epilogue."""
+            nonlocal kaux
+            if comp.affine is None:
+                return ()
+            kaux = self._kernel_aux(eaux, lead, rows, q, X)
+            return kaux
+
         # Y in the route's layout: "kernel" (q, n, T), or (n·T, q) rotated;
         # "slices" (P, n·T, R); "tile" (P, *rows, n, T) or (P, n, T, *rows)
         if (self.tails is not None and (P == 1 or not rot)
                 and kc.completion_ok(T, q, n, S)):
             layout = "kernel"
             if self.st_comp is not None:
-                Y, fused = self._stencil_slice(X, 0, plain), True
+                Y, fused = self._stencil_slice(X, 0, plain, epi_aux), True
             else:
                 Y, t_out = self._kernel_slice(X, plain, tails_in,
-                                              self._nt(q))
+                                              self._nt(q), epi_aux)
                 t_out = self._cut_tails(t_out)
         elif (self.tails is not None and rot and P > 1
               and self.epilogue is None and kc.completion_ok(T, R, n, S)):
@@ -823,7 +850,8 @@ class LastAxisPass(nn.Module):
                     t_out = self._cut_tails(t_out)
                 else:
                     comp = self.completion
-                    Y = (comp.plain if plain else comp)(X, Nt)
+                    Y = (comp.plain if plain else comp)(X, Nt,
+                                                        *epi_aux(comp))
             else:
                 layout = "tile"
                 # float64 products: true f32 grade whatever the matmul
@@ -835,7 +863,7 @@ class LastAxisPass(nn.Module):
                      else Y.reshape((P,) + rows + (n, T)))
             del N
         deferred = self.stencil is not None and not fused
-        if self.epilogue is not None and not deferred:
+        if self.epilogue is not None and not deferred and kaux is None:
             if layout == "kernel":
                 Yf = Y if rot else Y.reshape(q, n * T)
                 Y = _epilogue(self.epilogue, Yf, _kernel_epilogue_aux(
@@ -857,10 +885,23 @@ class LastAxisPass(nn.Module):
                 y = _epilogue(self.epilogue, y, eaux)
         return y, t_out
 
-    def _kernel_slice(self, X, plain, tails_in=None, comp_nt=None):
+    def _kernel_aux(self, eaux, lead, rows, q: int, X):
+        """``eaux`` in the completion kernel's output layout, contiguous:
+        (n·T, q) rotated, else (q, n, T)."""
+        n, T = self.n, self.T
+        shape = (n * T, q) if self.rot else (q, n, T)
+        return tuple(a.reshape(shape).contiguous()
+                     for a in _kernel_epilogue_aux(self.rot, lead, n, T,
+                                                   rows, q, self.pad, eaux,
+                                                   X))
+
+    def _kernel_slice(self, X, plain, tails_in=None, comp_nt=None,
+                      epi_aux=lambda comp: ()):
         """(tails →) solve → completion on (q, n, T): ((q, n, T) or the
         rotated (n·T, q), the next pass's tails or None). With ``tails_in``
-        (the previous pass's extraction) the tails launch is skipped."""
+        (the previous pass's extraction) the tails launch is skipped;
+        ``epi_aux(comp)`` gives the aux arrays of the completion's affine
+        epilogue."""
         if tails_in is None:
             tails = self.tails.plain if plain else self.tails
             braw = tails(X)
@@ -869,12 +910,13 @@ class LastAxisPass(nn.Module):
         Nt = self._solve_t(braw.double()).float()
         if comp_nt is not None:
             return (comp_nt.plain if plain else comp_nt)(X, Nt)
-        comp = self.completion.plain if plain else self.completion
-        return comp(X, Nt), None
+        comp = self.completion
+        return (comp.plain if plain else comp)(X, Nt, *epi_aux(comp)), None
 
-    def _stencil_slice(self, X, i: int, plain):
+    def _stencil_slice(self, X, i: int, plain, epi_aux=lambda comp: ()):
         """The fused stencil route on (q, n, T) with tap set ``i`` (the
-        slice's, or the shared set): the rotated (n·T, q) stencil output."""
+        slice's, or the shared set): the rotated (n·T, q) stencil output
+        (then the affine epilogue, its aux from ``epi_aux(comp)``)."""
         i = i if len(self.st_comp) > 1 else 0
         tails, comp = self.st_tails[i], self.st_comp[i]
         braw_t = (tails.plain if plain else tails)(X).double()
@@ -884,7 +926,7 @@ class LastAxisPass(nn.Module):
         halos = _stencil_halo(braw_t[:, sl:], Nt, getattr(self, f"st_R{i}"),
                               hlo, hhi)
         return (comp.plain if plain else comp)(X, Nt.float().contiguous(),
-                                              *halos)
+                                              *halos, *epi_aux(comp))
 
     def _solve_t(self, braw_t):
         if self.offsets is not None:
@@ -1459,9 +1501,7 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
             f"dtype {spec.dtype}: the port runs float32 and int8/16/32 "
             "filters only (ROADMAP Queue 1 item 4: bf16 and float16 "
             "storage; item 11: other integer types)")
-    if spec.tuple_width:
-        raise NotImplementedError(
-            "Tuple filters are not ported yet (ROADMAP Queue 1 item 7)")
+    spec = spec.stacked()  # a Tuple's components ride a leading axis
     groups = spec.scans_by_axis()
     nd, Ds = spec.ndim, len(groups)
     tiles = spec.tile_widths or (0,) * nd
@@ -1570,6 +1610,7 @@ class RotatedPass(nn.Module):
         from .planner import check_precision
 
         check_precision(matmul_precision)
+        spec = spec.stacked()  # a Tuple's components ride a leading axis
         groups = spec.scans_by_axis()
         if len(groups) != 1:
             raise ValueError(
@@ -1584,11 +1625,10 @@ class RotatedPass(nn.Module):
             self.units = _int_units(spec, groups[axis], axis)
             self.dtype = _INT_DTYPES[spec.dtype]
             return
-        if spec.dtype != "float32" or spec.tuple_width:
+        if spec.dtype != "float32":
             raise NotImplementedError(
-                f"{spec.dtype} {'Tuple ' if spec.tuple_width else ''}filter: "
-                "the rotated executor runs float32 and int8/16/32 filters "
-                "(ROADMAP Queue 1 items 4, 7)")
+                f"{spec.dtype} filter: the rotated executor runs float32 and "
+                "int8/16/32 filters (ROADMAP Queue 1 item 4)")
         clamp = spec.border == BorderMode.CLAMP
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)

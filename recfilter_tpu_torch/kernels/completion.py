@@ -33,6 +33,12 @@ rows, zero-padded (S ≤ 56). The JAX package chose 8 for the TPU's sublane
 quantum; the port keeps the layout so both packages exchange the same
 arrays, and the CUDA kernels take it as is.
 
+With ``affine`` (an :class:`..epilogue.Affine`, the structure of an
+elementwise epilogue) the completion also applies ``a·y + Σᵢ bᵢ·auxᵢ + c``
+to every output before the write (``completion_epi``; rotated, after the
+stencil: ``completion_rot_epi``), the aux arrays in the output's layout —
+the JAX package's ``completion_pass(epilogue=, eaux=)``.
+
 The learnable executor's forms take their matrices as runtime tensors
 built from trainable coefficients: :func:`tails_traced` (``tails.cu``'s
 ``tails_traced`` entry) and :func:`completion_traced` (``completion.cu``'s
@@ -57,7 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .launch import _check, _KernelFn, _launch
+from .launch import MAX_AUX, _check, _KernelFn, _launch
 from .stencil2d import shift_mode
 
 TILE = 128  # the kernels' tile edge
@@ -173,6 +179,29 @@ def pad_solve_matrix(CMfull, n: int, S: int) -> np.ndarray:
                 CM[t * S:(t + 1) * S, u * S:(u + 1) * S]
             )
     return out
+
+
+def _aux_ptrs(aux, k: int, shape, device) -> tuple:
+    """The aux operands of an ``*_epi`` launch, checked (float32, ``shape``,
+    on ``device``, contiguous, aligned): their pointers, 0 past k."""
+    if len(aux) != k:
+        raise ValueError(f"the affine epilogue takes {k} aux arrays, got "
+                         f"{len(aux)}")
+    for i, a in enumerate(aux):
+        _check(a, f"aux{i}", shape, device)
+    return tuple(a.data_ptr() for a in aux) + (0,) * (MAX_AUX - k)
+
+
+def _epi_coef(module, affine) -> int:
+    """Register ``affine``'s kernel coefficients on ``module`` (buffer
+    ``epi_coef``); its aux count, 0 without one."""
+    if affine is None:
+        return 0
+    if affine.k > MAX_AUX:
+        raise ValueError(f"{affine.k} aux arrays: the kernels' affine "
+                         f"epilogue takes at most {MAX_AUX}")
+    module.register_buffer("epi_coef", affine.coefficients())
+    return affine.k
 
 
 def _grid_ok(what: str, n: int, blocks_y: int) -> None:
@@ -323,10 +352,15 @@ class CompletionPass(nn.Module):
     in the kernel and in the twin, as :class:`TailsPass` sums them: the
     twin is :class:`TailsPass`'s on the emitted output. The lines must
     hold whole next-pass extents (:func:`next_tails_ok`).
+
+    ``affine`` (an :class:`..epilogue.Affine`, not with ``next_tails``):
+    the output becomes ``a·y + Σᵢ bᵢ·auxᵢ + c`` — after the stencil where
+    there is one — and ``forward`` takes the k aux arrays after the halo
+    strips, in the output's layout ((q, n, T), or (n·T, q) rotated).
     """
 
     def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None,
-                 next_tails=None):
+                 next_tails=None, affine=None):
         super().__init__()
         R = np.asarray(Rcat, np.float64)
         nvr, T, S = R.shape
@@ -338,6 +372,10 @@ class CompletionPass(nn.Module):
             raise ValueError("the stencil consumer rides the rotated emit")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
         self.rot = bool(rot)
+        if affine is not None and next_tails is not None:
+            raise ValueError("the next pass's tails read the filter output: "
+                             "no epilogue with next_tails")
+        self.affine, self.k = affine, _epi_coef(self, affine)
         self.n2 = None
         if next_tails is not None:
             Gcat2, n2 = next_tails
@@ -378,35 +416,49 @@ class CompletionPass(nn.Module):
         self.register_buffer("B_v", _f32(_variants3(Btot)))
         self.register_buffer("R_v", _f32(_variants3(R)))
 
-    def plain(self, x, N, *halos):
+    @property
+    def n_halos(self) -> int:
+        return (self.hp > 0) + (self.hn > 0)
+
+    def plain(self, x, N, *rest):
+        aux = rest[self.n_halos:]
         y = (tile_einsum("nos,qns->qno", self.B_v, x)
              + tile_einsum("nou,nuq->qno", self.R_v, N[:, :self.S]))
         if not self.rot:
-            return y
+            return y if self.affine is None else self.affine.apply(y, aux)
         yf = y.permute(1, 2, 0).reshape(-1, x.shape[0])
         if self.taps:
             yf = _stencil_flat(yf, self.taps, self.start, self.end)
+        if self.affine is not None:
+            yf = self.affine.apply(yf, aux)
         if self.n2 is None:
             return yf
         # the next pass's lines, (n·T·ra, n2, 128), and its tails on them
         y2 = yf.reshape(-1, self.n2, TILE).double()
         return yf, tile_einsum("nst,qnt->nsq", self.G2_v64, y2).float()
 
-    def _kernel(self, x, N, *halos):
+    def _kernel(self, x, N, *rest):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(N, "N", (n, self.sl, q), x.device)
         _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
         _grid_ok("completion", n, -(-q // TILE))
+        halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
+        epi = ()
+        if self.affine is not None:
+            _check(self.epi_coef, "epi_coef", self.epi_coef.shape, x.device)
+            shape = (n * TILE, q) if self.rot else (q, n, TILE)
+            epi = (*_aux_ptrs(aux, self.k, shape, x.device),
+                   self.epi_coef.data_ptr())
         if not self.rot:
             y = torch.empty_like(x)
-            _launch("completion", (
-                x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
-                y.data_ptr(), q, n, self.sl, self.BR_v.shape[0]), x.device)
+            _launch("completion_epi" if epi else "completion", (
+                x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(), *epi,
+                y.data_ptr(), q, n, self.sl, self.BR_v.shape[0],
+                *((self.k,) if epi else ())), x.device)
             return y
         if self.n2 is not None:
             return self._kernel_tails(x, N)
-        halos = list(halos)
         prev = halos.pop(0) if self.hp else None
         nxt = halos.pop(0) if self.hn else None
         for h, name, rows in ((prev, "prev", self.hp), (nxt, "nxt", self.hn)):
@@ -414,14 +466,15 @@ class CompletionPass(nn.Module):
                 _check(h, name, (n, rows, q), x.device)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
         y = torch.empty((n * TILE, q), device=x.device)
-        _launch("completion_rot", (
+        _launch("completion_rot_epi" if epi else "completion_rot", (
             x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
             0 if prev is None else prev.data_ptr(),
             0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
-            y.data_ptr(), q, n, self.sl, self.BR_v.shape[0], self.hp,
+            *epi, y.data_ptr(), q, n, self.sl, self.BR_v.shape[0], self.hp,
             self.hn, len(self.taps), int(self.taps != [] and
                                          self.start == "clamp"),
-            int(self.taps != [] and self.end == "clamp")), x.device)
+            int(self.taps != [] and self.end == "clamp"),
+            *((self.k,) if epi else ())), x.device)
         return y
 
     def _kernel_tails(self, x, N):
@@ -440,13 +493,15 @@ class CompletionPass(nn.Module):
             x.device)
         return y, t2
 
-    def forward(self, x, N, *halos):
-        if len(halos) != (self.hp > 0) + (self.hn > 0):
-            raise ValueError(f"expected {(self.hp > 0) + (self.hn > 0)} "
-                             f"halo strips, got {len(halos)}")
+    def forward(self, x, N, *rest):
+        """``forward(x, N, *halos, *aux)``: the halo strips of a stencil,
+        then the affine epilogue's aux arrays."""
+        if len(rest) != self.n_halos + self.k:
+            raise ValueError(f"expected {self.n_halos} halo strips and "
+                             f"{self.k} aux arrays, got {len(rest)} arrays")
         if x.is_cuda:
-            return _KernelFn.apply(self, x, N, *halos)
-        return self.plain(x, N, *halos)
+            return _KernelFn.apply(self, x, N, *rest)
+        return self.plain(x, N, *rest)
 
 
 # ---------------------------------------------------------------------------

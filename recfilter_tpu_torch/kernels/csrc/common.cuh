@@ -5,6 +5,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace rf {
 
 constexpr int GT = 128;            // GEMM tile edge: C is GT x GT
@@ -58,6 +60,102 @@ __device__ __forceinline__ void gemm_tile(const float* A, const float* B,
 // Row (or column) of C held in slot i of a thread's 8 x 8 block.
 __device__ __forceinline__ int row_of(int i, int t) {
   return (i < 4 ? 0 : 64) + t * 4 + (i & 3);
+}
+
+// The affine epilogue of the *_epi entries, applied to the filter output y
+// before the store:  out = a*y + sum_{j<K} b_j * aux_j + c,  each aux in
+// the output's layout (read at the output's own index), fp32 FMAs:
+// fmaf(a, y, c) first, then one fmaf per aux. coef = [a, c, b0, b1, b2, b3]
+// (a small float32 device buffer the module registers). K = NO_EPI: none.
+// The helpers apply it to values still in registers, every aux load of a
+// thread issued before any of its stores (a store through y would
+// otherwise order the next loads behind it: the loop would wait on the
+// memory latency of each output in turn).
+constexpr int NO_EPI = -1;
+constexpr int MAX_AUX = 4;
+
+struct Affine {
+  const float* aux[MAX_AUX];
+  const float* coef;
+};
+
+// A thread's 8 x 8 block of a GEMM tile: row i at output index r0[i]
+// (columns +0..3 and +64..67, read as float4: the aux arrays are 16-byte
+// aligned like the output), rows with ok[i] false untouched.
+template <int K>
+__device__ __forceinline__ void affine_tile(const Affine& e, float c[8][8],
+                                            const long (&r0)[8],
+                                            const bool (&ok)[8]) {
+  if constexpr (K != NO_EPI) {
+    const float a = e.coef[0], bias = e.coef[1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[i][j] = fmaf(a, c[i][j], bias);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float b = e.coef[2 + k];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (!ok[i]) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(e.aux[k] + r0[i] + 64 * h);
+          c[i][4 * h + 0] = fmaf(b, v.x, c[i][4 * h + 0]);
+          c[i][4 * h + 1] = fmaf(b, v.y, c[i][4 * h + 1]);
+          c[i][4 * h + 2] = fmaf(b, v.z, c[i][4 * h + 2]);
+          c[i][4 * h + 3] = fmaf(b, v.w, c[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// N outputs of one thread, output n at index i0 + n * stride.
+template <int K, int N>
+__device__ __forceinline__ void affine_strided(const Affine& e, float (&v)[N],
+                                               long i0, long stride) {
+  if constexpr (K != NO_EPI) {
+    const float a = e.coef[0], bias = e.coef[1];
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = fmaf(a, v[n], bias);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float b = e.coef[2 + k];
+      float x[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) x[n] = e.aux[k][i0 + n * stride];
+#pragma unroll
+      for (int n = 0; n < N; ++n) v[n] = fmaf(b, x[n], v[n]);
+    }
+  }
+}
+
+// Call f(std::integral_constant<int, K>{}) for the aux count k in
+// [0, MAX_AUX] of a *_epi launch (f launches the kernel instantiated for
+// K); false for a k outside it.
+template <typename F>
+bool dispatch_aux(int k, F&& f) {
+  switch (k) {
+    case 0: f(std::integral_constant<int, 0>{}); return true;
+    case 1: f(std::integral_constant<int, 1>{}); return true;
+    case 2: f(std::integral_constant<int, 2>{}); return true;
+    case 3: f(std::integral_constant<int, 3>{}); return true;
+    case 4: f(std::integral_constant<int, 4>{}); return true;
+    default: return false;
+  }
+}
+
+inline Affine make_affine(const float* a0, const float* a1, const float* a2,
+                          const float* a3, const float* coef) {
+  Affine e;
+  e.aux[0] = a0;
+  e.aux[1] = a1;
+  e.aux[2] = a2;
+  e.aux[3] = a3;
+  e.coef = coef;
+  return e;
 }
 
 }  // namespace rf

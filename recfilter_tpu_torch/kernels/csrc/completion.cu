@@ -28,6 +28,13 @@
 // Shared memory is 2 * (128 + sl) * 128 * 4 B: 139 KB at sl = 8, 188 KB at
 // sl = 56, one block per SM.
 //
+// completion_epi (K >= 0): the same kernel with the affine epilogue in its
+// store loop, out = a * Y + sum_{j<K} b_j * aux_j + c (K <= 4, each aux in
+// y's (q, n, T) layout, read with the store's float4 indexing; fp32 FMAs,
+// common.cuh's affine_tile) — the epilogue of completion_pass (eaux operands,
+// recfilter_tpu/kernels/completion.py:273). Each aux adds 4 B per sample of
+// reads; the kernel stays bound by its arithmetic.
+//
 // completion_traced (TRACED = true): the learnable executor's completion,
 // replacing recfilter_tpu/kernels/completion.py::completion_pass_traced.
 // The same GEMM with sl = 8, one variant, but Btot (128, 128) and Rcat
@@ -50,7 +57,7 @@ constexpr int MAX_SL = 56;                 // carry rows the layout takes
 
 // S: the carry rows read from N (sl for the static entry, the real rows of
 // Rcat for the traced one); rows S..sl-1 of the contraction are zeros.
-template <bool TRACED>
+template <bool TRACED, int K>  // K: affine epilogue aux count, or NO_EPI
 __global__ void __launch_bounds__(THREADS, 1)
 completion_kernel(const float* __restrict__ x,   // (q, n, T)
                   const float* __restrict__ N,   // (n, sl, q)
@@ -58,6 +65,7 @@ completion_kernel(const float* __restrict__ x,   // (q, n, T)
                                                  // Btot (T, T)
                   const float* __restrict__ Rc,  // traced: Rcat (T, S)
                   float* __restrict__ y,         // (q, n, T)
+                  rf::Affine epi,                // aux: (q, n, T)
                   int q, int n, int sl, int nv, int S) {
   extern __shared__ float4 smem4[];
   const int depth = T + sl;
@@ -107,14 +115,21 @@ completion_kernel(const float* __restrict__ x,   // (q, n, T)
   float c[8][8];
   rf::gemm_tile(As, Bs, c, ty, tx, depth);
 
+  long r0[8];
+  bool ok[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int l = l0 + rf::row_of(i, ty);
-    if (l < q) {
-      float* yr = y + ((long)l * n + t) * T;
-      *reinterpret_cast<float4*>(yr + tx * 4) =
+    r0[i] = ((long)l * n + t) * T + tx * 4;
+    ok[i] = l < q;
+  }
+  rf::affine_tile<K>(epi, c, r0, ok);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (ok[i]) {
+      *reinterpret_cast<float4*>(y + r0[i]) =
           make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-      *reinterpret_cast<float4*>(yr + 64 + tx * 4) =
+      *reinterpret_cast<float4*>(y + r0[i] + 64) =
           make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
     }
   }
@@ -139,13 +154,17 @@ completion_kernel(const float* __restrict__ x,   // (q, n, T)
 // (start_clamp for d < 0 at tile 0, end_clamp for d > 0 at tile n-1)
 // replicates the global first or last row — the JAX package's
 // _stencil_rows. Products then sums, each rounded (no FMA), in tap order,
-// as the twin _stencil_flat takes them.
+// as the twin _stencil_flat takes them. completion_rot_epi (K >= 0) then
+// applies the affine epilogue to each output, after the stencil (the
+// consumer order of completion.py:266-278), its aux in y's (n*128, q)
+// layout.
 //
 // What bounds it: the GEMM, as for completion (2 * (128 + sl) FLOP per
 // sample); the stencil adds 2 FLOP per tap and the halo reads (hp + hn)
 // rows per 128. Shared memory: the GEMM's 2 * (128 + sl) * 128 floats,
 // then the (hp + 128 + hn) * 128 staged rows over the same space
 // (hp, hn <= 128: 196 KB at most).
+template <int K>  // affine epilogue aux count, or NO_EPI
 __global__ void __launch_bounds__(THREADS, 1)
 completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
                       const float* __restrict__ N,     // (n, sl, q)
@@ -154,6 +173,7 @@ completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
                       const float* __restrict__ nxt,   // (n, hn, q)
                       const float* __restrict__ taps,  // (ntaps, 2): d, c
                       float* __restrict__ y,           // (n * T, q)
+                      rf::Affine epi,                  // aux: (n * T, q)
                       int q, int n, int sl, int nv, int hp, int hn,
                       int ntaps, int start_clamp, int end_clamp) {
   extern __shared__ float4 smem4[];
@@ -216,13 +236,22 @@ completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
 
   const int l = tid % T;
   if (l0 + l >= q) return;
-  float* yt = y + (long)t * T * q + l0 + l;
-  for (int o = tid / T; o < T; o += THREADS / T) {
-    float acc;
-    if (ntaps == 0) {
-      acc = Zs[(hp + o) * T + l];
-    } else {
-      acc = 0.f;
+  const long y0 = (long)t * T * q + l0 + l;
+  // outputs o = ob + s * STEP, s < CH, per chunk: the epilogue's aux loads
+  // of a chunk are in flight together (common.cuh's affine_strided); with
+  // no epilogue one output per step
+  constexpr int STEP = THREADS / T, CH = K == rf::NO_EPI ? 1 : 8;
+  static_assert(T % (CH * STEP) == 0, "the chunks cover the tile's rows");
+  for (int ob = tid / T; ob < T; ob += CH * STEP) {
+    float v[CH];
+#pragma unroll
+    for (int s = 0; s < CH; ++s) {
+      const int o = ob + s * STEP;
+      if (ntaps == 0) {
+        v[s] = Zs[(hp + o) * T + l];
+        continue;
+      }
+      float acc = 0.f;
       for (int k = 0; k < ntaps; ++k) {
         const int d = (int)taps[2 * k];
         int r = o + d;
@@ -231,8 +260,11 @@ completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
         const float term = __fmul_rn(taps[2 * k + 1], Zs[(hp + r) * T + l]);
         acc = k == 0 ? term : __fadd_rn(acc, term);
       }
+      v[s] = acc;
     }
-    yt[(long)o * q] = acc;
+    rf::affine_strided<K>(epi, v, y0 + (long)ob * q, (long)STEP * q);
+#pragma unroll
+    for (int s = 0; s < CH; ++s) y[y0 + (long)(ob + s * STEP) * q] = v[s];
   }
 }
 
@@ -341,6 +373,47 @@ completion_rot_tails_kernel(const float* __restrict__ x,   // (q, n, T)
   }
 }
 
+template <int K>
+int rot_launch(const float* x, const float* N, const float* BR,
+               const float* prev, const float* nxt, const float* taps,
+               float* y, const rf::Affine& epi, int q, int n, int sl, int nv,
+               int hp, int hn, int ntaps, int start_clamp, int end_clamp,
+               cudaStream_t stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8 || hp < 0 || hn < 0 || hp > T ||
+      hn > T || ntaps < 0 || (ntaps == 0 && (hp || hn)))
+    return (int)cudaErrorInvalidValue;
+  const int max_smem = (2 * (T + MAX_SL) > 3 * T ? 2 * (T + MAX_SL) : 3 * T)
+                       * T * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_rot_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      max_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int gemm = 2 * (T + sl) * T, stage = (hp + T + hn) * T;
+  const int smem = (gemm > stage ? gemm : stage) * (int)sizeof(float);
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_rot_kernel<K><<<grid, THREADS, smem, stream>>>(
+      x, N, BR, prev, nxt, taps, y, epi, q, n, sl, nv, hp, hn, ntaps,
+      start_clamp, end_clamp);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int plain_launch(const float* x, const float* N, const float* BR, float* y,
+                 const rf::Affine& epi, int q, int n, int sl, int nv,
+                 cudaStream_t stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_kernel<false, K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * (T + MAX_SL) * T * (int)sizeof(float));
+  if (err != cudaSuccess) return (int)err;
+  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_kernel<false, K><<<grid, THREADS, smem, stream>>>(
+      x, N, BR, nullptr, y, epi, q, n, sl, nv, sl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int completion_rot_tails_launch(
@@ -363,6 +436,7 @@ extern "C" int completion_rot_tails_launch(
   return (int)cudaGetLastError();
 }
 
+
 extern "C" int completion_rot_launch(const float* x, const float* N,
                                      const float* BR, const float* prev,
                                      const float* nxt, const float* taps,
@@ -370,37 +444,51 @@ extern "C" int completion_rot_launch(const float* x, const float* N,
                                      int hp, int hn, int ntaps,
                                      int start_clamp, int end_clamp,
                                      void* stream) {
-  if (sl < 8 || sl > MAX_SL || sl % 8 || hp < 0 || hn < 0 || hp > T ||
-      hn > T || ntaps < 0 || (ntaps == 0 && (hp || hn)))
-    return (int)cudaErrorInvalidValue;
-  const int max_smem = (2 * (T + MAX_SL) > 3 * T ? 2 * (T + MAX_SL) : 3 * T)
-                       * T * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      completion_rot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      max_smem);
-  if (err != cudaSuccess) return (int)err;
-  const int gemm = 2 * (T + sl) * T, stage = (hp + T + hn) * T;
-  const int smem = (gemm > stage ? gemm : stage) * (int)sizeof(float);
-  const dim3 grid(n, (q + T - 1) / T);
-  completion_rot_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, N, BR, prev, nxt, taps, y, q, n, sl, nv, hp, hn, ntaps,
-      start_clamp, end_clamp);
-  return (int)cudaGetLastError();
+  return rot_launch<rf::NO_EPI>(x, N, BR, prev, nxt, taps, y, rf::Affine{},
+                                q, n, sl, nv, hp, hn, ntaps, start_clamp,
+                                end_clamp, (cudaStream_t)stream);
+}
+
+// coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in y's
+// (n * 128, q) layout, the rest unread
+extern "C" int completion_rot_epi_launch(
+    const float* x, const float* N, const float* BR, const float* prev,
+    const float* nxt, const float* taps, const float* aux0,
+    const float* aux1, const float* aux2, const float* aux3,
+    const float* coef, float* y, int q, int n, int sl, int nv, int hp,
+    int hn, int ntaps, int start_clamp, int end_clamp, int k, void* stream) {
+  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
+  int err = (int)cudaErrorInvalidValue;
+  rf::dispatch_aux(k, [&](auto kc) {
+    err = rot_launch<decltype(kc)::value>(
+        x, N, BR, prev, nxt, taps, y, epi, q, n, sl, nv, hp, hn, ntaps,
+        start_clamp, end_clamp, (cudaStream_t)stream);
+  });
+  return err;
 }
 
 extern "C" int completion_launch(const float* x, const float* N,
                                  const float* BR, float* y, int q, int n,
                                  int sl, int nv, void* stream) {
-  if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      completion_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      2 * (T + MAX_SL) * T * (int)sizeof(float));
-  if (err != cudaSuccess) return (int)err;
-  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
-  const dim3 grid(n, (q + T - 1) / T);
-  completion_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, N, BR, nullptr, y, q, n, sl, nv, sl);
-  return (int)cudaGetLastError();
+  return plain_launch<rf::NO_EPI>(x, N, BR, y, rf::Affine{}, q, n, sl, nv,
+                                  (cudaStream_t)stream);
+}
+
+// coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in y's
+// (q, n, 128) layout, the rest unread
+extern "C" int completion_epi_launch(const float* x, const float* N,
+                                     const float* BR, const float* aux0,
+                                     const float* aux1, const float* aux2,
+                                     const float* aux3, const float* coef,
+                                     float* y, int q, int n, int sl, int nv,
+                                     int k, void* stream) {
+  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
+  int err = (int)cudaErrorInvalidValue;
+  rf::dispatch_aux(k, [&](auto kc) {
+    err = plain_launch<decltype(kc)::value>(x, N, BR, y, epi, q, n, sl, nv,
+                                            (cudaStream_t)stream);
+  });
+  return err;
 }
 
 // the learnable executor's completion: N (n, 8, q), Btot (T, T) and Rcat
@@ -413,12 +501,13 @@ extern "C" int completion_traced_launch(const float* x, const float* N,
   if (S < 1 || S > sl) return (int)cudaErrorInvalidValue;
   const int smem = 2 * (T + sl) * T * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      completion_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      completion_kernel<true, rf::NO_EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n, (q + T - 1) / T);
-  completion_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, N, Btot, Rcat, y, q, n, sl, 1, S);
+  completion_kernel<true, rf::NO_EPI>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+          x, N, Btot, Rcat, y, rf::Affine{}, q, n, sl, 1, S);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,17 @@
 // block of C in registers and reading float4 fragments free of bank
 // conflicts. fp32 FMA throughout; no wgmma, TMA or TF32 yet.
 //
+// final2d_epi: the same kernel with the affine epilogue in its store loop
+// (replaces _final_px_kernel's epilogue with eaux operands):
+//
+//   out = a * Y + sum_{j<k} b_j * aux_j + c,   k <= 4
+//
+// each aux in x's (p, na, T, W) layout, read with the store's own float4
+// indexing, fp32 FMAs (common.cuh's affine_tile). The unsharp mask's combine
+// (1 + w) * image - w * blur rides here with the image as its one aux, so
+// the blur never touches device memory. Each aux adds 4 B/px of reads to
+// the 12 B/px of traffic; the kernel stays bound by its arithmetic.
+//
 // Operand layouts (host-prepared, transposed so every stage is a
 // contiguous copy):
 //   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      rows kk, columns s
@@ -41,6 +52,7 @@ using rf::row_of;
 using rf::stage_rows;
 using rf::variant;
 
+template <int K>  // aux count of the affine epilogue; rf::NO_EPI: none
 __global__ void __launch_bounds__(THREADS, 1)
 final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
                const float* __restrict__ NA,   // (p, na, 8, W)
@@ -48,6 +60,7 @@ final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
                const float* __restrict__ A1,   // (nva, KX, T)
                const float* __restrict__ B2,   // (nvb, KX, T)
                float* __restrict__ y,          // (p, na, T, W)
+               rf::Affine epi,                 // aux: (p, na, T, W)
                int na, int nb, int nva, int nvb) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);  // KX x T
@@ -83,15 +96,35 @@ final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
   __syncthreads();
   gemm_tile(As, Bs, c, ty, tx, KX);
 
-  float* yt = y + pa * T * W + (long)b * T;
+  long r0[8];
+  bool ok[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* yr = yt + (long)row_of(i, ty) * W;
-    *reinterpret_cast<float4*>(yr + tx * 4) =
+    r0[i] = pa * T * W + (long)b * T + (long)row_of(i, ty) * W + tx * 4;
+    ok[i] = true;
+  }
+  rf::affine_tile<K>(epi, c, r0, ok);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<float4*>(y + r0[i]) =
         make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-    *reinterpret_cast<float4*>(yr + 64 + tx * 4) =
+    *reinterpret_cast<float4*>(y + r0[i] + 64) =
         make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
   }
+}
+
+template <int K>
+int launch(const float* x, const float* NA, const float* NB, const float* A1,
+           const float* B2, float* y, const rf::Affine& epi, int p, int na,
+           int nb, int nva, int nvb, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      final2d_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  final2d_kernel<K><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      x, NA, NB, A1, B2, y, epi, na, nb, nva, nvb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -100,14 +133,26 @@ extern "C" int final2d_launch(const float* x, const float* NA,
                               const float* NB, const float* A1,
                               const float* B2, float* y, int p, int na,
                               int nb, int nva, int nvb, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      final2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nb, na, p);
-  final2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, NA, NB, A1, B2, y, na, nb, nva, nvb);
-  return (int)cudaGetLastError();
+  return launch<rf::NO_EPI>(x, NA, NB, A1, B2, y, rf::Affine{}, p, na, nb,
+                            nva, nvb, (cudaStream_t)stream);
+}
+
+// coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in x's
+// layout, the rest unread
+extern "C" int final2d_epi_launch(const float* x, const float* NA,
+                                  const float* NB, const float* A1,
+                                  const float* B2, const float* aux0,
+                                  const float* aux1, const float* aux2,
+                                  const float* aux3, const float* coef,
+                                  float* y, int p, int na, int nb, int nva,
+                                  int nvb, int k, void* stream) {
+  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
+  int err = (int)cudaErrorInvalidValue;
+  rf::dispatch_aux(k, [&](auto kc) {
+    err = launch<decltype(kc)::value>(x, NA, NB, A1, B2, y, epi, p, na, nb,
+                                      nva, nvb, (cudaStream_t)stream);
+  });
+  return err;
 }
 
 extern "C" const char* final2d_error_string(int err) {

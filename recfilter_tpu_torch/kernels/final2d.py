@@ -5,7 +5,10 @@ their plain twins.
     tails ``G_A·x`` and the dim-B term ``Btot_A·(x·G_Bᵀ)`` (carry-sized).
   * :class:`Final2D` (passes 2+3 fused): read the x tile once, form the
     dim-A completion Z = Btot_A·x + Rhat_A·N_A on chip, and write
-    Y = Z·Btot_Bᵀ + N_B·Rhat_Bᵀ. Z never touches device memory.
+    Y = Z·Btot_Bᵀ + N_B·Rhat_Bᵀ. Z never touches device memory. With an
+    affine epilogue (``final2d_epi``) it writes ``a·Y + Σᵢ bᵢ·auxᵢ + c``
+    instead, the aux arrays in x's layout: the unsharp mask's combine,
+    its image the one aux, and Y never touches device memory either.
   * :class:`Final2DStencil`: :class:`Final2D` with a fused 2-D stencil
     consumer — C channel banks of shifted taps over Y, which itself never
     touches device memory; the rows above and below each tile come from
@@ -41,8 +44,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .completion import (_SLOTS, TILE, _expand_stack, _f32, _f64,
-                         _per_tile, _variants3, _variants_like, tile_einsum)
+from .completion import (_SLOTS, TILE, _aux_ptrs, _epi_coef, _expand_stack,
+                         _f32, _f64, _per_tile, _variants3, _variants_like,
+                         tile_einsum)
 from .launch import _check, _KernelFn, _launch
 
 
@@ -164,10 +168,14 @@ class Final2D(nn.Module):
 
     Btot_a : (na|1, Ta, Ta);  Rhat_a_cat : (na|1, Ta, Ka)
     Btot_b : (nb|1, Tb, Tb);  Rhat_b_cat : (nb|1, Tb, Kb)
+    affine : an optional :class:`..epilogue.Affine` (k ≤ 4 aux arrays):
+    ``final(x, NA_t, NB_t, *aux)`` then returns ``a·Y + Σᵢ bᵢ·auxᵢ + c``,
+    each aux (p, na, Ta, W) like x (the ``final2d_epi`` entry; the twin
+    applies the form after ``plain``'s Y).
     """
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
-                 nb: int):
+                 nb: int, affine=None):
         super().__init__()
         self.na, self.nb = int(na), int(nb)
         Ra8, Rb8 = _pad_slots(Rhat_a_cat), _pad_slots(Rhat_b_cat)
@@ -182,8 +190,9 @@ class Final2D(nn.Module):
         self.register_buffer("Ran", _f32(_expand_stack(Ra8, na)))
         self.register_buffer("Bbn", _f32(_expand_stack(Btot_b, nb)))
         self.register_buffer("Rbn", _f32(_expand_stack(Rb8, nb)))
+        self.affine, self.k = affine, _epi_coef(self, affine)
 
-    def plain(self, x, NA_t, NB_t):
+    def plain(self, x, NA_t, NB_t, *aux):
         p, na, Ta, W = x.shape
         nb = self.nb
         z = (torch.einsum("aos,pasw->paow", self.Ban, x)
@@ -192,9 +201,10 @@ class Final2D(nn.Module):
                           z.reshape(p, na, Ta, nb, W // nb))
              + torch.einsum("bok,pabks->pasbo", self.Rbn,
                             NB_t.reshape(p, na, nb, _SLOTS, Ta)))
-        return y.reshape(p, na, Ta, W)
+        y = y.reshape(p, na, Ta, W)
+        return y if self.affine is None else self.affine.apply(y, aux)
 
-    def _kernel(self, x, NA_t, NB_t):
+    def _kernel(self, x, NA_t, NB_t, *aux):
         p, na, nb = x.shape[0], self.na, self.nb
         W = nb * TILE
         _check(x, "x", (p, na, TILE, W), x.device)
@@ -205,16 +215,24 @@ class Final2D(nn.Module):
             _check(t, name, t.shape, x.device)
         _grid_ok(p, na, W)
         y = torch.empty_like(x)
-        _launch("final2d", (
-            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
-            self.A1_v.data_ptr(), self.B2_v.data_ptr(), y.data_ptr(),
-            p, na, nb, self.A1_v.shape[0], self.B2_v.shape[0]), x.device)
+        ops = (x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
+               self.A1_v.data_ptr(), self.B2_v.data_ptr())
+        dims = (p, na, nb, self.A1_v.shape[0], self.B2_v.shape[0])
+        if self.affine is None:
+            _launch("final2d", (*ops, y.data_ptr(), *dims), x.device)
+            return y
+        _check(self.epi_coef, "epi_coef", self.epi_coef.shape, x.device)
+        _launch("final2d_epi", (
+            *ops, *_aux_ptrs(aux, self.k, x.shape, x.device),
+            self.epi_coef.data_ptr(), y.data_ptr(), *dims, self.k), x.device)
         return y
 
-    def forward(self, x, NA_t, NB_t):
+    def forward(self, x, NA_t, NB_t, *aux):
+        if len(aux) != self.k:
+            raise ValueError(f"expected {self.k} aux arrays, got {len(aux)}")
         if x.is_cuda:
-            return _KernelFn.apply(self, x, NA_t, NB_t)
-        return self.plain(x, NA_t, NB_t)
+            return _KernelFn.apply(self, x, NA_t, NB_t, *aux)
+        return self.plain(x, NA_t, NB_t, *aux)
 
 
 class Final2DStencil(nn.Module):

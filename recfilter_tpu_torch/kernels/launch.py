@@ -13,7 +13,12 @@ autograd rule for all of them.
     ``tails``, whose extra-row form (a stencil's halo bases) is
     ``tails_extra``. The learnable executor's two kernels, whose matrices
     are runtime tensors, are entries of the same sources:
-    ``tails_traced`` and ``completion_traced``.
+    ``tails_traced`` and ``completion_traced``. The affine epilogue
+    ``a·y + Σᵢ bᵢ·auxᵢ + c`` in the store loop of ``final2d``,
+    ``completion`` and ``completion_rot`` is an entry of its own for each,
+    ``final2d_epi``, ``completion_epi`` and ``completion_rot_epi`` (the aux
+    count k ≤ 4 an int, the coefficients a device buffer), so a count
+    tells "epilogue in the kernel" from "kernel, then torch ops".
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -42,6 +47,7 @@ import torch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+MAX_AUX = 4  # aux pointers an ``*_epi`` entry takes (common.cuh's MAX_AUX)
 
 
 def _sig(name: str, *entries) -> dict:
@@ -56,12 +62,14 @@ def _sig(name: str, *entries) -> dict:
 
 SIGNATURES = {
     "moments2d": _sig("moments2d", ("moments2d", 9, 8)),
-    "final2d": _sig("final2d", ("final2d", 6, 5)),
+    "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
                   ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
+                       ("completion_epi", 9, 5),
                        ("completion_rot", 7, 9),
+                       ("completion_rot_epi", 12, 10),
                        ("completion_rot_tails", 6, 7),
                        ("completion_traced", 5, 3)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),

@@ -23,8 +23,10 @@ tiles on, for a decaying filter, else the dense padded (n·8)² matmul —
 construction.
 
 Two consumers ride :class:`Fused2DPx` as in the JAX package's
-``fused_2d_px``: an elementwise ``epilogue(y, *eaux)`` on the output of the
-final kernel, and a ``stencil2d`` bank — per channel 2-D shifted taps —
+``fused_2d_px``: an elementwise ``epilogue(y, *eaux)`` — inside the final
+kernel's store loop where its structure is affine (``final2d_epi``: the
+unsharp mask's combine, :func:`.epilogue.affine_form`), as torch ops on
+the kernel's output otherwise — and a ``stencil2d`` bank — per channel 2-D shifted taps —
 fused into the final kernel (``final2d_stencil``), so the filter output
 never reaches device memory: the moments kernel also emits each tile's
 edge completion partials, and the glue completes them into the row-halo
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import dimfuse
+from .epilogue import kernel_form
 from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
 from .kernels.stencil2d import stencil_reach
@@ -107,9 +110,12 @@ class Fused2DPx(nn.Module):
     for CPU tensors); ``forward_plain`` runs the twins on any device — the
     all-PyTorch reference for the kernel path.
 
-    ``epilogue(y, *eaux)``: an elementwise combine applied to the final
-    kernel's output (``forward(x, *eaux)``, the aux arrays in the output's
-    layout, padded and tiled like x). ``stencil2d``: per channel
+    ``epilogue(y, *eaux)``: an elementwise combine of the filter output
+    (``forward(x, *eaux)``, the aux arrays in the output's layout, padded
+    and tiled like x). Where :func:`.epilogue.affine_form` reads it as
+    ``a·y + Σᵢ bᵢ·auxᵢ + c`` (k ≤ 4) the final kernel applies it in its
+    store loop (``epilogue_route == "kernel"``); otherwise it runs as
+    torch ops on the kernel's output (``"torch"``). ``stencil2d``: per channel
     ``[(dy, dx, coeff), ...]`` fused into the final kernel
     (``final2d_stencil``); ``forward`` then returns a tuple of C channels.
 
@@ -142,6 +148,9 @@ class Fused2DPx(nn.Module):
         self.wa, self.wb, self.na, self.nb = wa, wb, na, nb
         self.pad_a, self.pad_b, self.Ka, self.Kb = pad_a, pad_b, Ka, Kb
         self.epilogue = epilogue
+        self.affine = kernel_form(epilogue)
+        self.epilogue_route = (None if epilogue is None else
+                               "torch" if self.affine is None else "kernel")
         self.h8 = 0 if stencil2d is None else stencil_h8(stencil2d)
 
         Ga_cat = np.concatenate([np.asarray(g) for g in ma.G], axis=1)
@@ -157,7 +166,7 @@ class Fused2DPx(nn.Module):
                                             self.h8)
         else:
             self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
-                                     nb)
+                                     nb, affine=self.affine)
 
         def buf(name, a):  # glue constants stay float64 (module docstring)
             self.register_buffer(
@@ -280,13 +289,19 @@ class Fused2DPx(nn.Module):
             outs = final(X4, NA32, NB32, *self.halo_strips(*edges, NA_t,
                                                            NB_t))
             return tuple(o.reshape(*lead, self.wa, self.wb) for o in outs)
-        # passes 2+3: read x once, emit Y
-        Y4 = final(X4, NA32, NB32)
-        if self.epilogue is not None:
-            # the aux arrays padded and tiled like x (position-free)
-            Y4 = self.epilogue(Y4, *(self.tile(
-                torch.as_tensor(a).to(device=x.device, dtype=Y4.dtype)
-                .expand_as(x)) for a in eaux))
+        # the aux arrays padded and tiled like x (position-free), a
+        # broadcast aux materialized
+        aux = [self.tile(torch.as_tensor(a).to(device=x.device,
+                                               dtype=torch.float32)
+                         .expand_as(x))
+               for a in (eaux if self.epilogue is not None else ())]
+        # passes 2+3: read x once, emit Y (or the affine epilogue's output)
+        if self.affine is not None:
+            Y4 = final(X4, NA32, NB32, *aux)
+        else:
+            Y4 = final(X4, NA32, NB32)
+            if self.epilogue is not None:
+                Y4 = self.epilogue(Y4, *aux)
         y = Y4.reshape(*lead, self.na * TILE, self.nb * TILE)
         return y[..., :self.wa, :self.wb]
 

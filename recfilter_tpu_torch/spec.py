@@ -98,6 +98,23 @@ class FilterSpec:
         if self.tile_widths and len(self.tile_widths) != len(self.dims):
             raise ValueError("tile_widths must match number of dims")
 
+    def stacked(self) -> "FilterSpec":
+        """Executor view of a Tuple filter: the components ride a leading
+        channel dimension (every scan applies identically to each
+        component, as Halide Tuples do) and scan axes shift by one."""
+        if not self.tuple_width:
+            return self
+        return FilterSpec(
+            name=self.name,
+            dims=(Dim("__tuple__", self.tuple_width),) + self.dims,
+            scans=tuple(dataclasses.replace(s, axis=s.axis + 1)
+                        for s in self.scans),
+            border=self.border,
+            dtype=self.dtype,
+            tile_widths=((0,) + self.tile_widths) if self.tile_widths else (),
+            tuple_width=0,
+        )
+
     @property
     def tiled(self) -> bool:
         return any(t > 0 for t in self.tile_widths)

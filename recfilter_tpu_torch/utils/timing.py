@@ -80,9 +80,11 @@ def device_profile(fn: Callable, *args, iterations: int = 10,
     no overlap), ``idle`` = 1 − busy / call, ``device_ops`` (device kernels
     and copies launched per call) and ``top`` — the five largest device
     ops as (name, ms per call). A trace can come back without its device
-    events now and then; the window is then profiled again, up to
-    ``attempts`` times in all, and ``busy_ms`` and ``idle`` are None when
-    no attempt recorded device time."""
+    events, or with only some of them, now and then: every call launches
+    the same device ops, so a window in which an op's count is not a
+    multiple of ``iterations`` lost events. Such a window is profiled
+    again, up to ``attempts`` times in all, and ``busy_ms`` and ``idle``
+    are None when no attempt recorded every device event."""
     dev = _cuda_device(args)
     for _ in range(warmup):
         fn(*args)
@@ -90,8 +92,9 @@ def device_profile(fn: Callable, *args, iterations: int = 10,
     for _ in range(attempts):
         call_ms, ops = _profile_window(fn, args, dev, iterations)
         busy = sum(ms for _, ms, _ in ops)
-        if busy > 0:
+        if busy > 0 and all(abs(c - round(c)) < 1e-9 for _, _, c in ops):
             break
+        busy = 0.0
     ops.sort(key=lambda o: -o[1])
     return {"call_ms": call_ms,
             "busy_ms": busy if busy > 0 else None,

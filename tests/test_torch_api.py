@@ -216,13 +216,15 @@ def test_cuda_request_raises_without_cuda():
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port imports and runs the 256²
-    headline filter, a 1-D audio filter and the staged Gaussian cascade
-    (x on the last-axis pass, y on the rows pass) on the CPU within the
-    px6 bound."""
+    headline filter, a 1-D audio filter, the staged Gaussian cascade
+    (x on the last-axis pass, y on the rows pass) and the merged unsharp
+    mask on the CPU within the px6 bound, and a Tuple filter whose linear
+    combine folds (2u − v of (I, 2I): zero)."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         import numpy as np
+        import torch
         import recfilter_tpu_torch as rft
         h = w = 256
         img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
@@ -248,6 +250,23 @@ def test_port_never_imports_jax():
         want = rft.oracle_apply(gaussian_3xy(w, h).spec,
                                 img.astype(np.float64))
         assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        from recfilter_tpu_torch.apps import unsharp_mask
+        usm = unsharp_mask(w, h, device="cpu")
+        assert usm.usm_route == "merged"
+        got = usm(torch.from_numpy(img)).numpy()
+        blur = rft.oracle_apply(gaussian_3xy(w, h).spec,
+                                img.astype(np.float64))
+        want = 2.0 * img - blur
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        T = rft.RecFilter("Tup")
+        T[y, x] = (img, 2 * img)
+        for d in (+x, +y):
+            T.add_filter(d, [0.8, 0.4])
+        T.split(x, 128, y, 128)
+        fold = T.as_func(epilogue=lambda u, v: 2.0 * u - v, device="cpu")
+        assert fold.tuple_route == "linear-folded"
+        assert float(fold((torch.from_numpy(img),
+                           torch.from_numpy(2 * img))).abs().max()) < 1e-6
         assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
                        or m == "recfilter_tpu" for m in sys.modules
                        if sys.modules[m] is not None)

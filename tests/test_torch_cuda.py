@@ -627,8 +627,10 @@ def test_sat_apps_and_consumers_on_the_card(dev):
     SAT (moments2d, final2d_stencil, four rotated stencil passes), box ×3
     SAT (the FIR order-1 box feeding the rotated integrals a transposed
     view), a y-only blur with a Sobel bank (stencil2d), the Gaussian with
-    an epilogue, and the per-slice rotated pass: launch counts, and the
-    plain path within 1e-3 of the peak (the integrals' fp32 rounding)."""
+    an epilogue (affine: in final2d's store loop; a clamp: torch ops after
+    it), and the per-slice rotated pass: launch counts, and the plain path
+    within 1e-3 of the peak (the integrals' fp32 rounding). The DoG's
+    subtraction is its last rotated pass's affine epilogue."""
     from recfilter_tpu_torch.apps import box_filter_3, difference_of_gaussians
     from recfilter_tpu_torch.apps.dog import _stencil
 
@@ -657,12 +659,15 @@ def test_sat_apps_and_consumers_on_the_card(dev):
     cases = [
         (difference_of_gaussians(w, w, 5, 9, variant="sat"), (x,),
          _only(moments2d=1, final2d_stencil=1, tails_extra=4,
-               completion_rot=4)),
+               completion_rot=3, completion_rot_epi=1)),
         (box_filter_3(w, w, 5, variant="sat"), (x,),
          _only(fir_band=2, tails=2, completion_rot=2)),
         (blur.as_func(stencil2d=sobel), (x,),
          _only(rows_tails=1, rows_final=1, stencil2d=1)),
         (gauss.as_func(epilogue=lambda o, a: 2.0 * a - o), (x, x),
+         _only(moments2d=1, final2d_epi=1)),
+        (gauss.as_func(epilogue=lambda o, a: torch.clamp(2.0 * a - o, -1,
+                                                         1)), (x, x),
          _only(moments2d=1, final2d=1)),
         (sl.as_func(stencil={"taps": [_stencil(5)["taps"],
                                       _stencil(9)["taps"]]}),
@@ -946,3 +951,182 @@ def test_learnable_biquad_on_the_card(dev):
     want = lfilter([0.3], [1.0, -0.9, 0.45], sig.astype(np.float64))
     assert (np.abs(out.cpu().numpy() - want).max()
             <= 2e-6 * np.abs(want).max())
+
+
+# ------------------------------------------------- the affine epilogue
+
+
+# (scale, aux weights, bias): k = 0..4, with and without a bias
+AFFINES = [(0.5, (), 1.0), (-1.0, (2.0,), 0.0), (2.0, (-3.0, 0.5), 0.25),
+           (1.0, (1.0, -1.0, 0.5), -2.0), (0.75, (1.0, 2.0, -1.0, 0.5), 0.0)]
+
+
+def _affine(i):
+    from recfilter_tpu_torch.epilogue import Affine
+
+    a, b, c = AFFINES[i]
+    return Affine(a, b, c)
+
+
+def _aux(shape, k, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev) for _ in range(k)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("i", range(len(AFFINES)))
+def test_final2d_epi_matches_twin(kind, i, dev):
+    """final2d_epi, k = 0..4 aux arrays with and without a bias, against
+    its twin (plain's Y, then the form as torch ops): 1e-5 of the twin's
+    peak; and its Y part equal to final2d's within the same bound."""
+    clamp, pad_a, pad_b = STACKS[kind]
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [Scan(0, True, w3[0], tuple(w3[1:])),
+         Scan(0, False, w3[0], tuple(w3[1:]))]
+    ma = tdf.prepare_dim_pass(a, T, NA, clamp)
+    mb = tdf.prepare_dim_pass(a, T, NB, clamp)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    aff = _affine(i)
+    fin = tk2d.Final2D(ma.Btot, cat(ma.Rhat, 2), mb.Btot, cat(mb.Rhat, 2),
+                       NA, NB, affine=aff).to(dev)
+    x, NA_t, NB_t = _inputs(dev, seed=i)
+    aux = _aux(x.shape, aff.k, dev, 10 + i)
+    tl.reset_launches()
+    y = fin(x, NA_t, NB_t, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(final2d_epi=1)
+    assert _rel(y, fin.plain(x, NA_t, NB_t, *aux)) <= 1e-5
+    with pytest.raises(ValueError):
+        fin(x, NA_t, NB_t, *aux, x)  # one aux too many
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("i", range(len(AFFINES)))
+def test_completion_epi_matches_twin(kind, i, dev):
+    """completion_epi and completion_rot_epi (with and without a fused
+    stencil, the epilogue after it), k = 0..4, ragged line blocks: 1e-5
+    of the twin's peak."""
+    rng = np.random.default_rng(i)
+    n, S, q = 4, 6, 300
+    aff = _affine(i)
+    Btot, Rcat = _stack(kind, T, T, n, rng, 0.1), _stack(kind, T, S, n, rng)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.from_numpy(rng.standard_normal((n, 8, q)).astype(np.float32)
+                         ).to(dev)
+    comp = tc.CompletionPass(Btot, Rcat, n, affine=aff).to(dev)
+    aux = _aux((q, n, T), aff.k, dev, 20 + i)
+    tl.reset_launches()
+    y = comp(x, N, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_epi=1)
+    assert _rel(y, comp.plain(x, N, *aux)) <= 1e-5
+    st = {"taps": [(1, 1.0), (0, -2.0), (-1, 1.0)], "start": "zero",
+          "end": "clamp"}
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    aux = _aux((n * T, q), aff.k, dev, 30 + i)
+    for stencil in (None, st):
+        rot = tc.CompletionPass(Btot, Rcat, n, rot=True, stencil=stencil,
+                                affine=aff).to(dev)
+        halos = _halos_flat(flat.plain(x, N), n, rot.hp, rot.hn)
+        tl.reset_launches()
+        y = rot(x, N, *halos, *aux)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(completion_rot_epi=1)
+        assert _rel(y, rot.plain(x, N, *halos, *aux)) <= 1e-5
+
+
+def test_ragged_aux_padding_on_the_2d_path(dev):
+    """A 1000 × 1920 image (padded to 1024 × 1920) with an affine
+    epilogue of two aux arrays, one of them a broadcast row: the aux
+    arrays are padded, tiled and materialized for final2d_epi; against the
+    plain path and the torch-op route of the same combine."""
+    h, w = 1000, 1920
+    rng = np.random.default_rng(4)
+    img, a0 = (torch.from_numpy(rng.standard_normal((h, w)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    a1 = torch.from_numpy(rng.standard_normal(w).astype(np.float32)).to(dev)
+    w3 = rft.gaussian_weights(5.0, 3)
+    xd, yd = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("Ragged")
+    F[yd, xd] = np.zeros((h, w), np.float32)
+    for d in (+xd, -xd, +yd, -yd):
+        F.add_filter(d, w3)
+    F.split(xd, T, yd, T)
+    mod = F.as_func(epilogue=lambda y, a, b: 0.5 * y + 2.0 * a - b + 1.0,
+                    device=dev)
+    assert mod.epilogue_route == "kernel"
+    tl.reset_launches()
+    got = mod(img, a0, a1)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d=1, final2d_epi=1)
+    assert got.shape == (h, w)
+    assert _rel(got, mod.forward_plain(img, a0, a1)) <= 1e-5
+    blur = F.as_func(device=dev)(img)
+    assert _rel(got, 0.5 * blur + 2.0 * a0 - a1 + 1.0) <= 1e-5
+
+
+def test_epilogue_on_the_last_axis_and_the_chain(dev):
+    """A dry/wet mix 0.7·y + 0.3·x on 16 channels × 4096 samples (one
+    tiled pass: tails, then completion_epi) and the unsharp combine on the
+    rotation chain's last pass at 256², ΣK = 12 (completion_rot_epi):
+    launch counts, 2e-6 of the f64 oracle."""
+    rng = np.random.default_rng(5)
+    sig = (rng.standard_normal((16, 4096)) * 0.1).astype(np.float32)
+    c, xd = rft.Dim("c", 16), rft.Dim("x", 4096)
+    A = rft.RecFilter("Mix")
+    A[c, xd] = sig
+    A.add_filter(+xd, [1.0, 0.01, 0.01])
+    A.split(xd, T)
+    mod = A.as_func(epilogue=lambda y, x: 0.7 * y + 0.3 * x, device=dev)
+    x = torch.from_numpy(sig).to(dev)
+    tl.reset_launches()
+    got = mod(x, x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails=1, completion_epi=1)
+    want = 0.7 * rft.oracle_apply(A.spec, sig.astype(np.float64)) + 0.3 * sig
+    assert np.abs(got.cpu().numpy() - want).max() <= 2e-6 * np.abs(
+        want).max()
+    img = (rng.standard_normal((256, 256)) * 0.01).astype(np.float32)
+    wts = rft.gaussian_weights(5.0, 3)
+    xd, yd = rft.Dim("x", 256), rft.Dim("y", 256)
+    K = rft.RecFilter("K1")
+    K[yd, xd] = img
+    for d in (xd, yd):
+        for _ in range(2):
+            K.add_filter(+d, wts)
+            K.add_filter(-d, wts)
+    K.split(xd, T, yd, T)
+    mod = K.as_func(epilogue=lambda b, i: 2.0 * i - b, device=dev)
+    assert type(mod).__name__ == "RotationChain"
+    x = torch.from_numpy(img).to(dev)
+    tl.reset_launches()
+    got = mod(x, x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails=2, completion_rot=1,
+                                completion_rot_epi=1)
+    assert mod.passes[-1].epilogue_route == "kernel"
+    want = 2.0 * img - rft.oracle_apply(K.spec, img.astype(np.float64))
+    assert np.abs(got.cpu().numpy() - want).max() <= 2e-6 * np.abs(
+        want).max()
+
+
+def test_unsharp_mask_gradient_on_the_card(dev):
+    """U1's input gradient at 512²: through the merged route (moments2d,
+    final2d_epi: the image reaches the output through the filter and the
+    combine's aux) against the naive route's, rtol = atol = 1e-4."""
+    from recfilter_tpu_torch.apps import unsharp_mask
+
+    img = np.random.default_rng(6).random((512, 512)).astype(np.float32)
+    grads = []
+    for fused in (True, False):
+        mod = unsharp_mask(512, 512, fused=fused, device=dev)
+        x = torch.from_numpy(img).to(dev).requires_grad_()
+        tl.reset_launches()
+        y = mod(x)
+        if fused:
+            assert tl.LAUNCHES == _only(moments2d=1, final2d_epi=1)
+        (g,) = torch.autograd.grad((y ** 2).sum(), x)
+        grads.append(g)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
