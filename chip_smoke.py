@@ -226,6 +226,27 @@ Phases:
      final2d_epi; against the composition within 1e-6), E1 (tails and
      completion_epi, 2e-6 of ``lfilter``'s peak) and E2 (two tails, one
      completion_rot and one completion_rot_epi, 2e-6 of the oracle);
+     phase 2i holds the other backends' kernels to their twins (1e-5 of
+     the twin's peak): ``moments2d_k`` and ``final2d_k`` (the HIGHEST
+     2-D pair of ``overlap_k``) at 4096² with Ta = 128, K = 6, at Ta = 32
+     and at K = 12, ``dim_pass_rows`` and ``dim_pass_cols`` (the strip
+     passes of ``pallas``) at 4096² zero and clamp, 1080 × 1920 and
+     1920 × 1080 zero (a padded tail on either axis) and with a
+     ``line_block`` of 64; phase 3i runs every other backend through
+     ``as_func()``, launches asserted and within 2e-6 of the f64 oracle:
+     O1 the headline on ``overlap_k`` at ``highest`` (one moments2d_k,
+     one final2d_k), O2 the Gaussian twice per axis at 4096² on
+     ``overlap_k`` at px6 (ΣK = 12: the px pair declines, the HIGHEST
+     pair runs), O3 the headline on ``overlap_k`` at px6 (moments2d,
+     final2d), O4 ``overlap`` on V1's 256³ (``fused_nd_pass``, float64
+     einsums, no launch) and on a 1080 × 1920 clamp frame (two dimension
+     passes), P1 the headline with ``intra_schedule(1).compute_locally()``
+     (one dim_pass_rows, one dim_pass_cols), P2 the clamp frame on
+     ``pallas`` (x on dim_pass_rows, y padded: the blocked algebra), P3
+     256³ on ``pallas`` (dim_pass_cols twice, dim_pass_rows once), B1 and
+     S1 the headline at 1024² on ``blocked`` and ``scan``, S3 an untiled
+     1024² headline (``auto``: the sequential core), and S2 an int32 SAT
+     2048² on ``pallas`` (the core, bit-equal to numpy's cumsum);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
@@ -257,18 +278,27 @@ Phases:
      at U1's, A's and C1's shapes beside their twins, ``final2d_epi``
      also beside ``final2d`` then the combine as torch ops,
      ``completion_epi`` beside one ``addmm`` (the mix's a and b as its
-     alpha and beta) as the library form. A
-     profiled window that comes back without device events is taken
+     alpha and beta) as the library form; for ``moments2d_k`` and
+     ``final2d_k`` at O1's shapes and ``dim_pass_rows`` /
+     ``dim_pass_cols`` at P1's the same (no PyTorch call computes any of
+     the four), the whole calls O1, O2, P1 and P3 with their profiles,
+     B1 and S1 (median of 5 calls: the sequential core is a loop of small
+     launches), and each strip pass of P1, P2 and P3 at every line block
+     that fits beside ``pick_line_block``'s own choice
+     (:func:`line_block_sweep`). A profiled window that comes back without device events is taken
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
 
 The last line is the JSON result; the line before it is the card's name
 and power limit; before that a JSON line describes each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
-fp32 (67 TFLOP/s) or fp64 (33.5 TFLOP/s, the fp64-summing tails kernels,
-``tails_traced`` among them) peak of an H100 SXM, or for the integer kernels over its int32 add rate
-(132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's unit
-count in NVIDIA's Hopper white paper).
+fp32 (67 TFLOP/s, outside the tensor cores) or fp64 (67 TFLOP/s on the
+tensor cores, DMMA: the card's peak for the type, though the kernels
+summing in fp64 — the tails kernels, ``tails_traced``, ``moments2d_k`` and
+the strip kernels among them — run their fp64 on the CUDA cores at half
+of it) peak of an H100 SXM, or for the integer kernels over its int32 add
+rate (132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's
+unit count in NVIDIA's Hopper white paper).
 """
 
 import json
@@ -281,8 +311,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 H = W = 4096
 N_TIMED = 25
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 and fp64 FLOP/s
-PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 33.5e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores, fp64 FLOP/s on them (DMMA: the card's peak for fp64)
+PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 67e12
 PEAK_INT32 = 132 * 64 * 1.98e9  # int32 adds/s (module docstring)
 
 
@@ -456,6 +487,63 @@ def paired_times(kernel_fn, plain_fn, *args):
                     (plain_fn, p)):
         acc += timing.call_times_ms(fn, *args, iterations=N_TIMED, warmup=3)
     return statistics.median(k), statistics.median(p)
+
+
+def line_block_sweep(rft, dev, card):
+    """Each strip pass of P1 (4096², zero), P2 (1080 × 1920 clamp: the x
+    pass; y takes the blocked algebra) and P3 (256³) at every line block
+    that fits shared memory, beside the block ``pick_line_block`` takes
+    on its own: CUDA-event medians of single calls, in turns (ascending,
+    then descending). Each block's output is held to the default's at
+    1e-6 of its peak. Returns [(label, {block: ms}, picked)]."""
+    import torch
+
+    from recfilter_tpu_torch.kernels import fused
+
+    cases = (("P1", build_filter(rft, H, W, image(H, W))),
+             ("P2", build_filter(rft, 1080, 1920, image(1080, 1920), True)),
+             ("P3", gauss_axes(rft, (256, 256, 256), (0, 1, 2))))
+    out = []
+    with torch.no_grad():
+        for tag, F in cases:
+            F.set_plan(backend="pallas")
+            mod = F.as_func(device=dev)
+            v = torch.from_numpy(F._image).to(dev)
+            for i, st in enumerate(mod.stages):
+                if st.route == "blocked":
+                    v = st(v)
+                    continue
+                body, X = st.body, st.kernel_input(v)
+                rows = st.route == "rows"
+                lines, outer = ((X.shape[0], 1) if rows
+                                else (X.shape[2], X.shape[0]))
+                picked = fused.pick_line_block(lines, outer, body.T, body.K,
+                                               rows)
+                y0 = body(X)
+                fits = [lb for lb in (16, 32, 64) if fused.pick_line_block(
+                    lines, outer, body.T, body.K, rows, lb) == lb]
+                ms = {lb: [] for lb in fits}
+                for lb in fits + fits[::-1]:
+                    body.line_block = lb
+                    ms[lb].append(median_ms(body, X))
+                for lb in fits:
+                    body.line_block = lb
+                    check(rel_err(body(X), y0) <= 1e-6,
+                          f"LB {tag} axis {st.axis}: {lb} lines a block "
+                          "agree with the default")
+                body.line_block = 0
+                med = {lb: statistics.median(t) for lb, t in ms.items()}
+                label = (f"{tag} {st.route} axis {st.axis} ({lines} lines, "
+                         f"outer {outer}, T {body.T}, K {body.K})")
+                print(f"  LB {label}: " + ", ".join(
+                    f"{lb} lines {med[lb]:.4f} ms (turns "
+                    f"{ms[lb][0]:.4f}, {ms[lb][1]:.4f})" for lb in fits)
+                    + f"; picked {picked}, fastest {min(med, key=med.get)} "
+                    f"on {card}", flush=True)
+                out.append((label, med, picked))
+                v = st(v)
+            del v
+    return out
 
 
 def lfilter_reference(spec, x):
@@ -1426,6 +1514,81 @@ def main() -> int:
         epi_in["completion_rot_epi"] = (comp, args)
         del got, want, bp, le
 
+    print("== phase 2i: the HIGHEST pair (moments2d_k, final2d_k) and the "
+          "strip kernels (dim_pass_rows, dim_pass_cols) against their twins "
+          "on the card", flush=True)
+
+    def pair_of(mod):
+        """The HIGHEST pair module of an overlap_k filter's first stage,
+        and whether it runs on the transposed image."""
+        st = mod.stages[0]
+        return (st.body, True) if hasattr(st, "a") else (st, False)
+
+    with torch.no_grad():
+        for label, (F, plan) in {
+                "4096² Ta 128 K 6": (build_filter(rft, H, W, image(H, W)),
+                                     "highest"),
+                "4096² Ta 32 K 6": (build_filter(rft, H, W, image(H, W)),
+                                    "highest"),
+                "4096² Ta 128 K 12": (gauss_axes(rft, (H, W), (0, 1),
+                                                 times=2), "px6")}.items():
+            if "Ta 32" in label:  # x is the pair's leading axis (swapped)
+                F.split({F.spec.dims[1]: 32})
+            F.set_plan(backend="overlap_k", matmul_precision=plan)
+            mod = F.as_func()
+            fk, swapped = pair_of(mod)
+            check(type(fk).__name__ == "Fused2DK",
+                  f"{label}: the HIGHEST pair runs")
+            x = torch.from_numpy(F._image).to(dev)
+            X4 = fk.tile(x.t() if swapped else x)
+            for got, want, what in zip(fk.moments(X4), fk.moments.plain(X4),
+                                       ("bA", "U")):
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                print(f"  {label} moments2d_k {what} {tuple(got.shape)}: "
+                      f"max|k-p|/max|p| = {err:.3e}")
+                check(err <= 1e-5, f"{label} moments2d_k {what} within 1e-5")
+                if label == "4096² Ta 128 K 6":
+                    max_abs["moments2d_k"] = max(
+                        max_abs.get("moments2d_k", 0.0),
+                        (got - want).abs().max().item())
+            NA_k, NB_k = fk.carries(X4, fk.moments.plain)
+            got = fk.final(X4, NA_k, NB_k)
+            want = fk.final.plain(X4, NA_k, NB_k)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  {label} final2d_k Y: max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"{label} final2d_k within 1e-5")
+            if label == "4096² Ta 128 K 6":
+                max_abs["final2d_k"] = (got - want).abs().max().item()
+        del X4, NA_k, NB_k, got, want
+        for label, (h, w, clamp, lb) in {
+                "4096² zero": (H, W, False, 0),
+                "4096² clamp": (H, W, True, 0),
+                "1080x1920 zero (y padded)": (1080, 1920, False, 0),
+                "1920x1080 zero (x padded)": (1920, 1080, False, 0),
+                "4096² line_block 64": (H, W, False, 64)}.items():
+            F = build_filter(rft, h, w, image(h, w), clamp)
+            F.set_plan(backend="pallas", line_block=lb)
+            mod = F.as_func()
+            check([st.route for st in mod.stages] == ["rows", "cols"],
+                  f"{label}: x on dim_pass_rows, y on dim_pass_cols")
+            v = torch.from_numpy(F._image).to(dev)
+            for st, name in zip(mod.stages, ("dim_pass_rows",
+                                             "dim_pass_cols")):
+                X = st.kernel_input(v)
+                got, want = st.body(X), st.body.plain(X)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                print(f"  {label} {name} {tuple(X.shape)}, tile {st.T}, "
+                      f"w_real {st.body.w_real}: max|k-p|/max|p| = "
+                      f"{err:.3e}")
+                check(err <= 1e-5, f"{label} {name} within 1e-5")
+                if label == "4096² zero":
+                    max_abs[name] = (got - want).abs().max().item()
+                v = st.forward_plain(v)
+        del X, got, want, v
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
 
@@ -1993,6 +2156,116 @@ def main() -> int:
     main_launches["completion_rot_epi"] = launches["completion_rot_epi"]
     check(err <= 2e-6, "E2: within the px6 bound 2e-6 of the f64 oracle")
     del y, want, x_e2, e2
+
+    print("== phase 3i: the other backends end to end through "
+          "RecFilter.as_func()", flush=True)
+    bcases = {}  # label: (module, input on the card) for phase 5j
+
+    def stage_name(st):
+        """A backend stage's route: a strip pass's, a staged pair's or an
+        einsum form's, else the executor's class (a swapped pair's
+        body)."""
+        st = st.body if hasattr(st, "a") else st
+        name = type(st).__name__
+        return (st.route if name in ("StripAxis", "StagedPass", "OverlapND")
+                else name)
+
+    def backend_case(label, F, expect, routes=None, **plan):
+        """Drive ``F`` on ``plan``'s backend once, counts zeroed just
+        before: assert the launches ``expect``, print and check the
+        error against the f64 oracle (2e-6)."""
+        if plan:
+            F.set_plan(**plan)
+        mod = F.as_func()
+        x = torch.from_numpy(F._image).to(dev)
+        with torch.no_grad():
+            y, launches = counted(mod, x)
+        if routes is not None:
+            got_routes = [stage_name(st) for st in mod.stages]
+            print(f"  {label}: stages {got_routes}")
+            check(got_routes == routes, f"{label}: stages {routes}")
+        print(f"  {label}: launches {launches}")
+        check(launches == only(**expect), f"{label}: launches {expect}")
+        check(tuple(y.shape) == F._image.shape
+              and bool(torch.isfinite(y).all()),
+              f"{label}: output finite, shape {F._image.shape}")
+        err = oracle_err(F.spec, F._image, y)
+        print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= 2e-6, f"{label}: within 2e-6 of the f64 oracle")
+        bcases[label] = (mod, x)
+        return launches
+
+    o1 = backend_case("O1 headline 4096², overlap_k at highest",
+                      build_filter(rft, H, W, image(H, W)),
+                      dict(moments2d_k=1, final2d_k=1), ["Fused2DK"],
+                      backend="overlap_k", matmul_precision="highest")
+    main_launches.update(moments2d_k=o1["moments2d_k"],
+                         final2d_k=o1["final2d_k"])
+    backend_case("O2 Gaussian twice per axis 4096² (Ka = Kb = 12), "
+                 "overlap_k at px6", gauss_axes(rft, (H, W), (0, 1),
+                                                times=2),
+                 dict(moments2d_k=1, final2d_k=1), ["Fused2DK"],
+                 backend="overlap_k")
+    backend_case("O3 headline 4096², overlap_k at px6",
+                 build_filter(rft, H, W, image(H, W)),
+                 dict(moments2d=1, final2d=1), ["Fused2DPx"],
+                 backend="overlap_k")
+    backend_case("O4 V1 256³, overlap (fused_nd_pass)",
+                 gauss_axes(rft, (256, 256, 256), (0, 1, 2)), {},
+                 ["nd"], backend="overlap")
+    backend_case("O4 1080 x 1920 clamp, overlap (two dimension passes)",
+                 build_filter(rft, 1080, 1920, image(1080, 1920), True), {},
+                 ["pair-fallback"], backend="overlap")
+    P1 = build_filter(rft, H, W, image(H, W))
+    P1.intra_schedule(1).compute_locally()
+    check(P1.plan.backend == "pallas",
+          "P1: compute_locally() selects the pallas backend")
+    p1 = backend_case("P1 headline 4096², compute_locally (pallas)", P1,
+                      dict(dim_pass_rows=1, dim_pass_cols=1),
+                      ["rows", "cols"])
+    main_launches.update(dim_pass_rows=p1["dim_pass_rows"],
+                         dim_pass_cols=p1["dim_pass_cols"])
+    backend_case("P2 1080 x 1920 clamp, pallas",
+                 build_filter(rft, 1080, 1920, image(1080, 1920), True),
+                 dict(dim_pass_rows=1), ["rows", "blocked"],
+                 backend="pallas")
+    backend_case("P3 256³, pallas", gauss_axes(rft, (256, 256, 256),
+                                               (0, 1, 2)),
+                 dict(dim_pass_cols=2, dim_pass_rows=1),
+                 ["cols", "cols", "rows"], backend="pallas")
+    backend_case("B1 headline 1024², blocked",
+                 build_filter(rft, 1024, 1024, image(1024, 1024)), {},
+                 backend="blocked")
+    backend_case("S1 headline 1024², scan",
+                 build_filter(rft, 1024, 1024, image(1024, 1024)), {},
+                 backend="scan")
+    S3 = rft.RecFilter("Untiled")
+    xs_, ys_ = rft.Dim("x", 1024), rft.Dim("y", 1024)
+    S3[ys_, xs_] = image(1024, 1024)
+    for d in (+xs_, -xs_, +ys_, -ys_):
+        S3.add_filter(d, rft.gaussian_weights(5.0, 3))
+    check(S3.plan.backend == "auto" and not S3.spec.tiled,
+          "S3: an untiled filter on the auto backend")
+    backend_case("S3 untiled headline 1024² (auto: the sequential core)",
+                 S3, {})
+    sat = rft.RecFilter("SAT")
+    xs_, ys_ = rft.Dim("x", 2048), rft.Dim("y", 2048)
+    sat_img = np.random.default_rng(40).integers(-100, 100, (2048, 2048),
+                                                 dtype=np.int32)
+    sat[ys_, xs_] = sat_img
+    sat.add_filter(+xs_, [1, 1])
+    sat.add_filter(+ys_, [1, 1])
+    sat.split(xs_, 128, ys_, 128)
+    sat.set_plan(backend="pallas")
+    with torch.no_grad():
+        y, launches = counted(sat.as_func(),
+                              torch.from_numpy(sat_img).to(dev))
+    print(f"  S2 int32 SAT 2048², pallas: launches {launches}")
+    check(launches == only(), "S2: the sequential core, no launch")
+    check(y.dtype == torch.int32 and np.array_equal(
+        y.cpu().numpy(), sat_img.cumsum(1).cumsum(0)),
+        "S2: bit-equal to numpy's cumsum")
+    del y
 
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
@@ -2584,6 +2857,75 @@ def main() -> int:
             whole_call(label, mod, v, v.numel(), top=True)
         del k_cases, mod3, x3
 
+    print("== phase 5j: the calls O1, O2, P1, P3, B1 and S1, the HIGHEST pair "
+          "at O1's shapes and the strip kernels at P1's (CUDA events, median "
+          f"of {4 * N_TIMED // 2} calls each; S1 of 5)", flush=True)
+    with torch.no_grad():
+        # the whole calls first: a profiled window loses device events late
+        # in a long run, after windows of many small ops (module docstring)
+        for label in ("O1 headline 4096², overlap_k at highest",
+                      "O2 Gaussian twice per axis 4096² (Ka = Kb = 12), "
+                      "overlap_k at px6",
+                      "P1 headline 4096², compute_locally (pallas)",
+                      "P3 256³, pallas", "B1 headline 1024², blocked"):
+            mod, x = bcases[label]
+            whole_call(label[:2], mod, x, x.numel(), top=True)
+        # the core issues one launch per tap and step (16,384 at 1024² for
+        # four order-3 scans): five calls, no profile
+        mod, x = bcases["S1 headline 1024², scan"]
+        ms = statistics.median(timing.call_times_ms(mod, x, iterations=5,
+                                                    warmup=1))
+        print(f"  S1 whole call: event median of 5 calls {ms:.4f} ms "
+              f"({timing.mpix_per_sec(ms, x.numel()):.1f} M/s) on {card}")
+        mod, x = bcases["O1 headline 4096², overlap_k at highest"]
+        fk, swapped = pair_of(mod)
+        X4 = fk.tile(x.t() if swapped else x)
+        NA_k, NB_k = fk.carries(X4, fk.moments.plain)
+        bA_k, U_k = fk.moments(X4)
+        Y_k = fk.final(X4, NA_k, NB_k)
+        px = X4.numel()
+        Ka, Kb, Ta = fk.Ka, fk.Kb, fk.Ta
+        mom, fin = fk.moments, fk.final
+        r = timed("O1 moments2d_k", mom, mom.plain, None, (X4,),
+                  tensor_bytes(X4, bA_k, U_k, mom.Ga_v, mom.Gb_v),
+                  2.0 * (Ka + Kb) * px, PEAK_FP64,
+                  main_launches["moments2d_k"])
+        times["moments2d_k"], dev_t["moments2d_k"] = r[0], r[1]
+        extra["moments2d_k"] = (*r[2], r[3])
+        r = timed("O1 final2d_k", fin, fin.plain, None, (X4, NA_k, NB_k),
+                  tensor_bytes(X4, NA_k, NB_k, Y_k, fin.A1_v, fin.B2_v),
+                  2.0 * (Ta + Ka + 128 + Kb) * px, PEAK_FP32,
+                  main_launches["final2d_k"])
+        times["final2d_k"], dev_t["final2d_k"] = r[0], r[1]
+        extra["final2d_k"] = (*r[2], r[3])
+        del X4, NA_k, NB_k, bA_k, U_k, Y_k
+        mod, v = bcases["P1 headline 4096², compute_locally (pallas)"]
+        for st, name in zip(mod.stages, ("dim_pass_rows", "dim_pass_cols")):
+            X = st.kernel_input(v)
+            Y = st.body(X)
+            body = st.body
+            t = paired_times(body, body.plain, X)
+            # the twin's tile loop is ~500 small ops a call: CUDA events of
+            # 10 back-to-back calls, not a profiled window
+            d = (device_ms(body, X),
+                 timing.benchmark(body.plain, X, iterations=10) / 10, None)
+            bound, by = roofline(tensor_bytes(X, Y, body.ops),
+                                 sum(2.0 * (body.T + body.K) * X.numel()
+                                     for _ in body.causal), PEAK_FP64)
+            print(f"  P1 {name} {tuple(X.shape)}: "
+                  f"{main_launches[name]} launch(es) per call; event "
+                  f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} "
+                  f"ms by {by} ({100 * bound / d[0]:.1f} % of the device "
+                  f"time); twin event {t[1]:.4f}, 10 back-to-back "
+                  f"{d[1]:.4f} ms; library none on {card}")
+            times[name], dev_t[name] = t, d
+            extra[name] = (bound, by, None)
+            v = st(v)
+        del X, Y, v
+        # the strip kernels' lines per block: every block that fits, at
+        # P1's, P2's and P3's passes, beside pick_line_block's choice
+        line_block_sweep(rft, dev, card)
+
     print("== phase 5i: the unsharp mask's calls and the affine epilogue "
           f"entries (CUDA events, median of {4 * N_TIMED // 2} calls each)",
           flush=True)
@@ -2750,7 +3092,12 @@ def main() -> int:
             ("completion_epi", "completion",
              "recfilter_tpu/kernels/completion.py:273"),
             ("completion_rot_epi", "completion",
-             "recfilter_tpu/kernels/completion.py:273"))
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("moments2d_k", "moments2d",
+             "recfilter_tpu/kernels/final2d.py:1323"),
+            ("final2d_k", "final2d", "recfilter_tpu/kernels/final2d.py:72"),
+            ("dim_pass_rows", "fused", "recfilter_tpu/kernels/fused.py:230"),
+            ("dim_pass_cols", "fused", "recfilter_tpu/kernels/fused.py:261"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -36,6 +36,16 @@ plain PyTorch twins on the CPU:
     ``final2d``'s store loop — every affine epilogue rides the final
     kernel (``final2d_epi``, ``completion_epi``, ``completion_rot_epi``);
     Tuple filters, ``compute_at`` and ``overlap_to_higher_order_filter``;
+  * the JAX package's other executor backends, chosen by ``Plan.backend``
+    (``set_plan(backend=...)``, or a schedule directive:
+    ``F.intra_schedule(1).compute_locally()`` selects ``pallas``): the
+    strip passes of ``pallas`` on ``dim_pass_rows``/``dim_pass_cols``
+    (``kernels.fused.StripFilter``); the paired executors of
+    ``overlap``/``overlap_k`` (``overlap2d.OverlapFilter``), the latter's
+    HIGHEST 2-D pair on ``moments2d_k``/``final2d_k``; the blocked algebra
+    (``tiling.BlockedFilter``); the sequential core
+    (``scan_core.ScanFilter``: untiled filters, and every axis with no
+    tile plan on the other routes); the float64 oracle;
   * the learnable (training) path, ``learnable.LearnableRecFilter``: any
     filter's coefficients as trainable parameters, each axis one fused pass
     on ``tails_traced``/``completion_traced`` (runtime matrices, gradients
@@ -76,7 +86,8 @@ the CPU (``device="cpu"``).
     ((model(image) - target) ** 2).mean().backward(); opt.step()
 """
 
-from .api import Composed, RecFilter, TupleFilter, fuse_cascade
+from .api import (Composed, EpilogueAfter, RecFilter, TupleFilter,
+                  fuse_cascade)
 from .epilogue import Affine, affine_form, is_elementwise
 from .dimfuse import (FusedAxisPass, FusedLastAxis, IntUnitPass,
                       RotatedPass, RotationChain, StagedPass,
@@ -86,9 +97,12 @@ from .iir import (gaussian_box_filter, gaussian_weights, integral_image_coeff,
                   overlap_feedback_coeff)
 from .learnable import (LearnableRecFilter, fused_dim_learnable,
                         params_from_jax)
-from .overlap2d import Fused2DPx, FusedRowsPx, fused_2d_px, fused_rows_px
-from .planner import Plan
-from .scan_core import oracle_apply
+from .kernels.fused import StripFilter
+from .overlap2d import (Fused2DK, Fused2DPx, FusedRowsPx, OverlapFilter,
+                        apply_filter_overlap, fused_2d_px, fused_rows_px)
+from .planner import Plan, RecFilterSchedule
+from .scan_core import OracleFilter, ScanFilter, oracle_apply
+from .tiling import BlockedFilter
 from .spec import (BorderMode, Dim, DimAndCausality, FilterSpec, Scan,
                    make_scan, spec_from_arrays, spec_from_json, spec_to_json)
 from .utils.testing import CheckResult, CheckResultVerbose, generate_random_image
@@ -106,6 +120,9 @@ __all__ = [
     "FirPass", "FirSeparable2D", "fir_pass_last", "fir_separable_2d",
     "LearnableRecFilter", "fused_dim_learnable", "params_from_jax",
     "CheckResult", "CheckResultVerbose", "generate_random_image",
+    "EpilogueAfter", "StripFilter", "Fused2DK", "OverlapFilter",
+    "apply_filter_overlap", "RecFilterSchedule", "OracleFilter",
+    "ScanFilter", "BlockedFilter",
 ]
 
 __version__ = "0.1.0"

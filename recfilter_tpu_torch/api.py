@@ -9,8 +9,17 @@ scans, tile, then run:
     module = F.as_func()                 # an nn.Module, on the card
     out = F.realize()                    # on the card; device="cpu" asks
 
-Routing follows the JAX package (:func:`.dimfuse.fused_filter_module`): a
-tiled float filter goes to the fused executors —
+``Plan.backend`` picks the executor as the JAX package's ``as_func``
+does (``set_plan(backend=...)``, or the schedule directives of
+``intra_schedule`` / ``inter_schedule`` / ``full_schedule``:
+``compute_locally`` selects ``pallas``): ``auto`` runs the fused
+executors for a tiled filter and the sequential core for an untiled one;
+``pallas`` the strip kernels (:class:`.kernels.fused.StripFilter`),
+``overlap`` / ``overlap_k`` the paired executors
+(:class:`.overlap2d.OverlapFilter`), ``blocked`` the blocked algebra,
+``scan`` the core, ``oracle`` the float64 oracle. On the fused
+executors (:func:`.dimfuse.fused_filter_module`) a tiled float filter
+goes to —
 :class:`.overlap2d.Fused2DPx` for the trailing two axes, the rows pass
 :class:`.overlap2d.FusedRowsPx` then ``Fused2DPx`` for volumes, and one
 stage per scanned axis otherwise (the rows pass on non-last axes,
@@ -40,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import dimfuse, iir, planner
+from . import dimfuse, iir, planner, scan_core
 from .epilogue import affine_form, arity, is_elementwise
 from .spec import (BorderMode, Dim, DimAndCausality, FilterSpec, Scan,
                    make_scan)
@@ -103,6 +112,55 @@ class TupleFilter(nn.Module):
         return comps if self.epilogue is None else self.epilogue(*comps)
 
 
+class EpilogueAfter(nn.Module):
+    """``epilogue(body(x), *eaux)`` as torch ops — an epilogue on a
+    backend whose executor takes none (the JAX package runs it after the
+    filter there); the aux arrays moved to the output's device (and
+    type, for a float output)."""
+
+    epilogue_route = "torch"
+
+    def __init__(self, body: nn.Module, epilogue):
+        super().__init__()
+        self.body, self.epilogue = body, epilogue
+
+    def _combine(self, y, eaux):
+        if y.is_floating_point():
+            return dimfuse._epilogue(self.epilogue, y, eaux)
+        return self.epilogue(y, *(torch.as_tensor(a).to(y.device)
+                                  for a in eaux))
+
+    def forward(self, x, *eaux):
+        return self._combine(self.body(x), eaux)
+
+    def forward_plain(self, x, *eaux):
+        return self._combine(self.body.forward_plain(x), eaux)
+
+
+def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
+    """The executor of a backend that takes no consumer (every backend
+    but ``einsum`` and the rotated emit) for ``spec`` under ``plan``."""
+    backend = planner.resolve_backend(spec, plan)
+    if backend == "oracle":
+        return scan_core.OracleFilter(spec)
+    if backend == "scan":
+        return scan_core.ScanFilter(spec)
+    if backend == "pallas":
+        from .kernels.fused import StripFilter
+
+        return StripFilter(spec, plan.line_block)
+    if backend in ("overlap", "overlap_k"):
+        from .overlap2d import OverlapFilter
+
+        return OverlapFilter(spec, use_kernels=backend == "overlap_k",
+                             matmul_precision=plan.matmul_precision)
+    if backend == "blocked":
+        from .tiling import BlockedFilter
+
+        return BlockedFilter(spec)
+    raise ValueError(f"backend {backend!r} takes the fused executors")
+
+
 class Composed(nn.Module):
     """``consumer(producer(x), *aux)``: a consumer run after the filter on
     its materialized output (``compute_at``'s composed route)."""
@@ -133,6 +191,7 @@ class RecFilter:
         self._spec: Optional[FilterSpec] = None
         self._image = None
         self._plan = planner.Plan()
+        self._schedule_log: List[str] = []
         self._clamped_border = False
         self._module: Optional[nn.Module] = None
         # the previous filter of a cascade: realize() with no input runs
@@ -258,11 +317,88 @@ class RecFilter:
         return self
 
     def set_plan(self, **kw):
-        """Set Plan fields (``backend=``, ``matmul_precision=``,
-        ``rotate_emit=``)."""
+        """Set Plan fields (``backend=``, ``line_block=``, ``unroll=``,
+        ``matmul_dtype=``, ``matmul_precision=``, ``rotate_emit=``)."""
         self._plan = self._plan.with_(**kw)
         self._module = None
         return self
+
+    # ------------------------------------------------------------ scheduling
+    def full_schedule(self) -> planner.RecFilterSchedule:
+        if self.spec.tiled:
+            raise RuntimeError(
+                "Filter is tiled, use intra_schedule() and inter_schedule()")
+        return planner.RecFilterSchedule(self, "full")
+
+    def intra_schedule(self, id: int = 1) -> planner.RecFilterSchedule:
+        if not self.spec.tiled:
+            raise RuntimeError("Filter is not tiled, use full_schedule()")
+        return planner.RecFilterSchedule(self, f"intra({id})")
+
+    def inter_schedule(self) -> planner.RecFilterSchedule:
+        if not self.spec.tiled:
+            raise RuntimeError("Filter is not tiled, use full_schedule()")
+        return planner.RecFilterSchedule(self, "inter")
+
+    def auto_schedule(self, tile_width: int = 0):
+        """The reference's auto scheduler: optionally tile every scanned
+        dimension, and let the plan resolve the backend (``auto``)."""
+        if tile_width:
+            self.split_all_dimensions(tile_width)
+        self.set_plan(backend="auto")
+        self._schedule_log.append(f"auto_schedule({tile_width})")
+        return self
+
+    def gpu_auto_schedule(self, tile_width: int = 0):
+        return self.auto_schedule(tile_width)
+
+    def cpu_auto_schedule(self, tile_width: int = 0):
+        return self.auto_schedule(tile_width)
+
+    # Schedule-var handles (the reference's VarTag addressing).
+    def full(self, i: Optional[int] = None):
+        return planner.ScheduleVar("FULL", i)
+
+    def inner(self, i: Optional[int] = None):
+        return planner.ScheduleVar("INNER", i)
+
+    def outer(self, i: Optional[int] = None):
+        return planner.ScheduleVar("OUTER", i)
+
+    def tail(self):
+        return planner.ScheduleVar("TAIL")
+
+    def inner_scan(self):
+        return planner.ScheduleVar("INNER_SCAN")
+
+    def outer_scan(self):
+        return planner.ScheduleVar("OUTER_SCAN")
+
+    def inner_channels(self):
+        return planner.ScheduleVar("CHANNEL")
+
+    @staticmethod
+    def set_max_threads_per_cuda_warp(n: int):
+        """Parity shim for the reference's setter: the value is checked as
+        the reference checks it, and has no effect (the port's kernels fix
+        their own thread counts)."""
+        if n % 32:
+            raise ValueError("max threads must be a multiple of 32")
+
+    @staticmethod
+    def set_vectorization_width(n: int):
+        """Parity shim for the reference's setter: checked, no effect (the
+        kernels pick their own vector loads)."""
+        if not (0 < n <= 64 and n & (n - 1) == 0):
+            raise ValueError("vectorization width must be a power of two "
+                             "≤ 64")
+
+    def print_schedule(self) -> str:
+        """Print and return every schedule directive with its mapping
+        note (the Plan field it set, or why it is a no-op on the card)."""
+        s = "\n".join(self._schedule_log) or "(no schedule directives)"
+        print(s)
+        return s
 
     # ------------------------------------------------------------- execution
     def as_func(self, epilogue=None, stencil=None, stencil2d=None, *,
@@ -319,6 +455,12 @@ class RecFilter:
 
     def _module_for(self, spec: FilterSpec, epilogue=None, stencil=None,
                     stencil2d=None, device="cuda") -> nn.Module:
+        """The executor of ``spec`` with its consumers, in the JAX
+        package's ``_executor`` order: the rotated emit; the fused
+        executors (``einsum``), which take every consumer; on every other
+        backend a ``stencil2d`` bank (:class:`.dimfuse.Stencil2DAfter`) or
+        an epilogue (:class:`EpilogueAfter`) after the filter; then the
+        backend's own executor (:func:`backend_module`)."""
         plan = self._plan
         if stencil is not None and not plan.rotate_emit:
             raise ValueError("stencil consumers require Plan.rotate_emit "
@@ -330,19 +472,27 @@ class RecFilter:
         if stencil2d is not None and plan.rotate_emit:
             raise ValueError("stencil2d applies to the natural output "
                              "layout; unset Plan.rotate_emit")
-        if plan.rotate_emit:
+        if plan.rotate_emit and plan.backend != "oracle":
+            # the rotated contract holds on every backend, as in the JAX
+            # package (its executor routes integers and no-plan axes)
             mod = dimfuse.RotatedPass(spec, plan.rotate_emit,
                                       plan.matmul_precision, epilogue,
                                       stencil)
-        else:
-            if not spec.tiled:
-                raise NotImplementedError(
-                    "untiled filters run the JAX package's lax.scan "
-                    "executor, not ported yet (ROADMAP Queue 1 item 15); "
-                    "call split()")
+        elif planner.resolve_backend(spec, plan) == "einsum":
             mod = dimfuse.fused_filter_module(spec, plan.matmul_precision,
                                               epilogue=epilogue,
                                               stencil2d=stencil2d)
+        elif stencil is not None:
+            raise ValueError("the oracle backend runs no stencil consumer")
+        elif stencil2d is not None:
+            # the bank after the filter: the stencil2d kernel on a 2-D
+            # output, shifts otherwise
+            mod = dimfuse.Stencil2DAfter(backend_module(spec, plan),
+                                         stencil2d)
+        elif epilogue is not None:
+            mod = EpilogueAfter(backend_module(spec, plan), epilogue)
+        else:
+            mod = backend_module(spec, plan)
         return mod.to(resolve_device(device))
 
     def _input(self, input, device: torch.device) -> torch.Tensor:

@@ -92,3 +92,26 @@ def antidiagonal(size: int) -> np.ndarray:
     """Anti-diagonal (flip) matrix, used when composing carries between
     scans of opposite causality."""
     return np.eye(size, dtype=np.float64)[::-1].copy()
+
+
+def carry_chain_matrix(feedback: Sequence[float], tile_width: int,
+                       num_tiles: int, prev: bool = True) -> np.ndarray:
+    """M (n·k × n·k), block lower triangular: with the local tails
+    ``b_i = P·B·x_i`` of every tile stacked, the incoming state of every
+    tile is ``s_prev = M·b`` (``prev=True``: ``M[t, i] = W^(t-1-i)`` for
+    i < t) or the completed state ``s = M·b`` (``prev=False``:
+    ``M[t, i] = W^(t-i)``) — the whole cross-tile recurrence as one
+    product."""
+    k, n = len(tuple(feedback)), int(num_tiles)
+    W = tail_weight_matrix(feedback, tile_width)
+    powers = [np.eye(k, dtype=np.float64)]
+    for _ in range(n):
+        powers.append(W @ powers[-1])
+    M = np.zeros((n, k, n, k), dtype=np.float64)
+    for t in range(n):
+        for i in range(t + 1):
+            if not prev:
+                M[t, :, i, :] = powers[t - i]
+            elif i < t:
+                M[t, :, i, :] = powers[t - 1 - i]
+    return M.reshape(n * k, n * k)

@@ -46,10 +46,12 @@ the globally-first/last tile only; those tiles get per-tile variants.
      scans one axis alone is that one stage.
 
 The routes are decided by gate functions before any module is built, so
-nothing is caught and no fallback hides a failure. Where the port has no
-counterpart of the JAX package's route (the lax.scan core for an axis with
-no tile plan, other dtypes and precisions), it raises
-``NotImplementedError`` naming the ROADMAP item.
+nothing is caught and no fallback hides a failure. An axis with no tile
+plan (an order above the extent, a clamp border with no dividing tile)
+runs the sequential core (:class:`.scan_core.ScanAxis`), as the JAX
+package runs its ``lax.scan`` core there. Where the port has no
+counterpart of the JAX package's route (other dtypes and precisions), it
+raises ``NotImplementedError`` naming the ROADMAP item.
 
 The JAX package's consumers ride these routes: an elementwise
 ``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
@@ -82,6 +84,7 @@ from .kernels import completion as kc
 from .kernels.completion import _f64
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
+from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
 
 # Above this tile count the quadratic chain matmul is replaced by the
@@ -1102,7 +1105,9 @@ class FusedLastAxis(nn.Module):
 
     ``epilogue(y, *eaux)``: an elementwise consumer of the output
     (``forward(x, *eaux)``, the aux arrays in the output's layout); with
-    one the hierarchy is declined, as in the JAX package."""
+    one the hierarchy is declined, as in the JAX package. With no tile
+    plan the sequential core runs (``self.body`` a
+    :class:`.scan_core.ScanAxis`), then the epilogue."""
 
     def __init__(self, scans: Sequence[Scan], w: int, tile_width: int,
                  border: str, matmul_precision: str = "px6",
@@ -1110,10 +1115,10 @@ class FusedLastAxis(nn.Module):
         super().__init__()
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
+        self.w, self.epilogue = w, epilogue
         if plan is None:
-            raise _no_plan(w, tile_width)
-        self.w = w
-        if (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
+            self.body = ScanAxis(scans, -1, border)
+        elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and _hierarchy_ok(w, scans, matmul_precision)):
             self.body = HierarchicalPass(scans, w, border, matmul_precision)
         else:
@@ -1128,6 +1133,10 @@ class FusedLastAxis(nn.Module):
 
     def _run(self, x, plain, eaux):
         x = self._checked(x)
+        if isinstance(self.body, ScanAxis):
+            y = self.body(x)
+            return y if self.epilogue is None else _epilogue(
+                self.epilogue, y, eaux)
         if isinstance(self.body, HierarchicalPass):
             return self.body(x, plain)
         return self.body(x, plain, eaux)
@@ -1139,13 +1148,6 @@ class FusedLastAxis(nn.Module):
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "
                              f"the filter's extent {self.w}")
         return x
-
-
-def _no_plan(w: int, tile_width: int):
-    return NotImplementedError(
-        f"extent {w} with tile {tile_width}: no tile plan (order above the "
-        "extent, or clamp with no divisor ≥ the order); the JAX package "
-        "runs its lax.scan core here (ROADMAP Queue 1 item 15)")
 
 
 class FusedAxisPass(nn.Module):
@@ -1171,10 +1173,11 @@ class FusedAxisPass(nn.Module):
         w = int(shape[axis])
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
-        if plan is None:
-            raise _no_plan(w, tile_width)
         self.axis, self.ndim, self.w = axis, nd, w
-        if (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
+        self.epilogue = epilogue
+        if plan is None:
+            self.body = ScanAxis(scans, axis, border)
+        elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and _hierarchy_ok(w, scans, matmul_precision)):
             self.body = HierarchicalPass(scans, w, border, matmul_precision)
         elif nd - axis > 6:
@@ -1199,6 +1202,10 @@ class FusedAxisPass(nn.Module):
             raise ValueError(f"input shape {tuple(x.shape)}: expected "
                              f"{self.ndim} axes, {self.w} on axis "
                              f"{self.axis}")
+        if isinstance(self.body, ScanAxis):
+            y = self.body(x)
+            return y if self.epilogue is None else _epilogue(
+                self.epilogue, y, eaux)
         xm = x.movedim(self.axis, -1)
         if isinstance(self.body, HierarchicalPass):
             return self.body(xm, plain).movedim(-1, self.axis)
@@ -1214,13 +1221,23 @@ def fused_dim_pass(x, axis: int, scans: Sequence[Scan], tile_width: int,
     from .planner import check_precision
 
     check_precision(matmul_precision)
-    if axis % x.ndim == x.ndim - 1:
-        mod = FusedLastAxis(scans, x.shape[-1], tile_width, border,
-                            matmul_precision)
-    else:
-        mod = FusedAxisPass(scans, axis, x.shape, tile_width, border,
-                            matmul_precision)
+    mod = dim_pass_module(scans, axis, x.shape, tile_width, border,
+                          matmul_precision)
     return mod.to(x.device)(x)
+
+
+def dim_pass_module(scans: Sequence[Scan], axis: int, shape,
+                    tile_width: int, border: str = BorderMode.ZERO,
+                    matmul_precision: str = "px6") -> nn.Module:
+    """The module :func:`fused_dim_pass` runs on an array of ``shape``:
+    :class:`FusedLastAxis` on the last axis, :class:`FusedAxisPass` on any
+    other."""
+    nd = len(shape)
+    if axis % nd == nd - 1:
+        return FusedLastAxis(scans, shape[-1], tile_width, border,
+                             matmul_precision)
+    return FusedAxisPass(scans, axis, shape, tile_width, border,
+                         matmul_precision)
 
 
 def hierarchical_dim_pass(x, axis: int, scans: Sequence[Scan], border: str,
@@ -1335,10 +1352,11 @@ class RotationChain(nn.Module):
         clamp = border == BorderMode.CLAMP
         plans = chain_plans(shape, groups, tiles, clamp)
         if plans is None:
-            raise NotImplementedError(
-                f"{tuple(shape)}: an axis with no tile plan; the JAX "
-                "package runs its per-axis loop and lax.scan core here "
-                "(ROADMAP Queue 1 item 15)")
+            raise ValueError(
+                f"{tuple(shape)}: an axis with no tile plan; "
+                "fused_filter_module runs the per-axis loop there "
+                "(StagedPass, the sequential core on that axis), as the JAX "
+                "package's apply_filter_fused does")
         fuse = _kernel_nprod(matmul_precision) > 0
         passes = [None] * Ds
         for i in reversed(range(Ds)):  # the next pass first: its tail rows
@@ -1599,9 +1617,10 @@ class RotatedPass(nn.Module):
     scans on the last axis (:func:`.kernels.int_scan.int_unit_dim_pass`),
     then move it explicitly; a bare 1-D signal runs the one-axis executor
     (the supertile hierarchy where it applies), then the stencil as
-    shifts; a dimension with no tile plan raises (the JAX package's
-    lax.scan core, item 15); everything else runs :class:`LastAxisPass`
-    with the rotated emit."""
+    shifts; a dimension with no tile plan runs the sequential core
+    (:class:`.scan_core.ScanAxis`, the JAX package's ``lax.scan``), then
+    moves the axis, then the stencil as shifts and the epilogue;
+    everything else runs :class:`LastAxisPass` with the rotated emit."""
 
     def __init__(self, spec: FilterSpec, rot_axes: int = 2,
                  matmul_precision: str = "px6", epilogue=None,
@@ -1620,7 +1639,7 @@ class RotatedPass(nn.Module):
         scans = [spec.scans[i] for i in groups[axis]]
         self.rot_axes, self.w = int(rot_axes), spec.dims[axis].extent
         self.epilogue, self.stencil = epilogue, stencil
-        self.units = self.hier = None
+        self.units = self.hier = self.core = None
         if spec.dtype in _INT_DTYPES:
             self.units = _int_units(spec, groups[axis], axis)
             self.dtype = _INT_DTYPES[spec.dtype]
@@ -1632,8 +1651,9 @@ class RotatedPass(nn.Module):
         clamp = spec.border == BorderMode.CLAMP
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
-        if plan is None:
-            raise _no_plan(self.w, T)
+        if plan is None:  # the sequential core, then the rotated emit
+            self.core = ScanAxis(scans, -1, spec.border)
+            return
         # a bare signal: the one-axis executor, its hierarchy included
         # (declined with an epilogue that the stencil does not precede)
         if (self.rot_axes == 1 and plan[1] > _CHAIN_MATMUL_MAX_TILES
@@ -1668,6 +1688,9 @@ class RotatedPass(nn.Module):
             return self._consume(y, -self.rot_axes, eaux)
         if x.dtype != torch.float32:
             raise TypeError(f"expected float32 input, got {x.dtype}")
+        if self.core is not None:
+            y = self.core(x).movedim(-1, -self.rot_axes)
+            return self._consume(y, -self.rot_axes, eaux)
         if self.hier is not None and x.ndim == 1:
             return self._consume(self.hier(x, plain), -1, eaux)
         return self.body(x, plain, eaux)

@@ -36,6 +36,27 @@
 // contiguous copy):
 //   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      rows kk, columns s
 //   B2 (nvb, 136, 128) = [Bb^T ; Rb^T]      rows kk, columns o
+//
+// final2d_k: the same two products at the HIGHEST grade's layouts —
+// replaces recfilter_tpu/kernels/final2d.py::final2d (Pallas kernel
+// _final2d_kernel), which overlap2d._fused_2d_kernel_path calls on the
+// overlap_k backend. Three things the px entry fixes are free here:
+//   * Ta, the tile of the leading axis, is any value up to 128: A1's
+//     columns past Ta are zero, so Z's rows past Ta are zero and the store
+//     skips them;
+//   * the carries are the sums of the orders, not padded to 8: Ka, Kb up to
+//     32, each padded on chip to a multiple of 8 (zero rows), so the
+//     contraction depths are Ta + 8*ceil(Ka/8) and 128 + 8*ceil(Kb/8), and
+//     2 x 160 x 128 x 4 B = 160 KB of shared memory at K = 32;
+//   * NA arrives in row form (p, na, Ka, W), NB as (p, na, nb, Ta, Kb): its
+//     Kb carries of row s are gathered, transposed, under Z^T.
+// Per tile:
+//   Z = A1_v(a)^T [x_tile; NA_tile]           (Ta + Ka deep)
+//   Y = [Z^T; NB_tile^T]^T B2_v(b)             (128 + Kb deep)
+// with A1 (nva, Ta + Kap, 128) = [Ba^T; Ra^T] (columns >= Ta zero) and B2
+// (nvb, 128 + Kbp, 128) = [Bb^T; Rb^T]. Its bound is final2d's: about
+// 2 x (128 + 6) x 2 = 536 FLOP/px, 9.0 GFLOP at 4096^2 with Ka = Kb = 6,
+// 0.134 ms at 67 TFLOP/s fp32; the same GEMM, the same design.
 
 #include "common.cuh"
 
@@ -127,6 +148,70 @@ int launch(const float* x, const float* NA, const float* NB, const float* A1,
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+final2d_k_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
+                 const float* __restrict__ NA,  // (p, na, Ka, W)
+                 const float* __restrict__ NB,  // (p, na, nb, Ta, Kb)
+                 const float* __restrict__ A1,  // (nva, Ta + Kap, T)
+                 const float* __restrict__ B2,  // (nvb, T + Kbp, T)
+                 float* __restrict__ y,         // (p, na, Ta, W)
+                 int na, int nb, int Ta, int Ka, int Kb, int nva, int nvb) {
+  extern __shared__ float4 smem4[];
+  const int Kap = (Ka + SLOTS - 1) / SLOTS * SLOTS;
+  const int Kbp = (Kb + SLOTS - 1) / SLOTS * SLOTS;
+  const int D1 = Ta + Kap, D2 = T + Kbp;
+  const int D = D1 > D2 ? D1 : D2;
+  float* As = reinterpret_cast<float*>(smem4);  // D x T
+  float* Bs = As + D * T;                       // D x T
+
+  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long W = (long)nb * T;
+  const long pa = (long)p * na + a;
+  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+
+  // dim-A completion: Z = A1^T [x; NA], the carry rows zero-padded
+  stage_rows(As, A1 + (long)va * D1 * T, D1, T, tid);
+  stage_rows(Bs, x + pa * Ta * W + (long)b * T, Ta, W, tid);
+  stage_rows(Bs + Ta * T, NA + pa * Ka * W + (long)b * T, Ka, W, tid);
+  for (int i = tid; i < (Kap - Ka) * T; i += THREADS)
+    Bs[(Ta + Ka) * T + i] = 0.f;
+  __syncthreads();
+  float c[8][8];
+  gemm_tile(As, Bs, c, ty, tx, D1);
+  __syncthreads();
+
+  // dim-B completion: Y = [Z^T; NB^T]^T [Bb^T; Rb^T]; Z^T goes to shared
+  // memory (As[t][s] = Z[s][t]), never to device memory
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int t = row_of(j, tx);
+    *reinterpret_cast<float4*>(As + t * T + ty * 4) =
+        make_float4(c[0][j], c[1][j], c[2][j], c[3][j]);
+    *reinterpret_cast<float4*>(As + t * T + 64 + ty * 4) =
+        make_float4(c[4][j], c[5][j], c[6][j], c[7][j]);
+  }
+  const float* nbt = NB + (pa * nb + b) * (long)Ta * Kb;
+  for (int i = tid; i < Kbp * T; i += THREADS) {
+    const int k = i / T, s = i % T;
+    As[(T + k) * T + s] = k < Kb && s < Ta ? nbt[(long)s * Kb + k] : 0.f;
+  }
+  stage_rows(Bs, B2 + (long)vb * D2 * T, D2, T, tid);
+  __syncthreads();
+  gemm_tile(As, Bs, c, ty, tx, D2);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = row_of(i, ty);
+    if (s >= Ta) continue;
+    const long r0 = pa * Ta * W + (long)b * T + (long)s * W + tx * 4;
+    *reinterpret_cast<float4*>(y + r0) =
+        make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+    *reinterpret_cast<float4*>(y + r0 + 64) =
+        make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+  }
+}
+
 }  // namespace
 
 extern "C" int final2d_launch(const float* x, const float* NA,
@@ -153,6 +238,27 @@ extern "C" int final2d_epi_launch(const float* x, const float* NA,
                                       nva, nvb, (cudaStream_t)stream);
   });
   return err;
+}
+
+// Ta <= 128, Ka and Kb <= 32 (the shared memory of one block)
+extern "C" int final2d_k_launch(const float* x, const float* NA,
+                                const float* NB, const float* A1,
+                                const float* B2, float* y, int p, int na,
+                                int nb, int Ta, int Ka, int Kb, int nva,
+                                int nvb, void* stream) {
+  if (Ta < 1 || Ta > T || Ka < 1 || Ka > 32 || Kb < 1 || Kb > 32)
+    return (int)cudaErrorInvalidValue;
+  const int Kap = (Ka + SLOTS - 1) / SLOTS * SLOTS;
+  const int Kbp = (Kb + SLOTS - 1) / SLOTS * SLOTS;
+  const int D = Ta + Kap > T + Kbp ? Ta + Kap : T + Kbp;
+  const int smem = 2 * D * T * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      final2d_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  final2d_k_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, NA, NB, A1, B2, y, na, nb, Ta, Ka, Kb, nva, nvb);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* final2d_error_string(int err) {

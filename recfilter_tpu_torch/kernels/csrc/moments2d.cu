@@ -40,6 +40,25 @@
 // its bandwidth bound. The TPU kernel's bf16 chunk splitting works around
 // the TPU matrix unit and has no counterpart here.
 
+//
+// moments2d_k: pass 1 at the HIGHEST grade's layouts — replaces
+// recfilter_tpu/kernels/final2d.py::moments2d (Pallas kernel
+// _moments_kernel), which overlap2d._fused_2d_kernel_path calls on the
+// overlap_k backend. Per tile (b, a, p), any Ta <= 128, the carries the
+// unpadded sums of the orders (Ka, Kb <= 32):
+//
+//   bA[p,a,k, b*Tb+w] = sum_s Ga_v(a)[k,s] * x[s,w]          (p, na, Ka, W)
+//   U [p,a,b,s,k]     = sum_t Gb_v(b)[k,t] * x[s,t]          (p, na, nb, Ta, Kb)
+//
+// raw U, untransposed, with no term1 fold (the glue applies Btot_a). The
+// sums accumulate in fp64 from fp32 loads, for the reason above, in eight
+// carries a pass (two threads a column or row, four carries each). It
+// reads 4 B/px and writes (Ka + Kb) / 128 of that again, with Ka + Kb
+// fp64 MACs per pixel (12 for the 3rd-order Gaussian pair: 0.4 GFLOP at
+// 4096^2, 0.006 ms at 67 TFLOP/s of fp64 on the tensor cores, 0.012 ms
+// at the CUDA cores' 33.5 TFLOP/s this loop runs at), so device memory
+// bounds it: 0.022 ms at 3.35 TB/s for the 64 MB image and its outputs.
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -174,6 +193,96 @@ moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
   }
 }
 
+constexpr int KMAX = 32;  // moments2d_k's largest carry count per axis
+
+__global__ void __launch_bounds__(THREADS)
+moments2d_k_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
+                   const float* __restrict__ Ga,  // (nva, Ka, Ta)
+                   const float* __restrict__ Gb,  // (nvb, Kb, T)
+                   float* __restrict__ bA,        // (p, na, Ka, W)
+                   float* __restrict__ U,         // (p, na, nb, Ta, Kb)
+                   int na, int nb, int Ta, int Ka, int Kb, int nva,
+                   int nvb) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);          // Ta rows x XS
+  double* ga = reinterpret_cast<double*>(xs + Ta * XS);  // Ka x Ta
+  double* gb = ga + Ka * Ta;                             // Kb x T
+
+  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x;
+  const long W = (long)nb * T;
+  const long pa = (long)p * na + a;
+  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+
+  const float* xt = x + pa * Ta * W + (long)b * T;
+  for (int i = tid; i < Ta * (T / 4); i += THREADS) {
+    const int r = i / (T / 4), c4 = i % (T / 4);
+    reinterpret_cast<float4*>(xs + r * XS)[c4] =
+        reinterpret_cast<const float4*>(xt + r * W)[c4];
+  }
+  const float* gav = Ga + (long)va * Ka * Ta;
+  for (int i = tid; i < Ka * Ta; i += THREADS) ga[i] = gav[i];
+  const float* gbv = Gb + (long)vb * Kb * T;
+  for (int i = tid; i < Kb * T; i += THREADS) gb[i] = gbv[i];
+  __syncthreads();
+
+  const int col = tid % T;  // w for bA, s for U
+  const int kg = tid / T;   // carries kg, kg+2, kg+4, kg+6 of each pass
+
+  // dim-A tails: column w of G_a * x
+  float* bAt = bA + pa * Ka * W + (long)b * T + col;
+  for (int k0 = 0; k0 < Ka; k0 += SLOTS) {
+    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+    int kr[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + kg + 2 * j;
+      kr[j] = (k < Ka ? k : Ka - 1) * Ta;
+    }
+    for (int s = 0; s < Ta; ++s) {
+      const double xv = xs[s * XS + col];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = fma(ga[kr[j] + s], xv, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + kg + 2 * j;
+      if (k < Ka) bAt[k * W] = (float)acc[j];
+    }
+  }
+
+  // dim-B moments: row s of x * G_b^T, raw
+  if (col < Ta) {
+    const float* xrow = xs + col * XS;
+    float* Ut = U + ((pa * nb + b) * Ta + col) * (long)Kb;
+    for (int k0 = 0; k0 < Kb; k0 += SLOTS) {
+      double u[4] = {0.0, 0.0, 0.0, 0.0};
+      int kr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + kg + 2 * j;
+        kr[j] = (k < Kb ? k : Kb - 1) * T;
+      }
+      for (int t = 0; t < T; t += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xrow + t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const double* g = gb + kr[j] + t;
+          u[j] = fma(g[0], (double)xv.x, u[j]);
+          u[j] = fma(g[1], (double)xv.y, u[j]);
+          u[j] = fma(g[2], (double)xv.z, u[j]);
+          u[j] = fma(g[3], (double)xv.w, u[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + kg + 2 * j;
+        if (k < Kb) Ut[k] = (float)u[j];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int moments2d_launch(const float* x, const float* Ga,
@@ -190,6 +299,24 @@ extern "C" int moments2d_launch(const float* x, const float* Ga,
   const dim3 grid(nb, na, p);
   moments2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, na, nb, Ka, Kb, nva, nvb, h8);
+  return (int)cudaGetLastError();
+}
+
+// Ta <= 128, Ka and Kb <= 32
+extern "C" int moments2d_k_launch(const float* x, const float* Ga,
+                                  const float* Gb, float* bA, float* U,
+                                  int p, int na, int nb, int Ta, int Ka,
+                                  int Kb, int nva, int nvb, void* stream) {
+  if (Ta < 1 || Ta > T || Ka < 1 || Ka > KMAX || Kb < 1 || Kb > KMAX)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (Ka * Ta + Kb * T) * (int)sizeof(double) +
+                   Ta * XS * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      moments2d_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  moments2d_k_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, Ga, Gb, bA, U, na, nb, Ta, Ka, Kb, nva, nvb);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,11 @@ their plain twins.
     touches device memory; the rows above and below each tile come from
     halo strips that the glue completes from :class:`Moments2D`'s edge
     rows (``edge=``).
+  * :class:`Moments2DK` / :class:`Final2DK`: the HIGHEST grade's pair
+    (``moments2d_k`` / ``final2d_k``, the ``overlap_k`` backend's kernel
+    path): the same two passes at the JAX package's ``moments2d`` /
+    ``final2d`` layouts — any leading tile Ta ≤ 128, carries Ka, Kb ≤ 32
+    unpadded, raw dim-B moments U (no term1 fold), NA in row form.
   * :class:`RowsTails` / :class:`RowsFinal`: the dim-A halves of those two
     on their own — tails ``G·x`` and completion ``Btot·x + Rhat·N`` of a
     scan along a non-last axis, everything after it flattened into W
@@ -303,6 +308,140 @@ class Final2DStencil(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, NA_t, NB_t, halo_top, halo_bot)
         return self.plain(x, NA_t, NB_t, halo_top, halo_bot)
+
+
+KMAX_K = 32  # the HIGHEST pair's largest carry count per axis
+
+
+def highest_pair_limits(Ta: int, Ka: int, Kb: int) -> None:
+    """Raise ``NotImplementedError`` past the HIGHEST pair's shapes: a
+    leading tile above 128 or more than 32 carries on an axis."""
+    if not 1 <= Ta <= TILE or not 1 <= Ka <= KMAX_K or not 1 <= Kb <= KMAX_K:
+        raise NotImplementedError(
+            f"tile Ta={Ta} with carries Ka={Ka}, Kb={Kb}: moments2d_k and "
+            f"final2d_k take Ta ≤ {TILE} and at most {KMAX_K} carries per "
+            "axis (ROADMAP Queue 2: shape limits of the HIGHEST pair and "
+            "the strip kernels)")
+
+
+class Moments2DK(nn.Module):
+    """HIGHEST pass 1 (``moments2d_k``): ``(bA, U) = moments(x)`` for x
+    (p, na, Ta, W), W = nb·128 — the JAX package's ``moments2d``.
+
+    G_a_cat : (na|1, Ka, Ta)   G_b_cat : (nb|1, Kb, 128)
+    returns bA (p, na, Ka, W) and the raw U (p, na, nb, Ta, Kb). Kernel
+    and twin sum in float64 from float32 values (``csrc/moments2d.cu``)."""
+
+    def __init__(self, G_a_cat, G_b_cat, na: int, nb: int):
+        super().__init__()
+        Ga, Gb = np.asarray(G_a_cat), np.asarray(G_b_cat)
+        self.na, self.nb = int(na), int(nb)
+        self.Ta, self.Ka, self.Kb = Ga.shape[2], Ga.shape[1], Gb.shape[1]
+        if Gb.shape[2] != TILE:
+            raise ValueError(f"dim-B tiles must be {TILE} wide")
+        highest_pair_limits(self.Ta, self.Ka, self.Kb)
+        self.register_buffer("Ga_v", _f32(_variants3(Ga)))
+        self.register_buffer("Gb_v", _f32(_variants3(Gb)))
+        self.register_buffer("Gan", _f32(_per_tile(Ga, na)).double())
+        self.register_buffer("Gbn", _f32(_per_tile(Gb, nb)).double())
+
+    def plain(self, x):
+        p, na, Ta, W = x.shape
+        xd = x.double()
+        bA = torch.einsum("aks,pasw->pakw", self.Gan, xd)
+        U = torch.einsum("bkt,pasbt->pabsk", self.Gbn,
+                         xd.reshape(p, na, Ta, self.nb, TILE))
+        return bA.float(), U.float()
+
+    def _kernel(self, x):
+        p, na, nb, Ta = x.shape[0], self.na, self.nb, self.Ta
+        _check(x, "x", (p, na, Ta, nb * TILE), x.device)
+        for name in ("Ga_v", "Gb_v"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, x.device)
+        _grid_ok(p, na, nb * TILE)
+        bA = torch.empty((p, na, self.Ka, nb * TILE), device=x.device)
+        U = torch.empty((p, na, nb, Ta, self.Kb), device=x.device)
+        _launch("moments2d_k", (
+            x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
+            bA.data_ptr(), U.data_ptr(), p, na, nb, Ta, self.Ka, self.Kb,
+            self.Ga_v.shape[0], self.Gb_v.shape[0]), x.device)
+        return bA, U
+
+    def forward(self, x):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x)
+        return self.plain(x)
+
+
+def _pad_rows(M, rows: int) -> np.ndarray:
+    """Zero rows appended to axis 1 of a (v, r, c) stack, up to ``rows``."""
+    return np.pad(M, ((0, 0), (0, rows - M.shape[1]), (0, 0)))
+
+
+class Final2DK(nn.Module):
+    """HIGHEST passes 2+3 (``final2d_k``): ``Y = final(x, NA, NB)`` — the
+    JAX package's ``final2d``.
+
+    Btot_a : (na|1, Ta, Ta);  Rhat_a_cat : (na|1, Ta, Ka)
+    Btot_b : (nb|1, 128, 128);  Rhat_b_cat : (nb|1, 128, Kb)
+    x (p, na, Ta, W); NA (p, na, Ka, W) in row form; NB (p, na, nb, Ta,
+    Kb). fp32 products, as the JAX package's kernel has them; the kernel
+    pads each carry count to a multiple of 8 with zero rows."""
+
+    def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
+                 nb: int):
+        super().__init__()
+        Ba, Ra = np.asarray(Btot_a), np.asarray(Rhat_a_cat)
+        Bb, Rb = np.asarray(Btot_b), np.asarray(Rhat_b_cat)
+        self.na, self.nb = int(na), int(nb)
+        self.Ta, self.Ka, self.Kb = Ba.shape[1], Ra.shape[2], Rb.shape[2]
+        if Bb.shape[1:] != (TILE, TILE):
+            raise ValueError(f"dim-B tiles must be {TILE} wide")
+        highest_pair_limits(self.Ta, self.Ka, self.Kb)
+        Kap, Kbp = (-(-k // _SLOTS) * _SLOTS for k in (self.Ka, self.Kb))
+        # A1 = [Baᵀ; Raᵀ] with its columns padded to 128 and its rows to
+        # Ta + Kap; B2 = [Bbᵀ; Rbᵀ] with its rows padded to 128 + Kbp
+        A1 = _cat_t(Ba, Ra)
+        A1 = np.pad(A1, ((0, 0), (0, Kap - self.Ka), (0, TILE - self.Ta)))
+        self.register_buffer("A1_v", _f32(A1))
+        self.register_buffer("B2_v", _f32(_pad_rows(_cat_t(Bb, Rb),
+                                                    TILE + Kbp)))
+        self.register_buffer("Ban", _f32(_expand_stack(Ba, na)))
+        self.register_buffer("Ran", _f32(_expand_stack(Ra, na)))
+        self.register_buffer("Bbn", _f32(_expand_stack(Bb, nb)))
+        self.register_buffer("Rbn", _f32(_expand_stack(Rb, nb)))
+
+    def plain(self, x, NA, NB):
+        p, na, Ta, W = x.shape
+        z = (torch.einsum("aos,pasw->paow", self.Ban, x)
+             + torch.einsum("aok,pakw->paow", self.Ran, NA))
+        y = (torch.einsum("bot,pasbt->pasbo", self.Bbn,
+                          z.reshape(p, na, Ta, self.nb, TILE))
+             + torch.einsum("bok,pabsk->pasbo", self.Rbn, NB))
+        return y.reshape(p, na, Ta, W)
+
+    def _kernel(self, x, NA, NB):
+        p, na, nb, Ta = x.shape[0], self.na, self.nb, self.Ta
+        W = nb * TILE
+        _check(x, "x", (p, na, Ta, W), x.device)
+        _check(NA, "NA", (p, na, self.Ka, W), x.device)
+        _check(NB, "NB", (p, na, nb, Ta, self.Kb), x.device)
+        for name in ("A1_v", "B2_v"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, x.device)
+        _grid_ok(p, na, W)
+        y = torch.empty_like(x)
+        _launch("final2d_k", (
+            x.data_ptr(), NA.data_ptr(), NB.data_ptr(), self.A1_v.data_ptr(),
+            self.B2_v.data_ptr(), y.data_ptr(), p, na, nb, Ta, self.Ka,
+            self.Kb, self.A1_v.shape[0], self.B2_v.shape[0]), x.device)
+        return y
+
+    def forward(self, x, NA, NB):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, NA, NB)
+        return self.plain(x, NA, NB)
 
 
 def _rows_x(x, n: int) -> int:

@@ -18,7 +18,11 @@ autograd rule for all of them.
     ``completion`` and ``completion_rot`` is an entry of its own for each,
     ``final2d_epi``, ``completion_epi`` and ``completion_rot_epi`` (the aux
     count k ≤ 4 an int, the coefficients a device buffer), so a count
-    tells "epilogue in the kernel" from "kernel, then torch ops".
+    tells "epilogue in the kernel" from "kernel, then torch ops". The
+    HIGHEST grade's 3-touch pair of the ``overlap_k`` backend (any leading
+    tile, unpadded carries) is ``moments2d_k`` and ``final2d_k``; the
+    ``pallas`` backend's strip passes are ``fused.cu``'s ``dim_pass_rows``
+    and ``dim_pass_cols``.
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -61,8 +65,10 @@ def _sig(name: str, *entries) -> dict:
 
 
 SIGNATURES = {
-    "moments2d": _sig("moments2d", ("moments2d", 9, 8)),
-    "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6)),
+    "moments2d": _sig("moments2d", ("moments2d", 9, 8),
+                      ("moments2d_k", 5, 8)),
+    "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
+                    ("final2d_k", 6, 8)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
                   ("tails_traced", 3, 3)),
@@ -79,6 +85,7 @@ SIGNATURES = {
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
                          ("int_seg_fix", 3, 9)),
     "stencil2d": _sig("stencil2d", ("stencil2d", 4, 8)),
+    "fused": _sig("fused", ("dim_pass_rows", 3, 8), ("dim_pass_cols", 3, 10)),
 }
 
 ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()

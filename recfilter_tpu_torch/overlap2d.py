@@ -439,3 +439,404 @@ def fused_2d_px(x: torch.Tensor, axis_a: int, scans_a: Sequence[Scan],
             "dimfuse.fused_filter_module routes any other pair")
     mod = Fused2DPx(scans_a, scans_b, x.shape[-2], x.shape[-1], border)
     return mod.to(x.device)(x)
+
+
+# ---------------------------------------------------------------------------
+# The overlap backends (``overlap``, ``overlap_k``): the JAX package's
+# fused_2d_pass, apply_filter_overlap and fused_nd_pass
+# ---------------------------------------------------------------------------
+
+
+def _stack64(M) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(M, np.float64))
+
+
+def _cat_mats(m):
+    """A dimension's stacked tails rows G_cat (n|1, ΣK, T) and carry
+    columns Rhat_cat (n|1, T, ΣK)."""
+    return (np.concatenate([np.asarray(g) for g in m.G], axis=1),
+            np.concatenate([np.asarray(r) for r in m.Rhat], axis=2))
+
+
+def _apply_stack(M: torch.Tensor, V: torch.Tensor, eq: str) -> torch.Tensor:
+    """``einsum(eq, M, V)`` for a matrix stack M (n|1, o, s) whose first
+    letter of ``eq`` is the tile axis: a uniform stack (n = 1) contracts
+    its one matrix (the JAX package's ``_apply_a5`` / ``_apply_b5`` and
+    ``_apply_a`` / ``_apply_b``)."""
+    if M.shape[0] == 1:
+        lhs, out = eq.split("->")
+        m, v = lhs.split(",")
+        return torch.einsum(f"{m[1:]},{v}->{out}", M[0], V)
+    return torch.einsum(eq, M, V)
+
+
+def _solve_lines(b: torch.Tensor, n_ax: int, k_ax: int,
+                 CM: torch.Tensor) -> torch.Tensor:
+    """A dimension's dense carry solve: the (n, k) axes of ``b`` moved
+    last, flattened, times CMᵀ, and moved back."""
+    bt = b.movedim((n_ax, k_ax), (-2, -1))
+    shp = bt.shape
+    N = (bt.reshape(-1, shp[-2] * shp[-1]) @ CM.T).reshape(shp)
+    return N.movedim((-2, -1), (n_ax, k_ax))
+
+
+class Fused2DK(nn.Module):
+    """The ``overlap_k`` backend's kernel path for scans ``scans_a`` on
+    axis −2 and ``scans_b`` on axis −1 of float32 arrays (..., wa, wb) —
+    the JAX package's ``_fused_2d_kernel_path``, at the HIGHEST grade:
+
+        pass 1 (read x):  bA = G_A·x, raw U = x·G_Bᵀ        moments2d_k
+        solves (tiny):    N_A = CM_A·bA; bB = Btot_A·U + Rhat_A·(G_B·N_A);
+                          N_B = CM_B·bB                     torch, float64
+        passes 2+3:       Y = (Btot_A·x + Rhat_A·N_A)·Btot_Bᵀ
+                            + N_B·Rhat_Bᵀ                   final2d_k
+
+    ``Ta`` is the leading axis's tile (≤ 128), the last axis's is 128;
+    extents are zero-padded to whole tiles (``pad_a`` / ``pad_b`` set by
+    the caller's gates: never under a clamp border). The glue runs in
+    float64 with dense solves, as the port's other glue does.
+    ``forward_plain`` runs the kernels' twins."""
+
+    def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
+                 wa: int, wb: int, Ta: int, border: str):
+        super().__init__()
+        Tb = TILE
+        clamp = border == BorderMode.CLAMP
+        na, nb = -(-wa // Ta), -(-wb // Tb)
+        self.wa, self.wb, self.Ta, self.na, self.nb = wa, wb, Ta, na, nb
+        pad_a, pad_b = na * Ta - wa, nb * Tb - wb
+        ma = dimfuse.prepare_dim_pass(scans_a, Ta, na, clamp,
+                                      pad_slots=pad_a)
+        mb = dimfuse.prepare_dim_pass(scans_b, Tb, nb, clamp,
+                                      pad_slots=pad_b)
+        Ga_cat, Ra_cat = _cat_mats(ma)
+        Gb_cat, Rb_cat = _cat_mats(mb)
+        self.Ka, self.Kb = Ga_cat.shape[1], Gb_cat.shape[1]
+        self.moments = k2d.Moments2DK(Ga_cat, Gb_cat, na, nb)
+        self.final = k2d.Final2DK(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na, nb)
+        self.register_buffer("Btot_a", _stack64(ma.Btot))
+        self.register_buffer("Ra_cat", _stack64(Ra_cat))
+        self.register_buffer("Gb_cat", _stack64(Gb_cat))
+        self.register_buffer("CMa", _stack64(
+            dimfuse.combined_solve_matrix(ma, na)))
+        self.register_buffer("CMb", _stack64(
+            dimfuse.combined_solve_matrix(mb, nb)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, self.moments, self.final)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, self.moments.plain, self.final.plain)
+
+    def carries(self, X4: torch.Tensor, moments=None):
+        """Pass 1 and the solves: the kernel layouts NA (p, na, Ka, W) and
+        NB (p, na, nb, Ta, Kb), float32."""
+        p, na, nb, Ta, Tb = X4.shape[0], self.na, self.nb, self.Ta, TILE
+        bA, U = (moments or self.moments)(X4)
+        bA5 = bA.double().reshape(p, na, self.Ka, nb, Tb)
+        U5 = U.double().transpose(2, 3)                  # (p, na, Ta, nb, Kb)
+        NA5 = _solve_lines(bA5, 1, 2, self.CMa)          # (p, na, Ka, nb, Tb)
+        GN = _apply_stack(self.Gb_cat, NA5, "bot,pasbt->pasbo")
+        bb = (_apply_stack(self.Btot_a, U5, "aos,pasbt->paobt")
+              + _apply_stack(self.Ra_cat, GN, "aos,pasbt->paobt"))
+        NB5 = _solve_lines(bb, 3, 4, self.CMb)           # (p, na, Ta, nb, Kb)
+        return (NA5.reshape(p, na, self.Ka, nb * Tb).float().contiguous(),
+                NB5.transpose(2, 3).float().contiguous())
+
+    def _run(self, x, moments, final):
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 input, got {x.dtype}")
+        if x.ndim < 2 or tuple(x.shape[-2:]) != (self.wa, self.wb):
+            raise ValueError(f"input shape {tuple(x.shape)} does not end in "
+                             f"({self.wa}, {self.wb})")
+        X4 = self.tile(x)
+        NA, NB = self.carries(X4, moments)
+        Y4 = final(X4, NA, NB)
+        Y = Y4.reshape(*x.shape[:-2], self.na * self.Ta, self.nb * TILE)
+        return Y[..., :self.wa, :self.wb]
+
+    def tile(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., wa, wb) → the kernels' zero-padded (p, na, Ta, nb·128)."""
+        Ha, Wb = self.na * self.Ta, self.nb * TILE
+        xp = F.pad(x, (0, Wb - self.wb, 0, Ha - self.wa))
+        return xp.reshape(-1, self.na, self.Ta, Wb).contiguous()
+
+
+class _Swapped(nn.Module):
+    """``body`` on the input with axes ``a`` and ``b`` swapped, its output
+    swapped back (the JAX package's normalization of a pair whose first
+    scanned axis comes later in the array)."""
+
+    def __init__(self, body: nn.Module, a: int, b: int):
+        super().__init__()
+        self.body, self.a, self.b = body, a, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x.transpose(self.a, self.b)).transpose(self.a,
+                                                                self.b)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body.forward_plain(
+            x.transpose(self.a, self.b)).transpose(self.a, self.b)
+
+
+def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
+                    scans_b, Tb: int, border: str = BorderMode.ZERO,
+                    use_kernels: bool = False,
+                    matmul_precision: str = "highest") -> nn.Module:
+    """The executor the JAX package's ``fused_2d_pass`` runs for scans
+    ``scans_a`` on ``axis_a`` then ``scans_b`` on ``axis_b`` of arrays of
+    ``shape``, by its gates in its order:
+
+      1. a pair whose first axis comes later is swapped (:class:`_Swapped`);
+      2. ``use_kernels`` at ``px6`` on the trailing pair where
+         :func:`fused2d_decline` passes: :class:`Fused2DPx`;
+      3. the tiles: each at least its axis's largest order and at most its
+         extent; with ``use_kernels`` the last axis's pinned to 128;
+      4. a clamp border with pad, more than 256 tiles on an axis, or a
+         tile below the order: two :func:`.dimfuse.dim_pass_module` passes
+         at ``highest`` (the JAX call's default), a :class:`.dimfuse.
+         StagedPass` of route ``"pair-fallback"``;
+      5. ``use_kernels`` on the contiguous trailing pair: :class:`Fused2DK`
+         (``moments2d_k`` + ``final2d_k``);
+      6. else the einsum form, :class:`OverlapND` on the two axes (route
+         ``"pair"``)."""
+    shape = tuple(int(e) for e in shape)
+    nd = len(shape)
+    axis_a, axis_b = axis_a % nd, axis_b % nd
+    if axis_a > axis_b:
+        sw = list(shape)
+        sw[axis_a], sw[axis_b] = sw[axis_b], sw[axis_a]
+        return _Swapped(fused_2d_module(
+            sw, axis_b, scans_a, Ta, axis_a, scans_b, Tb, border,
+            use_kernels, matmul_precision), axis_a, axis_b)
+    wa, wb = shape[axis_a], shape[axis_b]
+    trailing = axis_a == nd - 2 and axis_b == nd - 1
+    if (use_kernels and matmul_precision == "px6" and trailing
+            and fused2d_decline(scans_a, scans_b, wa, wb, border) is None):
+        return Fused2DPx(scans_a, scans_b, wa, wb, border)
+    ka = max(s.order for s in scans_a)
+    kb = max(s.order for s in scans_b)
+    Ta = int(min(max(Ta, ka), wa))
+    Tb = int(min(max(Tb, kb), wb))
+    if use_kernels:
+        Tb = int(min(TILE, -(-wb // TILE) * TILE))
+    na, nb = -(-wa // Ta), -(-wb // Tb)
+    pad_a, pad_b = na * Ta - wa, nb * Tb - wb
+    cap = dimfuse._CHAIN_MATMUL_MAX_TILES
+    if ((border == BorderMode.CLAMP and (pad_a or pad_b))
+            or na > cap or nb > cap or Ta < ka or Tb < kb):
+        return dimfuse.StagedPass([
+            dimfuse.dim_pass_module(scans_a, axis_a, shape, Ta, border,
+                                    "highest"),
+            dimfuse.dim_pass_module(scans_b, axis_b, shape, Tb, border,
+                                    "highest")], "pair-fallback")
+    if use_kernels and trailing:
+        return Fused2DK(scans_a, scans_b, wa, wb, Ta, border)
+    return OverlapND(shape, [(axis_a, scans_a, Ta), (axis_b, scans_b, Tb)],
+                     border, route="pair")
+
+
+def fused_2d_pass(x: torch.Tensor, axis_a: int, scans_a, Ta: int,
+                  axis_b: int, scans_b, Tb: int,
+                  border: str = BorderMode.ZERO, use_kernels: bool = False,
+                  matmul_precision: str = "highest") -> torch.Tensor:
+    """Functional :func:`fused_2d_module` on the float32 ``x``."""
+    mod = fused_2d_module(x.shape, axis_a, scans_a, Ta, axis_b, scans_b, Tb,
+                          border, use_kernels, matmul_precision)
+    return mod.to(x.device)(x)
+
+
+def nd_decline(shape, groups, border: str):
+    """Why the JAX package's ``fused_nd_pass`` declines ``groups`` =
+    [(axis, scans, T), ...] on arrays of ``shape`` (a clamp border with
+    pad, a tile below the order, more than 256 tiles), or None."""
+    for axis, scans, T in groups:
+        w, k = shape[axis], max(s.order for s in scans)
+        T = int(min(max(T, k), w))
+        n = -(-w // T)
+        if border == BorderMode.CLAMP and n * T - w:
+            return f"axis {axis}: clamp border with pad"
+        if T < k:
+            return f"axis {axis}: tile {T} below the order {k}"
+        if n > dimfuse._CHAIN_MATMUL_MAX_TILES:
+            return f"axis {axis}: {n} tiles"
+    return None
+
+
+class OverlapND(nn.Module):
+    """Every scanned dimension's carries from ONE read of the image — the
+    JAX package's ``fused_nd_pass`` (D ≥ 2 scanned axes): with Y_e the
+    image after dims 0..e's completions, dim d's raw tails are
+
+        G_d ∘ Y_{d-1} = V_{d-1},   V_{-1} = G_d ∘ x   (a pass-1 moment)
+        V_e = Btot_e ∘ V_{e-1} + Rcat_e ∘ (G_d ∘ N_e)
+
+    so after one read everything is carry-sized until the D completions.
+    ``groups`` = [(axis, scans, T), ...]; :func:`nd_decline` must pass.
+    With two groups it is also the pair's einsum form past the kernel
+    path (the JAX package's ``fused_2d_pass``), ``route`` ``"pair"``; as
+    ``fused_nd_pass`` it is ``"nd"``. Every product, the big einsums over
+    the image included, runs in float64 (as the port's ``highest`` einsum
+    passes do), float32 out; no kernel; ``forward_plain`` is
+    ``forward``."""
+
+    def __init__(self, shape, groups, border: str, route: str = "nd"):
+        super().__init__()
+        self.route = route
+        why = nd_decline(shape, groups, border)
+        if why:
+            raise ValueError(f"fused_nd_pass declines: {why}")
+        clamp = border == BorderMode.CLAMP
+        self.shape = tuple(int(e) for e in shape)
+        self.infos = []
+        letters = iter("abcdefghijklmnop")
+        tiled = {}
+        for d, (axis, scans, T) in enumerate(groups):
+            w, k = self.shape[axis], max(s.order for s in scans)
+            T = int(min(max(T, k), w))
+            n = -(-w // T)
+            m = dimfuse.prepare_dim_pass(scans, T, n, clamp,
+                                         pad_slots=n * T - w)
+            G, R = _cat_mats(m)
+            self.infos.append(dict(axis=axis, T=T, n=n, pad=n * T - w, w=w,
+                                   K=G.shape[1]))
+            for name, M in (("G", G), ("R", R), ("B", m.Btot),
+                            ("CM", dimfuse.combined_solve_matrix(m, n))):
+                self.register_buffer(f"{name}{d}", _stack64(M))
+            tiled[axis] = d
+        view, axl = [], []
+        for ax in range(len(self.shape)):
+            if ax in tiled:
+                inf = self.infos[tiled[ax]]
+                inf["nl"], inf["sl"] = next(letters), next(letters)
+                view += [inf["n"], inf["T"]]
+                axl += [inf["nl"], inf["sl"]]
+            else:
+                view.append(self.shape[ax])
+                axl.append(next(letters))
+        self.view, self.in_str = view, "".join(axl)
+
+    def _on(self, M, V, d):
+        inf = self.infos[d]
+        out = self.in_str.replace(inf["sl"], "z")
+        return _apply_stack(M, V, f"{inf['nl']}z{inf['sl']},"
+                            f"{self.in_str}->{out}")
+
+    def _solve(self, V, d):
+        inf = self.infos[d]
+        return _solve_lines(V, self.in_str.index(inf["nl"]),
+                            self.in_str.index(inf["sl"]),
+                            getattr(self, f"CM{d}"))
+
+    def _slice_k(self, V, d):
+        inf = self.infos[d]
+        return V.narrow(self.in_str.index(inf["sl"]), 0, inf["K"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"input shape {tuple(x.shape)} != {self.shape}")
+        nd = len(self.shape)
+        pads = [0, 0] * nd
+        for inf in self.infos:
+            pads[2 * (nd - 1 - inf["axis"]) + 1] = inf["pad"]
+        xp = F.pad(x.double(), pads)
+        X = xp.reshape(self.view)
+        D = len(self.infos)
+        N = []
+        for d in range(D):
+            V = self._slice_k(self._on(getattr(self, f"G{d}"), X, d), d)
+            for e in range(d):
+                GN = self._on(getattr(self, f"G{d}"), N[e], d)
+                V = (self._on(getattr(self, f"B{e}"), V, e)
+                     + self._on(getattr(self, f"R{e}"), GN, e))
+            N.append(self._solve(V, d))
+        Y = X
+        for e in range(D):
+            Y = (self._on(getattr(self, f"B{e}"), Y, e)
+                 + self._on(getattr(self, f"R{e}"), N[e], e))
+        Y = Y.reshape(xp.shape)
+        for inf in self.infos:
+            if inf["pad"]:
+                Y = Y.narrow(inf["axis"], 0, inf["w"])
+        return Y.to(x.dtype)
+
+    forward_plain = forward
+
+
+def fused_nd_pass(x: torch.Tensor, groups, border: str = BorderMode.ZERO):
+    """Functional :class:`OverlapND`, or None where :func:`nd_decline`
+    declines (the JAX package's contract)."""
+    if nd_decline(x.shape, groups, border):
+        return None
+    return OverlapND(x.shape, groups, border).to(x.device)(x)
+
+
+class OverlapFilter(nn.Module):
+    """The ``overlap`` / ``overlap_k`` backends — the JAX package's
+    ``apply_filter_overlap``: scanned axes in order of first appearance,
+    consumed in pairs through :func:`fused_2d_module` (an odd last axis
+    through :func:`.dimfuse.dim_pass_module` at ``highest``), each axis
+    tiled by its split width or ``tile_default``. Without kernels
+    (``overlap``) three or more scanned axes take :class:`OverlapND` where
+    :func:`nd_decline` passes. ``use_kernels`` (``overlap_k``) runs the
+    trailing pair on :class:`Fused2DPx` at ``px6`` where its gates hold,
+    else on :class:`Fused2DK`. Integer filters run the sequential core.
+    ``stages`` lists the executors; ``forward_plain`` runs the kernels'
+    twins."""
+
+    def __init__(self, spec, tile_default: int = 32,
+                 use_kernels: bool = False,
+                 matmul_precision: str = "highest"):
+        super().__init__()
+        from .scan_core import ScanFilter, _compute_type
+
+        spec = spec.stacked()
+        _compute_type(spec.dtype)  # raises on the dtypes the port lacks
+        self.ext = tuple(d.extent for d in spec.dims)
+        self.core = ScanFilter(spec) if spec.dtype != "float32" else None
+        tiles = spec.tile_widths or (0,) * spec.ndim
+        groups = [(ax, [spec.scans[j] for j in ids], tiles[ax] or tile_default)
+                  for ax, ids in spec.scans_by_axis().items()]
+        stages = []
+        if (self.core is None and len(groups) >= 3 and not use_kernels
+                and nd_decline(self.ext, groups, spec.border) is None):
+            stages = [OverlapND(self.ext, groups, spec.border)]
+        elif self.core is None:
+            i = 0
+            while i < len(groups):
+                if i + 1 < len(groups):
+                    (ax_a, sc_a, Ta), (ax_b, sc_b, Tb) = groups[i:i + 2]
+                    stages.append(fused_2d_module(
+                        self.ext, ax_a, sc_a, Ta, ax_b, sc_b, Tb,
+                        spec.border, use_kernels, matmul_precision))
+                    i += 2
+                else:
+                    ax, sc, T = groups[i]
+                    stages.append(dimfuse.dim_pass_module(
+                        sc, ax, self.ext, T, spec.border, "highest"))
+                    i += 1
+        self.stages = nn.ModuleList(stages)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, False)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, True)
+
+    def _run(self, x, plain):
+        if self.core is not None:
+            return self.core(x)
+        x = torch.as_tensor(x).to(torch.float32)
+        for st in self.stages:
+            x = st.forward_plain(x) if plain else st(x)
+        return x.contiguous()
+
+
+def apply_filter_overlap(spec, x: torch.Tensor, tile_default: int = 32,
+                         use_kernels: bool = False,
+                         matmul_precision: str = "highest") -> torch.Tensor:
+    """Functional :class:`OverlapFilter` on ``x``'s device."""
+    x = torch.as_tensor(x)
+    mod = OverlapFilter(spec, tile_default, use_kernels, matmul_precision)
+    return mod.to(x.device)(x)

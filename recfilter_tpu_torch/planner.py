@@ -1,21 +1,37 @@
-"""Execution plan: the executor backend and the matmul precision grade.
+"""Execution plan and the schedule object.
 
-The port runs the 3-touch 2-D path and the rows pass (``overlap2d``), on
-the fp32 CUDA kernels of ``kernels/final2d.py``, and the last-axis passes
-(``dimfuse.LastAxisPass``: the last-axis executor, the rotation chain, the
-einsum pass on a non-last axis), on those of ``kernels/completion.py``.
+The port runs the JAX package's executor backends, chosen by
+``Plan.backend`` (``RecFilter.set_plan(backend=...)``, or a schedule
+directive — ``compute_locally`` selects ``pallas``):
+
+  * ``auto`` / ``einsum`` — the fused executors (``dimfuse``): the
+    3-touch 2-D pair and the rows pass (``overlap2d``) on the fp32 kernels
+    of ``kernels/final2d.py``, the last-axis passes and the rotation chain
+    on those of ``kernels/completion.py``. ``auto`` resolves to ``scan``
+    for an untiled filter (:func:`resolve_backend`);
+  * ``pallas`` — the strip passes of ``kernels/fused.py``
+    (``dim_pass_rows`` / ``dim_pass_cols``), one per scanned axis;
+  * ``overlap`` / ``overlap_k`` — ``overlap2d.OverlapFilter``: scanned
+    axes paired, both carries of a pair from one read; ``overlap_k`` runs
+    the pair on ``moments2d_k`` / ``final2d_k`` (or on the px pair where
+    its gates hold at ``px6``), ``overlap`` as float64 einsums;
+  * ``blocked`` — the blocked algebra (``tiling.py``), float64 einsums;
+  * ``scan`` — the sequential core (``scan_core.ScanFilter``);
+  * ``oracle`` — the float64 numpy oracle (``scan_core.oracle_apply``).
+
 The JAX package's precision names are kept: ``px6`` (its default) and
 ``highest`` both mean true-f32 products, which the fp32 kernels give on
 Hopper without the TPU's bf16 chunk splitting. As in the JAX package, the
-kernels (and the supertile hierarchy) run at ``px6`` only: at ``highest``
-every pass runs its einsum form in float64 and no kernel launches — the
-2-D pair and volumes take the rotation chain, a non-last axis the einsum
-pass. Every other grade raises.
+fused executors' px kernels (and the supertile hierarchy) run at ``px6``
+only: at ``highest`` every fused pass runs its einsum form in float64 and
+no kernel launches, and ``overlap_k`` runs its HIGHEST kernel pair. Every
+other grade raises, as does ``matmul_dtype="bfloat16"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 _SUPPORTED_PRECISIONS = ("px6", "highest")
 
@@ -32,7 +48,8 @@ _UNPORTED_PRECISIONS = {
     "f32x9": "Queue 1 item 11 (integer-exact f32x9 limbs)",
 }
 
-_BACKENDS = ("auto", "einsum")
+BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
+            "scan", "oracle")
 
 
 def check_precision(matmul_precision: str) -> None:
@@ -50,8 +67,17 @@ def check_precision(matmul_precision: str) -> None:
 class Plan:
     """Static execution plan for a filter.
 
-    ``backend``: "auto" or "einsum" — both name the fused executors
-    (the JAX package's name for its fused per-dimension route).
+    ``backend``: one of :data:`BACKENDS` (module docstring).
+    ``line_block``: lines per block of the ``pallas`` strip kernels; 0
+    picks them from the line count (``kernels/fused.pick_line_block``), a
+    request is quantised to the kernels' line quantum and clamped to what
+    shared memory holds. Set by ``schedule.vectorize(var, width)``.
+    ``unroll``: the JAX package's unroll of the ``pallas`` tile-carry
+    loop; it changes no result, and on the card it has no effect (the
+    CUDA tile loop is a runtime loop). Set by ``schedule.unroll(var,
+    factor)``.
+    ``matmul_dtype``: "float32"; "bfloat16" (bf16 products on the
+    ``overlap`` backends) is not ported yet.
     ``matmul_precision``: "px6" (default) or "highest".
     ``rotate_emit``: layout chaining for single-dimension filters (the
     reference's ``storage_layout`` directive): nonzero opts into the
@@ -62,21 +88,43 @@ class Plan:
     them. 0 (default) emits in the natural layout."""
 
     backend: str = "auto"
+    line_block: int = 0
+    unroll: int = 1
+    matmul_dtype: str = "float32"
     matmul_precision: str = "px6"
     rotate_emit: int = 0
 
     def __post_init__(self):
-        if self.backend not in _BACKENDS:
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; one of "
+                             f"{BACKENDS}")
+        if self.matmul_dtype == "bfloat16":
             raise NotImplementedError(
-                f"backend={self.backend!r} is not ported yet: ROADMAP "
-                "Queue 1 item 15 (remaining backends)")
+                "matmul_dtype='bfloat16' is not ported yet: ROADMAP Queue 1 "
+                "item 4 (bf16 products)")
+        if self.matmul_dtype != "float32":
+            raise ValueError(f"unknown matmul_dtype {self.matmul_dtype!r}")
         check_precision(self.matmul_precision)
-        if int(self.rotate_emit) != self.rotate_emit or self.rotate_emit < 0:
-            raise ValueError(f"rotate_emit must be an int ≥ 0, got "
-                             f"{self.rotate_emit!r}")
+        for name in ("rotate_emit", "line_block"):
+            v = getattr(self, name)
+            if int(v) != v or v < 0:
+                raise ValueError(f"{name} must be an int ≥ 0, got {v!r}")
+        if int(self.unroll) != self.unroll or self.unroll < 1:
+            raise ValueError(f"unroll must be an int ≥ 1, got "
+                             f"{self.unroll!r}")
 
     def with_(self, **kw) -> "Plan":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_backend(spec, plan: Plan) -> str:
+    """The executor for ``plan.backend``; ``auto`` picks the fused
+    (``einsum``) executors for a tiled filter, integers included, and the
+    sequential core (``scan``) for an untiled one — the JAX package's
+    rule."""
+    if plan.backend != "auto":
+        return plan.backend
+    return "einsum" if spec.tiled else "scan"
 
 
 def default_tile_width(extent: int, platform: str) -> int:
@@ -91,3 +139,155 @@ def auto_tile_width(extent: int) -> int:
     tile of 128 wherever they run (the CPU runs their twins on the same
     tiles), so no card is probed."""
     return default_tile_width(extent, "cuda")
+
+
+class ScheduleVar:
+    """A tag-addressed loop variable handle (the reference's VarTag)."""
+
+    def __init__(self, tag: str, index: Optional[int] = None):
+        self.tag = tag
+        self.index = index
+
+    def split_var(self) -> "ScheduleVar":
+        return ScheduleVar(self.tag + "_split", self.index)
+
+    def __repr__(self) -> str:
+        i = "" if self.index is None else f"({self.index})"
+        return f"{self.tag}{i}"
+
+
+class RecFilterSchedule:
+    """Chainable, recorded schedule over a set of stages selected by tag:
+    the reference's ``RecFilterSchedule`` directive API, kept for source
+    parity as the JAX package keeps it.
+
+    The reference places loops on GPU blocks, threads and registers by
+    hand; here the CUDA kernels fix their own launch shapes, so a
+    directive either sets a :class:`Plan` field — ``compute_locally`` →
+    ``pallas`` (the strip kernels), ``compute_globally`` → ``einsum``,
+    ``vectorize(width=)`` → ``line_block``, ``unroll(factor=)`` →
+    ``unroll`` — or is a recorded no-op that says what does its job on
+    the card. Every directive lands in the owner's schedule log with that
+    note (``RecFilter.print_schedule``)."""
+
+    def __init__(self, owner, selector: str):
+        self._owner = owner  # RecFilter
+        self._selector = selector  # "intra(1)" | "intra(2)" | "inter" | "full"
+        self._log: List[str] = []
+
+    def _rec(self, directive: str, mapping: str = "") -> "RecFilterSchedule":
+        """Record ``directive`` with its mapping note: the Plan field it
+        set, or why it is a no-op on the card."""
+        self._log.append(directive)
+        note = f"  # {mapping}" if mapping else ""
+        self._owner._schedule_log.append(
+            f"{self._selector}: {directive}{note}")
+        return self
+
+    def _set(self, **kw) -> None:
+        self._owner.set_plan(**kw)
+
+    def compute_locally(self) -> "RecFilterSchedule":
+        """Keep the stage on chip next to its consumer (the reference's
+        ``compute_at`` into gpu_blocks): selects the ``pallas`` strip
+        kernels, whose intra-tile terms never touch device memory."""
+        if self._selector.startswith("intra"):
+            self._set(backend="pallas")
+            return self._rec("compute_locally()", "-> Plan.backend='pallas'")
+        return self._rec(
+            "compute_locally()",
+            "no-op: inter-tile carries live in device memory by "
+            "construction")
+
+    def compute_globally(self) -> "RecFilterSchedule":
+        """Materialize the stage in device memory (``compute_root``): the
+        fused einsum executors' behaviour."""
+        if self._selector.startswith("intra"):
+            self._set(backend="einsum")
+            return self._rec("compute_globally()",
+                             "-> Plan.backend='einsum'")
+        return self._rec("compute_globally()",
+                         "no-op: inter-tile stages already live in device "
+                         "memory")
+
+    def unroll(self, var=None, factor: int = 0) -> "RecFilterSchedule":
+        if factor:
+            self._set(unroll=factor)
+            return self._rec(f"unroll({var})",
+                             f"-> Plan.unroll={factor} (pallas backend; no "
+                             "effect on the card's runtime tile loop)")
+        return self._rec(
+            f"unroll({var})",
+            "no-op without factor: nvcc unrolls the kernels' inner loops; "
+            "pass factor= to set Plan.unroll")
+
+    def vectorize(self, var=None, width: int = 0) -> "RecFilterSchedule":
+        if width:
+            self._set(line_block=width)
+            return self._rec(
+                f"vectorize({var})",
+                f"-> Plan.line_block={width} (pallas lines per block)")
+        return self._rec(
+            f"vectorize({var})",
+            "no-op without width: the kernels load float4 vectors "
+            "themselves; pass width= to set Plan.line_block for the pallas "
+            "backend")
+
+    def gpu_threads(self, *vars) -> "RecFilterSchedule":
+        return self._rec(
+            f"gpu_threads{vars}",
+            "no-op: each CUDA kernel fixes its own thread layout (256 "
+            "threads, a register tile each)")
+
+    def gpu_blocks(self, *vars) -> "RecFilterSchedule":
+        return self._rec(
+            f"gpu_blocks{vars}",
+            "no-op: each CUDA kernel's grid covers the tiles or line "
+            "blocks; tile sizes come from RecFilter.split()")
+
+    def parallel(self, var=None, factor: int = 0) -> "RecFilterSchedule":
+        return self._rec(
+            f"parallel({var})",
+            "no-op on one card: the kernels' blocks run in parallel; "
+            "multi-card sharding is ROADMAP Queue 1 item 14")
+
+    def split(self, var, factor: int) -> "RecFilterSchedule":
+        return self._rec(
+            f"split({var}, {factor})",
+            "no-op: loop splitting is tiling — use RecFilter.split(dim, w)")
+
+    def fuse(self, a, b) -> "RecFilterSchedule":
+        return self._rec(f"fuse({a}, {b})",
+                         "no-op: each kernel fuses its own loops")
+
+    def rename(self, a, b=None) -> "RecFilterSchedule":
+        """Loop-variable rename (the reference builds gpu_blocks/threads
+        as parallel().rename())."""
+        return self._rec(f"rename({a}, {b})",
+                         "no-op: the kernels name no loop variables")
+
+    def reorder(self, *vars) -> "RecFilterSchedule":
+        return self._rec(
+            f"reorder{vars}",
+            "no-op: each kernel fixes its loop order; pass order is the "
+            "scan list order (see RecFilter.cascade)")
+
+    def reorder_storage(self, *vars) -> "RecFilterSchedule":
+        """Storage-order directive. The port's layout knob is
+        ``Plan.rotate_emit`` (rotated-emit pipeline chaining, set via
+        ``set_plan``); each kernel owns its intra-pass layout."""
+        return self._rec(
+            f"reorder_storage{vars}",
+            "no-op: each kernel owns its intra-pass layout; inter-pass "
+            "layout is Plan.rotate_emit (set_plan(rotate_emit=...))")
+
+    def storage_layout(self, *args) -> "RecFilterSchedule":
+        """See :meth:`reorder_storage` and ``Plan.rotate_emit``."""
+        return self._rec(
+            f"storage_layout{args}",
+            "no-op: see reorder_storage — the layout knob is "
+            "Plan.rotate_emit")
+
+    def __repr__(self) -> str:
+        body = "\n".join(f"    .{d}" for d in self._log)
+        return f"RecFilterSchedule[{self._selector}]\n{body}"

@@ -1,4 +1,17 @@
-"""The definitional numpy oracle for the filter semantics.
+"""Untiled executors: the definitional numpy oracle and the sequential core.
+
+* ``oracle_apply_scan`` / ``oracle_apply`` — plain numpy loops, the
+  definitional oracle (float64 for float filters).
+* ``apply_scan`` / ``apply_filter`` and :class:`ScanFilter` — the JAX
+  package's ``lax.scan`` executor: sequential along the scanned axis,
+  vectorised over every other axis (one loop step is one torch op per
+  tap, on any device). It is the ``scan`` backend, the route of untiled
+  filters, and the fallback wherever the blocked algebra has no tile plan
+  (an order above the extent, a clamp border with no dividing tile).
+  Integer filters run in their own type and wrap as it wraps; float32
+  filters accumulate in float64 (the JAX package's ``lax.scan`` in
+  float32 sits about 1e-6 of the output peak from the oracle on the
+  σ=5 Gaussian, near the 2e-6 bound) and return float32.
 
 Scan semantics (causal):
     v[x] = b0·v[x] + Σ_j a_j · v[x-(j+1)]       updated in place, x ascending
@@ -12,6 +25,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
+from torch import nn
 
 from .spec import BorderMode, FilterSpec
 
@@ -70,3 +85,146 @@ def oracle_apply(spec: FilterSpec, x: np.ndarray) -> np.ndarray:
             x, s.axis, s.causal, s.feedfwd, s.feedback, spec.border
         )
     return x.astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the sequential core (the JAX package's lax.scan executor)
+# ---------------------------------------------------------------------------
+
+_INT_TYPES = {torch.int8, torch.int16, torch.int32, torch.int64}
+
+
+def _coefficients(feedfwd, feedback, dtype: torch.dtype):
+    """The scan's coefficients as Python scalars for ``dtype``: cast into
+    an integer type as the reference and the oracle cast them (wrapping),
+    else floats."""
+    if dtype in _INT_TYPES:
+        t = np.dtype(str(dtype).replace("torch.", "")).type
+        return int(t(feedfwd)), [int(t(c)) for c in feedback]
+    return float(feedfwd), [float(c) for c in feedback]
+
+
+def _scan_rows(x: torch.Tensor, feedfwd, feedback,
+               clamp: bool) -> torch.Tensor:
+    """One causal scan along axis 0 of ``x`` (any trailing batch axes),
+    in ``x``'s type: per step ``y[t] = b0·x[t] + Σ_j a_j·y[t-1-j]``, one
+    torch op per tap, every line at once. Zero border: taps before the
+    start read zero. Clamp: the first min(k, w) outputs are peeled with
+    the JAX package's rule — a tap before the start reads the pre-update
+    site value ``x[0]`` at t = 0 and the output ``y[0]`` after it."""
+    b0, a = _coefficients(feedfwd, feedback, x.dtype)
+    k, w = len(a), x.shape[0]
+    ys = []
+    for t in range(w):
+        y = torch.mul(x[t], b0)
+        for j in range(k):
+            i = t - j - 1
+            if i >= 0:
+                src = ys[i]
+            elif not clamp:
+                continue
+            else:
+                src = x[0] if t == 0 else ys[0]
+            y = torch.add(y, src, alpha=a[j])
+        ys.append(y)
+    return torch.stack(ys)
+
+
+def apply_scan(x: torch.Tensor, axis: int, causal: bool, feedfwd, feedback,
+               border: str = BorderMode.ZERO) -> torch.Tensor:
+    """One scan along ``axis`` of ``x`` (any rank) in ``x``'s type: the
+    JAX package's ``scan_core.apply_scan``."""
+    v = x.movedim(axis, 0)
+    if not causal:
+        v = v.flip(0)
+    y = _scan_rows(v, feedfwd, feedback, border == BorderMode.CLAMP)
+    if not causal:
+        y = y.flip(0)
+    return y.movedim(0, axis)
+
+
+def _compute_type(dtype: str) -> torch.dtype:
+    """The core's working type for a filter of ``dtype``: integers their
+    own, float32 float64 (module docstring); others raise."""
+    if dtype in ("int8", "int16", "int32"):
+        return getattr(torch, dtype)
+    if dtype == "float32":
+        return torch.float64
+    raise NotImplementedError(
+        f"dtype {dtype}: the port runs float32 and int8/16/32 filters only "
+        "(ROADMAP Queue 1 item 4: bf16 and float16 storage; item 11: other "
+        "integer types)")
+
+
+def apply_filter(spec: FilterSpec, x: torch.Tensor) -> torch.Tensor:
+    """Every scan of ``spec`` in order through the core, on ``x``'s
+    device: the JAX package's ``scan_core.apply_filter``."""
+    return ScanFilter(spec)(torch.as_tensor(x))
+
+
+class ScanAxis(nn.Module):
+    """``scans`` (all on ``axis``) through the core, in order — the
+    fallback of the tiled executors on an axis with no tile plan (the JAX
+    package's ``fused_dim_pass`` there). float32 in and out, float64
+    inside; ``forward_plain`` is ``forward`` (no kernel)."""
+
+    def __init__(self, scans, axis: int, border: str):
+        super().__init__()
+        self.scans, self.axis, self.border = list(scans), int(axis), border
+
+    def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        if eaux:
+            raise ValueError("ScanAxis takes no epilogue aux arrays")
+        y = x.double()
+        for s in self.scans:
+            y = apply_scan(y, self.axis, s.causal, s.feedfwd, s.feedback,
+                           self.border)
+        return y.to(x.dtype)
+
+    forward_plain = forward
+
+
+class ScanFilter(nn.Module):
+    """The ``scan`` backend: every scan of ``spec`` in definition order
+    through the core. Integer filters in their own type (a float input
+    cast through int32, as the JAX package casts it), float32 filters in
+    float64, returned in the filter's type. ``forward_plain`` is
+    ``forward`` (the core launches no kernel)."""
+
+    def __init__(self, spec: FilterSpec):
+        super().__init__()
+        self.spec = spec.stacked()
+        self.work = _compute_type(spec.dtype)
+        self.out_dtype = getattr(torch, spec.dtype)
+        self.ext = tuple(d.extent for d in self.spec.dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        if tuple(x.shape) != self.ext:
+            raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
+                             f"extents {self.ext}")
+        if self.work in _INT_TYPES and x.is_floating_point():
+            x = x.to(torch.int32)
+        y = x.to(self.work)
+        for s in self.spec.scans:
+            y = apply_scan(y, s.axis, s.causal, s.feedfwd, s.feedback,
+                           self.spec.border)
+        return y.to(self.out_dtype)
+
+    forward_plain = forward
+
+
+class OracleFilter(nn.Module):
+    """The ``oracle`` backend: :func:`oracle_apply` (float64 numpy loops)
+    on the input, the result a tensor on the input's device."""
+
+    def __init__(self, spec: FilterSpec):
+        super().__init__()
+        self.spec = spec.stacked()
+
+    def forward(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        y = oracle_apply(self.spec, x.detach().cpu().numpy())
+        return torch.from_numpy(np.ascontiguousarray(y)).to(x.device)
+
+    forward_plain = forward

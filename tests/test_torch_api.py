@@ -117,7 +117,7 @@ def _spec(dims, scans, mod=rft, **kw):
 _G = (0.1, (0.5, 0.3, 0.1))
 # name: (dims, scans (axis, causal, b0, feedback), keywords)
 UNSUPPORTED = {
-    # a prime clamp extent has no tile plan: the lax.scan core's case
+    # a prime clamp extent has no tile plan: the sequential core's case
     "one-dim": ([("x", 509)], [(0, True, *_G)],
                 dict(border="clamp", tile_widths=(128,))),
     # a volume whose depth is not a multiple of 128: the rows pass
@@ -151,15 +151,16 @@ UNSUPPORTED = {
                      [(0, True, *_G), (1, True, *_G)],
                      dict(tile_widths=(128, 128))),
 }
-STILL_UNSUPPORTED = ("one-dim", "float64", "int32")
+STILL_UNSUPPORTED = ("float64", "int32")
 
 
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_unsupported_filters_raise(case):
-    """The filters the port refused before the rotation chain: those the
-    port still does not run raise; the rest run the JAX package's route
-    (the rotation chain, or the rows pass and the einsum pass) within the
-    px6 bound of the oracle and 1e-5 of the JAX package."""
+    """The filters the port refused before the rotation chain and the
+    sequential core: those the port still does not run raise; the rest
+    run the JAX package's route (the rotation chain, the rows pass and
+    the einsum pass, or the sequential core on an axis with no tile plan)
+    within the px6 bound of the oracle and 1e-5 of the JAX package."""
     dims, scans, kw = UNSUPPORTED[case]
     spec = _spec(dims, scans, **kw)
     if case in STILL_UNSUPPORTED:
@@ -170,8 +171,11 @@ def test_unsupported_filters_raise(case):
     x = np.random.default_rng(len(case)).standard_normal(
         [e for _, e in dims]).astype(np.float32)
     mod = tdf.fused_filter_module(spec)
-    assert type(mod).__name__ == ("StagedPass" if case == "leading-axes"
-                                  else "RotationChain")
+    assert type(mod).__name__ == {"leading-axes": "StagedPass",
+                                  "one-dim": "FusedLastAxis"}.get(
+                                      case, "RotationChain")
+    if case == "one-dim":
+        assert type(mod.body).__name__ == "ScanAxis"
     got = mod(torch.from_numpy(x)).numpy()
     oracle = jsc.oracle_apply(js, x.astype(np.float64))
     peak = np.abs(oracle).max()
@@ -192,16 +196,33 @@ def test_unported_precisions_raise(precision):
 
 
 def test_untiled_and_other_backends_raise():
-    F = rft.RecFilter("U")
-    x = rft.Dim("x", 256)
-    y = rft.Dim("y", 256)
-    F[y, x] = _img(256, 256)
-    F.add_filter(+x, [0.5, 0.5])
-    F.add_filter(+y, [0.5, 0.5])
-    with pytest.raises(NotImplementedError):
-        F.as_func(device="cpu")
-    with pytest.raises(NotImplementedError):
-        F.set_plan(backend="scan")
+    """An untiled filter, which the port refused before the sequential
+    core, now runs it as the JAX package does (``auto`` resolves to
+    ``scan``), and ``set_plan(backend="scan")`` takes the same core: both
+    match the JAX package's ``realize()`` at 1e-5 of the peak and the f64
+    oracle at 2e-6. An unknown backend still raises."""
+    img = _img(64, 48)
+    Fs = []
+    for rf in (rft, jrf):
+        F = rf.RecFilter("U")
+        x, y = rf.Dim("x", 48), rf.Dim("y", 64)
+        F[y, x] = img
+        F.add_filter(+x, [0.5, 0.5])
+        F.add_filter(+y, [0.5, 0.5])
+        Fs.append(F)
+    Ft, Fj = Fs
+    mod = Ft.as_func(device="cpu")
+    assert type(mod).__name__ == "ScanFilter"
+    oracle = jsc.oracle_apply(Fj.spec, img.astype(np.float64))
+    peak = np.abs(oracle).max()
+    want = np.asarray(Fj.realize(jnp.asarray(img)))
+    for got in (mod(torch.from_numpy(img)),
+                Ft.set_plan(backend="scan").realize(device="cpu")):
+        got = got.numpy()
+        assert np.abs(got - oracle).max() <= 2e-6 * peak
+        assert np.abs(got - want).max() <= 1e-5 * peak
+    with pytest.raises(ValueError, match="unknown backend"):
+        Ft.set_plan(backend="cuda-graphs")
 
 
 def test_cuda_request_raises_without_cuda():
@@ -218,8 +239,10 @@ def test_port_never_imports_jax():
     """With jax made unimportable, the port imports and runs the 256²
     headline filter, a 1-D audio filter, the staged Gaussian cascade
     (x on the last-axis pass, y on the rows pass) and the merged unsharp
-    mask on the CPU within the px6 bound, and a Tuple filter whose linear
-    combine folds (2u − v of (I, 2I): zero)."""
+    mask on the CPU within the px6 bound, a Tuple filter whose linear
+    combine folds (2u − v of (I, 2I): zero), and the headline on every
+    other backend (and ``overlap_k`` at ``highest``) within the px6
+    bound, ``compute_locally`` selecting ``pallas``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -267,6 +290,19 @@ def test_port_never_imports_jax():
         assert fold.tuple_route == "linear-folded"
         assert float(fold((torch.from_numpy(img),
                            torch.from_numpy(2 * img))).abs().max()) < 1e-6
+        for backend in ("pallas", "overlap", "overlap_k", "blocked", "scan",
+                        "oracle"):
+            F.set_plan(backend=backend, matmul_precision="px6")
+            got = F.realize(device="cpu").numpy()
+            want = rft.oracle_apply(F.spec, img.astype(np.float64))
+            assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max(), \
+                backend
+        F.set_plan(backend="overlap_k", matmul_precision="highest")
+        got = F.realize(device="cpu").numpy()
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+        F.intra_schedule(1).compute_locally()
+        assert F.plan.backend == "pallas"
+        assert "compute_locally" in F.print_schedule()
         assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
                        or m == "recfilter_tpu" for m in sys.modules
                        if sys.modules[m] is not None)

@@ -1130,3 +1130,196 @@ def test_unsharp_mask_gradient_on_the_card(dev):
         (g,) = torch.autograd.grad((y ** 2).sum(), x)
         grads.append(g)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the pallas backend's strip kernels and the overlap_k backend's HIGHEST pair
+# ---------------------------------------------------------------------------
+
+def _strip_mats(T, clamp):
+    """Causal order 3 (the σ=5 Gaussian), anticausal order 2, causal
+    order 1: the strip kernels' ScanMats at tile T."""
+    from recfilter_tpu_torch.kernels import fused as tkf
+
+    w3 = rft.gaussian_weights(5.0, 3)
+    scans = [(True, w3[0], tuple(w3[1:])), (False, 1.1, (0.5, 0.2)),
+             (True, 0.9, (0.4,))]
+    return [tkf.prepare_scan_mats(b0, fb, c, T, 3, clamp)
+            for c, b0, fb in scans]
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("pad", [0, 37])
+@pytest.mark.parametrize("line_block", [0, 16, 32, 64])
+def test_dim_pass_rows_matches_twin(clamp, pad, line_block, dev):
+    """dim_pass_rows (causal order 3, anticausal 2, causal 1) against its
+    twin: 1e-5 of the twin's peak, one launch."""
+    from recfilter_tpu_torch.kernels import fused as tkf
+
+    L, n = 200, 4
+    mats = _strip_mats(128, clamp)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (L, n * 128)).astype(np.float32))
+    w_real = n * 128 - pad
+    x[:, w_real:] = 0.0
+    mod = tkf.DimPassRows(mats, 128, n, w_real, line_block).to(dev)
+    xd = x.to(dev)
+    tl.reset_launches()
+    got = mod(xd)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES["dim_pass_rows"] == 1
+    want = mod.plain(xd)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("T", [8, 32, 40, 128])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("line_block", [0, 16, 64])
+def test_dim_pass_cols_matches_twin(T, clamp, line_block, dev):
+    """dim_pass_cols at several tiles, 3 outer slices and 150 lines (a
+    ragged last line block), with a padded tail: 1e-5 of the twin's
+    peak, one launch."""
+    from recfilter_tpu_torch.kernels import fused as tkf
+
+    outer, n, L = 3, 5, 150
+    mats = _strip_mats(T, clamp)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (outer, n * T, L)).astype(np.float32))
+    w_real = n * T - (0 if clamp else 3)
+    x[:, w_real:] = 0.0
+    mod = tkf.DimPassCols(mats, T, n, w_real, line_block).to(dev)
+    xd = x.to(dev)
+    tl.reset_launches()
+    got = mod(xd)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES["dim_pass_cols"] == 1
+    assert _rel(got, mod.plain(xd)) <= 1e-5
+
+
+@pytest.mark.parametrize("Ta", [32, 128])
+@pytest.mark.parametrize("K", [6, 12])
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+def test_highest_pair_matches_twins(Ta, K, kind, dev):
+    """moments2d_k and final2d_k against their twins at Ta ∈ {32, 128} and
+    K ∈ {6, 12} carries per axis: 1e-5 of the twin's peak, one launch
+    each."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    reps = K // 6
+    a = [Scan(0, c, w3[0], tuple(w3[1:])) for _ in range(reps)
+         for c in (True, False)]
+    b = [Scan(1, c, 0.9, (0.6, 0.25, -0.1)) for _ in range(reps)
+         for c in (True, False)]
+    p, na, nb = 2, 3, 4
+    clamp = kind == "clamp"
+    ma = tdf.prepare_dim_pass(a, Ta, na, clamp)
+    mb = tdf.prepare_dim_pass(b, 128, nb, clamp)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    mom = tk2d.Moments2DK(cat(ma.G, 1), cat(mb.G, 1), na, nb).to(dev)
+    fin = tk2d.Final2DK(ma.Btot, cat(ma.Rhat, 2), mb.Btot, cat(mb.Rhat, 2),
+                        na, nb).to(dev)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(
+        (p, na, Ta, nb * 128)).astype(np.float32)).to(dev)
+    NA_ = torch.from_numpy(rng.standard_normal(
+        (p, na, K, nb * 128)).astype(np.float32)).to(dev)
+    NB_ = torch.from_numpy(rng.standard_normal(
+        (p, na, nb, Ta, K)).astype(np.float32)).to(dev)
+    tl.reset_launches()
+    outs = mom(x)
+    y = fin(x, NA_, NB_)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES["moments2d_k"] == 1 and tl.LAUNCHES["final2d_k"] == 1
+    for got, want in zip(outs, mom.plain(x)):
+        assert _rel(got, want) <= 1e-5
+    assert _rel(y, fin.plain(x, NA_, NB_)) <= 1e-5
+
+
+def _headline(h, w, clamp=False, times=1):
+    w3 = rft.gaussian_weights(5.0, 3)
+    x, y = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("G")
+    if clamp:
+        F.set_clamped_image_border()
+    img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+           ).astype(np.float32)
+    F[y, x] = img
+    for d in (+x, -x, +y, -y):
+        for _ in range(times):
+            F.add_filter(d, w3)
+    F.split(x, 128, y, 128)
+    return F, img
+
+
+BACKEND_CASES = {
+    # label: (h, w, clamp, times, plan, launches)
+    "pallas": (512, 512, False, 1, dict(backend="pallas"),
+               dict(dim_pass_rows=1, dim_pass_cols=1)),
+    "pallas-clamp-pad": (200, 300, True, 1, dict(backend="pallas"), {}),
+    "pallas-line-block": (512, 384, False, 1,
+                          dict(backend="pallas", line_block=32),
+                          dict(dim_pass_rows=1, dim_pass_cols=1)),
+    "overlap_k-highest": (512, 512, False, 1,
+                          dict(backend="overlap_k",
+                               matmul_precision="highest"),
+                          dict(moments2d_k=1, final2d_k=1)),
+    "overlap_k-K12": (512, 512, False, 2, dict(backend="overlap_k"),
+                      dict(moments2d_k=1, final2d_k=1)),
+    "overlap_k-px6": (512, 512, False, 1, dict(backend="overlap_k"),
+                      dict(moments2d=1, final2d=1)),
+    "overlap": (256, 384, False, 1, dict(backend="overlap"), {}),
+    "blocked": (256, 256, False, 1, dict(backend="blocked"), {}),
+    "scan": (64, 96, True, 1, dict(backend="scan"), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKEND_CASES))
+def test_backends_on_the_card(case, dev):
+    """Each backend through RecFilter.as_func() on the card: the launches
+    its route makes, and within the px6 bound 2e-6 of the f64 oracle."""
+    h, w, clamp, times, plan, launches = BACKEND_CASES[case]
+    F, img = _headline(h, w, clamp, times)
+    F.set_plan(**plan)
+    mod = F.as_func()
+    tl.reset_launches()
+    with torch.no_grad():
+        got = mod(torch.from_numpy(img).to(dev))
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(**launches)
+    want = rft.oracle_apply(F.spec, img.astype(np.float64))
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2e-6
+
+
+def test_pallas_integer_sat_on_the_card(dev):
+    """An int32 SAT under pallas runs the sequential core: bit-equal to
+    numpy's cumsum, no launch."""
+    x, y = rft.Dim("x", 96), rft.Dim("y", 80)
+    F = rft.RecFilter("SAT")
+    img = np.random.default_rng(4).integers(-1000, 1000, (80, 96)).astype(
+        np.int32)
+    F[y, x] = img
+    F.add_filter(+x, [1, 1])
+    F.add_filter(+y, [1, 1])
+    F.split(x, 32, y, 32)
+    F.set_plan(backend="pallas")
+    tl.reset_launches()
+    got = F.realize().cpu().numpy()
+    assert not any(tl.LAUNCHES.values())
+    np.testing.assert_array_equal(got, img.cumsum(1).cumsum(0))
+
+
+def test_strip_and_pair_wrappers_refuse(dev):
+    """The wrappers raise on what their kernels do not take."""
+    from recfilter_tpu_torch.kernels import fused as tkf
+
+    mats = _strip_mats(64, False)
+    with pytest.raises(ValueError, match="128-wide"):
+        tkf.DimPassRows(mats, 64, 2, 0).to(dev)(torch.zeros(
+            8, 128, device=dev))
+    rows = tkf.DimPassRows(_strip_mats(128, False), 128, 2, 0).to(dev)
+    with pytest.raises(ValueError):
+        rows(torch.zeros(8, 200, device=dev))
+    with pytest.raises(TypeError):
+        rows(torch.zeros(8, 256, device=dev, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tk2d.Moments2DK(np.zeros((1, 33, 32)), np.zeros((1, 6, 128)), 1, 1)

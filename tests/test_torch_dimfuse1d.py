@@ -271,11 +271,12 @@ def test_one_dim_filters_run_through_the_api():
 @pytest.mark.parametrize("case", ["rows-only", "middle-axis", "prime-clamp"])
 def test_filters_the_port_does_not_run_raise(case):
     """The filters the port refused before the einsum pass on a non-last
-    axis: a prime clamp extent (no tile plan: the JAX package's lax.scan
-    core) still raises; the other two run ``FusedAxisPass``, as the JAX
-    package runs its einsum ``fused_dim_pass`` there, within the oracle
-    bound and the JAX package's. So does the functional pass on a
-    non-last axis."""
+    axis and the sequential core: a prime clamp extent (no tile plan) runs
+    the core (``FusedLastAxis`` over ``scan_core.ScanAxis``), as the JAX
+    package runs its lax.scan core there; the other two run
+    ``FusedAxisPass``, as the JAX package runs its einsum
+    ``fused_dim_pass`` there — each within the oracle bound and the JAX
+    package's. So does the functional pass on a non-last axis."""
     s = (0.9, (0.5,))
     dims, scans, tiles, border = {
         # a non-last axis the rows pass declines (extent, then lanes, not
@@ -284,25 +285,25 @@ def test_filters_the_port_does_not_run_raise(case):
                       "zero"),
         "middle-axis": ([("c", 2), ("y", 256), ("x", 100)], [(1, True, *s)],
                         (0, 128, 128), "zero"),
-        # no divisor ≥ the order: the JAX package's lax.scan core
+        # no divisor ≥ the order: the sequential core (the JAX package's
+        # lax.scan)
         "prime-clamp": ([("x", 1009)], [(0, True, 0.9, (0.5, 0.1))], (128,),
                         "clamp"),
     }[case]
     ts, js = (_spec(m, dims, [m.Scan(*a) for a in scans], tile_widths=tiles,
                     border=border) for m in (tspec, jspec))
+    mod = tdf.fused_filter_module(ts)
     if case == "prime-clamp":
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tdf.fused_filter_module(ts)
+        assert isinstance(mod, tdf.FusedLastAxis)
+        assert type(mod.body).__name__ == "ScanAxis"
     else:
-        mod = tdf.fused_filter_module(ts)
         assert isinstance(mod, tdf.FusedAxisPass)
-        x = _signal(tuple(e for _, e in dims), 17)
-        got = mod(torch.from_numpy(x)).numpy()
-        want = jdf.apply_filter_fused(js, jnp.asarray(x),
-                                      matmul_precision="px6")
-        _check(got, want)
-        want = jsc.oracle_apply(js, x.astype(np.float64))
-        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+    x = _signal(tuple(e for _, e in dims), 17)
+    got = mod(torch.from_numpy(x)).numpy()
+    want = jdf.apply_filter_fused(js, jnp.asarray(x), matmul_precision="px6")
+    _check(got, want)
+    want = jsc.oracle_apply(js, x.astype(np.float64))
+    assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
     x = _signal((4, 300), 18)
     got = tdf.fused_dim_pass(torch.from_numpy(x), 0,
                              [tspec.Scan(0, True, *s)], 128).numpy()

@@ -320,8 +320,11 @@ def test_rotated_integer_and_bare_signal_routes():
 
 def test_rotated_pass_refuses_as_the_jax_package():
     """Two scanned dimensions, an out-of-range rot_axes and a wrong extent
-    raise ValueError; a plan the tiles cannot take (the lax.scan core) and
-    a non-unit integer scan raise NotImplementedError naming the item."""
+    raise ValueError, and a non-unit integer scan raises
+    NotImplementedError naming the item. A plan the tiles cannot take (a
+    1-sample signal under an order-2 scan), which the port refused before
+    the sequential core, runs the core as the JAX package's
+    ``apply_filter_rotated`` does: equal to it and to the oracle."""
     two = _spec(tspec, [("y", 256), ("x", 256)],
                 [(0, True, 1.0, (0.5,)), (1, True, 1.0, (0.5,))], (T, T))
     with pytest.raises(ValueError):
@@ -332,8 +335,13 @@ def test_rotated_pass_refuses_as_the_jax_package():
     with pytest.raises(ValueError):
         tdf.RotatedPass(one, 2)(torch.zeros(8, 255))
     tiny = _spec(tspec, [("x", 1)], [(0, True, 1.0, (0.5, 0.1))], (T,))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tdf.RotatedPass(tiny, 1)
+    jtiny = _spec(jspec, [("x", 1)], [(0, True, 1.0, (0.5, 0.1))], (T,))
+    one_sample = np.array([0.75], np.float32)
+    got = tdf.RotatedPass(tiny, 1)(torch.from_numpy(one_sample)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jdf.apply_filter_rotated(
+        jtiny, jnp.asarray(one_sample), 1)), rtol=1e-6)
+    np.testing.assert_allclose(got, rft.oracle_apply(tiny, one_sample),
+                               rtol=1e-6)
     nonunit = tspec.FilterSpec("I", one.dims, (tspec.Scan(1, True, 1.0,
                                                           (2.0,)),),
                                dtype="int32", tile_widths=(0, T))
