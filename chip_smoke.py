@@ -247,6 +247,26 @@ Phases:
      S1 the headline at 1024² on ``blocked`` and ``scan``, S3 an untiled
      1024² headline (``auto``: the sequential core), and S2 an int32 SAT
      2048² on ``pallas`` (the core, bit-equal to numpy's cumsum);
+     phase 2j holds the 2-D executor's optional kernels and the bench's
+     probe to their twins at the headline's shapes (4096²): ``bsolve``
+     (the dim-B carry glue and its solve, on the glue's dim-A carries)
+     and ``moments2d_naf`` (pass 1 with the dim-A solve inside, clusters
+     of 16 blocks) within 1e-5 of the twin's peak, ``copy`` bit-equal;
+     phase 3j runs the headline on its four carry routes, each built by
+     ``as_func()`` under ``RECFILTER_PX2D_BK`` / ``RECFILTER_PXM_NAF``
+     (glue, BK, NAF, BK + NAF: ``carry_route`` and ``moments_route``
+     checked, launches asserted, each within 2e-6 of the f64 oracle, a
+     profile of each: device ops, busy time, idle share), then
+     ``recfilter_tpu_torch.bench.main()`` in-process (its stderr line and
+     JSON line: the headline's Mpix/s against the roofline of the
+     bandwidth its ``copy`` measures); phase 3k times ``bsolve``,
+     ``moments2d_naf`` and ``copy`` there as phase 5 times the other
+     kernels (it runs early: late profiler windows lose their device
+     events), ``bsolve`` beside the glue ops it replaces,
+     ``moments2d_naf`` beside ``moments2d`` then the glue's dim-A solve,
+     ``copy`` beside one ``torch.mul`` (the library form) with the
+     bandwidth it measures, and the headline's four carry routes in turns
+     (glue, BK, NAF, BK + NAF, then back);
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
@@ -375,6 +395,28 @@ def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND", times=1):
             F.add_filter(-dims[ax], wts)
     F.split({dims[ax]: 128 for ax in axes})
     return F
+
+
+# the headline's carry routes: (RECFILTER_PX2D_BK, RECFILTER_PXM_NAF)
+ROUTES = {"glue": (False, False), "BK": (True, False), "NAF": (False, True),
+          "BK+NAF": (True, True)}
+ROUTE_VARS = ("RECFILTER_PX2D_BK", "RECFILTER_PXM_NAF")
+
+
+def route_module(F, bk, naf):
+    """``F.as_func()`` built with each route's variable set to "1" where
+    asked and unset otherwise (the module reads them once, when built)."""
+    saved = {v: os.environ.pop(v, None) for v in ROUTE_VARS}
+    try:
+        for var, on in zip(ROUTE_VARS, (bk, naf)):
+            if on:
+                os.environ[var] = "1"
+        return F.as_func()
+    finally:
+        for var, val in saved.items():
+            os.environ.pop(var, None)
+            if val is not None:
+                os.environ[var] = val
 
 
 def counted(fn, *args):
@@ -1004,6 +1046,22 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
+    def timed(label, fn, plain, lib, args, nbytes, ops, rate, launches):
+        """Event and device times of a kernel beside its twin and library
+        yardstick (None: no one PyTorch call computes it)."""
+        t = paired_times(fn, plain, *args)
+        d = (device_ms(fn, *args), device_ms(plain, *args),
+             None if lib is None else device_ms(lib, *args))
+        lib_ms = None if lib is None else median_ms(lib, *args)
+        bound, by = roofline(nbytes, ops, rate)
+        print(f"  {label}: {launches} launch(es) per call; event "
+              f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} ms by "
+              f"{by} ({100 * bound / d[0]:.1f} % of the device time); twin "
+              f"event {t[1]:.4f}, device {d[1]:.4f} ms; library "
+              + ("none" if lib is None else
+                 f"event {lib_ms:.4f}, device {d[2]:.4f} ms") + f" on {card}")
+        return t, d, (bound, by), lib_ms
+
     print("== phase 1: card, settings, kernel build", flush=True)
     print(f"card (name, power limit): {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1589,6 +1647,54 @@ def main() -> int:
                 v = st.forward_plain(v)
         del X, got, want, v
 
+    print("== phase 2j: bsolve, moments2d_naf and copy against their twins "
+          "at the 4096² headline's shapes", flush=True)
+    from recfilter_tpu_torch import bench
+    from recfilter_tpu_torch.kernels import copy as kcopy
+    from recfilter_tpu_torch.kernels import final2d as k2d
+
+    F_h, mod_h, img_h = modules["4096x4096 zero"]
+    routes = {label: route_module(F_h, bk, naf)
+              for label, (bk, naf) in ROUTES.items()}
+    for label, m in routes.items():
+        bk, naf = ROUTES[label]
+        check((m.carry_route, m.moments_route) == (
+            "bsolve" if bk else "glue", "naf" if naf else "raw"),
+            f"{label}: carry_route {m.carry_route}, moments_route "
+            f"{m.moments_route}")
+    with torch.no_grad():
+        x_h = torch.from_numpy(img_h).to(dev)
+        X4 = mod_h.tile(x_h)
+        # bsolve on the glue's solved dim-A carries and term1
+        NA64 = mod_h._carries(X4, mod_h.moments.plain)[0]
+        term1 = mod_h.moments.plain(X4)[1]
+        bsm = routes["BK"].bsolve
+        got, want = bsm(NA64.float(), term1), bsm.plain(NA64.float(), term1)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"  bsolve {tuple(got.shape)}: max|k-p|/max|p| = {err:.3e}")
+        check(err <= 1e-5, "bsolve within 1e-5 of its twin's peak")
+        check(not got.reshape(1, 32, 32, 8, 128)[:, :, :, mod_h.Kb:].any(),
+              "bsolve: pad slots zero")
+        max_abs["bsolve"] = (got - want).abs().max().item()
+        nm = routes["NAF"].moments
+        max_abs["moments2d_naf"] = 0.0
+        for got, want, what in zip(nm(X4), nm.plain(X4), ("N_A", "term1")):
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  moments2d_naf {what} {tuple(got.shape)}: "
+                  f"max|k-p|/max|p| = {err:.3e}")
+            check(err <= 1e-5, f"moments2d_naf {what} within 1e-5 of its "
+                  "twin's peak")
+            max_abs["moments2d_naf"] = max(max_abs["moments2d_naf"],
+                                           (got - want).abs().max().item())
+        got, want = kcopy.copy(x_h), kcopy.plain(x_h)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "copy (4096² float32) bit-equal to "
+              "its twin")
+        max_abs["copy"] = (got - want).abs().max().item()
+        del X4, NA64, term1, got, want
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
 
@@ -1997,12 +2103,12 @@ def main() -> int:
     # K4: the f64 oracle of the full size runs for about half a minute on
     # the host, so the error is checked at depth 8; the full size runs
     # (launches, route) and is timed
-    for shape, timed in (((16, 128, 256, 256), True),
-                         ((8, 128, 256, 256), False)):
+    for shape, full in (((16, 128, 256, 256), True),
+                        ((8, 128, 256, 256), False)):
         k_case(f"K4 4-D time series of volumes {shape[0]}-deep",
                gauss_axes(rft, shape, (0, 1, 2, 3)), shape,
                dict(tails=1, completion_rot_tails=2, completion_rot=1),
-               [False, True, True, False], oracle=not timed)
+               [False, True, True, False], oracle=not full)
     del k_cases["K4 4-D time series of volumes 8-deep"]
     F5 = build_filter(rft, H, W, image(H, W))
     F5.set_plan(matmul_precision="highest")
@@ -2266,6 +2372,123 @@ def main() -> int:
         y.cpu().numpy(), sat_img.cumsum(1).cumsum(0)),
         "S2: bit-equal to numpy's cumsum")
     del y
+
+    print("== phase 3j: the headline on its four carry routes "
+          "(RECFILTER_PX2D_BK, RECFILTER_PXM_NAF), and bench.main()",
+          flush=True)
+    want_h = scan_core.oracle_apply(F_h.spec, img_h.astype(np.float64))
+    route_ops = {}
+    for label, m in routes.items():
+        bk, naf = ROUTES[label]
+        with torch.no_grad():
+            y, launches = counted(m, x_h)
+        print(f"  {label}: launches {launches}")
+        check(launches == only(
+            final2d=1, bsolve=int(bk),
+            **{"moments2d_naf" if naf else "moments2d": 1}),
+            f"{label}: the route's kernels, each launched once")
+        if bk:
+            main_launches["bsolve"] = launches["bsolve"]
+        if naf:
+            main_launches["moments2d_naf"] = launches["moments2d_naf"]
+        check(tuple(y.shape) == img_h.shape and bool(torch.isfinite(y).all()),
+              f"{label}: output finite, shape {img_h.shape}")
+        got = y.cpu().numpy().astype(np.float64)
+        err = float(np.abs(got - want_h).max() / np.abs(want_h).max())
+        print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the f64 "
+              "oracle")
+        with torch.no_grad():
+            prof = timing.device_profile(m, x_h, iterations=10)
+        route_ops[label] = prof
+        print(f"  {label}: {prof['device_ops']:.0f} device ops a call, "
+              f"device busy {busy_text(prof)}, call {prof['call_ms']:.4f} "
+              f"ms on {card}; top: " + ", ".join(
+                  f"{nm[:40]} {ms:.4f} ms" for nm, ms in prof["top"]))
+    del y, got, want_h
+    launch.reset_launches()
+    bench_out = bench.main()
+    torch.cuda.synchronize()
+    main_launches["copy"] = launch.LAUNCHES["copy"]
+    check(main_launches["copy"] > 0 and bench_out["measured_bw_gb_s"] > 0,
+          f"bench.main(): {main_launches['copy']} copy launches, measured "
+          f"bandwidth {bench_out['measured_bw_gb_s']} GB/s, "
+          f"{bench_out['value']} Mpix/s on {bench_out['device']}")
+
+    carry_times = {}  # kernel: what ``timed`` returns
+    print("== phase 3k: bsolve, moments2d_naf and copy at the headline's "
+          "shapes, and its four carry routes (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)", flush=True)
+    with torch.no_grad():
+        X4 = mod_h.tile(x_h)
+        NA64 = mod_h._carries(X4, mod_h.moments.plain)[0]
+        NA32, term1 = NA64.float(), mod_h.moments.plain(X4)[1]
+        bsm, nm = routes["BK"].bsolve, routes["NAF"].moments
+        p_, na_, nb_, Ka, Kb = 1, mod_h.na, mod_h.nb, mod_h.Ka, mod_h.Kb
+        M = nb_ * Kb
+        NB = bsm(NA32, term1)
+        r = timed("bsolve (4096², M = nb·Kb = %d)" % M, bsm, bsm.plain, None,
+                  (NA32, term1),
+                  tensor_bytes(NA32, term1, NB, bsm.Gb_v, bsm.RaT_v, bsm.CMT),
+                  2.0 * p_ * na_ * (M * M + 2 * M * Ka) * 128, PEAK_FP64,
+                  main_launches["bsolve"])
+        carry_times["bsolve"] = r  # into times, dev_t, extra after 5a
+
+        def glue_b(na64, t1):
+            """The glue ops bsolve replaces: GN, the coupling, the add,
+            the f64 solve and the cast (``Fused2DPx._carries``)."""
+            bB = k2d.carry_b_tails(mod_h.Gb8n, mod_h.Ran, na64, t1, Ka)
+            return mod_h._solve("b", bB, Kb).reshape(NB.shape).float()
+
+        check(rel_err(glue_b(NA64, term1), NB) <= 1e-5,
+              "the glue computes bsolve's function")
+        print(f"  the glue ops bsolve replaces: event "
+              f"{median_ms(glue_b, NA64, term1):.4f} ms, device "
+              f"{device_ms(glue_b, NA64, term1):.4f} ms on {card}")
+        N_A = nm(X4)[0]
+        r = timed("moments2d_naf (4096², clusters of 16)", nm, nm.plain, None,
+                  (X4,), tensor_bytes(X4, N_A, term1, nm.Ga_v, nm.Gb_v,
+                                      nm.Ba1T_v, nm.CMaT),
+                  2.0 * (Ka + 2 * Kb) * X4.numel()
+                  + 2.0 * p_ * (na_ * Ka) ** 2 * X4.shape[-1], PEAK_FP64,
+                  main_launches["moments2d_naf"])
+        carry_times["moments2d_naf"] = r  # into times, dev_t, extra after 5a
+
+        def raw_then_solve(v):
+            """What moments2d_naf replaces: moments2d, then the glue's
+            dim-A solve and its casts."""
+            bA = mod_h.moments(v)[0]
+            return mod_h._solve("a", bA.double(), Ka).float()
+
+        check(rel_err(raw_then_solve(X4), N_A) <= 1e-5,
+              "moments2d then the solve computes moments2d_naf's N_A")
+        print(f"  moments2d then the glue's dim-A solve: event "
+              f"{median_ms(raw_then_solve, X4):.4f} ms, device "
+              f"{device_ms(raw_then_solve, X4):.4f} ms on {card}")
+        del X4, NA64, NA32, term1, NB, N_A
+        r = timed("copy (4096² float32)", kcopy.copy, kcopy.plain,
+                  lambda v: torch.mul(v, kcopy.SCALE), (x_h,),
+                  2 * tensor_bytes(x_h), float(x_h.numel()), PEAK_FP32,
+                  main_launches["copy"])
+        carry_times["copy"] = r  # into times, dev_t, extra after 5a
+        print(f"  copy bandwidth: {2 * tensor_bytes(x_h) / r[1][0] / 1e6:.1f}"
+              f" GB/s from the device time, "
+              f"{2 * tensor_bytes(x_h) / r[0][0] / 1e6:.1f} GB/s from the "
+              f"event time on {card}")
+        # the four routes in turns: glue, BK, NAF, BK+NAF, then back
+        order = list(routes) + list(routes)[::-1]
+        ev = {label: [] for label in routes}
+        for label in order:
+            ev[label] += timing.call_times_ms(routes[label], x_h,
+                                              iterations=N_TIMED, warmup=3)
+        for label in routes:
+            prof = route_ops[label]
+            print(f"  {label} route: event {statistics.median(ev[label]):.4f}"
+                  f" ms ({timing.mpix_per_sec(statistics.median(ev[label]), H * W):.0f}"
+                  f" Mpix/s), device {device_ms(routes[label], x_h):.4f} ms; "
+                  f"profile: {prof['device_ops']:.0f} ops, busy "
+                  f"{busy_text(prof)} on {card}")
+    del routes, x_h
 
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
@@ -2665,22 +2888,6 @@ def main() -> int:
           f"shapes, and the whole calls C1-C5 (CUDA events, median of "
           f"{4 * N_TIMED // 2} calls each)", flush=True)
 
-    def timed(label, fn, plain, lib, args, nbytes, ops, rate, launches):
-        """Event and device times of a kernel beside its twin and library
-        yardstick (None: no one PyTorch call computes it)."""
-        t = paired_times(fn, plain, *args)
-        d = (device_ms(fn, *args), device_ms(plain, *args),
-             None if lib is None else device_ms(lib, *args))
-        lib_ms = None if lib is None else median_ms(lib, *args)
-        bound, by = roofline(nbytes, ops, rate)
-        print(f"  {label}: {launches} launch(es) per call; event "
-              f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} ms by "
-              f"{by} ({100 * bound / d[0]:.1f} % of the device time); twin "
-              f"event {t[1]:.4f}, device {d[1]:.4f} ms; library "
-              + ("none" if lib is None else
-                 f"event {lib_ms:.4f}, device {d[2]:.4f} ms") + f" on {card}")
-        return t, d, (bound, by), lib_ms
-
     with torch.no_grad():
         # C1's SAT stage: moments2d with its edge rows, final2d_stencil
         X4 = c1sat.tile(x_c1)
@@ -3058,6 +3265,8 @@ def main() -> int:
     solve_branches(tlrn, "L1/L2", l1, x_l1, step, card)
     solve_branches(tlrn, "L3", l3, x_l3, step3, card)
 
+    for name, r in carry_times.items():
+        times[name], dev_t[name], extra[name] = r[0], r[1], (*r[2], r[3])
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"recfilter_tpu_torch/kernels/csrc/{src or name}.cu",
@@ -3097,7 +3306,11 @@ def main() -> int:
              "recfilter_tpu/kernels/final2d.py:1323"),
             ("final2d_k", "final2d", "recfilter_tpu/kernels/final2d.py:72"),
             ("dim_pass_rows", "fused", "recfilter_tpu/kernels/fused.py:230"),
-            ("dim_pass_cols", "fused", "recfilter_tpu/kernels/fused.py:261"))
+            ("dim_pass_cols", "fused", "recfilter_tpu/kernels/fused.py:261"),
+            ("bsolve", None, "recfilter_tpu/kernels/final2d.py:1412"),
+            ("moments2d_naf", "moments2d",
+             "recfilter_tpu/kernels/final2d.py:495"),
+            ("copy", None, "bench.py:161"))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -92,10 +92,14 @@ class Moments2D(nn.Module):
     Btot_a[Ta-h8:]·x``, (p, na, h8, W) each (the JAX package's
     ``moments2d_px(edge_mats=)``): ``moments(x)`` then returns
     ``(bA_t, term1, ht, hb)``.
+    solve : optional slot-padded (na·8)² dim-A solve matrix CM_A — emit
+    the solved carries ``N_A = CM_A·bA`` (p, na, 8, W) in place of bA_t
+    (the ``moments2d_naf`` entry; the JAX package's
+    ``moments2d_px(solve_mats=)``). Exclusive with ``edge``.
     """
 
     def __init__(self, G_a_cat, G_b_cat, term1_mats, na: int, nb: int,
-                 edge=None):
+                 edge=None, solve=None):
         super().__init__()
         Ga, Gb = np.asarray(G_a_cat), np.asarray(G_b_cat)
         self.na, self.nb = int(na), int(nb)
@@ -128,6 +132,24 @@ class Moments2D(nn.Module):
             self.register_buffer("En", torch.from_numpy(_per_tile(E, na)))
         else:
             self.register_buffer("E_v", torch.zeros(1, 0, TILE))
+        # the dim-A solve, float64, transposed to [s][r] for the kernel
+        self.solve = solve is not None
+        if self.solve:
+            if self.h8:
+                raise ValueError("solve is exclusive with edge rows")
+            CM = np.asarray(solve, np.float64)
+            if CM.shape != (na * _SLOTS, na * _SLOTS):
+                raise ValueError(f"solve matrix shape {CM.shape} != "
+                                 f"({na * _SLOTS}, {na * _SLOTS})")
+            self.register_buffer("CMaT", _f64(CM.T))
+
+    def solve_plain(self, bA):
+        """The dim-A solve of the tails bA (p, na, 8, W) in float64: the
+        twin of ``moments2d_naf``'s in-kernel solve."""
+        p, W = bA.shape[0], bA.shape[-1]
+        N = torch.matmul(self.CMaT.t(), bA.double().reshape(
+            p, self.na * _SLOTS, W))
+        return N.reshape(p, self.na, _SLOTS, W)
 
     def plain(self, x):
         p, na, Ta, W = x.shape
@@ -136,7 +158,9 @@ class Moments2D(nn.Module):
         U = torch.einsum("bkt,pasbt->pabks", self.Gbn,
                          xd.reshape(p, na, Ta, self.nb, W // self.nb))
         term1 = torch.einsum("aos,pabks->pabko", self.Ba1n, U)
-        out = (bA.float(),
+        # the kernel solves its fp32 tails, as the glue solves bA_t
+        bA = bA.float()
+        out = (self.solve_plain(bA).float() if self.solve else bA,
                term1.reshape(p, na, self.nb * _SLOTS, Ta).float())
         if self.h8:
             e = torch.einsum("aks,pasw->pakw", self.En, xd).float()
@@ -152,6 +176,15 @@ class Moments2D(nn.Module):
         _grid_ok(p, na, nb * TILE)
         bA = torch.empty((p, na, _SLOTS, nb * TILE), device=x.device)
         term1 = torch.empty((p, na, nb * _SLOTS, TILE), device=x.device)
+        if self.solve:
+            _check(self.CMaT, "CMaT", self.CMaT.shape, x.device,
+                   torch.float64)
+            _launch("moments2d_naf", (
+                x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
+                self.Ba1T_v.data_ptr(), self.CMaT.data_ptr(), bA.data_ptr(),
+                term1.data_ptr(), p, na, nb, self.Ka, self.Kb,
+                self.Ga_v.shape[0], self.Gb_v.shape[0]), x.device)
+            return bA, term1
         ht, hb = (torch.empty((p, na, h8, nb * TILE), device=x.device)
                   for _ in range(2))
         _launch("moments2d", (
@@ -545,3 +578,90 @@ def final2d(x, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, NA_t, NB_t):
     na, nb = x.shape[1], x.shape[3] // TILE
     mod = Final2D(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na, nb)
     return mod.to(x.device)(x, NA_t, NB_t)
+
+
+def carry_b_tails(Gb8n, Ran, NA_t, term1, Ka: int):
+    """The dim-B raw tails of the dim-A completed image from carry-sized
+    data only, in float64: ``bB = term1 + Ran·(Gb·N_A)`` (p, na, nb, 8, Tb)
+    from the solved dim-A carries NA_t (p, na, 8, W), term1 (p, na, nb·8,
+    Ta) and the per-tile stacks Gb8n (nb, 8, Tb), Ran (na, Ta, Ka)."""
+    p, na, nb = NA_t.shape[0], Ran.shape[0], Gb8n.shape[0]
+    NAr = NA_t.double().reshape(p, na, _SLOTS, nb, TILE)[:, :, :Ka]
+    GN = torch.einsum("bkt,pajbt->pabkj", Gb8n, NAr)
+    term2 = torch.einsum("aoj,pabkj->pabko", Ran, GN)
+    return term1.double().reshape(p, na, nb, _SLOTS, TILE) + term2
+
+
+class BSolve(nn.Module):
+    """The dim-B carry glue and its solve in one launch (``bsolve``):
+    ``NB_t = bsolve(NA_t, term1)`` from the solved dim-A carries NA_t
+    (p, na, 8, W) and :class:`Moments2D`'s term1 (p, na, nb·8, Ta), both
+    float32 — the JAX package's ``bsolve_pass``. Per (p, a):
+
+        GN[b, k, j] = Σ_t Gb(b)[k, t] · NA_t[j, b·Tb + t]
+        bB          = term1 + GN · Ra(a)ᵀ
+        NB_t        = CM_B · bB
+
+    in float64, as :class:`.overlap2d.Fused2DPx`'s glue computes them;
+    NB_t float32 in the final kernel's layout, zeros in the pad slots.
+
+    Gb_cat : (nb|1, Kb, Tb)   Ra_cat : (na|1, Ta, Ka)
+    CMb_p : the slot-padded (nb·8)² dim-B solve matrix (its pad columns
+    meet term1's rows ≥ Kb of each slot group, which the kernel skips).
+    """
+
+    def __init__(self, Gb_cat, Ra_cat, CMb_p, na: int, nb: int):
+        super().__init__()
+        Gb, Ra = np.asarray(Gb_cat, np.float64), np.asarray(Ra_cat, np.float64)
+        CM = np.asarray(CMb_p, np.float64)
+        self.na, self.nb = int(na), int(nb)
+        self.Kb, self.Ka = Gb.shape[1], Ra.shape[2]
+        if Gb.shape[2] != TILE or Ra.shape[1] != TILE:
+            raise ValueError(f"tiles must be {TILE} wide")
+        if not (1 <= self.Ka <= _SLOTS and 1 <= self.Kb <= _SLOTS):
+            raise ValueError(f"carries Ka={self.Ka}, Kb={self.Kb} outside "
+                             f"[1, {_SLOTS}]")
+        if CM.shape != (nb * _SLOTS, nb * _SLOTS):
+            raise ValueError(f"solve matrix shape {CM.shape} != "
+                             f"({nb * _SLOTS}, {nb * _SLOTS})")
+        # kernel operands (float64): variants, Ra transposed to [j][o], the
+        # solve matrix's real rows and columns transposed to [q][r]
+        real = (np.arange(nb)[:, None] * _SLOTS + np.arange(self.Kb)).ravel()
+        self.register_buffer("Gb_v", _f64(_variants3(Gb)))
+        self.register_buffer("RaT_v", _f64(_variants3(Ra).transpose(0, 2, 1)))
+        self.register_buffer("CMT", _f64(CM[np.ix_(real, real)].T))
+        # twin operands: the glue's per-tile stacks and padded matrix
+        Gb8 = _pad_slots(Gb, 1)
+        self.register_buffer("Gb8n", torch.from_numpy(_per_tile(Gb8, nb)))
+        self.register_buffer("Ran", torch.from_numpy(_per_tile(Ra, na)))
+        self.register_buffer("CMb_p", _f64(CM))
+
+    def plain64(self, NA_t, term1):
+        """The twin in float64 (float64 out): the glue's dim-B carries."""
+        bB = carry_b_tails(self.Gb8n, self.Ran, NA_t, term1, self.Ka)
+        NB = torch.matmul(self.CMb_p, bB.reshape(-1, self.nb * _SLOTS, TILE))
+        return NB.reshape(NA_t.shape[0], self.na, self.nb * _SLOTS, TILE)
+
+    def plain(self, NA_t, term1):
+        return self.plain64(NA_t, term1).float()
+
+    def _kernel(self, NA_t, term1):
+        p, na, nb = NA_t.shape[0], self.na, self.nb
+        _check(NA_t, "NA_t", (p, na, _SLOTS, nb * TILE), NA_t.device)
+        _check(term1, "term1", (p, na, nb * _SLOTS, TILE), NA_t.device)
+        for name in ("Gb_v", "RaT_v", "CMT"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, NA_t.device, torch.float64)
+        _grid_ok(p, na, nb * TILE)
+        NB = torch.empty((p, na, nb * _SLOTS, TILE), device=NA_t.device)
+        _launch("bsolve", (
+            NA_t.data_ptr(), term1.data_ptr(), self.Gb_v.data_ptr(),
+            self.RaT_v.data_ptr(), self.CMT.data_ptr(), NB.data_ptr(), p, na,
+            nb, self.Ka, self.Kb, self.RaT_v.shape[0], self.Gb_v.shape[0]),
+            NA_t.device)
+        return NB
+
+    def forward(self, NA_t, term1):
+        if NA_t.is_cuda:
+            return _KernelFn.apply(self, NA_t, term1)
+        return self.plain(NA_t, term1)

@@ -22,7 +22,10 @@ autograd rule for all of them.
     HIGHEST grade's 3-touch pair of the ``overlap_k`` backend (any leading
     tile, unpadded carries) is ``moments2d_k`` and ``final2d_k``; the
     ``pallas`` backend's strip passes are ``fused.cu``'s ``dim_pass_rows``
-    and ``dim_pass_cols``.
+    and ``dim_pass_cols``. The 2-D executor's optional routes have entries
+    of their own: ``moments2d_naf`` (``moments2d.cu``: pass 1 with the
+    dim-A carry solve inside) and ``bsolve`` (the dim-B carry glue and its
+    solve); the headline benchmark's bandwidth probe is ``copy``.
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -66,7 +69,7 @@ def _sig(name: str, *entries) -> dict:
 
 SIGNATURES = {
     "moments2d": _sig("moments2d", ("moments2d", 9, 8),
-                      ("moments2d_k", 5, 8)),
+                      ("moments2d_k", 5, 8), ("moments2d_naf", 7, 7)),
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
                     ("final2d_k", 6, 8)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
@@ -86,6 +89,8 @@ SIGNATURES = {
                          ("int_seg_fix", 3, 9)),
     "stencil2d": _sig("stencil2d", ("stencil2d", 4, 8)),
     "fused": _sig("fused", ("dim_pass_rows", 3, 8), ("dim_pass_cols", 3, 10)),
+    "bsolve": _sig("bsolve", ("bsolve", 6, 7)),
+    "copy": _sig("copy", ("copy", 2, 1)),
 }
 
 ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()

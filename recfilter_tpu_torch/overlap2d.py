@@ -32,6 +32,14 @@ never reaches device memory: the moments kernel also emits each tile's
 edge completion partials, and the glue completes them into the row-halo
 strips above and below every tile (float64, :meth:`Fused2DPx.halo_strips`).
 
+Two routes of :class:`Fused2DPx` fold parts of the glue into kernels, as
+the JAX package's A/B switches do (both off by default there and here):
+``RECFILTER_PXM_NAF=1`` — pass 1 emits the solved dim-A carries
+(``moments2d_naf``, ``moments_route == "naf"``), and
+``RECFILTER_PX2D_BK=1`` — the dim-B glue and its solve run as one kernel
+(``bsolve``, ``carry_route == "bsolve"``); together, the carries take no
+torch op between the three launches.
+
 :class:`FusedRowsPx` is the dim-A half on its own — the rows pass, for a
 scan along any axis but the last, everything after that axis flattened
 into lanes: tails kernel → float64 carry solve (banded from 64 tiles on)
@@ -42,7 +50,8 @@ trailing pair (``dimfuse.fused_filter_module``).
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,6 +111,20 @@ def stencil_h8(stencil2d) -> int:
     return -(-max(up, down, 1) // 8) * 8
 
 
+BK_MAX_BYTES = 6 * 1024 * 1024  # the JAX package's bound on bsolve's term1
+
+
+def _route(name: str, asked: Optional[bool], env: str, why: Optional[str]):
+    """Whether an optional route runs: ``asked`` None reads the variable
+    ``env`` ("1" turns it on) and takes the route where its gate holds
+    (``why`` None); True raises naming the gate that fails."""
+    if asked is None:
+        return why is None and os.environ.get(env, "0") == "1"
+    if asked and why is not None:
+        raise NotImplementedError(f"{name}: {why}")
+    return bool(asked)
+
+
 class Fused2DPx(nn.Module):
     """Executor for scans ``scans_a`` on axis -2 and ``scans_b`` on axis
     -1 of float32 arrays ``(..., wa, wb)``; leading axes are a batch.
@@ -124,11 +147,20 @@ class Fused2DPx(nn.Module):
     clamp with extents that are not tile multiples, more than 256 tiles,
     more than 8 carries per dimension, a stencil bank past
     :func:`stencil2d_decline`'s gates): the router runs the rotation
-    chain there (``dimfuse.RotationChain``)."""
+    chain there (``dimfuse.RotationChain``).
+
+    ``naf`` / ``bsolve``: the optional routes of the module docstring.
+    None (the default) reads ``RECFILTER_PXM_NAF`` / ``RECFILTER_PX2D_BK``
+    once, here, and takes the route where the JAX package's gate holds
+    (``naf_ok`` and ``use_bk`` of its ``fused_2d_px``); True asks for it
+    and raises ``NotImplementedError`` naming the gate that fails; False
+    keeps the glue. ``moments_route`` ("raw" or "naf") and
+    ``carry_route`` ("glue" or "bsolve") say which runs."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
-                 stencil2d=None):
+                 stencil2d=None, bsolve: Optional[bool] = None,
+                 naf: Optional[bool] = None):
         super().__init__()
         T = TILE
         if stencil2d is not None and epilogue is not None:
@@ -157,16 +189,6 @@ class Fused2DPx(nn.Module):
         Gb_cat = np.concatenate([np.asarray(g) for g in mb.G], axis=1)
         Ra_cat = np.concatenate([np.asarray(r) for r in ma.Rhat], axis=2)
         Rb_cat = np.concatenate([np.asarray(r) for r in mb.Rhat], axis=2)
-        self.moments = k2d.Moments2D(
-            Ga_cat, Gb_cat, ma.Btot, na, nb,
-            edge=(ma.Btot, self.h8) if self.h8 else None)
-        if self.h8:
-            self.final = k2d.Final2DStencil(ma.Btot, Ra_cat, mb.Btot,
-                                            Rb_cat, na, nb, stencil2d,
-                                            self.h8)
-        else:
-            self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
-                                     nb, affine=self.affine)
 
         def buf(name, a):  # glue constants stay float64 (module docstring)
             self.register_buffer(
@@ -174,15 +196,47 @@ class Fused2DPx(nn.Module):
 
         # each dimension's carry solve: banded from 64 tiles on (a decaying
         # filter), else the dense padded matmul — fused_2d_px's rule
-        self.offsets = {}
+        self.offsets, CMp = {}, {}
         for d, m, n, K in (("a", ma, na, Ka), ("b", mb, nb, Kb)):
             CM = dimfuse.combined_solve_matrix(m, n)
             bands = dimfuse.banded_solve_blocks(CM, n, K)
             self.offsets[d] = None if bands is None else [o for o, _ in bands]
             if bands is None:
-                buf(f"CM{d}_p", pad_solve_matrix(CM, n, K))
+                CMp[d] = pad_solve_matrix(CM, n, K)
+                buf(f"CM{d}_p", CMp[d])
             else:
                 buf(f"bands_{d}", np.stack([b for _, b in bands]))
+
+        # the optional routes, on the JAX package's gates (the port always
+        # folds term1 and has no sequence hook); why_* the failing gate
+        why_naf = why_bk = "a fused stencil2d bank" if self.h8 else None
+        if why_naf is None and self.offsets["a"] is not None:
+            why_naf = "the dim-A solve is banded"
+        if why_bk is None and self.offsets["b"] is not None:
+            why_bk = "the dim-B solve is banded"
+        # nb·8·W·4 ≤ 6 MiB is the JAX package's VMEM bound, kept so both
+        # packages take the same route
+        bk_bytes = nb * _SLOTS * nb * T * 4
+        if why_bk is None and bk_bytes > BK_MAX_BYTES:
+            why_bk = f"term1 of {bk_bytes} bytes exceeds {BK_MAX_BYTES}"
+        self.moments_route = ("naf" if _route("naf", naf, "RECFILTER_PXM_NAF",
+                                              why_naf) else "raw")
+        self.carry_route = ("bsolve" if _route(
+            "bsolve", bsolve, "RECFILTER_PX2D_BK", why_bk) else "glue")
+
+        self.moments = k2d.Moments2D(
+            Ga_cat, Gb_cat, ma.Btot, na, nb,
+            edge=(ma.Btot, self.h8) if self.h8 else None,
+            solve=CMp["a"] if self.moments_route == "naf" else None)
+        self.bsolve = (k2d.BSolve(Gb_cat, Ra_cat, CMp["b"], na, nb)
+                       if self.carry_route == "bsolve" else None)
+        if self.h8:
+            self.final = k2d.Final2DStencil(ma.Btot, Ra_cat, mb.Btot,
+                                            Rb_cat, na, nb, stencil2d,
+                                            self.h8)
+        else:
+            self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
+                                     nb, affine=self.affine)
         Gb8 = np.zeros((Gb_cat.shape[0], _SLOTS, T))
         Gb8[:, :Kb] = Gb_cat
         buf("Ran", _per_tile(Ra_cat, na))                     # (na, Ta, Ka)
@@ -192,10 +246,11 @@ class Fused2DPx(nn.Module):
             buf("Rbn", _per_tile(Rb_cat, nb))                 # (nb, Tb, Kb)
 
     def forward(self, x: torch.Tensor, *eaux):
-        return self._run(x, self.moments, self.final, eaux)
+        return self._run(x, self.moments, self.final, self.bsolve, eaux)
 
     def forward_plain(self, x: torch.Tensor, *eaux):
-        return self._run(x, self.moments.plain, self.final.plain, eaux)
+        return self._run(x, self.moments.plain, self.final.plain,
+                         self.bsolve and self.bsolve.plain, eaux)
 
     def tile(self, x: torch.Tensor) -> torch.Tensor:
         """(..., wa, wb) float32 → the kernels' zero-padded (p, na, Ta, W)."""
@@ -208,31 +263,35 @@ class Fused2DPx(nn.Module):
             x = F.pad(x, (0, self.pad_b, 0, self.pad_a))
         return x.reshape(-1, self.na, TILE, self.nb * TILE).contiguous()
 
-    def carries(self, X4: torch.Tensor, moments=None):
+    def carries(self, X4: torch.Tensor, moments=None, bsolve=None):
         """Pass 1 and the carry solves: the solved carries ``(NA_t, NB_t)``
         of the tiled image X4, in the final kernel's float32 layouts."""
-        NA_t, NB_t = self._carries(X4, moments)[:2]
+        NA_t, NB_t = self._carries(X4, moments, bsolve)[:2]
         return NA_t.float(), NB_t.float()
 
-    def _carries(self, X4, moments=None):
-        """:meth:`carries` in float64, followed by the moments kernel's
-        edge partials where a stencil bank is fused."""
+    def _carries(self, X4, moments=None, bsolve=None):
+        """:meth:`carries` in float64 on the glue (float32 where a kernel
+        emits them), followed by the moments kernel's edge partials where a
+        stencil bank is fused."""
         if moments is None:
             moments = self.moments
+        if bsolve is None:
+            bsolve = self.bsolve
         T, na, nb, Ka = TILE, self.na, self.nb, self.Ka
         p, W = X4.shape[0], nb * T
-        # pass 1: dim-A raw tails + dim-B term1 = Btot_a·(x·G_Bᵀ)
+        # pass 1: dim-A raw tails (or, "naf", the solved carries) + dim-B
+        # term1 = Btot_a·(x·G_Bᵀ)
         bA_t, term1, *edges = moments(X4)
-        bA_t, term1 = bA_t.double(), term1.double()
         # dim-A chain solve (slot-padded layout)
-        NA_t = self._solve("a", bA_t, Ka)
-        # dim-B raw tails from carry-sized data only
-        NAr = NA_t.reshape(p, na, _SLOTS, nb, T)[:, :, :Ka]
-        GN = torch.einsum("bkt,pajbt->pabkj", self.Gb8n, NAr)
-        term2 = torch.einsum("aoj,pabkj->pabko", self.Ran, GN)
-        bB = term1.reshape(p, na, nb, _SLOTS, T) + term2
-        # dim-B chain solve
-        NB_t = self._solve("b", bB, self.Kb)
+        NA_t = (bA_t if self.moments_route == "naf"
+                else self._solve("a", bA_t.double(), Ka))
+        if self.carry_route == "bsolve":
+            # the dim-B glue and its solve in one launch
+            NB_t = bsolve(NA_t.float(), term1)
+        else:
+            # dim-B raw tails from carry-sized data only, then their solve
+            bB = k2d.carry_b_tails(self.Gb8n, self.Ran, NA_t, term1, Ka)
+            NB_t = self._solve("b", bB, self.Kb)
         return (NA_t.reshape(p, na, _SLOTS, W),
                 NB_t.reshape(p, na, nb * _SLOTS, T), *edges)
 
@@ -279,10 +338,10 @@ class Fused2DPx(nn.Module):
         y = y.reshape(p, na, 2 * h8, W).float()
         return y[:, :, :h8].contiguous(), y[:, :, h8:].contiguous()
 
-    def _run(self, x, moments, final, eaux=()):
+    def _run(self, x, moments, final, bsolve, eaux=()):
         lead = x.shape[:-2]
         X4 = self.tile(x)
-        NA_t, NB_t, *edges = self._carries(X4, moments)
+        NA_t, NB_t, *edges = self._carries(X4, moments, bsolve)
         NA32, NB32 = NA_t.float(), NB_t.float()
         if self.h8:
             # passes 2+3 with the bank: C channels, the output unwritten

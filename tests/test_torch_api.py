@@ -242,7 +242,9 @@ def test_port_never_imports_jax():
     mask on the CPU within the px6 bound, a Tuple filter whose linear
     combine folds (2u − v of (I, 2I): zero), and the headline on every
     other backend (and ``overlap_k`` at ``highest``) within the px6
-    bound, ``compute_locally`` selecting ``pallas``."""
+    bound, ``compute_locally`` selecting ``pallas``; and imports the
+    headline benchmark (``recfilter_tpu_torch.bench``) and its copy
+    kernel's module."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -303,6 +305,8 @@ def test_port_never_imports_jax():
         F.intra_schedule(1).compute_locally()
         assert F.plan.backend == "pallas"
         assert "compute_locally" in F.print_schedule()
+        import recfilter_tpu_torch.bench
+        import recfilter_tpu_torch.kernels.copy
         assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
                        or m == "recfilter_tpu" for m in sys.modules
                        if sys.modules[m] is not None)

@@ -1323,3 +1323,139 @@ def test_strip_and_pair_wrappers_refuse(dev):
         rows(torch.zeros(8, 256, device=dev, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="Queue 2"):
         tk2d.Moments2DK(np.zeros((1, 33, 32)), np.zeros((1, 6, 128)), 1, 1)
+
+
+# ------------------- the 2-D carry routes (bsolve, moments2d_naf), copy
+
+
+def _carry_mats(kind, na, nb):
+    """Gb_cat, Ra_cat and both padded solve matrices of ``_modules``'
+    scans for na × nb tiles."""
+    from recfilter_tpu_torch.kernels.completion import pad_solve_matrix
+
+    clamp, pad_a, pad_b = STACKS[kind]
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [Scan(0, True, w3[0], tuple(w3[1:])),
+         Scan(0, False, w3[0], tuple(w3[1:]))]
+    b = [Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
+         Scan(1, False, 1.1, (0.5, 0.2))]
+    ma = tdf.prepare_dim_pass(a, T, na, clamp, pad_slots=pad_a)
+    mb = tdf.prepare_dim_pass(b, T, nb, clamp, pad_slots=pad_b)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    CM = [pad_solve_matrix(tdf.combined_solve_matrix(m, n), n,
+                           int(sum(m.orders)))
+          for m, n in ((ma, na), (mb, nb))]
+    return ma, mb, cat(ma.G, 1), cat(mb.G, 1), cat(ma.Rhat, 2), CM
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("p,na,nb", [(P, NA, NB), (1, 20, 2), (1, 3, 33)])
+def test_bsolve_matches_twin(kind, p, na, nb, dev):
+    """bsolve against its twin: 1e-5 of the twin's peak, pad slots zero,
+    one launch; term1's junk rows (random here) never enter."""
+    _, _, _, Gb_cat, Ra_cat, (_, CMb) = _carry_mats(kind, na, nb)
+    bs = tk2d.BSolve(Gb_cat, Ra_cat, CMb, na, nb).to(dev)
+    rng = np.random.default_rng(na + nb)
+    NA_t, term1 = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in ((p, na, 8, nb * T),
+                                       (p, na, nb * 8, T)))
+    tl.reset_launches()
+    got = bs(NA_t, term1)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(bsolve=1)
+    assert _rel(got, bs.plain(NA_t, term1)) <= 1e-5
+    assert not got.reshape(p, na, nb, 8, T)[:, :, :, 5:].any()  # Kb = 5
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("p,na,nb", [(P, NA, NB), (1, 20, 2), (2, 9, 1),
+                                     (1, 40, 1)])
+def test_moments2d_naf_matches_twin(kind, p, na, nb, dev):
+    """moments2d_naf (clusters of min(16, na) blocks: one tile a block at
+    na = 3 and 9, uneven tile shares at na = 20 and 40) against its twin:
+    1e-5 of the twin's peak, the same term1 as moments2d, pad slots
+    zero."""
+    ma, _, Ga_cat, Gb_cat, _, (CMa, _) = _carry_mats(kind, na, nb)
+    raw = tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, na, nb).to(dev)
+    naf = tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, na, nb, solve=CMa).to(dev)
+    x = torch.from_numpy(np.random.default_rng(na).standard_normal(
+        (p, na, T, nb * T)).astype(np.float32)).to(dev)
+    tl.reset_launches()
+    NA_t, term1 = naf(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d_naf=1)
+    want = naf.plain(x)
+    assert _rel(NA_t, want[0]) <= 1e-5 and _rel(term1, want[1]) <= 1e-5
+    assert torch.equal(term1, raw(x)[1])
+    assert not NA_t[:, :, 6:].any()  # Ka = 6
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4096 * 4096, 3 * 5 * 129])
+def test_copy_matches_twin(n, dev):
+    """copy bit-equal to its twin (one fp32 multiply), ragged tails too."""
+    from recfilter_tpu_torch.kernels import copy as tcopy
+
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    y = tcopy.copy(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(copy=1)
+    assert torch.equal(y, tcopy.plain(x))
+
+
+def test_carry_route_wrappers_refuse(dev):
+    """bsolve, moments2d_naf and copy refuse what their kernels do not
+    take."""
+    from recfilter_tpu_torch.kernels import copy as tcopy
+
+    ma, _, Ga_cat, Gb_cat, Ra_cat, (CMa, CMb) = _carry_mats("uniform", NA, NB)
+    bs = tk2d.BSolve(Gb_cat, Ra_cat, CMb, NA, NB).to(dev)
+    naf = tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, NA, NB, solve=CMa).to(dev)
+    x, NA_t, NB_t = _inputs(dev)
+    with pytest.raises(TypeError):
+        bs(NA_t.double(), NB_t)
+    with pytest.raises(ValueError):
+        bs(NA_t[:, :, :4], NB_t)
+    with pytest.raises(ValueError):
+        bs(NA_t, NB_t.cpu())
+    with pytest.raises(TypeError):
+        naf(x.double())
+    with pytest.raises(ValueError):
+        naf(x[:, :, :, :-T])
+    with pytest.raises(TypeError):
+        tcopy.copy(x.double())
+    with pytest.raises(ValueError):
+        tcopy.copy(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="exclusive"):
+        tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, NA, NB, edge=(ma.Btot, 8),
+                       solve=CMa)
+
+
+@pytest.mark.parametrize("bsolve,naf", [(False, False), (True, False),
+                                        (False, True), (True, True)])
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+def test_carry_routes_on_the_card(bsolve, naf, border, dev):
+    """The headline filter at 512² (and 384 × 640, zero: pad variants) on
+    each route: its launches, within px6 (2e-6) of the f64 oracle."""
+    from recfilter_tpu_torch.overlap2d import Fused2DPx
+
+    w3 = rft.gaussian_weights(5.0, 3)
+    for h, w in ((512, 512),) + (((384, 600),) if border == "zero" else ()):
+        sc = lambda ax: [Scan(ax, True, w3[0], tuple(w3[1:])),
+                         Scan(ax, False, w3[0], tuple(w3[1:]))]
+        mod = Fused2DPx(sc(0), sc(1), h, w, border, bsolve=bsolve,
+                        naf=naf).to(dev)
+        img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+               ).astype(np.float32)
+        tl.reset_launches()
+        got = mod(torch.from_numpy(img).to(dev))
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(
+            final2d=1, bsolve=int(bsolve),
+            **{"moments2d_naf" if naf else "moments2d": 1})
+        spec = rft.FilterSpec("G", (rft.Dim("y", h), rft.Dim("x", w)),
+                              tuple(sc(0) + sc(1)), border=border)
+        want = rft.oracle_apply(spec, img.astype(np.float64))
+        err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+        assert err <= 2e-6
