@@ -267,6 +267,23 @@ Phases:
      ``copy`` beside one ``torch.mul`` (the library form) with the
      bandwidth it measures, and the headline's four carry routes in turns
      (glue, BK, NAF, BK + NAF, then back);
+     the reduced precision grades (``default``, ``px3``, ``px4``: split-bf16
+     products on the tensor cores, three products at least on the carry
+     rows): phase 2k holds ``final2d_split`` at each grade to its twin at
+     the 4096² headline's shapes (1e-5 of the twin's peak; at one product
+     plus the bound of the two bf16 roundings of Z, which kernel and twin
+     take apart), ``completion_split`` at D's and E's shapes, and the
+     ``split_mm`` study entries at their probes' shapes (x 131072 × 128 for
+     ``pallas_split_mm``, 3xTF32 and fp32; 4096² for the transposed-emit
+     probes); phase 3l runs the headline at each grade through
+     ``as_func()`` (moments2d and final2d_split once each; within 3e-2,
+     1e-4 and 8e-5 of the f64 oracle; a profile each), D and E at each
+     grade (tails and completion_split once each, the same bounds), and
+     each ``split_mm`` entry once (studies, on no executor's path: their
+     launches are that run's); phase 3m times them beside their twins
+     (``torch.matmul`` the library form where one call computes the
+     probe's function) and the headline at px6 and the three grades in
+     turns;
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
@@ -318,7 +335,8 @@ summing in fp64 — the tails kernels, ``tails_traced``, ``moments2d_k`` and
 the strip kernels among them — run their fp64 on the CUDA cores at half
 of it) peak of an H100 SXM, or for the integer kernels over its int32 add
 rate (132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's
-unit count in NVIDIA's Hopper white paper).
+unit count in NVIDIA's Hopper white paper), or for the split kernels over
+its dense bf16 (989 TFLOP/s) or TF32 (495 TFLOP/s) tensor-core rate.
 """
 
 import json
@@ -334,6 +352,11 @@ N_TIMED = 25
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores, fp64 FLOP/s on them (DMMA: the card's peak for fp64)
 PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 67e12
+# ... and its dense tensor-core rates for bf16 and TF32 products
+PEAK_BF16, PEAK_TF32 = 989e12, 495e12
+# the reduced precision grades and their bounds (share of the f64 oracle's
+# peak; tests/test_dimfuse.py:454, tests/test_overlap2d.py:438)
+GRADE_BOUNDS = {"default": 3e-2, "px3": 1e-4, "px4": 8e-5}
 PEAK_INT32 = 132 * 64 * 1.98e9  # int32 adds/s (module docstring)
 
 
@@ -586,6 +609,69 @@ def line_block_sweep(rft, dev, card):
                 v = st(v)
             del v
     return out
+
+
+def split_probes(dev):
+    """The ``split_mm`` studies' entries at their probes' shapes
+    (``tests/torch_split_study.py`` sweeps them): (row name, the probe's
+    Pallas kernel, kernel, twin, library call or None, input, bytes, FLOPs
+    in bf16-rate units, rate). The constant and the carries are bound in;
+    every call takes the probe's x."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.kernels import split_mm as smm
+
+    rng = np.random.default_rng(0)
+    B = (rng.standard_normal((128, 128)) / np.sqrt(128)).astype(np.float32)
+    R = (rng.standard_normal((128, 6)) * 0.1).astype(np.float32)
+    xa = torch.from_numpy((rng.standard_normal((131072, 128)) * 0.01)
+                          .astype(np.float32)).to(dev)
+    x4 = torch.from_numpy((rng.standard_normal((4096, 4096)) * 0.01)
+                          .astype(np.float32)).to(dev)
+    N = torch.from_numpy((rng.standard_normal((4096, 6)) * 0.01)
+                         .astype(np.float32)).to(dev)
+    Bd, Rd = torch.from_numpy(B).to(dev), torch.from_numpy(R).to(dev)
+    X4t = x4.reshape(4096, 32, 128).permute(1, 2, 0)  # (tile, k, line)
+    mm_a = lambda v: torch.matmul(v, Bd)  # noqa: E731 (y = x·B)
+    mm_t = lambda v: torch.matmul(Bd, X4t).reshape(4096, 4096)  # noqa
+    flops = lambda x, k: 2.0 * x.numel() * k  # noqa: E731 (per product)
+    bf16_t = lambda C: smm.bf16_operand(B, 3, C).to(dev)  # noqa: E731
+    rows = []
+    for name, probe, kern, plain, op, kw, lib, x, ops, rate in (
+            ("split_mm/pallas_split_mm", "scripts/pallas_split_matmul.py:70",
+             smm.split_mm, smm.split_mm_plain,
+             smm.bf16_operand(B.T, 3).to(dev), dict(nprod=3), mm_a, xa,
+             3 * flops(xa, 128), PEAK_BF16),
+            ("split_mm/pallas_split_mm_t",
+             "scripts/pallas_split_matmul.py:113", smm.split_mm,
+             smm.split_mm_plain, bf16_t(R),
+             dict(nprod=3, emit=1, carry=1, N=N), None, x4,
+             3 * flops(x4, 134), PEAK_BF16),
+            ("split_mm/px3t_sweep", "scripts/px3t_sweep.py:74", smm.split_mm,
+             smm.split_mm_plain, bf16_t(None),
+             dict(nprod=3, emit=2, carry=2, N=N, R=Rd, nt=2, lb=512), None,
+             x4, 3 * flops(x4, 128) + flops(x4, 6) * PEAK_BF16 / PEAK_FP32,
+             PEAK_BF16),
+            ("split_mm/px6_stack", "scripts/px6_stack_exp.py:56",
+             smm.split_mm, smm.split_mm_plain,
+             smm.bf16_operand(B, 6).to(dev),
+             dict(nprod=6, emit=1, stack=True, lb=512), mm_t, x4,
+             6 * flops(x4, 128), PEAK_BF16),
+            ("split_mm_tf32", "scripts/pallas_split_matmul.py:70",
+             smm.split_mm_tf32, smm.split_mm_tf32_plain,
+             smm.tf32_operand(B.T).to(dev), dict(npass=3), mm_a, xa,
+             3 * flops(xa, 128), PEAK_TF32),
+            ("split_mm_fp32", "scripts/pallas_split_matmul.py:70",
+             smm.split_mm_fp32, smm.split_mm_fp32_plain,
+             smm.fp32_operand(B.T).to(dev), {}, mm_a, xa, flops(xa, 128),
+             PEAK_FP32)):
+        extra = [t for t in (kw.get("N"), kw.get("R")) if t is not None]
+        rows.append((name, probe,
+                     lambda v, k=kern, c=op, a=kw: k(v, c, **a),
+                     lambda v, k=plain, c=op, a=kw: k(v, c, **a), lib, x,
+                     tensor_bytes(x, x, op, *extra), ops, rate))
+    return rows
 
 
 def lfilter_reference(spec, x):
@@ -1695,6 +1781,97 @@ def main() -> int:
         max_abs["copy"] = (got - want).abs().max().item()
         del X4, NA64, term1, got, want
 
+    print("== phase 2k: the reduced grades' kernels (final2d_split at the "
+          "4096² headline's shapes, completion_split at D's and E's) and the "
+          "split_mm studies at their probes' shapes against their twins",
+          flush=True)
+    from recfilter_tpu_torch.kernels import split as ksplit
+
+    grade_2d, grade_1d, split_in = {}, {}, {}
+    x_h = torch.from_numpy(img_h).to(dev)
+    for g in GRADE_BOUNDS:
+        nprod = ksplit.NPROD[g]
+        F = build_filter(rft, H, W, img_h)
+        F.set_plan(matmul_precision=g)
+        m = F.as_func()
+        check(isinstance(m.final, k2d.Final2DSplit) and m.final.nprod == nprod,
+              f"headline at {g}: final2d_split, {nprod} product(s) on the "
+              f"image rows, {ksplit.carry_nprod(nprod)} on the carries")
+        grade_2d[g] = (F, m)
+        with torch.no_grad():
+            X4 = m.tile(x_h)
+            NA_t, NB_t = m.carries(X4, m.moments.plain)
+            got = m.final(X4, NA_t, NB_t)
+            want = m.final.plain(X4, NA_t, NB_t)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            # one product: kernel and twin each round their own Z to bf16,
+            # and may part where a Z value lies within the kernel's
+            # summation error of a rounding boundary (resplit_bound)
+            peak = want.abs().max()
+            bound = m.final.resplit_bound(X4, NA_t)
+            lim = 1e-5 * peak + bound
+            over = ((got - want).abs() - lim).max().item()
+            nz = (bound > 0).double().mean().item()
+        print(f"  final2d_split {g}: max|k-p|/max|p| = {err:.3e} (largest "
+              f"resplit bound {bound.max().item() / peak.item():.3e} of the "
+              f"peak, nonzero at {nz:.4f} of the outputs)")
+        check(over <= 0, f"final2d_split {g} within 1e-5 of its twin's peak "
+              "per output" + (" plus the resplit bound" if g == "default"
+                              else ""))
+        if g == "default":
+            ctl = (X4, NA_t, NB_t, got, lim)
+        elif g == "px3":
+            # the control: the default kernel against the px3 twin (three
+            # products on the image rows) lies outside the default limit
+            with torch.no_grad():
+                y3 = m.final.plain(*ctl[:3])
+                outside = ((ctl[3] - y3).abs() > ctl[4]).double().mean()
+            print(f"  control: the default kernel against the px3 twin "
+                  f"lies outside its limit at {outside.item():.4f} of the "
+                  f"outputs (max|k-p3|/max|p3| = {rel_err(ctl[3], y3):.3e})")
+            check(outside.item() > 0.5, "final2d_split default held apart "
+                  "from the px3 twin by its limit")
+            del ctl, y3
+        max_abs[f"final2d_split/{g}"] = (got - want).abs().max().item()
+        del X4, NA_t, NB_t, got, want, bound, lim
+        for label, shape, clamp in (("D", (64, 30_000), False),
+                                    ("E", (64, 32_768), True)):
+            F = gauss_1d(rft, shape, 128, clamp)
+            F.set_plan(matmul_precision=g)
+            m = F.as_func()
+            loc = m.body
+            check(isinstance(loc.completion, kcomp.CompletionSplit)
+                  and loc.completion.nprod == nprod,
+                  f"{label} at {g}: completion_split, {nprod} product(s)")
+            grade_1d[(label, g)] = (F, m)
+            x = torch.from_numpy(signal(shape)).to(dev)
+            with torch.no_grad():
+                X = F_.pad(x, (0, loc.pad)).reshape(-1, loc.n, loc.T)
+                Nt = loc._solve_t(loc.tails.plain(X).double()).float()
+                y = loc.completion(X, Nt)
+                yp = loc.completion.plain(X, Nt)
+                torch.cuda.synchronize()
+            err = rel_err(y, yp)
+            print(f"  {label} completion_split {g}: max|k-p|/max|p| = "
+                  f"{err:.3e}")
+            check(err <= 1e-5, f"{label} completion_split {g} within 1e-5 "
+                  "of its twin's peak")
+            if label == "E":
+                max_abs[f"completion_split/{g}"] = (y - yp).abs().max().item()
+                split_in[g] = (loc, X, Nt)
+    probes = split_probes(dev)
+    with torch.no_grad():
+        for name, probe, fn, plain, _, x, *_ in probes:
+            got, want = fn(x), plain(x)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            print(f"  {name} ({probe}, x {tuple(x.shape)}): max|k-p|/max|p| "
+                  f"= {err:.3e}")
+            check(err <= 1e-5, f"{name} within 1e-5 of its twin's peak")
+            max_abs[name] = (got - want).abs().max().item()
+    del got, want
+
     print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
           flush=True)
 
@@ -2488,7 +2665,97 @@ def main() -> int:
                   f" Mpix/s), device {device_ms(routes[label], x_h):.4f} ms; "
                   f"profile: {prof['device_ops']:.0f} ops, busy "
                   f"{busy_text(prof)} on {card}")
-    del routes, x_h
+    del routes
+
+    print("== phase 3l: the reduced grades end to end through "
+          "RecFilter.as_func(): the headline and D, E at default, px3 and px4; "
+          "then each split_mm study entry once", flush=True)
+    want_h = scan_core.oracle_apply(F_h.spec, img_h.astype(np.float64))
+    grade_profs = {}
+    for g, (F, m) in grade_2d.items():
+        with torch.no_grad():
+            y, launches = counted(m, x_h)
+        print(f"  headline {g}: launches {launches}")
+        check(launches == only(moments2d=1, final2d_split=1),
+              f"headline {g}: moments2d and final2d_split once each")
+        main_launches[f"final2d_split/{g}"] = launches["final2d_split"]
+        check(tuple(y.shape) == img_h.shape and bool(torch.isfinite(y).all()),
+              f"headline {g}: output finite, shape {img_h.shape}")
+        err = float(np.abs(y.cpu().numpy().astype(np.float64) - want_h).max()
+                    / np.abs(want_h).max())
+        print(f"  headline {g}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= GRADE_BOUNDS[g], f"headline {g}: within "
+              f"{GRADE_BOUNDS[g]:g} of the f64 oracle")
+        with torch.no_grad():
+            grade_profs[g] = prof = timing.device_profile(m, x_h,
+                                                          iterations=10)
+        print(f"  headline {g}: {prof['device_ops']:.0f} device ops a call, "
+              f"device busy {busy_text(prof)}, call {prof['call_ms']:.4f} ms "
+              f"on {card}; top: " + ", ".join(
+                  f"{nm[:40]} {ms:.4f} ms" for nm, ms in prof["top"]))
+    del y, want_h
+    for (label, g), (F, m) in grade_1d.items():
+        xs = signal(F._image.shape)
+        with torch.no_grad():
+            y, launches = counted(m, torch.from_numpy(xs).to(dev))
+        check(launches == only(tails=1, completion_split=1),
+              f"{label} {g}: tails and completion_split once each")
+        if label == "E":
+            main_launches[f"completion_split/{g}"] = \
+                launches["completion_split"]
+        err = oracle_err(F.spec, xs, y)
+        print(f"  {label} {g}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(bool(torch.isfinite(y).all()) and err <= GRADE_BOUNDS[g],
+              f"{label} {g}: finite, within {GRADE_BOUNDS[g]:g} of the f64 "
+              "oracle")
+    with torch.no_grad():
+        for name, _, fn, _, _, x, *_ in probes:
+            _, launches = counted(fn, x)
+            entry = name.split("/")[0]
+            check(launches == only(**{entry: 1}), f"{name}: one {entry} "
+                  "launch (a study: on no executor's path)")
+            main_launches[name] = launches[entry]
+
+    print("== phase 3m: the reduced grades' kernels and the split_mm "
+          "studies timed beside their twins; the headline at px6 and the "
+          "three grades in turns (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)", flush=True)
+    with torch.no_grad():
+        for g, (F, m) in grade_2d.items():
+            X4 = m.tile(x_h)
+            NA_t, NB_t = m.carries(X4, m.moments.plain)
+            Y = m.final(X4, NA_t, NB_t)
+            n_i, n_c = ksplit.NPROD[g], ksplit.carry_nprod(ksplit.NPROD[g])
+            carry_times[f"final2d_split/{g}"] = timed(
+                f"final2d_split {g} (4096²)", m.final, m.final.plain, None,
+                (X4, NA_t, NB_t),
+                tensor_bytes(X4, NA_t, NB_t, m.final.Ac, m.final.Bc, Y),
+                2.0 * X4.numel() * (256 * n_i + (m.Ka + m.Kb) * n_c),
+                PEAK_BF16, main_launches[f"final2d_split/{g}"])
+            del X4, NA_t, NB_t, Y
+            loc, X, Nt = split_in[g]
+            Bc = loc.completion.Bc
+            carry_times[f"completion_split/{g}"] = timed(
+                f"completion_split {g} (E: {X.shape[0]} lines x {loc.n} "
+                "tiles)", loc.completion, loc.completion.plain, None, (X, Nt),
+                tensor_bytes(X, Nt, Bc, X),
+                2.0 * X.numel() * (128 * n_i + loc.S * n_c), PEAK_BF16,
+                main_launches[f"completion_split/{g}"])
+        for name, probe, fn, plain, lib, x, nbytes, ops, rate in probes:
+            carry_times[name] = timed(f"{name} ({probe})", fn, plain, lib,
+                                      (x,), nbytes, ops, rate,
+                                      main_launches[name])
+        calls = {"px6": mod_h, **{g: m for g, (_, m) in grade_2d.items()}}
+        ev = {label: [] for label in calls}
+        for label in list(calls) + list(calls)[::-1]:
+            ev[label] += timing.call_times_ms(calls[label], x_h,
+                                              iterations=N_TIMED, warmup=3)
+        for label, m in calls.items():
+            ms = statistics.median(ev[label])
+            print(f"  headline {label}: event {ms:.4f} ms "
+                  f"({timing.mpix_per_sec(ms, H * W):.0f} Mpix/s), device "
+                  f"{device_ms(m, x_h):.4f} ms on {card}")
+    del grade_2d, grade_1d, split_in, probes, x_h
 
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
@@ -3310,7 +3577,21 @@ def main() -> int:
             ("bsolve", None, "recfilter_tpu/kernels/final2d.py:1412"),
             ("moments2d_naf", "moments2d",
              "recfilter_tpu/kernels/final2d.py:495"),
-            ("copy", None, "bench.py:161"))
+            ("copy", None, "bench.py:161"),
+            *((f"final2d_split/{g}", "final2d_split",
+               "recfilter_tpu/kernels/final2d.py:853") for g in GRADE_BOUNDS),
+            *((f"completion_split/{g}", "completion",
+               "recfilter_tpu/kernels/completion.py:464")
+              for g in GRADE_BOUNDS),
+            *((name, "split_mm", probe) for name, probe in (
+                ("split_mm/pallas_split_mm",
+                 "scripts/pallas_split_matmul.py:70"),
+                ("split_mm/pallas_split_mm_t",
+                 "scripts/pallas_split_matmul.py:113"),
+                ("split_mm/px3t_sweep", "scripts/px3t_sweep.py:74"),
+                ("split_mm/px6_stack", "scripts/px6_stack_exp.py:56"),
+                ("split_mm_tf32", "scripts/pallas_split_matmul.py:70"),
+                ("split_mm_fp32", "scripts/pallas_split_matmul.py:70"))))
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -141,6 +141,9 @@ def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
     """The executor of a backend that takes no consumer (every backend
     but ``einsum`` and the rotated emit) for ``spec`` under ``plan``."""
     backend = planner.resolve_backend(spec, plan)
+    if (plan.matmul_precision in planner.SPLIT_GRADES
+            and backend not in planner.SPLIT_BACKENDS):
+        planner.refuse_split(plan.matmul_precision, f"the {backend} backend")
     if backend == "oracle":
         return scan_core.OracleFilter(spec)
     if backend == "scan":

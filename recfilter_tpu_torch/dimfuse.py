@@ -82,8 +82,10 @@ from . import coeffs
 from .epilogue import kernel_form
 from .kernels import completion as kc
 from .kernels.completion import _f64
+from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
+from .planner import SPLIT_GRADES, refuse_split
 from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
 
@@ -602,12 +604,6 @@ def _epilogue(fn, y, eaux):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_nprod(matmul_precision: str) -> int:
-    """The JAX package's completion-kernel product count for float32
-    storage: 6 at px6 (the kernels run), 0 at highest (the einsum form)."""
-    return {"px6": 6}.get(matmul_precision, 0)
-
-
 class LastAxisPass(nn.Module):
     """All ``scans`` of the last axis of float32 arrays (..., w), tiled by
     ``plan`` = (T, n, pad): the JAX package's ``_last_axis_pass_t``, with
@@ -644,6 +640,14 @@ class LastAxisPass(nn.Module):
     or after a stencil fallback. The einsum form's
     products run in float64 (no TF32 can reach them on the card).
     ``forward(x, True)`` runs every kernel's plain twin instead.
+
+    At the reduced grades (px3, px4, default: ``planner.SPLIT_GRADES``)
+    the pass runs its unrotated kernel route only — ``tails`` (fp64 sums,
+    as at px6), the solve, then ``completion_split`` with the grade's
+    product count (one at ``default``), the epilogue as torch ops after
+    it. The rotated emit, a fused stencil, tails chaining and the einsum
+    form (fewer than 8 lines, more than 256 tiles) have no split form and
+    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
 
     Tails chaining (a rotation chain's passes, :class:`RotationChain`):
     ``next_tails = (Gcat2, n2, T2)`` names the next pass, which scans this
@@ -710,7 +714,11 @@ class LastAxisPass(nn.Module):
         # holds (the line count is checked per call)
         self.tails = self.completion = None
         self.st_tails = self.st_comp = None
-        if _kernel_nprod(matmul_precision) and kc.completion_ok(T, 8, n, S):
+        self.grade = matmul_precision
+        if matmul_precision in SPLIT_GRADES:
+            self._split_kernels(mats, Gcat, Rcat, stencil, next_tails)
+        elif (NPROD.get(matmul_precision, 0)
+              and kc.completion_ok(T, 8, n, S)):
             if n <= _CHAIN_MATMUL_MAX_TILES:
                 self.tails = kc.TailsPass(Gcat, n)
             # the epilogue rides the completion where no stencil precedes
@@ -734,6 +742,25 @@ class LastAxisPass(nn.Module):
                                 T2):
                 self.completion_nt = kc.CompletionPass(
                     mats.Btot, Rcat, n, rot=True, next_tails=(Gcat2, n2))
+
+    def _split_kernels(self, mats, Gcat, Rcat, stencil, next_tails):
+        """The reduced grades' kernels: ``tails`` and ``completion_split``
+        on the unrotated route — the only one with a split form — or
+        ``NotImplementedError``."""
+        T, n, S, p = self.T, self.n, self.S, self.grade
+        why = ("the rotated emit (completion_rot)" if self.rot else
+               "a fused stencil or tails chaining"
+               if stencil is not None or next_tails is not None else
+               f"the einsum form of a last-axis pass ({n} tiles of {T}, "
+               f"ΣK = {S}; the supertile hierarchy past "
+               f"{_CHAIN_MATMUL_MAX_TILES} tiles)"
+               if n > _CHAIN_MATMUL_MAX_TILES
+               or not kc.completion_ok(T, 8, n, S) else None)
+        if why:
+            refuse_split(p, why)
+        self.tails = kc.TailsPass(Gcat, n)
+        self.completion = kc.CompletionSplit(mats.Btot, Rcat, n, NPROD[p])
+        self.affine = None  # the epilogue runs as torch ops
 
     def _fuse_stencil(self, mats, Gcat, Rcat, stencil):
         """The stencil's kernels, one tails + rotated completion pair per
@@ -838,6 +865,8 @@ class LastAxisPass(nn.Module):
             if ts and ts[0] is not None:
                 t_out = torch.cat(ts, dim=2)  # P-major lines
         else:
+            refuse_split(self.grade, f"a last-axis pass on {q} lines (the "
+                                     "kernels take at least 8)")
             braw = kc.tile_einsum("nst,pnt->pns", self.G_v, X.double())
             N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
                  else self._solve_assoc(braw))  # (q, n, S) natural
@@ -968,10 +997,11 @@ def _hierarchy_ok(w: int, scans: Sequence[Scan],
     """The JAX package's gates of ``hierarchical_dim_pass``: ΣK ≤ 64; px
     precision; 2 ≤ n_sup ≤ 512 supertiles at ΣK ≤ 8 (the dense level-2
     solve), ≤ 4096 past it (the Kogge–Stone chain); and an effective last
-    supertile longer than kmax + 1."""
+    supertile longer than kmax + 1. The hierarchy runs at px6 only in the
+    port (the reduced grades have no split form of it)."""
     S = sum(s.order for s in scans)
     kmax = max(s.order for s in scans)
-    if S > 64 or _kernel_nprod(matmul_precision) < 3:
+    if S > 64 or NPROD.get(matmul_precision, 0) != 6:
         return False
     n_sup = -(-w // _SEG)
     if n_sup < 2 or n_sup > (512 if S <= 8 else 4096):
@@ -1247,6 +1277,7 @@ def hierarchical_dim_pass(x, axis: int, scans: Sequence[Scan], border: str,
     from .planner import check_precision
 
     check_precision(matmul_precision)
+    refuse_split(matmul_precision, "the supertile hierarchy")
     axis = axis % x.ndim
     if not _hierarchy_ok(x.shape[axis], scans, matmul_precision):
         return None
@@ -1357,7 +1388,7 @@ class RotationChain(nn.Module):
                 "fused_filter_module runs the per-axis loop there "
                 "(StagedPass, the sequential core on that axis), as the JAX "
                 "package's apply_filter_fused does")
-        fuse = _kernel_nprod(matmul_precision) > 0
+        fuse = NPROD.get(matmul_precision, 0) > 0
         passes = [None] * Ds
         for i in reversed(range(Ds)):  # the next pass first: its tail rows
             ax, final, nt = order[i], i == Ds - 1, None
@@ -1529,16 +1560,34 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     def scans(ax):
         return [spec.scans[i] for i in groups[ax]]
 
-    # the JAX package runs its 3-touch and rows kernels at the px grades
-    # only; at "highest" the chain and the per-axis loop run einsum passes
-    px = _kernel_nprod(matmul_precision) > 0
-    pre = None  # the volume route's rows pass, where its pair declines
-    if px and Ds == 2 and set(groups) == {nd - 2, nd - 1}:
-        if overlap2d.fused2d_decline(scans(nd - 2), scans(nd - 1), ext[-2],
-                                     ext[-1], spec.border, stencil2d) is None:
+    # the JAX package runs its 3-touch and rows kernels at the px grades;
+    # at "highest" the chain and the per-axis loop run einsum passes
+    px = NPROD.get(matmul_precision, 0) > 0
+    pair2d = (px and Ds == 2 and set(groups) == {nd - 2, nd - 1}
+              and overlap2d.fused2d_decline(
+                  scans(nd - 2), scans(nd - 1), ext[-2], ext[-1],
+                  spec.border, stencil2d) is None)
+    if matmul_precision in SPLIT_GRADES:
+        # the reduced grades' one allow-list: the routes with a split-bf16
+        # form, the 3-touch executor (final2d_split) and the unrotated
+        # last-axis pass (completion_split); every other route raises
+        if pair2d:
             return overlap2d.Fused2DPx(
                 scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-                epilogue=epilogue, stencil2d=stencil2d)
+                epilogue=epilogue, stencil2d=stencil2d,
+                nprod=NPROD[matmul_precision])
+        if set(groups) == {nd - 1}:
+            return with_bank(FusedLastAxis(
+                scans(nd - 1), ext[-1], tiles[-1] or _TILE_DEFAULT,
+                spec.border, matmul_precision, epilogue))
+        refuse_split(matmul_precision, f"a filter on axes {sorted(groups)} "
+                     f"of {nd} off the 3-touch executor's gates (the rows "
+                     "pass, volumes, the rotation chain, the per-axis loop)")
+    pre = None  # the volume route's rows pass, where its pair declines
+    if pair2d:
+        return overlap2d.Fused2DPx(
+            scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
+            epilogue=epilogue, stencil2d=stencil2d)
     if (px and Ds == 3 and stencil2d is None
             and set(groups) == set(range(nd - 3, nd))
             and overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .kernels import fir_band
-from .planner import auto_tile_width, check_precision
+from .planner import auto_tile_width, check_precision, refuse_split
 
 
 def box_taps(B: int, iterations: int) -> np.ndarray:
@@ -133,6 +133,7 @@ class FirPass(nn.Module):
         super().__init__()
         assert not (bank and contract)
         check_precision(matmul_precision)
+        refuse_split(matmul_precision, "the FIR band pass (fir_band)")
         if matmul_dtype is not None:
             raise NotImplementedError(
                 f"matmul_dtype={matmul_dtype!r}: bf16 products are not "

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import split
 from .launch import MAX_AUX, _check, _KernelFn, _launch
 from .stencil2d import shift_mode
 
@@ -502,6 +503,81 @@ class CompletionPass(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, N, *rest)
         return self.plain(x, N, *rest)
+
+
+class CompletionSplit(nn.Module):
+    """``completion(x, N)`` at a reduced precision grade: the unrotated
+    :class:`CompletionPass` (no stencil, no epilogue) as ``nprod``
+    split-bf16 products, the carry rows at :func:`.split.carry_nprod`
+    (``completion_split``; the JAX package's ``completion_pass(rot=False,
+    nprod=n)`` at nprod 1, 3, 4, which at 1 takes one product on the
+    carries too).
+
+    Btot : (n|1, T, T);  Rcat : (n|1, T, S), S ≤ 56 carries in sl slots.
+    The constant ``[Btot | Rcat]`` is split on the host, once, for every
+    variant (``Bc`` (1|3, nc, T, LD) bf16, the contraction T + sl padded
+    to a multiple of 16, rows LD apart); x and N are split on chip. The
+    twin ``plain`` runs the same chunk products in float32; the kernel's
+    backward is the VJP of the float32 product with the constant's grade.
+    """
+
+    affine = None  # no epilogue in the kernel
+
+    def __init__(self, Btot, Rcat, n: int, nprod: int):
+        super().__init__()
+        if nprod not in (1, 3, 4):
+            raise ValueError(f"completion_split runs nprod 1, 3 or 4, not "
+                             f"{nprod}")
+        R = np.asarray(Rcat, np.float64)
+        nvr, T, S = R.shape
+        if T != TILE or np.shape(Btot)[1:] != (T, T):
+            raise ValueError(f"tiles must be {TILE} wide")
+        if S > _MAX_S:
+            raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
+        self.n, self.S, self.sl, self.nprod = int(n), S, slots_for(S), nprod
+        self.ld = -(-(T + self.sl) // 16) * 16 + 8
+        Rp = np.zeros((nvr, T, self.sl))
+        Rp[..., :S] = R
+        Bv, Rv = _variants_like(Btot, Rp)
+        M = np.zeros((Bv.shape[0], T, self.ld))
+        M[..., :T] = Bv
+        M[..., T:T + self.sl] = Rv
+        self.register_buffer("Bc", torch.stack(
+            split.split_const(M, split.nchunks(split.carry_nprod(nprod))),
+            dim=1).contiguous())
+
+    def _data(self, x, N):
+        """[x | Nᵀ]: (q, n, T + sl), the contraction's data rows."""
+        return torch.cat([x, N.permute(2, 0, 1)], dim=-1)
+
+    def plain(self, x, N):
+        K = TILE + self.sl
+        Bc = self.Bc[..., :K].float()
+        return split.pair_sum(self.nprod, lambda i, d: tile_einsum(
+            "nok,qnk->qno", Bc[:, i], d), self._data(x, N), TILE)
+
+    def _twin(self, x, N):
+        """The float32 product with the constant's grade (the sum of its
+        chunks): linear, the backward's map."""
+        Bs = self.Bc[..., :TILE + self.sl].float().sum(1)
+        return tile_einsum("nok,qnk->qno", Bs, self._data(x, N))
+
+    def _kernel(self, x, N):
+        q, n = x.shape[0], self.n
+        _check(x, "x", (q, n, TILE), x.device)
+        _check(N, "N", (n, self.sl, q), x.device)
+        _check(self.Bc, "Bc", self.Bc.shape, x.device, torch.bfloat16)
+        _grid_ok("completion_split", n, -(-q // TILE))
+        y = torch.empty_like(x)
+        _launch("completion_split", (
+            x.data_ptr(), N.data_ptr(), self.Bc.data_ptr(), y.data_ptr(), q,
+            n, self.sl, self.Bc.shape[0], self.nprod), x.device)
+        return y
+
+    def forward(self, x, N):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, N)
+        return self.plain(x, N)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,25 @@
 // recfilter_tpu/kernels/completion.py:273). Each aux adds 4 B per sample of
 // reads; the kernel stays bound by its arithmetic.
 //
+// completion_split: completion (unrotated, no epilogue) at the reduced
+// precision grades — replaces completion_pass(rot=False, nprod=n) at nprod 1
+// (default), 3 (px3) and 4 (px4). The same per-tile product
+//
+//   Y[l, t, :] = sum_(i,j) Bc_i[v(t)] * [x[l, t, :]; N[t, :, l]]_j
+//
+// over split.cuh's chunk pairs (i, j), smallest level first — NPROD on the
+// 128 signal rows, carry_nprod(NPROD) >= 3 on the carry rows (the carry
+// terms cancel: kernels/split.py) — on bf16 tensor cores (mma.sync
+// m16n8k16, fp32 accumulation): the signal and its
+// carries are split into bf16 chunks as they are staged (lines l as rows,
+// the contraction contiguous), the constant Bc (nv, NC, 128, LD) = [Btot |
+// Rcat | 0] (rows o) was split on the host. The contraction 128 + sl is
+// padded with zeros to a multiple of 16 (LD = that + 8); shared memory is
+// 2 x NC x 128 x LD x 2 B with NC = 2 chunks at every NPROD here, 156 KB
+// with sl = 8, 205 KB at sl = 56.
+// Bound: 2 x (128 NPROD + sl carry_nprod) FLOP per sample on the bf16
+// tensor cores against 8 B of traffic — at the card's peaks, by bytes.
+//
 // completion_traced (TRACED = true): the learnable executor's completion,
 // replacing recfilter_tpu/kernels/completion.py::completion_pass_traced.
 // The same GEMM with sl = 8, one variant, but Btot (128, 128) and Rcat
@@ -48,6 +67,7 @@
 // first blocks, as the static path's [Btot^T; Rcat^T] does.
 
 #include "common.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -509,6 +529,90 @@ extern "C" int completion_traced_launch(const float* x, const float* N,
       <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
           x, N, Btot, Rcat, y, rf::Affine{}, q, n, sl, 1, S);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int NPROD>
+__global__ void __launch_bounds__(rfs::THREADS, 1)
+completion_split_kernel(const float* __restrict__ x,      // (q, n, T)
+                        const float* __restrict__ N,      // (n, sl, q)
+                        const rfs::bf16* __restrict__ Bc,  // (nv, NC, T, LD)
+                        float* __restrict__ y,            // (q, n, T)
+                        int q, int n, int sl, int nv) {
+  constexpr int NC = rfs::nchunks(rfs::carry_nprod(NPROD));
+  const int KP = (T + sl + 15) / 16 * 16, LD = KP + 8;
+  const long chunk = (long)T * LD;
+  extern __shared__ uint4 smem16[];
+  rfs::bf16* Cs = reinterpret_cast<rfs::bf16*>(smem16);  // constant chunks
+  rfs::bf16* Ds = Cs + NC * chunk;                       // data chunks
+
+  const int t = blockIdx.x, l0 = blockIdx.y * T, tid = threadIdx.x;
+  const int v = rf::variant(nv, t, n);
+  rfs::copy16(Cs, Bc + (long)v * NC * chunk,
+              NC * (int)chunk * (int)sizeof(rfs::bf16), tid);
+  for (int i = tid; i < T * (T / 4); i += THREADS) {
+    const int l = i / (T / 4), c4 = i % (T / 4);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (l0 + l < q)
+      val = reinterpret_cast<const float4*>(
+          x + ((long)(l0 + l) * n + t) * T)[c4];
+    rfs::split_store4<NC>(Ds + l * LD + 4 * c4, chunk, val);
+  }
+  const float* Nt = N + (long)t * sl * q;
+  for (int i = tid; i < (KP - T) * T; i += THREADS) {
+    const int s = i / T, l = i % T;
+    rfs::split_store1<NC>(Ds + l * LD + T + s, chunk,
+                          (s < sl && l0 + l < q) ? Nt[(long)s * q + l0 + l]
+                                                 : 0.f);
+  }
+  __syncthreads();
+  rfs::Frag f;
+  rfs::zero(f);
+  rfs::split_mma_slabs<NPROD, false, false>(f, Ds, chunk, LD, Cs, chunk,
+                                            LD, T, KP);
+  rfs::for_pairs(f, [&](int l, int o, float v0, float v1) {
+    if (l0 + l < q)
+      *reinterpret_cast<float2*>(y + ((long)(l0 + l) * n + t) * T + o) =
+          make_float2(v0, v1);
+  });
+}
+
+template <int NPROD>
+int split_launch(const float* x, const float* N, const rfs::bf16* Bc,
+                 float* y, int q, int n, int sl, int nv,
+                 cudaStream_t stream) {
+  const int LD = (T + sl + 15) / 16 * 16 + 8;
+  const int smem =
+      2 * rfs::nchunks(rfs::carry_nprod(NPROD)) * T * LD *
+      (int)sizeof(rfs::bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      completion_split_kernel<NPROD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n, (q + T - 1) / T);
+  completion_split_kernel<NPROD><<<grid, THREADS, smem, stream>>>(
+      x, N, Bc, y, q, n, sl, nv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// nprod in {1, 3, 4}; sl a multiple of 8 up to MAX_SL; Bc from
+// kernels/completion.py's CompletionSplit
+extern "C" int completion_split_launch(const float* x, const float* N,
+                                       const void* Bc, float* y, int q,
+                                       int n, int sl, int nv, int nprod,
+                                       void* stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
+  const rfs::bf16* B = static_cast<const rfs::bf16*>(Bc);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nprod) {
+    case 1: return split_launch<1>(x, N, B, y, q, n, sl, nv, s);
+    case 3: return split_launch<3>(x, N, B, y, q, n, sl, nv, s);
+    case 4: return split_launch<4>(x, N, B, y, q, n, sl, nv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* completion_error_string(int err) {

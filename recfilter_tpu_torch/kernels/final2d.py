@@ -52,6 +52,7 @@ from torch import nn
 from .completion import (_SLOTS, TILE, _aux_ptrs, _epi_coef, _expand_stack,
                          _f32, _f64, _per_tile, _variants3, _variants_like,
                          tile_einsum)
+from . import split
 from .launch import _check, _KernelFn, _launch
 
 
@@ -271,6 +272,161 @@ class Final2D(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, NA_t, NB_t, *aux)
         return self.plain(x, NA_t, NB_t, *aux)
+
+
+# final2d_split's operands: the 136-deep contraction (128 rows + 8 carry
+# slots) padded to 144, rows _SPLIT_LD apart (csrc/final2d_split.cu)
+_SPLIT_KP = TILE + 16
+_SPLIT_LD = _SPLIT_KP + 8
+
+
+def _split_operand(B, R, nc: int) -> torch.Tensor:
+    """(n|1, T, T), (n|1, T, 8) stacks → the split operand [B | R | 0] of
+    ``final2d_split``, (1|3, nc, T, _SPLIT_LD) bf16: per variant, nc chunks
+    of rows o with the contraction contiguous."""
+    Bv, Rv = _variants_like(B, R)
+    M = np.zeros((Bv.shape[0], TILE, _SPLIT_LD))
+    M[:, :, :TILE] = Bv
+    M[:, :, TILE:TILE + _SLOTS] = Rv
+    return torch.stack(split.split_const(M, nc), dim=1).contiguous()
+
+
+def _per_variant(M: torch.Tensor, n: int) -> torch.Tensor:
+    """A (1|3, ...) variant stack expanded to its n tiles (the kernels'
+    variant rule: first, interior…, last)."""
+    if M.shape[0] == 1:
+        return M.expand(n, *M.shape[1:])
+    idx = torch.zeros(n, dtype=torch.long)
+    idx[0], idx[n - 1] = 1, 2
+    return M[idx]
+
+
+class Final2DSplit(nn.Module):
+    """Passes 2+3 at a reduced precision grade: :class:`Final2D`'s
+    ``Y = final(x, NA_t, NB_t)`` as ``nprod`` split-bf16 products, the
+    carry rows of both contractions at :func:`.split.carry_nprod`
+    (``final2d_split``; the JAX package's ``final2d_px`` at nprod 1, 3, 4,
+    which at 1 takes one product on the carries too).
+
+    The constants are split on the host, once, for every variant
+    (:func:`_split_operand`); x, the carries and the dim-A completion Z
+    are split on chip. The twin ``plain`` runs the same chunk products in
+    float32 (:func:`.split.pair_sum`). The kernel's backward is the
+    VJP of the float32 product with the constant's grade (the sum of its
+    chunks), the map the forward rounds. No epilogue: at these grades it
+    runs as torch ops after the kernel.
+    """
+
+    def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
+                 nb: int, nprod: int):
+        super().__init__()
+        if nprod not in (1, 3, 4):
+            raise ValueError(f"final2d_split runs nprod 1, 3 or 4, not "
+                             f"{nprod}")
+        self.na, self.nb, self.nprod = int(na), int(nb), int(nprod)
+        self.nc = split.nchunks(split.carry_nprod(nprod))
+        Ra8, Rb8 = _pad_slots(Rhat_a_cat), _pad_slots(Rhat_b_cat)
+        if not (np.shape(Btot_a)[1] == np.shape(Btot_b)[1] == TILE):
+            raise ValueError(f"tiles must be {TILE} wide")
+        if Ra8.shape[2] != _SLOTS or Rb8.shape[2] != _SLOTS:
+            raise ValueError(f"carries exceed the {_SLOTS}-row slot")
+        self.register_buffer("Ac", _split_operand(Btot_a, Ra8, self.nc))
+        self.register_buffer("Bc", _split_operand(Btot_b, Rb8, self.nc))
+
+    def _tiles(self):
+        """Per-tile chunk stacks (na|nb, nc, T, T + 8) in float32."""
+        K = TILE + _SLOTS
+        return (_per_variant(self.Ac, self.na)[..., :K].float(),
+                _per_variant(self.Bc, self.nb)[..., :K].float())
+
+    def dim_a(self, x, NA_t):
+        """The twin's dim-A completion Z (p, na, T, W), float32:
+        ``Z[p,a,s,w] = Σ_(i,j) Σ_k A_i[a][s][k]·[x; NA]_j[p,a,k,w]``."""
+        A = self._tiles()[0]
+        return split.pair_sum(self.nprod, lambda i, d: torch.einsum(
+            "ask,pakw->pasw", A[:, i], d), torch.cat([x, NA_t], dim=2),
+            TILE, dim=2)
+
+    def plain(self, x, NA_t, NB_t):
+        p, na, Ta, W = x.shape
+        nb, T = self.nb, TILE
+        B = self._tiles()[1]
+        # Y from [Z; NBᵀ], Z re-split
+        zr = self.dim_a(x, NA_t).reshape(p, na, Ta, nb, T)
+        nbr = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 4, 2, 3)
+        ins = torch.cat([zr, nbr], dim=-1)                # (p,a,s,b,T+8)
+        y = split.pair_sum(self.nprod, lambda i, d: torch.einsum(
+            "bok,pasbk->pasbo", B[:, i], d), ins, TILE)
+        return y.reshape(p, na, Ta, W)
+
+    def resplit_bound(self, x, NA_t) -> torch.Tensor:
+        """Per output (the shape of Y), how far one product's kernel and
+        twin may lie apart beyond their float32 sums of Y. Each rounds its
+        own float32 Z to bf16 for the dim-B product, so a Z value can round
+        two ways only where the rounding boundary lies between the twin's
+        Z and the kernel's. The kernel's Z lies within e = 2^-18·Σ|a·b| of
+        the exact sum of the same chunk products (float64 here): at most 11
+        ``mma.sync`` steps a value (8 on the image rows, 3 on the carry
+        rows), each adding with at most two roundings or truncations of
+        2^-23·Σ|a·b|, is 2^-18.5. Where bf16 maps the span of the twin's Z
+        and [Z − e, Z + e] to one value the two agree; elsewhere they part
+        by at most the gap d of that span (one bf16 step). The bound is
+        |Bb₀|·d, zero where every Z value of the row rounds one way. At 3
+        and 4 products the second chunk carries the step, and the bound is
+        0."""
+        if self.nprod != 1:
+            return torch.zeros_like(x)
+        A, B = self._tiles()
+        data = torch.cat([x, NA_t], dim=2)
+        zt = self.dim_a(x, NA_t).double()
+        zx = split.pair_sum(1, lambda i, c: torch.einsum(
+            "ask,pakw->pasw", A[:, i].double(), c.double()), data, TILE,
+            dim=2)
+        e = 2.0 ** -18 * torch.einsum("ask,pakw->pasw",
+                                      A.double().abs().sum(1),
+                                      data.double().abs())
+        inf = zt.new_tensor(np.inf).float()
+        lo = torch.nextafter(torch.minimum(zt, zx - e).float(), -inf)
+        hi = torch.nextafter(torch.maximum(zt, zx + e).float(), inf)
+        d = hi.to(torch.bfloat16).double() - lo.to(torch.bfloat16).double()
+        p, na, Ta, W = zt.shape
+        t = torch.einsum("bot,pasbt->pasbo", B[:, 0, :, :TILE].double().abs(),
+                         d.reshape(p, na, Ta, self.nb, TILE))
+        return t.reshape(p, na, Ta, W).float()
+
+    def _twin(self, x, NA_t, NB_t):
+        """The float32 product with the constants' grade (linear: the
+        backward's map)."""
+        p, na, Ta, W = x.shape
+        nb, T = self.nb, TILE
+        A, B = (m.sum(1) for m in self._tiles())
+        z = torch.einsum("ask,pakw->pasw", A, torch.cat([x, NA_t], dim=2))
+        nbr = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 4, 2, 3)
+        ins = torch.cat([z.reshape(p, na, Ta, nb, T), nbr], dim=-1)
+        y = torch.einsum("bok,pasbk->pasbo", B, ins)
+        return y.reshape(p, na, Ta, W)
+
+    def _kernel(self, x, NA_t, NB_t):
+        p, na, nb = x.shape[0], self.na, self.nb
+        W = nb * TILE
+        _check(x, "x", (p, na, TILE, W), x.device)
+        _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
+        _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
+        for name in ("Ac", "Bc"):
+            t = getattr(self, name)
+            _check(t, name, t.shape, x.device, torch.bfloat16)
+        _grid_ok(p, na, W)
+        y = torch.empty_like(x)
+        _launch("final2d_split", (
+            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
+            self.Ac.data_ptr(), self.Bc.data_ptr(), y.data_ptr(), p, na, nb,
+            self.Ac.shape[0], self.Bc.shape[0], self.nprod), x.device)
+        return y
+
+    def forward(self, x, NA_t, NB_t):
+        if x.is_cuda:
+            return _KernelFn.apply(self, x, NA_t, NB_t)
+        return self.plain(x, NA_t, NB_t)
 
 
 class Final2DStencil(nn.Module):

@@ -25,7 +25,11 @@ autograd rule for all of them.
     and ``dim_pass_cols``. The 2-D executor's optional routes have entries
     of their own: ``moments2d_naf`` (``moments2d.cu``: pass 1 with the
     dim-A carry solve inside) and ``bsolve`` (the dim-B carry glue and its
-    solve); the headline benchmark's bandwidth probe is ``copy``.
+    solve); the headline benchmark's bandwidth probe is ``copy``. The
+    reduced precision grades (default, px3, px4) run ``final2d_split`` and
+    ``completion.cu``'s ``completion_split`` (split-bf16 products on the
+    tensor cores); the ``scripts/`` probes' studies are ``split_mm``'s
+    three entries (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -73,6 +77,7 @@ SIGNATURES = {
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
                     ("final2d_k", 6, 8)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
+    "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
                   ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
@@ -80,7 +85,8 @@ SIGNATURES = {
                        ("completion_rot", 7, 9),
                        ("completion_rot_epi", 12, 10),
                        ("completion_rot_tails", 6, 7),
-                       ("completion_traced", 5, 3)),
+                       ("completion_traced", 5, 3),
+                       ("completion_split", 4, 5)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
     "fir_band": _sig("fir_band", ("fir_band", 3, 7)),
@@ -91,6 +97,8 @@ SIGNATURES = {
     "fused": _sig("fused", ("dim_pass_rows", 3, 8), ("dim_pass_cols", 3, 10)),
     "bsolve": _sig("bsolve", ("bsolve", 6, 7)),
     "copy": _sig("copy", ("copy", 2, 1)),
+    "split_mm": _sig("split_mm", ("split_mm", 5, 9),
+                     ("split_mm_tf32", 4, 8), ("split_mm_fp32", 4, 7)),
 }
 
 ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()

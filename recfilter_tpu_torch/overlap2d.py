@@ -62,7 +62,9 @@ from . import dimfuse
 from .epilogue import kernel_form
 from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
+from .kernels.split import NPROD
 from .kernels.stencil2d import stencil_reach
+from .planner import refuse_split
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
@@ -149,6 +151,13 @@ class Fused2DPx(nn.Module):
     :func:`stencil2d_decline`'s gates): the router runs the rotation
     chain there (``dimfuse.RotationChain``).
 
+    ``nprod``: the product grade of the final pass — 6 (px6) on
+    ``final2d``, or a reduced grade's 1, 3 or 4 (default, px3, px4) on
+    ``final2d_split``: no stencil bank there (``NotImplementedError``
+    naming ROADMAP Queue 1 item 4), the epilogue as torch ops after the
+    kernel. Pass 1 and the carries run as at px6 (fp64 sums and solves,
+    bound by bytes: fewer products buy no time there).
+
     ``naf`` / ``bsolve``: the optional routes of the module docstring.
     None (the default) reads ``RECFILTER_PXM_NAF`` / ``RECFILTER_PX2D_BK``
     once, here, and takes the route where the JAX package's gate holds
@@ -160,11 +169,19 @@ class Fused2DPx(nn.Module):
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
                  stencil2d=None, bsolve: Optional[bool] = None,
-                 naf: Optional[bool] = None):
+                 naf: Optional[bool] = None, nprod: int = 6):
         super().__init__()
         T = TILE
         if stencil2d is not None and epilogue is not None:
             raise ValueError("stencil2d is mutually exclusive with epilogue")
+        if nprod not in (1, 3, 4, 6):
+            raise ValueError(f"nprod {nprod}: the 2-D executor runs 1, 3, 4 "
+                             "or 6 products")
+        if nprod != 6 and stencil2d is not None:
+            raise NotImplementedError(
+                f"a fused stencil2d bank at {nprod} products: final2d_stencil "
+                "has no split-bf16 form (ROADMAP Queue 1 item 4)")
+        self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:
             raise NotImplementedError(
@@ -180,7 +197,7 @@ class Fused2DPx(nn.Module):
         self.wa, self.wb, self.na, self.nb = wa, wb, na, nb
         self.pad_a, self.pad_b, self.Ka, self.Kb = pad_a, pad_b, Ka, Kb
         self.epilogue = epilogue
-        self.affine = kernel_form(epilogue)
+        self.affine = kernel_form(epilogue) if nprod == 6 else None
         self.epilogue_route = (None if epilogue is None else
                                "torch" if self.affine is None else "kernel")
         self.h8 = 0 if stencil2d is None else stencil_h8(stencil2d)
@@ -234,6 +251,9 @@ class Fused2DPx(nn.Module):
             self.final = k2d.Final2DStencil(ma.Btot, Ra_cat, mb.Btot,
                                             Rb_cat, na, nb, stencil2d,
                                             self.h8)
+        elif nprod != 6:
+            self.final = k2d.Final2DSplit(ma.Btot, Ra_cat, mb.Btot, Rb_cat,
+                                          na, nb, nprod)
         else:
             self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
                                      nb, affine=self.affine)
@@ -648,8 +668,9 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
     ``shape``, by its gates in its order:
 
       1. a pair whose first axis comes later is swapped (:class:`_Swapped`);
-      2. ``use_kernels`` at ``px6`` on the trailing pair where
-         :func:`fused2d_decline` passes: :class:`Fused2DPx`;
+      2. ``use_kernels`` at ``px6`` or a reduced grade (px3, px4,
+         default) on the trailing pair where :func:`fused2d_decline`
+         passes: :class:`Fused2DPx` with the grade's product count;
       3. the tiles: each at least its axis's largest order and at most its
          extent; with ``use_kernels`` the last axis's pinned to 128;
       4. a clamp border with pad, more than 256 tiles on an axis, or a
@@ -659,7 +680,11 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
       5. ``use_kernels`` on the contiguous trailing pair: :class:`Fused2DK`
          (``moments2d_k`` + ``final2d_k``);
       6. else the einsum form, :class:`OverlapND` on the two axes (route
-         ``"pair"``)."""
+         ``"pair"``).
+
+    With ``use_kernels`` at a reduced grade, 4 and 5 have no split form
+    and raise ``NotImplementedError`` (ROADMAP Queue 1 item 4); without
+    kernels the grade is not read, as in the JAX package."""
     shape = tuple(int(e) for e in shape)
     nd = len(shape)
     axis_a, axis_b = axis_a % nd, axis_b % nd
@@ -671,9 +696,14 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
             use_kernels, matmul_precision), axis_a, axis_b)
     wa, wb = shape[axis_a], shape[axis_b]
     trailing = axis_a == nd - 2 and axis_b == nd - 1
-    if (use_kernels and matmul_precision == "px6" and trailing
+    nprod = NPROD.get(matmul_precision, 0)
+    if (use_kernels and nprod and trailing
             and fused2d_decline(scans_a, scans_b, wa, wb, border) is None):
-        return Fused2DPx(scans_a, scans_b, wa, wb, border)
+        return Fused2DPx(scans_a, scans_b, wa, wb, border, nprod=nprod)
+    if use_kernels:
+        refuse_split(matmul_precision, "the overlap_k backend off the "
+                     "3-touch executor's gates (the HIGHEST pair, the "
+                     "pair fallback)")
     ka = max(s.order for s in scans_a)
     kb = max(s.order for s in scans_b)
     Ta = int(min(max(Ta, ka), wa))
@@ -839,8 +869,9 @@ class OverlapFilter(nn.Module):
     tiled by its split width or ``tile_default``. Without kernels
     (``overlap``) three or more scanned axes take :class:`OverlapND` where
     :func:`nd_decline` passes. ``use_kernels`` (``overlap_k``) runs the
-    trailing pair on :class:`Fused2DPx` at ``px6`` where its gates hold,
-    else on :class:`Fused2DK`. Integer filters run the sequential core.
+    trailing pair on :class:`Fused2DPx` at ``px6`` or a reduced grade where
+    its gates hold, else on :class:`Fused2DK` (at ``px6`` and
+    ``highest``). Integer filters run the sequential core.
     ``stages`` lists the executors; ``forward_plain`` runs the kernels'
     twins."""
 

@@ -22,10 +22,22 @@ directive — ``compute_locally`` selects ``pallas``):
 The JAX package's precision names are kept: ``px6`` (its default) and
 ``highest`` both mean true-f32 products, which the fp32 kernels give on
 Hopper without the TPU's bf16 chunk splitting. As in the JAX package, the
-fused executors' px kernels (and the supertile hierarchy) run at ``px6``
-only: at ``highest`` every fused pass runs its einsum form in float64 and
-no kernel launches, and ``overlap_k`` runs its HIGHEST kernel pair. Every
-other grade raises, as does ``matmul_dtype="bfloat16"``.
+fused executors' px kernels (and the supertile hierarchy) run at ``px6``:
+at ``highest`` every fused pass runs its einsum form in float64 and no
+kernel launches, and ``overlap_k`` runs its HIGHEST kernel pair.
+
+The reduced grades ``px3``, ``px4`` and ``default`` (the throughput mode)
+are the JAX package's split-bf16 product counts 3, 4 and 1
+(``kernels/split.py``), on bf16 tensor cores: the 3-touch 2-D executor
+(``overlap2d.Fused2DPx`` on ``final2d_split``) and the unrotated last-axis
+pass (``dimfuse.LastAxisPass`` on ``completion_split``). Every other route
+raises ``NotImplementedError`` at those grades, naming ROADMAP Queue 1
+item 4; no route runs another grade in their place. The routes are
+allowed where the grade enters: ``dimfuse.fused_filter_module``,
+``api.backend_module`` (:data:`SPLIT_BACKENDS`), ``overlap2d.
+fused_2d_module`` and ``LastAxisPass`` admit those two and refuse the
+rest. ``high``, the ``f32x*`` grades and ``matmul_dtype="bfloat16"``
+raise.
 """
 
 from __future__ import annotations
@@ -33,20 +45,35 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-_SUPPORTED_PRECISIONS = ("px6", "highest")
+_SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default")
+
+# The reduced grades: split-bf16 products on the 2-D executor and the
+# last-axis pass only (module docstring).
+SPLIT_GRADES = ("px3", "px4", "default")
+SPLIT_ITEM = "ROADMAP Queue 1 item 4"
+# The backends (besides ``einsum``) a reduced grade runs on: ``overlap_k``
+# (its 3-touch executor, else a refusal) and those that read no grade.
+SPLIT_BACKENDS = ("overlap_k", "overlap", "blocked", "scan", "oracle")
 
 # Grades the JAX package has and the port does not yet: each names the
 # ROADMAP item that brings it.
 _UNPORTED_PRECISIONS = {
-    "px3": "Queue 1 item 4 (px3/px4 precision modes)",
-    "px4": "Queue 1 item 4 (px3/px4 precision modes)",
-    "default": "Queue 1 item 4 (the 'default' TF32 throughput mode)",
     "high": "Queue 1 item 4 (the 'high' precision mode)",
     "f32x3": "Queue 1 item 4 (the f32x* split-einsum modes)",
     "f32x4": "Queue 1 item 4 (the f32x* split-einsum modes)",
     "f32x6": "Queue 1 item 4 (the f32x* split-einsum modes)",
     "f32x9": "Queue 1 item 11 (integer-exact f32x9 limbs)",
 }
+
+
+def refuse_split(matmul_precision: str, route: str) -> None:
+    """Raise ``NotImplementedError`` where ``route`` has no split-bf16 form
+    and ``matmul_precision`` is a reduced grade (module docstring)."""
+    if matmul_precision in SPLIT_GRADES:
+        raise NotImplementedError(
+            f"{route} has no split-bf16 form at matmul_precision="
+            f"{matmul_precision!r}: {SPLIT_ITEM} (the reduced grades run "
+            "the 3-touch 2-D executor and the unrotated last-axis pass)")
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
             "scan", "oracle")
@@ -78,7 +105,8 @@ class Plan:
     factor)``.
     ``matmul_dtype``: "float32"; "bfloat16" (bf16 products on the
     ``overlap`` backends) is not ported yet.
-    ``matmul_precision``: "px6" (default) or "highest".
+    ``matmul_precision``: "px6" (default), "highest", or a reduced grade
+    "px3", "px4", "default" (module docstring).
     ``rotate_emit``: layout chaining for single-dimension filters (the
     reference's ``storage_layout`` directive): nonzero opts into the
     contract that the INPUT carries the scanned dimension as its LAST

@@ -13,6 +13,12 @@ does not divide). Per scan, with the scanned axis cut into n tiles of T
 An anticausal scan runs as flip ∘ causal ∘ flip. Every product runs in
 float64 (the port's einsum forms all do: the carries amplify rounding),
 and no kernel launches. Scans apply one at a time, in order.
+
+The tile is the split width widened to the scan's order the way the fused
+executors widen it (``dimfuse._plan_tiles``, a clamp border searching for
+a dividing width): a tile narrower than the order has fewer samples than
+tails. Where no legal tile exists the scan runs the sequential core
+(``scan_core.ScanAxis``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,16 @@ from torch import nn
 
 from . import coeffs
 from .spec import BorderMode, FilterSpec
+
+
+def blocked_tile(w: int, tile_width: int, order: int, clamp: bool):
+    """The blocked tile of a scan of ``order`` along an extent ``w`` split
+    by ``tile_width``: the fused executors' tile plan
+    (``dimfuse._plan_tiles``), or None where no legal tile exists."""
+    from .dimfuse import _plan_tiles
+
+    plan = _plan_tiles(w, tile_width, order, clamp)
+    return None if plan is None else plan[0]
 
 
 def tiled_scan_matrices(feedfwd: float, feedback: Sequence[float],
@@ -47,19 +63,25 @@ def tiled_scan_matrices(feedfwd: float, feedback: Sequence[float],
 
 class BlockedScan(nn.Module):
     """One blocked scan along ``axis`` of arrays whose extent there is
-    ``w``, tiled by ``tile_width`` (capped at ``w``): the JAX package's
-    ``tiled_apply_scan``, with the matrices built once as float64 buffers.
-    Returns the input's type; ``forward_plain`` is ``forward``."""
+    ``w``, tiled by ``tile_width`` widened to the order
+    (:func:`blocked_tile`; ValueError where no legal tile exists): the JAX
+    package's ``tiled_apply_scan``, with the matrices built once as
+    float64 buffers. Returns the input's type; ``forward_plain`` is
+    ``forward``."""
 
     def __init__(self, axis: int, causal: bool, feedfwd: float,
                  feedback: Sequence[float], tile_width: int, w: int,
                  border: str = BorderMode.ZERO):
         super().__init__()
-        T = int(min(tile_width, w))
-        n = -(-w // T)
-        self.axis, self.causal, self.w, self.T, self.n = axis, causal, w, T, n
         self.k = len(tuple(feedback))
         self.clamp = border == BorderMode.CLAMP
+        T = blocked_tile(w, tile_width, self.k, self.clamp)
+        if T is None:
+            raise ValueError(f"no blocked tile for an order-{self.k} scan "
+                             f"along {w} samples split by {tile_width}: the "
+                             "sequential core runs it (BlockedFilter)")
+        n = -(-w // T)
+        self.axis, self.causal, self.w, self.T, self.n = axis, causal, w, T, n
         for name, m in tiled_scan_matrices(feedfwd, feedback, T, n,
                                            self.clamp).items():
             self.register_buffer(name, torch.from_numpy(
@@ -101,8 +123,18 @@ def tiled_apply_scan(x: torch.Tensor, axis: int, causal: bool,
                      tile_width: int,
                      border: str = BorderMode.ZERO) -> torch.Tensor:
     """One blocked scan along ``axis`` of ``x`` (functional
-    :class:`BlockedScan`)."""
-    mod = BlockedScan(axis % x.ndim, causal, feedfwd, feedback, tile_width,
+    :class:`BlockedScan`; the sequential core where no legal tile
+    exists)."""
+    from .scan_core import ScanAxis
+    from .spec import Scan
+
+    axis, k = axis % x.ndim, len(tuple(feedback))
+    if blocked_tile(x.shape[axis], tile_width, k,
+                    border == BorderMode.CLAMP) is None:
+        mod = ScanAxis([Scan(axis, causal, feedfwd, tuple(feedback))], axis,
+                       border)
+        return mod.to(x.device)(x.to(torch.float32)).to(x.dtype)
+    mod = BlockedScan(axis, causal, feedfwd, feedback, tile_width,
                       x.shape[axis], border)
     return mod.to(x.device)(x)
 
@@ -118,9 +150,11 @@ def blocked_scan_last_axis(x: torch.Tensor, feedfwd: float,
 
 class BlockedFilter(nn.Module):
     """The ``blocked`` backend: every scan of ``spec`` in order, a
-    :class:`BlockedScan` on a tiled axis and the sequential core
-    (:class:`.scan_core.ScanAxis`) on an untiled one — the JAX package's
-    ``tiling.apply_filter``. Integer filters run the core
+    :class:`BlockedScan` on a tiled axis with a legal tile
+    (:func:`blocked_tile`) and the sequential core
+    (:class:`.scan_core.ScanAxis`) on an untiled one or where no legal
+    tile exists — the JAX package's ``tiling.apply_filter``, with its
+    tile widened to the order. Integer filters run the core
     (:class:`.scan_core.ScanFilter`), as there. ``forward_plain`` is
     ``forward`` (no kernel)."""
 
@@ -135,12 +169,14 @@ class BlockedFilter(nn.Module):
                          if spec.dtype != "float32" else None)
         tiles = spec.tile_widths or (0,) * spec.ndim
         stages = []
+        clamp = spec.border == BorderMode.CLAMP
         for s in spec.scans:
             T, w = tiles[s.axis], spec.dims[s.axis].extent
             stages.append(
                 BlockedScan(s.axis, s.causal, s.feedfwd, s.feedback, T, w,
-                            spec.border) if T > 0 else
-                scan_core.ScanAxis([s], s.axis, spec.border))
+                            spec.border)
+                if T > 0 and blocked_tile(w, T, s.order, clamp) is not None
+                else scan_core.ScanAxis([s], s.axis, spec.border))
         self.stages = nn.ModuleList(stages)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -188,11 +188,29 @@ def test_unsupported_filters_raise(case):
 @pytest.mark.parametrize("precision", ["px3", "px4", "default", "f32x6",
                                        "high"])
 def test_unported_precisions_raise(precision):
+    """``f32x6`` and ``high`` are refused by the plan. The reduced grades
+    (px3, px4, default) run the 3-touch executor and the unrotated
+    last-axis pass; what is not ported of them is every other route, which
+    raises naming the ROADMAP item — here the rotated emit and a fused
+    ``stencil2d`` bank on the same filter."""
     F = _build(rft, 256, 256, _img(256, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.set_plan(matmul_precision=precision)
-    with pytest.raises(NotImplementedError):
-        rft.apply_filter_fused(F.spec, torch.zeros(256, 256), precision)
+    if precision in ("f32x6", "high"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            F.set_plan(matmul_precision=precision)
+        with pytest.raises(NotImplementedError):
+            rft.apply_filter_fused(F.spec, torch.zeros(256, 256), precision)
+        return
+    F.set_plan(matmul_precision=precision)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        F.as_func(stencil2d=[[(0, 1, 1.0)]], device="cpu")
+    Fx = rft.RecFilter("XOnly")
+    x, y = rft.Dim("x", 256), rft.Dim("y", 256)
+    Fx[y, x] = _img(256, 256)
+    Fx.add_filter(+x, rft.gaussian_weights(5.0, 3))
+    Fx.split(x, 128)
+    Fx.set_plan(matmul_precision=precision, rotate_emit=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        Fx.as_func(device="cpu")
 
 
 def test_untiled_and_other_backends_raise():

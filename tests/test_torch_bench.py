@@ -71,7 +71,7 @@ def test_copy_twin(shape):
 
 
 def test_main_prints_bench_keys_on_the_cpu(capsys):
-    """``main(device="cpu")`` prints bench.py's JSON keys (all but
+    """``main(device="cpu")`` prints bench.py's JSON keys (with
     ``throughput_mode_mpix_s``), the device and the bandwidth, and its
     stderr line."""
     out = tbench.main(device="cpu", h=256, w=256, iterations=3)
@@ -80,7 +80,7 @@ def test_main_prints_bench_keys_on_the_cpu(capsys):
     assert printed == out
     assert set(out) == {"metric", "value", "unit", "vs_baseline",
                         "precision_mode", "pipeline", "device",
-                        "measured_bw_gb_s"}
+                        "measured_bw_gb_s", "throughput_mode_mpix_s"}
     assert out["metric"] == "gaussian_iir_4k_mpix_s"
     assert out["unit"] == "Mpix/s"
     assert out["precision_mode"] == "px6 (true-f32 default)"
@@ -88,10 +88,11 @@ def test_main_prints_bench_keys_on_the_cpu(capsys):
                                "glue carries)")
     assert out["device"].startswith("cpu")
     # host-clock numbers of a loaded CPU: finite, not measured values
-    for key in ("value", "vs_baseline", "measured_bw_gb_s"):
+    for key in ("value", "vs_baseline", "measured_bw_gb_s",
+                "throughput_mode_mpix_s"):
         assert isinstance(out[key], float) and np.isfinite(out[key])
     assert "[bench] platform=cpu" in lines.err
-    assert "throughput mode: not run" in lines.err
+    assert "[throughput mode: " in lines.err and "Mpix/s]" in lines.err
 
 
 def test_main_names_the_routes(monkeypatch, capsys):
@@ -110,3 +111,29 @@ def test_bench_refuses_to_run_without_a_card():
         tbench.main()
     with pytest.raises(RuntimeError, match="cuda"):
         tbench.measure_bandwidth(256, 256)
+
+
+@pytest.mark.parametrize("h,w", [(256, 256), (256, 384)])
+def test_throughput_mode_filter_matches_root_bench(h, w):
+    """The throughput mode's filter: ``bench.py``'s at
+    ``matmul_precision="default"``, on ``final2d_split`` at one product
+    (the CPU twin here), within 3e-2 of the f64 oracle's peak and closer
+    to it than the root bench's own throughput-mode filter, which takes
+    one product on the carries too and lands past 3e-2 of the peak here
+    (the port takes three there: ``split.carry_nprod``)."""
+    from recfilter_tpu_torch.kernels.final2d import Final2DSplit
+
+    Ft = tbench._build_filter(h, w)
+    Ft.set_plan(matmul_precision="default")
+    fn = Ft.as_func(device="cpu")
+    assert isinstance(fn.final, Final2DSplit) and fn.final.nprod == 1
+    Fj = _root_bench()._build_filter(h, w)
+    Fj.set_plan(matmul_precision="default")
+    img = (np.random.default_rng(0).standard_normal((h, w)) * 0.01
+           ).astype(np.float32)
+    got = fn(torch.from_numpy(img)).numpy()
+    want = np.asarray(Fj.realize(jnp.asarray(img)))
+    oracle = jsc.oracle_apply(Fj.spec, img.astype(np.float64))
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 3e-2 * peak
+    assert np.abs(got - oracle).max() < np.abs(want - oracle).max()

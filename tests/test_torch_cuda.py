@@ -20,6 +20,7 @@ from recfilter_tpu_torch.apps import (audio_filter_high_order,
 from recfilter_tpu_torch.kernels import completion as tc
 from recfilter_tpu_torch.kernels import final2d as tk2d
 from recfilter_tpu_torch.kernels import launch as tl
+from recfilter_tpu_torch.kernels import split_mm as smm
 from recfilter_tpu_torch.spec import Scan
 
 P, NA, NB, T = 2, 3, 4, 128
@@ -1459,3 +1460,151 @@ def test_carry_routes_on_the_card(bsolve, naf, border, dev):
         want = rft.oracle_apply(spec, img.astype(np.float64))
         err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
         assert err <= 2e-6
+
+
+# ------------------------------------------- the reduced grades (split bf16)
+
+def _split_mats(kind, rng=None):
+    """The 2-D test filter's matrices (``_modules``'s), or, with ``rng``,
+    integer-valued matrices in {-1, 0, 1} of the same variant layout."""
+    clamp, pad_a, pad_b = STACKS[kind]
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [Scan(0, True, w3[0], tuple(w3[1:])),
+         Scan(0, False, w3[0], tuple(w3[1:]))]
+    b = [Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
+         Scan(1, False, 1.1, (0.5, 0.2))]
+    ma = tdf.prepare_dim_pass(a, T, NA, clamp, pad_slots=pad_a)
+    mb = tdf.prepare_dim_pass(b, T, NB, clamp, pad_slots=pad_b)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    mats = [np.asarray(ma.Btot), cat(ma.Rhat, 2), np.asarray(mb.Btot),
+            cat(mb.Rhat, 2)]
+    if rng is not None:
+        mats = [rng.integers(-1, 2, m.shape).astype(np.float64)
+                for m in mats]
+    return mats
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_final2d_split_matches_twin(kind, nprod, dev):
+    """``final2d_split`` within 1e-5 of its twin's peak per output (fp32
+    sums in another order). At one product the two also round their own
+    Z to bf16: held on top at ``resplit_bound`` (nonzero only where a Z
+    value lies within the kernel's summation error of a rounding
+    boundary), and, as a control, the twin at three products lies outside
+    that limit. Bit for bit on integer matrices and inputs that need two
+    bf16 chunks a value, where every sum is exact, so one product and
+    three give different results."""
+    mats = _split_mats(kind)
+    mod = tk2d.Final2DSplit(*mats, NA, NB, nprod).to(dev)
+    x, NA_t, NB_t = _inputs(dev)
+    tl.reset_launches()
+    y = mod(x, NA_t, NB_t)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(final2d_split=1)
+    want = mod.plain(x, NA_t, NB_t)
+    lim = 1e-5 * want.abs().max() + mod.resplit_bound(x, NA_t)
+    assert bool(((y - want).abs() <= lim).all())
+    if nprod == 1:
+        y3 = tk2d.Final2DSplit(*mats, NA, NB, 3).to(dev).plain(x, NA_t, NB_t)
+        assert bool(((y - y3).abs() > lim).any())
+    rng = np.random.default_rng(3)
+    imod = tk2d.Final2DSplit(*_split_mats(kind, rng), NA, NB, nprod).to(dev)
+    ints = [torch.from_numpy(rng.integers(-300, 301, t.shape)
+                             .astype(np.float32)).to(dev)
+            for t in (x, NA_t, NB_t)]
+    assert torch.equal(imod(*ints), imod.plain(*ints))
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+@pytest.mark.parametrize("S,q", [(6, 300), (29, 77), (56, 8)])
+def test_completion_split_matches_twin(kind, nprod, S, q, dev):
+    """``completion_split`` within 1e-5 of its twin's peak."""
+    rng = np.random.default_rng(S)
+    n = 3
+    B = _stack(kind, T, T, n, rng)
+    R = _stack(kind, T, S, n, rng, 0.1)
+    mod = tc.CompletionSplit(B, R, n, nprod).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32))
+    N = torch.zeros((n, mod.sl, q))
+    N[:, :S] = torch.from_numpy(
+        rng.standard_normal((n, S, q)).astype(np.float32))
+    x, N = x.to(dev), N.to(dev)
+    tl.reset_launches()
+    y = mod(x, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_split=1)
+    assert _rel(y, mod.plain(x, N)) <= 1e-5
+
+
+def _probe_inputs(dev, L=256, n=3, S=6, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+    return (t(rng.standard_normal((L, n * T)) * 0.01),
+            (rng.standard_normal((T, T)) / np.sqrt(T)).astype(np.float32),
+            t(rng.standard_normal((L, S)) * 0.01),
+            (rng.standard_normal((T, S)) * 0.1).astype(np.float32))
+
+
+# (nprod, emit, carry, stack): px6 takes no carry in the contraction (its
+# operands would outgrow the block's shared memory; the launch refuses it)
+SPLIT_MM_FORMS = [(n, e, c, st) for n in (1, 3, 4, 6) for e, c, st in (
+    (0, 0, False), (1, 1, False), (1, 2, False), (2, 1, False),
+    (2, 2, False), (1, 0, True), (0, 0, True)) if not (n == 6 and c == 1)]
+
+
+@pytest.mark.parametrize("nprod,emit,carry,stack", SPLIT_MM_FORMS)
+def test_split_mm_matches_twin(nprod, emit, carry, stack, dev):
+    """The study's bf16 entry on every emit, carry and stacking form,
+    against its twin at 1e-5 of the peak."""
+    x, B, N, R = _probe_inputs(dev)
+    C = smm.bf16_operand(B, nprod, R if carry == 1 else None).to(dev)
+    kw = dict(nprod=nprod, emit=emit, carry=carry, stack=stack,
+              N=N if carry else None,
+              R=torch.from_numpy(R).to(dev) if carry == 2 else None)
+    y = smm.split_mm(x, C, nt=2, lb=256, **kw)
+    want = smm.split_mm(x.cpu(), C.cpu(), **{
+        k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+        for k, v in kw.items()})
+    assert _rel(y.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("emit,carry", [(0, 0), (1, 1), (0, 1)])
+def test_split_mm_tf32_and_fp32_match_twins(emit, carry, dev):
+    x, B, N, R = _probe_inputs(dev, seed=1)
+    Nk = N if carry else None
+    for npass in (1, 3):
+        Bf = smm.tf32_operand(B, R if carry else None)
+        y = smm.split_mm_tf32(x, Bf.to(dev), npass=npass, emit=emit,
+                              carry=carry, N=Nk)
+        want = smm.split_mm_tf32(x.cpu(), Bf, npass=npass, emit=emit,
+                                 carry=carry, N=None if Nk is None
+                                 else Nk.cpu())
+        assert _rel(y.cpu(), want) <= 1e-5
+    Bk = smm.fp32_operand(B, R if carry else None)
+    y = smm.split_mm_fp32(x, Bk.to(dev), emit=emit, carry=carry, N=Nk)
+    want = smm.split_mm_fp32(x.cpu(), Bk, emit=emit, carry=carry,
+                             N=None if Nk is None else Nk.cpu())
+    assert _rel(y.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("precision,bound", [("px3", 1e-4), ("px4", 8e-5),
+                                             ("default", 3e-2)])
+def test_headline_at_the_reduced_grades_on_the_card(precision, bound, dev):
+    """The headline Gaussian at 512² through ``as_func`` at each reduced
+    grade: ``moments2d`` then ``final2d_split``, within the grade's bound
+    of the f64 oracle."""
+    from recfilter_tpu_torch import scan_core
+    from recfilter_tpu_torch.bench import _build_filter
+
+    F = _build_filter(512, 512)
+    F.set_plan(matmul_precision=precision)
+    img = (np.random.default_rng(0).standard_normal((512, 512)) * 0.01
+           ).astype(np.float32)
+    fn = F.as_func()
+    tl.reset_launches()
+    y = fn(torch.from_numpy(img).to(dev)).cpu().numpy()
+    assert tl.LAUNCHES == _only(moments2d=1, final2d_split=1)
+    want = scan_core.oracle_apply(F.spec, img.astype(np.float64))
+    assert np.abs(y - want).max() <= bound * np.abs(want).max()

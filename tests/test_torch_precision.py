@@ -1,0 +1,492 @@
+"""The reduced precision grades (px3, px4, default) on the CPU twins
+against the JAX package: the chunk algebra bit for bit, the two split
+kernels' twins against the JAX px kernels in interpret mode, the whole
+slice through ``RecFilter.as_func`` against the f64 oracle and the JAX
+``apply_filter_fused``, every route without a split form raising, and the
+``blocked`` backend's tile repair.
+
+The bounds are the JAX package's (``tests/test_dimfuse.py:454``,
+``tests/test_overlap2d.py:438``): 1e-4 (px3), 8e-5 (px4) and 3e-2
+(default) of the oracle's peak.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import recfilter_tpu as jrf
+from recfilter_tpu import dimfuse as jdf
+from recfilter_tpu import scan_core as jsc
+from recfilter_tpu import spec as jspec
+from recfilter_tpu.kernels import completion as jc
+from recfilter_tpu.kernels import final2d as jk2d
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch import fir as tfir
+from recfilter_tpu_torch import scan_core as tsc
+from recfilter_tpu_torch import spec as tspec
+from recfilter_tpu_torch.kernels import completion as tc
+from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.kernels import split
+from recfilter_tpu_torch.overlap2d import Fused2DPx
+
+T = 128
+BOUNDS = {"px3": 1e-4, "px4": 8e-5, "default": 3e-2}
+GRADES = list(BOUNDS)
+
+
+def _img(*shape, seed=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# ------------------------------------------------------ (a) the chunk algebra
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_data_split_is_the_jax_split(n):
+    """``split_data`` = ``_split_vmem`` bit for bit; three chunks rebuild
+    float32 exactly."""
+    x = _img(8, 128, seed=9)
+    x[0, :4] = [1e-30, -3e38, 0.0, 1.0 + 2.0 ** -23]
+    got = split.split_data(torch.from_numpy(x), n)
+    want = jc._split_vmem(jnp.asarray(x), n)
+    assert len(got) == len(want) == n
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            g.view(torch.int16).numpy(),
+            np.asarray(w).view(np.int16))
+    if n == 3:
+        back = sum(c.float() for c in got)
+        np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_const_split_is_the_jax_split(n):
+    """``split_const`` = ``_split_const_np`` bit for bit, on float64
+    constants (float32 first, then bfloat16, residuals in float64)."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((3, 17, 40)) * 10.0 ** rng.integers(-6, 3,
+                                                                 (3, 17, 40))
+    got = split.split_const(M, n)
+    want = jc._split_const_np(M, n)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            g.view(torch.int16).numpy(),
+            np.asarray(w, ml_dtypes.bfloat16).view(np.int16))
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4, 6])
+def test_pairs_and_levels_are_the_jax_ones(nprod):
+    assert split.prods(nprod) == jc._prods(nprod)
+    assert split.nchunks(nprod) == jc._nchunks(nprod)
+    assert split.level_groups(nprod) == jc._level_groups(nprod)
+
+
+# --------------------------------------- (b) final2d_split's twin vs final2d_px
+
+def _mats2d(clamp, na, nb, small=False):
+    """The per-tile stacks of a 2-D pair: the σ=5 Gaussian on dim A and
+    orders 3 + 2 on dim B, or (``small``) carries of at most 2 slots a
+    dim — first-order scans both ways on A, one second-order scan on B."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    if small:
+        a = [jspec.Scan(0, True, 0.4, (0.6,)),
+             jspec.Scan(0, False, 0.5, (0.5,))]
+        b = [jspec.Scan(1, True, 0.8, (0.6, -0.2))]
+    else:
+        a = [jspec.Scan(0, True, w3[0], tuple(w3[1:])),
+             jspec.Scan(0, False, w3[0], tuple(w3[1:]))]
+        b = [jspec.Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
+             jspec.Scan(1, False, 1.1, (0.5, 0.2))]
+    ma = jdf.prepare_dim_pass(a, T, na, clamp)
+    mb = jdf.prepare_dim_pass(b, T, nb, clamp)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    return (np.asarray(ma.Btot), cat(ma.Rhat, 2), np.asarray(mb.Btot),
+            cat(mb.Rhat, 2))
+
+
+def _expand(M, n):
+    """A (n|1, ...) per-tile stack as n tiles, float64."""
+    M = np.asarray(M, np.float64)
+    return np.broadcast_to(M, (n,) + M.shape[1:]) if M.shape[0] == 1 else M
+
+
+def _final2d_f64(mats, xs, na, nb):
+    """``final2d``'s function in float64 from the per-tile stacks:
+    Y = [Z; NBᵀ]·Bᵀ with Z = A·[x; NA]."""
+    Ba, Ra, Bb, Rb = mats
+    A = np.concatenate([_expand(Ba, na), _expand(tk2d._pad_slots(Ra), na)],
+                       -1)
+    B = np.concatenate([_expand(Bb, nb), _expand(tk2d._pad_slots(Rb), nb)],
+                       -1)
+    x, NA, NB = (a.astype(np.float64) for a in xs)
+    p = x.shape[0]
+    z = np.einsum("ask,pakw->pasw", A, np.concatenate([x, NA], 2))
+    nbr = NB.reshape(p, na, nb, 8, T).transpose(0, 1, 4, 2, 3)
+    y = np.einsum("bok,pasbk->pasbo", B, np.concatenate(
+        [z.reshape(p, na, T, nb, T), nbr], -1))
+    return y.reshape(p, na, T, nb * T)
+
+
+def _widen_carries(R, N):
+    """A carry product R·N at one product as the three products (0,1),
+    (1,0), (0,0) of their two-chunk splits (the JAX package's
+    ``_split_const_np`` and ``_split_vmem``): [R₀ | R₁ | R₀] against
+    [N₁; N₀; N₀] on the slot axis (-2 of N), zero-padded to the 8-row
+    slot. Every chunk is bf16, so a one-product split leaves it as it
+    is."""
+    K = np.shape(R)[-1]
+    assert 3 * K <= 8, "three products of the carries fill at most 8 slots"
+    R0, R1 = (np.asarray(c, np.float32).astype(np.float64)
+              for c in jc._split_const_np(np.asarray(R, np.float64), 2))
+    n = np.ascontiguousarray(N[..., :K, :])
+    N0, N1 = (np.asarray(c, np.float32) for c in jc._split_vmem(
+        jnp.asarray(n), 2))
+    pad = np.zeros(n.shape[:-2] + (8 - 3 * K, n.shape[-1]), np.float32)
+    return (tk2d._pad_slots(np.concatenate([R0, R1, R0], -1)),
+            np.concatenate([N1, N0, N0, pad], -2))
+
+
+def _final2d_px_port_carries(ms, xs, na, nb):
+    """The JAX kernel with the port's carry grade at one product:
+    ``final2d_px(nprod=1)`` on carries widened to three products
+    (:func:`_widen_carries`) — one product on the image rows, three on
+    the carry rows, as ``final2d_split`` takes them."""
+    Ba, Ra, Bb, Rb = ms
+    x, NA, NB = xs
+    p = x.shape[0]
+    Ra3, NA3 = _widen_carries(Ra, NA)
+    nbr = NB.reshape(p, na, nb, 8, T)
+    Rb3, NB3 = _widen_carries(Rb, nbr)
+    return np.asarray(jk2d.final2d_px(
+        jnp.asarray(x), Ba, Ra3, Bb, Rb3, jnp.asarray(NA3),
+        jnp.asarray(NB3.reshape(p, na, nb * 8, T)), nprod=1,
+        interpret=True))
+
+
+def _ints(shapes, rng, lo, hi, dtype):
+    return [rng.integers(lo, hi + 1, s).astype(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_final2d_split_twin_matches_final2d_px(clamp, nprod):
+    """p = 1, na = 2, Ta = 128, W = 256: within 1e-5 of the JAX kernel's
+    peak (summation order) per output, plus, at one product, the bound of
+    the two bf16 roundings of Z (``Final2DSplit.resplit_bound``: nonzero
+    only where a Z value lies within both sums' error of a rounding
+    boundary); bit for bit on integer matrices and inputs that need two
+    bf16 chunks a value, where every sum is exact.
+
+    At one product the port takes three products on the carry rows
+    (``split.carry_nprod``) where the JAX kernel takes one, so there the
+    JAX kernel runs on carries widened to those three products
+    (:func:`_final2d_px_port_carries`, carries of at most 2 slots). As a
+    control, the twin at three products lies outside that limit. On the
+    Gaussian's 6-slot carries the twin lies closer to the float64 product
+    than ``final2d_px`` at one product does."""
+    na = nb = 2
+    ins = [_img(1, na, T, nb * T, seed=1), _img(1, na, 8, nb * T, seed=2),
+           _img(1, na, nb * 8, T, seed=3)]
+    rng = np.random.default_rng(4)
+    iins = _ints([a.shape for a in ins], rng, -300, 300, np.float32)
+    mats = _mats2d(clamp, na, nb, small=nprod == 1)
+    imats = _ints([m.shape for m in mats], rng, -1, 1, np.float64)
+    if nprod == 1:
+        def ref(ms, xs):
+            return _final2d_px_port_carries(ms, xs, na, nb)
+    else:
+        def ref(ms, xs):
+            return np.asarray(jk2d.final2d_px(
+                jnp.asarray(xs[0]), *ms, jnp.asarray(xs[1]),
+                jnp.asarray(xs[2]), nprod=nprod, interpret=True))
+    for ms, xs, held in ((imats, iins, "exact"), (mats, ins, "tight")):
+        want = ref(ms, xs)
+        mod = tk2d.Final2DSplit(*ms, na, nb, nprod)
+        tx = [torch.from_numpy(a) for a in xs]
+        got = mod(*tx).numpy()
+        if held == "exact":
+            np.testing.assert_array_equal(got, want)
+            continue
+        lim = 1e-5 * np.abs(want).max() + mod.resplit_bound(*tx[:2]).numpy()
+        assert (np.abs(got - want) <= lim).all()
+        if nprod == 1:  # the control: three products on the image rows
+            y3 = tk2d.Final2DSplit(*ms, na, nb, 3)(*tx).numpy()
+            assert (np.abs(y3 - want) > lim).any()
+    if nprod == 1:
+        gm = _mats2d(clamp, na, nb)
+        want = np.asarray(jk2d.final2d_px(
+            jnp.asarray(ins[0]), *gm, jnp.asarray(ins[1]),
+            jnp.asarray(ins[2]), nprod=1, interpret=True))
+        got = tk2d.Final2DSplit(*gm, na, nb, 1)(
+            *(torch.from_numpy(a) for a in ins)).numpy()
+        y64 = _final2d_f64(gm, ins, na, nb)
+        assert np.abs(got - y64).max() < np.abs(want - y64).max()
+
+
+# ---------------------------------- (c) completion_split's twin vs completion
+
+@pytest.mark.parametrize("clamp,n,q", [(False, 3, 40), (True, 4, 24)])
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_completion_split_twin_matches_completion_pass(clamp, n, q, nprod):
+    """Within 1e-5 of ``completion_pass(rot=False)``'s peak. At one
+    product the port takes three on the carry rows, where the JAX kernel
+    takes one: the completion is linear, so there the twin is held to
+    ``completion_pass`` at one product without the carries plus
+    ``completion_pass`` at three on the carries alone — and, as a
+    control, lies outside the limit of the JAX kernel at one product."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    sc = [jspec.Scan(0, True, w3[0], tuple(w3[1:])),
+          jspec.Scan(0, False, w3[0], tuple(w3[1:]))]
+    m = jdf.prepare_dim_pass(sc, T, n, clamp)
+    Rc = np.concatenate([np.asarray(r) for r in m.Rhat], axis=2)
+    S = Rc.shape[-1]
+    x = _img(q, n, T, seed=5)
+    N = _img(n, 8, q, seed=6)
+    N[:, S:] = 0.0
+    mod = tc.CompletionSplit(np.asarray(m.Btot), Rc, n, nprod)
+
+    def jax_pass(xk, Nk, k):
+        return np.asarray(jc.completion_pass(
+            jnp.asarray(xk), np.asarray(m.Btot), Rc, jnp.asarray(Nk),
+            rot=False, nprod=k, interpret=True, carries_transposed=True))
+
+    got = mod(torch.from_numpy(x), torch.from_numpy(N)).numpy()
+    if nprod == 1:
+        want = jax_pass(x, 0 * N, 1) + jax_pass(0 * x, N, 3)
+    else:
+        want = jax_pass(x, N, nprod)
+    lim = 1e-5 * np.abs(want).max()
+    assert np.abs(got - want).max() <= lim
+    if nprod == 1:
+        assert np.abs(got - jax_pass(x, N, 1)).max() > lim
+
+
+# ----------------------------------------- (d) the slice through the API
+
+def _filter(rf, kind, img, clamp=False):
+    """The same filter in either package: the 2-D spec of
+    ``test_overlap2d.py::test_px_path_throughput_mode``, the σ=5 Gaussian
+    on x and y, or the 1-D spec of ``test_dimfuse.py``'s precision test
+    (two 3rd-order scans on x, tile 128)."""
+    h, w = img.shape
+    x, y = rf.Dim("x", w), rf.Dim("y", h)
+    F = rf.RecFilter(kind)
+    if clamp:
+        F.set_clamped_image_border()
+    F[y, x] = img
+    if kind == "two-scans":
+        F.add_filter(+x, (0.9, 0.6, 0.2))
+        F.add_filter(-y, (1.05, 0.4, 0.15))
+        F.split(x, 128, y, 128)
+    elif kind == "gaussian":
+        for d in (+x, -x, +y, -y):
+            F.add_filter(d, rf.gaussian_weights(5.0, 3))
+        F.split(x, 128, y, 128)
+    else:
+        F.add_filter(+x, (0.9, 0.6, 0.25, -0.1))
+        F.add_filter(-x, (1.1, 0.5, 0.2, 0.05))
+        F.split(x, 128)
+    return F
+
+
+@pytest.mark.parametrize("kind,shape", [("two-scans", (128, 256)),
+                                        ("gaussian", (128, 256)),
+                                        ("1-D", (64, 256))])
+@pytest.mark.parametrize("grade", GRADES)
+def test_the_slice_through_as_func(kind, shape, grade):
+    """Each filter at each reduced grade through ``as_func`` on the CPU
+    twins: the 2-D filters on ``Fused2DPx`` with ``final2d_split``, the
+    1-D one on the unrotated ``LastAxisPass`` with ``completion_split``;
+    within the grade's bound of the f64 oracle and of the JAX package's
+    ``apply_filter_fused`` at the same grade."""
+    img = _img(*shape, seed=7)
+    Ft, Fj = _filter(rft, kind, img), _filter(jrf, kind, img)
+    Ft.set_plan(matmul_precision=grade)
+    mod = Ft.as_func(device="cpu")
+    if kind == "1-D":
+        assert isinstance(mod.body, tdf.LastAxisPass) and not mod.body.rot
+        assert isinstance(mod.body.completion, tc.CompletionSplit)
+        assert mod.body.completion.nprod == split.NPROD[grade]
+    else:
+        assert isinstance(mod, Fused2DPx)
+        assert isinstance(mod.final, tk2d.Final2DSplit)
+        assert mod.final.nprod == split.NPROD[grade]
+    got = mod(torch.from_numpy(img)).numpy()
+    oracle = jsc.oracle_apply(Fj.spec, img.astype(np.float64))
+    peak = np.abs(oracle).max()
+    bound = BOUNDS[grade] * peak
+    assert np.abs(got - oracle).max() <= bound
+    want = np.asarray(jdf.apply_filter_fused(Fj.spec, jnp.asarray(img),
+                                             matmul_precision=grade))
+    assert np.abs(got - want).max() <= bound
+
+
+# ------------------------------------- (e) the routes without a split form
+
+def _declined2d():
+    """The Gaussian on a clamp border at 200 × 300: extents that are not
+    tile multiples, so the 3-touch executor declines it."""
+    return _filter(rft, "gaussian", _img(200, 300), clamp=True)
+
+
+def _y_only(h, w):
+    x, y = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("YOnly")
+    F[y, x] = _img(h, w)
+    F.add_filter(+y, rft.gaussian_weights(5.0, 3))
+    F.split(y, 128)
+    return F
+
+
+def _volume():
+    z, y, x = rft.Dim("z", 128), rft.Dim("y", 128), rft.Dim("x", 128)
+    F = rft.RecFilter("Vol")
+    F[z, y, x] = _img(128, 128, 128, scale=0.01)
+    for d in (+z, +y, +x):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split({z: 128, y: 128, x: 128})
+    return F
+
+
+def _x_only(h, w, tile=128):
+    x, y = rft.Dim("x", w), rft.Dim("y", h)
+    F = rft.RecFilter("XOnly")
+    F[y, x] = _img(h, w)
+    F.add_filter(+x, rft.gaussian_weights(5.0, 3))
+    F.split(x, tile)
+    return F
+
+
+def _as_func(F, grade, **plan):
+    F.set_plan(matmul_precision=grade, **plan)
+    return F.as_func(device="cpu")
+
+
+def _chained_pass(grade):
+    sc = [tspec.Scan(1, True, 1.0, (0.5,))]
+    G = np.ones((1, 1, 128))
+    return tdf.LastAxisPass(sc, (128, 2, 0), False, grade, rot_axes=2,
+                            next_tails=(G, 2, 128))
+
+
+ROUTES = {
+    "rows pass": lambda g: _as_func(_y_only(512, 256), g),
+    "volumes": lambda g: _as_func(_volume(), g),
+    "rotated emit": lambda g: _as_func(_x_only(256, 256), g, rotate_emit=2),
+    "tails chaining": _chained_pass,
+    "rotation chain": lambda g: _as_func(_declined2d(), g),
+    "FusedAxisPass": lambda g: tdf.FusedAxisPass(
+        [tspec.Scan(0, True, 1.0, (0.5,))], 0, (256, 64), 32, "zero", g),
+    "strip kernels": lambda g: _as_func(_x_only(64, 256), g,
+                                        backend="pallas"),
+    "FIR band": lambda g: tfir.fir_pass_last(
+        torch.zeros(8, 256), [0.5, 0.5], matmul_precision=g),
+    "supertile hierarchy": lambda g: tdf.hierarchical_dim_pass(
+        torch.zeros(200_000), 0, [tspec.Scan(0, True, 1.0, (0.5,))],
+        "zero", g),
+    "einsum form (lines)": lambda g: _as_func(_x_only(4, 256), g)(
+        torch.zeros(4, 256)),
+    "HIGHEST pair": lambda g: _as_func(_declined2d(), g,
+                                       backend="overlap_k"),
+}
+
+
+def _stencil_route(g):
+    F = _filter(rft, "gaussian", _img(256, 256))
+    F.set_plan(matmul_precision=g)
+    return F.as_func(stencil2d=[[(1, 0, 0.5), (0, 1, 0.5)]], device="cpu")
+
+
+ROUTES["final2d_stencil"] = _stencil_route
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("grade", GRADES)
+def test_routes_without_a_split_form_raise(route, grade):
+    """No route runs another grade, another device or a twin in place of
+    a reduced grade: each without a split form names the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        ROUTES[route](grade)
+
+
+def test_the_refused_builders_run_at_px6():
+    """Some of the same builders at px6 run: the refusals are the
+    grade's."""
+    _as_func(_y_only(512, 256), "px6")
+    _as_func(_x_only(256, 256), "px6", rotate_emit=2)
+    _chained_pass("px6")
+
+
+# -------------------------------------- (f) the blocked backend's tile repair
+
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+@pytest.mark.parametrize("tile", [2, 3])
+def test_blocked_split_narrower_than_the_order(border, tile):
+    """The σ=5 Gaussian (order 3) at 41 × 43 split by 2 and 3 on the
+    ``blocked`` backend: the tile widens to the order (or the core runs
+    the scan), within 2e-6 of the f64 oracle."""
+    img = _img(41, 43, seed=11)
+    x, y = rft.Dim("x", 43), rft.Dim("y", 41)
+    F = rft.RecFilter("G")
+    if border == "clamp":
+        F.set_clamped_image_border()
+    F[y, x] = img
+    for d in (+x, -x, +y, -y):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split(x, tile, y, tile)
+    F.set_plan(backend="blocked")
+    got = F.realize(img, device="cpu").numpy()
+    want = tsc.oracle_apply(F.spec, img.astype(np.float64))
+    assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+
+
+def test_the_grades_never_import_jax():
+    """With jax made unimportable, the port imports the split modules and
+    runs the headline filter at 256² at each reduced grade and a 1-D
+    pass over 16 lines at px3 on the CPU twins, each within its bound of
+    the oracle."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import recfilter_tpu_torch as rft
+        from recfilter_tpu_torch import bench
+        from recfilter_tpu_torch.kernels import split, split_mm
+        img = (np.random.default_rng(0).standard_normal((256, 256)) * 0.01
+               ).astype(np.float32)
+        for g, b in (("default", 3e-2), ("px3", 1e-4), ("px4", 8e-5)):
+            F = bench._build_filter(256, 256)
+            F.set_plan(matmul_precision=g)
+            got = F.realize(img, device="cpu").numpy()
+            want = rft.oracle_apply(F.spec, img.astype(np.float64))
+            assert np.abs(got - want).max() <= b * np.abs(want).max(), g
+        c, x = rft.Dim("c", 16), rft.Dim("x", 512)
+        A = rft.RecFilter("A")
+        A[c, x] = img.reshape(128, 512)[:16]
+        A.add_filter(+x, (0.9, 0.6, 0.25, -0.1))
+        A.split(x, 128)
+        A.set_plan(matmul_precision="px3")
+        got = A.realize(device="cpu").numpy()
+        want = rft.oracle_apply(A.spec, A._image.astype(np.float64))
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+        assert not any(m == "jax" or m.startswith(("jax.", "recfilter_tpu."))
+                       or m == "recfilter_tpu" for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("grades-ok")
+    """)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=repo, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "grades-ok" in out.stdout
