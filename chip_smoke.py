@@ -283,7 +283,23 @@ Phases:
      launches are that run's); phase 3m times them beside their twins
      (``torch.matmul`` the library form where one call computes the
      probe's function) and the headline at px6 and the three grades in
-     turns;
+     turns; phase 3n holds the int8 probes' studies to their twins at
+     their shapes (``scripts/int8_ozaki_exp.py``: ``ozaki_i8`` bit-equal,
+     ``dual_px6`` within 1e-6 of its twin's peak, both within px6's 2e-6
+     of the f64 product, at x (1, 32, 128, 4096); ``int8_rate_probe.py``:
+     ``gemm_i8`` bit-equal and its int32 sums equal to the int64 product,
+     ``gemm_bf16`` within 1e-2 of its twin's peak, at 4096³;
+     ``int_kernel_probe2.py``/``int_kernel_probe3.py``: ``int_scan`` on
+     19584 and 19528 × 4096 int32 bit-equal to an int64 cumsum masked to
+     32 bits, through its wrapper and launched directly), launches each
+     once (studies: the launches are that run's) and times each beside its
+     twin and ``torch._int_mm`` / ``torch.matmul`` / ``torch.cumsum``;
+     phase 3o runs an int32 4096² clamp-border SAT on the integer limb
+     route (two axes of four 10-bit limbs through float64 f32x9 passes, no
+     launch; bit-exact against the integer oracle) and the headline at
+     the split-einsum grades f32x3, f32x4, f32x6, ``high`` and f32x9 (the
+     rotation chain's einsum passes, no launch; within 2e-4, 8e-5, 4e-6,
+     2e-4 and 4e-6 of the f64 oracle), timed in turns with px6;
   4. gradients of sum(y²) through the kernel path against the plain path,
      within rtol = atol = 1e-4: 2-D at 512², 1-D at 300,000 samples (order
      3, the hierarchy), a 128 × 128 × 256 volume, ``box_filter_3`` at
@@ -357,7 +373,12 @@ PEAK_BF16, PEAK_TF32 = 989e12, 495e12
 # the reduced precision grades and their bounds (share of the f64 oracle's
 # peak; tests/test_dimfuse.py:454, tests/test_overlap2d.py:438)
 GRADE_BOUNDS = {"default": 3e-2, "px3": 1e-4, "px4": 8e-5}
+# the split-einsum grades' bounds on an n-D filter (tests/test_fuzz.py:25-28;
+# high held to f32x3's, f32x9 to px6's)
+EINSUM_BOUNDS = {"f32x3": 2e-4, "f32x4": 8e-5, "f32x6": 4e-6, "high": 2e-4,
+                 "f32x9": 4e-6}
 PEAK_INT32 = 132 * 64 * 1.98e9  # int32 adds/s (module docstring)
+PEAK_INT8 = 1979e12  # dense int8 tensor-core operations/s (data sheet)
 
 
 def check(ok, what):
@@ -671,6 +692,124 @@ def split_probes(dev):
                      lambda v, k=kern, c=op, a=kw: k(v, c, **a),
                      lambda v, k=plain, c=op, a=kw: k(v, c, **a), lib, x,
                      tensor_bytes(x, x, op, *extra), ops, rate))
+    return rows
+
+
+def dual_block(W=4096):
+    """The dual completion's study inputs (``scripts/int8_ozaki_exp.py``):
+    x (1, W/128, 128, W)·0.7 from seed 0 and the σ=5 Gaussian pair's Btot
+    (128 × 128, float64), both constants of the dual completion."""
+    import numpy as np
+
+    from recfilter_tpu_torch import dimfuse, iir
+    from recfilter_tpu_torch.spec import Scan
+
+    w = iir.gaussian_weights(5.0, 3)
+    scans = [Scan(1, True, w[0], tuple(w[1:])),
+             Scan(1, False, w[0], tuple(w[1:]))]
+    B = np.asarray(dimfuse.prepare_dim_pass(scans, 128, W // 128,
+                                            False).Btot, np.float64)[0]
+    x = (np.random.default_rng(0).standard_normal((1, W // 128, 128, W))
+         * 0.7).astype(np.float32)
+    return x, B
+
+
+def dual_f64(B, x):
+    """(Ba·x)·Bbᵀ per 128-wide sub-tile in float64, Ba = Bb = B (x a
+    tensor (P, na, 128, W))."""
+    import torch
+
+    Bd = torch.from_numpy(B).to(x.device)
+    P, na, T, W = x.shape
+    z = torch.einsum("os,pasw->paow", Bd, x.double())
+    return torch.einsum("ot,pasct->pasco", Bd,
+                        z.reshape(P, na, T, W // T, T)).reshape(x.shape)
+
+
+def raw_int_scan(v):
+    """The ``int_scan`` entry launched directly (one causal unit scan on
+    the last axis of a 2-D int32 tensor): no layout, no contiguity copy,
+    no checks — the probes' raw ``pallas_call``."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.kernels import launch
+
+    y = torch.empty_like(v)
+    units = np.array([1, 1, 1], np.int32)
+    launch._launch("int_scan", (v.data_ptr(), y.data_ptr(),
+                                units.ctypes.data, 0, v.shape[0],
+                                v.shape[1], 1, 4, 1), v.device)
+    return y
+
+
+# the int8 probes' rows: (row name, source, the probe's Pallas call)
+INT8_ROWS = (
+    ("ozaki_i8", "ozaki", "scripts/int8_ozaki_exp.py:249"),
+    ("dual_px6", "ozaki", "scripts/int8_ozaki_exp.py:159"),
+    ("gemm_i8", "gemm_pair", "scripts/int8_rate_probe.py:53"),
+    ("gemm_bf16", "gemm_pair", "scripts/int8_rate_probe.py:77"),
+    ("int_scan/probe2", "int_scan", "scripts/int_kernel_probe2.py:23"),
+    ("int_scan/probe3", "int_scan", "scripts/int_kernel_probe3.py:18"),
+)
+
+
+def int8_probes(dev):
+    """The int8 probes' studies at their shapes (``tests/torch_int8_study.py``
+    measures them further): {row name: (kernel, twin, library call or None,
+    args, bytes, operations, rate, entry)} — the dual completion at 4096²,
+    the GEMM pair at 4096³ (integers in [−100, 100), bf16 N(0,1)·0.01),
+    ``int_scan`` through ``int_unit_dim_pass`` on the two probe grids
+    (int32 in [−1000, 1000))."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.kernels import int8_mm as im
+    from recfilter_tpu_torch.kernels import int_scan
+
+    x_np, B = dual_block()
+    x = torch.from_numpy(x_np).to(dev)
+    Ca, ea = im.ozaki_operand(B)
+    Ca = Ca.to(dev)
+    Ac = im.px6_operand(B).to(dev)
+    pix = x.numel()
+    rng = np.random.default_rng(0)
+    n = 4096
+    ai = torch.from_numpy(rng.integers(-100, 100, (n, n)).astype(np.int8))
+    bi = torch.from_numpy(rng.integers(-100, 100, (n, n)).astype(np.int8))
+    ab = torch.from_numpy(rng.standard_normal((n, n)) * 0.01).to(
+        torch.bfloat16)
+    bb = torch.from_numpy(rng.standard_normal((n, n)) * 0.01).to(
+        torch.bfloat16)
+    ai, bi, ab, bb = (t.to(dev) for t in (ai, bi, ab, bb))
+    unit = [(1, 1, True)]
+    rows = {
+        "ozaki_i8": (lambda v: im.ozaki_i8(v, Ca, ea, Ca, ea),
+                     lambda v: im.ozaki_i8_plain(v, Ca, ea, Ca, ea), None,
+                     (x,), tensor_bytes(x, x, Ca, Ca), 2 * 10 * 2 * 128 * pix,
+                     PEAK_INT8, "ozaki_i8"),
+        "dual_px6": (lambda v: im.dual_px6(v, Ac, Ac),
+                     lambda v: im.dual_px6_plain(v, Ac, Ac), None, (x,),
+                     tensor_bytes(x, x, Ac, Ac), 2 * 6 * 2 * 128 * pix,
+                     PEAK_BF16, "dual_px6"),
+        "gemm_i8": (im.gemm_i8, im.gemm_i8_plain,
+                    lambda a, b: torch._int_mm(a, b.t()), (ai, bi),
+                    tensor_bytes(ai, bi, ai), 2.0 * n ** 3, PEAK_INT8,
+                    "gemm_i8"),
+        "gemm_bf16": (im.gemm_bf16, im.gemm_bf16_plain,
+                      lambda a, b: torch.matmul(a, b.t()), (ab, bb),
+                      tensor_bytes(ab, bb, ab), 2.0 * n ** 3, PEAK_BF16,
+                      "gemm_bf16"),
+    }
+    for name, nrows in (("int_scan/probe2", 19584), ("int_scan/probe3",
+                                                     19528)):
+        v = torch.from_numpy(rng.integers(-1000, 1000, (nrows, 4096))
+                             .astype(np.int32)).to(dev)
+        rows[name] = (lambda t: int_scan.int_unit_dim_pass(t, unit, 1),
+                      lambda t: int_scan.unit_scans_plain(t, unit, 1),
+                      lambda t: torch.cumsum(t, 1, dtype=torch.int32), (v,),
+                      tensor_bytes(v, v), float(v.numel()), PEAK_INT32,
+                      "int_scan")
     return rows
 
 
@@ -2757,6 +2896,136 @@ def main() -> int:
                   f"{device_ms(m, x_h):.4f} ms on {card}")
     del grade_2d, grade_1d, split_in, probes, x_h
 
+    print("== phase 3n: the int8 and int_scan probes' studies "
+          "(scripts/int8_ozaki_exp.py, int8_rate_probe.py, "
+          "int_kernel_probe2.py, int_kernel_probe3.py) against their twins "
+          "at their shapes, one counted launch each, then their times",
+          flush=True)
+    from recfilter_tpu_torch.kernels import int8_mm as im
+
+    i8 = int8_probes(dev)
+    with torch.no_grad():
+        x8 = i8["ozaki_i8"][3][0]
+        y64 = dual_f64(dual_block()[1], x8)
+        for name in ("ozaki_i8", "dual_px6"):
+            fn, plain, _, args, *_ = i8[name]
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err, e64 = rel_err(got, want), rel_err(got, y64)
+            print(f"  {name} (x {tuple(x8.shape)}): max|k-p|/max|p| = "
+                  f"{err:.3e}; against the f64 product {e64:.3e} (twin "
+                  f"{rel_err(want, y64):.3e})")
+            check(err <= 1e-6, f"{name} within 1e-6 of its twin's peak")
+            check(e64 <= 2e-6, f"{name} within px6's 2e-6 of the f64 "
+                  "product's peak")
+            max_abs[name] = (got - want).abs().max().item()
+        del y64, got, want
+        fn, plain, _, (a8, b8), *_ = i8["gemm_i8"]
+        check(torch.equal(im.gemm_i8(a8, b8, raw=True),
+                          im.gemm_i8_plain(a8, b8, raw=True)),
+              "gemm_i8: its int32 sums equal the int64 product (4096³)")
+        check(torch.equal(fn(a8, b8), plain(a8, b8)),
+              "gemm_i8 bit-equal to its twin (>> 13, low 8 bits)")
+        max_abs["gemm_i8"] = 0.0
+        fn, plain, _, args, *_ = i8["gemm_bf16"]
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        print(f"  gemm_bf16 (4096³): max|k-p|/max|p| = {err:.3e}")
+        check(err <= 1e-2, "gemm_bf16 within 1e-2 of its twin's peak (its "
+              "output is rounded to bf16)")
+        max_abs["gemm_bf16"] = (got.float() - want.float()).abs().max().item()
+        del got, want
+        for name in ("int_scan/probe2", "int_scan/probe3"):
+            fn, plain, _, (v,), *_ = i8[name]
+            want = v.long().cumsum(1) & 0xFFFFFFFF
+            for label, f in (("int_unit_dim_pass", fn),
+                             ("the entry launched directly", raw_int_scan),
+                             ("the twin", plain)):
+                got = f(v)
+                torch.cuda.synchronize()
+                check(torch.equal(got.long() & 0xFFFFFFFF, want),
+                      f"{name} {label}: bit-equal to the int64 cumsum "
+                      f"masked to 32 bits ({v.shape[0]} x {v.shape[1]})")
+            max_abs[name] = 0.0
+            del want, got
+        for name, (fn, _, _, args, *_, entry) in i8.items():
+            _, launches = counted(fn, *args)
+            check(launches == only(**{entry: 1}), f"{name}: one {entry} "
+                  "launch (a study: on no executor's path)")
+            main_launches[name] = launches[entry]
+        probe_of = {name: probe for name, _, probe in INT8_ROWS}
+        for name, (fn, plain, lib, args, nbytes, ops, rate, _) in i8.items():
+            carry_times[name] = timed(f"{name} ({probe_of[name]})", fn, plain,
+                                      lib, args, nbytes, ops, rate,
+                                      main_launches[name])
+    del i8, x8, a8, b8, v, args
+
+    print("== phase 3o: the integer limb route (an int32 4096² clamp-border "
+          "SAT) and the split-einsum grades (the headline at f32x3, f32x4, "
+          "f32x6, high, f32x9) end to end through RecFilter.as_func(), "
+          "beside px6", flush=True)
+    xs_, ys_ = rft.Dim("x", W), rft.Dim("y", H)
+    F_sat = rft.RecFilter("IntSATClamp")
+    F_sat.set_clamped_image_border()
+    img_sat = ints((H, W), -2 ** 20, 2 ** 20, np.int32, 21)
+    F_sat[ys_, xs_] = img_sat
+    F_sat.add_filter(+xs_, [1, 1])
+    F_sat.add_filter(+ys_, [1, 1])
+    F_sat.split(xs_, 128, ys_, 128)
+    m_sat = F_sat.as_func()
+    check(isinstance(m_sat, rft.IntUnitPass) and m_sat.route == "exact"
+          and m_sat.plan == [(1, [("limb", (0,), 10, 4)]),
+                             (0, [("limb", (1,), 10, 4)])],
+          "int32 4096² clamp SAT: the limb route, 10-bit limbs, 4 an axis "
+          "(gain 4097)")
+    x_sat = torch.from_numpy(img_sat).to(dev)
+    with torch.no_grad():
+        y_sat, launches = counted(m_sat, x_sat)
+    check(launches == only(), "int32 clamp SAT: the limb passes launch no "
+          "kernel (f32x9 einsum forms, float64 products)")
+    check(np.array_equal(y_sat.cpu().numpy(),
+                         scan_core.oracle_apply(F_sat.spec, img_sat)),
+          "int32 4096² clamp SAT: bit-exact against the integer oracle")
+    with torch.no_grad():
+        prof = timing.device_profile(m_sat, x_sat, iterations=3)
+        print(f"  int32 4096² clamp SAT (limb route): event "
+              f"{median_ms(m_sat, x_sat):.4f} ms; profile: "
+              f"{prof['device_ops']:.0f} device ops a call, busy "
+              f"{busy_text(prof)} on {card}", flush=True)
+    del F_sat, m_sat, x_sat, y_sat, img_sat
+    want_h = scan_core.oracle_apply(F_h.spec, img_h.astype(np.float64))
+    x_h = torch.from_numpy(img_h).to(dev)
+    grades = {"px6": mod_h}
+    for g in EINSUM_BOUNDS:
+        F = build_filter(rft, H, W, img_h)
+        F.set_plan(matmul_precision=g)
+        grades[g] = F.as_func()
+        check(isinstance(grades[g], rft.RotationChain),
+              f"headline at {g}: the rotation chain's einsum passes")
+        with torch.no_grad():
+            y, launches = counted(grades[g], x_h)
+        check(launches == only(), f"headline at {g}: no kernel launch")
+        check(tuple(y.shape) == img_h.shape and bool(torch.isfinite(y).all()),
+              f"headline {g}: output finite, shape {img_h.shape}")
+        err = float(np.abs(y.cpu().numpy().astype(np.float64) - want_h).max()
+                    / np.abs(want_h).max())
+        print(f"  headline {g}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= EINSUM_BOUNDS[g], f"headline {g}: within "
+              f"{EINSUM_BOUNDS[g]:g} of the f64 oracle")
+    del y, want_h
+    with torch.no_grad():
+        ev = {g: [] for g in grades}
+        for g in list(grades) + list(grades)[::-1]:
+            ev[g] += timing.call_times_ms(grades[g], x_h,
+                                          iterations=N_TIMED // 5, warmup=2)
+        for g, m in grades.items():
+            prof = timing.device_profile(m, x_h, iterations=3)
+            print(f"  headline {g}: event {statistics.median(ev[g]):.4f} ms; "
+                  f"profile: {prof['device_ops']:.0f} device ops a call, busy "
+                  f"{busy_text(prof)} on {card}", flush=True)
+    del grades, x_h
+
     print("== phase 4: gradients through the kernel paths", flush=True)
     img = image(512, 512, seed=1)
     grad_cases = [
@@ -3591,7 +3860,8 @@ def main() -> int:
                 ("split_mm/px3t_sweep", "scripts/px3t_sweep.py:74"),
                 ("split_mm/px6_stack", "scripts/px6_stack_exp.py:56"),
                 ("split_mm_tf32", "scripts/pallas_split_matmul.py:70"),
-                ("split_mm_fp32", "scripts/pallas_split_matmul.py:70"))))
+                ("split_mm_fp32", "scripts/pallas_split_matmul.py:70"))),
+            *INT8_ROWS)
     ]
     print("== summary: each kernel at its main-path shape — CUDA-event "
           "median of single calls, and device time from the profiler",

@@ -23,9 +23,19 @@ plain PyTorch twins on the CPU:
     (``dimfuse.FusedAxisPass``);
   * banded FIR banks (``fir``: the iterated box filters and the difference
     of Gaussians of ``apps.box`` / ``apps.dog``) on ``fir_band``;
-  * int8/16/32 filters of unit-feedback scans under a zero border —
-    summed-area tables and integral images, bit exact with wrap-around —
-    on ``int_scan`` and, for long axes, ``int_seg_scan``;
+  * integer filters (int8/16/32, uint8/16/32), bit exact with
+    wrap-around: unit-feedback scans under a zero border — summed-area
+    tables and integral images — on ``int_scan`` and, for long axes,
+    ``int_seg_scan``; any other scan or a clamp border as mantissa limbs
+    through the tiled pass at ``f32x9`` (float64 einsum forms); the
+    sequential core past the gain gate and for int64;
+  * every precision grade of the JAX package: px6 and ``highest``; px3,
+    px4 and ``default`` on the split-bf16 kernels ``final2d_split`` and
+    ``completion_split``; ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` as
+    split bf16 chunk products in the einsum forms, ``f32x9`` in float64;
+  * the ``scripts/`` probes as studies: ``split_mm`` and the int8
+    ``ozaki_i8``, ``dual_px6``, ``gemm_i8``, ``gemm_bf16``
+    (``kernels.split_mm``, ``kernels.int8_mm``);
   * the fused consumers of ``RecFilter.as_func(epilogue=, stencil=,
     stencil2d=)``: the rotated emit (``Plan.rotate_emit``,
     ``dimfuse.RotatedPass``) with its 1-D stencil on ``completion_rot``, a

@@ -19,9 +19,11 @@ the globally-first/last tile only; those tiles get per-tile variants.
 :func:`fused_filter_module` routes a filter as the JAX package's
 ``apply_filter_fused`` does, in its order:
 
-  0. integer filters (int8/16/32): the exact unit route
-     :class:`IntUnitPass`, on the wrapping ``int_scan``/``int_seg_scan``
-     kernels;
+  0. integer filters: the exact executor :class:`IntUnitPass` — unit
+     axes on the wrapping ``int_scan``/``int_seg_scan`` kernels, any other
+     axis (or a clamp border) as signed mantissa limbs through the tiled
+     pass at ``f32x9``, the sequential core past its gain gate and for
+     int64;
   1. scans on exactly the two trailing axes, at px6, where its gates hold
      (:func:`.overlap2d.fused2d_decline`): the 3-touch 2-D executor
      :class:`.overlap2d.Fused2DPx`;
@@ -82,6 +84,7 @@ from . import coeffs
 from .epilogue import kernel_form
 from .kernels import completion as kc
 from .kernels.completion import _f64
+from .kernels import split as ksplit
 from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
@@ -600,6 +603,37 @@ def _epilogue(fn, y, eaux):
 
 
 # ---------------------------------------------------------------------------
+# The split-einsum grades
+# ---------------------------------------------------------------------------
+
+# bf16 products of the einsum form's signal-sized products, per grade: the
+# JAX package's ``_split_passes`` (f32x3, f32x4, f32x6; px3 and px4 where
+# a pass leaves its kernels), ``high`` as TPU HIGH (three bf16 products),
+# ``default`` as one. px6, ``highest`` and f32x9 run those products in
+# float64 (f32x9's nine products are exact wherever float64 is).
+EINSUM_NPROD = {"f32x3": 3, "high": 3, "f32x4": 4, "f32x6": 6, "px3": 3,
+                "px4": 4, "default": 1}
+
+
+def _split_einsum(eq: str, Mc: torch.Tensor, X: torch.Tensor,
+                  nprod: int) -> torch.Tensor:
+    """The JAX package's ``_split_einsum`` on a per-tile matrix stack
+    (:func:`.kernels.completion.tile_einsum`): Σ over the ``nprod`` chunk
+    pairs of :func:`.kernels.split.prods`, smallest level first, of
+    constant chunk i (``Mc[i]``, its (1|3) variants, split from float64)
+    times data chunk j (X split in float32, exact). The chunk products run
+    as float32 products of bf16-exact values — exact products, float32
+    sums, the arithmetic of a bf16 product with float32 accumulation (on
+    the card a float32 GEMM, TF32 off) — and never round to bf16."""
+    Xs = [d.float() for d in ksplit.split_data(X, ksplit.nchunks(nprod))]
+    y = None
+    for i, j in ksplit.prods(nprod):
+        t = kc.tile_einsum(eq, Mc[i], Xs[j])
+        y = t if y is None else y + t
+    return y
+
+
+# ---------------------------------------------------------------------------
 # The last-axis executor
 # ---------------------------------------------------------------------------
 
@@ -642,12 +676,20 @@ class LastAxisPass(nn.Module):
     ``forward(x, True)`` runs every kernel's plain twin instead.
 
     At the reduced grades (px3, px4, default: ``planner.SPLIT_GRADES``)
-    the pass runs its unrotated kernel route only — ``tails`` (fp64 sums,
-    as at px6), the solve, then ``completion_split`` with the grade's
+    the pass runs its unrotated kernel route — ``tails`` (fp64 sums, as
+    at px6), the solve, then ``completion_split`` with the grade's
     product count (one at ``default``), the epilogue as torch ops after
-    it. The rotated emit, a fused stencil, tails chaining and the einsum
-    form (fewer than 8 lines, more than 256 tiles) have no split form and
-    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+    it — and, on a call of fewer than 8 lines, its einsum form at the
+    grade's products (the JAX package's split einsum). The rotated emit,
+    a fused stencil, tails chaining and more than 256 tiles have no split
+    form and raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+    At the split-einsum grades (f32x3, f32x4, f32x6, ``high``) no kernel
+    is built and the einsum form's tails and completion products are
+    :func:`_split_einsum`'s chunk products (``nsp`` of them,
+    :data:`EINSUM_NPROD`), float64 where a rotated pass has a leading
+    group (as the JAX package keeps HIGHEST there); the solve and the
+    carry injection stay float64. At ``f32x9`` the products are float64
+    and the solve dense (no band dropped).
 
     Tails chaining (a rotation chain's passes, :class:`RotationChain`):
     ``next_tails = (Gcat2, n2, T2)`` names the next pass, which scans this
@@ -691,7 +733,10 @@ class LastAxisPass(nn.Module):
         self.offsets = None  # band offsets when the solve is banded
         if n <= _CHAIN_MATMUL_MAX_TILES:
             CMfull = combined_solve_matrix(mats, n)
-            bands = banded_solve_blocks(CMfull, n, S)
+            # f32x9 (the integer limbs) solves drop-free: dense, as the
+            # JAX package's nine-product solve
+            bands = (None if matmul_precision == "f32x9"
+                     else banded_solve_blocks(CMfull, n, S))
             if bands is not None:
                 self.offsets = [d for d, _ in bands]
                 self.register_buffer(
@@ -715,6 +760,16 @@ class LastAxisPass(nn.Module):
         self.tails = self.completion = None
         self.st_tails = self.st_comp = None
         self.grade = matmul_precision
+        # the einsum form's signal-sized products (tails and completion)
+        # at a split grade: bf16 chunks of the constants' variants, split
+        # from float64 (float32 tensors, bf16-exact)
+        self.nsp = EINSUM_NPROD.get(matmul_precision, 0)
+        if self.nsp:
+            nc = ksplit.nchunks(self.nsp)
+            for name, M in (("G_c", Gcat), ("B_c", mats.Btot)):
+                self.register_buffer(name, torch.stack([
+                    c.float() for c in ksplit.split_const(
+                        kc._variants3(M), nc)]))
         if matmul_precision in SPLIT_GRADES:
             self._split_kernels(mats, Gcat, Rcat, stencil, next_tails)
         elif (NPROD.get(matmul_precision, 0)
@@ -865,9 +920,12 @@ class LastAxisPass(nn.Module):
             if ts and ts[0] is not None:
                 t_out = torch.cat(ts, dim=2)  # P-major lines
         else:
-            refuse_split(self.grade, f"a last-axis pass on {q} lines (the "
-                                     "kernels take at least 8)")
-            braw = kc.tile_einsum("nst,pnt->pns", self.G_v, X.double())
+            # the JAX package keeps a rotated pass with a leading group at
+            # HIGHEST (its split einsums lose there): float64 here
+            nsp = 0 if rot and P > 1 else self.nsp
+            braw = (_split_einsum("nst,pnt->pns", self.G_c, X, nsp).double()
+                    if nsp else
+                    kc.tile_einsum("nst,pnt->pns", self.G_v, X.double()))
             N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
                  else self._solve_assoc(braw))  # (q, n, S) natural
             del braw
@@ -886,9 +944,12 @@ class LastAxisPass(nn.Module):
                                                         *epi_aux(comp))
             else:
                 layout = "tile"
-                # float64 products: true f32 grade whatever the matmul
-                # settings (TF32) on the card
-                Y = kc.tile_einsum("nos,pns->pno", self.B_v, X.double())
+                # float64 products (true f32 grade whatever the matmul
+                # settings on the card), or the grade's split products;
+                # the carry injection in float64 at every grade
+                Y = (_split_einsum("nos,pns->pno", self.B_c, X, nsp).double()
+                     if nsp else
+                     kc.tile_einsum("nos,pns->pno", self.B_v, X.double()))
                 Y = (Y + kc.tile_einsum("nou,pnu->pno", self.R_v, N)).float()
                 Y = (Y.reshape(P, R, n, T).permute(0, 2, 3, 1)
                      .reshape((P, n, T) + rows) if rot
@@ -1427,7 +1488,11 @@ class RotationChain(nn.Module):
 
 
 _INT_DTYPES = {"int8": torch.int8, "int16": torch.int16,
-               "int32": torch.int32}
+               "int32": torch.int32, "int64": torch.int64,
+               "uint8": torch.uint8, "uint16": torch.uint16,
+               "uint32": torch.uint32}
+# the integer types the unit kernels take in their own type
+_UNIT_DTYPES = ("int8", "int16", "int32")
 
 
 def _int_cast_scans(spec: FilterSpec) -> List[Scan]:
@@ -1440,73 +1505,213 @@ def _int_cast_scans(spec: FilterSpec) -> List[Scan]:
             for s in spec.scans]
 
 
-class IntUnitPass(nn.Module):
-    """Integer filters whose every scanned dimension is a chain of unit
-    scans under a zero border — summed-area tables and integral images:
-    the unit route of the JAX package's ``apply_filter_int_exact``, bit
-    exact modulo 2^k. One stage per scanned axis, in order of first
-    appearance, each :func:`.kernels.int_scan.int_unit_dim_pass` (the
-    ``int_scan`` kernel, or the segmented ``int_seg_scan`` phases past its
-    gates). The array stays in its own type between stages: the low k bits
-    of a wrapping integer-linear map depend only on the low k bits of its
-    input, so this equals the JAX package's int32 intermediate.
-    ``forward_plain`` runs the plain twin of each stage.
+def _int_abs_gain(scans: Sequence[Scan], extent: int, border: str) -> float:
+    """Worst-case growth of one dimension pass: ∏ over the scans of
+    ``Σ|h_s|`` (``+ max|clamp column|`` under a clamp border), each from
+    the scan's signed impulse response in float64 — the entrywise-absolute
+    operator-norm bound of the JAX package's ``_int_abs_gain``, which
+    bounds every intermediate of the blocked algebra; ``inf`` from 2^23."""
+    from .scan_core import oracle_apply_scan
 
-    Raises ``NotImplementedError`` where the JAX package takes its limb
-    route (a dimension that is not a unit chain, or a clamp border: the
-    f32x9 mantissa limbs, ROADMAP Queue 1 item 11). An ``epilogue(y,
-    *eaux)`` reads the integer result, as in the JAX package."""
+    g = 1.0
+    for s in scans:
+        e = np.zeros((extent, 1), np.float64)
+        e[0 if s.causal else extent - 1, 0] = 1.0
+        h = oracle_apply_scan(e, 0, s.causal, s.feedfwd, list(s.feedback),
+                              BorderMode.ZERO)
+        gs = float(np.abs(h).sum())
+        if border == BorderMode.CLAMP:
+            hc = oracle_apply_scan(e, 0, s.causal, s.feedfwd,
+                                   list(s.feedback), BorderMode.CLAMP)
+            gs += float(np.abs(hc - h).max())
+        g *= max(gs, 1.0)
+        if not np.isfinite(g) or g >= 2 ** 23:
+            return float("inf")
+    return g
+
+
+def _int_limbs(v: torch.Tensor, lb: int, nl: int) -> List[torch.Tensor]:
+    """Split the int32 ``v`` into ``nl`` signed limbs of ``lb`` bits,
+    v = Σᵢ limbᵢ·2^(lb·i) exactly (two's-complement low bits with the
+    borrow carried up; no intermediate overflows) — the JAX package's
+    ``_int_limbs``."""
+    half, mask = 1 << (lb - 1), (1 << lb) - 1
+    out = []
+    for _ in range(nl - 1):
+        low = v & mask
+        out.append((low ^ half) - half)
+        v = (v >> lb) + (low >= half).to(torch.int32)
+    out.append(v)
+    return out
+
+
+def int_exact_plan(spec: FilterSpec):
+    """The JAX package's ``apply_filter_int_exact`` plan, or None where it
+    returns None (the caller then runs the sequential core):
+    ``[(axis, routes)]`` per scanned axis in order of first appearance,
+    ``routes`` either ``[("unit", units)]`` — every scan a unit chain
+    (:func:`.kernels.int_scan.unit_scans_of`) under a zero border — or
+    limb chunks ``[("limb", ids, lb, nl), ...]``: consecutive scans whose
+    gain product stays under 2^21 (:func:`_int_abs_gain`), each run on
+    ``nl`` limbs of ``lb = 23 − ⌈log₂ gain⌉`` bits covering the value's
+    bits so far (the type's width, growing by ⌈log₂ gain⌉ a chunk, 32
+    after a unit axis). None for types wider than 32 bits, a scan whose
+    gain reaches 2^21, a chunk left fewer than 2 limb bits, or a limb
+    chunk past 256 tiles (the JAX package does not audit its associative
+    solver). The JAX package also plans a limb fallback for a unit axis,
+    for the unit kernel's declining; its kernel declines no extent the
+    port's gates admit, and neither does the port's, so none is kept."""
+    dtype = np.dtype(spec.dtype)
+    if dtype.itemsize > 4:
+        return None
+    scans = _int_cast_scans(spec)
+    tiles = spec.tile_widths or (0,) * spec.ndim
+    clamp = spec.border == BorderMode.CLAMP
+    bits = dtype.itemsize * 8
+    plan = []
+    for ax, ids in spec.scans_by_axis().items():
+        extent = spec.dims[ax].extent
+        units = _int_units(spec, ids)
+        if units is not None:
+            plan.append((ax, [("unit", units)]))
+            bits = 32
+            continue
+        chunks, chunk, gc = [], [], 1.0
+        for i in ids:
+            gi = _int_abs_gain([scans[i]], extent, spec.border)
+            if not np.isfinite(gi) or gi >= 2 ** 21:
+                return None
+            if chunk and gc * gi >= 2 ** 21:
+                chunks.append((chunk, gc))
+                chunk, gc = [], 1.0
+            chunk.append(i)
+            gc *= gi
+        chunks.append((chunk, gc))
+        routes = []
+        for chunk, gc in chunks:
+            lg = max(int(np.ceil(np.log2(gc))), 0)
+            lb = 23 - lg
+            if lb < 2:
+                return None
+            T = min(tiles[ax] or _TILE_DEFAULT, extent)
+            p = _plan_tiles(extent, T, max(scans[i].order for i in chunk),
+                            clamp)
+            if p is not None and p[1] > _CHAIN_MATMUL_MAX_TILES:
+                return None
+            routes.append(("limb", tuple(chunk), lb, -(-min(bits, 32) // lb)))
+            bits = min(bits + lg, 32)
+        plan.append((ax, routes))
+    return plan
+
+
+class IntUnitPass(nn.Module):
+    """The exact integer executor of int8/16/32 and uint8/16/32 filters:
+    the JAX package's ``apply_filter_int_exact``, bit exact modulo 2^k,
+    planned by :func:`int_exact_plan` (``self.plan``; ``self.route`` is
+    ``"exact"``), one stage per scanned axis in order of first appearance:
+
+      * a unit axis (summed-area tables, integral images): one
+        :func:`.kernels.int_scan.int_unit_dim_pass` (the ``int_scan``
+        kernel, or the segmented ``int_seg_scan`` phases past its gates);
+      * a limb axis (a clamp border, a scan that is not a unit chain):
+        each chunk of scans splits the int32 values into signed limbs
+        (:func:`_int_limbs`), runs every limb through the tiled dimension
+        pass at ``f32x9`` (:func:`dim_pass_module`: the einsum form, its
+        products and solves in float64 — exact for integers below 2⁵³,
+        wherever the JAX package's nine bf16 products are exact below
+        2^23, which the gain gate guarantees), rounds, and recombines
+        with wrapping shifts.
+
+    Where the plan is None (a type wider than 32 bits, int64 among them;
+    a gain past the gate), ``self.route`` is ``"core"``: the sequential
+    core (:class:`.scan_core.ScanFilter`) on the tensor's own device, as
+    the JAX package falls back to its ``scan_core.apply_filter``.
+
+    The array runs in int32 (the JAX package's type) except on a plan of
+    unit axes only, where int8/16/32 stay in their own type: the low k
+    bits of a wrapping integer-linear map depend only on the low k bits
+    of its input. ``forward_plain`` runs the plain twin of each kernel;
+    the limb passes launch none. An ``epilogue(y, *eaux)`` reads the
+    integer result, as in the JAX package."""
 
     def __init__(self, spec: FilterSpec, epilogue=None):
         super().__init__()
-        self.stages = [(ax, _int_units(spec, ids, ax))
-                       for ax, ids in spec.scans_by_axis().items()]
+        from .scan_core import ScanFilter
+
         self.dtype = _INT_DTYPES[spec.dtype]
         self.ext = tuple(d.extent for d in spec.dims)
         self.epilogue = epilogue
+        self.plan = int_exact_plan(spec)
+        self.route = "core" if self.plan is None else "exact"
+        self.core = ScanFilter(spec) if self.plan is None else None
+        self.limbs = nn.ModuleList()
+        scans = _int_cast_scans(spec)
+        tiles = spec.tile_widths or (0,) * spec.ndim
+        for ax, routes in self.plan or ():
+            for r in routes:
+                if r[0] == "limb":
+                    self.limbs.append(dim_pass_module(
+                        [scans[i] for i in r[1]], ax, self.ext,
+                        min(tiles[ax] or _TILE_DEFAULT, self.ext[ax]),
+                        spec.border, "f32x9"))
+        self.own_type = (spec.dtype in _UNIT_DTYPES and not len(self.limbs))
 
     def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
-        from .kernels import int_scan
-
-        return self._run(x, int_scan.int_unit_dim_pass, eaux)
+        return self._run(x, False, eaux)
 
     def forward_plain(self, x: torch.Tensor, *eaux) -> torch.Tensor:
+        return self._run(x, True, eaux)
+
+    def _run(self, x, plain, eaux):
         from .kernels import int_scan
 
-        return self._run(x, int_scan.unit_scans_plain, eaux)
-
-    def _run(self, x, dim_pass, eaux):
         if tuple(x.shape) != self.ext:
             raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
                              f"extents {self.ext}")
-        x = _int_input(x, self.dtype)
-        for ax, units in self.stages:
-            x = dim_pass(x, units, ax)
+        if self.core is not None:
+            x = self.core(x)
+        else:
+            unit = int_scan.unit_scans_plain if plain \
+                else int_scan.int_unit_dim_pass
+            x = _int_input(x, self.dtype if self.own_type else torch.int32)
+            limbs = iter(self.limbs)
+            for ax, routes in self.plan:
+                for r in routes:
+                    x = (unit(x, r[1], ax) if r[0] == "unit"
+                         else _limb_pass(x, next(limbs), r[2], r[3], plain))
+            x = x.to(self.dtype)
         if self.epilogue is not None:
             x = self.epilogue(x, *(torch.as_tensor(a).to(x.device)
                                    for a in eaux))
         return x
 
 
-def _int_units(spec: FilterSpec, ids, ax: int):
-    """The unit scans of ``spec``'s scans ``ids`` (on axis ``ax``), or
-    ``NotImplementedError`` naming the limb route."""
+def _limb_pass(x, mod, lb: int, nl: int, plain: bool):
+    """One limb chunk on the int32 ``x``: each limb through ``mod`` (a
+    tiled pass at ``f32x9``), rounded, recombined mod 2^32."""
+    acc = None
+    for i, limb in enumerate(_int_limbs(x, lb, nl)):
+        y = mod.forward_plain(limb.float()) if plain else mod(limb.float())
+        t = torch.round(y).to(torch.int64) << (lb * i)
+        acc = t if acc is None else acc + t
+    acc = acc & 0xFFFFFFFF
+    return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
+
+
+def _int_units(spec: FilterSpec, ids):
+    """The unit scans of ``spec``'s scans ``ids`` under a zero border, or
+    None."""
     from .kernels import int_scan
 
+    if spec.border != BorderMode.ZERO:
+        return None
     scans = _int_cast_scans(spec)
     units = [int_scan.unit_scans_of(scans[i]) for i in ids]
-    if spec.border != BorderMode.ZERO or None in units:
-        why = ("a clamp border" if spec.border != BorderMode.ZERO
-               else "scans that are not unit-feedback chains")
-        raise NotImplementedError(
-            f"integer filter on axis {ax} with {why}: the JAX package runs "
-            "its mantissa-limb route (f32x9) here, not ported yet (ROADMAP "
-            "Queue 1 item 11)")
-    return [u for us in units for u in us]
+    return None if None in units else [u for us in units for u in us]
 
 
 def _int_input(x, dtype):
-    """``x`` in the filter's integer type (a float input through int32,
+    """``x`` in the integer type ``dtype`` (a float input through int32,
     as the JAX package casts it), contiguous."""
     if x.is_floating_point():
         x = x.to(torch.int32)
@@ -1517,8 +1722,8 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
                         epilogue=None, stencil2d=None) -> nn.Module:
     """The executor module for ``spec``, routed as the module docstring
     says, or ``NotImplementedError`` naming what the port does not run
-    yet. Integer filters (int8/16/32) take :class:`IntUnitPass`, as the
-    JAX package sends them to its exact integer executor. The kernels'
+    yet. Integer filters take :class:`IntUnitPass`, as the JAX package
+    sends them to its exact integer executor. The kernels'
     128 × 128 tile replaces the split widths on the 2-D and rows
     executors, as in the JAX package (tiling never changes the result);
     the rotation chain and the einsum passes tile each axis by its split
@@ -1547,9 +1752,8 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
         return with_bank(IntUnitPass(spec, epilogue))
     if spec.dtype != "float32":
         raise NotImplementedError(
-            f"dtype {spec.dtype}: the port runs float32 and int8/16/32 "
-            "filters only (ROADMAP Queue 1 item 4: bf16 and float16 "
-            "storage; item 11: other integer types)")
+            f"dtype {spec.dtype}: the port runs float32 and integer filters "
+            "only (ROADMAP Queue 1 item 4: bf16 and float16 storage)")
     spec = spec.stacked()  # a Tuple's components ride a leading axis
     groups = spec.scans_by_axis()
     nd, Ds = spec.ndim, len(groups)
@@ -1662,9 +1866,11 @@ class RotatedPass(nn.Module):
     ``epilogue(y, *eaux)`` reads the stencil's output; ``forward(x,
     *eaux)`` takes the aux arrays in the ROTATED output layout.
 
-    Routes, in the JAX package's order: integer filters run the unit
-    scans on the last axis (:func:`.kernels.int_scan.int_unit_dim_pass`),
-    then move it explicitly; a bare 1-D signal runs the one-axis executor
+    Routes, in the JAX package's order: integer filters run the
+    sequential core on the last axis (the JAX package's
+    ``scan_core.apply_scan``; a unit chain of int8/16/32 under a zero
+    border takes the bit-equal :func:`.kernels.int_scan.int_unit_dim_pass`
+    instead), then move it explicitly; a bare 1-D signal runs the one-axis executor
     (the supertile hierarchy where it applies), then the stencil as
     shifts; a dimension with no tile plan runs the sequential core
     (:class:`.scan_core.ScanAxis`, the JAX package's ``lax.scan``), then
@@ -1688,15 +1894,21 @@ class RotatedPass(nn.Module):
         scans = [spec.scans[i] for i in groups[axis]]
         self.rot_axes, self.w = int(rot_axes), spec.dims[axis].extent
         self.epilogue, self.stencil = epilogue, stencil
-        self.units = self.hier = self.core = None
+        self.units = self.hier = self.core = self.int_core = None
         if spec.dtype in _INT_DTYPES:
-            self.units = _int_units(spec, groups[axis], axis)
+            from .scan_core import _compute_type, work_scans
+
             self.dtype = _INT_DTYPES[spec.dtype]
+            if spec.dtype in _UNIT_DTYPES:
+                self.units = _int_units(spec, groups[axis])
+            if self.units is None:  # the sequential core, in its type
+                self.int_core = (_compute_type(spec.dtype), [
+                    work_scans(spec)[i] for i in groups[axis]], spec.border)
             return
         if spec.dtype != "float32":
             raise NotImplementedError(
                 f"{spec.dtype} filter: the rotated executor runs float32 and "
-                "int8/16/32 filters (ROADMAP Queue 1 item 4)")
+                "integer filters (ROADMAP Queue 1 item 4)")
         clamp = spec.border == BorderMode.CLAMP
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
@@ -1734,6 +1946,16 @@ class RotatedPass(nn.Module):
             y = (int_scan.unit_scans_plain if plain
                  else int_scan.int_unit_dim_pass)(x, self.units, x.ndim - 1)
             y = y.movedim(-1, -self.rot_axes).contiguous()
+            return self._consume(y, -self.rot_axes, eaux)
+        if self.int_core is not None:
+            from .scan_core import apply_scan
+
+            work, scans, border = self.int_core
+            y = _int_input(x, work)
+            for s in scans:
+                y = apply_scan(y, -1, s.causal, s.feedfwd, s.feedback,
+                               border)
+            y = y.to(self.dtype).movedim(-1, -self.rot_axes).contiguous()
             return self._consume(y, -self.rot_axes, eaux)
         if x.dtype != torch.float32:
             raise TypeError(f"expected float32 input, got {x.dtype}")

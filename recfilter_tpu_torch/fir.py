@@ -9,13 +9,17 @@ neighbouring tiles. Border semantics are zero padding — the apps' contract
 matches the brute-force oracle at every pixel.
 
 Routing follows the JAX package's ``fir_pass_last`` exactly, from the shapes
-and the precision alone: at ``px6`` (the default) on float32, where
+and the precision alone: at ``px6`` (the default) or ``f32x6`` (the
+JAX package's same six-product band) on float32, where
 ``kernels.fir_band.fir_band_ok`` holds (T = 128, band within one tile,
 ≥ 8 lines, L ≥ T) with at least one batch axis — and only one when the
 output is rotated — the pass runs :class:`.kernels.fir_band.FirBand` (the
 ``fir_band`` CUDA kernel on the card, its twin on the CPU). Anything else,
-``highest`` included, takes the einsum form: the three band blocks as fp32
-einsums over the zero-shifted tiles.
+``highest``, ``high`` and ``f32x9`` included, takes the einsum form: the
+three band blocks as fp32 einsums over the zero-shifted tiles. The other
+grades raise naming ROADMAP Queue 1 item 4 (the JAX package runs its band
+kernel at their product counts: px3 and f32x3 at 3, px4 and f32x4 at 4,
+``default`` at 1).
 
 ``tap_scale`` is kept in the signatures: on the TPU it makes iterated-box
 taps exact bf16 integers so the compensated matrix products need fewer
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .kernels import fir_band
-from .planner import auto_tile_width, check_precision, refuse_split
+from .planner import (SPLIT_ITEM, auto_tile_width, check_precision,
+                      refuse_split)
 
 
 def box_taps(B: int, iterations: int) -> np.ndarray:
@@ -134,6 +139,11 @@ class FirPass(nn.Module):
         assert not (bank and contract)
         check_precision(matmul_precision)
         refuse_split(matmul_precision, "the FIR band pass (fir_band)")
+        if matmul_precision in ("f32x3", "f32x4"):
+            # the JAX package runs fir_band at 3 and 4 products there
+            raise NotImplementedError(
+                f"the FIR band pass (fir_band) has no split-bf16 form at "
+                f"matmul_precision={matmul_precision!r}: {SPLIT_ITEM}")
         if matmul_dtype is not None:
             raise NotImplementedError(
                 f"matmul_dtype={matmul_dtype!r}: bf16 products are not "
@@ -150,7 +160,8 @@ class FirPass(nn.Module):
         nbatch = len(batch)
         qk = int(np.prod(batch, dtype=np.int64))
         self.band = None
-        if (matmul_precision == "px6" and fir_band.fir_band_ok(T, L, taps, qk)
+        if (matmul_precision in ("px6", "f32x6")
+                and fir_band.fir_band_ok(T, L, taps, qk)
                 and nbatch >= 1 and (not emit_rot or nbatch == 1)):
             self.band = fir_band.FirBand(taps, T=T, rot=emit_rot,
                                          contract=contract)

@@ -29,7 +29,10 @@ autograd rule for all of them.
     reduced precision grades (default, px3, px4) run ``final2d_split`` and
     ``completion.cu``'s ``completion_split`` (split-bf16 products on the
     tensor cores); the ``scripts/`` probes' studies are ``split_mm``'s
-    three entries (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``).
+    three entries (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``),
+    ``ozaki``'s two (``ozaki_i8``, the int8 Ozaki dual completion, and
+    ``dual_px6``, its six-product bf16 twin) and ``gemm_pair``'s two
+    (``gemm_i8``, ``gemm_bf16``: one GEMM tiling, two products).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -99,6 +102,8 @@ SIGNATURES = {
     "copy": _sig("copy", ("copy", 2, 1)),
     "split_mm": _sig("split_mm", ("split_mm", 5, 9),
                      ("split_mm_tf32", 4, 8), ("split_mm_fp32", 4, 7)),
+    "ozaki": _sig("ozaki", ("ozaki_i8", 5, 5), ("dual_px6", 4, 2)),
+    "gemm_pair": _sig("gemm_pair", ("gemm_i8", 3, 4), ("gemm_bf16", 3, 3)),
 }
 
 ENTRIES = {fn[:-len("_launch")]: lib for lib, sig in SIGNATURES.items()

@@ -30,14 +30,25 @@ The reduced grades ``px3``, ``px4`` and ``default`` (the throughput mode)
 are the JAX package's split-bf16 product counts 3, 4 and 1
 (``kernels/split.py``), on bf16 tensor cores: the 3-touch 2-D executor
 (``overlap2d.Fused2DPx`` on ``final2d_split``) and the unrotated last-axis
-pass (``dimfuse.LastAxisPass`` on ``completion_split``). Every other route
-raises ``NotImplementedError`` at those grades, naming ROADMAP Queue 1
-item 4; no route runs another grade in their place. The routes are
-allowed where the grade enters: ``dimfuse.fused_filter_module``,
-``api.backend_module`` (:data:`SPLIT_BACKENDS`), ``overlap2d.
-fused_2d_module`` and ``LastAxisPass`` admit those two and refuse the
-rest. ``high``, the ``f32x*`` grades and ``matmul_dtype="bfloat16"``
-raise.
+pass (``dimfuse.LastAxisPass`` on ``completion_split``; a call on fewer
+than 8 lines takes its einsum form at the grade's products, as in the JAX
+package). Every other route raises ``NotImplementedError`` at those
+grades, naming ROADMAP Queue 1 item 4; no route runs another grade in
+their place. The routes are allowed where the grade enters:
+``dimfuse.fused_filter_module``, ``api.backend_module``
+(:data:`SPLIT_BACKENDS`), ``overlap2d.fused_2d_module`` and
+``LastAxisPass`` admit those two and refuse the rest.
+
+The split-einsum grades ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` (TPU
+HIGH: three bf16 products) are the JAX package's ``_split_einsum``: with
+no kernel product count (its ``_kernel_nprod`` is 0) every fused pass
+takes its einsum form — the rotation chain and the per-axis loop, as at
+``highest`` — its signal-sized products as that many bf16 chunk products
+in float32 (``dimfuse.EINSUM_NPROD``), its carry solves and injections in
+float64. ``f32x9`` (the integer limbs' drop-free grade) runs those
+products in float64. The FIR band pass runs ``fir_band`` at ``f32x6`` as
+at px6 and refuses ``f32x3`` and ``f32x4`` as it refuses px3 and px4.
+``matmul_dtype="bfloat16"`` raises (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -45,7 +56,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-_SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default")
+_SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default",
+                         "high", "f32x3", "f32x4", "f32x6", "f32x9")
 
 # The reduced grades: split-bf16 products on the 2-D executor and the
 # last-axis pass only (module docstring).
@@ -54,16 +66,6 @@ SPLIT_ITEM = "ROADMAP Queue 1 item 4"
 # The backends (besides ``einsum``) a reduced grade runs on: ``overlap_k``
 # (its 3-touch executor, else a refusal) and those that read no grade.
 SPLIT_BACKENDS = ("overlap_k", "overlap", "blocked", "scan", "oracle")
-
-# Grades the JAX package has and the port does not yet: each names the
-# ROADMAP item that brings it.
-_UNPORTED_PRECISIONS = {
-    "high": "Queue 1 item 4 (the 'high' precision mode)",
-    "f32x3": "Queue 1 item 4 (the f32x* split-einsum modes)",
-    "f32x4": "Queue 1 item 4 (the f32x* split-einsum modes)",
-    "f32x6": "Queue 1 item 4 (the f32x* split-einsum modes)",
-    "f32x9": "Queue 1 item 11 (integer-exact f32x9 limbs)",
-}
 
 
 def refuse_split(matmul_precision: str, route: str) -> None:
@@ -81,13 +83,8 @@ BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
 
 def check_precision(matmul_precision: str) -> None:
     """Raise unless the port runs ``matmul_precision``."""
-    if matmul_precision in _SUPPORTED_PRECISIONS:
-        return
-    if matmul_precision in _UNPORTED_PRECISIONS:
-        raise NotImplementedError(
-            f"matmul_precision={matmul_precision!r} is not ported yet: "
-            f"ROADMAP {_UNPORTED_PRECISIONS[matmul_precision]}")
-    raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+    if matmul_precision not in _SUPPORTED_PRECISIONS:
+        raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +102,9 @@ class Plan:
     factor)``.
     ``matmul_dtype``: "float32"; "bfloat16" (bf16 products on the
     ``overlap`` backends) is not ported yet.
-    ``matmul_precision``: "px6" (default), "highest", or a reduced grade
-    "px3", "px4", "default" (module docstring).
+    ``matmul_precision``: "px6" (default), "highest", a reduced grade
+    "px3", "px4", "default", or a split-einsum grade "f32x3", "f32x4",
+    "f32x6", "high", "f32x9" (module docstring).
     ``rotate_emit``: layout chaining for single-dimension filters (the
     reference's ``storage_layout`` directive): nonzero opts into the
     contract that the INPUT carries the scanned dimension as its LAST

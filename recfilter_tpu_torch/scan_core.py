@@ -8,7 +8,8 @@
   tap, on any device). It is the ``scan`` backend, the route of untiled
   filters, and the fallback wherever the blocked algebra has no tile plan
   (an order above the extent, a clamp border with no dividing tile).
-  Integer filters run in their own type and wrap as it wraps; float32
+  Integer filters run in their own type and wrap as it wraps (unsigned
+  ones in int32, congruent mod 2^32, truncated at the end); float32
   filters accumulate in float64 (the JAX package's ``lax.scan`` in
   float32 sits about 1e-6 of the output peak from the oracle on the
   σ=5 Gaussian, near the 2e-6 bound) and return float32.
@@ -143,17 +144,43 @@ def apply_scan(x: torch.Tensor, axis: int, causal: bool, feedfwd, feedback,
     return y.movedim(0, axis)
 
 
+# integer filters' working types: their own, except the unsigned ones,
+# which wrap in int32 (congruent mod 2^32, truncated at the end — the
+# ring homomorphism the JAX package's integer executor relies on)
+_INT_WORK = {"int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+             "int64": torch.int64, "uint8": torch.int32,
+             "uint16": torch.int32, "uint32": torch.int32}
+
+
 def _compute_type(dtype: str) -> torch.dtype:
     """The core's working type for a filter of ``dtype``: integers their
-    own, float32 float64 (module docstring); others raise."""
-    if dtype in ("int8", "int16", "int32"):
-        return getattr(torch, dtype)
+    own (unsigned ones int32), float32 float64 (module docstring); others
+    raise."""
+    if dtype in _INT_WORK:
+        return _INT_WORK[dtype]
     if dtype == "float32":
         return torch.float64
     raise NotImplementedError(
-        f"dtype {dtype}: the port runs float32 and int8/16/32 filters only "
-        "(ROADMAP Queue 1 item 4: bf16 and float16 storage; item 11: other "
-        "integer types)")
+        f"dtype {dtype}: the port runs float32 and integer filters only "
+        "(ROADMAP Queue 1 item 4: bf16 and float16 storage)")
+
+
+def work_scans(spec: FilterSpec):
+    """``spec``'s scans with each coefficient cast into the filter's
+    integer type, as the oracle casts it, then written as the working
+    type's two's-complement value (an unsigned coefficient's residue in
+    int32's range); a float filter's scans unchanged."""
+    if spec.dtype not in _INT_WORK:
+        return list(spec.scans)
+    t = np.dtype(spec.dtype).type
+    bits = torch.iinfo(_INT_WORK[spec.dtype]).bits
+
+    def cast(c):
+        v = int(t(c)) % (1 << bits)
+        return v - (1 << bits) if v >= 1 << (bits - 1) else v
+
+    return [type(s)(s.axis, s.causal, cast(s.feedfwd),
+                    tuple(cast(c) for c in s.feedback)) for s in spec.scans]
 
 
 def apply_filter(spec: FilterSpec, x: torch.Tensor) -> torch.Tensor:
@@ -186,15 +213,17 @@ class ScanAxis(nn.Module):
 
 class ScanFilter(nn.Module):
     """The ``scan`` backend: every scan of ``spec`` in definition order
-    through the core. Integer filters in their own type (a float input
-    cast through int32, as the JAX package casts it), float32 filters in
-    float64, returned in the filter's type. ``forward_plain`` is
+    through the core. Integer filters in their working type (their own;
+    int32 for the unsigned ones; a float input cast through int32, as the
+    JAX package casts it), float32 filters in float64, returned in the
+    filter's type. ``forward_plain`` is
     ``forward`` (the core launches no kernel)."""
 
     def __init__(self, spec: FilterSpec):
         super().__init__()
         self.spec = spec.stacked()
         self.work = _compute_type(spec.dtype)
+        self.scans = work_scans(self.spec)
         self.out_dtype = getattr(torch, spec.dtype)
         self.ext = tuple(d.extent for d in self.spec.dims)
 
@@ -206,7 +235,7 @@ class ScanFilter(nn.Module):
         if self.work in _INT_TYPES and x.is_floating_point():
             x = x.to(torch.int32)
         y = x.to(self.work)
-        for s in self.spec.scans:
+        for s in self.scans:
             y = apply_scan(y, s.axis, s.causal, s.feedfwd, s.feedback,
                            self.spec.border)
         return y.to(self.out_dtype)

@@ -1608,3 +1608,106 @@ def test_headline_at_the_reduced_grades_on_the_card(precision, bound, dev):
     assert tl.LAUNCHES == _only(moments2d=1, final2d_split=1)
     want = scan_core.oracle_apply(F.spec, img.astype(np.float64))
     assert np.abs(y - want).max() <= bound * np.abs(want).max()
+
+
+def _dual_inputs(dev, W=512, seed=0):
+    from recfilter_tpu_torch.kernels import int8_mm as im
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((2, 3, T, W)) * 0.7).astype(
+        np.float32))
+    B = rng.random((T, T)) / T
+    Ca, ea = im.ozaki_operand(B)
+    return im, x, B, Ca, ea, im.px6_operand(B)
+
+
+@pytest.mark.parametrize("Lb", [None, 256])
+def test_ozaki_i8_matches_its_twin_bit_for_bit(Lb, dev):
+    """The int8 Ozaki dual completion equals its twin bit for bit (the
+    same exact int32 level sums and fp32 steps), x blocks on their own
+    scales; launched once a call."""
+    im, x, _, Ca, ea, _ = _dual_inputs(dev)
+    x[1, 2] *= 1e3
+    tl.reset_launches()
+    y = im.ozaki_i8(x.to(dev), Ca.to(dev), ea, Ca.to(dev), ea, Lb=Lb)
+    assert tl.LAUNCHES == _only(ozaki_i8=1)
+    assert torch.equal(y.cpu(), im.ozaki_i8_plain(x, Ca, ea, Ca, ea, Lb=Lb))
+
+
+def test_dual_px6_matches_its_twin(dev):
+    im, x, _, _, _, Ac = _dual_inputs(dev, seed=1)
+    tl.reset_launches()
+    y = im.dual_px6(x.to(dev), Ac.to(dev), Ac.to(dev))
+    assert tl.LAUNCHES == _only(dual_px6=1)
+    assert _rel(y.cpu(), im.dual_px6_plain(x, Ac, Ac)) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 64), (256, 384, 320)])
+def test_gemm_pair_matches_its_twins(shape, dev):
+    """gemm_i8's int32 sums and its >> 13 store equal the twin's; gemm_bf16
+    lies within one bf16 step of its twin's peak."""
+    from recfilter_tpu_torch.kernels import int8_mm as im
+
+    M, N, K = shape
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, (N, K)).astype(np.int8))
+    assert torch.equal(im.gemm_i8(a.to(dev), b.to(dev), raw=True).cpu(),
+                       im.gemm_i8_plain(a, b, raw=True))
+    assert torch.equal(im.gemm_i8(a.to(dev), b.to(dev)).cpu(),
+                       im.gemm_i8_plain(a, b))
+    af = torch.from_numpy(rng.standard_normal((M, K))).to(torch.bfloat16)
+    bf = torch.from_numpy(rng.standard_normal((N, K))).to(torch.bfloat16)
+    y = im.gemm_bf16(af.to(dev), bf.to(dev)).cpu()
+    assert _rel(y.float(), im.gemm_bf16_plain(af, bf).float()) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "uint8",
+                                   "uint16", "uint32"])
+def test_integer_limb_route_on_the_card(dtype, dev):
+    """A clamp-border SAT through the limb route (no kernel launch) and a
+    unit SAT through int_scan, bit-exact against the integer oracle."""
+    from recfilter_tpu_torch import scan_core
+
+    hi = {"int8": 100, "int16": 2 ** 12, "int32": 2 ** 24, "uint8": 200,
+          "uint16": 2 ** 14, "uint32": 2 ** 30}[dtype]
+    lo = 0 if dtype.startswith("u") else -hi
+    img = np.random.default_rng(3).integers(lo, hi, (96, 160)).astype(dtype)
+    for clamp in (True, False):
+        x, y = rft.Dim("x", 160), rft.Dim("y", 96)
+        F = rft.RecFilter("IntSAT")
+        if clamp:
+            F.set_clamped_image_border()
+        F[y, x] = img
+        F.add_filter(+x, [1, 1])
+        F.add_filter(+y, [1, 1])
+        F.split(x, 32, y, 32)
+        fn = F.as_func()
+        tl.reset_launches()
+        got = fn(torch.from_numpy(img).to(dev)).cpu().numpy()
+        assert tl.LAUNCHES == (_only() if clamp else _only(int_scan=2))
+        np.testing.assert_array_equal(got, scan_core.oracle_apply(F.spec,
+                                                                  img))
+
+
+@pytest.mark.parametrize("precision,bound", [
+    ("f32x3", 2e-4), ("f32x4", 8e-5), ("f32x6", 4e-6), ("high", 2e-4),
+    ("f32x9", 4e-6)])
+def test_headline_at_the_split_einsum_grades_on_the_card(precision, bound,
+                                                         dev):
+    """The headline Gaussian at 512² at each split-einsum grade: the
+    rotation chain's einsum passes (no kernel), within the grade's bound
+    of the f64 oracle."""
+    from recfilter_tpu_torch import scan_core
+    from recfilter_tpu_torch.bench import _build_filter
+
+    F = _build_filter(512, 512)
+    F.set_plan(matmul_precision=precision)
+    img = (np.random.default_rng(0).standard_normal((512, 512)) * 0.01
+           ).astype(np.float32)
+    fn = F.as_func()
+    tl.reset_launches()
+    y = fn(torch.from_numpy(img).to(dev)).cpu().numpy()
+    assert tl.LAUNCHES == _only()
+    want = scan_core.oracle_apply(F.spec, img.astype(np.float64))
+    assert np.abs(y - want).max() <= bound * np.abs(want).max()

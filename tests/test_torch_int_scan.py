@@ -189,17 +189,29 @@ def test_summed_table_app(dtype):
 
 
 def test_integer_refusals():
-    """Where the JAX package takes its limb route (a clamp border, a
-    dimension that is not a unit chain) the port raises naming ROADMAP
-    item 11; float16 and bfloat16 name item 4."""
+    """Where the JAX package takes its limb route (a clamp border) the
+    port runs its limb route too, and where its gain gate declines (the
+    unstable (2, 1) feedback) the sequential core: bit-exact against the
+    JAX package and the oracle; float16 and bfloat16 still name item 4,
+    and a wrong input shape raises."""
     sat = ((1, True, 1, (1,)), (0, True, 1, (1,)))
     dims = (("y", 64), ("x", 64))
+    img = _ints((64, 64), -100, 100, np.int16, seed=6)
     for scans, border in ((sat, "clamp"),
                           (((1, True, 1, (1,)), (0, True, 1, (2, 1))),
                            "zero")):
-        _, ts = _specs(dims, scans, "int16", (0, 32), border)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tdf.fused_filter_module(ts)
+        js, ts = _specs(dims, scans, "int16", (0, 32), border)
+        mod = tdf.fused_filter_module(ts)
+        if border == "clamp":
+            assert mod.route == "exact"
+            assert all(r[0] == "limb" for _, rs in mod.plan for r in rs)
+        else:
+            assert mod.route == "core"
+            assert jdf.apply_filter_int_exact(js, img) is None
+        got = mod(torch.from_numpy(img)).numpy()
+        np.testing.assert_array_equal(got, jsc.oracle_apply(js, img))
+        np.testing.assert_array_equal(
+            got, np.asarray(jdf.apply_filter_fused(js, img)))
     for dtype in ("float16", "bfloat16"):
         _, ts = _specs(dims, sat, dtype, (32, 32))
         with pytest.raises(NotImplementedError, match="item 4"):
@@ -211,15 +223,18 @@ def test_integer_refusals():
 
 def test_clamp_is_never_unit_routed(monkeypatch):
     """The JAX package keeps clamp off its unit kernel (it takes the limb
-    route); the port raises before any unit pass runs."""
+    route); so does the port: no unit pass runs, and the limb route is
+    bit-exact."""
     calls = _spy(monkeypatch, "int_unit_dim_pass")
     js, ts = _specs((("y", 64), ("x", 64)), ((1, True, 1, (1,)),), "int16",
                     (0, 32), "clamp")
     img = _ints((64, 64), -100, 100, np.int16, seed=4)
+    want = jsc.oracle_apply(js, img)
     np.testing.assert_array_equal(np.asarray(jdf.apply_filter_fused(js, img)),
-                                  jsc.oracle_apply(js, img))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdf.fused_filter_module(ts)
+                                  want)
+    mod = tdf.fused_filter_module(ts)
+    assert mod.plan == [(1, [("limb", (0,), 16, 1)])]
+    np.testing.assert_array_equal(mod(torch.from_numpy(img)).numpy(), want)
     assert calls == []
 
 

@@ -320,11 +320,12 @@ def test_rotated_integer_and_bare_signal_routes():
 
 def test_rotated_pass_refuses_as_the_jax_package():
     """Two scanned dimensions, an out-of-range rot_axes and a wrong extent
-    raise ValueError, and a non-unit integer scan raises
-    NotImplementedError naming the item. A plan the tiles cannot take (a
+    raise ValueError. A plan the tiles cannot take (a
     1-sample signal under an order-2 scan), which the port refused before
     the sequential core, runs the core as the JAX package's
-    ``apply_filter_rotated`` does: equal to it and to the oracle."""
+    ``apply_filter_rotated`` does: equal to it and to the oracle. A
+    non-unit integer scan, which the port refused before, runs the
+    sequential core as the JAX package does, bit-equal to it."""
     two = _spec(tspec, [("y", 256), ("x", 256)],
                 [(0, True, 1.0, (0.5,)), (1, True, 1.0, (0.5,))], (T, T))
     with pytest.raises(ValueError):
@@ -345,8 +346,15 @@ def test_rotated_pass_refuses_as_the_jax_package():
     nonunit = tspec.FilterSpec("I", one.dims, (tspec.Scan(1, True, 1.0,
                                                           (2.0,)),),
                                dtype="int32", tile_widths=(0, T))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdf.RotatedPass(nonunit, 2)
+    jnonunit = jspec.FilterSpec("I", one.dims, (jspec.Scan(1, True, 1.0,
+                                                           (2.0,)),),
+                                dtype="int32", tile_widths=(0, T))
+    xi = np.random.default_rng(9).integers(-99, 99, (8, 256)).astype(
+        np.int32)
+    got = tdf.RotatedPass(nonunit, 2)(torch.from_numpy(xi)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jdf.apply_filter_rotated(
+        jnonunit, jnp.asarray(xi), 2)))
+    np.testing.assert_array_equal(got, rft.oracle_apply(nonunit, xi).T)
 
 
 def test_api_routes_the_consumers_as_the_jax_package():
