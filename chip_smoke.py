@@ -317,13 +317,23 @@ Phases:
      with the same taps, ``torch.cumsum(..., dtype=torch.int32)``) and the
      whole call against the plain path with the device's idle share; for
      the new and extended kernels at C1's shapes (stencil2d at C4's) the
-     same, with ``conv2d``, ``matmul`` and ``einsum`` as yardsticks, and
-     the whole calls of C1–C5; for ``completion_rot_tails`` at K3's first
+     same, with ``conv2d``, ``matmul`` and ``einsum`` as yardsticks
+     (``completion_rot`` with its stencil beside one batched ``matmul``
+     of the stencil folded into the operand, a matrix a tile, by [xᵀ; N;
+     prev; nxt] — held to the kernel on N(0,1) inputs; the unrotated
+     stencil-free ``matmul`` is printed beside it — and without, beside
+     ``matmul(BR0ᵀ, XNᵀ)``, which emits the rotated (n, 128, q) layout,
+     with that call's device ops), and
+     the whole calls of C1–C5; for A also the fp32-accumulating ``tails``
+     instantiation's times (a probe); for ``completion_rot_tails`` at K3's first
      pass the same, beside ``completion_rot`` + ``tails`` and, as the
      library form, one ``matmul`` and one ``einsum`` (two calls), and the
      whole calls of K1–K6; for ``tails_traced`` and ``completion_traced``
      at L1's x-axis shapes the same, with one ``matmul`` each as the
-     library form, the whole L1 and L3 forwards, and L2's training step
+     library form (``tails_traced``'s emitting its (n, S, q) layout; the
+     flat ``matmul`` of x (q·n, 128) by Gᵀ printed beside it), ``tails``
+     at the same shape with fp64 and fp32 sums, the whole L1 and L3
+     forwards, and L2's training step
      (event median, device ops per step); the L1 forward and L2 step (32
      tiles) and L3's (512 tiles) with the cross-tile solve forced to the
      dense solve from W powers and to the associative scan; for U1 and U2
@@ -331,7 +341,10 @@ Phases:
      at U1's, A's and C1's shapes beside their twins, ``final2d_epi``
      also beside ``final2d`` then the combine as torch ops,
      ``completion_epi`` beside one ``addmm`` (the mix's a and b as its
-     alpha and beta) as the library form; for ``moments2d_k`` and
+     alpha and beta) as the library form, ``completion_rot_epi`` at C1's
+     x pass with its stencil and without, each beside one ``baddbmm``
+     (the same mix, the rotated layout; with the stencil, on the folded
+     operand); for ``moments2d_k`` and
      ``final2d_k`` at O1's shapes and ``dim_pass_rows`` /
      ``dim_pass_cols`` at P1's the same (no PyTorch call computes any of
      the four), the whole calls O1, O2, P1 and P3 with their profiles,
@@ -561,6 +574,83 @@ def rel_err(got, want):
     """max|got − want| / max|want| (both torch tensors)."""
     got, want = got.double(), want.double()
     return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def folded_stencil_weight(comp):
+    """``completion_rot`` with its stencil as one matrix a tile, for one
+    batched ``torch.matmul``: the stencil is linear in the completed rows
+    and in the halo strips, so tile t's output is W_t · [x_tᵀ; N_t; prev_t;
+    nxt_t], W_t (128, 128 + sl + hp + hn) the taps folded in float64 into
+    [Btot | Rcat] and the strip columns — at the globally-first and last
+    tiles with the border rule ("zero" reads nothing, "clamp" the first or
+    last completed row). Returns W (n, 128, 128 + sl + hp + hn), float32,
+    on the module's device."""
+    import numpy as np
+    import torch
+
+    BT = comp.BT_v.double().cpu().numpy()
+    n, hp = comp.n, comp.hp
+    depth = BT.shape[2]
+    out = np.zeros((n, 128, depth + hp + comp.hn))
+    for t in range(n):
+        v = 0 if BT.shape[0] == 1 else (1 if t == 0 else
+                                        2 if t == n - 1 else 0)
+        W, B = out[t], BT[v]
+        for d, c in comp.taps:
+            for o in range(128):
+                r = o + d
+                if 0 <= r < 128:
+                    W[o, :depth] += c * B[r]
+                elif r < 0 and t > 0:
+                    W[o, depth + hp + r] += c
+                elif r < 0 and comp.start == "clamp":
+                    W[o, :depth] += c * B[0]
+                elif r >= 128 and t < n - 1:
+                    W[o, depth + hp + r - 128] += c
+                elif r >= 128 and comp.end == "clamp":
+                    W[o, :depth] += c * B[127]
+    return torch.from_numpy(out).float().to(comp.BT_v.device)
+
+
+def folded_operand(X, Nt, *halos):
+    """[xᵀ; N; prev; nxt] per tile, (n, 128 + sl + hp + hn, q): the right
+    operand of :func:`folded_stencil_weight`'s matmul."""
+    import torch
+
+    return torch.cat([X.permute(1, 2, 0), Nt, *halos], dim=1)
+
+
+def folded_stencil_err(comp, W, q, seed, epi=None):
+    """max|lib − kernel| / max|kernel| of the folded matmul (``epi``: the
+    baddbmm of an affine epilogue with one aux and no bias, its (a, b))
+    against the rotated kernel with its stencil, on N(0,1) x, N, halo
+    strips and aux of the kernel's shapes made from ``seed`` — independent
+    of each other, as the kernel's linear function takes them. (On a
+    pipeline's own data the strips continue the tile, so the folded
+    weights of a tile's edge rows, near the integral's size, cancel the
+    strip terms: any reassociation then misses 1e-5 of the output.)"""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = comp.BT_v.device
+
+    def g(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    n = comp.n
+    X = g(q, n, 128)
+    Nt = torch.zeros((n, comp.sl, q), device=dev)
+    Nt[:, :comp.S] = g(n, comp.S, q)
+    halos = [g(n, h, q) for h in (comp.hp, comp.hn) if h]
+    aux = [g(n * 128, q)] if epi else []
+    with torch.no_grad():
+        y = comp(X, Nt, *halos, *aux)
+        XNH = folded_operand(X, Nt, *halos)
+        lib = (torch.matmul(W, XNH) if epi is None else torch.baddbmm(
+            aux[0].view(n, 128, q), W, XNH, beta=epi[1], alpha=epi[0]))
+        return rel_err(lib.reshape(y.shape), y)
 
 
 def paired_times(kernel_fn, plain_fn, *args):
@@ -1627,6 +1717,9 @@ def main() -> int:
             print(f"  B = {B}: completion_rot without a stencil: max|k-p|/"
                   f"max|p| = {err:.3e}")
             check(err <= 1e-5, "completion_rot within 1e-5 of its twin")
+            max_abs["completion_rot/no_stencil"] = max(
+                max_abs.get("completion_rot/no_stencil", 0.0),
+                (y - yp).abs().max().item())
             del X, b, bp, Nt, halos, y, yp
         bank = Stencil2D(SOBEL).to(dev)
         v = torch.from_numpy(image(H, W, seed=11)).to(dev)
@@ -1791,10 +1884,10 @@ def main() -> int:
             print(f"  completion_rot_epi (a - o) at C1's x pass, {what}: "
                   f"max|k-p|/max|p| = {err:.3e}")
             check(err <= 1e-5, f"completion_rot_epi ({what}) within 1e-5")
-            max_abs["completion_rot_epi"] = max(
-                max_abs["completion_rot_epi"],
-                (got - want).abs().max().item())
-        epi_in["completion_rot_epi"] = (comp, args)
+            key = ("completion_rot_epi" if stencil else
+                   "completion_rot_epi/no_stencil")
+            max_abs[key] = (got - want).abs().max().item()
+            epi_in[key] = (comp, args)
         del got, want, bp, le
 
     print("== phase 2i: the HIGHEST pair (moments2d_k, final2d_k) and the "
@@ -2245,7 +2338,8 @@ def main() -> int:
           "completion_rot_epi once (the subtraction, in the last pass)")
     main_launches.update(final2d_stencil=launches["final2d_stencil"],
                          tails_extra=launches["tails_extra"],
-                         completion_rot=launches["completion_rot"])
+                         completion_rot=launches["completion_rot"],
+                         completion_rot_epi=launches["completion_rot_epi"])
     check(tuple(y.shape) == (H, W) and bool(torch.isfinite(y).all()),
           f"C1: output finite, shape {(H, W)}")
     sat_check("C1", y.cpu().numpy(), dog_oracle(img, 5, 9), 21)
@@ -2272,6 +2366,8 @@ def main() -> int:
     check(launches == only(fir_band=2, tails=2, completion_rot=2),
           "C2: fir_band twice (the order-1 box), tails and completion_rot "
           "twice (the order-2 integrals)")
+    # the rotated emit without a stencil: C2's (C1's passes all fuse one)
+    main_launches["completion_rot/no_stencil"] = launches["completion_rot"]
     got = y.cpu().numpy()
     sat_check("C2", got, box2_oracle(sep_oracle(img, box_taps(5, 1)), 5), 19)
     ie, ip = interior_err(got, y_fir.cpu().numpy(), 19)
@@ -2575,7 +2671,9 @@ def main() -> int:
     check(launches == only(tails=2, completion_rot=1, completion_rot_epi=1)
           and e2.passes[-1].epilogue_route == "kernel",
           "E2: two tails, one completion_rot, one completion_rot_epi")
-    main_launches["completion_rot_epi"] = launches["completion_rot_epi"]
+    # without a stencil: E2's (C1's carries the stencil)
+    main_launches["completion_rot_epi/no_stencil"] = launches[
+        "completion_rot_epi"]
     check(err <= 2e-6, "E2: within the px6 bound 2e-6 of the f64 oracle")
     del y, want, x_e2, e2
 
@@ -3172,6 +3270,13 @@ def main() -> int:
                     2.0 * (128 + S) * X.numel(), PEAK_FP32),
                     median_ms(torch.matmul, XN, BR0))
                 del XN
+                # the fp32-accumulating instantiation, a probe (on no
+                # path): does the arithmetic or the memory set the pace?
+                loc.tails.fp64 = False
+                print(f"  A tails with fp32 sums (a probe): event "
+                      f"{median_ms(loc.tails, X):.4f} ms, device "
+                      f"{device_ms(loc.tails, X):.4f} ms on {card}")
+                loc.tails.fp64 = True
             prof = timing.device_profile(mod, x, iterations=10)
         nbytes = X.numel() * 4 + n * sl * q * 4
         flops = 2.0 * q * n * 128 * (128 + sl)
@@ -3473,14 +3578,55 @@ def main() -> int:
         check(rel_err(torch.matmul(XN, BR0).permute(1, 2, 0).reshape(-1, q),
                       loc.completion(X, Nt)) <= 1e-5,
               "C1: the matmul computes the rotated completion (transposed)")
-        r = timed("C1 completion_rot + 3-tap stencil", comp, comp.plain,
-                  lambda x_, n_, *h: torch.matmul(XN, BR0), (X, Nt, *halos),
+        # one PyTorch call: the stencil folded into the operand, one
+        # matrix a tile, times [xᵀ; N; prev; nxt] (built outside the
+        # timing, as the rotated matmul's operand below); the unrotated,
+        # stencil-free matmul of earlier runs printed beside it
+        Wst = folded_stencil_weight(comp)
+        err = folded_stencil_err(comp, Wst, q, seed=41)
+        print(f"  C1 completion_rot + stencil: matmul(W, [xᵀ; N; prev; "
+              f"nxt]) against the kernel, max|l-k|/max|k| = {err:.3e}")
+        check(err <= 1e-5, "C1: matmul(W, [xᵀ; N; prev; nxt]) computes "
+              "completion_rot's function with the stencil folded into W")
+        XNH = folded_operand(X, Nt, *halos)
+        r = timed("C1 completion_rot + 3-tap stencil (library: matmul(W, "
+                  "[xᵀ; N; prev; nxt]) -> (n, 128, q))", comp, comp.plain,
+                  lambda *a: torch.matmul(Wst, XNH), (X, Nt, *halos),
                   tensor_bytes(X, Nt, *halos, X),
                   2.0 * (128 + loc.sl + len(comp.taps)) * X.numel(),
                   PEAK_FP32, main_launches["completion_rot"])
         times["completion_rot"], dev_t["completion_rot"] = r[0], r[1]
         extra["completion_rot"] = (*r[2], r[3])
-        del v, X, bp, Nt, halos, XN
+        print(f"  C1 the unrotated stencil-free matmul(XN, BR0) (earlier "
+              f"runs' library): event {median_ms(torch.matmul, XN, BR0):.4f}"
+              f" ms, device {device_ms(torch.matmul, XN, BR0):.4f} ms")
+        del Wst, XNH
+        # without the stencil (C2, C3, the chains), beside one call that
+        # emits the rotated layout: [Btot | R] times XN as an (n, 128 + sl,
+        # q) view; the profile's device ops show whether torch copies it
+        flat = loc.completion
+        XNt = XN.permute(1, 2, 0)
+        BRt = flat.BR_v[0].t()
+
+        def rot_lib(x_, n_):
+            return torch.matmul(BRt, XNt)
+
+        check(flat.BR_v.shape[0] == 1 and rel_err(
+            rot_lib(X, Nt).reshape(-1, q), flat(X, Nt)) <= 1e-5,
+            "C1: matmul(BR0ᵀ, XNᵀ) computes the rotated completion in its "
+            "own layout")
+        r = timed("C1 completion_rot, no stencil (library: matmul(BR0ᵀ, "
+                  "XNᵀ) -> (n, 128, q))", flat, flat.plain, rot_lib, (X, Nt),
+                  tensor_bytes(X, Nt, X), 2.0 * (128 + loc.sl) * X.numel(),
+                  PEAK_FP32, main_launches["completion_rot/no_stencil"])
+        times["completion_rot/no_stencil"] = r[0]
+        dev_t["completion_rot/no_stencil"] = r[1]
+        extra["completion_rot/no_stencil"] = (*r[2], r[3])
+        prof = timing.device_profile(rot_lib, X, Nt, iterations=10)
+        print("  the rotated-layout matmul's device ops per call: " + (
+            ", ".join(f"{nm[:48]} {ms:.4f} ms" for nm, ms in prof["top"])
+            if prof["busy_ms"] is not None else "not measured"))
+        del v, X, bp, Nt, halos, XN, XNt
         # stencil2d at C4's shapes: the Sobel bank on the blurred image
         bank = c4.bank
         v = c4.body(x_c4)
@@ -3710,11 +3856,57 @@ def main() -> int:
                 ("completion_epi", "A's kernel pass, the mix", 
                  main_launches["completion_epi"]),
                 ("completion_rot_epi", "C1's x pass, 3-tap stencil, a - o",
-                 main_launches["completion_rot_epi"])):
+                 main_launches["completion_rot_epi"]),
+                ("completion_rot_epi/no_stencil", "C1's x pass, a - o",
+                 main_launches["completion_rot_epi/no_stencil"])):
             comp, args = epi_in[name]
             X, Nt = args[0], args[1]
             out = comp(*args)
             lib = None
+            if name == "completion_rot_epi/no_stencil":
+                # one PyTorch call: baddbmm of the aux (n, 128, q) and
+                # [Btot | R] times XN as an (n, 128 + sl, q) view, the
+                # mix's a as alpha, its b as beta (k = 1, c = 0)
+                check(comp.BR_v.shape[0] == 1 and comp.k == 1
+                      and comp.affine.bias == 0,
+                      "C1: one matrix variant, one aux, no bias")
+                a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
+                n_t = comp.n
+                XNt = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).permute(
+                    1, 2, 0)
+                BRt = comp.BR_v[0].t().expand(n_t, -1, -1)
+
+                def lib(x_, n_, aux_):
+                    return torch.baddbmm(aux_.view(n_t, 128, -1), BRt, XNt,
+                                         beta=b_, alpha=a_)
+
+                err = rel_err(lib(*args).reshape(out.shape), out)
+                print(f"  completion_rot_epi, no stencil: baddbmm against "
+                      f"the kernel, max|l-k|/max|k| = {err:.3e}")
+                check(err <= 1e-5, "C1: baddbmm computes "
+                      "completion_rot_epi's function (no stencil)")
+            if name == "completion_rot_epi":
+                # one PyTorch call: baddbmm of the aux (n, 128, q) and the
+                # stencil folded into the operand (as phase 5f's matmul)
+                # times [xᵀ; N; prev; nxt], the mix's a as alpha, its b as
+                # beta (k = 1, c = 0)
+                check(comp.k == 1 and comp.affine.bias == 0,
+                      "C1: one aux, no bias")
+                a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
+                n_t = comp.n
+                Wst = folded_stencil_weight(comp)
+                err = folded_stencil_err(comp, Wst, X.shape[0], seed=42,
+                                         epi=(a_, b_))
+                print(f"  completion_rot_epi + stencil: baddbmm against the "
+                      f"kernel, max|l-k|/max|k| = {err:.3e}")
+                check(err <= 1e-5, "C1: baddbmm computes "
+                      "completion_rot_epi's function (the stencil folded)")
+                XNH = folded_operand(*args[:-1])
+
+                def lib(*a):
+                    return torch.baddbmm(a[-1].view(n_t, 128, -1), Wst, XNH,
+                                         beta=b_, alpha=a_)
+
             if name == "completion_epi":
                 # one PyTorch call: addmm of [x, Nᵀ]·[Btotᵀ; Rᵀ] scaled by
                 # the mix's a, plus b·x (A's tiles share one variant), on
@@ -3742,7 +3934,7 @@ def main() -> int:
                       * X.numel(), PEAK_FP32, k_launch)
             times[name], dev_t[name] = r[0], r[1]
             extra[name] = (*r[2], r[3])
-        del epi_in, out, args, XN, BR0
+        del epi_in, out, args, XN, BR0, XNt, BRt, Wst, XNH
 
     print("== phase 5h: tails_traced and completion_traced at L1's x-axis "
           "shapes, the learnable calls and L2's training step (CUDA events, "
@@ -3760,13 +3952,42 @@ def main() -> int:
             q, n, S).permute(1, 2, 0), bk[:, :S]) <= 1e-5
             and rel_err(torch.matmul(XN, BR), yk) <= 1e-5,
             "L1: the library calls compute the traced kernels' functions")
-        r = timed("L1 x tails_traced", kcomp.tails_traced,
-                  kcomp.tails_traced_plain,
-                  lambda v, g: torch.matmul(v.reshape(-1, 128), g.t()),
-                  (X, Gcat), tensor_bytes(X, Gcat, bk), 2.0 * S * X.numel(),
-                  PEAK_FP64, main_launches["tails_traced"])
+        # the library call that emits the kernel's layout, (n, S, q) (the
+        # kernel's (n, 8, q) less its zero pad slots): matmul of G by x as
+        # an (n, 128, q) view; the flat matmul of earlier runs beside it
+        def traced_lib(v, g):
+            return torch.matmul(g, v.permute(1, 2, 0))
+
+        check(rel_err(traced_lib(X, Gcat), bk[:, :S]) <= 1e-5,
+              "L1: matmul(G, Xᵀ) computes tails_traced in its layout")
+        r = timed("L1 x tails_traced (library: matmul(G, Xᵀ) -> (n, S, "
+                  "q))", kcomp.tails_traced, kcomp.tails_traced_plain,
+                  traced_lib, (X, Gcat), tensor_bytes(X, Gcat, bk),
+                  2.0 * S * X.numel(), PEAK_FP64,
+                  main_launches["tails_traced"])
         times["tails_traced"], dev_t["tails_traced"] = r[0], r[1]
         extra["tails_traced"] = (*r[2], r[3])
+        flat_lib = lambda v, g: torch.matmul(v.reshape(-1, 128), g.t())
+        prof = timing.device_profile(traced_lib, X, Gcat, iterations=10)
+        print(f"  L1 x the flat matmul x (q·n, 128) by Gᵀ (earlier runs' "
+              f"library): event {median_ms(flat_lib, X, Gcat):.4f} ms, "
+              f"device {device_ms(flat_lib, X, Gcat):.4f} ms; the "
+              "(n, S, q) matmul's device ops per call: " + (
+                  ", ".join(f"{nm[:48]} {ms:.4f} ms" for nm, ms in
+                            prof["top"]) if prof["busy_ms"] is not None
+                  else "not measured"))
+        # the tails entry at L1's shape, fp64 sums and (a probe, on no
+        # path) the fp32-accumulating instantiation
+        tl1 = kcomp.TailsPass(Gcat.cpu().numpy()[None], n).to(dev)
+        for fp64 in (True, False):
+            tl1.fp64 = fp64
+            print(f"  L1 x tails (one variant, S = {S}), fp"
+                  f"{64 if fp64 else 32} sums: event "
+                  f"{median_ms(tl1, X):.4f} ms, device "
+                  f"{device_ms(tl1, X):.4f} ms; bound "
+                  f"{roofline(tensor_bytes(X, bk), 0.0, PEAK_FP64)[0]:.4f} "
+                  f"ms by bytes on {card}")
+        del tl1
         r = timed("L1 x completion_traced", kcomp.completion_traced,
                   kcomp.completion_traced_plain,
                   lambda *a: torch.matmul(XN, BR), (X, Btot32, Rcat32, Nt8),
@@ -3825,6 +4046,8 @@ def main() -> int:
             ("tails_extra", "tails", "recfilter_tpu/kernels/completion.py:750"),
             ("completion_rot", "completion",
              "recfilter_tpu/kernels/completion.py:464"),
+            ("completion_rot/no_stencil", "completion",
+             "recfilter_tpu/kernels/completion.py:464"),
             ("completion_rot_tails", "completion",
              "recfilter_tpu/kernels/completion.py:464"),
             ("tails_traced", "tails",
@@ -3837,6 +4060,8 @@ def main() -> int:
             ("completion_epi", "completion",
              "recfilter_tpu/kernels/completion.py:273"),
             ("completion_rot_epi", "completion",
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("completion_rot_epi/no_stencil", "completion",
              "recfilter_tpu/kernels/completion.py:273"),
             ("moments2d_k", "moments2d",
              "recfilter_tpu/kernels/final2d.py:1323"),

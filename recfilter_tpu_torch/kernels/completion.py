@@ -64,7 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import split
-from .launch import MAX_AUX, _check, _KernelFn, _launch
+from .launch import MAX_AUX, LaunchError, _check, _KernelFn, _launch
 from .stencil2d import shift_mode
 
 TILE = 128  # the kernels' tile edge
@@ -211,6 +211,17 @@ def _grid_ok(what: str, n: int, blocks_y: int) -> None:
                          "outside the launch grid")
 
 
+def _items_ok(what: str, n: int, q: int) -> None:
+    """The persistent kernels (``completion_rot``, ``tails``) walk n tiles
+    × ⌈q/128⌉ line blocks as work items, numbered in an int."""
+    items = n * -(-q // TILE)
+    if not (n > 0 and q > 0 and items < 2**31):
+        raise ValueError(f"{what}: {n} tiles x {q} lines: {items} work items "
+                         "outside the kernel's walk")
+
+
+# the CUDA error a launcher gives where its shared memory does not fit
+_OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
 _MAX_HE = 2 * TILE  # extra rows: a stencil reach of one tile each way
 
 
@@ -257,12 +268,15 @@ class TailsPass(nn.Module):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(self.G_v, "G_v", self.G_v.shape, x.device)
-        _grid_ok("tails", n, -(-q // 64))
         out = torch.empty((n, self.sl + self.He, q), device=x.device)
-        _launch("tails_extra" if self.He else "tails", (
-            x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(),
-            q, n, self.S, self.sl, self.He, self.G_v.shape[0],
-            int(self.fp64)), x.device)
+        args = (x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(), q, n,
+                self.S, self.sl, self.He, self.G_v.shape[0], int(self.fp64))
+        if self.He:
+            _grid_ok("tails_extra", n, -(-q // 64))
+            _launch("tails_extra", args, x.device)
+        else:
+            _items_ok("tails", n, q)
+            _launch("tails", args, x.device)
         return out
 
     def forward(self, x):
@@ -410,9 +424,14 @@ class CompletionPass(nn.Module):
         Rp = np.zeros((nvr, T, self.sl))
         Rp[..., :S] = R
         Bv, Rv = _variants_like(Btot, Rp)
-        # kernel operand: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
+        # kernel operands: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
+        # (completion, completion_rot_tails), and rotated its transpose
+        # [Btot | Rcat], (nv, T, T + sl) (completion_rot: outputs as rows)
         self.register_buffer("BR_v", _f32(np.concatenate(
             [Bv.transpose(0, 2, 1), Rv.transpose(0, 2, 1)], axis=1)))
+        if self.rot:
+            self.register_buffer("BT_v", _f32(np.concatenate([Bv, Rv],
+                                                             axis=2)))
         # twin operands
         self.register_buffer("B_v", _f32(_variants3(Btot)))
         self.register_buffer("R_v", _f32(_variants3(R)))
@@ -466,16 +485,26 @@ class CompletionPass(nn.Module):
             if h is not None:
                 _check(h, name, (n, rows, q), x.device)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
+        _check(self.BT_v, "BT_v", self.BT_v.shape, x.device)
+        _items_ok("completion_rot", n, q)
         y = torch.empty((n * TILE, q), device=x.device)
-        _launch("completion_rot_epi" if epi else "completion_rot", (
-            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
-            0 if prev is None else prev.data_ptr(),
-            0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
-            *epi, y.data_ptr(), q, n, self.sl, self.BR_v.shape[0], self.hp,
-            self.hn, len(self.taps), int(self.taps != [] and
-                                         self.start == "clamp"),
-            int(self.taps != [] and self.end == "clamp"),
-            *((self.k,) if epi else ())), x.device)
+        try:
+            _launch("completion_rot_epi" if epi else "completion_rot", (
+                x.data_ptr(), N.data_ptr(), self.BT_v.data_ptr(),
+                0 if prev is None else prev.data_ptr(),
+                0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
+                *epi, y.data_ptr(), q, n, self.sl, self.BT_v.shape[0],
+                self.hp, self.hn, len(self.taps),
+                int(self.taps != [] and self.start == "clamp"),
+                int(self.taps != [] and self.end == "clamp"),
+                *((self.k,) if epi else ())), x.device)
+        except LaunchError as e:
+            if e.err != _OUT_OF_RESOURCES:
+                raise
+            raise ValueError(
+                f"completion_rot: sl={self.sl}, reach ({self.hp}, "
+                f"{self.hn}) and {len(self.taps)} taps outgrow the block's "
+                "shared memory") from e
         return y
 
     def _kernel_tails(self, x, N):
@@ -594,6 +623,25 @@ def tails_traced_plain(x, G):
     return F.pad(out, (0, 0, 0, _SLOTS - G.shape[0]))
 
 
+def tails_ordered_plain(x, G, f64: bool = False):
+    """The tails in the kernels' summation order, for tests: x (q, n, T)
+    float32 and G (S, T) — one matrix for every tile — or (n, S, T) per
+    tile, float32 → (n, S, q), ``Σ_τ G[s, τ]·x[l, t, τ]`` as one float64
+    loop over τ ascending from 0.0. An fp32 × fp32 product is exact in
+    float64, so each step rounds once, as the ``tails`` and
+    ``tails_traced`` kernels' ``fma`` does: rounded to float32 (``f64``
+    False) the result is theirs bit for bit. The main path does not run
+    it."""
+    x64 = x.double()
+    G64 = G.double()
+    if G64.dim() == 2:
+        G64 = G64[None]
+    acc = x64.new_zeros((x.shape[1], G64.shape[1], x.shape[0]))
+    for tau in range(x.shape[2]):
+        acc = acc + G64[:, :, tau, None] * x64[:, :, tau].t()[:, None, :]
+    return acc if f64 else acc.float()
+
+
 def completion_traced_plain(x, Btot, Rcat, N):
     """The twin of ``completion_traced``: x (q, n, T), Btot (T, T), Rcat
     (T, S ≤ 8), N (n, 8, q) → ``Y[l, t] = Btot·x[l, t] + Rcat·N[t, :S, l]``
@@ -609,7 +657,7 @@ def _tails_traced_kernel(x, G):
     _check(G, "G", (S, TILE), x.device)
     if not 1 <= S <= _SLOTS:
         raise ValueError(f"tails_traced takes 1..{_SLOTS} tail rows, got {S}")
-    _grid_ok("tails_traced", n, -(-q // 64))
+    _items_ok("tails_traced", n, q)
     out = torch.empty((n, _SLOTS, q), device=x.device)
     _launch("tails_traced", (x.data_ptr(), G.data_ptr(), out.data_ptr(),
                              q, n, S), x.device)

@@ -11,47 +11,66 @@
 //
 // The pad rows are written as explicit zeros: the solve multiplies them by
 // zero columns, and an uninitialised NaN there would poison the result.
+// The sums accumulate in fp64 from the fp32 values, one fma per tau in
+// ascending order from 0.0, stored as float(acc), as moments2d.cu's do:
+// these tails seed the carries, whose solve amplifies their rounding
+// (PERF.md). An fp32 x fp32 product is exact in fp64, so each step rounds
+// once, and kernels/completion.py's tails_ordered_plain (a float64 loop
+// over tau) gives the same bits. The fp32-accumulating instantiation
+// (fp64 = 0) is a probe of what the fp64 sums cost, on no path.
 //
 // With He extra rows (tails_pass's extra_rows: a stencil consumer's halo
 // base rows, the first and last rows of each tile's Btot) the constant G
 // holds them below the slot rows, (nv, sl + He, 128), and the output grows
 // to (n, sl + He, q): rows sl.. carry E_v(t) * x[l, t, :], summed in fp64
-// like the tails.
+// like the tails — a kernel of its own, tails_extra_kernel (entry
+// tails_extra_launch: one block per (tile, 64 lines), the rows staged 56
+// at a time in the accumulator's type).
 //
 // A third entry, tails_traced_launch, runs tails_kernel on a runtime
 // (S, 128) matrix (the learnable executor's; see the entry).
 //
-// What bounds it: it reads 4 B per sample and writes 4*sl/128 B, with S
-// MACs per sample, so on an H100 it is bound by device-memory bandwidth
-// (40 MB at 10M samples). The design: one block per (tile, 64 lines);
-// each line's 512-byte row is read once, coalesced, into shared memory
-// (row stride 132 floats, so the float4 row reads of consecutive lines are
-// free of bank conflicts); the tile's G variant sits in shared memory and
-// is read as warp-wide broadcasts. Four slot groups of 64 threads share the
-// lines; each thread keeps up to 14 slot sums in registers. Writes are
-// coalesced along the line axis. With extra rows a second kernel,
-// tails_extra_kernel (entry tails_extra_launch), stages the rows 56 at a
-// time in the accumulator's type (fp64: no conversion per product) and
-// keeps the slot layout.
-//
-// The sums accumulate in fp64 from fp32 loads, as moments2d.cu's do: these
-// tails seed the carries, whose solve amplifies their rounding (PERF.md).
-// At S MACs per sample the H100's fp64 rate keeps the kernel near its
-// bandwidth bound. The fp32-accumulating instantiation exists to measure
-// that choice. The TPU kernel's bf16 chunk splitting works around the TPU
-// matrix unit and has no counterpart here.
+// What bounds it: it reads 4 B per sample and writes 4*sl/128 B, so on the
+// H100 device-memory bandwidth: 0.0127 ms at A (10M samples), 0.0213 ms at
+// L1's x pass (4096 lines, 32 tiles). The fp64 work is S fma per sample
+// (0.1 G at L1, 6 us at the CUDA cores' 16.7 T fma/s) plus one
+// float-to-double conversion per sample: so each sample is converted
+// once, and the loads overlap the sums:
+//   * persistent blocks, one per SM, of 128 threads walking the (tile,
+//     128-line block) items (pipeline.cuh's walk), one thread per line
+//     holding all S sums (the slot loop unrolled to the real sl, a
+//     template), so each sample is converted once;
+//   * G_v's S rows staged once per variant in the accumulator's type: no
+//     conversion per product;
+//   * a ring of nst (3 where it fits, else 2) stages of the 128 line rows
+//     (512 B each, row stride XS = 132 floats: a warp's float4 row reads
+//     take the least wavefronts), filled by cp.async nst - 1 items ahead;
+//   * stores coalesced along the line axis, zeros on the pad slots.
+// The launcher takes three stages where they fit beside G's rows in the
+// 227 KB a block may have, else two (always room: S <= 56).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.0410 ms of
+// device time at L1 (51.9 % of the bound; one torch.matmul emitting the
+// same (n, S, q) layout 0.0622, the flat x (q n, 128) by G^T 0.0387) and
+// 0.0286 at A (44.4 %). The fp32-accumulating probe: 0.0339 and 0.0236,
+// so the fp64 sums cost ~20 %.
+// Bulk copies (cp.async.bulk, a 512-byte row each, counted on an
+// mbarrier) in place of the cp.async ring measured slower (0.056 ms at
+// L1), and two threads a line splitting the slots no faster (0.040).
 
 #include "common.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
 constexpr int T = 128;          // tile width
-constexpr int LINES = 64;       // lines per block
-constexpr int THREADS = 256;
-constexpr int GROUPS = THREADS / LINES;  // slot groups: slots g, g+4, ...
 constexpr int XS = T + 4;       // padded shared row stride of the x rows
 constexpr int MAX_SL = 56;      // carry rows the layout takes
+constexpr long MAX_SMEM = 232448;  // shared memory a block may take
 constexpr int MAX_HE = 256;     // extra rows: a reach of 128 each way
+// tails_extra_kernel's blocks: 64 lines, four row groups of 64 threads
+constexpr int LINES = 64;       // lines per block
+constexpr int THREADS = 256;
+constexpr int GROUPS = THREADS / LINES;  // row groups: rows g, g+4, ...
 constexpr int PER = MAX_SL / GROUPS;     // row sums per thread and pass
 constexpr int ROWS = GROUPS * PER;       // rows per pass
 
@@ -62,62 +81,99 @@ __device__ __forceinline__ double madd(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename Acc>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load4(const double* p, double (&g)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  g[0] = a.x;
+  g[1] = a.y;
+  g[2] = b.x;
+  g[3] = b.y;
+}
+__device__ __forceinline__ void load4(const float* p, float (&g)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  g[0] = a.x;
+  g[1] = a.y;
+  g[2] = a.z;
+  g[3] = a.w;
+}
+
+constexpr int TL = rfp::GT;  // lines per item, and threads per block
+
+// SL: the slot rows (sl), S <= SL of them real; nst: the ring's stages
+template <typename Acc, int SL>
+__global__ void __launch_bounds__(TL, 1)
 tails_kernel(const float* __restrict__ x,  // (q, n, T)
-             const float* __restrict__ G,  // (nv, sl, T)
-             float* __restrict__ out,      // (n, sl, q)
-             int q, int n, int S, int sl, int nv) {
+             const float* __restrict__ G,  // (nv, SL, T)
+             float* __restrict__ out,      // (n, SL, q)
+             int q, int n, int S, int nv, int nst) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // LINES x XS
-  float* gs = xs + LINES * XS;                  // S x T
+  Acc* gs = reinterpret_cast<Acc*>(smem4);             // S x T
+  float* ring = reinterpret_cast<float*>(gs + S * T);  // nst x TL x XS
 
-  const int t = blockIdx.x;
-  const int l0 = blockIdx.y * LINES;
   const int tid = threadIdx.x;
-  const int v = rf::variant(nv, t, n);
+  const int nb = (q + TL - 1) / TL, items = n * nb;
+  auto load = [&](int it, float* st) {
+    int t, b;
+    rfp::item(it, n, nb, nv, t, b);
+    const int l0 = b * TL;
+    for (int i = tid; i < TL * (T / 4); i += TL) {
+      const int r = i >> 5, c4 = i & 31;
+      const bool ok = l0 + r < q;
+      rfp::cp16(st + r * XS + 4 * c4,
+                ok ? x + ((long)(l0 + r) * n + t) * T + 4 * c4 : x, ok);
+    }
+  };
 
-  for (int i = tid; i < LINES * (T / 4); i += THREADS) {
-    const int r = i / (T / 4), c4 = i % (T / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (l0 + r < q)
-      val = reinterpret_cast<const float4*>(
-          x + ((long)(l0 + r) * n + t) * T)[c4];
-    reinterpret_cast<float4*>(xs + r * XS)[c4] = val;
+  for (int p = 0; p + 1 < nst; ++p) {  // the ring's first items
+    const int it = blockIdx.x + p * gridDim.x;
+    if (it < items) load(it, ring + p * TL * XS);
+    rfp::commit();
   }
-  const float4* gv = reinterpret_cast<const float4*>(G + (long)v * sl * T);
-  for (int i = tid; i < S * (T / 4); i += THREADS)
-    reinterpret_cast<float4*>(gs)[i] = gv[i];
-  __syncthreads();
+  int cur_v = -1, idx = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++idx) {
+    const int ahead = it + (nst - 1) * gridDim.x;
+    if (ahead < items) load(ahead, ring + (idx + nst - 1) % nst * TL * XS);
+    rfp::commit();
+    int t, b;
+    rfp::item(it, n, nb, nv, t, b);
+    const int v = rf::variant(nv, t, n);
+    if (v != cur_v) {  // every thread is past the last sums (loop end)
+      const float* gv = G + (long)v * SL * T;
+      for (int i = tid; i < S * T; i += TL) gs[i] = Acc(gv[i]);
+      cur_v = v;
+    }
+    rfp::wait_pending(nst - 1);  // this item's rows landed
+    __syncthreads();
 
-  const int r = tid % LINES;  // this thread's line
-  const int g = tid / LINES;  // its slot group (uniform across a warp)
-  Acc acc[PER];
+    const float* xr = ring + idx % nst * TL * XS + tid * XS;
+    Acc acc[SL];
 #pragma unroll
-  for (int j = 0; j < PER; ++j) acc[j] = Acc(0);
-  const float* xr = xs + r * XS;
-  for (int tau = 0; tau < T; tau += 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(xr + tau);
+    for (int s = 0; s < SL; ++s) acc[s] = Acc(0);
+#pragma unroll 2
+    for (int tau = 0; tau < T; tau += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + tau);
+      const Acc x0 = Acc(xv.x), x1 = Acc(xv.y), x2 = Acc(xv.z),
+                x3 = Acc(xv.w);
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int s = g + GROUPS * j;
-      if (s < S) {
-        const float4 gw = *reinterpret_cast<const float4*>(gs + s * T + tau);
-        acc[j] = madd(Acc(gw.x), Acc(xv.x), acc[j]);
-        acc[j] = madd(Acc(gw.y), Acc(xv.y), acc[j]);
-        acc[j] = madd(Acc(gw.z), Acc(xv.z), acc[j]);
-        acc[j] = madd(Acc(gw.w), Acc(xv.w), acc[j]);
+      for (int s = 0; s < SL; ++s) {
+        if (s < S) {
+          Acc g[4];
+          load4(gs + s * T + tau, g);
+          acc[s] = madd(g[0], x0, acc[s]);
+          acc[s] = madd(g[1], x1, acc[s]);
+          acc[s] = madd(g[2], x2, acc[s]);
+          acc[s] = madd(g[3], x3, acc[s]);
+        }
       }
     }
-  }
-
-  if (l0 + r < q) {
-    float* o = out + (long)t * sl * q + l0 + r;
+    const int l = b * TL + tid;
+    if (l < q) {
+      float* o = out + (long)t * SL * q + l;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int s = g + GROUPS * j;
-      if (s < sl) o[(long)s * q] = s < S ? float(acc[j]) : 0.f;
+      for (int s = 0; s < SL; ++s)
+        o[(long)s * q] = s < S ? float(acc[s]) : 0.f;
     }
+    __syncthreads();  // the stage and G are read: they may be refilled
   }
 }
 
@@ -188,20 +244,49 @@ tails_extra_kernel(const float* __restrict__ x,  // (q, n, T)
   }
 }
 
+// Shared memory of tails_kernel (bytes): G's S rows in the accumulator's
+// type, nst stages.
+inline long tails_smem(int S, int acc_bytes, int nst) {
+  return (long)S * T * acc_bytes + (long)nst * TL * XS * sizeof(float);
+}
+
+template <typename Acc, int SL>
+int tails_go(const float* x, const float* G, float* out, int q, int n, int S,
+             int nv, cudaStream_t stream) {
+  const int nst = tails_smem(S, sizeof(Acc), 3) <= MAX_SMEM ? 3 : 2;
+  const long smem = tails_smem(S, sizeof(Acc), nst);
+  if (smem > MAX_SMEM) return (int)cudaErrorLaunchOutOfResources;
+  cudaError_t err = cudaFuncSetAttribute(
+      tails_kernel<Acc, SL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = rfp::persistent_grid((long)n * ((q + TL - 1) / TL));
+  tails_kernel<Acc, SL><<<grid, TL, (int)smem, stream>>>(x, G, out, q, n, S,
+                                                          nv, nst);
+  return (int)cudaGetLastError();
+}
+
 template <typename Acc>
-int launch(const float* x, const float* G, float* out, int q, int n, int S,
-           int sl, int He, int nv, cudaStream_t stream) {
-  const dim3 grid(n, (q + LINES - 1) / LINES);
-  if (He == 0) {
-    const int smem = (LINES * XS + S * T) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        tails_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (LINES * XS + MAX_SL * T) * sizeof(float));
-    if (err != cudaSuccess) return (int)err;
-    tails_kernel<Acc><<<grid, THREADS, smem, stream>>>(x, G, out, q, n, S,
-                                                       sl, nv);
-    return (int)cudaGetLastError();
+int tails_sl(const float* x, const float* G, float* out, int q, int n, int S,
+             int sl, int nv, cudaStream_t stream) {
+  if (S < 1 || S > sl || q < 1 || n < 1 || (nv != 1 && nv != 3))
+    return (int)cudaErrorInvalidValue;
+  switch (sl) {
+    case 8: return tails_go<Acc, 8>(x, G, out, q, n, S, nv, stream);
+    case 16: return tails_go<Acc, 16>(x, G, out, q, n, S, nv, stream);
+    case 24: return tails_go<Acc, 24>(x, G, out, q, n, S, nv, stream);
+    case 32: return tails_go<Acc, 32>(x, G, out, q, n, S, nv, stream);
+    case 40: return tails_go<Acc, 40>(x, G, out, q, n, S, nv, stream);
+    case 48: return tails_go<Acc, 48>(x, G, out, q, n, S, nv, stream);
+    case 56: return tails_go<Acc, 56>(x, G, out, q, n, S, nv, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename Acc>
+int extra_launch(const float* x, const float* G, float* out, int q, int n,
+                 int S, int sl, int He, int nv, cudaStream_t stream) {
+  const dim3 grid(n, (q + LINES - 1) / LINES);
   const int R = sl + He, rows = R < ROWS ? R : ROWS;
   const int smem = LINES * XS * sizeof(float) + rows * T * sizeof(Acc);
   cudaError_t err = cudaFuncSetAttribute(
@@ -218,12 +303,11 @@ int launch(const float* x, const float* G, float* out, int q, int n, int S,
 extern "C" int tails_launch(const float* x, const float* G, float* out,
                             int q, int n, int S, int sl, int He, int nv,
                             int fp64, void* stream) {
-  if (S < 1 || sl > MAX_SL || S > sl || sl % 8 || He != 0)
-    return (int)cudaErrorInvalidValue;
-  return fp64 ? launch<double>(x, G, out, q, n, S, sl, 0, nv,
-                               (cudaStream_t)stream)
-              : launch<float>(x, G, out, q, n, S, sl, 0, nv,
-                              (cudaStream_t)stream);
+  if (sl > MAX_SL || sl % 8 || He != 0) return (int)cudaErrorInvalidValue;
+  return fp64 ? tails_sl<double>(x, G, out, q, n, S, sl, nv,
+                                 (cudaStream_t)stream)
+              : tails_sl<float>(x, G, out, q, n, S, sl, nv,
+                                (cudaStream_t)stream);
 }
 
 // tails_traced: the learnable executor's tails, G a runtime (S, 128)
@@ -236,7 +320,7 @@ extern "C" int tails_launch(const float* x, const float* G, float* out,
 extern "C" int tails_traced_launch(const float* x, const float* G, float* out,
                                    int q, int n, int S, void* stream) {
   if (S < 1 || S > 8) return (int)cudaErrorInvalidValue;
-  return launch<double>(x, G, out, q, n, S, 8, 0, 1, (cudaStream_t)stream);
+  return tails_sl<double>(x, G, out, q, n, S, 8, 1, (cudaStream_t)stream);
 }
 
 // the same tails with He extra rows below the sl slot rows: a kernel of
@@ -246,10 +330,10 @@ extern "C" int tails_extra_launch(const float* x, const float* G, float* out,
                                   int fp64, void* stream) {
   if (S < 1 || sl > MAX_SL || S > sl || sl % 8 || He < 1 || He > MAX_HE)
     return (int)cudaErrorInvalidValue;
-  return fp64 ? launch<double>(x, G, out, q, n, S, sl, He, nv,
-                               (cudaStream_t)stream)
-              : launch<float>(x, G, out, q, n, S, sl, He, nv,
-                              (cudaStream_t)stream);
+  return fp64 ? extra_launch<double>(x, G, out, q, n, S, sl, He, nv,
+                                     (cudaStream_t)stream)
+              : extra_launch<float>(x, G, out, q, n, S, sl, He, nv,
+                                    (cudaStream_t)stream);
 }
 
 extern "C" const char* tails_error_string(int err) {

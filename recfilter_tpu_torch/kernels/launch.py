@@ -117,9 +117,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+class LaunchError(RuntimeError):
+    """A launch its entry refused; ``err`` the CUDA error code it gave."""
+
+    def __init__(self, entry: str, msg: str, err: int):
+        super().__init__(f"{entry} kernel launch failed: {msg} ({err})")
+        self.err = err
+
+
 def _launch(entry: str, args, device: torch.device) -> None:
-    """Launch entry point ``entry`` on ``device``'s current stream; raise on
-    a refused launch. Counts the launch."""
+    """Launch entry point ``entry`` on ``device``'s current stream; raise
+    :class:`LaunchError` on a refused launch. Counts the launch."""
     from . import _build
 
     name = ENTRIES[entry]
@@ -129,7 +137,7 @@ def _launch(entry: str, args, device: torch.device) -> None:
         err = getattr(lib, f"{entry}_launch")(*args, stream)
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: {msg} ({err})")
+        raise LaunchError(entry, msg, err)
     LAUNCHES[entry] += 1
 
 

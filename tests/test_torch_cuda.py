@@ -176,6 +176,23 @@ def test_1d_wrappers_refuse_what_the_kernels_do_not_take(dev):
         comp(x, N.cpu())
     with pytest.raises(ValueError):
         comp(x, torch.zeros((n, 8, q + 1), device=dev))
+    with pytest.raises(ValueError):  # no lines: no work item to walk
+        tails(torch.zeros((0, n, T), device=dev))
+    # a stencil whose taps overflow the rotated emit's shared memory (the
+    # twin takes it on the CPU; on the card the launcher refuses and the
+    # wrapper raises, no fallback)
+    Bs, Rs = _stack("clamp", T, T, n, rng), _stack("clamp", T, S, n, rng)
+    wide = tc.CompletionPass(Bs, Rs, n, rot=True, stencil={
+        "taps": [(1, 1.0), (-1, 1.0)] * 8000})
+    xc = torch.zeros((q, n, T))
+    Nc = torch.zeros((n, 8, q))
+    hc = [torch.zeros((n, 1, q)), torch.zeros((n, 1, q))]
+    assert wide(xc, Nc, *hc).shape == (n * T, q)
+    wide = wide.to(dev)
+    tl.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        wide(x, N, *(h.to(dev) for h in hc))
+    assert not any(tl.LAUNCHES.values())
 
 
 def test_audio_filter_on_the_card(dev):
@@ -482,13 +499,17 @@ def _halos_flat(yf, n, hp, hn):
     ([(10, 0.25), (-1, -2.0), (-12, 1.0)], "clamp", "zero"),
     ([(3, 1.0), (0, -0.5)], "zero", "zero"),
     ([(-128, 1.0), (128, 0.5), (0, 2.0)], "clamp", "clamp")])
-def test_completion_rot_matches_twin(kind, taps, start, end, dev):
+@pytest.mark.parametrize("n,q", [(4, 200), (3, 5001), (40, 1030)],
+                         ids=["8-items", "120-items", "360-items"])
+def test_completion_rot_matches_twin(kind, taps, start, end, n, q, dev):
     """The rotated completion, with and without a fused stencil, both
     border modes: max|kernel − twin| ≤ 1e-5·max|twin| (the twin reads the
     whole output, the kernel the halo strips); tails with extra rows
-    against their twin."""
+    against their twin. Work items (tiles × 128-line blocks) below and
+    well above the persistent grid's 132 blocks; ragged q (5001: rows not
+    16-byte aligned)."""
     rng = np.random.default_rng(3)
-    n, S, q = 4, 3, 200
+    S = 3
     st = None if taps is None else {"taps": taps, "start": start,
                                     "end": end}
     Btot, Rcat = _stack(kind, T, T, n, rng, 0.1), _stack(kind, T, S, n, rng)
@@ -730,6 +751,75 @@ def test_completion_rot_tails_matches_twin(kind, ra, n2, dev):
     assert torch.equal(flat(x, N), y)
 
 
+@pytest.mark.parametrize("shape", [(102400, 4, 4), (512, 320, 4)],
+                         ids=["K3", "K6"])
+def test_completion_rot_is_bit_equal_to_completion_rot_tails(shape, dev):
+    """completion_rot (the persistent, line-major product) and
+    completion_rot_tails (common.cuh's gemm_tile) sum each output in one
+    order — fmaf over the x rows, then the carry rows, ascending from 0 —
+    so on real-valued N(0,1) input their outputs are equal bit for bit, at
+    K3's and K6's first-pass shapes."""
+    q, n, n2 = shape
+    rng = np.random.default_rng(q + n)
+    Btot = _stack("clamp", T, T, n, rng, 0.1)
+    Rcat = _stack("clamp", T, 6, n, rng)
+    G2 = rng.standard_normal((1, 5, T))
+    chained = tc.CompletionPass(Btot, Rcat, n, rot=True,
+                                next_tails=(G2, n2)).to(dev)
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.zeros((n, 8, q), device=dev)
+    N[:, :6] = torch.from_numpy(rng.standard_normal((n, 6, q)).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    y = flat(x, N)
+    yc, _ = chained(x, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot=1, completion_rot_tails=1)
+    assert torch.equal(y, yc)
+
+
+def _tails_stack(rows, n, rng):
+    """A clamp-style per-tile stack of tail rows: first and last tiles
+    differ from the interior (one matrix for one tile)."""
+    M = [rng.standard_normal((rows, T)) for _ in range(3)]
+    if n == 1:
+        return M[1][None]
+    return np.stack([M[1]] + [M[0]] * (n - 2) + [M[2]])
+
+
+@pytest.mark.parametrize("entry", ["tails", "tails_traced"])
+@pytest.mark.parametrize("q", [77, 300, 4096])
+@pytest.mark.parametrize("n", [1, 2, 32])
+def test_tails_are_bit_equal_to_the_ordered_plain(entry, q, n, dev):
+    """tails (per-tile variants, S = 6 and 29) and tails_traced (one
+    runtime matrix, S = 6) bit-equal to ``tails_ordered_plain`` — fp64 fma
+    over τ ascending from 0.0 — on N(0,1) input, ragged q, the first/last
+    variants (n = 1, 2) and many tiles; pad slots zero."""
+    rng = np.random.default_rng(q * 7 + n)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    for S in ((6, 29) if entry == "tails" else (6,)):
+        if entry == "tails":
+            G = _tails_stack(S, n, rng).astype(np.float32)
+            mod = tc.TailsPass(G, n).to(dev)
+            per_tile = torch.from_numpy(tc._expand_stack(G, n)).to(dev)
+            run = lambda: mod(x)
+        else:
+            G = torch.from_numpy(rng.standard_normal((S, T)).astype(
+                np.float32)).to(dev)
+            per_tile = G
+            run = lambda: tc.tails_traced(x, G)
+        tl.reset_launches()
+        b = run()
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        assert b.shape == (n, tc.slots_for(S), q)
+        assert torch.equal(b[:, :S], tc.tails_ordered_plain(x, per_tile))
+        assert not b[:, S:].any()
+
+
 def _chain_spec(shape, scans, border="zero", tiles=None):
     names = "vwzyx"[-len(shape):]
     return rft.FilterSpec("C", tuple(rft.Dim(n_, e) for n_, e in
@@ -894,6 +984,12 @@ def test_traced_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tc.completion_traced(x, Btot, Rcat, N[:, :6].contiguous())
     with pytest.raises(ValueError):
         tc.completion_traced(x, Btot, Rcat.cpu(), N)
+    tl.reset_launches()
+    with pytest.raises(ValueError):  # no lines: no work item to walk
+        tc.tails_traced(torch.zeros((0, 2, T), device=dev), G)
+    with pytest.raises(ValueError):
+        tc.tails_traced(x, torch.zeros(0, T, device=dev))
+    assert not any(tl.LAUNCHES.values())
 
 
 def test_learnable_gaussian_on_the_card(dev):

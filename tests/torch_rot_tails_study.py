@@ -1,0 +1,261 @@
+"""Study of the rotated completion and the tails kernels on the card, each
+beside the one PyTorch call that emits its own layout: the yardsticks of
+their redesign, run on any checkout of the port.
+
+    python tests/torch_rot_tails_study.py [--root DIR] [--tag NAME]
+        [--out rows.jsonl]
+
+``--root`` is the checkout whose ``recfilter_tpu_torch`` is measured (by
+default this one): an older checkout unpacked beside it measures its
+kernels with the same inputs, so two versions compare within one run
+(``--tag`` names the rows). Every shape is a main path's:
+
+A  C1's x pass (DoG SAT 4096², the SAT's x scan, feedback (2, −1): x
+   (4096, 32, 128), sl = 8, one matrix variant): ``completion_rot`` with
+   the radius-5 stencil (3 taps, reach 12 / 10) and without one,
+   ``completion_rot_epi`` (the DoG's subtraction a − o, k = 1, c = 0) with
+   and without the stencil. Yardsticks: ``torch.matmul(BR0ᵀ, XNᵀ)`` → (n,
+   128, q), the rotated layout (no stencil; its device ops listed, so a
+   copy of the permuted operand shows), the unrotated ``torch.matmul(XN,
+   BR0)`` of earlier PRs, and ``torch.baddbmm`` with the mix as alpha and
+   beta (the epilogue, no stencil).
+B  L1's x pass (4096², S = 6 runtime tail rows): ``tails_traced`` beside
+   ``torch.matmul(G, Xᵀ)`` → (n, S, q) and the earlier ``torch.matmul(x
+   (q·n, 128), Gᵀ)``; ``tails`` at the same shape with fp64 and with fp32
+   sums (the latter a probe, on no path).
+C  A's kernel pass (``audio_filter_high_order(10M, 2, 1000)``: x (306,
+   256, 128)): ``tails`` with fp64 and fp32 sums beside the einsum of the
+   slot rows.
+
+Each row: CUDA-event median of single calls, the profiler's device time
+per call, the bound (bytes over 3.35 TB/s, or fp32 FLOPs over 67 TFLOP/s)
+and its share, the error against the library call (rel. to its peak;
+held ≤ 1e-5 before it is timed), the SM clock and power draw that
+nvidia-smi reads while the kernel runs back to back, and the card's name
+and power limit.
+Inputs N(0,1) from numpy seeds. Not a pytest module: it needs the card
+and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+
+def card_line() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose recfilter_tpu_torch is measured")
+    ap.add_argument("--tag", default="this", help="names the rows")
+    ap.add_argument("--out", help="also append each row here (JSON lines)")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F_
+
+    if not torch.cuda.is_available():
+        print("torch_rot_tails_study: needs a CUDA device", file=sys.stderr)
+        return 1
+    import recfilter_tpu_torch as rft
+    from recfilter_tpu_torch import dimfuse as tdf
+    from recfilter_tpu_torch.apps import audio_filter_high_order
+    from recfilter_tpu_torch.apps.dog import _stencil
+    from recfilter_tpu_torch.kernels import completion as kc
+    from recfilter_tpu_torch.utils import timing
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    rows = []
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def event_ms(fn, *a):
+        return statistics.median(timing.call_times_ms(fn, *a, iterations=50,
+                                                      warmup=3))
+
+    def dev_ms(fn, *a):
+        prof = timing.device_profile(fn, *a, iterations=10)
+        return prof["busy_ms"], prof["top"]
+
+    def clocks_under(fn, a):
+        """The SM clock (MHz) and power draw (W) nvidia-smi reads while
+        ``fn(*a)`` runs back to back; None without nvidia-smi."""
+        got = {}
+
+        def query():
+            try:
+                got["smi"] = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30).stdout.strip().splitlines()[0]
+            except (OSError, IndexError, subprocess.SubprocessError):
+                pass
+
+        reader = threading.Thread(target=query)
+        for _ in range(20):
+            fn(*a)
+        reader.start()
+        while reader.is_alive():
+            for _ in range(20):
+                fn(*a)
+            torch.cuda.synchronize()
+        if "smi" not in got:
+            return None, None
+        mhz, watts = (float(v) for v in got["smi"].split(","))
+        return mhz, watts
+
+    def row(label, fn, a, nb, flops, lib=None, lib_name=None, ref=None):
+        """Time ``fn(*a)`` (and ``lib(*a)``, held to it first); print and
+        keep the row."""
+        with torch.no_grad():
+            out = fn(*a)
+            r = {"tag": args.tag, "case": label, "card": card}
+            if lib is not None:
+                got = lib(*a)
+                want = out if ref is None else ref(out)
+                err = ((got.double() - want.double()).abs().max()
+                       / want.double().abs().max()).item()
+                if not err <= 1e-5:
+                    raise SystemExit(f"{label}: {lib_name} is not the "
+                                     f"kernel's function ({err:.3e})")
+                r.update(library=lib_name, library_err=err,
+                         library_event_ms=event_ms(lib, *a))
+                r["library_device_ms"], top = dev_ms(lib, *a)
+                r["library_ops"] = [[nm[:48], ms] for nm, ms in top]
+                r["library_sm_clock_mhz"], _ = clocks_under(lib, a)
+            r["event_ms"] = event_ms(fn, *a)
+            r["device_ms"], _ = dev_ms(fn, *a)
+            r["sm_clock_mhz"], r["power_w"] = clocks_under(fn, a)
+        t_b, t_o = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+        r["bound_ms"], r["bound_by"] = max(t_b, t_o), (
+            "bytes" if t_b >= t_o else "operations")
+        d = r["device_ms"] or r["event_ms"]
+        r["share"] = r["bound_ms"] / d
+        rows.append(r)
+        print(json.dumps(r), flush=True)
+
+    # A: C1's x pass
+    q, n, S = 4096, 32, 2
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    X = f32(q, n, 128)
+    Nt = torch.zeros((n, 8, q), device=dev)
+    Nt[:, :S] = f32(n, S, q)
+    aux = f32(n * 128, q)
+    scans = [rft.Scan(1, True, 1.0, (2.0, -1.0))]
+    mods = {}
+    for st in (None, _stencil(5)):
+        for epi in (None, lambda o, a_: a_ - o):
+            le = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                                  rot_axes=2, stencil=st, epilogue=epi
+                                  ).to(dev)
+            mods[st is not None, epi is not None] = (
+                le.completion if st is None else le.st_comp[0])
+    comp = mods[False, False]
+    if comp.BR_v.shape[0] != 1:
+        raise SystemExit("C1's x pass: one matrix variant expected")
+    BR0 = comp.BR_v[0]
+    XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
+    XNt = XN.permute(1, 2, 0)  # (n, 128 + sl, q), a view
+    hp, hn = mods[True, False].hp, mods[True, False].hn
+    halos = (f32(n, hp, q), f32(n, hn, q))
+    flops = 2.0 * (128 + comp.sl) * X.numel()
+    rot = lambda y: y.reshape(n, 128, q)
+    row("C1 completion_rot, no stencil", comp, (X, Nt),
+        nbytes(X, Nt, X), flops,
+        lambda x_, n_: torch.matmul(BR0.t(), XNt),
+        "matmul(BR0^T, XN^T) -> (n, 128, q)", rot)
+    row("C1 completion_rot, no stencil [unrotated matmul]", comp, (X, Nt),
+        nbytes(X, Nt, X), flops,
+        lambda x_, n_: torch.matmul(XN, BR0),
+        "matmul(XN, BR0) -> (q, n, 128)",
+        lambda y: y.reshape(n, 128, q).permute(2, 0, 1))
+    st = mods[True, False]
+    row("C1 completion_rot, 3-tap stencil", st, (X, Nt, *halos),
+        nbytes(X, Nt, *halos, X), flops + 2.0 * 3 * X.numel())
+    epi = mods[False, True]
+    a_, (b_,) = epi.affine.scale, epi.affine.aux_weights
+    BRt = BR0.t().expand(n, -1, -1)
+    row("C1 completion_rot_epi (a - o), no stencil", epi, (X, Nt, aux),
+        nbytes(X, Nt, aux, X), flops + 4.0 * X.numel(),
+        lambda x_, n_, u_: torch.baddbmm(u_.view(n, 128, q), BRt, XNt,
+                                         beta=b_, alpha=a_),
+        "baddbmm(aux, BR0^T, XN^T, beta=b, alpha=a)", rot)
+    row("C1 completion_rot_epi (a - o), 3-tap stencil", mods[True, True],
+        (X, Nt, *halos, aux), nbytes(X, Nt, *halos, aux, X),
+        flops + (6.0 + 4.0) * X.numel())
+    del XN, XNt, aux, halos, mods, comp, st, epi
+
+    # B: L1's x pass
+    S = 6
+    G = f32(S, 128) * 0.1
+    out_b = 4 * n * 8 * q
+    row("L1 tails_traced", kc.tails_traced, (X, G), nbytes(X, G) + out_b,
+        0.0, lambda x_, g_: torch.matmul(g_, x_.permute(1, 2, 0)),
+        "matmul(G, X^T) -> (n, S, q)", lambda b: b[:, :S])
+    row("L1 tails_traced [flat matmul]", kc.tails_traced, (X, G),
+        nbytes(X, G) + out_b, 0.0,
+        lambda x_, g_: torch.matmul(x_.reshape(-1, 128), g_.t()),
+        "matmul(x (q n, 128), G^T) -> (q n, S)",
+        lambda b: b[:, :S].permute(2, 0, 1).reshape(-1, S))
+    tails = kc.TailsPass(G.cpu().numpy()[None], n).to(dev)
+    for fp64 in (True, False):
+        tails.fp64 = fp64
+        row(f"L1 shape tails, fp{64 if fp64 else 32} sums", tails, (X,),
+            nbytes(X, tails.G_v) + out_b, 0.0)
+    del X
+
+    # C: A's kernel pass
+    F = audio_filter_high_order(10_000_000, 2, 1000)
+    body = F.as_func().body
+    loc = body.locals[0] if hasattr(body, "locals") else body
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        F._image.shape).astype(np.float32) * 0.1).to(dev)
+    XA = F_.pad(x, (0, body.pad)).reshape(-1, loc.n, loc.T).contiguous()
+    ta = loc.tails
+    if ta.G_v.shape[0] != 1:
+        raise SystemExit("A: one matrix variant expected")
+    G0 = ta.G_v[0]
+    out_a = 4 * loc.n * ta.sl * XA.shape[0]
+    for fp64 in (True, False):
+        ta.fp64 = fp64
+        row(f"A tails {tuple(XA.shape)} S = {ta.S}, "
+            f"fp{64 if fp64 else 32} sums", ta, (XA,),
+            nbytes(XA, ta.G_v) + out_a, 0.0,
+            lambda v: torch.einsum("st,qnt->nsq", G0, v),
+            "einsum(G0, x) -> (n, sl, q)")
+    ta.fp64 = True
+
+    if args.out:
+        with open(args.out, "a") as fh:
+            for r in rows:
+                fh.write(json.dumps(r) + "\n")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
