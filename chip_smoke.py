@@ -154,7 +154,14 @@ Phases:
      rows: V1, V2, S3; FIR: both passes of F1 and F3, flat passes at the
      ragged L = 1000; integer: I1–I4): max|kernel − twin| ≤
      1e-5·max|twin|, carry pad slots written as zeros; the integer kernels
-     bit-equal;
+     bit-equal. The tensor-core completions (``completion``,
+     ``completion_epi``, ``completion_traced``: six split-bf16 products on
+     ``wgmma``) also within ``kernels.completion.tc_exact``'s bound of
+     their six chunk products' exact sum at every output (a control: the
+     sum with one level-2 product left out lies outside it), and (phase
+     2b) on integer-valued input at A's, E's (three
+     variants), B's (sl = 32) and an sl = 56 shape, and at L1's x pass
+     with NaN pad rows, bit-equal to both twins;
   3. each path end to end through ``RecFilter.as_func()`` (the cascades
      through ``RecFilter.realize`` / ``apps.run_cascade``) on the card, the
      launch counts set to 0 just before each call and read just after: the
@@ -365,7 +372,10 @@ the strip kernels among them — run their fp64 on the CUDA cores at half
 of it) peak of an H100 SXM, or for the integer kernels over its int32 add
 rate (132 SMs × 64 INT32 lanes × 1.98 GHz = 16.7 Tops/s, from the SM's
 unit count in NVIDIA's Hopper white paper), or for the split kernels over
-its dense bf16 (989 TFLOP/s) or TF32 (495 TFLOP/s) tensor-core rate.
+its dense bf16 (989 TFLOP/s) or TF32 (495 TFLOP/s) tensor-core rate —
+``completion``, ``completion_epi`` and ``completion_traced`` among them:
+their six split-bf16 products as bf16 operations (phases 5b, 5i, 5h print
+the fp32 bound of the earlier kernels beside it, and each share).
 """
 
 import json
@@ -568,6 +578,58 @@ def signal(shape, seed=6):
 
     return (np.random.default_rng(seed).standard_normal(shape) * 0.1
             ).astype(np.float32)
+
+
+def split_check(label, got, exact, epilogue=None, controls=False):
+    """A tensor-core completion against the exact sum of its six chunk
+    products: every output within its own summation bound (``exact(drop)``
+    gives ``kernels.completion.tc_exact``'s (sum, bound));
+    ``epilogue(ref, bound)`` maps both through an affine epilogue. Prints
+    the largest |kernel − exact|, its share of the bound and how many
+    outputs pass half and three quarters of their bounds. With
+    ``controls``: the sum with one level-2 product left out — each of
+    (0, 2), (1, 1), (2, 0) — must lie outside the bound at some output, so
+    the check sees a product missing."""
+    ref, bound = exact(None)
+    if epilogue is not None:
+        ref, bound = epilogue(ref, bound)
+    d = (got.double() - ref).abs()
+    share = d / bound
+    print(f"  {label}: max|k-exact| = {d.max().item():.3e}, at most "
+          f"{share.max().item():.3e} of its per-output summation bound; "
+          f"past half of it at {int((share > 0.5).sum())}, past three "
+          f"quarters at {int((share > 0.75).sum())} of {share.numel()} "
+          "outputs")
+    check(bool((d <= bound).all()), f"{label} within the summation bound of "
+          "its six products' exact sum at every output")
+    for drop in ((0, 2), (1, 1), (2, 0)) if controls else ():
+        ref5 = exact(drop)[0]
+        past = ((got.double() - ref5).abs() > bound).sum().item()
+        print(f"    control, {drop} left out: {past} outputs past the "
+              "bound")
+        check(past > 0, f"{label}: the bound rejects the sum without "
+              f"{drop}")
+
+
+def fp32_operand(comp):
+    """[Btotᵀ; Rcatᵀ] (128 + sl, 128) of an unrotated completion's one
+    matrix variant, from its twin's float32 matrices: the operand of the
+    library call that computes the same function."""
+    import torch
+    import torch.nn.functional as F_
+
+    R = F_.pad(comp.R_v[0], (0, comp.sl - comp.R_v.shape[2]))
+    return torch.cat([comp.B_v[0].t(), R.t()]).contiguous()
+
+
+def print_fp32_bound(label, nbytes, fp32_ops, bound_ms, device_ms):
+    """The bound of the same function in fp32 products (the earlier
+    kernels' arithmetic) beside the tensor-core kernel's own."""
+    b32, by32 = roofline(nbytes, fp32_ops, PEAK_FP32)
+    print(f"  {label}: bound {bound_ms:.4f} ms (bytes; six bf16 products at "
+          f"989 TFLOP/s), {100 * bound_ms / device_ms:.1f} % of the device "
+          f"time; the fp32 bound {b32:.4f} ms (by {by32}), "
+          f"{100 * b32 / device_ms:.1f} %")
 
 
 def rel_err(got, want):
@@ -1134,6 +1196,10 @@ def learnable_kernels(rft, dev, size):
         print(f"  L1 x pass {name} {tuple(X.shape)} -> {tuple(got.shape)}: "
               f"max|k-p|/max|p| = {err:.3e}")
         check(err <= 1e-5, f"L1 x pass {name} within 1e-5 of its twin's peak")
+    with torch.no_grad():
+        split_check("L1 x pass completion_traced", yk,
+                    lambda drop: kcomp.completion_traced_exact(
+                        X, Btot32, Rcat32, Nt8, drop), controls=True)
     check(not bk[:, S:].any(), f"L1 x pass tails_traced: pad slots {S}..7 "
           "written as zeros")
     return model, x, (X, Gcat, Btot32, Rcat32, Nt8), errs
@@ -1482,15 +1548,80 @@ def main() -> int:
             check(err <= 1e-5, f"{label} tails within 1e-5")
             check(not b[:, loc.S:].any(), f"{label} tails pad slots zero")
             Nt = loc._solve_t(bp.double()).float()
-            y = loc.completion(X, Nt)
-            yp = loc.completion.plain(X, Nt)
+            comp = loc.completion
+            y = comp(X, Nt)
+            yp = comp.plain(X, Nt)
             torch.cuda.synchronize()
             err = rel_err(y, yp)
             print(f"  {label} completion: max|k-p|/max|p| = {err:.3e}")
             check(err <= 1e-5, f"{label} completion within 1e-5")
+            split_check(f"{label} completion", y,
+                        lambda drop: comp.split_exact(X, Nt, drop),
+                        controls=label == "A")
             if label == "A":
                 max_abs["tails"] = (b - bp).abs().max().item()
                 max_abs["completion"] = (y - yp).abs().max().item()
+        del b, bp, y, yp
+
+    print("== phase 2b, integers: the tensor-core completions on "
+          "integer-valued input "
+          "(every chunk product and sum exact: bit-equal to both twins)",
+          flush=True)
+    from recfilter_tpu_torch.epilogue import Affine
+    from recfilter_tpu_torch.kernels import completion as kcomp
+
+    def int_mats(nv, S, seed):
+        """Integer-valued [Btot], [Rcat] stacks in [-2, 2], nv variants
+        (the clamp layout where nv = 3)."""
+        rng = np.random.default_rng(seed)
+        M = np.stack([rng.integers(-2, 2, (128, 128 + S), endpoint=True)
+                      for _ in range(nv)]).astype(float)
+        return M[..., :128], M[..., 128:]
+
+    for label, q, n, S, nv in (("A's shape", 306, 256, 2, 1),
+                               ("E's shape, clamp", 64, 256, 6, 3),
+                               ("B's carries", 306, 256, 29, 1),
+                               ("sl = 56, one warpgroup a block", 100, 16,
+                                56, 1)):
+        Bi, Ri = int_mats(nv, S, q + S)
+        if nv == 3:  # per-tile stacks: first, interior..., last
+            Bi = np.concatenate([Bi[1:2], np.repeat(Bi[:1], n - 2, 0),
+                                 Bi[2:]])
+            Ri = np.concatenate([Ri[1:2], np.repeat(Ri[:1], n - 2, 0),
+                                 Ri[2:]])
+        xi = torch.from_numpy(ints((q, n, 128), -8, 8, np.float32, 61)).to(dev)
+        for aff in (None, Affine(2.0, (1.0, -3.0), 5.0)):
+            cm = kcomp.CompletionPass(Bi, Ri, n, affine=aff).to(dev)
+            Ni = torch.zeros((n, cm.sl, q), device=dev)
+            Ni[:, :S] = torch.from_numpy(ints((n, S, q), -8, 8, np.float32,
+                                              62)).to(dev)
+            aux = [] if aff is None else [xi, 2.0 * xi]
+            with torch.no_grad():
+                y = cm(xi, Ni, *aux)
+                ok = (torch.equal(y, cm.plain(xi, Ni, *aux))
+                      and torch.equal(y, cm.split_plain(xi, Ni, *aux)))
+            entry = "completion" if aff is None else "completion_epi"
+            print(f"  {entry} at {label} ({nv} variant(s), sl = {cm.sl}): "
+                  f"bit-equal to both twins: {ok}")
+            check(ok, f"{entry} at {label}: bit-equal to the fp32 and the "
+                  "split twin")
+    Bi, Ri = int_mats(1, 6, 7)
+    q, n = 4096, 32
+    xi = torch.from_numpy(ints((q, n, 128), -8, 8, np.float32, 63)).to(dev)
+    Ni = torch.full((n, 8, q), float("nan"), device=dev)
+    Ni[:, :6] = torch.from_numpy(ints((n, 6, q), -8, 8, np.float32,
+                                      64)).to(dev)
+    Bt, Rt = (torch.from_numpy(m[0].astype(np.float32)).to(dev)
+              for m in (Bi, Ri))
+    with torch.no_grad():
+        y = kcomp.completion_traced(xi, Bt, Rt, Ni)
+        ok = (torch.equal(y, kcomp.completion_traced_plain(xi, Bt, Rt, Ni))
+              and torch.equal(y, kcomp.completion_traced_split(xi, Bt, Rt,
+                                                               Ni)))
+    print(f"  completion_traced at L1's x pass, S = 6, N's pad rows NaN: "
+          f"bit-equal to both twins: {ok}")
+    check(ok, "completion_traced: bit-equal to the fp32 and the split twin")
+    del xi, Ni, y
 
     print("== phase 2c: build the rows-path cases; rows_tails and rows_final "
           "against their twins on the card", flush=True)
@@ -1739,7 +1870,6 @@ def main() -> int:
 
     print("== phase 2f: completion_rot_tails against its twin on the card "
           "(integer-valued input: every sum exact, so bit-equal)", flush=True)
-    from recfilter_tpu_torch.kernels import completion as kcomp
 
     def int_stack(var, rows, cols, n, seed):
         """An integer-valued per-tile stack in [-2, 2]: uniform, or with
@@ -1855,6 +1985,19 @@ def main() -> int:
               f"{tuple(X.shape)}: max|k-p|/max|p| = {err:.3e}")
         check(err <= 1e-5, "completion_epi within 1e-5")
         max_abs["completion_epi"] = (got - want).abs().max().item()
+        # against the exact sum of the six products and the mix in
+        # float64: the summation bound scaled by a, and the mix's own
+        # roundings (two fmaf: 2⁻²² of the output and its terms)
+        a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
+        c_ = comp.affine.bias
+
+        def mix(ref, bound):
+            out = a_ * ref + b_ * X.double() + c_
+            return out, abs(a_) * bound + 2.0 ** -22 * (
+                out.abs() + abs(a_) * ref.abs() + abs(b_) * X.double().abs())
+
+        split_check("completion_epi at A's kernel pass", got,
+                    lambda drop: comp.split_exact(X, Nt, drop), mix)
         epi_in["completion_epi"] = (comp, (X, Nt, X))
         # C1's x pass (radius 5): the rotated completion with and without
         # its 3-tap stencil, the DoG's subtraction after it — on
@@ -3244,9 +3387,9 @@ def main() -> int:
                 # completion as one matmul of [x, Nᵀ] against [Btotᵀ; Rᵀ]
                 # (one variant: A has zero border and no pad)
                 check(loc.tails.G_v.shape[0] == 1
-                      and loc.completion.BR_v.shape[0] == 1,
+                      and loc.completion.B_v.shape[0] == 1,
                       "A's tiles share one matrix variant")
-                G0, BR0 = loc.tails.G_v[0], loc.completion.BR_v[0]
+                G0, BR0 = loc.tails.G_v[0], fp32_operand(loc.completion)
                 XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
                 check(rel_err(torch.einsum("st,qnt->nsq", G0, X),
                               loc.tails(X)) <= 1e-5
@@ -3265,10 +3408,17 @@ def main() -> int:
                 extra["tails"] = (*roofline(
                     tensor_bytes(X, Nt, loc.tails.G_v), 2.0 * S * X.numel(),
                     PEAK_FP64), median_ms(tails_lib, G0, X))
+                # the bound of the six split-bf16 products, and beside it
+                # the fp32 one of the parent's kernel; of N only the S
+                # carry rows the kernel reads (the pad rows it zero-fills)
+                nb_c = tensor_bytes(X, Nt[:, :S], X, loc.completion.Bc_k)
                 extra["completion"] = (*roofline(
-                    tensor_bytes(X, Nt, X, loc.completion.BR_v),
-                    2.0 * (128 + S) * X.numel(), PEAK_FP32),
+                    nb_c, 12.0 * (128 + S) * X.numel(), PEAK_BF16),
                     median_ms(torch.matmul, XN, BR0))
+                print_fp32_bound("A completion", nb_c,
+                                 2.0 * (128 + S) * X.numel(),
+                                 extra["completion"][0],
+                                 dev_t["completion"][0])
                 del XN
                 # the fp32-accumulating instantiation, a probe (on no
                 # path): does the arithmetic or the memory set the pace?
@@ -3290,11 +3440,12 @@ def main() -> int:
               f"{t['tails'][0]:.4f} ms = "
               f"{nbytes / t['tails'][0] / 1e9:.3f} TB/s, "
               f"{100 * nbytes / t['tails'][0] / 1e9 / 3.35:.1f} % of 3.35 TB/s")
-        print(f"  {label} completion: {flops / 1e9:.2f} GFLOP in "
+        ops = 6 * flops  # the six split-bf16 products
+        print(f"  {label} completion: {ops / 1e9:.2f} G bf16 operations in "
               f"{t['completion'][0]:.4f} ms = "
-              f"{flops / t['completion'][0] / 1e9:.2f} TFLOP/s, "
-              f"{100 * flops / t['completion'][0] / 1e9 / 67:.1f} % of the "
-              "67 TFLOP/s fp32 peak")
+              f"{ops / t['completion'][0] / 1e9:.2f} TFLOP/s, "
+              f"{100 * ops / t['completion'][0] / 1e9 / 989:.1f} % of the "
+              "989 TFLOP/s bf16 peak")
         print(f"  {label} first-call host build (as_func): "
               f"{build_s[label]:.2f} s")
         print(f"  {label} profile: call {prof['call_ms']:.4f} ms, device "
@@ -3911,12 +4062,12 @@ def main() -> int:
                 # one PyTorch call: addmm of [x, Nᵀ]·[Btotᵀ; Rᵀ] scaled by
                 # the mix's a, plus b·x (A's tiles share one variant), on
                 # the operand phase 5b's matmul takes
-                check(comp.BR_v.shape[0] == 1 and comp.k == 1,
+                check(comp.B_v.shape[0] == 1 and comp.k == 1,
                       "A: one matrix variant, one aux")
                 a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
                 XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).reshape(
                     -1, 128 + comp.sl)
-                BR0 = comp.BR_v[0]
+                BR0 = fp32_operand(comp)
 
                 def lib(x_, n_, aux_):
                     return torch.addmm(aux_.reshape(-1, 128), XN, BR0,
@@ -3927,11 +4078,25 @@ def main() -> int:
                       f"max|l-k|/max|k| = {err:.3e}")
                 check(err <= 1e-5, "A: addmm computes completion_epi's "
                       "function")
-            r = timed(f"{name} at {label} {tuple(X.shape)}", comp,
-                      comp.plain, lib, args,
-                      tensor_bytes(*args, out, comp.BR_v, comp.epi_coef),
-                      2.0 * (128 + comp.sl + len(comp.taps) + comp.k + 1)
-                      * X.numel(), PEAK_FP32, k_launch)
+            # ops of the epilogue and the stencil, beside the products:
+            # fp32 on the rotated entries, six split-bf16 products on
+            # completion_epi (its bound counts them as bf16 operations)
+            ops = 2.0 * (len(comp.taps) + comp.k + 1) * X.numel()
+            prod = 2.0 * (128 + comp.S) * X.numel()
+            if name == "completion_epi":
+                # N's S carry rows, not its pad rows (never read)
+                nb_e = tensor_bytes(args[0], args[1][:, :comp.S], *args[2:],
+                                    out, comp.Bc_k, comp.epi_coef)
+                r = timed(f"{name} at {label} {tuple(X.shape)}", comp,
+                          comp.plain, lib, args, nb_e, 6 * prod + ops,
+                          PEAK_BF16, k_launch)
+                print_fp32_bound(name, nb_e, prod + ops, r[2][0], r[1][0])
+            else:
+                r = timed(f"{name} at {label} {tuple(X.shape)}", comp,
+                          comp.plain, lib, args,
+                          tensor_bytes(*args, out, comp.BR_v, comp.epi_coef),
+                          2.0 * (128 + comp.sl) * X.numel() + ops,
+                          PEAK_FP32, k_launch)
             times[name], dev_t[name] = r[0], r[1]
             extra[name] = (*r[2], r[3])
         del epi_in, out, args, XN, BR0, XNt, BRt, Wst, XNH
@@ -3988,12 +4153,14 @@ def main() -> int:
                   f"{roofline(tensor_bytes(X, bk), 0.0, PEAK_FP64)[0]:.4f} "
                   f"ms by bytes on {card}")
         del tl1
+        nb_t = tensor_bytes(X, Btot32, Rcat32, Nt8[:, :S], yk)
         r = timed("L1 x completion_traced", kcomp.completion_traced,
                   kcomp.completion_traced_plain,
                   lambda *a: torch.matmul(XN, BR), (X, Btot32, Rcat32, Nt8),
-                  tensor_bytes(X, Btot32, Rcat32, Nt8, yk),
-                  2.0 * (128 + S) * X.numel(), PEAK_FP32,
+                  nb_t, 12.0 * (128 + S) * X.numel(), PEAK_BF16,
                   main_launches["completion_traced"])
+        print_fp32_bound("L1 x completion_traced", nb_t,
+                         2.0 * (128 + S) * X.numel(), r[2][0], r[1][0])
         times["completion_traced"], dev_t["completion_traced"] = r[0], r[1]
         extra["completion_traced"] = (*r[2], r[3])
         del bk, yk, XN, BR, traced_in, X, Nt8

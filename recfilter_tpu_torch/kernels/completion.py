@@ -211,10 +211,11 @@ def _grid_ok(what: str, n: int, blocks_y: int) -> None:
                          "outside the launch grid")
 
 
-def _items_ok(what: str, n: int, q: int) -> None:
-    """The persistent kernels (``completion_rot``, ``tails``) walk n tiles
-    × ⌈q/128⌉ line blocks as work items, numbered in an int."""
-    items = n * -(-q // TILE)
+def _items_ok(what: str, n: int, q: int, lines: int = TILE) -> None:
+    """The persistent kernels (``completion_rot``, ``tails``: 128 lines an
+    item; ``completion``, ``completion_traced``: 64) walk n tiles ×
+    ⌈q/lines⌉ line blocks as work items, numbered in an int."""
+    items = n * -(-q // lines)
     if not (n > 0 and q > 0 and items < 2**31):
         raise ValueError(f"{what}: {n} tiles x {q} lines: {items} work items "
                          "outside the kernel's walk")
@@ -223,6 +224,95 @@ def _items_ok(what: str, n: int, q: int) -> None:
 # the CUDA error a launcher gives where its shared memory does not fit
 _OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources
 _MAX_HE = 2 * TILE  # extra rows: a stencil reach of one tile each way
+_TC_LINES = 64  # lines of a tensor-core completion's work item (wgmma M)
+
+
+def _launch_fitting(entry: str, args, device, layout: str) -> None:
+    """``_launch``, the launcher's refusal of a layout whose shared memory
+    does not fit (cudaErrorLaunchOutOfResources) raised as a ValueError
+    naming ``layout``; any other refusal as the launch error it is."""
+    try:
+        _launch(entry, args, device)
+    except LaunchError as e:
+        if e.err != _OUT_OF_RESOURCES:
+            raise
+        raise ValueError(f"{entry}: {layout} outgrow the block's shared "
+                         "memory") from e
+
+
+def _kperm(k: int) -> int:
+    """The sample position k of a tensor-core k16 step holds (the step's
+    contraction permuted so a thread reads its A pairs as float4:
+    ``csrc/wgmma.cuh``'s ``kperm``), for k in [0, KP)."""
+    kl = k % 16
+    return k - kl + 4 * ((kl % 8) // 2) + 2 * (kl // 8) + kl % 2
+
+
+def core_pack(C: torch.Tensor) -> torch.Tensor:
+    """(..., 128, KP) → (..., 128·KP): the B operand of the tensor-core
+    completion in ``csrc/wgmma.cuh``'s order — 8 × 8 core matrices (8
+    outputs, 8 contraction positions), an output group's along k
+    contiguous, each k16 step's contraction permuted by :func:`_kperm` —
+    so staging it is a flat copy."""
+    *lead, no, kp = C.shape
+    P = C[..., [_kperm(k) for k in range(kp)]]
+    P = P.reshape(*lead, no // 8, 8, kp // 8, 8).transpose(-3, -2)
+    return P.reshape(*lead, no * kp).contiguous()
+
+
+def core_unpack(P: torch.Tensor, no: int, kp: int) -> torch.Tensor:
+    """The inverse of :func:`core_pack`: (..., no·kp) → (..., no, kp)."""
+    *lead, _ = P.shape
+    C = P.reshape(*lead, no // 8, kp // 8, 8, 8).transpose(-3, -2)
+    C = C.reshape(*lead, no, kp)
+    inv = [0] * kp
+    for k in range(kp):
+        inv[_kperm(k)] = k
+    return C[..., inv].contiguous()
+
+
+def tc_exact(Mc, data: torch.Tensor, ein, drop=None):
+    """The tensor-core completion's sum, exact, and per output how far the
+    kernel may lie from it: ``(ref, bound)``, float64, of ``ein``'s shape.
+
+    ``ref`` sums the six chunk products of :func:`.split.prods` — the
+    constant's three chunks ``Mc`` ((..., o, KP) each) by the bf16 chunks
+    of ``data`` (q, n, KP) = [x | Nᵀ | 0], split in float32 — in float64
+    (each bf16 product exact, the sum's error some 2⁻⁴³ of its terms'
+    magnitude: far below float32's). ``bound``
+    follows the kernel's ``wgmma`` steps in its order — the carry slab (k ≥
+    128), then the signal slab, in each the six pairs smallest level
+    first, each over its k16 steps — each step at most two roundings of
+    2⁻²³ of what it adds to: the accumulator (the exact partial sum's
+    magnitude plus the bound so far) and the step's sixteen terms (the
+    model PR 11's review measured), plus 2⁻¹⁰⁰ for values float32 holds
+    only as subnormals (at most 72 steps each losing 2⁻¹²⁶ times the
+    step's coefficients: far less; and far below any output a real input
+    gives). ``ein(M, D)`` contracts the last axes (by tile where the matrix
+    has variants). ``drop``: a pair left out of ``ref`` — a control that
+    the check against ``bound`` rejects."""
+    ds = [c.double() for c in split.split_data(data, 3)]
+    ms = [c.double() for c in Mc]
+    kp = data.shape[-1]
+    acc = bound = left = None
+    for k0s in (range(TILE, kp, 16), range(0, TILE, 16)):
+        for i, j in split.prods(6):
+            for k0 in k0s:
+                m, d = ms[i][..., k0:k0 + 16], ds[j][..., k0:k0 + 16]
+                t, a = ein(m, d), ein(m.abs(), d.abs())
+                if acc is None:
+                    acc, bound, left = (torch.zeros_like(t) for _ in "abc")
+                bound = bound + 2.0 ** -22 * (acc.abs() + bound + a)
+                acc = acc + t
+                if (i, j) == drop:
+                    left = left + t
+    return acc - left, bound + 2.0 ** -100
+
+
+def tc_depth(sl: int) -> int:
+    """KP: the tensor-core completion's contraction, 128 samples and sl
+    carry rows padded with zeros to a multiple of 16."""
+    return TILE + -(-sl // 16) * 16
 
 
 class TailsPass(nn.Module):
@@ -372,6 +462,18 @@ class CompletionPass(nn.Module):
     the output becomes ``a·y + Σᵢ bᵢ·auxᵢ + c`` — after the stencil where
     there is one — and ``forward`` takes the k aux arrays after the halo
     strips, in the output's layout ((q, n, T), or (n·T, q) rotated).
+
+    Unrotated, the kernel (``completion``, ``completion_epi``) computes the
+    JAX package's px6 arithmetic on the tensor cores: six split-bf16
+    products (:func:`.split.prods`), the constant ``[Btot | Rcat]`` split
+    from float64 on the host into three chunks (``Bc_k`` (nv, 3, T·KP) in
+    the kernel's byte order, :func:`core_pack`; KP = :func:`tc_depth`;
+    :meth:`chunks` unpacks them), x and N into three on chip.
+    :meth:`split_plain` is that arithmetic in float32 on any device, the
+    kernel's split twin; :meth:`split_exact` its exact sum and the
+    kernel's bound about it; ``plain`` stays the float32 product, the twin
+    the CPU runs and the backward differentiates. The rotated entries run
+    float32 products.
     """
 
     def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None,
@@ -424,14 +526,22 @@ class CompletionPass(nn.Module):
         Rp = np.zeros((nvr, T, self.sl))
         Rp[..., :S] = R
         Bv, Rv = _variants_like(Btot, Rp)
-        # kernel operands: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
-        # (completion, completion_rot_tails), and rotated its transpose
-        # [Btot | Rcat], (nv, T, T + sl) (completion_rot: outputs as rows)
-        self.register_buffer("BR_v", _f32(np.concatenate(
-            [Bv.transpose(0, 2, 1), Rv.transpose(0, 2, 1)], axis=1)))
         if self.rot:
+            # kernel operands: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
+            # (completion_rot_tails), and its transpose [Btot | Rcat],
+            # (nv, T, T + sl) (completion_rot: outputs as rows)
+            self.register_buffer("BR_v", _f32(np.concatenate(
+                [Bv.transpose(0, 2, 1), Rv.transpose(0, 2, 1)], axis=1)))
             self.register_buffer("BT_v", _f32(np.concatenate([Bv, Rv],
                                                              axis=2)))
+        else:
+            # the split constant [Btot | Rcat | 0], (nv, 3, T, KP) bf16,
+            # in the kernel's byte order
+            M = np.zeros(Bv.shape[:2] + (tc_depth(self.sl),))
+            M[..., :T] = Bv
+            M[..., T:T + self.sl] = Rv
+            self.register_buffer("Bc_k", core_pack(torch.stack(
+                split.split_const(M, 3), dim=1)))
         # twin operands
         self.register_buffer("B_v", _f32(_variants3(Btot)))
         self.register_buffer("R_v", _f32(_variants3(R)))
@@ -457,12 +567,40 @@ class CompletionPass(nn.Module):
         y2 = yf.reshape(-1, self.n2, TILE).double()
         return yf, tile_einsum("nst,qnt->nsq", self.G2_v64, y2).float()
 
+    def split_plain(self, x, N, *aux):
+        """The unrotated kernel's arithmetic (class docstring) in float32:
+        ``Σ_(i,j) Bc_i·[x | Nᵀ]_j`` over the six pairs of
+        :func:`.split.prods`, smallest level first (the carry rows at
+        :func:`.split.carry_nprod`, also six), then the epilogue."""
+        if self.rot:
+            raise ValueError("the split twin is the unrotated kernel's")
+        Bc = self.chunks()[..., :TILE + self.sl].float()
+        y = split.pair_sum(6, lambda i, d: tile_einsum(
+            "nok,qnk->qno", Bc[:, i], d), torch.cat(
+                [x, N.permute(2, 0, 1)], dim=-1), TILE)
+        return y if self.affine is None else self.affine.apply(y, aux)
+
+    def chunks(self) -> torch.Tensor:
+        """The constant's three bf16 chunks, (nv, 3, T, KP), unpacked from
+        ``Bc_k`` (:func:`core_unpack`)."""
+        if self.rot:
+            raise ValueError("the split constant is the unrotated kernel's")
+        return core_unpack(self.Bc_k, TILE, tc_depth(self.sl))
+
+    def split_exact(self, x, N, drop=None):
+        """:func:`tc_exact` of the unrotated kernel (before an epilogue):
+        the exact sum of its six chunk products and its bound, per output
+        (q, n, T)."""
+        Bc = self.chunks()
+        d = torch.cat([x, N.permute(2, 0, 1), x.new_zeros(
+            x.shape[:2] + (Bc.shape[-1] - TILE - self.sl,))], dim=-1)
+        return tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
+            "nok,qnk->qno", m, v), drop)
+
     def _kernel(self, x, N, *rest):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(N, "N", (n, self.sl, q), x.device)
-        _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
-        _grid_ok("completion", n, -(-q // TILE))
         halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
         epi = ()
         if self.affine is not None:
@@ -471,12 +609,18 @@ class CompletionPass(nn.Module):
             epi = (*_aux_ptrs(aux, self.k, shape, x.device),
                    self.epi_coef.data_ptr())
         if not self.rot:
+            _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device,
+                   torch.bfloat16)
+            _items_ok("completion", n, q, _TC_LINES)
             y = torch.empty_like(x)
-            _launch("completion_epi" if epi else "completion", (
-                x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(), *epi,
-                y.data_ptr(), q, n, self.sl, self.BR_v.shape[0],
-                *((self.k,) if epi else ())), x.device)
+            entry = "completion_epi" if epi else "completion"
+            _launch_fitting(entry, (
+                x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), *epi,
+                y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
+                *((self.k,) if epi else ())), x.device,
+                f"sl={self.sl} carry rows")
             return y
+        _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
         if self.n2 is not None:
             return self._kernel_tails(x, N)
         prev = halos.pop(0) if self.hp else None
@@ -488,23 +632,17 @@ class CompletionPass(nn.Module):
         _check(self.BT_v, "BT_v", self.BT_v.shape, x.device)
         _items_ok("completion_rot", n, q)
         y = torch.empty((n * TILE, q), device=x.device)
-        try:
-            _launch("completion_rot_epi" if epi else "completion_rot", (
-                x.data_ptr(), N.data_ptr(), self.BT_v.data_ptr(),
-                0 if prev is None else prev.data_ptr(),
-                0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
-                *epi, y.data_ptr(), q, n, self.sl, self.BT_v.shape[0],
-                self.hp, self.hn, len(self.taps),
-                int(self.taps != [] and self.start == "clamp"),
-                int(self.taps != [] and self.end == "clamp"),
-                *((self.k,) if epi else ())), x.device)
-        except LaunchError as e:
-            if e.err != _OUT_OF_RESOURCES:
-                raise
-            raise ValueError(
-                f"completion_rot: sl={self.sl}, reach ({self.hp}, "
-                f"{self.hn}) and {len(self.taps)} taps outgrow the block's "
-                "shared memory") from e
+        _launch_fitting("completion_rot_epi" if epi else "completion_rot", (
+            x.data_ptr(), N.data_ptr(), self.BT_v.data_ptr(),
+            0 if prev is None else prev.data_ptr(),
+            0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
+            *epi, y.data_ptr(), q, n, self.sl, self.BT_v.shape[0],
+            self.hp, self.hn, len(self.taps),
+            int(self.taps != [] and self.start == "clamp"),
+            int(self.taps != [] and self.end == "clamp"),
+            *((self.k,) if epi else ())), x.device,
+            f"sl={self.sl}, reach ({self.hp}, {self.hn}) and "
+            f"{len(self.taps)} taps")
         return y
 
     def _kernel_tails(self, x, N):
@@ -645,9 +783,36 @@ def tails_ordered_plain(x, G, f64: bool = False):
 def completion_traced_plain(x, Btot, Rcat, N):
     """The twin of ``completion_traced``: x (q, n, T), Btot (T, T), Rcat
     (T, S ≤ 8), N (n, 8, q) → ``Y[l, t] = Btot·x[l, t] + Rcat·N[t, :S, l]``
-    (q, n, T) in float32 (the kernel's fp32 products)."""
+    (q, n, T), float32 products (the function the backward
+    differentiates; the kernel's arithmetic is
+    :func:`completion_traced_split`'s)."""
     return (torch.einsum("os,qns->qno", Btot, x)
             + torch.einsum("ou,nuq->qno", Rcat, N[:, :Rcat.shape[1]]))
+
+
+def completion_traced_split(x, Btot, Rcat, N):
+    """The kernel's arithmetic in float32, its split twin: the runtime
+    ``[Btot | Rcat]`` and ``[x | Nᵀ]`` each split into three bf16 chunks in
+    float32 (:func:`.split.split_data`, the JAX package's ``_split_vmem``),
+    the six products of :func:`.split.prods` summed smallest level first
+    — ``completion_pass_traced(nprod=6)``."""
+    S = Rcat.shape[1]
+    Ms = [c.float() for c in split.split_data(torch.cat([Btot, Rcat], 1), 3)]
+    return split.pair_sum(6, lambda i, d: torch.einsum(
+        "ok,qnk->qno", Ms[i], d), torch.cat(
+            [x, N[:, :S].permute(2, 0, 1)], dim=-1), TILE)
+
+
+def completion_traced_exact(x, Btot, Rcat, N, drop=None):
+    """:func:`tc_exact` of ``completion_traced``: the exact sum of its six
+    chunk products (the runtime matrices split in float32) and its bound,
+    per output (q, n, T)."""
+    S, kp = Rcat.shape[1], tc_depth(_SLOTS)
+    M = torch.cat([Btot, Rcat, Btot.new_zeros(TILE, kp - TILE - S)], 1)
+    d = torch.cat([x, N[:, :S].permute(2, 0, 1), x.new_zeros(
+        x.shape[:2] + (kp - TILE - S,))], dim=-1)
+    return tc_exact(split.split_data(M, 3), d, lambda m, v: torch.einsum(
+        "ok,qnk->qno", m, v), drop)
 
 
 def _tails_traced_kernel(x, G):
@@ -674,11 +839,11 @@ def _completion_traced_kernel(x, Btot, Rcat, N):
     if not 1 <= S <= _SLOTS:
         raise ValueError(f"completion_traced takes 1..{_SLOTS} carries, "
                          f"got {S}")
-    _grid_ok("completion_traced", n, -(-q // TILE))
+    _items_ok("completion_traced", n, q, _TC_LINES)
     y = torch.empty_like(x)
-    _launch("completion_traced", (
+    _launch_fitting("completion_traced", (
         x.data_ptr(), N.data_ptr(), Btot.data_ptr(), Rcat.data_ptr(),
-        y.data_ptr(), q, n, S), x.device)
+        y.data_ptr(), q, n, S), x.device, "the traced operands")
     return y
 
 

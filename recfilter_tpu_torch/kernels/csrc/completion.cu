@@ -1,43 +1,74 @@
-// completion: the completion of every tile of a 1-D last-axis pass — read
-// the signal once, inject the solved carries, write the output once.
+// completion.cu: the completion of every tile of a 1-D last-axis pass — read
+// the signal once, inject the solved carries, write the output once — in
+// its unrotated (completion, completion_epi, completion_traced), rotated
+// (completion_rot, completion_rot_epi, completion_rot_tails) and reduced
+// grade (completion_split) forms.
 //
-// Replaces recfilter_tpu/kernels/completion.py::completion_pass (Pallas
-// kernel _completion_kernel) with rot=False and transposed slot-padded
-// carries. For x (q lines, n tiles, 128), the solved carries N (n, sl, q)
-// and v(t) the tile's matrix variant (interior, first or last):
+// completion: replaces recfilter_tpu/kernels/completion.py::completion_pass
+// (Pallas kernel _completion_kernel) with rot=False, nprod=6 and
+// transposed slot-padded carries. For x (q lines, n tiles, 128), the
+// solved carries N (n, sl, q) and v(t) the tile's matrix variant
+// (interior, first or last):
 //
 //   Y[l, t, :] = Btot_v(t) * x[l, t, :] + Rcat_v(t) * N[t, :, l]
 //
-// One block takes one tile t and 128 lines and runs it as one GEMM over a
-// (128 + sl)-deep contraction, the carry rows stacked under the signal
-// rows, as final2d.cu stacks its 8 carry rows:
+// computed as the JAX package computes it at px6: x and its carries split
+// into three bf16 chunks on chip (_split_vmem), the constant [Btot | Rcat]
+// into three from float64 on the host (_split_const_np), and the six chunk
+// products of split.py's prods(6) — (0,2), (1,1), (2,0), (0,1), (1,0),
+// (0,0), constant chunk first — summed in fp32, smallest level first: the
+// carry rows (sl of them, padded with zeros to a multiple of 16) all six
+// products, then the 128 signal rows all six. A bf16 x bf16 product is
+// exact in fp32, so the arithmetic is the TPU kernel's; the sums round at
+// other places (the tensor cores' accumulation).
 //
-//   A[kk][l] = x[l, t, kk] (kk < 128),  N[t, kk-128, l]  (kk >= 128)
-//   B[kk][o] = Btot_v[o][kk]           , Rcat_v[o][kk-128]
-//   Y[l, t, o] = sum_kk A[kk][l] * B[kk][o]
+// What bounds it: 8 B of traffic per sample against 2 * 6 * (128 + S)
+// bf16 operations — at the H100's peaks (3.35 TB/s, 989 TFLOP/s dense
+// bf16) the bytes. The design:
+//   * the products on wgmma (m64n128k16, wgmma.cuh), work items of 64
+//     lines of one tile (one wgmma M; 306 lines take five items, 14 line
+//     slots idle), the A operand — the signal and carry chunks — split
+//     from a fp32 stage into registers, once per item, the B operand — the
+//     three constant chunks, 128 x (128 + 16 KC) in wgmma's core-matrix
+//     order — resident in shared memory;
+//   * persistent blocks, one per SM, of two warpgroups (one where two
+//     stages do not fit beside B: sl >= 48), each with its own item and
+//     stage, so one's split and stores run under the other's products;
+//     the block walks the (tile, 64-line block) items in groups of one
+//     item a warpgroup (pipeline.cuh's order: a block meets each matrix
+//     variant once, so B is staged at most three times a block, a flat
+//     cp.async copy of the host-prepared chunks; a group never mixes
+//     variants);
+//   * a stage a warpgroup filled by cp.async — 64 lines of x at a row
+//     stride of 144 floats (a warp's float4 fragment reads free of bank
+//     conflicts) and the item's sl carry rows — refilled with the next
+//     item as soon as the split has the stage in registers, so the loads
+//     run under the products and the stores;
+//   * the output stored from the accumulators, each thread two adjacent
+//     outputs, four threads a 32-byte sector.
+// Shared memory: 3 * 128 * (128 + 16 KC) * 2 B of chunks (KC = sl / 16
+// rounded up) and a stage of (64 * 144 + sl * 68) * 4 B a warpgroup.
 //
-// with common.cuh's register-tiled GEMM (the one final2d.cu runs). The
-// operand B_v = [Btot^T; Rcat^T] (nv, 128 + sl, 128) is prepared on the
-// host, so it stages as a contiguous copy; x is transposed on its way into
-// shared memory (consecutive threads take consecutive lines, so the
-// shared stores are free of bank conflicts).
+// completion_epi: the same kernel with the affine epilogue applied to the
+// accumulators before the store, out = a * Y + sum_{j<k} b_j * aux_j + c
+// (k <= 4 aux arrays in y's (q, n, 128) layout; fmaf(a, Y, c), then one
+// fmaf per aux, every aux load issued before the stores) — the epilogue of
+// completion_pass (eaux operands, recfilter_tpu/kernels/completion.py:273).
+// Each aux adds 4 B per sample of reads.
 //
-// What bounds it: 2 * (128 + sl) FLOP per sample against 8 B of traffic,
-// so on the H100's fp32 CUDA cores it is bound by arithmetic (3.4 GFLOP at
-// 10M samples and sl = 8). fp32 FMA throughout; no wgmma, TMA or TF32 yet.
-// Shared memory is 2 * (128 + sl) * 128 * 4 B: 139 KB at sl = 8, 188 KB at
-// sl = 56, one block per SM.
+// completion_traced: the learnable executor's completion, replacing
+// recfilter_tpu/kernels/completion.py::completion_pass_traced (nprod=6):
+// the same kernel with sl = 8 and one variant, but Btot (128, 128) and
+// Rcat (128, S <= 8) are runtime matrices built from trainable
+// coefficients, in their natural layout: each block copies them into its
+// ring once (cp.async, the loads in flight together), splits them from
+// there into B's three bf16 chunks (_split_vmem), and zeros the carry rows
+// past S on both operands (N's pad rows are never read). So the caller
+// runs no cat, pad, split or transpose per call.
 //
-// completion_epi (K >= 0): the same kernel with the affine epilogue in its
-// store loop, out = a * Y + sum_{j<K} b_j * aux_j + c (K <= 4, each aux in
-// y's (q, n, T) layout, read with the store's float4 indexing; fp32 FMAs,
-// common.cuh's affine_tile) — the epilogue of completion_pass (eaux operands,
-// recfilter_tpu/kernels/completion.py:273). Each aux adds 4 B per sample of
-// reads; the kernel stays bound by its arithmetic.
-//
-// completion_split: completion (unrotated, no epilogue) at the reduced
-// precision grades — replaces completion_pass(rot=False, nprod=n) at nprod 1
-// (default), 3 (px3) and 4 (px4). The same per-tile product
+// completion_split: completion at the reduced precision grades — replaces
+// completion_pass(rot=False, nprod=n) at nprod 1 (default), 3 (px3) and 4
+// (px4). The same per-tile product
 //
 //   Y[l, t, :] = sum_(i,j) Bc_i[v(t)] * [x[l, t, :]; N[t, :, l]]_j
 //
@@ -53,22 +84,11 @@
 // with sl = 8, 205 KB at sl = 56.
 // Bound: 2 x (128 NPROD + sl carry_nprod) FLOP per sample on the bf16
 // tensor cores against 8 B of traffic — at the card's peaks, by bytes.
-//
-// completion_traced (TRACED = true): the learnable executor's completion,
-// replacing recfilter_tpu/kernels/completion.py::completion_pass_traced.
-// The same GEMM with sl = 8, one variant, but Btot (128, 128) and Rcat
-// (128, S <= 8) are runtime matrices built from trainable coefficients, in
-// their natural layout: the block transposes them on the way into shared
-// memory (B[kk][o] = Btot[o][kk], Rcat[o][kk-128]; consecutive threads take
-// consecutive outputs o, so the stores are free of bank conflicts) and
-// zeros the slot rows past S, on both operands: N's pad rows are never
-// read. So the caller runs no cat, pad or transpose per call. Staging
-// the transpose costs each block one 64 KB read of Btot, from L2 after the
-// first blocks, as the static path's [Btot^T; Rcat^T] does.
 
 #include "common.cuh"
 #include "pipeline.cuh"
 #include "split.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -77,87 +97,317 @@ constexpr int THREADS = rf::GEMM_THREADS;  // 16 x 16, 8 x 8 outputs each
 constexpr int MAX_SL = 56;                 // carry rows the layout takes
 constexpr long MAX_SMEM = 232448;          // shared memory a block may take
 
-// S: the carry rows read from N (sl for the static entry, the real rows of
-// Rcat for the traced one); rows S..sl-1 of the contraction are zeros.
-template <bool TRACED, int K>  // K: affine epilogue aux count, or NO_EPI
-__global__ void __launch_bounds__(THREADS, 1)
-completion_kernel(const float* __restrict__ x,   // (q, n, T)
-                  const float* __restrict__ N,   // (n, sl, q)
-                  const float* __restrict__ BR,  // (nv, T + sl, T); traced:
-                                                 // Btot (T, T)
-                  const float* __restrict__ Rc,  // traced: Rcat (T, S)
-                  float* __restrict__ y,         // (q, n, T)
-                  rf::Affine epi,                // aux: (q, n, T)
-                  int q, int n, int sl, int nv, int S) {
-  extern __shared__ float4 smem4[];
-  const int depth = T + sl;
-  float* As = reinterpret_cast<float*>(smem4);  // depth x T, columns: lines
-  float* Bs = As + depth * T;                   // depth x T, columns: outputs
+// The unrotated completion on the tensor cores (header): x stage row stride
+// LDXS, carry stage row stride LDNS (floats).
+constexpr int LDXS = 144;
+constexpr int LDNS = 68;
+constexpr int XST = rfw::TM * LDXS;  // floats of a stage's x rows
 
-  const int t = blockIdx.x;
-  const int l0 = blockIdx.y * T;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int v = rf::variant(nv, t, n);
+// Shared memory (bytes): the three chunks of B (KP rows), one stage a
+// warpgroup.
+constexpr long tc_smem(int kp, int sl, int nwg) {
+  return 3L * T * kp * 2 + 4L * nwg * (XST + (long)sl * LDNS);
+}
+// completion_traced (sl = 8) runs two warpgroups, whose stages hold its
+// fp32 [Btot | Rcat] (S <= 8) while it splits them
+static_assert(tc_smem(T + 16, 8, 2) <= MAX_SMEM &&
+                  2 * (XST + 8 * LDNS) >= T * (T + 8),
+              "completion_traced's matrices outgrow its stages");
 
-  for (int i = tid; i < T * (T / 4); i += THREADS) {
-    const int l = i % T, c4 = i / T;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (l0 + l < q)
-      val = reinterpret_cast<const float4*>(
-          x + ((long)(l0 + l) * n + t) * T)[c4];
-    As[(4 * c4 + 0) * T + l] = val.x;
-    As[(4 * c4 + 1) * T + l] = val.y;
-    As[(4 * c4 + 2) * T + l] = val.z;
-    As[(4 * c4 + 3) * T + l] = val.w;
+// A k16 step's A fragment in its three chunks: the fp32 pairs (u0, u1) of
+// row r and (w0, w1) of row r + 8 at positions 2qd, 2qd + 1, (u2, u3) and
+// (w2, w3) at 2qd + 8, 2qd + 9 (wgmma.cuh).
+__device__ __forceinline__ void frag3(uint32_t (&a)[3][4], float u0, float u1,
+                                      float w0, float w1, float u2, float u3,
+                                      float w2, float w3) {
+  uint32_t c[4][3];
+  rfw::split3(u0, u1, c[0]);
+  rfw::split3(w0, w1, c[1]);
+  rfw::split3(u2, u3, c[2]);
+  rfw::split3(w2, w3, c[3]);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[ch][i] = c[i][ch];
+}
+
+// The six products of split.cuh's pairs over S k16 steps of A (registers)
+// and B (chunk c at Bs + c * ch, the first step at element k0 of each),
+// smallest level first.
+template <int S>
+__device__ __forceinline__ void six_products(float (&d)[64],
+                                             const uint32_t (&a)[3][S][4],
+                                             const rfs::bf16* Bs, int ch,
+                                             int k0, int kp) {
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      rfw::mma(d, a[rfs::pair_d(6, p)][s],
+               rfw::desc(Bs + rfs::pair_c(6, p) * ch + k0 + 128 * s, kp));
+}
+
+// The walk of a block's nwg warpgroups: the items of each matrix variant
+// (in rfp::item's order, a contiguous range [bd[r], bd[r + 1]), r < 3) in
+// groups of nwg, one item a warpgroup, so the warpgroups of a block always
+// share B's variant. Group g's first item, its range's end in `end`.
+struct Walk {
+  int bd[4], gs[4];  // range bounds; first group of each range, total
+  __device__ Walk(int n, int nb, int nv, int nwg) {
+    const int items = n * nb;
+    bd[0] = 0;
+    bd[1] = bd[2] = bd[3] = items;
+    if (nv == 3) {  // rfp::item: interior tiles, tile 0, tile n - 1
+      bd[1] = n > 2 ? (n - 2) * nb : 0;
+      bd[2] = n > 2 ? (n - 1) * nb : nb;
+    }
+    gs[0] = 0;
+    for (int r = 0; r < 3; ++r)
+      gs[r + 1] = gs[r] + (bd[r + 1] - bd[r] + nwg - 1) / nwg;
   }
-  const float* Nt = N + (long)t * sl * q;
-  for (int i = tid; i < sl * T; i += THREADS) {
-    const int s = i / T, l = i % T;
-    As[(T + s) * T + l] =
-        (s < S && l0 + l < q) ? Nt[(long)s * q + l0 + l] : 0.f;
+  __device__ int first(int g, int nwg, int& end) const {
+    const int r = g < gs[1] ? 0 : (g < gs[2] ? 1 : 2);
+    end = bd[r + 1];
+    return bd[r] + (g - gs[r]) * nwg;
   }
+};
+
+__device__ __forceinline__ void wg_sync(int wg) {  // one warpgroup's barrier
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(rfw::WG) : "memory");
+}
+
+// TRACED: Btot, Rcat runtime fp32 matrices split here (one variant, sl =
+// 8); else Bc, the host's chunks (nv, 3, 128 * KP) in core-matrix order.
+// S: the carry rows read from N (sl, or the real rows of Rcat); rows S..
+// are zeros. epi.coef null: no epilogue; else naux aux arrays. nwg
+// warpgroups (blockDim.x = 128 nwg), each with its own stage and items.
+template <bool TRACED, int KC>
+__global__ void __launch_bounds__(2 * rfw::WG, 1)
+completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
+                     const float* __restrict__ N,       // (n, sl, q)
+                     const rfs::bf16* __restrict__ Bc,  // (nv, 3, T * KP)
+                     const float* __restrict__ Btot,    // traced: (T, T)
+                     const float* __restrict__ Rcat,    // traced: (T, S)
+                     float* __restrict__ y,             // (q, n, T)
+                     rf::Affine epi, int naux, int q, int n, int sl, int nv,
+                     int S, int nwg) {
+  constexpr int KP = T + 16 * KC;  // the contraction, padded
+  constexpr int CH = T * KP;       // elements of a chunk of B
+  extern __shared__ uint4 smem16[];
+  rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);
+  const int stage = XST + sl * LDNS;  // floats, a multiple of 4
+  float* ring = reinterpret_cast<float*>(Bs + 3 * CH);
+
+  const int wg = threadIdx.x / rfw::WG, tid = threadIdx.x % rfw::WG;
+  const int lane = tid % 32, qd = lane % 4;
+  const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
+  const int nb = (q + rfw::TM - 1) / rfw::TM;
+  const bool vec = q % 4 == 0;  // N's rows 16-byte aligned
+  float* Xs = ring + wg * stage;  // this warpgroup's stage
+  const float* Ns = Xs + XST;
+  const Walk walk(n, nb, nv, nwg);
+
+  // this warpgroup's item of group g into its stage, asynchronously;
+  // lines past q and carry rows past S as zeros; false if it has none
+  auto load = [&](int g) {
+    int end;
+    const int it = walk.first(g, nwg, end) + wg;
+    if (g >= walk.gs[3] || it >= end) return false;
+    int t, b;
+    rfp::item(it, n, nb, nv, t, b);
+    const int l0 = b * rfw::TM;
+    for (int i = tid; i < rfw::TM * (T / 4); i += rfw::WG) {
+      const int rr = i >> 5, c4 = i & 31;
+      const bool ok = l0 + rr < q;
+      rfp::cp16(Xs + rr * LDXS + 4 * c4,
+                ok ? x + ((long)(l0 + rr) * n + t) * T + 4 * c4 : x, ok);
+    }
+    float* Nw = Xs + XST;
+    const float* Nt = N + (long)t * sl * q + l0;
+    if (vec) {
+      for (int i = tid; i < sl * (rfw::TM / 4); i += rfw::WG) {
+        const int s = i >> 4, l = 4 * (i & 15);
+        const bool ok = s < S && l0 + l < q;
+        rfp::cp16(Nw + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
+      }
+    } else {
+      for (int i = tid; i < sl * rfw::TM; i += rfw::WG) {
+        const int s = i >> 6, l = i & 63;
+        const bool ok = s < S && l0 + l < q;
+        rfp::cp4(Nw + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
+      }
+    }
+    return true;
+  };
+
   if constexpr (TRACED) {
-    for (int i = tid; i < T * (T / 4); i += THREADS) {
-      const int o = i % T, c4 = i / T;
-      const float4 b = reinterpret_cast<const float4*>(BR + (long)o * T)[c4];
-      Bs[(4 * c4 + 0) * T + o] = b.x;
-      Bs[(4 * c4 + 1) * T + o] = b.y;
-      Bs[(4 * c4 + 2) * T + o] = b.z;
-      Bs[(4 * c4 + 3) * T + o] = b.w;
-    }
-    for (int i = tid; i < sl * T; i += THREADS) {
-      const int s = i / T, o = i % T;
-      Bs[(T + s) * T + o] = s < S ? Rc[(long)o * S + s] : 0.f;
-    }
-  } else {
-    rf::stage_rows(Bs, BR + (long)v * depth * T, depth, T, tid);
-  }
-  __syncthreads();
-
-  float c[8][8];
-  rf::gemm_tile(As, Bs, c, ty, tx, depth);
-
-  long r0[8];
-  bool ok[8];
+    // [Btot | Rcat] into the stages (fp32, by cp.async: the loads in
+    // flight together), then split into B's chunks, in core-matrix order,
+    // with zeros past Rcat's S columns
+    float* Bf = ring;  // Btot (T x T), then Rcat (T x S)
+    for (int i = threadIdx.x; i < T * T / 4; i += blockDim.x)
+      rfp::cp16(Bf + 4 * i, Btot + 4 * i, true);
+    for (int i = threadIdx.x; i < T * S; i += blockDim.x)
+      rfp::cp4(Bf + T * T + i, Rcat + i, true);
+    rfp::commit();
+    rfp::wait_pending(0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < T * (KP / 2); i += blockDim.x) {
+      const int o = i / (KP / 2), k = 2 * (i - o * (KP / 2));
+      const int kk = (k & ~15) + rfw::kperm(k & 15);  // kk, kk + 1
+      float u = 0.f, v = 0.f;
+      if (kk < T) {
+        const float2 b2 = *reinterpret_cast<const float2*>(Bf + o * T + kk);
+        u = b2.x;
+        v = b2.y;
+      } else {
+        if (kk - T < S) u = Bf[T * T + o * S + kk - T];
+        if (kk + 1 - T < S) v = Bf[T * T + o * S + kk + 1 - T];
+      }
+      uint32_t c[3];
+      rfw::split3(u, v, c);
+      const int off = rfw::core_off(o, k, KP);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int l = l0 + rf::row_of(i, ty);
-    r0[i] = ((long)l * n + t) * T + tx * 4;
-    ok[i] = l < q;
-  }
-  rf::affine_tile<K>(epi, c, r0, ok);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (ok[i]) {
-      *reinterpret_cast<float4*>(y + r0[i]) =
-          make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-      *reinterpret_cast<float4*>(y + r0[i] + 64) =
-          make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+      for (int ch = 0; ch < 3; ++ch)
+        *reinterpret_cast<uint32_t*>(Bs + ch * CH + off) = c[ch];
     }
+    rfw::fence_async_smem();
+    __syncthreads();  // B is written, the stages free for the items
+  }
+
+  bool have = load(blockIdx.x);
+  rfp::commit();
+  int cur_v = -1;
+  for (int g = blockIdx.x; g < walk.gs[3]; g += gridDim.x) {
+    int end;
+    const int it = walk.first(g, nwg, end) + wg;
+    if constexpr (!TRACED) {
+      int t0, b0;
+      rfp::item(it - wg, n, nb, nv, t0, b0);
+      const int v = rf::variant(nv, t0, n);
+      if (v != cur_v) {  // both warpgroups past their last products
+        __syncthreads();
+        const uint4* src = reinterpret_cast<const uint4*>(Bc + 3L * v * CH);
+        for (int i = threadIdx.x; i < 3 * CH / 8; i += blockDim.x)
+          rfp::cp16(smem16 + i, src + i, true);
+        rfp::commit();
+        rfp::wait_pending(0);
+        rfw::fence_async_smem();
+        __syncthreads();
+        cur_v = v;
+      }
+    }
+    if (!have) {  // none in this group (its range's odd last item): the
+      have = load(g + gridDim.x);  // stage is free for the next
+      rfp::commit();
+      continue;
+    }
+    rfp::wait_pending(0);  // this item's stage
+    wg_sync(wg);
+    int t, b;
+    rfp::item(it, n, nb, nv, t, b);
+
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    // the carry slab: KC k16 steps of carry rows, zeros past sl
+    uint32_t ac[3][KC][4];
+#pragma unroll
+    for (int s = 0; s < KC; ++s) {
+      const int p0 = 16 * s + 4 * qd;
+      float u[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p0 < sl) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          u[e] = Ns[(p0 + e) * LDNS + r];
+          w[e] = Ns[(p0 + e) * LDNS + r + 8];
+        }
+      }
+      uint32_t a[3][4];
+      frag3(a, u[0], u[1], w[0], w[1], u[2], u[3], w[2], w[3]);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ac[ch][s][i] = a[ch][i];
+    }
+    rfw::fence_acc(d);
+    rfw::fence();
+    six_products<KC>(d, ac, Bs, CH, 128 * (T / 16), KP);
+    rfw::commit();
+    if constexpr (KC > 1) rfw::wait_all();  // the carry chunks' registers
+    // the signal slab, its chunks split under the carry products
+    uint32_t ai[3][T / 16][4];
+#pragma unroll
+    for (int s = 0; s < T / 16; ++s) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(Xs + r * LDXS + 16 * s + 4 * qd);
+      const float4 w = *reinterpret_cast<const float4*>(
+          Xs + (r + 8) * LDXS + 16 * s + 4 * qd);
+      uint32_t a[3][4];
+      frag3(a, u.x, u.y, w.x, w.y, u.z, u.w, w.z, w.w);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ai[ch][s][i] = a[ch][i];
+    }
+    rfw::fence();
+    six_products<T / 16>(d, ai, Bs, CH, 0, KP);
+    rfw::commit();
+    // the stage is in registers: the next item's loads run under the
+    // products and the stores
+    wg_sync(wg);
+    have = load(g + gridDim.x);
+    rfp::commit();
+    rfw::wait_all();
+    rfw::fence_acc(d);
+
+    // d[4j + 2h + e]: line l0 + r + 8h, output 8j + 2qd + e
+    const int l0 = b * rfw::TM;
+    long base[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = l0 + r + 8 * h;
+      ok[h] = l < q;
+      base[h] = ((long)l * n + t) * T + 2 * qd;
+    }
+    if (epi.coef != nullptr) {
+      const float a = epi.coef[0], c = epi.coef[1];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = fmaf(a, d[i], c);
+      for (int k = 0; k < naux; ++k) {
+        const float bk = epi.coef[2 + k];
+        const float* aux = epi.aux[k];
+        float2 u[2][16];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            u[h][j] = ok[h] ? *reinterpret_cast<const float2*>(
+                                  aux + base[h] + 8 * j)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            d[4 * j + 2 * h] = fmaf(bk, u[h][j].x, d[4 * j + 2 * h]);
+            d[4 * j + 2 * h + 1] = fmaf(bk, u[h][j].y, d[4 * j + 2 * h + 1]);
+          }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (ok[h]) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(y + base[h] + 8 * j) =
+              make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
   }
 }
 
-// completion_rot: the same per-tile product, emitted ROTATED — the tile
+// completion_rot: the same per-tile product in fp32 (one fmaf chain an
+// output, not the six split products above), emitted ROTATED — the tile
 // transposed, Y[t*128 + o, l] into an (n*128, q) output — with an optional
 // shifted-tap stencil consumer along the scanned axis fused into the emit.
 //
@@ -504,7 +754,7 @@ completion_rot_kernel(const float* __restrict__ x,     // (q, n, T)
 // in tails.cu's order (one fma per tau, ascending), so a chained pass reads
 // bit for bit the tails an unchained pass would read from y.
 //
-// What bounds it: the GEMM, as for completion (2 * (128 + 8) FLOP per
+// What bounds it: the GEMM, as for completion_rot (2 * (128 + 8) FLOP per
 // sample in fp32); the tails add 2 * S2 fp64 FLOP per sample and 8 / 128 of
 // a write. Shared memory: the GEMM's 139 KB at sl = 8, then the tile at a
 // row stride of 129 floats (so both the coalesced y rows and the per-output
@@ -621,21 +871,59 @@ int rot_launch(const float* x, const float* N, const float* BT,
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int plain_launch(const float* x, const float* N, const float* BR, float* y,
-                 const rf::Affine& epi, int q, int n, int sl, int nv,
-                 cudaStream_t stream) {
-  if (sl < 8 || sl > MAX_SL || sl % 8) return (int)cudaErrorInvalidValue;
+// Two warpgroups where their stages fit beside B, else one, else 0.
+constexpr int tc_nwg(int kp, int sl) {
+  return tc_smem(kp, sl, 2) <= MAX_SMEM ? 2 : (tc_smem(kp, sl, 1) <= MAX_SMEM);
+}
+
+template <bool TRACED, int KC>
+int tc_launch(const float* x, const float* N, const rfs::bf16* Bc,
+              const float* Btot, const float* Rcat, float* y,
+              const rf::Affine& epi, int naux, int q, int n, int sl, int nv,
+              int S, cudaStream_t stream) {
+  constexpr int KP = T + 16 * KC;
+  const int nwg = tc_nwg(KP, sl);
+  if (nwg == 0) return (int)cudaErrorLaunchOutOfResources;
+  const long smem = tc_smem(KP, sl, nwg);
   cudaError_t err = cudaFuncSetAttribute(
-      completion_kernel<false, K>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      2 * (T + MAX_SL) * T * (int)sizeof(float));
+      completion_tc_kernel<TRACED, KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
-  const dim3 grid(n, (q + T - 1) / T);
-  completion_kernel<false, K><<<grid, THREADS, smem, stream>>>(
-      x, N, BR, nullptr, y, epi, q, n, sl, nv, sl);
+  const long nb = (q + rfw::TM - 1) / rfw::TM;
+  // groups of nwg items: per variant range, rounded up
+  const long groups = nv == 1 || n == 1
+                          ? (n * nb + nwg - 1) / nwg
+                          : (n > 2 ? ((n - 2) * nb + nwg - 1) / nwg : 0) +
+                                2 * ((nb + nwg - 1) / nwg);
+  const int grid = rfp::persistent_grid(groups);
+  completion_tc_kernel<TRACED, KC>
+      <<<grid, nwg * rfw::WG, (int)smem, stream>>>(
+          x, N, Bc, Btot, Rcat, y, epi, naux, q, n, sl, nv, S, nwg);
   return (int)cudaGetLastError();
+}
+
+// completion and completion_epi: KC = sl / 16 rounded up carry k16 steps
+int static_launch(const float* x, const float* N, const void* Bc, float* y,
+                  const rf::Affine& epi, int naux, int q, int n, int sl,
+                  int nv, cudaStream_t stream) {
+  if (sl < 8 || sl > MAX_SL || sl % 8 || q < 1 || n < 1 ||
+      (nv != 1 && nv != 3) || naux < 0 || naux > rf::MAX_AUX)
+    return (int)cudaErrorInvalidValue;
+  const rfs::bf16* B = static_cast<const rfs::bf16*>(Bc);
+  switch ((sl + 15) / 16) {
+    case 1:
+      return tc_launch<false, 1>(x, N, B, nullptr, nullptr, y, epi, naux, q,
+                                 n, sl, nv, sl, stream);
+    case 2:
+      return tc_launch<false, 2>(x, N, B, nullptr, nullptr, y, epi, naux, q,
+                                 n, sl, nv, sl, stream);
+    case 3:
+      return tc_launch<false, 3>(x, N, B, nullptr, nullptr, y, epi, naux, q,
+                                 n, sl, nv, sl, stream);
+    default:
+      return tc_launch<false, 4>(x, N, B, nullptr, nullptr, y, epi, naux, q,
+                                 n, sl, nv, sl, stream);
+  }
 }
 
 }  // namespace
@@ -693,48 +981,37 @@ extern "C" int completion_rot_epi_launch(
   return err;
 }
 
+// Bc: kernels/completion.py's CompletionPass.Bc_k, (nv, 3, 128 * KP) bf16
 extern "C" int completion_launch(const float* x, const float* N,
-                                 const float* BR, float* y, int q, int n,
+                                 const void* Bc, float* y, int q, int n,
                                  int sl, int nv, void* stream) {
-  return plain_launch<rf::NO_EPI>(x, N, BR, y, rf::Affine{}, q, n, sl, nv,
-                                  (cudaStream_t)stream);
+  return static_launch(x, N, Bc, y, rf::Affine{}, 0, q, n, sl, nv,
+                       (cudaStream_t)stream);
 }
 
 // coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in y's
 // (q, n, 128) layout, the rest unread
 extern "C" int completion_epi_launch(const float* x, const float* N,
-                                     const float* BR, const float* aux0,
+                                     const void* Bc, const float* aux0,
                                      const float* aux1, const float* aux2,
                                      const float* aux3, const float* coef,
                                      float* y, int q, int n, int sl, int nv,
                                      int k, void* stream) {
-  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
-  int err = (int)cudaErrorInvalidValue;
-  rf::dispatch_aux(k, [&](auto kc) {
-    err = plain_launch<decltype(kc)::value>(x, N, BR, y, epi, q, n, sl, nv,
-                                            (cudaStream_t)stream);
-  });
-  return err;
+  if (coef == nullptr) return (int)cudaErrorInvalidValue;
+  return static_launch(x, N, Bc, y,
+                       rf::make_affine(aux0, aux1, aux2, aux3, coef), k, q,
+                       n, sl, nv, (cudaStream_t)stream);
 }
 
 // the learnable executor's completion: N (n, 8, q), Btot (T, T) and Rcat
-// (T, S) as they are (see completion_kernel<true>)
+// (T, S) as they are (see completion_tc_kernel<true>)
 extern "C" int completion_traced_launch(const float* x, const float* N,
                                         const float* Btot, const float* Rcat,
                                         float* y, int q, int n, int S,
                                         void* stream) {
-  constexpr int sl = 8;
-  if (S < 1 || S > sl) return (int)cudaErrorInvalidValue;
-  const int smem = 2 * (T + sl) * T * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      completion_kernel<true, rf::NO_EPI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, (q + T - 1) / T);
-  completion_kernel<true, rf::NO_EPI>
-      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-          x, N, Btot, Rcat, y, rf::Affine{}, q, n, sl, 1, S);
-  return (int)cudaGetLastError();
+  if (S < 1 || S > 8 || q < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return tc_launch<true, 1>(x, N, nullptr, Btot, Rcat, y, rf::Affine{}, 0, q,
+                            n, 8, 1, S, (cudaStream_t)stream);
 }
 
 namespace {

@@ -1,6 +1,7 @@
 // pipeline.cuh: the pieces of the persistent, cp.async-pipelined kernels —
 // completion.cu's rotated emit (completion_rot, completion_rot_epi) and
-// tails.cu's tails (tails, tails_traced): asynchronous copies into shared
+// tensor-core completion (completion, completion_epi, completion_traced),
+// and tails.cu's tails (tails, tails_traced): asynchronous copies into shared
 // memory, the walk of a persistent block over (tile, line block) work
 // items, and the line-major fp32 GEMM core of the rotated emit.
 //
@@ -12,7 +13,7 @@
 // with one fmaf per contraction row, in ascending order, from 0.f: the
 // x rows, then the carry rows — the order of common.cuh's gemm_tile, so
 // its outputs are bit for bit those of the kernels that run gemm_tile
-// (final2d, completion, completion_rot_tails). Both operands are read
+// (final2d, completion_rot_tails). Both operands are read
 // contiguous in the contraction: the x tile as it arrives (a line's 128
 // samples are one 512-byte row, copied by cp.async without a transpose)
 // and B = [Btot | Rcat] with its outputs as rows, prepared on the host.

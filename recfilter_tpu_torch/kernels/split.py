@@ -28,7 +28,8 @@ peak; with three, well inside it (``tests/torch_split_study.py`` measures
 both). The carry rows are 8 of 136 (at most 56 of 184), so the extra
 products cost little.
 
-On the card the split grades run on bf16 tensor cores (``csrc/split.cuh``):
+On the card the split grades run on bf16 tensor cores (``csrc/split.cuh``),
+as does the unrotated px6 completion (six products, ``csrc/wgmma.cuh``):
 a bf16 product is exact in float32, so each chunk product accumulates in
 float32 as on the TPU. The twins here upcast the bf16 chunks to float32 and
 take float32 products, the same arithmetic in another summation order.

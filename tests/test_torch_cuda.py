@@ -133,11 +133,22 @@ def _stack(kind, rows, cols, n, rng, scale=1.0):
     return np.stack([first] + [M[0]] * (n - 2) + [M[2]])
 
 
+def _within(got, want, bound):
+    """Every output within its own bound (a tensor of got's shape)."""
+    return bool(((got.double() - want.double()).abs() <= bound).all())
+
+
 @pytest.mark.parametrize("kind", list(STACKS))
-@pytest.mark.parametrize("S,q", [(2, 300), (6, 64), (29, 77), (56, 8)])
+@pytest.mark.parametrize("S,q", [(2, 300), (6, 64), (29, 77), (56, 8),
+                                 (8, 306), (13, 50), (29, 306), (56, 50)])
 def test_1d_kernels_match_twins(kind, S, q, dev):
     """tails and completion against their twins, one to seven carry
-    slots, ragged line blocks: max|kernel − twin| ≤ 1e-5·max|twin|."""
+    slots (one to four k16 steps of the tensor-core completion), ragged
+    line blocks (A's 306 lines: four 64-line items and a 50-line tail; one
+    50-line item), one and three matrix variants: max|kernel − twin| ≤
+    1e-5·max|twin|; the completion (six split-bf16 products on the tensor
+    cores) also within ``split_exact``'s bound of its products' exact
+    sum at every output."""
     rng = np.random.default_rng(S + q)
     n = 5
     tails = tc.TailsPass(_stack(kind, S, T, n, rng), n).to(dev)
@@ -154,6 +165,86 @@ def test_1d_kernels_match_twins(kind, S, q, dev):
     assert not b[:, S:].any()  # pad slots written as zeros
     assert _rel(b, tails.plain(x)) <= 1e-5
     assert _rel(y, comp.plain(x, b)) <= 1e-5
+    assert _within(y, *comp.split_exact(x, b))
+
+
+@pytest.mark.parametrize("drop", [(0, 2), (1, 1), (2, 0)])
+@pytest.mark.parametrize("case", ["gaussian traced", "audio A"])
+def test_summation_bound_sees_a_missing_product(case, drop, dev):
+    """On a real filter's matrices and solved carries (the σ=5 Gaussian,
+    64 lines of 8 tiles, through ``completion_traced``; A's kernel pass at
+    300,000 samples through ``completion``): the kernel within the bound
+    of its six products' exact sum at every output, the sum with one
+    level-2 product left out outside it at some output (a control: the
+    check sees a product missing)."""
+    if case == "audio A":
+        F = audio_filter_high_order(300_000, 2, 1000)
+        body = F.as_func(device=dev).body
+        loc = body.locals[0]
+        x = np.random.default_rng(6).standard_normal(F._image.shape) * 0.1
+        X = torch.nn.functional.pad(torch.from_numpy(x.astype(
+            np.float32)).to(dev), (0, body.pad)).reshape(-1, loc.n, T)
+    else:
+        w = rft.gaussian_weights(5.0, 3)
+        scans = [Scan(1, True, w[0], tuple(w[1:])),
+                 Scan(1, False, w[0], tuple(w[1:]))]
+        loc = tdf.LastAxisPass(scans, (T, 8, 0), False, "px6").to(dev)
+        X = torch.from_numpy((np.random.default_rng(3).standard_normal(
+            (64, 8, T)) * 0.01).astype(np.float32)).to(dev)
+    Nt = loc._solve_t(loc.tails.plain(X).double()).float()
+    if case == "audio A":
+        y = loc.completion(X, Nt)
+        exact = lambda d=None: loc.completion.split_exact(X, Nt, d)
+    else:
+        Bt, Rt = loc.B_v[0].float(), loc.R_v[0].float()
+        N8 = torch.full((loc.n, 8, X.shape[0]), float("nan"), device=dev)
+        N8[:, :loc.S] = Nt[:, :loc.S]
+        y = tc.completion_traced(X, Bt, Rt, N8)
+        exact = lambda d=None: tc.completion_traced_exact(X, Bt, Rt, N8, d)
+    ref, bound = exact()
+    assert _within(y, ref, bound)
+    assert not _within(y, exact(drop)[0], bound)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("S,q", [(6, 306), (29, 77)])
+def test_completion_kernels_bit_equal_on_integers(kind, S, q, dev):
+    """On integer-valued input small integers are exact in chunk 0 and
+    every chunk product and partial sum is exact: completion,
+    completion_epi (integer coefficients) and completion_traced equal both
+    twins, the fp32 product and the split one, bit for bit (matrices
+    from ``_int_stack`` in [-2, 2])."""
+    from recfilter_tpu_torch.epilogue import Affine
+
+    rng = np.random.default_rng(S + q)
+    n = 4
+    ints = lambda *s: torch.from_numpy(rng.integers(-8, 8, s).astype(
+        np.float32)).to(dev)
+    Bs, Rs = _int_stack(kind, T, T, n, rng), _int_stack(kind, T, S, n, rng)
+    x = ints(q, n, T)
+    comp = tc.CompletionPass(Bs, Rs, n).to(dev)
+    N = torch.zeros((n, comp.sl, q), device=dev)
+    N[:, :S] = ints(n, S, q)
+    y = comp(x, N)
+    assert torch.equal(y, comp.plain(x, N))
+    assert torch.equal(y, comp.split_plain(x, N))
+    epi = tc.CompletionPass(Bs, Rs, n, affine=Affine(2.0, (1.0, -3.0),
+                                                      5.0)).to(dev)
+    aux = (ints(q, n, T), ints(q, n, T))
+    tl.reset_launches()
+    ye = epi(x, N, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_epi=1)
+    assert torch.equal(ye, epi.plain(x, N, *aux))
+    assert torch.equal(ye, epi.split_plain(x, N, *aux))
+    if kind == "uniform" and S <= 8:
+        Bt = torch.from_numpy(Bs[0].astype(np.float32)).to(dev)
+        Rt = torch.from_numpy(Rs[0].astype(np.float32)).to(dev)
+        N8 = torch.full((n, 8, q), float("nan"), device=dev)
+        N8[:, :S] = N[:, :S]
+        yt = tc.completion_traced(x, Bt, Rt, N8)
+        assert torch.equal(yt, tc.completion_traced_plain(x, Bt, Rt, N8))
+        assert torch.equal(yt, tc.completion_traced_split(x, Bt, Rt, N8))
 
 
 def test_1d_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -935,12 +1026,15 @@ def _traced_inputs(q, n, S, dev, seed):
     return f(q, n, T), f(S, T), 0.1 * f(T, T), f(T, S), N
 
 
-@pytest.mark.parametrize("S", [1, 2, 6, 8])
+@pytest.mark.parametrize("S", range(1, 9))
 @pytest.mark.parametrize("q,n", [(8, 512), (300, 3), (4096, 32)])
 def test_traced_kernels_match_twins(S, q, n, dev):
     """tails_traced and completion_traced against their twins: within 1e-5
-    of the twin's peak, the tails' pad slots written as zeros, N's pad rows
-    never read (NaN there), one launch each."""
+    of the twin's peak (the completion also within
+    ``completion_traced_exact``'s bound of its products' exact sum at
+    every output), the
+    tails' pad slots written as zeros, N's pad rows never read (NaN
+    there), one launch each."""
     x, G, Btot, Rcat, N = _traced_inputs(q, n, S, dev, S + q)
     tl.reset_launches()
     b = tc.tails_traced(x, G)
@@ -951,6 +1045,7 @@ def test_traced_kernels_match_twins(S, q, n, dev):
     assert _rel(b, tc.tails_traced_plain(x, G)) <= 1e-5
     assert bool(torch.isfinite(y).all())
     assert _rel(y, tc.completion_traced_plain(x, Btot, Rcat, N)) <= 1e-5
+    assert _within(y, *tc.completion_traced_exact(x, Btot, Rcat, N))
 
 
 def test_traced_kernel_gradients_match_the_twins(dev):
@@ -1119,6 +1214,16 @@ def test_completion_epi_matches_twin(kind, i, dev):
     torch.cuda.synchronize()
     assert tl.LAUNCHES == _only(completion_epi=1)
     assert _rel(y, comp.plain(x, N, *aux)) <= 1e-5
+    # the exact sum of the six products, then the form in float64: the
+    # kernel's bound scaled by |a|, and the form's own roundings (2⁻²² of
+    # the output and its terms)
+    ref, bound = comp.split_exact(x, N)
+    want = aff.apply(ref, [u.double() for u in aux])
+    terms = (abs(aff.scale) * ref.abs() + abs(aff.bias)
+             + sum(abs(b) * u.double().abs()
+                   for b, u in zip(aff.aux_weights, aux)))
+    assert _within(y, want, abs(aff.scale) * bound
+                   + 2.0 ** -22 * (want.abs() + terms))
     st = {"taps": [(1, 1.0), (0, -2.0), (-1, 1.0)], "start": "zero",
           "end": "clamp"}
     flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)

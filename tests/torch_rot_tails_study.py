@@ -3,7 +3,7 @@ beside the one PyTorch call that emits its own layout: the yardsticks of
 their redesign, run on any checkout of the port.
 
     python tests/torch_rot_tails_study.py [--root DIR] [--tag NAME]
-        [--out rows.jsonl]
+        [--out rows.jsonl] [--calls-only]
 
 ``--root`` is the checkout whose ``recfilter_tpu_torch`` is measured (by
 default this one): an older checkout unpacked beside it measures its
@@ -26,10 +26,27 @@ B  L1's x pass (4096², S = 6 runtime tail rows): ``tails_traced`` beside
 C  A's kernel pass (``audio_filter_high_order(10M, 2, 1000)``: x (306,
    256, 128)): ``tails`` with fp64 and fp32 sums beside the einsum of the
    slot rows.
+D  The unrotated completions at their main paths' shapes: ``completion``
+   at A's kernel pass (S = 2, sl = 8, one variant) beside ``torch.matmul
+   ([x, Nᵀ], [Btotᵀ; Rcatᵀ])``; ``completion_epi`` there with the mix
+   0.7·y + 0.3·x (k = 1) beside ``torch.addmm``; ``completion_traced`` at
+   L1's x pass (S = 6) beside the same ``matmul`` of its runtime
+   matrices. Their bound counts the six split-bf16 products of the
+   tensor-core kernels (at 989 TFLOP/s) against the bytes; the fp32
+   bound of the earlier kernels is kept beside it (``fp32_bound_ms``).
+E  (run first) The whole calls those completions serve: A
+   (``audio_filter_high_order(10M, 2, 1000)`` through ``as_func()``) and
+   L1 (the σ=5 Gaussian's ``LearnableRecFilter`` forward at 4096², no
+   gradient): CUDA-event median of single calls, the profiler's call
+   time, device busy time, idle share, device ops per call and largest
+   ops, the host's time a call (calls issued back to back, unsynchronised:
+   what the host takes to issue one, ``host_ms``) and the CUDA runtime
+   calls' host time in it (``runtime_api_us``).
 
-Each row: CUDA-event median of single calls, the profiler's device time
-per call, the bound (bytes over 3.35 TB/s, or fp32 FLOPs over 67 TFLOP/s)
-and its share, the error against the library call (rel. to its peak;
+Each row: CUDA-event median of single calls, the host's time a call
+(``host_ms``, as in E), the profiler's device time
+per call, the bound (bytes over 3.35 TB/s, or operations at their type's
+peak: fp32 67 TFLOP/s, bf16 989) and its share, the error against the library call (rel. to its peak;
 held ≤ 1e-5 before it is timed), the SM clock and power draw that
 nvidia-smi reads while the kernel runs back to back, and the card's name
 and power limit.
@@ -46,9 +63,10 @@ import statistics
 import subprocess
 import sys
 import threading
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def card_line() -> str:
@@ -67,6 +85,8 @@ def main() -> int:
                     help="checkout whose recfilter_tpu_torch is measured")
     ap.add_argument("--tag", default="this", help="names the rows")
     ap.add_argument("--out", help="also append each row here (JSON lines)")
+    ap.add_argument("--calls-only", action="store_true",
+                    help="only part E, the whole calls")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -94,6 +114,37 @@ def main() -> int:
     def event_ms(fn, *a):
         return statistics.median(timing.call_times_ms(fn, *a, iterations=50,
                                                       warmup=3))
+
+    def host_ms(fn, *a, launches=1):
+        """Host time a call: ``time.perf_counter`` over calls issued back
+        to back without a sync (at most ~800 launches, which the device's
+        queue takes without blocking), after three warm-up calls."""
+        calls = max(1, int(800 // launches))
+        for _ in range(3):
+            fn(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*a)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / calls
+
+    def api_us(fn, *a, iterations=10):
+        """The CUDA runtime calls' host time a call (µs; the profiler's CPU
+        events named cuda*), largest first."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn(*a)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iterations):
+                fn(*a)
+            torch.cuda.synchronize()
+        got = [[e.key, e.cpu_time_total / iterations, e.count / iterations]
+               for e in prof.key_averages() if e.key.startswith("cuda")]
+        return sorted(got, key=lambda g: -g[1])[:6]
 
     def dev_ms(fn, *a):
         prof = timing.device_profile(fn, *a, iterations=10)
@@ -126,9 +177,11 @@ def main() -> int:
         mhz, watts = (float(v) for v in got["smi"].split(","))
         return mhz, watts
 
-    def row(label, fn, a, nb, flops, lib=None, lib_name=None, ref=None):
+    def row(label, fn, a, nb, flops, lib=None, lib_name=None, ref=None,
+            rate=PEAK_FP32, fp32_flops=None):
         """Time ``fn(*a)`` (and ``lib(*a)``, held to it first); print and
-        keep the row."""
+        keep the row. ``flops`` operations at ``rate``; ``fp32_flops``: the
+        fp32 bound of the same function, kept beside it."""
         with torch.no_grad():
             out = fn(*a)
             r = {"tag": args.tag, "case": label, "card": card}
@@ -146,15 +199,58 @@ def main() -> int:
                 r["library_ops"] = [[nm[:48], ms] for nm, ms in top]
                 r["library_sm_clock_mhz"], _ = clocks_under(lib, a)
             r["event_ms"] = event_ms(fn, *a)
+            r["host_ms"] = host_ms(fn, *a)
             r["device_ms"], _ = dev_ms(fn, *a)
             r["sm_clock_mhz"], r["power_w"] = clocks_under(fn, a)
-        t_b, t_o = nb / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+        t_b, t_o = nb / PEAK_BYTES * 1e3, flops / rate * 1e3
         r["bound_ms"], r["bound_by"] = max(t_b, t_o), (
             "bytes" if t_b >= t_o else "operations")
+        if fp32_flops is not None:
+            r["fp32_bound_ms"] = max(t_b, fp32_flops / PEAK_FP32 * 1e3)
         d = r["device_ms"] or r["event_ms"]
         r["share"] = r["bound_ms"] / d
         rows.append(r)
         print(json.dumps(r), flush=True)
+
+    # E (first: a long run's profiles lose device events now and then):
+    # the whole calls of A and L1
+    F = audio_filter_high_order(10_000_000, 2, 1000)
+    modA = F.as_func()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        F._image.shape).astype(np.float32) * 0.1).to(dev)
+
+    def whole(label, fn, v):
+        with torch.no_grad():
+            prof = timing.device_profile(fn, v, iterations=10)
+            r = {"tag": args.tag, "case": label, "card": card,
+                 "event_ms": event_ms(fn, v), "call_ms": prof["call_ms"],
+                 "busy_ms": prof["busy_ms"], "idle": prof["idle"],
+                 "device_ops": prof["device_ops"],
+                 "host_ms": host_ms(fn, v,
+                                    launches=max(1, prof["device_ops"])),
+                 "runtime_api_us": api_us(fn, v),
+                 "top": [[nm[:48], ms] for nm, ms in prof["top"]]}
+        rows.append(r)
+        print(json.dumps(r), flush=True)
+
+    whole("A whole call, 10M samples", modA, x)
+    from recfilter_tpu_torch.learnable import LearnableRecFilter
+
+    size = 4096
+    img = (np.random.default_rng(0).standard_normal((size, size)) * 0.01
+           ).astype(np.float32)
+    xd, yd = rft.Dim("x", size), rft.Dim("y", size)
+    G = rft.RecFilter("GaussianIIR")
+    G[yd, xd] = img
+    for d in (+xd, -xd, +yd, -yd):
+        G.add_filter(d, rft.gaussian_weights(5.0, 3))
+    G.split(xd, 128, yd, 128)
+    whole("L1 LearnableRecFilter forward 4096²",
+          LearnableRecFilter(G.spec, tile_width=128, device=dev),
+          torch.from_numpy(img).to(dev))
+    del img, G
+    if args.calls_only:
+        return finish(rows, args.out, card)
 
     # A: C1's x pass
     q, n, S = 4096, 32, 2
@@ -229,11 +325,8 @@ def main() -> int:
     del X
 
     # C: A's kernel pass
-    F = audio_filter_high_order(10_000_000, 2, 1000)
-    body = F.as_func().body
+    body = modA.body
     loc = body.locals[0] if hasattr(body, "locals") else body
-    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
-        F._image.shape).astype(np.float32) * 0.1).to(dev)
     XA = F_.pad(x, (0, body.pad)).reshape(-1, loc.n, loc.T).contiguous()
     ta = loc.tails
     if ta.G_v.shape[0] != 1:
@@ -249,8 +342,62 @@ def main() -> int:
             "einsum(G0, x) -> (n, sl, q)")
     ta.fp64 = True
 
-    if args.out:
-        with open(args.out, "a") as fh:
+    # D: the unrotated completions (A's kernel pass, L1's x pass)
+    def operand(comp):
+        """[Btotᵀ; Rcatᵀ] of one variant, (128 + sl, 128), from the twin's
+        float32 matrices (every checkout has them)."""
+        R = F_.pad(comp.R_v[0], (0, comp.sl - comp.R_v.shape[2]))
+        return torch.cat([comp.B_v[0].t(), R.t()]).contiguous()
+
+    q, n = XA.shape[0], loc.n
+    NA = torch.zeros((n, 8, q), device=dev)
+    NA[:, :2] = f32(n, 2, q)
+    comp = loc.completion
+    if comp.B_v.shape[0] != 1 or comp.sl != 8:
+        raise SystemExit("A: one matrix variant and one carry slot expected")
+    BR0 = operand(comp)
+    XN = torch.cat([XA, NA.permute(2, 0, 1)], dim=2)
+    spl = 2.0 * 6 * (128 + 2) * XA.numel()
+    row(f"A completion {tuple(XA.shape)}", comp, (XA, NA),
+        nbytes(XA, NA[:, :2], XA), spl,
+        lambda x_, n_: torch.matmul(XN, BR0),
+        "matmul([x, N^T], [Btot^T; Rcat^T])", rate=PEAK_BF16,
+        fp32_flops=2.0 * (128 + 2) * XA.numel())
+    le = tdf.LastAxisPass(body.scans, (loc.T, loc.n, 0), False, "px6",
+                          epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_
+                          ).to(dev)
+    epi = le.completion
+    a_, (b_,) = epi.affine.scale, epi.affine.aux_weights
+    XN2 = XN.reshape(-1, 136)
+    row(f"A completion_epi (0.7 y + 0.3 x) {tuple(XA.shape)}", epi,
+        (XA, NA, XA), nbytes(XA, NA[:, :2], XA, XA),
+        spl + 4.0 * XA.numel(),
+        lambda x_, n_, u_: torch.addmm(u_.reshape(-1, 128), XN2, BR0,
+                                       beta=b_, alpha=a_),
+        "addmm(x, [x, N^T], [Btot^T; Rcat^T], beta=b, alpha=a)",
+        lambda y: y.reshape(-1, 128), rate=PEAK_BF16,
+        fp32_flops=2.0 * (128 + 2) * XA.numel() + 4.0 * XA.numel())
+    del XN, XN2, NA, XA, le, epi
+    q, n, S = 4096, 32, 6
+    X = f32(q, n, 128)
+    Btot, Rcat = f32(128, 128) * 0.1, f32(128, S)
+    N8 = torch.zeros((n, 8, q), device=dev)
+    N8[:, :S] = f32(n, S, q)
+    XN = torch.cat([X, N8[:, :S].permute(2, 0, 1)], dim=2)
+    BR = torch.cat([Btot.t(), Rcat.t()])
+    row("L1 completion_traced (4096, 32, 128), S = 6", kc.completion_traced,
+        (X, Btot, Rcat, N8), nbytes(X, Btot, Rcat, N8[:, :S], X),
+        2.0 * 6 * (128 + S) * X.numel(),
+        lambda *a_: torch.matmul(XN, BR), "matmul([x, N^T], [Btot^T; "
+        "Rcat^T])", rate=PEAK_BF16, fp32_flops=2.0 * (128 + S) * X.numel())
+
+    return finish(rows, args.out, card)
+
+
+def finish(rows, out, card) -> int:
+    """Append the rows to ``out`` (JSON lines), print the card."""
+    if out:
+        with open(out, "a") as fh:
             for r in rows:
                 fh.write(json.dumps(r) + "\n")
     print(card)
