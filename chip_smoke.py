@@ -154,11 +154,13 @@ Phases:
      rows: V1, V2, S3; FIR: both passes of F1 and F3, flat passes at the
      ragged L = 1000; integer: I1–I4): max|kernel − twin| ≤
      1e-5·max|twin|, carry pad slots written as zeros; the integer kernels
-     bit-equal. The tensor-core completions (``completion``,
-     ``completion_epi``, ``completion_traced``: six split-bf16 products on
-     ``wgmma``) also within ``kernels.completion.tc_exact``'s bound of
-     their six chunk products' exact sum at every output (a control: the
-     sum with one level-2 product left out lies outside it), and (phase
+     bit-equal. The tensor-core kernels (``completion``,
+     ``completion_epi``, ``completion_traced``, ``rows_final``: six
+     split-bf16 products on ``wgmma``) also within
+     ``kernels.completion.tc_exact``'s bound of their six chunk products'
+     exact sum at every output (rows_final at V1, V2 and S3; a control at
+     A and V1: the sum with one level-2 product left out lies outside it),
+     and (phase
      2b) on integer-valued input at A's, E's (three
      variants), B's (sl = 32) and an sl = 56 shape, and at L1's x pass
      with NaN pad rows, bit-equal to both twins;
@@ -289,7 +291,9 @@ Phases:
      each ``split_mm`` entry once (studies, on no executor's path: their
      launches are that run's); phase 3m times them beside their twins
      (``torch.matmul`` the library form where one call computes the
-     probe's function) and the headline at px6 and the three grades in
+     probe's function; for ``completion_split`` at E, row 9's matmul of
+     [x, Nᵀ] by the grade's [Btotᵀ; Rᵀ], a per-tile batch for E's clamp
+     variants) and the headline at px6 and the three grades in
      turns; phase 3n holds the int8 probes' studies to their twins at
      their shapes (``scripts/int8_ozaki_exp.py``: ``ozaki_i8`` bit-equal,
      ``dual_px6`` within 1e-6 of its twin's peak, both within px6's 2e-6
@@ -1660,7 +1664,7 @@ def main() -> int:
             torch.cuda.synchronize()
             err = rel_err(b, bp)
             print(f"  {label} rows_tails {tuple(X4.shape)} -> "
-                  f"{tuple(b.shape)} ({rows.tails.G_v.shape[0]} variants): "
+                  f"{tuple(b.shape)} ({rows.tails.G_v64.shape[0]} variants): "
                   f"max|k-p|/max|p| = {err:.3e}")
             check(err <= 1e-5, f"{label} rows_tails within 1e-5")
             check(not b[:, :, rows.K:].any(),
@@ -1672,6 +1676,11 @@ def main() -> int:
             err = rel_err(y, yp)
             print(f"  {label} rows_final: max|k-p|/max|p| = {err:.3e}")
             check(err <= 1e-5, f"{label} rows_final within 1e-5")
+            # six split-bf16 products on the tensor cores: per output
+            # within the summation bound of their exact sum
+            split_check(f"{label} rows_final", y,
+                        lambda d=None: rows.final.split_exact(X4, N, d),
+                        controls=label == "V1")
             if label == "V1":
                 max_abs["rows_tails"] = (b - bp).abs().max().item()
                 max_abs["rows_final"] = (y - yp).abs().max().item()
@@ -3115,12 +3124,27 @@ def main() -> int:
             del X4, NA_t, NB_t, Y
             loc, X, Nt = split_in[g]
             Bc = loc.completion.Bc
+            # the library call of row 9: one matmul of [x, Nᵀ] by [Btotᵀ;
+            # Rᵀ] (here the grade's constant, the sum of its chunks), E's
+            # clamp variants as a per-tile batch (n, q, K) x (n, K, 128)
+            K_ = 128 + loc.completion.sl
+            Bs = Bc[..., :K_].float().sum(1)  # (nv, 128, K)
+            vi = [0 if Bs.shape[0] == 1 else (1 if t == 0 else (
+                2 if t == loc.n - 1 else 0)) for t in range(loc.n)]
+            BRn = Bs[vi].transpose(1, 2).contiguous()
+            XNt = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).transpose(0, 1)
+            check(rel_err(torch.matmul(XNt, BRn).transpose(0, 1),
+                          loc.completion._twin(X, Nt)) <= 1e-5,
+                  f"E {g}: the library call computes completion_split's "
+                  "product")
             carry_times[f"completion_split/{g}"] = timed(
                 f"completion_split {g} (E: {X.shape[0]} lines x {loc.n} "
-                "tiles)", loc.completion, loc.completion.plain, None, (X, Nt),
+                "tiles)", loc.completion, loc.completion.plain,
+                lambda *_: torch.matmul(XNt, BRn), (X, Nt),
                 tensor_bytes(X, Nt, Bc, X),
                 2.0 * X.numel() * (128 * n_i + loc.S * n_c), PEAK_BF16,
                 main_launches[f"completion_split/{g}"])
+            del XNt, BRn
         for name, probe, fn, plain, lib, x, nbytes, ops, rate in probes:
             carry_times[name] = timed(f"{name} ({probe})", fn, plain, lib,
                                       (x,), nbytes, ops, rate,
@@ -3486,9 +3510,12 @@ def main() -> int:
                  "rows_final": paired_times(rows.final, rows.final.plain,
                                             X4, N)}
             K, vox = rows.K, X4.numel()
-            tb = tensor_bytes(X4, N, rows.tails.G_v)
-            fb = tensor_bytes(X4, N, X4, rows.final.A1_v)
-            flops = 2.0 * (128 + K) * vox
+            tb = tensor_bytes(X4, N, rows.tails.G_v64)
+            # of N only the K real slot rows: the pad rows are zeros that
+            # the function never needs
+            fb = tensor_bytes(X4, N[:, :, :K], X4, rows.final.Bc_k)
+            flops = 2.0 * (128 + K) * vox  # the fp32 products' count
+            tc_ops = 12.0 * (128 + K) * vox  # six bf16 products
             if label == "V2":
                 print(f"  V2 device times (profiler): rows_tails "
                       f"{device_ms(rows.tails, X4):.4f} ms, rows_final "
@@ -3498,9 +3525,10 @@ def main() -> int:
                              rows_final=t["rows_final"])
                 # one PyTorch call each (one variant at zero border): G·x
                 # as a matmul (fp32 sums), and [Btot | Rhat]·[x; N]
-                check(rows.tails.G_v.shape[0] == 1,
+                check(rows.tails.G_v64.shape[0] == 1,
                       "V1's tiles share one matrix variant")
-                G0, A0 = rows.tails.G_v[0], rows.final.A1_v[0].T
+                G0 = rows.tails.G_v64[0].float()
+                A0 = torch.cat([rows.final.B_v[0], rows.final.R_v[0]], 1)
                 XN = torch.cat([X4, N], dim=2)
                 check(rel_err(torch.matmul(G0, X4), rows.tails(X4)) <= 1e-5
                       and rel_err(torch.matmul(A0, XN),
@@ -3515,8 +3543,11 @@ def main() -> int:
                     device_ms(torch.matmul, A0, XN))
                 extra["rows_tails"] = (*roofline(tb, 2.0 * K * vox, PEAK_FP64),
                                        median_ms(torch.matmul, G0, X4))
-                extra["rows_final"] = (*roofline(fb, flops, PEAK_FP32),
+                extra["rows_final"] = (*roofline(fb, tc_ops, PEAK_BF16),
                                        median_ms(torch.matmul, A0, XN))
+                print_fp32_bound("V1 rows_final", fb, flops,
+                                 extra["rows_final"][0],
+                                 dev_t["rows_final"][0])
                 del XN
                 prof = timing.device_profile(mod, x, iterations=10)
             del X4, N
@@ -3531,11 +3562,13 @@ def main() -> int:
               f"{tb / t['rows_tails'][0] / 1e9:.3f} TB/s, "
               f"{100 * tb / t['rows_tails'][0] / 1e9 / 3.35:.1f} % of "
               "3.35 TB/s")
-        print(f"  {label} rows_final: {flops / 1e9:.2f} GFLOP in "
+        print(f"  {label} rows_final: {fb / 1e6:.1f} MB in "
               f"{t['rows_final'][0]:.4f} ms = "
-              f"{flops / t['rows_final'][0] / 1e9:.2f} TFLOP/s, "
-              f"{100 * flops / t['rows_final'][0] / 1e9 / 67:.1f} % of the "
-              "67 TFLOP/s fp32 peak")
+              f"{fb / t['rows_final'][0] / 1e9:.3f} TB/s, "
+              f"{100 * fb / t['rows_final'][0] / 1e9 / 3.35:.1f} % of "
+              f"3.35 TB/s; six bf16 products {tc_ops / 1e9:.2f} GFLOP, "
+              f"{100 * tc_ops / t['rows_final'][0] / 1e9 / 989:.1f} % of "
+              "the 989 TFLOP/s bf16 peak")
         if label == "V1":
             print(f"  V1 profile: call {prof['call_ms']:.4f} ms, device busy "
                   f"{busy_text(prof)}, {prof['device_ops']:.0f} device ops "

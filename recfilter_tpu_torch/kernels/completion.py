@@ -315,6 +315,19 @@ def tc_depth(sl: int) -> int:
     return TILE + -(-sl // 16) * 16
 
 
+def tc_constant(Bv, Rv) -> torch.Tensor:
+    """The tensor-core kernels' B operand (``completion``'s and
+    ``rows_final``'s): per variant ``[Btot | R | 0]`` — Bv (nv, T, T), Rv
+    (nv, T, sl), the contraction padded to :func:`tc_depth` — split from
+    float64 into three bf16 chunks and packed by :func:`core_pack`: (nv, 3,
+    T·KP)."""
+    sl = Rv.shape[-1]
+    M = np.zeros(Bv.shape[:2] + (tc_depth(sl),))
+    M[..., :TILE] = Bv
+    M[..., TILE:TILE + sl] = Rv
+    return core_pack(torch.stack(split.split_const(M, 3), dim=1))
+
+
 class TailsPass(nn.Module):
     """``tails(x)``: x (q, n, T) → slot-padded transposed tails (n, sl, q),
     ``out[t, s, l] = Σ_τ G_v(t)[s, τ]·x[l, t, τ]`` for s < S, zeros below.
@@ -537,11 +550,7 @@ class CompletionPass(nn.Module):
         else:
             # the split constant [Btot | Rcat | 0], (nv, 3, T, KP) bf16,
             # in the kernel's byte order
-            M = np.zeros(Bv.shape[:2] + (tc_depth(self.sl),))
-            M[..., :T] = Bv
-            M[..., T:T + self.sl] = Rv
-            self.register_buffer("Bc_k", core_pack(torch.stack(
-                split.split_const(M, 3), dim=1)))
+            self.register_buffer("Bc_k", tc_constant(Bv, Rv))
         # twin operands
         self.register_buffer("B_v", _f32(_variants3(Btot)))
         self.register_buffer("R_v", _f32(_variants3(R)))

@@ -114,68 +114,6 @@ static_assert(tc_smem(T + 16, 8, 2) <= MAX_SMEM &&
                   2 * (XST + 8 * LDNS) >= T * (T + 8),
               "completion_traced's matrices outgrow its stages");
 
-// A k16 step's A fragment in its three chunks: the fp32 pairs (u0, u1) of
-// row r and (w0, w1) of row r + 8 at positions 2qd, 2qd + 1, (u2, u3) and
-// (w2, w3) at 2qd + 8, 2qd + 9 (wgmma.cuh).
-__device__ __forceinline__ void frag3(uint32_t (&a)[3][4], float u0, float u1,
-                                      float w0, float w1, float u2, float u3,
-                                      float w2, float w3) {
-  uint32_t c[4][3];
-  rfw::split3(u0, u1, c[0]);
-  rfw::split3(w0, w1, c[1]);
-  rfw::split3(u2, u3, c[2]);
-  rfw::split3(w2, w3, c[3]);
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[ch][i] = c[i][ch];
-}
-
-// The six products of split.cuh's pairs over S k16 steps of A (registers)
-// and B (chunk c at Bs + c * ch, the first step at element k0 of each),
-// smallest level first.
-template <int S>
-__device__ __forceinline__ void six_products(float (&d)[64],
-                                             const uint32_t (&a)[3][S][4],
-                                             const rfs::bf16* Bs, int ch,
-                                             int k0, int kp) {
-#pragma unroll
-  for (int p = 0; p < 6; ++p)
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      rfw::mma(d, a[rfs::pair_d(6, p)][s],
-               rfw::desc(Bs + rfs::pair_c(6, p) * ch + k0 + 128 * s, kp));
-}
-
-// The walk of a block's nwg warpgroups: the items of each matrix variant
-// (in rfp::item's order, a contiguous range [bd[r], bd[r + 1]), r < 3) in
-// groups of nwg, one item a warpgroup, so the warpgroups of a block always
-// share B's variant. Group g's first item, its range's end in `end`.
-struct Walk {
-  int bd[4], gs[4];  // range bounds; first group of each range, total
-  __device__ Walk(int n, int nb, int nv, int nwg) {
-    const int items = n * nb;
-    bd[0] = 0;
-    bd[1] = bd[2] = bd[3] = items;
-    if (nv == 3) {  // rfp::item: interior tiles, tile 0, tile n - 1
-      bd[1] = n > 2 ? (n - 2) * nb : 0;
-      bd[2] = n > 2 ? (n - 1) * nb : nb;
-    }
-    gs[0] = 0;
-    for (int r = 0; r < 3; ++r)
-      gs[r + 1] = gs[r] + (bd[r + 1] - bd[r] + nwg - 1) / nwg;
-  }
-  __device__ int first(int g, int nwg, int& end) const {
-    const int r = g < gs[1] ? 0 : (g < gs[2] ? 1 : 2);
-    end = bd[r + 1];
-    return bd[r] + (g - gs[r]) * nwg;
-  }
-};
-
-__device__ __forceinline__ void wg_sync(int wg) {  // one warpgroup's barrier
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(rfw::WG) : "memory");
-}
-
 // TRACED: Btot, Rcat runtime fp32 matrices split here (one variant, sl =
 // 8); else Bc, the host's chunks (nv, 3, 128 * KP) in core-matrix order.
 // S: the carry rows read from N (sl, or the real rows of Rcat); rows S..
@@ -205,7 +143,7 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
   const bool vec = q % 4 == 0;  // N's rows 16-byte aligned
   float* Xs = ring + wg * stage;  // this warpgroup's stage
   const float* Ns = Xs + XST;
-  const Walk walk(n, nb, nv, nwg);
+  const rfp::Walk walk(n, nb, nv, nwg);
 
   // this warpgroup's item of group g into its stage, asynchronously;
   // lines past q and carry rows past S as zeros; false if it has none
@@ -285,15 +223,8 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
       int t0, b0;
       rfp::item(it - wg, n, nb, nv, t0, b0);
       const int v = rf::variant(nv, t0, n);
-      if (v != cur_v) {  // both warpgroups past their last products
-        __syncthreads();
-        const uint4* src = reinterpret_cast<const uint4*>(Bc + 3L * v * CH);
-        for (int i = threadIdx.x; i < 3 * CH / 8; i += blockDim.x)
-          rfp::cp16(smem16 + i, src + i, true);
-        rfp::commit();
-        rfp::wait_pending(0);
-        rfw::fence_async_smem();
-        __syncthreads();
+      if (v != cur_v) {
+        rfw::stage_b(smem16, Bc, v, CH);
         cur_v = v;
       }
     }
@@ -303,63 +234,42 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
       continue;
     }
     rfp::wait_pending(0);  // this item's stage
-    wg_sync(wg);
+    rfw::wg_sync(wg);
     int t, b;
     rfp::item(it, n, nb, nv, t, b);
 
+    // the carry rows (zeros past sl), then the signal, as float4 along
+    // the contraction; the next item's loads run under the products and
+    // the stores
     float d[64];
+    rfw::split_products<KC>(
+        d, Bs, CH, KP,
+        [&](int k0, float (&u)[4], float (&w)[4]) {
+          if (k0 >= T) {
+            const int p0 = k0 - T + 4 * qd;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    // the carry slab: KC k16 steps of carry rows, zeros past sl
-    uint32_t ac[3][KC][4];
+            for (int e = 0; e < 4; ++e) u[e] = w[e] = 0.f;
+            if (p0 < sl) {
 #pragma unroll
-    for (int s = 0; s < KC; ++s) {
-      const int p0 = 16 * s + 4 * qd;
-      float u[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
-      if (p0 < sl) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          u[e] = Ns[(p0 + e) * LDNS + r];
-          w[e] = Ns[(p0 + e) * LDNS + r + 8];
-        }
-      }
-      uint32_t a[3][4];
-      frag3(a, u[0], u[1], w[0], w[1], u[2], u[3], w[2], w[3]);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ac[ch][s][i] = a[ch][i];
-    }
-    rfw::fence_acc(d);
-    rfw::fence();
-    six_products<KC>(d, ac, Bs, CH, 128 * (T / 16), KP);
-    rfw::commit();
-    if constexpr (KC > 1) rfw::wait_all();  // the carry chunks' registers
-    // the signal slab, its chunks split under the carry products
-    uint32_t ai[3][T / 16][4];
-#pragma unroll
-    for (int s = 0; s < T / 16; ++s) {
-      const float4 u =
-          *reinterpret_cast<const float4*>(Xs + r * LDXS + 16 * s + 4 * qd);
-      const float4 w = *reinterpret_cast<const float4*>(
-          Xs + (r + 8) * LDXS + 16 * s + 4 * qd);
-      uint32_t a[3][4];
-      frag3(a, u.x, u.y, w.x, w.y, u.z, u.w, w.z, w.w);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ai[ch][s][i] = a[ch][i];
-    }
-    rfw::fence();
-    six_products<T / 16>(d, ai, Bs, CH, 0, KP);
-    rfw::commit();
-    // the stage is in registers: the next item's loads run under the
-    // products and the stores
-    wg_sync(wg);
-    have = load(g + gridDim.x);
-    rfp::commit();
-    rfw::wait_all();
-    rfw::fence_acc(d);
+              for (int e = 0; e < 4; ++e) {
+                u[e] = Ns[(p0 + e) * LDNS + r];
+                w[e] = Ns[(p0 + e) * LDNS + r + 8];
+              }
+            }
+          } else {
+            const float4 a = *reinterpret_cast<const float4*>(
+                Xs + r * LDXS + k0 + 4 * qd);
+            const float4 c = *reinterpret_cast<const float4*>(
+                Xs + (r + 8) * LDXS + k0 + 4 * qd);
+            u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w;
+            w[0] = c.x, w[1] = c.y, w[2] = c.z, w[3] = c.w;
+          }
+        },
+        [&] {
+          rfw::wg_sync(wg);
+          have = load(g + gridDim.x);
+          rfp::commit();
+        });
 
     // d[4j + 2h + e]: line l0 + r + 8h, output 8j + 2qd + e
     const int l0 = b * rfw::TM;
@@ -890,12 +800,7 @@ int tc_launch(const float* x, const float* N, const rfs::bf16* Bc,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long nb = (q + rfw::TM - 1) / rfw::TM;
-  // groups of nwg items: per variant range, rounded up
-  const long groups = nv == 1 || n == 1
-                          ? (n * nb + nwg - 1) / nwg
-                          : (n > 2 ? ((n - 2) * nb + nwg - 1) / nwg : 0) +
-                                2 * ((nb + nwg - 1) / nwg);
-  const int grid = rfp::persistent_grid(groups);
+  const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, nwg));
   completion_tc_kernel<TRACED, KC>
       <<<grid, nwg * rfw::WG, (int)smem, stream>>>(
           x, N, Bc, Btot, Rcat, y, epi, naux, q, n, sl, nv, S, nwg);

@@ -1,9 +1,10 @@
 // pipeline.cuh: the pieces of the persistent, cp.async-pipelined kernels —
 // completion.cu's rotated emit (completion_rot, completion_rot_epi) and
 // tensor-core completion (completion, completion_epi, completion_traced),
-// and tails.cu's tails (tails, tails_traced): asynchronous copies into shared
-// memory, the walk of a persistent block over (tile, line block) work
-// items, and the line-major fp32 GEMM core of the rotated emit.
+// rows_final.cu's, and tails.cu's tails (tails, tails_traced): asynchronous
+// copies into shared memory, the walk of a persistent block over (tile,
+// line block) work items (and of a block's warpgroups in groups of items,
+// Walk), and the line-major fp32 GEMM core of the rotated emit.
 //
 // The GEMM core computes, for one tile t and 128 lines l, the completion's
 //
@@ -94,6 +95,41 @@ __device__ __forceinline__ void item(int it, int n, int nb, int nv, int& t,
   it -= ni;
   t = it < nb ? 0 : n - 1;
   b = it < nb ? it : it - nb;
+}
+
+// The walk of a block's nwg warpgroups (the tensor-core kernels:
+// completion.cu's completion_tc_kernel, rows_final.cu): the items of each
+// matrix variant (in item()'s order, a contiguous range [bd[r], bd[r + 1]),
+// r < 3) in groups of nwg, one item a warpgroup, so the warpgroups of a
+// block always share the variant's operand. Group g's first item, its
+// range's end in `end`.
+struct Walk {
+  int bd[4], gs[4];  // range bounds; first group of each range, total
+  __device__ Walk(int n, int nb, int nv, int nwg) {
+    const int items = n * nb;
+    bd[0] = 0;
+    bd[1] = bd[2] = bd[3] = items;
+    if (nv == 3) {  // item(): interior tiles, tile 0, tile n - 1
+      bd[1] = n > 2 ? (n - 2) * nb : 0;
+      bd[2] = n > 2 ? (n - 1) * nb : nb;
+    }
+    gs[0] = 0;
+    for (int r = 0; r < 3; ++r)
+      gs[r + 1] = gs[r] + (bd[r + 1] - bd[r] + nwg - 1) / nwg;
+  }
+  __device__ int first(int g, int nwg, int& end) const {
+    const int r = g < gs[1] ? 0 : (g < gs[2] ? 1 : 2);
+    end = bd[r + 1];
+    return bd[r] + (g - gs[r]) * nwg;
+  }
+};
+
+// The number of Walk's groups (on the host): per variant range, rounded up.
+inline long walk_groups(long n, long nb, int nv, int nwg) {
+  return nv == 1 || n == 1
+             ? (n * nb + nwg - 1) / nwg
+             : (n > 2 ? ((n - 2) * nb + nwg - 1) / nwg : 0) +
+                   2 * ((nb + nwg - 1) / nwg);
 }
 
 // The persistent grid: one block per SM (every kernel here takes more than

@@ -2,87 +2,196 @@
 // second read of the array, and its only write.
 //
 // Replaces recfilter_tpu/kernels/final2d.py::rows_final_px (Pallas kernel
-// _rows_final_kernel). Per 128 x 128 tile of x (p, n, T, W) (block
-// (l, a, p)), with v(a) the tile's matrix variant along the scanned axis
-// (interior, first or last):
+// _rows_final_kernel) at nprod=6. Per 128 x 128 tile of x (p, n, T, W),
+// with v(a) the tile's matrix variant along the scanned axis (interior,
+// first or last):
 //
 //   y[p,a,:, tile] = Btot_v(a) * x[p,a,:, tile] + Rhat_v(a)[:, :8] * N[p,a,:, tile]
 //
-// with N (p, n, 8, W) the solved, slot-padded carries. It is the first
-// product of final2d.cu on its own: one 128 x 136 x 128 GEMM on the shared
-// routine of common.cuh, the 8 carry rows appended to the 128-deep
-// contraction, the output written straight from registers.
+// with N (p, n, 8, W) the solved, slot-padded carries — computed as the JAX
+// package computes it at px6: x and N split into three bf16 chunks on chip
+// (_split_vmem), the constant [Btot | Rhat | 0] into three from float64 on
+// the host (_split_const_np), and the six chunk products of split.py's
+// prods(6) summed in fp32, smallest level first: the 8 carry rows (one k16
+// step, padded with zeros) all six products, then the 128 rows of x all
+// six. A bf16 x bf16 product is exact in fp32, so the arithmetic is the
+// TPU kernel's; the sums round at other places (the tensor cores'
+// accumulation).
 //
-// What bounds it: 136 MACs per element (272 FLOP) against 12 B of traffic
-// (x read, y written, the carries 1/16 of that), so on the H100's fp32 CUDA
-// cores it is bound by arithmetic. The design is final2d.cu's plain
-// register-tiled SIMT GEMM: A1 = [Btot^T; Rhat^T] (136 x 128, prepared on
-// the host per variant) and [x tile; N rows] staged whole in shared memory,
-// each of 256 threads holding an 8 x 8 block of the output. fp32 FMA; no
-// wgmma, TMA or TF32 yet. The TPU kernel's bf16 chunk splitting emulates
-// fp32 products on the TPU matrix unit and has no counterpart here.
+// It is completion.cu's tensor-core product with the tile transposed:
+// there y (lines x 128) = [x, N^T] . [Btot^T; R^T]; here y^T (lanes x 128)
+// = [x; N]^T . [Btot^T; R^T]. So the B operand is the same host-packed
+// constant (kernels/completion.py's core_pack of [Btot | Rhat | 0], KP =
+// 144), and wgmma's M runs over the lanes of a tile: the A operand is read
+// down the columns of the fp32 stage.
+//
+// What bounds it: 12 B of traffic per element (x read, y written; the
+// carries 1/16 of that) against 6 * 2 * 144 bf16 operations — at the
+// H100's peaks (3.35 TB/s, 989 TFLOP/s dense bf16) the bytes. The design,
+// that of completion_tc_kernel (wgmma.cuh's split_products, stage_b;
+// pipeline.cuh's Walk):
+//   * work items of 64 lanes of one tile (one wgmma M) — the 136 rows of
+//     x and N at those lanes — as pipeline.cuh's (tile a, line block)
+//     items, the line blocks running over p and the lanes: a block meets
+//     each matrix variant once;
+//   * persistent blocks, one per SM, of two warpgroups, each with its own
+//     item and a fp32 stage (136 x 64) filled by cp.async, refilled with
+//     the next item as soon as the split has the stage in registers, so
+//     one warpgroup's loads, split and stores run under the other's
+//     products; B (3 x 128 x 144 bf16, 110.6 KB) staged once a variant;
+//   * the stage's rows of 64 lanes with their 8-lane groups XOR-swizzled
+//     by (row / 4) % 4 (stage_off): a thread's fragment reads — rows 16s +
+//     4qd + e (kperm), lanes r and r + 8 — fall in 32 distinct banks, and
+//     the 16-byte cp.async groups stay whole;
+//   * the output stored from the accumulators: a warp's store covers four
+//     output rows, eight consecutive lanes each (four 32-byte sectors).
+// Shared memory: 110,592 B of B and 2 x 34,816 B of stages.
 
 #include "common.cuh"
+#include "pipeline.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int T = rf::GT;      // tile edge
-constexpr int SLOTS = 8;       // carry rows per slot
-constexpr int KX = T + SLOTS;  // contraction depth: 128 rows + 8 carries
-constexpr int THREADS = rf::GEMM_THREADS;
-constexpr int SMEM_BYTES = 2 * KX * T * sizeof(float);
+constexpr int T = 128;              // tile edge
+constexpr int SLOTS = 8;            // carry rows per slot
+constexpr int KP = T + 16;          // the contraction: 128 + 8 carries + 8 0
+constexpr int CH = T * KP;          // elements of a chunk of B
+constexpr int ROWS = T + SLOTS;     // rows of a stage: x's, then N's
+constexpr int LANES = rfw::TM;      // lanes of an item (wgmma M)
+constexpr int STAGE = ROWS * LANES;  // floats of a stage
+constexpr int NWG = 2;              // warpgroups a block
+constexpr long SMEM = 3L * CH * 2 + 4L * NWG * STAGE;
 
-using rf::gemm_tile;
-using rf::row_of;
-using rf::stage_rows;
-using rf::variant;
+// (row s, lane w) of a stage: rows of 64 lanes, the 8-lane groups of row s
+// XOR-swizzled by (s / 4) % 4 (the header; kernels/final2d.py's
+// _stage_off is its model)
+__device__ __forceinline__ int stage_off(int s, int w) {
+  return s * LANES + (w ^ (8 * ((s >> 2) & 3)));
+}
 
-__global__ void __launch_bounds__(THREADS, 1)
-rows_final_kernel(const float* __restrict__ x,   // (p, n, T, W)
-                  const float* __restrict__ N,   // (p, n, 8, W)
-                  const float* __restrict__ A1,  // (nv, KX, T)
-                  float* __restrict__ y,         // (p, n, T, W)
-                  int n, int nl, int nv) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // KX x T
-  float* Bs = As + KX * T;                      // KX x T
+__global__ void __launch_bounds__(NWG * rfw::WG, 1)
+rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
+                  const float* __restrict__ N,       // (p, n, 8, W)
+                  const rfs::bf16* __restrict__ Bc,  // (nv, 3, T * KP)
+                  float* __restrict__ y,             // (p, n, T, W)
+                  int n, int nl, int nb, int nv) {
+  extern __shared__ uint4 smem16[];
+  rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);
 
-  const int l = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int wg = threadIdx.x / rfw::WG, tid = threadIdx.x % rfw::WG;
+  const int lane = tid % 32, qd = lane % 4;
+  const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
   const long W = (long)nl * T;
-  const long pa = (long)p * n + a;
+  const int lb = W / LANES;  // lane blocks of one (p, a)
+  float* Xs = reinterpret_cast<float*>(Bs + 3 * CH) + wg * STAGE;
+  const rfp::Walk walk(n, nb, nv, NWG);
 
-  // Y = [Btot^T; Rhat^T]^T [x; N]
-  stage_rows(As, A1 + (long)variant(nv, a, n) * KX * T, KX, T, tid);
-  stage_rows(Bs, x + pa * T * W + (long)l * T, T, W, tid);
-  stage_rows(Bs + T * T, N + pa * SLOTS * W + (long)l * T, SLOTS, W, tid);
-  __syncthreads();
-  float c[8][8];
-  gemm_tile(As, Bs, c, ty, tx, KX);
+  // item it -> the first element of its (p, a) slab and its first lane
+  auto where = [&](int it, long& pa, int& l0) {
+    int a, b;
+    rfp::item(it, n, nb, nv, a, b);
+    const int p = b / lb;
+    pa = (long)p * n + a;
+    l0 = (b - p * lb) * LANES;
+  };
 
-  float* yt = y + pa * T * W + (long)l * T;
+  // this warpgroup's item of group g into its stage, asynchronously;
+  // false if it has none
+  auto load = [&](int g) {
+    int end;
+    const int it = walk.first(g, NWG, end) + wg;
+    if (g >= walk.gs[3] || it >= end) return false;
+    long pa;
+    int l0;
+    where(it, pa, l0);
+    const float* xt = x + pa * T * W + l0;
+    const float* Nt = N + pa * SLOTS * W + l0;
+    for (int i = tid; i < ROWS * (LANES / 4); i += rfw::WG) {
+      const int s = i >> 4, c = 4 * (i & 15);
+      rfp::cp16(Xs + stage_off(s, c),
+                s < T ? xt + s * W + c : Nt + (s - T) * W + c, true);
+    }
+    return true;
+  };
+
+  bool have = load(blockIdx.x);
+  rfp::commit();
+  int cur_v = -1;
+  for (int g = blockIdx.x; g < walk.gs[3]; g += gridDim.x) {
+    int end;
+    const int it = walk.first(g, NWG, end) + wg;
+    int a0, b0;
+    rfp::item(it - wg, n, nb, nv, a0, b0);
+    const int v = rf::variant(nv, a0, n);
+    if (v != cur_v) {
+      rfw::stage_b(smem16, Bc, v, CH);
+      cur_v = v;
+    }
+    if (!have) {  // none in this group (its range's odd last item): the
+      have = load(g + gridDim.x);  // stage is free for the next
+      rfp::commit();
+      continue;
+    }
+    rfp::wait_pending(0);  // this item's stage
+    rfw::wg_sync(wg);
+
+    // the transposed fragment: samples k0 + 4qd + e are stage rows, the
+    // fragment rows r, r + 8 lanes; carry rows past the 8 slots are zeros
+    float d[64];
+    rfw::split_products<1>(
+        d, Bs, CH, KP,
+        [&](int k0, float (&u)[4], float (&w)[4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* yr = yt + (long)row_of(i, ty) * W;
-    *reinterpret_cast<float4*>(yr + tx * 4) =
-        make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-    *reinterpret_cast<float4*>(yr + 64 + tx * 4) =
-        make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+          for (int e = 0; e < 4; ++e) u[e] = w[e] = 0.f;
+          if (k0 < T || 4 * qd < SLOTS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              u[e] = Xs[stage_off(k0 + 4 * qd + e, r)];
+              w[e] = Xs[stage_off(k0 + 4 * qd + e, r + 8)];
+            }
+          }
+        },
+        [&] {
+          rfw::wg_sync(wg);
+          have = load(g + gridDim.x);
+          rfp::commit();
+        });
+
+    // d[4j + 2h + e]: lane l0 + r + 8h, output row 8j + 2qd + e
+    long pa;
+    int l0;
+    where(it, pa, l0);
+    float* yt = y + pa * T * W + l0 + r;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* yr = yt + (long)(8 * j + 2 * qd + e) * W;
+        yr[0] = d[4 * j + e];
+        yr[8] = d[4 * j + 2 + e];
+      }
   }
 }
 
 }  // namespace
 
+// Bc: kernels/final2d.py's RowsFinal.Bc_k, (nv, 3, 128 * 144) bf16
 extern "C" int rows_final_launch(const float* x, const float* N,
-                                 const float* A1, float* y, int p, int n,
+                                 const void* Bc, float* y, int p, int n,
                                  int nl, int nv, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
+  const long nb = 2L * p * nl;  // 64-lane blocks of a tile index
+  if (p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
+      n * nb >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
       rows_final_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nl, n, p);
-  rows_final_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, N, A1, y, n, nl, nv);
+  const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, NWG));
+  rows_final_kernel<<<grid, NWG * rfw::WG, (int)SMEM,
+                      (cudaStream_t)stream>>>(
+      x, N, static_cast<const rfs::bf16*>(Bc), y, n, nl, (int)nb, nv);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,9 @@
 // Replaces recfilter_tpu/kernels/final2d.py::rows_tails_px (Pallas kernel
 // _rows_tails_kernel). The array is tiled as x (p, n, T, W): the scanned
 // axis cut into n tiles of T = 128 rows, everything after it flattened into
-// W lanes, everything before it into p. Per 128 x 128 tile (block (l, a, p)),
-// with v(a) the tile's matrix variant along the scanned axis (interior,
-// first or last — clamp edges):
+// W lanes, everything before it into p. Per 128 x 128 tile (p, a, l), with
+// v(a) the tile's matrix variant along the scanned axis (interior, first or
+// last — clamp edges):
 //
 //   b[p,a,k, l*T+w] = sum_s G_v(a)[k,s] * x[p,a,s, l*T+w]        k < K
 //
@@ -14,89 +14,184 @@
 // by zero columns, and an uninitialised NaN there would poison the result.
 // This is the dim-A half of moments2d.cu, with no dim-B half.
 //
-// What bounds it: it reads 4 B per element and writes 32 B per 128 (one
-// slot column per lane per tile), and does K MACs per element, so on an
-// H100 it is bound by device-memory bandwidth. The design reads each x tile
-// from device memory once, with float4 loads, into shared memory (row
-// stride 132 floats: float4 row writes and column reads by consecutive
-// threads are both free of bank conflicts); two threads per lane column
-// then read it for slots {kg, kg+2, kg+4, kg+6} — x is never re-read from
-// device memory per slot group.
-//
-// The sums accumulate in fp64 (fp32 loads and stores), as in moments2d.cu
-// and tails.cu: these tails seed the carries, whose solve amplifies their
+// The sums accumulate in fp64 from fp32 loads of x, with G in fp64, as in
+// tails.cu: these tails seed the carries, whose solve amplifies their
 // rounding about thirtyfold for the sigma=5 Gaussian, and fp32 tail sums
 // miss the 2e-6 px6 bound there. The TPU kernel's bf16 chunk splitting
 // emulates fp32 products on the TPU matrix unit and has no counterpart here.
+//
+// What bounds it: it reads 4 B per element and writes 4K B per 128, and
+// does K fp64 MACs per element (K <= 8), so on an H100 it is bound by
+// device-memory bandwidth. The design keeps the loads in flight:
+//   * persistent blocks, one per SM, walking the tiles (lane block
+//     fastest, so the blocks in flight read neighbouring 512-byte row
+//     segments), fed by a two-stage cp.async ring of whole 64 KB tiles
+//     (pipeline.cuh): the next tile but one is requested as soon as a tile's
+//     stage is consumed, so the copies run under the MACs, the reduction
+//     and the stores;
+//   * thread (warp wp, lane t) of 256 owns lanes 4t..4t+3 and rows
+//     16wp..16wp+15 of the tile, read from the stage as float4 (a warp's
+//     row one 512-byte run: no bank conflicts), each sample converted to
+//     double once and met only by the K real slot rows (K a template
+//     parameter): 4K fp64 accumulators a thread, summed over its 16 rows
+//     in ascending order from 0;
+//   * the eight warps' partial sums meet in shared memory and add up in a
+//     fixed order, warp 0 first (kernels/final2d.py's RowsTails.grouped is
+//     its float64 model), one thread an output; the pad slots are stored
+//     as zeros in the same pass;
+//   * G's K rows of every variant (at most 3 x 8 x 128 doubles) stay in
+//     shared memory, read as broadcasts.
+// Picked over two designs that stream x into registers — per-tile blocks
+// with sixteen float4 loads a thread, two an SM (128 registers, spills
+// from K = 6), and those blocks walking the tiles — by timing all three
+// on an H100 at the rows passes of a 256^3 and a 512^3 volume: the ring
+// was the fastest on both, and all three gave the same bits.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
-constexpr int T = 128;        // tile edge: rows of the scanned axis, lanes
-constexpr int SLOTS = 8;      // carry rows per slot
-constexpr int THREADS = 256;  // two threads per lane column
-constexpr int XS = T + 4;     // padded shared row stride of the x tile
-constexpr int SMEM_BYTES = (T * XS + SLOTS * T) * sizeof(float);
+constexpr int T = 128;         // tile edge: rows of the scanned axis, lanes
+constexpr int SLOTS = 8;       // carry rows per slot
+constexpr int THREADS = 256;   // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int RW = T / WARPS;  // rows a warp sums
+constexpr int STAGES = 2;      // tiles in the ring
+
+constexpr int smem_bytes(int K) {  // G x 3 variants, the partials, the ring
+  return (3 * K * T + WARPS * K * T) * (int)sizeof(double) +
+         STAGES * T * T * (int)sizeof(float);
+}
+static_assert(smem_bytes(SLOTS) <= 232448, "rows_tails outgrows an SM");
 
 using rf::variant;
 
-__global__ void __launch_bounds__(THREADS)
-rows_tails_kernel(const float* __restrict__ x,  // (p, n, T, W)
-                  const float* __restrict__ G,  // (nv, 8, T)
-                  float* __restrict__ b,        // (p, n, 8, W)
-                  int n, int nl, int K, int nv) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // T rows x XS
-  float* g = xs + T * XS;                       // 8 x T
+template <int K>
+__global__ void __launch_bounds__(THREADS, 1)
+rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
+                  const double* __restrict__ G,  // (nv, 8, T)
+                  float* __restrict__ b,         // (p, n, 8, W)
+                  int n, int nl, int nv, int tiles) {
+  extern __shared__ double smem[];
+  double* g = smem;              // nv x K x T
+  double* part = g + 3 * K * T;  // WARPS x K x T
+  float* ring = reinterpret_cast<float*>(part + WARPS * K * T);
 
-  const int l = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, wp = tid / 32, t = tid % 32;
   const long W = (long)nl * T;
-  const long pa = (long)p * n + a;
 
-  const float* xt = x + pa * T * W + (long)l * T;
-  for (int i = tid; i < T * (T / 4); i += THREADS) {
-    const int r = i / (T / 4), c4 = i % (T / 4);
-    reinterpret_cast<float4*>(xs + r * XS)[c4] =
-        reinterpret_cast<const float4*>(xt + r * W)[c4];
-  }
-  const float* gv = G + (long)variant(nv, a, n) * SLOTS * T;
-  for (int i = tid; i < SLOTS * T; i += THREADS) g[i] = gv[i];
-  __syncthreads();
+  // tile `tile` (lane block fastest, then a, then p) into stage st,
+  // asynchronously; nothing past the last tile
+  auto load = [&](int tile, int st) {
+    if (tile >= tiles) return;
+    const long pa = tile / nl;
+    const float* xt = x + pa * T * W + (long)(tile - pa * nl) * T;
+    float* dst = ring + st * T * T;
+    for (int i = tid; i < T * T / 4; i += THREADS) {
+      const int r = i >> 5, c = 4 * (i & 31);
+      rfp::cp16(dst + r * T + c, xt + r * W + c, true);
+    }
+  };
 
-  const int col = tid % T;  // lane w of the tile
-  const int kg = tid / T;   // this thread's slots: kg, kg+2, kg+4, kg+6
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int s = 0; s < T; ++s) {
-    const double xv = xs[s * XS + col];
+  for (int i = tid; i < nv * K * T; i += THREADS)
+    g[i] = G[(i / (K * T)) * SLOTS * T + i % (K * T)];
+  load(blockIdx.x, 0);
+  rfp::commit();
+  load(blockIdx.x + gridDim.x, 1);
+  rfp::commit();
+
+  int st = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, st ^= 1) {
+    rfp::wait_pending(1);  // this tile's stage (the next may be in flight)
+    __syncthreads();
+    const long pa = tile / nl;
+    const int l = tile - pa * nl;
+    const double* gv = g + variant(nv, pa % n, n) * K * T;
+    const float* xs = ring + st * T * T + 4 * t;
+
+    double acc[K][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[j] = fma((double)g[(kg + 2 * j) * T + s], xv, acc[j]);
-  }
-  float* bt = b + pa * SLOTS * W + (long)l * T + col;
+    for (int k = 0; k < K; ++k)
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = kg + 2 * j;
-    bt[k * W] = k < K ? (float)acc[j] : 0.f;
+      for (int j = 0; j < 4; ++j) acc[k][j] = 0.0;
+#pragma unroll 4
+    for (int i = 0; i < RW; ++i) {
+      const int s = wp * RW + i;
+      const float4 v = *reinterpret_cast<const float4*>(xs + s * T);
+      const double x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const double gk = gv[k * T + s];
+        acc[k][0] = fma(gk, x0, acc[k][0]);
+        acc[k][1] = fma(gk, x1, acc[k][1]);
+        acc[k][2] = fma(gk, x2, acc[k][2]);
+        acc[k][3] = fma(gk, x3, acc[k][3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      double2* dst =
+          reinterpret_cast<double2*>(part + (wp * K + k) * T + 4 * t);
+      dst[0] = make_double2(acc[k][0], acc[k][1]);
+      dst[1] = make_double2(acc[k][2], acc[k][3]);
+    }
+    __syncthreads();  // the stage consumed, the partials written
+    load(tile + 2 * gridDim.x, st);
+    rfp::commit();
+
+    float* bt = b + pa * SLOTS * W + (long)l * T;
+    for (int i = tid; i < SLOTS * T; i += THREADS) {
+      const int k = i / T, c = i % T;
+      float out = 0.f;
+      if (k < K) {
+        double sum = part[k * T + c];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) sum += part[(w * K + k) * T + c];
+        out = (float)sum;
+      }
+      bt[k * W + c] = out;
+    }
   }
+}
+
+template <int K>
+int launch(const float* x, const double* G, float* b, int p, int n, int nl,
+           int nv, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rows_tails_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(K));
+  if (err != cudaSuccess) return (int)err;
+  const long tiles = (long)nl * n * p;
+  rows_tails_kernel<K>
+      <<<rfp::persistent_grid(tiles), THREADS, smem_bytes(K), stream>>>(
+          x, G, b, n, nl, nv, (int)tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rows_tails_launch(const float* x, const float* G, float* b,
+// G: kernels/final2d.py's RowsTails.G_v64, (nv, 8, T) float64
+extern "C" int rows_tails_launch(const float* x, const double* G, float* b,
                                  int p, int n, int nl, int K, int nv,
                                  void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_tails_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nl, n, p);
-  rows_tails_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, G, b, n, nl, K, nv);
-  return (int)cudaGetLastError();
+  if (p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
+      (long)nl * n * p >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return launch<1>(x, G, b, p, n, nl, nv, s);
+    case 2: return launch<2>(x, G, b, p, n, nl, nv, s);
+    case 3: return launch<3>(x, G, b, p, n, nl, nv, s);
+    case 4: return launch<4>(x, G, b, p, n, nl, nv, s);
+    case 5: return launch<5>(x, G, b, p, n, nl, nv, s);
+    case 6: return launch<6>(x, G, b, p, n, nl, nv, s);
+    case 7: return launch<7>(x, G, b, p, n, nl, nv, s);
+    case 8: return launch<8>(x, G, b, p, n, nl, nv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* rows_tails_error_string(int err) {

@@ -51,6 +51,7 @@ from torch import nn
 
 from .completion import (_SLOTS, TILE, _aux_ptrs, _epi_coef, _expand_stack,
                          _f32, _f64, _per_tile, _variants3, _variants_like,
+                         core_unpack, tc_constant, tc_depth, tc_exact,
                          tile_einsum)
 from . import split
 from .launch import _check, _KernelFn, _launch
@@ -647,8 +648,12 @@ class RowsTails(nn.Module):
     ``b[p,a,k,w] = Σ_s G_v(a)[k,s]·x[p,a,s,w]`` for k < K, zeros below.
 
     G_cat : (n|1, K, T) stacked per-scan tail rows (per-tile variants).
-    The sums run in float64 from float32 loads, in the kernel and in the
-    twin (see ``csrc/rows_tails.cu``)."""
+    The sums run in float64 from float32 loads, with G in float64, in the
+    kernel and in the twin (see ``csrc/rows_tails.cu``); the kernel sums
+    each warp's :data:`ROW_GROUP` rows, then the groups in order
+    (:meth:`grouped`)."""
+
+    ROW_GROUP = 16  # rows a warp of the kernel sums (csrc/rows_tails.cu: RW)
 
     def __init__(self, G_cat, n: int):
         super().__init__()
@@ -658,22 +663,37 @@ class RowsTails(nn.Module):
         if G.shape[1] > _SLOTS:
             raise ValueError(f"K={G.shape[1]} exceeds the {_SLOTS}-row slot")
         self.n, self.K = int(n), G.shape[1]
-        Gv = _variants3(_pad_slots(G, 1))
-        self.register_buffer("G_v", _f32(Gv))      # kernel operand
-        self.register_buffer("G_v64", _f64(Gv))    # twin operand
+        # kernel and twin operand
+        self.register_buffer("G_v64", _f64(_variants3(_pad_slots(G, 1))))
+
+    def plain64(self, x):
+        """The twin in float64 (float64 out)."""
+        return tile_einsum("nks,pnsw->pnkw", self.G_v64, x.double())
 
     def plain(self, x):
-        return tile_einsum("nks,pnsw->pnkw", self.G_v64, x.double()).float()
+        return self.plain64(x).float()
+
+    def grouped(self, x):
+        """The kernel's summation order in float64 (float64 out): each
+        group of :data:`ROW_GROUP` rows summed alone, the groups' sums then
+        added in ascending order."""
+        g, out = self.ROW_GROUP, None
+        for s0 in range(0, TILE, g):
+            part = tile_einsum("nks,pnsw->pnkw", self.G_v64[..., s0:s0 + g],
+                               x[:, :, s0:s0 + g].double())
+            out = part if out is None else out + part
+        return out
 
     def _kernel(self, x):
         p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
         _check(x, "x", (p, n, TILE, W), x.device)
-        _check(self.G_v, "G_v", self.G_v.shape, x.device)
+        _check(self.G_v64, "G_v64", self.G_v64.shape, x.device,
+               torch.float64)
         _grid_ok(p, n, W)
         b = torch.empty((p, n, _SLOTS, W), device=x.device)
         _launch("rows_tails", (
-            x.data_ptr(), self.G_v.data_ptr(), b.data_ptr(),
-            p, n, W // TILE, self.K, self.G_v.shape[0]), x.device)
+            x.data_ptr(), self.G_v64.data_ptr(), b.data_ptr(),
+            p, n, W // TILE, self.K, self.G_v64.shape[0]), x.device)
         return b
 
     def forward(self, x):
@@ -682,12 +702,32 @@ class RowsTails(nn.Module):
         return self.plain(x)
 
 
+_ROWS_KP = tc_depth(_SLOTS)  # rows_final's contraction: 128 + 8 + 8 zeros
+
+
+def _stage_off(s: int, w: int) -> int:
+    """Where ``csrc/rows_final.cu`` stages row s (x's 128, then N's 8),
+    lane w < 64 of an item: rows of 64 floats, each row's 8-lane groups
+    XOR-swizzled by (s // 4) % 4 (its ``stage_off``)."""
+    return s * 64 + (w ^ (8 * ((s >> 2) & 3)))
+
+
 class RowsFinal(nn.Module):
     """Rows pass 2: ``y = final(x, N)`` for x (p, n, T, W) and slot-padded
     carries N (p, n, 8, W): ``y[p,a] = Btot_v(a)·x[p,a] + Rhat_v(a)·N[p,a]``.
 
-    Btot : (n|1, T, T);  Rhat_cat : (n|1, T, K). fp32 products, as the JAX
-    package's twin has them."""
+    Btot : (n|1, T, T);  Rhat_cat : (n|1, T, K).
+
+    The kernel (``csrc/rows_final.cu``) computes the JAX package's px6
+    arithmetic on the tensor cores: six split-bf16 products
+    (:func:`.split.prods`), the constant ``[Btot | Rhat | 0]`` split from
+    float64 on the host into three chunks (``Bc_k`` (nv, 3, T·KP), KP =
+    144, in the byte order of the tensor-core completion,
+    :func:`.completion.core_pack`; :meth:`chunks` unpacks them), x and N
+    into three on chip. :meth:`split_exact` is the exact sum of its six
+    chunk products and the kernel's bound about it; ``plain`` stays the
+    float32 product, the twin the CPU runs and the backward
+    differentiates."""
 
     def __init__(self, Btot, Rhat_cat, n: int):
         super().__init__()
@@ -697,7 +737,8 @@ class RowsFinal(nn.Module):
             raise ValueError(f"tiles must be {TILE} wide with at most "
                              f"{_SLOTS} carries")
         self.n = int(n)
-        self.register_buffer("A1_v", _f32(_cat_t(Btot, R8)))  # kernel
+        self.register_buffer("Bc_k", tc_constant(               # kernel
+            *_variants_like(Btot, R8)))
         self.register_buffer("B_v", _f32(_variants3(Btot)))   # twin
         self.register_buffer("R_v", _f32(_variants3(R8)))
 
@@ -705,16 +746,29 @@ class RowsFinal(nn.Module):
         return (tile_einsum("nos,pnsw->pnow", self.B_v, x)
                 + tile_einsum("nok,pnkw->pnow", self.R_v, N))
 
+    def chunks(self) -> torch.Tensor:
+        """The constant's three bf16 chunks, (nv, 3, T, KP), unpacked from
+        ``Bc_k`` (:func:`.completion.core_unpack`)."""
+        return core_unpack(self.Bc_k, TILE, _ROWS_KP)
+
+    def split_exact(self, x, N, drop=None):
+        """:func:`.completion.tc_exact` of the kernel: the exact sum of its
+        six chunk products and its bound, per output (p, n, T, W)."""
+        data = torch.cat([x, N, torch.zeros_like(N)], dim=2)
+        return tc_exact(self.chunks().unbind(1), data.transpose(2, 3),
+                        lambda m, v: tile_einsum("nok,pnwk->pnow", m, v),
+                        drop)
+
     def _kernel(self, x, N):
         p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
         _check(x, "x", (p, n, TILE, W), x.device)
         _check(N, "N", (p, n, _SLOTS, W), x.device)
-        _check(self.A1_v, "A1_v", self.A1_v.shape, x.device)
+        _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
         _grid_ok(p, n, W)
         y = torch.empty_like(x)
         _launch("rows_final", (
-            x.data_ptr(), N.data_ptr(), self.A1_v.data_ptr(), y.data_ptr(),
-            p, n, W // TILE, self.A1_v.shape[0]), x.device)
+            x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), y.data_ptr(),
+            p, n, W // TILE, self.Bc_k.shape[0]), x.device)
         return y
 
     def forward(self, x, N):

@@ -305,10 +305,16 @@ def test_audio_filter_on_the_card(dev):
 
 
 @pytest.mark.parametrize("kind", ["uniform", "clamp"])
-@pytest.mark.parametrize("p,n,nl", [(2, 3, 2), (1, 2, 5), (3, 2, 1)])
+@pytest.mark.parametrize("p,n,nl", [(2, 3, 2), (1, 2, 5), (3, 2, 1),
+                                    (2, 5, 1), (1, 2, 512)])
 def test_rows_kernels_match_twins(kind, p, n, nl, dev):
     """rows_tails and rows_final against their twins:
-    max|kernel − twin| ≤ 1e-5·max|twin|, pad slots written as zeros."""
+    max|kernel − twin| ≤ 1e-5·max|twin|, pad slots written as zeros;
+    rows_final (six split-bf16 products on the tensor cores) also within
+    ``split_exact``'s bound of its products' exact sum at every output.
+    (1, 2, 512) is V1's rows pass (256³); (3, 2, 1) and (2, 5, 1) walk
+    fewer 64-lane items (12, 20) than the card has SMs, clamp with three
+    matrix variants."""
     rng = np.random.default_rng(p * 100 + n * 10 + nl)
     K = 6
     tails = tk2d.RowsTails(_stack(kind, K, T, n, rng), n).to(dev)
@@ -325,6 +331,7 @@ def test_rows_kernels_match_twins(kind, p, n, nl, dev):
     assert not b[:, :, K:].any()
     assert _rel(b, tails.plain(x)) <= 1e-5
     assert _rel(y, fin.plain(x, b)) <= 1e-5
+    assert _within(y, *fin.split_exact(x, b))
 
 
 def test_rows_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -27,7 +27,9 @@ from recfilter_tpu_torch import dimfuse as tdf
 from recfilter_tpu_torch import iir as tiir
 from recfilter_tpu_torch import overlap2d as to2
 from recfilter_tpu_torch import spec as tspec
+from recfilter_tpu_torch.kernels import completion as tcomp
 from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.kernels import split as tsplit
 
 T = 128
 
@@ -70,7 +72,7 @@ def test_rows_tails_matches_jax(clamp):
     x = _img(P, N, T, NL * T, seed=1, scale=1.0)
     want = jk2d.rows_tails_px(x, G, nprod=6, interpret=True)
     mod = tk2d.RowsTails(G, N)
-    assert mod.G_v.shape[0] == (3 if clamp else 1)
+    assert mod.G_v64.shape[0] == (3 if clamp else 1)
     got = mod(torch.from_numpy(x))
     assert got.shape == (P, N, 8, NL * T) and got.dtype == torch.float32
     _check(got.numpy(), want)
@@ -110,6 +112,156 @@ def test_rows_kernel_backward_is_the_twins_vjp():
                              torch.device("cpu"), (ct,))
         for g, w in zip(got, want):
             _check(g.numpy(), w.numpy())
+
+
+# ------------------------------------------ the kernels' layouts and sums
+
+
+def _rows_chunks(m, R):
+    """The three bf16 chunks of [Btot | Rhat | 0] (KP = 144) per matrix
+    variant [interior, first, last], built here from the stacks."""
+    B, R8 = np.asarray(m.Btot), np.zeros((len(R), T, 8))
+    R8[..., :R.shape[2]] = R
+    pick = [0] if len(B) == 1 else [1 if len(B) > 2 else 0, 0, len(B) - 1]
+    M = np.zeros((len(pick), T, 144))
+    for v, t in enumerate(pick):
+        M[v, :, :T] = B[t]
+        M[v, :, T:T + 8] = R8[t]
+    return torch.stack(tsplit.split_const(M, 3), dim=1)  # (nv, 3, T, 144)
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_constant_is_the_descriptor_order(clamp):
+    """``RowsFinal.Bc_k`` — the constant the kernel stages — is
+    ``core_pack`` of each variant's three chunks of [Btot | Rhat | 0], and
+    a model of the wgmma descriptor reads them back: chunk c, k16 step s,
+    B element (o, k) at c·CH + 128·s + (o/8)·8·KP + (k/8)·64 + (o%8)·8 +
+    k%8 holds chunk c's (o, 16s + kperm(k))."""
+    m, _, R = _rows_mats(clamp)
+    fin = tk2d.RowsFinal(m.Btot, R, N)
+    C = _rows_chunks(m, R)
+    assert fin.Bc_k.dtype == torch.bfloat16
+    assert fin.Bc_k.shape == (3 if clamp else 1, 3, T * 144)
+    assert torch.equal(fin.Bc_k, tcomp.core_pack(C))
+    assert torch.equal(fin.chunks(), C)
+    o = torch.arange(T)[:, None]
+    k = torch.arange(16)[None, :]
+    perm = [tcomp._kperm(j) for j in range(16)]
+    for v in range(C.shape[0]):
+        for c in range(3):
+            for s in range(144 // 16):
+                off = (c * T * 144 + 128 * s + (o // 8) * 8 * 144
+                       + (k // 8) * 64 + (o % 8) * 8 + k % 8)
+                got = fin.Bc_k[v].reshape(-1)[off]
+                assert torch.equal(got, C[v, c][:, [16 * s + j
+                                                    for j in perm]])
+
+
+def test_rows_final_stage_reads_are_whole_and_conflict_free():
+    """A model of ``csrc/rows_final.cu``'s fp32 stage (``_stage_off``):
+    the cp.async writes of 16-byte groups stay whole and aligned and fill
+    136 × 64 floats once; each warp's fragment read — rows k0 + 4qd + e
+    (kperm), lanes r and r + 8 — falls in 32 distinct banks; and the
+    product of the fragments so read with the descriptor-ordered constant
+    equals the plain product, bit for bit on integers."""
+    offs = [tk2d._stage_off(s, w) for s in range(136) for w in range(64)]
+    assert sorted(offs) == list(range(136 * 64))
+    for s in range(136):
+        for c in range(0, 64, 4):
+            o = tk2d._stage_off(s, c)
+            assert o % 4 == 0
+            assert [tk2d._stage_off(s, c + i) for i in range(4)] == [
+                o + i for i in range(4)]
+    rng = np.random.default_rng(5)
+    X = rng.integers(-4, 5, (136, 64)).astype(np.float32)  # rows × lanes
+    stage = np.zeros(136 * 64, np.float32)
+    for s in range(136):
+        for w in range(64):
+            stage[tk2d._stage_off(s, w)] = X[s, w]
+    C = rng.integers(-4, 5, (T, 144)).astype(np.float32)
+    C[:, 136:] = 0.0
+    flat = tcomp.core_pack(torch.from_numpy(C)).numpy()
+    acc = np.zeros((64, T))
+    for k0 in list(range(0, T, 16)) + [T]:
+        A = np.zeros((64, 16))  # the k16 step's fragment, kperm order
+        for wp in range(4):
+            for h in range(2):
+                for e in range(4):
+                    addr = []
+                    for lane in range(32):
+                        qd, r = lane % 4, 16 * wp + lane // 4 + 8 * h
+                        row = k0 + 4 * qd + e
+                        if k0 == T and 4 * qd >= 8:
+                            continue  # zeros past the 8 carry rows
+                        addr.append(tk2d._stage_off(row, r))
+                        # sample 4qd + e sits at position kperm⁻¹
+                        pos = [j for j in range(16)
+                               if tcomp._kperm(j) == 4 * qd + e][0]
+                        A[r, pos] = stage[addr[-1]]
+                    assert len({a % 32 for a in addr}) == len(addr)
+        o = np.arange(T)[:, None]
+        k = np.arange(16)[None, :]
+        B = flat[k0 * 8 + (o // 8) * 8 * 144 + (k // 8) * 64 + (o % 8) * 8
+                 + k % 8]  # (o, position)
+        acc += A @ B.T
+    XN = np.concatenate([X, np.zeros((8, 64), np.float32)])
+    assert np.array_equal(acc, (C @ XN).T)
+
+
+def _tc_model(Mc, data, ein):
+    """A model of the tensor-core kernel's sums: its k16 steps in its
+    order (``tc_exact``'s), each step's sixteen terms summed exactly and
+    added to a float32 accumulator with one rounding."""
+    ds = [c.double() for c in tsplit.split_data(data, 3)]
+    ms = [c.double() for c in Mc]
+    acc = None
+    for k0s in (range(T, data.shape[-1], 16), range(0, T, 16)):
+        for i, j in tsplit.prods(6):
+            for k0 in k0s:
+                t = ein(ms[i][..., k0:k0 + 16], ds[j][..., k0:k0 + 16])
+                acc = t.float() if acc is None else (acc.double() + t).float()
+    return acc
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_split_sums_match_jax(clamp):
+    """``RowsFinal.split_exact`` (the exact sum of the kernel's six chunk
+    products, and its per-output bound): a model of the kernel's fp32
+    sums lies inside the bound at every output, the sum with a level-2
+    product left out outside it at some; the model within this file's
+    bound of ``rows_final_px(..., nprod=6)`` in interpret mode."""
+    m, _, R = _rows_mats(clamp)
+    x = _img(P, N, T, NL * T, seed=2, scale=1.0)
+    NA_t = _img(P, N, 8, NL * T, seed=3, scale=1.0)
+    fin = tk2d.RowsFinal(m.Btot, R, N)
+    xt, Nt = torch.from_numpy(x), torch.from_numpy(NA_t)
+    ref, bound = fin.split_exact(xt, Nt)
+    assert ref.shape == bound.shape == (P, N, T, NL * T)
+    data = torch.cat([xt, Nt, torch.zeros_like(Nt)], dim=2).transpose(2, 3)
+    model = _tc_model(fin.chunks().unbind(1), data, lambda mm, v:
+                      tcomp.tile_einsum("nok,pnwk->pnow", mm, v))
+    assert bool(((model.double() - ref).abs() <= bound).all())
+    for drop in ((0, 2), (1, 1), (2, 0)):
+        assert bool(((model.double() - fin.split_exact(xt, Nt, drop)[0])
+                     .abs() > bound).any())
+    want = jk2d.rows_final_px(x, m.Btot, R, NA_t, nprod=6, interpret=True)
+    _check(model.numpy(), want)
+    _check(ref.numpy(), want)
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_tails_warp_order_matches_the_twin(clamp):
+    """The kernel's summation order (each warp's 16 rows, then the warps
+    in order: ``RowsTails.grouped``) in float64 equals the twin's float64
+    sums within 1e-12 of their peak."""
+    _, G, _ = _rows_mats(clamp)
+    mod = tk2d.RowsTails(G, N)
+    assert mod.ROW_GROUP * 8 == T  # eight warps
+    x = torch.from_numpy(_img(P, N, T, NL * T, seed=8, scale=1.0))
+    got, want = mod.grouped(x), mod.plain64(x)
+    assert got.dtype == want.dtype == torch.float64
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    assert not got[:, :, G.shape[1]:].any()
 
 
 # ------------------------------------------------------------- executor

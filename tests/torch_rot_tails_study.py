@@ -3,7 +3,7 @@ beside the one PyTorch call that emits its own layout: the yardsticks of
 their redesign, run on any checkout of the port.
 
     python tests/torch_rot_tails_study.py [--root DIR] [--tag NAME]
-        [--out rows.jsonl] [--calls-only]
+        [--out rows.jsonl] [--calls-only] [--parts LETTERS]
 
 ``--root`` is the checkout whose ``recfilter_tpu_torch`` is measured (by
 default this one): an older checkout unpacked beside it measures its
@@ -34,6 +34,22 @@ D  The unrotated completions at their main paths' shapes: ``completion``
    matrices. Their bound counts the six split-bf16 products of the
    tensor-core kernels (at 989 TFLOP/s) against the bytes; the fp32
    bound of the earlier kernels is kept beside it (``fp32_bound_ms``).
+F  The rows pass (a scan on a non-last axis): ``rows_tails`` and
+   ``rows_final`` at V1's rows pass (256³, zero border, the σ=5 Gaussian
+   on z: x (1, 2, 128, 65536), K = 6, ``chip_smoke.py``'s input) and
+   V2's (512³, clamp: x (1, 4, 128, 262144), three matrix variants), the
+   carries solved by the twins; yardsticks ``torch.matmul(G, x)`` (fp32
+   sums) and ``torch.matmul([Btot | Rhat], [x; N])``. ``rows_final``'s
+   bound counts of N only the K real slot rows, and the six split-bf16
+   products of the tensor-core kernel over 128 + K (the fp32 bound of the
+   earlier kernel beside it), ``rows_tails``'s its
+   fp64 MACs at 67 TFLOP/s. Before them, each volume's whole call as E
+   measures it.
+G  Output digests: the sha256 of the outputs of ``completion`` and
+   ``completion_epi`` (A's kernel-pass shape, seeded matrices),
+   ``completion_traced`` (L1's x pass) and the rows kernels (V1) on seeded
+   inputs, so two checkouts' kernels are bit-equal where the digests
+   agree.
 E  (run first) The whole calls those completions serve: A
    (``audio_filter_high_order(10M, 2, 1000)`` through ``as_func()``) and
    L1 (the σ=5 Gaussian's ``LearnableRecFilter`` forward at 4096², no
@@ -87,7 +103,10 @@ def main() -> int:
     ap.add_argument("--out", help="also append each row here (JSON lines)")
     ap.add_argument("--calls-only", action="store_true",
                     help="only part E, the whole calls")
+    ap.add_argument("--parts", default="EABCD",
+                    help="the parts to run, as letters (A-D run together)")
     args = ap.parse_args()
+    parts = "E" if args.calls_only else args.parts
     sys.path.insert(0, os.path.abspath(args.root))
 
     import numpy as np
@@ -212,13 +231,6 @@ def main() -> int:
         rows.append(r)
         print(json.dumps(r), flush=True)
 
-    # E (first: a long run's profiles lose device events now and then):
-    # the whole calls of A and L1
-    F = audio_filter_high_order(10_000_000, 2, 1000)
-    modA = F.as_func()
-    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
-        F._image.shape).astype(np.float32) * 0.1).to(dev)
-
     def whole(label, fn, v):
         with torch.no_grad():
             prof = timing.device_profile(fn, v, iterations=10)
@@ -233,7 +245,21 @@ def main() -> int:
         rows.append(r)
         print(json.dumps(r), flush=True)
 
-    whole("A whole call, 10M samples", modA, x)
+    if "F" in parts:
+        rows_pass(torch, np, rft, dev, row, whole, nbytes)
+    if "G" in parts:
+        digests(torch, np, rft, tdf, kc, dev, args.tag, card, rows)
+    if "E" not in parts and not set("ABCD") & set(parts):
+        return finish(rows, args.out, card)
+    # E (first: a long run's profiles lose device events now and then):
+    # the whole calls of A and L1
+    F = audio_filter_high_order(10_000_000, 2, 1000)
+    modA = F.as_func()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        F._image.shape).astype(np.float32) * 0.1).to(dev)
+
+    if "E" in parts:
+        whole("A whole call, 10M samples", modA, x)
     from recfilter_tpu_torch.learnable import LearnableRecFilter
 
     size = 4096
@@ -245,11 +271,12 @@ def main() -> int:
     for d in (+xd, -xd, +yd, -yd):
         G.add_filter(d, rft.gaussian_weights(5.0, 3))
     G.split(xd, 128, yd, 128)
-    whole("L1 LearnableRecFilter forward 4096²",
-          LearnableRecFilter(G.spec, tile_width=128, device=dev),
-          torch.from_numpy(img).to(dev))
+    if "E" in parts:
+        whole("L1 LearnableRecFilter forward 4096²",
+              LearnableRecFilter(G.spec, tile_width=128, device=dev),
+              torch.from_numpy(img).to(dev))
     del img, G
-    if args.calls_only:
+    if not set("ABCD") & set(parts):
         return finish(rows, args.out, card)
 
     # A: C1's x pass
@@ -392,6 +419,103 @@ def main() -> int:
         "Rcat^T])", rate=PEAK_BF16, fp32_flops=2.0 * (128 + S) * X.numel())
 
     return finish(rows, args.out, card)
+
+
+def gauss_volume(rft, np, shape, clamp):
+    """The σ=5 Gaussian, causal + anticausal on every axis, tiles of 128,
+    on ``chip_smoke.py``'s volume input (N(0,1)·0.01, seed 0)."""
+    wts = rft.gaussian_weights(5.0, 3)
+    dims = [rft.Dim(nm, e) for nm, e in zip("zyx", shape)]
+    F = rft.RecFilter("GaussianND")
+    if clamp:
+        F.set_clamped_image_border()
+    F[tuple(dims)] = (np.random.default_rng(0).standard_normal(shape)
+                      * 0.01).astype(np.float32)
+    for d in dims:
+        F.add_filter(+d, wts)
+        F.add_filter(-d, wts)
+    F.split({d: 128 for d in dims})
+    return F
+
+
+def rows_of(rft, mod):
+    """The rows pass of a volume's module (its first stage)."""
+    return mod if isinstance(mod, rft.FusedRowsPx) else mod.stages[0]
+
+
+def rows_pass(torch, np, rft, dev, row, whole, nbytes):
+    """Part F (module docstring)."""
+    for label, shape, clamp in (("V1", (256, 256, 256), False),
+                                ("V2", (512, 512, 512), True)):
+        F = gauss_volume(rft, np, shape, clamp)
+        mod = F.as_func()
+        rows = rows_of(rft, mod)
+        x = torch.from_numpy(F._image).to(dev)
+        whole(f"{label} whole call {shape}", mod, x)
+        with torch.no_grad():
+            X4 = rows.tile(x)
+            N = rows.carries(X4, rows.tails.plain)
+        K, vox = rows.K, X4.numel()
+        G0 = rows.tails.G_v64[0].float()
+        one = rows.final.B_v.shape[0] == 1
+        row(f"{label} rows_tails {tuple(X4.shape)}, K = {K}", rows.tails,
+            (X4,), nbytes(X4, N, G0), 2.0 * K * vox,
+            (lambda v: torch.matmul(G0, v)) if one else None,
+            "matmul(G, x), fp32 sums", rate=67e12)
+        A0 = torch.cat([rows.final.B_v[0], rows.final.R_v[0]], 1)
+        XN = torch.cat([X4, N], dim=2) if one else None
+        row(f"{label} rows_final {tuple(X4.shape)}", rows.final, (X4, N),
+            nbytes(X4, N[:, :, :K], X4), 12.0 * (128 + K) * vox,
+            (lambda *a_: torch.matmul(A0, XN)) if one else None,
+            "matmul([Btot | Rhat], [x; N])", rate=PEAK_BF16,
+            fp32_flops=2.0 * (128 + K) * vox)
+        del X4, N, XN, rows, mod, x, F
+
+
+def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
+    """Part G (module docstring)."""
+    import hashlib
+
+    from recfilter_tpu_torch.spec import Scan
+
+    def digest(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
+                              ).hexdigest()[:16]
+
+    rng = np.random.default_rng(1)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    out = {}
+    with torch.no_grad():
+        q, n = 306, 256
+        w2 = rft.gaussian_weights(5.0, 2)
+        scans = [Scan(0, True, w2[0], tuple(w2[1:])),
+                 Scan(0, False, w2[0], tuple(w2[1:]))]
+        loc = tdf.LastAxisPass(scans, (128, n, 0), False, "px6").to(dev)
+        X, Nt = f32(q, n, 128), torch.zeros((n, 8, q), device=dev)
+        Nt[:, :loc.S] = f32(n, loc.S, q)
+        out["completion (306, 256, 128)"] = digest(loc.completion(X, Nt))
+        le = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                              epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_
+                              ).to(dev)
+        out["completion_epi (306, 256, 128)"] = digest(
+            le.completion(X, Nt, X))
+        q, n, S = 4096, 32, 6
+        X, Btot, Rcat = f32(q, n, 128), f32(128, 128) * 0.1, f32(128, S)
+        N8 = torch.zeros((n, 8, q), device=dev)
+        N8[:, :S] = f32(n, S, q)
+        out["completion_traced (4096, 32, 128)"] = digest(
+            kc.completion_traced(X, Btot, Rcat, N8))
+        F = gauss_volume(rft, np, (256, 256, 256), False)
+        rows = rows_of(rft, F.as_func())
+        X4 = rows.tile(torch.from_numpy(F._image).to(dev))
+        N = rows.carries(X4, rows.tails.plain)
+        out["rows_tails V1"] = digest(rows.tails(X4))
+        out["rows_final V1"] = digest(rows.final(X4, N))
+    r = {"tag": tag, "case": "digests", "card": card, "digests": out}
+    rows_out.append(r)
+    print(json.dumps(r), flush=True)
 
 
 def finish(rows, out, card) -> int:
