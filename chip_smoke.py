@@ -281,7 +281,10 @@ Phases:
      rows): phase 2k holds ``final2d_split`` at each grade to its twin at
      the 4096² headline's shapes (1e-5 of the twin's peak; at one product
      plus the bound of the two bf16 roundings of Z, which kernel and twin
-     take apart), ``completion_split`` at D's and E's shapes, and the
+     take apart), ``completion_split`` (the tensor-core completion at the
+     grade) at D's and E's shapes, also per output within ``tc_exact``'s
+     bound of its chunk products' exact sum (a control at E: the sum
+     without a level-1 pair lies outside it), and the
      ``split_mm`` study entries at their probes' shapes (x 131072 × 128 for
      ``pallas_split_mm``, 3xTF32 and fp32; 4096² for the transposed-emit
      probes); phase 3l runs the headline at each grade through
@@ -294,7 +297,18 @@ Phases:
      probe's function; for ``completion_split`` at E, row 9's matmul of
      [x, Nᵀ] by the grade's [Btotᵀ; Rᵀ], a per-tile batch for E's clamp
      variants) and the headline at px6 and the three grades in
-     turns; phase 3n holds the int8 probes' studies to their twins at
+     turns; on the rows path, phase 2c also holds ``rows_final`` at each
+     grade (3, 4 or 1 products on x, at least three on N) to its twin and
+     per output to ``tc_exact``'s bound at V1, V2 and S3 (a control at
+     V1), phase 3c runs V1 and V2 at each grade through ``as_func()``
+     (rows_tails, rows_final, moments2d and final2d_split once each) and
+     S3 at px3 and px4 (the rows kernels once each; at ``default`` the
+     router takes the einsum pass, which raises), each within the grade's
+     bound of the f64 oracle, and phase 5d times ``rows_final`` at each
+     grade at V1 beside its twin and one ``matmul`` by the grade's
+     constant (beside px6 in turns, and the whole V1 and V2 calls at each
+     grade: ``tests/torch_rot_tails_study.py`` part F); phase 3n holds the
+     int8 probes' studies to their twins at
      their shapes (``scripts/int8_ozaki_exp.py``: ``ozaki_i8`` bit-equal,
      ``dual_px6`` within 1e-6 of its twin's peak, both within px6's 2e-6
      of the f64 product, at x (1, 32, 128, 4096); ``int8_rate_probe.py``:
@@ -390,6 +404,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()  # the run's clock: each phase prints its start
+
+
+def heading(title):
+    """Print a phase's title after the seconds the run has taken so far."""
+    print(f"[{time.perf_counter() - _T0:.0f} s] == {title}", flush=True)
 H = W = 4096
 N_TIMED = 25
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
@@ -549,13 +569,15 @@ def busy_text(prof):
     return f"{prof['busy_ms']:.4f} ms, idle {100 * prof['idle']:.1f} %"
 
 
-def oracle_err(spec, x_np, y):
-    """max|y − oracle| / max|oracle| against the f64 oracle of ``spec``."""
+def oracle_err(spec, x_np, y, want=None):
+    """max|y − oracle| / max|oracle| against the f64 oracle of ``spec``
+    (``want``: that oracle, computed before)."""
     import numpy as np
 
     from recfilter_tpu_torch import scan_core
 
-    want = scan_core.oracle_apply(spec, x_np.astype(np.float64))
+    if want is None:
+        want = scan_core.oracle_apply(spec, x_np.astype(np.float64))
     got = y.cpu().numpy().astype(np.float64)
     return float(np.abs(got - want).max() / np.abs(want).max())
 
@@ -584,16 +606,22 @@ def signal(shape, seed=6):
             ).astype(np.float32)
 
 
-def split_check(label, got, exact, epilogue=None, controls=False):
-    """A tensor-core completion against the exact sum of its six chunk
-    products: every output within its own summation bound (``exact(drop)``
-    gives ``kernels.completion.tc_exact``'s (sum, bound));
-    ``epilogue(ref, bound)`` maps both through an affine epilogue. Prints
-    the largest |kernel − exact|, its share of the bound and how many
-    outputs pass half and three quarters of their bounds. With
-    ``controls``: the sum with one level-2 product left out — each of
-    (0, 2), (1, 1), (2, 0) — must lie outside the bound at some output, so
-    the check sees a product missing."""
+# px6's level-2 chunk pairs, and the reduced grades' level-1 pairs: the
+# controls of split_check
+LEVEL2, LEVEL1 = ((0, 2), (1, 1), (2, 0)), ((0, 1), (1, 0))
+
+
+def split_check(label, got, exact, epilogue=None, controls=()):
+    """A tensor-core completion against the exact sum of its chunk
+    products at its grade: every output within its own summation bound
+    (``exact(drop)`` gives ``kernels.completion.tc_exact``'s (sum,
+    bound)); ``epilogue(ref, bound)`` maps both through an affine
+    epilogue. Prints the largest |kernel − exact|, its share of the bound
+    and how many outputs pass half and three quarters of their bounds.
+    ``controls``: chunk pairs (:data:`LEVEL2` at px6, :data:`LEVEL1` at
+    the reduced grades) each of which left out of the sum must put it
+    outside the bound at some output, so the check sees a product
+    missing."""
     ref, bound = exact(None)
     if epilogue is not None:
         ref, bound = epilogue(ref, bound)
@@ -605,8 +633,8 @@ def split_check(label, got, exact, epilogue=None, controls=False):
           f"quarters at {int((share > 0.75).sum())} of {share.numel()} "
           "outputs")
     check(bool((d <= bound).all()), f"{label} within the summation bound of "
-          "its six products' exact sum at every output")
-    for drop in ((0, 2), (1, 1), (2, 0)) if controls else ():
+          "its products' exact sum at every output")
+    for drop in controls:
         ref5 = exact(drop)[0]
         past = ((got.double() - ref5).abs() > bound).sum().item()
         print(f"    control, {drop} left out: {past} outputs past the "
@@ -1203,7 +1231,7 @@ def learnable_kernels(rft, dev, size):
     with torch.no_grad():
         split_check("L1 x pass completion_traced", yk,
                     lambda drop: kcomp.completion_traced_exact(
-                        X, Btot32, Rcat32, Nt8, drop), controls=True)
+                        X, Btot32, Rcat32, Nt8, drop), controls=LEVEL2)
     check(not bk[:, S:].any(), f"L1 x pass tails_traced: pad slots {S}..7 "
           "written as zeros")
     return model, x, (X, Gcat, Btot32, Rcat32, Nt8), errs
@@ -1447,7 +1475,7 @@ def main() -> int:
                  f"event {lib_ms:.4f}, device {d[2]:.4f} ms") + f" on {card}")
         return t, d, (bound, by), lib_ms
 
-    print("== phase 1: card, settings, kernel build", flush=True)
+    heading("phase 1: card, settings, kernel build")
     print(f"card (name, power limit): {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -1470,8 +1498,7 @@ def main() -> int:
         print(f"built {name}:\n" + "\n".join(
             "    " + ln for ln in log.strip().splitlines()))
 
-    print("== phase 2a: 2-D kernels against their plain twins on the card",
-          flush=True)
+    heading("phase 2a: 2-D kernels against their plain twins on the card")
     cases = {"4096x4096 zero": (H, W, False),
              "4096x4096 clamp": (H, W, True),
              "1080x1920 zero (padded)": (1080, 1920, False)}
@@ -1511,8 +1538,8 @@ def main() -> int:
             if label.startswith("4096x4096 zero"):
                 max_abs["final2d"] = (got - want).abs().max().item()
 
-    print("== phase 2b: build the 1-D cases; tails and completion against "
-          "their twins on the card", flush=True)
+    heading("phase 2b: build the 1-D cases; tails and completion against "
+          "their twins on the card")
     n10 = 10_000_000
     cases_1d = {}
     build_s = {}
@@ -1561,16 +1588,15 @@ def main() -> int:
             check(err <= 1e-5, f"{label} completion within 1e-5")
             split_check(f"{label} completion", y,
                         lambda drop: comp.split_exact(X, Nt, drop),
-                        controls=label == "A")
+                        controls=LEVEL2 if label == "A" else ())
             if label == "A":
                 max_abs["tails"] = (b - bp).abs().max().item()
                 max_abs["completion"] = (y - yp).abs().max().item()
         del b, bp, y, yp
 
-    print("== phase 2b, integers: the tensor-core completions on "
+    heading("phase 2b, integers: the tensor-core completions on "
           "integer-valued input "
-          "(every chunk product and sum exact: bit-equal to both twins)",
-          flush=True)
+          "(every chunk product and sum exact: bit-equal to both twins)")
     from recfilter_tpu_torch.epilogue import Affine
     from recfilter_tpu_torch.kernels import completion as kcomp
 
@@ -1627,8 +1653,8 @@ def main() -> int:
     check(ok, "completion_traced: bit-equal to the fp32 and the split twin")
     del xi, Ni, y
 
-    print("== phase 2c: build the rows-path cases; rows_tails and rows_final "
-          "against their twins on the card", flush=True)
+    heading("phase 2c: build the rows-path cases; rows_tails and rows_final "
+          "against their twins on the card")
     rows_cases = {}  # label: (filter, module on the card, input)
     for label, make in (
             ("V1", lambda: gauss_axes(rft, (256, 256, 256), (0, 1, 2))),
@@ -1655,6 +1681,10 @@ def main() -> int:
         mod = rows_cases[label][1]
         return mod if isinstance(mod, rft.FusedRowsPx) else mod.stages[0]
 
+    from recfilter_tpu_torch.kernels import split as ksplit
+
+    grade_rows = {}  # (label, grade): (module at the grade or None, rows)
+
     for label in ("V1", "V2", "S3"):
         rows = rows_of(label)
         with torch.no_grad():
@@ -1680,14 +1710,54 @@ def main() -> int:
             # within the summation bound of their exact sum
             split_check(f"{label} rows_final", y,
                         lambda d=None: rows.final.split_exact(X4, N, d),
-                        controls=label == "V1")
+                        controls=LEVEL2 if label == "V1" else ())
             if label == "V1":
                 max_abs["rows_tails"] = (b - bp).abs().max().item()
                 max_abs["rows_final"] = (y - yp).abs().max().item()
-            del X4, b, bp, N, y, yp
+            del b, bp, y, yp
+            # rows_final at the reduced grades on the same input and
+            # carries: V1 and V2 (volumes) and S3 at px3 and px4 built
+            # through as_func() at the grade (for phase 3c); S3's rows pass
+            # at default directly (there the router takes the JAX
+            # package's einsum pass, which raises)
+            F = rows_cases[label][0]
+            for g in GRADE_BOUNDS:
+                nprod = ksplit.NPROD[g]
+                mod_g = None
+                if label == "S3" and g == "default":
+                    rows_g = rft.FusedRowsPx(
+                        [F.spec.scans[i] for i in F.spec.scans_by_axis()[0]],
+                        rows.L, rows.trailing, F.spec.border, nprod)
+                else:
+                    F.set_plan(matmul_precision=g)
+                    mod_g = F.as_func()
+                    F.set_plan(matmul_precision="px6")
+                    rows_g = (mod_g if isinstance(mod_g, rft.FusedRowsPx)
+                              else mod_g.stages[0])
+                rows_g = rows_g.to(dev)
+                check(rows_g.final.nprod == nprod
+                      and rows_g.final.Bc_k.shape[1] == 2,
+                      f"{label} at {g}: rows_final at {nprod} product(s), "
+                      "its constant in two chunks")
+                grade_rows[label, g] = (mod_g, rows_g)
+                y = rows_g.final(X4, N)
+                yp = rows_g.final.plain(X4, N)
+                torch.cuda.synchronize()
+                err = rel_err(y, yp)
+                print(f"  {label} rows_final {g}: max|k-p|/max|p| = "
+                      f"{err:.3e}")
+                check(err <= 1e-5, f"{label} rows_final {g} within 1e-5")
+                split_check(f"{label} rows_final {g}", y,
+                            lambda d=None, r=rows_g: r.final.split_exact(
+                                X4, N, d),
+                            controls=LEVEL1 if label == "V1" else ())
+                if label == "V1":
+                    max_abs[f"rows_final/{g}"] = (y - yp).abs().max().item()
+                del y, yp
+            del X4, N
 
-    print("== phase 2d: build the FIR and integer cases; fir_band, int_scan "
-          "and int_seg_scan against their twins on the card", flush=True)
+    heading("phase 2d: build the FIR and integer cases; fir_band, int_scan "
+          "and int_seg_scan against their twins on the card")
     from recfilter_tpu_torch.apps import (box_filter_3, box_filter_order_1,
                                           box_oracle, difference_of_gaussians,
                                           summed_table)
@@ -1782,9 +1852,9 @@ def main() -> int:
                                               float(max(d)))
                 del c, cp, inc, y, yp
 
-    print("== phase 2e: the rotated emit and the stencil consumers against "
+    heading("phase 2e: the rotated emit and the stencil consumers against "
           "their twins on the card (C1's shapes; integer-valued inputs "
-          "with bounded integrals, exact in fp32)", flush=True)
+          "with bounded integrals, exact in fp32)")
     from recfilter_tpu_torch import dimfuse as tdf
     from recfilter_tpu_torch.apps import box_filter_6
     from recfilter_tpu_torch.apps.dog import _stencil
@@ -1877,8 +1947,8 @@ def main() -> int:
                   "stencil2d on an int32 table: float32, equal to its twin")
         del x1, x2, v, vi
 
-    print("== phase 2f: completion_rot_tails against its twin on the card "
-          "(integer-valued input: every sum exact, so bit-equal)", flush=True)
+    heading("phase 2f: completion_rot_tails against its twin on the card "
+          "(integer-valued input: every sum exact, so bit-equal)")
 
     def int_stack(var, rows, cols, n, seed):
         """An integer-valued per-tile stack in [-2, 2]: uniform, or with
@@ -1950,14 +2020,14 @@ def main() -> int:
               f"{label}: chained, unchained and the twins bit-equal")
         del xi, yc, yu, yp
 
-    print("== phase 2g: tails_traced and completion_traced against their "
-          "twins on the card at L1's x-axis shapes", flush=True)
+    heading("phase 2g: tails_traced and completion_traced against their "
+          "twins on the card at L1's x-axis shapes")
     l1, x_l1, traced_in, errs = learnable_kernels(rft, dev, H)
     max_abs.update(errs)
 
-    print("== phase 2h: the affine epilogue entries against their twins on "
+    heading("phase 2h: the affine epilogue entries against their twins on "
           "the card (final2d_epi at 4096², completion_epi at A's kernel "
-          "pass, completion_rot_epi at C1's x pass)", flush=True)
+          "pass, completion_rot_epi at C1's x pass)")
     epi_in = {}  # entry: (module, args) at its main-path shape, phase 5i
     F, mod, img = modules["4096x4096 zero"]
     with torch.no_grad():
@@ -2042,9 +2112,9 @@ def main() -> int:
             epi_in[key] = (comp, args)
         del got, want, bp, le
 
-    print("== phase 2i: the HIGHEST pair (moments2d_k, final2d_k) and the "
+    heading("phase 2i: the HIGHEST pair (moments2d_k, final2d_k) and the "
           "strip kernels (dim_pass_rows, dim_pass_cols) against their twins "
-          "on the card", flush=True)
+          "on the card")
 
     def pair_of(mod):
         """The HIGHEST pair module of an overlap_k filter's first stage,
@@ -2117,8 +2187,8 @@ def main() -> int:
                 v = st.forward_plain(v)
         del X, got, want, v
 
-    print("== phase 2j: bsolve, moments2d_naf and copy against their twins "
-          "at the 4096² headline's shapes", flush=True)
+    heading("phase 2j: bsolve, moments2d_naf and copy against their twins "
+          "at the 4096² headline's shapes")
     from recfilter_tpu_torch import bench
     from recfilter_tpu_torch.kernels import copy as kcopy
     from recfilter_tpu_torch.kernels import final2d as k2d
@@ -2165,11 +2235,9 @@ def main() -> int:
         max_abs["copy"] = (got - want).abs().max().item()
         del X4, NA64, term1, got, want
 
-    print("== phase 2k: the reduced grades' kernels (final2d_split at the "
+    heading("phase 2k: the reduced grades' kernels (final2d_split at the "
           "4096² headline's shapes, completion_split at D's and E's) and the "
-          "split_mm studies at their probes' shapes against their twins",
-          flush=True)
-    from recfilter_tpu_torch.kernels import split as ksplit
+          "split_mm studies at their probes' shapes against their twins")
 
     grade_2d, grade_1d, split_in = {}, {}, {}
     x_h = torch.from_numpy(img_h).to(dev)
@@ -2241,6 +2309,13 @@ def main() -> int:
                   f"{err:.3e}")
             check(err <= 1e-5, f"{label} completion_split {g} within 1e-5 "
                   "of its twin's peak")
+            # the tensor-core completion at the grade: per output within
+            # the summation bound of its chunk products' exact sum
+            with torch.no_grad():
+                split_check(f"{label} completion_split {g}", y,
+                            lambda d=None: loc.completion.split_exact(
+                                X, Nt, d),
+                            controls=LEVEL1 if label == "E" else ())
             if label == "E":
                 max_abs[f"completion_split/{g}"] = (y - yp).abs().max().item()
                 split_in[g] = (loc, X, Nt)
@@ -2256,8 +2331,7 @@ def main() -> int:
             max_abs[name] = (got - want).abs().max().item()
     del got, want
 
-    print("== phase 3a: the 2-D path end to end through RecFilter.as_func()",
-          flush=True)
+    heading("phase 3a: the 2-D path end to end through RecFilter.as_func()")
 
     for label, (F, mod, img) in modules.items():
         with torch.no_grad():
@@ -2276,8 +2350,7 @@ def main() -> int:
         check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the "
               "f64 oracle")
 
-    print("== phase 3b: the 1-D path end to end through RecFilter.as_func()",
-          flush=True)
+    heading("phase 3b: the 1-D path end to end through RecFilter.as_func()")
     for order in (2, 29):
         spec = audio_filter_high_order(100_000, order, 1000).spec
         xs = signal((100_000,))
@@ -2318,13 +2391,14 @@ def main() -> int:
         check(err <= bound, f"{label}: within {bound:g} of the {what}")
         refs[label] = (x, want)
 
-    print("== phase 3c: the rows path end to end through RecFilter.as_func()"
-          " and the cascades' realize", flush=True)
+    heading("phase 3c: the rows path end to end through RecFilter.as_func()"
+          " and the cascades' realize")
     expect_rows = {
         "V1": only(rows_tails=1, rows_final=1, moments2d=1, final2d=1),
         "V2": only(rows_tails=1, rows_final=1, moments2d=1, final2d=1),
         "S3": only(rows_tails=1, rows_final=1),
         "S4": only(rows_tails=1, rows_final=1, tails=1, completion=1)}
+    oracles = {}  # label: the f64 oracle of V1, V2, S3 for the grades
     for label, (F, mod, xs) in rows_cases.items():
         with torch.no_grad():
             y, launches = counted(mod, torch.from_numpy(xs).to(dev))
@@ -2336,11 +2410,38 @@ def main() -> int:
                                  rows_final=launches["rows_final"])
         check(tuple(y.shape) == xs.shape and bool(torch.isfinite(y).all()),
               f"{label}: output finite, shape {xs.shape}")
-        err = oracle_err(F.spec, xs, y)
+        want = scan_core.oracle_apply(F.spec, xs.astype(np.float64))
+        if label != "S4":
+            oracles[label] = want
+        err = oracle_err(F.spec, xs, y, want)
         print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
         check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the f64 "
               "oracle")
+        del y, want
+    # the reduced grades: the volumes on rows_final at the grade, then
+    # final2d_split; S3 (the per-axis loop's rows pass) at px3 and px4
+    for (label, g), (mod_g, _) in grade_rows.items():
+        if mod_g is None:
+            continue  # S3 at default: not routed to the rows pass
+        xs = rows_cases[label][2]
+        want_l = (only(rows_tails=1, rows_final=1) if label == "S3" else
+                  only(rows_tails=1, rows_final=1, moments2d=1,
+                       final2d_split=1))
+        with torch.no_grad():
+            y, launches = counted(mod_g, torch.from_numpy(xs).to(dev))
+        print(f"  {label} {g}: route {getattr(mod_g, 'route', None)}, "
+              f"launches {launches}")
+        check(launches == want_l, f"{label} {g}: launches {want_l}")
+        if label == "V1":
+            main_launches[f"rows_final/{g}"] = launches["rows_final"]
+        check(tuple(y.shape) == xs.shape and bool(torch.isfinite(y).all()),
+              f"{label} {g}: output finite, shape {xs.shape}")
+        err = oracle_err(None, xs, y, oracles[label])
+        print(f"  {label} {g}: max|y - oracle|/max|oracle| = {err:.3e}")
+        check(err <= GRADE_BOUNDS[g], f"{label} {g}: within "
+              f"{GRADE_BOUNDS[g]:g} of the f64 oracle")
         del y
+    del oracles
     img = image(H, W)
     # S1, stage by stage through realize: x on the 1-D kernels, y on rows
     fc = gaussian_3x_3y(W, H)
@@ -2373,8 +2474,8 @@ def main() -> int:
     check(err <= 2e-6, "S2: within 2e-6 of the whole filter's oracle")
     del out
 
-    print("== phase 3d: box, DoG and the integer tables end to end through "
-          "the app builders and RecFilter.realize", flush=True)
+    heading("phase 3d: box, DoG and the integer tables end to end through "
+          "the app builders and RecFilter.realize")
     with torch.no_grad():
         y, launches = counted(box3, xf)
     print(f"  F1: launches {launches}")
@@ -2472,9 +2573,8 @@ def main() -> int:
           "I4: bit-exact against numpy's wrapping int32 cumsum along y")
     del y, img_i3, img_i4
 
-    print("== phase 3e: the SAT apps, the 2-D bank, the epilogue and the "
-          "per-slice rotated pass end to end through the public API",
-          flush=True)
+    heading("phase 3e: the SAT apps, the 2-D bank, the epilogue and the "
+          "per-slice rotated pass end to end through the public API")
     # C1: held at every pixel to the f64 six-stage oracle on an input
     # whose integrals stay bounded (bounded_image); an image-like input
     # after it shows the fp32 formulation's own loss, printed, not held
@@ -2605,8 +2705,8 @@ def main() -> int:
           "(tests/test_dimfuse.py:988)")
     del y, z, want, img6
 
-    print("== phase 3f: the rotation chain end to end through "
-          "RecFilter.as_func() and the B-spline apps", flush=True)
+    heading("phase 3f: the rotation chain end to end through "
+          "RecFilter.as_func() and the B-spline apps")
     from recfilter_tpu_torch.apps import bicubic, biquintic_overlapped
 
     k_cases = {}  # label: (module, input on the card) for phase 5g
@@ -2682,17 +2782,16 @@ def main() -> int:
            (512, 40960), dict(completion_rot_tails=1, completion_rot=1),
            [False, True])
 
-    print("== phase 3g: the learnable path end to end through "
-          "LearnableRecFilter: L1 forward, L2 training steps, L3 biquad",
-          flush=True)
+    heading("phase 3g: the learnable path end to end through "
+          "LearnableRecFilter: L1 forward, L2 training steps, L3 biquad")
     l1_launches, l2, y_l1, l3, x_l3 = learnable_cases(rft, dev, l1, x_l1,
                                                       65536, counted)
     main_launches.update(tails_traced=l1_launches["tails_traced"],
                          completion_traced=l1_launches["completion_traced"])
 
-    print("== phase 3h: the unsharp mask, the Tuple routes, compute_at and "
+    heading("phase 3h: the unsharp mask, the Tuple routes, compute_at and "
           "the epilogue on the 1-D kernels end to end through the public "
-          "API", flush=True)
+          "API")
     from recfilter_tpu_torch.apps import unsharp_mask
 
     def peak_err(got, want):
@@ -2829,8 +2928,8 @@ def main() -> int:
     check(err <= 2e-6, "E2: within the px6 bound 2e-6 of the f64 oracle")
     del y, want, x_e2, e2
 
-    print("== phase 3i: the other backends end to end through "
-          "RecFilter.as_func()", flush=True)
+    heading("phase 3i: the other backends end to end through "
+          "RecFilter.as_func()")
     bcases = {}  # label: (module, input on the card) for phase 5j
 
     def stage_name(st):
@@ -2939,9 +3038,8 @@ def main() -> int:
         "S2: bit-equal to numpy's cumsum")
     del y
 
-    print("== phase 3j: the headline on its four carry routes "
-          "(RECFILTER_PX2D_BK, RECFILTER_PXM_NAF), and bench.main()",
-          flush=True)
+    heading("phase 3j: the headline on its four carry routes "
+          "(RECFILTER_PX2D_BK, RECFILTER_PXM_NAF), and bench.main()")
     want_h = scan_core.oracle_apply(F_h.spec, img_h.astype(np.float64))
     route_ops = {}
     for label, m in routes.items():
@@ -2982,9 +3080,9 @@ def main() -> int:
           f"{bench_out['value']} Mpix/s on {bench_out['device']}")
 
     carry_times = {}  # kernel: what ``timed`` returns
-    print("== phase 3k: bsolve, moments2d_naf and copy at the headline's "
+    heading("phase 3k: bsolve, moments2d_naf and copy at the headline's "
           "shapes, and its four carry routes (CUDA events, median of "
-          f"{4 * N_TIMED // 2} calls each)", flush=True)
+          f"{4 * N_TIMED // 2} calls each)")
     with torch.no_grad():
         X4 = mod_h.tile(x_h)
         NA64 = mod_h._carries(X4, mod_h.moments.plain)[0]
@@ -3056,9 +3154,9 @@ def main() -> int:
                   f"{busy_text(prof)} on {card}")
     del routes
 
-    print("== phase 3l: the reduced grades end to end through "
+    heading("phase 3l: the reduced grades end to end through "
           "RecFilter.as_func(): the headline and D, E at default, px3 and px4; "
-          "then each split_mm study entry once", flush=True)
+          "then each split_mm study entry once")
     want_h = scan_core.oracle_apply(F_h.spec, img_h.astype(np.float64))
     grade_profs = {}
     for g, (F, m) in grade_2d.items():
@@ -3105,10 +3203,10 @@ def main() -> int:
                   "launch (a study: on no executor's path)")
             main_launches[name] = launches[entry]
 
-    print("== phase 3m: the reduced grades' kernels and the split_mm "
+    heading("phase 3m: the reduced grades' kernels and the split_mm "
           "studies timed beside their twins; the headline at px6 and the "
           "three grades in turns (CUDA events, median of "
-          f"{4 * N_TIMED // 2} calls each)", flush=True)
+          f"{4 * N_TIMED // 2} calls each)")
     with torch.no_grad():
         for g, (F, m) in grade_2d.items():
             X4 = m.tile(x_h)
@@ -3123,12 +3221,11 @@ def main() -> int:
                 PEAK_BF16, main_launches[f"final2d_split/{g}"])
             del X4, NA_t, NB_t, Y
             loc, X, Nt = split_in[g]
-            Bc = loc.completion.Bc
             # the library call of row 9: one matmul of [x, Nᵀ] by [Btotᵀ;
             # Rᵀ] (here the grade's constant, the sum of its chunks), E's
             # clamp variants as a per-tile batch (n, q, K) x (n, K, 128)
             K_ = 128 + loc.completion.sl
-            Bs = Bc[..., :K_].float().sum(1)  # (nv, 128, K)
+            Bs = loc.completion.chunks()[..., :K_].float().sum(1)
             vi = [0 if Bs.shape[0] == 1 else (1 if t == 0 else (
                 2 if t == loc.n - 1 else 0)) for t in range(loc.n)]
             BRn = Bs[vi].transpose(1, 2).contiguous()
@@ -3141,7 +3238,7 @@ def main() -> int:
                 f"completion_split {g} (E: {X.shape[0]} lines x {loc.n} "
                 "tiles)", loc.completion, loc.completion.plain,
                 lambda *_: torch.matmul(XNt, BRn), (X, Nt),
-                tensor_bytes(X, Nt, Bc, X),
+                tensor_bytes(X, Nt[:, :loc.S], loc.completion.Bc_k, X),
                 2.0 * X.numel() * (128 * n_i + loc.S * n_c), PEAK_BF16,
                 main_launches[f"completion_split/{g}"])
             del XNt, BRn
@@ -3161,11 +3258,10 @@ def main() -> int:
                   f"{device_ms(m, x_h):.4f} ms on {card}")
     del grade_2d, grade_1d, split_in, probes, x_h
 
-    print("== phase 3n: the int8 and int_scan probes' studies "
+    heading("phase 3n: the int8 and int_scan probes' studies "
           "(scripts/int8_ozaki_exp.py, int8_rate_probe.py, "
           "int_kernel_probe2.py, int_kernel_probe3.py) against their twins "
-          "at their shapes, one counted launch each, then their times",
-          flush=True)
+          "at their shapes, one counted launch each, then their times")
     from recfilter_tpu_torch.kernels import int8_mm as im
 
     i8 = int8_probes(dev)
@@ -3226,10 +3322,10 @@ def main() -> int:
                                       main_launches[name])
     del i8, x8, a8, b8, v, args
 
-    print("== phase 3o: the integer limb route (an int32 4096² clamp-border "
+    heading("phase 3o: the integer limb route (an int32 4096² clamp-border "
           "SAT) and the split-einsum grades (the headline at f32x3, f32x4, "
           "f32x6, high, f32x9) end to end through RecFilter.as_func(), "
-          "beside px6", flush=True)
+          "beside px6")
     xs_, ys_ = rft.Dim("x", W), rft.Dim("y", H)
     F_sat = rft.RecFilter("IntSATClamp")
     F_sat.set_clamped_image_border()
@@ -3291,7 +3387,7 @@ def main() -> int:
                   f"{busy_text(prof)} on {card}", flush=True)
     del grades, x_h
 
-    print("== phase 4: gradients through the kernel paths", flush=True)
+    heading("phase 4: gradients through the kernel paths")
     img = image(512, 512, seed=1)
     grad_cases = [
         ("2-D 512²", build_filter(rft, 512, 512, img).as_func(),
@@ -3355,8 +3451,8 @@ def main() -> int:
           "U1: input gradient within rtol=atol=1e-4 of U2's")
     del grads, dg, g, x
 
-    print("== phase 5a: 2-D device times at 4096² (CUDA events, median of "
-          f"{4 * N_TIMED // 2} calls each)", flush=True)
+    heading("phase 5a: 2-D device times at 4096² (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)")
     F, mod, img = modules["4096x4096 zero"]
     x = torch.from_numpy(img).to(dev)
     px = H * W
@@ -3392,8 +3488,8 @@ def main() -> int:
               f"{p_ms:.4f} ms ({timing.mpix_per_sec(p_ms, px):.0f} Mpix/s)"
               f" on {card}")
 
-    print("== phase 5b: 1-D device times at 10M samples (CUDA events, "
-          f"median of {4 * N_TIMED // 2} calls each)", flush=True)
+    heading("phase 5b: 1-D device times at 10M samples (CUDA events, "
+          f"median of {4 * N_TIMED // 2} calls each)")
     for label in ("A", "B"):
         F, mod = cases_1d[label]
         x, want = refs[label]
@@ -3478,8 +3574,7 @@ def main() -> int:
               "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
                                   for nm, ms in prof["top"]))
 
-    print("== phase 5c: the fp32-accumulating tails variant, end to end",
-          flush=True)
+    heading("phase 5c: the fp32-accumulating tails variant, end to end")
     for label, (F, mod) in cases_1d.items():
         x, want = refs[label]
         body = mod.body
@@ -3495,8 +3590,8 @@ def main() -> int:
         print(f"  {label}: fp32 tails sums, max|y - ref|/max|ref| = "
               f"{err:.3e} (fp64 sums: phase 3b)")
 
-    print("== phase 5d: rows-path device times (CUDA events, median of "
-          f"{4 * N_TIMED // 2} calls each)", flush=True)
+    heading("phase 5d: rows-path device times (CUDA events, median of "
+          f"{4 * N_TIMED // 2} calls each)")
     for label in ("V1", "V2", "S3"):
         F, mod, xs = rows_cases[label]
         rows = rows_of(label)
@@ -3548,6 +3643,25 @@ def main() -> int:
                 print_fp32_bound("V1 rows_final", fb, flops,
                                  extra["rows_final"][0],
                                  dev_t["rows_final"][0])
+                # rows_final at each reduced grade: beside its twin and
+                # one matmul by the grade's constant (the sum of its
+                # chunks), its bound the bytes and the grade's bf16
+                # products (nprod on x, carry_nprod on N's K rows); beside
+                # px6 in turns: tests/torch_rot_tails_study.py part F
+                for g in GRADE_BOUNDS:
+                    fin_g = grade_rows["V1", g][1].final
+                    n_i = ksplit.NPROD[g]
+                    n_c = ksplit.carry_nprod(n_i)
+                    Ag = fin_g.chunks()[0, :, :, :128 + 8].float().sum(0)
+                    check(rel_err(torch.matmul(Ag, XN),
+                                  fin_g._twin(X4, N)) <= 1e-5,
+                          f"V1 {g}: the library call computes rows_final's "
+                          "product with the grade's constant")
+                    carry_times[f"rows_final/{g}"] = timed(
+                        f"V1 rows_final {g}", fin_g, fin_g.plain,
+                        lambda *_, A=Ag: torch.matmul(A, XN), (X4, N), fb,
+                        2.0 * vox * (128 * n_i + K * n_c), PEAK_BF16,
+                        main_launches[f"rows_final/{g}"])
                 del XN
                 prof = timing.device_profile(mod, x, iterations=10)
             del X4, N
@@ -3604,8 +3718,8 @@ def main() -> int:
         print(f"  S1 / gaussian_3xy device busy: "
               f"{s_prof['busy_ms'] / t_prof['busy_ms']:.3f}")
 
-    print("== phase 5e: FIR and integer device times (CUDA events, median "
-          f"of {4 * N_TIMED // 2} calls each)", flush=True)
+    heading("phase 5e: FIR and integer device times (CUDA events, median "
+          f"of {4 * N_TIMED // 2} calls each)")
 
     def whole_call(label, mod, v, n, top=False):
         """Whole-call events against the plain path, and the profile (with
@@ -3709,9 +3823,9 @@ def main() -> int:
                    x_i3.numel())
         del c, inc
 
-    print("== phase 5f: the rotated emit and the stencil kernels at C1's "
+    heading("phase 5f: the rotated emit and the stencil kernels at C1's "
           f"shapes, and the whole calls C1-C5 (CUDA events, median of "
-          f"{4 * N_TIMED // 2} calls each)", flush=True)
+          f"{4 * N_TIMED // 2} calls each)")
 
     with torch.no_grad():
         # C1's SAT stage: moments2d with its edge rows, final2d_stencil
@@ -3863,9 +3977,9 @@ def main() -> int:
                                Call(c5, x_c5), x_c5)):
             whole_call(label, mod, v, v.numel())
 
-    print("== phase 5g: completion_rot_tails at K3's first pass, and the "
+    heading("phase 5g: completion_rot_tails at K3's first pass, and the "
           f"K cases' calls (CUDA events, median of {4 * N_TIMED // 2} calls "
-          "each)", flush=True)
+          "each)")
     with torch.no_grad():
         p0, p1 = mod3.passes[0], mod3.passes[1]
         X = x3.reshape(-1, p0.n, 128)
@@ -3930,9 +4044,9 @@ def main() -> int:
             whole_call(label, mod, v, v.numel(), top=True)
         del k_cases, mod3, x3
 
-    print("== phase 5j: the calls O1, O2, P1, P3, B1 and S1, the HIGHEST pair "
+    heading("phase 5j: the calls O1, O2, P1, P3, B1 and S1, the HIGHEST pair "
           "at O1's shapes and the strip kernels at P1's (CUDA events, median "
-          f"of {4 * N_TIMED // 2} calls each; S1 of 5)", flush=True)
+          f"of {4 * N_TIMED // 2} calls each; S1 of 5)")
     with torch.no_grad():
         # the whole calls first: a profiled window loses device events late
         # in a long run, after windows of many small ops (module docstring)
@@ -3999,9 +4113,8 @@ def main() -> int:
         # P1's, P2's and P3's passes, beside pick_line_block's choice
         line_block_sweep(rft, dev, card)
 
-    print("== phase 5i: the unsharp mask's calls and the affine epilogue "
-          f"entries (CUDA events, median of {4 * N_TIMED // 2} calls each)",
-          flush=True)
+    heading("phase 5i: the unsharp mask's calls and the affine epilogue "
+          f"entries (CUDA events, median of {4 * N_TIMED // 2} calls each)")
     with torch.no_grad():
         whole_call("U1 unsharp_mask merged 4096²", u1, x_u, H * W, top=True)
         whole_call("U2 unsharp_mask naive 4096²", u2, x_u, H * W, top=True)
@@ -4134,9 +4247,9 @@ def main() -> int:
             extra[name] = (*r[2], r[3])
         del epi_in, out, args, XN, BR0, XNt, BRt, Wst, XNH
 
-    print("== phase 5h: tails_traced and completion_traced at L1's x-axis "
+    heading("phase 5h: tails_traced and completion_traced at L1's x-axis "
           "shapes, the learnable calls and L2's training step (CUDA events, "
-          f"median of {4 * N_TIMED // 2} calls each)", flush=True)
+          f"median of {4 * N_TIMED // 2} calls each)")
     with torch.no_grad():
         X, Gcat, Btot32, Rcat32, Nt8 = traced_in
         q, n, S = X.shape[0], X.shape[1], Gcat.shape[0]
@@ -4238,6 +4351,9 @@ def main() -> int:
             ("completion", None, "recfilter_tpu/kernels/completion.py:464"),
             ("rows_tails", None, "recfilter_tpu/kernels/final2d.py:1185"),
             ("rows_final", None, "recfilter_tpu/kernels/final2d.py:1251"),
+            *((f"rows_final/{g}", "rows_final",
+               "recfilter_tpu/kernels/final2d.py:1251")
+              for g in GRADE_BOUNDS),
             ("fir_band", None, "recfilter_tpu/kernels/fir_band.py:222"),
             ("int_scan", None, "recfilter_tpu/kernels/int_scan.py:384"),
             ("int_seg_scan", None, "recfilter_tpu/kernels/int_scan.py:225"),
@@ -4274,7 +4390,7 @@ def main() -> int:
             ("copy", None, "bench.py:161"),
             *((f"final2d_split/{g}", "final2d_split",
                "recfilter_tpu/kernels/final2d.py:853") for g in GRADE_BOUNDS),
-            *((f"completion_split/{g}", "completion",
+            *((f"completion_split/{g}", "completion_split",
                "recfilter_tpu/kernels/completion.py:464")
               for g in GRADE_BOUNDS),
             *((name, "split_mm", probe) for name, probe in (
@@ -4288,9 +4404,8 @@ def main() -> int:
                 ("split_mm_fp32", "scripts/pallas_split_matmul.py:70"))),
             *INT8_ROWS)
     ]
-    print("== summary: each kernel at its main-path shape — CUDA-event "
-          "median of single calls, and device time from the profiler",
-          flush=True)
+    heading("summary: each kernel at its main-path shape — CUDA-event "
+          "median of single calls, and device time from the profiler")
     for k in kernels:
         d_k, d_p, d_l = dev_t[k["name"]]
         print(f"  {k['name']}: event {k['ms']:.4f} ms, device {d_k:.4f} ms;"

@@ -30,7 +30,8 @@ plain PyTorch twins on the CPU:
     through the tiled pass at ``f32x9`` (float64 einsum forms); the
     sequential core past the gain gate and for int64;
   * every precision grade of the JAX package: px6 and ``highest``; px3,
-    px4 and ``default`` on the split-bf16 kernels ``final2d_split`` and
+    px4 and ``default`` on the split-bf16 kernels ``final2d_split``,
+    ``rows_final`` (volumes; the rows pass at px3 and px4) and
     ``completion_split``; ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` as
     split bf16 chunk products in the einsum forms, ``f32x9`` in float64;
   * the ``scripts/`` probes as studies: ``split_mm`` and the int8

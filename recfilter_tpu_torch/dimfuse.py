@@ -24,12 +24,13 @@ the globally-first/last tile only; those tiles get per-tile variants.
      axis (or a clamp border) as signed mantissa limbs through the tiled
      pass at ``f32x9``, the sequential core past its gain gate and for
      int64;
-  1. scans on exactly the two trailing axes, at px6, where its gates hold
-     (:func:`.overlap2d.fused2d_decline`): the 3-touch 2-D executor
-     :class:`.overlap2d.Fused2DPx`;
-  2. scans on exactly the three trailing axes (volumes), at px6, where the
-     rows gates hold: the rows pass :class:`.overlap2d.FusedRowsPx` on the
-     leading one, then :class:`.overlap2d.Fused2DPx` on the trailing pair
+  1. scans on exactly the two trailing axes, at px6, px4, px3 or
+     ``default``, where its gates hold (:func:`.overlap2d.fused2d_decline`):
+     the 3-touch 2-D executor :class:`.overlap2d.Fused2DPx` at the grade;
+  2. scans on exactly the three trailing axes (volumes), at the same
+     grades, where the rows gates hold: the rows pass
+     :class:`.overlap2d.FusedRowsPx` on the leading one, then
+     :class:`.overlap2d.Fused2DPx` on the trailing pair, both at the grade
      — or, where the pair declines, the rest of this list on the pair;
   3. any trailing group of 2–5 axes with a tile plan on each: the rotation
      chain :class:`RotationChain`, one rotated :class:`LastAxisPass` per
@@ -37,9 +38,9 @@ the globally-first/last tile only; those tiles get per-tile variants.
      completion kernel where the gates allow;
   4. every other filter, one scanned axis after another in order of first
      appearance (:class:`StagedPass`): :class:`.overlap2d.FusedRowsPx` on
-     each axis but the last where its gates hold at px6 (and no epilogue
-     rides that final pass), else :class:`FusedAxisPass` (the axis moved
-     last, one rotated :class:`LastAxisPass`); on the last axis
+     each axis but the last where its gates hold at px6, px4 or px3 (and
+     no epilogue rides that final pass), else :class:`FusedAxisPass` (the
+     axis moved last, one rotated :class:`LastAxisPass`); on the last axis
      :class:`FusedLastAxis`, this module's port of the JAX package's
      ``fused_dim_pass`` — the supertile hierarchy
      (:class:`HierarchicalPass`) for audio-scale tile counts, else one
@@ -52,8 +53,9 @@ nothing is caught and no fallback hides a failure. An axis with no tile
 plan (an order above the extent, a clamp border with no dividing tile)
 runs the sequential core (:class:`.scan_core.ScanAxis`), as the JAX
 package runs its ``lax.scan`` core there. Where the port has no
-counterpart of the JAX package's route (other dtypes and precisions), it
-raises ``NotImplementedError`` naming the ROADMAP item.
+counterpart of the JAX package's route (other dtypes and precisions, the
+routes of 3 and 4 without a kernel at the reduced grades px3, px4 and
+``default``), it raises ``NotImplementedError`` naming the ROADMAP item.
 
 The JAX package's consumers ride these routes: an elementwise
 ``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
@@ -1764,51 +1766,45 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     def scans(ax):
         return [spec.scans[i] for i in groups[ax]]
 
-    # the JAX package runs its 3-touch and rows kernels at the px grades;
-    # at "highest" the chain and the per-axis loop run einsum passes
-    px = NPROD.get(matmul_precision, 0) > 0
+    # the JAX package runs its 3-touch and rows kernels at the px grades
+    # (px6, px4, px3, and default where they are a structural win: the
+    # 2-D pair and volumes); at "highest" and the split-einsum grades the
+    # chain and the per-axis loop run einsum passes. At the reduced grades
+    # (px3, px4, default) only the kernels with a split-bf16 form run —
+    # final2d_split, rows_final, completion_split — and every other route
+    # raises (planner.refuse_split)
+    nprod = NPROD.get(matmul_precision, 0)
+    px = nprod > 0
     pair2d = (px and Ds == 2 and set(groups) == {nd - 2, nd - 1}
               and overlap2d.fused2d_decline(
                   scans(nd - 2), scans(nd - 1), ext[-2], ext[-1],
                   spec.border, stencil2d) is None)
-    if matmul_precision in SPLIT_GRADES:
-        # the reduced grades' one allow-list: the routes with a split-bf16
-        # form, the 3-touch executor (final2d_split) and the unrotated
-        # last-axis pass (completion_split); every other route raises
-        if pair2d:
-            return overlap2d.Fused2DPx(
-                scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-                epilogue=epilogue, stencil2d=stencil2d,
-                nprod=NPROD[matmul_precision])
-        if set(groups) == {nd - 1}:
-            return with_bank(FusedLastAxis(
-                scans(nd - 1), ext[-1], tiles[-1] or _TILE_DEFAULT,
-                spec.border, matmul_precision, epilogue))
-        refuse_split(matmul_precision, f"a filter on axes {sorted(groups)} "
-                     f"of {nd} off the 3-touch executor's gates (the rows "
-                     "pass, volumes, the rotation chain, the per-axis loop)")
-    pre = None  # the volume route's rows pass, where its pair declines
     if pair2d:
         return overlap2d.Fused2DPx(
             scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-            epilogue=epilogue, stencil2d=stencil2d)
+            epilogue=epilogue, stencil2d=stencil2d, nprod=nprod)
+    pre = None  # the volume route's rows pass, where its pair declines
     if (px and Ds == 3 and stencil2d is None
             and set(groups) == set(range(nd - 3, nd))
             and overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
                                         scans(nd - 3)) is None):
         pre = overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
-                                    spec.border)
+                                    spec.border, nprod)
         if overlap2d.fused2d_decline(scans(nd - 2), scans(nd - 1), ext[-2],
                                      ext[-1], spec.border) is None:
             return StagedPass([pre, overlap2d.Fused2DPx(
                 scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-                epilogue=epilogue)], "volume")
+                epilogue=epilogue, nprod=nprod)], "volume")
         # the trailing pair declines: the chain (or the loop) on the rest
         groups = {ax: ids for ax, ids in groups.items() if ax != nd - 3}
         Ds = 2
     gscans = {ax: scans(ax) for ax in groups}
     if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
             and chain_plans(ext, gscans, tiles, clamp) is not None):
+        refuse_split(matmul_precision, "the rotation chain" + (
+            " on a volume's trailing pair after its rows pass"
+            if pre is not None else "") + " (its rotated emit at the grade "
+            "is ROADMAP Queue 2 item 3)")
         body = RotationChain(gscans, ext, tiles, spec.border,
                              matmul_precision, epilogue)
         return with_bank(body if pre is None
@@ -1822,13 +1818,16 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
             stages.append(FusedLastAxis(scans(ax), ext[ax],
                                         tiles[ax] or _TILE_DEFAULT,
                                         spec.border, matmul_precision, epi))
-        elif (px and (epilogue is None or not final)
+        elif (nprod > 1 and (epilogue is None or not final)
               and overlap2d._rows_decline(
                   ext[ax], int(np.prod(ext[ax + 1:], dtype=np.int64)),
                   scans(ax)) is None):
+            # not at default: there the JAX package runs the einsum pass
+            # (its non-structural _kernel_nprod), which the port has not
             stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
-                                                ext[ax + 1:], spec.border))
-        else:
+                                                ext[ax + 1:], spec.border,
+                                                nprod))
+        else:  # raises at the reduced grades (its rotated emit)
             stages.append(FusedAxisPass(scans(ax), ax, ext,
                                         tiles[ax] or _TILE_DEFAULT,
                                         spec.border, matmul_precision, epi))

@@ -213,8 +213,9 @@ def _grid_ok(what: str, n: int, blocks_y: int) -> None:
 
 def _items_ok(what: str, n: int, q: int, lines: int = TILE) -> None:
     """The persistent kernels (``completion_rot``, ``tails``: 128 lines an
-    item; ``completion``, ``completion_traced``: 64) walk n tiles ×
-    ⌈q/lines⌉ line blocks as work items, numbered in an int."""
+    item; ``completion``, ``completion_split``, ``completion_traced``: 64)
+    walk n tiles × ⌈q/lines⌉ line blocks as work items, numbered in an
+    int."""
     items = n * -(-q // lines)
     if not (n > 0 and q > 0 and items < 2**31):
         raise ValueError(f"{what}: {n} tiles x {q} lines: {items} work items "
@@ -271,32 +272,34 @@ def core_unpack(P: torch.Tensor, no: int, kp: int) -> torch.Tensor:
     return C[..., inv].contiguous()
 
 
-def tc_exact(Mc, data: torch.Tensor, ein, drop=None):
+def tc_exact(Mc, data: torch.Tensor, ein, drop=None, nprod: int = 6):
     """The tensor-core completion's sum, exact, and per output how far the
     kernel may lie from it: ``(ref, bound)``, float64, of ``ein``'s shape.
 
-    ``ref`` sums the six chunk products of :func:`.split.prods` — the
-    constant's three chunks ``Mc`` ((..., o, KP) each) by the bf16 chunks
-    of ``data`` (q, n, KP) = [x | Nᵀ | 0], split in float32 — in float64
-    (each bf16 product exact, the sum's error some 2⁻⁴³ of its terms'
-    magnitude: far below float32's). ``bound``
-    follows the kernel's ``wgmma`` steps in its order — the carry slab (k ≥
-    128), then the signal slab, in each the six pairs smallest level
-    first, each over its k16 steps — each step at most two roundings of
-    2⁻²³ of what it adds to: the accumulator (the exact partial sum's
-    magnitude plus the bound so far) and the step's sixteen terms (the
-    model PR 11's review measured), plus 2⁻¹⁰⁰ for values float32 holds
-    only as subnormals (at most 72 steps each losing 2⁻¹²⁶ times the
-    step's coefficients: far less; and far below any output a real input
-    gives). ``ein(M, D)`` contracts the last axes (by tile where the matrix
-    has variants). ``drop``: a pair left out of ``ref`` — a control that
-    the check against ``bound`` rejects."""
-    ds = [c.double() for c in split.split_data(data, 3)]
+    ``ref`` sums the chunk products of :func:`.split.prods` at grade
+    ``nprod`` — the carry slab's (k ≥ 128) at :func:`.split.carry_nprod`,
+    the signal slab's at ``nprod`` — the constant's chunks ``Mc`` ((..., o,
+    KP) each) by the bf16 chunks of ``data`` (q, n, KP) = [x | Nᵀ | 0],
+    split in float32 — in float64 (each bf16 product exact, the sum's
+    error some 2⁻⁴³ of its terms' magnitude: far below float32's).
+    ``bound`` follows the kernel's ``wgmma`` steps in its order — the carry
+    slab, then the signal slab, in each the pairs smallest level first,
+    each over its k16 steps — each step at most two roundings of 2⁻²³ of
+    what it adds to: the accumulator (the exact partial sum's magnitude
+    plus the bound so far) and the step's sixteen terms, plus 2⁻¹⁰⁰ for
+    values float32 holds only as subnormals (at most 72 steps each losing
+    2⁻¹²⁶ times the step's coefficients: far less; and far below any
+    output a real input gives).
+    ``ein(M, D)`` contracts the last axes (by tile where the matrix has
+    variants). ``drop``: a pair left out of ``ref`` — a control that the
+    check against ``bound`` rejects."""
+    cn = split.carry_nprod(nprod)
+    ds = [c.double() for c in split.split_data(data, split.nchunks(cn))]
     ms = [c.double() for c in Mc]
     kp = data.shape[-1]
     acc = bound = left = None
-    for k0s in (range(TILE, kp, 16), range(0, TILE, 16)):
-        for i, j in split.prods(6):
+    for k0s, grade in ((range(TILE, kp, 16), cn), (range(0, TILE, 16), nprod)):
+        for i, j in split.prods(grade):
             for k0 in k0s:
                 m, d = ms[i][..., k0:k0 + 16], ds[j][..., k0:k0 + 16]
                 t, a = ein(m, d), ein(m.abs(), d.abs())
@@ -315,17 +318,25 @@ def tc_depth(sl: int) -> int:
     return TILE + -(-sl // 16) * 16
 
 
-def tc_constant(Bv, Rv) -> torch.Tensor:
-    """The tensor-core kernels' B operand (``completion``'s and
-    ``rows_final``'s): per variant ``[Btot | R | 0]`` — Bv (nv, T, T), Rv
-    (nv, T, sl), the contraction padded to :func:`tc_depth` — split from
-    float64 into three bf16 chunks and packed by :func:`core_pack`: (nv, 3,
-    T·KP)."""
+def tc_constant(Bv, Rv, nc: int = 3) -> torch.Tensor:
+    """The tensor-core kernels' B operand (``completion``'s,
+    ``completion_split``'s and ``rows_final``'s): per variant ``[Btot | R |
+    0]`` — Bv (nv, T, T), Rv (nv, T, sl), the contraction padded to
+    :func:`tc_depth` — split from float64 into ``nc`` bf16 chunks (three at
+    px6, two at the reduced grades: :func:`.split.nchunks` of the carry
+    rows' grade) and packed by :func:`core_pack`: (nv, nc, T·KP)."""
     sl = Rv.shape[-1]
     M = np.zeros(Bv.shape[:2] + (tc_depth(sl),))
     M[..., :TILE] = Bv
     M[..., TILE:TILE + sl] = Rv
-    return core_pack(torch.stack(split.split_const(M, 3), dim=1))
+    return core_pack(torch.stack(split.split_const(M, nc), dim=1))
+
+
+def grade_chunks(nprod: int) -> int:
+    """Chunks of the tensor-core kernels' constant at grade ``nprod``: those
+    of the carry rows, which take the most products (``csrc/wgmma.cuh``'s
+    ``b_chunks``)."""
+    return split.nchunks(split.carry_nprod(nprod))
 
 
 class TailsPass(nn.Module):
@@ -685,15 +696,17 @@ class CompletionSplit(nn.Module):
     """``completion(x, N)`` at a reduced precision grade: the unrotated
     :class:`CompletionPass` (no stencil, no epilogue) as ``nprod``
     split-bf16 products, the carry rows at :func:`.split.carry_nprod`
-    (``completion_split``; the JAX package's ``completion_pass(rot=False,
-    nprod=n)`` at nprod 1, 3, 4, which at 1 takes one product on the
-    carries too).
+    (``completion_split``, the tensor-core kernel of ``completion`` at the
+    grade; the JAX package's ``completion_pass(rot=False, nprod=n)`` at
+    nprod 1, 3, 4, which at 1 takes one product on the carries too).
 
     Btot : (n|1, T, T);  Rcat : (n|1, T, S), S ≤ 56 carries in sl slots.
-    The constant ``[Btot | Rcat]`` is split on the host, once, for every
-    variant (``Bc`` (1|3, nc, T, LD) bf16, the contraction T + sl padded
-    to a multiple of 16, rows LD apart); x and N are split on chip. The
-    twin ``plain`` runs the same chunk products in float32; the kernel's
+    The constant ``[Btot | Rcat | 0]`` is split on the host, once, for
+    every variant, into two bf16 chunks (:func:`grade_chunks`) packed by
+    :func:`core_pack` (``Bc_k`` (1|3, 2, T·KP), KP = :func:`tc_depth`;
+    :meth:`chunks` unpacks them); x and N are split on chip. The twin
+    ``plain`` runs the same chunk products in float32, :meth:`split_exact`
+    is their exact sum and the kernel's bound about it; the kernel's
     backward is the VJP of the float32 product with the constant's grade.
     """
 
@@ -711,43 +724,51 @@ class CompletionSplit(nn.Module):
         if S > _MAX_S:
             raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
         self.n, self.S, self.sl, self.nprod = int(n), S, slots_for(S), nprod
-        self.ld = -(-(T + self.sl) // 16) * 16 + 8
         Rp = np.zeros((nvr, T, self.sl))
         Rp[..., :S] = R
         Bv, Rv = _variants_like(Btot, Rp)
-        M = np.zeros((Bv.shape[0], T, self.ld))
-        M[..., :T] = Bv
-        M[..., T:T + self.sl] = Rv
-        self.register_buffer("Bc", torch.stack(
-            split.split_const(M, split.nchunks(split.carry_nprod(nprod))),
-            dim=1).contiguous())
+        self.register_buffer("Bc_k", tc_constant(Bv, Rv,
+                                                 grade_chunks(nprod)))
+
+    def chunks(self) -> torch.Tensor:
+        """The constant's bf16 chunks, (nv, 2, T, KP), unpacked from
+        ``Bc_k`` (:func:`core_unpack`)."""
+        return core_unpack(self.Bc_k, TILE, tc_depth(self.sl))
 
     def _data(self, x, N):
         """[x | Nᵀ]: (q, n, T + sl), the contraction's data rows."""
         return torch.cat([x, N.permute(2, 0, 1)], dim=-1)
 
     def plain(self, x, N):
-        K = TILE + self.sl
-        Bc = self.Bc[..., :K].float()
+        Bc = self.chunks()[..., :TILE + self.sl].float()
         return split.pair_sum(self.nprod, lambda i, d: tile_einsum(
             "nok,qnk->qno", Bc[:, i], d), self._data(x, N), TILE)
 
     def _twin(self, x, N):
         """The float32 product with the constant's grade (the sum of its
         chunks): linear, the backward's map."""
-        Bs = self.Bc[..., :TILE + self.sl].float().sum(1)
+        Bs = self.chunks()[..., :TILE + self.sl].float().sum(1)
         return tile_einsum("nok,qnk->qno", Bs, self._data(x, N))
+
+    def split_exact(self, x, N, drop=None):
+        """:func:`tc_exact` of the kernel at its grade: the exact sum of
+        its chunk products and its bound, per output (q, n, T)."""
+        Bc = self.chunks()
+        d = torch.cat([self._data(x, N), x.new_zeros(
+            x.shape[:2] + (Bc.shape[-1] - TILE - self.sl,))], dim=-1)
+        return tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
+            "nok,qnk->qno", m, v), drop, self.nprod)
 
     def _kernel(self, x, N):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(N, "N", (n, self.sl, q), x.device)
-        _check(self.Bc, "Bc", self.Bc.shape, x.device, torch.bfloat16)
-        _grid_ok("completion_split", n, -(-q // TILE))
+        _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
+        _items_ok("completion_split", n, q, _TC_LINES)
         y = torch.empty_like(x)
         _launch("completion_split", (
-            x.data_ptr(), N.data_ptr(), self.Bc.data_ptr(), y.data_ptr(), q,
-            n, self.sl, self.Bc.shape[0], self.nprod), x.device)
+            x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), y.data_ptr(),
+            q, n, self.sl, self.Bc_k.shape[0], self.nprod), x.device)
         return y
 
     def forward(self, x, N):

@@ -1,0 +1,39 @@
+// completion_split.cu: the unrotated completion at the reduced precision
+// grades — completion_split, replacing
+// recfilter_tpu/kernels/completion.py::completion_pass(rot=False,
+// nprod=n) at nprod 1 (default), 3 (px3) and 4 (px4). The same kernel as
+// completion.cu's completion (completion_tc.cuh), instantiated at NPROD:
+// the per-tile product
+//
+//   Y[l, t, :] = sum_(i,j) Bc_i[v(t)] * [x[l, t, :]; N[t, :, l]]_j
+//
+// over split.cuh's chunk pairs (i, j), smallest level first — NPROD on the
+// 128 signal rows, carry_nprod(NPROD) >= 3 on the carry rows (the carry
+// terms cancel: kernels/split.py; the JAX package takes one at nprod 1) —
+// the carry slab first (wgmma.cuh's split_products). B is the host's
+// constant [Btot | Rcat | 0] in two chunks (wgmma.cuh's b_chunks; 73.7 KB
+// at sl = 8), so two warpgroups' stages fit beside it at every sl <= 56.
+// Bound: 2 x (128 NPROD + S carry_nprod) bf16 operations per sample
+// against 8 B of traffic — at the card's peaks, by bytes.
+
+#include "completion_tc.cuh"
+
+// nprod in {1, 3, 4}; Bc: kernels/completion.py's CompletionSplit.Bc_k,
+// (nv, 2, 128 * KP) bf16
+extern "C" int completion_split_launch(const float* x, const float* N,
+                                       const void* Bc, float* y, int q,
+                                       int n, int sl, int nv, int nprod,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const rf::Affine none{};
+  switch (nprod) {
+    case 1: return static_launch<1>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
+    case 3: return static_launch<3>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
+    case 4: return static_launch<4>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* completion_split_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -2,21 +2,26 @@
 // second read of the array, and its only write.
 //
 // Replaces recfilter_tpu/kernels/final2d.py::rows_final_px (Pallas kernel
-// _rows_final_kernel) at nprod=6. Per 128 x 128 tile of x (p, n, T, W),
+// _rows_final_kernel) at nprod 6 (px6), 4 (px4), 3 (px3) and 1 (default).
+// Per 128 x 128 tile of x (p, n, T, W),
 // with v(a) the tile's matrix variant along the scanned axis (interior,
 // first or last):
 //
 //   y[p,a,:, tile] = Btot_v(a) * x[p,a,:, tile] + Rhat_v(a)[:, :8] * N[p,a,:, tile]
 //
 // with N (p, n, 8, W) the solved, slot-padded carries — computed as the JAX
-// package computes it at px6: x and N split into three bf16 chunks on chip
-// (_split_vmem), the constant [Btot | Rhat | 0] into three from float64 on
-// the host (_split_const_np), and the six chunk products of split.py's
-// prods(6) summed in fp32, smallest level first: the 8 carry rows (one k16
-// step, padded with zeros) all six products, then the 128 rows of x all
-// six. A bf16 x bf16 product is exact in fp32, so the arithmetic is the
-// TPU kernel's; the sums round at other places (the tensor cores'
-// accumulation).
+// package computes it at grade NPROD: x and N split into bf16 chunks on
+// chip (_split_vmem), the constant [Btot | Rhat | 0] from float64 on the
+// host (_split_const_np), and the chunk products of split.py's prods
+// summed in fp32, smallest level first: the 8 carry rows (one k16 step,
+// padded with zeros) at carry_nprod(NPROD) products — at least three: the
+// carry terms cancel (kernels/split.py), where the JAX package takes one
+// at nprod 1 — then the 128 rows of x at NPROD. At px6 that is six and
+// six on three chunks a side; at px3, px4 three or four on two; at
+// default one on one chunk of x and three on two of N (B has two chunks
+// at every reduced grade). A bf16 x bf16 product is exact in fp32, so the
+// arithmetic is the TPU kernel's; the sums round at other places (the
+// tensor cores' accumulation).
 //
 // It is completion.cu's tensor-core product with the tile transposed:
 // there y (lines x 128) = [x, N^T] . [Btot^T; R^T]; here y^T (lanes x 128)
@@ -26,8 +31,9 @@
 // down the columns of the fp32 stage.
 //
 // What bounds it: 12 B of traffic per element (x read, y written; the
-// carries 1/16 of that) against 6 * 2 * 144 bf16 operations — at the
-// H100's peaks (3.35 TB/s, 989 TFLOP/s dense bf16) the bytes. The design,
+// carries 1/16 of that) against at most 6 * 2 * 144 bf16 operations (px6)
+// — at the H100's peaks (3.35 TB/s, 989 TFLOP/s dense bf16) the bytes at
+// every grade. The design,
 // that of completion_tc_kernel (wgmma.cuh's split_products, stage_b;
 // pipeline.cuh's Walk):
 //   * work items of 64 lanes of one tile (one wgmma M) — the 136 rows of
@@ -38,14 +44,16 @@
 //     item and a fp32 stage (136 x 64) filled by cp.async, refilled with
 //     the next item as soon as the split has the stage in registers, so
 //     one warpgroup's loads, split and stores run under the other's
-//     products; B (3 x 128 x 144 bf16, 110.6 KB) staged once a variant;
+//     products; B (3 x 128 x 144 bf16, 110.6 KB, at px6; two chunks,
+//     73.7 KB, at the reduced grades) staged once a variant;
 //   * the stage's rows of 64 lanes with their 8-lane groups XOR-swizzled
 //     by (row / 4) % 4 (stage_off): a thread's fragment reads — rows 16s +
 //     4qd + e (kperm), lanes r and r + 8 — fall in 32 distinct banks, and
 //     the 16-byte cp.async groups stay whole;
 //   * the output stored from the accumulators: a warp's store covers four
 //     output rows, eight consecutive lanes each (four 32-byte sectors).
-// Shared memory: 110,592 B of B and 2 x 34,816 B of stages.
+// Shared memory: 110,592 B of B at px6 (73,728 B at the reduced grades)
+// and 2 x 34,816 B of stages.
 
 #include "common.cuh"
 #include "pipeline.cuh"
@@ -61,7 +69,9 @@ constexpr int ROWS = T + SLOTS;     // rows of a stage: x's, then N's
 constexpr int LANES = rfw::TM;      // lanes of an item (wgmma M)
 constexpr int STAGE = ROWS * LANES;  // floats of a stage
 constexpr int NWG = 2;              // warpgroups a block
-constexpr long SMEM = 3L * CH * 2 + 4L * NWG * STAGE;
+constexpr long smem(int nprod) {
+  return rfw::b_chunks(nprod) * CH * 2L + 4L * NWG * STAGE;
+}
 
 // (row s, lane w) of a stage: rows of 64 lanes, the 8-lane groups of row s
 // XOR-swizzled by (s / 4) % 4 (the header; kernels/final2d.py's
@@ -70,12 +80,14 @@ __device__ __forceinline__ int stage_off(int s, int w) {
   return s * LANES + (w ^ (8 * ((s >> 2) & 3)));
 }
 
+template <int NPROD>
 __global__ void __launch_bounds__(NWG * rfw::WG, 1)
 rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
                   const float* __restrict__ N,       // (p, n, 8, W)
-                  const rfs::bf16* __restrict__ Bc,  // (nv, 3, T * KP)
+                  const rfs::bf16* __restrict__ Bc,  // (nv, NCB, T * KP)
                   float* __restrict__ y,             // (p, n, T, W)
                   int n, int nl, int nb, int nv) {
+  constexpr int NCB = rfw::b_chunks(NPROD);
   extern __shared__ uint4 smem16[];
   rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);
 
@@ -84,7 +96,7 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
   const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
   const long W = (long)nl * T;
   const int lb = W / LANES;  // lane blocks of one (p, a)
-  float* Xs = reinterpret_cast<float*>(Bs + 3 * CH) + wg * STAGE;
+  float* Xs = reinterpret_cast<float*>(Bs + NCB * CH) + wg * STAGE;
   const rfp::Walk walk(n, nb, nv, NWG);
 
   // item it -> the first element of its (p, a) slab and its first lane
@@ -125,7 +137,7 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
     rfp::item(it - wg, n, nb, nv, a0, b0);
     const int v = rf::variant(nv, a0, n);
     if (v != cur_v) {
-      rfw::stage_b(smem16, Bc, v, CH);
+      rfw::stage_b<NCB>(smem16, Bc, v, CH);
       cur_v = v;
     }
     if (!have) {  // none in this group (its range's odd last item): the
@@ -139,7 +151,7 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
     // the transposed fragment: samples k0 + 4qd + e are stage rows, the
     // fragment rows r, r + 8 lanes; carry rows past the 8 slots are zeros
     float d[64];
-    rfw::split_products<1>(
+    rfw::split_products<NPROD, 1>(
         d, Bs, CH, KP,
         [&](int k0, float (&u)[4], float (&w)[4]) {
 #pragma unroll
@@ -174,25 +186,39 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
   }
 }
 
+template <int NPROD>
+int launch(const float* x, const float* N, const rfs::bf16* Bc, float* y,
+           int n, int nl, long nb, int nv, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rows_final_kernel<NPROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem(NPROD));
+  if (err != cudaSuccess) return (int)err;
+  const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, NWG));
+  rows_final_kernel<NPROD><<<grid, NWG * rfw::WG, (int)smem(NPROD),
+                             stream>>>(x, N, Bc, y, n, nl, (int)nb, nv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Bc: kernels/final2d.py's RowsFinal.Bc_k, (nv, 3, 128 * 144) bf16
+// Bc: kernels/final2d.py's RowsFinal.Bc_k, (nv, NCB, 128 * 144) bf16 with
+// NCB = 3 at nprod 6, 2 at nprod 1, 3, 4
 extern "C" int rows_final_launch(const float* x, const float* N,
                                  const void* Bc, float* y, int p, int n,
-                                 int nl, int nv, void* stream) {
+                                 int nl, int nv, int nprod, void* stream) {
   const long nb = 2L * p * nl;  // 64-lane blocks of a tile index
   if (p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
       n * nb >= (1L << 31))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rows_final_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, NWG));
-  rows_final_kernel<<<grid, NWG * rfw::WG, (int)SMEM,
-                      (cudaStream_t)stream>>>(
-      x, N, static_cast<const rfs::bf16*>(Bc), y, n, nl, (int)nb, nv);
-  return (int)cudaGetLastError();
+  const rfs::bf16* B = static_cast<const rfs::bf16*>(Bc);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nprod) {
+    case 1: return launch<1>(x, N, B, y, n, nl, nb, nv, s);
+    case 3: return launch<3>(x, N, B, y, n, nl, nb, nv, s);
+    case 4: return launch<4>(x, N, B, y, n, nl, nb, nv, s);
+    case 6: return launch<6>(x, N, B, y, n, nl, nb, nv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* rows_final_error_string(int err) {

@@ -65,12 +65,20 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The three bf16 chunks of the pair (u, v) (split.cuh's split<3>, the JAX
+// Chunks of B at grade NPROD: those of the carry slab, which takes the
+// most products (split.cuh's carry_nprod; the signal's are its first ones).
+__host__ __device__ constexpr int b_chunks(int nprod) {
+  return rfs::nchunks(rfs::carry_nprod(nprod));
+}
+
+// The NC bf16 chunks of the pair (u, v) (split.cuh's split<NC>, the JAX
 // package's _split_vmem: each the round-to-nearest of what the earlier
 // ones left, the residuals exact), packed u low, v high.
-__device__ __forceinline__ void split3(float u, float v, uint32_t (&c)[3]) {
+template <int NC>
+__device__ __forceinline__ void split_pair(float u, float v,
+                                           uint32_t (&c)[NC]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < NC; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
     c[i] = as_u32(h);
     u = __fsub_rn(u, __low2float(h));
@@ -138,54 +146,55 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// A k16 step's A fragment in its three chunks: u[e] and w[e] the fp32
+// A k16 step's A fragment in its NC chunks: u[e] and w[e] the fp32
 // samples 4qd + e of rows r and r + 8 — so the pairs (u0, u1), (w0, w1)
 // at positions 2qd, 2qd + 1 and (u2, u3), (w2, w3) at 2qd + 8, 2qd + 9
 // (kperm) — into a[ch][s].
-template <int S>
-__device__ __forceinline__ void frag3(uint32_t (&a)[3][S][4], int s,
-                                      const float (&u)[4],
-                                      const float (&w)[4]) {
-  uint32_t c[4][3];
-  split3(u[0], u[1], c[0]);
-  split3(w[0], w[1], c[1]);
-  split3(u[2], u[3], c[2]);
-  split3(w[2], w[3], c[3]);
+template <int NC, int S>
+__device__ __forceinline__ void frag(uint32_t (&a)[NC][S][4], int s,
+                                     const float (&u)[4],
+                                     const float (&w)[4]) {
+  uint32_t c[4][NC];
+  split_pair<NC>(u[0], u[1], c[0]);
+  split_pair<NC>(w[0], w[1], c[1]);
+  split_pair<NC>(u[2], u[3], c[2]);
+  split_pair<NC>(w[2], w[3], c[3]);
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch)
+  for (int ch = 0; ch < NC; ++ch)
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[ch][s][i] = c[i][ch];
 }
 
-// The six products of split.cuh's pairs over S k16 steps of A (registers)
-// and B (chunk c at Bs + c * ch, the first step at element k0 of each),
-// smallest level first.
-template <int S>
-__device__ __forceinline__ void six_products(float (&d)[64],
-                                             const uint32_t (&a)[3][S][4],
-                                             const __nv_bfloat16* Bs, int ch,
-                                             int k0, int kp) {
+// The NPROD products of split.cuh's pairs over S k16 steps of A (NC chunks
+// in registers) and B (chunk c at Bs + c * ch, the first step at element
+// k0 of each), smallest level first, each pair over all its steps.
+template <int NPROD, int NC, int S>
+__device__ __forceinline__ void products(float (&d)[64],
+                                         const uint32_t (&a)[NC][S][4],
+                                         const __nv_bfloat16* Bs, int ch,
+                                         int k0, int kp) {
 #pragma unroll
-  for (int p = 0; p < 6; ++p)
+  for (int p = 0; p < NPROD; ++p)
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      mma(d, a[rfs::pair_d(6, p)][s],
-          desc(Bs + rfs::pair_c(6, p) * ch + k0 + 128 * s, kp));
+      mma(d, a[rfs::pair_d(NPROD, p)][s],
+          desc(Bs + rfs::pair_c(NPROD, p) * ch + k0 + 128 * s, kp));
 }
 
 __device__ __forceinline__ void wg_sync(int wg) {  // one warpgroup's barrier
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(WG) : "memory");
 }
 
-// B's three chunks of variant v — the host's split constant (nv, 3, ch)
-// in the core-matrix order above — into shared memory at dst: a flat
+// B's NC chunks of variant v — the host's split constant (nv, NC, ch) in
+// the core-matrix order above — into shared memory at dst: a flat
 // cp.async copy by the whole block, once every warpgroup is past its last
 // products on the old variant; visible to the async proxy on return.
+template <int NC>
 __device__ __forceinline__ void stage_b(uint4* dst, const __nv_bfloat16* Bc,
                                         int v, int ch) {
   __syncthreads();
-  const uint4* src = reinterpret_cast<const uint4*>(Bc + 3L * v * ch);
-  for (int i = threadIdx.x; i < 3 * ch / 8; i += blockDim.x)
+  const uint4* src = reinterpret_cast<const uint4*>(Bc + (long)NC * v * ch);
+  for (int i = threadIdx.x; i < NC * ch / 8; i += blockDim.x)
     rfp::cp16(dst + i, src + i, true);
   rfp::commit();
   rfp::wait_pending(0);
@@ -196,42 +205,47 @@ __device__ __forceinline__ void stage_b(uint4* dst, const __nv_bfloat16* Bc,
 // One item's product, d = the warpgroup's 64 x 128 block of the split
 // product over a contraction of 128 signal samples and KC k16 steps of
 // carry rows (B's k >= 128, kp = 128 + 16 KC), as the JAX package sums it
-// at px6: the carry slab's six products first, then the signal slab's,
-// each smallest level first. rd(k0, u, w) reads the fp32 samples k0 + 4qd
-// + e (e < 4) of the thread's rows r and r + 8 — k0 = 128 + 16 s for the
-// carry steps, 16 s for the signal's — into u and w (zeros past the real
-// carry rows); the signal's chunks are split under the carry products.
-// issued() runs once the products are issued and every sample is in
-// registers (the stage is free: the next item's loads go there).
-template <int KC, typename Read, typename Issued>
+// at grade NPROD (1, 3, 4 or 6): the carry slab's carry_nprod(NPROD)
+// products first, then the signal slab's NPROD, each smallest level
+// first; the carry rows split into b_chunks(NPROD) chunks, the signal
+// into nchunks(NPROD) (B holds b_chunks(NPROD) chunks). rd(k0, u, w)
+// reads the fp32 samples k0 + 4qd + e (e < 4) of the thread's rows r and
+// r + 8 — k0 = 128 + 16 s for the carry steps, 16 s for the signal's —
+// into u and w (zeros past the real carry rows); the signal's chunks are
+// split under the carry products. issued() runs once the products are
+// issued and every sample is in registers (the stage is free: the next
+// item's loads go there).
+template <int NPROD, int KC, typename Read, typename Issued>
 __device__ __forceinline__ void split_products(float (&d)[64],
                                                const __nv_bfloat16* Bs,
                                                int ch, int kp, Read&& rd,
                                                Issued&& issued) {
   constexpr int T = 128;
+  constexpr int CP = rfs::carry_nprod(NPROD);
+  constexpr int NCC = rfs::nchunks(CP), NCS = rfs::nchunks(NPROD);
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  uint32_t ac[3][KC][4];
+  uint32_t ac[NCC][KC][4];
 #pragma unroll
   for (int s = 0; s < KC; ++s) {
     float u[4], w[4];
     rd(T + 16 * s, u, w);
-    frag3<KC>(ac, s, u, w);
+    frag<NCC, KC>(ac, s, u, w);
   }
   fence_acc(d);
   fence();
-  six_products<KC>(d, ac, Bs, ch, 128 * (T / 16), kp);
+  products<CP, NCC, KC>(d, ac, Bs, ch, 128 * (T / 16), kp);
   commit();
   if constexpr (KC > 1) wait_all();  // the carry chunks' registers
-  uint32_t ai[3][T / 16][4];
+  uint32_t ai[NCS][T / 16][4];
 #pragma unroll
   for (int s = 0; s < T / 16; ++s) {
     float u[4], w[4];
     rd(16 * s, u, w);
-    frag3<T / 16>(ai, s, u, w);
+    frag<NCS, T / 16>(ai, s, u, w);
   }
   fence();
-  six_products<T / 16>(d, ai, Bs, ch, 0, kp);
+  products<NPROD, NCS, T / 16>(d, ai, Bs, ch, 0, kp);
   commit();
   issued();
   wait_all();

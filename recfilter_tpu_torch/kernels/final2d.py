@@ -51,8 +51,8 @@ from torch import nn
 
 from .completion import (_SLOTS, TILE, _aux_ptrs, _epi_coef, _expand_stack,
                          _f32, _f64, _per_tile, _variants3, _variants_like,
-                         core_unpack, tc_constant, tc_depth, tc_exact,
-                         tile_einsum)
+                         core_unpack, grade_chunks, tc_constant, tc_depth,
+                         tc_exact, tile_einsum)
 from . import split
 from .launch import _check, _KernelFn, _launch
 
@@ -717,47 +717,71 @@ class RowsFinal(nn.Module):
     carries N (p, n, 8, W): ``y[p,a] = Btot_v(a)·x[p,a] + Rhat_v(a)·N[p,a]``.
 
     Btot : (n|1, T, T);  Rhat_cat : (n|1, T, K).
+    nprod : the grade — 6 (px6), 4 (px4), 3 (px3) or 1 (``default``).
 
-    The kernel (``csrc/rows_final.cu``) computes the JAX package's px6
-    arithmetic on the tensor cores: six split-bf16 products
-    (:func:`.split.prods`), the constant ``[Btot | Rhat | 0]`` split from
-    float64 on the host into three chunks (``Bc_k`` (nv, 3, T·KP), KP =
-    144, in the byte order of the tensor-core completion,
+    The kernel (``csrc/rows_final.cu``) computes the JAX package's
+    arithmetic at that grade on the tensor cores: ``nprod`` split-bf16
+    products (:func:`.split.prods`) on x and :func:`.split.carry_nprod` on
+    N — at least three, where the JAX package takes one at ``default``
+    (``kernels/split.py``) — the constant ``[Btot | Rhat | 0]`` split from
+    float64 on the host (``Bc_k`` (nv, nc, T·KP), KP = 144: three chunks at
+    px6, two at the reduced grades, :func:`.completion.grade_chunks`; in
+    the byte order of the tensor-core completion,
     :func:`.completion.core_pack`; :meth:`chunks` unpacks them), x and N
-    into three on chip. :meth:`split_exact` is the exact sum of its six
-    chunk products and the kernel's bound about it; ``plain`` stays the
-    float32 product, the twin the CPU runs and the backward
-    differentiates."""
+    on chip. :meth:`split_exact` is the exact sum of its chunk products
+    and the kernel's bound about it. ``plain``, the twin the CPU runs, is
+    the float32 product at px6 and the grade's chunk products in float32
+    at the reduced grades (:func:`.split.pair_sum`); the backward
+    differentiates the float32 product with the constant's grade
+    (``_twin``)."""
 
-    def __init__(self, Btot, Rhat_cat, n: int):
+    def __init__(self, Btot, Rhat_cat, n: int, nprod: int = 6):
         super().__init__()
+        if nprod not in (1, 3, 4, 6):
+            raise ValueError(f"rows_final runs nprod 1, 3, 4 or 6, not "
+                             f"{nprod}")
         R8 = _pad_slots(Rhat_cat)
         if np.shape(Btot)[1:] != (TILE, TILE) or R8.shape[1:] != (TILE,
                                                                    _SLOTS):
             raise ValueError(f"tiles must be {TILE} wide with at most "
                              f"{_SLOTS} carries")
-        self.n = int(n)
+        self.n, self.nprod = int(n), nprod
         self.register_buffer("Bc_k", tc_constant(               # kernel
-            *_variants_like(Btot, R8)))
+            *_variants_like(Btot, R8), grade_chunks(nprod)))
         self.register_buffer("B_v", _f32(_variants3(Btot)))   # twin
         self.register_buffer("R_v", _f32(_variants3(R8)))
 
     def plain(self, x, N):
-        return (tile_einsum("nos,pnsw->pnow", self.B_v, x)
-                + tile_einsum("nok,pnkw->pnow", self.R_v, N))
+        if self.nprod == 6:
+            return self._twin(x, N)
+        Mc = self.chunks()[..., :TILE + _SLOTS].float()
+        return split.pair_sum(self.nprod, lambda i, d: tile_einsum(
+            "nok,pnkw->pnow", Mc[:, i], d), torch.cat([x, N], dim=2), TILE,
+            dim=2)
+
+    def _twin(self, x, N):
+        """The float32 product with the constant's grade (at the reduced
+        grades the sum of its chunks): linear, the backward's map."""
+        B, R = self.B_v, self.R_v
+        if self.nprod != 6:
+            M = self.chunks().float().sum(1)
+            B, R = M[..., :TILE], M[..., TILE:TILE + _SLOTS]
+        return (tile_einsum("nos,pnsw->pnow", B, x)
+                + tile_einsum("nok,pnkw->pnow", R, N))
 
     def chunks(self) -> torch.Tensor:
-        """The constant's three bf16 chunks, (nv, 3, T, KP), unpacked from
+        """The constant's bf16 chunks, (nv, nc, T, KP), unpacked from
         ``Bc_k`` (:func:`.completion.core_unpack`)."""
         return core_unpack(self.Bc_k, TILE, _ROWS_KP)
 
     def split_exact(self, x, N, drop=None):
-        """:func:`.completion.tc_exact` of the kernel: the exact sum of its
-        six chunk products and its bound, per output (p, n, T, W)."""
+        """:func:`.completion.tc_exact` of the kernel at its grade: the
+        exact sum of its chunk products and its bound, per output (p, n,
+        T, W)."""
         data = torch.cat([x, N, torch.zeros_like(N)], dim=2)
         return tc_exact(self.chunks().unbind(1), data.transpose(2, 3),
                         lambda m, v: tile_einsum("nok,pnwk->pnow", m, v),
-                        drop)
+                        drop, self.nprod)
 
     def _kernel(self, x, N):
         p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
@@ -768,7 +792,7 @@ class RowsFinal(nn.Module):
         y = torch.empty_like(x)
         _launch("rows_final", (
             x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), y.data_ptr(),
-            p, n, W // TILE, self.Bc_k.shape[0]), x.device)
+            p, n, W // TILE, self.Bc_k.shape[0], self.nprod), x.device)
         return y
 
     def forward(self, x, N):

@@ -26,10 +26,12 @@ autograd rule for all of them.
     of their own: ``moments2d_naf`` (``moments2d.cu``: pass 1 with the
     dim-A carry solve inside) and ``bsolve`` (the dim-B carry glue and its
     solve); the headline benchmark's bandwidth probe is ``copy``. The
-    reduced precision grades (default, px3, px4) run ``final2d_split`` and
-    ``completion.cu``'s ``completion_split`` (split-bf16 products on the
-    tensor cores); the ``scripts/`` probes' studies are ``split_mm``'s
-    three entries (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``),
+    reduced precision grades (default, px3, px4) run ``final2d_split``,
+    ``completion_split`` (``completion``'s tensor-core kernel at the grade,
+    a source of its own so that both build in parallel) and
+    ``rows_final`` (its ``nprod`` argument); the
+    ``scripts/`` probes' studies are ``split_mm``'s three entries
+    (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``),
     ``ozaki``'s two (``ozaki_i8``, the int8 Ozaki dual completion, and
     ``dual_px6``, its six-product bf16 twin) and ``gemm_pair``'s two
     (``gemm_i8``, ``gemm_bf16``: one GEMM tiling, two products).
@@ -88,10 +90,10 @@ SIGNATURES = {
                        ("completion_rot", 7, 9),
                        ("completion_rot_epi", 12, 10),
                        ("completion_rot_tails", 6, 7),
-                       ("completion_traced", 5, 3),
-                       ("completion_split", 4, 5)),
+                       ("completion_traced", 5, 3)),
+    "completion_split": _sig("completion_split", ("completion_split", 4, 5)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
-    "rows_final": _sig("rows_final", ("rows_final", 4, 4)),
+    "rows_final": _sig("rows_final", ("rows_final", 4, 5)),
     "fir_band": _sig("fir_band", ("fir_band", 3, 7)),
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),

@@ -17,8 +17,8 @@ A pair (i, j) multiplies chunk i of the constant by chunk j of the data;
 sums them in.
 
 Every split contraction of the port is [image rows | carry rows]: 128
-samples of a tile, then its carries (the 8 slots of ``final2d_split``, the
-sl slots of ``completion_split``). The carry rows take
+samples of a tile, then its carries (the 8 slots of ``final2d_split`` and
+``rows_final``, the sl slots of ``completion_split``). The carry rows take
 :func:`carry_nprod` products — never fewer than 3 — because their terms
 cancel: the carry matrices' columns are large and alternate in sign, so
 one bf16 product loses 2^-9 of terms far larger than the result. With one
@@ -28,8 +28,10 @@ peak; with three, well inside it (``tests/torch_split_study.py`` measures
 both). The carry rows are 8 of 136 (at most 56 of 184), so the extra
 products cost little.
 
-On the card the split grades run on bf16 tensor cores (``csrc/split.cuh``),
-as does the unrotated px6 completion (six products, ``csrc/wgmma.cuh``):
+On the card the split grades run on bf16 tensor cores (``csrc/split.cuh``'s
+``mma.sync`` for ``final2d_split``; ``csrc/wgmma.cuh``'s core, templated
+on the product count, for ``completion_split`` and ``rows_final``, as for
+the px6 completions' six products):
 a bf16 product is exact in float32, so each chunk product accumulates in
 float32 as on the TPU. The twins here upcast the bf16 chunks to float32 and
 take float32 products, the same arithmetic in another summation order.

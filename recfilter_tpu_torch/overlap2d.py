@@ -414,15 +414,18 @@ class FusedRowsPx(nn.Module):
         solve (tiny):     N = CM·b — banded from 64 tiles  torch, float64
         pass 2 (read x):  y = Btot·x + Rhat·N, write y     rows_final kernel
 
-    ``forward`` runs the CUDA kernels for CUDA tensors (their plain twins
-    for CPU tensors); ``forward_plain`` runs the twins on any device.
-    Raises ``NotImplementedError`` where the JAX package declines the rows
-    kernels (:func:`_rows_decline`: extents that are not multiples of 128,
-    more than 256 tiles, more than 8 carries): the router runs the einsum
-    pass there (``dimfuse.FusedAxisPass``)."""
+    ``nprod`` is ``rows_final``'s grade (6, 4, 3 or 1:
+    :class:`.kernels.final2d.RowsFinal`); ``rows_tails`` sums in fp64 at
+    every grade, at least as close to the oracle as the JAX package's
+    split tails. ``forward`` runs the CUDA kernels for CUDA tensors (their
+    plain twins for CPU tensors); ``forward_plain`` runs the twins on any
+    device. Raises ``NotImplementedError`` where the JAX package declines
+    the rows kernels (:func:`_rows_decline`: extents that are not
+    multiples of 128, more than 256 tiles, more than 8 carries): the
+    router runs the einsum pass there (``dimfuse.FusedAxisPass``)."""
 
     def __init__(self, scans: Sequence[Scan], L: int,
-                 trailing: Sequence[int], border: str):
+                 trailing: Sequence[int], border: str, nprod: int = 6):
         super().__init__()
         T = TILE
         trailing = tuple(int(e) for e in trailing)
@@ -445,7 +448,7 @@ class FusedRowsPx(nn.Module):
         G_cat = np.concatenate([np.asarray(g) for g in mats.G], axis=1)
         R_cat = np.concatenate([np.asarray(r) for r in mats.Rhat], axis=2)
         self.tails = k2d.RowsTails(G_cat, n)
-        self.final = k2d.RowsFinal(mats.Btot, R_cat, n)
+        self.final = k2d.RowsFinal(mats.Btot, R_cat, n, nprod)
         # carry solve, float64 (module docstring): banded where the chain
         # matrix is (n ≥ 64 tiles, a decaying filter), else dense
         CM = dimfuse.combined_solve_matrix(mats, n)

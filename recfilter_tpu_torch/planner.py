@@ -29,15 +29,19 @@ kernel launches, and ``overlap_k`` runs its HIGHEST kernel pair.
 The reduced grades ``px3``, ``px4`` and ``default`` (the throughput mode)
 are the JAX package's split-bf16 product counts 3, 4 and 1
 (``kernels/split.py``), on bf16 tensor cores: the 3-touch 2-D executor
-(``overlap2d.Fused2DPx`` on ``final2d_split``) and the unrotated last-axis
-pass (``dimfuse.LastAxisPass`` on ``completion_split``; a call on fewer
-than 8 lines takes its einsum form at the grade's products, as in the JAX
-package). Every other route raises ``NotImplementedError`` at those
-grades, naming ROADMAP Queue 1 item 4; no route runs another grade in
-their place. The routes are allowed where the grade enters:
-``dimfuse.fused_filter_module``, ``api.backend_module``
-(:data:`SPLIT_BACKENDS`), ``overlap2d.fused_2d_module`` and
-``LastAxisPass`` admit those two and refuse the rest.
+(``overlap2d.Fused2DPx`` on ``final2d_split``), volumes (the rows pass
+``overlap2d.FusedRowsPx`` on ``rows_final`` at the grade, then the 2-D
+executor), the rows pass of the per-axis loop at px3 and px4 (at
+``default`` the JAX package runs its einsum pass there), and the
+unrotated last-axis pass (``dimfuse.LastAxisPass`` on ``completion_split``;
+a call on fewer than 8 lines takes its einsum form at the grade's
+products, as in the JAX package). Every other route raises
+``NotImplementedError`` at those grades, naming ROADMAP Queue 1 item 4;
+no route runs another grade in their place. The routes are allowed where
+the grade enters: ``dimfuse.fused_filter_module``,
+``api.backend_module`` (:data:`SPLIT_BACKENDS`),
+``overlap2d.fused_2d_module`` and ``LastAxisPass`` admit those and refuse
+the rest.
 
 The split-einsum grades ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` (TPU
 HIGH: three bf16 products) are the JAX package's ``_split_einsum``: with
@@ -59,8 +63,8 @@ from typing import List, Optional
 _SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default",
                          "high", "f32x3", "f32x4", "f32x6", "f32x9")
 
-# The reduced grades: split-bf16 products on the 2-D executor and the
-# last-axis pass only (module docstring).
+# The reduced grades: split-bf16 products on the 2-D executor, the rows
+# pass and the last-axis pass only (module docstring).
 SPLIT_GRADES = ("px3", "px4", "default")
 SPLIT_ITEM = "ROADMAP Queue 1 item 4"
 # The backends (besides ``einsum``) a reduced grade runs on: ``overlap_k``
@@ -75,7 +79,8 @@ def refuse_split(matmul_precision: str, route: str) -> None:
         raise NotImplementedError(
             f"{route} has no split-bf16 form at matmul_precision="
             f"{matmul_precision!r}: {SPLIT_ITEM} (the reduced grades run "
-            "the 3-touch 2-D executor and the unrotated last-axis pass)")
+            "the 3-touch 2-D executor, volumes, the rows pass at px3 and px4 "
+            "and the unrotated last-axis pass)")
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
             "scan", "oracle")

@@ -304,22 +304,24 @@ def test_audio_filter_on_the_card(dev):
     assert F.profile(2, device=dev) > 0  # prints Msamples/s
 
 
+@pytest.mark.parametrize("nprod", [6, 4, 3, 1])
 @pytest.mark.parametrize("kind", ["uniform", "clamp"])
 @pytest.mark.parametrize("p,n,nl", [(2, 3, 2), (1, 2, 5), (3, 2, 1),
                                     (2, 5, 1), (1, 2, 512)])
-def test_rows_kernels_match_twins(kind, p, n, nl, dev):
+def test_rows_kernels_match_twins(kind, p, n, nl, nprod, dev):
     """rows_tails and rows_final against their twins:
     max|kernel − twin| ≤ 1e-5·max|twin|, pad slots written as zeros;
-    rows_final (six split-bf16 products on the tensor cores) also within
-    ``split_exact``'s bound of its products' exact sum at every output.
-    (1, 2, 512) is V1's rows pass (256³); (3, 2, 1) and (2, 5, 1) walk
-    fewer 64-lane items (12, 20) than the card has SMs, clamp with three
-    matrix variants."""
+    rows_final (the grade's split-bf16 products on the tensor cores: six
+    at px6; 4, 3, 1 on x and at least three on the carries at px4, px3,
+    default) also within ``split_exact``'s bound of its products' exact
+    sum at every output. (1, 2, 512) is V1's rows pass (256³); (3, 2, 1)
+    and (2, 5, 1) walk fewer 64-lane items (12, 20) than the card has
+    SMs, clamp with three matrix variants."""
     rng = np.random.default_rng(p * 100 + n * 10 + nl)
     K = 6
     tails = tk2d.RowsTails(_stack(kind, K, T, n, rng), n).to(dev)
     fin = tk2d.RowsFinal(_stack(kind, T, T, n, rng, 0.1),
-                         _stack(kind, T, K, n, rng), n).to(dev)
+                         _stack(kind, T, K, n, rng), n, nprod).to(dev)
     x = torch.from_numpy(rng.standard_normal((p, n, T, nl * T)).astype(
         np.float32)).to(dev)
     tl.reset_launches()
@@ -1726,9 +1728,13 @@ def test_final2d_split_matches_twin(kind, nprod, dev):
 
 @pytest.mark.parametrize("kind", list(STACKS))
 @pytest.mark.parametrize("nprod", [1, 3, 4])
-@pytest.mark.parametrize("S,q", [(6, 300), (29, 77), (56, 8)])
+@pytest.mark.parametrize("S,q", [(6, 300), (29, 77), (56, 8), (2, 306),
+                                 (13, 50), (40, 64)])
 def test_completion_split_matches_twin(kind, nprod, S, q, dev):
-    """``completion_split`` within 1e-5 of its twin's peak."""
+    """``completion_split`` (the tensor-core completion at the grade: one
+    to four carry k16 steps, ragged 64-line items, one and three matrix
+    variants) within 1e-5 of its twin's peak, and within ``split_exact``'s
+    bound of its chunk products' exact sum at every output."""
     rng = np.random.default_rng(S)
     n = 3
     B = _stack(kind, T, T, n, rng)
@@ -1744,6 +1750,7 @@ def test_completion_split_matches_twin(kind, nprod, S, q, dev):
     torch.cuda.synchronize()
     assert tl.LAUNCHES == _only(completion_split=1)
     assert _rel(y, mod.plain(x, N)) <= 1e-5
+    assert _within(y, *mod.split_exact(x, N))
 
 
 def _probe_inputs(dev, L=256, n=3, S=6, seed=0):
@@ -1816,6 +1823,46 @@ def test_headline_at_the_reduced_grades_on_the_card(precision, bound, dev):
     assert tl.LAUNCHES == _only(moments2d=1, final2d_split=1)
     want = scan_core.oracle_apply(F.spec, img.astype(np.float64))
     assert np.abs(y - want).max() <= bound * np.abs(want).max()
+
+
+@pytest.mark.parametrize("precision,bound", [("px3", 1e-4), ("px4", 8e-5),
+                                             ("default", 3e-2)])
+def test_volume_and_rows_pass_at_the_reduced_grades_on_the_card(
+        precision, bound, dev):
+    """A 128 × 128 × 256 σ=5 Gaussian volume (clamp) at each reduced grade
+    through ``as_func``: ``rows_tails``, ``rows_final`` at the grade, then
+    ``moments2d`` and ``final2d_split``; at px3 and px4 a y-only filter on
+    256 × 384 (the per-axis loop's rows pass): ``rows_tails`` and
+    ``rows_final``; each within the grade's bound of the f64 oracle."""
+    rng = np.random.default_rng(4)
+    vol = (rng.standard_normal((128, 128, 256)) * 0.01).astype(np.float32)
+    dz, dy, dx = rft.Dim("z", 128), rft.Dim("y", 128), rft.Dim("x", 256)
+    F = rft.RecFilter("Volume")
+    F.set_clamped_image_border()
+    F[dz, dy, dx] = vol
+    for d in (+dz, -dz, +dy, -dy, +dx, -dx):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split(dz, 128, dy, 128, dx, 128)
+    F.set_plan(matmul_precision=precision)
+    cases = [(F, vol, _only(rows_tails=1, rows_final=1, moments2d=1,
+                            final2d_split=1))]
+    if precision != "default":
+        img = (rng.standard_normal((256, 384)) * 0.01).astype(np.float32)
+        dy, dx = rft.Dim("y", 256), rft.Dim("x", 384)
+        G = rft.RecFilter("YOnly")
+        G[dy, dx] = img
+        G.add_filter(+dy, rft.gaussian_weights(5.0, 3))
+        G.add_filter(-dy, rft.gaussian_weights(5.0, 3))
+        G.split(dy, 128)
+        G.set_plan(matmul_precision=precision)
+        cases.append((G, img, _only(rows_tails=1, rows_final=1)))
+    for H, x, launches in cases:
+        fn = H.as_func()
+        tl.reset_launches()
+        y = fn(torch.from_numpy(x).to(dev)).cpu().numpy()
+        assert tl.LAUNCHES == launches
+        want = rft.oracle_apply(H.spec, x.astype(np.float64))
+        assert np.abs(y - want).max() <= bound * np.abs(want).max()
 
 
 def _dual_inputs(dev, W=512, seed=0):

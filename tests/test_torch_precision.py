@@ -410,17 +410,27 @@ def _stencil_route(g):
 ROUTES["final2d_stencil"] = _stencil_route
 
 
+# the routes that have a split form now, and the grades they run at: the
+# last-axis einsum form (fewer than 8 lines: the JAX package's split
+# einsum at the grade's products), volumes (rows_final, then
+# final2d_split) and the per-axis loop's rows pass at px3 and px4 (at
+# default the JAX package runs the einsum pass there, which still raises)
+RUNS = {"einsum form (lines)": (lambda: _x_only(4, 256), GRADES),
+        "volumes": (_volume, GRADES),
+        "rows pass": (lambda: _y_only(512, 256), ["px3", "px4"])}
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("grade", GRADES)
 def test_routes_without_a_split_form_raise(route, grade):
     """No route runs another grade, another device or a twin in place of
     a reduced grade: each without a split form names the ROADMAP item.
-    The last-axis einsum form (fewer than 8 lines) has one now, the JAX
-    package's split einsum at the grade's products: it runs, within the
-    grade's bound of the oracle."""
-    if route == "einsum form (lines)":
-        F = _x_only(4, 256)
-        img = _img(4, 256)
+    The routes of :data:`RUNS` have one at their grades: each runs there,
+    within the grade's bound of the oracle."""
+    make, grades = RUNS.get(route, (None, ()))
+    if grade in grades:
+        F = make()
+        img = F._image
         got = _as_func(F, grade)(torch.from_numpy(img)).numpy()
         want = tsc.oracle_apply(F.spec, img.astype(np.float64))
         assert np.abs(got - want).max() <= BOUNDS[grade] * np.abs(want).max()

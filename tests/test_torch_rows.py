@@ -249,6 +249,121 @@ def test_rows_final_split_sums_match_jax(clamp):
     _check(ref.numpy(), want)
 
 
+# ------------------------------------------- rows_final at the reduced grades
+
+GRADE_BOUNDS = {"px3": 1e-4, "px4": 8e-5, "default": 3e-2}
+NPROD_OF = {"px3": 3, "px4": 4, "default": 1}
+
+
+def _rows_f64(m, R, x, NA_t):
+    """``rows_final``'s function in float64 from the per-tile stacks."""
+    B = np.asarray(m.Btot, np.float64)
+    R8 = tk2d._pad_slots(R)
+    pick = np.minimum(np.arange(N), B.shape[0] - 1)
+    return (np.einsum("aos,pasw->paow", B[pick], x.astype(np.float64))
+            + np.einsum("aok,pakw->paow", R8[pick], NA_t.astype(np.float64)))
+
+
+@pytest.mark.parametrize("grade", list(GRADE_BOUNDS))
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_twin_matches_jax_at_the_grades(clamp, grade):
+    """``RowsFinal.plain`` at nprod 3, 4 and 1 (the grade's chunk products
+    in float32) against ``rows_final_px(..., nprod=k)`` in interpret mode:
+    within 1e-5 of the JAX kernel's peak (summation order). At one
+    product the port takes three on the carry rows, where the JAX kernel
+    takes one (``split.carry_nprod``): the product is linear, so there the
+    twin is held to ``rows_final_px`` at one product without the carries
+    plus ``rows_final_px`` at three on the carries alone, and, as a
+    control, lies outside that limit of the JAX kernel at one product;
+    the two then agree within twice the grade's bound (3e-2 of the
+    peak), each lies within the bound of the float64 product, and the
+    twin the closer."""
+    nprod = NPROD_OF[grade]
+    m, _, R = _rows_mats(clamp)
+    x = _img(P, N, T, NL * T, seed=2, scale=1.0)
+    NA_t = _img(P, N, 8, NL * T, seed=3, scale=1.0)
+    fin = tk2d.RowsFinal(m.Btot, R, N, nprod)
+    got = fin(torch.from_numpy(x), torch.from_numpy(NA_t)).numpy()
+
+    def jax_rows(xk, nk, k):
+        return np.asarray(jk2d.rows_final_px(xk, m.Btot, R, nk, nprod=k,
+                                             interpret=True))
+
+    if nprod == 1:
+        want = jax_rows(x, 0 * NA_t, 1) + jax_rows(0 * x, NA_t, 3)
+    else:
+        want = jax_rows(x, NA_t, nprod)
+    lim = 1e-5 * np.abs(want).max()
+    assert np.abs(got - want).max() <= lim
+    if nprod == 1:
+        j1 = jax_rows(x, NA_t, 1)
+        y64 = _rows_f64(m, R, x, NA_t)
+        bound = GRADE_BOUNDS[grade] * np.abs(y64).max()
+        assert np.abs(got - j1).max() > lim
+        assert np.abs(got - j1).max() <= 2 * bound
+        assert np.abs(j1 - y64).max() <= bound
+        assert np.abs(got - y64).max() < np.abs(j1 - y64).max()
+
+
+@pytest.mark.parametrize("grade", list(GRADE_BOUNDS))
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_constant_at_the_grades(clamp, grade):
+    """At the reduced grades ``RowsFinal.Bc_k`` is ``core_pack`` of each
+    variant's TWO chunks of [Btot | Rhat | 0] (the carry rows' grade,
+    ``completion.grade_chunks``): the first two of px6's three, so B takes
+    73.7 KB of the kernel's shared memory against 110.6 KB."""
+    m, _, R = _rows_mats(clamp)
+    fin = tk2d.RowsFinal(m.Btot, R, N, NPROD_OF[grade])
+    C = _rows_chunks(m, R)[:, :2]
+    assert fin.Bc_k.shape == (3 if clamp else 1, 2, T * 144)
+    assert fin.Bc_k.dtype == torch.bfloat16
+    assert torch.equal(fin.Bc_k, tcomp.core_pack(C.contiguous()))
+    assert torch.equal(fin.chunks(), C)
+    assert fin.Bc_k.numel() * 2 // fin.Bc_k.shape[0] == 73728
+
+
+def _grade_model(Mc, data, ein, nprod):
+    """``_tc_model`` at grade ``nprod``: the carry slab's
+    ``carry_nprod(nprod)`` products, then the signal slab's ``nprod``, in
+    the kernel's k16 steps, each step's terms summed exactly and added to a
+    float32 accumulator with one rounding."""
+    cn = tsplit.carry_nprod(nprod)
+    ds = [c.double() for c in tsplit.split_data(data, tsplit.nchunks(cn))]
+    ms = [c.double() for c in Mc]
+    acc = None
+    for k0s, g in ((range(T, data.shape[-1], 16), cn), (range(0, T, 16),
+                                                        nprod)):
+        for i, j in tsplit.prods(g):
+            for k0 in k0s:
+                t = ein(ms[i][..., k0:k0 + 16], ds[j][..., k0:k0 + 16])
+                acc = t.float() if acc is None else (acc.double() + t).float()
+    return acc
+
+
+@pytest.mark.parametrize("grade", list(GRADE_BOUNDS))
+@pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
+def test_rows_final_split_sums_at_the_grades(clamp, grade):
+    """``RowsFinal.split_exact`` at the grade: a model of the kernel's
+    fp32 sums (``_grade_model``) lies inside its per-output bound at every
+    output, and the model equals the twin within 1e-5 of its peak (the
+    same chunk products summed in another order); the sum with the
+    signal's largest pair (0, 0) left out lies outside the bound."""
+    nprod = NPROD_OF[grade]
+    m, _, R = _rows_mats(clamp)
+    xt = torch.from_numpy(_img(P, N, T, NL * T, seed=2, scale=1.0))
+    Nt = torch.from_numpy(_img(P, N, 8, NL * T, seed=3, scale=1.0))
+    fin = tk2d.RowsFinal(m.Btot, R, N, nprod)
+    ref, bound = fin.split_exact(xt, Nt)
+    data = torch.cat([xt, Nt, torch.zeros_like(Nt)], dim=2).transpose(2, 3)
+    model = _grade_model(fin.chunks().unbind(1), data, lambda mm, v:
+                         tcomp.tile_einsum("nok,pnwk->pnow", mm, v), nprod)
+    assert bool(((model.double() - ref).abs() <= bound).all())
+    twin = fin.plain(xt, Nt)
+    assert (model - twin).abs().max() <= 1e-5 * twin.abs().max()
+    assert bool(((model.double() - fin.split_exact(xt, Nt, (0, 0))[0])
+                 .abs() > bound).any())
+
+
 @pytest.mark.parametrize("clamp", [False, True], ids=["zero", "clamp"])
 def test_rows_tails_warp_order_matches_the_twin(clamp):
     """The kernel's summation order (each warp's 16 rows, then the warps
@@ -396,9 +511,10 @@ ROUTED = {
 }
 
 
-def _jax_route(js, x, monkeypatch):
-    """Run the JAX package's ``apply_filter_fused`` (px6) with spies on
-    its executors: the list of (executor, axis) it ran, and its output."""
+def _jax_route(js, x, monkeypatch, precision="px6"):
+    """Run the JAX package's ``apply_filter_fused`` (at ``precision``)
+    with spies on its executors: the list of (executor, axis) it ran, and
+    its output."""
     calls = []
 
     def spy(name, fn, axis_arg):
@@ -417,7 +533,7 @@ def _jax_route(js, x, monkeypatch):
     monkeypatch.setattr(jdf, "fused_dim_pass",
                         spy("FusedLastAxis", jdf.fused_dim_pass, 1))
     y = jdf.apply_filter_fused(js, jnp.asarray(x), tile_default=128,
-                               matmul_precision="px6")
+                               matmul_precision=precision)
     return calls, np.asarray(y)
 
 
@@ -539,6 +655,83 @@ def test_non_last_axis_at_highest_raises(monkeypatch):
     got = mod(torch.from_numpy(x))
     _check(got.numpy(), want)
     _check(got.numpy(), jsc.oracle_apply(js, x.astype(np.float64)))
+
+
+# The routes with a split form at the reduced grades (ROUTED's filters):
+# volumes at px3, px4 and default (rows_final, then final2d_split); the
+# per-axis loop's rows passes at px3 and px4 only
+GRADED = [(case, grade) for case in ROUTED for grade in GRADE_BOUNDS
+          if grade != "default" or ROUTED[case][1] == "volume"]
+
+
+@pytest.mark.parametrize("case,grade", GRADED)
+def test_route_matches_jax_and_oracle_at_the_grades(case, grade,
+                                                    monkeypatch):
+    """At a reduced grade each filter takes the JAX package's route — the
+    same executors on the same axes, in the same order (spied) — each
+    kernel stage at the grade, and lies within the grade's bound of the
+    f64 oracle and within twice it of the JAX package's output."""
+    make, route, stages = ROUTED[case]
+    js, ts = _both(make)
+    x = _img(*[d.extent for d in js.dims], seed=len(case))
+    calls, want = _jax_route(js, x, monkeypatch, grade)
+    mod = tdf.fused_filter_module(ts, grade)
+    parts = list(mod.stages) if isinstance(mod, tdf.StagedPass) else [mod]
+    assert getattr(mod, "route", None) == route
+    assert [type(m).__name__ for m in parts] == stages
+    assert [name for name, _ in calls] == stages
+    for (_, ax), m in zip(calls, parts):
+        if isinstance(m, to2.FusedRowsPx):
+            assert m.L == js.dims[ax].extent
+            assert m.final.nprod == NPROD_OF[grade]
+        if isinstance(m, to2.Fused2DPx):
+            assert m.nprod == NPROD_OF[grade]
+    got = mod(torch.from_numpy(x)).numpy().astype(np.float64)
+    oracle = jsc.oracle_apply(js, x.astype(np.float64))
+    bound = GRADE_BOUNDS[grade] * np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= bound
+    assert np.abs(got - want).max() <= 2 * bound
+
+
+@pytest.mark.parametrize("grade", list(GRADE_BOUNDS))
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+def test_fused_rows_px_matches_jax_at_the_grades(border, grade):
+    """``FusedRowsPx(nprod).forward_plain`` (fp64 tails, the grade's
+    ``rows_final`` twin) on the σ=5 Gaussian along y of 256 × 384 against
+    the JAX package's ``fused_rows_px`` at the grade (its tails split too)
+    and the oracle: within the grade's bound of the oracle, twice it of
+    the JAX package."""
+    x = _img(256, 384, seed=5)
+    js, ts = _gauss(jspec, 0), _gauss(tspec, 0)
+    nprod = NPROD_OF[grade]
+    want = jo2.fused_rows_px(jnp.asarray(x), 0, js, border, nprod, True)
+    assert want is not None
+    mod = to2.FusedRowsPx(ts, 256, (384,), border, nprod)
+    got = mod.forward_plain(torch.from_numpy(x)).numpy()
+    spec = jspec.FilterSpec("R", (jspec.Dim("y", 256), jspec.Dim("x", 384)),
+                            tuple(js), border=border)
+    oracle = jsc.oracle_apply(spec, x.astype(np.float64))
+    bound = GRADE_BOUNDS[grade] * np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= bound
+    assert np.abs(got - np.asarray(want)).max() <= 2 * bound
+
+
+def test_reduced_grade_routes_without_a_kernel_raise(monkeypatch):
+    """Where the JAX package leaves the kernels at a reduced grade the
+    port raises, naming the item: a y-only filter at ``default`` (the JAX
+    package's einsum pass, spied), and a volume whose trailing pair
+    declines (the JAX package's rotation chain on the pair, ROADMAP Queue
+    2 item 3)."""
+    js, ts = _both(_y_only("zero"))
+    x = _img(*[d.extent for d in js.dims], seed=3)
+    names, _ = _jax_chain_route(js, x, monkeypatch, "default")
+    assert names == ["FusedAxisPass"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        tdf.fused_filter_module(ts, "default")
+    _, ts = _both(REFUSED["volume-pair-declines"][0])
+    for grade in GRADE_BOUNDS:
+        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+            tdf.fused_filter_module(ts, grade)
 
 
 @pytest.mark.parametrize("case", ["volume-clamp", "y-only-clamp"])

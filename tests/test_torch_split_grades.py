@@ -239,3 +239,90 @@ def test_every_grade_is_ported():
     assert not hasattr(planner, "_UNPORTED_PRECISIONS")
     with pytest.raises(ValueError):
         planner.check_precision("f32x5")
+
+
+# ------------------------------- the tensor-core kernels at the reduced grades
+
+T = 128
+
+
+@pytest.mark.parametrize("sl", [8, 56])
+@pytest.mark.parametrize("nprod", [1, 3, 4, 6])
+def test_tc_exact_is_the_grades_pair_sum(nprod, sl):
+    """``completion.tc_exact(..., nprod)`` pinned to a float64 sum of the
+    grade's pairs: the carry rows (k ≥ 128) at ``split.carry_nprod`` (at
+    least three), the signal rows at ``nprod``, the data split into the
+    carry grade's chunks (the signal's are their first ones); ``drop``
+    takes one pair out of both slabs; and a float32 model of the kernel's
+    k16 steps in its order lies within the bound at every output."""
+    from recfilter_tpu_torch.kernels import completion as tc
+
+    rng = np.random.default_rng(nprod + sl)
+    kp = tc.tc_depth(sl)
+    M = rng.standard_normal((T, kp)) * 10.0 ** rng.integers(-3, 2, (T, kp))
+    M[:, T + sl - 3:] = 0.0  # a zero-padded contraction
+    cn = split.carry_nprod(nprod)
+    nc = split.nchunks(cn)
+    Mc = split.split_const(M, nc)
+    data = torch.from_numpy(rng.standard_normal((5, 3, kp)).astype(
+        np.float32))
+    data[..., T + sl - 3:] = 0.0
+    ein = lambda m, v: torch.einsum("ok,qnk->qno", m, v)  # noqa: E731
+    ref, bound = tc.tc_exact(Mc, data, ein, nprod=nprod)
+    ms = [c.double() for c in Mc]
+    ds = [c.double() for c in split.split_data(data, nc)]
+    parts = {}
+    for sl_, g in ((slice(T, kp), cn), (slice(0, T), nprod)):
+        for i, j in split.prods(g):
+            t = ein(ms[i][:, sl_], ds[j][..., sl_])
+            parts[i, j] = parts.get((i, j), 0) + t
+    want = sum(parts.values())
+    peak = want.abs().max()
+    assert (ref - want).abs().max() <= 1e-13 * peak
+    ref_d, _ = tc.tc_exact(Mc, data, ein, (0, 0), nprod)
+    assert (ref_d - (want - parts[0, 0])).abs().max() <= 1e-13 * peak
+    acc = None
+    for k0s, g in ((range(T, kp, 16), cn), (range(0, T, 16), nprod)):
+        for i, j in split.prods(g):
+            for k0 in k0s:
+                t = ein(ms[i][:, k0:k0 + 16], ds[j][..., k0:k0 + 16])
+                acc = t.float() if acc is None else (acc.double() + t).float()
+    assert bool(((acc.double() - ref).abs() <= bound).all())
+    assert bool((bound > 0).all()) and bound.max() <= 1e-5 * peak
+
+
+@pytest.mark.parametrize("S", [6, 29, 56])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_completion_split_constant_is_core_pack(nprod, clamp, S):
+    """``CompletionSplit.Bc_k`` — the constant ``completion_split`` (the
+    tensor-core completion at the grade) stages — is ``core_pack`` of each
+    variant's two bf16 chunks of the split ``[Btot | Rcat | 0]`` (KP =
+    ``tc_depth(sl)``), the variants [interior, first, last] of a clamp
+    stack; its twin sums the grade's chunk products (the carry rows at
+    three or more), the kernel's function."""
+    from recfilter_tpu_torch.kernels import completion as tc
+
+    rng = np.random.default_rng(S + nprod)
+    n = 4
+    nv = n if clamp else 1
+    B = rng.standard_normal((nv, T, T)) * 0.1
+    R = rng.standard_normal((nv, T, S))
+    mod = tc.CompletionSplit(B, R, n, nprod)
+    sl, kp = tc.slots_for(S), tc.tc_depth(tc.slots_for(S))
+    pick = [1, 0, n - 1] if clamp else [0]
+    M = np.zeros((len(pick), T, kp))
+    M[..., :T] = B[pick]
+    M[..., T:T + S] = R[pick]
+    C = torch.stack(split.split_const(M, 2), dim=1)
+    assert mod.Bc_k.dtype == torch.bfloat16
+    assert mod.Bc_k.shape == (len(pick), 2, T * kp)
+    assert torch.equal(mod.Bc_k, tc.core_pack(C))
+    assert torch.equal(mod.chunks(), C)
+    x = torch.from_numpy(rng.standard_normal((9, n, T)).astype(np.float32))
+    N = torch.zeros((n, sl, 9))
+    N[:, :S] = torch.from_numpy(rng.standard_normal((n, S, 9)).astype(
+        np.float32))
+    ref, _ = mod.split_exact(x, N)
+    got = mod(x, N)
+    assert (got.double() - ref).abs().max() <= 1e-5 * ref.abs().max()

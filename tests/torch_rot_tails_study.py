@@ -44,7 +44,15 @@ F  The rows pass (a scan on a non-last axis): ``rows_tails`` and
    products of the tensor-core kernel over 128 + K (the fp32 bound of the
    earlier kernel beside it), ``rows_tails``'s its
    fp64 MACs at 67 TFLOP/s. Before them, each volume's whole call as E
-   measures it.
+   measures it. Where the checkout's ``RowsFinal`` takes ``nprod``, each
+   volume's whole call also at px4, px3 and ``default``, and
+   ``rows_final`` at V1 at those grades (bound: the
+   bytes and the grade's bf16 products, nprod on x and at least three on
+   N's K rows; yardstick the ``matmul`` by the grade's constant, the sum
+   of its chunks). Then ``completion_split`` at E (64 × 32,768, clamp,
+   three matrix variants) at px3, px4 and ``default``, beside one batched
+   ``matmul`` of [x, Nᵀ] by the grade's [Btotᵀ; Rᵀ], as ``chip_smoke.py``
+   phase 3m times it.
 G  Output digests: the sha256 of the outputs of ``completion`` and
    ``completion_epi`` (A's kernel-pass shape, seeded matrices),
    ``completion_traced`` (L1's x pass) and the rows kernels (V1) on seeded
@@ -445,6 +453,13 @@ def rows_of(rft, mod):
 
 def rows_pass(torch, np, rft, dev, row, whole, nbytes):
     """Part F (module docstring)."""
+    import inspect
+
+    from recfilter_tpu_torch import dimfuse as tdf
+    from recfilter_tpu_torch.kernels import final2d as k2d
+
+    # the checkout runs the rows pass at the reduced grades
+    grades = "nprod" in inspect.signature(k2d.RowsFinal).parameters
     for label, shape, clamp in (("V1", (256, 256, 256), False),
                                 ("V2", (512, 512, 512), True)):
         F = gauss_volume(rft, np, shape, clamp)
@@ -452,6 +467,10 @@ def rows_pass(torch, np, rft, dev, row, whole, nbytes):
         rows = rows_of(rft, mod)
         x = torch.from_numpy(F._image).to(dev)
         whole(f"{label} whole call {shape}", mod, x)
+        for g in ("px4", "px3", "default") if grades else ():
+            F.set_plan(matmul_precision=g)
+            whole(f"{label} whole call {shape} {g}", F.as_func(), x)
+        F.set_plan(matmul_precision="px6")
         with torch.no_grad():
             X4 = rows.tile(x)
             N = rows.carries(X4, rows.tails.plain)
@@ -469,7 +488,52 @@ def rows_pass(torch, np, rft, dev, row, whole, nbytes):
             (lambda *a_: torch.matmul(A0, XN)) if one else None,
             "matmul([Btot | Rhat], [x; N])", rate=PEAK_BF16,
             fp32_flops=2.0 * (128 + K) * vox)
+        # rows_final at the reduced grades, where the checkout has them
+        # (its RowsFinal takes nprod): bound by the bytes and the grade's
+        # bf16 products; yardstick the matmul by the grade's constant
+        if label == "V1" and grades:
+            scans = [s_ for s_ in F.spec.scans if s_.axis == 0]
+            for g, n_i in (("px4", 4), ("px3", 3), ("default", 1)):
+                fin = rft.FusedRowsPx(scans, rows.L, rows.trailing,
+                                      F.spec.border, n_i).final.to(dev)
+                Ag = fin.chunks()[0, :, :, :128 + 8].float().sum(0)
+                row(f"{label} rows_final {g} {tuple(X4.shape)}", fin,
+                    (X4, N), nbytes(X4, N[:, :, :K], X4),
+                    2.0 * vox * (128 * n_i + K * max(n_i, 3)),
+                    lambda *a_, A=Ag: torch.matmul(A, XN),
+                    "matmul(grade's [Btot | Rhat], [x; N])", ref=lambda _,
+                    f=fin: f._twin(X4, N), rate=PEAK_BF16)
         del X4, N, XN, rows, mod, x, F
+    # completion_split at E (64 × 32,768, clamp: three matrix variants) at
+    # px3, px4 and default, beside one matmul of [x, Nᵀ] by the grade's
+    # [Btotᵀ; Rᵀ] (the sum of its chunks; E's variants as a per-tile
+    # batch), as chip_smoke.py phase 3m times it
+    w = rft.gaussian_weights(5.0, 3)
+    scans = [rft.Scan(1, True, w[0], tuple(w[1:])),
+             rft.Scan(1, False, w[0], tuple(w[1:]))]
+    n = 32768 // 128
+    X = torch.from_numpy((np.random.default_rng(6).standard_normal(
+        (64, n, 128)) * 0.1).astype(np.float32)).to(dev)
+    for g, n_i in (("px3", 3), ("px4", 4), ("default", 1)):
+        loc = tdf.LastAxisPass(scans, (128, n, 0), True, g).to(dev)
+        comp, K_ = loc.completion, 128 + loc.completion.sl
+        with torch.no_grad():
+            Nt = loc._solve_t(loc.tails.plain(X).double()).float()
+            # the packed constant's chunks, or the row-major one of the
+            # checkouts before completion_split ran the tensor-core core
+            C = comp.chunks() if hasattr(comp, "chunks") else comp.Bc
+            Bs = C[..., :K_].float().sum(1)  # (nv, 128, K)
+            vi = [0 if Bs.shape[0] == 1 else 1 if t == 0 else
+                  2 if t == n - 1 else 0 for t in range(n)]
+            BRn = Bs[vi].transpose(1, 2).contiguous()
+            XNt = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).transpose(0, 1)
+        row(f"E completion_split {g} {tuple(X.shape)}", comp, (X, Nt),
+            nbytes(X, Nt[:, :loc.S], X),
+            2.0 * X.numel() * (128 * n_i + loc.S * max(n_i, 3)),
+            lambda *a_, A=XNt, B=BRn: torch.matmul(A, B).transpose(0, 1),
+            "matmul([x, Nᵀ], grade's [Btotᵀ; Rᵀ]) per tile",
+            ref=lambda _, c=comp, N_=Nt: c._twin(X, N_), rate=PEAK_BF16)
+        del loc, comp, Nt, XNt, BRn
 
 
 def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
