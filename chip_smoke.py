@@ -50,8 +50,9 @@ SAT variant N(0,1), seed 3):
       the box³ radii 5 and 9, then their signed contraction.
 
 The rotated emit and the fused consumers, on ``final2d_stencil``,
-``completion_rot`` (the rotated ``completion`` with its stencil) and
-``stencil2d``, with ``tails`` and ``moments2d`` in their extra-row forms:
+``completion_rot`` (the rotated completion on the tensor cores, with its
+stencil; at px6 and at the reduced grades) and ``stencil2d``, with
+``tails`` and ``moments2d`` in their extra-row forms:
 
   C1  ``apps.difference_of_gaussians(4096, 4096, 5, 9, variant="sat")``:
       the SAT with both radii's 4-corner banks fused into its final
@@ -209,9 +210,20 @@ Phases:
      bit for bit on integer-valued input at K3's and K6's first-pass
      shapes (both regimes, clamp variants), and chains of unit
      integrators with a padded first pass and with P = 3 leading slices
-     chained, unchained and on the twins, bit-equal; phase 3f runs K1–K6
-     (launch counts, the route and its tails reads, within 2e-6 of the
-     f64 oracle); phase 2g holds ``tails_traced`` and
+     chained, unchained and on the twins, bit-equal, then (at the grades)
+     ``completion_rot`` without a stencil, with C1's radius-5 stencil, and
+     with the stencil and the DoG's a − o epilogue
+     (``completion_rot_epi``) at C1's x-pass shape, and
+     ``completion_rot_tails`` at K3's first pass, each at nprod 6, 4, 3
+     and 1 on N(0,1) input and the σ=5 Gaussian's clamp matrices: within
+     1e-5 of the split twin's peak, within ``split_exact``'s bound at
+     every output (no consumer), ``completion_rot_tails``' output and
+     tails bit-equal to ``completion_rot``'s and the ``tails`` kernel's;
+     phase 3f runs K1–K6 (launch counts, the route and its tails reads,
+     within 2e-6 of the f64 oracle), then K1, K3 (chained = unchained bit
+     for bit) and K6 at ``default``, px3 and px4 and C3 (its error against
+     its producers' peak, the six 2nd-order integrals) at px3 and px4, C6
+     at all three, within each grade's bound; phase 2g holds ``tails_traced`` and
      ``completion_traced`` to their twins at L1's x-axis shapes (q 4096,
      n 32, S 6: 1e-5 of the twin's peak, pad slots zeros), and phase 3g
      runs L1 (``tails_traced`` and ``completion_traced`` twice each, no
@@ -303,8 +315,8 @@ Phases:
      V1), phase 3c runs V1 and V2 at each grade through ``as_func()``
      (rows_tails, rows_final, moments2d and final2d_split once each) and
      S3 at px3 and px4 (the rows kernels once each; at ``default`` the
-     router takes the einsum pass, which raises), each within the grade's
-     bound of the f64 oracle, and phase 5d times ``rows_final`` at each
+     router takes the einsum pass, as the JAX package does), each within
+     the grade's bound of the f64 oracle, and phase 5d times ``rows_final`` at each
      grade at V1 beside its twin and one ``matmul`` by the grade's
      constant (beside px6 in turns, and the whole V1 and V2 calls at each
      grade: ``tests/torch_rot_tails_study.py`` part F); phase 3n holds the
@@ -348,11 +360,13 @@ Phases:
      prev; nxt] — held to the kernel on N(0,1) inputs; the unrotated
      stencil-free ``matmul`` is printed beside it — and without, beside
      ``matmul(BR0ᵀ, XNᵀ)``, which emits the rotated (n, 128, q) layout,
-     with that call's device ops), and
+     with that call's device ops), both also at each reduced grade beside
+     one ``matmul`` by the grade's constant (the sum of its chunks), and
      the whole calls of C1–C5; for A also the fp32-accumulating ``tails``
      instantiation's times (a probe); for ``completion_rot_tails`` at K3's first
      pass the same, beside ``completion_rot`` + ``tails`` and, as the
-     library form, one ``matmul`` and one ``einsum`` (two calls), and the
+     library form, one ``matmul`` and one ``einsum`` (two calls), also at
+     each reduced grade (the ``matmul`` by the grade's constant), and the
      whole calls of K1–K6; for ``tails_traced`` and ``completion_traced``
      at L1's x-axis shapes the same, with one ``matmul`` each as the
      library form (``tails_traced``'s emitting its (n, S, q) layout; the
@@ -420,6 +434,12 @@ PEAK_BF16, PEAK_TF32 = 989e12, 495e12
 # the reduced precision grades and their bounds (share of the f64 oracle's
 # peak; tests/test_dimfuse.py:454, tests/test_overlap2d.py:438)
 GRADE_BOUNDS = {"default": 3e-2, "px3": 1e-4, "px4": 8e-5}
+# C3 (three order-2 boxes on SAT passes) at px3 and px4, of the output's
+# peak: the differences of the SAT formulation cancel the integrals' leading
+# digits, so C3 misses the grade's oracle bound (3.27e-3 measured on the
+# H100 at both grades); the limit sits ~3x above that reading and below
+# the median |oracle| of the peak, which phase 3f prints (ROADMAP Queue 3)
+C3_GRADE_BOUND = 1e-2
 # the split-einsum grades' bounds on an n-D filter (tests/test_fuzz.py:25-28;
 # high held to f32x3's, f32x9 to px6's)
 EINSUM_BOUNDS = {"f32x3": 2e-4, "f32x4": 8e-5, "f32x6": 4e-6, "high": 2e-4,
@@ -670,6 +690,16 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def rot_ops(comp, samples):
+    """The bf16 operations of a rotated completion over ``samples``: its
+    grade's products on the 128 signal rows and ``carry_nprod`` of them on
+    the S real carry rows, two a multiply-add."""
+    from recfilter_tpu_torch.kernels import split
+
+    return 2.0 * (128 * comp.nprod + split.carry_nprod(comp.nprod) * comp.S
+                  ) * samples
+
+
 def folded_stencil_weight(comp):
     """``completion_rot`` with its stencil as one matrix a tile, for one
     batched ``torch.matmul``: the stencil is linear in the completed rows
@@ -682,7 +712,7 @@ def folded_stencil_weight(comp):
     import numpy as np
     import torch
 
-    BT = comp.BT_v.double().cpu().numpy()
+    BT = comp.grade_constant().double().cpu().numpy()
     n, hp = comp.n, comp.hp
     depth = BT.shape[2]
     out = np.zeros((n, 128, depth + hp + comp.hn))
@@ -703,7 +733,41 @@ def folded_stencil_weight(comp):
                     W[o, depth + hp + r - 128] += c
                 elif r >= 128 and comp.end == "clamp":
                     W[o, :depth] += c * B[127]
-    return torch.from_numpy(out).float().to(comp.BT_v.device)
+    return torch.from_numpy(out).float().to(comp.Bc_k.device)
+
+
+def folded_twin_err(comp, W, q, seed):
+    """max|lib − twin| / max|twin| of the folded matmul W·[xᵀ; N; prev;
+    nxt] against the stencil (on the same strips, the kernel's per-tile
+    form) of the float32 product by the grade's constant: the library
+    yardstick of a rotated completion with a stencil at a reduced grade,
+    on N(0,1) inputs from ``seed``."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.kernels import completion as kcomp
+
+    rng = np.random.default_rng(seed)
+    dev, n = comp.Bc_k.device, comp.n
+
+    def g(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    X, halos = g(q, n, 128), [g(n, h, q) for h in (comp.hp, comp.hn) if h]
+    Nt = torch.zeros((n, comp.sl, q), device=dev)
+    Nt[:, :comp.S] = g(n, comp.S, q)
+    with torch.no_grad():
+        yf = (kcomp.tile_einsum("nos,qns->qno", comp.B_v, X)
+              + kcomp.tile_einsum("nou,nuq->qno", comp.R_v, Nt[:, :comp.S])
+              ).permute(1, 2, 0).reshape(-1, q)
+        hs = list(halos)
+        prev = hs.pop(0) if comp.hp else None
+        nxt = hs.pop(0) if comp.hn else None
+        want = kcomp._stencil_rows(yf, prev, nxt, comp.taps, n, comp.start,
+                                   comp.end)
+        lib = torch.matmul(W, folded_operand(X, Nt, *halos))
+        return rel_err(lib.reshape(want.shape), want)
 
 
 def folded_operand(X, Nt, *halos):
@@ -727,7 +791,7 @@ def folded_stencil_err(comp, W, q, seed, epi=None):
     import torch
 
     rng = np.random.default_rng(seed)
-    dev = comp.BT_v.device
+    dev = comp.Bc_k.device
 
     def g(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1189,6 +1253,120 @@ def sat_check(tag, got, want, m):
           "formulation oracle's peak")
     check(e_in <= 2e-4 * peak, f"{tag}: short of the far margin within 2e-4 "
           "of the oracle's peak")
+
+
+def rot_grades(rft, tdf, kcomp, dev, max_abs):
+    """Phase 2f at the grades: ``completion_rot`` (no stencil; C1's
+    radius-5 stencil; the stencil then the DoG's a − o epilogue, its entry
+    ``completion_rot_epi``) at C1's x-pass shape, and
+    ``completion_rot_tails`` at K3's first pass (102,400 lines, 4 tiles,
+    the next pass's 4 tiles on 200 extents), each at nprod 6, 4, 3 and 1
+    on N(0,1) input and the σ=5 Gaussian's matrices (clamp: three
+    variants): within 1e-5 of the split twin's peak, within
+    ``split_exact``'s bound at every output (no consumer), and
+    ``completion_rot_tails``' output and tails bit-equal to
+    ``completion_rot``'s output and the ``tails`` kernel's tails of it.
+    Fills ``max_abs`` (|kernel − split twin|) under the kernels' rows."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.apps.dog import _stencil
+    from recfilter_tpu_torch.epilogue import Affine
+
+    w = rft.gaussian_weights(5.0, 3)
+    scans = [rft.Scan(0, c, w[0], tuple(w[1:])) for c in (True, False)]
+
+    def mats(n):
+        m = tdf.prepare_dim_pass(scans, 128, n, True)
+        return (m.Btot, np.concatenate([np.asarray(r) for r in m.Rhat], 2),
+                np.concatenate([np.asarray(g) for g in m.G], 1))
+
+    rng = np.random.default_rng(43)
+
+    def g(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    names = {6: "", 4: "/px4", 3: "/px3", 1: "/default"}
+    q, n = 4096, 32
+    Btot, Rcat, _ = mats(n)
+    X, aux = g(q, n, 128), g(n * 128, q)
+    Nt = torch.zeros((n, 8, q), device=dev)
+    Nt[:, :6] = g(n, 6, q)
+    st = dict(_stencil(5), start="zero", end="clamp")
+    flat6 = kcomp.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    Y = flat6(X, Nt).reshape(n, 128, q)
+    for nprod, tag in names.items():
+        for label, kw in (("completion_rot/no_stencil", {}),
+                          ("completion_rot", dict(stencil=st)),
+                          ("completion_rot_epi", dict(
+                              stencil=st, affine=Affine(-1.0, (1.0,), 0.0)))):
+            comp = kcomp.CompletionPass(Btot, Rcat, n, rot=True, nprod=nprod,
+                                        **kw).to(dev)
+            hp, hn = comp.hp, comp.hn
+            z = torch.zeros((1, max(hp, hn, 1), q), device=dev)
+            halos = [h.contiguous() for h, r in (
+                (torch.cat([z[:, :hp], Y[:-1, 128 - hp:]]), hp),
+                (torch.cat([Y[1:, :hn], z[:, :hn]]), hn)) if r]
+            args = (X, Nt, *halos, *([aux] if comp.k else []))
+            with torch.no_grad():
+                y = comp(*args)
+                want = comp.split_plain(*args)
+                torch.cuda.synchronize()
+            err = rel_err(y, want)
+            line = (f"  {label} nprod {nprod}: max|k - split twin|/max = "
+                    f"{err:.3e}")
+            ok = err <= 1e-5
+            if not kw:
+                ref, bound = comp.split_exact(X, Nt)
+                inside = bool(((y.double() - ref).abs() <= bound).all())
+                line += (f"; within split_exact's bound at every output: "
+                         f"{inside} (at most "
+                         f"{((y.double() - ref).abs() / bound).max():.3f} "
+                         "of it)")
+                ok = ok and inside
+                del ref, bound
+            print(line)
+            check(ok, f"{label} at nprod {nprod}: within 1e-5 of its split "
+                  "twin" + ("" if kw else " and within split_exact's bound"))
+            key = label + tag
+            max_abs[key] = max(max_abs.get(key, 0.0),
+                               (y - want).abs().max().item())
+            del y, want
+    del X, Nt, aux, Y
+    # K3's first pass: chained and unchained
+    q, n, n2 = 102400, 4, 4
+    Btot, Rcat, _ = mats(n)
+    _, _, G2 = mats(n2)
+    X = g(q, n, 128)
+    Nt = torch.zeros((n, 8, q), device=dev)
+    Nt[:, :6] = g(n, 6, q)
+    nxt = kcomp.TailsPass(G2, n2).to(dev)
+    for nprod, tag in names.items():
+        crt = kcomp.CompletionPass(Btot, Rcat, n, rot=True, nprod=nprod,
+                                   next_tails=(G2, n2)).to(dev)
+        rot = kcomp.CompletionPass(Btot, Rcat, n, rot=True,
+                                   nprod=nprod).to(dev)
+        with torch.no_grad():
+            (y, t2), yr = crt(X, Nt), rot(X, Nt)
+            tr = nxt(yr.reshape(-1, n2, 128))
+            yp, tp = crt.split_plain(X, Nt)
+            torch.cuda.synchronize()
+        same = torch.equal(y, yr) and torch.equal(t2, tr)
+        err = max(rel_err(y, yp), rel_err(t2, tp))
+        ref, bound = crt.split_exact(X, Nt)
+        inside = bool(((y.double() - ref).abs() <= bound).all())
+        print(f"  K3 completion_rot_tails nprod {nprod}: output and tails "
+              f"bit-equal to completion_rot + tails: {same}; max|k - split "
+              f"twin|/max = {err:.3e}; within split_exact's bound: {inside}")
+        check(same and err <= 1e-5 and inside and not t2[:, 6:].any(),
+              f"K3 completion_rot_tails at nprod {nprod}: chained = "
+              "unchained bit for bit, within 1e-5 of its split twin and "
+              "split_exact's bound, pad slots zero")
+        key = "completion_rot_tails" + tag
+        max_abs[key] = max(max_abs.get(key, 0.0),
+                           (y - yp).abs().max().item())
+        del y, t2, yr, tr, yp, tp, ref, bound
 
 
 def learnable_kernels(rft, dev, size):
@@ -1719,7 +1897,7 @@ def main() -> int:
             # carries: V1 and V2 (volumes) and S3 at px3 and px4 built
             # through as_func() at the grade (for phase 3c); S3's rows pass
             # at default directly (there the router takes the JAX
-            # package's einsum pass, which raises)
+            # package's einsum pass, FusedAxisPass's einsum form)
             F = rows_cases[label][0]
             for g in GRADE_BOUNDS:
                 nprod = ksplit.NPROD[g]
@@ -2020,6 +2198,12 @@ def main() -> int:
               f"{label}: chained, unchained and the twins bit-equal")
         del xi, yc, yu, yp
 
+    heading("phase 2f, grades: the rotated kernels at px6, px4, px3 and "
+          "default against their split twins (C1's x pass: x (4096, 32, "
+          "128), the σ=5 Gaussian's clamp matrices; completion_rot_tails at "
+          "K3's first pass) and within split_exact's bound at every output")
+    rot_grades(rft, tdf, kcomp, dev, max_abs)
+
     heading("phase 2g: tails_traced and completion_traced against their "
           "twins on the card at L1's x-axis shapes")
     l1, x_l1, traced_in, errs = learnable_kernels(rft, dev, H)
@@ -2293,7 +2477,8 @@ def main() -> int:
             F.set_plan(matmul_precision=g)
             m = F.as_func()
             loc = m.body
-            check(isinstance(loc.completion, kcomp.CompletionSplit)
+            check(isinstance(loc.completion, kcomp.CompletionPass)
+                  and not loc.completion.rot
                   and loc.completion.nprod == nprod,
                   f"{label} at {g}: completion_split, {nprod} product(s)")
             grade_1d[(label, g)] = (F, m)
@@ -2646,8 +2831,8 @@ def main() -> int:
     print(f"  C3 box_filter_6 SAT 2048²: launches {launches}")
     check(launches == only(tails=6, completion_rot=6),
           "C3: six rotated passes")
-    sat_check("C3", y.cpu().numpy(),
-              box2_oracle(box2_oracle(box2_oracle(img, 5), 5), 5), 37)
+    want_c3 = box2_oracle(box2_oracle(box2_oracle(img, 5), 5), 5)
+    sat_check("C3", y.cpu().numpy(), want_c3, 37)
     # C4: a y-only σ=5 Gaussian, then the Sobel bank (edge detection)
     F4 = gauss_axes(rft, (H, W), (0,), name="BlurY")
     c4 = F4.as_func(stencil2d=SOBEL)
@@ -2703,13 +2888,16 @@ def main() -> int:
     print(f"  C6: max|y - oracle|/max|producer| = {err:.3e}")
     check(err <= 2e-5, "C6: within 2e-5 of the producer's peak "
           "(tests/test_dimfuse.py:988)")
-    del y, z, want, img6
+    x_c6, want_c6, peak_c6 = torch.from_numpy(img6).to(dev), want, np.abs(
+        z).max()
+    del y, z, img6
 
     heading("phase 3f: the rotation chain end to end through "
           "RecFilter.as_func() and the B-spline apps")
     from recfilter_tpu_torch.apps import bicubic, biquintic_overlapped
 
     k_cases = {}  # label: (module, input on the card) for phase 5g
+    k_oracles = {}  # label: the f64 oracle of its input, for the grades
 
     def k_case(label, F, shape, expect, taken, oracle=True):
         """Run one K case through as_func(): its launches, route and tails
@@ -2733,11 +2921,13 @@ def main() -> int:
         k_cases[label] = (mod, xk)
         if oracle:
             t0 = time.perf_counter()
-            err = oracle_err(F.spec, x_np, yk)
+            want = scan_core.oracle_apply(F.spec, x_np.astype(np.float64))
+            err = oracle_err(F.spec, x_np, yk, want)
             print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e} (f64 "
                   f"oracle {time.perf_counter() - t0:.1f} s)")
             check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the "
                   "f64 oracle")
+            k_oracles[label] = want
         return mod, xk, yk, launches
 
     k_case("K1 Gaussian twice per axis (ΣK = 12)",
@@ -2781,6 +2971,97 @@ def main() -> int:
     k_case("K6 panorama", gauss_axes(rft, (512, 40960), (0, 1)),
            (512, 40960), dict(completion_rot_tails=1, completion_rot=1),
            [False, True])
+
+    heading("phase 3f, grades: K1, K3 and K6 through as_func() at px3, px4 "
+          "and default, C3 and C6 at px3 and px4 (C6 also at default), "
+          "against the f64 oracle at the grade's bound")
+    from recfilter_tpu_torch.apps.box import box_filter_order_2
+
+    k1_label, k3_label, k6_label = ("K1 Gaussian twice per axis (ΣK = 12)",
+                                    "K3 CT volume", "K6 panorama")
+    for g, bound in GRADE_BOUNDS.items():
+        px = g != "default"
+        rot_n = rot_t = rot_s = 0
+        k_grades = (
+            (k1_label, gauss_axes(rft, (H, W), (0, 1), times=2), (H, W),
+             dict(tails=2, completion_rot=2) if px else {}, [False, False]),
+            (k3_label, gauss_axes(rft, (200, 512, 512), (0, 1, 2)),
+             (200, 512, 512),
+             dict(tails=2, completion_rot_tails=1, completion_rot=2) if px
+             else dict(tails=1, completion_rot_tails=1, completion_rot=1),
+             [False, True, False]),
+            (k6_label, gauss_axes(rft, (512, 40960), (0, 1)), (512, 40960),
+             dict(completion_rot_tails=1, completion_rot=1), [False, True]))
+        for label, F, shape, expect, taken in k_grades:
+            F.set_plan(matmul_precision=g)
+            mod = F.as_func()
+            xk = k_cases[label][1]
+            with torch.no_grad():
+                yk, launches = counted(mod, xk)
+            err = oracle_err(F.spec, None, yk, k_oracles[label])
+            kern = [p.nprod if p.completion is not None else 0
+                    for p in mod.passes]
+            print(f"  {label} at {g}: launches {launches}, tails_in "
+                  f"{mod.tails_in_taken}, passes' kernels at {kern}; "
+                  f"max|y - oracle|/max|oracle| = {err:.3e}")
+            check(launches == only(**expect) and mod.tails_in_taken == taken,
+                  f"{label} at {g}: launches {expect}, tails_in {taken}")
+            check(err <= bound, f"{label} at {g}: within {bound} of the f64 "
+                  "oracle")
+            rot_n += launches["completion_rot"]
+            rot_t += launches["completion_rot_tails"]
+            if label == k3_label:  # chained = unchained, bit for bit
+                for p in mod.passes:
+                    p.completion_nt = None
+                with torch.no_grad():
+                    yu, lu = counted(mod, xk)
+                want_u = (dict(tails=3, completion_rot=3) if px
+                          else dict(tails=2, completion_rot=2))
+                check(lu == only(**want_u) and torch.equal(yu, yk),
+                      f"K3 at {g}: unchained ({want_u}) bit-equal to chained")
+                del yu
+            del mod, yk
+        if px:  # C3: three order-2 boxes, each pass at the grade
+            f2, sats = box_filter_order_2(2048, 2048, 5)
+            for Fs in sats:
+                Fs.set_plan(matmul_precision=g)
+            f2.fx, f2.fy = (Fs.as_func() for Fs in sats)
+            with torch.no_grad():
+                y, launches = counted(lambda v: f2(f2(f2(v))), x_c3)
+            e_c3 = float(np.abs(y.cpu().numpy() - want_c3).max()
+                         / np.abs(want_c3).max())
+            # the SAT formulation cancels its integrals' leading digits
+            # (ROADMAP Queue 3): C3 misses the grade's oracle bound and is
+            # held to C3_GRADE_BOUND of the output's peak, below the median
+            # |oracle|, which an output of zeros misses
+            med = float(np.median(np.abs(want_c3)) / np.abs(want_c3).max())
+            print(f"  C3 box_filter_6 SAT 2048² at {g}: launches {launches};"
+                  f" max|y - oracle|/max|oracle| = {e_c3:.4e} (the grade's "
+                  f"bound {bound}; median |oracle|/max {med:.4f})")
+            check(launches == only(tails=6, completion_rot=6)
+                  and e_c3 <= C3_GRADE_BOUND < med, f"C3 at {g}: six rotated "
+                  f"passes, within {C3_GRADE_BOUND} of the output's peak")
+            rot_n += launches["completion_rot"]
+            del f2, sats, y
+        F6.set_plan(matmul_precision=g)
+        c6g = F6.as_func(stencil=st6)
+        with torch.no_grad():
+            y, launches = counted(c6g, x_c6)
+        err = float(np.abs(y.cpu().numpy() - want_c6).max() / peak_c6)
+        lim = max(2e-5, bound)
+        print(f"  C6 per-slice rotated stencil at {g}: launches {launches}; "
+              f"max|y - oracle|/max|producer| = {err:.3e}")
+        check(launches == only(tails_extra=2, completion_rot=2)
+              and err <= lim, f"C6 at {g}: one tails_extra and one "
+              f"completion_rot per slice, within {lim} of the producer's "
+              "peak")
+        rot_s += launches["completion_rot"]
+        main_launches.update({f"completion_rot/no_stencil/{g}": rot_n,
+                              f"completion_rot_tails/{g}": rot_t,
+                              f"completion_rot/{g}": rot_s})
+        del c6g, y
+    F6.set_plan(matmul_precision="px6")
+    del k_oracles, want_c3, want_c6, x_c6
 
     heading("phase 3g: the learnable path end to end through "
           "LearnableRecFilter: L1 forward, L2 training steps, L3 biquad")
@@ -3872,9 +4153,12 @@ def main() -> int:
         times["tails_extra"], dev_t["tails_extra"] = r[0], r[1]
         extra["tails_extra"] = (*r[2], r[3])
         XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
-        BR0 = comp.BR_v[0]
+        BR0 = comp.grade_constant()[0].t()
+        # held to the float32 product the kernel's split products
+        # approximate (on the SAT's own data its terms cancel: the split
+        # kernel lies further from one float32 GEMM than two GEMMs do)
         check(rel_err(torch.matmul(XN, BR0).permute(1, 2, 0).reshape(-1, q),
-                      loc.completion(X, Nt)) <= 1e-5,
+                      loc.completion._twin(X, Nt)) <= 1e-5,
               "C1: the matmul computes the rotated completion (transposed)")
         # one PyTorch call: the stencil folded into the operand, one
         # matrix a tile, times [xᵀ; N; prev; nxt] (built outside the
@@ -3890,9 +4174,10 @@ def main() -> int:
         r = timed("C1 completion_rot + 3-tap stencil (library: matmul(W, "
                   "[xᵀ; N; prev; nxt]) -> (n, 128, q))", comp, comp.plain,
                   lambda *a: torch.matmul(Wst, XNH), (X, Nt, *halos),
-                  tensor_bytes(X, Nt, *halos, X),
-                  2.0 * (128 + loc.sl + len(comp.taps)) * X.numel(),
-                  PEAK_FP32, main_launches["completion_rot"])
+                  tensor_bytes(X, Nt[:, :comp.S], *halos, X),
+                  rot_ops(comp, X.numel()) + 2.0 * len(comp.taps)
+                  * X.numel() * PEAK_BF16 / PEAK_FP32, PEAK_BF16,
+                  main_launches["completion_rot"])
         times["completion_rot"], dev_t["completion_rot"] = r[0], r[1]
         extra["completion_rot"] = (*r[2], r[3])
         print(f"  C1 the unrotated stencil-free matmul(XN, BR0) (earlier "
@@ -3904,19 +4189,19 @@ def main() -> int:
         # q) view; the profile's device ops show whether torch copies it
         flat = loc.completion
         XNt = XN.permute(1, 2, 0)
-        BRt = flat.BR_v[0].t()
+        BRt = flat.grade_constant()[0]
 
         def rot_lib(x_, n_):
             return torch.matmul(BRt, XNt)
 
-        check(flat.BR_v.shape[0] == 1 and rel_err(
-            rot_lib(X, Nt).reshape(-1, q), flat(X, Nt)) <= 1e-5,
+        check(flat.Bc_k.shape[0] == 1 and rel_err(
+            rot_lib(X, Nt).reshape(-1, q), flat._twin(X, Nt)) <= 1e-5,
             "C1: matmul(BR0ᵀ, XNᵀ) computes the rotated completion in its "
             "own layout")
         r = timed("C1 completion_rot, no stencil (library: matmul(BR0ᵀ, "
                   "XNᵀ) -> (n, 128, q))", flat, flat.plain, rot_lib, (X, Nt),
-                  tensor_bytes(X, Nt, X), 2.0 * (128 + loc.sl) * X.numel(),
-                  PEAK_FP32, main_launches["completion_rot/no_stencil"])
+                  tensor_bytes(X, Nt[:, :flat.S], X), rot_ops(flat, X.numel()),
+                  PEAK_BF16, main_launches["completion_rot/no_stencil"])
         times["completion_rot/no_stencil"] = r[0]
         dev_t["completion_rot/no_stencil"] = r[1]
         extra["completion_rot/no_stencil"] = (*r[2], r[3])
@@ -3924,6 +4209,39 @@ def main() -> int:
         print("  the rotated-layout matmul's device ops per call: " + (
             ", ".join(f"{nm[:48]} {ms:.4f} ms" for nm, ms in prof["top"])
             if prof["busy_ms"] is not None else "not measured"))
+        # the same pass's rotated kernels at each reduced grade, beside one
+        # matmul by the grade's constant (the sum of its chunks; the
+        # stencil folded into it as above); the bound the bytes and the
+        # grade's bf16 products (the stencil's fp32 operations beside)
+        Bm, Rm = loc.B_v.cpu().numpy(), loc.R_v.cpu().numpy()
+        stn = dict(taps=comp.taps, start=comp.start, end=comp.end)
+        for g in GRADE_BOUNDS:
+            for key, kw in ((f"completion_rot/{g}", dict(stencil=stn)),
+                            (f"completion_rot/no_stencil/{g}", {})):
+                cg = kcomp.CompletionPass(Bm, Rm, n, rot=True,
+                                          nprod=ksplit.NPROD[g], **kw).to(dev)
+                if kw:
+                    Wg = folded_stencil_weight(cg)
+                    err = folded_twin_err(cg, Wg, q, seed=44)
+                    XNHg = folded_operand(X, Nt, *halos)
+                    lib = lambda *a, W_=Wg, O_=XNHg: torch.matmul(W_, O_)
+                    args = (X, Nt, *halos)
+                    nb = tensor_bytes(X, Nt[:, :cg.S], *halos, X)
+                    ops = rot_ops(cg, X.numel()) + 2.0 * len(cg.taps) * (
+                        X.numel()) * PEAK_BF16 / PEAK_FP32
+                else:
+                    lib = lambda *a, B_=cg.grade_constant()[0]: (
+                        torch.matmul(B_, XNt))
+                    err = rel_err(lib(X, Nt).reshape(-1, q), cg._twin(X, Nt))
+                    args, nb = (X, Nt), tensor_bytes(X, Nt[:, :cg.S], X)
+                    ops = rot_ops(cg, X.numel())
+                check(err <= 1e-5, f"C1 {key}: the library call computes "
+                      f"the product with the grade's constant ({err:.3e})")
+                r = timed(f"C1 {key}", cg, cg.plain, lib, args, nb, ops,
+                          PEAK_BF16, main_launches[key])
+                times[key], dev_t[key], extra[key] = r[0], r[1], (*r[2],
+                                                                   r[3])
+                del cg, lib
         del v, X, bp, Nt, halos, XN, XNt
         # stencil2d at C4's shapes: the Sobel bank on the blurred image
         bank = c4.bank
@@ -4001,10 +4319,10 @@ def main() -> int:
         # one torch.matmul of [x, Nᵀ] by [Btotᵀ; Rᵀ] (unrotated), then
         # one torch.einsum of the tail rows over the next pass's tiles:
         # the library form of the same function, two calls (fp32 sums)
-        check(crt.BR_v.shape[0] == 1 and crt.G2_v.shape[0] == 1,
+        check(crt.Bc_k.shape[0] == 1 and crt.G2_v.shape[0] == 1,
               "K3's x pass: one matrix variant on both sides")
         XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
-        BR0, G20 = crt.BR_v[0], crt.G2_v[0]
+        BR0, G20 = crt.grade_constant()[0].t(), crt.G2_v[0]
 
         def library(x_, n_):
             y_ = torch.matmul(XN, BR0)  # (z·y, x tiles, 128)
@@ -4012,16 +4330,19 @@ def main() -> int:
                 ra, n2, 128, -1))
 
         yl, tl_ = library(X, Nt)
-        check(rel_err(yl.permute(1, 2, 0).reshape(-1, q), yk) <= 1e-5
-              and rel_err(tl_.reshape(tk.shape), tk) <= 1e-5,
-              "K3: the library calls compute completion_rot_tails' function")
+        yt, tt = crt._twin(X, Nt)
+        check(rel_err(yl.permute(1, 2, 0).reshape(-1, q), yt) <= 1e-5
+              and rel_err(tl_.reshape(tt.shape), tt) <= 1e-5,
+              "K3: the library calls compute completion_rot_tails' function "
+              "(its float32 product)")
+        del yt, tt
         del yy, ty, yl, tl_
-        S2, sl = crt.S2, crt.sl
-        nbytes = tensor_bytes(X, Nt, crt.BR_v, crt.G2_v, yk, tk)
-        fp32, fp64 = 2.0 * (128 + sl) * X.numel(), 2.0 * S2 * X.numel()
-        bound = max(nbytes / PEAK_BYTES, fp32 / PEAK_FP32 + fp64 / PEAK_FP64
+        S2 = crt.S2
+        nbytes = tensor_bytes(X, Nt[:, :crt.S], crt.Bc_k, crt.G2_v, yk, tk)
+        bf16, fp64 = rot_ops(crt, X.numel()), 2.0 * S2 * X.numel()
+        bound = max(nbytes / PEAK_BYTES, bf16 / PEAK_BF16 + fp64 / PEAK_FP64
                     ) * 1e3
-        by = ("bytes" if nbytes / PEAK_BYTES >= fp32 / PEAK_FP32
+        by = ("bytes" if nbytes / PEAK_BYTES >= bf16 / PEAK_BF16
               + fp64 / PEAK_FP64 else "operations")
         t = paired_times(crt, crt.plain, X, Nt)
         d = (device_ms(crt, X, Nt), device_ms(crt.plain, X, Nt))
@@ -4030,7 +4351,7 @@ def main() -> int:
         print(f"  K3 completion_rot_tails ({q} lines, {p0.n} tiles, next "
               f"{n2} tiles x ra = {ra}): 1 launch per call; event "
               f"{t[0]:.4f} ms, device {d[0]:.4f} ms; bound {bound:.4f} ms by "
-              f"{by} ({nbytes / 1e6:.0f} MB, {fp32 / 1e9:.2f} GFLOP fp32 + "
+              f"{by} ({nbytes / 1e6:.0f} MB, {bf16 / 1e9:.2f} G bf16 ops + "
               f"{fp64 / 1e9:.3f} GFLOP fp64; {100 * bound / d[0]:.1f} % of "
               f"the device time); twin event {t[1]:.4f}, device {d[1]:.4f} "
               f"ms; completion_rot + tails event {y_ms:.4f}, device "
@@ -4039,6 +4360,32 @@ def main() -> int:
         times["completion_rot_tails"] = t
         dev_t["completion_rot_tails"] = (d[0], d[1], l_dev)
         extra["completion_rot_tails"] = (bound, by, l_ms)
+        # at each reduced grade, beside matmul + einsum by the grade's
+        # constant
+        Bm, Rm = p0.B_v.cpu().numpy(), p0.R_v.cpu().numpy()
+        for g in GRADE_BOUNDS:
+            key = f"completion_rot_tails/{g}"
+            cg = kcomp.CompletionPass(Bm, Rm, p0.n, rot=True,
+                                      next_tails=(p1.Gcat, n2),
+                                      nprod=ksplit.NPROD[g]).to(dev)
+
+            def lib_g(x_, n_, B_=cg.grade_constant()[0].t()):
+                y_ = torch.matmul(XN, B_)
+                return y_, torch.einsum("sj,acjx->csxa", G20, y_.reshape(
+                    ra, n2, 128, -1))
+
+            (yl, tl_), (yt, tt) = lib_g(X, Nt), cg._twin(X, Nt)
+            check(rel_err(yl.permute(1, 2, 0).reshape(-1, q), yt) <= 1e-5
+                  and rel_err(tl_.reshape(tt.shape), tt) <= 1e-5,
+                  f"K3 {key}: the library calls compute the product with "
+                  "the grade's constant and its tails")
+            yk, tk = cg(X, Nt)
+            nb = tensor_bytes(X, Nt[:, :cg.S], cg.Bc_k, cg.G2_v, yk, tk)
+            r = timed(f"K3 {key}", cg, cg.plain, lib_g, (X, Nt), nb,
+                      rot_ops(cg, X.numel()) + 2.0 * S2 * X.numel()
+                      * PEAK_BF16 / PEAK_FP64, PEAK_BF16, main_launches[key])
+            times[key], dev_t[key], extra[key] = r[0], r[1], (*r[2], r[3])
+            del cg, yl, tl_, yt, tt
         del X, Nt, XN, yk, tk
         for label, (mod, v) in k_cases.items():
             whole_call(label, mod, v, v.numel(), top=True)
@@ -4164,22 +4511,23 @@ def main() -> int:
                 # one PyTorch call: baddbmm of the aux (n, 128, q) and
                 # [Btot | R] times XN as an (n, 128 + sl, q) view, the
                 # mix's a as alpha, its b as beta (k = 1, c = 0)
-                check(comp.BR_v.shape[0] == 1 and comp.k == 1
+                check(comp.Bc_k.shape[0] == 1 and comp.k == 1
                       and comp.affine.bias == 0,
                       "C1: one matrix variant, one aux, no bias")
                 a_, (b_,) = comp.affine.scale, comp.affine.aux_weights
                 n_t = comp.n
                 XNt = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).permute(
                     1, 2, 0)
-                BRt = comp.BR_v[0].t().expand(n_t, -1, -1)
+                BRt = comp.grade_constant()[0].expand(n_t, -1, -1)
 
                 def lib(x_, n_, aux_):
                     return torch.baddbmm(aux_.view(n_t, 128, -1), BRt, XNt,
                                          beta=b_, alpha=a_)
 
-                err = rel_err(lib(*args).reshape(out.shape), out)
+                err = rel_err(lib(*args).reshape(out.shape),
+                              comp._twin(*args))
                 print(f"  completion_rot_epi, no stencil: baddbmm against "
-                      f"the kernel, max|l-k|/max|k| = {err:.3e}")
+                      f"the float32 product, max|l-t|/max|t| = {err:.3e}")
                 check(err <= 1e-5, "C1: baddbmm computes "
                       "completion_rot_epi's function (no stencil)")
             if name == "completion_rot_epi":
@@ -4224,9 +4572,8 @@ def main() -> int:
                       f"max|l-k|/max|k| = {err:.3e}")
                 check(err <= 1e-5, "A: addmm computes completion_epi's "
                       "function")
-            # ops of the epilogue and the stencil, beside the products:
-            # fp32 on the rotated entries, six split-bf16 products on
-            # completion_epi (its bound counts them as bf16 operations)
+            # ops of the epilogue and the stencil (fp32), beside the
+            # split-bf16 products (bf16 operations)
             ops = 2.0 * (len(comp.taps) + comp.k + 1) * X.numel()
             prod = 2.0 * (128 + comp.S) * X.numel()
             if name == "completion_epi":
@@ -4238,11 +4585,15 @@ def main() -> int:
                           PEAK_BF16, k_launch)
                 print_fp32_bound(name, nb_e, prod + ops, r[2][0], r[1][0])
             else:
+                # the grade's bf16 products, the stencil's and the
+                # epilogue's fp32 operations at their own peak
                 r = timed(f"{name} at {label} {tuple(X.shape)}", comp,
                           comp.plain, lib, args,
-                          tensor_bytes(*args, out, comp.BR_v, comp.epi_coef),
-                          2.0 * (128 + comp.sl) * X.numel() + ops,
-                          PEAK_FP32, k_launch)
+                          tensor_bytes(args[0], args[1][:, :comp.S],
+                                       *args[2:], out, comp.Bc_k,
+                                       comp.epi_coef),
+                          rot_ops(comp, X.numel())
+                          + ops * PEAK_BF16 / PEAK_FP32, PEAK_BF16, k_launch)
             times[name], dev_t[name] = r[0], r[1]
             extra[name] = (*r[2], r[3])
         del epi_in, out, args, XN, BR0, XNt, BRt, Wst, XNH
@@ -4360,12 +4711,17 @@ def main() -> int:
             ("final2d_stencil", None,
              "recfilter_tpu/kernels/final2d.py:999"),
             ("tails_extra", "tails", "recfilter_tpu/kernels/completion.py:750"),
-            ("completion_rot", "completion",
+            ("completion_rot", None,
              "recfilter_tpu/kernels/completion.py:464"),
-            ("completion_rot/no_stencil", "completion",
+            ("completion_rot/no_stencil", "completion_rot",
              "recfilter_tpu/kernels/completion.py:464"),
-            ("completion_rot_tails", "completion",
+            ("completion_rot_tails", None,
              "recfilter_tpu/kernels/completion.py:464"),
+            *((f"{k}/{g}", src, "recfilter_tpu/kernels/completion.py:464")
+              for k, src in (("completion_rot", "completion_rot"),
+                             ("completion_rot/no_stencil", "completion_rot"),
+                             ("completion_rot_tails", "completion_rot_tails"))
+              for g in GRADE_BOUNDS),
             ("tails_traced", "tails",
              "recfilter_tpu/kernels/completion.py:823"),
             ("completion_traced", "completion",
@@ -4375,9 +4731,9 @@ def main() -> int:
              "recfilter_tpu/kernels/final2d.py:619"),
             ("completion_epi", "completion",
              "recfilter_tpu/kernels/completion.py:273"),
-            ("completion_rot_epi", "completion",
+            ("completion_rot_epi", "completion_rot",
              "recfilter_tpu/kernels/completion.py:273"),
-            ("completion_rot_epi/no_stencil", "completion",
+            ("completion_rot_epi/no_stencil", "completion_rot",
              "recfilter_tpu/kernels/completion.py:273"),
             ("moments2d_k", "moments2d",
              "recfilter_tpu/kernels/final2d.py:1323"),

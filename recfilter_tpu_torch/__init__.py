@@ -31,8 +31,11 @@ plain PyTorch twins on the CPU:
     sequential core past the gain gate and for int64;
   * every precision grade of the JAX package: px6 and ``highest``; px3,
     px4 and ``default`` on the split-bf16 kernels ``final2d_split``,
-    ``rows_final`` (volumes; the rows pass at px3 and px4) and
-    ``completion_split``; ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` as
+    ``rows_final`` (volumes; the rows pass at px3 and px4),
+    ``completion_split`` and the rotated ``completion_rot``,
+    ``completion_rot_epi`` and ``completion_rot_tails`` (the rotation
+    chain, ``FusedAxisPass``, the rotated emit; at ``default`` where the
+    JAX package finds a structural win); ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` as
     split bf16 chunk products in the einsum forms, ``f32x9`` in float64;
   * the ``scripts/`` probes as studies: ``split_mm`` and the int8
     ``ozaki_i8``, ``dual_px6``, ``gemm_i8``, ``gemm_bf16``

@@ -20,7 +20,8 @@ Three routes, each a module tagged with ``usm_route``:
            (``unsharp_mask_naive.cpp``).
 
 As in the JAX package, the fused route gates on the built filters' own
-precision: px6 merges, ``highest`` (the einsum passes) stages.
+precision: the px grades and ``default`` merge, ``highest`` (the einsum
+passes) stages.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def unsharp_mask(width: int, height: int, tile_width: int = 0,
                  device="cuda") -> UnsharpMask:
     """The unsharp mask of a (height, width) float32 image as a module on
     ``device`` (the card unless the caller asks for the CPU):
-    ``module(image)``. ``matmul_precision`` is the blur stages' plan ("px6"
-    or "highest"), the JAX package's global default made explicit."""
+    ``module(image)``. ``matmul_precision`` is the blur stages' plan (px6,
+    the default), the JAX package's global default made explicit."""
     fc = gaussian_3x_3y(width, height, tile_width, sigma)
     for f in fc:
         f.set_plan(matmul_precision=matmul_precision)
@@ -76,7 +77,8 @@ def unsharp_mask(width: int, height: int, tile_width: int = 0,
     if not fused:
         return UnsharpMask([f.as_func(device=device) for f in fc], combine,
                            "naive")
-    if fc[0].plan.matmul_precision.startswith("px"):
+    mp = fc[0].plan.matmul_precision
+    if mp.startswith("px") or mp == "default":
         return UnsharpMask([fuse_cascade(fc, epilogue=combine,
                                          device=device)], combine, "merged")
     return UnsharpMask([f.as_func(device=device) for f in fc[:-1]]

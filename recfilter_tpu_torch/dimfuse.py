@@ -678,13 +678,19 @@ class LastAxisPass(nn.Module):
     ``forward(x, True)`` runs every kernel's plain twin instead.
 
     At the reduced grades (px3, px4, default: ``planner.SPLIT_GRADES``)
-    the pass runs its unrotated kernel route — ``tails`` (fp64 sums, as
-    at px6), the solve, then ``completion_split`` with the grade's
-    product count (one at ``default``), the epilogue as torch ops after
-    it — and, on a call of fewer than 8 lines, its einsum form at the
-    grade's products (the JAX package's split einsum). The rotated emit,
-    a fused stencil, tails chaining and more than 256 tiles have no split
-    form and raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4.
+    the pass runs the same routes at the grade's product count (one at
+    ``default``; :meth:`_split_nprod`) — ``tails`` (fp64 sums, as at px6),
+    the solve, then, unrotated, ``completion_split`` (the epilogue as
+    torch ops after it), rotated, the rotated completions at the grade
+    (``CompletionPass(nprod=)``: ``completion_rot``, its fused stencil and
+    epilogue, ``completion_rot_tails``) — and, where the kernels' gates
+    fail (fewer than 8 lines, tiles other than 128, ΣK > 56), its einsum
+    form at the grade's products (the JAX package's split einsum). At
+    ``default`` a rotated pass takes its kernels only where the JAX
+    package finds a structural win (a fused stencil, tails chained out or
+    in), else its einsum form. More than 256 tiles have no split form and
+    raise ``NotImplementedError`` naming ROADMAP Queue 1 item 4, except
+    where a rotated pass's completion kernel runs (at most 512 tiles).
     At the split-einsum grades (f32x3, f32x4, f32x6, ``high``) no kernel
     is built and the einsum form's tails and completion products are
     :func:`_split_einsum`'s chunk products (``nsp`` of them,
@@ -699,7 +705,9 @@ class LastAxisPass(nn.Module):
     route, per-slice route, or the einsum form's kernel completion) and
     :func:`.kernels.completion.next_tails_ok` holds, it is
     ``completion_rot_tails``, which also emits the next pass's tails
-    (padded output lines sliced off). :meth:`run` takes the previous pass's
+    (padded output lines sliced off). ``tails_in=True`` says that the
+    previous pass of a chain may hand this one its tails (a structural win
+    at ``default``). :meth:`run` takes the previous pass's
     tails as ``tails_in`` — the kernel and per-slice routes then skip their
     ``tails`` launch (slice p's tails are lines p·R..(p+1)·R, and the
     per-slice extracted tails concatenate P-major), the einsum form ignores
@@ -709,7 +717,7 @@ class LastAxisPass(nn.Module):
 
     def __init__(self, scans: Sequence[Scan], plan, clamp: bool,
                  matmul_precision: str, rot_axes: int = 1, stencil=None,
-                 epilogue=None, next_tails=None):
+                 epilogue=None, next_tails=None, tails_in: bool = False):
         super().__init__()
         T, n, pad = plan
         self.T, self.n, self.pad = T, n, pad
@@ -772,17 +780,22 @@ class LastAxisPass(nn.Module):
                 self.register_buffer(name, torch.stack([
                     c.float() for c in ksplit.split_const(
                         kc._variants3(M), nc)]))
+        nprod = NPROD.get(matmul_precision, 0)
         if matmul_precision in SPLIT_GRADES:
-            self._split_kernels(mats, Gcat, Rcat, stencil, next_tails)
-        elif (NPROD.get(matmul_precision, 0)
-              and kc.completion_ok(T, 8, n, S)):
+            nprod = self._split_nprod(stencil is not None
+                                      or next_tails is not None or tails_in)
+        self.nprod = nprod
+        if nprod and kc.completion_ok(T, 8, n, S):
             if n <= _CHAIN_MATMUL_MAX_TILES:
                 self.tails = kc.TailsPass(Gcat, n)
+            if not self.rot and nprod != 6:
+                self.affine = None  # completion_split: torch ops
             # the epilogue rides the completion where no stencil precedes
             # it (a stencil fused in the kernel: st_comp below)
             self.completion = kc.CompletionPass(
                 mats.Btot, Rcat, n, rot=self.rot,
-                affine=self.affine if stencil is None else None)
+                affine=self.affine if stencil is None else None,
+                nprod=nprod)
             if (stencil is not None and self.rot and pad == 0
                     and n <= _CHAIN_MATMUL_MAX_TILES):
                 self._fuse_stencil(mats, Gcat, Rcat, stencil)
@@ -798,26 +811,31 @@ class LastAxisPass(nn.Module):
             if kc.next_tails_ok(n2 * T2, self.sl, n2, np.shape(Gcat2)[1],
                                 T2):
                 self.completion_nt = kc.CompletionPass(
-                    mats.Btot, Rcat, n, rot=True, next_tails=(Gcat2, n2))
+                    mats.Btot, Rcat, n, rot=True, next_tails=(Gcat2, n2),
+                    nprod=self.nprod)
 
-    def _split_kernels(self, mats, Gcat, Rcat, stencil, next_tails):
-        """The reduced grades' kernels: ``tails`` and ``completion_split``
-        on the unrotated route — the only one with a split form — or
-        ``NotImplementedError``."""
+    def _split_nprod(self, structural: bool) -> int:
+        """The kernels' product count at a reduced grade — the JAX
+        package's ``_kernel_nprod``: at ``default`` a rotated pass takes
+        its kernels (one product) only where they are a structural win — a
+        fused stencil, or tails chained out (``next_tails``) or in
+        (``tails_in``: a chain pass after one that chains them) — else 0,
+        the einsum form, as the JAX package's einsum pass; the unrotated
+        pass takes ``completion_split`` at every grade. Past 256 tiles the
+        pass raises ``NotImplementedError`` (the associative chain and the
+        supertile hierarchy have no split form), except a rotated pass
+        whose completion kernel runs (at most 512 tiles: the einsum form's
+        tails and solve, then ``completion_rot`` at the grade)."""
         T, n, S, p = self.T, self.n, self.S, self.grade
-        why = ("the rotated emit (completion_rot)" if self.rot else
-               "a fused stencil or tails chaining"
-               if stencil is not None or next_tails is not None else
-               f"the einsum form of a last-axis pass ({n} tiles of {T}, "
-               f"ΣK = {S}; the supertile hierarchy past "
-               f"{_CHAIN_MATMUL_MAX_TILES} tiles)"
-               if n > _CHAIN_MATMUL_MAX_TILES
-               or not kc.completion_ok(T, 8, n, S) else None)
-        if why:
-            refuse_split(p, why)
-        self.tails = kc.TailsPass(Gcat, n)
-        self.completion = kc.CompletionSplit(mats.Btot, Rcat, n, NPROD[p])
-        self.affine = None  # the epilogue runs as torch ops
+        nprod = NPROD[p]
+        if self.rot and p == "default" and not structural:
+            nprod = 0
+        if n > _CHAIN_MATMUL_MAX_TILES and not (
+                self.rot and nprod and kc.completion_ok(T, 8, n, S)):
+            refuse_split(p, f"the einsum form of a last-axis pass ({n} tiles "
+                         f"of {T}, ΣK = {S}; the supertile hierarchy past "
+                         f"{_CHAIN_MATMUL_MAX_TILES} tiles)")
+        return nprod
 
     def _fuse_stencil(self, mats, Gcat, Rcat, stencil):
         """The stencil's kernels, one tails + rotated completion pair per
@@ -840,7 +858,7 @@ class LastAxisPass(nn.Module):
             self.st_comp.append(kc.CompletionPass(
                 mats.Btot, Rcat, n, rot=True, stencil=dict(taps=taps,
                                                            **mode),
-                affine=self.affine))
+                affine=self.affine, nprod=self.nprod))
             self.register_buffer(f"st_R{i}", _f64(np.concatenate(
                 [Rn[:, :hlo], Rn[:, T - hhi:]], axis=1)))
             self.st_reach.append((hlo, hhi))
@@ -1423,10 +1441,14 @@ class RotationChain(nn.Module):
     tiled by its split width or 32 (:func:`chain_plans`). The epilogue goes
     to the final pass only (its aux arrays in the filter's own layout).
 
-    Tails chaining, at px6 (the JAX package's ``fuse_tails``): a non-final
-    pass is asked for the next pass's tails where the next pass has pad 0,
-    128-wide tiles, ΣK ≤ 8 and at most 512 tiles — the JAX package's
-    chaining gate. Where its kernel emits them (the port's kernel gate,
+    Tails chaining, at the px grades (the JAX package's ``fuse_tails``;
+    at ``default`` too, where it is the structural win that puts a pass on
+    its kernels): a non-final pass is asked for the next pass's tails where
+    the next pass has pad 0, 128-wide tiles, ΣK ≤ 8 and at most 512 tiles
+    — the JAX package's chaining gate — and, where this pass's completion
+    kernel can emit them too (128-wide tiles, ΣK ≤ 8, at most 512 tiles),
+    that next pass is told it may receive them
+    (``LastAxisPass(tails_in=True)``). Where its kernel emits them (the port's kernel gate,
     :func:`.kernels.completion.next_tails_ok`; the JAX package's
     ``_tails_gate`` also needs its TPU line block to hold whole next-pass
     extents, so on some line counts it reads the tails instead), the next
@@ -1452,17 +1474,31 @@ class RotationChain(nn.Module):
                 "(StagedPass, the sequential core on that axis), as the JAX "
                 "package's apply_filter_fused does")
         fuse = NPROD.get(matmul_precision, 0) > 0
+
+        def order_of(i):
+            return sum(s.order for s in groups[order[i]])
+
+        def asks(i):  # pass i asks for pass i + 1's tails
+            if not fuse or i + 1 >= Ds:
+                return False
+            T2, n2, pad2 = plans[order[i + 1]]
+            return pad2 == 0 and T2 == 128 and order_of(i + 1) <= 8 and (
+                n2 <= 512)
+
+        def hands(i):  # ... and its completion kernel can emit them
+            T, n, _ = plans[order[i]]
+            return asks(i) and T == 128 and order_of(i) <= 8 and n <= 512
+
         passes = [None] * Ds
         for i in reversed(range(Ds)):  # the next pass first: its tail rows
             ax, final, nt = order[i], i == Ds - 1, None
-            if fuse and not final:
-                nxt, (T2, n2, pad2) = passes[i + 1], plans[order[i + 1]]
-                if pad2 == 0 and T2 == 128 and nxt.S <= 8 and n2 <= 512:
-                    nt = (nxt.Gcat, n2, T2)
+            if asks(i):
+                nxt, (T2, n2, _) = passes[i + 1], plans[order[i + 1]]
+                nt = (nxt.Gcat, n2, T2)
             passes[i] = LastAxisPass(
                 groups[ax], plans[ax], clamp, matmul_precision,
                 rot_axes=Ds, epilogue=epilogue if final else None,
-                next_tails=nt)
+                next_tails=nt, tails_in=i > 0 and hands(i - 1))
         self.passes = nn.ModuleList(passes)
         self.axes, self.shape = order, tuple(shape)
 
@@ -1770,9 +1806,11 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     # (px6, px4, px3, and default where they are a structural win: the
     # 2-D pair and volumes); at "highest" and the split-einsum grades the
     # chain and the per-axis loop run einsum passes. At the reduced grades
-    # (px3, px4, default) only the kernels with a split-bf16 form run —
-    # final2d_split, rows_final, completion_split — and every other route
-    # raises (planner.refuse_split)
+    # (px3, px4, default) the kernels with a split-bf16 form run —
+    # final2d_split, rows_final, completion_split, the rotated completions
+    # (a chain's and the per-axis loop's passes; at default only where
+    # LastAxisPass finds a structural win) — and every other route raises
+    # (planner.refuse_split)
     nprod = NPROD.get(matmul_precision, 0)
     px = nprod > 0
     pair2d = (px and Ds == 2 and set(groups) == {nd - 2, nd - 1}
@@ -1801,10 +1839,6 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     gscans = {ax: scans(ax) for ax in groups}
     if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
             and chain_plans(ext, gscans, tiles, clamp) is not None):
-        refuse_split(matmul_precision, "the rotation chain" + (
-            " on a volume's trailing pair after its rows pass"
-            if pre is not None else "") + " (its rotated emit at the grade "
-            "is ROADMAP Queue 2 item 3)")
         body = RotationChain(gscans, ext, tiles, spec.border,
                              matmul_precision, epilogue)
         return with_bank(body if pre is None
@@ -1823,11 +1857,11 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
                   ext[ax], int(np.prod(ext[ax + 1:], dtype=np.int64)),
                   scans(ax)) is None):
             # not at default: there the JAX package runs the einsum pass
-            # (its non-structural _kernel_nprod), which the port has not
+            # (its non-structural _kernel_nprod), as FusedAxisPass does
             stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
                                                 ext[ax + 1:], spec.border,
                                                 nprod))
-        else:  # raises at the reduced grades (its rotated emit)
+        else:  # its rotated kernels; at default its einsum form
             stages.append(FusedAxisPass(scans(ax), ax, ext,
                                         tiles[ax] or _TILE_DEFAULT,
                                         spec.border, matmul_precision, epi))

@@ -466,9 +466,9 @@ class CompletionPass(nn.Module):
     defaults) applies the taps along the scanned axis before the write:
     ``forward(x, N, prev, nxt)`` then takes the halo strips, prev
     (n, hp, q) and nxt (n, hn, q) — present where hp > 0 and hn > 0 — the
-    neighbour tiles' completed edge rows (module docstring). The twin
-    ``plain`` reads the whole output instead (:func:`_stencil_flat`), so
-    the strips get zero gradients, as in the JAX package's VJP.
+    neighbour tiles' completed edge rows (module docstring). The float32
+    twin reads the whole output instead (:func:`_stencil_flat`), so the
+    strips get zero gradients, as in the JAX package's VJP.
 
     ``next_tails = (Gcat2, n2)`` (rot only, no stencil, sl = 8): the next
     pass of a rotation chain scans this pass's line axis, n2 tiles of 128
@@ -478,30 +478,38 @@ class CompletionPass(nn.Module):
     ``tails2[c, s, (t·T + o)·ra + a] = Σ_j G2_v(c)[s, j]·Yr[t·T + o,
     (a·n2 + c)·128 + j]`` — the JAX package's ``braw2`` of
     ``_completion_ref``, flat. Summed in float64 from the float32 output,
-    in the kernel and in the twin, as :class:`TailsPass` sums them: the
-    twin is :class:`TailsPass`'s on the emitted output. The lines must
-    hold whole next-pass extents (:func:`next_tails_ok`).
+    in the kernel and in the twins, as :class:`TailsPass` sums them (the
+    JAX package splits them at the grade). The lines must hold whole
+    next-pass extents (:func:`next_tails_ok`).
 
     ``affine`` (an :class:`..epilogue.Affine`, not with ``next_tails``):
     the output becomes ``a·y + Σᵢ bᵢ·auxᵢ + c`` — after the stencil where
     there is one — and ``forward`` takes the k aux arrays after the halo
     strips, in the output's layout ((q, n, T), or (n·T, q) rotated).
 
-    Unrotated, the kernel (``completion``, ``completion_epi``) computes the
-    JAX package's px6 arithmetic on the tensor cores: six split-bf16
-    products (:func:`.split.prods`), the constant ``[Btot | Rcat]`` split
-    from float64 on the host into three chunks (``Bc_k`` (nv, 3, T·KP) in
-    the kernel's byte order, :func:`core_pack`; KP = :func:`tc_depth`;
-    :meth:`chunks` unpacks them), x and N into three on chip.
-    :meth:`split_plain` is that arithmetic in float32 on any device, the
-    kernel's split twin; :meth:`split_exact` its exact sum and the
-    kernel's bound about it; ``plain`` stays the float32 product, the twin
-    the CPU runs and the backward differentiates. The rotated entries run
-    float32 products.
+    ``nprod``: the grade's product count (:data:`.split.NPROD`), 6, 4, 3
+    or 1 (the unrotated pass takes no epilogue below 6). The kernels
+    compute the JAX package's arithmetic at the grade on the tensor cores
+    (``completion``, ``completion_epi`` at px6, ``completion_split`` at the
+    other grades; the rotated ``completion_rot``, ``completion_rot_epi`` and
+    ``completion_rot_tails`` at every grade):
+    ``nprod`` split-bf16 products (:func:`.split.prods`) on the signal rows,
+    :func:`.split.carry_nprod` on the carry rows, the constant
+    ``[Btot | Rcat]`` split from float64 on the host (``Bc_k`` (nv,
+    :func:`grade_chunks`, T·KP) in the kernels' byte order,
+    :func:`core_pack`; KP = :func:`tc_depth`; :meth:`chunks` unpacks them),
+    x and N on chip; rotated, the stencil and the epilogue follow in
+    float32. :meth:`split_plain` is that arithmetic in float32 on any
+    device, the kernels' split twin; :meth:`split_exact` its exact sum and
+    the kernels' bound about it (before a stencil or an epilogue). ``plain``
+    is the twin the CPU runs: at px6 the float32 product, at the other
+    grades :meth:`split_plain`; the backward differentiates the float32
+    product with the grade's constant (``_twin``; at px6 the constant
+    itself).
     """
 
     def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None,
-                 next_tails=None, affine=None):
+                 next_tails=None, affine=None, nprod: int = 6):
         super().__init__()
         R = np.asarray(Rcat, np.float64)
         nvr, T, S = R.shape
@@ -511,8 +519,14 @@ class CompletionPass(nn.Module):
             raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
         if stencil is not None and not rot:
             raise ValueError("the stencil consumer rides the rotated emit")
+        if nprod not in (1, 3, 4, 6):
+            raise ValueError(f"nprod {nprod}: the completion runs 6, 4, 3 "
+                             "or 1 products")
+        if nprod != 6 and not rot and affine is not None:
+            raise ValueError("completion_split has no epilogue: the "
+                             "unrotated pass below px6 takes none")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
-        self.rot = bool(rot)
+        self.rot, self.nprod = bool(rot), nprod
         if affine is not None and next_tails is not None:
             raise ValueError("the next pass's tails read the filter output: "
                              "no epilogue with next_tails")
@@ -550,27 +564,33 @@ class CompletionPass(nn.Module):
         Rp = np.zeros((nvr, T, self.sl))
         Rp[..., :S] = R
         Bv, Rv = _variants_like(Btot, Rp)
-        if self.rot:
-            # kernel operands: [Btotᵀ; Rcatᵀ] per variant, (nv, T + sl, T)
-            # (completion_rot_tails), and its transpose [Btot | Rcat],
-            # (nv, T, T + sl) (completion_rot: outputs as rows)
-            self.register_buffer("BR_v", _f32(np.concatenate(
-                [Bv.transpose(0, 2, 1), Rv.transpose(0, 2, 1)], axis=1)))
-            self.register_buffer("BT_v", _f32(np.concatenate([Bv, Rv],
-                                                             axis=2)))
+        # the split constant [Btot | Rcat | 0], (nv, nc, T·KP) bf16, in the
+        # kernels' byte order
+        self.register_buffer("Bc_k", tc_constant(Bv, Rv,
+                                                 grade_chunks(nprod)))
+        # the float32 product's operands: at px6 the constant, else the
+        # grade's (the sum of its chunks)
+        if nprod == 6:
+            self.register_buffer("B_v", _f32(_variants3(Btot)))
+            self.register_buffer("R_v", _f32(_variants3(R)))
         else:
-            # the split constant [Btot | Rcat | 0], (nv, 3, T, KP) bf16,
-            # in the kernel's byte order
-            self.register_buffer("Bc_k", tc_constant(Bv, Rv))
-        # twin operands
-        self.register_buffer("B_v", _f32(_variants3(Btot)))
-        self.register_buffer("R_v", _f32(_variants3(R)))
+            M = self.grade_constant()
+            self.register_buffer("B_v", M[..., :TILE].contiguous())
+            self.register_buffer("R_v", M[..., TILE:TILE + S].contiguous())
 
     @property
     def n_halos(self) -> int:
         return (self.hp > 0) + (self.hn > 0)
 
-    def plain(self, x, N, *rest):
+    def _next_tails(self, yf, G2):
+        """The next pass's tails of the rotated output yf in float64: its
+        lines (n·T·ra, n2, 128)."""
+        y2 = yf.reshape(-1, self.n2, TILE).double()
+        return tile_einsum("nst,qnt->nsq", G2, y2).float()
+
+    def _twin(self, x, N, *rest):
+        """The float32 product (then the flat stencil, the epilogue, the
+        next tails): linear, the backward's map; at px6 the CPU's twin."""
         aux = rest[self.n_halos:]
         y = (tile_einsum("nos,qns->qno", self.B_v, x)
              + tile_einsum("nou,nuq->qno", self.R_v, N[:, :self.S]))
@@ -583,44 +603,72 @@ class CompletionPass(nn.Module):
             yf = self.affine.apply(yf, aux)
         if self.n2 is None:
             return yf
-        # the next pass's lines, (n·T·ra, n2, 128), and its tails on them
-        y2 = yf.reshape(-1, self.n2, TILE).double()
-        return yf, tile_einsum("nst,qnt->nsq", self.G2_v64, y2).float()
+        return yf, self._next_tails(yf, self.G2_v64)
 
-    def split_plain(self, x, N, *aux):
-        """The unrotated kernel's arithmetic (class docstring) in float32:
-        ``Σ_(i,j) Bc_i·[x | Nᵀ]_j`` over the six pairs of
-        :func:`.split.prods`, smallest level first (the carry rows at
-        :func:`.split.carry_nprod`, also six), then the epilogue."""
-        if self.rot:
-            raise ValueError("the split twin is the unrotated kernel's")
+    def plain(self, x, N, *rest):
+        """The twin the CPU runs: the float32 product at px6, the split
+        arithmetic (:meth:`split_plain`) at the other grades."""
+        if self.nprod == 6:
+            return self._twin(x, N, *rest)
+        return self.split_plain(x, N, *rest)
+
+    def split_plain(self, x, N, *rest):
+        """The kernels' arithmetic (class docstring) in float32:
+        ``Σ_(i,j) Bc_i·[x | Nᵀ]_j`` over the pairs of :func:`.split.prods`
+        at ``nprod``, smallest level first (the carry rows at
+        :func:`.split.carry_nprod`); rotated, then the stencil on the halo
+        strips (:func:`_stencil_rows`, the kernel's per-tile form), the
+        epilogue, and the next tails (float64 sums of the float32 output by
+        ``G2_v``, the kernel's rows)."""
         Bc = self.chunks()[..., :TILE + self.sl].float()
-        y = split.pair_sum(6, lambda i, d: tile_einsum(
+        y = split.pair_sum(self.nprod, lambda i, d: tile_einsum(
             "nok,qnk->qno", Bc[:, i], d), torch.cat(
                 [x, N.permute(2, 0, 1)], dim=-1), TILE)
-        return y if self.affine is None else self.affine.apply(y, aux)
+        halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
+        if not self.rot:
+            return y if self.affine is None else self.affine.apply(y, aux)
+        yf = y.permute(1, 2, 0).reshape(-1, x.shape[0])
+        if self.taps:
+            prev = halos.pop(0) if self.hp else None
+            nxt = halos.pop(0) if self.hn else None
+            yf = _stencil_rows(yf, prev, nxt, self.taps, self.n, self.start,
+                               self.end)
+        if self.affine is not None:
+            yf = self.affine.apply(yf, aux)
+        if self.n2 is None:
+            return yf
+        return yf, self._next_tails(yf, self.G2_v.double())
 
     def chunks(self) -> torch.Tensor:
-        """The constant's three bf16 chunks, (nv, 3, T, KP), unpacked from
+        """The constant's bf16 chunks, (nv, nc, T, KP), unpacked from
         ``Bc_k`` (:func:`core_unpack`)."""
-        if self.rot:
-            raise ValueError("the split constant is the unrotated kernel's")
         return core_unpack(self.Bc_k, TILE, tc_depth(self.sl))
 
+    def grade_constant(self) -> torch.Tensor:
+        """``[Btot | Rcat]`` at the grade, the sum of its chunks in float32:
+        (nv, T, T + sl)."""
+        return self.chunks()[..., :TILE + self.sl].float().sum(1)
+
     def split_exact(self, x, N, drop=None):
-        """:func:`tc_exact` of the unrotated kernel (before an epilogue):
-        the exact sum of its six chunk products and its bound, per output
-        (q, n, T)."""
+        """:func:`tc_exact` of the kernels at ``nprod`` (before a stencil
+        or an epilogue): the exact sum of their chunk products and their
+        bound, per output — (q, n, T), or rotated (n·T, q)."""
         Bc = self.chunks()
         d = torch.cat([x, N.permute(2, 0, 1), x.new_zeros(
             x.shape[:2] + (Bc.shape[-1] - TILE - self.sl,))], dim=-1)
-        return tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
-            "nok,qnk->qno", m, v), drop)
+        ref, bound = tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
+            "nok,qnk->qno", m, v), drop, self.nprod)
+        if self.rot:
+            q = x.shape[0]
+            ref, bound = (a.permute(1, 2, 0).reshape(-1, q)
+                          for a in (ref, bound))
+        return ref, bound
 
     def _kernel(self, x, N, *rest):
         q, n = x.shape[0], self.n
         _check(x, "x", (q, n, TILE), x.device)
         _check(N, "N", (n, self.sl, q), x.device)
+        _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
         halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
         epi = ()
         if self.affine is not None:
@@ -628,9 +676,15 @@ class CompletionPass(nn.Module):
             shape = (n * TILE, q) if self.rot else (q, n, TILE)
             epi = (*_aux_ptrs(aux, self.k, shape, x.device),
                    self.epi_coef.data_ptr())
+        if not self.rot and self.nprod != 6:
+            _items_ok("completion_split", n, q, _TC_LINES)
+            y = torch.empty_like(x)
+            _launch("completion_split", (
+                x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
+                y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
+                self.nprod), x.device)
+            return y
         if not self.rot:
-            _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device,
-                   torch.bfloat16)
             _items_ok("completion", n, q, _TC_LINES)
             y = torch.empty_like(x)
             entry = "completion_epi" if epi else "completion"
@@ -640,7 +694,6 @@ class CompletionPass(nn.Module):
                 *((self.k,) if epi else ())), x.device,
                 f"sl={self.sl} carry rows")
             return y
-        _check(self.BR_v, "BR_v", self.BR_v.shape, x.device)
         if self.n2 is not None:
             return self._kernel_tails(x, N)
         prev = halos.pop(0) if self.hp else None
@@ -649,18 +702,17 @@ class CompletionPass(nn.Module):
             if h is not None:
                 _check(h, name, (n, rows, q), x.device)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
-        _check(self.BT_v, "BT_v", self.BT_v.shape, x.device)
-        _items_ok("completion_rot", n, q)
+        _items_ok("completion_rot", n, q, _TC_LINES)
         y = torch.empty((n * TILE, q), device=x.device)
         _launch_fitting("completion_rot_epi" if epi else "completion_rot", (
-            x.data_ptr(), N.data_ptr(), self.BT_v.data_ptr(),
+            x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
             0 if prev is None else prev.data_ptr(),
             0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),
-            *epi, y.data_ptr(), q, n, self.sl, self.BT_v.shape[0],
+            *epi, y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
             self.hp, self.hn, len(self.taps),
             int(self.taps != [] and self.start == "clamp"),
             int(self.taps != [] and self.end == "clamp"),
-            *((self.k,) if epi else ())), x.device,
+            *((self.k,) if epi else ()), self.nprod), x.device,
             f"sl={self.sl}, reach ({self.hp}, {self.hn}) and "
             f"{len(self.taps)} taps")
         return y
@@ -671,14 +723,14 @@ class CompletionPass(nn.Module):
             raise ValueError(f"{q} lines do not hold whole extents of the "
                              f"next pass ({n2} tiles of {TILE})")
         _check(self.G2_v, "G2_v", self.G2_v.shape, x.device)
-        _grid_ok("completion_rot_tails", n, q // TILE)
+        _items_ok("completion_rot_tails", n, q)
         y = torch.empty((n * TILE, q), device=x.device)
         t2 = torch.empty((n2, _SLOTS, n * q // n2), device=x.device)
-        _launch("completion_rot_tails", (
-            x.data_ptr(), N.data_ptr(), self.BR_v.data_ptr(),
+        _launch_fitting("completion_rot_tails", (
+            x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
             self.G2_v.data_ptr(), y.data_ptr(), t2.data_ptr(), q, n,
-            self.sl, self.BR_v.shape[0], n2, self.S2, self.G2_v.shape[0]),
-            x.device)
+            self.sl, self.Bc_k.shape[0], n2, self.S2, self.G2_v.shape[0],
+            self.nprod), x.device, "the chunks and two stages")
         return y, t2
 
     def forward(self, x, N, *rest):
@@ -690,91 +742,6 @@ class CompletionPass(nn.Module):
         if x.is_cuda:
             return _KernelFn.apply(self, x, N, *rest)
         return self.plain(x, N, *rest)
-
-
-class CompletionSplit(nn.Module):
-    """``completion(x, N)`` at a reduced precision grade: the unrotated
-    :class:`CompletionPass` (no stencil, no epilogue) as ``nprod``
-    split-bf16 products, the carry rows at :func:`.split.carry_nprod`
-    (``completion_split``, the tensor-core kernel of ``completion`` at the
-    grade; the JAX package's ``completion_pass(rot=False, nprod=n)`` at
-    nprod 1, 3, 4, which at 1 takes one product on the carries too).
-
-    Btot : (n|1, T, T);  Rcat : (n|1, T, S), S ≤ 56 carries in sl slots.
-    The constant ``[Btot | Rcat | 0]`` is split on the host, once, for
-    every variant, into two bf16 chunks (:func:`grade_chunks`) packed by
-    :func:`core_pack` (``Bc_k`` (1|3, 2, T·KP), KP = :func:`tc_depth`;
-    :meth:`chunks` unpacks them); x and N are split on chip. The twin
-    ``plain`` runs the same chunk products in float32, :meth:`split_exact`
-    is their exact sum and the kernel's bound about it; the kernel's
-    backward is the VJP of the float32 product with the constant's grade.
-    """
-
-    affine = None  # no epilogue in the kernel
-
-    def __init__(self, Btot, Rcat, n: int, nprod: int):
-        super().__init__()
-        if nprod not in (1, 3, 4):
-            raise ValueError(f"completion_split runs nprod 1, 3 or 4, not "
-                             f"{nprod}")
-        R = np.asarray(Rcat, np.float64)
-        nvr, T, S = R.shape
-        if T != TILE or np.shape(Btot)[1:] != (T, T):
-            raise ValueError(f"tiles must be {TILE} wide")
-        if S > _MAX_S:
-            raise ValueError(f"ΣK={S} exceeds the {_MAX_S}-row carry layout")
-        self.n, self.S, self.sl, self.nprod = int(n), S, slots_for(S), nprod
-        Rp = np.zeros((nvr, T, self.sl))
-        Rp[..., :S] = R
-        Bv, Rv = _variants_like(Btot, Rp)
-        self.register_buffer("Bc_k", tc_constant(Bv, Rv,
-                                                 grade_chunks(nprod)))
-
-    def chunks(self) -> torch.Tensor:
-        """The constant's bf16 chunks, (nv, 2, T, KP), unpacked from
-        ``Bc_k`` (:func:`core_unpack`)."""
-        return core_unpack(self.Bc_k, TILE, tc_depth(self.sl))
-
-    def _data(self, x, N):
-        """[x | Nᵀ]: (q, n, T + sl), the contraction's data rows."""
-        return torch.cat([x, N.permute(2, 0, 1)], dim=-1)
-
-    def plain(self, x, N):
-        Bc = self.chunks()[..., :TILE + self.sl].float()
-        return split.pair_sum(self.nprod, lambda i, d: tile_einsum(
-            "nok,qnk->qno", Bc[:, i], d), self._data(x, N), TILE)
-
-    def _twin(self, x, N):
-        """The float32 product with the constant's grade (the sum of its
-        chunks): linear, the backward's map."""
-        Bs = self.chunks()[..., :TILE + self.sl].float().sum(1)
-        return tile_einsum("nok,qnk->qno", Bs, self._data(x, N))
-
-    def split_exact(self, x, N, drop=None):
-        """:func:`tc_exact` of the kernel at its grade: the exact sum of
-        its chunk products and its bound, per output (q, n, T)."""
-        Bc = self.chunks()
-        d = torch.cat([self._data(x, N), x.new_zeros(
-            x.shape[:2] + (Bc.shape[-1] - TILE - self.sl,))], dim=-1)
-        return tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
-            "nok,qnk->qno", m, v), drop, self.nprod)
-
-    def _kernel(self, x, N):
-        q, n = x.shape[0], self.n
-        _check(x, "x", (q, n, TILE), x.device)
-        _check(N, "N", (n, self.sl, q), x.device)
-        _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
-        _items_ok("completion_split", n, q, _TC_LINES)
-        y = torch.empty_like(x)
-        _launch("completion_split", (
-            x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), y.data_ptr(),
-            q, n, self.sl, self.Bc_k.shape[0], self.nprod), x.device)
-        return y
-
-    def forward(self, x, N):
-        if x.is_cuda:
-            return _KernelFn.apply(self, x, N)
-        return self.plain(x, N)
 
 
 # ---------------------------------------------------------------------------

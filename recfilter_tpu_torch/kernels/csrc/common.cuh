@@ -1,6 +1,6 @@
 // common.cuh: device helpers shared by the port's kernels — the tile's
 // matrix variant, row staging into shared memory, and the register-tiled
-// fp32 SIMT GEMM that final2d.cu and completion.cu both run.
+// fp32 SIMT GEMM that final2d.cu, final2d_stencil.cu and split_mm.cu run.
 #pragma once
 
 #include <cuda_runtime.h>

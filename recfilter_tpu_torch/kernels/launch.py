@@ -6,9 +6,10 @@ autograd rule for all of them.
   * ``ENTRIES`` — each launch entry point ``<entry>_launch`` and the kernel
     whose library holds it. A kernel has one entry of its own name, except
     ``int_seg_scan``, whose two phases launch separately (``int_seg_carries``
-    and ``int_seg_fix``), ``completion``, whose rotated emit (with its optional
-    stencil consumer) is a kernel of its own, ``completion_rot``, as is the
-    rotated emit that also extracts the next pass's tails,
+    and ``int_seg_fix``), ``completion`` (the unrotated px6 product), whose
+    rotated emit at every grade (with its optional stencil consumer) is a
+    source of its own, ``completion_rot`` (its ``nprod`` argument), as is
+    the rotated emit that also extracts the next pass's tails,
     ``completion_rot_tails``, and
     ``tails``, whose extra-row form (a stencil's halo bases) is
     ``tails_extra``. The learnable executor's two kernels, whose matrices
@@ -28,8 +29,8 @@ autograd rule for all of them.
     solve); the headline benchmark's bandwidth probe is ``copy``. The
     reduced precision grades (default, px3, px4) run ``final2d_split``,
     ``completion_split`` (``completion``'s tensor-core kernel at the grade,
-    a source of its own so that both build in parallel) and
-    ``rows_final`` (its ``nprod`` argument); the
+    a source of its own so that both build in parallel), the rotated
+    entries and ``rows_final`` (their ``nprod`` argument); the
     ``scripts/`` probes' studies are ``split_mm``'s three entries
     (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``),
     ``ozaki``'s two (``ozaki_i8``, the int8 Ozaki dual completion, and
@@ -87,10 +88,11 @@ SIGNATURES = {
                   ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
                        ("completion_epi", 9, 5),
-                       ("completion_rot", 7, 9),
-                       ("completion_rot_epi", 12, 10),
-                       ("completion_rot_tails", 6, 7),
                        ("completion_traced", 5, 3)),
+    "completion_rot": _sig("completion_rot", ("completion_rot", 7, 10),
+                           ("completion_rot_epi", 12, 11)),
+    "completion_rot_tails": _sig("completion_rot_tails",
+                                 ("completion_rot_tails", 6, 8)),
     "completion_split": _sig("completion_split", ("completion_split", 4, 5)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 5)),

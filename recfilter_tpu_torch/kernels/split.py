@@ -30,8 +30,8 @@ products cost little.
 
 On the card the split grades run on bf16 tensor cores (``csrc/split.cuh``'s
 ``mma.sync`` for ``final2d_split``; ``csrc/wgmma.cuh``'s core, templated
-on the product count, for ``completion_split`` and ``rows_final``, as for
-the px6 completions' six products):
+on the product count, for ``completion_split``, ``rows_final`` and the
+rotated completions, as for the px6 completions' six products):
 a bf16 product is exact in float32, so each chunk product accumulates in
 float32 as on the TPU. The twins here upcast the bf16 chunks to float32 and
 take float32 products, the same arithmetic in another summation order.
@@ -51,10 +51,10 @@ import numpy as np
 import torch
 
 # The port's grades and their product counts: the JAX package's
-# ``dimfuse._kernel_nprod`` for float32 storage, with ``default`` at one
-# product everywhere. There ``structural=False`` gives 0 at ``default``, a
-# single-pass einsum, which the port does not have: such routes refuse the
-# grade (``planner``), so the count has no second form.
+# ``dimfuse._kernel_nprod`` for float32 storage. At ``default`` its
+# ``structural=False`` gives 0 (the einsum pass) where a kernel brings no
+# structural win: ``dimfuse.LastAxisPass`` applies that rule to the rotated
+# passes; the other routes take one product.
 NPROD = {"default": 1, "px3": 3, "px4": 4, "px6": 6}
 
 

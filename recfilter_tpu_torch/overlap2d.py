@@ -180,7 +180,8 @@ class Fused2DPx(nn.Module):
         if nprod != 6 and stencil2d is not None:
             raise NotImplementedError(
                 f"a fused stencil2d bank at {nprod} products: final2d_stencil "
-                "has no split-bf16 form (ROADMAP Queue 1 item 4)")
+                "has no split-bf16 form (ROADMAP Queue 1 item 4; its kernel "
+                "form is ROADMAP Queue 2 item 2)")
         self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:

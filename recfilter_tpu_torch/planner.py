@@ -32,10 +32,17 @@ are the JAX package's split-bf16 product counts 3, 4 and 1
 (``overlap2d.Fused2DPx`` on ``final2d_split``), volumes (the rows pass
 ``overlap2d.FusedRowsPx`` on ``rows_final`` at the grade, then the 2-D
 executor), the rows pass of the per-axis loop at px3 and px4 (at
-``default`` the JAX package runs its einsum pass there), and the
-unrotated last-axis pass (``dimfuse.LastAxisPass`` on ``completion_split``;
-a call on fewer than 8 lines takes its einsum form at the grade's
-products, as in the JAX package). Every other route raises
+``default`` the JAX package runs its einsum pass there), the unrotated
+last-axis pass (``dimfuse.LastAxisPass`` on ``completion_split``), and
+the rotated one — the rotation chain (a volume's trailing pair after its
+rows pass included), the per-axis loop's non-last axes
+(``dimfuse.FusedAxisPass``) and ``rotate_emit`` — on ``completion_rot``,
+``completion_rot_epi`` and ``completion_rot_tails`` at the grade (at
+``default`` only where the JAX package finds a structural win: a fused
+stencil or chained tails); where a pass's kernels do not apply (fewer
+than 8 lines, other tiles than 128, ΣK > 56, or at ``default`` no
+structural win) it takes its einsum form at the grade's products, as in
+the JAX package. Every other route raises
 ``NotImplementedError`` at those grades, naming ROADMAP Queue 1 item 4;
 no route runs another grade in their place. The routes are allowed where
 the grade enters: ``dimfuse.fused_filter_module``,
@@ -64,7 +71,7 @@ _SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default",
                          "high", "f32x3", "f32x4", "f32x6", "f32x9")
 
 # The reduced grades: split-bf16 products on the 2-D executor, the rows
-# pass and the last-axis pass only (module docstring).
+# pass and the last-axis passes (module docstring).
 SPLIT_GRADES = ("px3", "px4", "default")
 SPLIT_ITEM = "ROADMAP Queue 1 item 4"
 # The backends (besides ``einsum``) a reduced grade runs on: ``overlap_k``
@@ -79,8 +86,8 @@ def refuse_split(matmul_precision: str, route: str) -> None:
         raise NotImplementedError(
             f"{route} has no split-bf16 form at matmul_precision="
             f"{matmul_precision!r}: {SPLIT_ITEM} (the reduced grades run "
-            "the 3-touch 2-D executor, volumes, the rows pass at px3 and px4 "
-            "and the unrotated last-axis pass)")
+            "the 3-touch 2-D executor, volumes, the rows pass at px3 and px4, "
+            "the last-axis passes and the rotation chain)")
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
             "scan", "oracle")

@@ -203,10 +203,13 @@ def test_unported_precisions_raise(precision):
     chain's einsum forms at six and three bf16 products), within their
     bounds of the oracle (4e-6, 2e-4: the random-filter bounds of
     ``tests/test_fuzz.py``) and twice those of the JAX package. The
-    reduced grades (px3, px4, default) run the 3-touch executor and the
-    unrotated last-axis pass; what is not ported of them is every other
-    route, which raises naming the ROADMAP item — here the rotated emit
-    and a fused ``stencil2d`` bank on the same filter."""
+    reduced grades (px3, px4, default) run the 3-touch executor, the
+    last-axis passes and the rotation chain: here the rotated emit
+    (``rotate_emit=2``: ``completion_rot`` at px3 and px4, its einsum form
+    at ``default``), within the grade's bound of the oracle and twice it
+    of the JAX package's ``realize()``. What is not ported of them raises
+    naming the ROADMAP item — here a fused ``stencil2d`` bank on the same
+    filter (``final2d_stencil``'s split form, Queue 2 item 2)."""
     F = _build(rft, 256, 256, _img(256, 256))
     if precision in ("f32x6", "high"):
         bound = {"f32x6": 4e-6, "high": 2e-4}[precision]
@@ -225,16 +228,34 @@ def test_unported_precisions_raise(precision):
         np.testing.assert_array_equal(got2, got)
         return
     F.set_plan(matmul_precision=precision)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
         F.as_func(stencil2d=[[(0, 1, 1.0)]], device="cpu")
-    Fx = rft.RecFilter("XOnly")
-    x, y = rft.Dim("x", 256), rft.Dim("y", 256)
-    Fx[y, x] = _img(256, 256)
-    Fx.add_filter(+x, rft.gaussian_weights(5.0, 3))
-    Fx.split(x, 128)
-    Fx.set_plan(matmul_precision=precision, rotate_emit=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        Fx.as_func(device="cpu")
+    bound = {"px3": 1e-4, "px4": 8e-5, "default": 3e-2}[precision]
+    img = _img(256, 256)
+    outs = []
+    for rf in (rft, jrf):
+        Fx = rf.RecFilter("XOnly")
+        x, y = rf.Dim("x", 256), rf.Dim("y", 256)
+        Fx[y, x] = img
+        Fx.add_filter(+x, rf.gaussian_weights(5.0, 3))
+        Fx.split(x, 128)
+        Fx.set_plan(matmul_precision=precision, rotate_emit=2)
+        outs.append(Fx)
+    Fx, Fj = outs
+    mod = Fx.as_func(device="cpu")
+    assert isinstance(mod, tdf.RotatedPass)
+    comp = mod.body.completion
+    if precision == "default":
+        assert comp is None  # no structural win: the einsum form
+    else:
+        assert comp.rot and comp.nprod == {"px3": 3, "px4": 4}[precision]
+    got = mod(torch.from_numpy(img)).numpy()
+    want = jsc.oracle_apply(Fx.spec, img.astype(np.float64)).T
+    peak = np.abs(want).max()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= bound * peak
+    jout = np.asarray(Fj.realize(jnp.asarray(img)))
+    assert np.abs(got - jout).max() <= 2 * bound * peak
 
 
 def test_untiled_and_other_backends_raise():

@@ -467,10 +467,24 @@ def test_persistent_walk_bounds(n, q, ok):
 
 
 def test_rotated_operand_is_the_transpose():
-    """``completion_rot`` reads ``BT_v`` = [Btot | Rcat] (outputs as rows),
-    the transpose of ``completion_rot_tails``' ``BR_v``, per variant."""
+    """The rotated entries (``completion_rot``, ``completion_rot_tails``)
+    emit the product transposed, not the operand: at each grade they read
+    the unrotated kernels' ``Bc_k`` — ``completion``'s at px6,
+    ``completion_split``'s at 4, 3 and 1 products — the constant [Btot |
+    Rcat | 0] in the grade's chunks (three at px6, two else), in the
+    descriptor order; its chunks sum to [Btot | Rcat] within the grade's
+    split."""
     rng = np.random.default_rng(13)
-    comp = tc.CompletionPass(_stack("clamp", T, T, rng, 0.1),
-                             _stack("clamp", T, 6, rng), N_TILES, rot=True)
-    assert comp.BT_v.shape == (3, T, T + 8)
-    assert torch.equal(comp.BT_v, comp.BR_v.transpose(1, 2))
+    Bs, Rs = _stack("clamp", T, T, rng, 0.1), _stack("clamp", T, 6, rng)
+    for nprod in (6, 4, 3, 1):
+        comp = tc.CompletionPass(Bs, Rs, N_TILES, rot=True, nprod=nprod)
+        flat = tc.CompletionPass(Bs, Rs, N_TILES, nprod=nprod)
+        nc = 3 if nprod == 6 else 2
+        assert comp.Bc_k.dtype == torch.bfloat16
+        assert comp.Bc_k.shape == (3, nc, T * tc.tc_depth(8))
+        assert torch.equal(comp.Bc_k, flat.Bc_k)
+        M = comp.grade_constant().double()
+        want = np.concatenate([tc._variants3(Bs), tc._variants3(Rs),
+                               np.zeros((3, T, 2))], axis=2)
+        assert np.abs(M.numpy() - want).max() <= 2.0 ** (
+            -16 if nc == 2 else -24) * np.abs(want).max()

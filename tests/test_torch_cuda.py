@@ -854,11 +854,10 @@ def test_completion_rot_tails_matches_twin(kind, ra, n2, dev):
 @pytest.mark.parametrize("shape", [(102400, 4, 4), (512, 320, 4)],
                          ids=["K3", "K6"])
 def test_completion_rot_is_bit_equal_to_completion_rot_tails(shape, dev):
-    """completion_rot (the persistent, line-major product) and
-    completion_rot_tails (common.cuh's gemm_tile) sum each output in one
-    order — fmaf over the x rows, then the carry rows, ascending from 0 —
-    so on real-valued N(0,1) input their outputs are equal bit for bit, at
-    K3's and K6's first-pass shapes."""
+    """completion_rot and completion_rot_tails run one product
+    (completion_rot.cuh: the same split-bf16 wgmma steps on the same
+    staged samples), so on real-valued N(0,1) input their outputs are
+    equal bit for bit, at K3's and K6's first-pass shapes (px6)."""
     q, n, n2 = shape
     rng = np.random.default_rng(q + n)
     Btot = _stack("clamp", T, T, n, rng, 0.1)
@@ -1739,7 +1738,7 @@ def test_completion_split_matches_twin(kind, nprod, S, q, dev):
     n = 3
     B = _stack(kind, T, T, n, rng)
     R = _stack(kind, T, S, n, rng, 0.1)
-    mod = tc.CompletionSplit(B, R, n, nprod).to(dev)
+    mod = tc.CompletionPass(B, R, n, nprod=nprod).to(dev)
     x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32))
     N = torch.zeros((n, mod.sl, q))
     N[:, :S] = torch.from_numpy(
@@ -1966,3 +1965,146 @@ def test_headline_at_the_split_einsum_grades_on_the_card(precision, bound,
     assert tl.LAUNCHES == _only()
     want = scan_core.oracle_apply(F.spec, img.astype(np.float64))
     assert np.abs(y - want).max() <= bound * np.abs(want).max()
+
+
+# ------------------------------------------ the rotated emit at the grades
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("nprod", [1, 3, 4, 6])
+@pytest.mark.parametrize("S,q", [(6, 300), (29, 77), (56, 8), (2, 5001),
+                                 (13, 50)])
+def test_completion_rot_at_the_grades(kind, nprod, S, q, dev):
+    """``completion_rot`` at each grade (one to four carry k16 steps,
+    ragged 64-line items, rows not 16-byte aligned at q = 5001, one and
+    three variants) within 1e-5 of its split twin's peak and within
+    ``split_exact``'s bound of its chunk products' exact sum at every
+    output; without the level-1 pair (0, 1) (px3, px4, px6) the exact sum
+    lies outside that bound at some output."""
+    rng = np.random.default_rng(S * 10 + nprod)
+    n = 3
+    mod = tc.CompletionPass(_stack(kind, T, T, n, rng, 0.1),
+                            _stack(kind, T, S, n, rng), n, rot=True,
+                            nprod=nprod).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32))
+    N = torch.zeros((n, mod.sl, q))
+    N[:, :S] = torch.from_numpy(rng.standard_normal((n, S, q)).astype(
+        np.float32))
+    x, N = x.to(dev), N.to(dev)
+    tl.reset_launches()
+    y = mod(x, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot=1)
+    assert y.shape == (n * T, q)
+    assert _rel(y, mod.split_plain(x, N)) <= 1e-5
+    assert _within(y, *mod.split_exact(x, N))
+    if nprod > 1:
+        assert not _within(y, *mod.split_exact(x, N, (0, 1)))
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4, 6])
+@pytest.mark.parametrize("taps,start,end", [
+    ([(10, 0.25), (-1, -2.0), (-12, 1.0)], "zero", "clamp"),
+    ([(3, 1.0), (0, -0.5)], "clamp", "zero"),
+    ([(-128, 1.0), (128, 0.5), (0, 2.0)], "clamp", "clamp")])
+def test_completion_rot_stencil_at_the_grades(taps, start, end, nprod, dev):
+    """The fused stencil at each grade (its reach up to a whole tile each
+    way), alone and with an affine epilogue of two aux arrays after it:
+    within 1e-5 of the split twin's peak (the twin's stencil on the same
+    halo strips: the same float32 arithmetic on the tile)."""
+    rng = np.random.default_rng(nprod)
+    n, S, q = 4, 3, 1030
+    Btot, Rcat = _stack("clamp", T, T, n, rng, 0.1), _stack("clamp", T, S,
+                                                            n, rng)
+    st = {"taps": taps, "start": start, "end": end}
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.from_numpy(rng.standard_normal((n, 8, q)).astype(np.float32)
+                         ).to(dev)
+    for aff in (None, _affine(2)):
+        mod = tc.CompletionPass(Btot, Rcat, n, rot=True, stencil=st,
+                                affine=aff, nprod=nprod).to(dev)
+        halos = _halos_flat(flat.plain(x, N), n, mod.hp, mod.hn)
+        aux = _aux((n * T, q), 0 if aff is None else aff.k, dev, 40)
+        tl.reset_launches()
+        y = mod(x, N, *halos, *aux)
+        torch.cuda.synchronize()
+        entry = "completion_rot" if aff is None else "completion_rot_epi"
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        assert _rel(y, mod.split_plain(x, N, *halos, *aux)) <= 1e-5
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4, 6])
+@pytest.mark.parametrize("ra,n2,kind", [(1, 3, "clamp"), (5, 2, "uniform"),
+                                        (2, 3, "clamp")],
+                         ids=["image", "volume", "volume-3"])
+def test_completion_rot_tails_at_the_grades(ra, n2, kind, nprod, dev):
+    """``completion_rot_tails`` at each grade on N(0,1) input: its output
+    bit-equal to ``completion_rot``'s (the same products), its tails
+    bit-equal to the ``tails`` kernel's on that output (fp64, one fma a
+    line ascending: what the next pass would read unchained), pad slots
+    zero; the output within 1e-5 of the split twin's peak."""
+    rng = np.random.default_rng(ra * 10 + n2 + nprod)
+    n, S, S2 = 3, 6, 5
+    q = ra * n2 * T
+    Btot, Rcat = _stack(kind, T, T, n, rng, 0.1), _stack(kind, T, S, n, rng)
+    G2 = _stack(kind, S2, T, n2, rng, 0.1)
+    chained = tc.CompletionPass(Btot, Rcat, n, rot=True, next_tails=(G2, n2),
+                                nprod=nprod).to(dev)
+    flat = tc.CompletionPass(Btot, Rcat, n, rot=True, nprod=nprod).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.zeros((n, 8, q), device=dev)
+    N[:, :S] = torch.from_numpy(rng.standard_normal((n, S, q)).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    y, t2 = chained(x, N)
+    yf = flat(x, N)
+    t_un = tc.TailsPass(G2, n2).to(dev)(yf.reshape(-1, n2, T))
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot_tails=1, completion_rot=1,
+                                tails=1)
+    assert t2.shape == (n2, 8, n * T * ra) and not t2[:, S2:].any()
+    assert torch.equal(y, yf) and torch.equal(t2, t_un)
+    assert _rel(y, chained.split_plain(x, N)[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("grade", ["px3", "px4", "default"])
+def test_rotation_chain_at_the_grades(grade, dev):
+    """The rotation chain at the grade through ``as_func``: K1's filter
+    (ΣK = 12 a axis) at 256², a volume chained x → y (40 × 128 × 256), and
+    a volume whose trailing pair declines after its rows pass (128 × 16 ×
+    128, the chain per z slice); launch counts (at ``default`` the passes
+    with no structural win run their einsum form), within the grade's
+    bound of the f64 oracle, chained = unchained bit for bit."""
+    bound = {"px3": 1e-4, "px4": 8e-5, "default": 3e-2}[grade]
+    w3 = rft.gaussian_weights(5.0, 3)
+    g = lambda ax, c=True: (ax, c, w3[0], tuple(w3[1:]))  # noqa: E731
+    px = grade != "default"
+    cases = [  # (shape, scans, tiles, launches)
+        ((256, 256), [g(1), g(1, False), g(1), g(1, False), g(0),
+                      g(0, False), g(0), g(0, False)], None,
+         dict(tails=2, completion_rot=2) if px else {}),
+        ((40, 128, 256), [g(0), g(1), g(2)], (0, T, T),
+         dict(tails=1, completion_rot_tails=1, completion_rot=1)),
+        ((128, 16, 128), [g(0), g(2), g(2, False), g(1)], None,
+         dict(rows_tails=1, rows_final=1,
+              **(dict(tails=128, completion_rot=128) if px else {})))]
+    rng = np.random.default_rng(1)
+    for shape, scans, tiles, launches in cases:
+        spec = _chain_spec(shape, scans, tiles=tiles)
+        img = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+        mod = tdf.fused_filter_module(spec, grade).to(dev)
+        x = torch.from_numpy(img).to(dev)
+        tl.reset_launches()
+        got = mod(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(**launches), (shape, tl.LAUNCHES)
+        want = rft.oracle_apply(spec, img.astype(np.float64))
+        err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+        assert err <= bound, (shape, err)
+        if isinstance(mod, tdf.RotationChain) and any(
+                p.completion_nt is not None for p in mod.passes):
+            for p in mod.passes:
+                p.completion_nt = None  # unchained: each pass its tails
+            assert torch.equal(mod(x), got)

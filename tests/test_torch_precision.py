@@ -253,7 +253,7 @@ def test_completion_split_twin_matches_completion_pass(clamp, n, q, nprod):
     x = _img(q, n, T, seed=5)
     N = _img(n, 8, q, seed=6)
     N[:, S:] = 0.0
-    mod = tc.CompletionSplit(np.asarray(m.Btot), Rc, n, nprod)
+    mod = tc.CompletionPass(np.asarray(m.Btot), Rc, n, nprod=nprod)
 
     def jax_pass(xk, Nk, k):
         return np.asarray(jc.completion_pass(
@@ -315,7 +315,8 @@ def test_the_slice_through_as_func(kind, shape, grade):
     mod = Ft.as_func(device="cpu")
     if kind == "1-D":
         assert isinstance(mod.body, tdf.LastAxisPass) and not mod.body.rot
-        assert isinstance(mod.body.completion, tc.CompletionSplit)
+        assert isinstance(mod.body.completion, tc.CompletionPass)
+        assert not mod.body.completion.rot
         assert mod.body.completion.nprod == split.NPROD[grade]
     else:
         assert isinstance(mod, Fused2DPx)
@@ -367,6 +368,20 @@ def _x_only(h, w, tile=128):
     return F
 
 
+def _chained():
+    """The σ=5 Gaussian on the three axes of a 40 × 128 × 256 volume: the
+    rows pass declines z (not a tile multiple), so the chain runs all
+    three; its x pass hands the y pass its tails (z takes 32-wide tiles,
+    no kernel)."""
+    z, y, x = rft.Dim("z", 40), rft.Dim("y", 128), rft.Dim("x", 256)
+    F = rft.RecFilter("Chained")
+    F[z, y, x] = _img(40, 128, 256, scale=0.01)
+    for d in (+z, +y, +x):
+        F.add_filter(d, rft.gaussian_weights(5.0, 3))
+    F.split({y: 128, x: 128})
+    return F
+
+
 def _as_func(F, grade, **plan):
     F.set_plan(matmul_precision=grade, **plan)
     return F.as_func(device="cpu")
@@ -379,14 +394,8 @@ def _chained_pass(grade):
                             next_tails=(G, 2, 128))
 
 
+# the routes that still have no split form at the reduced grades
 ROUTES = {
-    "rows pass": lambda g: _as_func(_y_only(512, 256), g),
-    "volumes": lambda g: _as_func(_volume(), g),
-    "rotated emit": lambda g: _as_func(_x_only(256, 256), g, rotate_emit=2),
-    "tails chaining": _chained_pass,
-    "rotation chain": lambda g: _as_func(_declined2d(), g),
-    "FusedAxisPass": lambda g: tdf.FusedAxisPass(
-        [tspec.Scan(0, True, 1.0, (0.5,))], 0, (256, 64), 32, "zero", g),
     "strip kernels": lambda g: _as_func(_x_only(64, 256), g,
                                         backend="pallas"),
     "FIR band": lambda g: tfir.fir_pass_last(
@@ -394,8 +403,6 @@ ROUTES = {
     "supertile hierarchy": lambda g: tdf.hierarchical_dim_pass(
         torch.zeros(200_000), 0, [tspec.Scan(0, True, 1.0, (0.5,))],
         "zero", g),
-    "einsum form (lines)": lambda g: _as_func(_x_only(4, 256), g)(
-        torch.zeros(4, 256)),
     "HIGHEST pair": lambda g: _as_func(_declined2d(), g,
                                        backend="overlap_k"),
 }
@@ -413,26 +420,62 @@ ROUTES["final2d_stencil"] = _stencil_route
 # the routes that have a split form now, and the grades they run at: the
 # last-axis einsum form (fewer than 8 lines: the JAX package's split
 # einsum at the grade's products), volumes (rows_final, then
-# final2d_split) and the per-axis loop's rows pass at px3 and px4 (at
-# default the JAX package runs the einsum pass there, which still raises)
+# final2d_split), the per-axis loop's rows pass (rows_final at px3 and
+# px4; at default its FusedAxisPass, the einsum pass of the JAX package),
+# and the rotated routes (the rotated completions at px3 and px4; at
+# default the kernels where the JAX package finds a structural win —
+# chained tails — else the einsum form): rotate_emit (its output
+# rotated), tails chained between a chain's passes (:func:`_chained`),
+# the chain on the declined pair, and FusedAxisPass (a y extent the rows
+# pass declines)
 RUNS = {"einsum form (lines)": (lambda: _x_only(4, 256), GRADES),
         "volumes": (_volume, GRADES),
-        "rows pass": (lambda: _y_only(512, 256), ["px3", "px4"])}
+        "rows pass": (lambda: _y_only(512, 256), GRADES),
+        "rotated emit": (lambda: _x_only(256, 256), GRADES),
+        "tails chaining": (lambda: _chained(), GRADES),
+        "rotation chain": (_declined2d, GRADES),
+        "FusedAxisPass": (lambda: _y_only(320, 256), GRADES)}
+PLANS = {"rotated emit": dict(rotate_emit=2)}
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
+def _route_of(route, mod, grade):
+    """The module ``as_func`` built takes the route its RUNS entry names
+    (kernels at the grade where the JAX package takes them)."""
+    nprod = split.NPROD[grade]
+    if route == "rotated emit":
+        comp = mod.body.completion
+        assert comp is None if grade == "default" else comp.nprod == nprod
+    elif route in ("tails chaining", "rotation chain"):
+        assert isinstance(mod, tdf.RotationChain)
+        if route == "tails chaining":
+            assert mod.tails_in_taken == [False, True, False]
+            assert [p.nprod for p in mod.passes] == [nprod, nprod, 0 if
+                                                     grade == "default"
+                                                     else nprod]
+    elif route == "FusedAxisPass":
+        assert isinstance(mod, tdf.FusedAxisPass)
+        comp = mod.body.completion
+        assert comp is None if grade == "default" else comp.nprod == nprod
+
+
+@pytest.mark.parametrize("route", list(ROUTES) + list(RUNS))
 @pytest.mark.parametrize("grade", GRADES)
 def test_routes_without_a_split_form_raise(route, grade):
     """No route runs another grade, another device or a twin in place of
-    a reduced grade: each without a split form names the ROADMAP item.
-    The routes of :data:`RUNS` have one at their grades: each runs there,
-    within the grade's bound of the oracle."""
+    a reduced grade: each without a split form (:data:`ROUTES`) names the
+    ROADMAP item. The routes of :data:`RUNS` have one at their grades: each
+    runs there, on the route its entry names, within the grade's bound of
+    the oracle."""
     make, grades = RUNS.get(route, (None, ()))
     if grade in grades:
         F = make()
         img = F._image
-        got = _as_func(F, grade)(torch.from_numpy(img)).numpy()
+        mod = _as_func(F, grade, **PLANS.get(route, {}))
+        got = mod(torch.from_numpy(img)).numpy()
+        _route_of(route, mod, grade)
         want = tsc.oracle_apply(F.spec, img.astype(np.float64))
+        if route in PLANS:
+            want = want.T  # the rotated emit
         assert np.abs(got - want).max() <= BOUNDS[grade] * np.abs(want).max()
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):

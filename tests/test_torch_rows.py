@@ -717,21 +717,38 @@ def test_fused_rows_px_matches_jax_at_the_grades(border, grade):
 
 
 def test_reduced_grade_routes_without_a_kernel_raise(monkeypatch):
-    """Where the JAX package leaves the kernels at a reduced grade the
-    port raises, naming the item: a y-only filter at ``default`` (the JAX
-    package's einsum pass, spied), and a volume whose trailing pair
-    declines (the JAX package's rotation chain on the pair, ROADMAP Queue
-    2 item 3)."""
+    """The routes the port refused at the reduced grades until the
+    rotated emit had its split form now run as the JAX package runs them:
+    a y-only filter at ``default`` takes ``FusedAxisPass`` (spied in the
+    JAX package), its einsum form — no kernel, as the JAX package's
+    einsum pass — and a volume whose trailing pair declines takes the rows
+    pass at the grade, then the rotation chain; each within the grade's
+    bound of the f64 oracle and twice it of the JAX package."""
     js, ts = _both(_y_only("zero"))
     x = _img(*[d.extent for d in js.dims], seed=3)
-    names, _ = _jax_chain_route(js, x, monkeypatch, "default")
+    names, want = _jax_chain_route(js, x, monkeypatch, "default")
     assert names == ["FusedAxisPass"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tdf.fused_filter_module(ts, "default")
-    _, ts = _both(REFUSED["volume-pair-declines"][0])
+    mod = tdf.fused_filter_module(ts, "default")
+    assert type(mod).__name__ == "FusedAxisPass"
+    assert mod.body.completion is None and mod.body.tails is None
+    cases = [(mod, x, want, js, "default")]
+    js, ts = _both(REFUSED["volume-pair-declines"][0])
+    xv = _img(*[d.extent for d in js.dims], seed=4)
     for grade in GRADE_BOUNDS:
-        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-            tdf.fused_filter_module(ts, grade)
+        mv = tdf.fused_filter_module(ts, grade)
+        assert [type(m).__name__ for m in mv.stages] == [
+            "FusedRowsPx", "RotationChain"]
+        assert mv.stages[0].final.nprod == NPROD_OF[grade]
+        wv = np.asarray(jdf.apply_filter_fused(js, jnp.asarray(xv),
+                                               tile_default=128,
+                                               matmul_precision=grade))
+        cases.append((mv, xv, wv, js, grade))
+    for m, xi, w, spec, grade in cases:
+        got = m(torch.from_numpy(xi)).numpy().astype(np.float64)
+        oracle = jsc.oracle_apply(spec, xi.astype(np.float64))
+        bound = GRADE_BOUNDS[grade] * np.abs(oracle).max()
+        assert np.abs(got - oracle).max() <= bound
+        assert np.abs(got - w).max() <= 2 * bound
 
 
 @pytest.mark.parametrize("case", ["volume-clamp", "y-only-clamp"])

@@ -295,11 +295,11 @@ def test_tc_exact_is_the_grades_pair_sum(nprod, sl):
 @pytest.mark.parametrize("clamp", [False, True])
 @pytest.mark.parametrize("nprod", [1, 3, 4])
 def test_completion_split_constant_is_core_pack(nprod, clamp, S):
-    """``CompletionSplit.Bc_k`` — the constant ``completion_split`` (the
-    tensor-core completion at the grade) stages — is ``core_pack`` of each
-    variant's two bf16 chunks of the split ``[Btot | Rcat | 0]`` (KP =
-    ``tc_depth(sl)``), the variants [interior, first, last] of a clamp
-    stack; its twin sums the grade's chunk products (the carry rows at
+    """The unrotated ``CompletionPass(nprod=).Bc_k`` — the constant
+    ``completion_split`` (the tensor-core completion at the grade) stages
+    — is ``core_pack`` of each variant's two bf16 chunks of the split
+    ``[Btot | Rcat | 0]`` (KP = ``tc_depth(sl)``), the variants [interior,
+    first, last] of a clamp stack; its twin sums the grade's chunk products (the carry rows at
     three or more), the kernel's function."""
     from recfilter_tpu_torch.kernels import completion as tc
 
@@ -308,7 +308,7 @@ def test_completion_split_constant_is_core_pack(nprod, clamp, S):
     nv = n if clamp else 1
     B = rng.standard_normal((nv, T, T)) * 0.1
     R = rng.standard_normal((nv, T, S))
-    mod = tc.CompletionSplit(B, R, n, nprod)
+    mod = tc.CompletionPass(B, R, n, nprod=nprod)
     sl, kp = tc.slots_for(S), tc.tc_depth(tc.slots_for(S))
     pick = [1, 0, n - 1] if clamp else [0]
     M = np.zeros((len(pick), T, kp))

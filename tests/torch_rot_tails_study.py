@@ -55,9 +55,21 @@ F  The rows pass (a scan on a non-last axis): ``rows_tails`` and
    phase 3m times it.
 G  Output digests: the sha256 of the outputs of ``completion`` and
    ``completion_epi`` (A's kernel-pass shape, seeded matrices),
-   ``completion_traced`` (L1's x pass) and the rows kernels (V1) on seeded
-   inputs, so two checkouts' kernels are bit-equal where the digests
-   agree.
+   ``completion_traced`` and ``completion_rot`` (L1's x pass) and the rows
+   kernels (V1) on seeded inputs, so two checkouts' kernels are bit-equal
+   where the digests agree.
+H  The rotated kernels at each grade (px6, px4, px3, ``default``), where
+   the checkout's ``CompletionPass`` takes ``nprod`` (else K3's
+   ``completion_rot_tails`` at px6 alone): ``completion_rot`` at
+   C1's x pass without a stencil (beside one ``matmul`` by the grade's
+   constant, held to the float32 product by it) and with the radius-5
+   stencil; ``completion_rot_tails`` at K3's first
+   pass (102,400 lines, 4 tiles, the σ=5 Gaussian's matrices) and K6's
+   (the 512 × 40,960 panorama's: 512 lines, 320 tiles, as the module at
+   the grade builds it) beside ``completion_rot`` + ``tails`` at the
+   grade. Bounds: the bytes and the
+   grade's bf16 products (the stencil's and the tails' operations at
+   their own peaks).
 E  (run first) The whole calls those completions serve: A
    (``audio_filter_high_order(10M, 2, 1000)`` through ``as_func()``) and
    L1 (the σ=5 Gaussian's ``LearnableRecFilter`` forward at 4096², no
@@ -257,6 +269,8 @@ def main() -> int:
         rows_pass(torch, np, rft, dev, row, whole, nbytes)
     if "G" in parts:
         digests(torch, np, rft, tdf, kc, dev, args.tag, card, rows)
+    if "H" in parts:
+        grades(torch, np, rft, tdf, kc, dev, row, nbytes)
     if "E" not in parts and not set("ABCD") & set(parts):
         return finish(rows, args.out, card)
     # E (first: a long run's profiles lose device events now and then):
@@ -287,6 +301,12 @@ def main() -> int:
     if not set("ABCD") & set(parts):
         return finish(rows, args.out, card)
 
+    def operand(comp):
+        """[Btotᵀ; Rcatᵀ] of one variant, (128 + sl, 128), from the twin's
+        float32 matrices (every checkout has them)."""
+        R = F_.pad(comp.R_v[0], (0, comp.sl - comp.R_v.shape[2]))
+        return torch.cat([comp.B_v[0].t(), R.t()]).contiguous()
+
     # A: C1's x pass
     q, n, S = 4096, 32, 2
     rng = np.random.default_rng(0)
@@ -306,9 +326,9 @@ def main() -> int:
             mods[st is not None, epi is not None] = (
                 le.completion if st is None else le.st_comp[0])
     comp = mods[False, False]
-    if comp.BR_v.shape[0] != 1:
+    if comp.B_v.shape[0] != 1:
         raise SystemExit("C1's x pass: one matrix variant expected")
-    BR0 = comp.BR_v[0]
+    BR0 = operand(comp)
     XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2)
     XNt = XN.permute(1, 2, 0)  # (n, 128 + sl, q), a view
     hp, hn = mods[True, False].hp, mods[True, False].hn
@@ -378,12 +398,6 @@ def main() -> int:
     ta.fp64 = True
 
     # D: the unrotated completions (A's kernel pass, L1's x pass)
-    def operand(comp):
-        """[Btotᵀ; Rcatᵀ] of one variant, (128 + sl, 128), from the twin's
-        float32 matrices (every checkout has them)."""
-        R = F_.pad(comp.R_v[0], (0, comp.sl - comp.R_v.shape[2]))
-        return torch.cat([comp.B_v[0].t(), R.t()]).contiguous()
-
     q, n = XA.shape[0], loc.n
     NA = torch.zeros((n, 8, q), device=dev)
     NA[:, :2] = f32(n, 2, q)
@@ -571,6 +585,9 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         N8[:, :S] = f32(n, S, q)
         out["completion_traced (4096, 32, 128)"] = digest(
             kc.completion_traced(X, Btot, Rcat, N8))
+        rot = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                               rot_axes=2).to(dev)
+        out["completion_rot (4096, 32, 128)"] = digest(rot.completion(X, N8))
         F = gauss_volume(rft, np, (256, 256, 256), False)
         rows = rows_of(rft, F.as_func())
         X4 = rows.tile(torch.from_numpy(F._image).to(dev))
@@ -580,6 +597,122 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
     r = {"tag": tag, "case": "digests", "card": card, "digests": out}
     rows_out.append(r)
     print(json.dumps(r), flush=True)
+
+
+def grades(torch, np, rft, tdf, kc, dev, row, nbytes):
+    """Part H (module docstring): the rotated kernels at each grade, where
+    the checkout's ``CompletionPass`` takes ``nprod``."""
+    import inspect
+
+    from recfilter_tpu_torch.apps.dog import _stencil
+    from recfilter_tpu_torch.kernels import split
+
+    graded = "nprod" in inspect.signature(kc.CompletionPass).parameters
+    if not graded:
+        print("part H: this checkout's rotated completion has no grades: "
+              "K3's completion_rot_tails at px6 alone")
+    rng = np.random.default_rng(2)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    peak = {True: 989e12, False: 67e12}
+    scans = [rft.Scan(1, True, 1.0, (2.0, -1.0))]
+    q, n = 4096, 32
+    loc = tdf.LastAxisPass(scans, (128, n, 0), False, "px6", rot_axes=2,
+                           stencil=_stencil(5))
+    Bm, Rm = loc.B_v.numpy(), loc.R_v.numpy()
+    X = f32(q, n, 128)
+    N = torch.zeros((n, 8, q), device=dev)
+    N[:, :loc.S] = f32(n, loc.S, q)
+    st = dict(_stencil(5), start="zero", end="clamp")
+    for nprod in (6, 4, 3, 1) if graded else ():
+        ops = 2.0 * (128 * nprod + split.carry_nprod(nprod) * loc.S
+                     ) * X.numel()
+        flat = kc.CompletionPass(Bm, Rm, n, rot=True, nprod=nprod).to(dev)
+        B0 = flat.grade_constant()[0]
+        XNt = torch.cat([X, N.permute(2, 0, 1)], dim=2).permute(1, 2, 0)
+        row(f"C1 completion_rot nprod {nprod}, no stencil", flat, (X, N),
+            nbytes(X, N[:, :loc.S], X), ops,
+            lambda x_, n_: torch.matmul(B0, XNt),
+            "matmul(grade's [Btot | R], XN^T) -> (n, 128, q)",
+            lambda y: flat._twin(X, N).reshape(n, 128, q),
+            rate=peak[True])
+        sten = kc.CompletionPass(Bm, Rm, n, rot=True, stencil=st,
+                                 nprod=nprod).to(dev)
+        Y = flat(X, N).reshape(n, 128, q)
+        z = torch.zeros((1, 16, q), device=dev)
+        halos = (torch.cat([z[:, :sten.hp], Y[:-1, 128 - sten.hp:]]
+                           ).contiguous(),
+                 torch.cat([Y[1:, :sten.hn], z[:, :sten.hn]]).contiguous())
+        row(f"C1 completion_rot nprod {nprod}, 3-tap stencil", sten,
+            (X, N, *halos), nbytes(X, N[:, :loc.S], *halos, X),
+            ops + 2.0 * 3 * X.numel() * 989e12 / 67e12, rate=peak[True])
+        del flat, sten, Y, halos, XNt
+    # K3's first pass: completion_rot_tails at each grade, beside
+    # completion_rot + tails at the same grade
+    w = rft.gaussian_weights(5.0, 3)
+    sc = [rft.Scan(2, c, w[0], tuple(w[1:])) for c in (True, False)]
+    m = tdf.prepare_dim_pass(sc, 128, 4, False)
+    Rc = np.concatenate([np.asarray(r) for r in m.Rhat], 2)
+    G2 = np.concatenate([np.asarray(g) for g in m.G], 1)
+    q, n, n2 = 102400, 4, 4
+    X = f32(q, n, 128)
+    N = torch.zeros((n, 8, q), device=dev)
+    N[:, :6] = f32(n, 6, q)
+    nxt = kc.TailsPass(G2, n2).to(dev)
+    for nprod in (6, 4, 3, 1) if graded else (6,):
+        grade = dict(nprod=nprod) if graded else {}
+        crt = kc.CompletionPass(m.Btot, Rc, n, rot=True, next_tails=(G2, n2),
+                                **grade).to(dev)
+        rot = kc.CompletionPass(m.Btot, Rc, n, rot=True, **grade).to(dev)
+        ops = 2.0 * (128 * nprod + split.carry_nprod(nprod) * 6
+                     ) * X.numel()
+        yk, tk = crt(X, N)
+        def unchained(x_, n_):
+            """completion_rot, then the tails kernel on its output (held
+            to the chained output; the tails are bit-equal: card tests)."""
+            y_ = rot(x_, n_)
+            nxt(y_.reshape(-1, n2, 128))
+            return y_
+
+        row(f"K3 completion_rot_tails nprod {nprod}", crt, (X, N),
+            nbytes(X, N[:, :6], crt.Bc_k if graded else crt.BR_v,
+                   crt.G2_v, yk, tk),
+            ops + 2.0 * 5 * X.numel() * 989e12 / 67e12, unchained,
+            "completion_rot + tails kernels", lambda o: o[0],
+            rate=peak[True])
+        del crt, rot, yk, tk
+    # K6's first pass (the panorama 512 x 40960: 320 tiles of the last
+    # axis, the next pass 4 tiles, ra = 1), the passes as the module at the
+    # grade builds them
+    x6 = f32(512, 40960)
+    for g in ("px6", "px4", "px3", "default") if graded else ("px6",):
+        F = gauss_volume(rft, np, (512, 40960), False)
+        F.set_plan(matmul_precision=g)
+        p0, p1 = F.as_func().passes[:2]
+        crt, rot, nxt = p0.completion_nt, p0.completion, p1.tails
+        nprod = getattr(crt, "nprod", 6)
+        X = x6.reshape(-1, p0.n, 128)
+        q = X.shape[0]
+        N = torch.zeros((p0.n, 8, q), device=dev)
+        N[:, :p0.S] = f32(p0.n, p0.S, q)
+        yk, tk = crt(X, N)
+        n2 = crt.n2
+
+        def unchained6(x_, n_):
+            """completion_rot, then the tails kernel on its output."""
+            y_ = rot(x_, n_)
+            nxt(y_.reshape(-1, n2, 128))
+            return y_
+
+        ops = 2.0 * (128 * nprod + split.carry_nprod(nprod) * p0.S
+                     ) * X.numel()
+        row(f"K6 completion_rot_tails nprod {nprod}", crt, (X, N),
+            nbytes(X, N[:, :p0.S], crt.Bc_k if graded else crt.BR_v,
+                   crt.G2_v, yk, tk),
+            ops + 2.0 * crt.S2 * X.numel() * 989e12 / 67e12, unchained6,
+            "completion_rot + tails kernels", lambda o: o[0],
+            rate=peak[True])
+        del F, p0, p1, crt, rot, nxt, yk, tk
 
 
 def finish(rows, out, card) -> int:
