@@ -56,13 +56,16 @@ class _SatBox1(nn.Module):
 
 
 def box_filter_order_1(width: int, height: int, B: int, tile_width: int = 0,
-                       variant: str = "auto", device="cuda"):
+                       variant: str = "auto", device="cuda", *,
+                       matmul_precision: str = "px6"):
     """One box iteration. Returns (module, sat_filter); ``variant="fir"``
     (the default where the 2B+1 taps fit the tile band) builds no SAT
-    filter (second element None)."""
+    filter (second element None). ``matmul_precision``: every stage's
+    grade (the JAX package's process-wide default made explicit)."""
     d = resolve_device(device)
     if _box_variant(variant, B, 1, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 1, tile_width).to(d), None
+        return _box_fir(width, height, B, 1, tile_width,
+                        matmul_precision).to(d), None
     tile_width = tile_width or auto_tile_width(min(width, height))
     x, y = Dim("x", width), Dim("y", height)
     Fs = RecFilter("Box1_Sat")
@@ -70,6 +73,7 @@ def box_filter_order_1(width: int, height: int, B: int, tile_width: int = 0,
     Fs.add_filter(x, [1.0, 1.0])
     Fs.add_filter(y, [1.0, 1.0])
     Fs.split(x, tile_width, y, tile_width)
+    Fs.set_plan(matmul_precision=matmul_precision)
     return _SatBox1(Fs.as_func(device=d), B), Fs
 
 
@@ -103,7 +107,7 @@ class _SatBox2(nn.Module):
 
 
 def box_filter_order_2(width: int, height: int, B: int, tile_width: int = 0,
-                       device="cuda"):
+                       device="cuda", *, matmul_precision: str = "px6"):
     """Two box iterations: a 2nd-order integral image and its double
     difference per dimension, x then y, the two integral stages chained
     through the rotated emit (``box_filter.h:105-225``). Returns
@@ -116,22 +120,24 @@ def box_filter_order_2(width: int, height: int, B: int, tile_width: int = 0,
     sat_x[y, x] = np.zeros((height, width), dtype=np.float32)
     sat_x.add_filter(+x, coeff)
     sat_x.split_all_dimensions(tile_width)
-    sat_x.set_plan(rotate_emit=2)
+    sat_x.set_plan(rotate_emit=2, matmul_precision=matmul_precision)
     sat_y = RecFilter("Box2_Saty")
     sat_y[y, x] = np.zeros((height, width), dtype=np.float32)
     sat_y.add_filter(+y, coeff)
     sat_y.split_all_dimensions(tile_width)
-    sat_y.set_plan(rotate_emit=2)
+    sat_y.set_plan(rotate_emit=2, matmul_precision=matmul_precision)
     mod = _SatBox2(sat_x.as_func(device=d), sat_y.as_func(device=d), B)
     return mod, (sat_x, sat_y)
 
 
-def _box_fir(width, height, B, iterations, tile_width):
+def _box_fir(width, height, B, iterations, tile_width, matmul_precision):
     """The n-fold box as a (2nB+1)-tap FIR in two banded passes: exact
-    zero-pad semantics, the reference's zeroed-margin contract."""
+    zero-pad semantics, the reference's zeroed-margin contract. The
+    (2B+1)^n-scaled taps are small integers, exact in bf16: below px6 the
+    band kernel takes one tap chunk (``tap_scale``)."""
     tw = tile_width or auto_tile_width(min(width, height))
     return FirSeparable2D(height, width, [box_taps(B, iterations)],
-                          tile_width=tw,
+                          tile_width=tw, matmul_precision=matmul_precision,
                           tap_scale=float((2 * B + 1) ** iterations))
 
 
@@ -161,27 +167,31 @@ class _Chain(nn.Module):
 
 
 def box_filter_3(width: int, height: int, B: int, tile_width: int = 0,
-                 variant: str = "auto", device="cuda"):
+                 variant: str = "auto", device="cuda", *,
+                 matmul_precision: str = "px6"):
     """Three iterations: the equivalent 6B+1-tap FIR in two passes where it
     fits the tile band, else order 1 (its own variant rule) ∘ order 2
     (``box_filter_3.cpp:37-41``)."""
     d = resolve_device(device)
+    mp = dict(matmul_precision=matmul_precision)
     if _box_variant(variant, B, 3, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 3, tile_width).to(d)
-    f1, _ = box_filter_order_1(width, height, B, tile_width, device=d)
-    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d)
+        return _box_fir(width, height, B, 3, tile_width, **mp).to(d)
+    f1, _ = box_filter_order_1(width, height, B, tile_width, device=d, **mp)
+    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d, **mp)
     return _Chain([f1, f2])
 
 
 def box_filter_6(width: int, height: int, B: int, tile_width: int = 0,
-                 variant: str = "auto", device="cuda"):
+                 variant: str = "auto", device="cuda", *,
+                 matmul_precision: str = "px6"):
     """Six iterations: the equivalent 12B+1-tap FIR in two passes where it
     fits the tile band, else three chained order-2 stages
     (``box_filter_6.cpp:40-46``)."""
     d = resolve_device(device)
+    mp = dict(matmul_precision=matmul_precision)
     if _box_variant(variant, B, 6, tile_width, width, height) == "fir":
-        return _box_fir(width, height, B, 6, tile_width).to(d)
-    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d)
+        return _box_fir(width, height, B, 6, tile_width, **mp).to(d)
+    f2, _ = box_filter_order_2(width, height, B, tile_width, device=d, **mp)
     return _Chain([f2, f2, f2])
 
 

@@ -80,12 +80,14 @@ class _DogSat(nn.Module):
 
 def difference_of_gaussians(width: int, height: int, B1: int = 5,
                             B2: int = 9, tile_width: int = 0,
-                            variant: str = "auto", device="cuda"):
+                            variant: str = "auto", device="cuda", *,
+                            matmul_precision: str = "px6"):
     """Return an ``nn.Module`` ``fn(image (h, w)) -> DoG`` on ``device``
     (the card unless the caller asks for the CPU): ``variant="fir"``, the
     two banded FIR passes, or ``"sat"``, the reference's SAT pipeline
     (module docstring); ``"auto"`` takes the FIR form where both box³
-    supports fit two tiles."""
+    supports fit two tiles. ``matmul_precision``: every stage's grade
+    (the JAX package's process-wide default made explicit)."""
     d = resolve_device(device)
     tw = tile_width or auto_tile_width(min(width, height))
     if variant == "auto":
@@ -94,6 +96,7 @@ def difference_of_gaussians(width: int, height: int, B1: int = 5,
         return FirSeparable2D(
             height, width, [box_taps(B1, 3), box_taps(B2, 3)],
             signs=[1.0, -1.0], tile_width=tw,
+            matmul_precision=matmul_precision,
             tap_scale=[float((2 * B1 + 1) ** 3),
                        float((2 * B2 + 1) ** 3)]).to(d)
     if variant != "sat":
@@ -104,19 +107,20 @@ def difference_of_gaussians(width: int, height: int, B1: int = 5,
     SAT.add_filter(+x, [1.0, 1.0])
     SAT.add_filter(+y, [1.0, 1.0])
     SAT.split_all_dimensions(tw)
+    SAT.set_plan(matmul_precision=matmul_precision)
     sat_box = SAT.as_func(stencil2d=[_diffxy_taps(B1), _diffxy_taps(B2)],
                           device=d)
     SAT2x = RecFilter("SAT2x")
     SAT2x[y, x] = np.zeros((height, width), dtype=np.float32)
     SAT2x.add_filter(+x, [1.0, 2.0, -1.0])
     SAT2x.split(x, tw)
-    SAT2x.set_plan(rotate_emit=2)
+    SAT2x.set_plan(rotate_emit=2, matmul_precision=matmul_precision)
     sat2x = [SAT2x.as_func(stencil=_stencil(B), device=d) for B in (B1, B2)]
     SAT2y = RecFilter("SAT2y")
     SAT2y[x, y] = np.zeros((width, height), dtype=np.float32)
     SAT2y.add_filter(+y, [1.0, 2.0, -1.0])
     SAT2y.split(y, tw)
-    SAT2y.set_plan(rotate_emit=2)
+    SAT2y.set_plan(rotate_emit=2, matmul_precision=matmul_precision)
     sat2y = [SAT2y.as_func(stencil=_stencil(B1), device=d),
              SAT2y.as_func(stencil=_stencil(B2),
                            epilogue=lambda o, a: a - o, device=d)]

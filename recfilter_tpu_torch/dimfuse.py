@@ -680,8 +680,9 @@ class LastAxisPass(nn.Module):
     At the reduced grades (px3, px4, default: ``planner.SPLIT_GRADES``)
     the pass runs the same routes at the grade's product count (one at
     ``default``; :meth:`_split_nprod`) — ``tails`` (fp64 sums, as at px6),
-    the solve, then, unrotated, ``completion_split`` (the epilogue as
-    torch ops after it), rotated, the rotated completions at the grade
+    the solve, then, unrotated, ``completion_split`` (an affine epilogue
+    in its store, ``completion_split_epi``), rotated, the rotated
+    completions at the grade
     (``CompletionPass(nprod=)``: ``completion_rot``, its fused stencil and
     epilogue, ``completion_rot_tails``) — and, where the kernels' gates
     fail (fewer than 8 lines, tiles other than 128, ΣK > 56), its einsum
@@ -788,8 +789,6 @@ class LastAxisPass(nn.Module):
         if nprod and kc.completion_ok(T, 8, n, S):
             if n <= _CHAIN_MATMUL_MAX_TILES:
                 self.tails = kc.TailsPass(Gcat, n)
-            if not self.rot and nprod != 6:
-                self.affine = None  # completion_split: torch ops
             # the epilogue rides the completion where no stencil precedes
             # it (a stencil fused in the kernel: st_comp below)
             self.completion = kc.CompletionPass(

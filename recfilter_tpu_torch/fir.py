@@ -9,21 +9,27 @@ neighbouring tiles. Border semantics are zero padding — the apps' contract
 matches the brute-force oracle at every pixel.
 
 Routing follows the JAX package's ``fir_pass_last`` exactly, from the shapes
-and the precision alone: at ``px6`` (the default) or ``f32x6`` (the
-JAX package's same six-product band) on float32, where
+and the precision alone: at a grade with a band-kernel product count
+(:data:`BAND_NPROD`: px6 and f32x6 at 6, px4 and f32x4 at 4, px3 and
+f32x3 at 3, ``default`` at 1) on float32, where
 ``kernels.fir_band.fir_band_ok`` holds (T = 128, band within one tile,
 ≥ 8 lines, L ≥ T) with at least one batch axis — and only one when the
 output is rotated — the pass runs :class:`.kernels.fir_band.FirBand` (the
-``fir_band`` CUDA kernel on the card, its twin on the CPU). Anything else,
-``highest``, ``high`` and ``f32x9`` included, takes the einsum form: the
-three band blocks as fp32 einsums over the zero-shifted tiles. The other
-grades raise naming ROADMAP Queue 1 item 4 (the JAX package runs its band
-kernel at their product counts: px3 and f32x3 at 3, px4 and f32x4 at 4,
-``default`` at 1).
+``fir_band`` CUDA kernel on the card, its twin on the CPU) at that count,
+``tap_scale`` passed on. A bank the kernel cannot stage (``FirBand.fits``:
+more than 4096 tap values over its channels and pairs, or past 64
+channels below px6), which the JAX kernel would take, and anything else
+take the einsum form: the three
+band blocks as einsums over the zero-shifted tiles — fp32 at px6,
+``f32x6``, ``highest``, ``high`` and ``f32x9``; at the reduced grades the
+JAX package's split einsum, bf16 chunk products in float32 at the grade's
+count (``dimfuse.EINSUM_NPROD``). ``matmul_dtype="bfloat16"`` and bf16 or
+float16 storage raise, naming ROADMAP Queue 1 item 4.
 
-``tap_scale`` is kept in the signatures: on the TPU it makes iterated-box
-taps exact bf16 integers so the compensated matrix products need fewer
-chunks. The port's products are fp32, so it changes nothing here.
+``tap_scale`` (the iterated boxes' (2B+1)^n): below px6 a channel whose
+scaled taps are exact bf16 integers takes one tap chunk and the reduced
+pairs (:func:`.kernels.fir_band.exact_band`), as in the JAX package. At
+px6 the port's kernel sums float32 taps and reads no scale.
 """
 
 from __future__ import annotations
@@ -33,9 +39,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .kernels import fir_band
-from .planner import (SPLIT_ITEM, auto_tile_width, check_precision,
-                      refuse_split)
+from .dimfuse import EINSUM_NPROD
+from .kernels import fir_band, split
+from .planner import SPLIT_ITEM, auto_tile_width, check_precision
+
+# the band kernel's product count per grade (the JAX package's map): the
+# split einsum's counts and px6's six, without ``high``, whose einsum form
+# stays fp32 (as at every count of 6)
+BAND_NPROD = {g: n for g, n in {**EINSUM_NPROD, "px6": 6}.items()
+              if g != "high"}
 
 
 def box_taps(B: int, iterations: int) -> np.ndarray:
@@ -138,17 +150,10 @@ class FirPass(nn.Module):
         super().__init__()
         assert not (bank and contract)
         check_precision(matmul_precision)
-        refuse_split(matmul_precision, "the FIR band pass (fir_band)")
-        if matmul_precision in ("f32x3", "f32x4"):
-            # the JAX package runs fir_band at 3 and 4 products there
-            raise NotImplementedError(
-                f"the FIR band pass (fir_band) has no split-bf16 form at "
-                f"matmul_precision={matmul_precision!r}: {SPLIT_ITEM}")
         if matmul_dtype is not None:
             raise NotImplementedError(
                 f"matmul_dtype={matmul_dtype!r}: bf16 products are not "
-                "ported yet (ROADMAP Queue 1 item 4)")
-        del tap_scale  # a TPU bf16 device (module docstring)
+                f"ported yet ({SPLIT_ITEM})")
         taps = _as_bank(taps)
         C = taps.shape[0]
         self.shape = tuple(int(s) for s in shape)
@@ -160,19 +165,28 @@ class FirPass(nn.Module):
         nbatch = len(batch)
         qk = int(np.prod(batch, dtype=np.int64))
         self.band = None
-        if (matmul_precision in ("px6", "f32x6")
-                and fir_band.fir_band_ok(T, L, taps, qk)
+        nprod = BAND_NPROD.get(matmul_precision, 0)
+        if (nprod and fir_band.fir_band_ok(T, L, taps, qk)
                 and nbatch >= 1 and (not emit_rot or nbatch == 1)):
-            self.band = fir_band.FirBand(taps, T=T, rot=emit_rot,
-                                         contract=contract)
-            return
+            band = fir_band.FirBand(taps, T=T, rot=emit_rot,
+                                    contract=contract, nprod=nprod,
+                                    tap_scale=tap_scale)
+            if band.fits:  # else the einsum form: the kernel's staging
+                self.band = band
+                return
         if emit_rot and nbatch < 1:
             raise ValueError("emit_rot needs a batch axis to rotate with")
         mats = [_band_mats(t, T) for t in taps]
         self.P, self.Q = mats[0][3], mats[0][4]
+        # the einsum form's products: fp32, or at a reduced grade the
+        # constants' bf16 chunks (split from float64, float32 tensors)
+        self.nsp = nprod if nprod < 6 else 0
+        nc = split.nchunks(self.nsp) if self.nsp else 1
         for i, name in enumerate(("W0", "Wm", "Wp")):
-            self.register_buffer(name, torch.from_numpy(np.stack(
-                [m[i] for m in mats]).astype(np.float32)))
+            W = np.stack([m[i] for m in mats])
+            self.register_buffer(name, torch.stack(
+                [c.float() for c in split.split_const(W, nc)])
+                if self.nsp else torch.from_numpy(W.astype(np.float32)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(x, False)
@@ -184,6 +198,10 @@ class FirPass(nn.Module):
         if tuple(x.shape) != self.shape:
             raise ValueError(f"input shape {tuple(x.shape)} != the pass's "
                              f"{self.shape}")
+        if x.dtype in (torch.bfloat16, torch.float16):
+            raise NotImplementedError(
+                f"{x.dtype} storage: the FIR band pass runs float32 "
+                f"({SPLIT_ITEM})")
         x = x.to(torch.float32)
         if self.band is not None:
             C, L = self.C, self.shape[-1]
@@ -196,8 +214,9 @@ class FirPass(nn.Module):
         return self._einsum(x)
 
     def _einsum(self, X):
-        """The JAX package's einsum form: fp32 einsums of the main block
-        and both edge strips over the zero-shifted tiles."""
+        """The JAX package's einsum form: einsums of the main block and
+        both edge strips over the zero-shifted tiles — fp32, or the split
+        einsum's chunk products at a reduced grade."""
         T, L = self.T, self.shape[-1]
         n = -(-L // T)
         pad = n * T - L
@@ -216,8 +235,11 @@ class FirPass(nn.Module):
         def one(W, strips):
             eq = f"cow,{lhs_b}nw->{out}"
             if not (self.bank or self.contract):
-                eq, W = eq.replace("cow", "ow"), W[0]
-            return torch.einsum(eq, W, strips)
+                eq, W = eq.replace("cow", "ow"), W[..., 0, :, :]
+            if not self.nsp:
+                return torch.einsum(eq, W, strips)
+            return split.pair_sum(self.nsp, lambda i, d: torch.einsum(
+                eq, W[i], d), strips)
 
         P, Q = self.P, self.Q
         Y = one(self.W0, Xt)

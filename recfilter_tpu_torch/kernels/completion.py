@@ -488,10 +488,10 @@ class CompletionPass(nn.Module):
     strips, in the output's layout ((q, n, T), or (n·T, q) rotated).
 
     ``nprod``: the grade's product count (:data:`.split.NPROD`), 6, 4, 3
-    or 1 (the unrotated pass takes no epilogue below 6). The kernels
-    compute the JAX package's arithmetic at the grade on the tensor cores
-    (``completion``, ``completion_epi`` at px6, ``completion_split`` at the
-    other grades; the rotated ``completion_rot``, ``completion_rot_epi`` and
+    or 1. The kernels compute the JAX package's arithmetic at the grade on
+    the tensor cores (``completion``, ``completion_epi`` at px6,
+    ``completion_split``, ``completion_split_epi`` at the other grades;
+    the rotated ``completion_rot``, ``completion_rot_epi`` and
     ``completion_rot_tails`` at every grade):
     ``nprod`` split-bf16 products (:func:`.split.prods`) on the signal rows,
     :func:`.split.carry_nprod` on the carry rows, the constant
@@ -522,9 +522,6 @@ class CompletionPass(nn.Module):
         if nprod not in (1, 3, 4, 6):
             raise ValueError(f"nprod {nprod}: the completion runs 6, 4, 3 "
                              "or 1 products")
-        if nprod != 6 and not rot and affine is not None:
-            raise ValueError("completion_split has no epilogue: the "
-                             "unrotated pass below px6 takes none")
         self.n, self.S, self.sl = int(n), S, slots_for(S)
         self.rot, self.nprod = bool(rot), nprod
         if affine is not None and next_tails is not None:
@@ -679,10 +676,10 @@ class CompletionPass(nn.Module):
         if not self.rot and self.nprod != 6:
             _items_ok("completion_split", n, q, _TC_LINES)
             y = torch.empty_like(x)
-            _launch("completion_split", (
-                x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
+            _launch("completion_split_epi" if epi else "completion_split", (
+                x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), *epi,
                 y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
-                self.nprod), x.device)
+                *((self.k,) if epi else ()), self.nprod), x.device)
             return y
         if not self.rot:
             _items_ok("completion", n, q, _TC_LINES)

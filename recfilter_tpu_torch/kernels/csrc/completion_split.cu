@@ -15,6 +15,12 @@
 // at sl = 8), so two warpgroups' stages fit beside it at every sl <= 56.
 // Bound: 2 x (128 NPROD + S carry_nprod) bf16 operations per sample
 // against 8 B of traffic — at the card's peaks, by bytes.
+//
+// completion_split_epi: the same with the affine epilogue a * y + sum_k
+// b_k * aux_k + c (k <= 4) in the store, as completion_epi at px6 —
+// completion_pass(rot=False, nprod=n) with its eaux
+// (recfilter_tpu/kernels/completion.py:273-278). Each aux adds 4 B per
+// sample of reads.
 
 #include "completion_tc.cuh"
 
@@ -30,6 +36,24 @@ extern "C" int completion_split_launch(const float* x, const float* N,
     case 1: return static_launch<1>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
     case 3: return static_launch<3>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
     case 4: return static_launch<4>(x, N, Bc, y, none, 0, q, n, sl, nv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in y's
+// (q, n, 128) layout, the rest unread
+extern "C" int completion_split_epi_launch(
+    const float* x, const float* N, const void* Bc, const float* aux0,
+    const float* aux1, const float* aux2, const float* aux3,
+    const float* coef, float* y, int q, int n, int sl, int nv, int k,
+    int nprod, void* stream) {
+  if (coef == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const rf::Affine e = rf::make_affine(aux0, aux1, aux2, aux3, coef);
+  switch (nprod) {
+    case 1: return static_launch<1>(x, N, Bc, y, e, k, q, n, sl, nv, s);
+    case 3: return static_launch<3>(x, N, Bc, y, e, k, q, n, sl, nv, s);
+    case 4: return static_launch<4>(x, N, Bc, y, e, k, q, n, sl, nv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

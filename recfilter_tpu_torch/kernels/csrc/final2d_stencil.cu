@@ -4,7 +4,8 @@
 // output, which itself never reaches device memory.
 //
 // Replaces recfilter_tpu/kernels/final2d.py::_final2d_px_stencil (Pallas
-// kernel _final_px_stencil_kernel). Per 128 x 128 tile (block (p, a, b)):
+// kernel _final_px_stencil_kernel) at nprod 6 (px6) and, with the split
+// body below, at 1, 3 and 4. Per 128 x 128 tile (block (p, a, b)):
 //
 //   1. Y = the tile's dual completion, exactly as final2d.cu computes it
 //      (two register-tiled fp32 GEMMs, Z in shared memory).
@@ -43,8 +44,23 @@
 // Operand layouts as final2d.cu:
 //   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      B2 (nvb, 136, 128) = [Bb^T ; Rb^T]
 //   taps (ntaps, 3) = (dy, dx, coeff) by channel, toff (C + 1) offsets
+//
+// The reduced grades (nprod 1, 3, 4: default, px3, px4). Step 1 is
+// final2d_split's tile (final2d_split.cuh: split-bf16 products on mma.sync,
+// carry rows at carry_nprod >= 3, Ac and Bc its host-split operands), and
+// so is step 2: the lane neighbours' columns are those of tiles b - 1 and
+// b + 1 as final2d_split computes them whole, the same instructions on the
+// same operands, so the value the bank reads across a seam is the value
+// that neighbour tile emits (the JAX kernel's subtile_y). That is three
+// tiles' products a block where a neighbour is read (the simple form).
+// Steps 3 and 4 are the px6 kernel's, shared (bank_taps). Shared memory:
+// the products' 156 KB, then over the same space M (the tile with its
+// neighbour columns, up to 192 KB); the neighbour columns themselves,
+// computed while the products hold shared memory, wait in a device-memory
+// scratch (128 x (dxl + dxr) floats a tile) that the block reads back.
 
 #include "common.cuh"
+#include "final2d_split.cuh"
 
 namespace {
 
@@ -124,6 +140,64 @@ __device__ void side_columns(const float* __restrict__ x,
   }
 }
 
+// Steps 3-4: every channel's taps over M (the tile's Y at columns
+// dxl .. dxl + 127, its neighbour columns either side, row stride WM);
+// rows outside the tile from the halo strips. The taps are staged in
+// shared memory where they fit. A thread owns column o of rows s0, s0 + 2,
+// ...: its 64 sums stay in registers while the taps run in order, and a
+// warp shares its row.
+__device__ __forceinline__ void bank_taps(
+    const float* M, int WM, int dxl, const float* __restrict__ ht,
+    const float* __restrict__ hb, const float* __restrict__ taps,
+    const int* __restrict__ toff, int ntaps, float* __restrict__ out,
+    long pa, int a, int na, int b, int nb, int h8, int C, int tid) {
+  __shared__ float tsm[3 * MAX_TAPS];
+  __shared__ int toffs[MAX_C + 1];
+  const bool tfit = ntaps <= MAX_TAPS && C <= MAX_C;
+  if (tfit) {
+    for (int i = tid; i < 3 * ntaps; i += THREADS) tsm[i] = taps[i];
+    for (int i = tid; i <= C; i += THREADS) toffs[i] = toff[i];
+  }
+  __syncthreads();
+  const float* tp = tfit ? tsm : taps;
+  const int* to = tfit ? toffs : toff;
+  const long W = (long)nb * T;
+  const float* htp = ht + pa * h8 * W;
+  const float* hbp = hb + pa * h8 * W;
+  const long plane = (long)gridDim.z * na * T * W;
+  const int o = tid % T, s0 = tid / T;
+  for (int ch = 0; ch < C; ++ch) {
+    float acc[T / 2];
+    const int k0 = to[ch], k1 = to[ch + 1];
+    for (int k = k0; k < k1; ++k) {
+      const int dy = (int)tp[3 * k], dx = (int)tp[3 * k + 1];
+      const float cf = tp[3 * k + 2];
+      int cc = o + dx;
+      if (dx > 0 && b == nb - 1 && cc > T - 1) cc = T - 1;
+      const long gc = (long)b * T + cc;
+#pragma unroll
+      for (int j = 0; j < T / 2; ++j) {
+        int r = s0 + 2 * j + dy;
+        if (dy > 0 && a == na - 1 && r > T - 1) r = T - 1;
+        float v;
+        if (r >= 0 && r < T)
+          v = M[r * WM + dxl + cc];
+        else if (gc < 0)
+          v = 0.f;
+        else if (r < 0)
+          v = a > 0 ? htp[(h8 + r) * W + gc] : 0.f;
+        else
+          v = a < na - 1 ? hbp[(r - T) * W + gc] : 0.f;
+        const float term = __fmul_rn(cf, v);
+        acc[j] = k == k0 ? term : __fadd_rn(acc[j], term);
+      }
+    }
+    float* oc = out + ch * plane + pa * T * W + (long)b * T + o;
+#pragma unroll
+    for (int j = 0; j < T / 2; ++j) oc[(long)(s0 + 2 * j) * W] = acc[j];
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 final2d_stencil_kernel(const float* __restrict__ x,     // (p, na, T, W)
                        const float* __restrict__ NA,    // (p, na, 8, W)
@@ -138,20 +212,11 @@ final2d_stencil_kernel(const float* __restrict__ x,     // (p, na, T, W)
                        int na, int nb, int nva, int nvb, int h8, int dxl,
                        int dxr, int C, int ntaps, int stage) {
   extern __shared__ float4 smem4[];
-  __shared__ float tsm[3 * MAX_TAPS];  // the taps, where they fit
-  __shared__ int toffs[MAX_C + 1];
   float* As = reinterpret_cast<float*>(smem4);  // KX x T
   float* Bs = As + KX * T;                      // KX x T
 
   const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const bool tfit = ntaps <= MAX_TAPS && C <= MAX_C;
-  if (tfit) {
-    for (int i = tid; i < 3 * ntaps; i += THREADS) tsm[i] = taps[i];
-    for (int i = tid; i <= C; i += THREADS) toffs[i] = toff[i];
-  }
-  const float* tp = tfit ? tsm : taps;
-  const int* to = tfit ? toffs : toff;
   const long W = (long)nb * T;
   const long pa = (long)p * na + a;
   const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
@@ -206,58 +271,140 @@ final2d_stencil_kernel(const float* __restrict__ x,     // (p, na, T, W)
   }
   __syncthreads();
 
-  // 3-4. every channel's taps; rows outside the tile from the halo strips.
-  // A thread owns column o of rows s0, s0 + 2, ...: its 64 sums stay in
-  // registers while the taps run in order, and a warp shares its row.
-  const float* htp = ht + pa * h8 * W;
-  const float* hbp = hb + pa * h8 * W;
-  const long plane = (long)gridDim.z * na * T * W;
-  const int o = tid % T, s0 = tid / T;
-  for (int ch = 0; ch < C; ++ch) {
-    float acc[T / 2];
-    const int k0 = to[ch], k1 = to[ch + 1];
-    for (int k = k0; k < k1; ++k) {
-      const int dy = (int)tp[3 * k], dx = (int)tp[3 * k + 1];
-      const float cf = tp[3 * k + 2];
-      int cc = o + dx;
-      if (dx > 0 && b == nb - 1 && cc > T - 1) cc = T - 1;
-      const long gc = (long)b * T + cc;
-#pragma unroll
-      for (int j = 0; j < T / 2; ++j) {
-        int r = s0 + 2 * j + dy;
-        if (dy > 0 && a == na - 1 && r > T - 1) r = T - 1;
-        float v;
-        if (r >= 0 && r < T)
-          v = M[r * WM + dxl + cc];
-        else if (gc < 0)
-          v = 0.f;
-        else if (r < 0)
-          v = a > 0 ? htp[(h8 + r) * W + gc] : 0.f;
-        else
-          v = a < na - 1 ? hbp[(r - T) * W + gc] : 0.f;
-        const float term = __fmul_rn(cf, v);
-        acc[j] = k == k0 ? term : __fadd_rn(acc[j], term);
-      }
-    }
-    float* oc = out + ch * plane + pa * T * W + (long)b * T + o;
-#pragma unroll
-    for (int j = 0; j < T / 2; ++j) oc[(long)(s0 + 2 * j) * W] = acc[j];
+  // 3-4. every channel's taps; rows outside the tile from the halo strips
+  bank_taps(M, WM, dxl, ht, hb, taps, toff, ntaps, out, pa, a, na, b, nb, h8,
+            C, tid);
+}
+
+// The reduced grades: steps 1 and 2 on final2d_split's tiles (header).
+// side (p, na, nb, T, dxl + dxr): the block's neighbour columns, row s of
+// tile (pa, b) at side + ((pa * nb + b) * T + s) * (dxl + dxr).
+template <int NPROD>
+__global__ void __launch_bounds__(THREADS, 1)
+final2d_stencil_split_kernel(
+    const float* __restrict__ x, const float* __restrict__ NA,
+    const float* __restrict__ NB, const f2s::bf16* __restrict__ Ac,
+    const f2s::bf16* __restrict__ Bc, const float* __restrict__ ht,
+    const float* __restrict__ hb, const float* __restrict__ taps,
+    const int* __restrict__ toff, float* __restrict__ out,
+    float* __restrict__ side, int na, int nb, int nva, int nvb, int h8,
+    int dxl, int dxr, int C, int ntaps) {
+  extern __shared__ uint4 smem16[];
+  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x;
+  const long pa = (long)p * na + a;
+  const int va = variant(nva, a, na);
+  const int D = dxl + dxr;
+  float* sd = side + ((pa * nb + b) * T) * D;
+  rfs::Frag f;
+  // 2. the neighbours' columns, each from its whole tile: the last dxl
+  // columns of tile b - 1 and the first dxr of tile b + 1, to the scratch
+  if (dxl && b > 0) {
+    f2s::split_tile<NPROD>(f, x, NA, NB, Ac, Bc, smem16, pa, b - 1, va,
+                           variant(nvb, b - 1, nb), nb);
+    rfs::for_pairs(f, [&](int s, int o, float v0, float v1) {
+      const int c = o - (T - dxl);
+      if (c >= 0) sd[s * D + c] = v0;
+      if (c + 1 >= 0) sd[s * D + c + 1] = v1;
+    });
   }
+  if (dxr && b < nb - 1) {
+    f2s::split_tile<NPROD>(f, x, NA, NB, Ac, Bc, smem16, pa, b + 1, va,
+                           variant(nvb, b + 1, nb), nb);
+    rfs::for_pairs(f, [&](int s, int o, float v0, float v1) {
+      if (o < dxr) sd[s * D + dxl + o] = v0;
+      if (o + 1 < dxr) sd[s * D + dxl + o + 1] = v1;
+    });
+  }
+  // 1. the tile itself
+  f2s::split_tile<NPROD>(f, x, NA, NB, Ac, Bc, smem16, pa, b, va,
+                         variant(nvb, b, nb), nb);
+  __syncthreads();  // the products are done with shared memory
+
+  // M = [left columns | the tile | right columns] over the products' space
+  const int WM = dxl + T + dxr;
+  float* M = reinterpret_cast<float*>(smem16);
+  rfs::for_pairs(f, [&](int s, int o, float v0, float v1) {
+    M[s * WM + dxl + o] = v0;
+    M[s * WM + dxl + o + 1] = v1;
+  });
+  for (int i = tid; i < T * D; i += THREADS) {
+    const int s = i / D, c = i % D;
+    const bool left = c < dxl;
+    const bool there = left ? b > 0 : b < nb - 1;
+    M[s * WM + (left ? c : T + c)] = there ? sd[i] : 0.f;
+  }
+  __syncthreads();
+
+  // 3-4. every channel's taps (the px6 kernel's)
+  bank_taps(M, WM, dxl, ht, hb, taps, toff, ntaps, out, pa, a, na, b, nb, h8,
+            C, tid);
+}
+
+// the split kernel's dynamic shared memory: the products, then M
+template <int NPROD>
+int split_smem(int dxl, int dxr) {
+  const int m = T * (dxl + T + dxr) * (int)sizeof(float);
+  return f2s::smem_bytes<NPROD>() > m ? f2s::smem_bytes<NPROD>() : m;
+}
+
+template <int NPROD>
+int launch_split(const float* x, const float* NA, const float* NB,
+                 const void* Ac, const void* Bc, const float* ht,
+                 const float* hb, const float* taps, const int* toff,
+                 float* out, float* side, int p, int na, int nb, int nva,
+                 int nvb, int h8, int dxl, int dxr, int C, int ntaps,
+                 cudaStream_t stream) {
+  if ((dxl + dxr) && side == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = split_smem<NPROD>(MAX_REACH, MAX_REACH);
+  cudaError_t err = cudaFuncSetAttribute(
+      final2d_stencil_split_kernel<NPROD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  final2d_stencil_split_kernel<NPROD>
+      <<<grid, THREADS, split_smem<NPROD>(dxl, dxr), stream>>>(
+          x, NA, NB, static_cast<const f2s::bf16*>(Ac),
+          static_cast<const f2s::bf16*>(Bc), ht, hb, taps, toff, out, side,
+          na, nb, nva, nvb, h8, dxl, dxr, C, ntaps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// nprod 6: A, B the fp32 operands A1, B2 of final2d.cu, side unread;
+// nprod 1, 3, 4: A, B final2d_split's Ac, Bc (bf16), side the neighbour
+// columns' scratch (p * na * nb * 128 * (dxl + dxr) floats)
 extern "C" int final2d_stencil_launch(const float* x, const float* NA,
-                                      const float* NB, const float* A1,
-                                      const float* B2, const float* ht,
+                                      const float* NB, const void* A,
+                                      const void* B, const float* ht,
                                       const float* hb, const float* taps,
-                                      const int* toff, float* out, int p,
-                                      int na, int nb, int nva, int nvb,
-                                      int h8, int dxl, int dxr, int C,
-                                      int ntaps, void* stream) {
+                                      const int* toff, float* out,
+                                      float* side, int p, int na, int nb,
+                                      int nva, int nvb, int h8, int dxl,
+                                      int dxr, int C, int ntaps, int nprod,
+                                      void* stream) {
   if (h8 < 1 || h8 > MAX_REACH || dxl < 0 || dxl > MAX_REACH || dxr < 0 ||
       dxr > MAX_REACH || C < 1 || ntaps < C)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nprod) {
+    case 1:
+      return launch_split<1>(x, NA, NB, A, B, ht, hb, taps, toff, out, side,
+                             p, na, nb, nva, nvb, h8, dxl, dxr, C, ntaps, s);
+    case 3:
+      return launch_split<3>(x, NA, NB, A, B, ht, hb, taps, toff, out, side,
+                             p, na, nb, nva, nvb, h8, dxl, dxr, C, ntaps, s);
+    case 4:
+      return launch_split<4>(x, NA, NB, A, B, ht, hb, taps, toff, out, side,
+                             p, na, nb, nva, nvb, h8, dxl, dxr, C, ntaps, s);
+    case 6:
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  const float* A1 = static_cast<const float*>(A);
+  const float* B2 = static_cast<const float*>(B);
   // the side-column work area: Bsel and U; the tile's A1, then the
   // neighbour's Xext, where they fit beside M
   const int gemm = 2 * KX * T, m = T * (dxl + T + dxr), jc = 2 * KX * JC;
@@ -270,7 +417,7 @@ extern "C" int final2d_stencil_launch(const float* x, const float* NA,
   if (err != cudaSuccess) return (int)err;
   const int smem = (gemm > used ? gemm : used) * (int)sizeof(float);
   const dim3 grid(nb, na, p);
-  final2d_stencil_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  final2d_stencil_kernel<<<grid, THREADS, smem, s>>>(
       x, NA, NB, A1, B2, ht, hb, taps, toff, out, na, nb, nva, nvb, h8, dxl,
       dxr, C, ntaps, stage);
   return (int)cudaGetLastError();

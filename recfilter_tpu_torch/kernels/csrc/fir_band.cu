@@ -1,9 +1,11 @@
 // fir_band: a zero-padded FIR bank along the last axis of float32 lines —
-// one pass of the separable box and difference-of-Gaussians filters.
+// one pass of the separable box and difference-of-Gaussians filters — at
+// every precision grade of the JAX package's band kernel.
 //
 // Replaces recfilter_tpu/kernels/fir_band.py::fir_band_pass (Pallas kernel
-// _fir_kernel). For lines x (q, L) — or (Cin, q, L) when the channels are
-// summed — and taps (Cout * Cin, Kpad), zero past each channel's K taps,
+// _fir_kernel) at nprod 6 (px6, f32x6), 4 (px4, f32x4), 3 (px3, f32x3) and
+// 1 (default). For lines x (q, L) — or (Cin, q, L) when the channels are
+// summed — and taps (Cout * Cin channels), zero past each channel's K taps,
 // with P the left half-width:
 //
 //   y[co, l, o] = sum_ci sum_t taps[co*Cin + ci][t] * x[ci, l, o + t - P]
@@ -15,28 +17,49 @@
 // into the taps: DoG's difference). ``rot`` emits y transposed, (L, q) per
 // channel, so the next pass finds the other image axis last.
 //
+// The grades. At NPROD 6 the taps are float32 and each channel's sum is
+// one fp32 FMA chain (taps in order, the contraction's channels continuing
+// the chain). At NPROD 1, 3 and 4 the sum is the JAX kernel's split-bf16
+// arithmetic: channel c takes its chunk pairs (i, j) — split.cuh's pairs
+// of NPROD, or, for a channel whose taps the host scaled to exact bf16
+// integers (tap_scale), the pairs (0, j) — and sums
+//
+//   sub_c = sum_(i,j) sum_t tapchunk_i[t] * xchunk_j[. + t - P]
+//
+// pair by pair (smallest level first), taps in order, in fp32 FMAs: a bf16
+// x bf16 product is exact in fp32, so each FMA adds the exact chunk product
+// as the TPU's matrix unit does. Then y += sub_c * inv_s[c] (1 unless
+// scaled). x's chunks are split on chip as the window is staged
+// (split.cuh's split, the residual exact); the taps' chunks come split from
+// the host (kernels/fir_band.py), one row per (channel, pair). Pairs that
+// share a tap chunk are not folded into one FMA: the two x chunks' sum
+// spans 17 significant bits, times a tap chunk's 8 is 25, past fp32's 24,
+// so the folded product would not be the chunk products' exact sum.
+//
 // Design. The TPU kernel forms the banded Toeplitz operator as tile GEMMs
 // on its matrix unit (about 2 * (128 + 16 + 16) FLOP per output). Here the
 // taps are a short list, so the kernel sums them directly: 2 * Kpad FLOP
-// per output and channel pair (62 for the box^3 of radius 5). A block takes
-// 32 lines x 128 output positions. It stages each input channel's window —
-// positions [p0 - P, p0 + 128 + Kpad - P), zeros outside the line — in
-// shared memory transposed: a warp reads four lines' windows along the line
-// (coalesced, the four loads in flight together) into columns of a table
-// with row stride 33, one line per bank, so both those writes and the
-// compute's reads (one line per lane) are free of bank conflicts. Each
-// thread owns one line and two runs of R = 8 consecutive outputs and slides a
-// register window along its line: per tap, one broadcast tap read and one
-// window value feed 2 R FMAs. The outputs go back through shared memory and
-// leave as whole rows: along the line for the flat emit, along the lines
-// for the rotated one, so both stores are coalesced.
+// per output, channel pair and chunk pair (62 for the box^3 of radius 5).
+// A block takes 32 lines x 128 output positions. It stages each input
+// channel's window — positions [p0 - P, p0 + 128 + Kpad - P), zeros
+// outside the line — in shared memory transposed, one table per x chunk: a
+// warp reads four lines' windows along the line (coalesced, the four loads
+// in flight together) into columns of a table with row stride 33, one line
+// per bank, so both those writes and the compute's reads (one line per
+// lane) are free of bank conflicts. Each thread owns one line and two runs
+// of R = 8 consecutive outputs and slides a register window along its
+// line: per tap, one broadcast tap read and one window value feed 2 R
+// FMAs. The outputs go back through shared memory and leave as whole rows:
+// along the line for the flat emit, along the lines for the rotated one,
+// so both stores are coalesced.
 //
 // What bounds it: one read of x and one write of y, 8 B per output and
-// channel, against 2 * Kpad FLOP — bound by device-memory bandwidth on an
-// H100 for every support the apps use. fp32 FMA sums, as the plain twin's
-// fp32 einsum.
+// channel, against 2 * Kpad FLOP per chunk pair — by device-memory
+// bandwidth on an H100 at px6 and where few pairs run; at px3 and px4
+// without tap_scale (3 and 4 pairs) the fp32 FMAs may bound it instead
+// (chip_smoke.py prints both bounds).
 
-#include <cuda_runtime.h>
+#include "split.cuh"
 
 namespace {
 
@@ -48,19 +71,73 @@ constexpr int WARPS = THREADS / 32;
 constexpr int XS = LINES + 1; // shared row stride (one line per bank)
 constexpr int MAX_KPAD = 264; // K <= 257 taps: P, Q <= 128 (the one-tile band)
 constexpr int MAX_TAPS = 4096;
-constexpr int MAX_SMEM =
-    ((SPAN + MAX_KPAD) + SPAN) * XS * (int)sizeof(float) +
-    MAX_TAPS * (int)sizeof(float);
+constexpr int NPAIR = 4;      // the most chunk pairs a channel takes (px4)
+constexpr int MAX_CH = 64;    // channels (Cin * Cout) whose pairs are staged
 
+// x chunks staged per window (the float32 x itself at NPROD 6)
+__host__ __device__ constexpr int x_chunks(int nprod) {
+  return nprod == 6 ? 1 : rfs::nchunks(nprod);
+}
+__host__ __device__ constexpr int smem_bytes(int nprod, int kpad,
+                                             int taps) {
+  return (x_chunks(nprod) * (SPAN + kpad) + SPAN) * XS * (int)sizeof(float) +
+         taps * (int)sizeof(float);
+}
+
+// acc[g][j] += sum_t tp[t] * window(run g, output j, tap t): the register
+// window slides along the thread's line (xw0, xw1: the two runs' first
+// rows in the staged table), the taps outermost.
+__device__ __forceinline__ void tap_run(float (&acc)[2][R], const float* tp,
+                                        const float* xw0, const float* xw1,
+                                        int Kpad) {
+  float w[2][R], w2[2][R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    w[0][j] = xw0[j * XS];
+    w[1][j] = xw1[j * XS];
+  }
+  for (int tb = 0; tb < Kpad; tb += R) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      w2[0][j] = xw0[(tb + R + j) * XS];
+      w2[1][j] = xw1[(tb + R + j) * XS];
+    }
+#pragma unroll
+    for (int tt = 0; tt < R; ++tt) {
+      const float tap = tp[tb + tt];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int k = j + tt;  // window offset: output r0 + j, tap tb + tt
+        acc[0][j] = fmaf(tap, k < R ? w[0][k] : w2[0][k - R], acc[0][j]);
+        acc[1][j] = fmaf(tap, k < R ? w[1][k] : w2[1][k - R], acc[1][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      w[0][j] = w2[0][j];
+      w[1][j] = w2[1][j];
+    }
+  }
+}
+
+template <int NPROD>
 __global__ void __launch_bounds__(THREADS)
 fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
-                const float* __restrict__ taps,  // (Cout * Cin, Kpad)
+                const float* __restrict__ taps,  // (Cout * Cin, TR, Kpad)
+                const int* __restrict__ meta,    // (Cout * Cin, 1 + NPAIR)
+                const float* __restrict__ scale, // (Cout * Cin)
                 float* __restrict__ y,           // (Cout, q, L) or (Cout, L, q)
-                int q, int L, int Cin, int Cout, int Kpad, int P, int rot) {
+                int q, int L, int Cin, int Cout, int Kpad, int P, int rot,
+                int TR) {            // tap rows a channel: its most pairs
+  constexpr int NC = x_chunks(NPROD);
   extern __shared__ float smem[];
+  __shared__ int pm[NPROD == 6 ? 1 : MAX_CH * (1 + NPAIR)];
+  __shared__ float ps[NPROD == 6 ? 1 : MAX_CH];
   const int rows = SPAN + Kpad;      // staged window positions
-  float* xs = smem;                  // rows x XS: xs[s][l] = x[l, p0 - P + s]
-  float* os = xs + rows * XS;        // SPAN x XS: os[r][l] = y[l, p0 + r]
+  const long cstride = (long)rows * XS;
+  float* xs = smem;                  // NC x rows x XS: xs[c][s][l] = chunk c
+                                     //   of x[l, p0 - P + s]
+  float* os = xs + NC * cstride;     // SPAN x XS: os[r][l] = y[l, p0 + r]
   float* ts = os + SPAN * XS;        // the taps
 
   const int l0 = blockIdx.x * LINES;
@@ -68,7 +145,12 @@ fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long qL = (long)q * L;
 
-  for (int i = tid; i < Cout * Cin * Kpad; i += THREADS) ts[i] = taps[i];
+  for (int i = tid; i < Cout * Cin * TR * Kpad; i += THREADS) ts[i] = taps[i];
+  if constexpr (NPROD != 6) {
+    for (int i = tid; i < Cout * Cin * (1 + NPAIR); i += THREADS)
+      pm[i] = meta[i];
+    for (int i = tid; i < Cout * Cin; i += THREADS) ps[i] = scale[i];
+  }
 
   for (int co = 0; co < Cout; ++co) {
     float acc[2][R];
@@ -94,43 +176,46 @@ fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
           }
           if (s < rows) {
 #pragma unroll
-            for (int k = 0; k < LINES / WARPS; ++k)
-              xs[s * XS + warp + k * WARPS] = v[k];
+            for (int k = 0; k < LINES / WARPS; ++k) {
+              float* dst = xs + s * XS + warp + k * WARPS;
+              if constexpr (NPROD == 6) {
+                *dst = v[k];
+              } else {  // the JAX kernel's _split_vmem, on chip
+                rfs::bf16 c[NC];
+                rfs::split<NC>(v[k], c);
+#pragma unroll
+                for (int h = 0; h < NC; ++h)
+                  dst[h * cstride] = __bfloat162float(c[h]);
+              }
+            }
           }
         }
         __syncthreads();
       }
-      const float* tp = ts + (co * Cin + ci) * Kpad;
+      const int ch = co * Cin + ci;
       // run g of this warp covers outputs r0(g) .. r0(g) + R - 1
       const float* xw0 = xs + (warp * 2 * R) * XS + lane;
       const float* xw1 = xw0 + R * XS;
-      float w[2][R], w2[2][R];
+      if constexpr (NPROD == 6) {
+        tap_run(acc, ts + ch * Kpad, xw0, xw1, Kpad);
+      } else {
+        float sub[2][R];
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        w[0][j] = xw0[j * XS];
-        w[1][j] = xw1[j * XS];
-      }
-      for (int tb = 0; tb < Kpad; tb += R) {
+        for (int g = 0; g < 2; ++g)
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          w2[0][j] = xw0[(tb + R + j) * XS];
-          w2[1][j] = xw1[(tb + R + j) * XS];
+          for (int j = 0; j < R; ++j) sub[g][j] = 0.f;
+        const int* m = pm + ch * (1 + NPAIR);
+        for (int p = 0; p < m[0]; ++p) {
+          const long off = m[1 + p] * cstride;
+          tap_run(sub, ts + (ch * TR + p) * Kpad, xw0 + off, xw1 + off,
+                  Kpad);
         }
+        const float s = ps[ch];
 #pragma unroll
-        for (int tt = 0; tt < R; ++tt) {
-          const float tap = tp[tb + tt];
+        for (int g = 0; g < 2; ++g)
 #pragma unroll
-          for (int j = 0; j < R; ++j) {
-            const int k = j + tt;  // window offset: output r0 + j, tap tb + tt
-            acc[0][j] = fmaf(tap, k < R ? w[0][k] : w2[0][k - R], acc[0][j]);
-            acc[1][j] = fmaf(tap, k < R ? w[1][k] : w2[1][k - R], acc[1][j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          w[0][j] = w2[0][j];
-          w[1][j] = w2[1][j];
-        }
+          for (int j = 0; j < R; ++j)
+            acc[g][j] = __fadd_rn(acc[g][j], __fmul_rn(sub[g][j], s));
       }
     }
 
@@ -158,24 +243,62 @@ fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
   }
 }
 
-}  // namespace
-
-extern "C" int fir_band_launch(const float* x, const float* taps, float* y,
-                               int q, int L, int Cin, int Cout, int Kpad,
-                               int P, int rot, void* stream) {
-  if (q < 1 || L < 1 || Cin < 1 || Cout < 1 || Kpad < R || Kpad % R ||
-      Kpad > MAX_KPAD || Cin * Cout * Kpad > MAX_TAPS || P < 0 || P >= Kpad ||
-      (L + SPAN - 1) / SPAN > 65535)
+template <int NPROD>
+int launch(const float* x, const float* taps, const int* meta,
+           const float* scale, float* y, int q, int L, int Cin, int Cout,
+           int Kpad, int P, int rot, int npair, cudaStream_t stream) {
+  const int ntaps = Cin * Cout * npair * Kpad;
+  if (ntaps > MAX_TAPS || (NPROD == 6 && npair != 1) ||
+      (NPROD != 6 && (meta == nullptr || scale == nullptr ||
+                      Cin * Cout > MAX_CH)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fir_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      fir_band_kernel<NPROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(NPROD, MAX_KPAD, MAX_TAPS));
   if (err != cudaSuccess) return (int)err;
-  const int smem = ((SPAN + Kpad) + SPAN) * XS * (int)sizeof(float) +
-                   Cin * Cout * Kpad * (int)sizeof(float);
   const dim3 grid((q + LINES - 1) / LINES, (L + SPAN - 1) / SPAN);
-  fir_band_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, taps, y, q, L, Cin, Cout, Kpad, P, rot);
+  fir_band_kernel<NPROD>
+      <<<grid, THREADS, smem_bytes(NPROD, Kpad, ntaps), stream>>>(
+          x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P, rot, npair);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// nprod 6: taps (Cout * Cin, Kpad) float32 (npair 1), meta and scale
+// unread; nprod 1, 3, 4: taps (Cout * Cin, npair, Kpad) tap chunks per pair
+// slot (npair the most pairs a channel takes), meta (Cout * Cin, 5) =
+// [pair count, x chunk of each pair], scale (Cout * Cin) the inverse tap
+// scales (kernels/fir_band.py's FirBand). The staged taps (Cout * Cin *
+// npair * Kpad <= MAX_TAPS) and channels (<= MAX_CH below px6) bound the
+// banks it takes: FirBand.fits.
+extern "C" int fir_band_launch(const float* x, const float* taps,
+                               const int* meta, const float* scale, float* y,
+                               int q, int L, int Cin, int Cout, int Kpad,
+                               int P, int rot, int nprod, int npair,
+                               void* stream) {
+  if (q < 1 || L < 1 || Cin < 1 || Cout < 1 || Kpad < R || Kpad % R ||
+      npair < 1 || npair > NPAIR ||
+      Kpad > MAX_KPAD || P < 0 || P >= Kpad ||
+      (L + SPAN - 1) / SPAN > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nprod) {
+    case 1:
+      return launch<1>(x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P,
+                       rot, npair, s);
+    case 3:
+      return launch<3>(x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P,
+                       rot, npair, s);
+    case 4:
+      return launch<4>(x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P,
+                       rot, npair, s);
+    case 6:
+      return launch<6>(x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P,
+                       rot, npair, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* fir_band_error_string(int err) {

@@ -314,12 +314,15 @@ class Final2DSplit(nn.Module):
     are split on chip. The twin ``plain`` runs the same chunk products in
     float32 (:func:`.split.pair_sum`). The kernel's backward is the
     VJP of the float32 product with the constant's grade (the sum of its
-    chunks), the map the forward rounds. No epilogue: at these grades it
-    runs as torch ops after the kernel.
+    chunks), the map the forward rounds. ``affine`` (an
+    :class:`..epilogue.Affine`, k ≤ 4 aux arrays): ``final(x, NA_t, NB_t,
+    *aux)`` returns ``a·Y + Σᵢ bᵢ·auxᵢ + c`` instead, each aux (p, na, Ta,
+    W) like x (the ``final2d_split_epi`` entry; the twins apply the form
+    after Y), as :class:`Final2D` at px6.
     """
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
-                 nb: int, nprod: int):
+                 nb: int, nprod: int, affine=None):
         super().__init__()
         if nprod not in (1, 3, 4):
             raise ValueError(f"final2d_split runs nprod 1, 3 or 4, not "
@@ -333,6 +336,10 @@ class Final2DSplit(nn.Module):
             raise ValueError(f"carries exceed the {_SLOTS}-row slot")
         self.register_buffer("Ac", _split_operand(Btot_a, Ra8, self.nc))
         self.register_buffer("Bc", _split_operand(Btot_b, Rb8, self.nc))
+        self.affine, self.k = affine, _epi_coef(self, affine)
+
+    def _epi(self, y, aux):
+        return y if self.affine is None else self.affine.apply(y, aux)
 
     def _tiles(self):
         """Per-tile chunk stacks (na|nb, nc, T, T + 8) in float32."""
@@ -348,7 +355,7 @@ class Final2DSplit(nn.Module):
             "ask,pakw->pasw", A[:, i], d), torch.cat([x, NA_t], dim=2),
             TILE, dim=2)
 
-    def plain(self, x, NA_t, NB_t):
+    def plain(self, x, NA_t, NB_t, *aux):
         p, na, Ta, W = x.shape
         nb, T = self.nb, TILE
         B = self._tiles()[1]
@@ -358,7 +365,7 @@ class Final2DSplit(nn.Module):
         ins = torch.cat([zr, nbr], dim=-1)                # (p,a,s,b,T+8)
         y = split.pair_sum(self.nprod, lambda i, d: torch.einsum(
             "bok,pasbk->pasbo", B[:, i], d), ins, TILE)
-        return y.reshape(p, na, Ta, W)
+        return self._epi(y.reshape(p, na, Ta, W), aux)
 
     def resplit_bound(self, x, NA_t) -> torch.Tensor:
         """Per output (the shape of Y), how far one product's kernel and
@@ -395,9 +402,9 @@ class Final2DSplit(nn.Module):
                          d.reshape(p, na, Ta, self.nb, TILE))
         return t.reshape(p, na, Ta, W).float()
 
-    def _twin(self, x, NA_t, NB_t):
-        """The float32 product with the constants' grade (linear: the
-        backward's map)."""
+    def _twin(self, x, NA_t, NB_t, *aux):
+        """The float32 product with the constants' grade, then the
+        epilogue (linear: the backward's map)."""
         p, na, Ta, W = x.shape
         nb, T = self.nb, TILE
         A, B = (m.sum(1) for m in self._tiles())
@@ -405,9 +412,9 @@ class Final2DSplit(nn.Module):
         nbr = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 4, 2, 3)
         ins = torch.cat([z.reshape(p, na, Ta, nb, T), nbr], dim=-1)
         y = torch.einsum("bok,pasbk->pasbo", B, ins)
-        return y.reshape(p, na, Ta, W)
+        return self._epi(y.reshape(p, na, Ta, W), aux)
 
-    def _kernel(self, x, NA_t, NB_t):
+    def _kernel(self, x, NA_t, NB_t, *aux):
         p, na, nb = x.shape[0], self.na, self.nb
         W = nb * TILE
         _check(x, "x", (p, na, TILE, W), x.device)
@@ -418,16 +425,24 @@ class Final2DSplit(nn.Module):
             _check(t, name, t.shape, x.device, torch.bfloat16)
         _grid_ok(p, na, W)
         y = torch.empty_like(x)
-        _launch("final2d_split", (
-            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
-            self.Ac.data_ptr(), self.Bc.data_ptr(), y.data_ptr(), p, na, nb,
-            self.Ac.shape[0], self.Bc.shape[0], self.nprod), x.device)
+        ops = (x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
+               self.Ac.data_ptr(), self.Bc.data_ptr())
+        dims = (p, na, nb, self.Ac.shape[0], self.Bc.shape[0], self.nprod)
+        if self.affine is None:
+            _launch("final2d_split", (*ops, y.data_ptr(), *dims), x.device)
+            return y
+        _check(self.epi_coef, "epi_coef", self.epi_coef.shape, x.device)
+        _launch("final2d_split_epi", (
+            *ops, *_aux_ptrs(aux, self.k, x.shape, x.device),
+            self.epi_coef.data_ptr(), y.data_ptr(), *dims, self.k), x.device)
         return y
 
-    def forward(self, x, NA_t, NB_t):
+    def forward(self, x, NA_t, NB_t, *aux):
+        if len(aux) != self.k:
+            raise ValueError(f"expected {self.k} aux arrays, got {len(aux)}")
         if x.is_cuda:
-            return _KernelFn.apply(self, x, NA_t, NB_t)
-        return self.plain(x, NA_t, NB_t)
+            return _KernelFn.apply(self, x, NA_t, NB_t, *aux)
+        return self.plain(x, NA_t, NB_t, *aux)
 
 
 class Final2DStencil(nn.Module):
@@ -437,26 +452,34 @@ class Final2DStencil(nn.Module):
 
         out[c] = Σ_(dy, dx, coeff) coeff · Y[· + dy, · + dx]
 
-    over the dual completion Y of :class:`Final2D` (the same operands),
-    with the JAX package's border rule: positive offsets clamp at the far
-    edges (rows, then columns), negative offsets read zero. The halo
-    strips (p, na, h8, W) hold the completed bottom h8 rows of each tile's
-    upper neighbour (``halo_top``) and top h8 rows of its lower neighbour
-    (``halo_bot``); the kernel completes the neighbour columns itself
-    (``csrc/final2d_stencil.cu``). The twin ``plain`` is the JAX package's
-    ``_ref``: Y recomputed whole, then :func:`.stencil2d.stencil2d_ref` —
-    it reads no halo strip, so the strips get zero gradients.
+    over the dual completion Y of :class:`Final2D` (the same operands), or,
+    at ``nprod`` 1, 3 or 4, of :class:`Final2DSplit`, with the JAX
+    package's border rule: positive offsets clamp at the far edges (rows,
+    then columns), negative offsets read zero. The halo strips (p, na, h8,
+    W) hold the completed bottom h8 rows of each tile's upper neighbour
+    (``halo_top``) and top h8 rows of its lower neighbour (``halo_bot``);
+    the kernel completes the neighbour columns itself, at the grade as the
+    neighbour tile emits them (``csrc/final2d_stencil.cu``). The twin
+    ``plain`` is the JAX package's ``_ref``: Y recomputed whole (at the
+    grade, :meth:`Final2DSplit.plain`), then
+    :func:`.stencil2d.stencil2d_ref` — it reads no halo strip, so the
+    strips get zero gradients; the backward differentiates the float32
+    product with the grade's constants (``_twin``).
 
     taps_c : per channel ``[(dy, dx, coeff), ...]`` with |dy| ≤ h8 ≤ 128
     and |dx| ≤ 128.
     """
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
-                 nb: int, taps_c, h8: int):
+                 nb: int, taps_c, h8: int, nprod: int = 6):
         super().__init__()
         from .stencil2d import Stencil2D
 
-        self.final = Final2D(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na, nb)
+        self.nprod = int(nprod)
+        self.final = (Final2D(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na, nb)
+                      if nprod == 6 else
+                      Final2DSplit(Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat,
+                                   na, nb, nprod))
         self.bank = Stencil2D(taps_c)
         self.na, self.nb, self.h8, self.C = int(na), int(nb), int(h8), \
             self.bank.C
@@ -467,10 +490,33 @@ class Final2DStencil(nn.Module):
                              f"{self.h8} rows and {TILE} columns")
         self.dxl, self.dxr = left, right
 
+    def _bank(self, y):
+        p, na, Ta, W = y.shape
+        return torch.stack(self.bank.plain(y.reshape(p, na * Ta, W))
+                           ).reshape(self.C, p, na, Ta, W)
+
     def plain(self, x, NA_t, NB_t, *halos):
-        p, na, Ta, W = x.shape
-        y = self.final.plain(x, NA_t, NB_t).reshape(p, na * Ta, W)
-        return torch.stack(self.bank.plain(y)).reshape(self.C, p, na, Ta, W)
+        return self._bank(self.final.plain(x, NA_t, NB_t))
+
+    def _twin(self, x, NA_t, NB_t, *halos):
+        return self._bank(getattr(self.final, "_twin", self.final.plain)(
+            x, NA_t, NB_t))
+
+    def resplit_bound(self, x, NA_t) -> torch.Tensor:
+        """Per output channel, how far the kernel and the twin may lie
+        apart beyond their float32 sums: each tap's |coeff| times
+        :meth:`Final2DSplit.resplit_bound` of the Y it reads (zero but at
+        one product)."""
+        if self.nprod == 6:
+            return x.new_zeros((self.C,) + tuple(x.shape))
+        bound = self.final.resplit_bound(x, NA_t)
+        p, na, Ta, W = bound.shape
+        from .stencil2d import Stencil2D
+
+        absbank = Stencil2D([[(dy, dx, abs(c)) for dy, dx, c in taps]
+                             for taps in self.bank.taps_c])
+        return torch.stack(absbank.plain(bound.reshape(p, na * Ta, W))
+                           ).reshape(self.C, p, na, Ta, W)
 
     def _kernel(self, x, NA_t, NB_t, halo_top, halo_bot):
         p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
@@ -481,17 +527,28 @@ class Final2DStencil(nn.Module):
         _check(halo_top, "halo_top", (p, na, h8, W), x.device)
         _check(halo_bot, "halo_bot", (p, na, h8, W), x.device)
         fin, bank = self.final, self.bank
-        for t in (fin.A1_v, fin.B2_v, bank.taps_k):
-            _check(t, "operand", t.shape, x.device)
+        if self.nprod == 6:
+            A, B, side = fin.A1_v, fin.B2_v, None
+            _check(A, "A1_v", A.shape, x.device)
+            _check(B, "B2_v", B.shape, x.device)
+        else:
+            A, B = fin.Ac, fin.Bc
+            _check(A, "Ac", A.shape, x.device, torch.bfloat16)
+            _check(B, "Bc", B.shape, x.device, torch.bfloat16)
+            # the neighbour columns' scratch, written and read by each block
+            side = torch.empty((p, na, nb, TILE, self.dxl + self.dxr),
+                               device=x.device)
+        _check(bank.taps_k, "taps_k", bank.taps_k.shape, x.device)
         _check(bank.toff, "toff", bank.toff.shape, x.device, torch.int32)
         _grid_ok(p, na, W)
         out = torch.empty((self.C, p, na, TILE, W), device=x.device)
         _launch("final2d_stencil", (
-            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
-            fin.A1_v.data_ptr(), fin.B2_v.data_ptr(), halo_top.data_ptr(),
-            halo_bot.data_ptr(), bank.taps_k.data_ptr(), bank.toff.data_ptr(),
-            out.data_ptr(), p, na, nb, fin.A1_v.shape[0], fin.B2_v.shape[0],
-            h8, self.dxl, self.dxr, self.C, bank.taps_k.shape[0]), x.device)
+            x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(), A.data_ptr(),
+            B.data_ptr(), halo_top.data_ptr(), halo_bot.data_ptr(),
+            bank.taps_k.data_ptr(), bank.toff.data_ptr(), out.data_ptr(),
+            0 if side is None else side.data_ptr(), p, na, nb, A.shape[0],
+            B.shape[0], h8, self.dxl, self.dxr, self.C,
+            bank.taps_k.shape[0], self.nprod), x.device)
         return out
 
     def forward(self, x, NA_t, NB_t, halo_top, halo_bot):

@@ -82,8 +82,9 @@ SIGNATURES = {
                       ("moments2d_k", 5, 8), ("moments2d_naf", 7, 7)),
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
                     ("final2d_k", 6, 8)),
-    "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 10, 10)),
-    "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6)),
+    "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 11, 11)),
+    "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6),
+                          ("final2d_split_epi", 11, 7)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
                   ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
@@ -93,10 +94,11 @@ SIGNATURES = {
                            ("completion_rot_epi", 12, 11)),
     "completion_rot_tails": _sig("completion_rot_tails",
                                  ("completion_rot_tails", 6, 8)),
-    "completion_split": _sig("completion_split", ("completion_split", 4, 5)),
+    "completion_split": _sig("completion_split", ("completion_split", 4, 5),
+                             ("completion_split_epi", 9, 6)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 5)),
-    "fir_band": _sig("fir_band", ("fir_band", 3, 7)),
+    "fir_band": _sig("fir_band", ("fir_band", 5, 9)),
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
                          ("int_seg_fix", 3, 9)),

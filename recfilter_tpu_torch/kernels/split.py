@@ -116,18 +116,19 @@ def split_data(x: torch.Tensor, n: int) -> List[torch.Tensor]:
 
 
 def pair_sum(nprod: int, product, data: torch.Tensor,
-             k_img: Optional[int] = None, dim: int = -1) -> torch.Tensor:
+             k_img: Optional[int] = None, dim: int = -1,
+             pairs: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
     """``Σ_(i,j) product(i, chunk_j(data))``, the data's bf16 chunks upcast
     to float32: the twins' form of a split product (``product(i, d)``
     contracts the constant's chunk i with ``d`` along ``dim``), over
-    :func:`prods` of ``nprod``, smallest level first. With ``k_img``, only
-    the data's first ``k_img`` rows along ``dim`` do; the rest (the
-    carries) take those of :func:`carry_nprod`, the carry slab first (the
-    kernels' order)."""
+    :func:`prods` of ``nprod`` (or the list ``pairs`` of the same chunks),
+    smallest level first. With ``k_img``, only the data's first ``k_img``
+    rows along ``dim`` do; the rest (the carries) take those of
+    :func:`carry_nprod`, the carry slab first (the kernels' order)."""
     cn = nprod if k_img is None else carry_nprod(nprod)
     ds = [d.float() for d in split_data(data, nchunks(cn))]
     if cn == nprod:
-        slabs = [(prods(nprod), ds)]
+        slabs = [(prods(nprod) if pairs is None else pairs, ds)]
     else:  # each slab's chunks with the other slab's rows zeroed
         rows = torch.arange(data.shape[dim], device=data.device)
         shape = [1] * data.dim()

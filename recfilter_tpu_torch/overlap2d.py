@@ -152,11 +152,12 @@ class Fused2DPx(nn.Module):
     chain there (``dimfuse.RotationChain``).
 
     ``nprod``: the product grade of the final pass — 6 (px6) on
-    ``final2d``, or a reduced grade's 1, 3 or 4 (default, px3, px4) on
-    ``final2d_split``: no stencil bank there (``NotImplementedError``
-    naming ROADMAP Queue 1 item 4), the epilogue as torch ops after the
-    kernel. Pass 1 and the carries run as at px6 (fp64 sums and solves,
-    bound by bytes: fewer products buy no time there).
+    ``final2d`` (``final2d_epi``, ``final2d_stencil``), or a reduced
+    grade's 1, 3 or 4 (default, px3, px4) on ``final2d_split``
+    (``final2d_split_epi`` with an affine epilogue; a stencil bank on
+    ``final2d_stencil`` at the grade). Pass 1 and the carries run as at
+    px6 (fp64 sums and solves, bound by bytes: fewer products buy no time
+    there).
 
     ``naf`` / ``bsolve``: the optional routes of the module docstring.
     None (the default) reads ``RECFILTER_PXM_NAF`` / ``RECFILTER_PX2D_BK``
@@ -177,11 +178,6 @@ class Fused2DPx(nn.Module):
         if nprod not in (1, 3, 4, 6):
             raise ValueError(f"nprod {nprod}: the 2-D executor runs 1, 3, 4 "
                              "or 6 products")
-        if nprod != 6 and stencil2d is not None:
-            raise NotImplementedError(
-                f"a fused stencil2d bank at {nprod} products: final2d_stencil "
-                "has no split-bf16 form (ROADMAP Queue 1 item 4; its kernel "
-                "form is ROADMAP Queue 2 item 2)")
         self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:
@@ -198,7 +194,7 @@ class Fused2DPx(nn.Module):
         self.wa, self.wb, self.na, self.nb = wa, wb, na, nb
         self.pad_a, self.pad_b, self.Ka, self.Kb = pad_a, pad_b, Ka, Kb
         self.epilogue = epilogue
-        self.affine = kernel_form(epilogue) if nprod == 6 else None
+        self.affine = kernel_form(epilogue)
         self.epilogue_route = (None if epilogue is None else
                                "torch" if self.affine is None else "kernel")
         self.h8 = 0 if stencil2d is None else stencil_h8(stencil2d)
@@ -251,10 +247,10 @@ class Fused2DPx(nn.Module):
         if self.h8:
             self.final = k2d.Final2DStencil(ma.Btot, Ra_cat, mb.Btot,
                                             Rb_cat, na, nb, stencil2d,
-                                            self.h8)
+                                            self.h8, nprod)
         elif nprod != 6:
             self.final = k2d.Final2DSplit(ma.Btot, Ra_cat, mb.Btot, Rb_cat,
-                                          na, nb, nprod)
+                                          na, nb, nprod, affine=self.affine)
         else:
             self.final = k2d.Final2D(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na,
                                      nb, affine=self.affine)

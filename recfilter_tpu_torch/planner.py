@@ -29,11 +29,15 @@ kernel launches, and ``overlap_k`` runs its HIGHEST kernel pair.
 The reduced grades ``px3``, ``px4`` and ``default`` (the throughput mode)
 are the JAX package's split-bf16 product counts 3, 4 and 1
 (``kernels/split.py``), on bf16 tensor cores: the 3-touch 2-D executor
-(``overlap2d.Fused2DPx`` on ``final2d_split``), volumes (the rows pass
+(``overlap2d.Fused2DPx`` on ``final2d_split``, ``final2d_split_epi`` with
+an affine epilogue, ``final2d_stencil`` at the grade with a fused
+``stencil2d`` bank), volumes (the rows pass
 ``overlap2d.FusedRowsPx`` on ``rows_final`` at the grade, then the 2-D
 executor), the rows pass of the per-axis loop at px3 and px4 (at
 ``default`` the JAX package runs its einsum pass there), the unrotated
-last-axis pass (``dimfuse.LastAxisPass`` on ``completion_split``), and
+last-axis pass (``dimfuse.LastAxisPass`` on ``completion_split``,
+``completion_split_epi``), the FIR band pass (``fir.FirPass`` on
+``fir_band`` at the grade, ``tap_scale`` read), and
 the rotated one — the rotation chain (a volume's trailing pair after its
 rows pass included), the per-axis loop's non-last axes
 (``dimfuse.FusedAxisPass``) and ``rotate_emit`` — on ``completion_rot``,
@@ -42,7 +46,9 @@ rows pass included), the per-axis loop's non-last axes
 stencil or chained tails); where a pass's kernels do not apply (fewer
 than 8 lines, other tiles than 128, ΣK > 56, or at ``default`` no
 structural win) it takes its einsum form at the grade's products, as in
-the JAX package. Every other route raises
+the JAX package. The ``pallas`` backend's strip passes sum in fp64 at
+every grade and run there as at px6 (the JAX package's strip kernels read
+no grade). Every other route raises
 ``NotImplementedError`` at those grades, naming ROADMAP Queue 1 item 4;
 no route runs another grade in their place. The routes are allowed where
 the grade enters: ``dimfuse.fused_filter_module``,
@@ -58,8 +64,9 @@ takes its einsum form — the rotation chain and the per-axis loop, as at
 in float32 (``dimfuse.EINSUM_NPROD``), its carry solves and injections in
 float64. ``f32x9`` (the integer limbs' drop-free grade) runs those
 products in float64. The FIR band pass runs ``fir_band`` at ``f32x6`` as
-at px6 and refuses ``f32x3`` and ``f32x4`` as it refuses px3 and px4.
-``matmul_dtype="bfloat16"`` raises (ROADMAP Queue 1 item 4).
+at px6 and at ``f32x3`` and ``f32x4`` as at px3 and px4 (the JAX
+package's product counts). ``matmul_dtype="bfloat16"`` raises (ROADMAP
+Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -75,8 +82,10 @@ _SUPPORTED_PRECISIONS = ("px6", "highest", "px3", "px4", "default",
 SPLIT_GRADES = ("px3", "px4", "default")
 SPLIT_ITEM = "ROADMAP Queue 1 item 4"
 # The backends (besides ``einsum``) a reduced grade runs on: ``overlap_k``
-# (its 3-touch executor, else a refusal) and those that read no grade.
-SPLIT_BACKENDS = ("overlap_k", "overlap", "blocked", "scan", "oracle")
+# (its 3-touch executor, else a refusal) and those that read no grade,
+# ``pallas`` among them (its strips sum in fp64 at every grade).
+SPLIT_BACKENDS = ("overlap_k", "overlap", "pallas", "blocked", "scan",
+                  "oracle")
 
 
 def refuse_split(matmul_precision: str, route: str) -> None:

@@ -207,9 +207,10 @@ def test_unported_precisions_raise(precision):
     last-axis passes and the rotation chain: here the rotated emit
     (``rotate_emit=2``: ``completion_rot`` at px3 and px4, its einsum form
     at ``default``), within the grade's bound of the oracle and twice it
-    of the JAX package's ``realize()``. What is not ported of them raises
-    naming the ROADMAP item — here a fused ``stencil2d`` bank on the same
-    filter (``final2d_stencil``'s split form, Queue 2 item 2)."""
+    of the JAX package's ``realize()``. A fused ``stencil2d`` bank on the
+    same filter runs at the grade too (``final2d_stencil``'s split form),
+    within the grade's bound of the bank over the oracle and twice it of
+    the JAX package's ``apply_filter_fused``."""
     F = _build(rft, 256, 256, _img(256, 256))
     if precision in ("f32x6", "high"):
         bound = {"f32x6": 4e-6, "high": 2e-4}[precision]
@@ -228,10 +229,19 @@ def test_unported_precisions_raise(precision):
         np.testing.assert_array_equal(got2, got)
         return
     F.set_plan(matmul_precision=precision)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        F.as_func(stencil2d=[[(0, 1, 1.0)]], device="cpu")
     bound = {"px3": 1e-4, "px4": 8e-5, "default": 3e-2}[precision]
     img = _img(256, 256)
+    bank = [[(0, 1, 1.0)]]
+    (got,) = F.as_func(stencil2d=bank, device="cpu")(torch.from_numpy(img))
+    y = jsc.oracle_apply(F.spec, img.astype(np.float64))
+    want = np.concatenate([y[:, 1:], y[:, -1:]], 1)  # dx = 1, edge clamped
+    peak = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= bound * peak
+    (jw,) = jdf.apply_filter_fused(_build(jrf, 256, 256, img).spec,
+                                   jnp.asarray(img),
+                                   matmul_precision=precision,
+                                   stencil2d=bank)
+    assert np.abs(got.numpy() - np.asarray(jw)).max() <= 2 * bound * peak
     outs = []
     for rf in (rft, jrf):
         Fx = rf.RecFilter("XOnly")

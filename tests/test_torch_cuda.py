@@ -2108,3 +2108,211 @@ def test_rotation_chain_at_the_grades(grade, dev):
             for p in mod.passes:
                 p.completion_nt = None  # unchained: each pass its tails
             assert torch.equal(mod(x), got)
+
+
+# ---------------------------------------------------------------------------
+# The fused consumers' reduced-grade forms: fir_band, final2d_stencil and
+# the epilogue entries at nprod 1, 3, 4
+# ---------------------------------------------------------------------------
+
+FIR_FORMS = [("plain", False, None), ("plain", True, [11.0 ** 3]),
+             ("bank", True, None), ("bank", False, [7.0 ** 3, 19.0 ** 3]),
+             ("contract", False, None),
+             ("contract", True, [7.0 ** 3, 19.0 ** 3])]
+
+
+@pytest.mark.parametrize("form,rot,scale", FIR_FORMS)
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_fir_band_at_the_grades_matches_twin(form, rot, scale, nprod, dev):
+    """fir_band at nprod 1, 3, 4 — flat, bank, contraction and rotated,
+    with and without ``tap_scale`` (the radius-3 box³ channel exact, the
+    radius-9 one not) — against its twin: 1e-5 of the twin's peak, one
+    launch."""
+    from recfilter_tpu_torch.fir import _align_taps, box_taps
+    from recfilter_tpu_torch.kernels import fir_band
+
+    taps = _align_taps([box_taps(5, 3)] if form == "plain"
+                       else [box_taps(3, 3), box_taps(9, 3)])
+    contract = form == "contract"
+    band = fir_band.FirBand(taps, rot=rot, contract=contract,
+                            signs=[1.0, -1.0] if contract else None,
+                            nprod=nprod, tap_scale=scale).to(dev)
+    rng = np.random.default_rng(nprod)
+    shape = (2, 77, 1000) if contract else (77, 1000)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    tl.reset_launches()
+    y = band(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(fir_band=1)
+    assert _rel(y, band.plain(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("nprod,K", [(1, 65), (3, 65), (4, 65), (6, 257)])
+def test_fir_band_stages_what_it_fits(nprod, K, dev):
+    """A 16-channel bank: where the kernel stages it (its tap rows the most
+    chunk pairs a channel takes) it matches its twin within 1e-5 of the
+    twin's peak in one launch; where it does not fit (px4 at K = 65, px6 at
+    K = 257) the launcher refuses it and ``FirPass`` routes the bank to the
+    einsum form, with no launch."""
+    from recfilter_tpu_torch import fir
+    from recfilter_tpu_torch.kernels import fir_band
+
+    taps = np.random.default_rng(K).standard_normal((16, K)) / K
+    band = fir_band.FirBand(taps, nprod=nprod).to(dev)
+    rng = np.random.default_rng(nprod)
+    x = torch.from_numpy(rng.standard_normal((40, 512)).astype(
+        np.float32)).to(dev)
+    tl.reset_launches()
+    if band.fits:
+        y = band(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(fir_band=1)
+        assert _rel(y, band.plain(x)) <= 1e-5
+        return
+    with pytest.raises(RuntimeError):
+        band(x)
+    grade = {4: "px4", 6: "px6"}[nprod]
+    mod = fir.FirPass(taps, tuple(x.shape), bank=True,
+                      matmul_precision=grade).to(dev)
+    tl.reset_launches()
+    y = mod(x)
+    torch.cuda.synchronize()
+    assert mod.band is None and not any(tl.LAUNCHES.values())
+    assert y.shape == (16, 40, 512) and bool(torch.isfinite(y).all())
+
+
+def _stencil_inputs(fin, dev, ints):
+    """x, the carries and the halo strips of the twin's own output rows
+    (integer-valued with ``ints``: every sum exact at every grade)."""
+    rng = np.random.default_rng(7)
+    if ints:
+        shapes = [(P, NA, T, NB * T), (P, NA, 8, NB * T), (P, NA, NB * 8, T)]
+        x, NA_t, NB_t = [torch.from_numpy(rng.integers(-8, 9, s).astype(
+            np.float32)).to(dev) for s in shapes]
+    else:
+        x, NA_t, NB_t = _inputs(dev, seed=5)
+    h8 = fin.h8
+    Y = fin.final.plain(x, NA_t, NB_t)
+    z = torch.zeros_like(Y[:, :1, :h8])
+    top = torch.cat([z, Y[:, :-1, T - h8:]], dim=1).contiguous()
+    bot = torch.cat([Y[:, 1:, :h8], z], dim=1).contiguous()
+    return x, NA_t, NB_t, top, bot
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_final2d_stencil_at_the_grades_matches_twin(kind, nprod, dev):
+    """final2d_stencil at nprod 1, 3, 4 (C1's bank, radii 5 and 9, h8 =
+    16; the lane neighbours' columns from their own split tiles): within
+    1e-5 of the twin's peak per output, plus the bank over the resplit
+    bound at one product; bit for bit on integer matrices and inputs."""
+    bank = [[(5, 5, 1.0), (5, -6, -1.0), (-6, 5, -1.0), (-6, -6, 1.0)],
+            [(9, 9, 0.5), (9, -10, -0.5), (-10, 9, -0.5), (-10, -10, 0.5)]]
+    for rng, ints in ((None, False), (np.random.default_rng(2), True)):
+        fin = tk2d.Final2DStencil(*_split_mats(kind, rng), NA, NB, bank, 16,
+                                  nprod).to(dev)
+        args = _stencil_inputs(fin, dev, ints)
+        tl.reset_launches()
+        got = fin(*args)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(final2d_stencil=1)
+        want = fin.plain(*args)
+        if ints:
+            assert torch.equal(got, want)
+            continue
+        lim = (1e-5 * want.abs().amax(dim=(1, 2, 3, 4), keepdim=True)
+               + fin.resplit_bound(*args[:2]))
+        assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+@pytest.mark.parametrize("i", [0, 2, 4])
+def test_split_epilogue_entries_match_twins(kind, nprod, i, dev):
+    """final2d_split_epi and completion_split_epi, k = 0, 2, 4 aux arrays,
+    against their twins (the split products, then the form): 1e-5 of the
+    twin's peak (plus |a| × the resplit bound at one product for the 2-D
+    entry), one launch each."""
+    aff = _affine(i)
+    mod = tk2d.Final2DSplit(*_split_mats(kind), NA, NB, nprod,
+                            affine=aff).to(dev)
+    x, NA_t, NB_t = _inputs(dev, seed=i)
+    aux = _aux(x.shape, aff.k, dev, 40 + i)
+    tl.reset_launches()
+    y = mod(x, NA_t, NB_t, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(final2d_split_epi=1)
+    want = mod.plain(x, NA_t, NB_t, *aux)
+    lim = (1e-5 * want.abs().max()
+           + abs(aff.scale) * mod.resplit_bound(x, NA_t))
+    assert bool(((y - want).abs() <= lim).all())
+    rng = np.random.default_rng(i)
+    n, S, q = 4, 6, 300
+    Btot, Rcat = _stack(kind, T, T, n, rng, 0.1), _stack(kind, T, S, n, rng)
+    comp = tc.CompletionPass(Btot, Rcat, n, affine=aff, nprod=nprod).to(dev)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(np.float32)
+                         ).to(dev)
+    N = torch.zeros((n, comp.sl, q), device=dev)
+    N[:, :S] = torch.from_numpy(rng.standard_normal((n, S, q)).astype(
+        np.float32)).to(dev)
+    aux = _aux((q, n, T), aff.k, dev, 50 + i)
+    tl.reset_launches()
+    y = comp(x, N, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_split_epi=1)
+    assert _rel(y, comp.plain(x, N, *aux)) <= 1e-5
+
+
+@pytest.mark.parametrize("grade,bound", [("px3", 1e-4), ("px4", 8e-5),
+                                         ("default", 3e-2)])
+def test_fused_consumers_at_the_grades_on_the_card(grade, bound, dev):
+    """At each reduced grade through the public API: box ×3 and the DoG
+    (FIR) on two ``fir_band`` launches within the grade's bound of the
+    separable f64 oracle; the Gaussian at 512² with a Sobel ``stencil2d``
+    bank (moments2d, final2d_stencil) and with an affine epilogue
+    (moments2d, final2d_split_epi) within it of the bank (the combine)
+    over the f64 oracle."""
+    from recfilter_tpu_torch.apps import box_filter_3, difference_of_gaussians
+    from recfilter_tpu_torch.bench import _build_filter
+    from recfilter_tpu_torch.fir import box_taps, fir_oracle
+    from recfilter_tpu_torch.kernels.stencil2d import stencil2d_ref
+
+    img = np.random.default_rng(8).random((384, 512)).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    for mod, taps in (
+            (box_filter_3(512, 384, 5, matmul_precision=grade),
+             [(1.0, box_taps(5, 3))]),
+            (difference_of_gaussians(512, 384, 5, 9, matmul_precision=grade),
+             [(1.0, box_taps(5, 3)), (-1.0, box_taps(9, 3))])):
+        tl.reset_launches()
+        got = mod(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(fir_band=2)
+        want = sum(s * fir_oracle(fir_oracle(img, t, 1), t, 0)
+                   for s, t in taps)
+        err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+        assert err <= bound
+    img = (np.random.default_rng(9).standard_normal((512, 512)) * 0.01
+           ).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    F = _build_filter(512, 512)
+    F.set_plan(matmul_precision=grade)
+    y64 = rft.oracle_apply(F.spec, img.astype(np.float64))
+    sobel = [[(-1, -1, -1.0), (0, -1, -2.0), (1, -1, -1.0), (-1, 1, 1.0),
+              (0, 1, 2.0), (1, 1, 1.0)]]
+    tl.reset_launches()
+    (got,) = F.as_func(stencil2d=sobel)(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d=1, final2d_stencil=1)
+    (want,) = stencil2d_ref(torch.from_numpy(y64), sobel)
+    err = (got.cpu().double() - want).abs().max() / want.abs().max()
+    assert err <= bound
+    fn = F.as_func(epilogue=lambda o, a: 2.0 * a - o)
+    assert fn.epilogue_route == "kernel"
+    tl.reset_launches()
+    got = fn(x, x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d=1, final2d_split_epi=1)
+    want = 2.0 * img - y64
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= bound

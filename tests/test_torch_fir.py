@@ -25,6 +25,7 @@ from recfilter_tpu_torch import fir as tfir
 from recfilter_tpu_torch.apps import box as tbox
 from recfilter_tpu_torch.apps import dog as tdog
 from recfilter_tpu_torch.kernels import fir_band as tfb
+from recfilter_tpu_torch.kernels import split
 
 T = 128
 
@@ -115,6 +116,57 @@ def test_fir_band_gradient_matches_jax():
                                rtol=1e-4, atol=1e-4)
 
 
+# the reduced grades: (form, rot, tap_scale) cases at nprod 1, 3 and 4
+GRADE_CASES = [("plain", False, None), ("plain", True, "scale"),
+               ("bank", True, None), ("bank", False, "scale"),
+               ("contract", False, None), ("contract", True, "scale")]
+SCALES = {"plain": [11.0 ** 3], "bank": [7.0 ** 3, 19.0 ** 3],
+          "contract": [7.0 ** 3, 19.0 ** 3]}
+
+
+@pytest.mark.parametrize("form,rot,scale", GRADE_CASES)
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_fir_band_grades_match_jax_kernel(form, rot, scale, nprod):
+    """FirBand's twin at nprod 1, 3 and 4 against ``fir_band_pass(nprod=)``
+    (interpret mode), with and without ``tap_scale``: within 1e-5 of the
+    JAX output's peak. With the scale, below px6, the box³ of radius 3
+    (343-scaled taps, exact bf16 integers) takes the pairs (0, j) and the
+    radius 9 (6859-scaled: not exact) the generic ones, as in the JAX
+    package; at one product every channel takes (0, 0)."""
+    taps = tfir._align_taps(BANDS[form])
+    contract = form == "contract"
+    signs = [1.0, -1.0] if contract else None
+    ts = SCALES[form] if scale else None
+    x = _x(2, 40, 500, seed=nprod) if contract else _x(40, 500, seed=nprod)
+    band = tfb.FirBand(taps, rot=rot, contract=contract, signs=signs,
+                       nprod=nprod, tap_scale=ts)
+    reduced = [(0, j) for j in range(2)]
+    if ts and nprod > 1:
+        assert band.pairs[0] == reduced
+        assert band.pairs[-1] == (reduced if form == "plain"
+                                  else split.prods(nprod))
+    else:
+        assert all(len(p) == nprod for p in band.pairs)
+    got = band(torch.from_numpy(x)).numpy()
+    want = np.asarray(jfb.fir_band_pass(
+        jnp.asarray(x), taps, T=T, rot=rot, nprod=nprod, signs=signs,
+        contract=contract, interpret=True, tap_scale=ts))
+    _near(got, want, 1e-5)
+
+
+def test_exact_band_is_the_jax_decision():
+    """``exact_band`` (torch's bfloat16 round trip) decides every channel
+    as the JAX package's (``ml_dtypes``) does."""
+    taps = tfir._align_taps([tfir.box_taps(3, 3), tfir.box_taps(9, 3),
+                             tfir.box_taps(5, 1)])
+    for scale in (None, 343.0, [343.0, 6859.0, 11.0], [1.0, 1.0, 3.0]):
+        got, want = (m.exact_band(taps, scale, 3) for m in (tfb, jfb))
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1] == want[1] and got[2] == want[2]
+
+
 # ------------------------------------------------------------- the routes
 
 
@@ -163,6 +215,36 @@ def test_fir_pass_last_takes_the_jax_route(shape, kw, monkeypatch):
         tfir.fir_pass_last(torch.from_numpy(x), taps, **kw).numpy(), got)
 
 
+# the grades' bounds of the f64 oracle's peak (tests/test_dimfuse.py:454)
+GRADE_BOUNDS = {"px3": 1e-4, "f32x3": 1e-4, "px4": 8e-5, "f32x4": 8e-5,
+                "default": 3e-2}
+
+
+@pytest.mark.parametrize("grade", list(GRADE_BOUNDS))
+@pytest.mark.parametrize("tile", [T, 64], ids=["kernel", "einsum"])
+def test_fir_pass_last_grades_take_the_jax_route(grade, tile, monkeypatch):
+    """At the reduced grades ``fir_pass_last`` takes the JAX package's
+    route (the band kernel at its product count, or the split einsum where
+    the kernel's gate fails), within the grade's bound of the f64 oracle
+    and twice it of the JAX package."""
+    taps = tfir.box_taps(4, 3)
+    x = _x(40, 700, seed=13)
+    kw = dict(tile_width=tile, matmul_precision=grade, tap_scale=9.0 ** 3)
+    calls = _spy_jax_kernel(monkeypatch)
+    want = np.asarray(jfir.fir_pass_last(jnp.asarray(x), taps, **kw))
+    mod = tfir.FirPass(taps, x.shape, **kw)
+    assert (mod.band is not None) == bool(calls) == (tile == T)
+    if mod.band is not None:
+        assert mod.band.nprod == tfir.BAND_NPROD[grade]
+    else:
+        assert mod.nsp == {"default": 1}.get(grade, tfir.BAND_NPROD[grade])
+    got = mod(torch.from_numpy(x)).numpy()
+    oracle = tfir.fir_oracle(x, taps, -1)
+    bound = GRADE_BOUNDS[grade]
+    _near(got, oracle, bound)
+    _near(got, want, 2 * bound)
+
+
 @pytest.mark.parametrize("bank", [True, False], ids=["bank", "contract"])
 @pytest.mark.parametrize("T_", [T, 32])
 def test_fir_pass_last_channels_match_jax(bank, T_, monkeypatch):
@@ -179,8 +261,39 @@ def test_fir_pass_last_channels_match_jax(bank, T_, monkeypatch):
     _near(mod(torch.from_numpy(x)).numpy(), want, 1e-5)
 
 
+@pytest.mark.parametrize("grade,K", [("default", 65), ("px3", 65),
+                                     ("px4", 65), ("px6", 257)])
+def test_fir_band_stages_what_it_fits(grade, K, monkeypatch):
+    """A 16-channel bank: the kernel's tap rows per channel are its most
+    chunk pairs (1 at ``default``, 3 at px3, 4 at px4, 1 at px6), and a
+    bank whose staged taps pass the kernel's 4096 values (px4 at K = 65,
+    px6 at K = 257) takes the einsum form, though the JAX kernel takes it;
+    either way within the grade's bound of the f64 oracle and twice it of
+    the JAX package (2e-6 and 1e-5 at px6)."""
+    taps = np.random.default_rng(K).standard_normal((16, K)) / K
+    x = _x(8, 256, seed=K)
+    kw = dict(tile_width=T, bank=True, matmul_precision=grade)
+    calls = _spy_jax_kernel(monkeypatch)
+    want = np.asarray(jfir.fir_pass_last(jnp.asarray(x), taps, **kw))
+    assert calls
+    band = tfb.FirBand(taps, nprod=tfir.BAND_NPROD[grade])
+    assert band.npair == {"default": 1, "px3": 3, "px4": 4, "px6": 1}[grade]
+    assert band.taps_k.shape == ((16, band.Kpad) if grade == "px6"
+                                 else (16, band.npair, band.Kpad))
+    assert band.fits == (16 * band.npair * band.Kpad <= 4096)
+    assert band.fits == (grade in ("default", "px3"))
+    mod = tfir.FirPass(taps, x.shape, **kw)
+    assert (mod.band is not None) == band.fits
+    got = mod(torch.from_numpy(x)).numpy()
+    bound = GRADE_BOUNDS.get(grade, 2e-6)
+    oracle = np.stack([tfir.fir_oracle(x, t, -1) for t in taps])
+    _near(got, oracle, bound)
+    _near(got, want, 2 * bound if grade != "px6" else 1e-5)
+
+
 def test_tap_scale_changes_nothing():
-    """``tap_scale`` is a TPU bf16 device; the port's fp32 sums ignore it."""
+    """At px6 the port's fp32 sums read no ``tap_scale`` (below px6 it
+    picks the reduced pairs: ``test_fir_band_grades_match_jax_kernel``)."""
     taps = tfir.box_taps(5, 3)
     x = torch.from_numpy(_x(16, 512, seed=7))
     a = tfir.fir_pass_last(x, taps, tile_width=T)
@@ -194,8 +307,11 @@ def test_fir_refusals():
         tfir.fir_pass_last(x, np.ones(200) / 200.0, tile_width=16)
     with pytest.raises(NotImplementedError, match="item 4"):
         tfir.fir_pass_last(x, [1.0], matmul_dtype="bfloat16")
+    # px3 runs (fir_band's twin at three products): the identity band
+    assert torch.equal(tfir.fir_pass_last(x + 1.0, [1.0],
+                                          matmul_precision="px3"), x + 1.0)
     with pytest.raises(NotImplementedError, match="item 4"):
-        tfir.fir_pass_last(x, [1.0], matmul_precision="px3")
+        tfir.fir_pass_last(x.to(torch.bfloat16), [1.0])
     with pytest.raises(ValueError):
         tfir.fir_pass_last(torch.zeros(256), [1.0], emit_rot=True)
 
@@ -265,6 +381,39 @@ def test_dog_matches_jax_app():
     oracle = _sep_oracle(img, t1) - _sep_oracle(img, t2)
     scale = np.abs(_sep_oracle(img, t1)).max()
     assert np.abs(got - oracle).max() <= 5e-6 * scale
+
+
+@pytest.mark.parametrize("grade", ["px3", "px4", "default"])
+def test_fir_apps_at_the_grades(grade):
+    """box ×3 and the DoG (FIR) at a reduced grade (``matmul_precision``
+    carried through ``FirSeparable2D``): both passes on ``fir_band``'s
+    twin at the grade's products with the apps' ``tap_scale``, within the
+    grade's bound of the separable f64 oracle and twice it of the JAX
+    apps' ``fir_separable_2d`` at the same grade."""
+    h, w = 136, 264
+    img = _x(h, w, seed=14)
+    nprod = tfir.BAND_NPROD[grade]
+    t1, t2 = tfir.box_taps(5, 3), tfir.box_taps(9, 3)
+    box3 = tbox.box_filter_3(w, h, 5, T, device="cpu",
+                             matmul_precision=grade)
+    dog = tdog.difference_of_gaussians(w, h, 5, 9, T, device="cpu",
+                                       matmul_precision=grade)
+    for mod in (box3, dog):
+        assert mod.x_pass.band.nprod == mod.y_pass.band.nprod == nprod
+    bound = GRADE_BOUNDS[grade]
+    got = box3(torch.from_numpy(img)).numpy()
+    oracle = _sep_oracle(img, t1)
+    _near(got, oracle, bound)
+    _near(got, np.asarray(jfir.fir_separable_2d(
+        jnp.asarray(img), [t1], tile_width=T, matmul_precision=grade,
+        tap_scale=11.0 ** 3)), 2 * bound)
+    got = dog(torch.from_numpy(img)).numpy()
+    oracle = _sep_oracle(img, t1) - _sep_oracle(img, t2)
+    _near(got, oracle, bound)
+    _near(got, np.asarray(jfir.fir_separable_2d(
+        jnp.asarray(img), [t1, t2], signs=[1.0, -1.0], tile_width=T,
+        matmul_precision=grade, tap_scale=[11.0 ** 3, 19.0 ** 3])),
+        2 * bound)
 
 
 def test_box_gradient_matches_jax():

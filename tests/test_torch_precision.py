@@ -30,12 +30,14 @@ from recfilter_tpu.kernels import final2d as jk2d
 
 import recfilter_tpu_torch as rft
 from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch.epilogue import affine_form
 from recfilter_tpu_torch import fir as tfir
 from recfilter_tpu_torch import scan_core as tsc
 from recfilter_tpu_torch import spec as tspec
 from recfilter_tpu_torch.kernels import completion as tc
 from recfilter_tpu_torch.kernels import final2d as tk2d
 from recfilter_tpu_torch.kernels import split
+from recfilter_tpu_torch.kernels import stencil2d as tst
 from recfilter_tpu_torch.overlap2d import Fused2DPx
 
 T = 128
@@ -156,21 +158,36 @@ def _widen_carries(R, N):
             np.concatenate([N1, N0, N0, pad], -2))
 
 
-def _final2d_px_port_carries(ms, xs, na, nb):
+def _final2d_px_port_carries(ms, xs, na, nb, **kw):
     """The JAX kernel with the port's carry grade at one product:
     ``final2d_px(nprod=1)`` on carries widened to three products
     (:func:`_widen_carries`) — one product on the image rows, three on
-    the carry rows, as ``final2d_split`` takes them."""
+    the carry rows, as ``final2d_split`` takes them. ``kw``: its
+    consumers (``epilogue``/``eaux``, ``stencil2d`` and the halos)."""
     Ba, Ra, Bb, Rb = ms
     x, NA, NB = xs
     p = x.shape[0]
     Ra3, NA3 = _widen_carries(Ra, NA)
     nbr = NB.reshape(p, na, nb, 8, T)
     Rb3, NB3 = _widen_carries(Rb, nbr)
-    return np.asarray(jk2d.final2d_px(
+    out = jk2d.final2d_px(
         jnp.asarray(x), Ba, Ra3, Bb, Rb3, jnp.asarray(NA3),
         jnp.asarray(NB3.reshape(p, na, nb * 8, T)), nprod=1,
-        interpret=True))
+        interpret=True, **kw)
+    return (np.stack([np.asarray(o) for o in out]) if isinstance(out, tuple)
+            else np.asarray(out))
+
+
+def _final2d_px_at(nprod, ms, xs, na, nb, **kw):
+    """``final2d_px`` at ``nprod`` with the port's carry grade (one
+    product: :func:`_final2d_px_port_carries`), channels stacked."""
+    if nprod == 1:
+        return _final2d_px_port_carries(ms, xs, na, nb, **kw)
+    out = jk2d.final2d_px(jnp.asarray(xs[0]), *ms, jnp.asarray(xs[1]),
+                          jnp.asarray(xs[2]), nprod=nprod, interpret=True,
+                          **kw)
+    return (np.stack([np.asarray(o) for o in out]) if isinstance(out, tuple)
+            else np.asarray(out))
 
 
 def _ints(shapes, rng, lo, hi, dtype):
@@ -233,6 +250,72 @@ def test_final2d_split_twin_matches_final2d_px(clamp, nprod):
         assert np.abs(got - y64).max() < np.abs(want - y64).max()
 
 
+def _corner_taps(B):
+    s = 1.0 / float((2 * B + 1) ** 2)
+    return [(B, B, s), (B, -B - 1, -s), (-B - 1, B, -s), (-B - 1, -B - 1, s)]
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_final2d_stencil_split_twin_matches_final2d_px(nprod):
+    """``Final2DStencil`` at the grade against ``final2d_px(stencil2d=)``
+    at p = 1, na = 2, W = 256 (a dual-radius 4-corner bank, h8 = 16; a
+    clamp border at three products): within 1e-5 of the JAX output's peak
+    per output plus, at one product, the bank over the resplit bound
+    (``Final2DStencil.resplit_bound``). Both read the halo strips of the
+    twin's own output rows (the JAX kernel reads them, the twin recomputes
+    them); at one product the JAX kernel runs on the widened carries."""
+    na = nb = 2
+    h8, bank = 16, [_corner_taps(5), _corner_taps(7)]
+    xs = [_img(1, na, T, nb * T, seed=21), _img(1, na, 8, nb * T, seed=22),
+          _img(1, na, nb * 8, T, seed=23)]
+    ms = _mats2d(nprod == 3, na, nb, small=nprod == 1)
+    fin = tk2d.Final2DStencil(*ms, na, nb, bank, h8, nprod)
+    tx = [torch.from_numpy(a) for a in xs]
+    Y = fin.final.plain(*tx)
+    z = torch.zeros_like(Y[:, :1, :h8])
+    top = torch.cat([z, Y[:, :-1, T - h8:]], 1)
+    bot = torch.cat([Y[:, 1:, :h8], z], 1)
+    got = fin(*tx, top, bot).numpy()
+    want = _final2d_px_at(nprod, ms, xs, na, nb,
+                          stencil2d={"taps_c": bank, "h8": h8},
+                          halo_top=jnp.asarray(top.numpy()),
+                          halo_bot=jnp.asarray(bot.numpy()))
+    assert got.shape == want.shape == (2, 1, na, T, nb * T)
+    lim = (1e-5 * np.abs(want).max(axis=(1, 2, 3, 4), keepdims=True)
+           + fin.resplit_bound(*tx[:2]).numpy())
+    assert (np.abs(got - want) <= lim).all()
+
+
+def _usm_like(y, a):
+    return 1.5 * a - 0.5 * y + 0.25
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_final2d_split_epilogue_twin_matches_final2d_px(nprod):
+    """``Final2DSplit(affine=)`` (``final2d_split_epi``'s twin) against
+    ``final2d_px(epilogue=, eaux=)`` at p = 1, na = 2, W = 256: within
+    1e-5 of the JAX output's peak per output, plus 0.5 × the resplit bound
+    at one product (the form scales Y by −0.5)."""
+    na = nb = 2
+    xs = [_img(1, na, T, nb * T, seed=31), _img(1, na, 8, nb * T, seed=32),
+          _img(1, na, nb * 8, T, seed=33)]
+    aux = _img(1, na, T, nb * T, seed=34)
+    ms = _mats2d(False, na, nb, small=nprod == 1)
+    form = affine_form(_usm_like)
+    mod = tk2d.Final2DSplit(*ms, na, nb, nprod, affine=form)
+    tx = [torch.from_numpy(a) for a in xs]
+    got = mod(*tx, torch.from_numpy(aux)).numpy()
+    want = _final2d_px_at(nprod, ms, xs, na, nb, epilogue=_usm_like,
+                          eaux=(jnp.asarray(aux),))
+    lim = 1e-5 * np.abs(want).max() + 0.5 * mod.resplit_bound(
+        *tx[:2]).numpy()
+    assert (np.abs(got - want) <= lim).all()
+    # the epilogue's aux is read: without it the output is another
+    plain = tk2d.Final2DSplit(*ms, na, nb, nprod)(*tx).numpy()
+    np.testing.assert_allclose(got, _usm_like(plain, aux), rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 # ---------------------------------- (c) completion_split's twin vs completion
 
 @pytest.mark.parametrize("clamp,n,q", [(False, 3, 40), (True, 4, 24)])
@@ -269,6 +352,35 @@ def test_completion_split_twin_matches_completion_pass(clamp, n, q, nprod):
     assert np.abs(got - want).max() <= lim
     if nprod == 1:
         assert np.abs(got - jax_pass(x, N, 1)).max() > lim
+
+
+@pytest.mark.parametrize("nprod", [1, 3, 4])
+def test_completion_split_epilogue_twin_matches_completion_pass(nprod):
+    """``CompletionPass(affine=)`` unrotated at the grade
+    (``completion_split_epi``'s twin) against ``completion_pass(rot=False,
+    epilogue=, eaux=)``: within 1e-5 of the JAX output's peak. At one
+    product the carries are zero (the port takes three products there,
+    the JAX kernel one; the carry rows are held above)."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    sc = [jspec.Scan(0, True, w3[0], tuple(w3[1:])),
+          jspec.Scan(0, False, w3[0], tuple(w3[1:]))]
+    n, q = 3, 40
+    m = jdf.prepare_dim_pass(sc, T, n, True)
+    Rc = np.concatenate([np.asarray(r) for r in m.Rhat], axis=2)
+    x = _img(q, n, T, seed=35)
+    N = _img(n, 8, q, seed=36) * (nprod != 1)
+    N[:, Rc.shape[-1]:] = 0.0
+    aux = _img(q, n, T, seed=37)
+    mod = tc.CompletionPass(np.asarray(m.Btot), Rc, n, nprod=nprod,
+                            affine=affine_form(_usm_like))
+    got = mod(torch.from_numpy(x), torch.from_numpy(N),
+              torch.from_numpy(aux)).numpy()
+    want = np.asarray(jc.completion_pass(
+        jnp.asarray(x), np.asarray(m.Btot), Rc, jnp.asarray(N), rot=False,
+        nprod=nprod, interpret=True, carries_transposed=True,
+        epilogue=_usm_like, eaux=(jnp.asarray(aux.reshape(q, n * T)),)))
+    assert np.abs(got - want.reshape(got.shape)).max() <= 1e-5 * np.abs(
+        want).max()
 
 
 # ----------------------------------------- (d) the slice through the API
@@ -396,10 +508,6 @@ def _chained_pass(grade):
 
 # the routes that still have no split form at the reduced grades
 ROUTES = {
-    "strip kernels": lambda g: _as_func(_x_only(64, 256), g,
-                                        backend="pallas"),
-    "FIR band": lambda g: tfir.fir_pass_last(
-        torch.zeros(8, 256), [0.5, 0.5], matmul_precision=g),
     "supertile hierarchy": lambda g: tdf.hierarchical_dim_pass(
         torch.zeros(200_000), 0, [tspec.Scan(0, True, 1.0, (0.5,))],
         "zero", g),
@@ -408,13 +516,47 @@ ROUTES = {
 }
 
 
-def _stencil_route(g):
+def _strips_run(g):
+    """The ``pallas`` backend at the grade: its strips sum in fp64 and read
+    no grade (as the JAX package's), so the output is px6's bit for bit."""
+    img = torch.from_numpy(_x_only(64, 256)._image)
+    got = _as_func(_x_only(64, 256), g, backend="pallas")(img)
+    want = _as_func(_x_only(64, 256), "px6", backend="pallas")(img)
+    assert torch.equal(got, want)
+
+
+def _fir_run(g):
+    """The FIR band pass on ``fir_band``'s twin at the grade's products,
+    within the grade's bound of the f64 oracle."""
+    x, taps = _img(8, 256, seed=12), np.array([0.25, 0.5, 0.25])
+    mod = tfir.FirPass(taps, x.shape, matmul_precision=g)
+    assert mod.band is not None and mod.band.nprod == split.NPROD[g]
+    got = mod(torch.from_numpy(x)).numpy()
+    want = tfir.fir_oracle(x, taps, -1)
+    assert np.abs(got - want).max() <= BOUNDS[g] * np.abs(want).max()
+
+
+def _stencil_run(g):
+    """A fused ``stencil2d`` bank on the 3-touch executor at the grade
+    (``final2d_stencil``'s split form), within the grade's bound of the
+    bank over the f64 oracle."""
     F = _filter(rft, "gaussian", _img(256, 256))
     F.set_plan(matmul_precision=g)
-    return F.as_func(stencil2d=[[(1, 0, 0.5), (0, 1, 0.5)]], device="cpu")
+    bank = [[(1, 0, 0.5), (0, 1, 0.5)]]
+    mod = F.as_func(stencil2d=bank, device="cpu")
+    assert isinstance(mod.final, tk2d.Final2DStencil)
+    assert mod.final.nprod == split.NPROD[g]
+    (got,) = mod(torch.from_numpy(F._image))
+    y = tsc.oracle_apply(F.spec, F._image.astype(np.float64))
+    (want,) = tst.stencil2d_ref(torch.from_numpy(y), bank)
+    want = want.numpy()
+    assert np.abs(got.numpy() - want).max() <= BOUNDS[g] * np.abs(want).max()
 
 
-ROUTES["final2d_stencil"] = _stencil_route
+# the routes whose split form came with their kernels' reduced-grade
+# forms: each runs at every grade (its check above)
+CHECKS = {"strip kernels": _strips_run, "FIR band": _fir_run,
+          "final2d_stencil": _stencil_run}
 
 
 # the routes that have a split form now, and the grades they run at: the
@@ -428,7 +570,8 @@ ROUTES["final2d_stencil"] = _stencil_route
 # rotated), tails chained between a chain's passes (:func:`_chained`),
 # the chain on the declined pair, and FusedAxisPass (a y extent the rows
 # pass declines)
-RUNS = {"einsum form (lines)": (lambda: _x_only(4, 256), GRADES),
+RUNS = {**{route: (None, GRADES) for route in CHECKS},
+        "einsum form (lines)": (lambda: _x_only(4, 256), GRADES),
         "volumes": (_volume, GRADES),
         "rows pass": (lambda: _y_only(512, 256), GRADES),
         "rotated emit": (lambda: _x_only(256, 256), GRADES),
@@ -467,6 +610,9 @@ def test_routes_without_a_split_form_raise(route, grade):
     runs there, on the route its entry names, within the grade's bound of
     the oracle."""
     make, grades = RUNS.get(route, (None, ()))
+    if route in CHECKS:
+        CHECKS[route](grade)
+        return
     if grade in grades:
         F = make()
         img = F._image

@@ -219,14 +219,14 @@ def test_rotated_leading_group_runs_float64():
 
 def test_fir_grades():
     """The FIR band pass: f32x6 runs ``fir_band`` as px6 does; f32x3 and
-    f32x4 raise naming item 4 (the JAX package runs its band kernel at 3
-    and 4 products); ``high`` and f32x9 take the einsum form."""
+    f32x4 run it at 3 and 4 products, as px3 and px4 do (the JAX package's
+    product counts); ``high`` and f32x9 take the einsum form."""
     taps = [1.0 / 7] * 7
     shape = (16, 256)
     assert tfir.FirPass(taps, shape, matmul_precision="f32x6").band is not None
-    for g in ("f32x3", "f32x4", "px3"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tfir.FirPass(taps, shape, matmul_precision=g)
+    for g, nprod in (("f32x3", 3), ("f32x4", 4), ("px3", 3)):
+        band = tfir.FirPass(taps, shape, matmul_precision=g).band
+        assert band is not None and band.nprod == nprod
     for g in ("high", "f32x9", "highest"):
         assert tfir.FirPass(taps, shape, matmul_precision=g).band is None
 

@@ -55,9 +55,21 @@ F  The rows pass (a scan on a non-last axis): ``rows_tails`` and
    phase 3m times it.
 G  Output digests: the sha256 of the outputs of ``completion`` and
    ``completion_epi`` (A's kernel-pass shape, seeded matrices),
-   ``completion_traced`` and ``completion_rot`` (L1's x pass) and the rows
-   kernels (V1) on seeded inputs, so two checkouts' kernels are bit-equal
-   where the digests agree.
+   ``completion_traced`` and ``completion_rot`` (L1's x pass), the rows
+   kernels (V1), ``final2d`` and ``final2d_stencil`` (the headline
+   Gaussian at 1024², C1's bank on it) and ``fir_band`` (F1's and F3's
+   passes at 1024², px6) on seeded inputs, so two checkouts' kernels are
+   bit-equal where the digests agree.
+I  The fused consumers at px6 and each grade (px4, px3, ``default``),
+   where the checkout's app builders take ``matmul_precision``:
+   ``fir_band`` at F1's x pass and F3's two passes (4096², box³ radius 5;
+   radii 5 and 9 with the apps' ``tap_scale``) beside ``conv1d``,
+   ``final2d_stencil`` at C1's SAT stage, U1's final pass with the
+   combine in its store (``final2d_epi``, ``final2d_split_epi``) and E1's
+   completion with the mix (64 × 32,768: ``completion_epi``,
+   ``completion_split_epi``) beside one ``addmm`` by the grade's constant.
+   Bounds: the bytes, the grade's bf16 products or fp32 FMAs (the bank's
+   and the epilogue's operations at the fp32 peak).
 H  The rotated kernels at each grade (px6, px4, px3, ``default``), where
    the checkout's ``CompletionPass`` takes ``nprod`` (else K3's
    ``completion_rot_tails`` at px6 alone): ``completion_rot`` at
@@ -271,6 +283,8 @@ def main() -> int:
         digests(torch, np, rft, tdf, kc, dev, args.tag, card, rows)
     if "H" in parts:
         grades(torch, np, rft, tdf, kc, dev, row, nbytes)
+    if "I" in parts:
+        consumers(torch, np, rft, dev, row, nbytes)
     if "E" not in parts and not set("ABCD") & set(parts):
         return finish(rows, args.out, card)
     # E (first: a long run's profiles lose device events now and then):
@@ -594,6 +608,35 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         N = rows.carries(X4, rows.tails.plain)
         out["rows_tails V1"] = digest(rows.tails(X4))
         out["rows_final V1"] = digest(rows.final(X4, N))
+        # the 2-D pair at px6, and its stencil bank (C1's, radii 5 and 9)
+        w3 = rft.gaussian_weights(5.0, 3)
+        x, y = rft.Dim("x", 1024), rft.Dim("y", 1024)
+        F = rft.RecFilter("G2")
+        F[y, x] = rng.standard_normal((1024, 1024)).astype(np.float32)
+        for d in (+x, -x, +y, -y):
+            F.add_filter(d, w3)
+        F.split(x, 128, y, 128)
+        img = torch.from_numpy(F._image).to(dev)
+        m = F.as_func()
+        X4 = m.tile(img)
+        NA, NB = m.carries(X4, m.moments.plain)
+        out["final2d 1024²"] = digest(m.final(X4, NA, NB))
+        bank = [[(B, B, 1.0), (B, -B - 1, -1.0), (-B - 1, B, -1.0),
+                 (-B - 1, -B - 1, 1.0)] for B in (5, 9)]
+        ms = F.as_func(stencil2d=bank)
+        NA, NB, ht, hb = ms._carries(X4, ms.moments.plain)
+        top, bot = ms.halo_strips(ht, hb, NA, NB)
+        out["final2d_stencil 1024²"] = digest(ms.final(
+            X4, NA.float(), NB.float(), top, bot))
+        from recfilter_tpu_torch.apps import box_filter_3
+        from recfilter_tpu_torch.apps import difference_of_gaussians
+
+        for name, app in (("F1", box_filter_3(1024, 1024, 5)),
+                          ("F3", difference_of_gaussians(1024, 1024, 5, 9))):
+            mid = app.x_pass.band(img)
+            out[f"fir_band {name} x pass 1024²"] = digest(mid)
+            out[f"fir_band {name} y pass 1024²"] = digest(
+                app.y_pass.band(mid))
     r = {"tag": tag, "case": "digests", "card": card, "digests": out}
     rows_out.append(r)
     print(json.dumps(r), flush=True)
@@ -713,6 +756,126 @@ def grades(torch, np, rft, tdf, kc, dev, row, nbytes):
             "completion_rot + tails kernels", lambda o: o[0],
             rate=peak[True])
         del F, p0, p1, crt, rot, nxt, yk, tk
+
+
+def consumers(torch, np, rft, dev, row, nbytes):
+    """Part I (module docstring): the fused consumers' kernels at px6 and
+    each reduced grade, where the checkout's app builders take
+    ``matmul_precision``."""
+    import inspect
+
+    import torch.nn.functional as F_
+
+    from recfilter_tpu_torch.apps import (box_filter_3,
+                                          difference_of_gaussians,
+                                          unsharp_mask)
+    from recfilter_tpu_torch.fir import _align_taps, box_taps
+    from recfilter_tpu_torch.kernels import split
+
+    if "matmul_precision" not in inspect.signature(box_filter_3).parameters:
+        print("part I: this checkout's consumers have no grades")
+        return
+    rng = np.random.default_rng(3)
+    img = (rng.standard_normal((4096, 4096)) * 0.01).astype(np.float32)
+    x = torch.from_numpy(img).to(dev)
+    peak = {"bf16": 989e12, "fp32": 67e12}
+    # E1's filter: A's order-2 coefficients on 64 x 32,768, the mix 0.7y +
+    # 0.3x its epilogue
+    ce, xe = rft.Dim("c", 64), rft.Dim("x", 32768)
+    FE = rft.RecFilter("MixAudio")
+    FE[ce, xe] = np.zeros((64, 32768), np.float32)
+    FE.add_filter(+xe, [1.0, 0.01, 0.01])
+    FE.split(xe, 128)
+    sig = torch.from_numpy((rng.standard_normal((64, 32768)) * 0.1).astype(
+        np.float32)).to(dev)
+    for g in ("px6", "px4", "px3", "default"):
+        nprod = split.NPROD[g]
+        n_c = split.carry_nprod(nprod)
+        # fir_band at F1's x pass and F3's two passes (conv1d beside it)
+        for label, mod, taps in (
+                ("F1", box_filter_3(4096, 4096, 5, matmul_precision=g),
+                 [box_taps(5, 3)]),
+                ("F3", difference_of_gaussians(4096, 4096, 5, 9,
+                                               matmul_precision=g),
+                 _align_taps([box_taps(5, 3), box_taps(9, 3)]))):
+            mid = mod.x_pass.band(x)
+            for name, band, v in (("x pass", mod.x_pass.band, x),
+                                  ("y pass", mod.y_pass.band, mid)
+                                  )[:1 if label == "F1" else 2]:
+                w = torch.from_numpy(np.asarray(taps, np.float32))[:, None]
+                w, K = w.to(dev), w.shape[-1]
+                if band.contract:
+                    w = w * torch.tensor([1.0, -1.0], device=dev)[:, None,
+                                                                  None]
+                    lib = lambda v_, w=w, K=K: F_.conv1d(  # noqa: E731
+                        v_.permute(1, 0, 2), w.view(1, 2, K),
+                        padding=(K - 1) // 2)
+                else:
+                    lib = lambda v_, w=w, K=K: F_.conv1d(  # noqa: E731
+                        v_[:, None], w, padding=(K - 1) // 2)
+                pairs = getattr(band, "pairs", [[(0, 0)]] * len(taps))
+                row(f"{label} {name} fir_band {g} (pairs "
+                    f"{[len(p) for p in pairs]})", band, (v,),
+                    nbytes(v, band(v)),
+                    2.0 * K * v.shape[-2] * v.shape[-1] * sum(
+                        len(p) for p in pairs), lib, "conv1d",
+                    # held to the float32 band product (the kernel at a
+                    # grade rounds x and the taps to its chunks)
+                    lambda y, b=band, v=v: (
+                        b._twin(v).transpose(-1, -2).transpose(0, 1)
+                        if b.Cout > 1 else
+                        b._twin(v).transpose(-1, -2)[:, None]),
+                    rate=peak["fp32"])
+            del mod, mid
+        # final2d_stencil at C1's SAT stage
+        sat = difference_of_gaussians(4096, 4096, 5, 9, variant="sat",
+                                      matmul_precision=g).sat_box
+        X4 = sat.tile(x)
+        NA, NB, ht, hb = sat._carries(X4)
+        top, bot = sat.halo_strips(ht, hb, NA, NB)
+        NA, NB = NA.float(), NB.float()
+        out = sat.final(X4, NA, NB, top, bot)
+        taps = sum(len(t) for t in sat.final.bank.taps_c)
+        prod = 2.0 * X4.numel() * (256 * nprod + (sat.Ka + sat.Kb) * n_c)
+        row(f"C1 final2d_stencil {g}", sat.final, (X4, NA, NB, top, bot),
+            nbytes(X4, NA, NB, top, bot, out),
+            prod + 2.0 * taps * X4.numel() * peak["bf16"] / peak["fp32"],
+            rate=peak["bf16"])
+        del sat, X4, NA, NB, ht, hb, top, bot, out
+        # U1's final pass with the combine in its store
+        fu = unsharp_mask(4096, 4096, matmul_precision=g).stages[0]
+        X4 = fu.tile(x)
+        NA, NB = fu.carries(X4)
+        entry = "final2d_epi" if g == "px6" else "final2d_split_epi"
+        row(f"U1 {entry} {g}", fu.final, (X4, NA, NB, X4),
+            nbytes(X4, NA, NB, X4, X4),
+            2.0 * X4.numel() * (256 * nprod + (fu.Ka + fu.Kb) * n_c)
+            + 4.0 * X4.numel() * peak["bf16"] / peak["fp32"],
+            rate=peak["bf16"])
+        del fu, X4, NA, NB
+        # E1's completion with the mix, beside one addmm by the grade's
+        # constant (the mix's a and b as alpha and beta)
+        FE.set_plan(matmul_precision=g)
+        loc = FE.as_func(epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_).body
+        comp = loc.completion
+        X = F_.pad(sig, (0, loc.pad)).reshape(-1, loc.n, loc.T)
+        Nt = loc._solve_t(loc.tails.plain(X).double()).float()
+        XN = torch.cat([X, Nt.permute(2, 0, 1)], dim=2).reshape(
+            -1, 128 + comp.sl)
+        BR = comp.grade_constant()[0].t().contiguous() if g != "px6" else \
+            torch.cat([comp.B_v[0], torch.nn.functional.pad(
+                comp.R_v[0], (0, comp.sl - comp.S))], 1).t().contiguous()
+        entry = "completion_epi" if g == "px6" else "completion_split_epi"
+        row(f"E1 {entry} {g}", comp, (X, Nt, X),
+            nbytes(X, Nt[:, :comp.S], X, X),
+            2.0 * X.numel() * (128 * nprod + comp.S * n_c)
+            + 4.0 * X.numel() * peak["bf16"] / peak["fp32"],
+            lambda x_, n_, a_: torch.addmm(a_.reshape(-1, 128), XN, BR,
+                                           beta=0.3, alpha=0.7),
+            "addmm(aux, [x, N^T], grade's [Btot^T; R^T])",
+            lambda y: comp._twin(X, Nt, X).reshape(-1, 128),
+            rate=peak["bf16"])
+        del loc, comp, X, Nt, XN, BR
 
 
 def finish(rows, out, card) -> int:
