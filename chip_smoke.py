@@ -414,6 +414,28 @@ Phases:
      again (three tries); past that a kernel's device time is its
      CUDA-event time over 10 back-to-back calls, and a note says so.
 
+bf16 storage (the JAX package's bf16 mode: a bf16 image, one product on
+the 3-touch pair and volumes): phase 3c runs V1 and V2 as bf16 volumes
+through ``as_func()`` (``rows_tails_bf16``, ``rows_final_bf16``,
+``moments2d_bf16`` and ``final2d_split_bf16`` once each), phase 3l the
+headline as a bf16 image on the glue and the NAF routes
+(``moments2d_naf_bf16``) and with the unsharp combine as an affine
+epilogue (``final2d_split_epi_bf16``): each a bf16 output within 3e-2 of
+the f64 oracle of the float32 input's peak (the input's rounding to bf16
+included, as the JAX package's bf16 test holds it), its device ops and
+busy time printed, and no image-sized cast or copy op in the call; phase
+2l holds each bf16 entry at the headline's and V1's shapes to its float32
+form on the same values (bit for bit; the final passes' outputs rounded
+once to bf16) and each element to within one bf16 step of its twin's
+(beyond the float32 forms' own 1e-5 of the peak, and the resplit bound at
+the 2-D pass), and phase 5l times each beside its bound, its twin and,
+for the rows kernels, one ``torch.matmul`` in bf16 (G·x; [Btot | Rhat]
+by [x; N]); phase 3m times the bf16 headline in turns with px6 and the
+grades. Phase 5i also times ``completion_split_epi`` at E1 by CUDA
+events over 200 back-to-back launches of the kernel alone, queued behind
+a sleeping kernel so that no host gap enters the window
+(:func:`queued_ms`).
+
 The last line is the JSON result; the line before it is the card's name
 and power limit; before that a JSON line describes each kernel, with its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -454,6 +476,9 @@ PEAK_BF16, PEAK_TF32 = 989e12, 495e12
 # the reduced precision grades and their bounds (share of the f64 oracle's
 # peak; tests/test_dimfuse.py:454, tests/test_overlap2d.py:438)
 GRADE_BOUNDS = {"default": 3e-2, "px3": 1e-4, "px4": 8e-5}
+# bf16 storage's bound, of the f64 oracle's peak (tests/test_overlap2d.py:397,
+# tests/test_dimfuse.py:819)
+BF16_BOUND = 3e-2
 # The SAT apps (C1, C2, C3) at px3 and px4, of the output's peak: the
 # differences of the SAT formulation cancel the integrals' leading digits,
 # so they miss the grade's oracle bound (2.8e-3 to 3.3e-3 measured on the
@@ -514,17 +539,23 @@ def image(*shape, seed=0):
             ).astype(np.float32)
 
 
-def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND", times=1):
+def gauss_axes(rft, shape, axes, clamp=False, name="GaussianND", times=1,
+               bf16=False):
     """The σ=5 3rd-order Gaussian, causal + anticausal on each of
     ``axes`` (in that order; ``times`` over), tiles of 128, bound to
     ``image(*shape)``: ``scripts/bench_volume.py``'s filter for
-    ``axes = (0, 1, 2)``."""
+    ``axes = (0, 1, 2)``; with ``bf16``, that image rounded to a bf16
+    tensor (a bf16 filter: bf16 storage)."""
+    import torch
+
     wts = rft.gaussian_weights(5.0, 3)
     dims = [rft.Dim(nm, e) for nm, e in zip("vwzyx"[-len(shape):], shape)]
     F = rft.RecFilter(name)
     if clamp:
         F.set_clamped_image_border()
-    F[tuple(dims)] = image(*shape)
+    img = image(*shape)
+    F[tuple(dims)] = (torch.from_numpy(img).to(torch.bfloat16) if bf16
+                      else img)
     for ax in axes:
         for _ in range(times):
             F.add_filter(+dims[ax], wts)
@@ -553,6 +584,86 @@ def route_module(F, bk, naf):
             os.environ.pop(var, None)
             if val is not None:
                 os.environ[var] = val
+
+
+def image_copies(fn, x):
+    """The copy and cast ops of one call ``fn(x)`` whose input holds at
+    least half of x's elements (host-side ops, their shapes recorded):
+    an image-sized copy the call makes, e.g. a float32 copy of a bf16
+    image."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("aten::copy_", "aten::_to_copy", "aten::clone",
+             "aten::constant_pad_nd", "aten::cat")
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        fn(x)
+        torch.cuda.synchronize()
+    return [(e.name, shp) for e in p.events() if e.name in names
+            for shp in e.input_shapes[:1]
+            if shp and math.prod(shp) >= x.numel() // 2]
+
+
+def bf16_call(label, mod, x, want, bound, card, lead=""):
+    """A bf16 call through ``as_func``'s module: a bf16 output of x's shape,
+    finite, within ``bound`` of the f64 reference ``want``'s peak (the
+    float32 image's oracle: the error includes the input's rounding to
+    bf16, as the JAX package's bf16 test holds it); its profile (device
+    ops, busy time) and no image-sized cast or copy in the call."""
+    import numpy as np
+    import torch
+
+    from recfilter_tpu_torch.utils import timing
+
+    with torch.no_grad():
+        y = mod(x)
+        check(y.dtype == torch.bfloat16 and tuple(y.shape) == tuple(x.shape)
+              and bool(torch.isfinite(y).all()),
+              f"{label} bf16: a finite bf16 output of shape {tuple(x.shape)}")
+        got = y.float().cpu().numpy().astype(np.float64)
+        del y
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"  {label} bf16{lead}: max|y - oracle|/max|oracle| = "
+              f"{err:.3e} (the f64 oracle of the float32 input)")
+        check(err <= bound, f"{label} bf16: within {bound:g} of the f64 "
+              "oracle's peak")
+        prof = timing.device_profile(mod, x, iterations=10)
+        copies = image_copies(mod, x)
+    print(f"  {label} bf16: output torch.bfloat16, "
+          f"{prof['device_ops']:.0f} device ops a call, device busy "
+          f"{busy_text(prof)}, call {prof['call_ms']:.4f} ms on {card}; "
+          "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
+                               for nm, ms in prof["top"]))
+    check(not copies, f"{label} bf16: no image-sized cast or copy op in "
+          f"the profiled call (found {copies})")
+    return err, prof
+
+
+def bf16_ulp_check(label, got, want, extra=None):
+    """A bf16 kernel's output against its bf16 twin: every element within
+    one bf16 step of the twin's value beyond the float32 forms' own
+    distance (1e-5 of the twin's peak: their sums in another order, which
+    exceeds the bf16 step of an output that cancellation leaves far below
+    the peak) and ``extra`` (a bound tensor: the resplit bound). Prints
+    the share of elements that differ, and of those past one step
+    alone."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    _, e = torch.frexp(want.double())
+    ulp = torch.ldexp(torch.ones_like(d), (e - 8).clamp(min=-133))
+    lim = ulp + 1e-5 * want.double().abs().max() + (
+        0.0 if extra is None else extra.double())
+    print(f"  {label}: {(d > 0).double().mean().item():.6f} of the "
+          f"elements differ from the twin, "
+          f"{(d > ulp).double().mean().item():.6f} by more than one bf16 "
+          f"step; max|k-t| = {d.max().item():.3e}")
+    check(bool((d <= lim).all()), f"{label}: every element within one bf16 "
+          "step of its twin (beyond the float32 forms' 1e-5 of the peak"
+          + (" and the resplit bound)" if extra is not None else ")"))
+    return d.max().item()
 
 
 def counted(fn, *args):
@@ -604,6 +715,31 @@ def device_ms(fn, *args):
           f"{getattr(fn, '__name__', type(fn).__name__)}; CUDA events of 10 "
           f"back-to-back calls instead: {ms:.4f} ms", flush=True)
     return ms
+
+
+def queued_ms(fn, *args, n=200):
+    """Device time per call of ``fn(*args)`` from CUDA events around ``n``
+    back-to-back calls that the host enqueues while a sleeping kernel
+    (``torch.cuda._sleep``) holds the device: the window then holds the
+    calls' device work alone, none of the host's launch gaps. Returns
+    (ms per call, the host's enqueue ms, the sleep's device ms); the
+    reading is the device's only where the enqueue took less than the
+    sleep."""
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(200_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    host = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    return ev[1].elapsed_time(ev[2]) / n, host, ev[0].elapsed_time(ev[1])
 
 
 def busy_text(prof):
@@ -2672,6 +2808,29 @@ def main() -> int:
         check(err <= GRADE_BOUNDS[g], f"{label} {g}: within "
               f"{GRADE_BOUNDS[g]:g} of the f64 oracle")
         del y
+    # bf16 storage: V1 and V2 as bf16 volumes (the same images rounded to
+    # bf16) through as_func(): rows_tails, rows_final, moments2d and
+    # final2d_split in their bf16 forms, once each, a bf16 output within
+    # 3e-2 of the f64 oracle's peak; no image-sized cast or copy
+    for label, clamp in (("V1", False), ("V2", True)):
+        Fb = gauss_axes(rft, rows_cases[label][2].shape, (0, 1, 2),
+                        clamp=clamp, bf16=True)
+        mb = Fb.as_func()
+        check(Fb.spec.dtype == "bfloat16" and mb.route == "volume"
+              and all(st.dtype == torch.bfloat16 for st in mb.stages),
+              f"{label} bf16: the volume route, both stages storing bf16")
+        xb = Fb._image.to(dev)
+        with torch.no_grad():
+            _, launches = counted(mb, xb)
+        print(f"  {label} bf16: launches {launches}")
+        want_l = only(rows_tails_bf16=1, rows_final_bf16=1, moments2d_bf16=1,
+                      final2d_split_bf16=1)
+        check(launches == want_l, f"{label} bf16: launches {want_l}")
+        if label == "V1":
+            main_launches.update(rows_tails_bf16=launches["rows_tails_bf16"],
+                                 rows_final_bf16=launches["rows_final_bf16"])
+        bf16_call(label, mb, xb, oracles[label], BF16_BOUND, card)
+        del Fb, mb, xb
     del oracles
     img = image(H, W)
     # S1, stage by stage through realize: x on the 1-D kernels, y on rows
@@ -3511,7 +3670,36 @@ def main() -> int:
               f"device busy {busy_text(prof)}, call {prof['call_ms']:.4f} ms "
               f"on {card}; top: " + ", ".join(
                   f"{nm[:40]} {ms:.4f} ms" for nm, ms in prof["top"]))
-    del y, want_h
+    del y
+    # bf16 storage: the headline on a bf16 image (img_h rounded), on the
+    # glue and the NAF carry routes, and with the unsharp combine (C5's) as
+    # an affine epilogue in final2d_split_epi_bf16's store
+    Fb = build_filter(rft, H, W, torch.from_numpy(img_h).to(torch.bfloat16))
+    xb = x_h.to(torch.bfloat16)
+    for route, mb, want_l in (
+            ("glue", Fb.as_func(), only(moments2d_bf16=1,
+                                        final2d_split_bf16=1)),
+            ("NAF", route_module(Fb, False, True),
+             only(moments2d_naf_bf16=1, final2d_split_bf16=1)),
+            ("epilogue", Fb.as_func(epilogue=usm_combine),
+             only(moments2d_bf16=1, final2d_split_epi_bf16=1))):
+        check(mb.dtype == torch.bfloat16 and mb.final.nprod == 1,
+              f"headline bf16 ({route}): bf16 storage, one product")
+        args = (xb, x_h) if route == "epilogue" else (xb,)
+        with torch.no_grad():
+            _, launches = counted(mb, *args)
+        print(f"  headline bf16 ({route}): launches {launches}")
+        check(launches == want_l, f"headline bf16 ({route}): launches "
+              f"{want_l}")
+        main_launches.update({k: v for k, v in launches.items() if v})
+        if route == "epilogue":
+            bf16_call("headline + unsharp combine", lambda v: mb(v, x_h), xb,
+                      usm_combine(want_h, img_h.astype(np.float64)),
+                      BF16_BOUND, card)
+        else:
+            bf16_call(f"headline ({route})", mb, xb, want_h, BF16_BOUND,
+                      card)
+    del want_h, Fb, xb
     for (label, g), (F, m) in grade_1d.items():
         xs = signal(F._image.shape)
         with torch.no_grad():
@@ -3577,17 +3765,156 @@ def main() -> int:
             carry_times[name] = timed(f"{name} ({probe})", fn, plain, lib,
                                       (x,), nbytes, ops, rate,
                                       main_launches[name])
-        calls = {"px6": mod_h, **{g: m for g, (_, m) in grade_2d.items()}}
+        # and bf16 storage: the headline on its bf16 image
+        Fb = build_filter(rft, H, W, torch.from_numpy(img_h).to(
+            torch.bfloat16))
+        calls = {"px6": (mod_h, x_h),
+                 **{g: (m, x_h) for g, (_, m) in grade_2d.items()},
+                 "bf16": (Fb.as_func(), x_h.to(torch.bfloat16))}
         ev = {label: [] for label in calls}
         for label in list(calls) + list(calls)[::-1]:
-            ev[label] += timing.call_times_ms(calls[label], x_h,
+            ev[label] += timing.call_times_ms(*calls[label],
                                               iterations=N_TIMED, warmup=3)
-        for label, m in calls.items():
+        for label, (m, v) in calls.items():
             ms = statistics.median(ev[label])
             print(f"  headline {label}: event {ms:.4f} ms "
                   f"({timing.mpix_per_sec(ms, H * W):.0f} Mpix/s), device "
-                  f"{device_ms(m, x_h):.4f} ms on {card}")
+                  f"{device_ms(m, v):.4f} ms on {card}")
+        del Fb, calls
     del grade_2d, grade_1d, split_in, probes, x_h
+
+    heading("phase 2l and 5l: bf16 storage's kernels (moments2d_bf16, "
+            "moments2d_naf_bf16, final2d_split_bf16, final2d_split_epi_bf16 "
+            "at the headline's shapes; rows_tails_bf16, rows_final_bf16 at "
+            "V1's) against their float32 forms and their twins, then timed "
+            f"(CUDA events, median of {4 * N_TIMED // 2} calls each)")
+    Fb = build_filter(rft, H, W, torch.from_numpy(img_h).to(torch.bfloat16))
+    mb, mn = Fb.as_func(), route_module(Fb, False, True)
+    me = Fb.as_func(epilogue=usm_combine)
+    Vb = gauss_axes(rft, (256, 256, 256), (0, 1, 2), bf16=True)
+    rb = Vb.as_func().stages[0]
+    with torch.no_grad():
+        xh = torch.from_numpy(img_h).to(dev)
+        X4 = mb.tile(xh)  # bf16, the kernels' tiles
+        check(X4.dtype == torch.bfloat16, "the headline's tiles are bf16")
+        NA_t, NB_t = mb.carries(X4, mb.moments.plain)
+        aux = me.tile(xh, torch.float32)
+        for name, mod, args in (("moments2d_bf16", mb.moments, (X4,)),
+                                ("moments2d_naf_bf16", mn.moments, (X4,))):
+            got, f32, twin = mod(*args), mod(X4.float()), mod.plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, f32))
+            err = max(rel_err(a, b) for a, b in zip(got, twin))
+            print(f"  {name}: the float32 entry's outputs on the same "
+                  f"values bit for bit: {same}; max|k-p|/max|p| = {err:.3e}")
+            check(same and err <= 1e-5, f"{name}: the float32 form's bits, "
+                  "within 1e-5 of its twin's peak")
+            max_abs[name] = max((a - b).abs().max().item()
+                                for a, b in zip(got, twin))
+        for name, mod, extra_in in (("final2d_split_bf16", mb.final, ()),
+                                    ("final2d_split_epi_bf16", me.final,
+                                     (aux,))):
+            got = mod(X4, NA_t, NB_t, *extra_in)
+            f32 = mod(X4.float(), NA_t, NB_t, *extra_in)
+            twin = mod.plain(X4, NA_t, NB_t, *extra_in)
+            torch.cuda.synchronize()
+            same = torch.equal(got, f32.to(torch.bfloat16))
+            print(f"  {name}: the float32 entry's output on the same values "
+                  f"rounded once to bf16, bit for bit: {same}")
+            check(got.dtype == torch.bfloat16 and same, f"{name}: the "
+                  "float32 form rounded once")
+            scale = 1.0 if mod.affine is None else abs(mod.affine.scale)
+            max_abs[name] = bf16_ulp_check(
+                name, got, twin, scale * mod.resplit_bound(X4, NA_t))
+            del got, f32, twin
+        XV = rb.tile(Vb._image.to(dev))
+        N = rb.carries(XV, rb.tails.plain)
+        b, b32 = rb.tails(XV), rb.tails(XV.float())
+        err = rel_err(b, rb.tails.plain(XV))
+        print(f"  rows_tails_bf16 (V1 {tuple(XV.shape)}): the float32 "
+              f"entry's bits: {torch.equal(b, b32)}; max|k-p|/max|p| = "
+              f"{err:.3e}")
+        check(torch.equal(b, b32) and err <= 1e-5, "rows_tails_bf16: the "
+              "float32 form's bits, within 1e-5 of its twin's peak")
+        max_abs["rows_tails_bf16"] = (b - rb.tails.plain(XV)).abs().max(
+            ).item()
+        y, y32 = rb.final(XV, N), rb.final(XV.float(), N)
+        same = torch.equal(y, y32.to(torch.bfloat16))
+        print(f"  rows_final_bf16 (V1): the float32 entry's output rounded "
+              f"once to bf16, bit for bit: {same}")
+        check(y.dtype == torch.bfloat16 and same, "rows_final_bf16: the "
+              "float32 form rounded once")
+        max_abs["rows_final_bf16"] = bf16_ulp_check(
+            "rows_final_bf16", y, rb.final.plain(XV, N))
+        del b, b32, y, y32
+        # the timings: bounds by the bytes each function must move and its
+        # operations (moments and tails: fp64 MACs; the final passes: one
+        # bf16 product on the image rows, three on the carries); library
+        # calls in bf16 for the rows kernels (G·x and [Btot | Rhat]·[x; N]),
+        # none for the 2-D pair (as at float32)
+        Ka, Kb, pix = mb.Ka, mb.Kb, X4.numel()
+        mom = mb.moments
+        bA, t1 = mom(X4)
+        mom_bytes = tensor_bytes(X4, bA, t1, mom.Ga_v, mom.Gb_v, mom.Ba1T_v)
+        carry_times["moments2d_bf16"] = timed(
+            "moments2d_bf16 (4096² bf16)", mom, mom.plain, None, (X4,),
+            mom_bytes, 2.0 * (Ka + 2 * Kb) * pix, PEAK_FP64, 1)
+        carry_times["moments2d_naf_bf16"] = timed(
+            "moments2d_naf_bf16 (4096² bf16, clusters of 16)", mn.moments,
+            mn.moments.plain, None, (X4,),
+            mom_bytes + tensor_bytes(mn.moments.CMaT),
+            2.0 * (Ka + 2 * Kb) * pix
+            + 2.0 * (mb.na * Ka) ** 2 * X4.shape[-1], PEAK_FP64, 1)
+        del bA, t1
+        f_ops = 2.0 * pix * (256 + (Ka + Kb) * 3)
+        for name, mod, extra_in in (("final2d_split_bf16", mb.final, ()),
+                                    ("final2d_split_epi_bf16", me.final,
+                                     (aux,))):
+            Y = mod(X4, NA_t, NB_t, *extra_in)
+            carry_times[name] = timed(
+                f"{name} (4096² bf16)", mod, mod.plain, None,
+                (X4, NA_t, NB_t, *extra_in),
+                tensor_bytes(X4, NA_t, NB_t, mod.Ac, mod.Bc, Y, *extra_in),
+                f_ops + (4.0 * pix * PEAK_BF16 / PEAK_FP32 if extra_in
+                         else 0.0), PEAK_BF16, 1, plain_iterations=5)
+            del Y
+        K, vox = rb.K, XV.numel()
+        check(rb.tails.G_v64.shape[0] == 1 and rb.final.Bc_k.shape[0] == 1,
+              "V1's tiles share one matrix variant")
+        G0 = rb.tails.G_v64[0].to(torch.bfloat16)
+        Mc = rb.final.chunks()[0, :, :, :128 + 8].float().sum(0)
+        A0 = Mc.to(torch.bfloat16)
+        XN = torch.cat([XV, N.to(torch.bfloat16)], dim=2)
+        # the library calls compute G·x and [Btot | Rhat]·[x; N] on bf16
+        # operands at one product: within a bf16 rounding of their output
+        # of the float32 product of the same operands; from the kernels
+        # they part by the rounding of G, and of N's cancelling carry
+        # terms to one bf16 product (the JAX package's bf16 arithmetic,
+        # where the kernel takes three on the carries)
+        lt, lf = torch.matmul(G0, XV).float(), torch.matmul(A0, XN).float()
+        e_t = rel_err(lt, torch.matmul(G0.float(), XV.float()))
+        e_f = rel_err(lf, torch.matmul(A0.float(), XN.float()))
+        print(f"  V1: the bf16 library calls against the float32 product of "
+              f"their operands, max|l-p|/max|p| = {e_t:.3e} (G·x), "
+              f"{e_f:.3e} ([Btot | Rhat]·[x; N]); against the kernels "
+              f"{rel_err(lt, rb.tails(XV)):.3e}, "
+              f"{rel_err(lf, rb.final(XV, N).float()):.3e}")
+        check(max(e_t, e_f) <= 2.0 ** -8, "V1: the bf16 library calls "
+              "compute G·x and [Btot | Rhat]·[x; N] on bf16 operands")
+        del lt, lf
+        b = rb.tails(XV)
+        carry_times["rows_tails_bf16"] = timed(
+            "rows_tails_bf16 (V1 bf16)", rb.tails, rb.tails.plain,
+            lambda *_: torch.matmul(G0, XV), (XV,),
+            tensor_bytes(XV, b, rb.tails.G_v64), 2.0 * K * vox, PEAK_FP64, 1)
+        y = rb.final(XV, N)
+        carry_times["rows_final_bf16"] = timed(
+            "rows_final_bf16 (V1 bf16)", rb.final, rb.final.plain,
+            lambda *_: torch.matmul(A0, XN), (XV, N),
+            tensor_bytes(XV, N[:, :, :K], y, rb.final.Bc_k),
+            2.0 * vox * (128 + K * 3), PEAK_BF16, 1)
+        del b, y, XN, XV, N, X4, NA_t, NB_t, aux, xh
+    del Fb, mb, mn, me, Vb, rb
 
     heading("phase 2k, the consumers: fir_band (F1's and F3's passes, flat "
             "forms with and without tap_scale), final2d_stencil (C1's bank), "
@@ -3947,6 +4274,17 @@ def main() -> int:
                      if whole else f"{reads}: not measured (a window lost "
                      "events or read below the byte bound)")
                   + f" on {card}")
+            # and CUDA events over back-to-back launches of the kernel
+            # alone, queued behind a sleeping kernel so that the host's
+            # launch gaps stay out of the window (queued_ms)
+            ev, host, slept = queued_ms(comp, X, Nt, X)
+            print(f"  E1 completion_split_epi {g}: CUDA events over 200 "
+                  f"back-to-back launches of the kernel alone, queued behind "
+                  f"a {slept:.1f} ms sleep (the host enqueued them in "
+                  f"{host:.1f} ms): {ev:.4f} ms a launch, "
+                  f"{100 * bound_e1 / ev:.1f} % of the bound on {card}")
+            check(host < slept, f"E1 completion_split_epi {g}: the launches "
+                  "were all queued before the window opened")
             del XN, BRg, out
     del cons, x_g, img_g
 
@@ -5144,6 +5482,18 @@ def main() -> int:
             ("copy", None, "bench.py:161"),
             *((f"final2d_split/{g}", "final2d_split",
                "recfilter_tpu/kernels/final2d.py:853") for g in GRADE_BOUNDS),
+            ("moments2d_bf16", "moments2d",
+             "recfilter_tpu/kernels/final2d.py:409"),
+            ("moments2d_naf_bf16", "moments2d",
+             "recfilter_tpu/kernels/final2d.py:495"),
+            ("final2d_split_bf16", "final2d_split",
+             "recfilter_tpu/kernels/final2d.py:853"),
+            ("final2d_split_epi_bf16", "final2d_split",
+             "recfilter_tpu/kernels/final2d.py:619"),
+            ("rows_tails_bf16", "rows_tails",
+             "recfilter_tpu/kernels/final2d.py:1185"),
+            ("rows_final_bf16", "rows_final",
+             "recfilter_tpu/kernels/final2d.py:1251"),
             *((f"completion_split/{g}", "completion_split",
                "recfilter_tpu/kernels/completion.py:464")
               for g in GRADE_BOUNDS),

@@ -34,6 +34,10 @@ final kernel where its structure is affine, :mod:`.epilogue`), a 1-D
 rotated emit, :class:`.dimfuse.RotatedPass`), a 2-D ``stencil2d`` bank —
 and ``compute_at`` dispatches a consumer to them. A Tuple definition
 (``F[y, x] = (a, b)``) filters each component alike (:class:`TupleFilter`).
+The filter's dtype is its image's: float32, an integer type, bf16 (bf16
+storage, the JAX package's bf16 mode: the 3-touch pair and volumes at one
+product, a bf16 output; ``as_func()``'s module casts its input to bf16)
+or float16 (the float32 route, cast in and out).
 What the port does not run yet raises ``NotImplementedError``.
 ``as_func``, ``realize`` and ``profile`` run on the card unless the caller
 asks for the CPU; asking for ``"cuda"`` without a card raises, and nothing
@@ -141,6 +145,8 @@ def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
     """The executor of a backend that takes no consumer (every backend
     but ``einsum`` and the rotated emit) for ``spec`` under ``plan``."""
     backend = planner.resolve_backend(spec, plan)
+    if spec.dtype == "bfloat16":
+        planner.refuse_bf16(f"the {backend} backend")
     if (plan.matmul_precision in planner.SPLIT_GRADES
             and backend not in planner.SPLIT_BACKENDS):
         planner.refuse_split(plan.matmul_precision, f"the {backend} backend")

@@ -57,6 +57,15 @@ counterpart of the JAX package's route (other dtypes and precisions, the
 routes of 3 and 4 without a kernel at the reduced grades px3, px4 and
 ``default``), it raises ``NotImplementedError`` naming the ROADMAP item.
 
+Storage types, as the JAX package's ``apply_filter_fused`` has them: a
+bf16 filter runs routes 1 and 2 at one product whatever the grade
+(:func:`.planner.storage_nprod`), the image in bf16 between passes
+(``dtype=torch.bfloat16`` on :class:`.overlap2d.Fused2DPx` and
+:class:`.overlap2d.FusedRowsPx`), and raises on every other route
+(:func:`.planner.refuse_bf16`, ROADMAP Queue 1 item 4); a float16 filter
+runs the float32 routes on its input cast to float32 and casts the
+output back (:class:`Float16Storage`).
+
 The JAX package's consumers ride these routes: an elementwise
 ``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
 fuses into the 2-D executor, or runs on the output of any other route
@@ -90,7 +99,7 @@ from .kernels import split as ksplit
 from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
-from .planner import SPLIT_GRADES, refuse_split
+from .planner import SPLIT_GRADES, refuse_bf16, refuse_split, storage_nprod
 from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
 
@@ -1787,10 +1796,14 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
 
     if spec.dtype in _INT_DTYPES:
         return with_bank(IntUnitPass(spec, epilogue))
-    if spec.dtype != "float32":
+    if spec.dtype == "float16":  # the float32 route, cast in and out
+        return Float16Storage(fused_filter_module(
+            dataclasses.replace(spec, dtype="float32"), matmul_precision,
+            epilogue=epilogue, stencil2d=stencil2d))
+    if spec.dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"dtype {spec.dtype}: the port runs float32 and integer filters "
-            "only (ROADMAP Queue 1 item 4: bf16 and float16 storage)")
+            f"dtype {spec.dtype}: the port runs float32, bf16, float16 and "
+            "integer filters (ROADMAP Queue 1 item 4)")
     spec = spec.stacked()  # a Tuple's components ride a leading axis
     groups = spec.scans_by_axis()
     nd, Ds = spec.ndim, len(groups)
@@ -1810,7 +1823,11 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     # (a chain's and the per-axis loop's passes; at default only where
     # LastAxisPass finds a structural win) — and every other route raises
     # (planner.refuse_split)
-    nprod = NPROD.get(matmul_precision, 0)
+    # bf16 storage: one product on the pair and volumes (the JAX package's
+    # _kernel_nprod), every other route refused
+    nprod = storage_nprod(spec.dtype, matmul_precision)
+    bf16 = spec.dtype == "bfloat16"
+    store = torch.bfloat16 if bf16 else torch.float32
     px = nprod > 0
     pair2d = (px and Ds == 2 and set(groups) == {nd - 2, nd - 1}
               and overlap2d.fused2d_decline(
@@ -1819,22 +1836,28 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     if pair2d:
         return overlap2d.Fused2DPx(
             scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-            epilogue=epilogue, stencil2d=stencil2d, nprod=nprod)
+            epilogue=epilogue, stencil2d=stencil2d, nprod=nprod, dtype=store)
     pre = None  # the volume route's rows pass, where its pair declines
     if (px and Ds == 3 and stencil2d is None
             and set(groups) == set(range(nd - 3, nd))
             and overlap2d._rows_decline(ext[-3], ext[-2] * ext[-1],
                                         scans(nd - 3)) is None):
         pre = overlap2d.FusedRowsPx(scans(nd - 3), ext[-3], ext[-2:],
-                                    spec.border, nprod)
+                                    spec.border, nprod, dtype=store)
         if overlap2d.fused2d_decline(scans(nd - 2), scans(nd - 1), ext[-2],
                                      ext[-1], spec.border) is None:
             return StagedPass([pre, overlap2d.Fused2DPx(
                 scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
-                epilogue=epilogue, nprod=nprod)], "volume")
+                epilogue=epilogue, nprod=nprod, dtype=store)], "volume")
+        if bf16:
+            refuse_bf16("a volume whose trailing pair the 3-touch executor "
+                        "declines (the rotation chain after its rows pass)")
         # the trailing pair declines: the chain (or the loop) on the rest
         groups = {ax: ids for ax, ids in groups.items() if ax != nd - 3}
         Ds = 2
+    if bf16:
+        refuse_bf16("the rotation chain or the per-axis loop (tails, "
+                    "completion_split, completion_rot, the rows pass)")
     gscans = {ax: scans(ax) for ax in groups}
     if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
             and chain_plans(ext, gscans, tiles, clamp) is not None):
@@ -1868,6 +1891,28 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
         return with_bank(stages[0])
     return with_bank(StagedPass(stages,
                                 "staged" if pre is None else "volume"))
+
+
+class Float16Storage(nn.Module):
+    """float16 storage: the float32 executor ``body`` on the input cast to
+    float32, its output (each channel of a stencil bank) cast to float16 —
+    the JAX package's ``cdt`` for float16."""
+
+    def __init__(self, body: nn.Module):
+        super().__init__()
+        self.body = body
+
+    @staticmethod
+    def _out(y):
+        if isinstance(y, tuple):
+            return tuple(c.to(torch.float16) for c in y)
+        return y.to(torch.float16)
+
+    def forward(self, x: torch.Tensor, *eaux):
+        return self._out(self.body(x.float(), *eaux))
+
+    def forward_plain(self, x: torch.Tensor, *eaux):
+        return self._out(self.body.forward_plain(x.float(), *eaux))
 
 
 def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6",
@@ -1937,6 +1982,8 @@ class RotatedPass(nn.Module):
                 self.int_core = (_compute_type(spec.dtype), [
                     work_scans(spec)[i] for i in groups[axis]], spec.border)
             return
+        if spec.dtype == "bfloat16":
+            refuse_bf16("the rotated executor (rotate_emit: completion_rot)")
         if spec.dtype != "float32":
             raise NotImplementedError(
                 f"{spec.dtype} filter: the rotated executor runs float32 and "

@@ -1,13 +1,44 @@
 // common.cuh: device helpers shared by the port's kernels — the tile's
-// matrix variant, row staging into shared memory, and the register-tiled
-// fp32 SIMT GEMM that final2d.cu, final2d_stencil.cu and split_mm.cu run.
+// matrix variant, row staging into shared memory, the register-tiled
+// fp32 SIMT GEMM that final2d.cu, final2d_stencil.cu and split_mm.cu run,
+// and the loads and stores of bf16 images (bf16 storage: the image in
+// bf16 between passes, every sum in fp32 or fp64).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 namespace rf {
+
+using bf16 = __nv_bfloat16;
+
+// The four floats of four bf16 values loaded as one 8-byte word, and the
+// eight of one 16-byte word: exact (a bf16 value is a float).
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void widen8(uint4 v, float4& lo, float4& hi) {
+  lo = widen4(make_uint2(v.x, v.y));
+  hi = widen4(make_uint2(v.z, v.w));
+}
+
+// Store two adjacent outputs (8- or 4-byte aligned), or one, in the
+// output's type: a bf16 output rounds each fp32 value once, to nearest
+// even (torch's .to(torch.bfloat16)).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(bf16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
 
 constexpr int GT = 128;            // GEMM tile edge: C is GT x GT
 constexpr int GEMM_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each

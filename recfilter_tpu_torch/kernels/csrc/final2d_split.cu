@@ -15,6 +15,15 @@
 // load of a thread issued before its stores: the unsharp mask's combine,
 // so Y never touches device memory (final2d_epi's form at px6).
 //
+// bf16 storage (final2d_split_bf16, final2d_split_epi_bf16: final2d_px on
+// a bf16 x at nprod 1, which the JAX package's bf16 mode runs, writing y in
+// x's dtype): x read as bf16 into the one data chunk (a bf16 value is its
+// own chunk: no split), the products and sums as at nprod 1 on fp32 x,
+// the fp32 accumulators (after the epilogue, whose aux arrays stay fp32)
+// rounded once to bf16, to nearest even. 4 B/px of x and y in place of 8.
+// The JAX kernel rounds Y to bf16 before its epilogue (o_ref's dtype);
+// here the epilogue reads the fp32 Y and the output rounds once.
+//
 // What bounds it: 2 x 2 x (128 NPROD + 8 carry_nprod) FLOP per pixel, 27.4
 // GFLOP at 4096^2 and px3 on the bf16 tensor cores (989 TFLOP/s: 0.028
 // ms), against 12 B/px of traffic (0.060 ms at 3.35 TB/s), 4 B/px more per
@@ -29,14 +38,15 @@ namespace {
 using f2s::bf16;
 using f2s::T;
 
-template <int NPROD, int K>
+// TX: x's and y's type, float or bf16
+template <int NPROD, int K, typename TX>
 __global__ void __launch_bounds__(rfs::THREADS, 1)
-final2d_split_kernel(const float* __restrict__ x,   // (p, na, T, W)
+final2d_split_kernel(const TX* __restrict__ x,      // (p, na, T, W)
                      const float* __restrict__ NA,  // (p, na, 8, W)
                      const float* __restrict__ NB,  // (p, na, nb*8, T)
                      const bf16* __restrict__ Ac,   // (nva, NC, T, LD)
                      const bf16* __restrict__ Bc,   // (nvb, NC, T, LD)
-                     float* __restrict__ y,         // (p, na, T, W)
+                     TX* __restrict__ y,            // (p, na, T, W)
                      rf::Affine epi, int na, int nb, int nva, int nvb) {
   extern __shared__ uint4 smem16[];
   const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
@@ -67,23 +77,23 @@ final2d_split_kernel(const float* __restrict__ x,   // (p, na, T, W)
           f.acc[mi][ni][2 * h + 1] = v[1];
         }
   }
-  float* yt = y + base;
+  TX* yt = y + base;
   rfs::for_pairs(f, [&](int s, int o, float v0, float v1) {
-    *reinterpret_cast<float2*>(yt + (long)s * W + o) = make_float2(v0, v1);
+    rf::store2(yt + (long)s * W + o, v0, v1);
   });
 }
 
-template <int NPROD, int K>
-int launch(const float* x, const float* NA, const float* NB, const bf16* Ac,
-           const bf16* Bc, float* y, const rf::Affine& epi, int p, int na,
+template <int NPROD, int K, typename TX>
+int launch(const TX* x, const float* NA, const float* NB, const bf16* Ac,
+           const bf16* Bc, TX* y, const rf::Affine& epi, int p, int na,
            int nb, int nva, int nvb, cudaStream_t stream) {
   constexpr int smem = f2s::smem_bytes<NPROD>();
   cudaError_t err = cudaFuncSetAttribute(
-      final2d_split_kernel<NPROD, K>,
+      final2d_split_kernel<NPROD, K, TX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, na, p);
-  final2d_split_kernel<NPROD, K><<<grid, rfs::THREADS, smem, stream>>>(
+  final2d_split_kernel<NPROD, K, TX><<<grid, rfs::THREADS, smem, stream>>>(
       x, NA, NB, Ac, Bc, y, epi, na, nb, nva, nvb);
   return (int)cudaGetLastError();
 }
@@ -103,6 +113,19 @@ int by_nprod(int nprod, const float* x, const float* NA, const float* NB,
       return launch<4, K>(x, NA, NB, A, B, y, epi, p, na, nb, nva, nvb, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// bf16 storage: nprod 1 only (the JAX package's _kernel_nprod)
+template <int K>
+int bf16_nprod(int nprod, const void* x, const float* NA, const float* NB,
+               const void* Ac, const void* Bc, void* y,
+               const rf::Affine& epi, int p, int na, int nb, int nva,
+               int nvb, cudaStream_t s) {
+  if (nprod != 1) return (int)cudaErrorInvalidValue;
+  return launch<1, K>(static_cast<const bf16*>(x), NA, NB,
+                      static_cast<const bf16*>(Ac),
+                      static_cast<const bf16*>(Bc), static_cast<bf16*>(y),
+                      epi, p, na, nb, nva, nvb, s);
 }
 
 }  // namespace
@@ -131,6 +154,34 @@ extern "C" int final2d_split_epi_launch(
     ret = by_nprod<decltype(kc)::value>(nprod, x, NA, NB, Ac, Bc, y, epi, p,
                                         na, nb, nva, nvb,
                                         (cudaStream_t)stream);
+  });
+  return ret;
+}
+
+// x, y (p, na, T, W) bf16, nprod 1; the rest as final2d_split_launch
+extern "C" int final2d_split_bf16_launch(const void* x, const float* NA,
+                                         const float* NB, const void* Ac,
+                                         const void* Bc, void* y, int p,
+                                         int na, int nb, int nva, int nvb,
+                                         int nprod, void* stream) {
+  return bf16_nprod<rf::NO_EPI>(nprod, x, NA, NB, Ac, Bc, y, rf::Affine{}, p,
+                                na, nb, nva, nvb, (cudaStream_t)stream);
+}
+
+// x, y bf16, nprod 1; the aux arrays float32; the rest as
+// final2d_split_epi_launch
+extern "C" int final2d_split_epi_bf16_launch(
+    const void* x, const float* NA, const float* NB, const void* Ac,
+    const void* Bc, const float* aux0, const float* aux1, const float* aux2,
+    const float* aux3, const float* coef, void* y, int p, int na, int nb,
+    int nva, int nvb, int nprod, int k, void* stream) {
+  if (coef == nullptr) return (int)cudaErrorInvalidValue;
+  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
+  int ret = (int)cudaErrorInvalidValue;
+  rf::dispatch_aux(k, [&](auto kc) {
+    ret = bf16_nprod<decltype(kc)::value>(nprod, x, NA, NB, Ac, Bc, y, epi,
+                                          p, na, nb, nva, nvb,
+                                          (cudaStream_t)stream);
   });
   return ret;
 }

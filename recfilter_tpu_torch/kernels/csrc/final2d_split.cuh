@@ -57,10 +57,13 @@ __host__ __device__ constexpr int smem_bytes() {
 // f = Y of tile b of row tile pa = p * na + a (W = nb * 128 lanes), the
 // variants va, vb already picked; smem holds smem_bytes<NPROD>() bytes. The
 // block's threads all call it; it synchronises before it first writes
-// shared memory, so calls may follow one another.
-template <int NPROD>
+// shared memory, so calls may follow one another. x is float or bf16 (bf16
+// storage, NPROD 1: eight values a 16-byte load, widened exactly, so the
+// split — one chunk, the value itself — and every product are the float
+// path's on the same values).
+template <int NPROD, typename TX>
 __device__ __forceinline__ void split_tile(
-    rfs::Frag& f, const float* __restrict__ x, const float* __restrict__ NA,
+    rfs::Frag& f, const TX* __restrict__ x, const float* __restrict__ NA,
     const float* __restrict__ NB, const bf16* __restrict__ Ac,
     const bf16* __restrict__ Bc, void* smem, long pa, int b, int va, int vb,
     int nb) {
@@ -74,14 +77,31 @@ __device__ __forceinline__ void split_tile(
   __syncthreads();
   rfs::copy16(Cs, Ac + (long)va * NC * CONST_CHUNK,
               NC * (int)CONST_CHUNK * (int)sizeof(bf16), tid);
-  const float* xt = x + pa * T * W + (long)b * T;
+  const TX* xt = x + pa * T * W + (long)b * T;
   const float* nat = NA + pa * SLOTS * W + (long)b * T;
-  for (int i = tid; i < (T + SLOTS) * (T / 4); i += rfs::THREADS) {
-    const int k = i / (T / 4), c4 = i % (T / 4);
-    const float4 v = k < T
-        ? reinterpret_cast<const float4*>(xt + (long)k * W)[c4]
-        : reinterpret_cast<const float4*>(nat + (long)(k - T) * W)[c4];
-    rfs::split_store4<NC>(Ds + k * LDX + 4 * c4, DATA_CHUNK, v);
+  if constexpr (std::is_same<TX, float>::value) {
+    for (int i = tid; i < (T + SLOTS) * (T / 4); i += rfs::THREADS) {
+      const int k = i / (T / 4), c4 = i % (T / 4);
+      const float4 v = k < T
+          ? reinterpret_cast<const float4*>(xt + (long)k * W)[c4]
+          : reinterpret_cast<const float4*>(nat + (long)(k - T) * W)[c4];
+      rfs::split_store4<NC>(Ds + k * LDX + 4 * c4, DATA_CHUNK, v);
+    }
+  } else {
+    for (int i = tid; i < T * (T / 8); i += rfs::THREADS) {
+      const int k = i / (T / 8), c8 = i % (T / 8);
+      float4 lo, hi;
+      rf::widen8(reinterpret_cast<const uint4*>(xt + (long)k * W)[c8], lo,
+                 hi);
+      rfs::split_store4<NC>(Ds + k * LDX + 8 * c8, DATA_CHUNK, lo);
+      rfs::split_store4<NC>(Ds + k * LDX + 8 * c8 + 4, DATA_CHUNK, hi);
+    }
+    for (int i = tid; i < SLOTS * (T / 4); i += rfs::THREADS) {
+      const int k = T + i / (T / 4), c4 = i % (T / 4);
+      rfs::split_store4<NC>(
+          Ds + k * LDX + 4 * c4, DATA_CHUNK,
+          reinterpret_cast<const float4*>(nat + (long)(k - T) * W)[c4]);
+    }
   }
   for (int i = tid; i < (KP - T - SLOTS) * (T / 4); i += rfs::THREADS) {
     const int k = T + SLOTS + i / (T / 4), c4 = i % (T / 4);

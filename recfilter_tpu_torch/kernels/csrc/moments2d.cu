@@ -31,6 +31,13 @@
 // consecutive threads and float4 row reads by consecutive rows are both
 // free of bank conflicts) and keeps U on chip.
 //
+// bf16 storage (moments2d_bf16, moments2d_naf_bf16: moments2d_px on a bf16
+// x, which the JAX package's bf16 mode gives it): the same kernels with x
+// read as bf16 (8 values a 16-byte load) and widened to fp32 as the tile
+// is staged, so every sum below is the fp32 entry's on the same values,
+// bit for bit; the outputs stay fp32. The tile read halves to 2 B/px (at
+// 4096^2: 33.5 MB of x and 8.4 MB of outputs, 0.0125 ms at 3.35 TB/s).
+//
 // The sums accumulate in fp64 (fp32 loads and stores). These tails seed
 // the carries, and the carry solve and injection amplify their error
 // about thirtyfold for the sigma=5 Gaussian: fp32 accumulation here left the
@@ -86,6 +93,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int T = 128;        // tile edge, Ta = Tb
@@ -109,15 +118,26 @@ __device__ __forceinline__ int variant(int nv, int i, int n) {
   return i == 0 ? 1 : (i == n - 1 ? 2 : 0);
 }
 
-// Stage the x tile at xt (row stride W) and the tile's G rows.
+// Stage the x tile at xt (row stride W) and the tile's G rows; a bf16
+// tile widened to fp32 (exact), eight values a 16-byte load.
+template <typename TX>
 __device__ __forceinline__ void stage_tile(float* xs, float* ga, float* gb,
-                                           const float* xt, long W,
+                                           const TX* xt, long W,
                                            const float* gav,
                                            const float* gbv, int tid) {
-  for (int i = tid; i < T * (T / 4); i += THREADS) {
-    const int r = i / (T / 4), c4 = i % (T / 4);
-    reinterpret_cast<float4*>(xs + r * XS)[c4] =
-        reinterpret_cast<const float4*>(xt + r * W)[c4];
+  if constexpr (std::is_same<TX, float>::value) {
+    for (int i = tid; i < T * (T / 4); i += THREADS) {
+      const int r = i / (T / 4), c4 = i % (T / 4);
+      reinterpret_cast<float4*>(xs + r * XS)[c4] =
+          reinterpret_cast<const float4*>(xt + r * W)[c4];
+    }
+  } else {
+    for (int i = tid; i < T * (T / 8); i += THREADS) {
+      const int r = i / (T / 8), c8 = i % (T / 8);
+      float4* dst = reinterpret_cast<float4*>(xs + r * XS) + 2 * c8;
+      rf::widen8(reinterpret_cast<const uint4*>(xt + r * W)[c8], dst[0],
+                 dst[1]);
+    }
   }
   for (int i = tid; i < SLOTS * T; i += THREADS) {
     ga[i] = gav[i];
@@ -183,8 +203,9 @@ __device__ __forceinline__ void moments_b(const float* xs, const float* gb,
   }
 }
 
+template <typename TX>
 __global__ void __launch_bounds__(THREADS)
-moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
+moments2d_kernel(const TX* __restrict__ x,        // (p, na, T, W)
                  const float* __restrict__ Ga,    // (nva, 8, T)
                  const float* __restrict__ Gb,    // (nvb, 8, T)
                  const float* __restrict__ Ba1T,  // (nva, T, T): [s][o]
@@ -251,8 +272,9 @@ moments2d_kernel(const float* __restrict__ x,     // (p, na, T, W)
 // tails in its shared strip (fp32, as the raw entry stores them) and
 // writing term1; after a cluster barrier it solves the rows of its own
 // tiles, reading every tile's tails across the cluster's shared memory.
+template <typename TX>
 __global__ void __launch_bounds__(THREADS)
-moments2d_naf_kernel(const float* __restrict__ x,     // (p, na, T, W)
+moments2d_naf_kernel(const TX* __restrict__ x,        // (p, na, T, W)
                      const float* __restrict__ Ga,    // (nva, 8, T)
                      const float* __restrict__ Gb,    // (nvb, 8, T)
                      const float* __restrict__ Ba1T,  // (nva, T, T)
@@ -432,26 +454,27 @@ moments2d_k_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
 
 }  // namespace
 
-extern "C" int moments2d_launch(const float* x, const float* Ga,
-                                const float* Gb, const float* Ba1T,
-                                const float* E, float* bA, float* term1,
-                                float* ht, float* hb, int p, int na, int nb,
-                                int Ka, int Kb, int nva, int nvb, int h8,
-                                void* stream) {
+template <typename TX>
+static int raw_launch(const TX* x, const float* Ga, const float* Gb,
+                      const float* Ba1T, const float* E, float* bA,
+                      float* term1, float* ht, float* hb, int p, int na,
+                      int nb, int Ka, int Kb, int nva, int nvb, int h8,
+                      cudaStream_t stream) {
   if (h8 < 0 || h8 > T) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      moments2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      moments2d_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, na, p);
-  moments2d_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  moments2d_kernel<TX><<<grid, THREADS, SMEM_BYTES, stream>>>(
       x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, na, nb, Ka, Kb, nva, nvb, h8);
   return (int)cudaGetLastError();
 }
 
 // The launch of moments2d_naf with clusters of CL blocks; given active,
 // only the number of such clusters the card keeps resident, in *active.
-static cudaError_t naf_launch(int CL, const float* x, const float* Ga,
+template <typename TX>
+static cudaError_t naf_launch(int CL, const TX* x, const float* Ga,
                               const float* Gb, const float* Ba1T,
                               const double* CMT, float* NA, float* term1,
                               int p, int na, int nb, int Ka, int Kb, int nva,
@@ -460,10 +483,10 @@ static cudaError_t naf_launch(int CL, const float* x, const float* Ga,
                     (long)((na + CL - 1) / CL) * SLOTS * T * sizeof(float);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      moments2d_naf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      moments2d_naf_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(moments2d_naf_kernel,
+  err = cudaFuncSetAttribute(moments2d_naf_kernel<TX>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
@@ -480,9 +503,10 @@ static cudaError_t naf_launch(int CL, const float* x, const float* Ga,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (active)
-    return cudaOccupancyMaxActiveClusters(active, moments2d_naf_kernel, &cfg);
-  return cudaLaunchKernelEx(&cfg, moments2d_naf_kernel, x, Ga, Gb, Ba1T, CMT,
-                            NA, term1, na, nb, Ka, Kb, nva, nvb);
+    return cudaOccupancyMaxActiveClusters(active, moments2d_naf_kernel<TX>,
+                                          &cfg);
+  return cudaLaunchKernelEx(&cfg, moments2d_naf_kernel<TX>, x, Ga, Gb, Ba1T,
+                            CMT, NA, term1, na, nb, Ka, Kb, nva, nvb);
 }
 
 // Clusters of min(16, na) blocks — 16, Hopper's largest (non-portable)
@@ -491,15 +515,13 @@ static cudaError_t naf_launch(int CL, const float* x, const float* Ga,
 // 0.357 against 0.288 ms, tests/torch_carry_study.py) — or of 8 where the
 // card keeps no cluster of 16 resident. The strip of ceil(na / CL) tiles
 // must fit beside the staged tile (na <= 280 at 8).
-extern "C" int moments2d_naf_launch(const float* x, const float* Ga,
-                                    const float* Gb, const float* Ba1T,
-                                    const double* CMT, float* NA,
-                                    float* term1, int p, int na, int nb,
-                                    int Ka, int Kb, int nva, int nvb,
-                                    void* stream) {
+template <typename TX>
+static int naf_entry(const TX* x, const float* Ga, const float* Gb,
+                     const float* Ba1T, const double* CMT, float* NA,
+                     float* term1, int p, int na, int nb, int Ka, int Kb,
+                     int nva, int nvb, cudaStream_t st) {
   if (na < 1 || nb < 1 || p < 1) return (int)cudaErrorInvalidValue;
   int CL = na < NAF_CLUSTER ? na : NAF_CLUSTER, active = 0;
-  const cudaStream_t st = (cudaStream_t)stream;
   if (CL > 8 && (naf_launch(CL, x, Ga, Gb, Ba1T, CMT, NA, term1, p, na, nb,
                             Ka, Kb, nva, nvb, st, &active) != cudaSuccess ||
                  active < 1)) {
@@ -510,6 +532,49 @@ extern "C" int moments2d_naf_launch(const float* x, const float* Ga,
                                nb, Ka, Kb, nva, nvb, st, nullptr);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+extern "C" int moments2d_launch(const float* x, const float* Ga,
+                                const float* Gb, const float* Ba1T,
+                                const float* E, float* bA, float* term1,
+                                float* ht, float* hb, int p, int na, int nb,
+                                int Ka, int Kb, int nva, int nvb, int h8,
+                                void* stream) {
+  return raw_launch(x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, p, na, nb, Ka, Kb,
+                    nva, nvb, h8, (cudaStream_t)stream);
+}
+
+// x (p, na, T, W) bf16; everything else as moments2d_launch
+extern "C" int moments2d_bf16_launch(const void* x, const float* Ga,
+                                     const float* Gb, const float* Ba1T,
+                                     const float* E, float* bA, float* term1,
+                                     float* ht, float* hb, int p, int na,
+                                     int nb, int Ka, int Kb, int nva,
+                                     int nvb, int h8, void* stream) {
+  return raw_launch(static_cast<const rf::bf16*>(x), Ga, Gb, Ba1T, E, bA,
+                    term1, ht, hb, p, na, nb, Ka, Kb, nva, nvb, h8,
+                    (cudaStream_t)stream);
+}
+
+extern "C" int moments2d_naf_launch(const float* x, const float* Ga,
+                                    const float* Gb, const float* Ba1T,
+                                    const double* CMT, float* NA,
+                                    float* term1, int p, int na, int nb,
+                                    int Ka, int Kb, int nva, int nvb,
+                                    void* stream) {
+  return naf_entry(x, Ga, Gb, Ba1T, CMT, NA, term1, p, na, nb, Ka, Kb, nva,
+                   nvb, (cudaStream_t)stream);
+}
+
+// x (p, na, T, W) bf16; everything else as moments2d_naf_launch
+extern "C" int moments2d_naf_bf16_launch(const void* x, const float* Ga,
+                                         const float* Gb, const float* Ba1T,
+                                         const double* CMT, float* NA,
+                                         float* term1, int p, int na, int nb,
+                                         int Ka, int Kb, int nva, int nvb,
+                                         void* stream) {
+  return naf_entry(static_cast<const rf::bf16*>(x), Ga, Gb, Ba1T, CMT, NA,
+                   term1, p, na, nb, Ka, Kb, nva, nvb, (cudaStream_t)stream);
 }
 
 // Ta <= 128, Ka and Kb <= 32

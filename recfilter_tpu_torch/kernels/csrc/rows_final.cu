@@ -54,6 +54,20 @@
 //     output rows, eight consecutive lanes each (four 32-byte sectors).
 // Shared memory: 110,592 B of B at px6 (73,728 B at the reduced grades)
 // and 2 x 34,816 B of stages.
+//
+// bf16 storage (rows_final_bf16: rows_final_px on a bf16 x at nprod 1,
+// which the JAX package's bf16 mode runs, writing y in x's dtype): x's 128
+// rows staged as bf16 (16 KB a warpgroup, a 16-byte copy 8 lanes) in the
+// same swizzled layout, N's 8 rows in a fp32 stage of their own (2 KB),
+// both by cp.async. A bf16 row of 64 lanes is 128 bytes, one pass over
+// the 32 banks; the swizzle puts a warp's fragment reads — rows 4qd + e
+// of a k16 step, lanes r and r + 8 — on 16 distinct words, each read by
+// the two threads of a lane pair (a broadcast): free of bank conflicts,
+// as the fp32 stage is, at half its bytes (kernels/final2d.py's
+// _stage_off models both). The samples widen to fp32 as they are read (a
+// bf16 value is its own chunk), the products are nprod 1's on fp32 x, and
+// each fp32 output rounds once to bf16, to nearest even: 4 B of traffic
+// per element in place of 8 (70.3 MB at 256^3).
 
 #include "common.cuh"
 #include "pipeline.cuh"
@@ -69,8 +83,16 @@ constexpr int ROWS = T + SLOTS;     // rows of a stage: x's, then N's
 constexpr int LANES = rfw::TM;      // lanes of an item (wgmma M)
 constexpr int STAGE = ROWS * LANES;  // floats of a stage
 constexpr int NWG = 2;              // warpgroups a block
+// a warpgroup's stage: fp32 x and N rows, or bf16 x rows then fp32 N rows
+template <typename TX>
+__host__ __device__ constexpr long stage_bytes() {
+  return std::is_same<TX, float>::value
+             ? 4L * STAGE
+             : 2L * T * LANES + 4L * SLOTS * LANES;
+}
+template <typename TX>
 constexpr long smem(int nprod) {
-  return rfw::b_chunks(nprod) * CH * 2L + 4L * NWG * STAGE;
+  return rfw::b_chunks(nprod) * CH * 2L + NWG * stage_bytes<TX>();
 }
 
 // (row s, lane w) of a stage: rows of 64 lanes, the 8-lane groups of row s
@@ -80,12 +102,13 @@ __device__ __forceinline__ int stage_off(int s, int w) {
   return s * LANES + (w ^ (8 * ((s >> 2) & 3)));
 }
 
-template <int NPROD>
+// TX: x's and y's type, float or bf16
+template <int NPROD, typename TX>
 __global__ void __launch_bounds__(NWG * rfw::WG, 1)
-rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
+rows_final_kernel(const TX* __restrict__ x,          // (p, n, T, W)
                   const float* __restrict__ N,       // (p, n, 8, W)
                   const rfs::bf16* __restrict__ Bc,  // (nv, NCB, T * KP)
-                  float* __restrict__ y,             // (p, n, T, W)
+                  TX* __restrict__ y,                // (p, n, T, W)
                   int n, int nl, int nb, int nv) {
   constexpr int NCB = rfw::b_chunks(NPROD);
   extern __shared__ uint4 smem16[];
@@ -96,7 +119,12 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
   const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
   const long W = (long)nl * T;
   const int lb = W / LANES;  // lane blocks of one (p, a)
-  float* Xs = reinterpret_cast<float*>(Bs + NCB * CH) + wg * STAGE;
+  // this warpgroup's stage: x's rows (Xs), then N's (Ns; at fp32 x the
+  // stage's rows T.. as before)
+  constexpr long SB = stage_bytes<TX>();
+  char* stage = reinterpret_cast<char*>(Bs + NCB * CH) + wg * SB;
+  TX* Xs = reinterpret_cast<TX*>(stage);
+  float* Ns = reinterpret_cast<float*>(stage + T * LANES * sizeof(TX));
   const rfp::Walk walk(n, nb, nv, NWG);
 
   // item it -> the first element of its (p, a) slab and its first lane
@@ -117,12 +145,23 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
     long pa;
     int l0;
     where(it, pa, l0);
-    const float* xt = x + pa * T * W + l0;
+    const TX* xt = x + pa * T * W + l0;
     const float* Nt = N + pa * SLOTS * W + l0;
-    for (int i = tid; i < ROWS * (LANES / 4); i += rfw::WG) {
-      const int s = i >> 4, c = 4 * (i & 15);
-      rfp::cp16(Xs + stage_off(s, c),
-                s < T ? xt + s * W + c : Nt + (s - T) * W + c, true);
+    if constexpr (std::is_same<TX, float>::value) {
+      for (int i = tid; i < ROWS * (LANES / 4); i += rfw::WG) {
+        const int s = i >> 4, c = 4 * (i & 15);
+        rfp::cp16(Xs + stage_off(s, c),
+                  s < T ? xt + s * W + c : Nt + (s - T) * W + c, true);
+      }
+    } else {
+      for (int i = tid; i < T * (LANES / 8); i += rfw::WG) {
+        const int s = i >> 3, c = 8 * (i & 7);
+        rfp::cp16(Xs + stage_off(s, c), xt + s * W + c, true);
+      }
+      for (int i = tid; i < SLOTS * (LANES / 4); i += rfw::WG) {
+        const int s = i >> 4, c = 4 * (i & 15);
+        rfp::cp16(Ns + stage_off(s, c), Nt + s * W + c, true);
+      }
     }
     return true;
   };
@@ -156,11 +195,25 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
         [&](int k0, float (&u)[4], float (&w)[4]) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) u[e] = w[e] = 0.f;
-          if (k0 < T || 4 * qd < SLOTS) {
+          if constexpr (std::is_same<TX, float>::value) {
+            if (k0 < T || 4 * qd < SLOTS) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                u[e] = Xs[stage_off(k0 + 4 * qd + e, r)];
+                w[e] = Xs[stage_off(k0 + 4 * qd + e, r + 8)];
+              }
+            }
+          } else if (k0 < T) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              u[e] = Xs[stage_off(k0 + 4 * qd + e, r)];
-              w[e] = Xs[stage_off(k0 + 4 * qd + e, r + 8)];
+              u[e] = __bfloat162float(Xs[stage_off(k0 + 4 * qd + e, r)]);
+              w[e] = __bfloat162float(Xs[stage_off(k0 + 4 * qd + e, r + 8)]);
+            }
+          } else if (4 * qd < SLOTS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              u[e] = Ns[stage_off(k0 - T + 4 * qd + e, r)];
+              w[e] = Ns[stage_off(k0 - T + 4 * qd + e, r + 8)];
             }
           }
         },
@@ -174,29 +227,36 @@ rows_final_kernel(const float* __restrict__ x,       // (p, n, T, W)
     long pa;
     int l0;
     where(it, pa, l0);
-    float* yt = y + pa * T * W + l0 + r;
+    TX* yt = y + pa * T * W + l0 + r;
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float* yr = yt + (long)(8 * j + 2 * qd + e) * W;
-        yr[0] = d[4 * j + e];
-        yr[8] = d[4 * j + 2 + e];
+        TX* yr = yt + (long)(8 * j + 2 * qd + e) * W;
+        rf::store1(yr, d[4 * j + e]);
+        rf::store1(yr + 8, d[4 * j + 2 + e]);
       }
   }
 }
 
-template <int NPROD>
-int launch(const float* x, const float* N, const rfs::bf16* Bc, float* y,
-           int n, int nl, long nb, int nv, cudaStream_t stream) {
+template <int NPROD, typename TX>
+int launch(const TX* x, const float* N, const rfs::bf16* Bc, TX* y, int n,
+           int nl, long nb, int nv, cudaStream_t stream) {
+  constexpr int smem_b = (int)smem<TX>(NPROD);
   const cudaError_t err = cudaFuncSetAttribute(
-      rows_final_kernel<NPROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem(NPROD));
+      rows_final_kernel<NPROD, TX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
   if (err != cudaSuccess) return (int)err;
   const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, NWG));
-  rows_final_kernel<NPROD><<<grid, NWG * rfw::WG, (int)smem(NPROD),
-                             stream>>>(x, N, Bc, y, n, nl, (int)nb, nv);
+  rows_final_kernel<NPROD, TX><<<grid, NWG * rfw::WG, smem_b, stream>>>(
+      x, N, Bc, y, n, nl, (int)nb, nv);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int p, int n, int nl, int nv) {
+  const long nb = 2L * p * nl;  // 64-lane blocks of a tile index
+  return p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
+         n * nb >= (1L << 31);
 }
 
 }  // namespace
@@ -206,10 +266,8 @@ int launch(const float* x, const float* N, const rfs::bf16* Bc, float* y,
 extern "C" int rows_final_launch(const float* x, const float* N,
                                  const void* Bc, float* y, int p, int n,
                                  int nl, int nv, int nprod, void* stream) {
-  const long nb = 2L * p * nl;  // 64-lane blocks of a tile index
-  if (p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
-      n * nb >= (1L << 31))
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(p, n, nl, nv)) return (int)cudaErrorInvalidValue;
+  const long nb = 2L * p * nl;
   const rfs::bf16* B = static_cast<const rfs::bf16*>(Bc);
   cudaStream_t s = (cudaStream_t)stream;
   switch (nprod) {
@@ -219,6 +277,20 @@ extern "C" int rows_final_launch(const float* x, const float* N,
     case 6: return launch<6>(x, N, B, y, n, nl, nb, nv, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// x, y (p, n, T, W) bf16, nprod 1 (bf16 storage); the rest as
+// rows_final_launch
+extern "C" int rows_final_bf16_launch(const void* x, const float* N,
+                                      const void* Bc, void* y, int p, int n,
+                                      int nl, int nv, int nprod,
+                                      void* stream) {
+  if (nprod != 1 || bad_shape(p, n, nl, nv))
+    return (int)cudaErrorInvalidValue;
+  return launch<1>(static_cast<const rfs::bf16*>(x), N,
+                   static_cast<const rfs::bf16*>(Bc),
+                   static_cast<rfs::bf16*>(y), n, nl, 2L * p * nl, nv,
+                   (cudaStream_t)stream);
 }
 
 extern "C" const char* rows_final_error_string(int err) {

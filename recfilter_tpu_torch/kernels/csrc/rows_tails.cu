@@ -41,6 +41,12 @@
 //     as zeros in the same pass;
 //   * G's K rows of every variant (at most 3 x 8 x 128 doubles) stay in
 //     shared memory, read as broadcasts.
+// bf16 storage (rows_tails_bf16: rows_tails_px on a bf16 x, which the JAX
+// package's bf16 mode gives it): the ring holds bf16 tiles (32 KB a stage,
+// a row 16 copies of 16 bytes), each thread's four lanes read as one
+// 8-byte word and widened (exact), so the sums are the fp32 entry's on the
+// same values, bit for bit; b stays fp32. 2 B per element read.
+//
 // Picked over two designs that stream x into registers — per-tile blocks
 // with sixteen float4 loads a thread, two an SM (128 registers, spills
 // from K = 6), and those blocks walking the tiles — by timing all three
@@ -61,24 +67,27 @@ constexpr int WARPS = THREADS / 32;
 constexpr int RW = T / WARPS;  // rows a warp sums
 constexpr int STAGES = 2;      // tiles in the ring
 
-constexpr int smem_bytes(int K) {  // G x 3 variants, the partials, the ring
+// G x 3 variants, the partials, the ring of tiles of elements of `bytes`
+constexpr int smem_bytes(int K, int bytes) {
   return (3 * K * T + WARPS * K * T) * (int)sizeof(double) +
-         STAGES * T * T * (int)sizeof(float);
+         STAGES * T * T * bytes;
 }
-static_assert(smem_bytes(SLOTS) <= 232448, "rows_tails outgrows an SM");
+static_assert(smem_bytes(SLOTS, 4) <= 232448, "rows_tails outgrows an SM");
 
 using rf::variant;
 
-template <int K>
+// TX: x's type, float or bf16
+template <int K, typename TX>
 __global__ void __launch_bounds__(THREADS, 1)
-rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
+rows_tails_kernel(const TX* __restrict__ x,      // (p, n, T, W)
                   const double* __restrict__ G,  // (nv, 8, T)
                   float* __restrict__ b,         // (p, n, 8, W)
                   int n, int nl, int nv, int tiles) {
   extern __shared__ double smem[];
   double* g = smem;              // nv x K x T
   double* part = g + 3 * K * T;  // WARPS x K x T
-  float* ring = reinterpret_cast<float*>(part + WARPS * K * T);
+  TX* ring = reinterpret_cast<TX*>(part + WARPS * K * T);
+  constexpr int V = 16 / (int)sizeof(TX);  // elements a 16-byte copy
 
   const int tid = threadIdx.x, wp = tid / 32, t = tid % 32;
   const long W = (long)nl * T;
@@ -88,10 +97,10 @@ rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
   auto load = [&](int tile, int st) {
     if (tile >= tiles) return;
     const long pa = tile / nl;
-    const float* xt = x + pa * T * W + (long)(tile - pa * nl) * T;
-    float* dst = ring + st * T * T;
-    for (int i = tid; i < T * T / 4; i += THREADS) {
-      const int r = i >> 5, c = 4 * (i & 31);
+    const TX* xt = x + pa * T * W + (long)(tile - pa * nl) * T;
+    TX* dst = ring + st * T * T;
+    for (int i = tid; i < T * T / V; i += THREADS) {
+      const int r = i / (T / V), c = V * (i % (T / V));
       rfp::cp16(dst + r * T + c, xt + r * W + c, true);
     }
   };
@@ -110,7 +119,7 @@ rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
     const long pa = tile / nl;
     const int l = tile - pa * nl;
     const double* gv = g + variant(nv, pa % n, n) * K * T;
-    const float* xs = ring + st * T * T + 4 * t;
+    const TX* xs = ring + st * T * T + 4 * t;
 
     double acc[K][4];
 #pragma unroll
@@ -120,7 +129,11 @@ rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
 #pragma unroll 4
     for (int i = 0; i < RW; ++i) {
       const int s = wp * RW + i;
-      const float4 v = *reinterpret_cast<const float4*>(xs + s * T);
+      float4 v;
+      if constexpr (std::is_same<TX, float>::value)
+        v = *reinterpret_cast<const float4*>(xs + s * T);
+      else
+        v = rf::widen4(*reinterpret_cast<const uint2*>(xs + s * T));
       const double x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
@@ -157,30 +170,27 @@ rows_tails_kernel(const float* __restrict__ x,   // (p, n, T, W)
   }
 }
 
-template <int K>
-int launch(const float* x, const double* G, float* b, int p, int n, int nl,
+template <int K, typename TX>
+int launch(const TX* x, const double* G, float* b, int p, int n, int nl,
            int nv, cudaStream_t stream) {
+  constexpr int smem = smem_bytes(K, (int)sizeof(TX));
   const cudaError_t err = cudaFuncSetAttribute(
-      rows_tails_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(K));
+      rows_tails_kernel<K, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const long tiles = (long)nl * n * p;
-  rows_tails_kernel<K>
-      <<<rfp::persistent_grid(tiles), THREADS, smem_bytes(K), stream>>>(
+  rows_tails_kernel<K, TX>
+      <<<rfp::persistent_grid(tiles), THREADS, smem, stream>>>(
           x, G, b, n, nl, nv, (int)tiles);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// G: kernels/final2d.py's RowsTails.G_v64, (nv, 8, T) float64
-extern "C" int rows_tails_launch(const float* x, const double* G, float* b,
-                                 int p, int n, int nl, int K, int nv,
-                                 void* stream) {
+template <typename TX>
+int by_k(const TX* x, const double* G, float* b, int p, int n, int nl, int K,
+         int nv, cudaStream_t s) {
   if (p < 1 || n < 1 || nl < 1 || (nv != 1 && nv != 3) ||
       (long)nl * n * p >= (1L << 31))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
   switch (K) {
     case 1: return launch<1>(x, G, b, p, n, nl, nv, s);
     case 2: return launch<2>(x, G, b, p, n, nl, nv, s);
@@ -192,6 +202,23 @@ extern "C" int rows_tails_launch(const float* x, const double* G, float* b,
     case 8: return launch<8>(x, G, b, p, n, nl, nv, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// G: kernels/final2d.py's RowsTails.G_v64, (nv, 8, T) float64
+extern "C" int rows_tails_launch(const float* x, const double* G, float* b,
+                                 int p, int n, int nl, int K, int nv,
+                                 void* stream) {
+  return by_k(x, G, b, p, n, nl, K, nv, (cudaStream_t)stream);
+}
+
+// x (p, n, T, W) bf16; the rest as rows_tails_launch
+extern "C" int rows_tails_bf16_launch(const void* x, const double* G,
+                                      float* b, int p, int n, int nl, int K,
+                                      int nv, void* stream) {
+  return by_k(static_cast<const rf::bf16*>(x), G, b, p, n, nl, K, nv,
+              (cudaStream_t)stream);
 }
 
 extern "C" const char* rows_tails_error_string(int err) {

@@ -24,6 +24,13 @@ their plain twins.
     scan along a non-last axis, everything after it flattened into W
     lanes (:class:`.overlap2d.FusedRowsPx`).
 
+bf16 storage (the JAX package's ``dtype="bfloat16"`` mode: the image in
+bf16 between passes, one product): :class:`Moments2D`, :class:`RowsTails`
+take a bf16 x (their outputs stay float32, the sums those of the float32
+path on the same values), :class:`Final2DSplit` and :class:`RowsFinal` at
+nprod 1 take a bf16 x and return a bf16 y — the kernels' ``*_bf16``
+entries; the twins compute in float32 on ``x.float()`` and round once.
+
 Each module holds its host-built matrices as buffers and has two paths:
 ``forward`` launches the CUDA kernel (``csrc/*.cu``) for a CUDA tensor and
 runs the plain PyTorch twin for a CPU tensor; ``plain`` is the twin, the
@@ -76,6 +83,23 @@ def _cat_t(B, R) -> np.ndarray:
                           axis=1)
 
 
+# the element types of x the kernels read: float32, or bf16 (bf16 storage)
+XTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry(name: str, x: torch.Tensor) -> str:
+    """The launch entry of kernel ``name`` for x's element type."""
+    return name + "_bf16" if x.dtype == torch.bfloat16 else name
+
+
+def _bf16_grade(x: torch.Tensor, nprod: int) -> None:
+    """Raise unless x is float32, or bf16 at one product (the JAX
+    package's ``_kernel_nprod`` gives bf16 storage one)."""
+    if x.dtype == torch.bfloat16 and nprod != 1:
+        raise ValueError(f"a bf16 x runs one product, not {nprod} (bf16 "
+                         "storage)")
+
+
 def _grid_ok(p: int, n: int, W: int) -> None:
     """The kernels' launch grid is (W/128, n, p): gridDim.y and gridDim.z
     stop at 65535."""
@@ -85,7 +109,9 @@ def _grid_ok(p: int, n: int, W: int) -> None:
 
 
 class Moments2D(nn.Module):
-    """Pass 1: ``(bA_t, term1) = moments(x)`` for x (p, na, Ta, W).
+    """Pass 1: ``(bA_t, term1) = moments(x)`` for x (p, na, Ta, W),
+    float32 or bf16 (``moments2d_bf16``, ``moments2d_naf_bf16``: the same
+    sums on the same values; float32 outputs).
 
     G_a_cat : (na|1, Ka, Ta)   G_b_cat : (nb|1, Kb, Tb)
     term1_mats : (na|1, Ta, Ta), the dim-A Btot folded into the dim-B term.
@@ -171,7 +197,7 @@ class Moments2D(nn.Module):
 
     def _kernel(self, x):
         p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
-        _check(x, "x", (p, na, TILE, nb * TILE), x.device)
+        _check(x, "x", (p, na, TILE, nb * TILE), x.device, XTYPES)
         for name in ("Ga_v", "Gb_v", "Ba1T_v", "E_v"):
             t = getattr(self, name)
             _check(t, name, t.shape, x.device)
@@ -181,7 +207,7 @@ class Moments2D(nn.Module):
         if self.solve:
             _check(self.CMaT, "CMaT", self.CMaT.shape, x.device,
                    torch.float64)
-            _launch("moments2d_naf", (
+            _launch(_entry("moments2d_naf", x), (
                 x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
                 self.Ba1T_v.data_ptr(), self.CMaT.data_ptr(), bA.data_ptr(),
                 term1.data_ptr(), p, na, nb, self.Ka, self.Kb,
@@ -189,7 +215,7 @@ class Moments2D(nn.Module):
             return bA, term1
         ht, hb = (torch.empty((p, na, h8, nb * TILE), device=x.device)
                   for _ in range(2))
-        _launch("moments2d", (
+        _launch(_entry("moments2d", x), (
             x.data_ptr(), self.Ga_v.data_ptr(), self.Gb_v.data_ptr(),
             self.Ba1T_v.data_ptr(), self.E_v.data_ptr(), bA.data_ptr(),
             term1.data_ptr(), ht.data_ptr(), hb.data_ptr(),
@@ -319,6 +345,12 @@ class Final2DSplit(nn.Module):
     *aux)`` returns ``a·Y + Σᵢ bᵢ·auxᵢ + c`` instead, each aux (p, na, Ta,
     W) like x (the ``final2d_split_epi`` entry; the twins apply the form
     after Y), as :class:`Final2D` at px6.
+
+    bf16 storage: at nprod 1, x may be bf16 (``final2d_split_bf16``,
+    ``final2d_split_epi_bf16``): y is bf16, the float32 Y (after the
+    epilogue, its aux arrays float32) rounded once to nearest even; the
+    twin computes on ``x.float()`` and rounds once too. The JAX kernel
+    rounds Y to bf16 before its epilogue; the port rounds after it.
     """
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
@@ -352,10 +384,11 @@ class Final2DSplit(nn.Module):
         ``Z[p,a,s,w] = Σ_(i,j) Σ_k A_i[a][s][k]·[x; NA]_j[p,a,k,w]``."""
         A = self._tiles()[0]
         return split.pair_sum(self.nprod, lambda i, d: torch.einsum(
-            "ask,pakw->pasw", A[:, i], d), torch.cat([x, NA_t], dim=2),
-            TILE, dim=2)
+            "ask,pakw->pasw", A[:, i], d), torch.cat([x.float(), NA_t],
+                                                    dim=2), TILE, dim=2)
 
     def plain(self, x, NA_t, NB_t, *aux):
+        _bf16_grade(x, self.nprod)
         p, na, Ta, W = x.shape
         nb, T = self.nb, TILE
         B = self._tiles()[1]
@@ -365,7 +398,7 @@ class Final2DSplit(nn.Module):
         ins = torch.cat([zr, nbr], dim=-1)                # (p,a,s,b,T+8)
         y = split.pair_sum(self.nprod, lambda i, d: torch.einsum(
             "bok,pasbk->pasbo", B[:, i], d), ins, TILE)
-        return self._epi(y.reshape(p, na, Ta, W), aux)
+        return self._epi(y.reshape(p, na, Ta, W), aux).to(x.dtype)
 
     def resplit_bound(self, x, NA_t) -> torch.Tensor:
         """Per output (the shape of Y), how far one product's kernel and
@@ -382,6 +415,7 @@ class Final2DSplit(nn.Module):
         |Bb₀|·d, zero where every Z value of the row rounds one way. At 3
         and 4 products the second chunk carries the step, and the bound is
         0."""
+        x = x.float()
         if self.nprod != 1:
             return torch.zeros_like(x)
         A, B = self._tiles()
@@ -417,7 +451,8 @@ class Final2DSplit(nn.Module):
     def _kernel(self, x, NA_t, NB_t, *aux):
         p, na, nb = x.shape[0], self.na, self.nb
         W = nb * TILE
-        _check(x, "x", (p, na, TILE, W), x.device)
+        _check(x, "x", (p, na, TILE, W), x.device, XTYPES)
+        _bf16_grade(x, self.nprod)
         _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
         _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
         for name in ("Ac", "Bc"):
@@ -429,10 +464,11 @@ class Final2DSplit(nn.Module):
                self.Ac.data_ptr(), self.Bc.data_ptr())
         dims = (p, na, nb, self.Ac.shape[0], self.Bc.shape[0], self.nprod)
         if self.affine is None:
-            _launch("final2d_split", (*ops, y.data_ptr(), *dims), x.device)
+            _launch(_entry("final2d_split", x), (*ops, y.data_ptr(), *dims),
+                    x.device)
             return y
         _check(self.epi_coef, "epi_coef", self.epi_coef.shape, x.device)
-        _launch("final2d_split_epi", (
+        _launch(_entry("final2d_split_epi", x), (
             *ops, *_aux_ptrs(aux, self.k, x.shape, x.device),
             self.epi_coef.data_ptr(), y.data_ptr(), *dims, self.k), x.device)
         return y
@@ -708,7 +744,8 @@ class RowsTails(nn.Module):
     The sums run in float64 from float32 loads, with G in float64, in the
     kernel and in the twin (see ``csrc/rows_tails.cu``); the kernel sums
     each warp's :data:`ROW_GROUP` rows, then the groups in order
-    (:meth:`grouped`)."""
+    (:meth:`grouped`). x may be bf16 (``rows_tails_bf16``: the same sums
+    of the same values; b float32)."""
 
     ROW_GROUP = 16  # rows a warp of the kernel sums (csrc/rows_tails.cu: RW)
 
@@ -743,12 +780,12 @@ class RowsTails(nn.Module):
 
     def _kernel(self, x):
         p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
-        _check(x, "x", (p, n, TILE, W), x.device)
+        _check(x, "x", (p, n, TILE, W), x.device, XTYPES)
         _check(self.G_v64, "G_v64", self.G_v64.shape, x.device,
                torch.float64)
         _grid_ok(p, n, W)
         b = torch.empty((p, n, _SLOTS, W), device=x.device)
-        _launch("rows_tails", (
+        _launch(_entry("rows_tails", x), (
             x.data_ptr(), self.G_v64.data_ptr(), b.data_ptr(),
             p, n, W // TILE, self.K, self.G_v64.shape[0]), x.device)
         return b
@@ -765,7 +802,9 @@ _ROWS_KP = tc_depth(_SLOTS)  # rows_final's contraction: 128 + 8 + 8 zeros
 def _stage_off(s: int, w: int) -> int:
     """Where ``csrc/rows_final.cu`` stages row s (x's 128, then N's 8),
     lane w < 64 of an item: rows of 64 floats, each row's 8-lane groups
-    XOR-swizzled by (s // 4) % 4 (its ``stage_off``)."""
+    XOR-swizzled by (s // 4) % 4 (its ``stage_off``). The bf16 form stages
+    x's rows at the same offsets in 2-byte elements, N's in an fp32 stage
+    of their own (s < 8)."""
     return s * 64 + (w ^ (8 * ((s >> 2) & 3)))
 
 
@@ -790,7 +829,9 @@ class RowsFinal(nn.Module):
     the float32 product at px6 and the grade's chunk products in float32
     at the reduced grades (:func:`.split.pair_sum`); the backward
     differentiates the float32 product with the constant's grade
-    (``_twin``)."""
+    (``_twin``). bf16 storage: at nprod 1, x may be bf16
+    (``rows_final_bf16``): y is bf16, the float32 sums rounded once to
+    nearest even; the twin computes on ``x.float()`` and rounds once."""
 
     def __init__(self, Btot, Rhat_cat, n: int, nprod: int = 6):
         super().__init__()
@@ -809,12 +850,13 @@ class RowsFinal(nn.Module):
         self.register_buffer("R_v", _f32(_variants3(R8)))
 
     def plain(self, x, N):
+        _bf16_grade(x, self.nprod)
         if self.nprod == 6:
             return self._twin(x, N)
         Mc = self.chunks()[..., :TILE + _SLOTS].float()
         return split.pair_sum(self.nprod, lambda i, d: tile_einsum(
-            "nok,pnkw->pnow", Mc[:, i], d), torch.cat([x, N], dim=2), TILE,
-            dim=2)
+            "nok,pnkw->pnow", Mc[:, i], d), torch.cat([x.float(), N], dim=2),
+            TILE, dim=2).to(x.dtype)
 
     def _twin(self, x, N):
         """The float32 product with the constant's grade (at the reduced
@@ -835,19 +877,20 @@ class RowsFinal(nn.Module):
         """:func:`.completion.tc_exact` of the kernel at its grade: the
         exact sum of its chunk products and its bound, per output (p, n,
         T, W)."""
-        data = torch.cat([x, N, torch.zeros_like(N)], dim=2)
+        data = torch.cat([x.float(), N, torch.zeros_like(N)], dim=2)
         return tc_exact(self.chunks().unbind(1), data.transpose(2, 3),
                         lambda m, v: tile_einsum("nok,pnwk->pnow", m, v),
                         drop, self.nprod)
 
     def _kernel(self, x, N):
         p, n, W = x.shape[0], self.n, _rows_x(x, self.n)
-        _check(x, "x", (p, n, TILE, W), x.device)
+        _check(x, "x", (p, n, TILE, W), x.device, XTYPES)
+        _bf16_grade(x, self.nprod)
         _check(N, "N", (p, n, _SLOTS, W), x.device)
         _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
         _grid_ok(p, n, W)
         y = torch.empty_like(x)
-        _launch("rows_final", (
+        _launch(_entry("rows_final", x), (
             x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), y.data_ptr(),
             p, n, W // TILE, self.Bc_k.shape[0], self.nprod), x.device)
         return y

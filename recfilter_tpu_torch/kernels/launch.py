@@ -35,7 +35,13 @@ autograd rule for all of them.
     (``split_mm``, ``split_mm_tf32``, ``split_mm_fp32``),
     ``ozaki``'s two (``ozaki_i8``, the int8 Ozaki dual completion, and
     ``dual_px6``, its six-product bf16 twin) and ``gemm_pair``'s two
-    (``gemm_i8``, ``gemm_bf16``: one GEMM tiling, two products).
+    (``gemm_i8``, ``gemm_bf16``: one GEMM tiling, two products). bf16
+    storage (a bf16 image between passes, the JAX package's
+    ``dtype="bfloat16"`` mode) has entries of its own in the sources of
+    its float forms, so a count tells the two apart: ``moments2d_bf16``
+    and ``moments2d_naf_bf16`` (x bf16), ``final2d_split_bf16`` and
+    ``final2d_split_epi_bf16`` (x and y bf16, nprod 1), ``rows_tails_bf16``
+    (x bf16) and ``rows_final_bf16`` (x and y bf16, nprod 1).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -45,7 +51,9 @@ autograd rule for all of them.
     forward through ``mod._kernel``, backward through the VJP of the
     module's plain twin (``mod._twin`` where the module defines one, else
     ``mod.plain``; each such kernel is a linear map of its tensor inputs,
-    so the VJP is taken at zero — :func:`_linear_vjp`). An input the twin
+    so the VJP is taken at zero — :func:`_linear_vjp`) in float32, each
+    gradient cast to its input's dtype (a bf16 image gets a bf16
+    gradient). An input the twin
     does not read — the stencil consumers' halo strips, which the twins
     recompute from the whole output — gets a zero gradient, as in the JAX
     package's VJPs. ``tails_traced`` and ``completion_traced`` take their
@@ -79,12 +87,15 @@ def _sig(name: str, *entries) -> dict:
 
 SIGNATURES = {
     "moments2d": _sig("moments2d", ("moments2d", 9, 8),
-                      ("moments2d_k", 5, 8), ("moments2d_naf", 7, 7)),
+                      ("moments2d_k", 5, 8), ("moments2d_naf", 7, 7),
+                      ("moments2d_bf16", 9, 8), ("moments2d_naf_bf16", 7, 7)),
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
                     ("final2d_k", 6, 8)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 11, 11)),
     "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6),
-                          ("final2d_split_epi", 11, 7)),
+                          ("final2d_split_epi", 11, 7),
+                          ("final2d_split_bf16", 6, 6),
+                          ("final2d_split_epi_bf16", 11, 7)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
                   ("tails_traced", 3, 3)),
     "completion": _sig("completion", ("completion", 4, 4),
@@ -96,8 +107,10 @@ SIGNATURES = {
                                  ("completion_rot_tails", 6, 8)),
     "completion_split": _sig("completion_split", ("completion_split", 4, 5),
                              ("completion_split_epi", 9, 6)),
-    "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5)),
-    "rows_final": _sig("rows_final", ("rows_final", 4, 5)),
+    "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5),
+                       ("rows_tails_bf16", 3, 5)),
+    "rows_final": _sig("rows_final", ("rows_final", 4, 5),
+                       ("rows_final_bf16", 4, 5)),
     "fir_band": _sig("fir_band", ("fir_band", 5, 9)),
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
@@ -183,10 +196,13 @@ class _KernelFn(torch.autograd.Function):
     def forward(ctx, mod, *inputs):
         ctx.mod = mod
         ctx.shapes = [i.shape for i in inputs]
+        ctx.dtypes = [i.dtype for i in inputs]
         ctx.device = inputs[0].device
         return mod._kernel(*inputs)
 
     @staticmethod
     def backward(ctx, *grads):
         twin = getattr(ctx.mod, "_twin", ctx.mod.plain)
-        return (None, *_linear_vjp(twin, ctx.shapes, ctx.device, grads))
+        gs = _linear_vjp(twin, ctx.shapes, ctx.device,
+                         tuple(g.float() for g in grads))
+        return (None, *(g.to(d) for g, d in zip(gs, ctx.dtypes)))

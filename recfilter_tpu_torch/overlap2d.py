@@ -40,6 +40,13 @@ the JAX package's A/B switches do (both off by default there and here):
 (``bsolve``, ``carry_route == "bsolve"``); together, the carries take no
 torch op between the three launches.
 
+Both executors take bf16 storage (``dtype=torch.bfloat16``, the JAX
+package's bf16 mode, at one product): the image is padded and tiled in
+bf16, the kernels read it as bf16 and the final kernel writes bf16; pass
+1's tails and every carry stay float32 / float64 as at float32.
+``forward_plain`` is then the float32 plain path on ``x.float()`` with
+one rounding to bf16 at the end of each executor.
+
 :class:`FusedRowsPx` is the dim-A half on its own — the rows pass, for a
 scan along any axis but the last, everything after that axis flattened
 into lanes: tails kernel → float64 carry solve (banded from 64 tiles on)
@@ -64,7 +71,7 @@ from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
 from .kernels.split import NPROD
 from .kernels.stencil2d import stencil_reach
-from .planner import refuse_split
+from .planner import refuse_bf16, refuse_split
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
@@ -165,12 +172,18 @@ class Fused2DPx(nn.Module):
     (``naf_ok`` and ``use_bk`` of its ``fused_2d_px``); True asks for it
     and raises ``NotImplementedError`` naming the gate that fails; False
     keeps the glue. ``moments_route`` ("raw" or "naf") and
-    ``carry_route`` ("glue" or "bsolve") say which runs."""
+    ``carry_route`` ("glue" or "bsolve") say which runs.
+
+    ``dtype``: the storage type, float32 or bf16 (module docstring; bf16
+    at ``nprod`` 1, an epilogue's output rounded to bf16 as the JAX
+    kernel stores it; a fused ``stencil2d`` bank raises, ROADMAP Queue 1
+    item 4). ``tile`` casts the input to it."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
                  stencil2d=None, bsolve: Optional[bool] = None,
-                 naf: Optional[bool] = None, nprod: int = 6):
+                 naf: Optional[bool] = None, nprod: int = 6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         T = TILE
         if stencil2d is not None and epilogue is not None:
@@ -178,6 +191,9 @@ class Fused2DPx(nn.Module):
         if nprod not in (1, 3, 4, 6):
             raise ValueError(f"nprod {nprod}: the 2-D executor runs 1, 3, 4 "
                              "or 6 products")
+        self.dtype = _storage_type(dtype, nprod)
+        if self.dtype == torch.bfloat16 and stencil2d is not None:
+            refuse_bf16("a fused stencil2d bank (final2d_stencil)")
         self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:
@@ -269,10 +285,12 @@ class Fused2DPx(nn.Module):
         return self._run(x, self.moments.plain, self.final.plain,
                          self.bsolve and self.bsolve.plain, eaux)
 
-    def tile(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., wa, wb) float32 → the kernels' zero-padded (p, na, Ta, W)."""
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+    def tile(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """(..., wa, wb) float32 → the kernels' zero-padded (p, na, Ta, W);
+        at bf16 storage any input, cast to bf16 and padded in bf16.
+        ``dtype`` float32 tiles an epilogue's aux arrays, which stay
+        float32 at every storage type."""
+        x = _storage_input(x, self.dtype if dtype is None else dtype)
         if x.ndim < 2 or tuple(x.shape[-2:]) != (self.wa, self.wb):
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "
                              f"the filter's extents ({self.wa}, {self.wb})")
@@ -369,7 +387,7 @@ class Fused2DPx(nn.Module):
         # broadcast aux materialized
         aux = [self.tile(torch.as_tensor(a).to(device=x.device,
                                                dtype=torch.float32)
-                         .expand_as(x))
+                         .expand(x.shape), torch.float32)
                for a in (eaux if self.epilogue is not None else ())]
         # passes 2+3: read x once, emit Y (or the affine epilogue's output)
         if self.affine is not None:
@@ -378,8 +396,32 @@ class Fused2DPx(nn.Module):
             Y4 = final(X4, NA32, NB32)
             if self.epilogue is not None:
                 Y4 = self.epilogue(Y4, *aux)
+                if self.dtype == torch.bfloat16:  # stored as the kernel's Y
+                    Y4 = Y4.to(torch.bfloat16)
         y = Y4.reshape(*lead, self.na * TILE, self.nb * TILE)
         return y[..., :self.wa, :self.wb]
+
+
+def _storage_type(dtype: torch.dtype, nprod: int) -> torch.dtype:
+    """The executors' storage type: float32, or bf16 at one product."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"storage dtype {dtype}: the executors store "
+                         "float32 or bf16")
+    if dtype == torch.bfloat16 and nprod != 1:
+        raise ValueError(f"bf16 storage runs one product, not {nprod}")
+    return dtype
+
+
+def _storage_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x for an executor storing ``dtype``: a float32 executor takes
+    float32 only; a bf16 one casts its input to bf16, as the JAX package's
+    ``x.astype(cdt)`` does (no copy for a bf16 input)."""
+    if dtype == torch.bfloat16:
+        return x.to(torch.bfloat16)
+    if x.dtype != dtype:
+        raise TypeError(f"expected {str(dtype).replace('torch.', '')} "
+                        f"input, got {x.dtype}")
+    return x
 
 
 def _rows_decline(L: int, W: int, scans: Sequence[Scan]):
@@ -419,12 +461,16 @@ class FusedRowsPx(nn.Module):
     device. Raises ``NotImplementedError`` where the JAX package declines
     the rows kernels (:func:`_rows_decline`: extents that are not
     multiples of 128, more than 256 tiles, more than 8 carries): the
-    router runs the einsum pass there (``dimfuse.FusedAxisPass``)."""
+    router runs the einsum pass there (``dimfuse.FusedAxisPass``).
+    ``dtype``: the storage type, float32 or bf16 at ``nprod`` 1 (module
+    docstring); ``tile`` casts the input to it."""
 
     def __init__(self, scans: Sequence[Scan], L: int,
-                 trailing: Sequence[int], border: str, nprod: int = 6):
+                 trailing: Sequence[int], border: str, nprod: int = 6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         T = TILE
+        self.dtype = _storage_type(dtype, nprod)
         trailing = tuple(int(e) for e in trailing)
         if not trailing:
             raise NotImplementedError(
@@ -466,9 +512,9 @@ class FusedRowsPx(nn.Module):
         return self._run(x, self.tails.plain, self.final.plain)
 
     def tile(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., L, *trailing) float32 → the kernels' (p, n, 128, W)."""
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+        """(..., L, *trailing) float32 → the kernels' (p, n, 128, W); at
+        bf16 storage any input, cast to bf16."""
+        x = _storage_input(x, self.dtype)
         ext = (self.L, *self.trailing)
         if x.ndim < len(ext) or tuple(x.shape[-len(ext):]) != ext:
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "

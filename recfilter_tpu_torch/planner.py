@@ -67,6 +67,18 @@ products in float64. The FIR band pass runs ``fir_band`` at ``f32x6`` as
 at px6 and at ``f32x3`` and ``f32x4`` as at px3 and px4 (the JAX
 package's product counts). ``matmul_dtype="bfloat16"`` raises (ROADMAP
 Queue 1 item 4).
+
+Storage types (the filter's dtype): float32 runs the grades above. bf16
+storage (the JAX package's production bf16 mode: the image in bf16
+between passes, float32 sums and float64 solves) runs ONE product
+whatever ``matmul_precision`` says (:func:`storage_nprod`, the JAX
+package's ``_kernel_nprod``) on the 3-touch 2-D executor and volumes —
+``moments2d``, ``final2d_split`` (``_epi``), ``rows_tails`` and
+``rows_final`` reading and writing bf16 — and every other bf16 route
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 4
+(:func:`refuse_bf16`): no route runs float32 in its place. float16
+storage runs the float32 route at the requested grade on the input cast
+to float32, and casts the output back (the JAX package's ``cdt``).
 """
 
 from __future__ import annotations
@@ -97,6 +109,27 @@ def refuse_split(matmul_precision: str, route: str) -> None:
             f"{matmul_precision!r}: {SPLIT_ITEM} (the reduced grades run "
             "the 3-touch 2-D executor, volumes, the rows pass at px3 and px4, "
             "the last-axis passes and the rotation chain)")
+
+
+def storage_nprod(dtype: str, matmul_precision: str) -> int:
+    """The kernels' product count for a filter of ``dtype`` at
+    ``matmul_precision`` (module docstring): bf16 storage one, whatever
+    the grade; float32 and float16 (which runs as float32) the grade's
+    :data:`.kernels.split.NPROD`, 0 where no kernel grade applies."""
+    from .kernels.split import NPROD
+
+    if dtype == "bfloat16":
+        return 1
+    return NPROD.get(matmul_precision, 0)
+
+
+def refuse_bf16(route: str) -> None:
+    """Raise ``NotImplementedError`` for a bf16 filter on ``route``, one of
+    the bf16 storage forms still to port (module docstring)."""
+    raise NotImplementedError(
+        f"bf16 storage on {route} is not ported yet: {SPLIT_ITEM} (bf16 "
+        "filters run the 3-touch 2-D executor and volumes at one product)")
+
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
             "scan", "oracle")

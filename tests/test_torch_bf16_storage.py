@@ -1,0 +1,590 @@
+"""bf16 storage — the JAX package's ``dtype="bfloat16"`` mode — on the
+port's 3-touch 2-D executor and volume route, and float16 storage.
+
+Same seeded numpy inputs through the JAX package (its Pallas kernels in
+interpret mode, as ``tests/test_overlap2d.py:397`` and
+``tests/test_dimfuse.py:819`` run its bf16 mode) and through the port's
+plain twins on the CPU: ``Moments2D``, ``Final2DSplit`` (with and without
+an affine epilogue), ``RowsTails`` and ``RowsFinal`` on a bf16 x, the
+pair and the volume through ``fused_filter_module`` and
+``RecFilter.realize()``.
+
+Bounds: both packages within 3e-2 of the f64 oracle's peak (the JAX
+package's own bound for its bf16 mode), and the port within twice the JAX
+package's own error of the oracle or 2⁻⁸ of its peak, whichever is
+larger (:func:`_held`). ``Moments2D`` and ``RowsTails`` take a bf16 x to
+the bits of their float32 path on the same values. float16 runs the
+float32 route cast in and out, and matches the JAX package's float16
+output on each route to one float16 step. Every bf16 route that is not
+ported raises naming ROADMAP Queue 1 item 4. The CUDA kernels are held to
+these twins on a card by ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recfilter_tpu import dimfuse as jdf
+from recfilter_tpu import overlap2d as jo2
+from recfilter_tpu import scan_core as jsc
+from recfilter_tpu import spec as jspec
+from recfilter_tpu.kernels import final2d as jk2d
+
+import recfilter_tpu_torch as rft
+from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch import fir as tfir
+from recfilter_tpu_torch import overlap2d as to2
+from recfilter_tpu_torch import spec as tspec
+from recfilter_tpu_torch.epilogue import affine_form
+from recfilter_tpu_torch.kernels import final2d as tk2d
+from recfilter_tpu_torch.kernels import launch as tl
+
+T = 128
+BF16_BOUND = 3e-2  # the JAX package's bound of its bf16 mode
+
+
+def _img(*shape, seed=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _bf16(a):
+    """A float32 array rounded to bf16 (torch's round to nearest even),
+    as float32 values."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _err(got, want):
+    got = np.asarray(got, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _held(got, jax_out, want, jax_bound=True):
+    """The port's output ``got`` and the JAX package's ``jax_out`` against
+    the float64 reference ``want``: both within :data:`BF16_BOUND` of its
+    peak (the JAX package's only where ``jax_bound``), the port within
+    twice the JAX package's error or 2⁻⁸ of the peak. Returns the two
+    errors."""
+    e_port, e_jax = _err(got, want), _err(jax_out, want)
+    assert not jax_bound or e_jax <= BF16_BOUND, e_jax
+    assert e_port <= BF16_BOUND, e_port
+    assert e_port <= max(2.0 * e_jax, 2.0 ** -8), (e_port, e_jax)
+    return e_port, e_jax
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(jnp.asarray(t, jnp.float32))
+
+
+# ------------------------------------------------------------- the kernels
+
+def _mats2d(na, nb):
+    """The σ=5 Gaussian on dim A and orders 3 + 2 on dim B: per-tile
+    stacks (Btot_a, Ra_cat, Btot_b, Rb_cat) and the tails rows (Ga, Gb)."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    a = [jspec.Scan(0, True, w3[0], tuple(w3[1:])),
+         jspec.Scan(0, False, w3[0], tuple(w3[1:]))]
+    b = [jspec.Scan(1, True, 0.9, (0.6, 0.25, -0.1)),
+         jspec.Scan(1, False, 1.1, (0.5, 0.2))]
+    ma = jdf.prepare_dim_pass(a, T, na, False)
+    mb = jdf.prepare_dim_pass(b, T, nb, False)
+    cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms], axis=ax)
+    return ((np.asarray(ma.Btot), cat(ma.Rhat, 2), np.asarray(mb.Btot),
+             cat(mb.Rhat, 2)), (cat(ma.G, 1), cat(mb.G, 1)))
+
+
+def _expand(M, n):
+    M = np.asarray(M, np.float64)
+    return np.broadcast_to(M, (n,) + M.shape[1:]) if M.shape[0] == 1 else M
+
+
+def _final2d_f64(mats, xs, na, nb):
+    """Y = [Z; NBᵀ]·Bᵀ with Z = A·[x; NA], in float64."""
+    Ba, Ra, Bb, Rb = mats
+    A = np.concatenate([_expand(Ba, na), _expand(tk2d._pad_slots(Ra), na)],
+                       -1)
+    B = np.concatenate([_expand(Bb, nb), _expand(tk2d._pad_slots(Rb), nb)],
+                       -1)
+    x, NA, NB = (np.asarray(a, np.float64) for a in xs)
+    p = x.shape[0]
+    z = np.einsum("ask,pakw->pasw", A, np.concatenate([x, NA], 2))
+    nbr = NB.reshape(p, na, nb, 8, T).transpose(0, 1, 4, 2, 3)
+    y = np.einsum("bok,pasbk->pasbo", B, np.concatenate(
+        [z.reshape(p, na, T, nb, T), nbr], -1))
+    return y.reshape(p, na, T, nb * T)
+
+
+def _xs2d(na, nb, seed):
+    """x (bf16 values), NA, NB (float32) of the 2-D final pass."""
+    return [_bf16(_img(1, na, T, nb * T, seed=seed)),
+            _img(1, na, 8, nb * T, seed=seed + 1, scale=0.5),
+            _img(1, na, nb * 8, T, seed=seed + 2, scale=0.5)]
+
+
+def test_moments2d_takes_bf16_to_the_float32_bits():
+    """``Moments2D`` on a bf16 x: bit-equal to its float32 path on the same
+    values (edge rows too), within 1e-6 of the float64 tails and moments,
+    and closer to them than ``moments2d_px`` on the bf16 x at one product
+    (one bf16 product of the rounded tails rows)."""
+    na, nb = 2, 2
+    (Ba, Ra, Bb, Rb), (Ga, Gb) = _mats2d(na, nb)
+    x = _bf16(_img(1, na, T, nb * T, seed=5))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    for edge in (None, (Ba, 16)):
+        mod = tk2d.Moments2D(Ga, Gb, Ba, na, nb, edge=edge)
+        got, f32 = mod(xb), mod(torch.from_numpy(x))
+        for g, f in zip(got, f32):
+            assert g.dtype == torch.float32 and torch.equal(g, f)
+    bA, term1 = tk2d.Moments2D(Ga, Gb, Ba, na, nb)(xb)
+    jb, ju = jk2d.moments2d_px(jnp.asarray(x, jnp.bfloat16), Ga, Gb, nprod=1,
+                               interpret=True)[:2]
+    Gan = _expand(tk2d._pad_slots(Ga, 1), na)
+    Gbn = _expand(tk2d._pad_slots(Gb, 1), nb)
+    xd = x.astype(np.float64)
+    bA64 = np.einsum("aks,pasw->pakw", Gan, xd)
+    U64 = np.einsum("bkt,pasbt->pabks", Gbn, xd.reshape(1, na, T, nb, T))
+    t1_64 = np.einsum("aos,pabks->pabko", _expand(Ba, na), U64)
+    jt1 = np.einsum("aos,pabks->pabko", _expand(Ba, na),
+                    _np(ju).astype(np.float64).reshape(1, na, nb, 8, T))
+    for got, jax_out, want in ((bA, jb, bA64),
+                               (term1, jt1, t1_64.reshape(term1.shape))):
+        e_port, e_jax = _held(got.numpy(), _np(jax_out).reshape(
+            got.shape), want.reshape(got.shape))
+        assert e_port <= 1e-6 < e_jax
+
+
+def test_rows_tails_takes_bf16_to_the_float32_bits():
+    """``RowsTails`` on a bf16 x: bit-equal to its float32 path (and to
+    its kernel's summation order, ``grouped``), and against
+    ``rows_tails_px`` at one product as :func:`_held` says."""
+    _, (G, _) = _mats2d(3, 1)
+    x = _bf16(_img(2, 3, T, 2 * T, seed=7))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    mod = tk2d.RowsTails(G, 3)
+    got = mod(xb)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, mod(torch.from_numpy(x)))
+    assert torch.equal(mod.grouped(xb), mod.grouped(torch.from_numpy(x)))
+    want = np.einsum("aks,pasw->pakw", _expand(tk2d._pad_slots(G, 1), 3),
+                     x.astype(np.float64))
+    jax_out = jk2d.rows_tails_px(jnp.asarray(x, jnp.bfloat16), G, nprod=1,
+                                 interpret=True)
+    e_port, e_jax = _held(got.numpy(), _np(jax_out), want)
+    assert e_port <= 1e-6
+
+
+@pytest.mark.parametrize("epilogue", [False, True], ids=["plain", "affine"])
+def test_final2d_split_takes_bf16_at_one_product(epilogue):
+    """``Final2DSplit(nprod=1)`` on a bf16 x returns bf16: its float32 Y
+    (after the affine epilogue, aux float32) rounded once — the float32
+    path on the same values, then ``.to(torch.bfloat16)`` — and against
+    ``final2d_px(nprod=1)`` on the bf16 x (which rounds Y to bf16 before
+    its epilogue) as :func:`_held` says. Three products refuse a bf16 x."""
+    na, nb = 2, 2
+    mats, _ = _mats2d(na, nb)
+    xs = _xs2d(na, nb, seed=11)
+    aux = _img(1, na, T, nb * T, seed=14)
+    fn = (lambda y, a: 1.5 * a - 0.5 * y + 0.25) if epilogue else None
+    mod = tk2d.Final2DSplit(*mats, na, nb, 1,
+                            affine=affine_form(fn) if fn else None)
+    ex = (torch.from_numpy(aux),) if fn else ()
+    xb = torch.from_numpy(xs[0]).to(torch.bfloat16)
+    tx = [torch.from_numpy(a) for a in xs[1:]]
+    got = mod(xb, *tx, *ex)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mod(torch.from_numpy(xs[0]), *tx, *ex).to(
+        torch.bfloat16))
+    kw = dict(epilogue=fn, eaux=(jnp.asarray(aux),)) if fn else {}
+    jax_out = jk2d.final2d_px(jnp.asarray(xs[0], jnp.bfloat16), *mats,
+                              jnp.asarray(xs[1]), jnp.asarray(xs[2]),
+                              nprod=1, interpret=True, **kw)
+    assert jax_out.dtype == jnp.bfloat16
+    want = _final2d_f64(mats, xs, na, nb)
+    if fn:
+        want = fn(want, aux.astype(np.float64))
+    _held(got.float().numpy(), _np(jax_out), want)
+    with pytest.raises(ValueError, match="one product"):
+        tk2d.Final2DSplit(*mats, na, nb, 3)(xb, *tx)
+
+
+def test_rows_final_takes_bf16_at_one_product():
+    """``RowsFinal(nprod=1)`` on a bf16 x returns bf16, its float32 path on
+    the same values rounded once; against ``rows_final_px(nprod=1)`` on the
+    bf16 x as :func:`_held` says; px6 refuses a bf16 x."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    scans = [jspec.Scan(0, c, w3[0], tuple(w3[1:])) for c in (True, False)]
+    n = 3
+    m = jdf.prepare_dim_pass(scans, T, n, True)
+    R = np.concatenate([np.asarray(r) for r in m.Rhat], axis=2)
+    x = _bf16(_img(2, n, T, 2 * T, seed=17))
+    N = _img(2, n, 8, 2 * T, seed=18, scale=0.5)
+    N[:, :, R.shape[2]:] = 0.0
+    mod = tk2d.RowsFinal(m.Btot, R, n, 1)
+    xb, tN = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(N)
+    got = mod(xb, tN)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, mod(torch.from_numpy(x), tN).to(torch.bfloat16))
+    jax_out = jk2d.rows_final_px(jnp.asarray(x, jnp.bfloat16), m.Btot, R,
+                                 jnp.asarray(N), nprod=1, interpret=True)
+    assert jax_out.dtype == jnp.bfloat16
+    want = (np.einsum("aos,pasw->paow", _expand(m.Btot, n),
+                      x.astype(np.float64))
+            + np.einsum("aok,pakw->paow", _expand(tk2d._pad_slots(R), n),
+                        N.astype(np.float64)))
+    _held(got.float().numpy(), _np(jax_out), want)
+    with pytest.raises(ValueError, match="one product"):
+        tk2d.RowsFinal(m.Btot, R, n, 6)(xb, tN)
+
+
+def test_kernel_function_backward_is_float32_cast_to_the_input():
+    """The kernels' autograd rule on a bf16 x: the float32 VJP of the twin
+    (the grade's product), each gradient cast to its input's dtype — run
+    through ``_KernelFn`` with the twin standing in for the launch."""
+    na, nb = 1, 2
+    mats, _ = _mats2d(na, nb)
+
+    class Twin(tk2d.Final2DSplit):
+        def _kernel(self, *a):
+            return self.plain(*a)
+
+    mod = Twin(*mats, na, nb, 1)
+    xs = _xs2d(na, nb, seed=41)
+    xb = torch.from_numpy(xs[0]).to(torch.bfloat16).requires_grad_()
+    NA, NB = (torch.from_numpy(a).requires_grad_() for a in xs[1:])
+    y = tl._KernelFn.apply(mod, xb, NA, NB)
+    ct = torch.from_numpy(_img(*y.shape, seed=42)).to(torch.bfloat16)
+    y.backward(ct)
+    assert xb.grad.dtype == torch.bfloat16 and NA.grad.dtype == torch.float32
+    want = tl._linear_vjp(mod._twin, [xb.shape, NA.shape, NB.shape],
+                          xb.device, (ct.float(),))
+    assert torch.equal(xb.grad, want[0].to(torch.bfloat16))
+    assert torch.equal(NA.grad, want[1]) and torch.equal(NB.grad, want[2])
+
+
+# ------------------------------------------------------------ the routes
+
+def _spec(m, shape, scans, dtype, border="zero", tiles=None):
+    names = "wzyx"[-len(shape):]
+    return m.FilterSpec("F", tuple(m.Dim(n, e) for n, e in zip(names, shape)),
+                        tuple(scans), border=border, dtype=dtype,
+                        tile_widths=tiles or (T,) * len(shape))
+
+
+def _gauss(m, axes):
+    w3 = rft.gaussian_weights(5.0, 3)
+    return [m.Scan(ax, c, w3[0], tuple(w3[1:])) for ax in axes
+            for c in (True, False)]
+
+
+PAIRS = {"128x256-zero": ((128, 256), "zero"),
+         "256x256-clamp": ((256, 256), "clamp")}
+VOLUME = (128, 128, 256)  # tests/test_torch_rows.py's volume
+
+
+def _jax_bf16(js, x, monkeypatch):
+    """The JAX package's ``apply_filter_fused`` on the bf16 x, with spies
+    on its executors: [(executor, x dtype, nprod)] and its output."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(x_, *a, **k):
+            out = fn(x_, *a, **k)
+            if out is not None:
+                calls.append((name, x_.dtype, a[-2] if name == "rows"
+                              else a[5]))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(jo2, "fused_rows_px", spy("rows", jo2.fused_rows_px))
+    monkeypatch.setattr(jo2, "fused_2d_px", spy("pair", jo2.fused_2d_px))
+    y = jdf.apply_filter_fused(js, jnp.asarray(x, jnp.bfloat16))
+    assert y.dtype == jnp.bfloat16
+    return calls, _np(y)
+
+
+@pytest.mark.parametrize("case", list(PAIRS))
+def test_the_pair_in_bf16_matches_jax_and_the_oracle(case, monkeypatch):
+    """The 2-D executor at bf16 storage: the JAX package's route (its 3-touch
+    executor on the bf16 image at one product), ``moments2d`` and
+    ``final2d_split`` at one product on bf16 here, a bf16 output;
+    ``forward_plain`` is the float32 plain path on ``x.float()`` rounded
+    once; :func:`_held` against the oracle of the bf16 input."""
+    shape, border = PAIRS[case]
+    js, ts = (_spec(m, shape, _gauss(m, (0, 1)), "bfloat16", border)
+              for m in (jspec, tspec))
+    x = _bf16(_img(*shape, seed=sum(shape), scale=0.1))
+    calls, jax_out = _jax_bf16(js, x, monkeypatch)
+    assert [c[0] for c in calls] == ["pair"]
+    mod = tdf.fused_filter_module(ts)
+    assert isinstance(mod, to2.Fused2DPx) and mod.dtype == torch.bfloat16
+    assert isinstance(mod.final, tk2d.Final2DSplit) and mod.final.nprod == 1
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = mod(xb)
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    assert torch.equal(got, mod.forward_plain(xb))
+    f32 = tdf.fused_filter_module(dataclasses.replace(ts, dtype="float32"),
+                                  "default")
+    want32 = f32(torch.from_numpy(x))
+    assert torch.equal(got, want32.to(torch.bfloat16))
+    want = jsc.oracle_apply(dataclasses.replace(js, dtype="float32"),
+                            x.astype(np.float64))
+    _held(got.float().numpy(), jax_out, want)
+    # a float32 input is cast to bf16 first, as the JAX package casts it
+    assert torch.equal(mod(torch.from_numpy(x)), got)
+
+
+def test_the_pair_in_bf16_at_every_grade_is_one_product():
+    """bf16 storage runs one product whatever ``matmul_precision`` says
+    (the JAX package's ``_kernel_nprod``): px6, ``highest`` and px3 build
+    the same executor and give the same bits."""
+    ts = _spec(tspec, (128, 256), _gauss(tspec, (0, 1)), "bfloat16")
+    xb = torch.from_numpy(_img(128, 256, seed=3, scale=0.1)).to(
+        torch.bfloat16)
+    outs = []
+    for g in ("px6", "highest", "px3", "default", "f32x6"):
+        mod = tdf.fused_filter_module(ts, g)
+        assert mod.final.nprod == 1
+        outs.append(mod(xb))
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    with pytest.raises(ValueError, match="one product"):
+        to2.Fused2DPx(*(_gauss(tspec, (ax,)) for ax in (0, 1)), 128, 256,
+                      "zero", nprod=3, dtype=torch.bfloat16)
+
+
+def test_the_pair_in_bf16_with_an_affine_epilogue(monkeypatch):
+    """An affine epilogue on the bf16 pair runs in ``final2d_split_epi``'s
+    twin (aux float32, one rounding after it); the JAX package applies it
+    to its bf16 Y. Both against the oracle's combine as :func:`_held`
+    says; a non-affine epilogue runs as torch ops on the bf16 Y and is
+    stored bf16."""
+    shape = (128, 256)
+    js, ts = (_spec(m, shape, _gauss(m, (0, 1)), "bfloat16")
+              for m in (jspec, tspec))
+    x = _bf16(_img(*shape, seed=19, scale=0.1))
+    aux = _img(*shape, seed=20, scale=0.1)
+    fn = lambda y, a: 2.0 * a - y  # noqa: E731 (the unsharp combine)
+    mod = tdf.fused_filter_module(ts, epilogue=fn)
+    assert mod.epilogue_route == "kernel"
+    got = mod(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(aux))
+    assert got.dtype == torch.bfloat16
+    jax_out = jdf.apply_filter_fused(js, jnp.asarray(x, jnp.bfloat16),
+                                     epilogue=fn, eaux=(jnp.asarray(aux),))
+    want = fn(jsc.oracle_apply(dataclasses.replace(js, dtype="float32"),
+                               x.astype(np.float64)), aux.astype(np.float64))
+    _held(got.float().numpy(), _np(jax_out), want)
+    sq = lambda y, a: y * a  # noqa: E731 (not affine: torch ops)
+    mod2 = tdf.fused_filter_module(ts, epilogue=sq)
+    assert mod2.epilogue_route == "torch"
+    y2 = mod2(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(aux))
+    plain = tdf.fused_filter_module(ts)(torch.from_numpy(x))
+    assert y2.dtype == torch.bfloat16
+    assert torch.equal(y2, (plain * torch.from_numpy(aux)).to(
+        torch.bfloat16))
+
+
+def _rows_volume(m):
+    # the scans of tests/test_torch_rows.py's volume
+    return [m.Scan(2, True, 1.0, (0.6,)), m.Scan(2, False, 1.0, (0.6,)),
+            m.Scan(1, True, 0.9, (0.5, 0.1)), m.Scan(0, True, 1.0, (0.4,))]
+
+
+VOLUMES = {"rows-zero": (_rows_volume, "zero"),
+           "rows-clamp": (_rows_volume, "clamp"),
+           "gauss-zero": (lambda m: _gauss(m, (0, 1, 2)), "zero")}
+
+
+@pytest.mark.parametrize("case", list(VOLUMES))
+def test_the_volume_in_bf16_matches_jax_and_the_oracle(case, monkeypatch):
+    """A volume at bf16 storage: the JAX package's route (its rows pass,
+    then its 3-touch executor, each on a bf16 image at one product) —
+    ``rows_tails`` and ``rows_final`` here on bf16, the intermediate image
+    bf16 — a bf16 output, and :func:`_held` against the oracle. On the
+    σ=5 Gaussian the JAX package's one product on the cancelling carry
+    rows lands past its own 3e-2 (3.9e-2 of the peak here), where the
+    port, at three products on the carry rows (``split.carry_nprod``, its
+    documented deviation), holds 3e-2 with room: there the JAX package is
+    not held to the bound, and the port is held to it and to lie closer
+    to the oracle."""
+    make, border = VOLUMES[case]
+    js, ts = (_spec(m, VOLUME, make(m), "bfloat16", border)
+              for m in (jspec, tspec))
+    x = _bf16(_img(*VOLUME, seed=23, scale=0.1))
+    calls, jax_out = _jax_bf16(js, x, monkeypatch)
+    assert [(c[0], c[1], c[2]) for c in calls] == [
+        ("rows", jnp.bfloat16, 1), ("pair", jnp.bfloat16, 1)]
+    mod = tdf.fused_filter_module(ts)
+    assert isinstance(mod, tdf.StagedPass) and mod.route == "volume"
+    rows, pair = mod.stages
+    assert rows.dtype == pair.dtype == torch.bfloat16
+    assert rows.final.nprod == pair.final.nprod == 1
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    z = rows(xb)
+    assert z.dtype == torch.bfloat16
+    got = mod(xb)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, pair(z))
+    assert torch.equal(got, mod.forward_plain(xb))
+    want = jsc.oracle_apply(dataclasses.replace(js, dtype="float32"),
+                            x.astype(np.float64))
+    gauss = case.startswith("gauss")
+    e_port, e_jax = _held(got.float().numpy(), jax_out, want,
+                          jax_bound=not gauss)
+    if gauss:
+        assert e_port < BF16_BOUND < e_jax
+
+
+def test_realize_takes_and_returns_bf16():
+    """``RecFilter`` with a bf16 image: its spec says bfloat16, ``realize``
+    returns bf16 equal to the module's output, and ``as_func`` casts a
+    float32 input to bf16 first; against the JAX package's RecFilter on
+    the same image as :func:`_held` says."""
+    import recfilter_tpu as jrf
+
+    h, w = 128, 256
+    x = _bf16(_img(h, w, seed=29, scale=0.1))
+    wts = rft.gaussian_weights(5.0, 3)
+
+    def build(pkg, image):
+        X, Y = pkg.Dim("x", w), pkg.Dim("y", h)
+        F = pkg.RecFilter("G")
+        F[Y, X] = image
+        for d in (+X, -X, +Y, -Y):
+            F.add_filter(d, wts)
+        F.split(X, T, Y, T)
+        return F
+
+    F = build(rft, torch.from_numpy(x).to(torch.bfloat16))
+    assert F.spec.dtype == "bfloat16"
+    got = F.realize(device="cpu")
+    assert got.dtype == torch.bfloat16
+    mod = F.as_func(device="cpu")
+    assert torch.equal(mod(torch.from_numpy(x)), got)
+    Fj = build(jrf, jnp.asarray(x, jnp.bfloat16))
+    jax_out = Fj.realize()
+    assert jax_out.dtype == jnp.bfloat16
+    want = jsc.oracle_apply(dataclasses.replace(
+        jspec.FilterSpec(**{f.name: getattr(Fj.spec, f.name) for f in
+                            dataclasses.fields(Fj.spec)}), dtype="float32"),
+        x.astype(np.float64))
+    _held(got.float().numpy(), _np(jax_out), want)
+
+
+# --------------------------------------------------------------- float16
+
+F16_ROUTES = {
+    # name: (shape, scanned axes, tiles, the port's executor)
+    "pair": ((128, 256), (0, 1), None, "Fused2DPx"),
+    "volume": (VOLUME, (0, 1, 2), None, "StagedPass"),
+    "chain": ((64, 96), (0, 1), (32, 32), "RotationChain"),
+    "y-only": ((256, 128), (0,), (T, 0), "FusedRowsPx"),
+    "1-d": ((4, 1000), (1,), (0, 100), "FusedLastAxis"),
+}
+
+
+@pytest.mark.parametrize("route", list(F16_ROUTES))
+def test_float16_runs_the_float32_route(route):
+    """float16 storage: the float32 executor on the input cast to float32,
+    the output cast to float16 — the JAX package's ``cdt`` — on each
+    route; equal to the port's float32 route cast, and to the JAX
+    package's float16 output within one float16 step."""
+    shape, axes, tiles, body = F16_ROUTES[route]
+    js, ts = (_spec(m, shape, _gauss(m, axes), "float16", tiles=tiles)
+              for m in (jspec, tspec))
+    x16 = _img(*shape, seed=len(route), scale=0.1).astype(np.float16)
+    mod = tdf.fused_filter_module(ts)
+    assert isinstance(mod, tdf.Float16Storage)
+    assert type(mod.body).__name__ == body
+    got = mod(torch.from_numpy(x16))
+    assert got.dtype == torch.float16
+    f32 = tdf.fused_filter_module(dataclasses.replace(ts, dtype="float32"))
+    assert torch.equal(got, f32(torch.from_numpy(x16).float()).to(
+        torch.float16))
+    want = np.asarray(jdf.apply_filter_fused(js, jnp.asarray(x16)))
+    assert want.dtype == np.float16
+    step = np.spacing(np.abs(want)).astype(np.float64)
+    assert (np.abs(got.numpy().astype(np.float64) - want) <= step).all()
+
+
+# ------------------------------------------------------------- refusals
+
+def _bf16_filter(shape, axes, tiles=None, **plan):
+    """A bf16 RecFilter of the σ=5 Gaussian on ``axes`` of ``shape``."""
+    dims = [rft.Dim(n, e) for n, e in zip("wzyx"[-len(shape):], shape)]
+    F = rft.RecFilter("B")
+    F[tuple(dims)] = torch.zeros(shape, dtype=torch.bfloat16)
+    wts = rft.gaussian_weights(5.0, 3)
+    for ax in axes:
+        F.add_filter(+dims[ax], wts)
+        F.add_filter(-dims[ax], wts)
+    F.split({dims[ax]: (tiles or {}).get(ax, T) for ax in axes})
+    if plan:
+        F.set_plan(**plan)
+    return F
+
+
+REFUSED = {
+    # the pair declines (extents below the tile): the rotation chain
+    "chain": lambda: _bf16_filter((64, 96), (0, 1), {0: 32, 1: 32}
+                                  ).as_func(device="cpu"),
+    # a volume whose trailing pair declines after the rows pass
+    "volume-pair-declines": lambda: _bf16_filter(
+        (128, 40, 16), (0, 1, 2), {1: 32}).as_func(device="cpu"),
+    # one scanned axis: the per-axis loop (rows pass / last-axis pass)
+    "y-only": lambda: _bf16_filter((256, 128), (0,)).as_func(device="cpu"),
+    "1-d": lambda: _bf16_filter((1000,), (0,), {0: 100}).as_func(
+        device="cpu"),
+    # a fused stencil2d bank on the pair (final2d_stencil)
+    "stencil2d": lambda: _bf16_filter((128, 256), (0, 1)).as_func(
+        stencil2d=[[(1, 1, 0.5), (-1, -1, 0.5)]], device="cpu"),
+    # the rotated emit
+    "rotate_emit": lambda: _bf16_filter((128, 256), (1,),
+                                        rotate_emit=2).as_func(device="cpu"),
+    # the FIR band pass
+    "fir": lambda: tfir.fir_pass_last(torch.zeros((8, 256),
+                                                  dtype=torch.bfloat16),
+                                      [1.0]),
+    **{f"backend-{b}": (lambda b=b: _bf16_filter(
+        (128, 256), (0, 1), backend=b).as_func(device="cpu"))
+       for b in ("pallas", "overlap", "overlap_k", "blocked", "scan",
+                 "oracle")},
+}
+
+
+@pytest.mark.parametrize("route", list(REFUSED))
+def test_bf16_routes_not_ported_raise(route):
+    """Every bf16 route but the pair and the volume raises naming ROADMAP
+    Queue 1 item 4; none runs float32 in its place."""
+    with pytest.raises(NotImplementedError, match="item 4"):
+        REFUSED[route]()
+
+
+def test_rows_final_bf16_stage_reads_are_whole_and_conflict_free():
+    """A model of ``csrc/rows_final.cu``'s bf16 stage: x's 128 rows of 64
+    bf16 lanes at ``_stage_off`` (elements of 2 bytes), N's 8 rows in an
+    fp32 stage of their own at the same offsets. The cp.async writes of
+    16-byte groups (8 bf16 lanes, 4 floats) stay whole and aligned; each
+    warp's fragment read — rows k0 + 4qd + e, lanes r and r + 8 — touches
+    distinct 4-byte words in distinct banks (two lanes of a pair share a
+    word: one broadcast), in both stages."""
+    offs = [tk2d._stage_off(s, w) for s in range(T) for w in range(64)]
+    assert sorted(offs) == list(range(T * 64))
+    for s in range(T):
+        for c in range(0, 64, 8):
+            o = tk2d._stage_off(s, c)
+            assert o % 8 == 0 and [tk2d._stage_off(s, c + i)
+                                   for i in range(8)] == list(range(o, o + 8))
+    for k0, size, rows in [(k, 2, T) for k in range(0, T, 16)] + [(0, 4, 8)]:
+        for wp in range(4):
+            for h in range(2):
+                for e in range(4):
+                    words = set()
+                    for lane in range(32):
+                        qd, r = lane % 4, 16 * wp + lane // 4 + 8 * h
+                        row = k0 + 4 * qd + e
+                        if row >= rows:
+                            continue  # zeros past the 8 carry rows
+                        words.add(tk2d._stage_off(row, r) * size // 4)
+                    assert len({w % 32 for w in words}) == len(words)

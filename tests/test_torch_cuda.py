@@ -2316,3 +2316,165 @@ def test_fused_consumers_at_the_grades_on_the_card(grade, bound, dev):
     want = 2.0 * img - y64
     err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
     assert err <= bound
+
+
+# --------------------------------------------- bf16 storage (the bf16 forms)
+
+def _bf16_ulp(t):
+    """One bf16 step at each value of the bf16 tensor ``t`` (float64; the
+    smallest normal step at zero)."""
+    _, e = torch.frexp(t.double())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float64),
+                       (e - 8).clamp(min=-133))
+
+
+def _one_ulp(label, got, want, extra=None):
+    """Every element of the bf16 ``got`` within one bf16 step of the bf16
+    twin ``want``, beyond the float32 kernel's own distance from the
+    twin's float32 sums: 1e-5 of the twin's peak (the float32 forms'
+    bound, their sums in another order — where cancellation leaves an
+    output far below the peak, that exceeds its bf16 step) plus
+    ``extra`` (a float64 tensor bound). Prints the share of elements
+    that differ and of those past one bf16 step alone."""
+    d = (got.double() - want.double()).abs()
+    ulp = _bf16_ulp(want)
+    lim = ulp + 1e-5 * want.double().abs().max() + (
+        0.0 if extra is None else extra)
+    share = (d > 0).double().mean().item()
+    past = (d > ulp).double().mean().item()
+    print(f"{label}: {share:.6f} of the elements differ from the twin, "
+          f"{past:.6f} by more than one bf16 step, max|k-t| "
+          f"{d.max().item():.3e}")
+    assert bool((d <= lim).all())
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("naf", [False, True])
+def test_moments2d_bf16_is_the_float32_kernel_on_its_values(kind, naf, dev):
+    """moments2d_bf16 and moments2d_naf_bf16 on a bf16 x: the float32
+    entries' outputs on the same values bit for bit (the tile is widened
+    as it is staged), one launch of the bf16 entry; edge rows too."""
+    ma, _, Ga_cat, Gb_cat, _, (CMa, _) = _carry_mats(kind, NA, NB)
+    mods = [tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, NA, NB,
+                           solve=CMa if naf else None).to(dev)]
+    if not naf:
+        mods.append(tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, NA, NB,
+                                   edge=(ma.Btot, 16)).to(dev))
+    xb = _inputs(dev)[0].to(torch.bfloat16)
+    entry = "moments2d_naf_bf16" if naf else "moments2d_bf16"
+    for mod in mods:
+        tl.reset_launches()
+        got = mod(xb)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        for g, f, t in zip(got, mod(xb.float()), mod.plain(xb)):
+            assert g.dtype == torch.float32 and torch.equal(g, f)
+            assert _rel(g, t) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("p,n,nl", [(2, 3, 2), (1, 2, 512), (3, 2, 1)])
+def test_rows_kernels_bf16_match_the_float32_kernels_and_twins(kind, p, n,
+                                                               nl, dev):
+    """rows_tails_bf16: rows_tails' bits on the same values; rows_final_bf16
+    (one product): rows_final's float32 outputs on the same values
+    rounded once to bf16, bit for bit, and each element within one bf16
+    step of its twin (beyond the float32 forms' 1e-5 of the peak). (1, 2,
+    512) is V1's rows pass."""
+    rng = np.random.default_rng(p * 100 + n * 10 + nl + 7)
+    K = 6
+    tails = tk2d.RowsTails(_stack(kind, K, T, n, rng), n).to(dev)
+    fin = tk2d.RowsFinal(_stack(kind, T, T, n, rng, 0.1),
+                         _stack(kind, T, K, n, rng), n, 1).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((p, n, T, nl * T)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    tl.reset_launches()
+    b = tails(xb)
+    y = fin(xb, b)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(rows_tails_bf16=1, rows_final_bf16=1)
+    assert torch.equal(b, tails(xb.float()))
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, fin(xb.float(), b).to(torch.bfloat16))
+    _one_ulp(f"rows_final_bf16 {kind} {(p, n, nl)}", y, fin.plain(xb, b))
+    with pytest.raises(ValueError, match="one product"):
+        tk2d.RowsFinal(_stack(kind, T, T, n, rng), _stack(kind, T, K, n, rng),
+                       n, 6).to(dev)(xb, b)
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("i", [None, 0, 2, 4])
+def test_final2d_split_bf16_matches_the_float32_kernel_and_twin(kind, i,
+                                                                dev):
+    """final2d_split_bf16 (i None) and final2d_split_epi_bf16 (k = i aux
+    arrays, float32) on a bf16 x at one product: the float32 entry's
+    output on the same values rounded once to bf16, bit for bit; each
+    element within one bf16 step of the twin's beyond the float32 forms'
+    1e-5 of the peak and |a| × the resplit bound (kernel and twin round
+    their own Z); a bf16 output."""
+    aff = None if i is None else _affine(i)
+    mod = tk2d.Final2DSplit(*_split_mats(kind), NA, NB, 1,
+                            affine=aff).to(dev)
+    x, NA_t, NB_t = _inputs(dev, seed=5 if i is None else i)
+    xb = x.to(torch.bfloat16)
+    aux = [] if aff is None else _aux(x.shape, aff.k, dev, 60 + i)
+    tl.reset_launches()
+    y = mod(xb, NA_t, NB_t, *aux)
+    torch.cuda.synchronize()
+    entry = "final2d_split_bf16" if aff is None else "final2d_split_epi_bf16"
+    assert tl.LAUNCHES == _only(**{entry: 1})
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, mod(xb.float(), NA_t, NB_t, *aux).to(
+        torch.bfloat16))
+    scale = 1.0 if aff is None else abs(aff.scale)
+    _one_ulp(f"{entry} {kind}", y, mod.plain(xb, NA_t, NB_t, *aux),
+             scale * mod.resplit_bound(xb, NA_t).double())
+
+
+@pytest.mark.parametrize("border", ["zero", "clamp"])
+def test_bf16_pair_and_volume_on_the_card(border, dev):
+    """The headline Gaussian at 512² and a 128 × 128 × 256 volume with bf16
+    images through ``as_func``: the bf16 entries once each, a bf16
+    output within 3e-2 of the f64 oracle's peak; the pair's output the
+    float32 ``default`` route's on the same image rounded to bf16, bit for
+    bit."""
+    import dataclasses
+
+    def gauss(image):
+        dims = [rft.Dim(n, e) for n, e in zip("zyx"[-image.ndim:],
+                                              image.shape)]
+        G = rft.RecFilter("Gaussian")
+        if border == "clamp":
+            G.set_clamped_image_border()
+        G[tuple(dims)] = image
+        for d in dims:
+            G.add_filter(+d, rft.gaussian_weights(5.0, 3))
+            G.add_filter(-d, rft.gaussian_weights(5.0, 3))
+        G.split({d: 128 for d in dims})
+        return G
+
+    rng = np.random.default_rng(11)
+    img, vol = (torch.from_numpy((rng.standard_normal(s) * 0.01).astype(
+        np.float32)).to(torch.bfloat16) for s in ((512, 512),
+                                                  (128, 128, 256)))
+    F32 = gauss(img.float())
+    F32.set_plan(matmul_precision="default")
+    for x, launches in (
+            (img, _only(moments2d_bf16=1, final2d_split_bf16=1)),
+            (vol, _only(rows_tails_bf16=1, rows_final_bf16=1,
+                        moments2d_bf16=1, final2d_split_bf16=1))):
+        H = gauss(x)
+        assert H.spec.dtype == "bfloat16"
+        fn = H.as_func()
+        tl.reset_launches()
+        y = fn(x.to(dev))
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == launches and y.dtype == torch.bfloat16
+        want = rft.oracle_apply(dataclasses.replace(H.spec, dtype="float32"),
+                                x.double().numpy())
+        err = (np.abs(y.double().cpu().numpy() - want).max()
+               / np.abs(want).max())
+        assert err <= 3e-2
+        if x.ndim == 2:
+            y32 = F32.as_func()(x.float().to(dev))
+            assert torch.equal(y, y32.to(torch.bfloat16))

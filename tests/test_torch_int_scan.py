@@ -192,8 +192,10 @@ def test_integer_refusals():
     """Where the JAX package takes its limb route (a clamp border) the
     port runs its limb route too, and where its gain gate declines (the
     unstable (2, 1) feedback) the sequential core: bit-exact against the
-    JAX package and the oracle; float16 and bfloat16 still name item 4,
-    and a wrong input shape raises."""
+    JAX package and the oracle; a float16 SAT runs the float32 route cast
+    in and out, as the JAX package does, and matches it; bfloat16 (its
+    rotation chain not yet ported) still names item 4, and a wrong input
+    shape raises."""
     sat = ((1, True, 1, (1,)), (0, True, 1, (1,)))
     dims = (("y", 64), ("x", 64))
     img = _ints((64, 64), -100, 100, np.int16, seed=6)
@@ -212,10 +214,17 @@ def test_integer_refusals():
         np.testing.assert_array_equal(got, jsc.oracle_apply(js, img))
         np.testing.assert_array_equal(
             got, np.asarray(jdf.apply_filter_fused(js, img)))
-    for dtype in ("float16", "bfloat16"):
-        _, ts = _specs(dims, sat, dtype, (32, 32))
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tdf.fused_filter_module(ts)
+    js, ts = _specs(dims, sat, "float16", (32, 32))
+    x16 = _ints((64, 64), -4, 4, np.float16, seed=7)
+    got = tdf.fused_filter_module(ts)(torch.from_numpy(x16))
+    want = np.asarray(jdf.apply_filter_fused(js, x16))
+    assert got.dtype == torch.float16 and want.dtype == np.float16
+    np.testing.assert_array_equal(got.numpy(), want)  # integers: exact
+    np.testing.assert_array_equal(got.numpy(), jsc.oracle_apply(
+        js, x16.astype(np.float64)).astype(np.float16))
+    _, ts = _specs(dims, sat, "bfloat16", (32, 32))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tdf.fused_filter_module(ts)
     _, ts = _specs(dims, sat, "int32", (32, 32))
     with pytest.raises(ValueError):
         tdf.fused_filter_module(ts)(torch.zeros((64, 63), dtype=torch.int32))

@@ -58,8 +58,11 @@ G  Output digests: the sha256 of the outputs of ``completion`` and
    ``completion_traced`` and ``completion_rot`` (L1's x pass), the rows
    kernels (V1), ``final2d`` and ``final2d_stencil`` (the headline
    Gaussian at 1024², C1's bank on it) and ``fir_band`` (F1's and F3's
-   passes at 1024², px6) on seeded inputs, so two checkouts' kernels are
-   bit-equal where the digests agree.
+   passes at 1024², px6), and of the float32 forms that bf16 storage
+   shares a source with: ``moments2d`` and ``final2d_split`` at
+   ``default`` (the headline at 1024²) and ``rows_final`` at ``default``
+   (V1), on seeded inputs, so two checkouts' kernels are bit-equal where
+   the digests agree.
 I  The fused consumers at px6 and each grade (px4, px3, ``default``),
    where the checkout's app builders take ``matmul_precision``:
    ``fir_band`` at F1's x pass and F3's two passes (4096², box³ radius 5;
@@ -608,6 +611,9 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         N = rows.carries(X4, rows.tails.plain)
         out["rows_tails V1"] = digest(rows.tails(X4))
         out["rows_final V1"] = digest(rows.final(X4, N))
+        F.set_plan(matmul_precision="default")
+        out["rows_final default V1"] = digest(
+            rows_of(rft, F.as_func()).final(X4, N))
         # the 2-D pair at px6, and its stencil bank (C1's, radii 5 and 9)
         w3 = rft.gaussian_weights(5.0, 3)
         x, y = rft.Dim("x", 1024), rft.Dim("y", 1024)
@@ -621,6 +627,12 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         X4 = m.tile(img)
         NA, NB = m.carries(X4, m.moments.plain)
         out["final2d 1024²"] = digest(m.final(X4, NA, NB))
+        out["moments2d 1024²"] = digest(torch.cat(
+            [t.reshape(-1) for t in m.moments(X4)]))
+        F.set_plan(matmul_precision="default")
+        md = F.as_func()
+        F.set_plan(matmul_precision="px6")
+        out["final2d_split default 1024²"] = digest(md.final(X4, NA, NB))
         bank = [[(B, B, 1.0), (B, -B - 1, -1.0), (-B - 1, B, -1.0),
                  (-B - 1, -B - 1, 1.0)] for B in (5, 9)]
         ms = F.as_func(stencil2d=bank)
