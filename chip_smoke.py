@@ -431,7 +431,23 @@ once to bf16) and each element to within one bf16 step of its twin's
 the 2-D pass), and phase 5l times each beside its bound, its twin and,
 for the rows kernels, one ``torch.matmul`` in bf16 (G·x; [Btot | Rhat]
 by [x; N]); phase 3m times the bf16 headline in turns with px6 and the
-grades. Phase 5i also times ``completion_split_epi`` at E1 by CUDA
+grades. bf16 storage on the chain, the per-axis loop and the rotated
+emit (``tails``, ``completion_split``, ``completion_rot`` and their
+``_epi`` and ``_tails`` forms at one product): phase 3c runs S3 and S4 as
+bf16 images (S4's loop: the rows pass, then ``tails_bf16`` and
+``completion_split_bf16``), phase 3f K1 and K3 (``tails_bf16``,
+``completion_rot_bf16``, ``completion_rot_tails_bf16``; K3 chained
+bit-equal to unchained), phase 3h E1 (``completion_split_epi_bf16``) and
+a ``rotate_emit=2`` x pass over 4096² with and without the unsharp
+combine (``completion_rot_bf16``, ``completion_rot_epi_bf16``), each as
+``bf16_call`` holds the pair; phase 2m holds each entry at K1's and K3's
+first passes, E, E1 and the rotate_emit pass to its float32 form on the
+same values (rounded once) and to one bf16 step of its twin, the chained
+tails to ``tails_bf16``'s of the output, and phase 5m times each beside
+its bound, its twin and one bf16 ``matmul`` (``addmm``, ``baddbmm``
+with an epilogue; none for ``completion_rot_tails_bf16``), E and E1 also
+by ``queued_ms``.
+Phase 5i also times ``completion_split_epi`` at E1 by CUDA
 events over 200 back-to-back launches of the kernel alone, queued behind
 a sleeping kernel so that no host gap enters the window
 (:func:`queued_ms`).
@@ -590,7 +606,8 @@ def image_copies(fn, x):
     """The copy and cast ops of one call ``fn(x)`` whose input holds at
     least half of x's elements (host-side ops, their shapes recorded):
     an image-sized copy the call makes, e.g. a float32 copy of a bf16
-    image."""
+    image. An op inside another listed op (the ``copy_`` of a cast or a
+    pad) is that op's, and not listed again."""
     import math
 
     import torch
@@ -601,17 +618,59 @@ def image_copies(fn, x):
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
         fn(x)
         torch.cuda.synchronize()
-    return [(e.name, shp) for e in p.events() if e.name in names
+    def inner(e):
+        parent = e.cpu_parent
+        while parent is not None:
+            if parent.name in names:
+                return True
+            parent = parent.cpu_parent
+        return False
+
+    return [(e.name, shp) for e in p.events()
+            if e.name in names and not inner(e)
             for shp in e.input_shapes[:1]
             if shp and math.prod(shp) >= x.numel() // 2]
 
 
-def bf16_call(label, mod, x, want, bound, card, lead=""):
+def image_pads(fn, x):
+    """The zero-paddings (``F.pad``, ``constant_pad_nd``) of one call
+    ``fn(x)`` whose input holds at least half of x's elements, as
+    (input shape, input dtype, pad) each."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    pad_fns = (F.pad, torch._C._nn.pad, torch.constant_pad_nd)
+
+    class Pads(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in pad_fns and args[0].numel() >= x.numel() // 2:
+                t = args[0]
+                pad = args[1] if len(args) > 1 else kwargs["pad"]
+                self.seen.append((tuple(t.shape), t.dtype, tuple(pad)))
+            return func(*args, **kwargs)
+
+    with Pads() as mode:
+        fn(x)
+        torch.cuda.synchronize()
+    return mode.seen
+
+
+def bf16_call(label, mod, x, want, bound, card, lead="", pads=()):
     """A bf16 call through ``as_func``'s module: a bf16 output of x's shape,
     finite, within ``bound`` of the f64 reference ``want``'s peak (the
     float32 image's oracle: the error includes the input's rounding to
     bf16, as the JAX package's bf16 test holds it); its profile (device
-    ops, busy time) and no image-sized cast or copy in the call."""
+    ops, busy time) and no image-sized cast or copy in the call but the
+    zero-paddings ``pads`` (each a pad tuple) the plan predicts for passes
+    whose extent is not a whole number of tiles (the float32 route makes
+    them too): the call must pad exactly those, each a bf16 tensor, and
+    only those ``constant_pad_nd`` ops are let through."""
     import numpy as np
     import torch
 
@@ -631,11 +690,24 @@ def bf16_call(label, mod, x, want, bound, card, lead=""):
               "oracle's peak")
         prof = timing.device_profile(mod, x, iterations=10)
         copies = image_copies(mod, x)
+        padded = image_pads(mod, x)
     print(f"  {label} bf16: output torch.bfloat16, "
           f"{prof['device_ops']:.0f} device ops a call, device busy "
           f"{busy_text(prof)}, call {prof['call_ms']:.4f} ms on {card}; "
           "top: " + ", ".join(f"{nm[:40]} {ms:.4f} ms"
                                for nm, ms in prof["top"]))
+    if pads or padded:
+        print(f"  {label} bf16: image-sized zero-paddings {padded} (the "
+              f"plan's: {list(pads)})")
+    check(sorted(p for _, _, p in padded) == sorted(map(tuple, pads))
+          and all(dt == torch.bfloat16 for _, dt, _ in padded),
+          f"{label} bf16: the image-sized zero-paddings are the plan's "
+          f"{list(pads)}, each of a bf16 tensor")
+    for _ in pads:  # the predicted paddings' own ops
+        at = [i for i, c in enumerate(copies)
+              if c[0] == "aten::constant_pad_nd"]
+        if at:
+            del copies[at[0]]
     check(not copies, f"{label} bf16: no image-sized cast or copy op in "
           f"the profiled call (found {copies})")
     return err, prof
@@ -2765,7 +2837,7 @@ def main() -> int:
         "V2": only(rows_tails=1, rows_final=1, moments2d=1, final2d=1),
         "S3": only(rows_tails=1, rows_final=1),
         "S4": only(rows_tails=1, rows_final=1, tails=1, completion=1)}
-    oracles = {}  # label: the f64 oracle of V1, V2, S3 for the grades
+    oracles = {}  # label: the f64 oracle of each, for the grades and bf16
     for label, (F, mod, xs) in rows_cases.items():
         with torch.no_grad():
             y, launches = counted(mod, torch.from_numpy(xs).to(dev))
@@ -2778,8 +2850,7 @@ def main() -> int:
         check(tuple(y.shape) == xs.shape and bool(torch.isfinite(y).all()),
               f"{label}: output finite, shape {xs.shape}")
         want = scan_core.oracle_apply(F.spec, xs.astype(np.float64))
-        if label != "S4":
-            oracles[label] = want
+        oracles[label] = want
         err = oracle_err(F.spec, xs, y, want)
         print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e}")
         check(err <= 2e-6, f"{label}: within the px6 bound 2e-6 of the f64 "
@@ -2829,6 +2900,30 @@ def main() -> int:
         if label == "V1":
             main_launches.update(rows_tails_bf16=launches["rows_tails_bf16"],
                                  rows_final_bf16=launches["rows_final_bf16"])
+        bf16_call(label, mb, xb, oracles[label], BF16_BOUND, card)
+        del Fb, mb, xb
+    # and S3 (the rows pass alone) and S4 (the per-axis loop: the rows
+    # pass on z, then tails_bf16 and completion_split_bf16 on x) as bf16
+    # images through as_func(); S4's call is the main path of
+    # completion_split_bf16
+    for label, axes, want_l in (
+            ("S3", (0,), only(rows_tails_bf16=1, rows_final_bf16=1)),
+            ("S4", (0, 2), only(rows_tails_bf16=1, rows_final_bf16=1,
+                                tails_bf16=1, completion_split_bf16=1))):
+        Fb = gauss_axes(rft, rows_cases[label][2].shape, axes, bf16=True)
+        mb = Fb.as_func()
+        stages = list(getattr(mb, "stages", [mb]))
+        check(all(st.dtype == torch.bfloat16 for st in stages),
+              f"{label} bf16: every stage storing bf16 "
+              f"({[type(st).__name__ for st in stages]})")
+        xb = Fb._image.to(dev)
+        with torch.no_grad():
+            _, launches = counted(mb, xb)
+        print(f"  {label} bf16: launches {launches}")
+        check(launches == want_l, f"{label} bf16: launches {want_l}")
+        if label == "S4":
+            main_launches["completion_split_bf16"] = launches[
+                "completion_split_bf16"]
         bf16_call(label, mb, xb, oracles[label], BF16_BOUND, card)
         del Fb, mb, xb
     del oracles
@@ -3270,7 +3365,59 @@ def main() -> int:
                               f"completion_rot/{g}": rot_s})
         del c6g, y
     F6.set_plan(matmul_precision="px6")
-    del k_oracles, want_c3, want_c6, x_c6
+    del want_c3, want_c6, x_c6
+
+    heading("phase 3f, bf16: K1 and K3 as bf16 images through as_func() "
+            "(tails_bf16, completion_rot_bf16, completion_rot_tails_bf16 at "
+            "one product), against the f64 oracle of the float32 image")
+    for label, shape, axes, reps, want_l, taken in (
+            (k1_label, (H, W), (0, 1), 2,
+             only(tails_bf16=2, completion_rot_bf16=2), [False, False]),
+            (k3_label, (200, 512, 512), (0, 1, 2), 1,
+             only(tails_bf16=2, completion_rot_tails_bf16=1,
+                  completion_rot_bf16=2), [False, True, False])):
+        mb = gauss_axes(rft, shape, axes, times=reps, bf16=True).as_func()
+        xb = k_cases[label][1].to(torch.bfloat16)
+        check(isinstance(mb, tdf.RotationChain)
+              and all(p.nprod == 1 and p.dtype == torch.bfloat16
+                      for p in mb.passes),
+              f"{label} bf16: the rotation chain, bf16 passes at one product")
+        with torch.no_grad():
+            yb, launches = counted(mb, xb)
+        print(f"  {label} bf16: launches {launches}, tails_in "
+              f"{mb.tails_in_taken}")
+        check(launches == want_l and mb.tails_in_taken == taken,
+              f"{label} bf16: launches {want_l}, tails_in {taken}")
+        if label == k1_label:
+            main_launches.update(tails_bf16=launches["tails_bf16"],
+                                 completion_rot_bf16=launches[
+                                     "completion_rot_bf16"])
+        else:
+            main_launches["completion_rot_tails_bf16"] = launches[
+                "completion_rot_tails_bf16"]
+            for p in mb.passes:  # chained = unchained, bit for bit
+                p.completion_nt = None
+            with torch.no_grad():
+                yu, lu = counted(mb, xb)
+            print(f"  {label} bf16 unchained: launches {lu}; bit-equal to "
+                  f"the chained run: {torch.equal(yu, yb)}")
+            check(lu == only(tails_bf16=3, completion_rot_bf16=3)
+                  and torch.equal(yu, yb), f"{label} bf16: unchained (three "
+                  "tails_bf16, three completion_rot_bf16) bit-equal to "
+                  "chained")
+            # the chained route again, for the profile
+            mb = gauss_axes(rft, shape, axes, bf16=True).as_func()
+            del yu
+        del yb
+        # K3's z pass pads its 200 rows to two tiles (256)
+        k_pads = [(0, p.pad) for p in mb.passes if p.pad]
+        check(k_pads == ([(0, 56)] if label == k3_label else []),
+              f"{label} bf16: the plan pads {k_pads}")
+        bf16_call(label, mb, xb, k_oracles[label], BF16_BOUND, card,
+                  pads=k_pads)
+        k_cases[f"{label} bf16"] = (mb, xb)  # phase 5g's whole calls
+        del mb, xb
+    del k_oracles
 
     heading("phase 3g: the learnable path end to end through "
           "LearnableRecFilter: L1 forward, L2 training steps, L3 biquad")
@@ -3397,6 +3544,55 @@ def main() -> int:
           "E1: tails and completion_epi once, the mix in the kernel")
     main_launches["completion_epi"] = launches["completion_epi"]
     check(err <= 2e-6, "E1: within 2e-6 of lfilter's mix")
+    # E1 in bf16: the signal rounded to bf16, the mix (aux float32) in
+    # completion_split_epi_bf16's store, against the f64 mix of the float32
+    # signal
+    FEb = rft.RecFilter("MixAudio")
+    FEb[ce, xe] = torch.zeros((64, 32768), dtype=torch.bfloat16)
+    FEb.add_filter(+xe, [1.0, 0.01, 0.01])
+    FEb.split(xe, 128)
+    e1b = FEb.as_func(epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_)
+    xb_e1 = x_e1.to(torch.bfloat16)
+    with torch.no_grad():
+        _, launches = counted(e1b, xb_e1, x_e1)
+    print(f"  E1 bf16: launches {launches}, epilogue "
+          f"{e1b.body.epilogue_route}")
+    check(launches == only(tails_bf16=1, completion_split_epi_bf16=1)
+          and e1b.body.epilogue_route == "kernel", "E1 bf16: tails_bf16 and "
+          "completion_split_epi_bf16 once, the mix in the kernel")
+    main_launches["completion_split_epi_bf16"] = launches[
+        "completion_split_epi_bf16"]
+    bf16_call("E1", lambda v: e1b(v, x_e1), xb_e1, want, BF16_BOUND, card)
+    del FEb, e1b, xb_e1
+    # rotate_emit = 2 on a bf16 4096² image: the x pass emitted rotated on
+    # completion_rot_bf16, and with the unsharp combine as an affine
+    # epilogue (aux in the rotated layout) on completion_rot_epi_bf16
+    img_r = image(H, W)
+    want_r = scan_core.oracle_apply(
+        gauss_axes(rft, (H, W), (1,)).spec, img_r.astype(np.float64)).T
+    aux_r = torch.from_numpy(np.ascontiguousarray(img_r.T)).to(dev)
+    Fr = gauss_axes(rft, (H, W), (1,), bf16=True)
+    Fr.set_plan(rotate_emit=2)
+    xb_r = Fr._image.to(dev)
+    for epi, entry in ((None, "completion_rot_bf16"),
+                       (usm_combine, "completion_rot_epi_bf16")):
+        rb = Fr.as_func(epilogue=epi)
+        args = (xb_r,) if epi is None else (xb_r, aux_r)
+        with torch.no_grad():
+            yr, launches = counted(rb, *args)
+        check(isinstance(rb, tdf.RotatedPass) and tuple(yr.shape) == (W, H)
+              and launches == only(tails_bf16=1, **{entry: 1}),
+              f"rotate_emit bf16 ({entry}): the rotated pass, tails_bf16 "
+              f"and {entry} once, output (W, H)")
+        print(f"  rotate_emit bf16 ({entry}): launches {launches}")
+        if epi is not None:
+            main_launches[entry] = launches[entry]
+        bf16_call(f"rotate_emit ({entry})",
+                  rb if epi is None else (lambda v: rb(v, aux_r)), xb_r,
+                  want_r if epi is None else epi(want_r, img_r.T.astype(
+                      np.float64)), BF16_BOUND, card)
+        del yr, rb
+    del Fr, xb_r, aux_r, want_r, img_r
     # E2: K1 with the unsharp combine on the chain's last pass
     K1e = gauss_axes(rft, (H, W), (0, 1), times=2)
     e2 = K1e.as_func(epilogue=usm_combine)
@@ -3915,6 +4111,255 @@ def main() -> int:
             2.0 * vox * (128 + K * 3), PEAK_BF16, 1)
         del b, y, XN, XV, N, X4, NA_t, NB_t, aux, xh
     del Fb, mb, mn, me, Vb, rb
+
+    heading("phase 2m and 5m: bf16 storage's chain, loop and rotated kernels"
+            " (tails_bf16 and completion_rot_bf16 at K1's first pass, "
+            "tails_bf16 and completion_rot_tails_bf16 at K3's, "
+            "completion_split_bf16 at E, completion_split_epi_bf16 at E1, "
+            "completion_rot_epi_bf16 at the rotate_emit x pass) against "
+            "their float32 forms and their twins, then timed (CUDA events, "
+            f"median of {2 * N_TIMED} calls each; E and E1 also queued "
+            "behind a sleep)")
+    import dataclasses
+
+    def bf16_pass(spec, epilogue=None):
+        """The first LastAxisPass of ``spec`` at bf16 storage (its module's
+        only pass, or a chain's first), and its input x rounded to bf16 as
+        the pass tiles it: (pass, X (q, n, 128), Nt (n, sl, q))."""
+        mod = tdf.fused_filter_module(
+            dataclasses.replace(spec, dtype="bfloat16"),
+            epilogue=epilogue).to(dev)
+        lp = mod.passes[0] if hasattr(mod, "passes") else mod.body
+        xb = torch.from_numpy(image(*[d.extent for d in spec.dims])).to(
+            dev).to(torch.bfloat16)
+        X = xb.reshape(-1, lp.n, lp.T).contiguous()
+        Nt = lp._solve_t(lp.tails.plain(X).double()).float().contiguous()
+        return lp, X, Nt
+
+    def same_bits(name, got, f32):
+        same = torch.equal(got, f32.to(got.dtype))
+        print(f"  {name}: the float32 entry's output on the same values "
+              f"{'rounded once to bf16 ' if got.dtype != f32.dtype else ''}"
+              f"bit for bit: {same}")
+        check(same, f"{name}: the float32 form's bits on the same values")
+
+    with torch.no_grad():
+        # K1's first pass: x (4096, 32, 128), S = 12 (sl 16), one variant
+        k1p, X1, N1 = bf16_pass(gauss_axes(rft, (H, W), (0, 1),
+                                           times=2).spec)
+        b1 = k1p.tails(X1)
+        same_bits("tails_bf16 (K1)", b1, k1p.tails(X1.float()))
+        err = rel_err(b1, k1p.tails.plain(X1))
+        check(err <= 1e-5, f"tails_bf16 (K1): within 1e-5 of its twin's "
+              f"peak ({err:.3e})")
+        max_abs["tails_bf16"] = (b1 - k1p.tails.plain(X1)).abs().max().item()
+        ck1 = k1p.completion
+        y1 = ck1(X1, N1)
+        same_bits("completion_rot_bf16 (K1)", y1, ck1(X1.float(), N1))
+        max_abs["completion_rot_bf16"] = bf16_ulp_check(
+            "completion_rot_bf16 (K1)", y1, ck1.plain(X1, N1))
+        # K3's first pass: x (102400, 4, 128), S = 6; its completion hands
+        # the y pass its tails
+        k3m = tdf.fused_filter_module(dataclasses.replace(
+            gauss_axes(rft, (200, 512, 512), (0, 1, 2)).spec,
+            dtype="bfloat16")).to(dev)
+        k3p, X3, N3 = bf16_pass(gauss_axes(rft, (200, 512, 512),
+                                           (0, 1, 2)).spec)
+        b3 = k3p.tails(X3)
+        same_bits("tails_bf16 (K3)", b3, k3p.tails(X3.float()))
+        ck3 = k3p.completion_nt
+        y3, t3 = ck3(X3, N3)
+        check(torch.equal(y3, k3p.completion(X3, N3)),
+              "completion_rot_tails_bf16 (K3): its y is completion_rot_"
+              "bf16's, bit for bit")
+        nxt = k3m.passes[1]
+        t3u = nxt.tails(y3.reshape(-1, nxt.n, nxt.T))
+        print(f"  completion_rot_tails_bf16 (K3): its tails are tails_bf16's "
+              f"of its y, bit for bit: {torch.equal(t3, t3u)}")
+        check(torch.equal(t3, t3u), "completion_rot_tails_bf16 (K3): the "
+              "chained tails equal the unchained ones")
+        y3p, t3p = ck3.plain(X3, N3)
+        max_abs["completion_rot_tails_bf16"] = max(
+            bf16_ulp_check("completion_rot_tails_bf16 (K3)", y3, y3p),
+            (t3 - t3p).abs().max().item())
+        # E: (64, 32768), σ=5 clamp, three variants
+        ep, XE, NE = bf16_pass(gauss_1d(rft, (64, 32_768), 128, True).spec)
+        yE = ep.completion(XE, NE)
+        same_bits("completion_split_bf16 (E)", yE,
+                  ep.completion(XE.float(), NE))
+        max_abs["completion_split_bf16"] = bf16_ulp_check(
+            "completion_split_bf16 (E)", yE, ep.completion.plain(XE, NE))
+        # E1: (64, 32768), the order-2 filter, the mix (aux: x, float32)
+        mix = lambda y_, x_: 0.7 * y_ + 0.3 * x_  # noqa: E731 (E1's)
+        FE1 = rft.RecFilter("MixAudio")
+        d_c, d_x = rft.Dim("c", 64), rft.Dim("x", 32768)
+        FE1[d_c, d_x] = np.zeros((64, 32768), np.float32)
+        FE1.add_filter(+d_x, [1.0, 0.01, 0.01])
+        FE1.split(d_x, 128)
+        e1p, XE1, NE1 = bf16_pass(FE1.spec, mix)
+        auxE1 = XE1.float()
+        yE1 = e1p.completion(XE1, NE1, auxE1)
+        same_bits("completion_split_epi_bf16 (E1)", yE1,
+                  e1p.completion(XE1.float(), NE1, auxE1))
+        max_abs["completion_split_epi_bf16"] = bf16_ulp_check(
+            "completion_split_epi_bf16 (E1)", yE1,
+            e1p.completion.plain(XE1, NE1, auxE1))
+        # the rotate_emit x pass (4096², S = 6) with the unsharp combine
+        Fr = gauss_axes(rft, (H, W), (1,), bf16=True)
+        Fr.set_plan(rotate_emit=2)
+        rp = Fr.as_func(epilogue=usm_combine).body
+        Xr = Fr._image.to(dev).reshape(-1, rp.n, rp.T).contiguous()
+        Nr = rp._solve_t(rp.tails.plain(Xr).double()).float().contiguous()
+        auxr = torch.from_numpy(image(H, W).T.copy()).to(dev)
+        cr = rp.completion
+        yr = cr(Xr, Nr, auxr)
+        same_bits("completion_rot_epi_bf16 (rotate_emit)", yr,
+                  cr(Xr.float(), Nr, auxr))
+        max_abs["completion_rot_epi_bf16"] = bf16_ulp_check(
+            "completion_rot_epi_bf16 (rotate_emit)", yr,
+            cr.plain(Xr, Nr, auxr))
+        del y3p, t3p, t3u
+
+        # the timings: bounds by the bytes each function must move (x and y
+        # in bf16, the S real carry rows, the tails' S real rows, the aux
+        # arrays in float32) and its operations (the tails: fp64 MACs; the
+        # completions: one bf16 product on the signal rows, three on the
+        # carry rows; the next tails' fp64 MACs and an epilogue's fp32 FMAs
+        # at those peaks); library calls in bf16 (G·x in (n, S, q), [x, Nᵀ]
+        # by the constant, rotated or per tile, with the epilogue's scales
+        # where addmm and baddbmm take them)
+        def lib_operands(comp, X, Nt, rot):
+            """[x, Nᵀ] (n, K, q) rotated, else (n, q, K), and the grade's
+            constant per tile, (n, T, K) rotated, else (n, K, T), in bf16
+            (K = 128 + S)."""
+            K_ = 128 + comp.S
+            M = comp.grade_constant()[..., :K_]
+            vi = [0 if M.shape[0] == 1 else (1 if t == 0 else (
+                2 if t == comp.n - 1 else 0)) for t in range(comp.n)]
+            XN = torch.cat([X, Nt[:, :comp.S].permute(2, 0, 1).to(
+                torch.bfloat16)], dim=2)
+            if rot:
+                return (XN.permute(1, 2, 0).contiguous(),
+                        M[vi].to(torch.bfloat16).contiguous())
+            return (XN.transpose(0, 1).contiguous(),
+                    M[vi].transpose(1, 2).to(torch.bfloat16).contiguous())
+
+        S1 = k1p.S
+        G1 = k1p.tails.G_v[0, :S1].to(torch.bfloat16)
+        check(k1p.tails.G_v.shape[0] == 1 and ck1.Bc_k.shape[0] == 1,
+              "K1's first pass: one matrix variant")
+        X1t = X1.permute(1, 2, 0).contiguous()
+        carry_times["tails_bf16"] = timed(
+            f"tails_bf16 (K1 pass {tuple(X1.shape)}, S {S1}; library "
+            "matmul(G, xᵀ) in bf16)", k1p.tails, k1p.tails.plain,
+            lambda *_: torch.matmul(G1, X1t), (X1,),
+            tensor_bytes(X1, b1[:, :S1]), 2.0 * S1 * X1.numel(), PEAK_FP64,
+            1, plain_iterations=5)
+        G3 = k3p.tails.G_v[0, :k3p.S].to(torch.bfloat16)
+        X3t = X3.permute(1, 2, 0).contiguous()
+        timed(f"tails_bf16 (K3 x pass {tuple(X3.shape)}, S {k3p.S}; library "
+              "matmul(G, xᵀ) in bf16)", k3p.tails, k3p.tails.plain,
+              lambda *_: torch.matmul(G3, X3t), (X3,),
+              tensor_bytes(X3, b3[:, :k3p.S]), 2.0 * k3p.S * X3.numel(),
+              PEAK_FP64, 1, plain_iterations=5)
+        XN1, BR1 = lib_operands(ck1, X1, N1, True)
+        # the library call on bf16 operands: within a bf16 rounding of its
+        # output of the float32 product of the same operands (from the
+        # kernel it parts by the rounding of N's cancelling carry terms to
+        # one bf16 product, where the kernel takes three)
+        e_l = rel_err(torch.matmul(BR1, XN1).float(),
+                      torch.matmul(BR1.float(), XN1.float()))
+        check(e_l <= 2.0 ** -8, f"K1: the bf16 library call computes "
+              f"[Btot | Rcat]·[x; N] on bf16 operands ({e_l:.3e})")
+        carry_times["completion_rot_bf16"] = timed(
+            "completion_rot_bf16 (K1 pass; library matmul of the rotated "
+            "constant by [x, Nᵀ] in bf16)", ck1, ck1.plain,
+            lambda *_: torch.matmul(BR1, XN1), (X1, N1),
+            tensor_bytes(X1, N1[:, :S1], y1), rot_ops(ck1, X1.numel()),
+            PEAK_BF16, 1,
+            plain_iterations=5)
+        del XN1, BR1
+        n3 = k3m.passes[1]
+        carry_times["completion_rot_tails_bf16"] = timed(
+            "completion_rot_tails_bf16 (K3 x pass)", ck3, ck3.plain, None,
+            (X3, N3), tensor_bytes(X3, N3[:, :k3p.S], y3, t3[:, :n3.S]),
+            rot_ops(ck3, X3.numel())
+            + 2.0 * n3.S * y3.numel() * PEAK_BF16 / PEAK_FP64, PEAK_BF16,
+            1, plain_iterations=5)
+        def pair(x_, n_):
+            y_ = k3p.completion(x_, n_)
+            return y_, nxt.tails(y_.reshape(-1, nxt.n, nxt.T))
+
+        print(f"  completion_rot_bf16 + tails_bf16 at K3's x pass (the "
+              f"unchained pair): event {median_ms(pair, X3, N3):.4f} ms, "
+              f"device {device_ms(pair, X3, N3):.4f} ms on {card}")
+        XNE, BRE = lib_operands(ep.completion, XE, NE, False)
+        carry_times["completion_split_bf16"] = timed(
+            f"completion_split_bf16 (E {tuple(XE.shape)}, three variants; "
+            "library matmul of [x, Nᵀ] by the constant per tile in bf16)",
+            ep.completion, ep.completion.plain,
+            lambda *_: torch.matmul(XNE, BRE), (XE, NE),
+            tensor_bytes(XE, NE[:, :ep.S], yE),
+            rot_ops(ep.completion, XE.numel()), PEAK_BF16,
+            1, plain_iterations=5)
+        XNE1, BRE1 = lib_operands(e1p.completion, XE1, NE1, False)
+        check(BRE1.shape[0] == e1p.n and e1p.completion.Bc_k.shape[0] == 1,
+              "E1: one matrix variant")
+        XNE1f, BRE1f = XNE1.transpose(0, 1).reshape(-1, XNE1.shape[-1]), \
+            BRE1[0]
+        auxE1b = XE1.reshape(-1, 128)
+        addmm = lambda *_: torch.addmm(auxE1b, XNE1f, BRE1f,  # noqa: E731
+                                       beta=0.3, alpha=0.7)
+        carry_times["completion_split_epi_bf16"] = timed(
+            f"completion_split_epi_bf16 (E1 {tuple(XE1.shape)}; "
+            "library addmm of [x, Nᵀ] by the constant, the mix as its "
+            "scales, in bf16)", e1p.completion, e1p.completion.plain, addmm,
+            (XE1, NE1, auxE1), tensor_bytes(XE1, NE1[:, :e1p.S], yE1, auxE1),
+            rot_ops(e1p.completion, XE1.numel())
+            + 2.0 * XE1.numel() * PEAK_BF16 / PEAK_FP32, PEAK_BF16,
+            1, plain_iterations=5)
+        for name, comp, args in (
+                ("completion_split_bf16 (E)", ep.completion, (XE, NE)),
+                ("completion_split_epi_bf16 (E1)", e1p.completion,
+                 (XE1, NE1, auxE1))):
+            ms, host, slept = queued_ms(comp, *args)
+            print(f"  {name}: CUDA events over 200 back-to-back launches of "
+                  f"the kernel alone, queued behind a {slept:.1f} ms sleep "
+                  f"(enqueued in {host:.1f} ms): {ms:.4f} ms a launch on "
+                  f"{card}")
+            check(host < slept, f"{name}: the launches were all queued "
+                  "before the window opened")
+        XNr, BRr = lib_operands(cr, Xr, Nr, True)
+        auxr_b = auxr.to(torch.bfloat16).reshape(cr.n, 128, -1)
+        BRrn = BRr.expand(cr.n, -1, -1) if BRr.shape[0] == 1 else BRr
+        carry_times["completion_rot_epi_bf16"] = timed(
+            "completion_rot_epi_bf16 (rotate_emit x pass, the unsharp "
+            "combine; library baddbmm, the combine as its scales, in bf16)",
+            cr, cr.plain, lambda *_: torch.baddbmm(auxr_b, BRrn, XNr,
+                                                   beta=2.0, alpha=-1.0),
+            (Xr, Nr, auxr), tensor_bytes(Xr, Nr[:, :cr.S], yr, auxr),
+            rot_ops(cr, Xr.numel()) + 2.0 * Xr.numel() * PEAK_BF16
+            / PEAK_FP32, PEAK_BF16, 1,
+            plain_iterations=5)
+        # each bf16 entry's float32 form on the same values (x widened
+        # outside the timed call): what the halved bytes bought
+        for name, fn, args in (
+                ("tails (K1 pass)", k1p.tails, (X1.float(),)),
+                ("tails (K3 x pass)", k3p.tails, (X3.float(),)),
+                ("completion_rot (K1 pass)", ck1, (X1.float(), N1)),
+                ("completion_rot_tails (K3 x pass)", ck3, (X3.float(), N3)),
+                ("completion_split (E)", ep.completion, (XE.float(), NE)),
+                ("completion_split_epi (E1)", e1p.completion,
+                 (XE1.float(), NE1, auxE1)),
+                ("completion_rot_epi (rotate_emit)", cr,
+                 (Xr.float(), Nr, auxr))):
+            print(f"  {name}, the float32 entry on the same "
+                  f"values: event {median_ms(fn, *args):.4f} ms, device "
+                  f"{device_ms(fn, *args):.4f} ms on {card}")
+            del args
+        del (X1, N1, b1, y1, X3, N3, b3, y3, t3, XE, NE, yE, XE1, NE1, yE1,
+             auxE1, XNE, BRE, XNE1, BRE1, XNE1f, BRE1f, auxE1b, Xr, Nr, yr,
+             auxr, XNr, BRr, BRrn, auxr_b, X1t, X3t, k3m)
 
     heading("phase 2k, the consumers: fir_band (F1's and F3's passes, flat "
             "forms with and without tap_scale), final2d_stencil (C1's bank), "
@@ -5494,6 +5939,17 @@ def main() -> int:
              "recfilter_tpu/kernels/final2d.py:1185"),
             ("rows_final_bf16", "rows_final",
              "recfilter_tpu/kernels/final2d.py:1251"),
+            ("tails_bf16", "tails", "recfilter_tpu/kernels/completion.py:750"),
+            ("completion_split_bf16", "completion_split",
+             "recfilter_tpu/kernels/completion.py:464"),
+            ("completion_split_epi_bf16", "completion_split",
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("completion_rot_bf16", "completion_rot",
+             "recfilter_tpu/kernels/completion.py:464"),
+            ("completion_rot_epi_bf16", "completion_rot",
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("completion_rot_tails_bf16", "completion_rot_tails",
+             "recfilter_tpu/kernels/completion.py:464"),
             *((f"completion_split/{g}", "completion_split",
                "recfilter_tpu/kernels/completion.py:464")
               for g in GRADE_BOUNDS),

@@ -146,7 +146,8 @@ def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
     but ``einsum`` and the rotated emit) for ``spec`` under ``plan``."""
     backend = planner.resolve_backend(spec, plan)
     if spec.dtype == "bfloat16":
-        planner.refuse_bf16(f"the {backend} backend")
+        planner.refuse_bf16(f"the {backend} backend",
+                            planner.BF16_EINSUM)
     if (plan.matmul_precision in planner.SPLIT_GRADES
             and backend not in planner.SPLIT_BACKENDS):
         planner.refuse_split(plan.matmul_precision, f"the {backend} backend")

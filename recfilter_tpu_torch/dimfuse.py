@@ -58,12 +58,16 @@ routes of 3 and 4 without a kernel at the reduced grades px3, px4 and
 ``default``), it raises ``NotImplementedError`` naming the ROADMAP item.
 
 Storage types, as the JAX package's ``apply_filter_fused`` has them: a
-bf16 filter runs routes 1 and 2 at one product whatever the grade
-(:func:`.planner.storage_nprod`), the image in bf16 between passes
-(``dtype=torch.bfloat16`` on :class:`.overlap2d.Fused2DPx` and
-:class:`.overlap2d.FusedRowsPx`), and raises on every other route
-(:func:`.planner.refuse_bf16`, ROADMAP Queue 1 item 4); a float16 filter
-runs the float32 routes on its input cast to float32 and casts the
+bf16 filter runs routes 1–4 at one product whatever the grade
+(:func:`.planner.storage_nprod`; no structural rule), the image in bf16
+between passes (``dtype=torch.bfloat16`` on :class:`.overlap2d.Fused2DPx`,
+:class:`.overlap2d.FusedRowsPx`, :class:`RotationChain`,
+:class:`FusedAxisPass`, :class:`FusedLastAxis` and :class:`LastAxisPass`,
+whose kernels read and write bf16), and raises where a pass would take a
+form with no bf16 kernel (:func:`.planner.refuse_bf16`, ROADMAP Queue 1
+item 4 and the Queue 2 item: the einsum forms, the sequential core and
+the supertile hierarchy item 8, the stencil consumers item 6); a float16
+filter runs the float32 routes on its input cast to float32 and casts the
 output back (:class:`Float16Storage`).
 
 The JAX package's consumers ride these routes: an elementwise
@@ -99,7 +103,8 @@ from .kernels import split as ksplit
 from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
-from .planner import SPLIT_GRADES, refuse_bf16, refuse_split, storage_nprod
+from .planner import (BF16_EINSUM, BF16_STENCIL, SPLIT_GRADES, refuse_bf16,
+                      refuse_split, storage_nprod)
 from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
 
@@ -581,7 +586,22 @@ def _stencil_halo(halo_base, Nt, Rrows, hlo: int, hhi: int):
 
 
 def _aux_like(a, y):
-    return torch.as_tensor(a).to(device=y.device, dtype=y.dtype)
+    """An epilogue aux array on y's device in y's type — float32 where y
+    is bf16 (bf16 storage keeps the aux arrays float32)."""
+    dt = torch.float32 if y.dtype == torch.bfloat16 else y.dtype
+    return torch.as_tensor(a).to(device=y.device, dtype=dt)
+
+
+def _storage_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x for an executor storing ``dtype``: a float32 executor takes
+    float32 only; a bf16 one casts its input to bf16, as the JAX package's
+    ``x.astype(cdt)`` does (no copy for a bf16 input)."""
+    if dtype == torch.bfloat16:
+        return x.to(torch.bfloat16)
+    if x.dtype != dtype:
+        raise TypeError(f"expected {str(dtype).replace('torch.', '')} "
+                        f"input, got {x.dtype}")
+    return x
 
 
 def _retile_aux(a, y, nat_axis: int, pad: int, tile_shape):
@@ -709,6 +729,17 @@ class LastAxisPass(nn.Module):
     carry injection stay float64. At ``f32x9`` the products are float64
     and the solve dense (no band dropped).
 
+    bf16 storage (``dtype=torch.bfloat16``): one product on every kernel
+    route whatever the grade (the JAX package's ``_kernel_nprod``, no
+    structural rule), x padded and tiled in bf16, ``tails`` and the
+    completion kernels reading and writing bf16 (the carries and their
+    solve as at float32; an epilogue's aux arrays float32, a torch-route
+    epilogue's output rounded to bf16). Where the kernels' gates fail —
+    tiles other than 128, more than 256 tiles or ΣK > 56 at build time,
+    fewer than 8 lines or a rotated leading group with an epilogue at the
+    call — the einsum form raises (ROADMAP Queue 2 item 8), as does a
+    stencil (item 6), before anything runs.
+
     Tails chaining (a rotation chain's passes, :class:`RotationChain`):
     ``next_tails = (Gcat2, n2, T2)`` names the next pass, which scans this
     pass's line axis; where the rotated completion kernel runs (kernel
@@ -727,10 +758,16 @@ class LastAxisPass(nn.Module):
 
     def __init__(self, scans: Sequence[Scan], plan, clamp: bool,
                  matmul_precision: str, rot_axes: int = 1, stencil=None,
-                 epilogue=None, next_tails=None, tails_in: bool = False):
+                 epilogue=None, next_tails=None, tails_in: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         T, n, pad = plan
         self.T, self.n, self.pad = T, n, pad
+        self.dtype = dtype
+        bf16 = dtype == torch.bfloat16
+        if bf16 and stencil is not None:
+            refuse_bf16("a stencil consumer of the rotated emit (tails_extra, "
+                        "completion_rot's stencil body)", BF16_STENCIL)
         self.rot, self.nrow = rot_axes >= 2, max(rot_axes - 1, 1)
         self.stencil, self.epilogue = stencil, epilogue
         self.affine = kernel_form(epilogue)
@@ -791,7 +828,13 @@ class LastAxisPass(nn.Module):
                     c.float() for c in ksplit.split_const(
                         kc._variants3(M), nc)]))
         nprod = NPROD.get(matmul_precision, 0)
-        if matmul_precision in SPLIT_GRADES:
+        if bf16:
+            nprod = 1
+            if not (n <= _CHAIN_MATMUL_MAX_TILES
+                    and kc.completion_ok(T, 8, n, S)):
+                refuse_bf16(f"the einsum form of a last-axis pass ({n} tiles "
+                            f"of {T}, ΣK = {S})", BF16_EINSUM)
+        elif matmul_precision in SPLIT_GRADES:
             nprod = self._split_nprod(stencil is not None
                                       or next_tails is not None or tails_in)
         self.nprod = nprod
@@ -904,6 +947,14 @@ class LastAxisPass(nn.Module):
         R = int(np.prod(rows, dtype=np.int64)) if rows else 1
         X = x.reshape(-1, n, T).contiguous()
         q = X.shape[0]
+        kernel = (self.tails is not None and (P == 1 or not rot)
+                  and kc.completion_ok(T, q, n, S))
+        slices = (not kernel and self.tails is not None and rot and P > 1
+                  and self.epilogue is None and kc.completion_ok(T, R, n, S))
+        if self.dtype == torch.bfloat16 and not (kernel or slices):
+            refuse_bf16(f"the einsum form of a last-axis pass ({q} lines, "
+                        f"{P} leading slices, epilogue "
+                        f"{self.epilogue is not None})", BF16_EINSUM)
         fused = False
         t_out = None
         self.took_tails_in = False
@@ -919,8 +970,7 @@ class LastAxisPass(nn.Module):
 
         # Y in the route's layout: "kernel" (q, n, T), or (n·T, q) rotated;
         # "slices" (P, n·T, R); "tile" (P, *rows, n, T) or (P, n, T, *rows)
-        if (self.tails is not None and (P == 1 or not rot)
-                and kc.completion_ok(T, q, n, S)):
+        if kernel:
             layout = "kernel"
             if self.st_comp is not None:
                 Y, fused = self._stencil_slice(X, 0, plain, epi_aux), True
@@ -928,8 +978,7 @@ class LastAxisPass(nn.Module):
                 Y, t_out = self._kernel_slice(X, plain, tails_in,
                                               self._nt(q), epi_aux)
                 t_out = self._cut_tails(t_out)
-        elif (self.tails is not None and rot and P > 1
-              and self.epilogue is None and kc.completion_ok(T, R, n, S)):
+        elif slices:
             # per leading slice (DoG's dual radius, RGB planes): the P = 1
             # pipeline on each, restacked
             layout, fused = "slices", self.st_comp is not None
@@ -986,9 +1035,11 @@ class LastAxisPass(nn.Module):
         deferred = self.stencil is not None and not fused
         if self.epilogue is not None and not deferred and kaux is None:
             if layout == "kernel":
-                Yf = Y if rot else Y.reshape(q, n * T)
+                # a bf16 output: the epilogue's arithmetic in float32 on
+                # the kernel's rounded values, rounded once more
+                Yf = (Y if rot else Y.reshape(q, n * T)).float()
                 Y = _epilogue(self.epilogue, Yf, _kernel_epilogue_aux(
-                    rot, lead, n, T, rows, q, pad, eaux, Y))
+                    rot, lead, n, T, rows, q, pad, eaux, Y)).to(Y.dtype)
             else:
                 nat = len(lead) if rot else -1
                 Y = _epilogue(self.epilogue, Y, [
@@ -1226,23 +1277,30 @@ class FusedLastAxis(nn.Module):
     (``forward(x, *eaux)``, the aux arrays in the output's layout); with
     one the hierarchy is declined, as in the JAX package. With no tile
     plan the sequential core runs (``self.body`` a
-    :class:`.scan_core.ScanAxis`), then the epilogue."""
+    :class:`.scan_core.ScanAxis`), then the epilogue. ``dtype``: the
+    storage type, float32 or bf16 (:class:`LastAxisPass`; the core and
+    the hierarchy raise at bf16, ROADMAP Queue 2 item 8); the input is
+    cast to it."""
 
     def __init__(self, scans: Sequence[Scan], w: int, tile_width: int,
                  border: str, matmul_precision: str = "px6",
-                 epilogue=None):
+                 epilogue=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
-        self.w, self.epilogue = w, epilogue
+        self.w, self.epilogue, self.dtype = w, epilogue, dtype
+        bf16 = dtype == torch.bfloat16
         if plan is None:
+            if bf16:
+                refuse_bf16(f"the sequential core (an extent of {w} with no "
+                            "tile plan)", BF16_EINSUM)
             self.body = ScanAxis(scans, -1, border)
         elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
-                and _hierarchy_ok(w, scans, matmul_precision)):
+                and not bf16 and _hierarchy_ok(w, scans, matmul_precision)):
             self.body = HierarchicalPass(scans, w, border, matmul_precision)
         else:
             self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
-                                     epilogue=epilogue)
+                                     epilogue=epilogue, dtype=dtype)
 
     def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
         return self._run(x, False, eaux)
@@ -1261,8 +1319,7 @@ class FusedLastAxis(nn.Module):
         return self.body(x, plain, eaux)
 
     def _checked(self, x):
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+        x = _storage_input(x, self.dtype)
         if x.ndim < 1 or x.shape[-1] != self.w:
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "
                              f"the filter's extent {self.w}")
@@ -1279,11 +1336,12 @@ class FusedAxisPass(nn.Module):
     where their gates hold, else its einsum form. Past 256 tiles, without
     an epilogue, the supertile hierarchy runs on the moved axis where its
     gates hold (the JAX package's ``hierarchical_dim_pass`` moves it the
-    same way). ``forward_plain`` runs the kernels' twins."""
+    same way). ``forward_plain`` runs the kernels' twins. ``dtype``: the
+    storage type, as :class:`FusedLastAxis`'s."""
 
     def __init__(self, scans: Sequence[Scan], axis: int, shape,
                  tile_width: int, border: str, matmul_precision: str = "px6",
-                 epilogue=None):
+                 epilogue=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         nd = len(shape)
         axis = axis % nd
@@ -1293,11 +1351,15 @@ class FusedAxisPass(nn.Module):
         clamp = border == BorderMode.CLAMP
         plan = _plan_tiles(w, tile_width, max(s.order for s in scans), clamp)
         self.axis, self.ndim, self.w = axis, nd, w
-        self.epilogue = epilogue
+        self.epilogue, self.dtype = epilogue, dtype
+        bf16 = dtype == torch.bfloat16
         if plan is None:
+            if bf16:
+                refuse_bf16(f"the sequential core (axis {axis}, an extent "
+                            f"of {w} with no tile plan)", BF16_EINSUM)
             self.body = ScanAxis(scans, axis, border)
         elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
-                and _hierarchy_ok(w, scans, matmul_precision)):
+                and not bf16 and _hierarchy_ok(w, scans, matmul_precision)):
             self.body = HierarchicalPass(scans, w, border, matmul_precision)
         elif nd - axis > 6:
             raise NotImplementedError(
@@ -1306,7 +1368,8 @@ class FusedAxisPass(nn.Module):
                 "not ported (ROADMAP Queue 1 item 8)")
         else:
             self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
-                                     rot_axes=nd - axis, epilogue=epilogue)
+                                     rot_axes=nd - axis, epilogue=epilogue,
+                                     dtype=dtype)
 
     def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
         return self._run(x, False, eaux)
@@ -1315,8 +1378,7 @@ class FusedAxisPass(nn.Module):
         return self._run(x, True, eaux)
 
     def _run(self, x, plain, eaux):
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+        x = _storage_input(x, self.dtype)
         if x.ndim != self.ndim or x.shape[self.axis] != self.w:
             raise ValueError(f"input shape {tuple(x.shape)}: expected "
                              f"{self.ndim} axes, {self.w} on axis "
@@ -1463,10 +1525,14 @@ class RotationChain(nn.Module):
     pass takes them as ``tails_in`` and skips its ``tails`` launch.
     ``tails_in_taken`` lists, per pass of the last call, whether it did. At
     ``highest`` every pass runs its einsum form and no kernel launches.
-    ``forward_plain`` runs every kernel's twin."""
+    ``forward_plain`` runs every kernel's twin. ``dtype``: the storage
+    type; at bf16 every pass on its kernels at one product, tails chained
+    as at the px grades (the JAX package's bf16 chain keeps the in-kernel
+    chain), the input cast to bf16."""
 
     def __init__(self, groups, shape, tiles, border: str,
-                 matmul_precision: str = "px6", epilogue=None):
+                 matmul_precision: str = "px6", epilogue=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         nd, Ds = len(shape), len(groups)
         order = [nd - 1 - i for i in range(Ds)]
@@ -1481,7 +1547,8 @@ class RotationChain(nn.Module):
                 "fused_filter_module runs the per-axis loop there "
                 "(StagedPass, the sequential core on that axis), as the JAX "
                 "package's apply_filter_fused does")
-        fuse = NPROD.get(matmul_precision, 0) > 0
+        fuse = (dtype == torch.bfloat16
+                or NPROD.get(matmul_precision, 0) > 0)
 
         def order_of(i):
             return sum(s.order for s in groups[order[i]])
@@ -1506,9 +1573,9 @@ class RotationChain(nn.Module):
             passes[i] = LastAxisPass(
                 groups[ax], plans[ax], clamp, matmul_precision,
                 rot_axes=Ds, epilogue=epilogue if final else None,
-                next_tails=nt, tails_in=i > 0 and hands(i - 1))
+                next_tails=nt, tails_in=i > 0 and hands(i - 1), dtype=dtype)
         self.passes = nn.ModuleList(passes)
-        self.axes, self.shape = order, tuple(shape)
+        self.axes, self.shape, self.dtype = order, tuple(shape), dtype
 
     @property
     def tails_in_taken(self) -> List[bool]:
@@ -1521,8 +1588,7 @@ class RotationChain(nn.Module):
         return self._run(x, True, eaux)
 
     def _run(self, x, plain, eaux):
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+        x = _storage_input(x, self.dtype)
         if tuple(x.shape) != self.shape:
             raise ValueError(f"input shape {tuple(x.shape)} != the filter's "
                              f"extents {self.shape}")
@@ -1823,8 +1889,8 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     # (a chain's and the per-axis loop's passes; at default only where
     # LastAxisPass finds a structural win) — and every other route raises
     # (planner.refuse_split)
-    # bf16 storage: one product on the pair and volumes (the JAX package's
-    # _kernel_nprod), every other route refused
+    # bf16 storage: one product on every kernel route (the JAX package's
+    # _kernel_nprod), the forms without a bf16 kernel refused
     nprod = storage_nprod(spec.dtype, matmul_precision)
     bf16 = spec.dtype == "bfloat16"
     store = torch.bfloat16 if bf16 else torch.float32
@@ -1849,20 +1915,17 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
             return StagedPass([pre, overlap2d.Fused2DPx(
                 scans(nd - 2), scans(nd - 1), ext[-2], ext[-1], spec.border,
                 epilogue=epilogue, nprod=nprod, dtype=store)], "volume")
-        if bf16:
-            refuse_bf16("a volume whose trailing pair the 3-touch executor "
-                        "declines (the rotation chain after its rows pass)")
         # the trailing pair declines: the chain (or the loop) on the rest
         groups = {ax: ids for ax, ids in groups.items() if ax != nd - 3}
         Ds = 2
-    if bf16:
-        refuse_bf16("the rotation chain or the per-axis loop (tails, "
-                    "completion_split, completion_rot, the rows pass)")
+    if bf16 and stencil2d is not None:
+        refuse_bf16("a stencil2d bank after the filter (Stencil2DAfter)",
+                    BF16_STENCIL)
     gscans = {ax: scans(ax) for ax in groups}
     if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
             and chain_plans(ext, gscans, tiles, clamp) is not None):
         body = RotationChain(gscans, ext, tiles, spec.border,
-                             matmul_precision, epilogue)
+                             matmul_precision, epilogue, dtype=store)
         return with_bank(body if pre is None
                          else StagedPass([pre, body], "volume"))
     stages = [] if pre is None else [pre]
@@ -1873,20 +1936,22 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
         if ax == nd - 1:
             stages.append(FusedLastAxis(scans(ax), ext[ax],
                                         tiles[ax] or _TILE_DEFAULT,
-                                        spec.border, matmul_precision, epi))
-        elif (nprod > 1 and (epilogue is None or not final)
+                                        spec.border, matmul_precision, epi,
+                                        dtype=store))
+        elif ((nprod > 1 or bf16) and (epilogue is None or not final)
               and overlap2d._rows_decline(
                   ext[ax], int(np.prod(ext[ax + 1:], dtype=np.int64)),
                   scans(ax)) is None):
-            # not at default: there the JAX package runs the einsum pass
-            # (its non-structural _kernel_nprod), as FusedAxisPass does
+            # not at float32 default: there the JAX package runs the einsum
+            # pass (its non-structural _kernel_nprod), as FusedAxisPass does
             stages.append(overlap2d.FusedRowsPx(scans(ax), ext[ax],
                                                 ext[ax + 1:], spec.border,
-                                                nprod))
+                                                nprod, dtype=store))
         else:  # its rotated kernels; at default its einsum form
             stages.append(FusedAxisPass(scans(ax), ax, ext,
                                         tiles[ax] or _TILE_DEFAULT,
-                                        spec.border, matmul_precision, epi))
+                                        spec.border, matmul_precision, epi,
+                                        dtype=store))
     if len(stages) == 1:
         return with_bank(stages[0])
     return with_bank(StagedPass(stages,
@@ -1952,7 +2017,10 @@ class RotatedPass(nn.Module):
     shifts; a dimension with no tile plan runs the sequential core
     (:class:`.scan_core.ScanAxis`, the JAX package's ``lax.scan``), then
     moves the axis, then the stencil as shifts and the epilogue;
-    everything else runs :class:`LastAxisPass` with the rotated emit."""
+    everything else runs :class:`LastAxisPass` with the rotated emit. A
+    bf16 filter runs that pass on its bf16 kernels (the input cast to
+    bf16, a bf16 output); a stencil, the core and the hierarchy raise
+    there (ROADMAP Queue 2 items 6 and 8)."""
 
     def __init__(self, spec: FilterSpec, rot_axes: int = 2,
                  matmul_precision: str = "px6", epilogue=None,
@@ -1982,28 +2050,31 @@ class RotatedPass(nn.Module):
                 self.int_core = (_compute_type(spec.dtype), [
                     work_scans(spec)[i] for i in groups[axis]], spec.border)
             return
-        if spec.dtype == "bfloat16":
-            refuse_bf16("the rotated executor (rotate_emit: completion_rot)")
-        if spec.dtype != "float32":
+        if spec.dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"{spec.dtype} filter: the rotated executor runs float32 and "
-                "integer filters (ROADMAP Queue 1 item 4)")
+                f"{spec.dtype} filter: the rotated executor runs float32, "
+                "bf16 and integer filters (ROADMAP Queue 1 item 4)")
+        bf16 = spec.dtype == "bfloat16"
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
         clamp = spec.border == BorderMode.CLAMP
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
         if plan is None:  # the sequential core, then the rotated emit
+            if bf16:
+                refuse_bf16(f"the sequential core (an extent of {self.w} "
+                            "with no tile plan)", BF16_EINSUM)
             self.core = ScanAxis(scans, -1, spec.border)
             return
         # a bare signal: the one-axis executor, its hierarchy included
         # (declined with an epilogue that the stencil does not precede)
         if (self.rot_axes == 1 and plan[1] > _CHAIN_MATMUL_MAX_TILES
-                and (epilogue is None or stencil is not None)
+                and (epilogue is None or stencil is not None) and not bf16
                 and _hierarchy_ok(self.w, scans, matmul_precision)):
             self.hier = HierarchicalPass(scans, self.w, spec.border,
                                          matmul_precision)
         self.body = LastAxisPass(scans, plan, clamp, matmul_precision,
                                  rot_axes=self.rot_axes, stencil=stencil,
-                                 epilogue=epilogue)
+                                 epilogue=epilogue, dtype=self.dtype)
 
     def forward(self, x: torch.Tensor, *eaux) -> torch.Tensor:
         return self._run(x, False, eaux)
@@ -2036,8 +2107,7 @@ class RotatedPass(nn.Module):
                                border)
             y = y.to(self.dtype).movedim(-1, -self.rot_axes).contiguous()
             return self._consume(y, -self.rot_axes, eaux)
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 input, got {x.dtype}")
+        x = _storage_input(x, self.dtype)
         if self.core is not None:
             y = self.core(x).movedim(-1, -self.rot_axes)
             return self._consume(y, -self.rot_axes, eaux)

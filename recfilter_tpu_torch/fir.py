@@ -41,8 +41,8 @@ from torch import nn
 
 from .dimfuse import EINSUM_NPROD
 from .kernels import fir_band, split
-from .planner import (SPLIT_ITEM, auto_tile_width, check_precision,
-                      refuse_bf16)
+from .planner import (BF16_FIR, SPLIT_ITEM, auto_tile_width,
+                      check_precision, refuse_bf16)
 
 # the band kernel's product count per grade (the JAX package's map): the
 # split einsum's counts and px6's six, without ``high``, whose einsum form
@@ -200,7 +200,7 @@ class FirPass(nn.Module):
             raise ValueError(f"input shape {tuple(x.shape)} != the pass's "
                              f"{self.shape}")
         if x.dtype == torch.bfloat16:
-            refuse_bf16("the FIR band pass (fir_band)")
+            refuse_bf16("the FIR band pass (fir_band)", BF16_FIR)
         if x.dtype == torch.float16:
             raise NotImplementedError(
                 f"{x.dtype} storage: the FIR band pass runs float32 "

@@ -33,6 +33,17 @@ rows, zero-padded (S ≤ 56). The JAX package chose 8 for the TPU's sublane
 quantum; the port keeps the layout so both packages exchange the same
 arrays, and the CUDA kernels take it as is.
 
+bf16 storage (the JAX package's ``dtype="bfloat16"`` mode: the image in
+bf16 between passes, one product): :class:`TailsPass` takes a bf16 x
+(``tails_bf16``; its tails stay float32, the sums those of the float32
+path on the same values), :class:`CompletionPass` at nprod 1 a bf16 x and
+returns a bf16 y (``completion_split_bf16``, ``completion_rot_bf16``,
+their ``_epi`` forms, ``completion_rot_tails_bf16``: the float32
+accumulators, after the epilogue, whose aux arrays stay float32, rounded
+once; the next pass's tails from the rounded outputs). The twins compute
+in float32 on ``x.float()`` and round once. No stencil on bf16 (ROADMAP
+Queue 2 item 6).
+
 With ``affine`` (an :class:`..epilogue.Affine`, the structure of an
 elementwise epilogue) the completion also applies ``a·y + Σᵢ bᵢ·auxᵢ + c``
 to every output before the write (``completion_epi``; rotated, after the
@@ -70,6 +81,23 @@ from .stencil2d import shift_mode
 TILE = 128  # the kernels' tile edge
 _SLOTS = 8  # carry rows per tile slot
 _MAX_S = 56  # ΣK the multi-slot carry layout takes (7 slots)
+
+
+# the element types of x the kernels read: float32, or bf16 (bf16 storage)
+XTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry(name: str, x: torch.Tensor) -> str:
+    """The launch entry of kernel ``name`` for x's element type."""
+    return name + "_bf16" if x.dtype == torch.bfloat16 else name
+
+
+def _bf16_grade(x: torch.Tensor, nprod: int) -> None:
+    """Raise unless x is float32, or bf16 at one product (the JAX
+    package's ``_kernel_nprod`` gives bf16 storage one)."""
+    if x.dtype == torch.bfloat16 and nprod != 1:
+        raise ValueError(f"a bf16 x runs one product, not {nprod} (bf16 "
+                         "storage)")
 
 
 def slots_for(S: int) -> int:
@@ -350,7 +378,9 @@ class TailsPass(nn.Module):
     The sums run in float64 from float32 loads, in the kernel and in the
     twin (see ``csrc/tails.cu``). Setting ``fp64 = False`` launches the
     kernel's fp32-accumulating instantiation instead — kept to measure
-    what fp64 buys (``chip_smoke.py`` phase 5c).
+    what fp64 buys (``chip_smoke.py`` phase 5c). x may be bf16 without
+    extra rows (``tails_bf16``, fp64 sums only: the float32 entry's bits
+    on the same values).
     """
 
     def __init__(self, Gcat, n: int, extra_rows=None):
@@ -380,7 +410,10 @@ class TailsPass(nn.Module):
 
     def _kernel(self, x):
         q, n = x.shape[0], self.n
-        _check(x, "x", (q, n, TILE), x.device)
+        _check(x, "x", (q, n, TILE), x.device,
+               torch.float32 if self.He else XTYPES)
+        if x.dtype == torch.bfloat16 and not self.fp64:
+            raise ValueError("tails_bf16 sums in fp64 only")
         _check(self.G_v, "G_v", self.G_v.shape, x.device)
         out = torch.empty((n, self.sl + self.He, q), device=x.device)
         args = (x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(), q, n,
@@ -390,7 +423,7 @@ class TailsPass(nn.Module):
             _launch("tails_extra", args, x.device)
         else:
             _items_ok("tails", n, q)
-            _launch("tails", args, x.device)
+            _launch(_entry("tails", x), args, x.device)
         return out
 
     def forward(self, x):
@@ -506,6 +539,13 @@ class CompletionPass(nn.Module):
     grades :meth:`split_plain`; the backward differentiates the float32
     product with the grade's constant (``_twin``; at px6 the constant
     itself).
+
+    bf16 storage: at nprod 1 and without a stencil, x may be bf16 (the
+    ``*_bf16`` entries): Yr (or Y) is bf16, the float32 accumulators
+    rounded once after the epilogue; the next pass's tails are float32
+    sums of the rounded outputs (the tails a :class:`TailsPass` reads from
+    the stored output). ``plain`` computes on ``x.float()`` and rounds
+    once.
     """
 
     def __init__(self, Btot, Rcat, n: int, rot: bool = False, stencil=None,
@@ -604,7 +644,9 @@ class CompletionPass(nn.Module):
 
     def plain(self, x, N, *rest):
         """The twin the CPU runs: the float32 product at px6, the split
-        arithmetic (:meth:`split_plain`) at the other grades."""
+        arithmetic (:meth:`split_plain`) at the other grades and on a bf16
+        x."""
+        _bf16_grade(x, self.nprod)
         if self.nprod == 6:
             return self._twin(x, N, *rest)
         return self.split_plain(x, N, *rest)
@@ -616,14 +658,16 @@ class CompletionPass(nn.Module):
         :func:`.split.carry_nprod`); rotated, then the stencil on the halo
         strips (:func:`_stencil_rows`, the kernel's per-tile form), the
         epilogue, and the next tails (float64 sums of the float32 output by
-        ``G2_v``, the kernel's rows)."""
+        ``G2_v``, the kernel's rows). A bf16 x: the output rounded once to
+        bf16 after the epilogue, the next tails summed from it."""
         Bc = self.chunks()[..., :TILE + self.sl].float()
         y = split.pair_sum(self.nprod, lambda i, d: tile_einsum(
             "nok,qnk->qno", Bc[:, i], d), torch.cat(
-                [x, N.permute(2, 0, 1)], dim=-1), TILE)
+                [x.float(), N.permute(2, 0, 1)], dim=-1), TILE)
         halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
         if not self.rot:
-            return y if self.affine is None else self.affine.apply(y, aux)
+            return (y if self.affine is None
+                    else self.affine.apply(y, aux)).to(x.dtype)
         yf = y.permute(1, 2, 0).reshape(-1, x.shape[0])
         if self.taps:
             prev = halos.pop(0) if self.hp else None
@@ -632,6 +676,7 @@ class CompletionPass(nn.Module):
                                self.end)
         if self.affine is not None:
             yf = self.affine.apply(yf, aux)
+        yf = yf.to(x.dtype)
         if self.n2 is None:
             return yf
         return yf, self._next_tails(yf, self.G2_v.double())
@@ -651,6 +696,7 @@ class CompletionPass(nn.Module):
         or an epilogue): the exact sum of their chunk products and their
         bound, per output — (q, n, T), or rotated (n·T, q)."""
         Bc = self.chunks()
+        x = x.float()
         d = torch.cat([x, N.permute(2, 0, 1), x.new_zeros(
             x.shape[:2] + (Bc.shape[-1] - TILE - self.sl,))], dim=-1)
         ref, bound = tc_exact(Bc.unbind(1), d, lambda m, v: tile_einsum(
@@ -663,7 +709,12 @@ class CompletionPass(nn.Module):
 
     def _kernel(self, x, N, *rest):
         q, n = x.shape[0], self.n
-        _check(x, "x", (q, n, TILE), x.device)
+        _check(x, "x", (q, n, TILE), x.device, XTYPES)
+        _bf16_grade(x, self.nprod)
+        bf16 = x.dtype == torch.bfloat16
+        if bf16 and self.taps:
+            raise ValueError("completion_rot takes a stencil on float32 x "
+                             "only")
         _check(N, "N", (n, self.sl, q), x.device)
         _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
         halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
@@ -676,7 +727,8 @@ class CompletionPass(nn.Module):
         if not self.rot and self.nprod != 6:
             _items_ok("completion_split", n, q, _TC_LINES)
             y = torch.empty_like(x)
-            _launch("completion_split_epi" if epi else "completion_split", (
+            _launch(_entry("completion_split_epi" if epi
+                           else "completion_split", x), (
                 x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), *epi,
                 y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
                 *((self.k,) if epi else ()), self.nprod), x.device)
@@ -693,14 +745,22 @@ class CompletionPass(nn.Module):
             return y
         if self.n2 is not None:
             return self._kernel_tails(x, N)
+        _items_ok("completion_rot", n, q, _TC_LINES)
+        y = torch.empty((n * TILE, q), device=x.device, dtype=x.dtype)
+        if bf16:
+            _launch_fitting(_entry("completion_rot_epi" if epi
+                                   else "completion_rot", x), (
+                x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), *epi,
+                y.data_ptr(), q, n, self.sl, self.Bc_k.shape[0],
+                *((self.k,) if epi else ()), self.nprod),
+                x.device, f"sl={self.sl} carry rows")
+            return y
         prev = halos.pop(0) if self.hp else None
         nxt = halos.pop(0) if self.hn else None
         for h, name, rows in ((prev, "prev", self.hp), (nxt, "nxt", self.hn)):
             if h is not None:
                 _check(h, name, (n, rows, q), x.device)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
-        _items_ok("completion_rot", n, q, _TC_LINES)
-        y = torch.empty((n * TILE, q), device=x.device)
         _launch_fitting("completion_rot_epi" if epi else "completion_rot", (
             x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
             0 if prev is None else prev.data_ptr(),
@@ -721,9 +781,9 @@ class CompletionPass(nn.Module):
                              f"next pass ({n2} tiles of {TILE})")
         _check(self.G2_v, "G2_v", self.G2_v.shape, x.device)
         _items_ok("completion_rot_tails", n, q)
-        y = torch.empty((n * TILE, q), device=x.device)
+        y = torch.empty((n * TILE, q), device=x.device, dtype=x.dtype)
         t2 = torch.empty((n2, _SLOTS, n * q // n2), device=x.device)
-        _launch_fitting("completion_rot_tails", (
+        _launch_fitting(_entry("completion_rot_tails", x), (
             x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
             self.G2_v.data_ptr(), y.data_ptr(), t2.data_ptr(), q, n,
             self.sl, self.Bc_k.shape[0], n2, self.S2, self.G2_v.shape[0],

@@ -26,6 +26,23 @@ __device__ __forceinline__ void widen8(uint4 v, float4& lo, float4& hi) {
   hi = widen4(make_uint2(v.z, v.w));
 }
 
+// Four consecutive values at p (16- or 8-byte aligned) as floats.
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+
+// v as an output of type TX holds it: itself, or rounded once to bf16.
+template <typename TX>
+__device__ __forceinline__ float stored(float v) {
+  if constexpr (std::is_same<TX, bf16>::value)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
 // Store two adjacent outputs (8- or 4-byte aligned), or one, in the
 // output's type: a bf16 output rounds each fp32 value once, to nearest
 // even (torch's .to(torch.bfloat16)).

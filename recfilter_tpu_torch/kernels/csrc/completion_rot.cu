@@ -3,7 +3,9 @@
 // completion_rot_epi, completion_rot.cuh's completion_rot_kernel<NPROD, KC>
 // (the header gives the design), replacing
 // recfilter_tpu/kernels/completion.py::completion_pass(rot=True,
-// nprod=NPROD) with its stencil (_stencil_rows) and its epilogue (eaux).
+// nprod=NPROD) with its stencil (_stencil_rows) and its epilogue (eaux);
+// completion_rot_bf16 and completion_rot_epi_bf16 the same at NPROD 1 on a
+// bf16 x and y (bf16 storage), without a stencil.
 // NPROD 6 (px6), 4 (px4), 3 (px3), 1 (default); KC = sl / 16 rounded up
 // carry k16 steps; with a stencil or without (STENCIL). A source of its
 // own, so that nvcc builds its 32 instantiations beside completion.cu's and
@@ -25,50 +27,56 @@
 
 namespace {
 
-template <int NPROD, int KC, bool STENCIL>
-int rot_go(const float* x, const float* N, const rfs::bf16* Bc,
-           const float* prev, const float* nxt, const float* taps, float* y,
+template <int NPROD, int KC, bool STENCIL, typename TX>
+int rot_go(const TX* x, const float* N, const rfs::bf16* Bc,
+           const float* prev, const float* nxt, const float* taps, TX* y,
            const rf::Affine& epi, int naux, int q, int n, int sl, int nv,
            int hp, int hn, int ntaps, int start_clamp, int end_clamp,
            cudaStream_t stream) {
   constexpr int KP = T + 16 * KC, NC = rfw::b_chunks(NPROD);
   int nwg = 2;
-  while (nwg > 0 && rot_smem(KP, NC, sl, hp, hn, ntaps, nwg) > MAX_SMEM)
+  while (nwg > 0 &&
+         rot_smem<TX>(KP, NC, sl, hp, hn, ntaps, nwg) > MAX_SMEM)
     --nwg;
   if (nwg == 0) return (int)cudaErrorLaunchOutOfResources;
-  const long smem = rot_smem(KP, NC, sl, hp, hn, ntaps, nwg);
+  const long smem = rot_smem<TX>(KP, NC, sl, hp, hn, ntaps, nwg);
   cudaError_t err = cudaFuncSetAttribute(
-      completion_rot_kernel<NPROD, KC, STENCIL>,
+      completion_rot_kernel<NPROD, KC, STENCIL, TX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long nb = (q + rfw::TM - 1) / rfw::TM;
   const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, nwg));
-  completion_rot_kernel<NPROD, KC, STENCIL>
+  completion_rot_kernel<NPROD, KC, STENCIL, TX>
       <<<grid, nwg * rfw::WG, (int)smem, stream>>>(
           x, N, Bc, prev, nxt, taps, y, epi, naux, q, n, sl, nv, hp, hn,
           ntaps, start_clamp, end_clamp, nwg);
   return (int)cudaGetLastError();
 }
 
-template <int NPROD, int KC>
-int rot_launch_kc(const float* x, const float* N, const rfs::bf16* Bc,
+// the body with or without a stencil (a bf16 x: none)
+template <int NPROD, int KC, typename TX>
+int rot_launch_kc(const TX* x, const float* N, const rfs::bf16* Bc,
                   const float* prev, const float* nxt, const float* taps,
-                  float* y, const rf::Affine& epi, int naux, int q, int n,
+                  TX* y, const rf::Affine& epi, int naux, int q, int n,
                   int sl, int nv, int hp, int hn, int ntaps, int start_clamp,
                   int end_clamp, cudaStream_t stream) {
-  if (ntaps > 0)
-    return rot_go<NPROD, KC, true>(x, N, Bc, prev, nxt, taps, y, epi, naux,
-                                   q, n, sl, nv, hp, hn, ntaps, start_clamp,
-                                   end_clamp, stream);
+  if constexpr (std::is_same<TX, float>::value) {
+    if (ntaps > 0)
+      return rot_go<NPROD, KC, true>(x, N, Bc, prev, nxt, taps, y, epi,
+                                     naux, q, n, sl, nv, hp, hn, ntaps,
+                                     start_clamp, end_clamp, stream);
+  } else if (ntaps > 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   return rot_go<NPROD, KC, false>(x, N, Bc, prev, nxt, taps, y, epi, naux, q,
                                   n, sl, nv, hp, hn, ntaps, start_clamp,
                                   end_clamp, stream);
 }
 
-template <int NPROD>
-int rot_launch_np(const float* x, const float* N, const rfs::bf16* Bc,
+template <int NPROD, typename TX>
+int rot_launch_np(const TX* x, const float* N, const rfs::bf16* Bc,
                   const float* prev, const float* nxt, const float* taps,
-                  float* y, const rf::Affine& epi, int naux, int q, int n,
+                  TX* y, const rf::Affine& epi, int naux, int q, int n,
                   int sl, int nv, int hp, int hn, int ntaps, int start_clamp,
                   int end_clamp, cudaStream_t s) {
   switch ((sl + 15) / 16) {
@@ -91,14 +99,19 @@ int rot_launch_np(const float* x, const float* N, const rfs::bf16* Bc,
   }
 }
 
+bool rot_args_ok(int q, int n, int sl, int nv, int hp, int hn, int ntaps,
+                 int naux) {
+  return !(sl < 8 || sl > MAX_SL || sl % 8 || hp < 0 || hn < 0 || hp > T ||
+           hn > T || ntaps < 0 || (ntaps == 0 && (hp || hn)) || q < 1 ||
+           n < 1 || (nv != 1 && nv != 3) || naux < 0 || naux > rf::MAX_AUX);
+}
+
 int rot_launch(const float* x, const float* N, const void* Bc,
                const float* prev, const float* nxt, const float* taps,
                float* y, const rf::Affine& epi, int naux, int q, int n,
                int sl, int nv, int hp, int hn, int ntaps, int start_clamp,
                int end_clamp, int nprod, cudaStream_t s) {
-  if (sl < 8 || sl > MAX_SL || sl % 8 || hp < 0 || hn < 0 || hp > T ||
-      hn > T || ntaps < 0 || (ntaps == 0 && (hp || hn)) || q < 1 || n < 1 ||
-      (nv != 1 && nv != 3) || naux < 0 || naux > rf::MAX_AUX)
+  if (!rot_args_ok(q, n, sl, nv, hp, hn, ntaps, naux))
     return (int)cudaErrorInvalidValue;
   const rfs::bf16* B = static_cast<const rfs::bf16*>(Bc);
   switch (nprod) {
@@ -121,6 +134,18 @@ int rot_launch(const float* x, const float* N, const void* Bc,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// bf16 storage: nprod 1, no stencil (the JAX package's _kernel_nprod)
+int rot_launch_bf16(const void* x, const float* N, const void* Bc, void* y,
+                    const rf::Affine& epi, int naux, int q, int n, int sl,
+                    int nv, int nprod, cudaStream_t s) {
+  if (nprod != 1 || !rot_args_ok(q, n, sl, nv, 0, 0, 0, naux))
+    return (int)cudaErrorInvalidValue;
+  return rot_launch_np<1>(static_cast<const rf::bf16*>(x), N,
+                          static_cast<const rfs::bf16*>(Bc), nullptr,
+                          nullptr, nullptr, static_cast<rf::bf16*>(y), epi,
+                          naux, q, n, sl, nv, 0, 0, 0, 0, 0, s);
 }
 
 }  // namespace
@@ -154,6 +179,29 @@ extern "C" int completion_rot_epi_launch(
                     rf::make_affine(aux0, aux1, aux2, aux3, coef), k, q, n,
                     sl, nv, hp, hn, ntaps, start_clamp, end_clamp, nprod,
                     (cudaStream_t)stream);
+}
+
+// x (q, n, 128) and y (n * 128, q) bf16, nprod 1, no stencil; the rest as
+// completion_rot_launch
+extern "C" int completion_rot_bf16_launch(const void* x, const float* N,
+                                          const void* Bc, void* y, int q,
+                                          int n, int sl, int nv, int nprod,
+                                          void* stream) {
+  return rot_launch_bf16(x, N, Bc, y, rf::Affine{}, 0, q, n, sl, nv, nprod,
+                         (cudaStream_t)stream);
+}
+
+// x, y bf16 as completion_rot_bf16_launch; the aux arrays float32 in y's
+// layout, coef as completion_rot_epi_launch
+extern "C" int completion_rot_epi_bf16_launch(
+    const void* x, const float* N, const void* Bc, const float* aux0,
+    const float* aux1, const float* aux2, const float* aux3,
+    const float* coef, void* y, int q, int n, int sl, int nv, int k,
+    int nprod, void* stream) {
+  if (coef == nullptr) return (int)cudaErrorInvalidValue;
+  return rot_launch_bf16(x, N, Bc, y,
+                         rf::make_affine(aux0, aux1, aux2, aux3, coef), k, q,
+                         n, sl, nv, nprod, (cudaStream_t)stream);
 }
 
 extern "C" const char* completion_rot_error_string(int err) {

@@ -69,6 +69,22 @@
 // both x stages, the loads after the tails: 12 % slower than completion_rot
 // + tails; warpgroups on items of their own, each in two halves with the
 // chains kept in shared memory between them: 1.2x slower.)
+//
+// bf16 storage (completion_rot_bf16, completion_rot_epi_bf16,
+// completion_rot_tails_bf16: completion_pass(rot=True) on a bf16 x at
+// NPROD 1, the JAX package's bf16 mode, with no stencil): the x stage holds
+// bf16 rows (completion_tc.cuh's stage_x), the products are those of NPROD
+// 1 on the same values, and the fp32 accumulators (after the epilogue,
+// whose aux arrays stay fp32) are rounded once to bf16. A warp's bf16
+// outputs of one row are 16 B an instruction where the fp32 ones are 32 B:
+// so rot_store packs them first — two shuffles pair each line with the
+// next (one 4-byte word), one more joins those pairs into four lines (8
+// bytes) — and each store instruction writes 32 consecutive bytes of 8
+// rows (16 lines each), where rows start 8-byte aligned (q % 4 == 0);
+// else one 2-byte store an element. The
+// tails kernel's chains read the outputs as rounded to bf16, so the chained
+// tails are those tails.cu reads from the stored y, bit for bit (the JAX
+// package extracts them from the fp32 accumulators).
 #pragma once
 
 #include "completion_tc.cuh"
@@ -79,45 +95,41 @@ namespace {
 constexpr int LDZ = rfw::TM + 4;
 
 // One warpgroup's item — 64 lines of tile t from line l0, and their sl
-// carry rows — into its stage, asynchronously; lines past q as zeros.
-__device__ __forceinline__ void stage_item(float* Xs,
-                                           const float* __restrict__ x,
+// carry rows — into its stage (x's rows at Xs, the carry rows at Ns),
+// asynchronously; lines past q as zeros.
+template <typename TX>
+__device__ __forceinline__ void stage_item(TX* Xs, float* Ns,
+                                           const TX* __restrict__ x,
                                            const float* __restrict__ N,
                                            int t, int l0, int q, int n,
                                            int sl, int tid, bool vec) {
-  for (int i = tid; i < rfw::TM * (T / 4); i += rfw::WG) {
-    const int rr = i >> 5, c4 = i & 31;
-    const bool ok = l0 + rr < q;
-    rfp::cp16(Xs + rr * LDXS + 4 * c4,
-              ok ? x + ((long)(l0 + rr) * n + t) * T + 4 * c4 : x, ok);
-  }
-  float* Nw = Xs + XST;
+  stage_x(Xs, x, t, l0, q, n, tid);
   const float* Nt = N + (long)t * sl * q + l0;
   if (vec) {
     for (int i = tid; i < sl * (rfw::TM / 4); i += rfw::WG) {
       const int s = i >> 4, l = 4 * (i & 15);
       const bool ok = l0 + l < q;
-      rfp::cp16(Nw + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
+      rfp::cp16(Ns + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
     }
   } else {
     for (int i = tid; i < sl * rfw::TM; i += rfw::WG) {
       const int s = i >> 6, l = i & 63;
       const bool ok = l0 + l < q;
-      rfp::cp4(Nw + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
+      rfp::cp4(Ns + s * LDNS + l, ok ? Nt + (long)s * q + l : N, ok);
     }
   }
 }
 
-// The products of a warpgroup's item from its stage Xs (x rows, then the
-// carry rows at Xs + XST): d[4j + 2h + e] is line r + 8h of the item,
-// output 8j + 2qd + e. issued() as split_products'.
-template <int NPROD, int KC, typename Issued>
+// The products of a warpgroup's item from its stage (x rows at Xs, the
+// carry rows at Ns): d[4j + 2h + e] is line r + 8h of the item, output
+// 8j + 2qd + e. issued() as split_products'.
+template <int NPROD, int KC, typename TX, typename Issued>
 __device__ __forceinline__ void item_products(float (&d)[64],
                                               const rfs::bf16* Bs,
-                                              const float* Xs, int sl, int r,
-                                              int qd, Issued&& issued) {
+                                              const TX* Xs, const float* Ns,
+                                              int sl, int r, int qd,
+                                              Issued&& issued) {
   constexpr int KP = T + 16 * KC;
-  const float* Ns = Xs + XST;
   rfw::split_products<NPROD, KC>(
       d, Bs, T * KP, KP,
       [&](int k0, float (&u)[4], float (&w)[4]) {
@@ -133,10 +145,8 @@ __device__ __forceinline__ void item_products(float (&d)[64],
             }
           }
         } else {
-          const float4 a =
-              *reinterpret_cast<const float4*>(Xs + r * LDXS + k0 + 4 * qd);
-          const float4 c = *reinterpret_cast<const float4*>(
-              Xs + (r + 8) * LDXS + k0 + 4 * qd);
+          const float4 a = rf::load4f(Xs + r * LDX + k0 + 4 * qd);
+          const float4 c = rf::load4f(Xs + (r + 8) * LDX + k0 + 4 * qd);
           u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w;
           w[0] = c.x, w[1] = c.y, w[2] = c.z, w[3] = c.w;
         }
@@ -144,10 +154,36 @@ __device__ __forceinline__ void item_products(float (&d)[64],
       issued);
 }
 
+// The bf16 outputs of one j — v[e][h] of row `row` + e, line r + 8h —
+// packed across the warp and stored 8 bytes a lane (the header): with lane
+// bits c = lane/4 % 2 and b = lane/8 % 2, the lane stores row `row` + c,
+// lines `line` .. + 3 (line = the warp's first + 8b + 4 (lane/16)).
+__device__ __forceinline__ void rot_store_packed(rf::bf16* __restrict__ y,
+                                                 const float (&v)[2][2],
+                                                 long row, int line, int q,
+                                                 int lane) {
+  const int c = (lane >> 2) & 1, b = (lane >> 3) & 1;
+  uint32_t w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t p = rfw::as_u32(__floats2bfloat162_rn(v[0][h], v[1][h]));
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, p, 4);
+    // c 0: output e 0 at (its line, the next); c 1: output e 1 at (the
+    // line before, its line)
+    w[h] = c ? __byte_perm(p, o, 0x3276) : __byte_perm(p, o, 0x5410);
+  }
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, b ? w[0] : w[1], 8);
+  if (line < q)
+    *reinterpret_cast<uint2*>(y + (row + c) * q + line) =
+        b ? make_uint2(got, w[1]) : make_uint2(w[0], got);
+}
+
 // The rotated store of a warpgroup's accumulators with no stencil: output
 // row row0 + 8j + 2qd + e, lines l0 + r + 8h; the affine epilogue first.
+// A bf16 y whose rows are 8-byte aligned goes through rot_store_packed.
+template <typename TX>
 __device__ __forceinline__ void rot_store(float (&d)[64],
-                                          float* __restrict__ y,
+                                          TX* __restrict__ y,
                                           const rf::Affine& epi, int naux,
                                           long row0, int l0, int q, int r,
                                           int qd) {
@@ -178,6 +214,20 @@ __device__ __forceinline__ void rot_store(float (&d)[64],
       for (int i = 0; i < 64; ++i) d[i] = fmaf(bk, u[i], d[i]);
     }
   }
+  if constexpr (std::is_same<TX, rf::bf16>::value) {
+    if (q % 4 == 0) {
+      const int lane = threadIdx.x % 32;
+      const int line = l0 + (r - lane / 4) + 8 * ((lane >> 3) & 1) +
+                       4 * (lane >> 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float v[2][2] = {{d[4 * j], d[4 * j + 2]},
+                               {d[4 * j + 1], d[4 * j + 3]}};
+        rot_store_packed(y, v, row0 + 8 * j + 2 * qd, line, q, lane);
+      }
+      return;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -185,7 +235,7 @@ __device__ __forceinline__ void rot_store(float (&d)[64],
       if (ok[h]) {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          y[at[h] + (long)(8 * j + e) * q] = d[4 * j + 2 * h + e];
+          rf::store1(y + at[h] + (long)(8 * j + e) * q, d[4 * j + 2 * h + e]);
       }
 }
 
@@ -260,9 +310,9 @@ __device__ __forceinline__ void rot_stencil(
 
 // Shared memory of completion_rot (bytes): B's chunks, the taps, and per
 // warpgroup a stage, the larger of its x stage and its stencil stage.
-inline long rot_smem(int kp, int nc, int sl, int hp, int hn, int ntaps,
-                     int nwg) {
-  const long xs = XST + (long)sl * LDNS;
+template <typename TX>
+long rot_smem(int kp, int nc, int sl, int hp, int hn, int ntaps, int nwg) {
+  const long xs = xst<TX>() + (long)sl * LDNS;
   const long zh = ntaps ? (long)(hp + T + hn) * LDZ : 0;
   return (long)nc * T * kp * 2 + 4L * ((2L * ntaps + 3) / 4 * 4) +
          4L * nwg * (xs > zh ? xs : zh);
@@ -271,19 +321,22 @@ inline long rot_smem(int kp, int nc, int sl, int hp, int hn, int ntaps,
 // completion_rot, completion_rot_epi: nwg warpgroups (blockDim.x = 128
 // nwg), each with its own item and stages; epi.coef null: no epilogue.
 // STENCIL: ntaps > 0 (a body of its own, so that the emit without one
-// carries no stencil state across the products).
-template <int NPROD, int KC, bool STENCIL>
+// carries no stencil state across the products). TX: x's and y's type,
+// float or bf16 (no stencil).
+template <int NPROD, int KC, bool STENCIL, typename TX>
 __global__ void __launch_bounds__(2 * rfw::WG, 1)
-completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
+completion_rot_kernel(const TX* __restrict__ x,          // (q, n, T)
                       const float* __restrict__ N,       // (n, sl, q)
                       const rfs::bf16* __restrict__ Bc,  // (nv, NCB, T * KP)
                       const float* __restrict__ prev,    // (n, hp, q)
                       const float* __restrict__ nxt,     // (n, hn, q)
                       const float* __restrict__ taps,    // (ntaps, 2): d, c
-                      float* __restrict__ y,             // (n * T, q)
+                      TX* __restrict__ y,                // (n * T, q)
                       rf::Affine epi, int naux,          // aux: (n * T, q)
                       int q, int n, int sl, int nv, int hp, int hn,
                       int ntaps, int start_clamp, int end_clamp, int nwg) {
+  static_assert(!STENCIL || std::is_same<TX, float>::value,
+                "the stencil body stages fp32 outputs");
   constexpr int KP = T + 16 * KC, CH = T * KP;
   constexpr int NCB = rfw::b_chunks(NPROD);
   extern __shared__ uint4 smem16[];
@@ -291,7 +344,7 @@ completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
   int* dt = reinterpret_cast<int*>(Bs + NCB * CH);   // tap offsets d_k
   float* ct = reinterpret_cast<float*>(dt + ntaps);  // tap weights c_k
   float* ring = reinterpret_cast<float*>(dt) + (2 * ntaps + 3) / 4 * 4;
-  const int xs = XST + sl * LDNS, zh = ntaps ? (hp + T + hn) * LDZ : 0;
+  const int xs = xst<TX>() + sl * LDNS, zh = ntaps ? (hp + T + hn) * LDZ : 0;
   const int stage = xs > zh ? xs : zh;  // floats, a multiple of 4
 
   const int wg = threadIdx.x / rfw::WG, tid = threadIdx.x % rfw::WG;
@@ -299,8 +352,9 @@ completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
   const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
   const int nb = (q + rfw::TM - 1) / rfw::TM;
   const bool vec = q % 4 == 0;  // N, the halo rows, y 16-byte aligned rows
-  float* Xs = ring + wg * stage;
-  float* Z = Xs;  // the stencil stage, over the x stage
+  TX* Xs = reinterpret_cast<TX*>(ring + wg * stage);
+  float* Ns = ring + wg * stage + xst<TX>();
+  float* Z = ring + wg * stage;  // the stencil stage, over the x stage
   const rfp::Walk walk(n, nb, nv, nwg);
   for (int k = threadIdx.x; k < ntaps; k += blockDim.x) {
     dt[k] = (int)taps[2 * k];
@@ -313,7 +367,7 @@ completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
     if (g >= walk.gs[3] || it >= end) return false;
     int t, b;
     rfp::item(it, n, nb, nv, t, b);
-    stage_item(Xs, x, N, t, b * rfw::TM, q, n, sl, tid, vec);
+    stage_item(Xs, Ns, x, N, t, b * rfw::TM, q, n, sl, tid, vec);
     return true;
   };
 
@@ -343,7 +397,7 @@ completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
     rfp::item(it, n, nb, nv, t, b);
     const int l0 = b * rfw::TM;
     float d[64];
-    item_products<NPROD, KC>(d, Bs, Xs, sl, r, qd, [&] {
+    item_products<NPROD, KC>(d, Bs, Xs, Ns, sl, r, qd, [&] {
       if constexpr (!STENCIL) {  // the stage is in registers: the next
         rfw::wg_sync(wg);        // item's loads
         have = load(g + gridDim.x);
@@ -377,20 +431,21 @@ completion_rot_kernel(const float* __restrict__ x,       // (q, n, T)
 }
 
 // completion_rot_tails (sl = 8, KC 1): two warpgroups, an item a 128-line
-// block b of tile t, warpgroup wg its lines b*128 + 64 wg.
-template <int NPROD>
+// block b of tile t, warpgroup wg its lines b*128 + 64 wg. TX: x's and y's
+// type (the tails read y's values as stored).
+template <int NPROD, typename TX>
 __global__ void __launch_bounds__(2 * rfw::WG, 1)
-completion_rot_tails_kernel(const float* __restrict__ x,       // (q, n, T)
+completion_rot_tails_kernel(const TX* __restrict__ x,          // (q, n, T)
                             const float* __restrict__ N,       // (n, 8, q)
                             const rfs::bf16* __restrict__ Bc,  // (nv, NCB,
                                                                //  T * KP)
                             const float* __restrict__ G2,      // (nv2, 8, T)
-                            float* __restrict__ y,             // (n * T, q)
+                            TX* __restrict__ y,                // (n * T, q)
                             float* __restrict__ tails2,  // (n2, 8, n*T*ra)
                             int q, int n, int nv, int n2, int S2, int nv2) {
   constexpr int SL = 8, KP = T + 16, CH = T * KP;
   constexpr int NCB = rfw::b_chunks(NPROD);
-  constexpr int STAGE = XST + SL * LDNS;
+  constexpr int STAGE = xst<TX>() + SL * LDNS;
   extern __shared__ uint4 smem16[];
   rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);
   float* ring = reinterpret_cast<float*>(Bs + NCB * CH);
@@ -402,7 +457,8 @@ completion_rot_tails_kernel(const float* __restrict__ x,       // (q, n, T)
   const int lane = tid % 32, qd = lane % 4;
   const int r = 16 * (tid / 32) + lane / 4;
   const int nb = q / T;
-  float* Xs = ring + wg * STAGE;
+  TX* Xs = reinterpret_cast<TX*>(ring + wg * STAGE);
+  float* Ns = ring + wg * STAGE + xst<TX>();
   const rfp::Walk walk(n, nb, nv, 1);
   const long nT = (long)n * T;
   const int ra = q / (n2 * T);
@@ -413,7 +469,7 @@ completion_rot_tails_kernel(const float* __restrict__ x,       // (q, n, T)
     if (g >= walk.gs[3]) return;
     int end, t, b;
     rfp::item(walk.first(g, 1, end), n, nb, nv, t, b);
-    stage_item(Xs, x, N, t, b * T + wg * rfw::TM, q, n, SL, tid, true);
+    stage_item(Xs, Ns, x, N, t, b * T + wg * rfw::TM, q, n, SL, tid, true);
   };
 
   load(blockIdx.x);
@@ -430,12 +486,14 @@ completion_rot_tails_kernel(const float* __restrict__ x,       // (q, n, T)
     rfp::wait_pending(0);  // this item's stage
     rfw::wg_sync(wg);
     float d[64];
-    item_products<NPROD, 1>(d, Bs, Xs, SL, r, qd, [&] {
+    item_products<NPROD, 1>(d, Bs, Xs, Ns, SL, r, qd, [&] {
       rfw::wg_sync(wg);  // the stage is in registers: the next item's loads
       load(g + gridDim.x);
       rfp::commit();
     });
     const int l0 = b * T + wg * rfw::TM;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = rf::stored<TX>(d[i]);
     rot_store(d, y, rf::Affine{}, 0, (long)t * T, l0, q, r, qd);
 
     const int a = b / n2, c = b % n2;

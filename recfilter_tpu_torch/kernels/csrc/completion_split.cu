@@ -21,6 +21,13 @@
 // completion_pass(rot=False, nprod=n) with its eaux
 // (recfilter_tpu/kernels/completion.py:273-278). Each aux adds 4 B per
 // sample of reads.
+//
+// completion_split_bf16, completion_split_epi_bf16 (bf16 storage: the JAX
+// package's bf16 mode runs completion_pass on a bf16 x at nprod 1): x read
+// as bf16 into the one data chunk (its own split, exact), the carry rows
+// at carry_nprod(1) = 3 products as at nprod 1, the fp32 accumulators
+// (after the epilogue; its aux arrays float32) rounded once to bf16 in the
+// store. 4 B of traffic per sample in place of 8.
 
 #include "completion_tc.cuh"
 
@@ -56,6 +63,32 @@ extern "C" int completion_split_epi_launch(
     case 4: return static_launch<4>(x, N, Bc, y, e, k, q, n, sl, nv, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// x, y (q, n, 128) bf16, nprod 1 (bf16 storage); the rest as
+// completion_split_launch
+extern "C" int completion_split_bf16_launch(const void* x, const float* N,
+                                            const void* Bc, void* y, int q,
+                                            int n, int sl, int nv, int nprod,
+                                            void* stream) {
+  if (nprod != 1) return (int)cudaErrorInvalidValue;
+  return static_launch<1>(static_cast<const rf::bf16*>(x), N, Bc,
+                          static_cast<rf::bf16*>(y), rf::Affine{}, 0, q, n,
+                          sl, nv, (cudaStream_t)stream);
+}
+
+// x, y bf16, nprod 1; the aux arrays float32 in y's layout; the rest as
+// completion_split_epi_launch
+extern "C" int completion_split_epi_bf16_launch(
+    const void* x, const float* N, const void* Bc, const float* aux0,
+    const float* aux1, const float* aux2, const float* aux3,
+    const float* coef, void* y, int q, int n, int sl, int nv, int k,
+    int nprod, void* stream) {
+  if (coef == nullptr || nprod != 1) return (int)cudaErrorInvalidValue;
+  return static_launch<1>(static_cast<const rf::bf16*>(x), N, Bc,
+                          static_cast<rf::bf16*>(y),
+                          rf::make_affine(aux0, aux1, aux2, aux3, coef), k,
+                          q, n, sl, nv, (cudaStream_t)stream);
 }
 
 extern "C" const char* completion_split_error_string(int err) {

@@ -4,7 +4,9 @@
 // (NPROD 6; its header gives the design) and of completion_split.cu's
 // completion_split (NPROD 1, 3, 4): one kernel, two sources, so that nvcc
 // builds their instantiations in parallel (each source its own library,
-// hence the anonymous namespace).
+// hence the anonymous namespace). x and y are float, or bf16 (bf16
+// storage, completion_split_bf16 at NPROD 1: the stage holds x's bf16 rows,
+// read widened into the one data chunk, exact; y rounded once).
 #pragma once
 
 #include "common.cuh"
@@ -18,15 +20,26 @@ constexpr int T = rf::GT;          // tile width, and lines per block
 constexpr int MAX_SL = 56;         // carry rows the layout takes
 constexpr long MAX_SMEM = 232448;  // shared memory a block may take
 
-// x stage row stride LDXS, carry stage row stride LDNS (floats).
-constexpr int LDXS = 144;
+// x stage row stride (elements of x's type TX) and carry stage row stride
+// LDNS (floats). A fragment read takes four consecutive samples of rows r
+// and r + 8 a thread (lanes r = lane / 4, qd = lane % 4): 16 bytes at
+// fp32, where a quarter warp reads two rows (144 floats apart: 16 banks),
+// 8 bytes at bf16, where a half warp reads four rows (144 bf16 apart: 8
+// banks) — no bank conflict either way, and each row 16-byte aligned.
+constexpr int LDX = 144;
 constexpr int LDNS = 68;
-constexpr int XST = rfw::TM * LDXS;  // floats of a stage's x rows
+// floats of a stage's x rows
+template <typename TX>
+__host__ __device__ constexpr int xst() {
+  return rfw::TM * LDX * (int)sizeof(TX) / 4;
+}
+constexpr int XST = xst<float>();
 
 // Shared memory (bytes): the nc chunks of B (KP rows), one stage a
 // warpgroup.
+template <typename TX = float>
 constexpr long tc_smem(int kp, int sl, int nwg, int nc) {
-  return (long)nc * T * kp * 2 + 4L * nwg * (XST + (long)sl * LDNS);
+  return (long)nc * T * kp * 2 + 4L * nwg * (xst<TX>() + (long)sl * LDNS);
 }
 // completion_traced (sl = 8, px6) runs two warpgroups, whose stages hold
 // its fp32 [Btot | Rcat] (S <= 8) while it splits them
@@ -34,21 +47,37 @@ static_assert(tc_smem(T + 16, 8, 2, rfw::b_chunks(6)) <= MAX_SMEM &&
                   2 * (XST + 8 * LDNS) >= T * (T + 8),
               "completion_traced's matrices outgrow its stages");
 
+// 64 lines of tile t from line l0 into a stage's x rows Xs, asynchronously
+// (16-byte copies; lines past q as zeros).
+template <typename TX>
+__device__ __forceinline__ void stage_x(TX* Xs, const TX* __restrict__ x,
+                                        int t, int l0, int q, int n,
+                                        int tid) {
+  constexpr int V = 16 / (int)sizeof(TX);  // elements a copy
+  for (int i = tid; i < rfw::TM * (T / V); i += rfw::WG) {
+    const int rr = i / (T / V), c = V * (i % (T / V));
+    const bool ok = l0 + rr < q;
+    rfp::cp16(Xs + rr * LDX + c,
+              ok ? x + ((long)(l0 + rr) * n + t) * T + c : x, ok);
+  }
+}
+
 // NPROD: the grade (6 for completion, completion_epi and completion_traced;
 // 1, 3, 4 for completion_split). TRACED: Btot, Rcat runtime fp32 matrices
 // split here (one variant, sl = 8); else Bc, the host's chunks (nv, NCB,
 // 128 * KP) in core-matrix order.
 // S: the carry rows read from N (sl, or the real rows of Rcat); rows S..
-// are zeros. epi.coef null: no epilogue; else naux aux arrays. nwg
-// warpgroups (blockDim.x = 128 nwg), each with its own stage and items.
-template <bool TRACED, int KC, int NPROD>
+// are zeros. epi.coef null: no epilogue; else naux aux arrays (float32).
+// nwg warpgroups (blockDim.x = 128 nwg), each with its own stage and items.
+// TX: x's and y's type, float or bf16 (not TRACED).
+template <bool TRACED, int KC, int NPROD, typename TX = float>
 __global__ void __launch_bounds__(2 * rfw::WG, 1)
-completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
+completion_tc_kernel(const TX* __restrict__ x,          // (q, n, T)
                      const float* __restrict__ N,       // (n, sl, q)
                      const rfs::bf16* __restrict__ Bc,  // (nv, NCB, T * KP)
                      const float* __restrict__ Btot,    // traced: (T, T)
                      const float* __restrict__ Rcat,    // traced: (T, S)
-                     float* __restrict__ y,             // (q, n, T)
+                     TX* __restrict__ y,                // (q, n, T)
                      rf::Affine epi, int naux, int q, int n, int sl, int nv,
                      int S, int nwg) {
   constexpr int KP = T + 16 * KC;  // the contraction, padded
@@ -56,7 +85,7 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
   constexpr int NCB = rfw::b_chunks(NPROD);  // chunks of B
   extern __shared__ uint4 smem16[];
   rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);
-  const int stage = XST + sl * LDNS;  // floats, a multiple of 4
+  const int stage = xst<TX>() + sl * LDNS;  // floats, a multiple of 4
   float* ring = reinterpret_cast<float*>(Bs + NCB * CH);
 
   const int wg = threadIdx.x / rfw::WG, tid = threadIdx.x % rfw::WG;
@@ -64,8 +93,8 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
   const int r = 16 * (tid / 32) + lane / 4;  // fragment rows r, r + 8
   const int nb = (q + rfw::TM - 1) / rfw::TM;
   const bool vec = q % 4 == 0;  // N's rows 16-byte aligned
-  float* Xs = ring + wg * stage;  // this warpgroup's stage
-  const float* Ns = Xs + XST;
+  TX* Xs = reinterpret_cast<TX*>(ring + wg * stage);  // this warpgroup's
+  float* Ns = ring + wg * stage + xst<TX>();             // stage
   const rfp::Walk walk(n, nb, nv, nwg);
 
   // this warpgroup's item of group g into its stage, asynchronously;
@@ -77,13 +106,8 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
     int t, b;
     rfp::item(it, n, nb, nv, t, b);
     const int l0 = b * rfw::TM;
-    for (int i = tid; i < rfw::TM * (T / 4); i += rfw::WG) {
-      const int rr = i >> 5, c4 = i & 31;
-      const bool ok = l0 + rr < q;
-      rfp::cp16(Xs + rr * LDXS + 4 * c4,
-                ok ? x + ((long)(l0 + rr) * n + t) * T + 4 * c4 : x, ok);
-    }
-    float* Nw = Xs + XST;
+    stage_x(Xs, x, t, l0, q, n, tid);
+    float* Nw = Ns;
     const float* Nt = N + (long)t * sl * q + l0;
     if (vec) {
       for (int i = tid; i < sl * (rfw::TM / 4); i += rfw::WG) {
@@ -180,10 +204,8 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
               }
             }
           } else {
-            const float4 a = *reinterpret_cast<const float4*>(
-                Xs + r * LDXS + k0 + 4 * qd);
-            const float4 c = *reinterpret_cast<const float4*>(
-                Xs + (r + 8) * LDXS + k0 + 4 * qd);
+            const float4 a = rf::load4f(Xs + r * LDX + k0 + 4 * qd);
+            const float4 c = rf::load4f(Xs + (r + 8) * LDX + k0 + 4 * qd);
             u[0] = a.x, u[1] = a.y, u[2] = a.z, u[3] = a.w;
             w[0] = c.x, w[1] = c.y, w[2] = c.z, w[3] = c.w;
           }
@@ -233,45 +255,46 @@ completion_tc_kernel(const float* __restrict__ x,       // (q, n, T)
       if (ok[h]) {
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(y + base[h] + 8 * j) =
-              make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+          rf::store2(y + base[h] + 8 * j, d[4 * j + 2 * h],
+                     d[4 * j + 2 * h + 1]);
       }
   }
 }
 
 // Two warpgroups where their stages fit beside B's nc chunks, else one,
 // else 0.
+template <typename TX>
 constexpr int tc_nwg(int kp, int sl, int nc) {
-  return tc_smem(kp, sl, 2, nc) <= MAX_SMEM
+  return tc_smem<TX>(kp, sl, 2, nc) <= MAX_SMEM
              ? 2
-             : (tc_smem(kp, sl, 1, nc) <= MAX_SMEM);
+             : (tc_smem<TX>(kp, sl, 1, nc) <= MAX_SMEM);
 }
 
-template <bool TRACED, int KC, int NPROD>
-int tc_launch(const float* x, const float* N, const rfs::bf16* Bc,
-              const float* Btot, const float* Rcat, float* y,
+template <bool TRACED, int KC, int NPROD, typename TX>
+int tc_launch(const TX* x, const float* N, const rfs::bf16* Bc,
+              const float* Btot, const float* Rcat, TX* y,
               const rf::Affine& epi, int naux, int q, int n, int sl, int nv,
               int S, cudaStream_t stream) {
   constexpr int KP = T + 16 * KC, NC = rfw::b_chunks(NPROD);
-  const int nwg = tc_nwg(KP, sl, NC);
+  const int nwg = tc_nwg<TX>(KP, sl, NC);
   if (nwg == 0) return (int)cudaErrorLaunchOutOfResources;
-  const long smem = tc_smem(KP, sl, nwg, NC);
+  const long smem = tc_smem<TX>(KP, sl, nwg, NC);
   cudaError_t err = cudaFuncSetAttribute(
-      completion_tc_kernel<TRACED, KC, NPROD>,
+      completion_tc_kernel<TRACED, KC, NPROD, TX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long nb = (q + rfw::TM - 1) / rfw::TM;
   const int grid = rfp::persistent_grid(rfp::walk_groups(n, nb, nv, nwg));
-  completion_tc_kernel<TRACED, KC, NPROD>
+  completion_tc_kernel<TRACED, KC, NPROD, TX>
       <<<grid, nwg * rfw::WG, (int)smem, stream>>>(
           x, N, Bc, Btot, Rcat, y, epi, naux, q, n, sl, nv, S, nwg);
   return (int)cudaGetLastError();
 }
 
-// completion, completion_epi (NPROD 6) and completion_split (1, 3, 4): KC =
-// sl / 16 rounded up carry k16 steps
-template <int NPROD>
-int static_launch(const float* x, const float* N, const void* Bc, float* y,
+// completion, completion_epi (NPROD 6) and completion_split (1, 3, 4; and
+// bf16 at 1): KC = sl / 16 rounded up carry k16 steps
+template <int NPROD, typename TX = float>
+int static_launch(const TX* x, const float* N, const void* Bc, TX* y,
                   const rf::Affine& epi, int naux, int q, int n, int sl,
                   int nv, cudaStream_t stream) {
   if (sl < 8 || sl > MAX_SL || sl % 8 || q < 1 || n < 1 ||

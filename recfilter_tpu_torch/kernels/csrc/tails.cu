@@ -56,6 +56,13 @@
 // Bulk copies (cp.async.bulk, a 512-byte row each, counted on an
 // mbarrier) in place of the cp.async ring measured slower (0.056 ms at
 // L1), and two threads a line splitting the slots no faster (0.040).
+//
+// bf16 storage (tails_bf16: tails_pass on a bf16 x, which the JAX
+// package's bf16 mode gives it): the ring holds bf16 rows (256 B, row
+// stride 136 elements: the same banks as the fp32 rows' 132 floats), each
+// thread reads eight values a 16-byte word and widens them (exact), so the
+// fp64 sums are the fp32 entry's on the same values, bit for bit; G stays
+// fp32. 2 B per sample read: the bound halves.
 
 #include "common.cuh"
 #include "pipeline.cuh"
@@ -63,7 +70,14 @@
 namespace {
 
 constexpr int T = 128;          // tile width
-constexpr int XS = T + 4;       // padded shared row stride of the x rows
+// The ring's row stride in elements of x's type TX (one row a thread, read
+// 16 bytes at a time): 16 bytes past the row, so that a quarter warp's
+// reads fall 4 banks apart and each row stays 16-byte aligned for cp.async.
+template <typename TX>
+__host__ __device__ constexpr int padded_row() {
+  return T + 16 / (int)sizeof(TX);
+}
+constexpr int XS = padded_row<float>();  // fp32 row stride (extra rows too)
 constexpr int MAX_SL = 56;      // carry rows the layout takes
 constexpr long MAX_SMEM = 232448;  // shared memory a block may take
 constexpr int MAX_HE = 256;     // extra rows: a reach of 128 each way
@@ -99,40 +113,57 @@ __device__ __forceinline__ void load4(const float* p, float (&g)[4]) {
 
 constexpr int TL = rfp::GT;  // lines per item, and threads per block
 
-// SL: the slot rows (sl), S <= SL of them real; nst: the ring's stages
-template <typename Acc, int SL>
+// The values of one 16-byte word of a ring row, as floats: one load a
+// thread, so that a quarter warp's reads of rows 4 banks apart are free of
+// conflicts.
+__device__ __forceinline__ void word16(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void word16(const rf::bf16* p, float (&v)[8]) {
+  float4 lo, hi;
+  rf::widen8(*reinterpret_cast<const uint4*>(p), lo, hi);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// SL: the slot rows (sl), S <= SL of them real; nst: the ring's stages; TX:
+// x's type, float or bf16 (the ring's rows, padded_row<TX>() elements)
+template <typename Acc, int SL, typename TX>
 __global__ void __launch_bounds__(TL, 1)
-tails_kernel(const float* __restrict__ x,  // (q, n, T)
+tails_kernel(const TX* __restrict__ x,     // (q, n, T)
              const float* __restrict__ G,  // (nv, SL, T)
              float* __restrict__ out,      // (n, SL, q)
              int q, int n, int S, int nv, int nst) {
+  constexpr int V = 16 / (int)sizeof(TX);  // elements a 16-byte word
+  constexpr int RS = padded_row<TX>();
   extern __shared__ float4 smem4[];
-  Acc* gs = reinterpret_cast<Acc*>(smem4);             // S x T
-  float* ring = reinterpret_cast<float*>(gs + S * T);  // nst x TL x XS
+  Acc* gs = reinterpret_cast<Acc*>(smem4);       // S x T
+  TX* ring = reinterpret_cast<TX*>(gs + S * T);  // nst x TL x RS
 
   const int tid = threadIdx.x;
   const int nb = (q + TL - 1) / TL, items = n * nb;
-  auto load = [&](int it, float* st) {
+  auto load = [&](int it, TX* st) {
     int t, b;
     rfp::item(it, n, nb, nv, t, b);
     const int l0 = b * TL;
-    for (int i = tid; i < TL * (T / 4); i += TL) {
-      const int r = i >> 5, c4 = i & 31;
+    for (int i = tid; i < TL * (T / V); i += TL) {
+      const int r = i / (T / V), c = V * (i % (T / V));
       const bool ok = l0 + r < q;
-      rfp::cp16(st + r * XS + 4 * c4,
-                ok ? x + ((long)(l0 + r) * n + t) * T + 4 * c4 : x, ok);
+      rfp::cp16(st + r * RS + c,
+                ok ? x + ((long)(l0 + r) * n + t) * T + c : x, ok);
     }
   };
 
   for (int p = 0; p + 1 < nst; ++p) {  // the ring's first items
     const int it = blockIdx.x + p * gridDim.x;
-    if (it < items) load(it, ring + p * TL * XS);
+    if (it < items) load(it, ring + p * TL * RS);
     rfp::commit();
   }
   int cur_v = -1, idx = 0;
   for (int it = blockIdx.x; it < items; it += gridDim.x, ++idx) {
     const int ahead = it + (nst - 1) * gridDim.x;
-    if (ahead < items) load(ahead, ring + (idx + nst - 1) % nst * TL * XS);
+    if (ahead < items) load(ahead, ring + (idx + nst - 1) % nst * TL * RS);
     rfp::commit();
     int t, b;
     rfp::item(it, n, nb, nv, t, b);
@@ -145,24 +176,30 @@ tails_kernel(const float* __restrict__ x,  // (q, n, T)
     rfp::wait_pending(nst - 1);  // this item's rows landed
     __syncthreads();
 
-    const float* xr = ring + idx % nst * TL * XS + tid * XS;
+    const TX* xr = ring + idx % nst * TL * RS + tid * RS;
     Acc acc[SL];
 #pragma unroll
     for (int s = 0; s < SL; ++s) acc[s] = Acc(0);
-#pragma unroll 2
-    for (int tau = 0; tau < T; tau += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + tau);
-      const Acc x0 = Acc(xv.x), x1 = Acc(xv.y), x2 = Acc(xv.z),
-                x3 = Acc(xv.w);
+    // eight samples an iteration at either type (two words of fp32, one
+    // of bf16), each group of four summed into every slot in turn
+#pragma unroll(8 / V)
+    for (int tau = 0; tau < T; tau += V) {
+      float xf[V];  // the V values of one 16-byte word, in order
+      word16(xr + tau, xf);
 #pragma unroll
-      for (int s = 0; s < SL; ++s) {
-        if (s < S) {
-          Acc g[4];
-          load4(gs + s * T + tau, g);
-          acc[s] = madd(g[0], x0, acc[s]);
-          acc[s] = madd(g[1], x1, acc[s]);
-          acc[s] = madd(g[2], x2, acc[s]);
-          acc[s] = madd(g[3], x3, acc[s]);
+      for (int u = 0; u < V; u += 4) {
+        const Acc x0 = Acc(xf[u]), x1 = Acc(xf[u + 1]), x2 = Acc(xf[u + 2]),
+                  x3 = Acc(xf[u + 3]);
+#pragma unroll
+        for (int s = 0; s < SL; ++s) {
+          if (s < S) {
+            Acc g[4];
+            load4(gs + s * T + tau + u, g);
+            acc[s] = madd(g[0], x0, acc[s]);
+            acc[s] = madd(g[1], x1, acc[s]);
+            acc[s] = madd(g[2], x2, acc[s]);
+            acc[s] = madd(g[3], x3, acc[s]);
+          }
         }
       }
     }
@@ -245,29 +282,31 @@ tails_extra_kernel(const float* __restrict__ x,  // (q, n, T)
 }
 
 // Shared memory of tails_kernel (bytes): G's S rows in the accumulator's
-// type, nst stages.
-inline long tails_smem(int S, int acc_bytes, int nst) {
-  return (long)S * T * acc_bytes + (long)nst * TL * XS * sizeof(float);
+// type, nst stages of TL rows of x's type.
+template <typename TX>
+long tails_smem(int S, int acc_bytes, int nst) {
+  return (long)S * T * acc_bytes +
+         (long)nst * TL * padded_row<TX>() * (long)sizeof(TX);
 }
 
-template <typename Acc, int SL>
-int tails_go(const float* x, const float* G, float* out, int q, int n, int S,
+template <typename Acc, int SL, typename TX>
+int tails_go(const TX* x, const float* G, float* out, int q, int n, int S,
              int nv, cudaStream_t stream) {
-  const int nst = tails_smem(S, sizeof(Acc), 3) <= MAX_SMEM ? 3 : 2;
-  const long smem = tails_smem(S, sizeof(Acc), nst);
+  const int nst = tails_smem<TX>(S, sizeof(Acc), 3) <= MAX_SMEM ? 3 : 2;
+  const long smem = tails_smem<TX>(S, sizeof(Acc), nst);
   if (smem > MAX_SMEM) return (int)cudaErrorLaunchOutOfResources;
   cudaError_t err = cudaFuncSetAttribute(
-      tails_kernel<Acc, SL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tails_kernel<Acc, SL, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = rfp::persistent_grid((long)n * ((q + TL - 1) / TL));
-  tails_kernel<Acc, SL><<<grid, TL, (int)smem, stream>>>(x, G, out, q, n, S,
-                                                          nv, nst);
+  tails_kernel<Acc, SL, TX><<<grid, TL, (int)smem, stream>>>(
+      x, G, out, q, n, S, nv, nst);
   return (int)cudaGetLastError();
 }
 
-template <typename Acc>
-int tails_sl(const float* x, const float* G, float* out, int q, int n, int S,
+template <typename Acc, typename TX>
+int tails_sl(const TX* x, const float* G, float* out, int q, int n, int S,
              int sl, int nv, cudaStream_t stream) {
   if (S < 1 || S > sl || q < 1 || n < 1 || (nv != 1 && nv != 3))
     return (int)cudaErrorInvalidValue;
@@ -308,6 +347,16 @@ extern "C" int tails_launch(const float* x, const float* G, float* out,
                                  (cudaStream_t)stream)
               : tails_sl<float>(x, G, out, q, n, S, sl, nv,
                                 (cudaStream_t)stream);
+}
+
+// x (q, n, 128) bf16; the rest as tails_launch, fp64 sums only (fp64 1)
+extern "C" int tails_bf16_launch(const void* x, const float* G, float* out,
+                                 int q, int n, int S, int sl, int He, int nv,
+                                 int fp64, void* stream) {
+  if (sl > MAX_SL || sl % 8 || He != 0 || !fp64)
+    return (int)cudaErrorInvalidValue;
+  return tails_sl<double>(static_cast<const rf::bf16*>(x), G, out, q, n, S,
+                          sl, nv, (cudaStream_t)stream);
 }
 
 // tails_traced: the learnable executor's tails, G a runtime (S, 128)

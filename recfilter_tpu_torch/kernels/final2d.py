@@ -56,10 +56,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .completion import (_SLOTS, TILE, _aux_ptrs, _epi_coef, _expand_stack,
-                         _f32, _f64, _per_tile, _variants3, _variants_like,
-                         core_unpack, grade_chunks, tc_constant, tc_depth,
-                         tc_exact, tile_einsum)
+from .completion import (_SLOTS, TILE, XTYPES, _aux_ptrs, _bf16_grade,
+                         _entry, _epi_coef, _expand_stack, _f32, _f64,
+                         _per_tile, _variants3, _variants_like, core_unpack,
+                         grade_chunks, tc_constant, tc_depth, tc_exact,
+                         tile_einsum)
 from . import split
 from .launch import _check, _KernelFn, _launch
 
@@ -81,23 +82,6 @@ def _cat_t(B, R) -> np.ndarray:
     B, R = _variants_like(B, R)
     return np.concatenate([B.transpose(0, 2, 1), R.transpose(0, 2, 1)],
                           axis=1)
-
-
-# the element types of x the kernels read: float32, or bf16 (bf16 storage)
-XTYPES = (torch.float32, torch.bfloat16)
-
-
-def _entry(name: str, x: torch.Tensor) -> str:
-    """The launch entry of kernel ``name`` for x's element type."""
-    return name + "_bf16" if x.dtype == torch.bfloat16 else name
-
-
-def _bf16_grade(x: torch.Tensor, nprod: int) -> None:
-    """Raise unless x is float32, or bf16 at one product (the JAX
-    package's ``_kernel_nprod`` gives bf16 storage one)."""
-    if x.dtype == torch.bfloat16 and nprod != 1:
-        raise ValueError(f"a bf16 x runs one product, not {nprod} (bf16 "
-                         "storage)")
 
 
 def _grid_ok(p: int, n: int, W: int) -> None:

@@ -41,7 +41,11 @@ autograd rule for all of them.
     its float forms, so a count tells the two apart: ``moments2d_bf16``
     and ``moments2d_naf_bf16`` (x bf16), ``final2d_split_bf16`` and
     ``final2d_split_epi_bf16`` (x and y bf16, nprod 1), ``rows_tails_bf16``
-    (x bf16) and ``rows_final_bf16`` (x and y bf16, nprod 1).
+    (x bf16) and ``rows_final_bf16`` (x and y bf16, nprod 1), ``tails_bf16``
+    (x bf16), ``completion_split_bf16``, ``completion_split_epi_bf16``,
+    ``completion_rot_bf16``, ``completion_rot_epi_bf16`` and
+    ``completion_rot_tails_bf16`` (x and y bf16, nprod 1; the rotated
+    entries without a stencil).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -97,16 +101,21 @@ SIGNATURES = {
                           ("final2d_split_bf16", 6, 6),
                           ("final2d_split_epi_bf16", 11, 7)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
-                  ("tails_traced", 3, 3)),
+                  ("tails_traced", 3, 3), ("tails_bf16", 3, 7)),
     "completion": _sig("completion", ("completion", 4, 4),
                        ("completion_epi", 9, 5),
                        ("completion_traced", 5, 3)),
     "completion_rot": _sig("completion_rot", ("completion_rot", 7, 10),
-                           ("completion_rot_epi", 12, 11)),
+                           ("completion_rot_epi", 12, 11),
+                           ("completion_rot_bf16", 4, 5),
+                           ("completion_rot_epi_bf16", 9, 6)),
     "completion_rot_tails": _sig("completion_rot_tails",
-                                 ("completion_rot_tails", 6, 8)),
+                                 ("completion_rot_tails", 6, 8),
+                                 ("completion_rot_tails_bf16", 6, 8)),
     "completion_split": _sig("completion_split", ("completion_split", 4, 5),
-                             ("completion_split_epi", 9, 6)),
+                             ("completion_split_epi", 9, 6),
+                             ("completion_split_bf16", 4, 5),
+                             ("completion_split_epi_bf16", 9, 6)),
     "rows_tails": _sig("rows_tails", ("rows_tails", 3, 5),
                        ("rows_tails_bf16", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 5),

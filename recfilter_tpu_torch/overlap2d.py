@@ -71,7 +71,7 @@ from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
 from .kernels.split import NPROD
 from .kernels.stencil2d import stencil_reach
-from .planner import refuse_bf16, refuse_split
+from .planner import BF16_STENCIL, refuse_bf16, refuse_split
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
@@ -177,7 +177,7 @@ class Fused2DPx(nn.Module):
     ``dtype``: the storage type, float32 or bf16 (module docstring; bf16
     at ``nprod`` 1, an epilogue's output rounded to bf16 as the JAX
     kernel stores it; a fused ``stencil2d`` bank raises, ROADMAP Queue 1
-    item 4). ``tile`` casts the input to it."""
+    item 4, Queue 2 item 6). ``tile`` casts the input to it."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
@@ -193,7 +193,8 @@ class Fused2DPx(nn.Module):
                              "or 6 products")
         self.dtype = _storage_type(dtype, nprod)
         if self.dtype == torch.bfloat16 and stencil2d is not None:
-            refuse_bf16("a fused stencil2d bank (final2d_stencil)")
+            refuse_bf16("a fused stencil2d bank (final2d_stencil)",
+                        BF16_STENCIL)
         self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:
@@ -290,7 +291,7 @@ class Fused2DPx(nn.Module):
         at bf16 storage any input, cast to bf16 and padded in bf16.
         ``dtype`` float32 tiles an epilogue's aux arrays, which stay
         float32 at every storage type."""
-        x = _storage_input(x, self.dtype if dtype is None else dtype)
+        x = dimfuse._storage_input(x, self.dtype if dtype is None else dtype)
         if x.ndim < 2 or tuple(x.shape[-2:]) != (self.wa, self.wb):
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "
                              f"the filter's extents ({self.wa}, {self.wb})")
@@ -412,18 +413,6 @@ def _storage_type(dtype: torch.dtype, nprod: int) -> torch.dtype:
     return dtype
 
 
-def _storage_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x for an executor storing ``dtype``: a float32 executor takes
-    float32 only; a bf16 one casts its input to bf16, as the JAX package's
-    ``x.astype(cdt)`` does (no copy for a bf16 input)."""
-    if dtype == torch.bfloat16:
-        return x.to(torch.bfloat16)
-    if x.dtype != dtype:
-        raise TypeError(f"expected {str(dtype).replace('torch.', '')} "
-                        f"input, got {x.dtype}")
-    return x
-
-
 def _rows_decline(L: int, W: int, scans: Sequence[Scan]):
     """Why the rows kernels do not take a scan of extent ``L`` with ``W``
     lanes (the static gates of the JAX package's ``fused_rows_px``), or
@@ -514,7 +503,7 @@ class FusedRowsPx(nn.Module):
     def tile(self, x: torch.Tensor) -> torch.Tensor:
         """(..., L, *trailing) float32 → the kernels' (p, n, 128, W); at
         bf16 storage any input, cast to bf16."""
-        x = _storage_input(x, self.dtype)
+        x = dimfuse._storage_input(x, self.dtype)
         ext = (self.L, *self.trailing)
         if x.ndim < len(ext) or tuple(x.shape[-len(ext):]) != ext:
             raise ValueError(f"input shape {tuple(x.shape)} does not end in "

@@ -72,13 +72,20 @@ Storage types (the filter's dtype): float32 runs the grades above. bf16
 storage (the JAX package's production bf16 mode: the image in bf16
 between passes, float32 sums and float64 solves) runs ONE product
 whatever ``matmul_precision`` says (:func:`storage_nprod`, the JAX
-package's ``_kernel_nprod``) on the 3-touch 2-D executor and volumes —
-``moments2d``, ``final2d_split`` (``_epi``), ``rows_tails`` and
-``rows_final`` reading and writing bf16 — and every other bf16 route
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 4
-(:func:`refuse_bf16`): no route runs float32 in its place. float16
-storage runs the float32 route at the requested grade on the input cast
-to float32, and casts the output back (the JAX package's ``cdt``).
+package's ``_kernel_nprod``, without the structural rule of float32
+``default``) on the 3-touch 2-D executor and volumes — ``moments2d``,
+``final2d_split`` (``_epi``), ``rows_tails`` and ``rows_final`` reading
+and writing bf16 — and on the rotation chain, the per-axis loop and
+``rotate_emit`` — the rows pass on a non-last axis, ``tails``,
+``completion_split`` (``_epi``), ``completion_rot`` (``_epi``) and
+``completion_rot_tails`` reading and writing bf16, wherever their kernel
+gates hold. Every other bf16 route raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 4 and the Queue 2 item of its form
+(:func:`refuse_bf16`: 6 the stencil consumers, 7 the FIR band, 8 the
+einsum forms, the sequential core and the other backends): no route runs
+float32 in its place. float16 storage runs the float32 route at the
+requested grade on the input cast to float32, and casts the output back
+(the JAX package's ``cdt``).
 """
 
 from __future__ import annotations
@@ -123,12 +130,19 @@ def storage_nprod(dtype: str, matmul_precision: str) -> int:
     return NPROD.get(matmul_precision, 0)
 
 
-def refuse_bf16(route: str) -> None:
+# The ROADMAP Queue 2 items of the bf16 storage forms still to port
+BF16_STENCIL, BF16_FIR, BF16_EINSUM = 6, 7, 8
+
+
+def refuse_bf16(route: str, item: int) -> None:
     """Raise ``NotImplementedError`` for a bf16 filter on ``route``, one of
-    the bf16 storage forms still to port (module docstring)."""
+    the bf16 storage forms still to port, ROADMAP Queue 2 ``item``
+    (module docstring)."""
     raise NotImplementedError(
-        f"bf16 storage on {route} is not ported yet: {SPLIT_ITEM} (bf16 "
-        "filters run the 3-touch 2-D executor and volumes at one product)")
+        f"bf16 storage on {route} is not ported yet: {SPLIT_ITEM}, Queue 2 "
+        f"item {item} (bf16 filters run the 3-touch 2-D executor, volumes, "
+        "the rotation chain, the per-axis loop and rotate_emit on their "
+        "kernels at one product)")
 
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
@@ -181,7 +195,7 @@ class Plan:
         if self.matmul_dtype == "bfloat16":
             raise NotImplementedError(
                 "matmul_dtype='bfloat16' is not ported yet: ROADMAP Queue 1 "
-                "item 4 (bf16 products)")
+                f"item 4, Queue 2 item {BF16_EINSUM} (bf16 products)")
         if self.matmul_dtype != "float32":
             raise ValueError(f"unknown matmul_dtype {self.matmul_dtype!r}")
         check_precision(self.matmul_precision)

@@ -15,9 +15,11 @@ package's own error of the oracle or 2⁻⁸ of its peak, whichever is
 larger (:func:`_held`). ``Moments2D`` and ``RowsTails`` take a bf16 x to
 the bits of their float32 path on the same values. float16 runs the
 float32 route cast in and out, and matches the JAX package's float16
-output on each route to one float16 step. Every bf16 route that is not
-ported raises naming ROADMAP Queue 1 item 4. The CUDA kernels are held to
-these twins on a card by ``tests/test_torch_cuda.py``.
+output on each route to one float16 step. Every bf16 route with no bf16
+kernel raises naming ROADMAP Queue 1 item 4 and its Queue 2 item (the
+chain, the per-axis loop and the rotated emit are held in
+``tests/test_torch_bf16_chain.py``). The CUDA kernels are held to these
+twins on a card by ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
@@ -510,43 +512,57 @@ def test_float16_runs_the_float32_route(route):
 
 # ------------------------------------------------------------- refusals
 
-def _bf16_filter(shape, axes, tiles=None, **plan):
-    """A bf16 RecFilter of the σ=5 Gaussian on ``axes`` of ``shape``."""
+def _bf16_filter(shape, axes, tiles=None, times=1, clamp=False, **plan):
+    """A bf16 RecFilter of the σ=5 Gaussian (``times`` over) on ``axes`` of
+    ``shape``."""
     dims = [rft.Dim(n, e) for n, e in zip("wzyx"[-len(shape):], shape)]
     F = rft.RecFilter("B")
+    if clamp:
+        F.set_clamped_image_border()
     F[tuple(dims)] = torch.zeros(shape, dtype=torch.bfloat16)
     wts = rft.gaussian_weights(5.0, 3)
     for ax in axes:
-        F.add_filter(+dims[ax], wts)
-        F.add_filter(-dims[ax], wts)
+        for _ in range(times):
+            F.add_filter(+dims[ax], wts)
+            F.add_filter(-dims[ax], wts)
     F.split({dims[ax]: (tiles or {}).get(ax, T) for ax in axes})
     if plan:
         F.set_plan(**plan)
     return F
 
 
+SOBEL = [[(1, 1, 0.5), (-1, -1, 0.5)]]
 REFUSED = {
-    # the pair declines (extents below the tile): the rotation chain
-    "chain": lambda: _bf16_filter((64, 96), (0, 1), {0: 32, 1: 32}
-                                  ).as_func(device="cpu"),
-    # a volume whose trailing pair declines after the rows pass
-    "volume-pair-declines": lambda: _bf16_filter(
-        (128, 40, 16), (0, 1, 2), {1: 32}).as_func(device="cpu"),
-    # one scanned axis: the per-axis loop (rows pass / last-axis pass)
-    "y-only": lambda: _bf16_filter((256, 128), (0,)).as_func(device="cpu"),
-    "1-d": lambda: _bf16_filter((1000,), (0,), {0: 100}).as_func(
-        device="cpu"),
+    # name: (ROADMAP Queue 2 item, the build or call that raises)
+    # a chain of 32-wide tiles: the einsum form
+    "chain": (8, lambda: _bf16_filter((64, 96), (0, 1), {0: 32, 1: 32}
+                                      ).as_func(device="cpu")),
+    # a volume whose trailing pair declines after the rows pass, the chain
+    # on the pair at 32-wide and 16-wide tiles: the einsum form
+    "volume-pair-declines": (8, lambda: _bf16_filter(
+        (128, 40, 16), (0, 1, 2), {1: 32}).as_func(device="cpu")),
+    # a bare signal (one line) at 100-wide tiles: the einsum form
+    "1-d": (8, lambda: _bf16_filter((1000,), (0,), {0: 100}).as_func(
+        device="cpu")(torch.zeros(1000))),
+    # a clamp border with no dividing tile: the sequential core
+    "core": (8, lambda: _bf16_filter((4, 251), (1,), clamp=True).as_func(
+        device="cpu")),
     # a fused stencil2d bank on the pair (final2d_stencil)
-    "stencil2d": lambda: _bf16_filter((128, 256), (0, 1)).as_func(
-        stencil2d=[[(1, 1, 0.5), (-1, -1, 0.5)]], device="cpu"),
-    # the rotated emit
-    "rotate_emit": lambda: _bf16_filter((128, 256), (1,),
-                                        rotate_emit=2).as_func(device="cpu"),
+    "stencil2d": (6, lambda: _bf16_filter((128, 256), (0, 1)).as_func(
+        stencil2d=SOBEL, device="cpu")),
+    # a stencil2d bank after the chain (the pair declines ΣK = 12)
+    "bank-after-chain": (6, lambda: _bf16_filter(
+        (128, 256), (0, 1), times=2).as_func(stencil2d=SOBEL,
+                                             device="cpu")),
+    # the rotated emit with a fused stencil (tails_extra, completion_rot's
+    # stencil body)
+    "rotate_emit-stencil": (6, lambda: _bf16_filter(
+        (128, 256), (1,), rotate_emit=2).as_func(
+            stencil={"taps": [(-1, 0.5), (1, 0.5)]}, device="cpu")),
     # the FIR band pass
-    "fir": lambda: tfir.fir_pass_last(torch.zeros((8, 256),
-                                                  dtype=torch.bfloat16),
-                                      [1.0]),
-    **{f"backend-{b}": (lambda b=b: _bf16_filter(
+    "fir": (7, lambda: tfir.fir_pass_last(torch.zeros(
+        (8, 256), dtype=torch.bfloat16), [1.0])),
+    **{f"backend-{b}": (8, lambda b=b: _bf16_filter(
         (128, 256), (0, 1), backend=b).as_func(device="cpu"))
        for b in ("pallas", "overlap", "overlap_k", "blocked", "scan",
                  "oracle")},
@@ -555,10 +571,13 @@ REFUSED = {
 
 @pytest.mark.parametrize("route", list(REFUSED))
 def test_bf16_routes_not_ported_raise(route):
-    """Every bf16 route but the pair and the volume raises naming ROADMAP
-    Queue 1 item 4; none runs float32 in its place."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        REFUSED[route]()
+    """Every bf16 route with no bf16 kernel raises naming ROADMAP Queue 1
+    item 4 and the Queue 2 item of its form; none runs float32 in its
+    place."""
+    item, build = REFUSED[route]
+    with pytest.raises(NotImplementedError,
+                       match=f"item 4, Queue 2 item {item} "):
+        build()
 
 
 def test_rows_final_bf16_stage_reads_are_whole_and_conflict_free():

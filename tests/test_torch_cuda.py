@@ -2478,3 +2478,167 @@ def test_bf16_pair_and_volume_on_the_card(border, dev):
         if x.ndim == 2:
             y32 = F32.as_func()(x.float().to(dev))
             assert torch.equal(y, y32.to(torch.bfloat16))
+
+
+# ------------------------- bf16 storage: the chain, the loop, rotate_emit
+
+def _pass_bf16(kind, n, q, S, seed, dev):
+    """A bf16 x (q, n, 128) of scale 1, carries N (n, sl, q) and the stacks
+    Btot, Rcat of a pass."""
+    rng = np.random.default_rng(seed)
+    Btot = _stack(kind, T, T, n, rng, 0.1)
+    Rcat = _stack(kind, T, S, n, rng, 0.5)
+    x = torch.from_numpy(rng.standard_normal((q, n, T)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    N = np.zeros((n, tc.slots_for(S), q), np.float32)
+    N[:, :S] = rng.standard_normal((n, S, q))
+    return Btot, Rcat, x, torch.from_numpy(N).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("S,q", [(6, 4096), (12, 1000), (3, 7)])
+def test_tails_bf16_is_the_float32_kernel_on_its_values(kind, S, q, dev):
+    """tails_bf16: the float32 entry's tails on the same values, bit for
+    bit (one or two slots, lines past a 128-line item, fewer than 8
+    lines), within 1e-5 of the twin's peak; it refuses the fp32-summing
+    probe."""
+    rng = np.random.default_rng(S * 1000 + q)
+    n = 3
+    mod = tc.TailsPass(_stack(kind, S, T, n, rng, 0.1), n).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((q, n, T)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    tl.reset_launches()
+    b = mod(xb)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_bf16=1)
+    assert b.dtype == torch.float32 and torch.equal(b, mod(xb.float()))
+    assert _rel(b, mod.plain(xb)) <= 1e-5
+    mod.fp64 = False
+    with pytest.raises(ValueError, match="fp64"):
+        mod(xb)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("rot", [False, True], ids=["split", "rot"])
+@pytest.mark.parametrize("i", [None, 1, 3])
+def test_completion_bf16_matches_the_float32_kernel_and_twin(kind, rot, i,
+                                                             dev):
+    """completion_split_bf16 / completion_rot_bf16 (i None) and their _epi
+    forms (k = i aux arrays, float32) at one product on a bf16 x: the
+    float32 entry's output on the same values rounded once to bf16, bit
+    for bit; every element within one bf16 step of the twin's (beyond the
+    float32 forms' 1e-5 of the peak), the share that differ printed; one
+    launch of the bf16 entry. Rotated at q = 4096 (the packed store), q =
+    1000 (rows 8-byte aligned, a partial item) and q = 998 (2-byte
+    stores)."""
+    aff = None if i is None else _affine(i)
+    for q in ((4096, 1000, 998) if rot else (4096, 998)):
+        Btot, Rcat, xb, N = _pass_bf16(kind, 3, q, 12, q + (i or 0), dev)
+        mod = tc.CompletionPass(Btot, Rcat, 3, rot=rot, nprod=1,
+                                affine=aff).to(dev)
+        shape = (3 * T, q) if rot else (q, 3, T)
+        aux = [] if aff is None else _aux(shape, aff.k, dev, 70 + q)
+        tl.reset_launches()
+        y = mod(xb, N, *aux)
+        torch.cuda.synchronize()
+        base = "completion_rot" if rot else "completion_split"
+        entry = base + ("_bf16" if aff is None else "_epi_bf16")
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        assert y.dtype == torch.bfloat16 and tuple(y.shape) == shape
+        assert torch.equal(y, mod(xb.float(), N, *aux).to(torch.bfloat16))
+        _one_ulp(f"{entry} {kind} q={q}", y, mod.plain(xb, N, *aux))
+    with pytest.raises(ValueError, match="one product"):
+        tc.CompletionPass(Btot, Rcat, 3, rot=rot, nprod=6).to(dev)(xb, N)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("ra", [1, 2], ids=["image", "volume"])
+def test_completion_rot_tails_bf16_is_the_unchained_pair(kind, ra, dev):
+    """completion_rot_tails_bf16: its y is completion_rot_bf16's bit for
+    bit, within one bf16 step of the twin's; its next-pass tails are what
+    tails_bf16 reads from that y, bit for bit (the chained and unchained
+    routes agree), and the float32 entry's tails of the same bf16 values
+    (K3's x pass has q = 4 · 128 and n2 = 4: ra = 1)."""
+    n, n2, S, S2 = 3, 4, 6, 6
+    q = ra * n2 * T
+    Btot, Rcat, xb, N = _pass_bf16(kind, n, q, S, 40 + ra, dev)
+    G2 = _stack(kind, S2, T, n2, np.random.default_rng(ra), 0.1)
+    chained = tc.CompletionPass(Btot, Rcat, n, rot=True, nprod=1,
+                                next_tails=(G2, n2)).to(dev)
+    plain = tc.CompletionPass(Btot, Rcat, n, rot=True, nprod=1).to(dev)
+    tails2 = tc.TailsPass(G2, n2).to(dev)
+    tl.reset_launches()
+    y, t2 = chained(xb, N)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(completion_rot_tails_bf16=1)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, plain(xb, N))
+    _one_ulp(f"completion_rot_tails_bf16 {kind} ra={ra}", y,
+             chained.plain(xb, N)[0])
+    assert torch.equal(t2, tails2(y.reshape(-1, n2, T)))
+    assert torch.equal(t2, tails2(y.float().reshape(-1, n2, T)))
+
+
+@pytest.mark.parametrize("case", ["K3", "S4", "E", "rotate_emit"])
+def test_bf16_chain_loop_and_rotated_on_the_card(case, dev):
+    """The routes through ``as_func`` on bf16 images, shrunk: K3's
+    chained volume (chained bit-equal to unchained, tails_in taken on y),
+    S4's per-axis loop, E's 1-D pass with the dry/wet mix in the kernel,
+    and a rotate_emit x pass with an affine epilogue; the bf16 entries
+    launched as the route says, a bf16 output within 3e-2 of the f64
+    oracle's peak."""
+    import dataclasses
+
+    w3 = rft.gaussian_weights(5.0, 3)
+    rng = np.random.default_rng(len(case))
+    shape, axes, eaux = {"K3": ((136, 128, 256), (0, 1, 2), 0),
+                         "S4": ((128, 32, 512), (0, 2), 0),
+                         "E": ((16, 8192), (1,), 1),
+                         "rotate_emit": ((512, 1024), (1,), 1)}[case]
+    x = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(
+        np.float32)).to(torch.bfloat16)
+    dims = [rft.Dim(nm, e) for nm, e in zip("zyx"[-len(shape):], shape)]
+    F = rft.RecFilter(case)
+    F[tuple(dims)] = x
+    for ax in axes:
+        if case == "E":
+            F.add_filter(+dims[ax], [1.0, 1.6, -0.64])
+        else:
+            F.add_filter(+dims[ax], w3)
+            F.add_filter(-dims[ax], w3)
+    F.split({dims[ax]: 128 for ax in axes})
+    if case == "rotate_emit":
+        F.set_plan(rotate_emit=2)
+    mix = (lambda y, a: 0.7 * y + 0.3 * a) if eaux else None
+    fn = F.as_func(epilogue=mix)
+    a = (torch.from_numpy((rng.standard_normal(
+        shape[::-1] if case == "rotate_emit" else shape) * 0.1).astype(
+            np.float32)).to(dev),) if eaux else ()
+    tl.reset_launches()
+    y = fn(x.to(dev), *a)
+    torch.cuda.synchronize()
+    launches = {
+        "K3": _only(tails_bf16=2, completion_rot_tails_bf16=1,
+                    completion_rot_bf16=2),
+        "S4": _only(rows_tails_bf16=1, rows_final_bf16=1, tails_bf16=1,
+                    completion_split_bf16=1),
+        "E": _only(tails_bf16=1, completion_split_epi_bf16=1),
+        "rotate_emit": _only(tails_bf16=1, completion_rot_epi_bf16=1)}[case]
+    assert tl.LAUNCHES == launches and y.dtype == torch.bfloat16
+    want = rft.oracle_apply(dataclasses.replace(F.spec, dtype="float32"),
+                            x.double().numpy())
+    if case == "rotate_emit":
+        want = want.T
+    if eaux:
+        want = mix(want, a[0].double().cpu().numpy())
+    err = np.abs(y.double().cpu().numpy() - want).max() / np.abs(want).max()
+    print(f"{case} bf16: {err:.3e} of the oracle's peak")
+    assert err <= 3e-2
+    if case == "K3":
+        assert fn.tails_in_taken == [False, True, False]
+        for p in fn.passes:
+            p.completion_nt = None
+        tl.reset_launches()
+        yu = fn(x.to(dev))
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(tails_bf16=3, completion_rot_bf16=3)
+        assert torch.equal(yu, y)

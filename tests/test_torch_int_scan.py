@@ -194,8 +194,8 @@ def test_integer_refusals():
     unstable (2, 1) feedback) the sequential core: bit-exact against the
     JAX package and the oracle; a float16 SAT runs the float32 route cast
     in and out, as the JAX package does, and matches it; bfloat16 (its
-    rotation chain not yet ported) still names item 4, and a wrong input
-    shape raises."""
+    rotation chain at 32-wide tiles, the einsum form) still names item 4,
+    and a wrong input shape raises."""
     sat = ((1, True, 1, (1,)), (0, True, 1, (1,)))
     dims = (("y", 64), ("x", 64))
     img = _ints((64, 64), -100, 100, np.int16, seed=6)

@@ -62,7 +62,13 @@ G  Output digests: the sha256 of the outputs of ``completion`` and
    shares a source with: ``moments2d`` and ``final2d_split`` at
    ``default`` (the headline at 1024²) and ``rows_final`` at ``default``
    (V1), on seeded inputs, so two checkouts' kernels are bit-equal where
-   the digests agree.
+   the digests agree. Also ``tails`` and ``completion_split`` at
+   ``default`` (A's shape), ``completion_rot`` and
+   ``completion_rot_tails`` at ``default`` (L1's), and where the checkout
+   has them the bf16 storage entries on the same inputs rounded to bf16:
+   ``tails_bf16``, ``completion_split_bf16`` and ``_epi_bf16`` (A's),
+   ``completion_rot_bf16``, ``_epi_bf16`` and ``completion_rot_tails_bf16``
+   (L1's).
 I  The fused consumers at px6 and each grade (px4, px3, ``default``),
    where the checkout's app builders take ``matmul_precision``:
    ``fir_band`` at F1's x pass and F3's two passes (4096², box³ radius 5;
@@ -575,12 +581,17 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
 
     def digest(t):
         torch.cuda.synchronize()
+        if t.dtype == torch.bfloat16:  # its bits (numpy has no bf16)
+            t = t.view(torch.int16)
         return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()
                               ).hexdigest()[:16]
+
+    from recfilter_tpu_torch.kernels import launch
 
     rng = np.random.default_rng(1)
     f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to(dev)
+    mix = lambda y_, x_: 0.7 * y_ + 0.3 * x_  # noqa: E731 (E1's)
     out = {}
     with torch.no_grad():
         q, n = 306, 256
@@ -592,10 +603,25 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         Nt[:, :loc.S] = f32(n, loc.S, q)
         out["completion (306, 256, 128)"] = digest(loc.completion(X, Nt))
         le = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
-                              epilogue=lambda y_, x_: 0.7 * y_ + 0.3 * x_
-                              ).to(dev)
+                              epilogue=mix).to(dev)
         out["completion_epi (306, 256, 128)"] = digest(
             le.completion(X, Nt, X))
+        out["tails (306, 256, 128)"] = digest(loc.tails(X))
+        ld = tdf.LastAxisPass(scans, (128, n, 0), False, "default").to(dev)
+        out["completion_split default (306, 256, 128)"] = digest(
+            ld.completion(X, Nt))
+        # bf16 storage's entries where the checkout has them, on X rounded
+        bf16 = "tails_bf16" in launch.ENTRIES
+        if bf16:
+            Xb = X.to(torch.bfloat16)
+            lb, lbe = (tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                                        epilogue=e, dtype=torch.bfloat16
+                                        ).to(dev) for e in (None, mix))
+            out["tails_bf16 (306, 256, 128)"] = digest(lb.tails(Xb))
+            out["completion_split_bf16 (306, 256, 128)"] = digest(
+                lb.completion(Xb, Nt))
+            out["completion_split_epi_bf16 (306, 256, 128)"] = digest(
+                lbe.completion(Xb, Nt, X))
         q, n, S = 4096, 32, 6
         X, Btot, Rcat = f32(q, n, 128), f32(128, 128) * 0.1, f32(128, S)
         N8 = torch.zeros((n, 8, q), device=dev)
@@ -605,6 +631,32 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         rot = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
                                rot_axes=2).to(dev)
         out["completion_rot (4096, 32, 128)"] = digest(rot.completion(X, N8))
+        # at default where the chain's structural rule puts the kernels
+        # (tails chained in; tails chained out, 32 next tiles)
+        for label, kw in (("completion_rot default", dict(tails_in=True)),
+                          ("completion_rot_tails default", dict(
+                              next_tails=(rot.Gcat, n, 128))),
+                          *((("completion_rot_bf16", {}),
+                             ("completion_rot_tails_bf16", dict(
+                                 next_tails=(rot.Gcat, n, 128))))
+                            if bf16 else ())):
+            pb = tdf.LastAxisPass(scans, (128, n, 0), False, "default",
+                                  rot_axes=2, **kw, **(
+                                      dict(dtype=torch.bfloat16)
+                                      if "bf16" in label else {})).to(dev)
+            xin = X.to(torch.bfloat16) if "bf16" in label else X
+            comp = pb.completion_nt or pb.completion
+            y = comp(xin, N8)
+            out[f"{label} (4096, 32, 128)"] = digest(
+                torch.cat([t.float().reshape(-1) for t in y])
+                if isinstance(y, tuple) else y)
+        if bf16:
+            pe = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                                  rot_axes=2, epilogue=mix,
+                                  dtype=torch.bfloat16).to(dev)
+            out["completion_rot_epi_bf16 (4096, 32, 128)"] = digest(
+                pe.completion(X.to(torch.bfloat16), N8,
+                              X.reshape(q, -1).t().contiguous()))
         F = gauss_volume(rft, np, (256, 256, 256), False)
         rows = rows_of(rft, F.as_func())
         X4 = rows.tile(torch.from_numpy(F._image).to(dev))
