@@ -446,7 +446,24 @@ same values (rounded once) and to one bf16 step of its twin, the chained
 tails to ``tails_bf16``'s of the output, and phase 5m times each beside
 its bound, its twin and one bf16 ``matmul`` (``addmm``, ``baddbmm``
 with an epilogue; none for ``completion_rot_tails_bf16``), E and E1 also
-by ``queued_ms``.
+by ``queued_ms``. bf16 storage on the stencil consumers (the fused
+``stencil2d`` bank, the rotated emit's fused stencil, a bank after the
+filter): phase 3p runs GS (the headline Gaussian with the Sobel bank
+fused: ``moments2d_bf16`` with edge rows, ``final2d_stencil_bf16``), HS
+(the bank on a 1080 × 1920 frame: the chain, its y pass padded to 1152,
+then ``stencil2d_bf16``), C4b (C4 as a bf16 image), D1 (a Gaussian
+derivative: the central difference fused into the rotated x pass,
+``tails_extra_bf16`` and ``completion_rot_stencil_bf16``), D1e (D1 with
+the combine y' + 0.25·x, the image as float32 aux:
+``completion_rot_stencil_epi_bf16``) and C6b (C6's per-slice taps on the
+Gaussian x pass) through ``as_func()`` as ``bf16_call`` holds them (a
+bank: each channel); phase 2n holds each entry at its path's shape to
+its float32 form on the same values and to one bf16 step of its twin,
+and phase 5n times each beside its bound, its twin, its float32 form
+and one bf16 library call (``conv2d`` with the Sobel weights; the
+stacked rows by xᵀ; the folded ``matmul`` and ``baddbmm``; none for the
+2-D pair), each entry (C4b's ``stencil2d_bf16`` aside) and the float32
+forms of the 2-D pass and the emit also by ``queued_ms``.
 Phase 5i also times ``completion_split_epi`` at E1 by CUDA
 events over 200 back-to-back launches of the kernel alone, queued behind
 a sleeping kernel so that no host gap enters the window
@@ -483,7 +500,7 @@ def heading(title):
     """Print a phase's title after the seconds the run has taken so far."""
     print(f"[{time.perf_counter() - _T0:.0f} s] == {title}", flush=True)
 H = W = 4096
-N_TIMED = 25
+N_TIMED = 15  # kernel calls a turn of paired_times (two kernel turns)
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores, fp64 FLOP/s on them (DMMA: the card's peak for fp64)
 PEAK_BYTES, PEAK_FP32, PEAK_FP64 = 3.35e12, 67e12, 67e12
@@ -661,36 +678,52 @@ def image_pads(fn, x):
     return mode.seen
 
 
-def bf16_call(label, mod, x, want, bound, card, lead="", pads=()):
-    """A bf16 call through ``as_func``'s module: a bf16 output of x's shape,
-    finite, within ``bound`` of the f64 reference ``want``'s peak (the
-    float32 image's oracle: the error includes the input's rounding to
-    bf16, as the JAX package's bf16 test holds it); its profile (device
-    ops, busy time) and no image-sized cast or copy in the call but the
-    zero-paddings ``pads`` (each a pad tuple) the plan predicts for passes
-    whose extent is not a whole number of tiles (the float32 route makes
-    them too): the call must pad exactly those, each a bf16 tensor, and
-    only those ``constant_pad_nd`` ops are let through."""
+def bf16_call(label, mod, x, want, bound, card, lead="", pads=(), args=()):
+    """A bf16 call ``mod(x, *args)`` through ``as_func``'s module: a bf16
+    output of ``want``'s shape (a tuple of them for a bank, ``want`` a list
+    of its channels' references), finite, within ``bound`` of the f64
+    reference's peak (the float32 image's oracle: the error includes the
+    input's rounding to bf16, as the JAX package's bf16 test holds it);
+    its profile (device ops, busy time) and no image-sized cast or copy in
+    the call but the zero-paddings ``pads`` (each a pad tuple) the plan
+    predicts for passes whose extent is not a whole number of tiles (the
+    float32 route makes them too): the call must pad exactly those, each a
+    bf16 tensor, and only those ``constant_pad_nd`` ops are let through.
+    Returns the largest channel's error and the profile."""
     import numpy as np
     import torch
 
     from recfilter_tpu_torch.utils import timing
 
+    wants = want if isinstance(want, list) else [want]
+
+    def call(v):
+        return mod(v, *args)
+
     with torch.no_grad():
-        y = mod(x)
-        check(y.dtype == torch.bfloat16 and tuple(y.shape) == tuple(x.shape)
-              and bool(torch.isfinite(y).all()),
-              f"{label} bf16: a finite bf16 output of shape {tuple(x.shape)}")
-        got = y.float().cpu().numpy().astype(np.float64)
-        del y
-        err = float(np.abs(got - want).max() / np.abs(want).max())
-        print(f"  {label} bf16{lead}: max|y - oracle|/max|oracle| = "
-              f"{err:.3e} (the f64 oracle of the float32 input)")
+        y = call(x)
+        ys = y if isinstance(y, tuple) else (y,)
+        shape = tuple(wants[0].shape)
+        check(len(ys) == len(wants) and all(
+            c.dtype == torch.bfloat16 and tuple(c.shape) == shape
+            and bool(torch.isfinite(c).all()) for c in ys),
+              f"{label} bf16: {len(wants)} finite bf16 output(s) of shape "
+              f"{shape}")
+        err = 0.0
+        for c, (yc, w) in enumerate(zip(ys, wants)):
+            got = yc.float().cpu().numpy().astype(np.float64)
+            e = float(np.abs(got - w).max() / np.abs(w).max())
+            err = max(err, e)
+            print(f"  {label} bf16{lead}"
+                  + (f" channel {c}" if len(wants) > 1 else "")
+                  + f": max|y - oracle|/max|oracle| = {e:.3e} (the f64 "
+                  "oracle of the float32 input)")
+        del y, ys
         check(err <= bound, f"{label} bf16: within {bound:g} of the f64 "
               "oracle's peak")
-        prof = timing.device_profile(mod, x, iterations=10)
-        copies = image_copies(mod, x)
-        padded = image_pads(mod, x)
+        prof = timing.device_profile(call, x, iterations=10)
+        copies = image_copies(call, x)
+        padded = image_pads(call, x)
     print(f"  {label} bf16: output torch.bfloat16, "
           f"{prof['device_ops']:.0f} device ops a call, device busy "
           f"{busy_text(prof)}, call {prof['call_ms']:.4f} ms on {card}; "
@@ -715,16 +748,18 @@ def bf16_call(label, mod, x, want, bound, card, lead="", pads=()):
 
 def bf16_ulp_check(label, got, want, extra=None):
     """A bf16 kernel's output against its bf16 twin: every element within
-    one bf16 step of the twin's value beyond the float32 forms' own
-    distance (1e-5 of the twin's peak: their sums in another order, which
-    exceeds the bf16 step of an output that cancellation leaves far below
-    the peak) and ``extra`` (a bound tensor: the resplit bound). Prints
-    the share of elements that differ, and of those past one step
-    alone."""
+    one bf16 step — that of the larger of the two values: two float32
+    values a hair apart on either side of a power of two round a step of
+    the upper binade apart — beyond the float32 forms' own distance (1e-5
+    of the twin's peak: their sums in another order, which exceeds the
+    bf16 step of an output that cancellation leaves far below the peak)
+    and ``extra`` (a bound tensor: the resplit bound). Prints the share of
+    elements that differ, and of those past one step alone."""
     import torch
 
     d = (got.double() - want.double()).abs()
-    _, e = torch.frexp(want.double())
+    _, e = torch.frexp(torch.maximum(got.double().abs(),
+                                     want.double().abs()))
     ulp = torch.ldexp(torch.ones_like(d), (e - 8).clamp(min=-133))
     lim = ulp + 1e-5 * want.double().abs().max() + (
         0.0 if extra is None else extra.double())
@@ -779,7 +814,8 @@ def device_ms(fn, *args):
     10 back-to-back calls stands in, and a note says so."""
     from recfilter_tpu_torch.utils import timing
 
-    busy = timing.device_profile(fn, *args, iterations=10)["busy_ms"]
+    busy = timing.device_profile(fn, *args, iterations=10,
+                                 attempts=2)["busy_ms"]
     if busy is not None:
         return busy
     ms = timing.benchmark(fn, *args, iterations=10) / 10
@@ -4361,6 +4397,321 @@ def main() -> int:
              auxE1, XNE, BRE, XNE1, BRE1, XNE1f, BRE1f, auxE1b, Xr, Nr, yr,
              auxr, XNr, BRr, BRrn, auxr_b, X1t, X3t, k3m)
 
+    heading("phase 3p: the stencil consumers as bf16 images through "
+            "as_func() (GS: the headline Gaussian with the Sobel bank fused, "
+            "moments2d_bf16 with edge rows and final2d_stencil_bf16; HS: the "
+            "bank on a 1080 × 1920 frame, the chain then stencil2d_bf16; "
+            "C4b: a y-only blur then the bank; D1, D1e: a Gaussian "
+            "derivative fused into the rotated x pass, and with the combine "
+            "y' + 0.25·x; C6b: the per-slice branch), against the f64 "
+            "oracle of the float32 image")
+    DERIV = {"taps": [(-1, -0.5), (1, 0.5)]}  # D1's central difference
+    combine_d1e = lambda y_, x_: y_ + 0.25 * x_  # noqa: E731 (D1e's)
+    st_c6b = {"taps": [_stencil(5)["taps"], _stencil(9)["taps"]],
+              "start": "zero", "end": "clamp"}
+
+    def rot_want(z, taps_p, aux=None):
+        """The rotated stencil of the f64 oracle z (its last two axes
+        swapped), per leading slice where ``taps_p`` is a list of tap
+        sets; then D1e's combine with ``aux``."""
+        zr = torch.from_numpy(np.swapaxes(z, -1, -2).copy())
+        if isinstance(taps_p[0][0], (list, tuple)):
+            w = torch.stack([tdf.apply_stencil(zr[p], -2, t, "zero", "clamp")
+                             for p, t in enumerate(taps_p)])
+        else:
+            w = tdf.apply_stencil(zr, -2, taps_p, "zero", "clamp")
+        w = w.numpy()
+        return w if aux is None else combine_d1e(w, aux)
+
+    sc = {}  # case: (module, bf16 input on the card, extra args)
+    for label, shape, axes, kw, want_l in (
+            ("GS", (H, W), (0, 1), dict(stencil2d=SOBEL),
+             only(moments2d_bf16=1, final2d_stencil_bf16=1)),
+            ("HS", (1080, 1920), (0, 1), dict(stencil2d=SOBEL),
+             only(tails_bf16=2, completion_rot_bf16=2, stencil2d_bf16=1)),
+            ("C4b", (H, W), (0,), dict(stencil2d=SOBEL),
+             only(rows_tails_bf16=1, rows_final_bf16=1, stencil2d_bf16=1)),
+            ("D1", (H, W), (1,), dict(stencil=DERIV),
+             only(tails_extra_bf16=1, completion_rot_stencil_bf16=1)),
+            ("D1e", (H, W), (1,), dict(stencil=DERIV, epilogue=combine_d1e),
+             only(tails_extra_bf16=1, completion_rot_stencil_epi_bf16=1)),
+            ("C6b", (2, 1024, 2048), (2,), dict(stencil=st_c6b),
+             only(tails_extra_bf16=2, completion_rot_stencil_bf16=2))):
+        Fb = gauss_axes(rft, shape, axes, bf16=True)
+        if "stencil" in kw:
+            Fb.set_plan(rotate_emit=2)
+        mb = Fb.as_func(**kw)
+        xb = Fb._image.to(dev)
+        img_s = image(*shape)  # the float32 input Fb's image rounds
+        args = ((torch.from_numpy(np.swapaxes(img_s, -1, -2).copy()).to(dev),)
+                if label == "D1e" else ())
+        with torch.no_grad():
+            _, launches = counted(mb, xb, *args)
+        print(f"  {label} bf16: launches {launches}")
+        check(launches == want_l, f"{label} bf16: launches {want_l}")
+        if label == "GS":
+            check(mb.h8 == 8 and mb.final.nprod == 1, "GS bf16: the bank "
+                  "fused at h8 = 8, one product")
+            main_launches["moments2d_bf16/edge"] = launches["moments2d_bf16"]
+            main_launches["final2d_stencil_bf16"] = launches[
+                "final2d_stencil_bf16"]
+        elif label == "C4b":
+            main_launches["stencil2d_bf16"] = launches["stencil2d_bf16"]
+        elif label == "D1":
+            main_launches.update(
+                tails_extra_bf16=launches["tails_extra_bf16"],
+                completion_rot_stencil_bf16=launches[
+                    "completion_rot_stencil_bf16"])
+        elif label == "D1e":
+            main_launches["completion_rot_stencil_epi_bf16"] = launches[
+                "completion_rot_stencil_epi_bf16"]
+        z = scan_core.oracle_apply(
+            gauss_axes(rft, shape, axes).spec, img_s.astype(np.float64))
+        if "stencil2d" in kw:
+            want = stencil_np(z, SOBEL)
+        else:
+            want = rot_want(z, kw["stencil"]["taps"],
+                            np.swapaxes(img_s, -1, -2).astype(np.float64)
+                            if label == "D1e" else None)
+        del z
+        pads = ([(0, p.pad) for p in mb.body.passes if p.pad]
+                if label == "HS" else [])
+        check(pads == ([(0, 72)] if label == "HS" else []),
+              f"{label} bf16: the plan pads {pads}")
+        bf16_call(label, mb, xb, want, BF16_BOUND, card, pads=pads,
+                  args=args)
+        sc[label] = (mb, xb, args)
+        del want, img_s
+
+    heading("phase 2n and 5n: the stencil consumers' bf16 entries "
+            "(moments2d_bf16 with edge rows and final2d_stencil_bf16 at GS, "
+            "stencil2d_bf16 at C4b and HS, tails_extra_bf16 and "
+            "completion_rot_stencil_bf16 at D1, "
+            "completion_rot_stencil_epi_bf16 at D1e) against their float32 "
+            "forms and their twins, then timed (CUDA events, median of "
+            f"{2 * N_TIMED} calls each; each entry, and the float32 forms "
+            "of the 2-D pass and the emit, also queued behind a sleep)")
+    with torch.no_grad():
+        # GS: the moments with edge rows, the glue, the bank
+        gs, xg, _ = sc["GS"]
+        Xg = gs.tile(xg)
+        mom = gs.moments
+        outs = mom(Xg)
+        same = all(torch.equal(a, b) for a, b in zip(outs, mom(Xg.float())))
+        print(f"  moments2d_bf16 with edge rows (GS, h8 {gs.h8}): the "
+              f"float32 entry's outputs on the same values bit for bit: "
+              f"{same}")
+        check(len(outs) == 4 and same, "moments2d_bf16 (edge rows): the "
+              "float32 form's bits on the same values")
+        max_abs["moments2d_bf16/edge"] = max(
+            bf16_ulp_check(f"moments2d_bf16 (GS) output {i}", a, b)
+            for i, (a, b) in enumerate(zip(outs, mom.plain(Xg))))
+        # the halo strips of the twin's own rows (the glue's f64 strips
+        # are the exact completion, and the twin recomputes its rows at one
+        # product: their edge rows would part by the grade), as phase 2k
+        NA, NB = (c.float() for c in gs.carries(Xg))
+        fin = gs.final
+        Yt = fin.final.plain(Xg.float(), NA, NB)
+        z = torch.zeros_like(Yt[:, :1, :gs.h8])
+        top = torch.cat([z, Yt[:, :-1, 128 - gs.h8:]], dim=1).contiguous()
+        bot = torch.cat([Yt[:, 1:, :gs.h8], z], dim=1).contiguous()
+        del Yt, z
+        fargs = (Xg, NA, NB, top, bot)
+        yg = fin(*fargs)
+        same_bits("final2d_stencil_bf16 (GS)", yg, fin(Xg.float(), *fargs[1:]))
+        max_abs["final2d_stencil_bf16"] = bf16_ulp_check(
+            "final2d_stencil_bf16 (GS)", yg, fin.plain(*fargs),
+            fin.resplit_bound(Xg, NA))
+        # C4b and HS: the bank on the bf16 filter output
+        bank = sc["C4b"][0].bank
+        vs = {}
+        for label in ("C4b", "HS"):
+            mod_s, x_s, _ = sc[label]
+            v = mod_s.body(x_s)
+            check(v.dtype == torch.bfloat16 and v.ndim == 2,
+                  f"{label}: a 2-D bf16 filter output")
+            got = torch.stack(bank(v))
+            same_bits(f"stencil2d_bf16 ({label})", got,
+                      torch.stack(bank(v.float())))
+            e = bf16_ulp_check(f"stencil2d_bf16 ({label})", got,
+                               torch.stack(bank.plain(v)))
+            if label == "C4b":
+                max_abs["stencil2d_bf16"] = e
+            vs[label] = (v, got)
+            del got
+        # D1 and D1e: the tails with the halo rows, the glue, the emit
+        d1 = sc["D1"][0].body
+        tx, cx = d1.st_tails[0], d1.st_comp[0]
+        Xd = sc["D1"][1].reshape(-1, d1.n, d1.T).contiguous()
+        braw = tx(Xd)
+        same_bits("tails_extra_bf16 (D1)", braw, tx(Xd.float()))
+        max_abs["tails_extra_bf16"] = bf16_ulp_check(
+            "tails_extra_bf16 (D1)", braw, tx.plain(Xd))
+        b64 = braw.double()
+        Nd = d1._solve_t(b64[:, :d1.sl])
+        halos = tdf._stencil_halo(b64[:, d1.sl:], Nd, d1.st_R0,
+                                  *d1.st_reach[0])
+        Nd = Nd.float().contiguous()
+        yd = cx(Xd, Nd, *halos)
+        same_bits("completion_rot_stencil_bf16 (D1)", yd,
+                  cx(Xd.float(), Nd, *halos))
+        max_abs["completion_rot_stencil_bf16"] = bf16_ulp_check(
+            "completion_rot_stencil_bf16 (D1)", yd, cx.plain(Xd, Nd, *halos))
+        ce = sc["D1e"][0].body.st_comp[0]
+        aux_d = sc["D1e"][2][0]
+        ye = ce(Xd, Nd, *halos, aux_d)
+        same_bits("completion_rot_stencil_epi_bf16 (D1e)", ye,
+                  ce(Xd.float(), Nd, *halos, aux_d))
+        max_abs["completion_rot_stencil_epi_bf16"] = bf16_ulp_check(
+            "completion_rot_stencil_epi_bf16 (D1e)", ye,
+            ce.plain(Xd, Nd, *halos, aux_d))
+
+        # the timings: bounds by the bytes each function must move (x, the
+        # outputs and the banks in bf16, the carries, halo strips, aux and
+        # tails in float32) and its operations (moments and tails: fp64
+        # MACs; the final pass and the rotated emit: one bf16 product on
+        # the signal rows, three on the carry rows; the taps' and the
+        # epilogue's fp32 operations at those peaks); library calls in
+        # bf16 (conv2d with the Sobel weights; G·x over the stacked rows;
+        # the stencil folded into [Btot | Rcat], one matmul by [xᵀ; N;
+        # prev; nxt], with the combine as baddbmm's scales), none for the
+        # 2-D pair (as at float32)
+        pix, Ka, Kb = Xg.numel(), gs.Ka, gs.Kb
+        carry_times["moments2d_bf16/edge"] = timed(
+            f"moments2d_bf16 with edge rows (GS 4096² bf16, h8 {gs.h8})",
+            mom, mom.plain, None, (Xg,), tensor_bytes(Xg, *outs),
+            2.0 * (Ka + 2 * Kb + 2 * gs.h8) * pix, PEAK_FP64,
+            main_launches["moments2d_bf16/edge"], plain_iterations=5)
+        del outs
+        carry_times["final2d_stencil_bf16"] = timed(
+            "final2d_stencil_bf16 (GS 4096², C = 2 Sobel)", fin, fin.plain,
+            None, fargs, tensor_bytes(*fargs, yg),
+            2.0 * pix * (256 + (Ka + Kb) * 3)
+            + 2.0 * 12 * pix * PEAK_BF16 / PEAK_FP32, PEAK_BF16,
+            main_launches["final2d_stencil_bf16"], plain_iterations=5)
+        wts = torch.zeros(2, 1, 3, 3, device=dev)
+        for c, taps_c in enumerate(SOBEL):
+            for dy, dx, cf in taps_c:
+                wts[c, 0, dy + 1, dx + 1] = cf
+        wts = wts.to(torch.bfloat16)
+
+        def conv_bf16(y_):
+            return F_.conv2d(y_[None, None], wts, padding=1)[0]
+
+        for label in ("C4b", "HS"):
+            v, got = vs[label]
+            e_c = rel_err(conv_bf16(v)[:, 1:-1, 1:-1].float(),
+                          got[:, 1:-1, 1:-1].float())
+            check(e_c <= 2.0 ** -7, f"{label}: conv2d in bf16 computes the "
+                  f"bank inside the border ({e_c:.3e})")
+            r = timed(f"stencil2d_bf16 ({label} {tuple(v.shape)}, C = 2 "
+                      "Sobel; library conv2d in bf16)", bank, bank.plain,
+                      conv_bf16, (v,), tensor_bytes(v, got),
+                      2.0 * 12 * v.numel(), PEAK_FP32, 1)
+            if label == "C4b":
+                carry_times["stencil2d_bf16"] = r
+            else:
+                ms, host, slept = queued_ms(bank, v)
+                print(f"  stencil2d_bf16 (HS): CUDA events over 200 "
+                      f"back-to-back launches queued behind a {slept:.1f} ms "
+                      f"sleep (enqueued in {host:.1f} ms): {ms:.4f} ms a "
+                      f"launch on {card}")
+                check(host < slept, "stencil2d_bf16 (HS): the launches were "
+                      "all queued before the window opened")
+            print(f"  stencil2d ({label}), the float32 entry on the same "
+                  f"values: event {median_ms(bank, v.float()):.4f} ms, "
+                  f"device {device_ms(bank, v.float()):.4f} ms on {card}")
+        S, He = tx.S, tx.He
+        check(tx.G_v.shape[0] == 1, "D1's x pass: one matrix variant")
+        Gst = torch.cat([tx.G_v[0, :S], tx.G_v[0, tx.sl:]]).to(
+            torch.bfloat16)
+        Xdt = Xd.permute(1, 2, 0).contiguous()
+        carry_times["tails_extra_bf16"] = timed(
+            f"tails_extra_bf16 (D1 {tuple(Xd.shape)}, S {S}, He {He}; "
+            "library matmul of the stacked rows by xᵀ in bf16)", tx,
+            tx.plain, lambda *_: torch.matmul(Gst, Xdt), (Xd,),
+            tensor_bytes(Xd, braw), 2.0 * (S + He) * Xd.numel(), PEAK_FP64,
+            main_launches["tails_extra_bf16"], plain_iterations=5)
+        ms, host, slept = queued_ms(tx, Xd)
+        print(f"  tails_extra_bf16 (D1): CUDA events over 200 back-to-back "
+              f"launches queued behind a {slept:.1f} ms sleep (enqueued in "
+              f"{host:.1f} ms): {ms:.4f} ms a launch on {card}")
+        check(host < slept, "tails_extra_bf16 (D1): the launches were all "
+              "queued before the window opened")
+        Wf = folded_stencil_weight(cx).to(torch.bfloat16)
+        XNH = folded_operand(Xd, Nd.to(torch.bfloat16),
+                             *(h.to(torch.bfloat16) for h in halos))
+        # the library call on bf16 operands: within a bf16 rounding of
+        # its output of the float32 product of the same operands (from the
+        # kernel it parts by the rounding of the folded weights and of N's
+        # cancelling carry terms to one bf16 product)
+        lib_d = torch.matmul(Wf, XNH).float()
+        e_l = rel_err(lib_d, torch.matmul(Wf.float(), XNH.float()))
+        print(f"  D1: the folded bf16 matmul against the float32 product of "
+              f"its operands {e_l:.3e}, against the kernel "
+              f"{rel_err(lib_d.reshape(yd.shape), yd.float()):.3e}")
+        check(e_l <= 2.0 ** -8, "D1: the bf16 library call computes the "
+              "folded product on bf16 operands")
+        del lib_d
+        st_ops = 2.0 * len(cx.taps) * Xd.numel() * PEAK_BF16 / PEAK_FP32
+        carry_times["completion_rot_stencil_bf16"] = timed(
+            "completion_rot_stencil_bf16 (D1; library matmul of the folded "
+            "constant by [xᵀ; N; prev; nxt] in bf16)", cx, cx.plain,
+            lambda *_: torch.matmul(Wf, XNH), (Xd, Nd, *halos),
+            tensor_bytes(Xd, Nd[:, :cx.S], yd, *halos),
+            rot_ops(cx, Xd.numel()) + st_ops, PEAK_BF16,
+            main_launches["completion_rot_stencil_bf16"], plain_iterations=5)
+        aux_b = aux_d.to(torch.bfloat16).view(cx.n, 128, -1)
+        carry_times["completion_rot_stencil_epi_bf16"] = timed(
+            "completion_rot_stencil_epi_bf16 (D1e, aux float32; library "
+            "baddbmm, the combine as its scales, in bf16)", ce, ce.plain,
+            lambda *_: torch.baddbmm(aux_b, Wf, XNH, beta=0.25, alpha=1.0),
+            (Xd, Nd, *halos, aux_d),
+            tensor_bytes(Xd, Nd[:, :ce.S], ye, *halos, aux_d),
+            rot_ops(ce, Xd.numel()) + st_ops
+            + 2.0 * Xd.numel() * PEAK_BF16 / PEAK_FP32, PEAK_BF16,
+            main_launches["completion_rot_stencil_epi_bf16"],
+            plain_iterations=5)
+        # each entry and its float32 form queued behind a sleep: device
+        # time with no host gap (a profiled window can lose events)
+        for name, fn, fa in (
+                ("moments2d_bf16 with edge rows (GS)", mom, (Xg,)),
+                ("moments2d with edge rows (GS), float32", mom,
+                 (Xg.float(),)),
+                ("final2d_stencil_bf16 (GS)", fin, fargs),
+                ("final2d_stencil at default (GS), float32", fin,
+                 (Xg.float(), *fargs[1:])),
+                ("completion_rot_stencil_bf16 (D1)", cx, (Xd, Nd, *halos)),
+                ("completion_rot with the stencil at default (D1), float32",
+                 cx, (Xd.float(), Nd, *halos)),
+                ("completion_rot_stencil_epi_bf16 (D1e)", ce,
+                 (Xd, Nd, *halos, aux_d))):
+            ms, host, slept = queued_ms(fn, *fa)
+            print(f"  {name}: CUDA events over 200 back-to-back launches "
+                  f"queued behind a {slept:.1f} ms sleep (enqueued in "
+                  f"{host:.1f} ms): {ms:.4f} ms a launch on {card}")
+            check(host < slept, f"{name}: the launches were all queued "
+                  "before the window opened")
+            del fa
+        # each bf16 entry's float32 form on the same values (x widened
+        # outside the timed call): what the halved bytes bought
+        for name, fn, fa in (
+                ("moments2d with edge rows (GS)", mom, (Xg.float(),)),
+                ("final2d_stencil at default (GS)", fin,
+                 (Xg.float(), *fargs[1:])),
+                ("tails_extra (D1)", tx, (Xd.float(),)),
+                ("completion_rot with the stencil at default (D1)", cx,
+                 (Xd.float(), Nd, *halos)),
+                ("completion_rot_epi with the stencil at default (D1e)", ce,
+                 (Xd.float(), Nd, *halos, aux_d))):
+            print(f"  {name}, the float32 entry on the same values: event "
+                  f"{median_ms(fn, *fa):.4f} ms, device "
+                  f"{device_ms(fn, *fa):.4f} ms on {card}")
+            del fa
+        del (sc, gs, xg, Xg, mom, NA, NB, top, bot, fin, fargs, yg,
+             bank, vs, d1, tx, cx, Xd, braw, b64, Nd, halos, yd, ce, aux_d,
+             ye, Gst, Xdt, Wf, XNH, aux_b, wts)
+
     heading("phase 2k, the consumers: fir_band (F1's and F3's passes, flat "
             "forms with and without tap_scale), final2d_stencil (C1's bank), "
             "final2d_split_epi (U1's) and completion_split_epi (E1's) at "
@@ -5950,6 +6301,18 @@ def main() -> int:
              "recfilter_tpu/kernels/completion.py:273"),
             ("completion_rot_tails_bf16", "completion_rot_tails",
              "recfilter_tpu/kernels/completion.py:464"),
+            ("moments2d_bf16/edge", "moments2d",
+             "recfilter_tpu/kernels/final2d.py:409"),
+            ("final2d_stencil_bf16", "final2d_stencil",
+             "recfilter_tpu/kernels/final2d.py:999"),
+            ("tails_extra_bf16", "tails",
+             "recfilter_tpu/kernels/completion.py:750"),
+            ("completion_rot_stencil_bf16", "completion_rot",
+             "recfilter_tpu/kernels/completion.py:464"),
+            ("completion_rot_stencil_epi_bf16", "completion_rot",
+             "recfilter_tpu/kernels/completion.py:273"),
+            ("stencil2d_bf16", "stencil2d",
+             "recfilter_tpu/kernels/stencil2d.py:109"),
             *((f"completion_split/{g}", "completion_split",
                "recfilter_tpu/kernels/completion.py:464")
               for g in GRADE_BOUNDS),

@@ -63,12 +63,15 @@ bf16 filter runs routes 1–4 at one product whatever the grade
 between passes (``dtype=torch.bfloat16`` on :class:`.overlap2d.Fused2DPx`,
 :class:`.overlap2d.FusedRowsPx`, :class:`RotationChain`,
 :class:`FusedAxisPass`, :class:`FusedLastAxis` and :class:`LastAxisPass`,
-whose kernels read and write bf16), and raises where a pass would take a
-form with no bf16 kernel (:func:`.planner.refuse_bf16`, ROADMAP Queue 1
-item 4 and the Queue 2 item: the einsum forms, the sequential core and
-the supertile hierarchy item 8, the stencil consumers item 6); a float16
-filter runs the float32 routes on its input cast to float32 and casts the
-output back (:class:`Float16Storage`).
+whose kernels read and write bf16; the stencil consumers too: a fused
+``stencil2d`` bank, a rotated emit's fused stencil, a ``stencil2d`` bank
+after the filter, and the stencil fallbacks, the last in float32 on the
+bf16 output, rounded once), and raises where a pass would take a form
+with no bf16 kernel (:func:`.planner.refuse_bf16`, ROADMAP Queue 1 item 4
+and the Queue 2 item: the einsum forms, the sequential core and the
+supertile hierarchy item 8); a float16 filter runs the float32 routes on
+its input cast to float32 and casts the output back
+(:class:`Float16Storage`).
 
 The JAX package's consumers ride these routes: an elementwise
 ``epilogue(y, *eaux)`` reaches the final stage; a ``stencil2d`` bank
@@ -103,7 +106,7 @@ from .kernels import split as ksplit
 from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
-from .planner import (BF16_EINSUM, BF16_STENCIL, SPLIT_GRADES, refuse_bf16,
+from .planner import (BF16_EINSUM, SPLIT_GRADES, refuse_bf16,
                       refuse_split, storage_nprod)
 from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
@@ -737,8 +740,12 @@ class LastAxisPass(nn.Module):
     epilogue's output rounded to bf16). Where the kernels' gates fail —
     tiles other than 128, more than 256 tiles or ΣK > 56 at build time,
     fewer than 8 lines or a rotated leading group with an epilogue at the
-    call — the einsum form raises (ROADMAP Queue 2 item 8), as does a
-    stencil (item 6), before anything runs.
+    call — the einsum form raises (ROADMAP Queue 2 item 8) before anything
+    runs. A stencil fuses as at float32 (``tails_extra_bf16``,
+    ``completion_rot_stencil_bf16`` and ``_epi_bf16``: the taps and the
+    epilogue on the float32 accumulators, rounded once); where it cannot
+    fuse, its fallback and the epilogue after it run in float32 on the
+    bf16 output and round once.
 
     Tails chaining (a rotation chain's passes, :class:`RotationChain`):
     ``next_tails = (Gcat2, n2, T2)`` names the next pass, which scans this
@@ -765,9 +772,6 @@ class LastAxisPass(nn.Module):
         self.T, self.n, self.pad = T, n, pad
         self.dtype = dtype
         bf16 = dtype == torch.bfloat16
-        if bf16 and stencil is not None:
-            refuse_bf16("a stencil consumer of the rotated emit (tails_extra, "
-                        "completion_rot's stencil body)", BF16_STENCIL)
         self.rot, self.nrow = rot_axes >= 2, max(rot_axes - 1, 1)
         self.stencil, self.epilogue = stencil, epilogue
         self.affine = kernel_form(epilogue)
@@ -1051,10 +1055,12 @@ class LastAxisPass(nn.Module):
             y = y.narrow(ax, 0, n * T - pad)
         if deferred:
             # the stencil reads the filter output, the epilogue the
-            # stencil's (the consumer-order contract)
-            y = _stencil_fallback(y, self.stencil, ax)
+            # stencil's (the consumer-order contract); a bf16 output in
+            # float32, rounded once
+            yd = _stencil_fallback(y.float(), self.stencil, ax)
             if self.epilogue is not None:
-                y = _epilogue(self.epilogue, y, eaux)
+                yd = _epilogue(self.epilogue, yd, eaux)
+            y = yd.to(y.dtype)
         return y, t_out
 
     def _kernel_aux(self, eaux, lead, rows, q: int, X):
@@ -1472,7 +1478,8 @@ class Stencil2DAfter(nn.Module):
     """A filter, then a 2-D stencil bank on its output (the JAX package's
     ``_st_fallback``): the ``stencil2d`` kernel on a 2-D output
     (:class:`.kernels.stencil2d.Stencil2D`), its twin on any other rank.
-    Returns a tuple of per-channel tensors."""
+    Returns a tuple of per-channel tensors, bf16 after a bf16 filter (the
+    taps in float32, each channel rounded once)."""
 
     def __init__(self, body: nn.Module, stencil2d):
         super().__init__()
@@ -1918,9 +1925,6 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
         # the trailing pair declines: the chain (or the loop) on the rest
         groups = {ax: ids for ax, ids in groups.items() if ax != nd - 3}
         Ds = 2
-    if bf16 and stencil2d is not None:
-        refuse_bf16("a stencil2d bank after the filter (Stencil2DAfter)",
-                    BF16_STENCIL)
     gscans = {ax: scans(ax) for ax in groups}
     if (2 <= Ds <= 5 and set(groups) == set(range(nd - Ds, nd))
             and chain_plans(ext, gscans, tiles, clamp) is not None):
@@ -2019,8 +2023,8 @@ class RotatedPass(nn.Module):
     moves the axis, then the stencil as shifts and the epilogue;
     everything else runs :class:`LastAxisPass` with the rotated emit. A
     bf16 filter runs that pass on its bf16 kernels (the input cast to
-    bf16, a bf16 output); a stencil, the core and the hierarchy raise
-    there (ROADMAP Queue 2 items 6 and 8)."""
+    bf16, a bf16 output, a stencil fused as at float32); the core and the
+    hierarchy raise there (ROADMAP Queue 2 item 8)."""
 
     def __init__(self, spec: FilterSpec, rot_axes: int = 2,
                  matmul_precision: str = "px6", epilogue=None,

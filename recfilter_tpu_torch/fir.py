@@ -284,7 +284,9 @@ class FirSeparable2D(nn.Module):
     contracts the channels away and emits rotated back to (h, w): two
     passes, one read and one write each. DoG = signs (+1, −1) over the two
     box³ radii; a plain iterated box is C = 1. ``forward_plain`` runs the
-    plain twins of both passes."""
+    plain twins of both passes. The image is taken as float32, but a bf16
+    image stays bf16, as the JAX package's ``fir_separable_2d`` keeps it
+    (its pass raises: ROADMAP Queue 2 item 7)."""
 
     def __init__(self, height: int, width: int, taps_x, taps_y=None,
                  signs=None, *, tile_width: int = 0,
@@ -304,12 +306,17 @@ class FirSeparable2D(nn.Module):
         self.y_pass = FirPass(taps_y * signs[:, None], mid, contract=C > 1,
                               emit_rot=True, **kw)
 
+    @staticmethod
+    def _input(image: torch.Tensor) -> torch.Tensor:
+        return (image if image.dtype == torch.bfloat16
+                else image.to(torch.float32))
+
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        return self.y_pass(self.x_pass(image.to(torch.float32)))
+        return self.y_pass(self.x_pass(self._input(image)))
 
     def forward_plain(self, image: torch.Tensor) -> torch.Tensor:
         return self.y_pass.forward_plain(
-            self.x_pass.forward_plain(image.to(torch.float32)))
+            self.x_pass.forward_plain(self._input(image)))
 
 
 def fir_separable_2d(image, taps_x, taps_y=None, signs=None, *,

@@ -35,14 +35,16 @@ arrays, and the CUDA kernels take it as is.
 
 bf16 storage (the JAX package's ``dtype="bfloat16"`` mode: the image in
 bf16 between passes, one product): :class:`TailsPass` takes a bf16 x
-(``tails_bf16``; its tails stay float32, the sums those of the float32
-path on the same values), :class:`CompletionPass` at nprod 1 a bf16 x and
-returns a bf16 y (``completion_split_bf16``, ``completion_rot_bf16``,
-their ``_epi`` forms, ``completion_rot_tails_bf16``: the float32
-accumulators, after the epilogue, whose aux arrays stay float32, rounded
-once; the next pass's tails from the rounded outputs). The twins compute
-in float32 on ``x.float()`` and round once. No stencil on bf16 (ROADMAP
-Queue 2 item 6).
+(``tails_bf16``, ``tails_extra_bf16`` with extra rows; its tails stay
+float32, the sums those of the float32 path on the same values),
+:class:`CompletionPass` at nprod 1 a bf16 x and returns a bf16 y
+(``completion_split_bf16``, ``completion_rot_bf16``, their ``_epi``
+forms, ``completion_rot_tails_bf16``, and with a stencil
+``completion_rot_stencil_bf16`` and ``completion_rot_stencil_epi_bf16``:
+the float32 accumulators, after the stencil's taps and the epilogue, whose
+halo strips and aux arrays stay float32, rounded once; the next pass's
+tails from the rounded outputs). The twins compute in float32 on
+``x.float()`` and round once.
 
 With ``affine`` (an :class:`..epilogue.Affine`, the structure of an
 elementwise epilogue) the completion also applies ``a·y + Σᵢ bᵢ·auxᵢ + c``
@@ -378,9 +380,9 @@ class TailsPass(nn.Module):
     The sums run in float64 from float32 loads, in the kernel and in the
     twin (see ``csrc/tails.cu``). Setting ``fp64 = False`` launches the
     kernel's fp32-accumulating instantiation instead — kept to measure
-    what fp64 buys (``chip_smoke.py`` phase 5c). x may be bf16 without
-    extra rows (``tails_bf16``, fp64 sums only: the float32 entry's bits
-    on the same values).
+    what fp64 buys (``chip_smoke.py`` phase 5c). x may be bf16
+    (``tails_bf16``, with extra rows ``tails_extra_bf16``; fp64 sums only:
+    the float32 entry's bits on the same values).
     """
 
     def __init__(self, Gcat, n: int, extra_rows=None):
@@ -410,17 +412,16 @@ class TailsPass(nn.Module):
 
     def _kernel(self, x):
         q, n = x.shape[0], self.n
-        _check(x, "x", (q, n, TILE), x.device,
-               torch.float32 if self.He else XTYPES)
+        _check(x, "x", (q, n, TILE), x.device, XTYPES)
         if x.dtype == torch.bfloat16 and not self.fp64:
-            raise ValueError("tails_bf16 sums in fp64 only")
+            raise ValueError("the bf16 tails sum in fp64 only")
         _check(self.G_v, "G_v", self.G_v.shape, x.device)
         out = torch.empty((n, self.sl + self.He, q), device=x.device)
         args = (x.data_ptr(), self.G_v.data_ptr(), out.data_ptr(), q, n,
                 self.S, self.sl, self.He, self.G_v.shape[0], int(self.fp64))
         if self.He:
             _grid_ok("tails_extra", n, -(-q // 64))
-            _launch("tails_extra", args, x.device)
+            _launch(_entry("tails_extra", x), args, x.device)
         else:
             _items_ok("tails", n, q)
             _launch(_entry("tails", x), args, x.device)
@@ -540,9 +541,11 @@ class CompletionPass(nn.Module):
     product with the grade's constant (``_twin``; at px6 the constant
     itself).
 
-    bf16 storage: at nprod 1 and without a stencil, x may be bf16 (the
-    ``*_bf16`` entries): Yr (or Y) is bf16, the float32 accumulators
-    rounded once after the epilogue; the next pass's tails are float32
+    bf16 storage: at nprod 1, x may be bf16 (the ``*_bf16`` entries;
+    with a stencil ``completion_rot_stencil_bf16`` and
+    ``completion_rot_stencil_epi_bf16``): Yr (or Y) is bf16, the float32
+    accumulators rounded once after the stencil and the epilogue (halo
+    strips and aux arrays float32); the next pass's tails are float32
     sums of the rounded outputs (the tails a :class:`TailsPass` reads from
     the stored output). ``plain`` computes on ``x.float()`` and rounds
     once.
@@ -712,9 +715,6 @@ class CompletionPass(nn.Module):
         _check(x, "x", (q, n, TILE), x.device, XTYPES)
         _bf16_grade(x, self.nprod)
         bf16 = x.dtype == torch.bfloat16
-        if bf16 and self.taps:
-            raise ValueError("completion_rot takes a stencil on float32 x "
-                             "only")
         _check(N, "N", (n, self.sl, q), x.device)
         _check(self.Bc_k, "Bc_k", self.Bc_k.shape, x.device, torch.bfloat16)
         halos, aux = list(rest[:self.n_halos]), rest[self.n_halos:]
@@ -747,7 +747,7 @@ class CompletionPass(nn.Module):
             return self._kernel_tails(x, N)
         _items_ok("completion_rot", n, q, _TC_LINES)
         y = torch.empty((n * TILE, q), device=x.device, dtype=x.dtype)
-        if bf16:
+        if bf16 and not self.taps:
             _launch_fitting(_entry("completion_rot_epi" if epi
                                    else "completion_rot", x), (
                 x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(), *epi,
@@ -761,7 +761,11 @@ class CompletionPass(nn.Module):
             if h is not None:
                 _check(h, name, (n, rows, q), x.device)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
-        _launch_fitting("completion_rot_epi" if epi else "completion_rot", (
+        entry = "completion_rot_epi" if epi else "completion_rot"
+        if bf16:
+            entry = ("completion_rot_stencil_epi_bf16" if epi
+                     else "completion_rot_stencil_bf16")
+        _launch_fitting(entry, (
             x.data_ptr(), N.data_ptr(), self.Bc_k.data_ptr(),
             0 if prev is None else prev.data_ptr(),
             0 if nxt is None else nxt.data_ptr(), self.taps_k.data_ptr(),

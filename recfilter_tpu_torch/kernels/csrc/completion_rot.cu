@@ -5,10 +5,13 @@
 // recfilter_tpu/kernels/completion.py::completion_pass(rot=True,
 // nprod=NPROD) with its stencil (_stencil_rows) and its epilogue (eaux);
 // completion_rot_bf16 and completion_rot_epi_bf16 the same at NPROD 1 on a
-// bf16 x and y (bf16 storage), without a stencil.
+// bf16 x and y (bf16 storage), without a stencil, and
+// completion_rot_stencil_bf16 and completion_rot_stencil_epi_bf16 with one
+// (the stencil body on a bf16 x stage, the taps and the epilogue on the
+// fp32 accumulators, y rounded once).
 // NPROD 6 (px6), 4 (px4), 3 (px3), 1 (default); KC = sl / 16 rounded up
 // carry k16 steps; with a stencil or without (STENCIL). A source of its
-// own, so that nvcc builds its 32 instantiations beside completion.cu's and
+// own, so that nvcc builds its 40 instantiations beside completion.cu's and
 // completion_rot_tails.cu's.
 //
 // What bounds it: 8 B of traffic per sample (plus (hp + hn) / 128 of a read
@@ -53,21 +56,17 @@ int rot_go(const TX* x, const float* N, const rfs::bf16* Bc,
   return (int)cudaGetLastError();
 }
 
-// the body with or without a stencil (a bf16 x: none)
+// the body with or without a stencil
 template <int NPROD, int KC, typename TX>
 int rot_launch_kc(const TX* x, const float* N, const rfs::bf16* Bc,
                   const float* prev, const float* nxt, const float* taps,
                   TX* y, const rf::Affine& epi, int naux, int q, int n,
                   int sl, int nv, int hp, int hn, int ntaps, int start_clamp,
                   int end_clamp, cudaStream_t stream) {
-  if constexpr (std::is_same<TX, float>::value) {
-    if (ntaps > 0)
-      return rot_go<NPROD, KC, true>(x, N, Bc, prev, nxt, taps, y, epi,
-                                     naux, q, n, sl, nv, hp, hn, ntaps,
-                                     start_clamp, end_clamp, stream);
-  } else if (ntaps > 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (ntaps > 0)
+    return rot_go<NPROD, KC, true>(x, N, Bc, prev, nxt, taps, y, epi, naux,
+                                   q, n, sl, nv, hp, hn, ntaps, start_clamp,
+                                   end_clamp, stream);
   return rot_go<NPROD, KC, false>(x, N, Bc, prev, nxt, taps, y, epi, naux, q,
                                   n, sl, nv, hp, hn, ntaps, start_clamp,
                                   end_clamp, stream);
@@ -136,16 +135,20 @@ int rot_launch(const float* x, const float* N, const void* Bc,
   }
 }
 
-// bf16 storage: nprod 1, no stencil (the JAX package's _kernel_nprod)
-int rot_launch_bf16(const void* x, const float* N, const void* Bc, void* y,
-                    const rf::Affine& epi, int naux, int q, int n, int sl,
-                    int nv, int nprod, cudaStream_t s) {
-  if (nprod != 1 || !rot_args_ok(q, n, sl, nv, 0, 0, 0, naux))
+// bf16 storage: nprod 1 (the JAX package's _kernel_nprod), with a
+// stencil (ntaps > 0) or without
+int rot_launch_bf16(const void* x, const float* N, const void* Bc,
+                    const float* prev, const float* nxt, const float* taps,
+                    void* y, const rf::Affine& epi, int naux, int q, int n,
+                    int sl, int nv, int hp, int hn, int ntaps,
+                    int start_clamp, int end_clamp, int nprod,
+                    cudaStream_t s) {
+  if (nprod != 1 || !rot_args_ok(q, n, sl, nv, hp, hn, ntaps, naux))
     return (int)cudaErrorInvalidValue;
   return rot_launch_np<1>(static_cast<const rf::bf16*>(x), N,
-                          static_cast<const rfs::bf16*>(Bc), nullptr,
-                          nullptr, nullptr, static_cast<rf::bf16*>(y), epi,
-                          naux, q, n, sl, nv, 0, 0, 0, 0, 0, s);
+                          static_cast<const rfs::bf16*>(Bc), prev, nxt, taps,
+                          static_cast<rf::bf16*>(y), epi, naux, q, n, sl, nv,
+                          hp, hn, ntaps, start_clamp, end_clamp, s);
 }
 
 }  // namespace
@@ -187,7 +190,8 @@ extern "C" int completion_rot_bf16_launch(const void* x, const float* N,
                                           const void* Bc, void* y, int q,
                                           int n, int sl, int nv, int nprod,
                                           void* stream) {
-  return rot_launch_bf16(x, N, Bc, y, rf::Affine{}, 0, q, n, sl, nv, nprod,
+  return rot_launch_bf16(x, N, Bc, nullptr, nullptr, nullptr, y,
+                         rf::Affine{}, 0, q, n, sl, nv, 0, 0, 0, 0, 0, nprod,
                          (cudaStream_t)stream);
 }
 
@@ -199,9 +203,39 @@ extern "C" int completion_rot_epi_bf16_launch(
     const float* coef, void* y, int q, int n, int sl, int nv, int k,
     int nprod, void* stream) {
   if (coef == nullptr) return (int)cudaErrorInvalidValue;
-  return rot_launch_bf16(x, N, Bc, y,
+  return rot_launch_bf16(x, N, Bc, nullptr, nullptr, nullptr, y,
                          rf::make_affine(aux0, aux1, aux2, aux3, coef), k, q,
-                         n, sl, nv, nprod, (cudaStream_t)stream);
+                         n, sl, nv, 0, 0, 0, 0, 0, nprod,
+                         (cudaStream_t)stream);
+}
+
+// x (q, n, 128) and y (n * 128, q) bf16, nprod 1, with a stencil (ntaps
+// >= 1); the rest as completion_rot_launch
+extern "C" int completion_rot_stencil_bf16_launch(
+    const void* x, const float* N, const void* Bc, const float* prev,
+    const float* nxt, const float* taps, void* y, int q, int n, int sl,
+    int nv, int hp, int hn, int ntaps, int start_clamp, int end_clamp,
+    int nprod, void* stream) {
+  if (ntaps < 1) return (int)cudaErrorInvalidValue;
+  return rot_launch_bf16(x, N, Bc, prev, nxt, taps, y, rf::Affine{}, 0, q,
+                         n, sl, nv, hp, hn, ntaps, start_clamp, end_clamp,
+                         nprod, (cudaStream_t)stream);
+}
+
+// x, y bf16 as completion_rot_stencil_bf16_launch; the aux arrays float32
+// in y's layout, coef as completion_rot_epi_launch
+extern "C" int completion_rot_stencil_epi_bf16_launch(
+    const void* x, const float* N, const void* Bc, const float* prev,
+    const float* nxt, const float* taps, const float* aux0,
+    const float* aux1, const float* aux2, const float* aux3,
+    const float* coef, void* y, int q, int n, int sl, int nv, int hp,
+    int hn, int ntaps, int start_clamp, int end_clamp, int k, int nprod,
+    void* stream) {
+  if (coef == nullptr || ntaps < 1) return (int)cudaErrorInvalidValue;
+  return rot_launch_bf16(x, N, Bc, prev, nxt, taps, y,
+                         rf::make_affine(aux0, aux1, aux2, aux3, coef), k, q,
+                         n, sl, nv, hp, hn, ntaps, start_clamp, end_clamp,
+                         nprod, (cudaStream_t)stream);
 }
 
 extern "C" const char* completion_rot_error_string(int err) {

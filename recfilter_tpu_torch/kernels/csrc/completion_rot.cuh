@@ -84,7 +84,14 @@
 // else one 2-byte store an element. The
 // tails kernel's chains read the outputs as rounded to bf16, so the chained
 // tails are those tails.cu reads from the stored y, bit for bit (the JAX
-// package extracts them from the fp32 accumulators).
+// package extracts them from the fp32 accumulators). With a stencil
+// (completion_rot_stencil_bf16, completion_rot_stencil_epi_bf16) the x
+// stage is bf16 as above, the stencil stage Z and the halo rows stay fp32
+// (Z over the x stage and the carry rows: with a bf16 x stage the stencil
+// stage is the larger, and rot_smem sizes the stage from it), the taps
+// and the epilogue act on the fp32 accumulators, and each output is
+// rounded once to bf16 in rot_stencil's store: one 2-byte element a thread
+// over consecutive lines, 64 B a warp and row, two whole sectors.
 #pragma once
 
 #include "completion_tc.cuh"
@@ -268,9 +275,10 @@ __device__ __forceinline__ void stage_halo(float* Z,
 // tap order (products then sums, each rounded), the taps outer so the
 // outputs' reads are in flight together; then the affine epilogue (every
 // aux load of an array before its products) and the stores.
+template <typename TY>
 __device__ __forceinline__ void rot_stencil(
     const float* __restrict__ Z, const int* __restrict__ dt,
-    const float* __restrict__ ct, float* __restrict__ y,
+    const float* __restrict__ ct, TY* __restrict__ y,
     const rf::Affine& epi, int naux, int t, int n, int l0, int q, int hp,
     int ntaps, bool sc, bool ec, int tid) {
   constexpr int OUT = T / 2;
@@ -305,7 +313,7 @@ __device__ __forceinline__ void rot_stencil(
     }
   }
 #pragma unroll
-  for (int s = 0; s < OUT; ++s) y[y0 + s * step] = acc[s];
+  for (int s = 0; s < OUT; ++s) rf::store1(y + y0 + s * step, acc[s]);
 }
 
 // Shared memory of completion_rot (bytes): B's chunks, the taps, and per
@@ -322,7 +330,7 @@ long rot_smem(int kp, int nc, int sl, int hp, int hn, int ntaps, int nwg) {
 // nwg), each with its own item and stages; epi.coef null: no epilogue.
 // STENCIL: ntaps > 0 (a body of its own, so that the emit without one
 // carries no stencil state across the products). TX: x's and y's type,
-// float or bf16 (no stencil).
+// float or bf16.
 template <int NPROD, int KC, bool STENCIL, typename TX>
 __global__ void __launch_bounds__(2 * rfw::WG, 1)
 completion_rot_kernel(const TX* __restrict__ x,          // (q, n, T)
@@ -335,8 +343,6 @@ completion_rot_kernel(const TX* __restrict__ x,          // (q, n, T)
                       rf::Affine epi, int naux,          // aux: (n * T, q)
                       int q, int n, int sl, int nv, int hp, int hn,
                       int ntaps, int start_clamp, int end_clamp, int nwg) {
-  static_assert(!STENCIL || std::is_same<TX, float>::value,
-                "the stencil body stages fp32 outputs");
   constexpr int KP = T + 16 * KC, CH = T * KP;
   constexpr int NCB = rfw::b_chunks(NPROD);
   extern __shared__ uint4 smem16[];
@@ -417,7 +423,7 @@ completion_rot_kernel(const TX* __restrict__ x,          // (q, n, T)
           for (int e = 0; e < 2; ++e)
             Z[(hp + 8 * j + 2 * qd + e) * LDZ + r + 8 * h] =
                 d[4 * j + 2 * h + e];
-      stage_halo(Z, prev, nxt, x, t, l0, q, n, hp, hn, tid, vec);
+      stage_halo(Z, prev, nxt, N, t, l0, q, n, hp, hn, tid, vec);
       rfp::commit();
       rfp::wait_pending(0);  // the halo rows
       rfw::wg_sync(wg);

@@ -58,6 +58,14 @@
 // neighbour columns, up to 192 KB); the neighbour columns themselves,
 // computed while the products hold shared memory, wait in a device-memory
 // scratch (128 x (dxl + dxr) floats a tile) that the block reads back.
+//
+// bf16 storage (final2d_stencil_bf16: _final2d_px_stencil on a bf16 x at
+// nprod 1, the JAX package's bf16 mode): x is read as bf16 into the one
+// data chunk (final2d_split.cuh's split_tile, as final2d_split_bf16 reads
+// it) for the block's tile and for both lane neighbours, so a neighbour
+// column is the value that tile's own block emits; the scratch `side`, M
+// and the taps stay fp32, and each bank value is rounded once to bf16
+// after its taps (2 B of x read and 2*C B written per pixel).
 
 #include "common.cuh"
 #include "final2d_split.cuh"
@@ -146,10 +154,12 @@ __device__ void side_columns(const float* __restrict__ x,
 // shared memory where they fit. A thread owns column o of rows s0, s0 + 2,
 // ...: its 64 sums stay in registers while the taps run in order, and a
 // warp shares its row.
+// TO: the banks' type, float or bf16 (each value rounded once)
+template <typename TO>
 __device__ __forceinline__ void bank_taps(
     const float* M, int WM, int dxl, const float* __restrict__ ht,
     const float* __restrict__ hb, const float* __restrict__ taps,
-    const int* __restrict__ toff, int ntaps, float* __restrict__ out,
+    const int* __restrict__ toff, int ntaps, TO* __restrict__ out,
     long pa, int a, int na, int b, int nb, int h8, int C, int tid) {
   __shared__ float tsm[3 * MAX_TAPS];
   __shared__ int toffs[MAX_C + 1];
@@ -192,9 +202,10 @@ __device__ __forceinline__ void bank_taps(
         acc[j] = k == k0 ? term : __fadd_rn(acc[j], term);
       }
     }
-    float* oc = out + ch * plane + pa * T * W + (long)b * T + o;
+    TO* oc = out + ch * plane + pa * T * W + (long)b * T + o;
 #pragma unroll
-    for (int j = 0; j < T / 2; ++j) oc[(long)(s0 + 2 * j) * W] = acc[j];
+    for (int j = 0; j < T / 2; ++j)
+      rf::store1(oc + (long)(s0 + 2 * j) * W, acc[j]);
   }
 }
 
@@ -278,15 +289,16 @@ final2d_stencil_kernel(const float* __restrict__ x,     // (p, na, T, W)
 
 // The reduced grades: steps 1 and 2 on final2d_split's tiles (header).
 // side (p, na, nb, T, dxl + dxr): the block's neighbour columns, row s of
-// tile (pa, b) at side + ((pa * nb + b) * T + s) * (dxl + dxr).
-template <int NPROD>
+// tile (pa, b) at side + ((pa * nb + b) * T + s) * (dxl + dxr). TX: x's
+// and the banks' type, float or bf16 (NPROD 1).
+template <int NPROD, typename TX>
 __global__ void __launch_bounds__(THREADS, 1)
 final2d_stencil_split_kernel(
-    const float* __restrict__ x, const float* __restrict__ NA,
+    const TX* __restrict__ x, const float* __restrict__ NA,
     const float* __restrict__ NB, const f2s::bf16* __restrict__ Ac,
     const f2s::bf16* __restrict__ Bc, const float* __restrict__ ht,
     const float* __restrict__ hb, const float* __restrict__ taps,
-    const int* __restrict__ toff, float* __restrict__ out,
+    const int* __restrict__ toff, TX* __restrict__ out,
     float* __restrict__ side, int na, int nb, int nva, int nvb, int h8,
     int dxl, int dxr, int C, int ntaps) {
   extern __shared__ uint4 smem16[];
@@ -348,21 +360,21 @@ int split_smem(int dxl, int dxr) {
   return f2s::smem_bytes<NPROD>() > m ? f2s::smem_bytes<NPROD>() : m;
 }
 
-template <int NPROD>
-int launch_split(const float* x, const float* NA, const float* NB,
+template <int NPROD, typename TX>
+int launch_split(const TX* x, const float* NA, const float* NB,
                  const void* Ac, const void* Bc, const float* ht,
                  const float* hb, const float* taps, const int* toff,
-                 float* out, float* side, int p, int na, int nb, int nva,
+                 TX* out, float* side, int p, int na, int nb, int nva,
                  int nvb, int h8, int dxl, int dxr, int C, int ntaps,
                  cudaStream_t stream) {
   if ((dxl + dxr) && side == nullptr) return (int)cudaErrorInvalidValue;
   const int smem = split_smem<NPROD>(MAX_REACH, MAX_REACH);
   cudaError_t err = cudaFuncSetAttribute(
-      final2d_stencil_split_kernel<NPROD>,
+      final2d_stencil_split_kernel<NPROD, TX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, na, p);
-  final2d_stencil_split_kernel<NPROD>
+  final2d_stencil_split_kernel<NPROD, TX>
       <<<grid, THREADS, split_smem<NPROD>(dxl, dxr), stream>>>(
           x, NA, NB, static_cast<const f2s::bf16*>(Ac),
           static_cast<const f2s::bf16*>(Bc), ht, hb, taps, toff, out, side,
@@ -421,6 +433,23 @@ extern "C" int final2d_stencil_launch(const float* x, const float* NA,
       x, NA, NB, A1, B2, ht, hb, taps, toff, out, na, nb, nva, nvb, h8, dxl,
       dxr, C, ntaps, stage);
   return (int)cudaGetLastError();
+}
+
+// x (p, na, T, W) and out (C, p, na, T, W) bf16, nprod 1 (the JAX
+// package's bf16 mode); the rest as final2d_stencil_launch at nprod 1
+extern "C" int final2d_stencil_bf16_launch(
+    const void* x, const float* NA, const float* NB, const void* A,
+    const void* B, const float* ht, const float* hb, const float* taps,
+    const int* toff, void* out, float* side, int p, int na, int nb, int nva,
+    int nvb, int h8, int dxl, int dxr, int C, int ntaps, int nprod,
+    void* stream) {
+  if (nprod != 1 || h8 < 1 || h8 > MAX_REACH || dxl < 0 ||
+      dxl > MAX_REACH || dxr < 0 || dxr > MAX_REACH || C < 1 || ntaps < C)
+    return (int)cudaErrorInvalidValue;
+  return launch_split<1>(static_cast<const rf::bf16*>(x), NA, NB, A, B, ht,
+                         hb, taps, toff, static_cast<rf::bf16*>(out), side,
+                         p, na, nb, nva, nvb, h8, dxl, dxr, C, ntaps,
+                         (cudaStream_t)stream);
 }
 
 extern "C" const char* final2d_stencil_error_string(int err) {

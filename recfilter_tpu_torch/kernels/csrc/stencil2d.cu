@@ -16,6 +16,12 @@
 // returns (the TPU kernel writes the input type, which truncates an
 // integer table's differenced output).
 //
+// bf16 storage (stencil2d_bf16: a bank after a bf16 filter, whose output
+// the JAX package's _st_fallback hands stencil2d_pass in its own dtype):
+// y read as bf16 and widened (exact), the fp32 products and sums of the
+// float32 entry in its order, each channel rounded once to bf16 (2 B read
+// and 2*C B written per pixel: the bound halves).
+//
 // What bounds it: 4 B read (int32 or float) and 4*C B written per pixel
 // against 2 * taps FLOP, so on an H100 it is bound by device-memory
 // bandwidth (67 MB read + 134 MB written at 4096^2 and C = 2). The design:
@@ -27,7 +33,7 @@
 // about 100 pixels each side), the same kernel reads each tap from device
 // memory directly (through L1 and L2) instead.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -35,19 +41,28 @@ constexpr int TW = 128;       // output columns per block
 constexpr int THREADS = 256;
 constexpr int SMEM_CAP = 200 * 1024;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int v) { return (float)v; }
+__device__ __forceinline__ float widen(short v) { return (float)v; }
+__device__ __forceinline__ float widen(signed char v) { return (float)v; }
+__device__ __forceinline__ float widen(rf::bf16 v) {
+  return __bfloat162float(v);
+}
+
 template <typename In>
 __device__ __forceinline__ float load(const In* y, int H, int W, int r,
                                       int k) {
   if (r < 0 || k < 0) return 0.f;
-  return (float)y[(long)min(r, H - 1) * W + min(k, W - 1)];
+  return widen(y[(long)min(r, H - 1) * W + min(k, W - 1)]);
 }
 
-template <typename In, bool STAGED>
+// In: y's type; Out: the output's, float or (for a bf16 y) bf16
+template <typename In, typename Out, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 stencil2d_kernel(const In* __restrict__ y,        // (H, W)
                  const float* __restrict__ taps,  // (ntaps, 3): dy, dx, c
                  const int* __restrict__ toff,    // (C + 1) tap offsets
-                 float* __restrict__ out,         // (C, H, W)
+                 Out* __restrict__ out,           // (C, H, W)
                  int H, int W, int C, int TH, int hp, int hn, int dxl,
                  int dxr) {
   extern __shared__ float smem[];
@@ -78,16 +93,17 @@ stencil2d_kernel(const In* __restrict__ y,        // (H, W)
         const float t = __fmul_rn(taps[3 * k + 2], v);
         acc = k == toff[c] ? t : __fadd_rn(acc, t);
       }
-      out[c * plane + (long)gs * W + go] = acc;
+      rf::store1(out + c * plane + (long)gs * W + go, acc);
     }
   }
 }
 
-template <typename In>
-int launch(const void* y, const float* taps, const int* toff, float* out,
+template <typename In, typename Out = float>
+int launch(const void* y, const float* taps, const int* toff, void* o,
            int H, int W, int C, int hp, int hn, int dxl, int dxr,
            cudaStream_t stream) {
   const In* yi = static_cast<const In*>(y);
+  Out* out = static_cast<Out*>(o);
   const int SW = dxl + TW + dxr;
   int TH = 32;
   while (TH > 4 && (long)(hp + TH + hn) * SW * 4 > SMEM_CAP) TH /= 2;
@@ -96,13 +112,13 @@ int launch(const void* y, const float* taps, const int* toff, float* out,
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (smem <= SMEM_CAP) {
     cudaError_t err = cudaFuncSetAttribute(
-        stencil2d_kernel<In, true>,
+        stencil2d_kernel<In, Out, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
     if (err != cudaSuccess) return (int)err;
-    stencil2d_kernel<In, true><<<grid, THREADS, smem, stream>>>(
+    stencil2d_kernel<In, Out, true><<<grid, THREADS, smem, stream>>>(
         yi, taps, toff, out, H, W, C, TH, hp, hn, dxl, dxr);
   } else {
-    stencil2d_kernel<In, false><<<grid, THREADS, 0, stream>>>(
+    stencil2d_kernel<In, Out, false><<<grid, THREADS, 0, stream>>>(
         yi, taps, toff, out, H, W, C, TH, hp, hn, dxl, dxr);
   }
   return (int)cudaGetLastError();
@@ -125,6 +141,17 @@ extern "C" int stencil2d_launch(const void* y, const float* taps,
     case 3: return launch<signed char>(y, taps, toff, out, H, W, C, hp, hn, dxl, dxr, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// y (H, W) and out (C, H, W) bf16; the rest as stencil2d_launch
+extern "C" int stencil2d_bf16_launch(const void* y, const float* taps,
+                                     const int* toff, void* out, int H,
+                                     int W, int C, int hp, int hn, int dxl,
+                                     int dxr, void* stream) {
+  if (H < 1 || W < 1 || C < 1 || hp < 0 || hn < 0 || dxl < 0 || dxr < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch<rf::bf16, rf::bf16>(y, taps, toff, out, H, W, C, hp, hn,
+                                    dxl, dxr, (cudaStream_t)stream);
 }
 
 extern "C" const char* stencil2d_error_string(int err) {

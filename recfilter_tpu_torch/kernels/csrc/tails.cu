@@ -43,7 +43,7 @@
 //   * G_v's S rows staged once per variant in the accumulator's type: no
 //     conversion per product;
 //   * a ring of nst (3 where it fits, else 2) stages of the 128 line rows
-//     (512 B each, row stride XS = 132 floats: a warp's float4 row reads
+//     (512 B each, row stride 132 floats: a warp's float4 row reads
 //     take the least wavefronts), filled by cp.async nst - 1 items ahead;
 //   * stores coalesced along the line axis, zeros on the pad slots.
 // The launcher takes three stages where they fit beside G's rows in the
@@ -62,7 +62,11 @@
 // stride 136 elements: the same banks as the fp32 rows' 132 floats), each
 // thread reads eight values a 16-byte word and widens them (exact), so the
 // fp64 sums are the fp32 entry's on the same values, bit for bit; G stays
-// fp32. 2 B per sample read: the bound halves.
+// fp32. 2 B per sample read: the bound halves. tails_extra_bf16 (the extra
+// rows of a stencil consumer on a bf16 x) does the same in
+// tails_extra_kernel: its 64-line stage holds bf16 rows (136 elements),
+// read a 16-byte word (eight values) at a time through word16, the fp64
+// sums in the fp32 entry's order.
 
 #include "common.cuh"
 #include "pipeline.cuh"
@@ -77,7 +81,6 @@ template <typename TX>
 __host__ __device__ constexpr int padded_row() {
   return T + 16 / (int)sizeof(TX);
 }
-constexpr int XS = padded_row<float>();  // fp32 row stride (extra rows too)
 constexpr int MAX_SL = 56;      // carry rows the layout takes
 constexpr long MAX_SMEM = 232448;  // shared memory a block may take
 constexpr int MAX_HE = 256;     // extra rows: a reach of 128 each way
@@ -214,34 +217,39 @@ tails_kernel(const TX* __restrict__ x,     // (q, n, T)
   }
 }
 
-template <typename Acc>
+// TX: x's type, float or bf16 (the stage's rows, padded_row<TX>()
+// elements)
+template <typename Acc, typename TX>
 __global__ void __launch_bounds__(THREADS)
-tails_extra_kernel(const float* __restrict__ x,  // (q, n, T)
+tails_extra_kernel(const TX* __restrict__ x,     // (q, n, T)
              const float* __restrict__ G,  // (nv, R, T), R = sl + He
              float* __restrict__ out,      // (n, R, q)
              int q, int n, int S, int sl, int R, int nv) {
+  constexpr int V = 16 / (int)sizeof(TX);  // elements a 16-byte word
+  constexpr int RS = padded_row<TX>();
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);        // LINES x XS
-  Acc* gs = reinterpret_cast<Acc*>(xs + LINES * XS);  // ROWS x T, one pass
+  TX* xs = reinterpret_cast<TX*>(smem4);  // LINES x RS
+  Acc* gs = reinterpret_cast<Acc*>(smem4 + LINES * RS * sizeof(TX) / 16);
+                                          // ROWS x T, one pass
 
   const int t = blockIdx.x;
   const int l0 = blockIdx.y * LINES;
   const int tid = threadIdx.x;
   const int v = rf::variant(nv, t, n);
 
-  for (int i = tid; i < LINES * (T / 4); i += THREADS) {
-    const int r = i / (T / 4), c4 = i % (T / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < LINES * (T / V); i += THREADS) {
+    const int r = i / (T / V), c = i % (T / V);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (l0 + r < q)
-      val = reinterpret_cast<const float4*>(
-          x + ((long)(l0 + r) * n + t) * T)[c4];
-    reinterpret_cast<float4*>(xs + r * XS)[c4] = val;
+      val = reinterpret_cast<const uint4*>(
+          x + ((long)(l0 + r) * n + t) * T)[c];
+    reinterpret_cast<uint4*>(xs + r * RS)[c] = val;
   }
   const float* gv = G + (long)v * R * T;
 
   const int r = tid % LINES;  // this thread's line
   const int g = tid / LINES;  // its row group (uniform across a warp)
-  const float* xr = xs + r * XS;
+  const TX* xr = xs + r * RS;
   float* o = out + (long)t * R * q + l0 + r;
   // rows g, g + 4, ... in passes of ROWS rows, each pass's G rows staged in
   // the accumulator's type (no conversion per product: the extra rows
@@ -255,19 +263,23 @@ tails_extra_kernel(const float* __restrict__ x,  // (q, n, T)
     Acc acc[PER];
 #pragma unroll
     for (int j = 0; j < PER; ++j) acc[j] = Acc(0);
-    for (int tau = 0; tau < T; tau += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + tau);
-      const Acc x0 = Acc(xv.x), x1 = Acc(xv.y), x2 = Acc(xv.z),
-                x3 = Acc(xv.w);
+    for (int tau = 0; tau < T; tau += V) {
+      float xf[V];  // the V values of one 16-byte word, in order
+      word16(xr + tau, xf);
 #pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int s = base + g + GROUPS * j;
-        if (s < R && (s < S || s >= sl)) {
-          const Acc* gw = gs + (g + GROUPS * j) * T + tau;
-          acc[j] = madd(gw[0], x0, acc[j]);
-          acc[j] = madd(gw[1], x1, acc[j]);
-          acc[j] = madd(gw[2], x2, acc[j]);
-          acc[j] = madd(gw[3], x3, acc[j]);
+      for (int u = 0; u < V; u += 4) {
+        const Acc x0 = Acc(xf[u]), x1 = Acc(xf[u + 1]), x2 = Acc(xf[u + 2]),
+                  x3 = Acc(xf[u + 3]);
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int s = base + g + GROUPS * j;
+          if (s < R && (s < S || s >= sl)) {
+            const Acc* gw = gs + (g + GROUPS * j) * T + tau + u;
+            acc[j] = madd(gw[0], x0, acc[j]);
+            acc[j] = madd(gw[1], x1, acc[j]);
+            acc[j] = madd(gw[2], x2, acc[j]);
+            acc[j] = madd(gw[3], x3, acc[j]);
+          }
         }
       }
     }
@@ -322,19 +334,26 @@ int tails_sl(const TX* x, const float* G, float* out, int q, int n, int S,
   }
 }
 
-template <typename Acc>
-int extra_launch(const float* x, const float* G, float* out, int q, int n,
+template <typename Acc, typename TX>
+int extra_launch(const TX* x, const float* G, float* out, int q, int n,
                  int S, int sl, int He, int nv, cudaStream_t stream) {
   const dim3 grid(n, (q + LINES - 1) / LINES);
   const int R = sl + He, rows = R < ROWS ? R : ROWS;
-  const int smem = LINES * XS * sizeof(float) + rows * T * sizeof(Acc);
+  const int xs = LINES * padded_row<TX>() * (int)sizeof(TX);
+  const int smem = xs + rows * T * sizeof(Acc);
   cudaError_t err = cudaFuncSetAttribute(
-      tails_extra_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      LINES * XS * sizeof(float) + ROWS * T * sizeof(Acc));
+      tails_extra_kernel<Acc, TX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xs + ROWS * T * sizeof(Acc));
   if (err != cudaSuccess) return (int)err;
-  tails_extra_kernel<Acc><<<grid, THREADS, smem, stream>>>(x, G, out, q, n,
-                                                           S, sl, R, nv);
+  tails_extra_kernel<Acc, TX><<<grid, THREADS, smem, stream>>>(
+      x, G, out, q, n, S, sl, R, nv);
   return (int)cudaGetLastError();
+}
+
+bool extra_args_ok(int S, int sl, int He) {
+  return !(S < 1 || sl > MAX_SL || S > sl || sl % 8 || He < 1 ||
+           He > MAX_HE);
 }
 
 }  // namespace
@@ -377,12 +396,21 @@ extern "C" int tails_traced_launch(const float* x, const float* G, float* out,
 extern "C" int tails_extra_launch(const float* x, const float* G, float* out,
                                   int q, int n, int S, int sl, int He, int nv,
                                   int fp64, void* stream) {
-  if (S < 1 || sl > MAX_SL || S > sl || sl % 8 || He < 1 || He > MAX_HE)
-    return (int)cudaErrorInvalidValue;
+  if (!extra_args_ok(S, sl, He)) return (int)cudaErrorInvalidValue;
   return fp64 ? extra_launch<double>(x, G, out, q, n, S, sl, He, nv,
                                      (cudaStream_t)stream)
               : extra_launch<float>(x, G, out, q, n, S, sl, He, nv,
                                     (cudaStream_t)stream);
+}
+
+// x (q, n, 128) bf16; the rest as tails_extra_launch, fp64 sums only
+extern "C" int tails_extra_bf16_launch(const void* x, const float* G,
+                                       float* out, int q, int n, int S,
+                                       int sl, int He, int nv, int fp64,
+                                       void* stream) {
+  if (!extra_args_ok(S, sl, He) || !fp64) return (int)cudaErrorInvalidValue;
+  return extra_launch<double>(static_cast<const rf::bf16*>(x), G, out, q, n,
+                              S, sl, He, nv, (cudaStream_t)stream);
 }
 
 extern "C" const char* tails_error_string(int err) {

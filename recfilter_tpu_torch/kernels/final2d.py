@@ -28,8 +28,9 @@ bf16 storage (the JAX package's ``dtype="bfloat16"`` mode: the image in
 bf16 between passes, one product): :class:`Moments2D`, :class:`RowsTails`
 take a bf16 x (their outputs stay float32, the sums those of the float32
 path on the same values), :class:`Final2DSplit` and :class:`RowsFinal` at
-nprod 1 take a bf16 x and return a bf16 y — the kernels' ``*_bf16``
-entries; the twins compute in float32 on ``x.float()`` and round once.
+nprod 1 take a bf16 x and return a bf16 y, and :class:`Final2DStencil` at
+nprod 1 a bf16 x and bf16 banks — the kernels' ``*_bf16`` entries; the
+twins compute in float32 on ``x.float()`` and round once.
 
 Each module holds its host-built matrices as buffers and has two paths:
 ``forward`` launches the CUDA kernel (``csrc/*.cu``) for a CUDA tensor and
@@ -486,6 +487,12 @@ class Final2DStencil(nn.Module):
     strips get zero gradients; the backward differentiates the float32
     product with the grade's constants (``_twin``).
 
+    bf16 storage: at nprod 1, x may be bf16 (``final2d_stencil_bf16``):
+    the banks are bf16, each value the float32 sum of its taps on the
+    float32 Y, rounded once; the twin computes on ``x.float()`` and rounds
+    once (the JAX kernel's arithmetic, ``_final2d_px_stencil`` on a bf16
+    x, whose banks ``apply_filter_fused`` rounds once).
+
     taps_c : per channel ``[(dy, dx, coeff), ...]`` with |dy| ≤ h8 ≤ 128
     and |dx| ≤ 128.
     """
@@ -516,7 +523,9 @@ class Final2DStencil(nn.Module):
                            ).reshape(self.C, p, na, Ta, W)
 
     def plain(self, x, NA_t, NB_t, *halos):
-        return self._bank(self.final.plain(x, NA_t, NB_t))
+        _bf16_grade(x, self.nprod)
+        return self._bank(self.final.plain(x.float(), NA_t, NB_t)).to(
+            x.dtype)
 
     def _twin(self, x, NA_t, NB_t, *halos):
         return self._bank(getattr(self.final, "_twin", self.final.plain)(
@@ -529,7 +538,7 @@ class Final2DStencil(nn.Module):
         one product)."""
         if self.nprod == 6:
             return x.new_zeros((self.C,) + tuple(x.shape))
-        bound = self.final.resplit_bound(x, NA_t)
+        bound = self.final.resplit_bound(x.float(), NA_t)
         p, na, Ta, W = bound.shape
         from .stencil2d import Stencil2D
 
@@ -541,7 +550,8 @@ class Final2DStencil(nn.Module):
     def _kernel(self, x, NA_t, NB_t, halo_top, halo_bot):
         p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
         W = nb * TILE
-        _check(x, "x", (p, na, TILE, W), x.device)
+        _check(x, "x", (p, na, TILE, W), x.device, XTYPES)
+        _bf16_grade(x, self.nprod)
         _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
         _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
         _check(halo_top, "halo_top", (p, na, h8, W), x.device)
@@ -561,8 +571,9 @@ class Final2DStencil(nn.Module):
         _check(bank.taps_k, "taps_k", bank.taps_k.shape, x.device)
         _check(bank.toff, "toff", bank.toff.shape, x.device, torch.int32)
         _grid_ok(p, na, W)
-        out = torch.empty((self.C, p, na, TILE, W), device=x.device)
-        _launch("final2d_stencil", (
+        out = torch.empty((self.C, p, na, TILE, W), device=x.device,
+                          dtype=x.dtype)
+        _launch(_entry("final2d_stencil", x), (
             x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(), A.data_ptr(),
             B.data_ptr(), halo_top.data_ptr(), halo_bot.data_ptr(),
             bank.taps_k.data_ptr(), bank.toff.data_ptr(), out.data_ptr(),

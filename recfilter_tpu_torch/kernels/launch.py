@@ -45,7 +45,12 @@ autograd rule for all of them.
     (x bf16), ``completion_split_bf16``, ``completion_split_epi_bf16``,
     ``completion_rot_bf16``, ``completion_rot_epi_bf16`` and
     ``completion_rot_tails_bf16`` (x and y bf16, nprod 1; the rotated
-    entries without a stencil).
+    entries without a stencil), and the stencil consumers' forms:
+    ``final2d_stencil_bf16`` (x and the banks bf16, nprod 1),
+    ``tails_extra_bf16`` (x bf16), ``completion_rot_stencil_bf16`` and
+    ``completion_rot_stencil_epi_bf16`` (x and y bf16, nprod 1, the
+    rotated emit with its stencil) and ``stencil2d_bf16`` (y and the
+    banks bf16).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -95,20 +100,24 @@ SIGNATURES = {
                       ("moments2d_bf16", 9, 8), ("moments2d_naf_bf16", 7, 7)),
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
                     ("final2d_k", 6, 8)),
-    "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 11, 11)),
+    "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 11, 11),
+                            ("final2d_stencil_bf16", 11, 11)),
     "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6),
                           ("final2d_split_epi", 11, 7),
                           ("final2d_split_bf16", 6, 6),
                           ("final2d_split_epi_bf16", 11, 7)),
     "tails": _sig("tails", ("tails", 3, 7), ("tails_extra", 3, 7),
-                  ("tails_traced", 3, 3), ("tails_bf16", 3, 7)),
+                  ("tails_traced", 3, 3), ("tails_bf16", 3, 7),
+                  ("tails_extra_bf16", 3, 7)),
     "completion": _sig("completion", ("completion", 4, 4),
                        ("completion_epi", 9, 5),
                        ("completion_traced", 5, 3)),
     "completion_rot": _sig("completion_rot", ("completion_rot", 7, 10),
                            ("completion_rot_epi", 12, 11),
                            ("completion_rot_bf16", 4, 5),
-                           ("completion_rot_epi_bf16", 9, 6)),
+                           ("completion_rot_epi_bf16", 9, 6),
+                           ("completion_rot_stencil_bf16", 7, 10),
+                           ("completion_rot_stencil_epi_bf16", 12, 11)),
     "completion_rot_tails": _sig("completion_rot_tails",
                                  ("completion_rot_tails", 6, 8),
                                  ("completion_rot_tails_bf16", 6, 8)),
@@ -124,7 +133,8 @@ SIGNATURES = {
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
                          ("int_seg_fix", 3, 9)),
-    "stencil2d": _sig("stencil2d", ("stencil2d", 4, 8)),
+    "stencil2d": _sig("stencil2d", ("stencil2d", 4, 8),
+                      ("stencil2d_bf16", 4, 7)),
     "fused": _sig("fused", ("dim_pass_rows", 3, 8), ("dim_pass_cols", 3, 10)),
     "bsolve": _sig("bsolve", ("bsolve", 6, 7)),
     "copy": _sig("copy", ("copy", 2, 1)),

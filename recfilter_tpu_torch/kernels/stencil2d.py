@@ -24,7 +24,10 @@ one (C, H, W) buffer).
 Output type: float32 for an integer table, as the JAX package's twin
 ``stencil2d_ref`` returns. Its TPU kernel writes the input type instead,
 which truncates an integer table's differenced output (ROADMAP Queue 3);
-the port does not copy that.
+the port does not copy that. A bf16 image (bf16 storage) gives bf16
+channels (``stencil2d_bf16``): the float32 products and sums of the float32
+path on the widened values, each channel rounded once. The JAX package's
+twin takes them in bf16 arithmetic (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from torch import nn
 from .launch import _check, _KernelFn, _launch
 
 _DTYPES = {torch.float32: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3}
+# the types the kernels read: those of ``stencil2d``, and bf16
+# (``stencil2d_bf16``)
+_KTYPES = (*_DTYPES, torch.bfloat16)
 
 
 def normalize_taps(taps_c):
@@ -80,9 +86,10 @@ def shift2(y: torch.Tensor, off: int, axis: int) -> torch.Tensor:
 def stencil2d_ref(y: torch.Tensor, taps_c):
     """The JAX package's ``stencil2d_ref``: each channel's taps over the
     trailing two axes of ``y`` (the row shift, then the column shift of the
-    row-shifted array), fp32 product then sum per tap. An integer ``y`` is
-    shifted in its own type and each term taken in float32. Returns a
-    tuple of per-channel tensors."""
+    row-shifted array), fp32 product then sum per tap. An integer or bf16
+    ``y`` is shifted in its own type and each term taken in float32; a bf16
+    ``y``'s channels are rounded once to bf16. Returns a tuple of
+    per-channel tensors."""
     nd = y.ndim
     outs = []
     for taps in normalize_taps(taps_c):
@@ -91,13 +98,14 @@ def stencil2d_ref(y: torch.Tensor, taps_c):
             t = shift2(shift2(y, dy, nd - 2), dx, nd - 1)
             t = t.to(torch.float32) * coeff
             acc = t if acc is None else acc + t
-        outs.append(acc)
+        outs.append(acc.to(torch.bfloat16) if y.dtype == torch.bfloat16
+                    else acc)
     return tuple(outs)
 
 
 class Stencil2D(nn.Module):
     """``stencil(y)`` for ``y`` (H, W): a tuple of C float32 (H, W)
-    tensors (module docstring).
+    tensors, bf16 for a bf16 ``y`` (module docstring).
 
     taps_c : per output channel ``[(dy, dx, coeff), ...]``."""
 
@@ -121,15 +129,19 @@ class Stencil2D(nn.Module):
 
     def _kernel(self, y):
         H, W = y.shape
-        _check(y, "y", (H, W), y.device, tuple(_DTYPES))
+        bf16 = y.dtype == torch.bfloat16
+        _check(y, "y", (H, W), y.device, _KTYPES)
         _check(self.taps_k, "taps_k", self.taps_k.shape, y.device)
         _check(self.toff, "toff", self.toff.shape, y.device, torch.int32)
-        out = torch.empty((self.C, H, W), device=y.device)
+        out = torch.empty((self.C, H, W), device=y.device,
+                          dtype=torch.bfloat16 if bf16 else torch.float32)
         hp, hn, dxl, dxr = self.reach
-        _launch("stencil2d", (
-            y.data_ptr(), self.taps_k.data_ptr(), self.toff.data_ptr(),
-            out.data_ptr(), H, W, self.C, hp, hn, dxl, dxr,
-            _DTYPES[y.dtype]), y.device)
+        args = (y.data_ptr(), self.taps_k.data_ptr(), self.toff.data_ptr(),
+                out.data_ptr(), H, W, self.C, hp, hn, dxl, dxr)
+        if bf16:
+            _launch("stencil2d_bf16", args, y.device)
+        else:
+            _launch("stencil2d", (*args, _DTYPES[y.dtype]), y.device)
         return out
 
     def forward(self, y):
@@ -138,8 +150,8 @@ class Stencil2D(nn.Module):
         if y.ndim != 2:
             raise ValueError(f"stencil2d kernel takes an (H, W) image, got "
                              f"shape {tuple(y.shape)}")
-        if y.dtype not in _DTYPES:
-            raise TypeError(f"stencil2d kernel takes {list(_DTYPES)}, got "
+        if y.dtype not in _KTYPES:
+            raise TypeError(f"stencil2d kernel takes {list(_KTYPES)}, got "
                             f"{y.dtype}")
         y = y.contiguous()
         out = (_KernelFn.apply(self, y) if y.is_floating_point()

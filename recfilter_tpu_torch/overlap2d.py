@@ -71,7 +71,7 @@ from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
 from .kernels.split import NPROD
 from .kernels.stencil2d import stencil_reach
-from .planner import BF16_STENCIL, refuse_bf16, refuse_split
+from .planner import refuse_split
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
@@ -176,8 +176,9 @@ class Fused2DPx(nn.Module):
 
     ``dtype``: the storage type, float32 or bf16 (module docstring; bf16
     at ``nprod`` 1, an epilogue's output rounded to bf16 as the JAX
-    kernel stores it; a fused ``stencil2d`` bank raises, ROADMAP Queue 1
-    item 4, Queue 2 item 6). ``tile`` casts the input to it."""
+    kernel stores it; a fused ``stencil2d`` bank runs ``moments2d_bf16``
+    with its edge rows and ``final2d_stencil_bf16``, bf16 banks each
+    rounded once). ``tile`` casts the input to it."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
                  wa: int, wb: int, border: str, epilogue=None,
@@ -192,9 +193,6 @@ class Fused2DPx(nn.Module):
             raise ValueError(f"nprod {nprod}: the 2-D executor runs 1, 3, 4 "
                              "or 6 products")
         self.dtype = _storage_type(dtype, nprod)
-        if self.dtype == torch.bfloat16 and stencil2d is not None:
-            refuse_bf16("a fused stencil2d bank (final2d_stencil)",
-                        BF16_STENCIL)
         self.nprod = nprod
         why = fused2d_decline(scans_a, scans_b, wa, wb, border, stencil2d)
         if why:

@@ -79,11 +79,17 @@ and writing bf16 — and on the rotation chain, the per-axis loop and
 ``rotate_emit`` — the rows pass on a non-last axis, ``tails``,
 ``completion_split`` (``_epi``), ``completion_rot`` (``_epi``) and
 ``completion_rot_tails`` reading and writing bf16, wherever their kernel
-gates hold. Every other bf16 route raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 4 and the Queue 2 item of its form
-(:func:`refuse_bf16`: 6 the stencil consumers, 7 the FIR band, 8 the
-einsum forms, the sequential core and the other backends): no route runs
-float32 in its place. float16 storage runs the float32 route at the
+gates hold — and the stencil consumers on those routes: a fused
+``stencil2d`` bank (``moments2d`` with its edge rows,
+``final2d_stencil``), a rotated emit's fused stencil (``tails_extra``,
+``completion_rot``'s stencil body, with and without its epilogue), a
+``stencil2d`` bank after the filter (``stencil2d``), each reading bf16 and
+writing bf16 rounded once; the stencil fallbacks take the taps in float32
+on the bf16 output and round once. Every other bf16 route raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 4 and the Queue 2 item
+of its form (:func:`refuse_bf16`: 7 the FIR band, 8 the einsum forms, the
+sequential core and the other backends; item 6, the stencil consumers,
+is ported): no route runs float32 in its place. float16 storage runs the float32 route at the
 requested grade on the input cast to float32, and casts the output back
 (the JAX package's ``cdt``).
 """
@@ -130,7 +136,8 @@ def storage_nprod(dtype: str, matmul_precision: str) -> int:
     return NPROD.get(matmul_precision, 0)
 
 
-# The ROADMAP Queue 2 items of the bf16 storage forms still to port
+# The ROADMAP Queue 2 items of the bf16 storage forms (the stencil
+# consumers', item 6, ported; 7 and 8 still to port)
 BF16_STENCIL, BF16_FIR, BF16_EINSUM = 6, 7, 8
 
 
@@ -141,8 +148,8 @@ def refuse_bf16(route: str, item: int) -> None:
     raise NotImplementedError(
         f"bf16 storage on {route} is not ported yet: {SPLIT_ITEM}, Queue 2 "
         f"item {item} (bf16 filters run the 3-touch 2-D executor, volumes, "
-        "the rotation chain, the per-axis loop and rotate_emit on their "
-        "kernels at one product)")
+        "the rotation chain, the per-axis loop, rotate_emit and their "
+        "stencil consumers on their kernels at one product)")
 
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",

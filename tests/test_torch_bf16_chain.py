@@ -155,7 +155,8 @@ def test_completion_takes_bf16_at_one_product(rot, epi):
     (``completion_rot_bf16``, ``_epi_bf16``): its float32 path on the same
     values, the affine epilogue (aux float32) included, rounded once; and
     against ``completion_pass(nprod=1)`` on the bf16 x as :func:`_held`
-    says. px6 and a stencil refuse a bf16 x."""
+    says. px6 refuses a bf16 x (the stencil on bf16:
+    ``tests/test_torch_bf16_stencil.py``)."""
     n, q, S = 3, 40, 6
     Btot, Rcat, x, N = _pass_inputs("clamp", n, q, S, seed=3 + rot)
     fn = EPIS[epi]

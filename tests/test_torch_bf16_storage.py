@@ -547,18 +547,20 @@ REFUSED = {
     # a clamp border with no dividing tile: the sequential core
     "core": (8, lambda: _bf16_filter((4, 251), (1,), clamp=True).as_func(
         device="cpu")),
-    # a fused stencil2d bank on the pair (final2d_stencil)
-    "stencil2d": (6, lambda: _bf16_filter((128, 256), (0, 1)).as_func(
-        stencil2d=SOBEL, device="cpu")),
-    # a stencil2d bank after the chain (the pair declines ΣK = 12)
-    "bank-after-chain": (6, lambda: _bf16_filter(
-        (128, 256), (0, 1), times=2).as_func(stencil2d=SOBEL,
-                                             device="cpu")),
-    # the rotated emit with a fused stencil (tails_extra, completion_rot's
-    # stencil body)
-    "rotate_emit-stencil": (6, lambda: _bf16_filter(
-        (128, 256), (1,), rotate_emit=2).as_func(
+    # the FIR band on a 2-D bf16 image through the separable bank (the
+    # image stays bf16, as the JAX package's fir_separable_2d keeps it)
+    "fir-separable-2d": (7, lambda: tfir.FirSeparable2D(
+        64, 96, [1.0, 2.0, 1.0])(torch.zeros((64, 96),
+                                             dtype=torch.bfloat16))),
+    # the rotated emit with a stencil at 32-wide tiles: the einsum form,
+    # not the stencil (its bf16 kernels are ported)
+    "rotate_emit-stencil-32": (8, lambda: _bf16_filter(
+        (128, 256), (1,), {1: 32}, rotate_emit=2).as_func(
             stencil={"taps": [(-1, 0.5), (1, 0.5)]}, device="cpu")),
+    # a 4-D filter's leading-axis pass, its extent of 40 at 32-wide tiles
+    # (the rows gates decline it): the einsum form
+    "4-d-leading-pass": (8, lambda: _bf16_filter(
+        (40, 8, 16, 256), (0,), {0: 32}).as_func(device="cpu")),
     # the FIR band pass
     "fir": (7, lambda: tfir.fir_pass_last(torch.zeros(
         (8, 256), dtype=torch.bfloat16), [1.0])),

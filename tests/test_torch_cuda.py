@@ -2642,3 +2642,238 @@ def test_bf16_chain_loop_and_rotated_on_the_card(case, dev):
         torch.cuda.synchronize()
         assert tl.LAUNCHES == _only(tails_bf16=3, completion_rot_bf16=3)
         assert torch.equal(yu, y)
+
+
+# ------------------------------- bf16 storage: the stencil consumers
+
+SOBEL = [[(-1, -1, -1.0), (0, -1, -2.0), (1, -1, -1.0), (-1, 1, 1.0),
+          (0, 1, 2.0), (1, 1, 1.0)],
+         [(-1, -1, -1.0), (-1, 0, -2.0), (-1, 1, -1.0), (1, -1, 1.0),
+          (1, 0, 2.0), (1, 1, 1.0)]]
+C1_BANK = [[(5, 5, 1.0), (5, -6, -1.0), (-6, 5, -1.0), (-6, -6, 1.0)],
+           [(9, 9, 0.5), (9, -10, -0.5), (-10, 9, -0.5), (-10, -10, 0.5)]]
+DERIV = [(-1, -0.5), (1, 0.5)]  # a central difference
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("h8", [8, 16])
+def test_moments2d_bf16_edge_rows(kind, h8, dev):
+    """moments2d_bf16 with edge rows (h8 = 8, GS's bank; 16, C1's): every
+    output the float32 entry's on the same values, bit for bit; within
+    one bf16 step of the twin's (the share that differ printed)."""
+    ma, _, Ga_cat, Gb_cat, _, _ = _carry_mats(kind, NA, NB)
+    mod = tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, NA, NB,
+                         edge=(ma.Btot, h8)).to(dev)
+    xb = _inputs(dev, seed=h8)[0].to(torch.bfloat16)
+    tl.reset_launches()
+    got = mod(xb)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d_bf16=1) and len(got) == 4
+    for i, (g, f, t) in enumerate(zip(got, mod(xb.float()), mod.plain(xb))):
+        assert g.dtype == torch.float32 and torch.equal(g, f)
+        _one_ulp(f"moments2d_bf16 {kind} h8={h8} output {i}", g, t)
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("bank,h8", [(SOBEL, 8), (C1_BANK, 16)],
+                         ids=["sobel", "c1"])
+def test_final2d_stencil_bf16_matches_the_float32_kernel_and_twin(kind, bank,
+                                                                  h8, dev):
+    """final2d_stencil_bf16 (one product; x bf16 for the tile and both
+    lane neighbours): the float32 entry's banks on the same values rounded
+    once to bf16, bit for bit; each element within one bf16 step of the
+    twin's beyond the float32 forms' 1e-5 of the peak and the bank over
+    the resplit bound; one launch; px6 refuses a bf16 x."""
+    fin = tk2d.Final2DStencil(*_split_mats(kind), NA, NB, bank, h8,
+                              1).to(dev)
+    x, NA_t, NB_t = _inputs(dev, seed=h8 + 1)
+    xb = x.to(torch.bfloat16)
+    Y = fin.final.plain(xb.float(), NA_t, NB_t)
+    z = torch.zeros_like(Y[:, :1, :h8])
+    top = torch.cat([z, Y[:, :-1, T - h8:]], dim=1).contiguous()
+    bot = torch.cat([Y[:, 1:, :h8], z], dim=1).contiguous()
+    tl.reset_launches()
+    got = fin(xb, NA_t, NB_t, top, bot)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(final2d_stencil_bf16=1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fin(xb.float(), NA_t, NB_t, top, bot).to(
+        torch.bfloat16))
+    _one_ulp(f"final2d_stencil_bf16 {kind} h8={h8}", got,
+             fin.plain(xb, NA_t, NB_t, top, bot),
+             fin.resplit_bound(xb, NA_t).double())
+    px6 = tk2d.Final2DStencil(*_split_mats(kind), NA, NB, bank, h8).to(dev)
+    with pytest.raises(ValueError, match="one product"):
+        px6(xb, NA_t, NB_t, top, bot)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+@pytest.mark.parametrize("S,He,q", [(6, 2, 4096), (12, 38, 1000),
+                                    (3, 256, 7)])
+def test_tails_extra_bf16_is_the_float32_kernel_on_its_values(kind, S, He,
+                                                              q, dev):
+    """tails_extra_bf16 (D1's two halo rows; C6's reach; a whole tile each
+    way): the float32 entry's slot and extra rows on the same values, bit
+    for bit; within one bf16 step of the twin's; the fp32-summing probe
+    refused."""
+    rng = np.random.default_rng(S * 100 + He)
+    n = 3
+    mod = tc.TailsPass(_stack(kind, S, T, n, rng, 0.1), n,
+                       extra_rows=_stack(kind, He, T, n, rng, 0.1)).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((q, n, T)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    tl.reset_launches()
+    b = mod(xb)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(tails_extra_bf16=1)
+    assert b.dtype == torch.float32 and torch.equal(b, mod(xb.float()))
+    _one_ulp(f"tails_extra_bf16 {kind} S={S} He={He} q={q}", b,
+             mod.plain(xb))
+    mod.fp64 = False
+    with pytest.raises(ValueError, match="fp64"):
+        mod(xb)
+
+
+@pytest.mark.parametrize("taps,start,end", [
+    (DERIV, "zero", "clamp"),
+    ([(10, 0.25), (-1, -2.0), (-12, 1.0)], "zero", "clamp"),
+    ([(-128, 1.0), (128, 0.5), (0, 2.0)], "clamp", "clamp")],
+    ids=["d1", "c6", "tile"])
+@pytest.mark.parametrize("i", [None, 1, 2])
+def test_completion_rot_stencil_bf16_matches_the_float32_kernel_and_twin(
+        taps, start, end, i, dev):
+    """completion_rot_stencil_bf16 (i None) and
+    completion_rot_stencil_epi_bf16 (k = i aux arrays, float32) at one
+    product on a bf16 x: the float32 entry's output on the same values
+    rounded once, bit for bit; every element within one bf16 step of the
+    twin's (the share that differ printed); one launch. q = 4096 (16-byte
+    halo copies), 1030 and 998 (4-byte ones)."""
+    aff = None if i is None else _affine(i)
+    st = {"taps": taps, "start": start, "end": end}
+    for q in (4096, 1030, 998):
+        Btot, Rcat, xb, N = _pass_bf16("clamp", 4, q, 3, q + (i or 0), dev)
+        mod = tc.CompletionPass(Btot, Rcat, 4, rot=True, stencil=st, nprod=1,
+                                affine=aff).to(dev)
+        flat = tc.CompletionPass(Btot, Rcat, 4, rot=True, nprod=1).to(dev)
+        halos = _halos_flat(flat.plain(xb.float(), N), 4, mod.hp, mod.hn)
+        aux = [] if aff is None else _aux((4 * T, q), aff.k, dev, 90 + q)
+        tl.reset_launches()
+        y = mod(xb, N, *halos, *aux)
+        torch.cuda.synchronize()
+        entry = ("completion_rot_stencil_bf16" if aff is None
+                 else "completion_rot_stencil_epi_bf16")
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        assert y.dtype == torch.bfloat16 and tuple(y.shape) == (4 * T, q)
+        assert torch.equal(y, mod(xb.float(), N, *halos, *aux).to(
+            torch.bfloat16))
+        _one_ulp(f"{entry} {taps} q={q}", y, mod.plain(xb, N, *halos, *aux))
+
+
+@pytest.mark.parametrize("bank", [SOBEL, C1_BANK, [[(40, -40, 1.0),
+                                                     (-3, 120, 0.5)]]],
+                         ids=["sobel", "c1", "wide"])
+@pytest.mark.parametrize("shape", [(1080, 1920), (96, 200)])
+def test_stencil2d_bf16_is_the_float32_kernel_rounded_once(bank, shape, dev):
+    """stencil2d_bf16 (staged, and the wide bank's direct reads): the
+    float32 entry's channels on the same values rounded once, bit for
+    bit; within one bf16 step of the twin's; one launch."""
+    from recfilter_tpu_torch.kernels.stencil2d import Stencil2D
+
+    rng = np.random.default_rng(shape[0])
+    mod = Stencil2D(bank).to(dev)
+    yb = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    tl.reset_launches()
+    got = mod(yb)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(stencil2d_bf16=1)
+    for c, (g, f, t) in enumerate(zip(got, mod(yb.float()), mod.plain(yb))):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, f.to(g.dtype))
+        _one_ulp(f"stencil2d_bf16 {shape} channel {c}", g, t)
+
+
+def _bank64(y, bank):
+    """The bank over the trailing two axes of a float64 array (the border
+    rule: clamp past the far edges, zeros before the first)."""
+    def shift(f, off, ax):
+        n = f.shape[ax]
+        lo, hi = max(off, 0), max(-off, 0)
+        pads = [(0, 0)] * f.ndim
+        pads[ax] = (hi, lo)
+        g = np.pad(f, pads, mode="edge" if off > 0 else "constant")
+        return np.take(g, np.arange(lo, lo + n), axis=ax)
+
+    return [sum(c * shift(shift(y, dy, y.ndim - 2), dx, y.ndim - 1)
+                for dy, dx, c in taps) for taps in bank]
+
+
+@pytest.mark.parametrize("case", ["GS", "HS", "D1", "D1e", "C6b"])
+def test_bf16_stencil_consumers_on_the_card(case, dev):
+    """The stencil consumers through ``as_func`` on bf16 images, shrunk: GS
+    (the Sobel bank fused into the pair: moments2d_bf16 with edge rows,
+    final2d_stencil_bf16), HS (a padded frame: the chain, then
+    stencil2d_bf16), D1 and D1e (a central difference fused into the
+    rotated x pass; D1e's combine y′ + 0.25·x in the kernel) and C6b (the
+    per-slice branch); the bf16 entries launched as the route says, bf16
+    outputs within 3e-2 of the f64 oracle's peak (the oracle of the bf16
+    image: the kernels' own error)."""
+    import dataclasses
+
+    from recfilter_tpu_torch.apps.dog import _stencil
+
+    w3 = rft.gaussian_weights(5.0, 3)
+    shape, axes = {"GS": ((512, 512), (0, 1)), "HS": ((200, 384), (0, 1)),
+                   "D1": ((256, 1024), (1,)), "D1e": ((256, 1024), (1,)),
+                   "C6b": ((2, 128, 512), (2,))}[case]
+    rng = np.random.default_rng(len(case) + 30)
+    x = torch.from_numpy((rng.standard_normal(shape) * 0.01).astype(
+        np.float32)).to(torch.bfloat16)
+    dims = [rft.Dim(nm, e) for nm, e in zip("zyx"[-len(shape):], shape)]
+    F = rft.RecFilter(case)
+    F[tuple(dims)] = x
+    for ax in axes:
+        F.add_filter(+dims[ax], w3)
+        F.add_filter(-dims[ax], w3)
+    F.split({dims[ax]: 128 for ax in axes})
+    combine = (lambda y, a: y + 0.25 * a) if case == "D1e" else None
+    if case in ("GS", "HS"):
+        fn = F.as_func(stencil2d=SOBEL)
+    else:
+        F.set_plan(rotate_emit=2)
+        taps = ([_stencil(5)["taps"], _stencil(9)["taps"]] if case == "C6b"
+                else DERIV)
+        st = {"taps": taps, "start": "zero", "end": "clamp"}
+        fn = F.as_func(stencil=st, epilogue=combine)
+    xr = x.float().transpose(-1, -2).contiguous()  # the rotated image
+    aux = (xr.to(dev),) if combine else ()
+    tl.reset_launches()
+    y = fn(x.to(dev), *aux)
+    torch.cuda.synchronize()
+    launches = {
+        "GS": _only(moments2d_bf16=1, final2d_stencil_bf16=1),
+        "HS": _only(tails_bf16=2, completion_rot_bf16=2, stencil2d_bf16=1),
+        "D1": _only(tails_extra_bf16=1, completion_rot_stencil_bf16=1),
+        "D1e": _only(tails_extra_bf16=1, completion_rot_stencil_epi_bf16=1),
+        "C6b": _only(tails_extra_bf16=2, completion_rot_stencil_bf16=2),
+    }[case]
+    assert tl.LAUNCHES == launches
+    z = rft.oracle_apply(dataclasses.replace(F.spec, dtype="float32"),
+                         x.double().numpy())
+    if case in ("GS", "HS"):
+        outs, wants = y, _bank64(z, SOBEL)
+    else:
+        zr = torch.from_numpy(np.swapaxes(z, -1, -2).copy())
+        if case == "C6b":
+            want = torch.stack([tdf.apply_stencil(zr[p], -2, t, "zero",
+                                                  "clamp")
+                                for p, t in enumerate(taps)])
+        else:
+            want = tdf.apply_stencil(zr, -2, taps, "zero", "clamp")
+        if combine:
+            want = combine(want, xr.double())
+        outs, wants = (y,), (want.numpy(),)
+    for c, (g, w) in enumerate(zip(outs, wants)):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        err = np.abs(g.double().cpu().numpy() - w).max() / np.abs(w).max()
+        print(f"{case} bf16 channel {c}: {err:.3e} of the oracle's peak")
+        assert err <= 3e-2

@@ -68,7 +68,14 @@ G  Output digests: the sha256 of the outputs of ``completion`` and
    has them the bf16 storage entries on the same inputs rounded to bf16:
    ``tails_bf16``, ``completion_split_bf16`` and ``_epi_bf16`` (A's),
    ``completion_rot_bf16``, ``_epi_bf16`` and ``completion_rot_tails_bf16``
-   (L1's).
+   (L1's). The stencil consumers: ``final2d_stencil`` at ``default``,
+   px3 and px4 (C1's bank on the 1024² headline), ``tails_extra`` and
+   ``completion_rot`` with C1's radius-5 stencil at px6 and ``default``
+   (L1's x pass) and ``stencil2d`` (C4's Sobel bank on a 1024 × 2048
+   image), and where the checkout has them their bf16 entries on the
+   same inputs rounded to bf16: ``final2d_stencil_bf16``,
+   ``tails_extra_bf16``, ``completion_rot_stencil_bf16`` and
+   ``_epi_bf16``, ``stencil2d_bf16``.
 I  The fused consumers at px6 and each grade (px4, px3, ``default``),
    where the checkout's app builders take ``matmul_precision``:
    ``fir_band`` at F1's x pass and F3's two passes (4096², box³ radius 5;
@@ -657,6 +664,41 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
             out["completion_rot_epi_bf16 (4096, 32, 128)"] = digest(
                 pe.completion(X.to(torch.bfloat16), N8,
                               X.reshape(q, -1).t().contiguous()))
+        # the fused stencil (C1's radius-5 double difference): tails with
+        # its extra rows, the rotated emit with its taps, at px6 and
+        # default, and the bf16 entries where the checkout has them
+        from recfilter_tpu_torch.apps.dog import _stencil
+
+        st_bf16 = "completion_rot_stencil_bf16" in launch.ENTRIES
+        for grade, dt in (("px6", None), ("default", None),
+                          *((("bf16", torch.bfloat16),) if st_bf16
+                            else ())):
+            ps = tdf.LastAxisPass(scans, (128, n, 0), False,
+                                  "px6" if grade == "bf16" else grade,
+                                  rot_axes=2, stencil=_stencil(5), **(
+                                      dict(dtype=dt) if dt else {})
+                                  ).to(dev)
+            xin = X if dt is None else X.to(dt)
+            sfx = "_bf16" if dt else f" {grade}"
+            braw = ps.st_tails[0](xin)
+            out[f"tails_extra{sfx} (4096, 32, 128)"] = digest(braw)
+            b64 = ps.st_tails[0].plain(X).double()
+            Nt = ps._solve_t(b64[:, :ps.sl])
+            hlo, hhi = ps.st_reach[0]
+            halos = tdf._stencil_halo(b64[:, ps.sl:], Nt, ps.st_R0, hlo, hhi)
+            comp = ps.st_comp[0]
+            name = ("completion_rot_stencil_bf16" if dt
+                    else f"completion_rot stencil {grade}")
+            out[f"{name} (4096, 32, 128)"] = digest(
+                comp(xin, Nt.float().contiguous(), *halos))
+            if dt:
+                pe = tdf.LastAxisPass(scans, (128, n, 0), False, "px6",
+                                      rot_axes=2, stencil=_stencil(5),
+                                      epilogue=mix, dtype=dt).to(dev)
+                out["completion_rot_stencil_epi_bf16 (4096, 32, 128)"] = \
+                    digest(pe.st_comp[0](xin, Nt.float().contiguous(),
+                                         *halos, X.reshape(q, -1).t()
+                                         .contiguous()))
         F = gauss_volume(rft, np, (256, 256, 256), False)
         rows = rows_of(rft, F.as_func())
         X4 = rows.tile(torch.from_numpy(F._image).to(dev))
@@ -692,6 +734,33 @@ def digests(torch, np, rft, tdf, kc, dev, tag, card, rows_out):
         top, bot = ms.halo_strips(ht, hb, NA, NB)
         out["final2d_stencil 1024²"] = digest(ms.final(
             X4, NA.float(), NB.float(), top, bot))
+        for g in ("default", "px3", "px4"):
+            F.set_plan(matmul_precision=g)
+            mg = F.as_func(stencil2d=bank)
+            out[f"final2d_stencil {g} 1024²"] = digest(mg.final(
+                X4, NA.float(), NB.float(), top, bot))
+        if "final2d_stencil_bf16" in launch.ENTRIES:
+            Fb = rft.RecFilter("G2b")
+            Fb[y, x] = torch.from_numpy(F._image).to(torch.bfloat16)
+            for d in (+x, -x, +y, -y):
+                Fb.add_filter(d, w3)
+            Fb.split(x, 128, y, 128)
+            mb = Fb.as_func(stencil2d=bank)
+            out["final2d_stencil_bf16 1024²"] = digest(mb.final(
+                X4.to(torch.bfloat16), NA.float(), NB.float(), top, bot))
+        F.set_plan(matmul_precision="px6")
+        from recfilter_tpu_torch.kernels.stencil2d import Stencil2D
+
+        sobel = [[(-1, -1, -1.0), (0, -1, -2.0), (1, -1, -1.0),
+                  (-1, 1, 1.0), (0, 1, 2.0), (1, 1, 1.0)],
+                 [(-1, -1, -1.0), (-1, 0, -2.0), (-1, 1, -1.0),
+                  (1, -1, 1.0), (1, 0, 2.0), (1, 1, 1.0)]]
+        img2 = f32(1024, 2048)
+        st2 = Stencil2D(sobel).to(dev)
+        out["stencil2d (1024, 2048)"] = digest(torch.stack(st2(img2)))
+        if "stencil2d_bf16" in launch.ENTRIES:
+            out["stencil2d_bf16 (1024, 2048)"] = digest(torch.stack(
+                st2(img2.to(torch.bfloat16))))
         from recfilter_tpu_torch.apps import box_filter_3
         from recfilter_tpu_torch.apps import difference_of_gaussians
 
