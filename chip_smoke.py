@@ -463,7 +463,26 @@ and phase 5n times each beside its bound, its twin, its float32 form
 and one bf16 library call (``conv2d`` with the Sobel weights; the
 stacked rows by xᵀ; the folded ``matmul`` and ``baddbmm``; none for the
 2-D pair), each entry (C4b's ``stencil2d_bf16`` aside) and the float32
-forms of the 2-D pass and the emit also by ``queued_ms``.
+forms of the 2-D pass and the emit also by ``queued_ms``. The last TPU
+kernel forms: phase 3q runs F1b and F3b (F1 and F3 as bf16 images: both
+passes on ``fir_band_bf16``), F3m (F3 float32 with
+``matmul_dtype="bfloat16"``: ``fir_band`` at one product), O1b (O1 with
+``Plan(matmul_dtype="bfloat16")``: ``moments2d_k`` and
+``final2d_k_bf16``), O1d (O1 at ``default``: the HIGHEST pair, as the
+JAX package routes it, bit for bit O1's output), K6b (K6 as a bf16 image:
+the x pass's 320 tiles on the einsum form, bf16 products with float32
+sums, then ``completion_rot_tails_bf16``) and Bb (the headline as a bf16
+image on ``overlap_k``: the float32 route cast in and out), each within
+3e-2 of the f64 oracle of the float32 input (O1d within 2e-6); phase 2o
+holds ``fir_band_bf16`` (F1b's x pass, F3b's contraction) to its float32
+form on the same values rounded once and to one bf16 step of its twin,
+and ``final2d_k_bf16`` (O1b's pair) to its twin within the Z-rounding
+bound (a Z element within the two forms' summation distance of a bf16
+rounding boundary may round to the other neighbour, moving y by that
+step times |Btot_b|, plus 2⁻¹⁶ of the second products' magnitudes; an
+all-zero output fails it); phase 5o times both beside their bounds,
+twins, float32 forms and a library call (``conv1d`` in bf16; two bf16
+``matmul`` calls and the fp32 carry terms), and O1b, K6b and Bb whole.
 Phase 5i also times ``completion_split_epi`` at E1 by CUDA
 events over 200 back-to-back launches of the kernel alone, queued behind
 a sleeping kernel so that no host gap enters the window
@@ -3453,6 +3472,7 @@ def main() -> int:
                   pads=k_pads)
         k_cases[f"{label} bf16"] = (mb, xb)  # phase 5g's whole calls
         del mb, xb
+    want_k6 = k_oracles[k6_label]  # K6b's, phase 3q
     del k_oracles
 
     heading("phase 3g: the learnable path end to end through "
@@ -4948,6 +4968,239 @@ def main() -> int:
                     "completion_split_epi"]
             del y
     F5g.set_plan(matmul_precision="px6")
+
+    heading("phase 3q: the last TPU kernel forms through their entry points "
+            "— F1b, F3b: F1 and F3 as bf16 images (fir_band_bf16); F3m: F3 "
+            "float32 with matmul_dtype='bfloat16' (fir_band at one product); "
+            "O1b: O1 with Plan(matmul_dtype='bfloat16') (final2d_k_bf16); "
+            "O1d: O1 at default (the HIGHEST pair, O1's bits); K6b: K6 as a "
+            "bf16 image (the x pass's einsum form past 256 tiles); Bb: the "
+            "headline as a bf16 image on overlap_k (the float32 route cast "
+            "in and out) — against the f64 oracle of the float32 input")
+    from recfilter_tpu_torch.fir import FirSeparable2D
+
+    def out_check(label, y, dtype, shape, want, bound):
+        """``y`` of ``dtype`` and ``shape``, finite, within ``bound`` of
+        the f64 reference ``want``'s peak; returns the error."""
+        check(y.dtype == dtype and tuple(y.shape) == shape
+              and bool(torch.isfinite(y).all()),
+              f"{label}: a finite {dtype} output of shape {shape}")
+        got = y.float().cpu().numpy().astype(np.float64)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"  {label}: max|y - oracle|/max|oracle| = {err:.3e} (the f64 "
+              "oracle of the float32 input)")
+        check(err <= bound, f"{label}: within {bound:g} of the f64 oracle's "
+              "peak")
+        return err
+
+    xfb = xf.to(torch.bfloat16)
+    dog_m = FirSeparable2D(H, W, dog_taps, signs=[1.0, -1.0],
+                           tile_width=128, matmul_dtype="bfloat16",
+                           tap_scale=[11.0 ** 3, 19.0 ** 3]).to(dev)
+    check(dog_m.x_pass.band.nprod == 1 and dog_m.y_pass.band.nprod == 1,
+          "F3m: both passes on fir_band at one product")
+    for label, mod_f, x_in, want_f, expect, dt in (
+            ("F1b", box3, xfb, want_f1, only(fir_band_bf16=2),
+             torch.bfloat16),
+            ("F3b", dog, xfb, want_f3, only(fir_band_bf16=2), torch.bfloat16),
+            ("F3m", dog_m, xf, want_f3, only(fir_band=2), torch.float32)):
+        with torch.no_grad():
+            y, launches = counted(mod_f, x_in)
+        print(f"  {label}: launches {launches}")
+        check(launches == expect, f"{label}: launches {expect}")
+        out_check(label, y, dt, (H, W), want_f, BF16_BOUND)
+        if label == "F1b":
+            main_launches["fir_band_bf16"] = launches["fir_band_bf16"]
+        del y
+    o1_mod, o1_x = bcases["O1 headline 4096², overlap_k at highest"]
+    with torch.no_grad():
+        y_o1 = o1_mod(o1_x)
+    q_cases = {}  # label: (module, input on the card) for phases 2o, 5o
+    for label, F_q, expect, plan in (
+            ("O1b", build_filter(rft, H, W, image(H, W)),
+             only(moments2d_k=1, final2d_k_bf16=1),
+             dict(backend="overlap_k", matmul_precision="highest",
+                  matmul_dtype="bfloat16")),
+            ("O1d", build_filter(rft, H, W, image(H, W)),
+             only(moments2d_k=1, final2d_k=1),
+             dict(backend="overlap_k", matmul_precision="default")),
+            ("K6b", gauss_axes(rft, (512, 40960), (0, 1), bf16=True),
+             only(completion_rot_tails_bf16=1, completion_rot_bf16=1), {}),
+            ("Bb", gauss_axes(rft, (H, W), (0, 1), bf16=True),
+             only(moments2d=1, final2d=1), dict(backend="overlap_k"))):
+        if plan:
+            F_q.set_plan(**plan)
+        mq = F_q.as_func()
+        img_q = image(*F_q._image.shape)
+        xq = (F_q._image.to(dev) if label in ("K6b", "Bb")
+              else torch.from_numpy(F_q._image).to(dev))
+        with torch.no_grad():
+            y, launches = counted(mq, xq)
+        print(f"  {label}: launches {launches}; route {type(mq).__name__}")
+        check(launches == expect, f"{label}: launches {expect}")
+        want_q = (want_k6 if label == "K6b" else scan_core.oracle_apply(
+            gauss_axes(rft, img_q.shape, (0, 1)).spec if label == "Bb"
+            else F_q.spec, img_q.astype(np.float64)))
+        if label == "O1d":
+            same = torch.equal(y, y_o1)
+            print(f"  O1d: bit for bit O1's output at highest: {same}")
+            check(same, "O1d: the overlap_k backend at default runs the "
+                  "HIGHEST pair, O1's bits (the JAX package's route)")
+            out_check(label, y, torch.float32, img_q.shape, want_q, 2e-6)
+        else:
+            dt = torch.float32 if label == "O1b" else torch.bfloat16
+            err = out_check(label, y, dt, img_q.shape, want_q, BF16_BOUND)
+            if label == "O1b":
+                check(err > 2e-6, "O1b: bf16 products, not the float32 "
+                      f"pair's grade ({err:.3e})")
+                main_launches["final2d_k_bf16"] = launches["final2d_k_bf16"]
+        if label == "K6b":
+            xp = mq.passes[0]
+            check(isinstance(mq, tdf.RotationChain) and xp.n > 256
+                  and xp.tails is None and xp.completion_nt is not None,
+                  f"K6b: the rotation chain, the x pass's {xp.n} tiles on "
+                  "the einsum form (its tails and solve), then "
+                  "completion_rot_tails_bf16")
+        if label == "Bb":
+            check(type(mq).__name__ == "StorageCast",
+                  "Bb: the float32 route cast in and out")
+        q_cases[label] = (mq, xq)
+        del y, want_q
+    del y_o1, want_k6
+
+    heading("phase 2o: fir_band_bf16 (F1b's x pass, F3b's contraction) and "
+            "final2d_k_bf16 (O1b's pair) against their float32 forms and "
+            "twins on the card")
+
+    def zflip_bound(fin, X4, NA, NB):
+        """What may part ``final2d_k_bf16`` from its twin: a Z element
+        whose fp32 sum lies within the two forms' summation distance
+        (2⁻¹⁶ of the sum of its terms' magnitudes) of a bf16 rounding
+        boundary may round to the other neighbour in one of them, moving
+        y by that step of Z times |Btot_b|; beyond it, the fp32 sums of
+        the second products in another order (2⁻¹⁶ of their terms'
+        magnitudes)."""
+        bf = torch.bfloat16
+        p_, na_, Ta_, W_ = X4.shape
+        xb_ = X4.to(bf).float()
+        Ba_, Bb_ = fin.Ban.to(bf).float(), fin.Bbn.to(bf).float()
+        z = (torch.einsum("aos,pasw->paow", Ba_, xb_)
+             + torch.einsum("aok,pakw->paow", fin.Ran, NA))
+        mag = (torch.einsum("aos,pasw->paow", Ba_.abs(), xb_.abs())
+               + torch.einsum("aok,pakw->paow", fin.Ran.abs(), NA.abs()))
+        step = ((z + mag * 2.0 ** -16).to(bf).float()
+                - (z - mag * 2.0 ** -16).to(bf).float()).abs()
+        zc = z.to(bf).float().abs()
+        del z, mag, xb_
+
+        def dim_b(M, V):
+            return torch.einsum("bot,pasbt->pasbo", M, V.reshape(
+                p_, na_, Ta_, fin.nb, 128)).reshape(p_, na_, Ta_, W_)
+
+        return (dim_b(Bb_.abs(), step) + 2.0 ** -16 * (
+            dim_b(Bb_.abs(), zc) + torch.einsum(
+                "bok,pabsk->pasbo", fin.Rbn.abs(), NB.abs()).reshape(
+                    p_, na_, Ta_, W_)))
+
+    with torch.no_grad():
+        fb1 = box3.x_pass.band_bf16
+        yb1 = fb1(xfb)
+        same_bits("fir_band_bf16 (F1b x pass)", yb1, fb1(xfb.float()))
+        max_abs["fir_band_bf16"] = bf16_ulp_check(
+            "fir_band_bf16 (F1b x pass)", yb1, fb1.plain(xfb))
+        mid3b = dog.x_pass.band_bf16(xfb)
+        fb3 = dog.y_pass.band_bf16
+        y3b = fb3(mid3b)
+        same_bits("fir_band_bf16 (F3b y pass, the contraction)", y3b,
+                  fb3(mid3b.float()))
+        bf16_ulp_check("fir_band_bf16 (F3b y pass)", y3b, fb3.plain(mid3b))
+        del y3b
+        fk_b, swapped = pair_of(q_cases["O1b"][0])
+        xo = q_cases["O1b"][1]
+        X4o = fk_b.tile(xo.t() if swapped else xo)
+        NAo, NBo = fk_b.carries(X4o, fk_b.moments.plain)
+        fin_b = fk_b.final
+        Yo = fin_b(X4o, NAo, NBo)
+        Yt = fin_b.plain(X4o, NAo, NBo)
+        lim = zflip_bound(fin_b, X4o, NAo, NBo)
+        d = (Yo - Yt).abs()
+        print(f"  final2d_k_bf16 (O1b): max|k-t| = {d.max().item():.3e}, "
+              f"{(d > 0).double().mean().item():.6f} of the elements "
+              f"differ; the Z-rounding bound's max {lim.max().item():.3e} "
+              f"against the output's peak {Yt.abs().max().item():.3e}")
+        check(bool((d <= lim).all()), "final2d_k_bf16 (O1b): every element "
+              "within the Z-rounding bound of its twin")
+        check(not bool((Yt.abs() <= lim).all()), "final2d_k_bf16 (O1b): an "
+              "all-zero output would fail that bound")
+        max_abs["final2d_k_bf16"] = d.max().item()
+        del d, lim, Yt
+
+    heading("phase 5o: fir_band_bf16 at F1b's x pass (conv1d in bf16 the "
+            "yardstick) and final2d_k_bf16 at O1b's shapes (two bf16 "
+            "matmuls and the carry terms the yardstick), each beside its "
+            f"float32 form (CUDA events, median of {2 * N_TIMED} calls)")
+    with torch.no_grad():
+        Kt = len(box_taps(5, 3))
+        w_b = torch.from_numpy(box_taps(5, 3).astype(np.float32)).to(dev)[
+            None, None].to(torch.bfloat16)
+
+        def conv_b(v):
+            return F_.conv1d(v.reshape(v.shape[0], 1, v.shape[1]), w_b,
+                             padding=(Kt - 1) // 2)
+
+        check(rel_err(conv_b(xfb).squeeze(1).t().float(), yb1.float())
+              <= 2.0 ** -7, "F1b x pass: conv1d in bf16 computes the band "
+              "(flat emit)")
+        carry_times["fir_band_bf16"] = timed(
+            f"fir_band_bf16 (F1b x pass {tuple(xfb.shape)} bf16, K = {Kt}; "
+            "library conv1d in bf16)", fb1, fb1.plain, conv_b, (xfb,),
+            tensor_bytes(xfb, yb1, fb1.taps_k), 2.0 * Kt * yb1.numel(),
+            PEAK_FP32, main_launches["fir_band_bf16"], plain_iterations=5)
+        f32b = box3.x_pass.band
+        print(f"  fir_band (F1 x pass), the float32 entry at px6 on the same "
+              f"values: event {median_ms(f32b, xf):.4f} ms, device "
+              f"{device_ms(f32b, xf):.4f} ms on {card}")
+        bf = torch.bfloat16
+        Ba16, Bb16 = fin_b.Ban.to(bf), fin_b.Bbn.to(bf)
+        p_o, na_o, Ta_o, W_o = X4o.shape
+        nb_o = fin_b.nb
+
+        def lib_k(X4, NA, NB):
+            """The pair with bf16 products in PyTorch calls: Z = bf16
+            matmul + fp32 carry matmul, rounded; Y = bf16 matmul of Z's
+            sub-tiles + the fp32 carry term (Y's tiles transposed)."""
+            z = (torch.matmul(Ba16, X4.to(bf)).float()
+                 + torch.matmul(fin_b.Ran, NA)).to(bf)
+            zt = z.view(p_o, na_o, Ta_o, nb_o, 128).transpose(2, 3)
+            return (torch.matmul(zt, Bb16.transpose(1, 2)).float()
+                    + torch.matmul(NB, fin_b.Rbn.transpose(1, 2)))
+
+        yl = lib_k(X4o, NAo, NBo).transpose(2, 3).reshape(Yo.shape)
+        check(rel_err(yl, Yo) <= 2.0 ** -7, "O1b: the bf16 matmuls compute "
+              "final2d_k_bf16's function")
+        del yl
+        px = X4o.numel()
+        Ka, Kb = fk_b.Ka, fk_b.Kb
+        carry_times["final2d_k_bf16"] = timed(
+            f"final2d_k_bf16 (O1b {tuple(X4o.shape)}, Ka = {Ka}, Kb = {Kb}; "
+            "library two bf16 matmuls and the carry terms)", fin_b,
+            fin_b.plain, lib_k, (X4o, NAo, NBo),
+            tensor_bytes(X4o, NAo, NBo, Yo, fin_b.Ab_v, fin_b.Bb_v),
+            2.0 * (Ta_o + 128) * px
+            + 2.0 * (Ka + Kb) * px * PEAK_BF16 / PEAK_FP32, PEAK_BF16,
+            main_launches["final2d_k_bf16"], plain_iterations=5)
+        fk_h, sw_h = pair_of(o1_mod)
+        print(f"  final2d_k (O1), the float32 entry on the same operands: "
+              f"event {median_ms(fk_h.final, X4o, NAo, NBo):.4f} ms, device "
+              f"{device_ms(fk_h.final, X4o, NAo, NBo):.4f} ms on {card}")
+        for label in ("O1b", "K6b", "Bb"):
+            mq, xq = q_cases[label]
+            ms = statistics.median(timing.call_times_ms(mq, xq, iterations=10,
+                                                        warmup=2))
+            print(f"  {label} whole call: event median of 10 calls "
+                  f"{ms:.4f} ms on {card}")
+        del (q_cases, xfb, dog_m, fb1, yb1, mid3b, fb3, fk_b, xo, X4o, NAo,
+             NBo, fin_b, Yo, Ba16, Bb16, f32b, w_b, o1_mod, o1_x, fk_h)
     del want_f1, want_f3, want_c1, want_c2, want_c5, want_e1
 
     heading("phase 5e, 5f and 5i, the consumers at the grades: fir_band at "
@@ -5081,6 +5334,15 @@ def main() -> int:
                   f"{100 * bound_e1 / ev:.1f} % of the bound on {card}")
             check(host < slept, f"E1 completion_split_epi {g}: the launches "
                   "were all queued before the window opened")
+            # the library call the same way: its profiled windows lose
+            # device events too
+            ev, host, slept = queued_ms(lib, X, Nt, X)
+            print(f"  E1 addmm (the library call) {g}: CUDA events over 200 "
+                  f"back-to-back launches queued behind a {slept:.1f} ms "
+                  f"sleep (enqueued in {host:.1f} ms): {ev:.4f} ms a launch "
+                  f"on {card}")
+            check(host < slept, f"E1 addmm {g}: the launches were all "
+                  "queued before the window opened")
             del XN, BRg, out
     del cons, x_g, img_g
 
@@ -6313,6 +6575,10 @@ def main() -> int:
              "recfilter_tpu/kernels/completion.py:273"),
             ("stencil2d_bf16", "stencil2d",
              "recfilter_tpu/kernels/stencil2d.py:109"),
+            ("fir_band_bf16", "fir_band",
+             "recfilter_tpu/kernels/fir_band.py:222"),
+            ("final2d_k_bf16", "final2d",
+             "recfilter_tpu/kernels/final2d.py:72"),
             *((f"completion_split/{g}", "completion_split",
                "recfilter_tpu/kernels/completion.py:464")
               for g in GRADE_BOUNDS),

@@ -35,9 +35,11 @@ rotated emit, :class:`.dimfuse.RotatedPass`), a 2-D ``stencil2d`` bank —
 and ``compute_at`` dispatches a consumer to them. A Tuple definition
 (``F[y, x] = (a, b)``) filters each component alike (:class:`TupleFilter`).
 The filter's dtype is its image's: float32, an integer type, bf16 (bf16
-storage, the JAX package's bf16 mode: the 3-touch pair and volumes at one
-product, a bf16 output; ``as_func()``'s module casts its input to bf16)
-or float16 (the float32 route, cast in and out).
+storage, the JAX package's bf16 mode: every fused route at one product,
+a bf16 output; ``as_func()``'s module casts its input to bf16; the other
+backends run float32 cast in and out) or float16 (the float32 route, cast
+in and out). ``Plan.matmul_dtype="bfloat16"`` gives the ``overlap``
+backends' HIGHEST pair bf16 products (:mod:`.planner`).
 What the port does not run yet raises ``NotImplementedError``.
 ``as_func``, ``realize`` and ``profile`` run on the card unless the caller
 asks for the CPU; asking for ``"cuda"`` without a card raises, and nothing
@@ -146,8 +148,11 @@ def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
     but ``einsum`` and the rotated emit) for ``spec`` under ``plan``."""
     backend = planner.resolve_backend(spec, plan)
     if spec.dtype == "bfloat16":
-        planner.refuse_bf16(f"the {backend} backend",
-                            planner.BF16_EINSUM)
+        # the float32 route on the input cast to float32, the output cast
+        # back (the JAX package's cdt on these backends)
+        return dimfuse.StorageCast(backend_module(
+            dataclasses.replace(spec, dtype="float32"), plan),
+            torch.bfloat16)
     if (plan.matmul_precision in planner.SPLIT_GRADES
             and backend not in planner.SPLIT_BACKENDS):
         planner.refuse_split(plan.matmul_precision, f"the {backend} backend")
@@ -163,7 +168,8 @@ def backend_module(spec: FilterSpec, plan: "planner.Plan") -> nn.Module:
         from .overlap2d import OverlapFilter
 
         return OverlapFilter(spec, use_kernels=backend == "overlap_k",
-                             matmul_precision=plan.matmul_precision)
+                             matmul_precision=plan.matmul_precision,
+                             matmul_dtype=plan.matmul_dtype)
     if backend == "blocked":
         from .tiling import BlockedFilter
 

@@ -66,11 +66,14 @@ between passes (``dtype=torch.bfloat16`` on :class:`.overlap2d.Fused2DPx`,
 whose kernels read and write bf16; the stencil consumers too: a fused
 ``stencil2d`` bank, a rotated emit's fused stencil, a ``stencil2d`` bank
 after the filter, and the stencil fallbacks, the last in float32 on the
-bf16 output, rounded once), and raises where a pass would take a form
-with no bf16 kernel (:func:`.planner.refuse_bf16`, ROADMAP Queue 1 item 4
-and the Queue 2 item: the einsum forms, the sequential core and the
-supertile hierarchy item 8); a float16 filter runs the float32 routes on
-its input cast to float32 and casts the output back
+bf16 output, rounded once); where a pass's kernels do not apply it takes
+its einsum form on bf16-rounded operands with float32 sums, the carries in
+float64, the output rounded once (:class:`LastAxisPass`), and an axis with
+no tile plan runs the sequential core in float32, cast back (the JAX
+package's einsum and ``lax.scan`` forms at ``cdt`` bf16); the supertile
+hierarchy is float32 only, as in the JAX package, so a bf16 signal past
+256 tiles takes the einsum form. A float16 filter runs the float32 routes
+on its input cast to float32 and casts the output back
 (:class:`Float16Storage`).
 
 The JAX package's consumers ride these routes: an elementwise
@@ -101,13 +104,12 @@ from torch import nn
 from . import coeffs
 from .epilogue import kernel_form
 from .kernels import completion as kc
-from .kernels.completion import _f64
+from .kernels.completion import _f32, _f64
 from .kernels import split as ksplit
 from .kernels.split import NPROD
 from .kernels.stencil2d import Stencil2D, shift_mode as _shift_mode
 from .parallel import sharding as sh
-from .planner import (BF16_EINSUM, SPLIT_GRADES, refuse_bf16,
-                      refuse_split, storage_nprod)
+from .planner import SPLIT_GRADES, refuse_split, storage_nprod
 from .scan_core import ScanAxis
 from .spec import BorderMode, FilterSpec, Scan
 
@@ -740,8 +742,14 @@ class LastAxisPass(nn.Module):
     epilogue's output rounded to bf16). Where the kernels' gates fail —
     tiles other than 128, more than 256 tiles or ΣK > 56 at build time,
     fewer than 8 lines or a rotated leading group with an epilogue at the
-    call — the einsum form raises (ROADMAP Queue 2 item 8) before anything
-    runs. A stencil fuses as at float32 (``tails_extra_bf16``,
+    call — the einsum form runs as the JAX package's at ``cdt`` bf16: the
+    tails and completion products on the bf16 x and the bf16-rounded
+    constants (``G_b``, ``B_b``) with float32 sums, the solve and the
+    carry injection in float64 (the JAX package rounds those to bf16: the
+    port keeps every carry as its bf16 kernels do, ROADMAP Queue 3), the
+    epilogue and a stencil fallback in float32, the output rounded once
+    to bf16 (past 256 tiles the completion kernel still takes it where
+    the float32 pass's would). A stencil fuses as at float32 (``tails_extra_bf16``,
     ``completion_rot_stencil_bf16`` and ``_epi_bf16``: the taps and the
     epilogue on the float32 accumulators, rounded once); where it cannot
     fuse, its fallback and the epilogue after it run in float32 on the
@@ -833,11 +841,12 @@ class LastAxisPass(nn.Module):
                         kc._variants3(M), nc)]))
         nprod = NPROD.get(matmul_precision, 0)
         if bf16:
-            nprod = 1
-            if not (n <= _CHAIN_MATMUL_MAX_TILES
-                    and kc.completion_ok(T, 8, n, S)):
-                refuse_bf16(f"the einsum form of a last-axis pass ({n} tiles "
-                            f"of {T}, ΣK = {S})", BF16_EINSUM)
+            # one product on the kernels; the einsum form's image-sized
+            # products on bf16-rounded constants, float32 sums
+            nprod, self.nsp = 1, 0
+            for name, M in (("G_b", Gcat), ("B_b", mats.Btot)):
+                self.register_buffer(name, _f32(kc._variants3(M)).to(
+                    torch.bfloat16).float())
         elif matmul_precision in SPLIT_GRADES:
             nprod = self._split_nprod(stencil is not None
                                       or next_tails is not None or tails_in)
@@ -955,10 +964,7 @@ class LastAxisPass(nn.Module):
                   and kc.completion_ok(T, q, n, S))
         slices = (not kernel and self.tails is not None and rot and P > 1
                   and self.epilogue is None and kc.completion_ok(T, R, n, S))
-        if self.dtype == torch.bfloat16 and not (kernel or slices):
-            refuse_bf16(f"the einsum form of a last-axis pass ({q} lines, "
-                        f"{P} leading slices, epilogue "
-                        f"{self.epilogue is not None})", BF16_EINSUM)
+        bf16 = self.dtype == torch.bfloat16
         fused = False
         t_out = None
         self.took_tails_in = False
@@ -1006,6 +1012,8 @@ class LastAxisPass(nn.Module):
             nsp = 0 if rot and P > 1 else self.nsp
             braw = (_split_einsum("nst,pnt->pns", self.G_c, X, nsp).double()
                     if nsp else
+                    kc.tile_einsum("nst,pnt->pns", self.G_b,
+                                   X.float()).double() if bf16 else
                     kc.tile_einsum("nst,pnt->pns", self.G_v, X.double()))
             N = (self._solve_nat(braw) if n <= _CHAIN_MATMUL_MAX_TILES
                  else self._solve_assoc(braw))  # (q, n, S) natural
@@ -1026,10 +1034,14 @@ class LastAxisPass(nn.Module):
             else:
                 layout = "tile"
                 # float64 products (true f32 grade whatever the matmul
-                # settings on the card), or the grade's split products;
-                # the carry injection in float64 at every grade
+                # settings on the card), or the grade's split products, or
+                # at bf16 storage the bf16 products in float32 (the output
+                # rounded once, below); the carry injection in float64 at
+                # every grade
                 Y = (_split_einsum("nos,pns->pno", self.B_c, X, nsp).double()
                      if nsp else
+                     kc.tile_einsum("nos,pns->pno", self.B_b,
+                                    X.float()).double() if bf16 else
                      kc.tile_einsum("nos,pns->pno", self.B_v, X.double()))
                 Y = (Y + kc.tile_einsum("nou,pnu->pno", self.R_v, N)).float()
                 Y = (Y.reshape(P, R, n, T).permute(0, 2, 3, 1)
@@ -1061,7 +1073,8 @@ class LastAxisPass(nn.Module):
             if self.epilogue is not None:
                 yd = _epilogue(self.epilogue, yd, eaux)
             y = yd.to(y.dtype)
-        return y, t_out
+        # the einsum form's float32 output at bf16 storage, rounded once
+        return y.to(self.dtype), t_out
 
     def _kernel_aux(self, eaux, lead, rows, q: int, X):
         """``eaux`` in the completion kernel's output layout, contiguous:
@@ -1284,9 +1297,10 @@ class FusedLastAxis(nn.Module):
     one the hierarchy is declined, as in the JAX package. With no tile
     plan the sequential core runs (``self.body`` a
     :class:`.scan_core.ScanAxis`), then the epilogue. ``dtype``: the
-    storage type, float32 or bf16 (:class:`LastAxisPass`; the core and
-    the hierarchy raise at bf16, ROADMAP Queue 2 item 8); the input is
-    cast to it."""
+    storage type, float32 or bf16 (:class:`LastAxisPass`; at bf16 the
+    core runs on the input in float32, the epilogue too, and the output
+    is cast back, and the hierarchy, float32 only, is declined); the input
+    is cast to it."""
 
     def __init__(self, scans: Sequence[Scan], w: int, tile_width: int,
                  border: str, matmul_precision: str = "px6",
@@ -1297,9 +1311,6 @@ class FusedLastAxis(nn.Module):
         self.w, self.epilogue, self.dtype = w, epilogue, dtype
         bf16 = dtype == torch.bfloat16
         if plan is None:
-            if bf16:
-                refuse_bf16(f"the sequential core (an extent of {w} with no "
-                            "tile plan)", BF16_EINSUM)
             self.body = ScanAxis(scans, -1, border)
         elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and not bf16 and _hierarchy_ok(w, scans, matmul_precision)):
@@ -1317,9 +1328,7 @@ class FusedLastAxis(nn.Module):
     def _run(self, x, plain, eaux):
         x = self._checked(x)
         if isinstance(self.body, ScanAxis):
-            y = self.body(x)
-            return y if self.epilogue is None else _epilogue(
-                self.epilogue, y, eaux)
+            return _core_run(self.body, x, self.epilogue, eaux)
         if isinstance(self.body, HierarchicalPass):
             return self.body(x, plain)
         return self.body(x, plain, eaux)
@@ -1360,9 +1369,6 @@ class FusedAxisPass(nn.Module):
         self.epilogue, self.dtype = epilogue, dtype
         bf16 = dtype == torch.bfloat16
         if plan is None:
-            if bf16:
-                refuse_bf16(f"the sequential core (axis {axis}, an extent "
-                            f"of {w} with no tile plan)", BF16_EINSUM)
             self.body = ScanAxis(scans, axis, border)
         elif (epilogue is None and plan[1] > _CHAIN_MATMUL_MAX_TILES
                 and not bf16 and _hierarchy_ok(w, scans, matmul_precision)):
@@ -1390,13 +1396,21 @@ class FusedAxisPass(nn.Module):
                              f"{self.ndim} axes, {self.w} on axis "
                              f"{self.axis}")
         if isinstance(self.body, ScanAxis):
-            y = self.body(x)
-            return y if self.epilogue is None else _epilogue(
-                self.epilogue, y, eaux)
+            return _core_run(self.body, x, self.epilogue, eaux)
         xm = x.movedim(self.axis, -1)
         if isinstance(self.body, HierarchicalPass):
             return self.body(xm, plain).movedim(-1, self.axis)
         return self.body(xm, plain, eaux)  # the rotated emit moves it back
+
+
+def _core_run(core, x, epilogue, eaux):
+    """The sequential core on ``x`` in float32, then the epilogue, the
+    output in x's type: a bf16 x runs float32 and is rounded once, as the
+    JAX package's ``fused_dim_pass`` casts its core's input and output."""
+    y = core(x.float())
+    if epilogue is not None:
+        y = _epilogue(epilogue, y, eaux)
+    return y.to(x.dtype)
 
 
 def fused_dim_pass(x, axis: int, scans: Sequence[Scan], tile_width: int,
@@ -1897,7 +1911,7 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
     # LastAxisPass finds a structural win) — and every other route raises
     # (planner.refuse_split)
     # bf16 storage: one product on every kernel route (the JAX package's
-    # _kernel_nprod), the forms without a bf16 kernel refused
+    # _kernel_nprod), the einsum forms on bf16 operands
     nprod = storage_nprod(spec.dtype, matmul_precision)
     bf16 = spec.dtype == "bfloat16"
     store = torch.bfloat16 if bf16 else torch.float32
@@ -1962,26 +1976,35 @@ def fused_filter_module(spec: FilterSpec, matmul_precision: str = "px6",
                                 "staged" if pre is None else "volume"))
 
 
-class Float16Storage(nn.Module):
-    """float16 storage: the float32 executor ``body`` on the input cast to
-    float32, its output (each channel of a stencil bank) cast to float16 —
-    the JAX package's ``cdt`` for float16."""
+class StorageCast(nn.Module):
+    """A storage type the executor ``body`` computes in float32: ``body``
+    on the input cast to float32, its output (each channel of a stencil
+    bank) cast to ``dtype`` — the JAX package's ``cdt`` for float16 on
+    every route, and for bf16 on the backends other than the fused
+    executors (``api.backend_module``)."""
 
-    def __init__(self, body: nn.Module):
+    def __init__(self, body: nn.Module, dtype: torch.dtype):
         super().__init__()
-        self.body = body
+        self.body, self.dtype = body, dtype
 
-    @staticmethod
-    def _out(y):
+    def _out(self, y):
         if isinstance(y, tuple):
-            return tuple(c.to(torch.float16) for c in y)
-        return y.to(torch.float16)
+            return tuple(c.to(self.dtype) for c in y)
+        return y.to(self.dtype)
 
     def forward(self, x: torch.Tensor, *eaux):
         return self._out(self.body(x.float(), *eaux))
 
     def forward_plain(self, x: torch.Tensor, *eaux):
         return self._out(self.body.forward_plain(x.float(), *eaux))
+
+
+class Float16Storage(StorageCast):
+    """float16 storage on the fused executors: :class:`StorageCast` to
+    float16."""
+
+    def __init__(self, body: nn.Module):
+        super().__init__(body, torch.float16)
 
 
 def apply_filter_fused(spec: FilterSpec, x, matmul_precision: str = "px6",
@@ -2022,9 +2045,10 @@ class RotatedPass(nn.Module):
     (:class:`.scan_core.ScanAxis`, the JAX package's ``lax.scan``), then
     moves the axis, then the stencil as shifts and the epilogue;
     everything else runs :class:`LastAxisPass` with the rotated emit. A
-    bf16 filter runs that pass on its bf16 kernels (the input cast to
-    bf16, a bf16 output, a stencil fused as at float32); the core and the
-    hierarchy raise there (ROADMAP Queue 2 item 8)."""
+    bf16 filter runs that pass on its bf16 kernels or its einsum form (the
+    input cast to bf16, a bf16 output, a stencil fused as at float32); the
+    core runs in float32 with its consumers, the output cast to bf16, and
+    the hierarchy (float32 only, as in the JAX package) is declined."""
 
     def __init__(self, spec: FilterSpec, rot_axes: int = 2,
                  matmul_precision: str = "px6", epilogue=None,
@@ -2064,9 +2088,6 @@ class RotatedPass(nn.Module):
         T = (spec.tile_widths or (0,) * spec.ndim)[axis] or _TILE_DEFAULT
         plan = _plan_tiles(self.w, T, max(s.order for s in scans), clamp)
         if plan is None:  # the sequential core, then the rotated emit
-            if bf16:
-                refuse_bf16(f"the sequential core (an extent of {self.w} "
-                            "with no tile plan)", BF16_EINSUM)
             self.core = ScanAxis(scans, -1, spec.border)
             return
         # a bare signal: the one-axis executor, its hierarchy included
@@ -2112,9 +2133,9 @@ class RotatedPass(nn.Module):
             y = y.to(self.dtype).movedim(-1, -self.rot_axes).contiguous()
             return self._consume(y, -self.rot_axes, eaux)
         x = _storage_input(x, self.dtype)
-        if self.core is not None:
-            y = self.core(x).movedim(-1, -self.rot_axes)
-            return self._consume(y, -self.rot_axes, eaux)
+        if self.core is not None:  # float32, cast back once at the end
+            y = self.core(x.float()).movedim(-1, -self.rot_axes)
+            return self._consume(y, -self.rot_axes, eaux).to(x.dtype)
         if self.hier is not None and x.ndim == 1:
             return self._consume(self.hier(x, plain), -1, eaux)
         return self.body(x, plain, eaux)

@@ -23,8 +23,16 @@ take the einsum form: the three
 band blocks as einsums over the zero-shifted tiles — fp32 at px6,
 ``f32x6``, ``highest``, ``high`` and ``f32x9``; at the reduced grades the
 JAX package's split einsum, bf16 chunk products in float32 at the grade's
-count (``dimfuse.EINSUM_NPROD``). ``matmul_dtype="bfloat16"`` and bf16 or
-float16 storage raise, naming ROADMAP Queue 1 item 4.
+count (``dimfuse.EINSUM_NPROD``).
+
+bf16 (the JAX package's routes at ``cdt`` or ``matmul_dtype`` bf16): a
+bf16 image, at every grade, takes the band kernel at one product
+(``fir_band_bf16``: bf16 taps, fp32 sums, a bf16 output rounded once) where
+the gates above hold, and a float32 image with ``matmul_dtype="bfloat16"``
+the float32 ``fir_band`` at one product (x rounded to bf16 on chip, a
+float32 output); elsewhere both take the einsum form on bf16-rounded
+operands — float32 einsums of bf16 values — the output rounded once to
+the image's type. float16 storage raises, naming ROADMAP Queue 1 item 4.
 
 ``tap_scale`` (the iterated boxes' (2B+1)^n): below px6 a channel whose
 scaled taps are exact bf16 integers takes one tap chunk and the reduced
@@ -41,8 +49,7 @@ from torch import nn
 
 from .dimfuse import EINSUM_NPROD
 from .kernels import fir_band, split
-from .planner import (BF16_FIR, SPLIT_ITEM, auto_tile_width,
-                      check_precision, refuse_bf16)
+from .planner import SPLIT_ITEM, auto_tile_width, check_precision
 
 # the band kernel's product count per grade (the JAX package's map): the
 # split einsum's counts and px6's six, without ``high``, whose einsum form
@@ -138,11 +145,22 @@ def _as_bank(taps) -> np.ndarray:
     return np.atleast_2d(np.asarray(taps, np.float64))  # (C, K)
 
 
+def _bf16_products(matmul_dtype) -> bool:
+    """Whether ``matmul_dtype`` asks for bf16 products (None: the grade's)."""
+    if matmul_dtype is None or matmul_dtype in ("float32", torch.float32):
+        return False
+    if matmul_dtype in ("bfloat16", torch.bfloat16):
+        return True
+    raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
+
+
 class FirPass(nn.Module):
-    """:func:`fir_pass_last` for inputs of one ``shape``, its route and
-    matrices built once: :class:`.kernels.fir_band.FirBand` where the JAX
-    package runs its kernel, else the einsum form. ``forward_plain`` runs
-    the band pass's plain twin instead of its kernel."""
+    """:func:`fir_pass_last` for inputs of one ``shape``, its routes and
+    matrices built once — one for a float32 x (``band``) and one for a
+    bf16 x (``band_bf16``, one product): :class:`.kernels.fir_band.FirBand`
+    where the JAX package runs its kernel, else the einsum form.
+    ``forward_plain`` runs the band pass's plain twin instead of its
+    kernel."""
 
     def __init__(self, taps, shape, *, tile_width: int = 0,
                  bank: bool = False, contract: bool = False,
@@ -151,10 +169,7 @@ class FirPass(nn.Module):
         super().__init__()
         assert not (bank and contract)
         check_precision(matmul_precision)
-        if matmul_dtype is not None:
-            raise NotImplementedError(
-                f"matmul_dtype={matmul_dtype!r}: bf16 products are not "
-                f"ported yet ({SPLIT_ITEM})")
+        self.mm_bf16 = _bf16_products(matmul_dtype)
         taps = _as_bank(taps)
         C = taps.shape[0]
         self.shape = tuple(int(s) for s in shape)
@@ -165,29 +180,36 @@ class FirPass(nn.Module):
         batch = self.shape[1 if contract else 0:-1]
         nbatch = len(batch)
         qk = int(np.prod(batch, dtype=np.int64))
-        self.band = None
-        nprod = BAND_NPROD.get(matmul_precision, 0)
-        if (nprod and fir_band.fir_band_ok(T, L, taps, qk)
-                and nbatch >= 1 and (not emit_rot or nbatch == 1)):
-            band = fir_band.FirBand(taps, T=T, rot=emit_rot,
-                                    contract=contract, nprod=nprod,
-                                    tap_scale=tap_scale)
-            if band.fits:  # else the einsum form: the kernel's staging
-                self.band = band
-                return
+        ok = (fir_band.fir_band_ok(T, L, taps, qk) and nbatch >= 1
+              and (not emit_rot or nbatch == 1))
+
+        def band(nprod):  # None: the einsum form (or the kernel's staging)
+            if not (nprod and ok):
+                return None
+            b = fir_band.FirBand(taps, T=T, rot=emit_rot, contract=contract,
+                                 nprod=nprod, tap_scale=tap_scale)
+            return b if b.fits else None
+
+        # bf16 products (a bf16 x, or matmul_dtype): one product
+        nprod = 1 if self.mm_bf16 else BAND_NPROD.get(matmul_precision, 0)
+        self.band = band(nprod)
+        self.band_bf16 = self.band if nprod == 1 else band(1)
         if emit_rot and nbatch < 1:
             raise ValueError("emit_rot needs a batch axis to rotate with")
         mats = [_band_mats(t, T) for t in taps]
         self.P, self.Q = mats[0][3], mats[0][4]
         # the einsum form's products: fp32, or at a reduced grade the
-        # constants' bf16 chunks (split from float64, float32 tensors)
-        self.nsp = nprod if nprod < 6 else 0
+        # constants' bf16 chunks (split from float64, float32 tensors);
+        # with bf16 products the constants' one bf16 chunk ("*_b")
+        self.nsp = nprod if nprod < 6 and not self.mm_bf16 else 0
         nc = split.nchunks(self.nsp) if self.nsp else 1
         for i, name in enumerate(("W0", "Wm", "Wp")):
             W = np.stack([m[i] for m in mats])
             self.register_buffer(name, torch.stack(
                 [c.float() for c in split.split_const(W, nc)])
                 if self.nsp else torch.from_numpy(W.astype(np.float32)))
+            self.register_buffer(f"{name}_b",
+                                 split.split_const(W, 1)[0].float())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(x, False)
@@ -199,27 +221,31 @@ class FirPass(nn.Module):
         if tuple(x.shape) != self.shape:
             raise ValueError(f"input shape {tuple(x.shape)} != the pass's "
                              f"{self.shape}")
-        if x.dtype == torch.bfloat16:
-            refuse_bf16("the FIR band pass (fir_band)", BF16_FIR)
         if x.dtype == torch.float16:
             raise NotImplementedError(
-                f"{x.dtype} storage: the FIR band pass runs float32 "
-                f"({SPLIT_ITEM})")
-        x = x.to(torch.float32)
-        if self.band is not None:
+                f"{x.dtype} storage: the FIR band pass runs float32 and "
+                f"bf16 ({SPLIT_ITEM})")
+        bf16 = x.dtype == torch.bfloat16
+        if not bf16:
+            x = x.to(torch.float32)
+        band = self.band_bf16 if bf16 else self.band
+        if band is not None:
             C, L = self.C, self.shape[-1]
             xk = x.reshape(C, -1, L) if self.contract else x.reshape(-1, L)
-            yk = (self.band.plain if plain else self.band)(xk)
+            yk = (band.plain if plain else band)(xk)
             if self.emit_rot:
                 return yk  # (C?, L, last batch) — rot is gated to one axis
             chan = (C,) if C > 1 and not self.contract else ()
             return yk.reshape(chan + self.shape[1 if self.contract else 0:])
-        return self._einsum(x)
+        return self._einsum(x, bf16 or self.mm_bf16).to(x.dtype)
 
-    def _einsum(self, X):
+    def _einsum(self, X, bf16: bool = False):
         """The JAX package's einsum form: einsums of the main block and
         both edge strips over the zero-shifted tiles — fp32, or the split
-        einsum's chunk products at a reduced grade."""
+        einsum's chunk products at a reduced grade, or (``bf16``) float32
+        einsums of the bf16-rounded x and constants; a float32 result."""
+        if bf16:
+            X = X.to(torch.bfloat16).float()
         T, L = self.T, self.shape[-1]
         n = -(-L // T)
         pad = n * T - L
@@ -237,19 +263,20 @@ class FirPass(nn.Module):
 
         def one(W, strips):
             eq = f"cow,{lhs_b}nw->{out}"
+            W = getattr(self, f"{W}_b" if bf16 else W)
             if not (self.bank or self.contract):
                 eq, W = eq.replace("cow", "ow"), W[..., 0, :, :]
-            if not self.nsp:
+            if bf16 or not self.nsp:
                 return torch.einsum(eq, W, strips)
             return split.pair_sum(self.nsp, lambda i, d: torch.einsum(
                 eq, W[i], d), strips)
 
         P, Q = self.P, self.Q
-        Y = one(self.W0, Xt)
+        Y = one("W0", Xt)
         if P:
-            Y = Y + one(self.Wm, _shift_tiles(Xt[..., T - P:], True))
+            Y = Y + one("Wm", _shift_tiles(Xt[..., T - P:], True))
         if Q:
-            Y = Y + one(self.Wp, _shift_tiles(Xt[..., :Q], False))
+            Y = Y + one("Wp", _shift_tiles(Xt[..., :Q], False))
         if self.emit_rot:
             Y = Y.reshape(Y.shape[:-3] + (n * T, Y.shape[-1]))
             return Y[..., :L, :] if pad else Y
@@ -285,8 +312,9 @@ class FirSeparable2D(nn.Module):
     passes, one read and one write each. DoG = signs (+1, −1) over the two
     box³ radii; a plain iterated box is C = 1. ``forward_plain`` runs the
     plain twins of both passes. The image is taken as float32, but a bf16
-    image stays bf16, as the JAX package's ``fir_separable_2d`` keeps it
-    (its pass raises: ROADMAP Queue 2 item 7)."""
+    image stays bf16, as the JAX package's ``fir_separable_2d`` keeps it:
+    both passes then run their bf16 routes (``fir_band_bf16``), the
+    intermediate bf16."""
 
     def __init__(self, height: int, width: int, taps_x, taps_y=None,
                  signs=None, *, tile_width: int = 0,

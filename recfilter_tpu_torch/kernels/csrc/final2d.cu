@@ -57,8 +57,30 @@
 // (nvb, 128 + Kbp, 128) = [Bb^T; Rb^T]. Its bound is final2d's: about
 // 2 x (128 + 6) x 2 = 536 FLOP/px, 9.0 GFLOP at 4096^2 with Ka = Kb = 6,
 // 0.134 ms at 67 TFLOP/s fp32; the same GEMM, the same design.
+//
+// final2d_k_bf16: final2d_k with bf16 products — replaces the same Pallas
+// kernel at matmul_dtype=bfloat16 (the overlap backends' Plan.matmul_dtype):
+//   Z  = bf16(Ba) * bf16(x)   (fp32 accumulation)  +  Ra * NA   (fp32)
+//   Zc = bf16(Z)
+//   Y  = Zc * bf16(Bb)^T      (fp32 accumulation)  +  NB * Rb^T (fp32)
+// Y float32, at final2d_k's layouts and shape limits. The two image-sized
+// products run on the bf16 tensor cores (split.cuh's mma.sync m16n8k16
+// block, one product: bf16 x bf16 is exact in fp32, so each is the JAX
+// kernel's dot with fp32 accumulation); the carry rows' products stay fp32
+// FMAs into accumulators of their own, added to the tensor cores' sums as
+// the JAX kernel adds its two dots. x is rounded to bf16 as it is staged,
+// Z as it goes to shared memory. The constants come rounded from the host
+// (float64 to float32 to bf16, as the JAX kernel's float32 operand cast to
+// bf16): Ab (nva, 128, 136) = bf16(Ba) rows s, t contiguous (zero past
+// Ta), Bb (nvb, 128, 136) = bf16(Bb) rows o, t contiguous; the carry
+// columns are read from final2d_k's A1 and B2. Shared memory: two bf16
+// operands of 128 rows of 136 and two fp32 carry operands of 32 rows of
+// 128, 100 KB. What bounds it: 12 B/px of traffic (x read, y written, both
+// fp32) against 2 x 2 x 128 tensor-core FLOP per pixel: bytes, at the
+// card's peaks.
 
 #include "common.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -212,6 +234,133 @@ final2d_k_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
   }
 }
 
+constexpr int LDK = T + 8;   // row stride of the bf16 operands (elements)
+constexpr int KMAX = 32;     // carries per axis
+constexpr int SMEM_K_BF16 = 2 * T * LDK * (int)sizeof(rf::bf16) +
+                            2 * KMAX * T * (int)sizeof(float);
+
+// The accumulators of a warp's 64 x 32 share (split.cuh's Frag layout)
+// plus sum_{k < K} P[k][m] * Q[k][n], P and Q fp32 rows of 128 in shared
+// memory, summed on their own first (the JAX kernel's second dot).
+__device__ __forceinline__ void add_carry_rows(rfs::Frag& f, const float* P,
+                                               const float* Q, int K) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = (warp % 2) * 64 + lane / 4;
+  const int n0 = (warp / 2) * 32 + 2 * (lane % 4);
+  float c[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[i][j][r] = 0.f;
+  for (int k = 0; k < K; ++k) {
+    float pm[8];
+    float2 qn[4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      pm[i] = P[k * T + m0 + (i / 2) * 16 + (i % 2) * 8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      qn[j] = *reinterpret_cast<const float2*>(Q + k * T + n0 + j * 8);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float a = pm[2 * mi + h];
+          c[mi][ni][2 * h] = fmaf(a, qn[ni].x, c[mi][ni][2 * h]);
+          c[mi][ni][2 * h + 1] = fmaf(a, qn[ni].y, c[mi][ni][2 * h + 1]);
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f.acc[i][j][r] = __fadd_rn(f.acc[i][j][r], c[i][j][r]);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+final2d_k_bf16_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
+                      const float* __restrict__ NA,  // (p, na, Ka, W)
+                      const float* __restrict__ NB,  // (p, na, nb, Ta, Kb)
+                      const float* __restrict__ A1,  // (nva, Ta + Kap, T)
+                      const float* __restrict__ B2,  // (nvb, T + Kbp, T)
+                      const rf::bf16* __restrict__ Ab,  // (nva, T, LDK)
+                      const rf::bf16* __restrict__ Bb,  // (nvb, T, LDK)
+                      float* __restrict__ y,         // (p, na, Ta, W)
+                      int na, int nb, int Ta, int Ka, int Kb, int nva,
+                      int nvb) {
+  extern __shared__ float4 smem4[];
+  rf::bf16* Cs = reinterpret_cast<rf::bf16*>(smem4);  // T x LDK: Ab, then Bb
+  rf::bf16* Ds = Cs + T * LDK;  // x as t rows of n, then Zc as s rows of t
+  float* Ps = reinterpret_cast<float*>(Ds + T * LDK);  // KMAX x T
+  float* Qs = Ps + KMAX * T;                            // KMAX x T
+  const int Kap = (Ka + SLOTS - 1) / SLOTS * SLOTS;
+  const int Kbp = (Kb + SLOTS - 1) / SLOTS * SLOTS;
+  const int D1 = Ta + Kap, D2 = T + Kbp;
+  const int K1 = (Ta + 15) / 16 * 16;  // the first product's depth
+
+  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
+  const int tid = threadIdx.x;
+  const long W = (long)nb * T;
+  const long pa = (long)p * na + a;
+  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+
+  // dim-A completion: Z = bf16(Ba) bf16(x) + Ra NA
+  rfs::copy16(Cs, Ab + (long)va * T * LDK, T * LDK * (int)sizeof(rf::bf16),
+              tid);
+  const float* xt = x + pa * Ta * W + (long)b * T;
+  for (int i = tid; i < K1 * (T / 4); i += THREADS) {
+    const int t = i / (T / 4), c4 = i % (T / 4);
+    const float4 v = t < Ta
+        ? reinterpret_cast<const float4*>(xt + (long)t * W)[c4]
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(Ds + t * LDK + 4 * c4) = u;
+  }
+  stage_rows(Ps, A1 + ((long)va * D1 + Ta) * T, Ka, T, tid);   // Ra^T
+  stage_rows(Qs, NA + pa * Ka * W + (long)b * T, Ka, W, tid);  // NA
+  __syncthreads();
+  rfs::Frag f;
+  rfs::zero(f);
+  rfs::mma_block<true>(f, Cs, LDK, Ds, LDK, K1);
+  add_carry_rows(f, Ps, Qs, Ka);
+  __syncthreads();
+
+  // dim-B completion: Y = Zc bf16(Bb)^T + NB Rb^T; Zc, Z rounded once to
+  // bf16, goes to shared memory as s rows, never to device memory
+  rfs::for_pairs(f, [&](int s, int t, float v0, float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(Ds + s * LDK + t) =
+        __floats2bfloat162_rn(v0, v1);
+  });
+  rfs::copy16(Cs, Bb + (long)vb * T * LDK, T * LDK * (int)sizeof(rf::bf16),
+              tid);
+  const float* nbt = NB + (pa * nb + b) * (long)Ta * Kb;
+  for (int i = tid; i < Kb * T; i += THREADS) {
+    const int k = i / T, s = i % T;
+    Ps[k * T + s] = s < Ta ? nbt[(long)s * Kb + k] : 0.f;     // NB^T
+  }
+  stage_rows(Qs, B2 + ((long)vb * D2 + T) * T, Kb, T, tid);   // Rb^T
+  __syncthreads();
+  rfs::zero(f);
+  rfs::mma_block<false>(f, Ds, LDK, Cs, LDK, T);
+  add_carry_rows(f, Ps, Qs, Kb);
+
+  float* yt = y + pa * Ta * W + (long)b * T;
+  rfs::for_pairs(f, [&](int s, int o, float v0, float v1) {
+    if (s < Ta)
+      *reinterpret_cast<float2*>(yt + (long)s * W + o) = make_float2(v0, v1);
+  });
+}
+
 }  // namespace
 
 extern "C" int final2d_launch(const float* x, const float* NA,
@@ -258,6 +407,26 @@ extern "C" int final2d_k_launch(const float* x, const float* NA,
   const dim3 grid(nb, na, p);
   final2d_k_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x, NA, NB, A1, B2, y, na, nb, Ta, Ka, Kb, nva, nvb);
+  return (int)cudaGetLastError();
+}
+
+// final2d_k's shapes; Ab and Bb the bf16 constants (module docstring)
+extern "C" int final2d_k_bf16_launch(const float* x, const float* NA,
+                                     const float* NB, const float* A1,
+                                     const float* B2, const rf::bf16* Ab,
+                                     const rf::bf16* Bb, float* y, int p,
+                                     int na, int nb, int Ta, int Ka, int Kb,
+                                     int nva, int nvb, void* stream) {
+  if (Ta < 1 || Ta > T || Ka < 1 || Ka > KMAX || Kb < 1 || Kb > KMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      final2d_k_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_K_BF16);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nb, na, p);
+  final2d_k_bf16_kernel<<<grid, THREADS, SMEM_K_BF16,
+                          (cudaStream_t)stream>>>(
+      x, NA, NB, A1, B2, Ab, Bb, y, na, nb, Ta, Ka, Kb, nva, nvb);
   return (int)cudaGetLastError();
 }
 

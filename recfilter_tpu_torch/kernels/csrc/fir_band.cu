@@ -58,7 +58,20 @@
 // bandwidth on an H100 at px6 and where few pairs run; at px3 and px4
 // without tap_scale (3 and 4 pairs) the fp32 FMAs may bound it instead
 // (chip_smoke.py prints both bounds).
+//
+// fir_band_bf16: the band on a bf16 image at NPROD 1 — replaces the same
+// Pallas kernel on a bf16 x (its one x chunk is x itself; the JAX package
+// runs every bf16 band at one product, and writes y in x's dtype). x is
+// read as bf16, eight values per 16-byte load where the lines are 16-byte
+// aligned (L a multiple of 8: a 16-byte word of the window is then wholly
+// inside the line or wholly outside it), one value per load otherwise; a
+// warp reads 128 contiguous bytes of each of four lines, and the values go
+// widened, exactly, to the float table. The taps are the one bf16 chunk
+// (NPROD 1's), the sums the float32 entry's fp32 FMAs, and each output is
+// rounded once to bf16 from its fp32 sum (common.cuh's store1). 4 B per
+// output and channel: half the float32 entry's traffic, the same FLOP.
 
+#include "common.cuh"
 #include "split.cuh"
 
 namespace {
@@ -120,15 +133,54 @@ __device__ __forceinline__ void tap_run(float (&acc)[2][R], const float* tp,
   }
 }
 
-template <int NPROD>
+// Stage the window [g0, g0 + rows) of lines l0.. of the bf16 x (one
+// channel, L positions a line) into the float table xs (row stride XS),
+// zeros outside the lines (fir_band_bf16's loads, the file comment).
+__device__ __forceinline__ void stage_bf16(float* xs, const rf::bf16* xc,
+                                           int l0, int g0, int rows, int q,
+                                           int L, int tid) {
+  if (L % 8 == 0) {
+    const int a0 = g0 >= 0 ? g0 / 8 * 8 : -((7 - g0) / 8 * 8);  // floor 8
+    const int off = g0 - a0, words = (off + rows + 7) / 8;
+    // i runs over the words padded to eight a line: lane i % 8 of each
+    // group of eight reads word 8 (i / (8 LINES)) + i % 8 of one line
+    for (int i = tid; i < LINES * ((words + 7) / 8 * 8); i += THREADS) {
+      const int line = (i / 8) % LINES;
+      const int word = i / (8 * LINES) * 8 + i % 8;
+      if (word >= words) continue;
+      const int g = a0 + 8 * word, l = l0 + line;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (l < q && g >= 0 && g < L)
+        rf::widen8(*reinterpret_cast<const uint4*>(xc + (long)l * L + g), lo,
+                   hi);
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = 8 * word + j - off;
+        if (s >= 0 && s < rows) xs[s * XS + line] = v[j];
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < LINES * rows; i += THREADS) {
+    const int line = i / rows, s = i % rows, g = g0 + s, l = l0 + line;
+    xs[s * XS + line] = (l < q && g >= 0 && g < L)
+                            ? __bfloat162float(xc[(long)l * L + g]) : 0.f;
+  }
+}
+
+// TX: x's and y's type — float, or bf16 at NPROD 1 (fir_band_bf16)
+template <int NPROD, typename TX>
 __global__ void __launch_bounds__(THREADS)
-fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
+fir_band_kernel(const TX* __restrict__ x,        // (Cin, q, L)
                 const float* __restrict__ taps,  // (Cout * Cin, TR, Kpad)
                 const int* __restrict__ meta,    // (Cout * Cin, 1 + NPAIR)
                 const float* __restrict__ scale, // (Cout * Cin)
-                float* __restrict__ y,           // (Cout, q, L) or (Cout, L, q)
+                TX* __restrict__ y,              // (Cout, q, L) or (Cout, L, q)
                 int q, int L, int Cin, int Cout, int Kpad, int P, int rot,
                 int TR) {            // tap rows a channel: its most pairs
+  constexpr bool BF16 = std::is_same<TX, rf::bf16>::value;
+  static_assert(!BF16 || NPROD == 1, "a bf16 x runs one product");
   constexpr int NC = x_chunks(NPROD);
   extern __shared__ float smem[];
   __shared__ int pm[NPROD == 6 ? 1 : MAX_CH * (1 + NPAIR)];
@@ -162,30 +214,34 @@ fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
     for (int ci = 0; ci < Cin; ++ci) {
       if (Cin > 1 || co == 0) {  // a bank stages its one input once
         __syncthreads();
-        const float* xc = x + ci * qL;
-        // warp w reads lines w, w + 8, w + 16, w + 24 along the window,
-        // their four loads in flight together
-        for (int s0 = 0; s0 < rows; s0 += 32) {
-          const int s = s0 + lane, g = p0 - P + s;
-          float v[LINES / WARPS];
-#pragma unroll
-          for (int k = 0; k < LINES / WARPS; ++k) {
-            const int line = l0 + warp + k * WARPS;
-            v[k] = (s < rows && line < q && g >= 0 && g < L)
-                       ? xc[(long)line * L + g] : 0.f;
-          }
-          if (s < rows) {
+        if constexpr (BF16) {
+          stage_bf16(xs, x + ci * qL, l0, p0 - P, rows, q, L, tid);
+        } else {
+          const float* xc = x + ci * qL;
+          // warp w reads lines w, w + 8, w + 16, w + 24 along the window,
+          // their four loads in flight together
+          for (int s0 = 0; s0 < rows; s0 += 32) {
+            const int s = s0 + lane, g = p0 - P + s;
+            float v[LINES / WARPS];
 #pragma unroll
             for (int k = 0; k < LINES / WARPS; ++k) {
-              float* dst = xs + s * XS + warp + k * WARPS;
-              if constexpr (NPROD == 6) {
-                *dst = v[k];
-              } else {  // the JAX kernel's _split_vmem, on chip
-                rfs::bf16 c[NC];
-                rfs::split<NC>(v[k], c);
+              const int line = l0 + warp + k * WARPS;
+              v[k] = (s < rows && line < q && g >= 0 && g < L)
+                         ? xc[(long)line * L + g] : 0.f;
+            }
+            if (s < rows) {
 #pragma unroll
-                for (int h = 0; h < NC; ++h)
-                  dst[h * cstride] = __bfloat162float(c[h]);
+              for (int k = 0; k < LINES / WARPS; ++k) {
+                float* dst = xs + s * XS + warp + k * WARPS;
+                if constexpr (NPROD == 6) {
+                  *dst = v[k];
+                } else {  // the JAX kernel's _split_vmem, on chip
+                  rfs::bf16 c[NC];
+                  rfs::split<NC>(v[k], c);
+#pragma unroll
+                  for (int h = 0; h < NC; ++h)
+                    dst[h * cstride] = __bfloat162float(c[h]);
+                }
               }
             }
           }
@@ -225,27 +281,27 @@ fir_band_kernel(const float* __restrict__ x,     // (Cin, q, L)
       for (int j = 0; j < R; ++j)
         os[(warp * 2 * R + g * R + j) * XS + lane] = acc[g][j];
     __syncthreads();
-    float* yc = y + co * qL;
+    TX* yc = y + co * qL;
     if (rot) {  // (L, q): a row per position, the block's 32 lines contiguous
       for (int i = tid; i < SPAN * LINES; i += THREADS) {
         const int r = i / LINES, l = i % LINES;
         if (p0 + r < L && l0 + l < q)
-          yc[(long)(p0 + r) * q + l0 + l] = os[r * XS + l];
+          rf::store1(yc + (long)(p0 + r) * q + l0 + l, os[r * XS + l]);
       }
     } else {    // (q, L): a row per line, the block's 128 positions contiguous
       for (int i = tid; i < SPAN * LINES; i += THREADS) {
         const int l = i / SPAN, r = i % SPAN;
         if (p0 + r < L && l0 + l < q)
-          yc[(long)(l0 + l) * L + p0 + r] = os[r * XS + l];
+          rf::store1(yc + (long)(l0 + l) * L + p0 + r, os[r * XS + l]);
       }
     }
     __syncthreads();  // os is rewritten by the next channel
   }
 }
 
-template <int NPROD>
-int launch(const float* x, const float* taps, const int* meta,
-           const float* scale, float* y, int q, int L, int Cin, int Cout,
+template <int NPROD, typename TX = float>
+int launch(const TX* x, const float* taps, const int* meta,
+           const float* scale, TX* y, int q, int L, int Cin, int Cout,
            int Kpad, int P, int rot, int npair, cudaStream_t stream) {
   const int ntaps = Cin * Cout * npair * Kpad;
   if (ntaps > MAX_TAPS || (NPROD == 6 && npair != 1) ||
@@ -253,14 +309,22 @@ int launch(const float* x, const float* taps, const int* meta,
                       Cin * Cout > MAX_CH)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fir_band_kernel<NPROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fir_band_kernel<NPROD, TX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes(NPROD, MAX_KPAD, MAX_TAPS));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((q + LINES - 1) / LINES, (L + SPAN - 1) / SPAN);
-  fir_band_kernel<NPROD>
+  fir_band_kernel<NPROD, TX>
       <<<grid, THREADS, smem_bytes(NPROD, Kpad, ntaps), stream>>>(
           x, taps, meta, scale, y, q, L, Cin, Cout, Kpad, P, rot, npair);
   return (int)cudaGetLastError();
+}
+
+// The arguments' checks of both entries.
+bool args_ok(int q, int L, int Cin, int Cout, int Kpad, int P, int npair) {
+  return !(q < 1 || L < 1 || Cin < 1 || Cout < 1 || Kpad < R || Kpad % R ||
+           npair < 1 || npair > NPAIR || Kpad > MAX_KPAD || P < 0 ||
+           P >= Kpad || (L + SPAN - 1) / SPAN > 65535);
 }
 
 }  // namespace
@@ -277,10 +341,7 @@ extern "C" int fir_band_launch(const float* x, const float* taps,
                                int q, int L, int Cin, int Cout, int Kpad,
                                int P, int rot, int nprod, int npair,
                                void* stream) {
-  if (q < 1 || L < 1 || Cin < 1 || Cout < 1 || Kpad < R || Kpad % R ||
-      npair < 1 || npair > NPAIR ||
-      Kpad > MAX_KPAD || P < 0 || P >= Kpad ||
-      (L + SPAN - 1) / SPAN > 65535)
+  if (!args_ok(q, L, Cin, Cout, Kpad, P, npair))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nprod) {
@@ -299,6 +360,18 @@ extern "C" int fir_band_launch(const float* x, const float* taps,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// nprod 1 on a bf16 x and y: the float32 entry's operands at nprod 1
+extern "C" int fir_band_bf16_launch(const rf::bf16* x, const float* taps,
+                                    const int* meta, const float* scale,
+                                    rf::bf16* y, int q, int L, int Cin,
+                                    int Cout, int Kpad, int P, int rot,
+                                    int npair, void* stream) {
+  if (!args_ok(q, L, Cin, Cout, Kpad, P, npair))
+    return (int)cudaErrorInvalidValue;
+  return launch<1, rf::bf16>(x, taps, meta, scale, y, q, L, Cin, Cout, Kpad,
+                             P, rot, npair, (cudaStream_t)stream);
 }
 
 extern "C" const char* fir_band_error_string(int err) {

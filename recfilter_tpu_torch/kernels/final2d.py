@@ -589,6 +589,7 @@ class Final2DStencil(nn.Module):
 
 
 KMAX_K = 32  # the HIGHEST pair's largest carry count per axis
+LDK_BF16 = TILE + 8  # final2d_k_bf16's bf16 operand rows (csrc/final2d.cu)
 
 
 def highest_pair_limits(Ta: int, Ka: int, Kb: int) -> None:
@@ -665,11 +666,24 @@ class Final2DK(nn.Module):
     Btot_b : (nb|1, 128, 128);  Rhat_b_cat : (nb|1, 128, Kb)
     x (p, na, Ta, W); NA (p, na, Ka, W) in row form; NB (p, na, nb, Ta,
     Kb). fp32 products, as the JAX package's kernel has them; the kernel
-    pads each carry count to a multiple of 8 with zero rows."""
+    pads each carry count to a multiple of 8 with zero rows.
+
+    ``matmul_dtype="bfloat16"`` (``final2d_k_bf16``): the JAX package's
+    ``final2d(matmul_dtype=bfloat16)`` — x and Btot_a rounded to bf16,
+    Z = Btot_a·x with fp32 accumulation plus Rhat_a·NA in fp32, Z rounded
+    to bf16, Y = Z·Btot_bᵀ (Btot_b rounded) with fp32 accumulation plus
+    NB·Rhat_bᵀ in fp32; x and Y float32. The twin makes the same
+    roundings with float32 einsums (the kernel's products on bf16 tensor
+    cores, the carry rows in fp32 FMAs); the backward is the float32
+    product's VJP."""
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
-                 nb: int):
+                 nb: int, matmul_dtype: str = "float32"):
         super().__init__()
+        if matmul_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"matmul_dtype {matmul_dtype!r}: float32 or "
+                             "bfloat16")
+        self.bf16 = matmul_dtype == "bfloat16"
         Ba, Ra = np.asarray(Btot_a), np.asarray(Rhat_a_cat)
         Bb, Rb = np.asarray(Btot_b), np.asarray(Rhat_b_cat)
         self.na, self.nb = int(na), int(nb)
@@ -689,15 +703,35 @@ class Final2DK(nn.Module):
         self.register_buffer("Ran", _f32(_expand_stack(Ra, na)))
         self.register_buffer("Bbn", _f32(_expand_stack(Bb, nb)))
         self.register_buffer("Rbn", _f32(_expand_stack(Rb, nb)))
+        if self.bf16:
+            # the tensor cores' operands: bf16(Ba) rows s, bf16(Bb) rows o,
+            # the contraction contiguous, rows LDK apart (zero past Ta)
+            Ab = np.zeros((A1.shape[0], TILE, LDK_BF16))
+            Ab[:, :, :self.Ta] = A1[:, :self.Ta].transpose(0, 2, 1)
+            B2 = _pad_rows(_cat_t(Bb, Rb), TILE + Kbp)
+            Bk = np.zeros((B2.shape[0], TILE, LDK_BF16))
+            Bk[:, :, :TILE] = B2[:, :TILE].transpose(0, 2, 1)
+            for name, M in (("Ab_v", Ab), ("Bb_v", Bk)):
+                self.register_buffer(name, _f32(M).to(torch.bfloat16))
 
-    def plain(self, x, NA, NB):
+    def _twin(self, x, NA, NB, bf16: bool = False):
+        """The pair's products: float32, or (``bf16``) with x, Btot_a, Z
+        and Btot_b rounded to bf16 (float32 einsums of bf16 values)."""
         p, na, Ta, W = x.shape
-        z = (torch.einsum("aos,pasw->paow", self.Ban, x)
+        Ba, Bb = self.Ban, self.Bbn
+        if bf16:
+            x, Ba, Bb = (t.to(torch.bfloat16).float() for t in (x, Ba, Bb))
+        z = (torch.einsum("aos,pasw->paow", Ba, x)
              + torch.einsum("aok,pakw->paow", self.Ran, NA))
-        y = (torch.einsum("bot,pasbt->pasbo", self.Bbn,
+        if bf16:
+            z = z.to(torch.bfloat16).float()
+        y = (torch.einsum("bot,pasbt->pasbo", Bb,
                           z.reshape(p, na, Ta, self.nb, TILE))
              + torch.einsum("bok,pabsk->pasbo", self.Rbn, NB))
         return y.reshape(p, na, Ta, W)
+
+    def plain(self, x, NA, NB):
+        return self._twin(x, NA, NB, self.bf16)
 
     def _kernel(self, x, NA, NB):
         p, na, nb, Ta = x.shape[0], self.na, self.nb, self.Ta
@@ -710,10 +744,21 @@ class Final2DK(nn.Module):
             _check(t, name, t.shape, x.device)
         _grid_ok(p, na, W)
         y = torch.empty_like(x)
+        dims = (p, na, nb, Ta, self.Ka, self.Kb, self.A1_v.shape[0],
+                self.B2_v.shape[0])
+        if self.bf16:
+            for name in ("Ab_v", "Bb_v"):
+                t = getattr(self, name)
+                _check(t, name, t.shape, x.device, torch.bfloat16)
+            _launch("final2d_k_bf16", (
+                x.data_ptr(), NA.data_ptr(), NB.data_ptr(),
+                self.A1_v.data_ptr(), self.B2_v.data_ptr(),
+                self.Ab_v.data_ptr(), self.Bb_v.data_ptr(), y.data_ptr(),
+                *dims), x.device)
+            return y
         _launch("final2d_k", (
             x.data_ptr(), NA.data_ptr(), NB.data_ptr(), self.A1_v.data_ptr(),
-            self.B2_v.data_ptr(), y.data_ptr(), p, na, nb, Ta, self.Ka,
-            self.Kb, self.A1_v.shape[0], self.B2_v.shape[0]), x.device)
+            self.B2_v.data_ptr(), y.data_ptr(), *dims), x.device)
         return y
 
     def forward(self, x, NA, NB):

@@ -21,6 +21,12 @@ product exact in float32, over :func:`.split.prods`. With ``tap_scale``
 integers (:func:`exact_band`) has one tap chunk: it takes only the pairs
 (0, j), then one multiply by the inverse scale.
 
+A bf16 x (the JAX package's bf16 band: one product whatever the grade)
+runs at ``nprod`` 1 on ``fir_band_bf16``: x read as bf16 (its one chunk
+is itself), the one bf16 tap chunk, fp32 sums, y bf16, each output
+rounded once; the twin is the float32 band at nprod 1 on ``x.float()``,
+rounded once.
+
 ``forward`` launches the CUDA kernel for a CUDA tensor (through
 :class:`.launch._KernelFn`, whose backward is the VJP of the float32 band
 product: the pass is linear) and runs the plain PyTorch twin for a CPU
@@ -232,10 +238,22 @@ class FirBand(nn.Module):
             outs.append(acc)
         return self._emit(outs, q, L)
 
+    def _bf16_ok(self, x) -> bool:
+        """Whether ``x`` is bf16 (which runs at one product only)."""
+        if x.dtype != torch.bfloat16:
+            return False
+        if self.nprod != 1:
+            raise TypeError(f"a bf16 x runs the band at one product, not "
+                            f"{self.nprod}")
+        return True
+
     def plain(self, x):
         """The twin the CPU runs: the float32 product at px6; below it each
         channel's chunk pairs in float32 (:func:`.split.pair_sum`), times
-        its inverse scale, summed over a contraction's channels."""
+        its inverse scale, summed over a contraction's channels; a bf16 x
+        that on ``x.float()``, rounded once to bf16."""
+        if self._bf16_ok(x):
+            return self.plain(x.float()).to(torch.bfloat16)
         if self.nprod == 6:
             return self._twin(x)
         q, L = self._lines(x)
@@ -255,7 +273,8 @@ class FirBand(nn.Module):
 
     def _kernel(self, x):
         q, L = self._lines(x)
-        _check(x, "x", x.shape, x.device)
+        bf16 = self._bf16_ok(x)
+        _check(x, "x", x.shape, x.device, x.dtype if bf16 else torch.float32)
         _check(self.taps_k, "taps_k", self.taps_k.shape, x.device)
         meta = scale = 0
         if self.nprod != 6:
@@ -268,11 +287,14 @@ class FirBand(nn.Module):
                              "the launch grid")
         chan = (self.Cout,) if self.Cout > 1 else ()
         y = torch.empty(chan + ((L, q) if self.rot else (q, L)),
-                        device=x.device)
-        _launch("fir_band", (
-            x.data_ptr(), self.taps_k.data_ptr(), meta, scale, y.data_ptr(),
-            q, L, self.Cin, self.Cout, self.Kpad, self.P, int(self.rot),
-            self.nprod, self.npair), x.device)
+                        device=x.device, dtype=x.dtype)
+        args = (x.data_ptr(), self.taps_k.data_ptr(), meta, scale,
+                y.data_ptr(), q, L, self.Cin, self.Cout, self.Kpad, self.P,
+                int(self.rot))
+        if bf16:
+            _launch("fir_band_bf16", args + (self.npair,), x.device)
+        else:
+            _launch("fir_band", args + (self.nprod, self.npair), x.device)
         return y
 
     def forward(self, x):

@@ -50,7 +50,10 @@ autograd rule for all of them.
     ``tails_extra_bf16`` (x bf16), ``completion_rot_stencil_bf16`` and
     ``completion_rot_stencil_epi_bf16`` (x and y bf16, nprod 1, the
     rotated emit with its stencil) and ``stencil2d_bf16`` (y and the
-    banks bf16).
+    banks bf16); ``fir_band_bf16`` (x and y bf16, nprod 1: the FIR band
+    on a bf16 image). ``final2d_k_bf16`` is ``final2d_k`` with bf16
+    products (``Plan.matmul_dtype="bfloat16"``: x, Z and the image-sized
+    constants rounded to bf16, x and y float32).
   * ``LAUNCHES`` — per-entry launch counts; :func:`_launch` adds one where
     it launches a kernel and nowhere else, so a run shows which kernels its
     path went through. :func:`reset_launches` zeroes every count.
@@ -99,7 +102,7 @@ SIGNATURES = {
                       ("moments2d_k", 5, 8), ("moments2d_naf", 7, 7),
                       ("moments2d_bf16", 9, 8), ("moments2d_naf_bf16", 7, 7)),
     "final2d": _sig("final2d", ("final2d", 6, 5), ("final2d_epi", 11, 6),
-                    ("final2d_k", 6, 8)),
+                    ("final2d_k", 6, 8), ("final2d_k_bf16", 8, 8)),
     "final2d_stencil": _sig("final2d_stencil", ("final2d_stencil", 11, 11),
                             ("final2d_stencil_bf16", 11, 11)),
     "final2d_split": _sig("final2d_split", ("final2d_split", 6, 6),
@@ -129,7 +132,8 @@ SIGNATURES = {
                        ("rows_tails_bf16", 3, 5)),
     "rows_final": _sig("rows_final", ("rows_final", 4, 5),
                        ("rows_final_bf16", 4, 5)),
-    "fir_band": _sig("fir_band", ("fir_band", 5, 9)),
+    "fir_band": _sig("fir_band", ("fir_band", 5, 9),
+                     ("fir_band_bf16", 5, 8)),
     "int_scan": _sig("int_scan", ("int_scan", 3, 6)),
     "int_seg_scan": _sig("int_seg_scan", ("int_seg_carries", 2, 9),
                          ("int_seg_fix", 3, 9)),

@@ -69,12 +69,13 @@ from . import dimfuse
 from .epilogue import kernel_form
 from .kernels import final2d as k2d
 from .kernels.completion import _SLOTS, _per_tile, pad_solve_matrix
-from .kernels.split import NPROD
 from .kernels.stencil2d import stencil_reach
-from .planner import refuse_split
 from .spec import BorderMode, Scan
 
 TILE = k2d.TILE
+# the grades whose product count the overlap_k backend's px pair takes:
+# the JAX package's fused_2d_pass map (no ``default`` in it)
+PX_NPROD = {"px3": 3, "px4": 4, "px6": 6}
 
 
 def stencil2d_decline(wa: int, wb: int, stencil2d):
@@ -607,10 +608,14 @@ class Fused2DK(nn.Module):
     extents are zero-padded to whole tiles (``pad_a`` / ``pad_b`` set by
     the caller's gates: never under a clamp border). The glue runs in
     float64 with dense solves, as the port's other glue does.
-    ``forward_plain`` runs the kernels' twins."""
+    ``matmul_dtype="bfloat16"`` runs passes 2+3 with bf16 products
+    (``final2d_k_bf16``, :class:`.kernels.final2d.Final2DK`): the JAX
+    package's ``final2d(matmul_dtype=bfloat16)``; pass 1 and the glue as
+    at float32. ``forward_plain`` runs the kernels' twins."""
 
     def __init__(self, scans_a: Sequence[Scan], scans_b: Sequence[Scan],
-                 wa: int, wb: int, Ta: int, border: str):
+                 wa: int, wb: int, Ta: int, border: str,
+                 matmul_dtype: str = "float32"):
         super().__init__()
         Tb = TILE
         clamp = border == BorderMode.CLAMP
@@ -625,7 +630,8 @@ class Fused2DK(nn.Module):
         Gb_cat, Rb_cat = _cat_mats(mb)
         self.Ka, self.Kb = Ga_cat.shape[1], Gb_cat.shape[1]
         self.moments = k2d.Moments2DK(Ga_cat, Gb_cat, na, nb)
-        self.final = k2d.Final2DK(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na, nb)
+        self.final = k2d.Final2DK(ma.Btot, Ra_cat, mb.Btot, Rb_cat, na, nb,
+                                  matmul_dtype=matmul_dtype)
         self.register_buffer("Btot_a", _stack64(ma.Btot))
         self.register_buffer("Ra_cat", _stack64(Ra_cat))
         self.register_buffer("Gb_cat", _stack64(Gb_cat))
@@ -695,15 +701,17 @@ class _Swapped(nn.Module):
 def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
                     scans_b, Tb: int, border: str = BorderMode.ZERO,
                     use_kernels: bool = False,
-                    matmul_precision: str = "highest") -> nn.Module:
+                    matmul_precision: str = "highest",
+                    matmul_dtype: str = "float32") -> nn.Module:
     """The executor the JAX package's ``fused_2d_pass`` runs for scans
     ``scans_a`` on ``axis_a`` then ``scans_b`` on ``axis_b`` of arrays of
     ``shape``, by its gates in its order:
 
       1. a pair whose first axis comes later is swapped (:class:`_Swapped`);
-      2. ``use_kernels`` at ``px6`` or a reduced grade (px3, px4,
-         default) on the trailing pair where :func:`fused2d_decline`
-         passes: :class:`Fused2DPx` with the grade's product count;
+      2. ``use_kernels`` at ``px6``, ``px4`` or ``px3`` on the trailing
+         pair where :func:`fused2d_decline` passes: :class:`Fused2DPx`
+         with the grade's product count (the JAX package's map names only
+         those three grades);
       3. the tiles: each at least its axis's largest order and at most its
          extent; with ``use_kernels`` the last axis's pinned to 128;
       4. a clamp border with pad, more than 256 tiles on an axis, or a
@@ -711,13 +719,16 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
          at ``highest`` (the JAX call's default), a :class:`.dimfuse.
          StagedPass` of route ``"pair-fallback"``;
       5. ``use_kernels`` on the contiguous trailing pair: :class:`Fused2DK`
-         (``moments2d_k`` + ``final2d_k``);
+         (``moments2d_k`` + ``final2d_k``, or ``final2d_k_bf16`` at
+         ``matmul_dtype="bfloat16"``);
       6. else the einsum form, :class:`OverlapND` on the two axes (route
          ``"pair"``).
 
-    With ``use_kernels`` at a reduced grade, 4 and 5 have no split form
-    and raise ``NotImplementedError`` (ROADMAP Queue 1 item 4); without
-    kernels the grade is not read, as in the JAX package."""
+    Every other grade (``default``, ``highest``, the split-einsum grades)
+    and a px grade off the gates of 2 fall through to 3–6 at the HIGHEST
+    grade, as in the JAX package; without kernels the grade is not read.
+    ``matmul_dtype`` is read by :class:`Fused2DK` alone (the JAX
+    package's ``_fused_2d_kernel_path``)."""
     shape = tuple(int(e) for e in shape)
     nd = len(shape)
     axis_a, axis_b = axis_a % nd, axis_b % nd
@@ -726,17 +737,13 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
         sw[axis_a], sw[axis_b] = sw[axis_b], sw[axis_a]
         return _Swapped(fused_2d_module(
             sw, axis_b, scans_a, Ta, axis_a, scans_b, Tb, border,
-            use_kernels, matmul_precision), axis_a, axis_b)
+            use_kernels, matmul_precision, matmul_dtype), axis_a, axis_b)
     wa, wb = shape[axis_a], shape[axis_b]
     trailing = axis_a == nd - 2 and axis_b == nd - 1
-    nprod = NPROD.get(matmul_precision, 0)
+    nprod = PX_NPROD.get(matmul_precision, 0)
     if (use_kernels and nprod and trailing
             and fused2d_decline(scans_a, scans_b, wa, wb, border) is None):
         return Fused2DPx(scans_a, scans_b, wa, wb, border, nprod=nprod)
-    if use_kernels:
-        refuse_split(matmul_precision, "the overlap_k backend off the "
-                     "3-touch executor's gates (the HIGHEST pair, the "
-                     "pair fallback)")
     ka = max(s.order for s in scans_a)
     kb = max(s.order for s in scans_b)
     Ta = int(min(max(Ta, ka), wa))
@@ -754,7 +761,8 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
             dimfuse.dim_pass_module(scans_b, axis_b, shape, Tb, border,
                                     "highest")], "pair-fallback")
     if use_kernels and trailing:
-        return Fused2DK(scans_a, scans_b, wa, wb, Ta, border)
+        return Fused2DK(scans_a, scans_b, wa, wb, Ta, border,
+                        matmul_dtype)
     return OverlapND(shape, [(axis_a, scans_a, Ta), (axis_b, scans_b, Tb)],
                      border, route="pair")
 
@@ -762,10 +770,12 @@ def fused_2d_module(shape, axis_a: int, scans_a, Ta: int, axis_b: int,
 def fused_2d_pass(x: torch.Tensor, axis_a: int, scans_a, Ta: int,
                   axis_b: int, scans_b, Tb: int,
                   border: str = BorderMode.ZERO, use_kernels: bool = False,
-                  matmul_precision: str = "highest") -> torch.Tensor:
+                  matmul_precision: str = "highest",
+                  matmul_dtype: str = "float32") -> torch.Tensor:
     """Functional :func:`fused_2d_module` on the float32 ``x``."""
     mod = fused_2d_module(x.shape, axis_a, scans_a, Ta, axis_b, scans_b, Tb,
-                          border, use_kernels, matmul_precision)
+                          border, use_kernels, matmul_precision,
+                          matmul_dtype)
     return mod.to(x.device)(x)
 
 
@@ -902,15 +912,20 @@ class OverlapFilter(nn.Module):
     tiled by its split width or ``tile_default``. Without kernels
     (``overlap``) three or more scanned axes take :class:`OverlapND` where
     :func:`nd_decline` passes. ``use_kernels`` (``overlap_k``) runs the
-    trailing pair on :class:`Fused2DPx` at ``px6`` or a reduced grade where
-    its gates hold, else on :class:`Fused2DK` (at ``px6`` and
-    ``highest``). Integer filters run the sequential core.
-    ``stages`` lists the executors; ``forward_plain`` runs the kernels'
-    twins."""
+    trailing pair on :class:`Fused2DPx` at ``px6``, ``px4`` or ``px3``
+    where its gates hold, else — at every other grade too, ``default``
+    among them — on :class:`Fused2DK` at the HIGHEST grade, or the pair
+    fallback off its gates (:func:`fused_2d_module`, the JAX package's
+    ``fused_2d_pass`` map). ``matmul_dtype="bfloat16"`` reaches the
+    HIGHEST pair alone (bf16 products in ``final2d_k_bf16``); the px pair
+    and the pair fallback ignore it, as in the JAX package. Integer
+    filters run the sequential core. ``stages`` lists the executors;
+    ``forward_plain`` runs the kernels' twins."""
 
     def __init__(self, spec, tile_default: int = 32,
                  use_kernels: bool = False,
-                 matmul_precision: str = "highest"):
+                 matmul_precision: str = "highest",
+                 matmul_dtype: str = "float32"):
         super().__init__()
         from .scan_core import ScanFilter, _compute_type
 
@@ -932,7 +947,8 @@ class OverlapFilter(nn.Module):
                     (ax_a, sc_a, Ta), (ax_b, sc_b, Tb) = groups[i:i + 2]
                     stages.append(fused_2d_module(
                         self.ext, ax_a, sc_a, Ta, ax_b, sc_b, Tb,
-                        spec.border, use_kernels, matmul_precision))
+                        spec.border, use_kernels, matmul_precision,
+                        matmul_dtype))
                     i += 2
                 else:
                     ax, sc, T = groups[i]
@@ -958,8 +974,10 @@ class OverlapFilter(nn.Module):
 
 def apply_filter_overlap(spec, x: torch.Tensor, tile_default: int = 32,
                          use_kernels: bool = False,
-                         matmul_precision: str = "highest") -> torch.Tensor:
+                         matmul_precision: str = "highest",
+                         matmul_dtype: str = "float32") -> torch.Tensor:
     """Functional :class:`OverlapFilter` on ``x``'s device."""
     x = torch.as_tensor(x)
-    mod = OverlapFilter(spec, tile_default, use_kernels, matmul_precision)
+    mod = OverlapFilter(spec, tile_default, use_kernels, matmul_precision,
+                        matmul_dtype)
     return mod.to(x.device)(x)

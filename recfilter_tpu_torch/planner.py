@@ -13,8 +13,11 @@ directive — ``compute_locally`` selects ``pallas``):
     (``dim_pass_rows`` / ``dim_pass_cols``), one per scanned axis;
   * ``overlap`` / ``overlap_k`` — ``overlap2d.OverlapFilter``: scanned
     axes paired, both carries of a pair from one read; ``overlap_k`` runs
-    the pair on ``moments2d_k`` / ``final2d_k`` (or on the px pair where
-    its gates hold at ``px6``), ``overlap`` as float64 einsums;
+    the pair on the px pair where its gates hold at ``px6``, ``px4`` or
+    ``px3``, else — ``default`` and every other grade too, as the JAX
+    package's ``fused_2d_pass`` maps them — on ``moments2d_k`` /
+    ``final2d_k`` (``final2d_k_bf16`` at ``matmul_dtype="bfloat16"``),
+    ``overlap`` as float64 einsums;
   * ``blocked`` — the blocked algebra (``tiling.py``), float64 einsums;
   * ``scan`` — the sequential core (``scan_core.ScanFilter``);
   * ``oracle`` — the float64 numpy oracle (``scan_core.oracle_apply``).
@@ -48,13 +51,14 @@ than 8 lines, other tiles than 128, ΣK > 56, or at ``default`` no
 structural win) it takes its einsum form at the grade's products, as in
 the JAX package. The ``pallas`` backend's strip passes sum in fp64 at
 every grade and run there as at px6 (the JAX package's strip kernels read
-no grade). Every other route raises
+no grade); the ``overlap_k`` backend runs its HIGHEST pair at
+``default`` (the JAX package's px pair takes px3, px4 and px6 only).
+Every other route raises
 ``NotImplementedError`` at those grades, naming ROADMAP Queue 1 item 4;
 no route runs another grade in their place. The routes are allowed where
 the grade enters: ``dimfuse.fused_filter_module``,
-``api.backend_module`` (:data:`SPLIT_BACKENDS`),
-``overlap2d.fused_2d_module`` and ``LastAxisPass`` admit those and refuse
-the rest.
+``api.backend_module`` (:data:`SPLIT_BACKENDS`) and ``LastAxisPass``
+admit those and refuse the rest.
 
 The split-einsum grades ``f32x3``, ``f32x4``, ``f32x6`` and ``high`` (TPU
 HIGH: three bf16 products) are the JAX package's ``_split_einsum``: with
@@ -65,8 +69,16 @@ in float32 (``dimfuse.EINSUM_NPROD``), its carry solves and injections in
 float64. ``f32x9`` (the integer limbs' drop-free grade) runs those
 products in float64. The FIR band pass runs ``fir_band`` at ``f32x6`` as
 at px6 and at ``f32x3`` and ``f32x4`` as at px3 and px4 (the JAX
-package's product counts). ``matmul_dtype="bfloat16"`` raises (ROADMAP
-Queue 1 item 4).
+package's product counts).
+
+``matmul_dtype="bfloat16"`` (bf16 products), as in the JAX package, is
+read by the ``overlap`` and ``overlap_k`` backends alone, and there by
+the HIGHEST pair alone: ``final2d_k_bf16`` rounds x, the dim-A
+completion Z and the image-sized constants to bf16, with fp32
+accumulation and the carry rows in fp32; the px pair and the pair
+fallback ignore it. ``fir.FirPass(matmul_dtype="bfloat16")`` on a
+float32 image runs ``fir_band`` at one product (x rounded to bf16 on
+chip), its einsum form on bf16-rounded operands with a float32 output.
 
 Storage types (the filter's dtype): float32 runs the grades above. bf16
 storage (the JAX package's production bf16 mode: the image in bf16
@@ -85,13 +97,21 @@ gates hold — and the stencil consumers on those routes: a fused
 ``completion_rot``'s stencil body, with and without its epilogue), a
 ``stencil2d`` bank after the filter (``stencil2d``), each reading bf16 and
 writing bf16 rounded once; the stencil fallbacks take the taps in float32
-on the bf16 output and round once. Every other bf16 route raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 4 and the Queue 2 item
-of its form (:func:`refuse_bf16`: 7 the FIR band, 8 the einsum forms, the
-sequential core and the other backends; item 6, the stencil consumers,
-is ported): no route runs float32 in its place. float16 storage runs the float32 route at the
-requested grade on the input cast to float32, and casts the output back
-(the JAX package's ``cdt``).
+on the bf16 output and round once. The FIR band pass reads a bf16 image on
+``fir_band_bf16`` at one product (bf16 taps, fp32 sums, each output
+rounded once), its einsum form past the kernel's gates on bf16 operands
+with float32 sums, rounded once. Where a pass's kernels do not apply, its
+einsum form (``dimfuse.LastAxisPass``: other tiles than 128, more than
+256 tiles, ΣK > 56, fewer than 8 lines, a rotated leading group) runs
+the image-sized products on bf16-rounded data and constants with float32
+sums and rounds the output once; its carries (the tails' solve and
+injection) stay float64, as on every bf16 kernel route of the port (the
+JAX package rounds them to bf16: ROADMAP Queue 3). The sequential core
+runs in float32 and casts back, and the other backends (``pallas``,
+``overlap``, ``overlap_k``, ``blocked``, ``scan``, ``oracle``) run their
+float32 route on the input cast to float32, the output cast to bf16 (the
+JAX package's ``cdt``). float16 storage runs the float32 route at the
+requested grade on the input cast to float32, and casts the output back.
 """
 
 from __future__ import annotations
@@ -136,21 +156,6 @@ def storage_nprod(dtype: str, matmul_precision: str) -> int:
     return NPROD.get(matmul_precision, 0)
 
 
-# The ROADMAP Queue 2 items of the bf16 storage forms (the stencil
-# consumers', item 6, ported; 7 and 8 still to port)
-BF16_STENCIL, BF16_FIR, BF16_EINSUM = 6, 7, 8
-
-
-def refuse_bf16(route: str, item: int) -> None:
-    """Raise ``NotImplementedError`` for a bf16 filter on ``route``, one of
-    the bf16 storage forms still to port, ROADMAP Queue 2 ``item``
-    (module docstring)."""
-    raise NotImplementedError(
-        f"bf16 storage on {route} is not ported yet: {SPLIT_ITEM}, Queue 2 "
-        f"item {item} (bf16 filters run the 3-touch 2-D executor, volumes, "
-        "the rotation chain, the per-axis loop, rotate_emit and their "
-        "stencil consumers on their kernels at one product)")
-
 
 BACKENDS = ("auto", "einsum", "pallas", "overlap", "overlap_k", "blocked",
             "scan", "oracle")
@@ -175,8 +180,11 @@ class Plan:
     loop; it changes no result, and on the card it has no effect (the
     CUDA tile loop is a runtime loop). Set by ``schedule.unroll(var,
     factor)``.
-    ``matmul_dtype``: "float32"; "bfloat16" (bf16 products on the
-    ``overlap`` backends) is not ported yet.
+    ``matmul_dtype``: "float32" or "bfloat16" (bf16 products). As in the
+    JAX package only the ``overlap`` and ``overlap_k`` backends read it,
+    and of their executors only the HIGHEST pair (``overlap_k``'s
+    ``final2d_k_bf16``); the px pair, the pair fallback and every other
+    backend ignore it (module docstring).
     ``matmul_precision``: "px6" (default), "highest", a reduced grade
     "px3", "px4", "default", or a split-einsum grade "f32x3", "f32x4",
     "f32x6", "high", "f32x9" (module docstring).
@@ -199,11 +207,7 @@ class Plan:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
-        if self.matmul_dtype == "bfloat16":
-            raise NotImplementedError(
-                "matmul_dtype='bfloat16' is not ported yet: ROADMAP Queue 1 "
-                f"item 4, Queue 2 item {BF16_EINSUM} (bf16 products)")
-        if self.matmul_dtype != "float32":
+        if self.matmul_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown matmul_dtype {self.matmul_dtype!r}")
         check_precision(self.matmul_precision)
         for name in ("rotate_emit", "line_block"):

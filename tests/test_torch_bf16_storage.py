@@ -15,10 +15,12 @@ package's own error of the oracle or 2⁻⁸ of its peak, whichever is
 larger (:func:`_held`). ``Moments2D`` and ``RowsTails`` take a bf16 x to
 the bits of their float32 path on the same values. float16 runs the
 float32 route cast in and out, and matches the JAX package's float16
-output on each route to one float16 step. Every bf16 route with no bf16
-kernel raises naming ROADMAP Queue 1 item 4 and its Queue 2 item (the
-chain, the per-axis loop and the rotated emit are held in
-``tests/test_torch_bf16_chain.py``). The CUDA kernels are held to these
+output on each route to one float16 step. The bf16 routes that raised
+until their forms were ported (the einsum forms, the sequential core, the
+other backends, the FIR band) run and are held to the JAX package and the
+oracle (the chain, the per-axis loop and the rotated emit on their
+kernels are held in ``tests/test_torch_bf16_chain.py``, bf16 products in
+``tests/test_torch_bf16_products.py``). The CUDA kernels are held to these
 twins on a card by ``tests/test_torch_cuda.py``.
 """
 
@@ -531,55 +533,129 @@ def _bf16_filter(shape, axes, tiles=None, times=1, clamp=False, **plan):
     return F
 
 
-SOBEL = [[(1, 1, 0.5), (-1, -1, 0.5)]]
-REFUSED = {
-    # name: (ROADMAP Queue 2 item, the build or call that raises)
+STENCIL1 = {"taps": [(-1, 0.5), (1, 0.5)]}  # start "zero", end "clamp"
+
+
+def _build(pkg, image, shape, axes, tiles=None, clamp=False, **plan):
+    """:func:`_bf16_filter`'s filter in either package (``pkg`` rft or
+    the JAX package's ``recfilter_tpu``) on ``image``."""
+    dims = [pkg.Dim(n, e) for n, e in zip("wzyx"[-len(shape):], shape)]
+    F = pkg.RecFilter("B")
+    if clamp:
+        F.set_clamped_image_border()
+    F[tuple(dims)] = image
+    wts = rft.gaussian_weights(5.0, 3)
+    for ax in axes:
+        F.add_filter(+dims[ax], wts)
+        F.add_filter(-dims[ax], wts)
+    F.split({dims[ax]: (tiles or {}).get(ax, T) for ax in axes})
+    if plan:
+        F.set_plan(**plan)
+    return F
+
+
+def _stencil1_np(y, ax):
+    """:data:`STENCIL1` along ``ax`` of the float64 ``y``: y[i−1] zero
+    before the start, y[i+1] the edge past the end."""
+    n = y.shape[ax]
+    lo = np.take(np.pad(y, [(1, 0) if a == ax % y.ndim else (0, 0)
+                            for a in range(y.ndim)]), np.arange(n), axis=ax)
+    hi = np.take(y, np.minimum(np.arange(n) + 1, n - 1), axis=ax)
+    return 0.5 * lo + 0.5 * hi
+
+
+def _fir2d_np(x, taps):
+    """The separable FIR ``taps`` ⊗ ``taps`` on the float64 image x."""
+    return tfir.fir_oracle(tfir.fir_oracle(x, taps, 1), taps, 0)
+
+
+# the routes that raised before their bf16 forms were ported (ROADMAP
+# Queue 2 items 7 and 8): name: (shape, scanned axes, tiles, clamp, plan,
+# the port's route, shown by its module)
+PORTED = {
     # a chain of 32-wide tiles: the einsum form
-    "chain": (8, lambda: _bf16_filter((64, 96), (0, 1), {0: 32, 1: 32}
-                                      ).as_func(device="cpu")),
+    "chain": ((64, 96), (0, 1), {0: 32, 1: 32}, False, {}, "RotationChain"),
     # a volume whose trailing pair declines after the rows pass, the chain
     # on the pair at 32-wide and 16-wide tiles: the einsum form
-    "volume-pair-declines": (8, lambda: _bf16_filter(
-        (128, 40, 16), (0, 1, 2), {1: 32}).as_func(device="cpu")),
-    # a bare signal (one line) at 100-wide tiles: the einsum form
-    "1-d": (8, lambda: _bf16_filter((1000,), (0,), {0: 100}).as_func(
-        device="cpu")(torch.zeros(1000))),
+    "volume-pair-declines": ((128, 40, 16), (0, 1, 2), {1: 32}, False, {},
+                             "StagedPass"),
+    # a bare signal at 100-wide tiles: the einsum form
+    "1-d": ((1000,), (0,), {0: 100}, False, {}, "FusedLastAxis"),
     # a clamp border with no dividing tile: the sequential core
-    "core": (8, lambda: _bf16_filter((4, 251), (1,), clamp=True).as_func(
-        device="cpu")),
-    # the FIR band on a 2-D bf16 image through the separable bank (the
-    # image stays bf16, as the JAX package's fir_separable_2d keeps it)
-    "fir-separable-2d": (7, lambda: tfir.FirSeparable2D(
-        64, 96, [1.0, 2.0, 1.0])(torch.zeros((64, 96),
-                                             dtype=torch.bfloat16))),
-    # the rotated emit with a stencil at 32-wide tiles: the einsum form,
-    # not the stencil (its bf16 kernels are ported)
-    "rotate_emit-stencil-32": (8, lambda: _bf16_filter(
-        (128, 256), (1,), {1: 32}, rotate_emit=2).as_func(
-            stencil={"taps": [(-1, 0.5), (1, 0.5)]}, device="cpu")),
+    "core": ((4, 251), (1,), None, True, {}, "FusedLastAxis"),
+    # the rotated emit with a stencil at 32-wide tiles: the einsum form
+    "rotate_emit-stencil-32": ((128, 256), (1,), {1: 32}, False,
+                               {"rotate_emit": 2}, "RotatedPass"),
     # a 4-D filter's leading-axis pass, its extent of 40 at 32-wide tiles
     # (the rows gates decline it): the einsum form
-    "4-d-leading-pass": (8, lambda: _bf16_filter(
-        (40, 8, 16, 256), (0,), {0: 32}).as_func(device="cpu")),
-    # the FIR band pass
-    "fir": (7, lambda: tfir.fir_pass_last(torch.zeros(
-        (8, 256), dtype=torch.bfloat16), [1.0])),
-    **{f"backend-{b}": (8, lambda b=b: _bf16_filter(
-        (128, 256), (0, 1), backend=b).as_func(device="cpu"))
+    "4-d-leading-pass": ((40, 8, 16, 256), (0,), {0: 32}, False, {},
+                         "FusedAxisPass"),
+    **{f"backend-{b}": ((128, 256), (0, 1), None, False, {"backend": b},
+                        "StorageCast")
        for b in ("pallas", "overlap", "overlap_k", "blocked", "scan",
                  "oracle")},
+    # the FIR band on a 2-D bf16 image through the separable bank, and the
+    # band pass itself: fir_band at one product on a bf16 x
+    "fir-separable-2d": ((64, 256), None, None, False, {},
+                         "FirSeparable2D"),
+    "fir": ((8, 256), None, None, False, {}, "FirPass"),
 }
 
 
-@pytest.mark.parametrize("route", list(REFUSED))
+JAX_MISSES = {"chain", "rotate_emit-stencil-32"}
+
+
+@pytest.mark.parametrize("route", list(PORTED))
 def test_bf16_routes_not_ported_raise(route):
-    """Every bf16 route with no bf16 kernel raises naming ROADMAP Queue 1
-    item 4 and the Queue 2 item of its form; none runs float32 in its
-    place."""
-    item, build = REFUSED[route]
-    with pytest.raises(NotImplementedError,
-                       match=f"item 4, Queue 2 item {item} "):
-        build()
+    """Every bf16 route the port refused before its bf16 form was ported
+    (ROADMAP Queue 2 items 7 and 8, the name kept from those refusals)
+    now runs on a bf16 image and returns bf16: held by :func:`_held`
+    against the JAX package's bf16 output on the same image and the f64
+    oracle of the bf16 input (the FIR band's twin at one product; the
+    rotated emit's stencil and rotation applied to the oracle). The other
+    backends run their float32 route on the input cast in, the output
+    cast back (``dimfuse.StorageCast``), as the JAX package does."""
+    import recfilter_tpu as jrf
+    from recfilter_tpu import fir as jfir
+
+    shape, axes, tiles, clamp, plan, body = PORTED[route]
+    x = _bf16(_img(*shape, seed=len(route), scale=0.1))
+    xb, xj = torch.from_numpy(x).to(torch.bfloat16), jnp.asarray(
+        x, jnp.bfloat16)
+    x64 = x.astype(np.float64)
+    if route.startswith("fir"):
+        taps = tfir.box_taps(3, 2)
+        if route == "fir":
+            mod = tfir.FirPass(taps, shape)
+            jax_out = jfir.fir_pass_last(xj, taps)
+            want = tfir.fir_oracle(x64, taps, -1)
+        else:
+            mod = tfir.FirSeparable2D(*shape, taps)
+            jax_out = jfir.fir_separable_2d(xj, taps)
+            want = _fir2d_np(x64, taps)
+        got = mod(xb)
+    else:
+        F = _build(rft, xb, shape, axes, tiles, clamp, **plan)
+        stencil = STENCIL1 if "rotate_emit" in plan else None
+        mod = F.as_func(stencil=stencil, device="cpu")
+        got = mod(xb)
+        Fj = _build(jrf, xj, shape, axes, tiles, clamp, **plan)
+        jax_out = Fj.as_func(stencil=stencil)(xj)
+        js = Fj.spec
+        want = jsc.oracle_apply(jspec.FilterSpec(**{
+            f.name: getattr(js, f.name) for f in dataclasses.fields(js)
+            if f.name != "dtype"}, dtype="float32"), x64)
+        if stencil is not None:
+            want = np.swapaxes(_stencil1_np(want, -1), -1, -2)
+    assert type(mod).__name__ == body
+    assert got.dtype == torch.bfloat16 and jax_out.dtype == jnp.bfloat16
+    assert tuple(got.shape) == tuple(jax_out.shape) == want.shape
+    e_port, e_jax = _held(_np(got), _np(jax_out), want,
+                          jax_bound=route not in JAX_MISSES)
+    # the JAX package's einsum form rounds its carries to bf16 and misses
+    # its own bound on these routes (ROADMAP Queue 3); the port's float64
+    # carries meet it
+    assert (e_jax > BF16_BOUND) == (route in JAX_MISSES)
 
 
 def test_rows_final_bf16_stage_reads_are_whole_and_conflict_free():

@@ -2877,3 +2877,98 @@ def test_bf16_stencil_consumers_on_the_card(case, dev):
         err = np.abs(g.double().cpu().numpy() - w).max() / np.abs(w).max()
         print(f"{case} bf16 channel {c}: {err:.3e} of the oracle's peak")
         assert err <= 3e-2
+
+
+# ------------------- the last TPU kernel forms: fir_band_bf16, final2d_k_bf16
+
+@pytest.mark.parametrize("form,L", [("plain", 1001), ("plain", 512),
+                                    ("plain", 1000), ("bank", 512),
+                                    ("contract", 1000)])
+def test_fir_band_bf16_is_the_float32_kernel_at_one_product(form, L, dev):
+    """fir_band_bf16 on a bf16 x, rotated and flat: the float32 entry at
+    one product on the same values rounded once, bit for bit (a bf16
+    value is its own one chunk), within one bf16 step of its twin
+    (:func:`_one_ulp`), one launch; L = 1001 takes the one-value loads,
+    L = 512 and 1000 the 16-byte ones (their windows' words a multiple of
+    eight a line and not)."""
+    from recfilter_tpu_torch.fir import _align_taps, box_taps
+    from recfilter_tpu_torch.kernels import fir_band
+
+    taps = _align_taps([box_taps(3, 3)] if form == "plain"
+                       else [box_taps(3, 3), box_taps(9, 3)])
+    contract = form == "contract"
+    rng = np.random.default_rng(L)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 40, L) if contract else (40, L)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+    for rot in (True, False):
+        band = fir_band.FirBand(taps, rot=rot, contract=contract,
+                                signs=[1.0, -1.0] if contract else None,
+                                nprod=1).to(dev)
+        tl.reset_launches()
+        y = band(x)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(fir_band_bf16=1)
+        assert y.dtype == torch.bfloat16
+        assert torch.equal(y, band(x.float()).to(torch.bfloat16))
+        _one_ulp(f"fir_band_bf16 {form} L={L} rot={rot}", y, band.plain(x))
+    with pytest.raises(TypeError):
+        fir_band.FirBand(taps, contract=contract, nprod=3).to(dev)(x)
+
+
+def test_final2d_k_bf16_matches_its_twin_within_the_z_rounding(dev):
+    """final2d_k_bf16 against its twin: within the Z-rounding bound — a Z
+    element whose fp32 sum lies within the two forms' summation distance
+    (2⁻¹⁶ of the sum of its terms' magnitudes) of a bf16 rounding
+    boundary may round to the other neighbour in one of them, moving y by
+    that step times |Btot_b| — plus 2⁻¹⁶ of the second products' term
+    magnitudes (their fp32 sums in another order). An all-zero output
+    fails the bound; one launch, a float32 y."""
+    bf = torch.bfloat16
+    w3 = rft.gaussian_weights(5.0, 3)
+    for Ta, K in ((32, 6), (128, 12)):
+        a = [Scan(0, c, w3[0], tuple(w3[1:])) for _ in range(K // 6)
+             for c in (True, False)]
+        b = [Scan(1, c, 0.9, (0.6, 0.25, -0.1)) for _ in range(K // 6)
+             for c in (True, False)]
+        ma = tdf.prepare_dim_pass(a, Ta, NA, True)
+        mb = tdf.prepare_dim_pass(b, T, NB, True)
+        cat = lambda ms, ax: np.concatenate([np.asarray(m) for m in ms],
+                                            axis=ax)
+        fin = tk2d.Final2DK(ma.Btot, cat(ma.Rhat, 2), mb.Btot,
+                            cat(mb.Rhat, 2), NA, NB,
+                            matmul_dtype="bfloat16").to(dev)
+        rng = np.random.default_rng(Ta)
+        x, NAk, NBk = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev) for s in ((P, NA, Ta, NB * T),
+                                           (P, NA, K, NB * T),
+                                           (P, NA, NB, Ta, K)))
+        tl.reset_launches()
+        y = fin(x, NAk, NBk)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(final2d_k_bf16=1)
+        assert y.dtype == torch.float32
+        want = fin.plain(x, NAk, NBk)
+        Ba, Bb = fin.Ban.to(bf).float(), fin.Bbn.to(bf).float()
+        xb = x.to(bf).float()
+        z = (torch.einsum("aos,pasw->paow", Ba, xb)
+             + torch.einsum("aok,pakw->paow", fin.Ran, NAk))
+        mag = (torch.einsum("aos,pasw->paow", Ba.abs(), xb.abs())
+               + torch.einsum("aok,pakw->paow", fin.Ran.abs(), NAk.abs()))
+        step = ((z + mag * 2.0 ** -16).to(bf).float()
+                - (z - mag * 2.0 ** -16).to(bf).float()).abs()
+
+        def dim_b(M, V):
+            return torch.einsum("bot,pasbt->pasbo", M, V.reshape(
+                P, NA, Ta, NB, T)).reshape(y.shape)
+
+        lim = dim_b(Bb.abs(), step) + 2.0 ** -16 * (
+            dim_b(Bb.abs(), z.to(bf).float().abs())
+            + torch.einsum("bok,pabsk->pasbo", fin.Rbn.abs(),
+                           NBk.abs()).reshape(y.shape))
+        d = (y - want).abs()
+        print(f"final2d_k_bf16 Ta={Ta} K={K}: max|k-t| {d.max().item():.3e},"
+              f" {(d > 0).double().mean().item():.6f} of the elements "
+              f"differ")
+        assert bool((d <= lim).all())
+        assert not bool((want.abs() <= lim).all())

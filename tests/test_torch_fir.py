@@ -302,16 +302,22 @@ def test_tap_scale_changes_nothing():
 
 
 def test_fir_refusals():
+    """What the pass refuses; bf16 products and a bf16 image, refused
+    until they were ported, now run (the identity band: x rounded to
+    bf16, a float32 output for a float32 x, bf16 for a bf16 x)."""
     x = torch.zeros((8, 256))
     with pytest.raises(ValueError):  # support beyond the one-tile band
         tfir.fir_pass_last(x, np.ones(200) / 200.0, tile_width=16)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tfir.fir_pass_last(x, [1.0], matmul_dtype="bfloat16")
+    x1 = x + 1.0 + 2.0 ** -12  # not a bf16 value: rounds to 1
+    y = tfir.fir_pass_last(x1, [1.0], matmul_dtype="bfloat16")
+    assert y.dtype == torch.float32 and torch.equal(y, x + 1.0)
     # px3 runs (fir_band's twin at three products): the identity band
     assert torch.equal(tfir.fir_pass_last(x + 1.0, [1.0],
                                           matmul_precision="px3"), x + 1.0)
+    y = tfir.fir_pass_last(x1.to(torch.bfloat16), [1.0])
+    assert y.dtype == torch.bfloat16 and torch.equal(y.float(), x + 1.0)
     with pytest.raises(NotImplementedError, match="item 4"):
-        tfir.fir_pass_last(x.to(torch.bfloat16), [1.0])
+        tfir.fir_pass_last(x.to(torch.float16), [1.0])
     with pytest.raises(ValueError):
         tfir.fir_pass_last(torch.zeros(256), [1.0], emit_rot=True)
 

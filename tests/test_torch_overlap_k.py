@@ -153,6 +153,9 @@ ROUTES = {
     "px": (256, 256, False, 1, "px6", ["Fused2DPx"], ["fused_2d_px"]),
     "highest": (256, 256, False, 1, "highest", ["Fused2DK"],
                 ["kernel_path"]),
+    # the JAX package's map sends only px3, px4 and px6 to its px pair
+    "default": (256, 256, False, 1, "default", ["Fused2DK"],
+                ["kernel_path"]),
     "carries-over-8": (256, 256, False, 2, "px6", ["Fused2DK"],
                        ["fused_2d_px:None", "kernel_path"]),
     "clamp-with-pad": (200, 256, True, 1, "px6",
@@ -167,7 +170,7 @@ def test_overlap_k_routes_as_the_jax_package(case, monkeypatch):
     """The pair's route under ``overlap_k``, against the JAX package's
     (spies on ``fused_2d_px``, ``_fused_2d_kernel_path`` and
     ``dimfuse.fused_dim_pass``): px6 → the px pair (``Fused2DPx``);
-    ``highest`` or more than 8 carries → the HIGHEST pair
+    ``highest``, ``default`` or more than 8 carries → the HIGHEST pair
     (``Fused2DK``); a clamp border with pad → two dimension passes."""
     h, w, clamp, times, precision, route, calls = ROUTES[case]
     seen = []
@@ -221,16 +224,36 @@ def test_overlap_three_axes_routes():
 
 
 def test_matmul_dtype_bfloat16_raises():
-    """bf16 products (the JAX package's ``matmul_dtype``) are not ported:
-    the plan refuses them, naming the item."""
-    F = rft.RecFilter("B")
-    x = rft.Dim("x", 256)
-    F[x] = np.zeros(256, np.float32)
-    F.add_filter(+x, [0.5, 0.5])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        F.set_plan(backend="overlap_k", matmul_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rft.Plan(matmul_dtype="bfloat16")
+    """bf16 products (the JAX package's ``matmul_dtype``), which raised
+    before they were ported (the name kept): the plan takes them, the
+    ``overlap_k`` backend's HIGHEST pair runs ``final2d_k_bf16``'s twin
+    and the other backends read no ``matmul_dtype``, as in the JAX
+    package; an unknown dtype still raises."""
+    assert rft.Plan(matmul_dtype="bfloat16").matmul_dtype == "bfloat16"
+    with pytest.raises(ValueError):
+        rft.Plan(matmul_dtype="float16")
+    img = (np.random.default_rng(5).standard_normal((128, 256)) * 0.01
+           ).astype(np.float32)
+    outs = {}
+    for backend, dt in (("overlap_k", "bfloat16"), ("overlap_k", "float32"),
+                        ("einsum", "bfloat16"), ("einsum", "float32")):
+        F = rft.RecFilter("B")
+        x, y = rft.Dim("x", 256), rft.Dim("y", 128)
+        F[y, x] = img
+        for d in (+y, -y, +x, -x):
+            F.add_filter(d, W3)
+        F.split(x, 128, y, 128)
+        F.set_plan(backend=backend, matmul_dtype=dt,
+                   matmul_precision="highest")
+        mod = F.as_func(device="cpu")
+        if backend == "overlap_k":
+            assert _port_routes(mod) == ["Fused2DK"]
+            body = mod.stages[0]
+            assert body.final.bf16 == (dt == "bfloat16")
+        outs[backend, dt] = mod(torch.from_numpy(img))
+    assert torch.equal(outs["einsum", "bfloat16"], outs["einsum", "float32"])
+    assert not torch.equal(outs["overlap_k", "bfloat16"],
+                           outs["overlap_k", "float32"])
 
 
 def test_highest_pair_past_its_shapes_raises():

@@ -30,6 +30,7 @@ from recfilter_tpu.kernels import final2d as jk2d
 
 import recfilter_tpu_torch as rft
 from recfilter_tpu_torch import dimfuse as tdf
+from recfilter_tpu_torch import overlap2d as to
 from recfilter_tpu_torch.epilogue import affine_form
 from recfilter_tpu_torch import fir as tfir
 from recfilter_tpu_torch import scan_core as tsc
@@ -511,8 +512,6 @@ ROUTES = {
     "supertile hierarchy": lambda g: tdf.hierarchical_dim_pass(
         torch.zeros(200_000), 0, [tspec.Scan(0, True, 1.0, (0.5,))],
         "zero", g),
-    "HIGHEST pair": lambda g: _as_func(_declined2d(), g,
-                                       backend="overlap_k"),
 }
 
 
@@ -577,8 +576,13 @@ RUNS = {**{route: (None, GRADES) for route in CHECKS},
         "rotated emit": (lambda: _x_only(256, 256), GRADES),
         "tails chaining": (lambda: _chained(), GRADES),
         "rotation chain": (_declined2d, GRADES),
-        "FusedAxisPass": (lambda: _y_only(320, 256), GRADES)}
-PLANS = {"rotated emit": dict(rotate_emit=2)}
+        "FusedAxisPass": (lambda: _y_only(320, 256), GRADES),
+        # overlap_k off the 3-touch gates: the pair fallback at highest at
+        # every grade, as the JAX package's fused_2d_pass runs it (its px
+        # pair declines the filter; default never takes that pair)
+        "HIGHEST pair": (_declined2d, GRADES)}
+PLANS = {"rotated emit": dict(rotate_emit=2),
+         "HIGHEST pair": dict(backend="overlap_k")}
 
 
 def _route_of(route, mod, grade):
@@ -599,6 +603,10 @@ def _route_of(route, mod, grade):
         assert isinstance(mod, tdf.FusedAxisPass)
         comp = mod.body.completion
         assert comp is None if grade == "default" else comp.nprod == nprod
+    elif route == "HIGHEST pair":
+        (st,) = mod.stages
+        st = st.body if isinstance(st, to._Swapped) else st
+        assert isinstance(st, tdf.StagedPass) and st.route == "pair-fallback"
 
 
 @pytest.mark.parametrize("route", list(ROUTES) + list(RUNS))
@@ -620,8 +628,8 @@ def test_routes_without_a_split_form_raise(route, grade):
         got = mod(torch.from_numpy(img)).numpy()
         _route_of(route, mod, grade)
         want = tsc.oracle_apply(F.spec, img.astype(np.float64))
-        if route in PLANS:
-            want = want.T  # the rotated emit
+        if route == "rotated emit":
+            want = want.T
         assert np.abs(got - want).max() <= BOUNDS[grade] * np.abs(want).max()
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
