@@ -564,6 +564,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def card_state():
+    """The card's SM clock, temperature, power draw and active
+    clock-limiting reasons as ``nvidia-smi`` reads them now (the field's
+    newer name first), or "not read"."""
+    for why in ("clocks_event_reasons.active",
+                "clocks_throttle_reasons.active"):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,"
+             f"power.draw,{why}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    return "not read"
+
+
 def build_filter(rft, h, w, image, clamp=False):
     """``bench.py::_build_filter`` against the port's RecFilter."""
     wts = rft.gaussian_weights(5.0, 3)
@@ -2024,6 +2039,14 @@ def main() -> int:
             check(err <= 1e-5, f"{label} final2d within 1e-5")
             if label.startswith("4096x4096 zero"):
                 max_abs["final2d"] = (got - want).abs().max().item()
+            # the six split-bf16 products on the tensor cores: per output
+            # within Final2D.split_exact's bound of their exact sum (Z's
+            # own split included), a level-2 pair left out outside it
+            split_check(f"{label} final2d", got,
+                        lambda drop: mod.final.split_exact(X4, NA_t, NB_t,
+                                                           drop),
+                        controls=LEVEL2[:1])
+            del got, want
 
     heading("phase 2b: build the 1-D cases; tails and completion against "
           "their twins on the card")
@@ -2539,6 +2562,21 @@ def main() -> int:
             err = rel_err(got, want)
             print(f"  final2d_epi {what}: max|k-p|/max|p| = {err:.3e}")
             check(err <= 1e-5, f"final2d_epi {what} within 1e-5")
+            aff = m.final.affine
+
+            def emix(ref, bound, aff=aff, aux=auxes[:m.final.k]):
+                # a·Y + Σ bᵢ·auxᵢ + c by k + 1 fmaf: 2⁻²³ of each partial
+                out, mag = aff.scale * ref + aff.bias, abs(aff.bias)
+                mag = mag + abs(aff.scale) * ref.abs()
+                for b_, u_ in zip(aff.aux_weights, aux):
+                    out = out + b_ * u_.double()
+                    mag = mag + abs(b_) * u_.double().abs()
+                return out, abs(aff.scale) * bound + (
+                    len(aux) + 1) * 2.0 ** -23 * (mag + out.abs())
+
+            split_check(f"final2d_epi {what}", got,
+                        lambda drop, a_=args: m.final.split_exact(
+                            *a_[:3], drop), emix)
             if m.final.k == 1:
                 max_abs["final2d_epi"] = (got - want).abs().max().item()
         del got, want, auxes, m
@@ -5544,6 +5582,8 @@ def main() -> int:
     F, mod, img = modules["4096x4096 zero"]
     x = torch.from_numpy(img).to(dev)
     px = H * W
+    print(f"  the card (SM clock, temperature, power, limiting reasons): "
+          f"{card_state()}")
     with torch.no_grad():
         X4 = mod.tile(x)
         NA_t, NB_t = mod.carries(X4, mod.moments.plain)
@@ -5554,8 +5594,11 @@ def main() -> int:
                                     NB_t),
         }
         # bounds: bA_t and term1 have NA_t's and NB_t's shapes; moments2d
-        # sums in fp64, final2d multiplies in fp32; no one PyTorch call
-        # computes either function
+        # sums in fp64 (Ka + 2·Kb MACs a pixel), final2d runs six
+        # split-bf16 products of 136-deep contractions on both axes (the
+        # 128 image rows and 8 carry slots; the kernel's 8 zero rows that
+        # round a k16 step up to 144 are not the function's work) on the
+        # tensor cores; no one PyTorch call computes either function
         Ka, Kb, pix = mod.Ka, mod.moments.Kb, X4.numel()
         dev_t = {
             "moments2d": (device_ms(mod.moments, X4),
@@ -5568,8 +5611,16 @@ def main() -> int:
                        mod.moments.Ba1T_v),
                 2.0 * (Ka + 2 * Kb) * pix, PEAK_FP64), None),
             "final2d": (*roofline(
-                tensor_bytes(X4, NA_t, NB_t, X4, mod.final.A1_v, mod.final.B2_v),
-                2.0 * (2 * 128 + Ka + Kb) * pix, PEAK_FP32), None)}
+                tensor_bytes(X4, NA_t, NB_t, X4, mod.final.Af_k,
+                             mod.final.Bc_k),
+                2.0 * 2 * 6 * 136 * pix, PEAK_BF16), None)}
+        # the kernels' device work alone: 100 calls queued behind a sleep
+        for name, fn, args in (("moments2d", mod.moments, (X4,)),
+                               ("final2d", mod.final, (X4, NA_t, NB_t))):
+            q, host, sleep = queued_ms(fn, *args, n=100)
+            print(f"  {name}: {q:.4f} ms a call, 100 calls queued behind a "
+                  f"sleep (enqueued in {host:.1f} of its {sleep:.1f} ms) "
+                  f"on {card}; the card then: {card_state()}")
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel path {k_ms:.4f} ms "
               f"({timing.mpix_per_sec(k_ms, px):.0f} Mpix/s), plain "
@@ -6266,12 +6317,14 @@ def main() -> int:
         X4 = fu.tile(x_u)
         NA, NB = fu.carries(X4)
         fin = fu.final
-        ops_2d = 2.0 * (2 * 128 + fu.Ka + fu.Kb) * X4.numel()
+        # six split-bf16 products of 136-deep contractions on both axes
+        # (the epilogue's 4 fp32 operations a pixel, 0.001 ms at 67
+        # TFLOP/s, left out)
         r = timed("U1 final2d_epi (k = 1: the combine, the image its aux)",
                   fin, fin.plain, None, (X4, NA, NB, X4),
-                  tensor_bytes(X4, NA, NB, X4, X4, fin.A1_v, fin.B2_v,
+                  tensor_bytes(X4, NA, NB, X4, X4, fin.Af_k, fin.Bc_k,
                                fin.epi_coef),
-                  ops_2d + 4.0 * X4.numel(), PEAK_FP32,
+                  2.0 * 2 * 6 * 136 * X4.numel(), PEAK_BF16,
                   main_launches["final2d_epi"])
         times["final2d_epi"], dev_t["final2d_epi"] = r[0], r[1]
         extra["final2d_epi"] = (*r[2], r[3])

@@ -279,30 +279,36 @@ def _kperm(k: int) -> int:
     return k - kl + 4 * ((kl % 8) // 2) + 2 * (kl // 8) + kl % 2
 
 
-def core_pack(C: torch.Tensor) -> torch.Tensor:
+def core_pack(C: torch.Tensor, perm: bool = True) -> torch.Tensor:
     """(..., 128, KP) → (..., 128·KP): the B operand of the tensor-core
     completion in ``csrc/wgmma.cuh``'s order — 8 × 8 core matrices (8
     outputs, 8 contraction positions), an output group's along k
     contiguous, each k16 step's contraction permuted by :func:`_kperm` —
-    so staging it is a flat copy."""
+    so staging it is a flat copy. ``perm=False``: the contraction in its
+    own order (``final2d``'s second product, whose A fragments are the
+    first product's accumulators)."""
     *lead, no, kp = C.shape
-    P = C[..., [_kperm(k) for k in range(kp)]]
+    P = C[..., [_kperm(k) for k in range(kp)]] if perm else C
     P = P.reshape(*lead, no // 8, 8, kp // 8, 8).transpose(-3, -2)
     return P.reshape(*lead, no * kp).contiguous()
 
 
-def core_unpack(P: torch.Tensor, no: int, kp: int) -> torch.Tensor:
+def core_unpack(P: torch.Tensor, no: int, kp: int,
+                perm: bool = True) -> torch.Tensor:
     """The inverse of :func:`core_pack`: (..., no·kp) → (..., no, kp)."""
     *lead, _ = P.shape
     C = P.reshape(*lead, no // 8, kp // 8, 8, 8).transpose(-3, -2)
     C = C.reshape(*lead, no, kp)
+    if not perm:
+        return C.contiguous()
     inv = [0] * kp
     for k in range(kp):
         inv[_kperm(k)] = k
     return C[..., inv].contiguous()
 
 
-def tc_exact(Mc, data: torch.Tensor, ein, drop=None, nprod: int = 6):
+def tc_exact(Mc, data: torch.Tensor, ein, drop=None, nprod: int = 6,
+             order=None):
     """The tensor-core completion's sum, exact, and per output how far the
     kernel may lie from it: ``(ref, bound)``, float64, of ``ein``'s shape.
 
@@ -322,14 +328,15 @@ def tc_exact(Mc, data: torch.Tensor, ein, drop=None, nprod: int = 6):
     output a real input gives).
     ``ein(M, D)`` contracts the last axes (by tile where the matrix has
     variants). ``drop``: a pair left out of ``ref`` — a control that the
-    check against ``bound`` rejects."""
+    check against ``bound`` rejects. ``order``: the kernel's pairs in
+    another order (the same pairs; ``final2d``'s second product)."""
     cn = split.carry_nprod(nprod)
     ds = [c.double() for c in split.split_data(data, split.nchunks(cn))]
     ms = [c.double() for c in Mc]
     kp = data.shape[-1]
     acc = bound = left = None
     for k0s, grade in ((range(TILE, kp, 16), cn), (range(0, TILE, 16), nprod)):
-        for i, j in split.prods(grade):
+        for i, j in split.prods(grade) if order is None else order:
             for k0 in k0s:
                 m, d = ms[i][..., k0:k0 + 16], ds[j][..., k0:k0 + 16]
                 t, a = ein(m, d), ein(m.abs(), d.abs())

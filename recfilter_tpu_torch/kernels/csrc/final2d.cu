@@ -1,41 +1,72 @@
 // final2d: passes 2+3 of the 3-touch 2-D executor — read the image once,
 // complete both dimensions, write the output once.
 //
-// Replaces recfilter_tpu/kernels/final2d.py::final2d_px (Pallas kernel
-// _final_px_kernel). Per 128 x 128 tile (block (p, a, b)), with v(i) the
-// tile's matrix variant (interior, first or last):
+// Replaces recfilter_tpu/kernels/final2d.py::final2d_px at nprod 6 (px6;
+// Pallas kernel _final_px_kernel). Per 128 x 128 tile (p, a, b), with v(i)
+// the tile's matrix variant (interior, first or last):
 //
 //   Z = Ba_v(a) * x_tile + Ra_v(a)[:, :8] * NA_t[p,a,:, tile cols]
 //   Y[s,o] = sum_t Z[s,t] * Bb_v(b)[o,t] + sum_k NB_t[p,a, b*8+k, s] * Rb_v(b)[o,k]
 //
-// Z lives only in shared memory: it never goes to device memory, which is
-// what makes the executor touch the image three times instead of five.
+// both contractions (128 image rows + 8 carry slots, padded with zeros to
+// 144) as the JAX kernel computes them at px6: six split-bf16 products
+// (kernels/split.py's prods(6)) of the constants' three bf16 chunks (split
+// from float64 on the host) by the data's three (split on chip: x and NA,
+// then Z, then NB), summed in fp32 — the carry k16 step first, then the
+// image's eight, each pair over its steps; the first product's pairs
+// grouped by the constant's chunk (Final2D's PX_ORDER_A), the second's in
+// prods(6)'s order (Final2D.split_exact models both). Z never leaves the
+// chip: it is not even written to shared memory.
 //
-// What bounds it: two 128 x 136 x 128 products per tile are 2 x 136 MACs
-// per pixel (about 544 FLOP/px, about 9.1 GFLOP at 4096^2) against 12 B/px
-// of traffic, so on the H100's fp32 CUDA cores it is bound by arithmetic,
-// not by bandwidth. The design is a plain register-tiled SIMT GEMM: both
-// products run as C[m][n] = sum_kk A[kk][m] * B[kk][n] with the 8 carry
-// rows appended to the 128-deep contraction (kk < 136), A and B staged
-// whole in shared memory (2 x 68 KB), each of 256 threads holding an 8 x 8
-// block of C in registers and reading float4 fragments free of bank
-// conflicts. fp32 FMA throughout; no wgmma, TMA or TF32 yet.
+// What bounds it: 12 B/px of traffic (x read, y written; the carries 1/16
+// of that) against 2 x 6 x 144 x 2 = 3456 bf16 tensor-core operations per
+// pixel (58 GFLOP at 4096^2: 0.0587 ms at 989 TFLOP/s dense, against 0.040
+// ms for the bytes at 3.35 TB/s), so on an H100 it is bound by the tensor
+// cores. The design, on Hopper's warpgroup products (wgmma.mma_async,
+// wgmma.cuh):
+//   * the roles are chosen so that the first product's accumulators are the
+//     second's A operand: Z (s rows x 128 columns w) = A1 * X with M = s,
+//     N = w, K = t (m64n128k16); then Y = Z * Bb^T with M = s, N = o, K = w.
+//     A thread's accumulators of Z columns 16c..16c+15 are exactly its A
+//     fragment of the second product's k16 step c, so Z is split into its
+//     three bf16 chunks in registers and fed back to the tensor cores;
+//   * A1 = [Ba | Ra | 0], the first product's A operand, is read from L2 as
+//     ready-made register fragments (the host packs them, Final2D.Af_k: one
+//     16-byte load a thread a chunk and step), one chunk at a time: the
+//     carry step's and chunk 2's loaded under the stores of the tile
+//     before, chunk 1's under chunk 2's products, chunk 0's under chunk 1's;
+//   * the data X = [x; NA; 0], the first product's B operand, lives in
+//     shared memory as three bf16 chunks in the descriptor's core-matrix
+//     order (K-major, t contiguous), its 8-row blocks of t outermost with
+//     their three chunks together (xoff); the next tile's x and NA are
+//     copied raw by cp.async into the same space (at XRAW, where no chunk
+//     block overtakes the raw rows it is split from) as soon as the first
+//     product is done, and split in place under the second product, each
+//     pair of rows (t, t + 1) of a column one 32-bit store after a
+//     lane-pair shuffle;
+//   * B2 = [Bb | Rb | 0], the second product's B operand, stays in shared
+//     memory (three chunks, Final2D.Bc_k: core_pack without the k
+//     permutation, staged once a variant); the second product runs in two
+//     halves of 64 outputs (m64n64k16), each stored as soon as it is done;
+//   * registers: a product's A fragments stay in registers until it is
+//     done, so each product keeps near 140 live (one chunk of A1's
+//     fragments in flight and one loading; Y in halves): with both at 172
+//     ptxas serializes every wgmma (its note C7512, "insufficient register
+//     resources") and the kernel runs 15 % slower on an H100;
+//   * persistent blocks, one per SM, of two warpgroups, one for each half
+//     of a tile's 128 rows s, walking the tiles grouped by B2's variant
+//     (pipeline.cuh's item order).
+// Shared memory: 2 x 3 x 128 x 144 bf16 = 221,184 B (B2 and X).
 //
-// final2d_epi: the same kernel with the affine epilogue in its store loop
+// final2d_epi: the same kernel with the affine epilogue in its store
 // (replaces _final_px_kernel's epilogue with eaux operands):
 //
 //   out = a * Y + sum_{j<k} b_j * aux_j + c,   k <= 4
 //
-// each aux in x's (p, na, T, W) layout, read with the store's own float4
-// indexing, fp32 FMAs (common.cuh's affine_tile). The unsharp mask's combine
-// (1 + w) * image - w * blur rides here with the image as its one aux, so
-// the blur never touches device memory. Each aux adds 4 B/px of reads to
-// the 12 B/px of traffic; the kernel stays bound by its arithmetic.
-//
-// Operand layouts (host-prepared, transposed so every stage is a
-// contiguous copy):
-//   A1 (nva, 136, 128) = [Ba^T ; Ra^T]      rows kk, columns s
-//   B2 (nvb, 136, 128) = [Bb^T ; Rb^T]      rows kk, columns o
+// each aux in x's (p, na, T, W) layout, read at the store's own float2
+// indexing, fp32 FMAs. The unsharp mask's combine (1 + w) * image - w *
+// blur rides here with the image as its one aux, so the blur never touches
+// device memory. Each aux adds 4 B/px of reads.
 //
 // final2d_k: the same two products at the HIGHEST grade's layouts —
 // replaces recfilter_tpu/kernels/final2d.py::final2d (Pallas kernel
@@ -80,93 +111,422 @@
 // card's peaks.
 
 #include "common.cuh"
+#include "pipeline.cuh"
 #include "split.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int T = rf::GT;      // tile edge, Ta = Tb
 constexpr int SLOTS = 8;       // carry rows per slot
-constexpr int KX = T + SLOTS;  // contraction depth: 128 image rows + 8 carries
 constexpr int THREADS = rf::GEMM_THREADS;
-constexpr int SMEM_BYTES = 2 * KX * T * sizeof(float);
 
 using rf::gemm_tile;
 using rf::row_of;
 using rf::stage_rows;
 using rf::variant;
 
-template <int K>  // aux count of the affine epilogue; rf::NO_EPI: none
-__global__ void __launch_bounds__(THREADS, 1)
-final2d_kernel(const float* __restrict__ x,    // (p, na, T, W)
-               const float* __restrict__ NA,   // (p, na, 8, W)
-               const float* __restrict__ NB,   // (p, na, nb*8, T)
-               const float* __restrict__ A1,   // (nva, KX, T)
-               const float* __restrict__ B2,   // (nvb, KX, T)
-               float* __restrict__ y,          // (p, na, T, W)
-               rf::Affine epi,                 // aux: (p, na, T, W)
-               int na, int nb, int nva, int nvb) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // KX x T
-  float* Bs = As + KX * T;                      // KX x T
+// The px6 kernel (header). KP: the contraction, 128 + 8 carries + 8 zeros.
+constexpr int KP = T + 16;
+constexpr int CH = T * KP;       // elements of one bf16 chunk of an operand
+constexpr int NCH = 3;           // chunks at px6
+constexpr int KS = KP / 16;      // k16 steps; the last is the carries'
+constexpr int PX_THREADS = 2 * rfw::WG;
+constexpr int PX_SMEM = 2 * NCH * CH * (int)sizeof(rfs::bf16);
+// X's chunks in shared memory, 8-row blocks of t outermost: element (chunk
+// c, column w, row t) at xoff(c, w, t) — a block's three chunks (16
+// core matrices of 8 columns w by 8 rows t each, t contiguous) together,
+// so the descriptor's K-adjacent core matrices lie XBLK apart and its
+// N-adjacent ones 128 bytes (the K-major layout without swizzle).
+constexpr int XR = (T + SLOTS) / 8;    // 8-row blocks of X = [x; NA]
+constexpr int XBLK = NCH * T * 8;      // elements of one 8-row block
+constexpr int XLD = T + 4;             // row stride of X copied raw (floats)
+constexpr int XG = 3;                  // 8-row blocks split at a time
+static_assert((XR + XG - 1) / XG == 6, "split_x walks six groups");
+// X copied raw at XRAW bytes into the chunks' space: chunk block m (its
+// bytes [2 XBLK m, 2 XBLK (m + 1))) ends at or before raw block m's first
+// byte, so a group of blocks, read by every thread before any of its
+// chunks is stored, overwrites only raw rows of its own or earlier groups
+constexpr int XRAW = 36864;
+static_assert(XRAW % 16 == 0 && XRAW >= 2 * XBLK * XR - 8 * XLD * 4 * (XR - 1)
+                  && XRAW + (T + SLOTS) * XLD * 4 <= NCH * CH * 2,
+              "X copied raw must fit its chunks' space, past their blocks");
+__host__ __device__ constexpr int xoff(int c, int w, int t) {
+  return (t / 8) * XBLK + c * T * 8 + (w / 8) * 64 + (w % 8) * 8 + t % 8;
+}
+// Descriptor of X's chunk c at k16 step s: K-adjacent core matrices XBLK
+// elements apart (leading byte offset), N-adjacent 128 bytes (stride).
+__device__ __forceinline__ uint64_t xdesc(const rfs::bf16* Xs, int c, int s) {
+  const uint64_t a = rfw::smem_u32(Xs + 2 * s * XBLK + c * T * 8);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(2 * XBLK / 16) << 16) |
+         (uint64_t(128 / 16) << 32);
+}
+constexpr unsigned FULL = 0xffffffffu;
 
-  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// The descriptor `base` with `off16` 16-byte units added to its address,
+// formed at its product: opaque to the compiler, so it does not keep the
+// walk's 108 loop-invariant descriptors in registers.
+__device__ __forceinline__ uint64_t at(uint64_t base, int off16) {
+  asm volatile("" : "+l"(base));
+  return base + off16;
+}
+
+// d += A * B for one k16 step of a 64 x 64 product (wgmma m64n64k16: the
+// accumulators of wgmma.cuh's mma, columns 0..63).
+__device__ __forceinline__ void mma64(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void fence_acc32(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += half h (outputs 64h .. 64h + 63) of the second product: the carry
+// step, then the image's steps, each pair of split.prods(6) over them; A
+// Z's chunks (zc, NB's at the carry step), B B2's chunks at Bs.
+__device__ __forceinline__ void px_half_b(float (&d)[32],
+                                          const uint32_t (&zc)[NCH][KS][4],
+                                          const rfs::bf16* Bs, int h) {
+  const uint64_t base = rfw::desc(Bs, KP);
+  const int o16 = h * 8 * KP;  // 8 core-matrix rows of outputs, 16 B units
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+    mma64(d, zc[rfs::pair_d(6, p)][KS - 1],
+          at(base, o16 + (rfs::pair_c(6, p) * CH + 128 * (KS - 1)) / 8));
+#pragma unroll
+  for (int p = 0; p < 6; ++p)
+#pragma unroll
+    for (int c = 0; c < KS - 1; ++c)
+      mma64(d, zc[rfs::pair_d(6, p)][c],
+            at(base, o16 + (rfs::pair_c(6, p) * CH + 128 * c) / 8));
+}
+
+// The first product's pairs (constant chunk, data chunk) in the kernel's
+// order: grouped by the constant's chunk, smallest level first (chunk 2,
+// then 1, then 0: kernels/final2d.py's PX_ORDER_A), so a chunk's
+// fragments are loaded from L2 while the group before runs.
+__host__ __device__ constexpr int oa_d(int i, int q) {  // group i, pair q
+  return i == 2 ? 0 : i == 1 ? 1 - q : 2 - q;
+}
+
+// z += the carry step of the first product: chunk i's fragment ac[i],
+// the data's chunks at the last step, every pair of PX_ORDER_A.
+__device__ __forceinline__ void px_carry_a(float (&z)[64],
+                                           const uint32_t (&ac)[NCH][4],
+                                           const rfs::bf16* Xs) {
+  const uint64_t base = xdesc(Xs, 0, 0);
+#pragma unroll
+  for (int i = NCH - 1; i >= 0; --i)
+#pragma unroll
+    for (int q = 0; q < NCH - i; ++q)
+      rfw::mma(z, ac[i], at(base, (2 * (KS - 1) * XBLK + oa_d(i, q) * T *
+                                   8) / 8));
+}
+
+// z += group i of the first product over the image's steps: the
+// constant's chunk i (fragments a), every data chunk it pairs with.
+template <int I>
+__device__ __forceinline__ void px_group_a(float (&z)[64],
+                                           const uint32_t (&a)[KS - 1][4],
+                                           const rfs::bf16* Xs) {
+  const uint64_t base = xdesc(Xs, 0, 0);
+#pragma unroll
+  for (int q = 0; q < NCH - I; ++q)
+#pragma unroll
+    for (int c = 0; c < KS - 1; ++c)
+      rfw::mma(z, a[c], at(base, (2 * c * XBLK + oa_d(I, q) * T * 8) / 8));
+}
+
+template <bool EPI>
+__global__ void __launch_bounds__(PX_THREADS, 1)
+final2d_px_kernel(const float* __restrict__ x,        // (p, na, T, W)
+                  const float* __restrict__ NA,       // (p, na, 8, W)
+                  const float* __restrict__ NB,       // (p, na, nb*8, T)
+                  const uint4* __restrict__ Af,       // (nva, 2, 3, KS, 128)
+                  const rfs::bf16* __restrict__ Bc,   // (nvb, 3, CH)
+                  float* __restrict__ y,              // (p, na, T, W)
+                  rf::Affine epi, int naux, int p, int na, int nb, int nva,
+                  int nvb) {
+  extern __shared__ uint4 smem16[];
+  rfs::bf16* Bs = reinterpret_cast<rfs::bf16*>(smem16);  // B2's chunks
+  rfs::bf16* Xs = Bs + NCH * CH;                          // X's chunks
+  uint32_t* X32 = reinterpret_cast<uint32_t*>(Xs);
+
+  const int wg = threadIdx.x / rfw::WG, tid = threadIdx.x % rfw::WG;
+  const int lane = tid % 32, qd = lane % 4;
+  const int r = 64 * wg + 16 * (tid / 32) + lane / 4;  // rows r, r + 8
   const long W = (long)nb * T;
-  const long pa = (long)p * na + a;
-  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+  const int nl = p * na, items = nb * nl;
 
-  // dim-A completion: Z = [Ba^T; Ra^T]^T [x; NA]
-  stage_rows(As, A1 + (long)va * KX * T, KX, T, tid);
-  stage_rows(Bs, x + pa * T * W + (long)b * T, T, W, tid);
-  stage_rows(Bs + T * T, NA + pa * SLOTS * W + (long)b * T, SLOTS, W, tid);
-  __syncthreads();
-  float c[8][8];
-  gemm_tile(As, Bs, c, ty, tx, KX);
-  __syncthreads();
-
-  // dim-B completion: Y = [Z^T; NB]^T [Bb^T; Rb^T]. Z goes to shared
-  // memory transposed (As[t][s] = Z[s][t]), never to device memory.
+  // X of tile (pa, b): [x; NA] (136 rows t of 128 columns w) copied raw
+  // into the Xs region (rows of XLD floats) by cp.async, under the
+  // products and the stores of the tile before
+  float* raw = reinterpret_cast<float*>(reinterpret_cast<char*>(Xs) + XRAW);
+  auto load_x = [&](long pa, int b) {
+    const float* xt = x + pa * T * W + (long)b * T;
+    const float* nt = NA + pa * SLOTS * W + (long)b * T;
+    for (int i = threadIdx.x; i < (T + SLOTS) * (T / 4); i += PX_THREADS) {
+      const int t = i / (T / 4), c = 4 * (i % (T / 4));
+      rfp::cp16(raw + t * XLD + c,
+                (t < T ? xt + (long)t * W : nt + (long)(t - T) * W) + c,
+                true);
+    }
+  };
+  // ... then split in place into Xs's chunks: block warp wq takes the
+  // 8 x 16 blocks (R, G = wq) of X, R < 17; lane (tt, qq) reads row 8R +
+  // tt, columns 16 wq + 4qq .. + 3 as a float4; lanes tt and tt ^ 1 swap
+  // halves, so each holds rows (t0, t0 + 1) of two columns, split into
+  // chunks and stored as 32-bit pairs at xoff(c, w, t0). XG blocks at a
+  // time, each group read by every thread before any of its chunks is
+  // stored (XRAW); then rows 136..143 (block 17) zeros.
+  auto split_rows = [&](auto g) {
+    constexpr int M0 = decltype(g)::value * XG;
+    constexpr int M1 = M0 + XG < XR ? M0 + XG : XR;
+    const int wq = threadIdx.x / 32, tt = lane % 8, qq = lane / 8;
+    const bool odd = tt & 1;
+    float4 v[M1 - M0];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int t = row_of(j, tx);
-    *reinterpret_cast<float4*>(As + t * T + ty * 4) =
-        make_float4(c[0][j], c[1][j], c[2][j], c[3][j]);
-    *reinterpret_cast<float4*>(As + t * T + 64 + ty * 4) =
-        make_float4(c[4][j], c[5][j], c[6][j], c[7][j]);
+    for (int m = M0; m < M1; ++m)
+      v[m - M0] = *reinterpret_cast<const float4*>(
+          raw + (8 * m + tt) * XLD + 16 * wq + 4 * qq);
+    __syncthreads();  // every thread holds its samples of the group
+#pragma unroll
+    for (int m = M0; m < M1; ++m) {
+      const float4 u = v[m - M0];
+      const int t0 = 8 * m + (tt & ~1);
+      const int w = 16 * wq + 4 * qq + (odd ? 2 : 0);
+      const float r0 = __shfl_xor_sync(FULL, odd ? u.x : u.z, 1);
+      const float r1 = __shfl_xor_sync(FULL, odd ? u.y : u.w, 1);
+      uint32_t ca[NCH], cb[NCH];
+      rfw::split_pair<NCH>(odd ? r0 : u.x, odd ? u.z : r0, ca);
+      rfw::split_pair<NCH>(odd ? r1 : u.y, odd ? u.w : r1, cb);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        X32[xoff(ch, w, t0) / 2] = ca[ch];
+        X32[xoff(ch, w + 1, t0) / 2] = cb[ch];
+      }
+    }
+  };
+  auto split_x = [&]() {
+    split_rows(std::integral_constant<int, 0>{});
+    split_rows(std::integral_constant<int, 1>{});
+    split_rows(std::integral_constant<int, 2>{});
+    split_rows(std::integral_constant<int, 3>{});
+    split_rows(std::integral_constant<int, 4>{});
+    split_rows(std::integral_constant<int, 5>{});
+    for (int i = threadIdx.x; i < XBLK / 2; i += PX_THREADS)
+      X32[XR * XBLK / 2 + i] = 0u;
+  };
+
+  // this warpgroup's A1 fragments of variant va — the carry step's of
+  // every chunk (ac) and the image steps' of chunk 2 (a2) by load_a; chunk
+  // 1's (a1) and chunk 0's (into a2) while the chunk before is multiplied —
+  // and its four NB carries of tile (pa, b): rows r, r + 8, carries 2qd,
+  // 2qd + 1
+  uint32_t ac[NCH][4], a2[KS - 1][4], a1[KS - 1][4];
+  float nbv[4];
+  const uint4* afw = Af + (long)wg * NCH * KS * rfw::WG + tid;
+  auto frags = [&](int va, int i, uint32_t (&a)[KS - 1][4]) {
+    const uint4* src = afw + ((long)(va * 2 * NCH + i) * KS) * rfw::WG;
+#pragma unroll
+    for (int c = 0; c < KS - 1; ++c) {
+      const uint4 u = __ldg(src + c * rfw::WG);
+      a[c][0] = u.x, a[c][1] = u.y, a[c][2] = u.z, a[c][3] = u.w;
+    }
+  };
+  auto load_a = [&](long pa, int b) {
+    const int va = rf::variant(nva, (int)(pa % na), na);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const uint4 u = __ldg(afw + ((long)(va * 2 * NCH + i) * KS + KS - 1) *
+                                      rfw::WG);
+      ac[i][0] = u.x, ac[i][1] = u.y, ac[i][2] = u.z, ac[i][3] = u.w;
+    }
+    frags(va, 2, a2);
+    const float* nbt = NB + (pa * nb + b) * SLOTS * T;
+    nbv[0] = nbt[(2 * qd) * T + r];
+    nbv[1] = nbt[(2 * qd + 1) * T + r];
+    nbv[2] = nbt[(2 * qd) * T + r + 8];
+    nbv[3] = nbt[(2 * qd + 1) * T + r + 8];
+  };
+
+  if ((int)blockIdx.x >= items) return;
+  int b, cur_vb;
+  long pa;
+  {
+    int bl;
+    rfp::item(blockIdx.x, nb, nl, nvb, b, bl);
+    pa = bl;
   }
-  stage_rows(As + T * T, NB + (pa * nb + b) * SLOTS * T, SLOTS, T, tid);
-  stage_rows(Bs, B2 + (long)vb * KX * T, KX, T, tid);
+  cur_vb = rf::variant(nvb, b, nb);
+  load_x(pa, b);
+  rfp::commit();
+  rfw::stage_b<NCH>(smem16, Bc, cur_vb, CH);  // waits for load_x's copies
+  load_a(pa, b);
+  split_x();
+  rfw::fence_async_smem();
   __syncthreads();
-  gemm_tile(As, Bs, c, ty, tx, KX);
 
-  long r0[8];
-  bool ok[8];
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    // Z = A1 X: the carry step, then the image's steps
+    float z[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    r0[i] = pa * T * W + (long)b * T + (long)row_of(i, ty) * W + tx * 4;
-    ok[i] = true;
-  }
-  rf::affine_tile<K>(epi, c, r0, ok);
+    for (int i = 0; i < 64; ++i) z[i] = 0.f;
+    rfw::fence_acc(z);
+    rfw::fence();
+    // in three groups by A1's chunk, each waited for before its registers
+    // take the chunk after next
+    {
+      const int va = rf::variant(nva, (int)(pa % na), na);
+      px_carry_a(z, ac, Xs);
+      px_group_a<2>(z, a2, Xs);
+      rfw::commit();
+      frags(va, 1, a1);
+      rfw::wait_all();
+      rfw::fence();
+      px_group_a<1>(z, a1, Xs);
+      rfw::commit();
+      frags(va, 0, a2);
+      rfw::wait_all();
+      rfw::fence();
+      px_group_a<0>(z, a2, Xs);
+      rfw::commit();
+      rfw::wait_all();
+    }
+    rfw::fence_acc(z);
+    __syncthreads();  // both warpgroups are past their products on Xs
+
+    // the next tile's X copied in under the second product
+    const int nxt = it + gridDim.x;
+    int b2 = 0;
+    long pa2 = 0;
+    if (nxt < items) {
+      int bl;
+      rfp::item(nxt, nb, nl, nvb, b2, bl);
+      pa2 = bl;
+      load_x(pa2, b2);
+    }
+    rfp::commit();
+
+    // Y = [Z | NB] B2: Z's chunks from the accumulators (columns 16c ..
+    // 16c + 15 are the A fragment of step c), NB's as the carry step
+    uint32_t zc[NCH][KS][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<float4*>(y + r0[i]) =
-        make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-    *reinterpret_cast<float4*>(y + r0[i] + 64) =
-        make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+    for (int c = 0; c < KS - 1; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t t2[NCH];
+        rfw::split_pair<NCH>(z[8 * c + 2 * e], z[8 * c + 2 * e + 1], t2);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) zc[ch][c][e] = t2[ch];
+      }
+    {
+      uint32_t t0[NCH], t1[NCH];
+      rfw::split_pair<NCH>(nbv[0], nbv[1], t0);
+      rfw::split_pair<NCH>(nbv[2], nbv[3], t1);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        zc[ch][KS - 1][0] = t0[ch];
+        zc[ch][KS - 1][1] = t1[ch];
+        zc[ch][KS - 1][2] = zc[ch][KS - 1][3] = 0u;
+      }
+    }
+    // Y in two halves of 64 outputs, one after the other (32 accumulators
+    // each); the next tile's X split under the second half's products
+    long base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      base[h] = (pa * T + r + 8 * h) * W + (long)b * T + 2 * qd;
+    float d[32];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] = 0.f;
+      fence_acc32(d);
+      rfw::fence();
+      px_half_b(d, zc, Bs, half);
+      rfw::commit();
+      if (half == 1) {
+        rfp::wait_pending(0);  // this thread's copies of X
+        __syncthreads();       // ... and every thread's
+        if (nxt < items) split_x();
+      }
+      rfw::wait_all();
+      fence_acc32(d);
+      if (half == 1 && nxt < items) load_a(pa2, b2);  // under the stores
+
+      // d[4j + 2h + e]: row r + 8h, output 64 half + 8j + 2qd + e
+      const int o0 = 64 * half;
+      if constexpr (EPI) {
+        const float a = epi.coef[0], c = epi.coef[1];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d[i] = fmaf(a, d[i], c);
+        for (int k = 0; k < naux; ++k) {
+          const float bk = epi.coef[2 + k];
+          const float* aux = epi.aux[k] + o0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 u =
+                  *reinterpret_cast<const float2*>(aux + base[h] + 8 * j);
+              d[4 * j + 2 * h] = fmaf(bk, u.x, d[4 * j + 2 * h]);
+              d[4 * j + 2 * h + 1] = fmaf(bk, u.y, d[4 * j + 2 * h + 1]);
+            }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          rf::store2(y + o0 + base[h] + 8 * j, d[4 * j + 2 * h],
+                     d[4 * j + 2 * h + 1]);
+    }
+
+    b = b2;
+    pa = pa2;
+    if (nxt < items) {
+      const int v = rf::variant(nvb, b, nb);
+      if (v != cur_vb) {  // every warpgroup is past its products on Bs
+        rfw::stage_b<NCH>(smem16, Bc, v, CH);
+        cur_vb = v;
+      }
+    }
+    rfw::fence_async_smem();  // the chunks visible to the tensor cores
+    __syncthreads();
   }
 }
 
-template <int K>
-int launch(const float* x, const float* NA, const float* NB, const float* A1,
-           const float* B2, float* y, const rf::Affine& epi, int p, int na,
-           int nb, int nva, int nvb, cudaStream_t stream) {
+int px_launch(const float* x, const float* NA, const float* NB,
+              const void* Af, const void* Bc, float* y, const rf::Affine& epi,
+              int naux, int p, int na, int nb, int nva, int nvb,
+              cudaStream_t stream) {
+  if (p < 1 || na < 1 || nb < 1 || (nva != 1 && nva != 3) ||
+      (nvb != 1 && nvb != 3) || naux < 0 || naux > rf::MAX_AUX ||
+      (long)p * na * nb >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  // final2d and final2d_epi each run a kernel built without the other's
+  // branch: ptxas then allocates final2d_epi's without a spill
+  const auto kernel = epi.coef != nullptr ? final2d_px_kernel<true>
+                                          : final2d_px_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      final2d_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PX_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nb, na, p);
-  final2d_kernel<K><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      x, NA, NB, A1, B2, y, epi, na, nb, nva, nvb);
+  const int grid = rfp::persistent_grid((long)p * na * nb);
+  kernel<<<grid, PX_THREADS, PX_SMEM, stream>>>(
+      x, NA, NB, static_cast<const uint4*>(Af),
+      static_cast<const rfs::bf16*>(Bc), y, epi, naux, p, na, nb, nva, nvb);
   return (int)cudaGetLastError();
 }
 
@@ -363,30 +723,29 @@ final2d_k_bf16_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
 
 }  // namespace
 
+// Af, Bc: kernels/final2d.py's Final2D.Af_k (nva, 2, 3, KS, 128) 16-byte
+// register fragments of [Ba | Ra | 0] and Final2D.Bc_k (nvb, 3, 128 * 144)
+// core-packed chunks of [Bb | Rb | 0]
 extern "C" int final2d_launch(const float* x, const float* NA,
-                              const float* NB, const float* A1,
-                              const float* B2, float* y, int p, int na,
+                              const float* NB, const void* Af,
+                              const void* Bc, float* y, int p, int na,
                               int nb, int nva, int nvb, void* stream) {
-  return launch<rf::NO_EPI>(x, NA, NB, A1, B2, y, rf::Affine{}, p, na, nb,
-                            nva, nvb, (cudaStream_t)stream);
+  return px_launch(x, NA, NB, Af, Bc, y, rf::Affine{}, 0, p, na, nb, nva,
+                   nvb, (cudaStream_t)stream);
 }
 
 // coef = [a, c, b0..b3] (float32, on the card); aux0..aux{k-1} in x's
 // layout, the rest unread
 extern "C" int final2d_epi_launch(const float* x, const float* NA,
-                                  const float* NB, const float* A1,
-                                  const float* B2, const float* aux0,
+                                  const float* NB, const void* Af,
+                                  const void* Bc, const float* aux0,
                                   const float* aux1, const float* aux2,
                                   const float* aux3, const float* coef,
                                   float* y, int p, int na, int nb, int nva,
                                   int nvb, int k, void* stream) {
-  const rf::Affine epi = rf::make_affine(aux0, aux1, aux2, aux3, coef);
-  int err = (int)cudaErrorInvalidValue;
-  rf::dispatch_aux(k, [&](auto kc) {
-    err = launch<decltype(kc)::value>(x, NA, NB, A1, B2, y, epi, p, na, nb,
-                                      nva, nvb, (cudaStream_t)stream);
-  });
-  return err;
+  return px_launch(x, NA, NB, Af, Bc, y,
+                   rf::make_affine(aux0, aux1, aux2, aux3, coef), k, p, na,
+                   nb, nva, nvb, (cudaStream_t)stream);
 }
 
 // Ta <= 128, Ka and Kb <= 32 (the shared memory of one block)

@@ -24,18 +24,35 @@
 // from the same staged tile (E = those 2*h8 rows, (nva, 2*h8, T)), fp64
 // sums like the tails: 2*h8 more MACs per pixel.
 //
-// What bounds it: it reads 4 B/px and does Ka + 2*Kb MACs per pixel (18
-// for the 3rd-order Gaussian pair), so on an H100 it is bound by
-// device-memory bandwidth. The design reads each x tile from device memory
-// once into shared memory (row stride 132 floats: column reads by
-// consecutive threads and float4 row reads by consecutive rows are both
-// free of bank conflicts) and keeps U on chip.
+// What bounds it: it reads 4 B/px and does Ka + 2*Kb fp64 MACs per pixel
+// (9 for the 3rd-order Gaussian pair: 0.30 GFLOP at 4096^2, 0.0045 ms at the
+// H100's 67 TFLOP/s fp64), so on an H100 it is bound by device-memory
+// bandwidth: 0.0226 ms at 3.35 TB/s for the 67 MB image and its outputs.
+// The design (rows_tails.cu's) keeps the loads in flight and the MACs few:
+//   * persistent blocks, one per SM, walking the tiles (tile column
+//     fastest), fed by a two-stage cp.async ring of whole tiles
+//     (pipeline.cuh; rows of 132 floats, 136 bf16): the tile after next is
+//     requested as soon as a tile's dim-A and dim-B sums have read its stage,
+//     so the copies run under the term1 fold, the reductions and the stores;
+//   * only the K = max(Ka, Kb) real carry rows are summed (a template
+//     parameter; the pad slots are stored as zeros), with Ga and Gb of
+//     every variant in fp64 in shared memory (no conversion per MAC, read
+//     as broadcasts) and each sample converted to fp64 once a sum;
+//   * thread (col, q) of 512 sums quarter q of each 128-deep contraction:
+//     the tails down column col, U along row col (float4 row reads), term1
+//     over U's columns with Btot_a^T's rows read from L2 under the loads;
+//     the quarters' partials meet in shared memory and add up in order,
+//     quarter 0 first, one thread two rows of an output;
+//   * U stays in shared memory in fp64, so term1 never leaves the chip;
+//     term1's column of Btot_a^T is requested from L2 before the dim-B
+//     sums, which run under its loads.
 //
 // bf16 storage (moments2d_bf16, moments2d_naf_bf16: moments2d_px on a bf16
 // x, which the JAX package's bf16 mode gives it): the same kernels with x
-// read as bf16 (8 values a 16-byte load) and widened to fp32 as the tile
-// is staged, so every sum below is the fp32 entry's on the same values,
-// bit for bit; the outputs stay fp32. The tile read halves to 2 B/px (at
+// read as bf16 (8 values a 16-byte load) — the ring holds the bf16 tile
+// and widens each sample as it is read, moments2d_naf widens the tile as
+// it stages it — so every sum below is the fp32 entry's on the same
+// values, bit for bit; the outputs stay fp32. The tile read halves to 2 B/px (at
 // 4096^2: 33.5 MB of x and 8.4 MB of outputs, 0.0125 ms at 3.35 TB/s).
 //
 // The sums accumulate in fp64 (fp32 loads and stores). These tails seed
@@ -94,6 +111,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
@@ -101,8 +119,6 @@ constexpr int T = 128;        // tile edge, Ta = Tb
 constexpr int SLOTS = 8;      // carry rows per slot
 constexpr int THREADS = 256;  // two threads per column: slots kg, kg+2, ..
 constexpr int XS = T + 4;     // padded shared row stride of the x tile
-constexpr int SMEM_BYTES =
-    (T * XS + 2 * SLOTS * T) * sizeof(float) + 2 * SLOTS * T * sizeof(double);
 // moments2d_naf: no edge rows; its strip of tails follows
 constexpr int NAF_BASE_BYTES =
     (T * XS + 2 * SLOTS * T) * sizeof(float) + SLOTS * T * sizeof(double);
@@ -203,68 +219,227 @@ __device__ __forceinline__ void moments_b(const float* xs, const float* gb,
   }
 }
 
+// The persistent ring kernel of moments2d and moments2d_bf16 (header):
+// thread (col, q) of RT = 512 sums quarter q of each contraction (QR rows or
+// columns) for output column col; the quarters meet in `part` and add up in
+// order, quarter 0 first, one thread two rows of an output.
+constexpr int RT = 512;             // threads of the ring kernel
+constexpr int NQ = RT / T;          // quarters of each contraction
+constexpr int QR = T / NQ;          // samples a quarter sums
+constexpr int RSTAGES = 2;          // tiles in the ring
+// ring row stride (elements): 528 B at fp32, 272 B at bf16 — 16-byte rows
+// whose row reads by consecutive threads fall in distinct bank groups
 template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-moments2d_kernel(const TX* __restrict__ x,        // (p, na, T, W)
-                 const float* __restrict__ Ga,    // (nva, 8, T)
-                 const float* __restrict__ Gb,    // (nvb, 8, T)
-                 const float* __restrict__ Ba1T,  // (nva, T, T): [s][o]
-                 const float* __restrict__ E,     // (nva, 2*h8, T)
-                 float* __restrict__ bA,          // (p, na, 8, W)
-                 float* __restrict__ term1,       // (p, na, nb*8, T)
-                 float* __restrict__ ht,          // (p, na, h8, W)
-                 float* __restrict__ hb,          // (p, na, h8, W)
-                 int na, int nb, int Ka, int Kb, int nva, int nvb, int h8) {
-  extern __shared__ float4 smem4[];
-  double* us = reinterpret_cast<double*>(smem4);  // 8 x T: U[k][s]
-  double* es = us + SLOTS * T;                    // 8 x T: 8 edge rows
-  float* xs = reinterpret_cast<float*>(es + SLOTS * T);  // T rows x XS
-  float* ga = xs + T * XS;                        // 8 x T
-  float* gb = ga + SLOTS * T;                     // 8 x T
+__host__ __device__ constexpr int ring_ld() {
+  return std::is_same<TX, float>::value ? T + 4 : T + 8;
+}
+// Ga and Gb of three variants at K rows, U (or eight edge rows), the
+// quarters' partials (eight rows each), the ring (bytes)
+template <int K, typename TX>
+constexpr int ring_smem() {
+  return (2 * 3 * K * T + SLOTS * T + NQ * SLOTS * T) * (int)sizeof(double) +
+         RSTAGES * T * ring_ld<TX>() * (int)sizeof(TX);
+}
+static_assert(ring_smem<SLOTS, float>() <= MAX_SMEM,
+              "moments2d's ring outgrows an SM");
 
-  const int b = blockIdx.x, a = blockIdx.y, p = blockIdx.z;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(rf::bf16 v) { return __bfloat162float(v); }
+
+// K = max(Ka, Kb) real carry rows (G's rows past them are the zero pad
+// slots, left out of the sums); TX: x's type, float or bf16.
+template <int K, typename TX>
+__global__ void __launch_bounds__(RT, 1)
+moments2d_ring_kernel(const TX* __restrict__ x,        // (p, na, T, W)
+                      const float* __restrict__ Ga,    // (nva, 8, T)
+                      const float* __restrict__ Gb,    // (nvb, 8, T)
+                      const float* __restrict__ Ba1T,  // (nva, T, T): [s][o]
+                      const float* __restrict__ E,     // (nva, 2*h8, T)
+                      float* __restrict__ bA,          // (p, na, 8, W)
+                      float* __restrict__ term1,       // (p, na, nb*8, T)
+                      float* __restrict__ ht,          // (p, na, h8, W)
+                      float* __restrict__ hb,          // (p, na, h8, W)
+                      int na, int nb, int Ka, int Kb, int nva, int nvb,
+                      int h8, int tiles) {
+  constexpr int LD = ring_ld<TX>();
+  constexpr int V = 16 / (int)sizeof(TX);  // elements a 16-byte copy
+  extern __shared__ double smem_d[];
+  double* ga = smem_d;             // nva x K x T
+  double* gb = ga + 3 * K * T;     // nvb x K x T
+  double* us = gb + 3 * K * T;     // 8 x T: U[k][s], or 8 edge rows
+  double* part = us + SLOTS * T;   // NQ x 8 x T: [q][k][col]
+  TX* ring = reinterpret_cast<TX*>(part + NQ * SLOTS * T);
+
+  const int tid = threadIdx.x, col = tid % T, q = tid / T;
   const long W = (long)nb * T;
-  const long pa = (long)p * na + a;
-  const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
 
-  stage_tile(xs, ga, gb, x + pa * T * W + (long)b * T, W,
-             Ga + (long)va * SLOTS * T, Gb + (long)vb * SLOTS * T, tid);
-  __syncthreads();
-
-  const int col = tid % T;  // w for bA, s for U, o for term1
-  const int kg = tid / T;   // this thread's slots: kg, kg+2, kg+4, kg+6
-
-  tails_a(xs, ga, bA + pa * SLOTS * W + (long)b * T + col, W, Ka, col, kg);
-
-  // edge completion partials: column w of the 2*h8 edge rows * x, eight
-  // rows a pass, staged in fp64 (no conversion per product)
-  const float* Ev = E + (long)va * 2 * h8 * T;
-  for (int k0 = kg; k0 < 2 * h8; k0 += 8) {
-    __syncthreads();  // the previous pass has read its rows
-    for (int i = tid; i < SLOTS * T; i += THREADS)
-      es[i] = k0 - kg + i / T < 2 * h8 ? (double)Ev[(k0 - kg) * T + i] : 0.0;
-    __syncthreads();
-    double e[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int s = 0; s < T; ++s) {
-      const double xv = xs[s * XS + col];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        e[j] = fma(es[(kg + 2 * j) * T + s], xv, e[j]);
+  // tile `tile` (tile column b fastest, then a, then p) into stage st,
+  // asynchronously; nothing past the last tile
+  auto load = [&](int tile, int st) {
+    if (tile >= tiles) return;
+    const long pa = tile / nb;
+    const TX* xt = x + pa * T * W + (long)(tile - pa * nb) * T;
+    TX* dst = ring + st * T * LD;
+    for (int i = tid; i < T * (T / V); i += RT) {
+      const int r = i / (T / V), c = V * (i % (T / V));
+      rfp::cp16(dst + r * LD + c, xt + r * W + c, true);
     }
+  };
+  // row k of the output column col: the quarters' partials in order
+  auto reduce = [&](int k) {
+    double s = part[k * T + col];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 2 * j;
-      if (k < 2 * h8) {
-        float* dst = k < h8 ? ht + (pa * h8 + k) * W
-                            : hb + (pa * h8 + k - h8) * W;
-        dst[(long)b * T + col] = (float)e[j];
+    for (int qq = 1; qq < NQ; ++qq) s += part[(qq * SLOTS + k) * T + col];
+    return s;
+  };
+
+  for (int i = tid; i < nva * K * T; i += RT)
+    ga[i] = (double)Ga[(i / (K * T)) * SLOTS * T + i % (K * T)];
+  for (int i = tid; i < nvb * K * T; i += RT)
+    gb[i] = (double)Gb[(i / (K * T)) * SLOTS * T + i % (K * T)];
+  load(blockIdx.x, 0);
+  rfp::commit();
+  load(blockIdx.x + gridDim.x, 1);
+  rfp::commit();
+
+  int st = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, st ^= 1) {
+    rfp::wait_pending(1);  // this tile's stage (the next may be in flight)
+    __syncthreads();       // ... for every thread; `part` free
+    const long pa = tile / nb;
+    const int b = tile - (int)(pa * nb), a = (int)(pa % na);
+    const int va = variant(nva, a, na), vb = variant(nvb, b, nb);
+    const TX* xs = ring + st * T * LD;
+
+    {  // dim-A tails: column col of Ga * x over rows q*QR ..
+      const double* g = ga + va * K * T + q * QR;
+      double acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.0;
+#pragma unroll 4
+      for (int i = 0; i < QR; i += 2) {
+        const double x0 = to_f(xs[(q * QR + i) * LD + col]);
+        const double x1 = to_f(xs[(q * QR + i + 1) * LD + col]);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const double2 gg = *reinterpret_cast<const double2*>(g + k * T + i);
+          acc[k] = fma(gg.y, x1, fma(gg.x, x0, acc[k]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) part[(q * SLOTS + k) * T + col] = acc[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SLOTS / NQ; ++j) {
+      const int k = q + NQ * j;
+      bA[(pa * SLOTS + k) * W + (long)b * T + col] =
+          k < Ka ? (float)reduce(k) : 0.f;
+    }
+
+    // edge completion partials: column col of the 2*h8 edge rows * x,
+    // eight rows a pass, staged in fp64 in us
+    const float* Ev = E + (long)va * 2 * h8 * T;
+    for (int e0 = 0; e0 < 2 * h8; e0 += SLOTS) {
+      __syncthreads();  // us and part free
+      for (int i = tid; i < SLOTS * T; i += RT)
+        us[i] = e0 + i / T < 2 * h8 ? (double)Ev[(long)e0 * T + i] : 0.0;
+      __syncthreads();
+      double acc[SLOTS];
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) acc[k] = 0.0;
+#pragma unroll 2
+      for (int i = 0; i < QR; i += 2) {
+        const int s = q * QR + i;
+        const double x0 = to_f(xs[s * LD + col]);
+        const double x1 = to_f(xs[(s + 1) * LD + col]);
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+          const double2 e = *reinterpret_cast<const double2*>(us + k * T + s);
+          acc[k] = fma(e.y, x1, fma(e.x, x0, acc[k]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) part[(q * SLOTS + k) * T + col] = acc[k];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SLOTS / NQ; ++j) {
+        const int e = e0 + q + NQ * j;
+        if (e < 2 * h8) {
+          float* dst = e < h8 ? ht + (pa * h8 + e) * W
+                              : hb + (pa * h8 + e - h8) * W;
+          dst[(long)b * T + col] = (float)reduce(q + NQ * j);
+        }
       }
     }
-  }
+    __syncthreads();  // part free
 
-  moments_b(xs, gb, us, Ba1T + (long)va * T * T + col,
-            term1 + (pa * nb + b) * SLOTS * T + col, Kb, col, kg);
+    // term1's Btot_a^T column (this quarter's QR rows, from L2) requested
+    // now, so the loads run under the dim-B sums
+    float bpre[QR];
+    {
+      const float* bt = Ba1T + (long)va * T * T + (long)q * QR * T + col;
+#pragma unroll
+      for (int i = 0; i < QR; ++i) bpre[i] = __ldg(bt + i * T);
+    }
+    {  // dim-B moments: row col of x * Gb^T over columns q*QR ..
+      const double* g = gb + vb * K * T + q * QR;
+      const TX* xr = xs + col * LD + q * QR;
+      double acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.0;
+#pragma unroll 2
+      for (int t = 0; t < QR; t += 4) {
+        const float4 v = rf::load4f(xr + t);
+        const double x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const double2 g01 = *reinterpret_cast<const double2*>(g + k * T + t);
+          const double2 g23 =
+              *reinterpret_cast<const double2*>(g + k * T + t + 2);
+          acc[k] = fma(g23.y, x3, fma(g23.x, x2, fma(g01.y, x1,
+                                                    fma(g01.x, x0, acc[k]))));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) part[(q * SLOTS + k) * T + col] = acc[k];
+    }
+    __syncthreads();  // the stage consumed, the partials written
+    load(tile + 2 * gridDim.x, st);
+    rfp::commit();
+#pragma unroll
+    for (int j = 0; j < SLOTS / NQ; ++j) {
+      const int k = q + NQ * j;
+      us[k * T + col] = k < K ? reduce(k) : 0.0;
+    }
+    __syncthreads();
+
+    {  // term1 = Btot_a * U^T: output column o = col over s = q*QR ..,
+       // Btot_a^T's rows read coalesced from L2
+      double acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0.0;
+#pragma unroll
+      for (int i = 0; i < QR; i += 2) {
+        const double b0 = bpre[i], b1 = bpre[i + 1];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const double2 u =
+              *reinterpret_cast<const double2*>(us + k * T + q * QR + i);
+          acc[k] = fma(u.y, b1, fma(u.x, b0, acc[k]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) part[(q * SLOTS + k) * T + col] = acc[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SLOTS / NQ; ++j) {
+      const int k = q + NQ * j;
+      term1[((pa * nb + b) * SLOTS + k) * T + col] =
+          k < Kb ? (float)reduce(k) : 0.f;
+    }
+  }
 }
 
 // moments2d_naf: one cluster of CL blocks a column strip (b, p). Block r
@@ -454,21 +629,45 @@ moments2d_k_kernel(const float* __restrict__ x,   // (p, na, Ta, W)
 
 }  // namespace
 
+template <int K, typename TX>
+static int ring_launch(const TX* x, const float* Ga, const float* Gb,
+                       const float* Ba1T, const float* E, float* bA,
+                       float* term1, float* ht, float* hb, int p, int na,
+                       int nb, int Ka, int Kb, int nva, int nvb, int h8,
+                       cudaStream_t stream) {
+  constexpr int smem = ring_smem<K, TX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      moments2d_ring_kernel<K, TX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long tiles = (long)p * na * nb;
+  moments2d_ring_kernel<K, TX>
+      <<<rfp::persistent_grid(tiles), RT, smem, stream>>>(
+          x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, na, nb, Ka, Kb, nva, nvb,
+          h8, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
 template <typename TX>
 static int raw_launch(const TX* x, const float* Ga, const float* Gb,
                       const float* Ba1T, const float* E, float* bA,
                       float* term1, float* ht, float* hb, int p, int na,
                       int nb, int Ka, int Kb, int nva, int nvb, int h8,
                       cudaStream_t stream) {
-  if (h8 < 0 || h8 > T) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      moments2d_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nb, na, p);
-  moments2d_kernel<TX><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, na, nb, Ka, Kb, nva, nvb, h8);
-  return (int)cudaGetLastError();
+  if (h8 < 0 || h8 > T || p < 1 || na < 1 || nb < 1 || Ka < 1 ||
+      Ka > SLOTS || Kb < 1 || Kb > SLOTS || (nva != 1 && nva != 3) ||
+      (nvb != 1 && nvb != 3) || (long)p * na * nb >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+#define RF_RING(K)                                                        \
+  case K:                                                                 \
+    return ring_launch<K>(x, Ga, Gb, Ba1T, E, bA, term1, ht, hb, p, na,   \
+                          nb, Ka, Kb, nva, nvb, h8, stream);
+  switch (Ka > Kb ? Ka : Kb) {
+    RF_RING(1) RF_RING(2) RF_RING(3) RF_RING(4)
+    RF_RING(5) RF_RING(6) RF_RING(7) RF_RING(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RF_RING
 }
 
 // The launch of moments2d_naf with clusters of CL blocks; given active,

@@ -59,9 +59,9 @@ from torch import nn
 
 from .completion import (_SLOTS, TILE, XTYPES, _aux_ptrs, _bf16_grade,
                          _entry, _epi_coef, _expand_stack, _f32, _f64,
-                         _per_tile, _variants3, _variants_like, core_unpack,
-                         grade_chunks, tc_constant, tc_depth, tc_exact,
-                         tile_einsum)
+                         _per_tile, _variants3, _variants_like, core_pack,
+                         core_unpack, grade_chunks, tc_constant, tc_depth,
+                         tc_exact, tile_einsum)
 from . import split
 from .launch import _check, _KernelFn, _launch
 
@@ -91,6 +91,40 @@ def _grid_ok(p: int, n: int, W: int) -> None:
     if not (0 < p < 65536 and 0 < n < 65536 and 0 < W // TILE < 2**31):
         raise ValueError(f"leading extent {p}, {n} tiles, {W} lanes: "
                          "outside the launch grid")
+
+
+def _variant(nv: int, i: int, n: int) -> int:
+    """The matrix variant of tile i of n, as the kernels pick it
+    (``csrc/moments2d.cu``'s ``variant``): [interior, first, last]."""
+    if nv == 1:
+        return 0
+    return 1 if i == 0 else (2 if i == n - 1 else 0)
+
+
+def _two_sum(a, b):
+    """s = a + b rounded, and its error: a + b = s + e exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma64(a, b, c):
+    """``fma(a, b, c)`` as the card's fp64 FMA rounds it, a·b + c rounded
+    once, for float64 tensors whose b holds float32 values (where a holds
+    them too, a·b is exact and ``c + a·b`` is the same). a splits in two
+    (Veltkamp: 29 bits and at most 23), so a·b is the exact sum of two
+    float64 products; TwoSum turns that into a head and its tail, the
+    head meets c, and the two tails meet in a sum rounded to odd before
+    the one last rounding (Boldo and Melquiond's emulated FMA, exact
+    where nothing underflows)."""
+    t = a * 16777217.0  # 2^24 + 1
+    hi = t - (t - a)
+    uh, ul = _two_sum(hi * b, (a - hi) * b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    away = torch.nextafter(v, torch.where(e > 0, torch.inf, -torch.inf))
+    return th + torch.where((e != 0) & even, away, v)
 
 
 class Moments2D(nn.Module):
@@ -180,6 +214,47 @@ class Moments2D(nn.Module):
             out += (e[:, :, :self.h8], e[:, :, self.h8:])
         return out
 
+    def naf_ordered(self, x):
+        """``moments2d_naf``'s outputs bit for bit (the module built with
+        ``solve=``): its sums in float64 on the CPU in the kernel's order,
+        by :func:`fma64` where a product is inexact — the tails down each
+        column, s ascending, rounded to float32; U along each row, t
+        ascending, kept in float64; term1 over U's columns, s ascending;
+        the solve over the source rows (a, k < Ka) ascending, from the
+        float32 tails."""
+        if not self.solve:
+            raise ValueError("naf_ordered is moments2d_naf's: build the "
+                             "module with solve=")
+        p, na, nb, S = x.shape[0], self.na, self.nb, _SLOTS
+        xd = x.detach().cpu().float().double()
+        va = [_variant(self.Ga_v.shape[0], a, na) for a in range(na)]
+        vb = [_variant(self.Gb_v.shape[0], b, nb) for b in range(nb)]
+        Ga = self.Ga_v.cpu().double()[va]    # (na, 8, T)
+        Gb = self.Gb_v.cpu().double()[vb]    # (nb, 8, T)
+        Bt = self.Ba1T_v.cpu().double()[va]  # (na, T_s, T_o)
+        tails = torch.zeros(p, na, S, nb * TILE, dtype=torch.float64)
+        for s in range(TILE):  # float32 products: exact
+            tails = tails + Ga[None, :, :, s, None] * xd[:, :, s, None, :]
+        tails[:, :, self.Ka:] = 0
+        tails = tails.float().double()
+        xr = xd.reshape(p, na, TILE, nb, TILE).permute(0, 1, 3, 2, 4)
+        U = torch.zeros(p, na, nb, S, TILE, dtype=torch.float64)
+        for t in range(TILE):  # float32 products: exact
+            U = U + Gb[None, None, :, :, t, None] * xr[:, :, :, None, :, t]
+        U[:, :, :, self.Kb:] = 0
+        t1 = torch.zeros_like(U)
+        for s in range(TILE):
+            t1 = fma64(U[..., s, None], Bt[None, :, None, None, s, :], t1)
+        t1[:, :, :, self.Kb:] = 0
+        CM = self.CMaT.cpu().t().reshape(na, S, na, S)
+        NA = torch.zeros(p, na, S, nb * TILE, dtype=torch.float64)
+        for a in range(na):
+            for k in range(self.Ka):
+                NA = fma64(CM[None, :, :, a, k, None],
+                           tails[:, a, k][:, None, None, :], NA)
+        NA[:, :, self.Ka:] = 0
+        return NA.float(), t1.float().reshape(p, na, nb * S, TILE)
+
     def _kernel(self, x):
         p, na, nb, h8 = x.shape[0], self.na, self.nb, self.h8
         _check(x, "x", (p, na, TILE, nb * TILE), x.device, XTYPES)
@@ -214,6 +289,95 @@ class Moments2D(nn.Module):
         return self.plain(x)
 
 
+# final2d's px6 operands (csrc/final2d.cu): the 136-deep contraction
+# padded to 144, nine k16 steps (the carries' last), three bf16 chunks,
+# two warpgroups of 128 threads a block, each 64 rows s of a tile
+_PX_KP = TILE + 16
+_PX_KS = _PX_KP // 16
+_PX_NC = 3
+_WG = 128
+# the first product's pairs (constant chunk, data chunk) in the kernel's
+# order (csrc/final2d.cu's oa_d): grouped by the constant's chunk, each
+# chunk's fragments loaded while the group before runs, smallest level
+# first within a group; the second product's are split.prods(6)'s
+PX_ORDER_A = [(2, 0), (1, 1), (1, 0), (0, 2), (0, 1), (0, 0)]
+
+
+def _px_matrix(B, R) -> np.ndarray:
+    """(n|1, T, T), (n|1, T, 8) stacks → per variant ``[B | R | 0]``,
+    (1|3, T, 144) float64: rows s (or o), the contraction along the last
+    axis."""
+    Bv, Rv = _variants_like(B, R)
+    M = np.zeros(Bv.shape[:2] + (_PX_KP,))
+    M[..., :TILE] = Bv
+    M[..., TILE:TILE + _SLOTS] = Rv
+    return M
+
+
+def _frag_index():
+    """The A fragment map of ``final2d``'s first product: for (half h,
+    step c, thread τ, element 2e + u) of a 16-byte fragment, the row and
+    contraction position it holds — (2, 1, 128, 8) rows and (1, KS, 128,
+    8) positions. Thread τ (warp w, lane l, qd = l % 4) holds in register
+    e the pair (row 64h + 16w + l/4 + 8(e % 2), positions 16c + 8(e // 2)
+    + 2qd + u), u = 0 its low half: ``wgmma``'s register A operand
+    (``csrc/wgmma.cuh``)."""
+    tau = np.arange(_WG)[:, None]
+    e = np.arange(8)[None, :] // 2
+    u = np.arange(8)[None, :] % 2
+    lane = tau % 32
+    rows = 16 * (tau // 32) + lane // 4 + 8 * (e % 2)
+    pos = 8 * (e // 2) + 2 * (lane % 4) + u
+    R = np.stack([rows, rows + 64])[:, None]                       # (2,1,τ,8)
+    K = (16 * np.arange(_PX_KS)[:, None, None] + pos[None])[None]  # (1,KS,τ,8)
+    return torch.from_numpy(R), torch.from_numpy(K)
+
+
+def px_fragments(M) -> torch.Tensor:
+    """``final2d``'s A1 operand: per variant the three bf16 chunks of M
+    (nv, T, 144) (:func:`.split.split_const`), cut into each thread's
+    register fragments (:func:`_frag_index`): (nv, 2, 3, KS, 128, 8)
+    bf16, one 16-byte load a thread, chunk and step."""
+    C = torch.stack(split.split_const(M, _PX_NC), dim=1)  # (nv, 3, T, KP)
+    R, K = _frag_index()
+    return C[:, :, R, K].permute(0, 2, 1, 3, 4, 5).contiguous()
+
+
+def px_unfragment(F: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`px_fragments`: (nv, 2, 3, KS, 128, 8) →
+    the chunks (nv, 3, T, 144)."""
+    R, K = _frag_index()
+    R, K = R.expand(2, _PX_KS, _WG, 8), K.expand(2, _PX_KS, _WG, 8)
+    C = F.new_zeros(F.shape[0], _PX_NC, TILE, _PX_KP)
+    C[:, :, R, K] = F.permute(0, 2, 1, 3, 4, 5)
+    return C
+
+
+def _split_z(A, x, NA_t, nprod: int) -> torch.Tensor:
+    """The split dim-A completion in float32: A the per-tile chunk stack
+    (na, nc, T, ≥ T + 8) float32 of ``[Ba | Ra]``; Z = Σ_(i,j) A_i·[x;
+    NA]_j over the pairs of :func:`.split.prods` at ``nprod`` (the carry
+    rows at :func:`.split.carry_nprod`), smallest level first. (p, na, T,
+    W)."""
+    return split.pair_sum(nprod, lambda i, d: torch.einsum(
+        "ask,pakw->pasw", A[:, i, :, :TILE + _SLOTS], d), torch.cat(
+            [x.float(), NA_t], dim=2), TILE, dim=2)
+
+
+def _split_dual(A, B, x, NA_t, NB_t, nprod: int) -> torch.Tensor:
+    """The split dual completion in float32: Z by :func:`_split_z`, then
+    Y = Σ_(i,j) B_i·[Z | NB]_j, B the per-tile chunk stack (nb, nc, T, ≥
+    T + 8) of ``[Bb | Rb]``, at the same grade. (p, na, T, W)."""
+    p, na, Ta, W = x.shape
+    nb, K = B.shape[0], TILE + _SLOTS
+    z = _split_z(A, x, NA_t, nprod)
+    nbr = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 4, 2, 3)
+    ins = torch.cat([z.reshape(p, na, Ta, nb, TILE), nbr], dim=-1)
+    y = split.pair_sum(nprod, lambda i, d: torch.einsum(
+        "bok,pasbk->pasbo", B[:, i, :, :K], d), ins, TILE)
+    return y.reshape(p, na, Ta, W)
+
+
 class Final2D(nn.Module):
     """Passes 2+3: ``Y = final(x, NA_t, NB_t)``.
 
@@ -223,6 +387,17 @@ class Final2D(nn.Module):
     ``final(x, NA_t, NB_t, *aux)`` then returns ``a·Y + Σᵢ bᵢ·auxᵢ + c``,
     each aux (p, na, Ta, W) like x (the ``final2d_epi`` entry; the twin
     applies the form after ``plain``'s Y).
+
+    The kernel computes the JAX package's px6 arithmetic (``final2d_px``
+    at nprod 6): six split-bf16 products a contraction, the constants'
+    chunks split from float64 on the host (``Af_k``: A1 = [Ba | Ra | 0]
+    as register fragments, :func:`px_fragments`; ``Bc_k``: B2 = [Bb | Rb |
+    0] by :func:`.completion.core_pack` without the k permutation), x, NA,
+    Z and NB split on chip. ``plain`` is the float32 product (the CPU's
+    twin, the backward's map); :meth:`split_plain` the six products in
+    float32; :meth:`split_exact` their exact sum and the kernel's bound.
+    ``A1_v``/``B2_v`` (the float32 [Bᵀ; Rᵀ] operands) feed
+    ``final2d_stencil`` at px6.
     """
 
     def __init__(self, Btot_a, Rhat_a_cat, Btot_b, Rhat_b_cat, na: int,
@@ -237,6 +412,9 @@ class Final2D(nn.Module):
 
         self.register_buffer("A1_v", _f32(_cat_t(Btot_a, Ra8)))
         self.register_buffer("B2_v", _f32(_cat_t(Btot_b, Rb8)))
+        self.register_buffer("Af_k", px_fragments(_px_matrix(Btot_a, Ra8)))
+        self.register_buffer("Bc_k", core_pack(torch.stack(split.split_const(
+            _px_matrix(Btot_b, Rb8), _PX_NC), dim=1), perm=False))
         self.register_buffer("Ban", _f32(_expand_stack(Btot_a, na)))
         self.register_buffer("Ran", _f32(_expand_stack(Ra8, na)))
         self.register_buffer("Bbn", _f32(_expand_stack(Btot_b, nb)))
@@ -255,20 +433,77 @@ class Final2D(nn.Module):
         y = y.reshape(p, na, Ta, W)
         return y if self.affine is None else self.affine.apply(y, aux)
 
+    def chunks_a(self) -> torch.Tensor:
+        """A1's bf16 chunks (nva, 3, T, 144), from ``Af_k``."""
+        return px_unfragment(self.Af_k)
+
+    def chunks_b(self) -> torch.Tensor:
+        """B2's bf16 chunks (nvb, 3, T, 144), from ``Bc_k``."""
+        return core_unpack(self.Bc_k, TILE, _PX_KP, perm=False)
+
+    def split_plain(self, x, NA_t, NB_t, *aux):
+        """The kernel's arithmetic in float32 (:func:`_split_dual` at six
+        products), then the epilogue."""
+        y = _split_dual(_per_variant(self.chunks_a(), self.na).float(),
+                        _per_variant(self.chunks_b(), self.nb).float(), x,
+                        NA_t, NB_t, 6)
+        return y if self.affine is None else self.affine.apply(y, aux)
+
+    def split_exact(self, x, NA_t, NB_t, drop=None):
+        """The kernel's Y (before an epilogue) held to the exact sums of
+        its products: ``(ref, bound)``, float64, (p, na, T, W).
+
+        Z: :func:`.completion.tc_exact` of A1's chunks by [x; NA; 0] (the
+        first product's wgmma steps in the kernel's order, ``PX_ORDER_A``),
+        the exact sum
+        ``z`` and its bound ``bz``. Y: ``tc_exact`` of B2's chunks by [Z32
+        | NB | 0], Z32 = float32(z) (``drop``, a pair left out of this
+        sum: a control). The kernel splits its own Z, within ``dz = bz +
+        |z − Z32|`` of Z32; the six pairs sum Bb₀·Z + Bb₁·(Z − c₂) +
+        Bb₂·(Z − c₁ − c₂) of Z's chunks c, |c₂| ≤ 2⁻¹⁵·|Z| and |c₁ + c₂|
+        ≤ 2⁻⁸·|Z|, so the two splits part by at most Σᵢ|Bbᵢ|·dz +
+        (2⁻¹⁵·|Bb₁| + 2⁻⁸·|Bb₂|)·2·(|Z32| + dz) summed over the
+        contraction; the accumulation bound of Y, taken on Z32's chunks,
+        is widened by 2⁻⁸ of itself and of Σᵢ|Bbᵢ|·dz for the kernel's
+        chunks (each step's share of it some 2⁻¹⁴ of that: far less)."""
+        p, na, Ta, W = x.shape
+        nb, T = self.nb, TILE
+        A = _per_variant(self.chunks_a(), na)
+        B = _per_variant(self.chunks_b(), nb)
+        pad = x.new_zeros(p, na, nb, T, _PX_KP - T - _SLOTS).float()
+        xt = x.float().reshape(p, na, Ta, nb, T).permute(0, 1, 3, 4, 2)
+        nat = NA_t.reshape(p, na, _SLOTS, nb, T).permute(0, 1, 3, 4, 2)
+        z, bz = tc_exact(A.unbind(1), torch.cat([xt, nat, pad], dim=-1),
+                         lambda m, v: torch.einsum("ask,pabwk->pabsw", m, v),
+                         order=PX_ORDER_A)
+        z32 = z.float()
+        nbt = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 2, 4, 3)
+        y, by = tc_exact(B.unbind(1), torch.cat([z32, nbt, pad], dim=-1),
+                         lambda m, v: torch.einsum("bok,pabsk->pabso", m, v),
+                         drop)
+        dz = bz + (z - z32.double()).abs()
+        Bd = B[..., :T].double()
+        ein = lambda m, v: torch.einsum("bow,pabsw->pabso", m, v)
+        bound = ((1 + 2.0 ** -8) * (by + ein(Bd.abs().sum(1), dz))
+                 + ein(2.0 ** -15 * Bd[:, 1].abs() + 2.0 ** -8
+                       * Bd[:, 2].abs(), 2 * (z32.double().abs() + dz)))
+        out = lambda a: a.permute(0, 1, 3, 2, 4).reshape(p, na, Ta, W)
+        return out(y), out(bound)
+
     def _kernel(self, x, NA_t, NB_t, *aux):
         p, na, nb = x.shape[0], self.na, self.nb
         W = nb * TILE
         _check(x, "x", (p, na, TILE, W), x.device)
         _check(NA_t, "NA_t", (p, na, _SLOTS, W), x.device)
         _check(NB_t, "NB_t", (p, na, nb * _SLOTS, TILE), x.device)
-        for name in ("A1_v", "B2_v"):
+        for name in ("Af_k", "Bc_k"):
             t = getattr(self, name)
-            _check(t, name, t.shape, x.device)
+            _check(t, name, t.shape, x.device, torch.bfloat16)
         _grid_ok(p, na, W)
         y = torch.empty_like(x)
         ops = (x.data_ptr(), NA_t.data_ptr(), NB_t.data_ptr(),
-               self.A1_v.data_ptr(), self.B2_v.data_ptr())
-        dims = (p, na, nb, self.A1_v.shape[0], self.B2_v.shape[0])
+               self.Af_k.data_ptr(), self.Bc_k.data_ptr())
+        dims = (p, na, nb, self.Af_k.shape[0], self.Bc_k.shape[0])
         if self.affine is None:
             _launch("final2d", (*ops, y.data_ptr(), *dims), x.device)
             return y
@@ -367,23 +602,12 @@ class Final2DSplit(nn.Module):
     def dim_a(self, x, NA_t):
         """The twin's dim-A completion Z (p, na, T, W), float32:
         ``Z[p,a,s,w] = Σ_(i,j) Σ_k A_i[a][s][k]·[x; NA]_j[p,a,k,w]``."""
-        A = self._tiles()[0]
-        return split.pair_sum(self.nprod, lambda i, d: torch.einsum(
-            "ask,pakw->pasw", A[:, i], d), torch.cat([x.float(), NA_t],
-                                                    dim=2), TILE, dim=2)
+        return _split_z(self._tiles()[0], x, NA_t, self.nprod)
 
     def plain(self, x, NA_t, NB_t, *aux):
         _bf16_grade(x, self.nprod)
-        p, na, Ta, W = x.shape
-        nb, T = self.nb, TILE
-        B = self._tiles()[1]
-        # Y from [Z; NBᵀ], Z re-split
-        zr = self.dim_a(x, NA_t).reshape(p, na, Ta, nb, T)
-        nbr = NB_t.reshape(p, na, nb, _SLOTS, Ta).permute(0, 1, 4, 2, 3)
-        ins = torch.cat([zr, nbr], dim=-1)                # (p,a,s,b,T+8)
-        y = split.pair_sum(self.nprod, lambda i, d: torch.einsum(
-            "bok,pasbk->pasbo", B[:, i], d), ins, TILE)
-        return self._epi(y.reshape(p, na, Ta, W), aux).to(x.dtype)
+        y = _split_dual(*self._tiles(), x, NA_t, NB_t, self.nprod)
+        return self._epi(y, aux).to(x.dtype)
 
     def resplit_bound(self, x, NA_t) -> torch.Tensor:
         """Per output (the shape of Y), how far one product's kernel and
@@ -630,6 +854,26 @@ class Moments2DK(nn.Module):
         bA = torch.einsum("aks,pasw->pakw", self.Gan, xd)
         U = torch.einsum("bkt,pasbt->pabsk", self.Gbn,
                          xd.reshape(p, na, Ta, self.nb, TILE))
+        return bA.float(), U.float()
+
+    def ordered(self, x):
+        """``moments2d_k``'s outputs bit for bit: its sums in float64 on
+        the CPU in the kernel's order (bA down each column, s ascending; U
+        along each row, t ascending; float32 products, so every product
+        is exact and each step one rounding of the sum)."""
+        p, na, nb, Ta = x.shape[0], self.na, self.nb, self.Ta
+        xd = x.detach().cpu().double()
+        Ga = self.Ga_v.cpu().double()[
+            [_variant(self.Ga_v.shape[0], a, na) for a in range(na)]]
+        Gb = self.Gb_v.cpu().double()[
+            [_variant(self.Gb_v.shape[0], b, nb) for b in range(nb)]]
+        bA = torch.zeros(p, na, self.Ka, nb * TILE, dtype=torch.float64)
+        for s in range(Ta):
+            bA = bA + Ga[None, :, :, s, None] * xd[:, :, s, None, :]
+        xr = xd.reshape(p, na, Ta, nb, TILE).permute(0, 1, 3, 2, 4)
+        U = torch.zeros(p, na, nb, Ta, self.Kb, dtype=torch.float64)
+        for t in range(TILE):
+            U = U + xr[..., t, None] * Gb[None, None, :, None, :, t]
         return bA.float(), U.float()
 
     def _kernel(self, x):

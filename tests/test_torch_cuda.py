@@ -1596,8 +1596,156 @@ def test_moments2d_naf_matches_twin(kind, p, na, nb, dev):
     assert tl.LAUNCHES == _only(moments2d_naf=1)
     want = naf.plain(x)
     assert _rel(NA_t, want[0]) <= 1e-5 and _rel(term1, want[1]) <= 1e-5
-    assert torch.equal(term1, raw(x)[1])
+    # the raw kernel sums the same fp64 products in another order (four
+    # partial sums a contraction), each rounded once to fp32 (the bits of
+    # both outputs: test_moments2d_naf_keeps_its_bits)
+    t1 = raw(x)[1].double()
+    assert bool(((term1.double() - t1).abs() <= 2.0 ** -23 * t1.abs()
+                 + 1e-12 * t1.abs().max()).all())
     assert not NA_t[:, :, 6:].any()  # Ka = 6
+
+
+def _bits_equal(got, want):
+    """Bit for bit, else how many outputs differ and by how much."""
+    got = got.cpu()
+    same = torch.equal(got, want)
+    assert same, (f"{int((got != want).sum())} of {want.numel()} outputs "
+                  f"differ, the most by {(got - want).abs().max():.3e}")
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("p,na,nb", [(P, NA, NB), (1, 20, 2)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_moments2d_naf_keeps_its_bits(kind, p, na, nb, bf16, dev):
+    """moments2d_naf and moments2d_naf_bf16 (one tile a block at na = 3,
+    uneven shares at 20) return bit for bit their sums in their own order
+    (``Moments2D.naf_ordered``: float64 on the CPU, the card's fp64 FMA
+    emulated where a product is inexact)."""
+    ma, _, Ga_cat, Gb_cat, _, (CMa, _) = _carry_mats(kind, na, nb)
+    naf = tk2d.Moments2D(Ga_cat, Gb_cat, ma.Btot, na, nb, solve=CMa).to(dev)
+    x = torch.from_numpy(np.random.default_rng(na + 1).standard_normal(
+        (p, na, T, nb * T)).astype(np.float32)).to(dev)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    tl.reset_launches()
+    got = naf(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(**{"moments2d_naf_bf16" if bf16
+                                   else "moments2d_naf": 1})
+    for g, w in zip(got, naf.naf_ordered(x)):
+        _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("Ta", [32, 128])
+@pytest.mark.parametrize("K", [6, 12])
+@pytest.mark.parametrize("kind", ["uniform", "clamp"])
+def test_moments2d_k_keeps_its_bits(Ta, K, kind, dev):
+    """moments2d_k returns bit for bit its sums in its own order
+    (``Moments2DK.ordered``: float64 on the CPU, exact products)."""
+    w3 = rft.gaussian_weights(5.0, 3)
+    reps = K // 6
+    a = [Scan(0, c, w3[0], tuple(w3[1:])) for _ in range(reps)
+         for c in (True, False)]
+    b = [Scan(1, c, 0.9, (0.6, 0.25, -0.1)) for _ in range(reps)
+         for c in (True, False)]
+    p, na, nb = 2, 3, 4
+    ma = tdf.prepare_dim_pass(a, Ta, na, kind == "clamp")
+    mb = tdf.prepare_dim_pass(b, 128, nb, kind == "clamp")
+    cat = lambda ms: np.concatenate([np.asarray(m) for m in ms], axis=1)
+    mom = tk2d.Moments2DK(cat(ma.G), cat(mb.G), na, nb).to(dev)
+    x = torch.from_numpy(np.random.default_rng(Ta + K).standard_normal(
+        (p, na, Ta, nb * 128)).astype(np.float32)).to(dev)
+    tl.reset_launches()
+    got = mom(x)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(moments2d_k=1)
+    for g, w in zip(got, mom.ordered(x)):
+        _bits_equal(g, w)
+
+
+# ------------- the 2-D executor's kernels on their persistent walks (PR 23)
+# (p, na, nb): one tile, grids below the card's 132 SMs, a ragged one past
+# them (154 tiles: 22 blocks take a second tile) and one of 2.2 waves
+PX_GRIDS = [(1, 1, 1), (1, 3, 5), (2, 7, 11), (1, 17, 17)]
+
+
+def _px_mats(kind, na, nb):
+    ma, mb, Ga_cat, Gb_cat, Ra_cat, _ = _carry_mats(kind, na, nb)
+    Rb_cat = np.concatenate([np.asarray(r) for r in mb.Rhat], axis=2)
+    return ma.Btot, Ra_cat, mb.Btot, Rb_cat, Ga_cat, Gb_cat
+
+
+def _px_inputs(p, na, nb, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev) for s in ((p, na, T, nb * T), (p, na, 8, nb * T),
+                               (p, na, nb * 8, T))]
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("p,na,nb", PX_GRIDS)
+@pytest.mark.parametrize("i", [None, 0, 1, 2, 3, 4])
+def test_final2d_px6_within_its_products_bound(kind, p, na, nb, i, dev):
+    """final2d (i None) and final2d_epi (k = i aux arrays) on the tensor
+    cores, one launch: within 1e-5 of the float32 twin's peak, and per
+    output within ``split_exact``'s bound of the exact sum of its six
+    products (the epilogue: |a| times the bound plus four fp32 roundings
+    of its terms); a sum with the level-2 pair (0, 2) left out lies
+    outside that bound somewhere."""
+    Ba, Ra, Bb, Rb, _, _ = _px_mats(kind, na, nb)
+    aff = None if i is None else _affine(i)
+    fin = tk2d.Final2D(Ba, Ra, Bb, Rb, na, nb, affine=aff).to(dev)
+    x, NA_t, NB_t = _px_inputs(p, na, nb, dev, 100 + na + (i or 0))
+    aux = [] if aff is None else _aux(x.shape, aff.k, dev, 7 + na)
+    tl.reset_launches()
+    y = fin(x, NA_t, NB_t, *aux)
+    torch.cuda.synchronize()
+    assert tl.LAUNCHES == _only(**{"final2d" if aff is None
+                                   else "final2d_epi": 1})
+    assert _rel(y, fin.plain(x, NA_t, NB_t, *aux)) <= 1e-5
+    ref, bound = fin.split_exact(x, NA_t, NB_t)
+    if aff is None:
+        assert _within(y, ref, bound)
+        ref2, bound2 = fin.split_exact(x, NA_t, NB_t, drop=(0, 2))
+        assert not _within(y, ref2, bound2)
+        return
+    a, b, c = AFFINES[i]
+    want = a * ref + c
+    mag = abs(a) * ref.abs() + abs(c)
+    for bk, u in zip(b, aux):
+        want = want + bk * u.double()
+        mag = mag + abs(bk) * u.double().abs()
+    assert _within(y, want, abs(a) * bound + 2.0 ** -22 * mag)
+
+
+@pytest.mark.parametrize("kind", list(STACKS))
+@pytest.mark.parametrize("p,na,nb", PX_GRIDS)
+@pytest.mark.parametrize("h8", [0, 16])
+def test_moments2d_ring_matches_twin(kind, p, na, nb, h8, dev):
+    """moments2d (the persistent ring) and moments2d_bf16, with and
+    without 16 edge rows, on grids below and past the card's SMs: within
+    1e-5 of the twin's peak (zero where the twin is: the pad projector of
+    a one-tile stack zeroes edge rows), the pad slots zero, bf16 the
+    float32 entry's outputs on the same values bit for bit, one launch
+    each."""
+    Ba, _, _, _, Ga_cat, Gb_cat = _px_mats(kind, na, nb)
+    mom = tk2d.Moments2D(Ga_cat, Gb_cat, Ba, na, nb,
+                         edge=(Ba, h8) if h8 else None).to(dev)
+    x = _px_inputs(p, na, nb, dev, 200 + nb)[0]
+    for xx, entry in ((x, "moments2d"), (x.to(torch.bfloat16),
+                                          "moments2d_bf16")):
+        tl.reset_launches()
+        got = mom(xx)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES == _only(**{entry: 1})
+        assert len(got) == (4 if h8 else 2)
+        for g, w in zip(got, mom.plain(xx)):  # an edge row may be all zero
+            assert bool(((g - w).abs().max() <= 1e-5 * w.abs().max()).item())
+        assert not got[0][:, :, 6:].any()  # Ka = 6
+        assert not got[1].reshape(p, na, nb, 8, T)[:, :, :, 5:].any()
+    for g, f in zip(mom(x.to(torch.bfloat16)),
+                    mom(x.to(torch.bfloat16).float())):
+        assert torch.equal(g, f)
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 4096 * 4096, 3 * 5 * 129])

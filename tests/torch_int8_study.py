@@ -8,7 +8,8 @@ A  The dual completion at 4096² (``scripts/int8_ozaki_exp.py``: x (1, 32,
    128, 4096)·0.7 from seed 0, Ba = Bb the σ=5 Gaussian pair's Btot):
    ``ozaki_i8`` (int8 Ozaki slicing, ten int8 products on ``mma.sync``
    m16n8k32), ``dual_px6`` (six split-bf16 products, m16n8k16) and the
-   port's fp32-FMA ``final2d`` with zero carries (what px6 runs today).
+   port's ``final2d`` with zero carries (what px6 runs: six split-bf16
+   products on ``wgmma``, its twin the float32 product).
 B  The GEMM pair at 4096³ (``scripts/int8_rate_probe.py``): ``gemm_i8``
    (int8 → int32 sums, ``>> 13`` to int8) and ``gemm_bf16`` (bf16 → fp32
    sums, stored bf16) on one tiling; beside them ``torch._int_mm`` (int32
@@ -137,9 +138,9 @@ def main() -> int:
             "dual_px6": (probes["dual_px6"][0], probes["dual_px6"][1], (x,),
                          probes["dual_px6"][4], probes["dual_px6"][5],
                          cs.PEAK_BF16),
-            "final2d (fp32 FMA, zero carries)": (
+            "final2d (wgmma, zero carries)": (
                 fin, fin.plain, (x, NA, NB), cs.tensor_bytes(x, x),
-                2.0 * 2 * 128 * pix, cs.PEAK_FP32),
+                2.0 * 2 * 6 * 144 * pix, cs.PEAK_BF16),
         }
         res = {}
         for label, (fn, plain, a, nbytes, ops, rate) in dual.items():
@@ -148,7 +149,9 @@ def main() -> int:
             kt = cs.rel_err(got, want)
             e64 = cs.rel_err(got, y64)
             print(f"  {label}: max|k-twin|/max|twin| = {kt:.3e}", flush=True)
-            if kt > 1e-6:
+            # the split-bf16 kernels sum their products in another order
+            # than their float32 twins: 1e-5, chip_smoke.py's bound
+            if kt > (1e-5 if label.startswith("final2d") else 1e-6):
                 raise RuntimeError(f"{label}: kernel off its twin ({kt:.3e})")
             res[label] = (e64, *measure(rows, label, fn, a, nbytes, ops,
                                         rate, f"{e64:.3e}", card))
@@ -212,7 +215,7 @@ def main() -> int:
     print("== verdicts", flush=True)
     e8, t8, d8 = res["ozaki_i8"]
     e6, t6, d6 = res["dual_px6"]
-    ef, tf, df = res["final2d (fp32 FMA, zero carries)"]
+    ef, tf, df = res["final2d (wgmma, zero carries)"]
     best = min(res, key=lambda k: res[k][1])
     print(f"  Ozaki at 4096²: ozaki_i8 {t8:.4f} ms (error {e8:.3e}), "
           f"dual_px6 {t6:.4f} ms ({e6:.3e}), final2d {tf:.4f} ms "
